@@ -3,7 +3,8 @@
 Port of `quantized_channel_estimation_tpu/harness/stages.py`, single-device
 subset: `generate_channels`, `pilot_matrix`, `sample_cov`, `observe`,
 `blmmse_global`, `blmmse_genie`, `ls_global`, `gmm_fit`, `prepare_bank`,
-`nmse`, `rate`, `rate_mf`, `estimate_auto`. The JAX stages wrap every
+`nmse`, `rate`, `rate_mf`, `estimate_auto`, `estimate_coherent`,
+`estimate_coherent_auto`, `flatten_coherence`. The JAX stages wrap every
 function in `cjit` so that complex data crosses program boundaries as
 packed (re, im) reals, because the TPU runtime has no complex buffers;
 PyTorch on CUDA has complex64 tensors, so here the stages are the plain
@@ -68,16 +69,34 @@ blmmse_genie = blmmse.estimate_genie
 ls_global = ls.estimate_global
 gmm_fit = gmm.fit
 prepare_bank = gmm_estimator.prepare_bank
+estimate_coherent = gmm_estimator.estimate_coherent
+# block-major snapshot order: (B, T, N) -> (B*T, N), Toeplitz rows repeated
+flatten_coherence = scm.flatten_coherence
 
 
 def estimate_auto(bank: gmm_estimator.PreparedBank, r: torch.Tensor, mode):
-    """'all' mode -> the estimation kernel K1 (`kernels.estimate_fused`:
-    the CUDA kernel for a CUDA tensor, its plain version for a CPU tensor);
-    selection modes -> the einsum estimator. The top-k kernel K4 that the
-    JAX package uses for int modes is not ported yet (ROADMAP Queue 2)."""
+    """'all' mode -> the estimation kernel K1 (`kernels.estimate_fused`);
+    int selection modes within `kernels.topk_kernel_eligible` -> the top-k
+    kernel K4 (`kernels.estimate_fused_topk`); anything else (float
+    cumulative-p modes, k >= K, banks wider than the kernels) -> the einsum
+    estimator. Each kernel entry launches the CUDA kernel for a CUDA tensor
+    and computes its plain version for a CPU tensor."""
     if mode == "all":
         return kernels.estimate_fused(bank, r)
+    if kernels.topk_kernel_eligible(bank, mode):
+        return kernels.estimate_fused_topk(bank, r, mode)
     return gmm_estimator.estimate(bank, r, mode)
+
+
+def estimate_coherent_auto(bank: gmm_estimator.PreparedBank, r: torch.Tensor,
+                           mode, alpha: float = 1.0):
+    """Coherent analog of `estimate_auto` for blocks r (B, T, M): 'all'
+    mode -> `kernels.estimate_fused_coherent` (K3, the alpha blend in the
+    kernel; T beyond its range takes the einsum path there), other modes ->
+    the einsum coherent estimator."""
+    if mode == "all":
+        return kernels.estimate_fused_coherent(bank, r, alpha)
+    return estimate_coherent(bank, r, mode, 512, alpha)
 
 
 def nmse(h_est: torch.Tensor, h: torch.Tensor) -> float:

@@ -3,10 +3,12 @@ weighting.
 
 Port of `quantized_channel_estimation_tpu/models/gmm_estimator.py`
 (`PreparedBank`, `prepare_bank`, `responsibilities`, `_selection_weights`,
-`estimate` in 'all' / int / float modes, `estimate_stats`). `prepare_bank`
-builds an immutable per-SNR bank of observation-domain filters; `estimate`
-is the plain einsum estimator, and the reference the 'all'-mode kernel
-(`estimators.kernels`) is held against.
+`estimate` in 'all' / int / float modes, `estimate_stats`, and for
+coherence blocks `estimate_coherent`, `select_coherence_alpha`,
+`estimate_coherent_stats`). `prepare_bank` builds an immutable per-SNR bank
+of observation-domain filters; `estimate` and `estimate_coherent` are the
+plain einsum estimators, and the references the kernels
+(`estimators.kernels`) are held against.
 """
 from __future__ import annotations
 
@@ -144,8 +146,7 @@ def estimate_stats(bank: PreparedBank, r: torch.Tensor,
     ms, dens, accs = [], [], []
     for i0 in range(0, r.shape[0], chunk_size):
         rc = r[i0:i0 + chunk_size]
-        y = torch.matmul(rc[None], pc)                               # (K,n,M)
-        quad = ((y - mu[:, None, :]).abs() ** 2).sum(-1).T           # (n, K)
+        quad = _kernel_quad(bank, rc, pc, mu)
         logits = (logw[None, :] - quad).to(torch.float32)
         mx = logits.max(-1).values
         p = torch.exp(logits - mx[:, None])
@@ -154,3 +155,129 @@ def estimate_stats(bank: PreparedBank, r: torch.Tensor,
         dens.append(p.sum(-1))
         accs.append(torch.einsum("nk,nkd->nd", p.to(z.dtype), z))
     return torch.cat(ms), torch.cat(dens), torch.cat(accs)
+
+
+def _kernel_quad(bank: PreparedBank, r: torch.Tensor, pc: torch.Tensor,
+                 mu: torch.Tensor) -> torch.Tensor:
+    """|r conj(P_k) - mu~_k|^2 for r (n, M) -> (n, K), with pc = conj(P)
+    and mu~ = means_r conj(P) (the kernel's quadratic term)."""
+    y = torch.matmul(r[None], pc)                                    # (K,n,M)
+    return ((y - mu[:, None, :]).abs() ** 2).sum(-1).T
+
+
+# ---------------------------------------------------------------------------
+# coherence blocks
+# ---------------------------------------------------------------------------
+
+def _estimate_coherent_chunk(bank: PreparedBank, r: torch.Tensor, mode,
+                             alpha: float = 1.0) -> torch.Tensor:
+    """One chunk of coherence blocks r (B, T, M) -> (B, T, D). Snapshots of
+    a block are independent given the component, so the per-snapshot
+    log-likelihoods sum over T (the log-weight enters once per block);
+    alpha < 1 is the leave-one-out blend, each snapshot keeping its own
+    likelihood plus alpha times the others' (alpha = 0 is the independent
+    per-snapshot posterior)."""
+    b, t, m = r.shape
+    rf = r.reshape(b * t, m)
+    lp3 = log_prob_full(rf, bank.means_r, bank.prec_chol_r).reshape(b, t, -1)
+    lp_sum = lp3.sum(1)
+    k, d, _ = bank.filters.shape
+    z = _component_estimates(bank, rf).reshape(b, t, k, d)
+    if alpha >= 1.0:
+        proba = torch.softmax(lp_sum + bank.log_weights[None, :], dim=-1)
+        w = _selection_weights(proba, mode).to(r.dtype)
+        return torch.einsum("bk,btkd->btd", w, z)
+    lg = lp3 + alpha * (lp_sum[:, None, :] - lp3) \
+        + bank.log_weights[None, None, :]
+    w = _selection_weights(torch.softmax(lg, dim=-1), mode).to(r.dtype)
+    return torch.einsum("btk,btkd->btd", w, z)
+
+
+def estimate_coherent(bank: PreparedBank, r: torch.Tensor,
+                      mode: Union[str, int, float] = "all",
+                      chunk_size: int = 512,
+                      alpha: float = 1.0) -> torch.Tensor:
+    """Joint estimation of coherence blocks r (B, T, M) -> (B, T, D): every
+    snapshot of a block is combined with the block posterior (the
+    per-snapshot log-likelihoods summed over T before the softmax), or with
+    the alpha blend toward the per-snapshot posterior. Equals `estimate`
+    at T = 1 or alpha = 0. Chunked over blocks."""
+    if r.dim() != 3:
+        raise ValueError(f"estimate_coherent expects (B, T, M) blocks, got "
+                         f"shape {tuple(r.shape)}; use `estimate` for flat "
+                         "samples")
+    pin_fp32()
+    out = [_estimate_coherent_chunk(bank, r[i0:i0 + chunk_size], mode, alpha)
+           for i0 in range(0, r.shape[0], chunk_size)]
+    if not out:
+        return r.new_zeros(r.shape[:2] + (bank.filters.shape[1],))
+    return torch.cat(out)
+
+
+DEFAULT_ALPHA_GRID = (0.0, 0.1, 0.25, 0.5, 1.0)
+
+
+def select_coherence_alpha(est_fn, r_val, h_val, grid=DEFAULT_ALPHA_GRID):
+    """Pick the evidence-blend alpha by validation NMSE: est_fn(r_blocks,
+    alpha) -> (B, T, D) estimates of the held-out observations r_val
+    (B, T, M) whose true channels are h_val (B, T, D). Real held-out blocks
+    are needed: under the fitted mixture itself alpha = 1 is optimal by
+    construction, so model-drawn blocks cannot reveal mismatch. Returns
+    (best_alpha, {alpha: nmse}), NMSE as sum |e|^2 / h.size."""
+    scores = {}
+    for alpha in grid:
+        h_hat = est_fn(r_val, float(alpha))
+        h_ref = torch.as_tensor(h_val).to(h_hat.device, h_hat.dtype)
+        scores[float(alpha)] = float(
+            ((h_hat - h_ref).abs() ** 2).sum()) / math.prod(h_ref.shape)
+    best = min(scores, key=scores.get)
+    return best, scores
+
+
+def _coherent_stats_chunk(bank: PreparedBank, r: torch.Tensor,
+                          alpha: float = 1.0):
+    """Un-normalized block online-softmax state of one chunk of blocks
+    r (B, T, M), in `estimate_stats`' logit convention: the log-det term
+    counts once per snapshot, the mixture log-weight (dead ones clamped to
+    -1e30) once per block. alpha >= 1 gives block states m, den (B,);
+    alpha < 1 the per-snapshot states m, den (B, T) of the leave-one-out
+    blend. acc (B, T, D); acc / den is `estimate_coherent(..., 'all')`."""
+    b, t, m = r.shape
+    rf = r.reshape(b * t, m)
+    pc = bank.prec_chol_r.conj()
+    mu = torch.matmul(bank.means_r[:, None, :], pc)[:, 0]
+    quad3 = _kernel_quad(bank, rf, pc, mu).reshape(b, t, -1)
+    diag = torch.diagonal(bank.prec_chol_r, dim1=-2, dim2=-1).real
+    logdet = 2.0 * torch.log(diag).sum(-1)                           # (K,)
+    k, d, _ = bank.filters.shape
+    z = _component_estimates(bank, rf).reshape(b, t, k, d)
+    lw = torch.clamp(bank.log_weights, min=-1e30)
+    if alpha >= 1.0:
+        logits = (lw[None, :] + t * logdet[None, :]
+                  - quad3.sum(1)).to(torch.float32)
+        mx = logits.max(-1).values                                   # (B,)
+        p = torch.exp(logits - mx[:, None])
+        acc = torch.einsum("bk,btkd->btd", p.to(z.dtype), z)
+        return mx, p.sum(-1), acc
+    lp3 = logdet[None, None, :] - quad3
+    logits = (lw[None, None, :] + lp3
+              + alpha * (lp3.sum(1)[:, None, :] - lp3)).to(torch.float32)
+    mx = logits.max(-1).values                                       # (B, T)
+    p = torch.exp(logits - mx[..., None])
+    acc = torch.einsum("btk,btkd->btd", p.to(z.dtype), z)
+    return mx, p.sum(-1), acc
+
+
+def estimate_coherent_stats(bank: PreparedBank, r: torch.Tensor,
+                            chunk_size: int = 512, alpha: float = 1.0):
+    """'all'-mode block estimation state (m, den, acc) of a (shard of a)
+    bank over coherence blocks r (B, T, M), chunked over blocks: m, den
+    (B,) at alpha >= 1 and (B, T) below, acc (B, T, D). States of disjoint
+    component shards merge exactly as `estimate_stats` states do."""
+    if r.dim() != 3:
+        raise ValueError(f"estimate_coherent_stats expects (B, T, M) blocks,"
+                         f" got shape {tuple(r.shape)}")
+    pin_fp32()
+    parts = [_coherent_stats_chunk(bank, r[i0:i0 + chunk_size], alpha)
+             for i0 in range(0, r.shape[0], chunk_size)]
+    return tuple(torch.cat(x) for x in zip(*parts))

@@ -2,7 +2,7 @@
 
 Port of `quantized_channel_estimation_tpu/ops/scm.py` (`ScmConfig`,
 `_laplace_mixture`, `angular_psd`, `sample_psd`, `channel_from_psd`,
-`generate_channels`). ULA channels are white noise colored by the square
+`generate_channels`, `flatten_coherence`). ULA channels are white noise colored by the square
 root of an angular power spectral density (wrapped Laplace mixture through
 the ULA arcsine map), sampled on a 100x oversampled frequency lattice and
 IFFT-truncated to the array. Returns the channels and the first row of each
@@ -107,3 +107,18 @@ def generate_channels(gen: torch.Generator, n_batches: int, cfg: ScmConfig,
     if cfg.n_coherence == 1:
         h = h[..., 0, :]
     return h, t
+
+
+def flatten_coherence(h: torch.Tensor, t: torch.Tensor = None):
+    """Coherence blocks (B, T, N) -> snapshots (B*T, N), block-major (the T
+    snapshots of a block are consecutive rows). With `t`, the per-block
+    Toeplitz rows (B, N) are repeated for each snapshot of their block and
+    (h_flat, t_flat) is returned. Single-snapshot (B, N) input passes
+    through unchanged."""
+    if h.dim() == 2:
+        return (h, t) if t is not None else h
+    b, n_coh, n = h.shape
+    h_flat = h.reshape(b * n_coh, n)
+    if t is None:
+        return h_flat
+    return h_flat, t.repeat_interleave(n_coh, dim=0)

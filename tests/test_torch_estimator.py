@@ -171,7 +171,7 @@ def test_wrapper_on_cpu_is_the_plain_version(rng):
     got = tkn.grouped_estimate(r2, kb)
     assert torch.equal(got, tkn.grouped_estimate_reference(r2, kb))
     assert tkn.grouped_estimate.launches == before   # no kernel launched
-    assert tkn.launch_counts() == {"grouped_estimate": before}
+    assert tkn.launch_counts()["grouped_estimate"] == before
 
 
 def test_estimate_fused_matches_einsum_estimator(rng):
@@ -186,5 +186,10 @@ def test_estimate_fused_matches_einsum_estimator(rng):
     assert float(err) < 1e-4
     np.testing.assert_allclose(_np(tst.estimate_auto(bt32, r, "all")),
                                _np(got))
-    np.testing.assert_allclose(_np(tst.estimate_auto(bt32, r, 2)),
-                               _np(tge.estimate(bt32, r, 2)))
+    # int modes within the top-k rule go through K4's plain version
+    want2 = tge.estimate(bt32, r, 2)
+    err2 = (tst.estimate_auto(bt32, r, 2) - want2).abs().max() \
+        / want2.abs().max()
+    assert float(err2) < 1e-4
+    np.testing.assert_allclose(_np(tst.estimate_auto(bt32, r, 0.9)),
+                               _np(tge.estimate(bt32, r, 0.9)))

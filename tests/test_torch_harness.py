@@ -105,7 +105,7 @@ def test_run_gmm_fits_and_caches_on_its_own(tmp_path):
 
 @pytest.mark.parametrize("change,item", [
     (dict(channel_model="mimo"), "item 14"),
-    (dict(n_coherence=4), "item 9"),
+    (dict(cov_type="diag"), "item 8"),
     (dict(n_data_shards=2), "item 15"),
     (dict(gmm_fit_segments=2), "item 8"),
     (dict(cov_type="circulant"), "item 11"),

@@ -1,0 +1,475 @@
+"""The port's estimation service against the JAX direct estimators.
+
+The single-device cases of `tests/test_serving.py`, on the CPU: the port's
+`EstimationService` (device='cpu', so its kernel dispatch reaches the plain
+versions of K1, K3 and K4) serves the JAX fit, carried over with
+`gmm.params_from_numpy`, and each answer is held against the JAX direct
+estimator on the same observations at atol 1e-4, as the JAX tests hold
+the JAX service (complex64 estimates, float32 sums in another order).
+Every submit has a timeout of at most 30 s and every close a timeout, so a
+hang fails one test.
+"""
+import sys
+import threading
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quantized_channel_estimation_tpu.models import gmm as jg
+from quantized_channel_estimation_tpu.models import gmm_estimator as jge
+from quantized_channel_estimation_tpu.ops import observation as jobs
+from quantized_channel_estimation_tpu.ops import pilots as jp
+from quantized_channel_estimation_tpu.ops import quantizer as jq
+from quantized_channel_estimation_tpu.ops import scm as jscm
+from quantized_channel_estimation_torch import serving
+from quantized_channel_estimation_torch.estimators import kernels as tkn
+from quantized_channel_estimation_torch.models import gmm as tg
+
+torch.set_num_threads(2)
+
+N_ANT = 16
+TIMEOUT = 30.0
+
+
+@pytest.fixture(scope="module")
+def setup():
+    h, _ = jscm.generate_channels(jax.random.PRNGKey(60), 6000,
+                                  jscm.ScmConfig(N_ANT, 1))
+    fit = jg.fit(jax.random.PRNGKey(61), h[:5000],
+                 jg.GmmConfig(n_components=4, max_iter=10, chunk_size=2048))
+    a = jp.pilot_matrix(N_ANT, 1, 2)
+    params = tg.params_from_numpy([np.asarray(x) for x in fit.params])
+    return fit.params, params, a, h[5000:]
+
+
+def _service(setup, **kw):
+    _, params, a, _ = setup
+    kw.setdefault("max_delay_ms", 1.0)
+    return serving.EstimationService(params, np.asarray(a), 2, device="cpu",
+                                     **kw)
+
+
+def _observe(setup, n, snr, key, t=None):
+    _, _, a, h_val = setup
+    h = h_val[:n * (t or 1)]
+    if t:
+        h = h.reshape(n, t, N_ANT)
+    return np.asarray(jobs.observe(jax.random.PRNGKey(key), h, snr, a, 2,
+                                   jq.design_quantizer(snr, 2)))
+
+
+def _direct(setup, snr, r, mode="all", alpha=None):
+    """The JAX direct estimator: einsum `estimate`, or `estimate_coherent`
+    for blocks."""
+    jparams, _, a, _ = setup
+    bank = jge.prepare_bank(jparams, snr, a, 2, jq.design_quantizer(snr, 2))
+    if r.ndim == 3:
+        return np.asarray(jge.estimate_coherent(bank, jnp.asarray(r), mode,
+                                                512, 1.0 if alpha is None
+                                                else alpha))
+    return np.asarray(jge.estimate(bank, jnp.asarray(r), mode))
+
+
+def test_single_request_matches_direct(setup):
+    r = _observe(setup, 100, 5.0, 62)
+    svc = _service(setup)
+    try:
+        before = tkn.launch_counts()
+        got = svc.submit(r, 5.0, timeout=TIMEOUT)
+        np.testing.assert_allclose(got, _direct(setup, 5.0, r), atol=1e-4)
+        assert got.shape == (100, N_ANT) and got.dtype == np.complex64
+        assert svc.use_kernels and tkn.launch_counts() == before   # CPU
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+def test_bank_cache_lru_bounded(setup):
+    r = _observe(setup, 8, 5.0, 65)
+    svc = _service(setup, max_delay_ms=0.5, max_banks=3, snr_step_db=0.1)
+    try:
+        for snr in (0.0, 2.0, 4.0, 6.0, 8.0, 10.0):
+            svc.submit(r, snr, timeout=TIMEOUT)
+        assert len(svc._banks) == 3
+        assert 10.0 in svc._banks and 0.0 not in svc._banks
+        keys_before = set(svc._banks)
+        svc.submit(r, 6.03, timeout=TIMEOUT)   # both snap to the 6.0 bank
+        svc.submit(r, 5.97, timeout=TIMEOUT)
+        assert set(svc._banks) == keys_before
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+def test_bank_lowered_once_per_layout(setup):
+    """The kernel layout of a cached bank is built once per (T, alpha) and
+    reused by later microbatches."""
+    r = _observe(setup, 32, 5.0, 66)
+    svc = _service(setup)
+    try:
+        svc.submit(r, 5.0, timeout=TIMEOUT)
+        svc.submit(r.reshape(8, 4, N_ANT), 5.0, timeout=TIMEOUT)
+        entry = svc._banks[5.0]
+        assert set(entry.lowered) == {(1, 1.0), (4, 1.0)}
+        kb = entry.lowered[(1, 1.0)]
+        svc.submit(r, 5.0, timeout=TIMEOUT)
+        assert svc._banks[5.0].lowered[(1, 1.0)] is kb
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+def test_queue_backpressure_sheds_load(setup):
+    r = _observe(setup, 64, 5.0, 66)
+    svc = _service(setup, max_delay_ms=10_000.0, max_batch=1 << 20,
+                   max_queue=100)
+    try:
+        results = []
+        th = threading.Thread(
+            target=lambda: results.append(svc.submit(r, 5.0,
+                                                     timeout=TIMEOUT)))
+        th.start()
+        time.sleep(0.05)   # the first 64 snapshots are queued
+        with pytest.raises(serving.ServiceOverloadedError):
+            svc.submit(r, 5.0, timeout=TIMEOUT)
+        svc.max_delay = 0.001   # let the queued request complete
+        th.join(timeout=TIMEOUT)
+        assert not th.is_alive() and results[0].shape == (64, N_ANT)
+        time.sleep(0.05)
+        assert svc.submit(r, 5.0, timeout=TIMEOUT).shape == (64, N_ANT)
+        assert svc.metrics()["requests_shed"] == 1
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+def test_concurrent_requests_coalesce(setup):
+    r = _observe(setup, 320, 10.0, 63)
+    svc = _service(setup, max_delay_ms=20.0)
+    results = {}
+
+    def worker(i):
+        results[i] = svc.submit(r[i * 32:(i + 1) * 32], 10.0,
+                                timeout=TIMEOUT)
+
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(10)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(TIMEOUT)
+            assert not t.is_alive()
+        want = _direct(setup, 10.0, r)
+        for i in range(10):
+            np.testing.assert_allclose(results[i], want[i * 32:(i + 1) * 32],
+                                       atol=1e-4)
+        assert svc.metrics()["microbatches"] < 10   # requests were merged
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+def test_many_clients_keep_the_counters_consistent(setup):
+    """More client threads than cores, with a short switch interval: every
+    request completes and no counter update is lost."""
+    r = _observe(setup, 4, 5.0, 64)
+    svc = _service(setup, max_delay_ms=0.5)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    done = []
+
+    def client():
+        for _ in range(5):
+            done.append(svc.submit(r, 5.0, timeout=TIMEOUT).shape)
+
+    try:
+        threads = [threading.Thread(target=client) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(TIMEOUT)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+        svc.close(timeout=TIMEOUT)
+    m = svc.metrics()
+    assert len(done) == 80
+    assert m["requests_submitted"] == m["requests_completed"] == 80
+    assert m["estimates_served"] == 80 * 4 and m["queue_depth_samples"] == 0
+
+
+def test_oversized_request_microbatched(setup):
+    r = _observe(setup, 700, 5.0, 65)
+    svc = _service(setup, max_batch=256)
+    try:
+        got = svc.submit(r, 5.0, timeout=TIMEOUT)
+        want = _direct(setup, 5.0, r)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=1e-4)
+        assert svc.metrics()["microbatches"] == 3   # 256 + 256 + 188
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+def test_malformed_request_fails_alone(setup):
+    svc = _service(setup)
+    try:
+        with pytest.raises(ValueError, match="shape"):
+            svc.submit(np.ones((4, 8), np.complex64), 5.0, timeout=TIMEOUT)
+        with pytest.raises(ValueError, match="shape"):
+            svc.submit(np.ones((N_ANT,), np.complex64), 5.0, timeout=TIMEOUT)
+        r = _observe(setup, 8, 5.0, 66)
+        assert svc.submit(r, 5.0, timeout=TIMEOUT).shape == (8, N_ANT)
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+def test_kernels_with_ineligible_selection_mode_rejected(setup):
+    """use_kernels=True with a mode no kernel computes (float
+    cumulative-p, k >= K) is refused instead of serving 'all' results."""
+    with pytest.raises(ValueError, match="mode"):
+        _service(setup, use_kernels=True, mode=0.9)
+    with pytest.raises(ValueError, match="mode"):
+        _service(setup, use_kernels=True, mode=4)   # K = 4: the 'all' combine
+
+
+def test_flush_errors_propagate_to_clients(setup):
+    _, _, _, h_val = setup
+    svc = _service(setup)
+
+    def boom(*args):
+        raise ValueError("boom")
+
+    svc._estimate = boom
+    try:
+        with pytest.raises(RuntimeError) as info:
+            svc.submit(np.asarray(h_val[:8]), 5.0, timeout=10)
+        assert isinstance(info.value.__cause__, ValueError)
+        assert svc.metrics()["requests_failed"] == 1
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+def test_coherent_request_matches_direct(setup):
+    rb = _observe(setup, 24, 0.0, 70, t=4)
+    svc = _service(setup)
+    try:
+        got = svc.submit(rb, 0.0, timeout=TIMEOUT)
+        assert got.shape == (24, 4, N_ANT)
+        np.testing.assert_allclose(got, _direct(setup, 0.0, rb), atol=1e-4)
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+@pytest.mark.parametrize("use_kernels", [None, False])
+def test_mixed_t_requests_isolated(setup, use_kernels):
+    """Flat, T=2 and T=4 requests at one SNR are queued apart (a block
+    never co-batches with another T), each matching its direct path."""
+    r = _observe(setup, 64, 5.0, 72)
+    svc = _service(setup, max_delay_ms=10.0, use_kernels=use_kernels)
+    jobs_ = {"flat": r[:16], "t2": r[:32].reshape(16, 2, -1),
+             "t4": r[:64].reshape(16, 4, -1)}
+    results = {}
+
+    def worker(name, arr):
+        results[name] = svc.submit(arr, 5.0, timeout=TIMEOUT)
+
+    try:
+        threads = [threading.Thread(target=worker, args=(n, v))
+                   for n, v in jobs_.items()]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=TIMEOUT)
+            assert not th.is_alive()
+        for name, arr in jobs_.items():
+            np.testing.assert_allclose(results[name],
+                                       _direct(setup, 5.0, arr), atol=1e-4)
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+def test_coherent_malformed_rejected(setup):
+    svc = _service(setup)
+    try:
+        for bad in (np.zeros((4, 2, N_ANT + 1), np.complex64),
+                    np.zeros((4, 0, N_ANT), np.complex64),
+                    np.zeros((2, 2, 2, N_ANT), np.complex64)):
+            with pytest.raises(ValueError):
+                svc.submit(bad, 5.0, timeout=TIMEOUT)
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.25])
+def test_coherent_alpha_service(setup, alpha):
+    """coherence_alpha reaches the block path: alpha = 0 serves the
+    independent per-snapshot estimates, 0.25 the leave-one-out blend."""
+    rb = _observe(setup, 16, 0.0, 95, t=4)
+    svc = _service(setup, coherence_alpha=alpha)
+    try:
+        got = svc.submit(rb, 0.0, timeout=TIMEOUT)
+        np.testing.assert_allclose(got, _direct(setup, 0.0, rb, alpha=alpha),
+                                   atol=1e-4)
+        if alpha == 0.0:
+            flat = _direct(setup, 0.0, rb.reshape(-1, N_ANT))
+            np.testing.assert_allclose(got.reshape(-1, N_ANT), flat,
+                                       atol=1e-4)
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+def test_auto_alpha_service(setup):
+    """'auto' selects once per (SNR, T) from the grid, and the served
+    result matches the direct estimator at the selected alpha."""
+    _, _, a, _ = setup
+    h_blocks, _ = jscm.generate_channels(
+        jax.random.PRNGKey(73), 300, jscm.ScmConfig(N_ANT, 1, n_coherence=4))
+    rb = np.asarray(jobs.observe(jax.random.PRNGKey(77), h_blocks[:200], 0.0,
+                                 a, 2, jq.design_quantizer(0.0, 2)))
+    svc = _service(setup, coherence_alpha="auto",
+                   alpha_val=np.asarray(h_blocks[200:]))
+    try:
+        got = svc.submit(rb, 0.0, timeout=TIMEOUT)
+        sel = svc.metrics()["coherence_alpha_selected"]
+        assert list(sel) == [(0.0, 4)]
+        alpha = sel[(0.0, 4)]
+        assert alpha in jge.DEFAULT_ALPHA_GRID
+        np.testing.assert_allclose(got, _direct(setup, 0.0, rb, alpha=alpha),
+                                   atol=1e-4)
+        with pytest.raises(RuntimeError) as info:    # T differs from alpha_val
+            svc.submit(rb[:, :2], 0.0, timeout=TIMEOUT)
+        assert "alpha_val" in str(info.value.__cause__)
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+def test_auto_alpha_requires_val_blocks(setup):
+    with pytest.raises(ValueError, match="alpha_val"):
+        _service(setup, coherence_alpha="auto")
+    with pytest.raises(ValueError, match="alpha_val"):
+        _service(setup, coherence_alpha="auto",
+                 alpha_val=np.zeros((4, N_ANT), np.complex64))
+    with pytest.raises(ValueError, match="float or 'auto'"):
+        _service(setup, coherence_alpha="best")
+
+
+def test_close_drains_queued_requests(setup):
+    r = _observe(setup, 64, 5.0, 70)
+    svc = _service(setup, max_delay_ms=60_000.0)
+    results = {}
+
+    def client(i):
+        results[i] = svc.submit(r, 5.0, timeout=TIMEOUT)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    time.sleep(0.3)   # let the requests queue
+    svc.close(drain=True, timeout=TIMEOUT)
+    for t in threads:
+        t.join(timeout=TIMEOUT)
+        assert not t.is_alive()
+    assert set(results) == {0, 1, 2}
+    for i in range(3):
+        np.testing.assert_allclose(results[i], _direct(setup, 5.0, r),
+                                   atol=1e-4)
+    m = svc.metrics()
+    assert m["requests_completed"] == 3 and m["queue_depth_samples"] == 0
+    assert not svc._thread.is_alive()
+
+
+def test_close_fail_fast(setup):
+    r = _observe(setup, 16, 5.0, 71)
+    svc = _service(setup, max_delay_ms=60_000.0)
+    errs = {}
+
+    def client(i):
+        try:
+            svc.submit(r, 5.0, timeout=TIMEOUT)
+            errs[i] = None
+        except serving.ServiceClosedError as e:
+            errs[i] = e
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    time.sleep(0.3)
+    svc.close(drain=False, timeout=TIMEOUT)
+    for t in threads:
+        t.join(timeout=TIMEOUT)
+        assert not t.is_alive()
+    assert len(errs) == 2 and all(
+        isinstance(e, serving.ServiceClosedError) for e in errs.values())
+    with pytest.raises(serving.ServiceClosedError):
+        svc.submit(r, 5.0, timeout=TIMEOUT)
+    assert svc.metrics()["requests_failed"] == 2
+
+
+def test_metrics_surface(setup):
+    r = _observe(setup, 32, 5.0, 72)
+    svc = _service(setup)
+    try:
+        for _ in range(3):
+            svc.submit(r, 5.0, timeout=TIMEOUT)
+        svc.submit(r, 10.0, timeout=TIMEOUT)
+        m = svc.metrics()
+        assert set(m) == {
+            "requests_submitted", "requests_completed", "requests_failed",
+            "requests_shed", "estimates_served", "microbatches",
+            "bank_cache_hits", "bank_cache_misses", "banks_cached",
+            "queue_depth_samples", "latency_count", "latency_mean_s",
+            "latency_p50_s", "latency_p99_s", "coherence_alpha_selected"}
+        assert m["requests_submitted"] == m["requests_completed"] == 4
+        assert m["estimates_served"] == 4 * 32
+        assert m["bank_cache_misses"] == 2 and m["banks_cached"] == 2
+        assert m["latency_count"] == 4
+        assert m["latency_p99_s"] >= m["latency_p50_s"] > 0
+        assert m["requests_failed"] == 0 and m["requests_shed"] == 0
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+@pytest.mark.parametrize("mode,use_kernels", [(1, True), (2, None),
+                                              (2, False), (0.9, None)])
+def test_selection_modes_match_direct(setup, mode, use_kernels):
+    """int top-k modes serve through K4 (its plain version here) unless
+    use_kernels=False; float cumulative-p through the einsum estimator;
+    selection modes on blocks through the einsum coherent estimator."""
+    r = _observe(setup, 64, 5.0, 66)
+    svc = _service(setup, mode=mode, use_kernels=use_kernels)
+    try:
+        assert svc.use_kernels == (isinstance(mode, int)
+                                   and use_kernels is not False)
+        np.testing.assert_allclose(svc.submit(r, 5.0, timeout=TIMEOUT),
+                                   _direct(setup, 5.0, r, mode), atol=1e-4)
+        rb = r.reshape(16, 4, N_ANT)
+        np.testing.assert_allclose(svc.submit(rb, 5.0, timeout=TIMEOUT),
+                                   _direct(setup, 5.0, rb, mode), atol=1e-4)
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+@pytest.mark.parametrize("make,item", [
+    (lambda p, a: serving.EstimationService(p, a, 2, device="cpu",
+                                            mesh=object()), "item 15"),
+    (lambda p, a: serving.EstimationService(p, a, 2, device="cpu",
+                                            structured=True), "item 11"),
+    (lambda p, a: serving.EstimationService(p, a, 2, device="cpu",
+                                            factored=True), "item 12"),
+    (lambda p, a: serving.EstimationService.from_circulant_spectra(
+        None, None, None, a, 2), "item 11"),
+    (lambda p, a: serving.EstimationService.from_mfa(p, a, 2), "item 12"),
+    (lambda p, a: serving.VaeEstimationService(None, p, None, a), "item 13"),
+])
+def test_unported_options_raise(setup, make, item):
+    _, params, a, _ = setup
+    with pytest.raises(NotImplementedError, match=item):
+        make(params, np.asarray(a))
+
+
+def test_service_needs_a_card_or_an_explicit_device(setup, monkeypatch):
+    _, params, a, _ = setup
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.EstimationService(params, np.asarray(a), 2)
