@@ -12,16 +12,29 @@ Phases (any failure exits non-zero; nothing is caught):
      {1, 0.25}, and at a ragged block count with dead components; K4 for
      k in {1, 2, 4, 8} at N = 131072, and at a ragged N with dead
      components (rows whose k-th and (k+1)-th logits lie within 1e-3 are
-     counted, not compared);
+     counted, not compared); the circulant kernels on a seeded circulant
+     bank (2-bit, 10 dB): K6 at the same three sizes, K7 over the same
+     (T, alpha) grid and ragged case, K8 and K9 as a two-shard split of
+     the K = 64 bank merged with `merge_stats` and inverse-transformed
+     once, against K6 / K7 and against the plain stats, one
+     block-circulant case `blocks=(8, 8)` and two other template widths
+     (D = 32 with K = 40, D = 128 with K = 128). Where float32 sums in
+     another order push a circulant kernel past TOL of its plain version
+     (large T), both are held against the float64 evaluation of the same
+     arithmetic, the kernel to within twice the plain version's own error;
   3. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after: `run_gmm.run` at the `GmmBenchConfig`
-     defaults, and again with `n_coherence=4` (alpha 1), with the
-     scientific invariants of their MSE tables; then the
+     defaults, and again with `n_coherence=4` (alpha 1), then both once
+     more with `cov_type='circulant'` (the FFT-domain bank, K6 and K7),
+     with the scientific invariants of their MSE tables; then the
      `EstimationService` at the headline widths (the synthetic bank of
      `tools/serving_bench.py`, 8 closed-loop clients of 64-snapshot
-     requests at -5/5/15 dB, max_batch 1024) in four modes: flat 'all',
+     requests at -5/5/15 dB, max_batch 1024) in eight modes: flat 'all',
      T=4 blocks, top-1 and top-4, each held against the plain einsum
-     estimator on one request, with its throughput, latency and
+     estimator on one request; `structured=True` flat and T=4 blocks (K6,
+     K7) and `from_circulant_spectra` with K = 256 components flat and
+     T=4 blocks (two shards through K8 / K9, merged), each held against
+     the `torch.fft` pipeline; with its throughput, latency and
      `metrics()`;
   4. CUDA-event times of each kernel, its plain version and a library
      yardstick at the headline shapes, beside the least time the card
@@ -48,6 +61,7 @@ PEAK_HBM_BYTES = 3.35e12
 TOL = 1e-4          # max |kernel - plain| / max |plain|, float32 sums
 TIE_GAP = 1e-3      # top-k rows closer than this to a tie are not compared
 N_BENCH, D, K, N_BITS, SNR = 131072, 64, 64, 2, 10.0
+K_WIDE = 256        # components of the spectra-native serving prior
 SERVE_SNRS = (-5.0, 5.0, 15.0)
 SERVE_CLIENTS, SERVE_REQ, SERVE_MAX_BATCH, SERVE_SECONDS = 8, 64, 1024, 3.0
 
@@ -86,13 +100,35 @@ def bench_bank(dev, n_dead=0):
     return gmm_estimator.prepare_bank(params, SNR, a_mat, N_BITS, q), q
 
 
-def bench_obs(dev, q, n):
+def bench_obs(dev, q, n, d=D):
     """Quantized observations of unit-power channels at 10 dB, 2 bits."""
     from quantized_channel_estimation_torch.ops import observation
     from quantized_channel_estimation_torch.ops.cplx import crandn
     gen = torch.Generator(device=dev).manual_seed(1)
-    h = crandn(gen, (n, D))
+    h = crandn(gen, (n, d))
     return observation.observe(gen, h, SNR, None, N_BITS, q)
+
+
+def circ_bank(dev, q, d=D, k=K, n_dead=0, blocks=None):
+    """A seeded circulant bank at 2 bits, 10 dB: spectra uniform on
+    [0.05, 2] (as the structured-bank tests draw them), small non-zero
+    means, uniform weights (n_dead of them pushed below the dead floor),
+    the scalar pilot x0 = 1."""
+    from quantized_channel_estimation_torch.models import gmm, structured_bank
+    rng = np.random.default_rng(0)
+    spectra = torch.as_tensor(
+        rng.uniform(0.05, 2.0, (k, d)).astype(np.float32), device=dev)
+    means = torch.as_tensor(
+        (0.2 * (rng.standard_normal((k, d))
+                + 1j * rng.standard_normal((k, d)))).astype(np.complex64),
+        device=dev)
+    w = torch.full((k,), 1.0 / k, device=dev)
+    w[:n_dead] = 1e-9
+    dummy = torch.zeros((k, 1, 1), dtype=torch.complex64, device=dev)
+    params = gmm.GmmParams(w / w.sum(), means, dummy, dummy)
+    return structured_bank.prepare_bank_circulant(
+        params, SNR, torch.tensor(1.0 + 0.0j), N_BITS, q, blocks=blocks,
+        spectra=spectra)
 
 
 def serving_params():
@@ -158,6 +194,32 @@ def compare(name, label, got, want, skip=None):
     return abs_err
 
 
+def compare64(name, label, got, want, want64):
+    """`compare` for the circulant kernels: within TOL of the plain
+    version, or, where float32 sums in another order push the two apart
+    (logits pooled over many rows), both held against `want64`, the plain
+    version evaluated in float64: the kernel's error at most twice the
+    plain version's own and at most 10 TOL of the output scale. Returns
+    the absolute error against the plain version."""
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    abs_err = float((got - want).abs().max())
+    ok = abs_err / scale <= TOL
+    msg = (f"{name} vs plain [{label}, N={got.shape[0]}]: max abs "
+           f"{abs_err:.3e}, max rel {abs_err / scale:.3e} (tol {TOL})")
+    if not ok:
+        e_k = float((got.double() - want64).abs().max())
+        e_p = float((want.double() - want64).abs().max())
+        ok = e_k <= 2.0 * e_p and e_k / scale <= 10.0 * TOL
+        msg += (f"; past tol, against float64: kernel {e_k:.3e}, plain "
+                f"{e_p:.3e} (kernel must be <= 2x plain and <= 10 tol)")
+    log(msg)
+    if not (ok and torch.isfinite(got).all()):
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"({label})")
+    return abs_err
+
+
 def main_path_run(run_gmm, kernels, dev, tmp, **change):
     """run_gmm at the defaults (plus `change`) on the card, its kernel
     launches counted alone; checks every column finite and falling with
@@ -185,12 +247,14 @@ def main_path_run(run_gmm, kernels, dev, tmp, **change):
     return cfg, mse, rate, timings, seconds, launches
 
 
-def serve_mode(svc, kernels, bank, label, t_coh, kernel_name):
+def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
+               near_tie=None):
     """Closed-loop load on one service mode: warm-up, then SERVE_CLIENTS
     clients for SERVE_SECONDS, the launch counts read around the window.
-    Returns the mode's record; raises on a failed request, a kernel that
-    was not launched or an answer off the plain einsum estimator."""
-    from quantized_channel_estimation_torch.models import gmm_estimator
+    `reference(r)` is the mode's plain estimator on the card, `near_tie(r)`
+    the rows not compared. Returns the mode's record; raises on a failed
+    request, a kernel that was not launched or an answer off the
+    reference."""
     rng = np.random.default_rng(1)
 
     def request(size):
@@ -198,22 +262,13 @@ def serve_mode(svc, kernels, bank, label, t_coh, kernel_name):
              + 1j * rng.standard_normal((size, D))).astype(np.complex64)
         return x.reshape(size // t_coh, t_coh, D) if t_coh > 1 else x
 
-    # one request held against the plain einsum estimator on the card
+    # one request held against the plain estimator on the card
     r = request(SERVE_REQ)
-    dev = bank.filters.device
     got = torch.as_tensor(svc.submit(r, SNR, timeout=120.0), device=dev)
     rt = torch.as_tensor(r, device=dev)
-    mode = svc.mode
-    if t_coh > 1:
-        want = gmm_estimator.estimate_coherent(bank, rt, mode)
-    else:
-        want = gmm_estimator.estimate(bank, rt, mode)
-    skip = None
-    if mode != "all":
-        r2 = torch.cat([rt.real, rt.imag], -1).float()
-        skip = near_ties(r2, kernels.kernel_bank_block(bank), mode)
-    err = compare("service", label, got.reshape(-1, D), want.reshape(-1, D),
-                  skip)
+    skip = None if near_tie is None else near_tie(rt)
+    err = compare("service", label, got.reshape(-1, D),
+                  reference(rt).reshape(-1, D), skip)
 
     # warm-up: every padded microbatch size the load can form, per SNR
     cap = 1 << max(4, SERVE_MAX_BATCH.bit_length() - 1)
@@ -277,9 +332,11 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from quantized_channel_estimation_torch import serving
-    from quantized_channel_estimation_torch.estimators import kernels
+    from quantized_channel_estimation_torch.estimators import (
+        circ_kernels, kernels)
     from quantized_channel_estimation_torch.harness import run_gmm
-    from quantized_channel_estimation_torch.models import gmm_estimator
+    from quantized_channel_estimation_torch.models import (
+        gmm_estimator, structured_bank)
     from quantized_channel_estimation_torch.ops import quantizer as Q
     from quantized_channel_estimation_torch.ops.precision import pin_fp32
 
@@ -301,8 +358,7 @@ def main():
     kb = kernels.kernel_bank_block(bank)
     r = bench_obs(dev, q, N_BENCH)
     r2 = torch.cat([r.real, r.imag], dim=-1).float().contiguous()
-    errs = {"grouped_estimate": [], "grouped_estimate_coherent": [],
-            "grouped_estimate_topk": []}
+    errs = {name: [] for name in kernels.launch_counts()}
     n_val = run_gmm.GmmBenchConfig().n_val     # the main path's batch
     for label, bank_c, rows in (("full", bank, r2),
                                 ("main path", bank, r2[:n_val]),
@@ -330,6 +386,93 @@ def main():
             kernels.grouped_estimate_topk(rows, kb_c, k_sel),
             kernels.grouped_estimate_topk_reference(rows, kb_c, k_sel),
             near_ties(rows, kb_c, k_sel)))
+
+    # 2b. the circulant kernels K6-K9 against their plain versions
+    ck = circ_kernels
+
+    def f64(ckb):
+        return type(ckb)(*(x.double() for x in ckb))
+
+    def check_circ(label, bank_c, x2, blocks=None, t=1, alpha=1.0):
+        """K6 (t = 1) or K7 on rows x2 against the plain version. Returns
+        the kernel's output."""
+        ckb = ck.circ_kernel_bank(bank_c, blocks, t, alpha)
+        if t == 1:
+            name, got = "circ_estimate", ck.circ_estimate(x2, ckb)
+            want = ck.circ_estimate_reference(x2, ckb)
+            want64 = ck.circ_estimate_reference(x2.double(), f64(ckb))
+        else:
+            name = "circ_estimate_coherent"
+            got = ck.circ_estimate_coherent(x2, ckb, t, alpha)
+            want = ck.circ_estimate_coherent_reference(x2, ckb, t, alpha)
+            want64 = ck.circ_estimate_coherent_reference(
+                x2.double(), f64(ckb), t, alpha)
+        errs[name].append(compare64(name, label, got, want, want64))
+        return got
+
+    def check_stats(label, bank_c, x2, whole, t=1, alpha=1.0):
+        """K8 (t = 1) or K9 on the two component shards of bank_c: each
+        shard's state against the plain stats, and the merged,
+        inverse-transformed quotient against `whole`, K6's / K7's output
+        over the whole bank."""
+        name = "circ_estimate_stats" if t == 1 \
+            else "circ_estimate_coherent_stats"
+        half = bank_c.spec_cr.shape[0] // 2
+        states = []
+        for lo, hi in ((0, half), (half, 2 * half)):
+            shard = type(bank_c)(*(x[lo:hi] for x in bank_c))
+            ckb = ck.circ_kernel_bank(shard, None, t, alpha)
+            if t == 1:
+                got = ck.circ_estimate_stats(x2, ckb)
+                want = ck.circ_estimate_stats_reference(x2, ckb)
+                want64 = ck.circ_estimate_stats_reference(x2.double(),
+                                                          f64(ckb))
+            else:
+                got = ck.circ_estimate_coherent_stats(x2, ckb, t, alpha)
+                want = ck.circ_estimate_coherent_stats_reference(
+                    x2, ckb, t, alpha)
+                want64 = ck.circ_estimate_coherent_stats_reference(
+                    x2.double(), f64(ckb), t, alpha)
+            for part, g, w, w64 in zip(("m", "den", "acc"), got, want,
+                                       want64):
+                errs[name].append(compare64(
+                    name, f"{label}, shard {lo}:{hi}, {part}",
+                    g.reshape(g.shape[0], -1), w.reshape(w.shape[0], -1),
+                    w64.reshape(w64.shape[0], -1)))
+            states.append(got)
+        m, den, acc = ck.merge_stats(*zip(*states))
+        h = structured_bank.unitary_ifft(ck._hc(acc / den[:, None],
+                                                torch.complex64))
+        compare(name, f"{label}, two shards merged vs the whole bank",
+                ck._x2(h), whole)
+
+    cbank = circ_bank(dev, q)
+    cdead = circ_bank(dev, q, n_dead=5)
+    x2 = ck._x2(r)
+    for label, bank_c, rows in (("full", cbank, x2),
+                                ("main path", cbank, x2[:n_val]),
+                                ("dead", cdead, x2[:8191])):
+        whole = check_circ(label, bank_c, rows)
+        if label != "main path":
+            check_stats(label, bank_c, rows, whole)
+    for label, bank_c, t, alpha, rows in (
+            [(f"T={t}, alpha={a}", cbank, t, a, x2)
+             for t in (2, 4, 16) for a in (1.0, 0.25)]
+            + [("dead, B=2501", cdead, 4, 0.25, x2[:2501 * 4])]):
+        whole = check_circ(label, bank_c, rows, None, t, alpha)
+        if t == 4:
+            check_stats(label, bank_c, rows, whole, t, alpha)
+    bbank = circ_bank(dev, q, blocks=(8, 8))
+    check_circ("blocks=(8, 8)", bbank, x2[:n_val], (8, 8))
+    check_circ("blocks=(8, 8), T=4, alpha=0.25", bbank, x2[:n_val], (8, 8),
+               4, 0.25)
+    for d_w, k_w in ((32, 40), (128, 128)):
+        wbank = circ_bank(dev, q, d_w, k_w, n_dead=3)
+        xw = ck._x2(bench_obs(dev, q, 20001 * 4, d_w))
+        whole = check_circ(f"D={d_w}, K={k_w}", wbank, xw[:20001])
+        check_stats(f"D={d_w}, K={k_w}", wbank, xw[:20001], whole)
+        check_circ(f"D={d_w}, K={k_w}, T=4, alpha=0.25", wbank, xw, None, 4,
+                   0.25)
 
     # 3. the main paths, each with its own launch counts
     total_launches = dict.fromkeys(errs, 0)
@@ -371,25 +514,122 @@ def main():
         f"{mse_c['blmmse_gmm_coh'][i_low]:.5f} vs "
         f"{mse_c['blmmse_gmm'][i_low]:.5f}")
 
+    # the same two runs with circulant covariances: the FFT-domain bank
+    # through K6 and K7. The 3GPP covariances are Toeplitz, so the circulant
+    # fit is an approximation; its NMSE cost is recorded, not asserted.
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_s, mse_s, rate_s, timings_s, circ_s, launches_s = main_path_run(
+            run_gmm, kernels, dev, tmp, cov_type="circulant")
+    add(launches_s)
+    at10 = {k: v[i10] for k, v in mse_s.items()}
+    if not (at10["blmmse_genie"] < at10["blmmse_gmm"] < at10["LS_glob"]):
+        raise AssertionError(f"circulant MSE order at 10 dB broken: {at10}")
+    if launches_s["circ_estimate"] < len(cfg_s.snrs):
+        raise AssertionError(f"circulant run launched K6 only "
+                             f"{launches_s['circ_estimate']} times")
+    log(f"blmmse_gmm, circulant fit: {mse_s['blmmse_gmm']}")
+    log(f"blmmse_gmm, full fit:      {mse['blmmse_gmm']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_sc, mse_sc, rate_sc, timings_sc, circ_coh_s, launches_sc = \
+            main_path_run(run_gmm, kernels, dev, tmp, cov_type="circulant",
+                          n_coherence=4, coherence_alpha=1.0)
+    add(launches_sc)
+    if not mse_sc["blmmse_gmm_coh"][i_low] < mse_sc["blmmse_gmm"][i_low]:
+        raise AssertionError(f"circulant coherent column no better at "
+                             f"-10 dB: {mse_sc['blmmse_gmm_coh'][i_low]} vs "
+                             f"{mse_sc['blmmse_gmm'][i_low]}")
+    if launches_sc["circ_estimate_coherent"] < len(cfg_sc.snrs):
+        raise AssertionError(f"circulant coherent run launched K7 only "
+                             f"{launches_sc['circ_estimate_coherent']} "
+                             "times")
+    log(f"circulant coherent column vs per-snapshot at -10 dB: "
+        f"{mse_sc['blmmse_gmm_coh'][i_low]:.5f} vs "
+        f"{mse_sc['blmmse_gmm'][i_low]:.5f}")
+
     params = serving_params()
     a_eye = np.eye(D, dtype=np.complex64)     # the tool's pilot matrix
+    params_dev = type(params)(*(torch.as_tensor(x, device=dev)
+                                for x in params))
+    q_serve = Q.design_quantizer(SNR, N_BITS).to(dev)
     serve_bank = gmm_estimator.prepare_bank(
-        type(params)(*(torch.as_tensor(x, device=dev) for x in params)), SNR,
-        torch.as_tensor(a_eye, device=dev), N_BITS,
-        Q.design_quantizer(SNR, N_BITS).to(dev))
+        params_dev, SNR, torch.as_tensor(a_eye, device=dev), N_BITS, q_serve)
+    # the structured service serves the same prior through its
+    # Frobenius-best circulant approximation
+    serve_cbank = structured_bank.prepare_bank_circulant(
+        params_dev, SNR, torch.as_tensor(a_eye, device=dev), N_BITS, q_serve)
+
+    def dense_reference(mode):
+        return lambda rt: (
+            gmm_estimator.estimate_coherent(serve_bank, rt, mode)
+            if rt.dim() == 3 else gmm_estimator.estimate(serve_bank, rt,
+                                                         mode))
+
+    def dense_near_tie(mode):
+        return lambda rt: near_ties(
+            torch.cat([rt.real, rt.imag], -1).float(),
+            kernels.kernel_bank_block(serve_bank), mode)
+
+    def fft_reference(rt):
+        if rt.dim() == 3:
+            return structured_bank.estimate_circulant_coherent(
+                serve_cbank, rt, "all", 4096, 1.0, None, "fft")
+        return structured_bank.estimate_circulant(serve_cbank, rt, "all",
+                                                  16384, None, "fft")
+
+    # a spectra-native prior of K = 256 components: two shards of 128
+    # through the stats kernels K8 / K9, merged
+    wide_spectra = np.random.default_rng(2).uniform(
+        0.05, 2.0, (K_WIDE, D)).astype(np.float32)
+    dummy = torch.zeros((K_WIDE, 1, 1), dtype=torch.complex64, device=dev)
+    wide_bank = structured_bank.prepare_bank_circulant(
+        type(params)(torch.full((K_WIDE,), 1.0 / K_WIDE, device=dev),
+                     torch.zeros((K_WIDE, D), dtype=torch.complex64,
+                                 device=dev), dummy, dummy),
+        SNR, torch.as_tensor(a_eye, device=dev), N_BITS, q_serve,
+        spectra=torch.as_tensor(wide_spectra, device=dev))
+
+    def wide_reference(rt):
+        if rt.dim() == 3:
+            return structured_bank.estimate_circulant_coherent(
+                wide_bank, rt, "all", 4096, 1.0, None, "fft")
+        return structured_bank.estimate_circulant(wide_bank, rt, "all",
+                                                  16384, None, "fft")
+
     serve = []
-    for mode, modes in (("all", (("flat all", 1, "grouped_estimate"),
-                                 ("T=4 blocks, alpha=1", 4,
-                                  "grouped_estimate_coherent"))),
-                        (1, (("top-1", 1, "grouped_estimate_topk"),)),
-                        (4, (("top-4", 1, "grouped_estimate_topk"),))):
-        svc = serving.EstimationService(params, a_eye, N_BITS, mode=mode,
-                                        max_batch=SERVE_MAX_BATCH,
-                                        device=dev)
+    for kwargs, modes in (
+            (dict(mode="all"),
+             (("flat all", 1, "grouped_estimate", dense_reference("all"),
+               None),
+              ("T=4 blocks, alpha=1", 4, "grouped_estimate_coherent",
+               dense_reference("all"), None))),
+            (dict(mode=1), (("top-1", 1, "grouped_estimate_topk",
+                             dense_reference(1), dense_near_tie(1)),)),
+            (dict(mode=4), (("top-4", 1, "grouped_estimate_topk",
+                             dense_reference(4), dense_near_tie(4)),)),
+            (dict(mode="all", structured=True),
+             (("structured flat all", 1, "circ_estimate", fft_reference,
+               None),
+              ("structured T=4 blocks, alpha=1", 4, "circ_estimate_coherent",
+               fft_reference, None))),
+            (dict(mode="all", spectra=wide_spectra),
+             (("structured K=256 flat all", 1, "circ_estimate_stats",
+               wide_reference, None),
+              ("structured K=256 T=4 blocks, alpha=1", 4,
+               "circ_estimate_coherent_stats", wide_reference, None)))):
+        spectra = kwargs.pop("spectra", None)
+        if spectra is not None:
+            svc = serving.EstimationService.from_circulant_spectra(
+                np.full((K_WIDE,), 1.0 / K_WIDE, np.float32),
+                np.zeros((K_WIDE, D), np.complex64), spectra, a_eye, N_BITS,
+                max_batch=SERVE_MAX_BATCH, device=dev, **kwargs)
+        else:
+            svc = serving.EstimationService(params, a_eye, N_BITS,
+                                            max_batch=SERVE_MAX_BATCH,
+                                            device=dev, **kwargs)
         try:
-            for label, t_coh, kernel_name in modes:
-                serve.append(serve_mode(svc, kernels, serve_bank, label,
-                                        t_coh, kernel_name))
+            for label, t_coh, kernel_name, reference, near_tie in modes:
+                serve.append(serve_mode(svc, kernels, dev, label, t_coh,
+                                        kernel_name, reference, near_tie))
                 add(serve[-1]["launches"])
         finally:
             svc.close(timeout=120.0)
@@ -402,19 +642,19 @@ def main():
     nbytes = 4.0 * (n * two_m + n * two_d + kb.pw.numel() + kb.mu.numel()
                     + kb.b.numel() + kb.logw.numel())
 
-    def bound(flops):
+    def bound(flops, nbytes=nbytes):
         ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         by = ("operations" if flops / PEAK_FP32_FLOPS
               >= nbytes / PEAK_HBM_BYTES else "bytes")
         return ms, by
 
-    def timed(label, kern, plain, library, flops):
+    def timed(label, kern, plain, library, flops, nbytes=nbytes):
         plain_ms = cuda_ms(plain)
         ms = cuda_ms(kern)
         ms2 = cuda_ms(kern)
         plain_ms2 = cuda_ms(plain)
         library_ms = cuda_ms(library)
-        bound_ms, bound_by = bound(flops)
+        bound_ms, bound_by = bound(flops, nbytes)
         log(f"{label} at N={n}, 2M={two_m}, 2D={two_d}, K={K}: kernel "
             f"{ms:.3f} / {ms2:.3f} ms, plain {plain_ms:.3f} / "
             f"{plain_ms2:.3f} ms, library {library_ms:.3f} ms, bound "
@@ -436,6 +676,12 @@ def main():
                lambda: kernels.grouped_estimate_coherent(r2, kb3, 4, 1.0),
                lambda: kernels.grouped_estimate_coherent_reference(
                    r2, kb3, 4, 1.0), gemm, gemm_flops + 3.0 * n * K)
+    kb16 = kernels.kernel_bank_block(bank, 16, 1.0)
+    t3_16 = timed("K3 (T=16, alpha=1)",
+                  lambda: kernels.grouped_estimate_coherent(r2, kb16, 16,
+                                                            1.0),
+                  lambda: kernels.grouped_estimate_coherent_reference(
+                      r2, kb16, 16, 1.0), gemm, gemm_flops + 3.0 * n * K)
     t4 = {k_sel: timed(
         f"K4 (k={k_sel})",
         lambda: kernels.grouped_estimate_topk(r2, kb, k_sel),
@@ -443,6 +689,41 @@ def main():
         logit_gemm,
         2.0 * n * two_m * two_m * K + k_sel * 2.0 * n * two_m * two_d)
         for k_sel in (1, 4)}
+
+    # the circulant kernels: 2 N (2D 2D + 3D K + K 4D + 2D 2D) operations
+    # (K8/K9 less the inverse transform); bytes: the rows read and written
+    # once, the operands once, m and den for the stats forms. Library
+    # yardstick: the torch.fft pipeline of the same entry, which the port
+    # never calls where the kernel is eligible.
+    ckb = ck.circ_kernel_bank(cbank)
+    ckb4 = ck.circ_kernel_bank(cbank, None, 4, 1.0)
+    circ_flops = 2.0 * n * (2 * two_d * two_d + 3 * D * K + 4 * K * D)
+    circ_bytes = 4.0 * (2 * n * two_d + sum(x.numel() for x in ckb))
+    r_blocks = r.reshape(-1, 4, D)
+    t6 = timed("K6", lambda: ck.circ_estimate(x2, ckb),
+               lambda: ck.circ_estimate_reference(x2, ckb),
+               lambda: structured_bank.estimate_circulant(
+                   cbank, r, "all", 16384, None, "fft"),
+               circ_flops, circ_bytes)
+    t7 = timed("K7 (T=4, alpha=1)",
+               lambda: ck.circ_estimate_coherent(x2, ckb4, 4, 1.0),
+               lambda: ck.circ_estimate_coherent_reference(x2, ckb4, 4, 1.0),
+               lambda: structured_bank.estimate_circulant_coherent(
+                   cbank, r_blocks, "all", 4096, 1.0, None, "fft"),
+               circ_flops + 3.0 * n * K, circ_bytes)
+    stats_flops = circ_flops - 2.0 * n * two_d * two_d
+    stats_bytes = circ_bytes + 8.0 * n - 4.0 * ckb.binv.numel()
+    t8 = timed("K8", lambda: ck.circ_estimate_stats(x2, ckb),
+               lambda: ck.circ_estimate_stats_reference(x2, ckb),
+               lambda: structured_bank.estimate_circulant_stats(
+                   cbank, r, 16384, None, "fft"), stats_flops, stats_bytes)
+    t9 = timed("K9 (T=4, alpha=1)",
+               lambda: ck.circ_estimate_coherent_stats(x2, ckb4, 4, 1.0),
+               lambda: ck.circ_estimate_coherent_stats_reference(
+                   x2, ckb4, 4, 1.0),
+               lambda: structured_bank.estimate_circulant_coherent_stats(
+                   cbank, r_blocks, 4096, 1.0, None, "fft"),
+               stats_flops + 3.0 * n * K, stats_bytes)
 
     src = "quantized_channel_estimation_torch/csrc/"
     tpu = "quantized_channel_estimation_tpu/estimators/pallas_kernels.py"
@@ -455,18 +736,41 @@ def main():
          "source": src + "grouped_estimate.cu", "replaces": f"{tpu}:1151",
          "launches": total_launches["grouped_estimate_coherent"],
          "max_abs_err": max(errs["grouped_estimate_coherent"]),
-         "t_coh": 4, "coh_alpha": 1.0, **t3},
+         "t_coh": 4, "coh_alpha": 1.0, **t3, "at_t16": t3_16},
         {"name": "grouped_estimate_topk", "route": "cuda",
          "source": src + "grouped_topk.cu", "replaces": f"{tpu}:568",
          "launches": total_launches["grouped_estimate_topk"],
          "max_abs_err": max(errs["grouped_estimate_topk"]),
          "k_sel": 1, **t4[1], "at_k4": t4[4]},
+        {"name": "circ_estimate", "route": "cuda",
+         "source": src + "circ_estimate.cu", "replaces": f"{tpu}:1309",
+         "launches": total_launches["circ_estimate"],
+         "max_abs_err": max(errs["circ_estimate"]), **t6},
+        {"name": "circ_estimate_coherent", "route": "cuda",
+         "source": src + "circ_estimate.cu", "replaces": f"{tpu}:1647",
+         "launches": total_launches["circ_estimate_coherent"],
+         "max_abs_err": max(errs["circ_estimate_coherent"]),
+         "t_coh": 4, "coh_alpha": 1.0, **t7},
+        {"name": "circ_estimate_stats", "route": "cuda",
+         "source": src + "circ_estimate.cu", "replaces": f"{tpu}:1749",
+         "launches": total_launches["circ_estimate_stats"],
+         "max_abs_err": max(errs["circ_estimate_stats"]), **t8},
+        {"name": "circ_estimate_coherent_stats", "route": "cuda",
+         "source": src + "circ_estimate.cu", "replaces": f"{tpu}:1822",
+         "launches": total_launches["circ_estimate_coherent_stats"],
+         "max_abs_err": max(errs["circ_estimate_coherent_stats"]),
+         "t_coh": 4, "coh_alpha": 1.0, **t9},
     ]}))
     print(json.dumps({"main_path": {
         "defaults": {"mse": mse, "rate": rate, "seconds": main_s,
                      "timings": timings, "launches": launches},
         "n_coherence_4": {"mse": mse_c, "rate": rate_c, "seconds": coh_s,
                           "timings": timings_c, "launches": launches_c},
+        "circulant": {"mse": mse_s, "rate": rate_s, "seconds": circ_s,
+                      "timings": timings_s, "launches": launches_s},
+        "circulant_n_coherence_4": {
+            "mse": mse_sc, "rate": rate_sc, "seconds": circ_coh_s,
+            "timings": timings_sc, "launches": launches_sc},
         "total_seconds": time.time() - t0}}))
     print(json.dumps({"serving": serve}))
     print(card)

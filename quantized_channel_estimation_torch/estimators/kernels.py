@@ -14,6 +14,11 @@ and three kernels written in CUDA C++ for `sm_90a`:
   `_estimate_kernel_block_grouped_topk`, entry `estimate_fused_topk`) in
   `csrc/grouped_topk.cu`.
 
+The circulant kernels K6-K9 (`csrc/circ_estimate.cu`) have their layout,
+plain versions and wrappers in the sibling `circ_kernels`; they are built,
+bound and counted by this module (`build`, `_library`,
+`register_wrappers`).
+
 Rows of coherence blocks are laid out block-major (the T rows of a block
 consecutive); the TPU's T-major re-layout served its sublane tiling and has
 no counterpart here.
@@ -117,6 +122,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "grouped_topk":
         lib.grouped_topk_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib.grouped_topk_launch.restype = i32
+    elif name == "circ_estimate":
+        lib.circ_estimate_launch.argtypes = (
+            [ptr] * 9 + [i32] * 4 + [f32, i32, ptr])
+        lib.circ_estimate_launch.restype = i32
 
 
 def tile_rows(two_m: int, two_d: int) -> int:
@@ -418,11 +427,19 @@ def grouped_estimate_topk(r2: torch.Tensor, kb: KernelBankBlock,
     return out
 
 
-grouped_estimate.launches = 0
-grouped_estimate_coherent.launches = 0
-grouped_estimate_topk.launches = 0
-_WRAPPERS = (grouped_estimate, grouped_estimate_coherent,
-             grouped_estimate_topk)
+_WRAPPERS: list = []
+
+
+def register_wrappers(*fns) -> None:
+    """Give each kernel wrapper a launch count of 0 and list it for
+    `reset_launch_counts` / `launch_counts`."""
+    for fn in fns:
+        fn.launches = 0
+        _WRAPPERS.append(fn)
+
+
+register_wrappers(grouped_estimate, grouped_estimate_coherent,
+                  grouped_estimate_topk)
 
 
 def reset_launch_counts() -> None:

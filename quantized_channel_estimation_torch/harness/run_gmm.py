@@ -5,7 +5,10 @@ Port of `quantized_channel_estimation_tpu/harness/run_gmm.py` for the
 genie-Bussgang BLMMSE, the perfect-CSI rate anchor and GMM-Bussgang over an
 SNR sweep, written as the same transposed MSE/rate CSV tables (same file
 names, same columns in the same order). The GMM estimate runs through the
-CUDA kernel K1 on a card in 'all' mode and K4 in top-k modes. With
+CUDA kernel K1 on a card in 'all' mode and K4 in top-k modes; with a
+structured bank (`cov_type` 'circulant' / 'block-circulant' under
+`use_structured_bank='auto'`, or `use_structured_bank=True`) through the
+FFT-domain bank and the circulant kernels K6 (flat) and K7 (coherent). With
 `n_coherence` T > 1 the dataset holds coherence blocks of T snapshots: every
 per-snapshot estimator sees the flattened snapshots, and the extra column
 `blmmse_gmm_coh` estimates each block jointly (K3 in 'all' mode), with a
@@ -39,7 +42,8 @@ from quantized_channel_estimation_torch.utils import io as qio
 @dataclasses.dataclass(frozen=True)
 class GmmBenchConfig:
     """Mirrors the JAX `GmmBenchConfig` (and the reference's script
-    constants). The port runs channel_model='3gpp', dense banks,
+    constants). The port runs channel_model='3gpp', dense and single-pilot
+    structured banks, every cov_type but the Toeplitz ones,
     gmm_fit_segments=1 and a 1 x 1 mesh; other values raise
     NotImplementedError naming the ROADMAP item that ports them."""
     n_antennas: int = 64
@@ -88,14 +92,21 @@ def _check_supported(cfg: GmmBenchConfig) -> None:
     if cfg.gmm_fit_segments != 1:
         todo.append("segmented fits, em_driver.fit_segmented (ROADMAP Queue "
                     "1 item 8)")
-    if cfg.use_structured_bank is True or (
-            cfg.use_structured_bank == "auto"
-            and cfg.cov_type in ("circulant", "block-circulant")):
-        todo.append("structured banks (ROADMAP Queue 1 item 11)")
-    if cfg.cov_type != "full":
+    if _structured(cfg) and cfg.n_pilots > 1:
+        todo.append("multi-pilot structured banks, n_pilots > 1 (ROADMAP "
+                    "Queue 2, kernel K10)")
+    if cfg.cov_type in ("toeplitz", "block-toeplitz"):
         todo.append(f"cov_type={cfg.cov_type!r} (ROADMAP Queue 1 item 8)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
+
+
+def _structured(cfg: GmmBenchConfig) -> bool:
+    """Does the GMM column estimate through the FFT-domain bank? 'auto':
+    for the fits whose covariances are (block-)circulant."""
+    if cfg.use_structured_bank != "auto":
+        return bool(cfg.use_structured_bank)
+    return cfg.cov_type in ("circulant", "block-circulant")
 
 
 def _generator(seq: np.random.SeedSequence,
@@ -273,18 +284,36 @@ def run(cfg: GmmBenchConfig, verbose: bool = True, device=None):
                 qio.save_gmm_params(gmm_path, params)
         timings["gmm_fit"] = time.time() - t0
 
+        structured = _structured(cfg)
+
         # per-SNR banks, shared by the blmmse_gmm and blmmse_gmm_coh columns
         banks = {}
 
         def get_bank(snr):
             if snr not in banks:
-                banks[snr] = stages.prepare_bank(params, snr, a, cfg.n_bits,
-                                                 quantizers[snr])
+                if structured:
+                    banks[snr] = stages.prepare_bank_circulant(
+                        params, snr, a, cfg.n_bits, quantizers[snr],
+                        cfg.blocks)
+                else:
+                    banks[snr] = stages.prepare_bank(params, snr, a,
+                                                     cfg.n_bits,
+                                                     quantizers[snr])
             return banks[snr]
 
         def gmm_est(snr, r):
+            if structured:
+                return stages.estimate_circulant(get_bank(snr), r,
+                                                 cfg.n_summands_or_proba,
+                                                 cfg.blocks)
             return stages.estimate_auto(get_bank(snr), r,
                                         cfg.n_summands_or_proba)
+
+        def coh_est(bank, rb, mode, alpha):
+            if structured:
+                return stages.estimate_circulant_coherent(
+                    bank, rb, mode, float(alpha), cfg.blocks)
+            return stages.estimate_coherent_auto(bank, rb, mode, alpha)
 
         eval_algo("blmmse_gmm", "gmm_rstat", gmm_est, norm_clip=0.1)
 
@@ -304,7 +333,7 @@ def run(cfg: GmmBenchConfig, verbose: bool = True, device=None):
                                          alpha_val_h, snr, a, cfg.n_bits,
                                          quantizers[snr])
                     best, scores = gmm_estimator.select_coherence_alpha(
-                        lambda rb, al: stages.estimate_coherent_auto(
+                        lambda rb, al: coh_est(
                             get_bank(snr), rb, cfg.n_summands_or_proba, al),
                         r_a, alpha_val_h)
                     alpha_by_snr[snr] = best
@@ -316,7 +345,7 @@ def run(cfg: GmmBenchConfig, verbose: bool = True, device=None):
             # block-pooled joint estimation over each coherence block
             def gmm_coh_est(snr, r):
                 del r  # uses the block-shaped observations
-                return stages.flatten_coherence(stages.estimate_coherent_auto(
+                return stages.flatten_coherence(coh_est(
                     get_bank(snr), r_blocks_by_snr[snr],
                     cfg.n_summands_or_proba, coherent_alpha(snr)))
 

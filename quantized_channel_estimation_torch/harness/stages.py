@@ -4,7 +4,9 @@ Port of `quantized_channel_estimation_tpu/harness/stages.py`, single-device
 subset: `generate_channels`, `pilot_matrix`, `sample_cov`, `observe`,
 `blmmse_global`, `blmmse_genie`, `ls_global`, `gmm_fit`, `prepare_bank`,
 `nmse`, `rate`, `rate_mf`, `estimate_auto`, `estimate_coherent`,
-`estimate_coherent_auto`, `flatten_coherence`. The JAX stages wrap every
+`estimate_coherent_auto`, `flatten_coherence`, and for the structured banks
+`prepare_bank_circulant`, `prepare_bank_circulant_spectra`,
+`estimate_circulant`, `estimate_circulant_coherent`. The JAX stages wrap every
 function in `cjit` so that complex data crosses program boundaries as
 packed (re, im) reals, because the TPU runtime has no complex buffers;
 PyTorch on CUDA has complex64 tensors, so here the stages are the plain
@@ -16,8 +18,10 @@ from typing import Optional
 
 import torch
 
-from quantized_channel_estimation_torch.estimators import blmmse, kernels, ls
-from quantized_channel_estimation_torch.models import gmm, gmm_estimator
+from quantized_channel_estimation_torch.estimators import (
+    blmmse, circ_kernels, kernels, ls)
+from quantized_channel_estimation_torch.models import (
+    gmm, gmm_estimator, structured_bank)
 from quantized_channel_estimation_torch.ops import observation, pilots, scm
 from quantized_channel_estimation_torch.utils import metrics
 
@@ -97,6 +101,42 @@ def estimate_coherent_auto(bank: gmm_estimator.PreparedBank, r: torch.Tensor,
     if mode == "all":
         return kernels.estimate_fused_coherent(bank, r, alpha)
     return estimate_coherent(bank, r, mode, 512, alpha)
+
+
+def prepare_bank_circulant(params, snr_db, a, n_bits, q=None, blocks=None):
+    """FFT-domain bank of a (block-)circulant fit and the single
+    scaled-identity pilot (`structured_bank.prepare_bank_circulant`)."""
+    return structured_bank.prepare_bank_circulant(params, snr_db, a, n_bits,
+                                                  q, blocks=blocks)
+
+
+def prepare_bank_circulant_spectra(params, spectra, snr_db, a, n_bits, q=None,
+                                   blocks=None):
+    """The same bank straight from channel-covariance spectra (K, D); the
+    covariances of `params` are not read."""
+    return structured_bank.prepare_bank_circulant(
+        params, snr_db, a, n_bits, q, blocks=blocks, spectra=spectra)
+
+
+def estimate_circulant(bank: structured_bank.CirculantBank, r: torch.Tensor,
+                       mode, blocks=None):
+    """Structured analog of `estimate_auto`: 'all' mode within
+    `circ_kernels.circ_kernel_eligible` -> the circulant kernel K6 (the
+    CUDA kernel for a CUDA tensor, its plain version for a CPU tensor);
+    selection modes and wider banks -> the `torch.fft` pipeline. The rule
+    reads shapes only."""
+    return structured_bank.estimate_circulant(bank, r, mode, 16384, blocks)
+
+
+def estimate_circulant_coherent(bank: structured_bank.CirculantBank,
+                                r: torch.Tensor, mode, alpha: float = 1.0,
+                                blocks=None):
+    """Coherent analog of `estimate_circulant` for blocks r (B, T, M): 'all'
+    mode with (D, K, T) within `circ_kernels.circ_kernel_eligible` -> K7
+    (the alpha blend in the kernel), else the `torch.fft` coherent
+    pipeline."""
+    return structured_bank.estimate_circulant_coherent(bank, r, mode, 4096,
+                                                       alpha, blocks)
 
 
 def nmse(h_est: torch.Tensor, h: torch.Tensor) -> float:

@@ -1,13 +1,17 @@
-"""Complex Gaussian mixture model fitted by EM (full covariance).
+"""Complex Gaussian mixture model fitted by EM.
 
-Port of `quantized_channel_estimation_tpu/models/gmm.py`, 'full' covariance
-only: `GmmConfig`, `GmmParams`, `GmmFitResult`, `log_prob_full`,
-`accumulate_stats`, `_m_step_full`, `_init_resp_stats`, `_em_loop`, `fit`
-and `predict_proba`. E and M are fused into one chunked pass over the data
-that accumulates the sufficient statistics (Nk, sum r.x, sum r.xx^H); the
+Port of `quantized_channel_estimation_tpu/models/gmm.py` for the covariance
+types 'full', 'circulant', 'block-circulant', 'diag' and 'spherical':
+`GmmConfig`, `GmmParams`, `GmmFitResult`, `log_prob_full`, `log_prob_diag`,
+`accumulate_stats`, `_m_step_full`, `_m_step_diag`, `_init_resp_stats`,
+`_em_loop`, `_dft_for`, `fit` and `predict_proba`. E and M are fused into
+one chunked pass over the data that accumulates the sufficient statistics
+(Nk, sum r.x, and sum r.xx^H or, for the diagonal modes, sum r.|x|^2); the
 EM loop is a Python loop with the JAX stopping rule (|change of the mean
-log-likelihood| < tol, at least one iteration). The other covariance types
-raise `NotImplementedError` (ROADMAP Queue 1 item 8).
+log-likelihood| < tol, at least one iteration). The (block-)circulant types
+run the diagonal EM on the unitary-DFT-domain data and return dense
+covariances F^H diag(s) F, as every fit does. 'toeplitz' and
+'block-toeplitz' raise `NotImplementedError` (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -89,35 +93,58 @@ def log_prob_full(x: torch.Tensor, means: torch.Tensor,
     return (-(d * math.log(math.pi) + quad) + 2.0 * logdet[:, None]).T
 
 
+def log_prob_diag(x: torch.Tensor, means: torch.Tensor,
+                  variances: torch.Tensor) -> torch.Tensor:
+    """Diagonal-covariance complex log-density, x (N, D) -> (N, K), with
+    variances (K, D) real. The quadratic is expanded so that no (N, K, D)
+    intermediate exists:
+    sum_d |x_d - mu_d|^2 / c_d = sum |mu|^2 p - 2 Re(x . (mu* p)) + |x|^2 . p."""
+    d = x.shape[-1]
+    prec = 1.0 / variances                                    # (K, D)
+    mu2 = (means.abs() ** 2 * prec).sum(-1)                   # (K,)
+    cross = (x @ (means.conj() * prec).T).real                # (N, K)
+    x2 = (x.abs() ** 2) @ prec.T                              # (N, K)
+    quad = mu2[None, :] - 2.0 * cross + x2
+    logdet = -torch.log(variances).sum(-1)                    # log det C^-1
+    return -(d * math.log(math.pi) + quad) + logdet[None, :]
+
+
 class _Stats(NamedTuple):
     nk: torch.Tensor        # (K,)
     sx: torch.Tensor        # (K, D) complex: sum_n r_nk x_n
-    sxx: torch.Tensor       # (K, D, D) complex: sum_n r_nk x_n x_n^H
+    sxx: torch.Tensor       # (K, D, D) complex: sum_n r_nk x_n x_n^H, or
+    #                         (K, D) real: sum_n r_nk |x_n|^2 (diag)
     log_norm: torch.Tensor  # scalar: sum_n log p(x_n)
 
 
-def _zero_stats(k: int, d: int, dtype, device) -> _Stats:
+def _zero_stats(k: int, d: int, dtype, device, diag: bool = False) -> _Stats:
     rdt = real_dtype_of(dtype)
+    sxx0 = (torch.zeros((k, d), dtype=rdt, device=device) if diag
+            else torch.zeros((k, d, d), dtype=dtype, device=device))
     return _Stats(torch.zeros(k, dtype=rdt, device=device),
-                  torch.zeros((k, d), dtype=dtype, device=device),
-                  torch.zeros((k, d, d), dtype=dtype, device=device),
+                  torch.zeros((k, d), dtype=dtype, device=device), sxx0,
                   torch.zeros((), dtype=rdt, device=device))
 
 
 def _update_stats(stats: _Stats, resp: torch.Tensor, xc: torch.Tensor,
                   log_norm_inc=0.0) -> _Stats:
-    """Add one chunk's responsibility-weighted moments."""
+    """Add one chunk's responsibility-weighted moments (the second moment
+    in the form the statistics hold: full or diagonal)."""
     respd = resp.to(xc.dtype)
-    sxx = torch.einsum("nk,nd,ne->kde", respd, xc, xc.conj())
+    if stats.sxx.dim() == 2:
+        sxx = resp.T @ (xc.abs() ** 2)
+    else:
+        sxx = torch.einsum("nk,nd,ne->kde", respd, xc, xc.conj())
     return _Stats(stats.nk + resp.sum(0), stats.sx + respd.T @ xc,
                   stats.sxx + sxx, stats.log_norm + log_norm_inc)
 
 
 def accumulate_stats(x: torch.Tensor, log_weights: torch.Tensor, log_prob_fn,
-                     chunk: int) -> _Stats:
+                     chunk: int, diag: bool = False) -> _Stats:
     """One pass over the data: responsibilities chunk by chunk, accumulated
-    into (Nk, sum r.x, sum r.xx^H, sum log-norm)."""
-    stats = _zero_stats(log_weights.shape[0], x.shape[-1], x.dtype, x.device)
+    into (Nk, sum r.x, sum r.xx^H or sum r.|x|^2, sum log-norm)."""
+    stats = _zero_stats(log_weights.shape[0], x.shape[-1], x.dtype, x.device,
+                        diag)
     for i0 in range(0, x.shape[0], chunk):
         xc = x[i0:i0 + chunk]
         lp = log_prob_fn(xc) + log_weights[None, :]
@@ -127,11 +154,16 @@ def accumulate_stats(x: torch.Tensor, log_weights: torch.Tensor, log_prob_fn,
     return stats
 
 
-def _m_step_full(stats: _Stats, cfg: GmmConfig):
+def _means_from_stats(stats: _Stats, zero_mean: bool):
     nk = stats.nk + 10.0 * _F32_EPS
     means = stats.sx / nk[:, None].to(stats.sx.dtype)
-    if cfg.zero_mean:
+    if zero_mean:
         means = torch.zeros_like(means)
+    return nk, means
+
+
+def _m_step_full(stats: _Stats, cfg: GmmConfig):
+    nk, means = _means_from_stats(stats, cfg.zero_mean)
     # sum r (x-mu)(x-mu)^H = sxx - nk mu mu^H when mu is the weighted mean
     covs = stats.sxx / nk[:, None, None].to(stats.sxx.dtype)
     if not cfg.zero_mean:
@@ -139,11 +171,19 @@ def _m_step_full(stats: _Stats, cfg: GmmConfig):
     return nk, means, linalg.add_jitter(covs, cfg.reg_covar)
 
 
+def _m_step_diag(stats: _Stats, cfg: GmmConfig):
+    nk, means = _means_from_stats(stats, cfg.zero_mean)
+    var = stats.sxx / nk[:, None]
+    if not cfg.zero_mean:
+        var = var - means.abs() ** 2
+    return nk, means, var + cfg.reg_covar
+
+
 def _stats_from_labels(x: torch.Tensor, labels: torch.Tensor, k: int,
-                       chunk: int) -> _Stats:
+                       chunk: int, diag: bool = False) -> _Stats:
     """Sufficient statistics of a hard assignment (one-hot
     responsibilities)."""
-    stats = _zero_stats(k, x.shape[-1], x.dtype, x.device)
+    stats = _zero_stats(k, x.shape[-1], x.dtype, x.device, diag)
     rdt = stats.nk.dtype
     for i0 in range(0, x.shape[0], chunk):
         onehot = torch.nn.functional.one_hot(labels[i0:i0 + chunk], k)
@@ -152,13 +192,13 @@ def _stats_from_labels(x: torch.Tensor, labels: torch.Tensor, k: int,
 
 
 def _init_resp_stats(gen: torch.Generator, x: torch.Tensor, cfg: GmmConfig,
-                     chunk: int) -> _Stats:
+                     chunk: int, diag: bool = False) -> _Stats:
     """Initial responsibilities folded into sufficient statistics:
     init='kmeans' is the hard assignment of k-means on [Re, Im]-stacked
     float32 data; init='random' draws rows of U(0,1) normalized to sum 1."""
     k = cfg.n_components
     if cfg.init == "random":
-        stats = _zero_stats(k, x.shape[-1], x.dtype, x.device)
+        stats = _zero_stats(k, x.shape[-1], x.dtype, x.device, diag)
         for i0 in range(0, x.shape[0], chunk):
             xc = x[i0:i0 + chunk]
             resp = torch.rand((xc.shape[0], k), generator=gen,
@@ -168,26 +208,35 @@ def _init_resp_stats(gen: torch.Generator, x: torch.Tensor, cfg: GmmConfig,
         return stats
     labels = kmeans(gen, cplx2real(x, dim=-1).to(torch.float32), k,
                     max_iter=cfg.kmeans_iter).labels
-    return _stats_from_labels(x, labels, k, chunk)
+    return _stats_from_labels(x, labels, k, chunk, diag)
 
 
 class _State(NamedTuple):
     weights: torch.Tensor
     means: torch.Tensor
-    covs: torch.Tensor
+    covs: torch.Tensor   # (K, D, D) complex (full) or (K, D) real (diag)
 
 
-def _params_from_stats(stats: _Stats, cfg: GmmConfig) -> _State:
-    nk, means, covs = _m_step_full(stats, cfg)
+def _params_from_stats(stats: _Stats, cfg: GmmConfig,
+                       mode: str = "full") -> _State:
+    if mode == "full":
+        nk, means, covs = _m_step_full(stats, cfg)
+    else:
+        nk, means, covs = _m_step_diag(stats, cfg)
+        if mode == "spherical":
+            # one variance per component: the diagonal averaged over dims
+            covs = covs.mean(-1, keepdim=True).expand_as(covs)
     return _State(nk / nk.sum(), means, covs)
 
 
-def _em_loop(x: torch.Tensor, init_stats: _Stats, cfg: GmmConfig):
-    """Full-covariance EM from initial statistics. Returns (state,
-    lower_bound, n_iter, converged, lb_history)."""
+def _em_loop(x: torch.Tensor, init_stats: _Stats, cfg: GmmConfig,
+             mode: str = "full"):
+    """EM from initial statistics, mode in {'full', 'diag', 'spherical'}.
+    Returns (state, lower_bound, n_iter, converged, lb_history)."""
     n = x.shape[0]
     chunk = min(cfg.chunk_size, n)
-    state = _params_from_stats(init_stats, cfg)
+    diag = mode != "full"
+    state = _params_from_stats(init_stats, cfg, mode)
     rdt = init_stats.nk.dtype
     # lower bound -inf and previous +inf: the first check sees an infinite
     # change, so the loop always runs at least one iteration
@@ -195,12 +244,15 @@ def _em_loop(x: torch.Tensor, init_stats: _Stats, cfg: GmmConfig):
     prev = torch.tensor(math.inf, dtype=rdt, device=x.device)
     n_iter, history = 0, []
     while n_iter < cfg.max_iter and bool((lb - prev).abs() >= cfg.tol):
-        prec = linalg.robust_precision_cholesky(state.covs)
-        means = state.means
-        stats = accumulate_stats(
-            x, torch.log(state.weights),
-            lambda xc: log_prob_full(xc, means, prec), chunk)
-        state = _params_from_stats(stats, cfg)
+        means, covs = state.means, state.covs
+        if diag:
+            log_prob_fn = lambda xc: log_prob_diag(xc, means, covs)  # noqa: E731
+        else:
+            prec = linalg.robust_precision_cholesky(covs)
+            log_prob_fn = lambda xc: log_prob_full(xc, means, prec)  # noqa: E731
+        stats = accumulate_stats(x, torch.log(state.weights), log_prob_fn,
+                                 chunk, diag)
+        state = _params_from_stats(stats, cfg, mode)
         prev, lb = lb, stats.log_norm / n
         n_iter += 1
         history.append(float(lb))
@@ -208,17 +260,51 @@ def _em_loop(x: torch.Tensor, init_stats: _Stats, cfg: GmmConfig):
     return state, lb, n_iter, converged, history
 
 
+def _dft_for(cfg: GmmConfig, d: int, dtype, device=None) -> torch.Tensor:
+    """The unitary basis that diagonalizes the fit's covariances: the DFT
+    for 'circulant', kron(F_n1, F_n2) for 'block-circulant'."""
+    if cfg.cov_type == "circulant":
+        return linalg.unitary_dft(d, dtype, device)
+    n1, n2 = cfg.blocks
+    if n1 * n2 != d:
+        raise ValueError(f"blocks {cfg.blocks} incompatible with dim {d}")
+    return torch.kron(linalg.unitary_dft(n1, dtype, device),
+                      linalg.unitary_dft(n2, dtype, device))
+
+
 def _fit_once(gen: torch.Generator, h: torch.Tensor,
               cfg: GmmConfig) -> GmmFitResult:
-    if cfg.cov_type != "full":
+    d, dtype = h.shape[-1], h.dtype
+    if cfg.cov_type in ("circulant", "block-circulant"):
+        f = _dft_for(cfg, d, dtype, h.device)
+        x = h @ f.T                        # unitary-DFT-domain data
+        init_stats = _init_resp_stats(gen, x, cfg, cfg.chunk_size, True)
+        state, lb, n_iter, converged, history = _em_loop(x, init_stats, cfg,
+                                                         "diag")
+        means = state.means @ f.conj()     # back-transform row vectors
+        covs = torch.einsum("fd,kf,fe->kde", f.conj(), state.covs.to(dtype),
+                            f)
+        covs = linalg.hermitize(covs)
+    elif cfg.cov_type == "full":
+        init_stats = _init_resp_stats(gen, h, cfg, cfg.chunk_size)
+        state, lb, n_iter, converged, history = _em_loop(h, init_stats, cfg)
+        means, covs = state.means, linalg.hermitize(state.covs)
+    elif cfg.cov_type in ("diag", "spherical"):
+        init_stats = _init_resp_stats(gen, h, cfg, cfg.chunk_size, True)
+        state, lb, n_iter, converged, history = _em_loop(h, init_stats, cfg,
+                                                         cfg.cov_type)
+        means = state.means
+        covs = torch.diag_embed(state.covs.to(dtype))
+    elif cfg.cov_type in ("toeplitz", "block-toeplitz"):
         raise NotImplementedError(
-            f"cov_type={cfg.cov_type!r} is not ported yet; the port fits "
-            "'full' covariances only (ROADMAP Queue 1 item 8)")
-    init_stats = _init_resp_stats(gen, h, cfg, cfg.chunk_size)
-    state, lb, n_iter, converged, history = _em_loop(h, init_stats, cfg)
-    covs = linalg.add_jitter(linalg.hermitize(state.covs), cfg.reg_covar)
+            f"cov_type={cfg.cov_type!r} (the inverse-EM Toeplitz fit) is not "
+            "ported yet (ROADMAP Queue 1 item 8)")
+    else:
+        raise NotImplementedError(
+            f"covariance_type={cfg.cov_type!r} is not implemented")
+    covs = linalg.add_jitter(covs, cfg.reg_covar)
     prec = linalg.robust_precision_cholesky(covs)
-    params = GmmParams(state.weights, state.means, covs, prec)
+    params = GmmParams(state.weights, means, covs, prec)
     return GmmFitResult(params, lb, n_iter, converged, history)
 
 

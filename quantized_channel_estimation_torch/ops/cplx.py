@@ -1,7 +1,10 @@
 """Complex-array conventions and random sampling.
 
-Port of `quantized_channel_estimation_tpu/ops/cplx.py` (main-path subset:
-`crandn`, `cplx2real`, `real2cplx`). Random draws take an explicit
+Port of `quantized_channel_estimation_tpu/ops/cplx.py`: `crandn`,
+`cplx2real`, `real2cplx`, and the matrix products of the structured banks
+(`cmatmul`, `cmatmul_realout`, `rcmatmul`). The JAX package spells those as
+real block embeddings for the TPU's matrix unit; PyTorch has complex GEMMs,
+so here each is the direct product. Random draws take an explicit
 `torch.Generator` in place of a JAX key; the two frameworks' streams differ,
 so tests hand both packages the same numpy noise.
 """
@@ -36,3 +39,20 @@ def real2cplx(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Inverse of :func:`cplx2real`."""
     re, im = torch.chunk(x, 2, dim=dim)
     return torch.complex(re, im)
+
+
+def cmatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Complex a @ b: a (..., n, k), b (..., k, m) -> (..., n, m)."""
+    return a @ b
+
+
+def cmatmul_realout(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Re(a @ b) for complex a, b with two real GEMMs (the imaginary half
+    is never computed). Returns a real tensor."""
+    return a.real @ b.real - a.imag @ b.imag
+
+
+def rcmatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """real a @ complex b as two real GEMMs against Re b and Im b (a
+    complex cast of `a` would spend half the product on a zero block)."""
+    return torch.complex(a @ b.real, a @ b.imag)

@@ -1,9 +1,10 @@
 """Batched Hermitian linear algebra (main-path subset).
 
 Port of `quantized_channel_estimation_tpu/ops/linalg.py`: the Toeplitz and
-DFT builders and the Cholesky-based solves the GMM fit, the bank
-preparation and the BLMMSE/LS baselines use. Every function is batched over
-leading axes and follows the dtype of its input.
+DFT matrices, the Cholesky-based solves the GMM fit, the bank preparation
+and the BLMMSE/LS baselines use, and the (block-)circulant spectra helpers
+of the structured banks. Every function is batched over leading axes and
+follows the dtype of its input.
 """
 from __future__ import annotations
 
@@ -108,3 +109,51 @@ def psd_pinv(c: torch.Tensor, rcond: float = 1e-10) -> torch.Tensor:
 def hermitize(c: torch.Tensor) -> torch.Tensor:
     """(C + C^H)/2."""
     return 0.5 * (c + c.mH)
+
+
+def _block_reshape(x: torch.Tensor, blocks) -> torch.Tensor:
+    n1, n2 = blocks
+    return x.reshape(x.shape[:-1] + (n1, n2))
+
+
+def circulant_diag_spectra(covs: torch.Tensor, blocks=None) -> torch.Tensor:
+    """Diagonal of F C F^H for the unitary (block-)DFT basis F: the exact
+    eigenvalues when C is (block-)circulant in that basis, and otherwise
+    the spectrum of its Frobenius-best circulant approximation. Computed
+    without F: fft over the row index, ifft over the column index, then the
+    diagonal. `blocks=(n1, n2)` selects the kron(F_n1, F_n2) basis of
+    'block-circulant' fits. covs (..., D, D) Hermitian -> (..., D) real."""
+    if blocks is None:
+        g = torch.fft.ifft(torch.fft.fft(covs, dim=-2), dim=-1)
+    else:
+        n1, n2 = blocks
+        d = covs.shape[-1]
+        if n1 * n2 != d:
+            raise ValueError(f"blocks {blocks} incompatible with dim {d}")
+        c4 = covs.reshape(covs.shape[:-2] + (n1, n2, n1, n2))
+        g = torch.fft.ifftn(torch.fft.fftn(c4, dim=(-4, -3)), dim=(-2, -1))
+        g = g.reshape(covs.shape)
+    return torch.diagonal(g, dim1=-2, dim2=-1).real
+
+
+def circulant_first_rows(spectra: torch.Tensor, blocks=None) -> torch.Tensor:
+    """First row C[0, :] of the (block-)circulant C = F^H diag(s) F
+    (unitary basis): fft(s) / D (2-D fft for blocks). spectra (..., D) real
+    -> (..., D) complex."""
+    d = spectra.shape[-1]
+    s = torch.complex(spectra, torch.zeros_like(spectra))
+    if blocks is None:
+        return torch.fft.fft(s, dim=-1) / d
+    return torch.fft.fft2(_block_reshape(s, blocks)).reshape(s.shape) / d
+
+
+def circulant_spectra_from_first_rows(rows: torch.Tensor,
+                                      blocks=None) -> torch.Tensor:
+    """Inverse of `circulant_first_rows`: s = D ifft(row0), real part (a
+    Hermitian circulant has a conjugate-symmetric first row, so the
+    imaginary residue is rounding). rows (..., D) -> (..., D) real."""
+    d = rows.shape[-1]
+    if blocks is None:
+        return torch.fft.ifft(rows, dim=-1).real * d
+    s = torch.fft.ifft2(_block_reshape(rows, blocks))
+    return s.real.reshape(rows.shape) * d

@@ -2,7 +2,9 @@
 
 Port of `quantized_channel_estimation_tpu/serving.py`, single-device
 subset: `ServiceOverloadedError`, `ServiceClosedError`, `_Metrics`,
-`_Request` and `EstimationService` with a dense GMM bank. Requests of any
+`_Request` and `EstimationService` with a dense GMM bank or, with
+`structured=True` / `from_circulant_spectra`, the FFT-domain circulant bank
+of `models.structured_bank`. Requests of any
 size are queued per (SNR, T), coalesced into power-of-two microbatches of
 at most `max_batch` snapshots (a coherence block is never split), and
 flushed when a queue fills or its oldest request is older than
@@ -14,15 +16,18 @@ estimates run through the hand-written kernels: 'all'-mode flat requests
 through K1, (n, T, M) coherence blocks through K3 (T beyond its range
 through the einsum estimator), int top-k modes through K4; float
 cumulative-p modes, and selection modes on blocks, through the einsum
-estimators. On the CPU the same dispatch reaches the kernels' plain
+estimators. A structured service runs 'all'-mode flat requests through the
+circulant kernel K6 and blocks through K7 (within
+`circ_kernels.circ_kernel_eligible`), and every selection mode through the
+`torch.fft` pipeline. On the CPU the same dispatch reaches the kernels' plain
 versions. A worker thread computes on the service's device and its own
 CUDA stream; every fault reaches the waiting clients through their
 request.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-Queue 1 item: `mesh` (item 15), `structured` and `from_circulant_spectra`
-(item 11), `factored` and `from_mfa` (item 12), `VaeEstimationService`
-(item 13).
+Queue 1 item: `mesh` (item 15, with or without `structured`), `factored`
+and `from_mfa` (item 12), `VaeEstimationService` (item 13); a structured
+service with a multi-pilot matrix names ROADMAP Queue 2 (kernel K10).
 """
 from __future__ import annotations
 
@@ -37,11 +42,15 @@ from typing import List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from quantized_channel_estimation_torch.estimators import kernels
+from quantized_channel_estimation_torch.estimators import (
+    circ_kernels, kernels)
 from quantized_channel_estimation_torch.harness.stages import resolve_device
-from quantized_channel_estimation_torch.models import gmm, gmm_estimator
+from quantized_channel_estimation_torch.models import (
+    gmm, gmm_estimator, structured_bank)
 from quantized_channel_estimation_torch.models.gmm_estimator import (
     PreparedBank)
+from quantized_channel_estimation_torch.models.structured_bank import (
+    CirculantBank)
 from quantized_channel_estimation_torch.ops import observation
 from quantized_channel_estimation_torch.ops import quantizer as Q
 
@@ -109,8 +118,9 @@ class _Request:
 
 class _BankEntry(NamedTuple):
     """A cached per-SNR bank and its kernel layouts (the `kernels.lowered`
-    cache, keyed by (T, alpha))."""
-    bank: PreparedBank
+    cache keyed by (T, alpha), or for a structured bank the
+    `circ_kernels.lowered` cache keyed by (blocks, T, alpha))."""
+    bank: Union[PreparedBank, CirculantBank]
     lowered: dict
 
 
@@ -139,7 +149,8 @@ class EstimationService:
                  structured_blocks=None, factored: bool = False,
                  device=None):
         """params: the GMM (tensors or numpy arrays; moved to `device`);
-        a: the (M, N) pilot matrix. max_banks: LRU cap on cached per-SNR
+        a: the (M, N) pilot matrix (a structured service also takes the
+        scalar x0 of A = x0 I). max_banks: LRU cap on cached per-SNR
         banks. snr_step_db: submitted SNRs snap to this grid before bank
         lookup, so nearby floats share one bank; None disables.
         max_queue: high-water mark on pending snapshots across queues;
@@ -147,7 +158,13 @@ class EstimationService:
         use_kernels: None uses the kernels wherever the mode allows
         ('all', or an int top-k mode within `kernels.topk_mode_eligible`);
         True raises for a mode they cannot compute; False serves through
-        the einsum estimators. coherence_alpha: evidence blend for (n, T, M)
+        the einsum estimators. structured: serve through the FFT-domain
+        circulant bank (`models.structured_bank`: exact for circulant and
+        block-circulant fits with the single scaled-identity pilot);
+        `structured_blocks` selects the kron basis of block-circulant fits;
+        the kernels are then the circulant ones ('all' mode within
+        `circ_kernels.circ_kernel_eligible`). coherence_alpha: evidence
+        blend for (n, T, M)
         block requests (1 the block posterior, 0 independent snapshots), or
         'auto' to select it per (SNR, T) from
         `gmm_estimator.DEFAULT_ALPHA_GRID` by NMSE on `alpha_val`, real
@@ -156,35 +173,57 @@ class EstimationService:
         one)."""
         if mesh is not None:
             raise _not_ported("mesh-backed serving", 15)
-        if structured:
-            raise _not_ported("structured (circulant) serving", 11)
         if factored:
+            if structured:
+                raise ValueError("structured and factored are mutually "
+                                 "exclusive bank representations")
             raise _not_ported("factored (MFA) serving", 12)
         self.device = resolve_device(device)
         self.params = gmm.GmmParams(*(torch.as_tensor(x, device=self.device)
                                       for x in params))
-        a = torch.as_tensor(a, device=self.device)
+        k_comp, d = self.params.means.shape
+        a = torch.as_tensor(a, device=self.device).to(
+            self.params.covariances.dtype)
+        if structured and a.dim() == 0:
+            a = a * torch.eye(d, dtype=a.dtype, device=self.device)
         if a.dim() != 2:
             raise ValueError(f"the pilot matrix must be (M, N); got shape "
                              f"{tuple(a.shape)}")
-        self.a = a.to(self.params.covariances.dtype)
+        self.a = a
         self.n_bits = n_bits
         self.quantizer_type = quantizer_type
         self.mode = mode
-        k_comp, d = self.params.means.shape
+        self.structured = structured
+        self.structured_blocks = structured_blocks
+        self._spectra = None   # set by `from_circulant_spectra`
         m = self.a.shape[0]
-        kernel_ok = (max(2 * m, 2 * d) <= kernels.MAX_WIDTH
-                     and (mode == "all"
-                          or kernels.topk_mode_eligible(d, k_comp, m, mode)))
-        if use_kernels and not kernel_ok:
-            # the kernels compute the 'all' combine and int top-k
-            # selections; serving 'all' results for another mode would be
-            # wrong answers, not slow ones
-            raise ValueError(
-                "use_kernels=True requires mode='all' or an int top-k mode "
-                f"with 1 <= k <= min({kernels.TOPK_KERNEL_MAX}, K-1), and "
-                f"2M, 2D <= {kernels.MAX_WIDTH} (got mode={mode!r}, "
-                f"K={k_comp}, M={m}, D={d})")
+        if structured:
+            # fail at construction, not in the serving thread at the first
+            # submit: the circulant bank takes A = x0 I only
+            if structured_bank._pilot_vector(self.a, d).shape[0] > 1:
+                raise NotImplementedError(
+                    "multi-pilot structured serving (n_pilots > 1) is not "
+                    "ported yet (ROADMAP Queue 2, kernel K10)")
+            kernel_ok = (mode == "all"
+                         and circ_kernels.circ_kernel_eligible(d, k_comp))
+            if use_kernels and not kernel_ok:
+                raise ValueError(
+                    "use_kernels=True on a structured service requires "
+                    f"mode='all' and D <= {circ_kernels.CIRC_MAX_D} (got "
+                    f"mode={mode!r}, D={d})")
+        else:
+            kernel_ok = (max(2 * m, 2 * d) <= kernels.MAX_WIDTH
+                         and (mode == "all" or kernels.topk_mode_eligible(
+                             d, k_comp, m, mode)))
+            if use_kernels and not kernel_ok:
+                # the kernels compute the 'all' combine and int top-k
+                # selections; serving 'all' results for another mode would
+                # be wrong answers, not slow ones
+                raise ValueError(
+                    "use_kernels=True requires mode='all' or an int top-k "
+                    f"mode with 1 <= k <= min({kernels.TOPK_KERNEL_MAX}, "
+                    f"K-1), and 2M, 2D <= {kernels.MAX_WIDTH} (got "
+                    f"mode={mode!r}, K={k_comp}, M={m}, D={d})")
         self.use_kernels = kernel_ok if use_kernels is None else use_kernels
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -231,8 +270,22 @@ class EstimationService:
         self._metrics = _Metrics()
 
     @classmethod
-    def from_circulant_spectra(cls, *args, **kwargs):
-        raise _not_ported("EstimationService.from_circulant_spectra", 11)
+    def from_circulant_spectra(cls, weights, means, spectra, a, n_bits,
+                               **kwargs):
+        """Serve a spectra-native circulant prior: any (weights (K,), means
+        (K, D), spectra (K, D)) triple goes straight into the structured
+        service; no dense (K, D, D) covariance is ever built, so the memory
+        of a per-SNR bank stays O(K D)."""
+        k = np.asarray(weights).shape[0]
+        dummy = np.zeros((k, 1, 1), np.complex64)
+        svc = cls(gmm.GmmParams(np.asarray(weights), np.asarray(means),
+                                dummy, dummy), a, n_bits, structured=True,
+                  **kwargs)
+        # the banks are prepared from the stored spectra (the covariances
+        # are placeholders); the worker reads them at its first request
+        svc._spectra = torch.as_tensor(np.asarray(spectra),
+                                       device=svc.device)
+        return svc
 
     @classmethod
     def from_mfa(cls, *args, **kwargs):
@@ -254,8 +307,14 @@ class EstimationService:
         self._metrics.bank_cache_misses += 1
         q = Q.design_quantizer(snr, self.n_bits, self.quantizer_type)
         q = None if q is None else q.to(self.device)
-        entry = _BankEntry(gmm_estimator.prepare_bank(
-            self.params, snr, self.a, self.n_bits, q), {})
+        if self.structured:
+            bank = structured_bank.prepare_bank_circulant(
+                self.params, snr, self.a, self.n_bits, q,
+                blocks=self.structured_blocks, spectra=self._spectra)
+        else:
+            bank = gmm_estimator.prepare_bank(self.params, snr, self.a,
+                                              self.n_bits, q)
+        entry = _BankEntry(bank, {})
         self._banks[snr] = entry
         while len(self._banks) > self.max_banks:
             self._banks.popitem(last=False)
@@ -390,7 +449,15 @@ class EstimationService:
 
     def _estimate(self, entry: _BankEntry, r: torch.Tensor) -> torch.Tensor:
         """Flat snapshots r (n, M) -> (n, D): K1 ('all') or K4 (top-k)
-        with the kernels, else the einsum estimator."""
+        with the kernels, else the einsum estimator; structured: K6, else
+        the `torch.fft` pipeline."""
+        if self.structured:
+            if self.use_kernels:
+                return circ_kernels.estimate_fused_circulant(
+                    entry.bank, r, self.structured_blocks, entry.lowered)
+            return structured_bank.estimate_circulant(
+                entry.bank, r, self.mode, 16384, self.structured_blocks,
+                "fft")
         if self.use_kernels:
             if self.mode == "all":
                 return kernels.estimate_fused(entry.bank, r, entry.lowered)
@@ -402,7 +469,16 @@ class EstimationService:
     def _estimate_coherent(self, entry: _BankEntry, r: torch.Tensor,
                            alpha: float) -> torch.Tensor:
         """Blocks r (n, T, M) -> (n, T, D): K3 ('all' with the kernels),
-        else the einsum coherent estimator."""
+        else the einsum coherent estimator; structured: K7, else the
+        `torch.fft` coherent pipeline."""
+        if self.structured:
+            if self.use_kernels:
+                return circ_kernels.estimate_fused_circulant_coherent(
+                    entry.bank, r, alpha, self.structured_blocks,
+                    entry.lowered)
+            return structured_bank.estimate_circulant_coherent(
+                entry.bank, r, self.mode, 4096, alpha,
+                self.structured_blocks, "fft")
         if self.use_kernels and self.mode == "all":
             return kernels.estimate_fused_coherent(entry.bank, r, alpha,
                                                    entry.lowered)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K3, K4) against their plain versions on
-the card, and the estimation service on the card.
+"""The port's CUDA kernels (K1, K3, K4 and the circulant K6-K9) against
+their plain versions on the card, and the estimation service on the card.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor the JAX package, so on a machine with a card and
@@ -10,7 +10,11 @@ without JAX it runs alone:
 Tolerance: 1e-4 of the output scale (max |kernel - plain| / max |plain|);
 both are float32 with the products summed in another order. For the top-k
 kernel, rows whose k-th and (k+1)-th logits lie within 1e-3 are left out
-of the comparison: the two sums may order such near-ties differently.
+of the comparison: the two sums may order such near-ties differently. The
+circulant kernels expand the quadratic logit, which cancels, and pool it
+over T rows for K7 / K9; where that pushes kernel and plain version past
+1e-4 of each other, both are held against the plain version in float64,
+the kernel to within twice the plain version's own error.
 """
 import math
 
@@ -18,9 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from quantized_channel_estimation_torch.estimators import circ_kernels as tck
 from quantized_channel_estimation_torch.estimators import kernels as tkn
 from quantized_channel_estimation_torch.models import gmm as tg
 from quantized_channel_estimation_torch.models import gmm_estimator as tge
+from quantized_channel_estimation_torch.models import structured_bank as tsb
 from quantized_channel_estimation_torch.ops import linalg as tl
 from quantized_channel_estimation_torch.ops import pilots as tp
 from quantized_channel_estimation_torch.ops import quantizer as tq
@@ -259,3 +265,256 @@ def test_service_on_card_matches_einsum_estimator():
             assert svc.metrics()["requests_failed"] == 0
         finally:
             svc.close(timeout=30)
+
+
+# ------------------------------------------------ the circulant kernels
+
+def _circ_bank(d, k, dev, n_dead=0, blocks=None, seed=0):
+    """A seeded circulant bank at 2 bits, 10 dB, non-zero means."""
+    rng = np.random.default_rng(seed)
+    spectra = rng.uniform(0.05, 2.0, (k, d)).astype(np.float32)
+    means = (0.2 * (rng.standard_normal((k, d))
+                    + 1j * rng.standard_normal((k, d)))).astype(np.complex64)
+    w = np.full((k,), 1.0 / k, np.float32)
+    w[:n_dead] = 1e-9
+    dummy = torch.zeros((k, 1, 1), dtype=torch.complex64, device=dev)
+    params = tg.GmmParams(torch.as_tensor(w / w.sum(), device=dev),
+                          torch.as_tensor(means, device=dev), dummy, dummy)
+    return tsb.prepare_bank_circulant(
+        params, 10.0, torch.tensor(1.0 + 0.0j), 2,
+        tq.design_quantizer(10.0, 2).to(dev), blocks=blocks,
+        spectra=torch.as_tensor(spectra, device=dev))
+
+
+def _f64(ckb):
+    return type(ckb)(*(x.double() for x in ckb))
+
+
+def _held(got, want, want64):
+    """1e-4 of the plain version, or as accurate as it against float64."""
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    scale = float(want.abs().max())
+    if float((got - want).abs().max()) / scale < 1e-4:
+        return
+    err_kernel = float((got.double() - want64).abs().max()) / scale
+    err_plain = float((want.double() - want64).abs().max()) / scale
+    assert err_kernel <= 2 * err_plain + 1e-5, (err_kernel, err_plain)
+
+
+# every (CD, CK) instantiation of the template, ragged sizes, dead
+# components, K and D that are no multiple of 32, the kron basis
+CIRC_SHAPES = [
+    (8, 4, 1000, 0, None),
+    (32, 40, 4097, 3, None),
+    (16, 100, 333, 0, None),
+    (64, 8, 77, 1, None),
+    (64, 64, 10000, 5, None),
+    (64, 128, 1001, 0, (8, 8)),
+    (128, 4, 100, 1, None),
+    (100, 50, 517, 2, None),
+    (128, 128, 2049, 0, (8, 16)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,n,n_dead,blocks", CIRC_SHAPES)
+def test_circ_estimate_matches_plain(d, k, n, n_dead, blocks):
+    dev = _card()
+    bank = _circ_bank(d, k, dev, n_dead, blocks)
+    assert int(torch.isinf(bank.log_weights).sum()) == n_dead
+    ckb = tck.circ_kernel_bank(bank, blocks)
+    x2 = _rows(n, 2 * d, dev)
+    before = tkn.launch_counts()
+    got = tck.circ_estimate(x2, ckb)
+    torch.cuda.synchronize()
+    after = tkn.launch_counts()
+    assert after["circ_estimate"] == before["circ_estimate"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    _held(got, tck.circ_estimate_reference(x2, ckb),
+          tck.circ_estimate_reference(x2.double(), _f64(ckb)))
+    # the entry on complex observations, against the torch.fft pipeline
+    r = torch.view_as_complex(x2.reshape(n, d, 2).contiguous())
+    got_c = tck.estimate_fused_circulant(bank, r, blocks)
+    want_c = tsb.estimate_circulant(bank, r, "all", 16384, blocks, "fft")
+    assert got_c.dtype == torch.complex64
+    assert float((got_c - want_c).abs().max() / want_c.abs().max()) < 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,n_blocks,t,alpha,n_dead", [
+    (8, 4, 500, 2, 1.0, 0),        # blocks inside a warp's rows
+    (64, 64, 1001, 4, 1.0, 3),     # main-path widths, ragged, dead
+    (64, 64, 333, 3, 0.25, 0),     # T that does not divide the tile
+    (16, 8, 100, 8, 0.25, 0),      # T = a warp's rows
+    (64, 40, 77, 16, 0.0, 1),      # blocks across warps, alpha 0
+    (64, 64, 9, 64, 1.0, 0),       # T = the tile's 64 rows
+    (128, 128, 50, 32, 0.5, 2),    # D = 128: T = the 32-row tile
+    (100, 50, 41, 5, 1.0, 0),      # widths no multiple of 32
+])
+def test_circ_estimate_coherent_matches_plain(d, k, n_blocks, t, alpha,
+                                              n_dead):
+    dev = _card()
+    bank = _circ_bank(d, k, dev, n_dead)
+    ckb = tck.circ_kernel_bank(bank, None, t, alpha)
+    x2 = _rows(n_blocks * t, 2 * d, dev)
+    before = tck.circ_estimate_coherent.launches
+    got = tck.circ_estimate_coherent(x2, ckb, t, alpha)
+    torch.cuda.synchronize()
+    assert tck.circ_estimate_coherent.launches == before + 1
+    _held(got, tck.circ_estimate_coherent_reference(x2, ckb, t, alpha),
+          tck.circ_estimate_coherent_reference(x2.double(), _f64(ckb), t,
+                                               alpha))
+    if alpha == 0.0:      # the per-snapshot estimator
+        flat = tck.circ_estimate(x2, tck.circ_kernel_bank(bank))
+        assert float((got - flat).abs().max() / flat.abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,n,t,alpha,n_dead", [
+    (64, 64, 4097, 1, 1.0, 3),
+    (32, 40, 1000, 1, 1.0, 0),
+    (128, 128, 333, 1, 1.0, 1),
+    (64, 64, 1001, 4, 1.0, 3),
+    (64, 64, 1001, 4, 0.25, 0),
+    (16, 8, 100, 8, 0.5, 1),
+    (128, 100, 50, 32, 1.0, 0),
+])
+def test_circ_stats_match_plain_and_two_shards_merge(d, k, n, t, alpha,
+                                                     n_dead):
+    """K8 (T = 1) and K9 on the two halves of the bank: each state against
+    the plain stats, and the states merged with `merge_stats` and
+    inverse-transformed once against K6 / K7 over the whole bank."""
+    dev = _card()
+    bank = _circ_bank(d, k, dev, n_dead)
+    x2 = _rows(n * t, 2 * d, dev)
+    name = "circ_estimate_stats" if t == 1 else "circ_estimate_coherent_stats"
+    states = []
+    for lo, hi in ((0, k // 2), (k // 2, k)):
+        ckb = tck.circ_kernel_bank(
+            tsb.CirculantBank(*(x[lo:hi] for x in bank)), None, t, alpha)
+        before = tkn.launch_counts()[name]
+        if t == 1:
+            got = tck.circ_estimate_stats(x2, ckb)
+            want = tck.circ_estimate_stats_reference(x2, ckb)
+            want64 = tck.circ_estimate_stats_reference(x2.double(), _f64(ckb))
+        else:
+            got = tck.circ_estimate_coherent_stats(x2, ckb, t, alpha)
+            want = tck.circ_estimate_coherent_stats_reference(x2, ckb, t,
+                                                              alpha)
+            want64 = tck.circ_estimate_coherent_stats_reference(
+                x2.double(), _f64(ckb), t, alpha)
+        torch.cuda.synchronize()
+        assert tkn.launch_counts()[name] == before + 1
+        assert got[0].shape == got[1].shape == (n * t,)
+        for g, w, w64 in zip(got, want, want64):
+            _held(g, w, w64)
+        states.append(got)
+    _, den, acc = tck.merge_stats(*zip(*states))
+    merged = tck._x2(tsb.unitary_ifft(tck._hc(acc / den[:, None],
+                                              torch.complex64)))
+    if t == 1:
+        whole = tck.circ_estimate(x2, tck.circ_kernel_bank(bank))
+    else:
+        whole = tck.circ_estimate_coherent(
+            x2, tck.circ_kernel_bank(bank, None, t, alpha), t, alpha)
+    assert float((merged - whole).abs().max() / whole.abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_circ_kernels_refuse_bad_inputs():
+    dev = _card()
+    bank = _circ_bank(8, 4, dev)
+    ckb = tck.circ_kernel_bank(bank)
+    x2 = torch.zeros(12, 16, device=dev)
+    with pytest.raises(ValueError):
+        tck.circ_estimate(x2.double(), ckb)
+    with pytest.raises(ValueError):
+        tck.circ_estimate(torch.zeros(16, 12, device=dev).T, ckb)
+    with pytest.raises(ValueError):
+        tck.circ_estimate(torch.zeros(12, 18, device=dev), ckb)
+    with pytest.raises(ValueError):
+        tck.circ_estimate(x2, ckb._replace(const=ckb.const.cpu()))
+    for t, rows in ((1, x2), (5, x2), (65, torch.zeros(130, 16, device=dev))):
+        with pytest.raises(ValueError, match="T"):   # T = 1, N % T, T > tile
+            tck.circ_estimate_coherent(rows, ckb, t)
+        with pytest.raises(ValueError, match="T"):
+            tck.circ_estimate_coherent_stats(rows, ckb, t)
+    wide = _circ_bank(130, 2, dev)                   # D past the kernels
+    with pytest.raises(ValueError, match="128"):
+        tck.circ_estimate(torch.zeros(3, 260, device=dev),
+                          tck.circ_kernel_bank(wide))
+    many = tck.circ_kernel_bank(_circ_bank(8, 130, dev))   # one launch's K
+    with pytest.raises(ValueError, match="128"):
+        tck.circ_estimate(x2, many)
+    r = torch.zeros(3, 130, dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError, match="method='kernel'"):
+        tsb.estimate_circulant(wide, r, method="kernel")
+    before = tkn.launch_counts()
+    assert tck.circ_estimate(x2[:0], ckb).shape == (0, 16)
+    m, den, acc = tck.circ_estimate_stats(x2[:0], ckb)
+    assert m.shape == den.shape == (0,) and acc.shape == (0, 16)
+    assert tck.circ_estimate_coherent(x2[:0], ckb, 2).shape == (0, 16)
+    assert tkn.launch_counts() == before             # nothing to launch
+
+
+@pytest.mark.cuda
+def test_wide_bank_splits_over_k_on_card():
+    """K = 300 components: three shards through K8 / K9, merged; the
+    `torch.fft` pipeline over the whole bank agrees."""
+    dev = _card()
+    bank = _circ_bank(64, 300, dev, n_dead=4)
+    g = torch.Generator(device=dev).manual_seed(2)
+    r = torch.complex(torch.randn(512, 64, generator=g, device=dev),
+                      torch.randn(512, 64, generator=g, device=dev))
+    before = tkn.launch_counts()
+    got = tck.estimate_fused_circulant(bank, r)
+    got_b = tck.estimate_fused_circulant_coherent(bank, r.reshape(128, 4, 64),
+                                                  0.5)
+    after = tkn.launch_counts()
+    assert after["circ_estimate_stats"] == before["circ_estimate_stats"] + 3
+    assert after["circ_estimate_coherent_stats"] \
+        == before["circ_estimate_coherent_stats"] + 3
+    want = tsb.estimate_circulant(bank, r, method="fft")
+    want_b = tsb.estimate_circulant_coherent(bank, r.reshape(128, 4, 64),
+                                             alpha=0.5, method="fft")
+    assert float((got - want).abs().max() / want.abs().max()) < 2e-4
+    assert float((got_b - want_b).abs().max() / want_b.abs().max()) < 2e-4
+
+
+@pytest.mark.cuda
+def test_structured_service_on_card_matches_fft_pipeline():
+    from quantized_channel_estimation_torch import serving
+    dev = _card()
+    d, k = 16, 8
+    rng = np.random.default_rng(3)
+    spectra = rng.uniform(0.05, 2.0, (k, d)).astype(np.float32)
+    weights = np.full((k,), 1.0 / k, np.float32)
+    means = np.zeros((k, d), np.complex64)
+    r = (rng.standard_normal((64, d))
+         + 1j * rng.standard_normal((64, d))).astype(np.complex64)
+    dummy = torch.zeros((k, 1, 1), dtype=torch.complex64, device=dev)
+    bank = tsb.prepare_bank_circulant(
+        tg.GmmParams(torch.as_tensor(weights, device=dev),
+                     torch.as_tensor(means, device=dev), dummy, dummy), 5.0,
+        torch.tensor(1.0 + 0.0j), 2, tq.design_quantizer(5.0, 2).to(dev),
+        spectra=torch.as_tensor(spectra, device=dev))
+    rt = torch.as_tensor(r, device=dev)
+    svc = serving.EstimationService.from_circulant_spectra(
+        weights, means, spectra, 1.0 + 0.0j, 2, max_delay_ms=1.0)
+    try:
+        for req, want, kernel in (
+                (r, tsb.estimate_circulant(bank, rt, method="fft"),
+                 "circ_estimate"),
+                (r.reshape(16, 4, d),
+                 tsb.estimate_circulant_coherent(bank, rt.reshape(16, 4, d),
+                                                 method="fft"),
+                 "circ_estimate_coherent")):
+            before = tkn.launch_counts()[kernel]
+            got = svc.submit(req, 5.0, timeout=30)
+            assert tkn.launch_counts()[kernel] > before
+            want_np = want.cpu().numpy()
+            assert got.shape == want_np.shape
+            assert np.abs(got - want_np).max() < 1e-4
+        assert svc.metrics()["requests_failed"] == 0
+    finally:
+        svc.close(timeout=30)

@@ -1,5 +1,5 @@
-"""Parity of the port's k-means and full-covariance GMM EM with the JAX
-package.
+"""Parity of the port's k-means and GMM EM (full, circulant,
+block-circulant, diag and spherical covariances) with the JAX package.
 
 The JAX EM accumulates its statistics in float32 scan carries
 (`gmm.py:167-171`, `:451`), so it cannot run on complex128 data; EM is
@@ -146,6 +146,155 @@ def test_fit_converges_like_jax(rng):
     inv_check = p.covariances @ p.prec_chol @ p.prec_chol.mH
     assert (inv_check - eye).abs().max() < 1e-3
     assert torch.all(p.means == 0)
+
+
+def _structured_mixture(rng, d, blocks=None, cov_type="circulant"):
+    """N complex64 samples of K zero-mean Gaussians whose covariances are
+    diagonal in the basis of `cov_type`: the (block-)DFT, or the identity
+    for 'diag' / 'spherical'."""
+    if "circulant" not in cov_type:
+        f = np.eye(d)
+    elif blocks is None:
+        f = np.asarray(jl.unitary_dft(d, jnp.complex128))
+    else:
+        f = np.kron(np.asarray(jl.unitary_dft(blocks[0], jnp.complex128)),
+                    np.asarray(jl.unitary_dft(blocks[1], jnp.complex128)))
+    spec = rng.uniform(0.05, 2.0, (K, d)) * (0.3 + 2.0 * np.arange(K))[:, None]
+    if cov_type == "spherical":
+        spec = np.broadcast_to(spec[:, :1], (K, d))
+    lab = rng.integers(0, K, N)
+    w = (rng.standard_normal((N, d)) + 1j * rng.standard_normal((N, d))) \
+        / np.sqrt(2)
+    return ((np.sqrt(spec)[lab] * w) @ f.conj()).astype(np.complex64)
+
+
+def test_log_prob_diag_and_m_step_diag_match_jax_f64(rng):
+    x = _mixture_data(rng, np.complex128)[:200]
+    var = rng.uniform(0.1, 2.0, (K, D))
+    means = x[:K] * 0.1
+    got = tg.log_prob_diag(torch.as_tensor(x), torch.as_tensor(means),
+                           torch.as_tensor(var))
+    want = jg.log_prob_diag(jnp.asarray(x), jnp.asarray(means),
+                            jnp.asarray(var))
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-10)
+    resp = rng.dirichlet(np.ones(K), size=200)
+    stats = (resp.sum(0), resp.T @ x, resp.T @ (np.abs(x) ** 2))
+    for zero_mean in (True, False):
+        want = jg._m_step_diag(
+            jg._Stats(*(jnp.asarray(a) for a in stats + (0.0,))),
+            jg.GmmConfig(n_components=K, zero_mean=zero_mean))
+        got = tg._m_step_diag(
+            tg._Stats(*(torch.as_tensor(a) for a in stats
+                        + (np.float64(0.0),))),
+            tg.GmmConfig(n_components=K, zero_mean=zero_mean))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-10,
+                                       atol=1e-14)
+
+
+@pytest.mark.parametrize("cov_type,d,blocks", [
+    ("circulant", 6, None), ("block-circulant", 32, (4, 8)),
+    ("diag", 6, None), ("spherical", 6, None)])
+def test_diagonal_em_from_jax_kmeans_labels_matches_per_iteration(
+        rng, cov_type, d, blocks):
+    """The diagonal EM of the structured covariance types, on the data the
+    fit hands it (DFT-domain for the circulant types), from the JAX k-means
+    labels: lower bound per iteration and the fitted spectra / variances,
+    at the tolerances of the full-covariance EM above."""
+    h = _structured_mixture(rng, d, blocks, cov_type)
+    key = jax.random.PRNGKey(3)
+    kw = dict(n_components=K, chunk_size=512, tol=0.0, cov_type=cov_type,
+              blocks=blocks)
+    jcfg = jg.GmmConfig(**kw)
+    mode = "diag" if "circulant" in cov_type else cov_type
+    if mode == "diag" and cov_type != "diag":
+        fj = jg._dft_for(jcfg, d, jnp.complex64)
+        ft = tg._dft_for(tg.GmmConfig(**kw), d, torch.complex64)
+        np.testing.assert_allclose(_np(ft), np.asarray(fj), atol=2e-5)
+        xj = jnp.asarray(h) @ fj.T
+        # one basis for both, so the data the two loops see are equal
+        xt = torch.as_tensor(np.asarray(xj))
+    else:
+        xj, xt = jnp.asarray(h), torch.as_tensor(h)
+    labels = np.asarray(jk.kmeans(
+        key, jc.cplx2real(xj, axis=-1).astype(jnp.float32), K,
+        max_iter=jcfg.kmeans_iter).labels)
+    jstats = jg._init_resp_stats(key, xj, jcfg, True, 512)
+    tstats = tg._stats_from_labels(xt, torch.as_tensor(labels), K, 512, True)
+    assert tstats.sxx.shape == (K, d) and not tstats.sxx.is_complex()
+    for g, w in zip(tstats, jstats):
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-5,
+                                   atol=1e-3)
+    n_it = 5
+    state, lb, n_iter, _, hist = tg._em_loop(
+        xt, tstats, tg.GmmConfig(max_iter=n_it, **kw), mode)
+    assert n_iter == n_it
+    want = []
+    for i in range(1, n_it + 1):
+        jstate, _ = jg._em_loop(xj, jstats, jcfg._replace(max_iter=i), mode,
+                                None)
+        want.append(float(jstate.lower_bound))
+    np.testing.assert_allclose(hist, want, rtol=2e-5)
+    np.testing.assert_allclose(_np(state.weights), np.asarray(jstate.weights),
+                               rtol=1e-4)
+    scale = np.abs(np.asarray(jstate.covs)).max()
+    assert state.covs.shape == (K, d)
+    np.testing.assert_allclose(_np(state.covs), np.asarray(jstate.covs),
+                               rtol=0, atol=1e-4 * scale)
+    if cov_type == "spherical":
+        assert torch.equal(state.covs, state.covs[:, :1].expand(K, d))
+
+
+@pytest.mark.parametrize("cov_type,d,blocks", [
+    ("circulant", 8, None), ("block-circulant", 8, (2, 4)),
+    ("diag", 8, None), ("spherical", 8, None)])
+def test_structured_fits_return_dense_params_like_jax(rng, cov_type, d,
+                                                      blocks):
+    """A whole fit of each structured type returns dense covariances of
+    that structure with a valid precision factor, and its converged lower
+    bound is JAX's (rtol 1e-3: each package's own k-means init)."""
+    h = _structured_mixture(rng, d, blocks, cov_type)
+    kw = dict(n_components=K, chunk_size=512, cov_type=cov_type,
+              blocks=blocks)
+    res = tg.fit(torch.Generator().manual_seed(0), torch.as_tensor(h),
+                 tg.GmmConfig(**kw))
+    jres = jg.fit(jax.random.PRNGKey(0), jnp.asarray(h), jg.GmmConfig(**kw))
+    assert res.converged
+    assert float(res.lower_bound) == pytest.approx(float(jres.lower_bound),
+                                                   rel=1e-3)
+    p = res.params
+    assert p.covariances.shape == (K, d, d) and p.means.shape == (K, d)
+    assert (p.covariances - p.covariances.mH).abs().max() < 1e-6
+    eye = torch.eye(d, dtype=p.prec_chol.dtype)
+    assert (p.covariances @ p.prec_chol @ p.prec_chol.mH
+            - eye).abs().max() < 1e-3
+    f = torch.eye(d, dtype=torch.complex64) if "circulant" not in cov_type \
+        else tg._dft_for(tg.GmmConfig(**kw), d, torch.complex64)
+    in_basis = f @ p.covariances @ f.mH          # diagonal in the basis
+    off = in_basis - torch.diag_embed(torch.diagonal(in_basis, dim1=-2,
+                                                     dim2=-1))
+    assert off.abs().max() < 1e-5 * in_basis.abs().max()
+    if cov_type == "spherical":
+        diag = torch.diagonal(p.covariances, dim1=-2, dim2=-1).real
+        assert (diag - diag[:, :1]).abs().max() < 1e-6 * diag.max()
+    # sorted by size, the fitted weights are JAX's
+    np.testing.assert_allclose(np.sort(_np(p.weights)),
+                               np.sort(np.asarray(jres.params.weights)),
+                               atol=2e-2)
+
+
+def test_block_circulant_fit_checks_its_blocks():
+    x = torch.as_tensor(_mixture_data(np.random.default_rng(1)))
+    with pytest.raises(ValueError, match="incompatible"):
+        tg.fit(torch.Generator(), x, tg.GmmConfig(
+            K, cov_type="block-circulant", blocks=(2, 4)))
+    with pytest.raises(NotImplementedError, match="not implemented"):
+        tg.fit(torch.Generator(), x, tg.GmmConfig(K, cov_type="tied"))
+    for cov_type in ("toeplitz", "block-toeplitz"):
+        with pytest.raises(NotImplementedError,
+                           match=r"Toeplitz fit.*ROADMAP Queue 1 item 8"):
+            tg.fit(torch.Generator(), x, tg.GmmConfig(K, cov_type=cov_type,
+                                                      blocks=(2, 3)))
 
 
 def test_random_init_and_unported_cov_types():

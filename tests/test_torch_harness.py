@@ -88,6 +88,105 @@ def test_run_gmm_matches_jax_on_shared_cache(tmp_path, monkeypatch):
         < tmse["blmmse_glob"][-1] < tmse["LS_glob"][-1]
 
 
+@pytest.mark.parametrize("t_coh", [1, 2])
+def test_run_gmm_circulant_matches_jax_on_shared_cache(tmp_path, monkeypatch,
+                                                       t_coh):
+    """`cov_type='circulant'`: both harnesses route the GMM columns through
+    their FFT-domain bank (`use_structured_bank='auto'`), JAX through its
+    `torch.fft`-like pipeline and the port through the plain K6 (and, with
+    coherence blocks of T = 2 at alpha 0.5, the plain K7): the same CSV
+    names and columns, rows to rtol 1e-4 as in the dense test above."""
+    cache = str(tmp_path / "saves")
+    coh = dict(n_coherence=2, coherence_alpha=0.5) if t_coh > 1 else {}
+    jcfg = jrun.GmmBenchConfig(
+        n_antennas=16, n_components=8, n_train=4000, n_val=600,
+        snrs=(-10, 0, 10), results_dir=str(tmp_path / "jax"),
+        cache_dir=cache, gmm_max_iter=15, cov_type="circulant", **coh)
+    jmse, jrate, _ = jrun.run(jcfg, verbose=False)
+    assert any("circulant" in f for f in os.listdir(cache))
+
+    data = np.load(glob.glob(os.path.join(cache, "saved_data*"))[0])
+    h_val = jst.from_numpy(data["channels"][jcfg.n_train // t_coh:])
+    a = jst.pilot_matrix(16, 1, 2, "angle_amp")
+    k_obs = jax.random.split(jax.random.PRNGKey(jcfg.seed), 3)[2]
+    r_jax = {snr: jst.to_numpy(jst.observe(
+        jax.random.fold_in(k_obs, i), h_val, snr, a, 2,
+        jq.design_quantizer(snr, 2))) for i, snr in enumerate(jcfg.snrs)}
+
+    def shared_observe(gen, h, snr, a, n_bits, q):
+        assert tuple(h.shape) == r_jax[snr].shape
+        return torch.as_tensor(r_jax[snr], device=h.device)
+
+    monkeypatch.setattr(tst, "observe", shared_observe)
+    tcfg = trun.GmmBenchConfig(**{
+        f.name: getattr(jcfg, f.name)
+        for f in dataclasses.fields(trun.GmmBenchConfig)})
+    tcfg = dataclasses.replace(tcfg, results_dir=str(tmp_path / "port"))
+    calls = []
+    for name in ("estimate_circulant", "estimate_circulant_coherent"):
+        def counted(*args, _fn=getattr(tst, name), _name=name, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(tst, name, counted)
+    tmse, trate, _ = trun.run(tcfg, verbose=False, device="cpu")
+    assert calls.count("estimate_circulant") == 3
+    assert calls.count("estimate_circulant_coherent") == 3 * (t_coh > 1)
+
+    assert list(tmse) == list(jmse) and list(trate) == list(jrate)
+    assert ("blmmse_gmm_coh" in tmse) == (t_coh > 1)
+    for got, want in ((tmse, jmse), (trate, jrate)):
+        for name in want:
+            np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
+                                       err_msg=name)
+    for rate in (False, True):
+        jname, jrows = _read_csv(jcfg.results_dir, rate)
+        tname, trows = _read_csv(tcfg.results_dir, rate)
+        assert tname[19:] == jname[19:] and "_circulant" in tname
+        assert trows[0] == jrows[0]
+        assert [r[0] for r in trows] == [r[0] for r in jrows]
+        np.testing.assert_allclose(np.asarray(trows[1:])[:, 1:].astype(float),
+                                   np.asarray(jrows[1:])[:, 1:].astype(float),
+                                   rtol=1e-4)
+    assert tmse["blmmse_genie"][-1] < tmse["blmmse_gmm"][-1] \
+        < tmse["LS_glob"][-1]
+
+
+@pytest.mark.parametrize("change,structured", [
+    (dict(cov_type="full", use_structured_bank=True), True),
+    (dict(cov_type="circulant", use_structured_bank=False), False),
+    (dict(cov_type="block-circulant", blocks=(2, 4)), True),
+    (dict(cov_type="diag"), False),
+    (dict(cov_type="circulant", n_summands_or_proba=2), True),
+    (dict(cov_type="circulant", n_coherence=4, coherence_alpha="auto",
+          alpha_val_blocks=50), True),
+])
+def test_run_gmm_structured_bank_options(tmp_path, monkeypatch, change,
+                                         structured):
+    """`use_structured_bank` 'auto' / True / False over the fits: which
+    bank the GMM columns estimate through, and a finite, falling table."""
+    banks = []
+    for name in ("prepare_bank", "prepare_bank_circulant"):
+        def counted(*args, _fn=getattr(tst, name), _name=name, **kw):
+            banks.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(tst, name, counted)
+    cfg = trun.GmmBenchConfig(
+        n_antennas=8, n_components=4, n_train=2000, n_val=400,
+        snrs=(-10, 10), results_dir=str(tmp_path),
+        cache_dir=str(tmp_path / "c"), gmm_max_iter=10, eval_rate=False,
+        **change)
+    assert trun._structured(cfg) == structured
+    mse, _, timings = trun.run(cfg, verbose=False, device="cpu")
+    assert set(banks) == {"prepare_bank_circulant" if structured
+                          else "prepare_bank"} and len(banks) == 2
+    for vals in mse.values():
+        assert np.all(np.isfinite(vals)) and vals[0] > vals[-1]
+    assert any(cfg.cov_type in f for f in os.listdir(tmp_path / "c"))
+    if cfg.coherence_alpha == "auto":
+        assert set(timings["coherence_alpha_by_snr"]) == {-10, 10}
+        assert mse["blmmse_gmm_coh"][0] < mse["blmmse_gmm"][0]
+
+
 def test_run_gmm_fits_and_caches_on_its_own(tmp_path):
     cfg = trun.GmmBenchConfig(
         n_antennas=8, n_components=4, n_train=2000, n_val=300,
@@ -105,10 +204,12 @@ def test_run_gmm_fits_and_caches_on_its_own(tmp_path):
 
 @pytest.mark.parametrize("change,item", [
     (dict(channel_model="mimo"), "item 14"),
-    (dict(cov_type="diag"), "item 8"),
+    (dict(cov_type="toeplitz"), "Queue 1 item 8"),
     (dict(n_data_shards=2), "item 15"),
     (dict(gmm_fit_segments=2), "item 8"),
-    (dict(cov_type="circulant"), "item 11"),
+    (dict(cov_type="circulant", n_pilots=2), "Queue 2, kernel K10"),
+    (dict(cov_type="block-toeplitz", blocks=(8, 8)), "Queue 1 item 8"),
+    (dict(use_structured_bank=True, n_pilots=4), "Queue 2, kernel K10"),
 ])
 def test_unported_options_raise(change, item):
     cfg = dataclasses.replace(trun.GmmBenchConfig(), **change)

@@ -2,10 +2,11 @@
 
 The single-device cases of `tests/test_serving.py`, on the CPU: the port's
 `EstimationService` (device='cpu', so its kernel dispatch reaches the plain
-versions of K1, K3 and K4) serves the JAX fit, carried over with
-`gmm.params_from_numpy`, and each answer is held against the JAX direct
-estimator on the same observations at atol 1e-4, as the JAX tests hold
-the JAX service (complex64 estimates, float32 sums in another order).
+versions of K1, K3 and K4, and of K6 and K7 for a structured service)
+serves the JAX fit, carried over with `gmm.params_from_numpy`, and each
+answer is held against the JAX direct estimator on the same observations
+at atol 1e-4, as the JAX tests hold the JAX service (complex64 estimates,
+float32 sums in another order).
 Every submit has a timeout of at most 30 s and every close a timeout, so a
 hang fails one test.
 """
@@ -21,11 +22,13 @@ import torch
 
 from quantized_channel_estimation_tpu.models import gmm as jg
 from quantized_channel_estimation_tpu.models import gmm_estimator as jge
+from quantized_channel_estimation_tpu.models import structured_bank as jsb
 from quantized_channel_estimation_tpu.ops import observation as jobs
 from quantized_channel_estimation_tpu.ops import pilots as jp
 from quantized_channel_estimation_tpu.ops import quantizer as jq
 from quantized_channel_estimation_tpu.ops import scm as jscm
 from quantized_channel_estimation_torch import serving
+from quantized_channel_estimation_torch.estimators import circ_kernels as tck
 from quantized_channel_estimation_torch.estimators import kernels as tkn
 from quantized_channel_estimation_torch.models import gmm as tg
 
@@ -450,17 +453,208 @@ def test_selection_modes_match_direct(setup, mode, use_kernels):
         svc.close(timeout=TIMEOUT)
 
 
+# ------------------------------------------------- the structured service
+
+@pytest.fixture(scope="module")
+def circ_setup():
+    """A JAX circulant fit and a block-circulant (4, 4) one on the same
+    channels, with the pilot matrix and held-out channels."""
+    h, _ = jscm.generate_channels(jax.random.PRNGKey(90), 6000,
+                                  jscm.ScmConfig(N_ANT, 1))
+    fits = {}
+    for blocks in (None, (4, 4)):
+        fits[blocks] = jg.fit(
+            jax.random.PRNGKey(91), h[:5000], jg.GmmConfig(
+                n_components=4, max_iter=12, chunk_size=2048, blocks=blocks,
+                cov_type="circulant" if blocks is None
+                else "block-circulant")).params
+    return fits, jp.pilot_matrix(N_ANT, 1, 2), h[5000:]
+
+
+def _circ_service(circ_setup, blocks=None, **kw):
+    fits, a, _ = circ_setup
+    kw.setdefault("max_delay_ms", 1.0)
+    return serving.EstimationService(
+        tg.params_from_numpy([np.asarray(x) for x in fits[blocks]]),
+        np.asarray(a), 2, device="cpu", structured=True,
+        structured_blocks=blocks, **kw)
+
+
+def _circ_observe(circ_setup, n, snr, key, t=None):
+    _, a, h_val = circ_setup
+    h = h_val[:n * (t or 1)]
+    if t:
+        h = h.reshape(n, t, N_ANT)
+    return np.asarray(jobs.observe(jax.random.PRNGKey(key), h, snr, a, 2,
+                                   jq.design_quantizer(snr, 2)))
+
+
+def _circ_direct(circ_setup, snr, r, mode="all", alpha=1.0, blocks=None,
+                 spectra=None):
+    """The JAX direct structured estimator (its FFT pipeline)."""
+    fits, a, _ = circ_setup
+    bank = jsb.prepare_bank_circulant(
+        fits[blocks], snr, a, 2, jq.design_quantizer(snr, 2), blocks=blocks,
+        spectra=spectra)
+    if r.ndim == 3:
+        return np.asarray(jsb.estimate_circulant_coherent(
+            bank, jnp.asarray(r), mode, 4096, alpha, blocks, "fft"))
+    return np.asarray(jsb.estimate_circulant(bank, jnp.asarray(r), mode,
+                                             16384, blocks, "fft"))
+
+
+@pytest.mark.parametrize("blocks", [None, (4, 4)])
+def test_structured_service_matches_jax_direct(circ_setup, blocks):
+    """structured=True serves through the FFT-domain bank: flat requests
+    through K6 and blocks through K7 (their plain versions here), equal to
+    the JAX structured estimator, and on these (block-)circulant fits to
+    the JAX dense one (atol 2e-4, as `tests/test_serving.py` holds it)."""
+    fits, a, _ = circ_setup
+    r = _circ_observe(circ_setup, 100, 5.0, 92)
+    rb = r[:96].reshape(24, 4, N_ANT)
+    svc = _circ_service(circ_setup, blocks)
+    try:
+        assert svc.use_kernels and svc.structured
+        before = tkn.launch_counts()
+        got = svc.submit(r, 5.0, timeout=TIMEOUT)
+        got_b = svc.submit(rb, 5.0, timeout=TIMEOUT)
+        assert tkn.launch_counts() == before                    # the CPU
+        assert got.shape == (100, N_ANT) and got.dtype == np.complex64
+        np.testing.assert_allclose(
+            got, _circ_direct(circ_setup, 5.0, r, blocks=blocks), atol=1e-4)
+        np.testing.assert_allclose(
+            got_b, _circ_direct(circ_setup, 5.0, rb, blocks=blocks),
+            atol=1e-4)
+        dense = jge.prepare_bank(fits[blocks], 5.0, a, 2,
+                                 jq.design_quantizer(5.0, 2))
+        np.testing.assert_allclose(
+            got, np.asarray(jge.estimate(dense, jnp.asarray(r))), atol=2e-4)
+        np.testing.assert_allclose(
+            got_b, np.asarray(jge.estimate_coherent(dense, jnp.asarray(rb))),
+            atol=2e-4)
+        # the kernel layouts are lowered once per (blocks, T, alpha)
+        entry = svc._banks[5.0]
+        assert isinstance(entry.bank, tck.CirculantBank)
+        assert set(entry.lowered) == {(blocks, 1, 1.0), (blocks, 4, 1.0)}
+        ckb = entry.lowered[(blocks, 1, 1.0)]
+        svc.submit(r, 5.0, timeout=TIMEOUT)
+        assert svc._banks[5.0].lowered[(blocks, 1, 1.0)] is ckb
+        assert svc.metrics()["requests_failed"] == 0
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+@pytest.mark.parametrize("mode,use_kernels", [(1, None), (2, False),
+                                              (0.9, None), ("all", False)])
+def test_structured_service_selection_modes(circ_setup, mode, use_kernels):
+    """Selection modes, and 'all' without the kernels, take the
+    `torch.fft` pipeline, flat and on blocks."""
+    r = _circ_observe(circ_setup, 64, 5.0, 66)
+    svc = _circ_service(circ_setup, mode=mode, use_kernels=use_kernels)
+    try:
+        assert not svc.use_kernels
+        np.testing.assert_allclose(svc.submit(r, 5.0, timeout=TIMEOUT),
+                                   _circ_direct(circ_setup, 5.0, r, mode),
+                                   atol=1e-4)
+        rb = r.reshape(16, 4, N_ANT)
+        np.testing.assert_allclose(svc.submit(rb, 5.0, timeout=TIMEOUT),
+                                   _circ_direct(circ_setup, 5.0, rb, mode),
+                                   atol=1e-4)
+        assert svc._banks[5.0].lowered == {}
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.25, "auto"])
+def test_structured_service_coherence_alpha(circ_setup, alpha):
+    """The alpha blend reaches K7, and 'auto' selects through the
+    structured coherent estimator."""
+    _, a, _ = circ_setup
+    h_blocks, _ = jscm.generate_channels(
+        jax.random.PRNGKey(97), 200, jscm.ScmConfig(N_ANT, 1, n_coherence=4))
+    rb = np.asarray(jobs.observe(jax.random.PRNGKey(98), h_blocks[:120], 0.0,
+                                 a, 2, jq.design_quantizer(0.0, 2)))
+    kw = dict(alpha_val=np.asarray(h_blocks[120:])) if alpha == "auto" else {}
+    svc = _circ_service(circ_setup, coherence_alpha=alpha, **kw)
+    try:
+        got = svc.submit(rb, 0.0, timeout=TIMEOUT)
+        if alpha == "auto":
+            sel = svc.metrics()["coherence_alpha_selected"]
+            assert list(sel) == [(0.0, 4)]
+            alpha = sel[(0.0, 4)]
+            assert alpha in jge.DEFAULT_ALPHA_GRID
+        np.testing.assert_allclose(
+            got, _circ_direct(circ_setup, 0.0, rb, alpha=alpha), atol=1e-4)
+        if alpha == 0.0:
+            np.testing.assert_allclose(
+                got.reshape(-1, N_ANT),
+                _circ_direct(circ_setup, 0.0, rb.reshape(-1, N_ANT)),
+                atol=1e-4)
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+@pytest.mark.parametrize("pilot", ["matrix", "scalar"])
+def test_from_circulant_spectra_service(circ_setup, pilot):
+    """A spectra-native prior serves with no dense covariance anywhere:
+    equal to the JAX structured estimator prepared from the same spectra,
+    flat and on blocks, with the (M, M) pilot matrix or its scalar."""
+    fits, a, _ = circ_setup
+    p = fits[None]
+    spectra = np.asarray(jsb.spectra_from_params(p))
+    x0 = np.asarray(a)[0, 0]
+    svc = serving.EstimationService.from_circulant_spectra(
+        np.asarray(p.weights), np.asarray(p.means), spectra,
+        np.asarray(a) if pilot == "matrix" else x0, 2, max_delay_ms=1.0,
+        device="cpu")
+    r = _circ_observe(circ_setup, 64, 5.0, 101)
+    rb = r.reshape(16, 4, N_ANT)
+    try:
+        assert svc.structured and svc.use_kernels
+        assert svc.params.covariances.shape == (4, 1, 1)
+        np.testing.assert_allclose(
+            svc.submit(r, 5.0, timeout=TIMEOUT),
+            _circ_direct(circ_setup, 5.0, r, spectra=jnp.asarray(spectra)),
+            atol=1e-4)
+        np.testing.assert_allclose(
+            svc.submit(rb, 5.0, timeout=TIMEOUT),
+            _circ_direct(circ_setup, 5.0, rb, spectra=jnp.asarray(spectra)),
+            atol=1e-4)
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+def test_structured_service_refusals(circ_setup):
+    fits, a, _ = circ_setup
+    params = tg.params_from_numpy([np.asarray(x) for x in fits[None]])
+    with pytest.raises(ValueError, match="mode='all'"):
+        _circ_service(circ_setup, mode=1, use_kernels=True)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        _circ_service(circ_setup, factored=True)
+    with pytest.raises(ValueError, match="kron"):
+        serving.EstimationService(params, np.ones((N_ANT, N_ANT)), 2,
+                                  device="cpu", structured=True)
+    svc = _circ_service(circ_setup, mode="all", use_kernels=True)  # accepted
+    svc.close(timeout=TIMEOUT)
+
+
 @pytest.mark.parametrize("make,item", [
     (lambda p, a: serving.EstimationService(p, a, 2, device="cpu",
-                                            mesh=object()), "item 15"),
+                                            mesh=object()),
+     "mesh-backed serving.*Queue 1 item 15"),
     (lambda p, a: serving.EstimationService(p, a, 2, device="cpu",
-                                            structured=True), "item 11"),
+                                            structured=True, mesh=object()),
+     "mesh-backed serving.*Queue 1 item 15"),
     (lambda p, a: serving.EstimationService(p, a, 2, device="cpu",
-                                            factored=True), "item 12"),
-    (lambda p, a: serving.EstimationService.from_circulant_spectra(
-        None, None, None, a, 2), "item 11"),
-    (lambda p, a: serving.EstimationService.from_mfa(p, a, 2), "item 12"),
-    (lambda p, a: serving.VaeEstimationService(None, p, None, a), "item 13"),
+                                            factored=True),
+     r"factored \(MFA\) serving.*Queue 1 item 12"),
+    (lambda p, a: serving.EstimationService(
+        p, np.kron(np.array([[1.0], [-1.0]]), a), 2, device="cpu",
+        structured=True), "n_pilots > 1.*ROADMAP Queue 2, kernel K10"),
+    (lambda p, a: serving.EstimationService.from_mfa(p, a, 2),
+     "from_mfa.*Queue 1 item 12"),
+    (lambda p, a: serving.VaeEstimationService(None, p, None, a),
+     "VaeEstimationService.*Queue 1 item 13"),
 ])
 def test_unported_options_raise(setup, make, item):
     _, params, a, _ = setup
