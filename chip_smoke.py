@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; nothing is caught):
      the K = 64 bank merged with `merge_stats` and inverse-transformed
      once, against K6 / K7 and against the plain stats, one
      block-circulant case `blocks=(8, 8)` and two other template widths
-     (D = 32 with K = 40, D = 128 with K = 128). Where float32 sums in
+     (D = 32 with K = 40, D = 128 with K = 128), and K8 / K9 on the two
+     128-component shards of a K = 256 bank, as the K = 256 service runs
+     them, at a 512-row microbatch and at N = 131072. Where float32 sums in
      another order push a circulant kernel past TOL of its plain version
      (large T), both are held against the float64 evaluation of the same
      arithmetic, the kernel to within twice the plain version's own error;
@@ -410,15 +412,21 @@ def main():
         errs[name].append(compare64(name, label, got, want, want64))
         return got
 
-    def check_stats(label, bank_c, x2, whole, t=1, alpha=1.0):
+    def merged(states):
+        _, den, acc = ck.merge_stats(*zip(*states))
+        return ck._x2(structured_bank.unitary_ifft(
+            ck._hc(acc / den[:, None], torch.complex64)))
+
+    def check_stats(label, bank_c, x2, whole=None, t=1, alpha=1.0):
         """K8 (t = 1) or K9 on the two component shards of bank_c: each
         shard's state against the plain stats, and the merged,
         inverse-transformed quotient against `whole`, K6's / K7's output
-        over the whole bank."""
+        over the whole bank (None, for a bank past one launch's 128
+        components: the plain states merged likewise)."""
         name = "circ_estimate_stats" if t == 1 \
             else "circ_estimate_coherent_stats"
         half = bank_c.spec_cr.shape[0] // 2
-        states = []
+        states, plain = [], []
         for lo, hi in ((0, half), (half, 2 * half)):
             shard = type(bank_c)(*(x[lo:hi] for x in bank_c))
             ckb = ck.circ_kernel_bank(shard, None, t, alpha)
@@ -440,11 +448,9 @@ def main():
                     g.reshape(g.shape[0], -1), w.reshape(w.shape[0], -1),
                     w64.reshape(w64.shape[0], -1)))
             states.append(got)
-        m, den, acc = ck.merge_stats(*zip(*states))
-        h = structured_bank.unitary_ifft(ck._hc(acc / den[:, None],
-                                                torch.complex64))
+            plain.append(want)
         compare(name, f"{label}, two shards merged vs the whole bank",
-                ck._x2(h), whole)
+                merged(states), merged(plain) if whole is None else whole)
 
     cbank = circ_bank(dev, q)
     cdead = circ_bank(dev, q, n_dead=5)
@@ -473,6 +479,15 @@ def main():
         check_stats(f"D={d_w}, K={k_w}", wbank, xw[:20001], whole)
         check_circ(f"D={d_w}, K={k_w}, T=4, alpha=0.25", wbank, xw, None, 4,
                    0.25)
+
+    # the shards the K = 256 service gives K8 / K9: 128 components at
+    # D = 64 (the widest instantiation of the stats template), on a service
+    # microbatch of 512 rows and on the headline batch
+    kbank = circ_bank(dev, q, k=K_WIDE, n_dead=5)
+    for t, alpha in ((1, 1.0), (4, 1.0), (4, 0.25)):
+        for rows in (x2[:512], x2):
+            check_stats(f"K={K_WIDE}, T={t}, alpha={alpha}", kbank, rows,
+                        None, t, alpha)
 
     # 3. the main paths, each with its own launch counts
     total_launches = dict.fromkeys(errs, 0)
@@ -648,20 +663,27 @@ def main():
               >= nbytes / PEAK_HBM_BYTES else "bytes")
         return ms, by
 
-    def timed(label, kern, plain, library, flops, nbytes=nbytes):
+    def timed(label, kern, plain, library, flops, nbytes=nbytes,
+              library_chunked=None):
         plain_ms = cuda_ms(plain)
         ms = cuda_ms(kern)
         ms2 = cuda_ms(kern)
         plain_ms2 = cuda_ms(plain)
         library_ms = cuda_ms(library)
         bound_ms, bound_by = bound(flops, nbytes)
+        rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": library_ms}
+        note = ""
+        if library_chunked is not None:
+            rec["library_chunked_ms"] = cuda_ms(library_chunked)
+            note = (f" (at the pipeline's default chunks "
+                    f"{rec['library_chunked_ms']:.3f} ms)")
         log(f"{label} at N={n}, 2M={two_m}, 2D={two_d}, K={K}: kernel "
             f"{ms:.3f} / {ms2:.3f} ms, plain {plain_ms:.3f} / "
-            f"{plain_ms2:.3f} ms, library {library_ms:.3f} ms, bound "
+            f"{plain_ms2:.3f} ms, library {library_ms:.3f} ms{note}, bound "
             f"{bound_ms:.3f} ms ({bound_by}), {n / (ms * 1e-3):.4g} "
             "estimates/s")
-        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms}
+        return rec
 
     flat = kb.pw.permute(1, 0, 2).reshape(two_m, K * s_cols).contiguous()
     flat_p = kb.pw[:, :, :two_m].permute(1, 0, 2).reshape(
@@ -694,7 +716,10 @@ def main():
     # (K8/K9 less the inverse transform); bytes: the rows read and written
     # once, the operands once, m and den for the stats forms. Library
     # yardstick: the torch.fft pipeline of the same entry, which the port
-    # never calls where the kernel is eligible.
+    # never calls where the kernel is eligible, over the batch as one chunk
+    # (the best the library calls do); at the pipeline's default chunks of
+    # 16384 rows / 4096 blocks it is bound by host launches and is kept as
+    # `library_chunked_ms` only.
     ckb = ck.circ_kernel_bank(cbank)
     ckb4 = ck.circ_kernel_bank(cbank, None, 4, 1.0)
     circ_flops = 2.0 * n * (2 * two_d * two_d + 3 * D * K + 4 * K * D)
@@ -703,27 +728,35 @@ def main():
     t6 = timed("K6", lambda: ck.circ_estimate(x2, ckb),
                lambda: ck.circ_estimate_reference(x2, ckb),
                lambda: structured_bank.estimate_circulant(
-                   cbank, r, "all", 16384, None, "fft"),
-               circ_flops, circ_bytes)
+                   cbank, r, "all", n, None, "fft"),
+               circ_flops, circ_bytes,
+               lambda: structured_bank.estimate_circulant(
+                   cbank, r, "all", 16384, None, "fft"))
     t7 = timed("K7 (T=4, alpha=1)",
                lambda: ck.circ_estimate_coherent(x2, ckb4, 4, 1.0),
                lambda: ck.circ_estimate_coherent_reference(x2, ckb4, 4, 1.0),
                lambda: structured_bank.estimate_circulant_coherent(
-                   cbank, r_blocks, "all", 4096, 1.0, None, "fft"),
-               circ_flops + 3.0 * n * K, circ_bytes)
+                   cbank, r_blocks, "all", n // 4, 1.0, None, "fft"),
+               circ_flops + 3.0 * n * K, circ_bytes,
+               lambda: structured_bank.estimate_circulant_coherent(
+                   cbank, r_blocks, "all", 4096, 1.0, None, "fft"))
     stats_flops = circ_flops - 2.0 * n * two_d * two_d
     stats_bytes = circ_bytes + 8.0 * n - 4.0 * ckb.binv.numel()
     t8 = timed("K8", lambda: ck.circ_estimate_stats(x2, ckb),
                lambda: ck.circ_estimate_stats_reference(x2, ckb),
                lambda: structured_bank.estimate_circulant_stats(
-                   cbank, r, 16384, None, "fft"), stats_flops, stats_bytes)
+                   cbank, r, n, None, "fft"), stats_flops, stats_bytes,
+               lambda: structured_bank.estimate_circulant_stats(
+                   cbank, r, 16384, None, "fft"))
     t9 = timed("K9 (T=4, alpha=1)",
                lambda: ck.circ_estimate_coherent_stats(x2, ckb4, 4, 1.0),
                lambda: ck.circ_estimate_coherent_stats_reference(
                    x2, ckb4, 4, 1.0),
                lambda: structured_bank.estimate_circulant_coherent_stats(
-                   cbank, r_blocks, 4096, 1.0, None, "fft"),
-               stats_flops + 3.0 * n * K, stats_bytes)
+                   cbank, r_blocks, n // 4, 1.0, None, "fft"),
+               stats_flops + 3.0 * n * K, stats_bytes,
+               lambda: structured_bank.estimate_circulant_coherent_stats(
+                   cbank, r_blocks, 4096, 1.0, None, "fft"))
 
     src = "quantized_channel_estimation_torch/csrc/"
     tpu = "quantized_channel_estimation_tpu/estimators/pallas_kernels.py"

@@ -20,7 +20,8 @@ Differences of layout from the TPU kernels, none of arithmetic:
   in `ops.scm.flatten_coherence` and K3, not the TPU's T-major tiles;
 - the eligibility rule `circ_kernel_eligible` is the CUDA kernel's range
   (D <= 128, T up to a tile's rows), in place of the TPU's resident-bank
-  budget; beyond it the callers take the `torch.fft` pipeline. One launch
+  budget; beyond it the entries raise and `harness.stages` takes the
+  `torch.fft` pipeline. One launch
   takes K <= 128 components; a larger bank is split over K into shards of
   128, each through the stats kernel (K8 / K9), merged with `merge_stats`
   and inverse-transformed once.
@@ -422,8 +423,9 @@ def estimate_fused_circulant_coherent(bank: CirculantBank, r: torch.Tensor,
     (B, T, D): the kernel analog of
     `structured_bank.estimate_circulant_coherent`. T = 1 runs K6; T within
     `circ_kernel_eligible` runs K7 with the alpha blend in the kernel (K9
-    per shard and a merge for K > 128); larger T takes the `torch.fft`
-    coherent path. `cache`: see `lowered`."""
+    per shard and a merge for K > 128); a larger T raises
+    (`harness.stages.estimate_circulant_coherent` sends it to the
+    `torch.fft` coherent path). `cache`: see `lowered`."""
     if r.dim() != 3:
         raise ValueError(f"expected (B, T, M) blocks, got {tuple(r.shape)}")
     b, t, d = r.shape
@@ -431,8 +433,9 @@ def estimate_fused_circulant_coherent(bank: CirculantBank, r: torch.Tensor,
         return estimate_fused_circulant(bank, r[:, 0, :], blocks,
                                         cache)[:, None, :]
     if not circ_kernel_eligible(d, bank.spec_cr.shape[0], t):
-        return sb.estimate_circulant_coherent(bank, r, "all", 4096, alpha,
-                                              blocks, "fft")
+        raise ValueError(
+            f"the coherent circulant kernels take D <= {CIRC_MAX_D} and "
+            f"T <= {circ_tile_rows(d)}; got D={d}, T={t}")
     ckbs = lowered(bank, cache, blocks, t, alpha)
     x2 = _x2(r)
     if len(ckbs) == 1:

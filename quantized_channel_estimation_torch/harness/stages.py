@@ -118,25 +118,57 @@ def prepare_bank_circulant_spectra(params, spectra, snr_db, a, n_bits, q=None,
         params, snr_db, a, n_bits, q, blocks=blocks, spectra=spectra)
 
 
+def _circ_method(method: str, mode, d: int, k: int, t: int = 1) -> str:
+    """The one dispatch rule of the structured estimators, from shapes
+    only: 'auto' is the kernels for an 'all'-mode request within
+    `circ_kernels.circ_kernel_eligible`, else the `torch.fft` pipeline;
+    'kernel' raises outside that range; 'fft' / 'dft' name the pipeline."""
+    kernel_ok = mode == "all" and circ_kernels.circ_kernel_eligible(d, k, t)
+    if method == "kernel" and not kernel_ok:
+        raise ValueError(
+            "method='kernel' needs mode='all' and (D, K, T) within "
+            f"circ_kernel_eligible (got mode={mode!r}, D={d}, K={k}, T={t})")
+    if method == "auto":
+        return "kernel" if kernel_ok else "fft"
+    return method
+
+
 def estimate_circulant(bank: structured_bank.CirculantBank, r: torch.Tensor,
-                       mode, blocks=None):
-    """Structured analog of `estimate_auto`: 'all' mode within
+                       mode="all", blocks=None, method: str = "auto",
+                       cache: Optional[dict] = None):
+    """Structured analog of `estimate_auto` for r (N, M): 'all' mode within
     `circ_kernels.circ_kernel_eligible` -> the circulant kernel K6 (the
     CUDA kernel for a CUDA tensor, its plain version for a CPU tensor);
-    selection modes and wider banks -> the `torch.fft` pipeline. The rule
-    reads shapes only."""
-    return structured_bank.estimate_circulant(bank, r, mode, 16384, blocks)
+    selection modes and wider banks -> the `torch.fft` pipeline. `method`
+    as in `_circ_method`; `cache` holds the kernel layouts of a bank served
+    many times (`circ_kernels.lowered`)."""
+    k, d = bank.spec_cr.shape
+    method = _circ_method(method, mode, d, k)
+    if method == "kernel":
+        return circ_kernels.estimate_fused_circulant(bank, r, blocks, cache)
+    return structured_bank.estimate_circulant(bank, r, mode, 16384, blocks,
+                                              method)
 
 
 def estimate_circulant_coherent(bank: structured_bank.CirculantBank,
-                                r: torch.Tensor, mode, alpha: float = 1.0,
-                                blocks=None):
+                                r: torch.Tensor, mode="all",
+                                alpha: float = 1.0, blocks=None,
+                                method: str = "auto",
+                                cache: Optional[dict] = None):
     """Coherent analog of `estimate_circulant` for blocks r (B, T, M): 'all'
     mode with (D, K, T) within `circ_kernels.circ_kernel_eligible` -> K7
     (the alpha blend in the kernel), else the `torch.fft` coherent
     pipeline."""
+    if r.dim() != 3:
+        raise ValueError(f"estimate_circulant_coherent expects (B, T, M) "
+                         f"blocks, got shape {tuple(r.shape)}")
+    k, d = bank.spec_cr.shape
+    method = _circ_method(method, mode, d, k, r.shape[1])
+    if method == "kernel":
+        return circ_kernels.estimate_fused_circulant_coherent(
+            bank, r, alpha, blocks, cache)
     return structured_bank.estimate_circulant_coherent(bank, r, mode, 4096,
-                                                       alpha, blocks)
+                                                       alpha, blocks, method)
 
 
 def nmse(h_est: torch.Tensor, h: torch.Tensor) -> float:

@@ -30,12 +30,13 @@ them every selection mode) equal the dense path's up to rounding. Fits that
 are not circulant ride the same path through their Frobenius-best circulant
 approximation (`linalg.circulant_diag_spectra`).
 
-'all'-mode estimates within `circ_kernels.circ_kernel_eligible` go through
-the hand-written circulant kernels (method 'auto' or 'kernel'); every other
-request takes the `torch.fft` pipeline here (method 'fft'), or the same
-pipeline with the transforms as GEMMs against the DFT matrix (method
-'dft'), which is also what serves the `blocks=(n1, n2)` kron basis as a
-general matrix.
+This module is the plain pipeline: `torch.fft` transforms (method 'fft'),
+or the same pipeline with the transforms as GEMMs against the DFT matrix
+(method 'dft'), which is also what serves the `blocks=(n1, n2)` kron basis
+as a general matrix. The hand-written circulant kernels live a layer up in
+`estimators.circ_kernels`, and the one rule that sends an 'all'-mode
+request to them (the JAX function's methods 'auto' and 'kernel') is
+`harness.stages.estimate_circulant` / `estimate_circulant_coherent`.
 
 Multi-pilot observations (A = kron(x, I) with P > 1, the JAX
 `CirculantBankMP`) are not ported yet and raise NotImplementedError
@@ -272,16 +273,12 @@ def _cast(bank: CirculantBank, r: torch.Tensor):
                          bank.bias_f.to(cdt)), r.to(cdt)
 
 
-def _resolve_method(method: str) -> str:
-    if method not in ("auto", "fft", "dft", "kernel"):
-        raise ValueError(f"unknown method {method!r}")
-    return "fft" if method == "auto" else method
-
-
-def _circ_kernels():
-    # imported at call time: circ_kernels imports this module
-    from quantized_channel_estimation_torch.estimators import circ_kernels
-    return circ_kernels
+def _check_method(method: str) -> str:
+    if method not in ("fft", "dft"):
+        raise ValueError(
+            f"unknown method {method!r}: the pipeline takes 'fft' or 'dft' "
+            "(`harness.stages.estimate_circulant` dispatches to the kernels)")
+    return method
 
 
 def _estimate_chunk_f(bank: CirculantBank, u: torch.Tensor,
@@ -297,28 +294,18 @@ def _estimate_chunk_f(bank: CirculantBank, u: torch.Tensor,
 def estimate_circulant(bank: CirculantBank, r: torch.Tensor,
                        mode: Union[str, int, float] = "all",
                        chunk_size: int = 16384, blocks=None,
-                       method: str = "auto") -> torch.Tensor:
+                       method: str = "fft") -> torch.Tensor:
     """Estimate channels from quantized observations r (N, M) -> (N, D)
     through the FFT-domain bank: the structured analog of
     `gmm_estimator.estimate`, with the same posterior semantics and
-    selection modes.
-
-    method 'auto': the circulant kernel K6 for an 'all'-mode request within
-    `circ_kernels.circ_kernel_eligible` (the CUDA kernel on a CUDA tensor,
-    its plain version on a CPU tensor), else the `torch.fft` pipeline;
-    'kernel': the kernel, raising outside its range; 'fft' / 'dft': the
-    chunked pipeline with FFT / DFT-matrix GEMM transforms."""
+    selection modes, as a chunked pipeline with FFT ('fft') or DFT-matrix
+    GEMM ('dft') transforms. The single-pass kernel K6 and the rule that
+    chooses between it and this pipeline (the JAX function's 'kernel' and
+    'auto' methods) are `estimators.circ_kernels.estimate_fused_circulant`
+    and `harness.stages.estimate_circulant`."""
     pin_fp32()
-    k, d = bank.spec_cr.shape
-    ck = _circ_kernels()
-    kernel_ok = mode == "all" and ck.circ_kernel_eligible(d, k)
-    if method == "kernel" or (method == "auto" and kernel_ok):
-        if not kernel_ok:
-            raise ValueError(
-                "method='kernel' supports mode='all' within "
-                f"circ_kernel_eligible (got mode={mode!r}, D={d}, K={k})")
-        return ck.estimate_fused_circulant(bank, r, blocks=blocks)
-    method = _resolve_method(method)
+    method = _check_method(method)
+    d = bank.spec_cr.shape[1]
     bank_c, rc = _cast(bank, r)
     out = [_inv(_estimate_chunk_f(bank_c, _fwd(rc[i0:i0 + chunk_size],
                                                blocks, method), mode),
@@ -354,30 +341,20 @@ def estimate_circulant_coherent(bank: CirculantBank, r: torch.Tensor,
                                 mode: Union[str, int, float] = "all",
                                 chunk_size: int = 4096, alpha: float = 1.0,
                                 blocks=None,
-                                method: str = "auto") -> torch.Tensor:
+                                method: str = "fft") -> torch.Tensor:
     """Joint estimation of coherence blocks r (B, T, M) -> (B, T, D)
     through the FFT-domain bank: the structured analog of
     `gmm_estimator.estimate_coherent`, with the alpha evidence blend
     (alpha = 0 is the independent per-snapshot estimator). `method` as in
-    `estimate_circulant`, the kernel being K7 within
-    `circ_kernels.circ_kernel_eligible(D, K, T)`."""
+    `estimate_circulant`; the kernel K7 is reached through
+    `harness.stages.estimate_circulant_coherent`."""
     if r.dim() != 3:
         raise ValueError(f"estimate_circulant_coherent expects (B, T, M) "
                          f"blocks, got shape {tuple(r.shape)}")
     pin_fp32()
-    k, d = bank.spec_cr.shape
+    method = _check_method(method)
+    d = bank.spec_cr.shape[1]
     t = r.shape[1]
-    ck = _circ_kernels()
-    kernel_ok = mode == "all" and ck.circ_kernel_eligible(d, k, t)
-    if method == "kernel" or (method == "auto" and kernel_ok):
-        if not kernel_ok:
-            raise ValueError(
-                "method='kernel' needs mode='all' and (D, K, T) within "
-                f"circ_kernel_eligible (got mode={mode!r}, D={d}, K={k}, "
-                f"T={t})")
-        return ck.estimate_fused_circulant_coherent(bank, r, alpha=alpha,
-                                                    blocks=blocks)
-    method = _resolve_method(method)
     bank_c, rc = _cast(bank, r)
     out = [_inv(_estimate_coherent_chunk_f(
         bank_c, _fwd(rc[i0:i0 + chunk_size], blocks, method), mode, alpha),
@@ -404,7 +381,7 @@ def _stats_chunk_f(bank: CirculantBank, u: torch.Tensor):
 
 def estimate_circulant_stats(bank: CirculantBank, r: torch.Tensor,
                              chunk_size: int = 16384, blocks=None,
-                             method: str = "auto"):
+                             method: str = "fft"):
     """'all'-mode estimation state (m, den, acc) of a (component shard of
     a) circulant bank: merging shard states (`circ_kernels.merge_stats`)
     and taking acc / den reproduces `estimate_circulant(..., 'all')` in the
@@ -412,7 +389,7 @@ def estimate_circulant_stats(bank: CirculantBank, r: torch.Tensor,
     transform commutes with the per-row normalization, so it runs once
     after the merge). m (N,), den (N,), acc (N, D) complex (DFT domain)."""
     pin_fp32()
-    method = _resolve_method(method)
+    method = _check_method(method)
     bank_c, rc = _cast(bank, r)
     parts = [_stats_chunk_f(bank_c, _fwd(rc[i0:i0 + chunk_size], blocks,
                                          method))
@@ -449,7 +426,7 @@ def _coherent_stats_chunk_f(bank: CirculantBank, u: torch.Tensor,
 def estimate_circulant_coherent_stats(bank: CirculantBank, r: torch.Tensor,
                                       chunk_size: int = 4096,
                                       alpha: float = 1.0, blocks=None,
-                                      method: str = "auto"):
+                                      method: str = "fft"):
     """Block estimation state of a (shard of a) circulant bank over
     coherence blocks r (B, T, M): per-block (m, den) at alpha = 1,
     per-snapshot below, acc (B, T, D) complex in the DFT domain. Merge
@@ -458,7 +435,7 @@ def estimate_circulant_coherent_stats(bank: CirculantBank, r: torch.Tensor,
     if r.dim() != 3:
         raise ValueError(f"expected (B, T, M) blocks, got {tuple(r.shape)}")
     pin_fp32()
-    method = _resolve_method(method)
+    method = _check_method(method)
     bank_c, rc = _cast(bank, r)
     parts = [_coherent_stats_chunk_f(
         bank_c, _fwd(rc[i0:i0 + chunk_size], blocks, method), alpha)

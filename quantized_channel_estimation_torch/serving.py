@@ -44,6 +44,7 @@ import torch
 
 from quantized_channel_estimation_torch.estimators import (
     circ_kernels, kernels)
+from quantized_channel_estimation_torch.harness import stages
 from quantized_channel_estimation_torch.harness.stages import resolve_device
 from quantized_channel_estimation_torch.models import (
     gmm, gmm_estimator, structured_bank)
@@ -452,12 +453,9 @@ class EstimationService:
         with the kernels, else the einsum estimator; structured: K6, else
         the `torch.fft` pipeline."""
         if self.structured:
-            if self.use_kernels:
-                return circ_kernels.estimate_fused_circulant(
-                    entry.bank, r, self.structured_blocks, entry.lowered)
-            return structured_bank.estimate_circulant(
-                entry.bank, r, self.mode, 16384, self.structured_blocks,
-                "fft")
+            return stages.estimate_circulant(
+                entry.bank, r, self.mode, self.structured_blocks,
+                "auto" if self.use_kernels else "fft", entry.lowered)
         if self.use_kernels:
             if self.mode == "all":
                 return kernels.estimate_fused(entry.bank, r, entry.lowered)
@@ -472,13 +470,9 @@ class EstimationService:
         else the einsum coherent estimator; structured: K7, else the
         `torch.fft` coherent pipeline."""
         if self.structured:
-            if self.use_kernels:
-                return circ_kernels.estimate_fused_circulant_coherent(
-                    entry.bank, r, alpha, self.structured_blocks,
-                    entry.lowered)
-            return structured_bank.estimate_circulant_coherent(
-                entry.bank, r, self.mode, 4096, alpha,
-                self.structured_blocks, "fft")
+            return stages.estimate_circulant_coherent(
+                entry.bank, r, self.mode, alpha, self.structured_blocks,
+                "auto" if self.use_kernels else "fft", entry.lowered)
         if self.use_kernels and self.mode == "all":
             return kernels.estimate_fused_coherent(entry.bank, r, alpha,
                                                    entry.lowered)

@@ -24,6 +24,7 @@ import torch
 
 from quantized_channel_estimation_torch.estimators import circ_kernels as tck
 from quantized_channel_estimation_torch.estimators import kernels as tkn
+from quantized_channel_estimation_torch.harness import stages
 from quantized_channel_estimation_torch.models import gmm as tg
 from quantized_channel_estimation_torch.models import gmm_estimator as tge
 from quantized_channel_estimation_torch.models import structured_bank as tsb
@@ -378,17 +379,24 @@ def test_circ_estimate_coherent_matches_plain(d, k, n_blocks, t, alpha,
     (64, 64, 1001, 4, 0.25, 0),
     (16, 8, 100, 8, 0.5, 1),
     (128, 100, 50, 32, 1.0, 0),
+    # shards of 128 components, as a bank of 256 is served: a service
+    # microbatch of 512 rows and a larger batch
+    (64, 256, 512, 1, 1.0, 3),
+    (64, 256, 20000, 1, 1.0, 0),
+    (64, 256, 128, 4, 1.0, 0),
+    (64, 256, 5000, 4, 0.5, 3),
 ])
 def test_circ_stats_match_plain_and_two_shards_merge(d, k, n, t, alpha,
                                                      n_dead):
     """K8 (T = 1) and K9 on the two halves of the bank: each state against
     the plain stats, and the states merged with `merge_stats` and
-    inverse-transformed once against K6 / K7 over the whole bank."""
+    inverse-transformed once against K6 / K7 over the whole bank (past one
+    launch's 128 components: against the plain states merged likewise)."""
     dev = _card()
     bank = _circ_bank(d, k, dev, n_dead)
     x2 = _rows(n * t, 2 * d, dev)
     name = "circ_estimate_stats" if t == 1 else "circ_estimate_coherent_stats"
-    states = []
+    states, plain = [], []
     for lo, hi in ((0, k // 2), (k // 2, k)):
         ckb = tck.circ_kernel_bank(
             tsb.CirculantBank(*(x[lo:hi] for x in bank)), None, t, alpha)
@@ -409,10 +417,17 @@ def test_circ_stats_match_plain_and_two_shards_merge(d, k, n, t, alpha,
         for g, w, w64 in zip(got, want, want64):
             _held(g, w, w64)
         states.append(got)
-    _, den, acc = tck.merge_stats(*zip(*states))
-    merged = tck._x2(tsb.unitary_ifft(tck._hc(acc / den[:, None],
-                                              torch.complex64)))
-    if t == 1:
+        plain.append(want)
+
+    def merge(sts):
+        _, den, acc = tck.merge_stats(*zip(*sts))
+        return tck._x2(tsb.unitary_ifft(tck._hc(acc / den[:, None],
+                                                torch.complex64)))
+
+    merged = merge(states)
+    if k > tck.CIRC_MAX_K:
+        whole = merge(plain)
+    elif t == 1:
         whole = tck.circ_estimate(x2, tck.circ_kernel_bank(bank))
     else:
         whole = tck.circ_estimate_coherent(
@@ -448,7 +463,10 @@ def test_circ_kernels_refuse_bad_inputs():
         tck.circ_estimate(x2, many)
     r = torch.zeros(3, 130, dtype=torch.complex64, device=dev)
     with pytest.raises(ValueError, match="method='kernel'"):
-        tsb.estimate_circulant(wide, r, method="kernel")
+        stages.estimate_circulant(wide, r, method="kernel")
+    with pytest.raises(ValueError, match="coherent circulant kernels"):
+        tck.estimate_fused_circulant_coherent(
+            bank, torch.zeros(2, 65, 8, dtype=torch.complex64, device=dev))
     before = tkn.launch_counts()
     assert tck.circ_estimate(x2[:0], ckb).shape == (0, 16)
     m, den, acc = tck.circ_estimate_stats(x2[:0], ckb)

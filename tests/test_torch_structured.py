@@ -9,7 +9,7 @@ made from numpy seeds and fed to both packages. JAX runs on the CPU in x64
 
 Tolerances, with their reasons:
 - 1e-6 for the spectra helpers and 1e-5 for the bank fields: float32
-  transforms of O(1) values on both sides. 1-bit banks 1e-3: the arcsine's
+  transforms of O(1) values on both sides. 1-bit banks 5e-4: the arcsine's
   derivative diverges at +-1, where the lag-0 entry of Cy / c0 sits, so
   the float32 rounding of that entry (1e-7) moves asin by its square root
   (measured 2.4e-4 between the packages; the JAX tests hold their own
@@ -211,7 +211,7 @@ def test_prepare_bank_circulant_matches_jax(rng, n_bits, blocks,
         tp, 10.0, torch.tensor(x0, dtype=torch.complex64) * torch.eye(
             D, dtype=torch.complex64), n_bits, qt,
         spectra=torch.as_tensor(spec) if from_spectra else None, **kw)
-    tol = 1e-3 if n_bits == 1 else 1e-5
+    tol = 5e-4 if n_bits == 1 else 1e-5
     assert int(torch.isinf(tb.log_weights).sum()) == 2
     for name, got, want in zip(tb._fields, tb, jb):
         got, want = _np(got), np.asarray(want)
@@ -405,31 +405,40 @@ def test_coherent_stats_and_shard_merge_match_jax(rng, alpha):
 
 
 def test_method_dispatch_and_refusals(rng):
-    """'auto' and 'kernel' reach the kernel entry for 'all' within the
-    eligibility rule (its plain version on the CPU); selection modes and
-    widths past the rule take the `torch.fft` pipeline under 'auto' and
-    raise under 'kernel'."""
+    """The one dispatch rule, `stages.estimate_circulant`: 'auto' and
+    'kernel' reach the kernel entry for 'all' within the eligibility rule
+    (its plain version on the CPU); selection modes and widths past the
+    rule take the `torch.fft` pipeline under 'auto' and raise under
+    'kernel'. `structured_bank` itself is the pipeline only, and the kernel
+    entries raise past the rule."""
     jb, tb = _banks(rng)
     r = torch.as_tensor(_obs(rng, 50))
     via_kernel = ck.estimate_fused_circulant(tb, r)
-    assert torch.equal(tsb.estimate_circulant(tb, r), via_kernel)
-    assert torch.equal(tsb.estimate_circulant(tb, r, method="kernel"),
+    assert torch.equal(tst.estimate_circulant(tb, r), via_kernel)
+    assert torch.equal(tst.estimate_circulant(tb, r, method="kernel"),
                        via_kernel)
-    fft = tsb.estimate_circulant(tb, r, method="fft")
+    fft = tsb.estimate_circulant(tb, r)
+    assert torch.equal(fft, tsb.estimate_circulant(tb, r, method="fft"))
+    assert torch.equal(fft, tst.estimate_circulant(tb, r, method="fft"))
     assert not torch.equal(fft, via_kernel)
     _close(via_kernel, fft, 2e-4)
-    assert torch.equal(tsb.estimate_circulant(tb, r, 2),
+    assert torch.equal(tst.estimate_circulant(tb, r, 2),
                        tsb.estimate_circulant(tb, r, 2, method="fft"))
     with pytest.raises(ValueError, match="method='kernel'"):
-        tsb.estimate_circulant(tb, r, 1, method="kernel")
+        tst.estimate_circulant(tb, r, 1, method="kernel")
     with pytest.raises(ValueError, match="unknown method"):
-        tsb.estimate_circulant(tb, r, 1, method="mxu")
+        tst.estimate_circulant(tb, r, 1, method="mxu")
+    for bad in ("mxu", "kernel", "auto"):
+        with pytest.raises(ValueError, match="unknown method"):
+            tsb.estimate_circulant(tb, r, 1, method=bad)
     rb = r[:48].reshape(12, 4, D)
     assert torch.equal(
-        tsb.estimate_circulant_coherent(tb, rb, alpha=0.5),
+        tst.estimate_circulant_coherent(tb, rb, alpha=0.5),
         ck.estimate_fused_circulant_coherent(tb, rb, 0.5))
     with pytest.raises(ValueError, match="method='kernel'"):
-        tsb.estimate_circulant_coherent(tb, rb, 0.9, method="kernel")
+        tst.estimate_circulant_coherent(tb, rb, 0.9, method="kernel")
+    with pytest.raises(ValueError, match="blocks"):
+        tst.estimate_circulant_coherent(tb, rb[0])
     # D past the rule: 'auto' is the fft pipeline, 'kernel' raises
     d = ck.CIRC_MAX_D + 2
     w, means, spec = _prior(rng, k=2, d=d)
@@ -440,15 +449,18 @@ def test_method_dispatch_and_refusals(rng):
         spectra=torch.as_tensor(spec))
     rw = torch.as_tensor(_obs(rng, 12, d))
     assert not ck.circ_kernel_eligible(d, 2)
-    assert torch.equal(tsb.estimate_circulant(wide, rw),
+    assert torch.equal(tst.estimate_circulant(wide, rw),
                        tsb.estimate_circulant(wide, rw, method="fft"))
     with pytest.raises(ValueError, match="method='kernel'"):
-        tsb.estimate_circulant(wide, rw, method="kernel")
-    # T past a tile's rows: the fft coherent pipeline
+        tst.estimate_circulant(wide, rw, method="kernel")
+    # T past a tile's rows: the fft coherent pipeline; the kernel entry
+    # raises instead of choosing another path
     t = ck.circ_tile_rows(D) + 1
     rt = torch.as_tensor(_obs(rng, 2 * t)).reshape(2, t, D)
     assert torch.equal(
-        tsb.estimate_circulant_coherent(tb, rt),
+        tst.estimate_circulant_coherent(tb, rt),
         tsb.estimate_circulant_coherent(tb, rt, method="fft"))
-    assert torch.equal(ck.estimate_fused_circulant_coherent(tb, rt),
-                       tsb.estimate_circulant_coherent(tb, rt, method="fft"))
+    with pytest.raises(ValueError, match="coherent circulant kernels"):
+        ck.estimate_fused_circulant_coherent(tb, rt)
+    with pytest.raises(ValueError, match="method='kernel'"):
+        tst.estimate_circulant_coherent(tb, rt, method="kernel")
