@@ -20,24 +20,36 @@ Phases (any failure exits non-zero; nothing is caught):
      block-circulant case `blocks=(8, 8)` and two other template widths
      (D = 32 with K = 40, D = 128 with K = 128), and K8 / K9 on the two
      128-component shards of a K = 256 bank, as the K = 256 service runs
-     them, at a 512-row microbatch and at N = 131072. Where float32 sums in
+     them, at a 512-row microbatch and at N = 131072; the multi-pilot
+     circulant kernel K10 on seeded banks under the kron(x, I) pilot of
+     `pilots.pilot_matrix`: P in {2, 3, 4} pilots at D, K = (16, 8),
+     (24, 40), (64, 64) with dead components and a ragged N, 1-bit and
+     unquantized banks, `blocks=(8, 8)`, the widest instantiation (D = K =
+     128, P = 4), and its coherent form over the same (T, alpha) grid at
+     N = 131072, a ragged block count and the largest T of both tile
+     sizes. Where float32 sums in
      another order push a circulant kernel past TOL of its plain version
-     (large T), both are held against the float64 evaluation of the same
+     (large T, or K10's one long logit product), both are held against the
+     float64 evaluation of the same
      arithmetic, the kernel to within twice the plain version's own error;
   3. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after: `run_gmm.run` at the `GmmBenchConfig`
      defaults, and again with `n_coherence=4` (alpha 1), then both once
      more with `cov_type='circulant'` (the FFT-domain bank, K6 and K7),
-     with the scientific invariants of their MSE tables; then the
+     and those two with `n_pilots=2` (the multi-pilot bank, K10 and its
+     coherent form), with the scientific invariants of their MSE tables and
+     the multi-pilot estimate held against the dense bank's (K1 at M = 128)
+     from the same fit; then the
      `EstimationService` at the headline widths (the synthetic bank of
      `tools/serving_bench.py`, 8 closed-loop clients of 64-snapshot
-     requests at -5/5/15 dB, max_batch 1024) in eight modes: flat 'all',
+     requests at -5/5/15 dB, max_batch 1024) in ten modes: flat 'all',
      T=4 blocks, top-1 and top-4, each held against the plain einsum
      estimator on one request; `structured=True` flat and T=4 blocks (K6,
      K7) and `from_circulant_spectra` with K = 256 components flat and
-     T=4 blocks (two shards through K8 / K9, merged), each held against
-     the `torch.fft` pipeline; with its throughput, latency and
-     `metrics()`;
+     T=4 blocks (two shards through K8 / K9, merged), and
+     `structured=True` with a P = 2 kron(x, I) matrix flat and T=4 blocks
+     (K10 and its coherent form), each held against the `torch.fft`
+     pipeline; with its throughput, latency and `metrics()`;
   4. CUDA-event times of each kernel, its plain version and a library
      yardstick at the headline shapes, beside the least time the card
      could take;
@@ -111,12 +123,12 @@ def bench_obs(dev, q, n, d=D):
     return observation.observe(gen, h, SNR, None, N_BITS, q)
 
 
-def circ_bank(dev, q, d=D, k=K, n_dead=0, blocks=None):
-    """A seeded circulant bank at 2 bits, 10 dB: spectra uniform on
-    [0.05, 2] (as the structured-bank tests draw them), small non-zero
-    means, uniform weights (n_dead of them pushed below the dead floor),
-    the scalar pilot x0 = 1."""
-    from quantized_channel_estimation_torch.models import gmm, structured_bank
+def circ_prior(dev, d=D, k=K, n_dead=0):
+    """A seeded circulant prior: spectra uniform on [0.05, 2] (as the
+    structured-bank tests draw them), small non-zero means, uniform weights
+    (n_dead of them pushed below the dead floor). Returns (params with
+    placeholder covariances, spectra)."""
+    from quantized_channel_estimation_torch.models import gmm
     rng = np.random.default_rng(0)
     spectra = torch.as_tensor(
         rng.uniform(0.05, 2.0, (k, d)).astype(np.float32), device=dev)
@@ -127,10 +139,43 @@ def circ_bank(dev, q, d=D, k=K, n_dead=0, blocks=None):
     w = torch.full((k,), 1.0 / k, device=dev)
     w[:n_dead] = 1e-9
     dummy = torch.zeros((k, 1, 1), dtype=torch.complex64, device=dev)
-    params = gmm.GmmParams(w / w.sum(), means, dummy, dummy)
+    return gmm.GmmParams(w / w.sum(), means, dummy, dummy), spectra
+
+
+def circ_bank(dev, q, d=D, k=K, n_dead=0, blocks=None):
+    """The bank of `circ_prior` at 2 bits, 10 dB, under the scalar pilot
+    x0 = 1."""
+    from quantized_channel_estimation_torch.models import structured_bank
+    params, spectra = circ_prior(dev, d, k, n_dead)
     return structured_bank.prepare_bank_circulant(
         params, SNR, torch.tensor(1.0 + 0.0j), N_BITS, q, blocks=blocks,
         spectra=spectra)
+
+
+def mp_bank(dev, p, d=D, k=K, n_bits=N_BITS, n_dead=0, blocks=None):
+    """The multi-pilot bank of `circ_prior` at 10 dB under the P-pilot
+    matrix A = kron(x, I) of `pilots.pilot_matrix`. Returns (bank, A,
+    quantizer)."""
+    from quantized_channel_estimation_torch.models import structured_bank
+    from quantized_channel_estimation_torch.ops import pilots
+    from quantized_channel_estimation_torch.ops import quantizer as Q
+    params, spectra = circ_prior(dev, d, k, n_dead)
+    q = Q.design_quantizer(SNR, n_bits)
+    q = None if q is None else q.to(dev)
+    a = pilots.pilot_matrix(d, p, n_bits, device=dev)
+    bank = structured_bank.prepare_bank_circulant(
+        params, SNR, a, n_bits, q, blocks=blocks, spectra=spectra)
+    return bank, a, q
+
+
+def mp_obs(dev, a, q, n, n_bits=N_BITS):
+    """Quantized multi-pilot observations (n, P D) of unit-power channels
+    at 10 dB under the pilot matrix a (P D, D)."""
+    from quantized_channel_estimation_torch.ops import observation
+    from quantized_channel_estimation_torch.ops.cplx import crandn
+    gen = torch.Generator(device=dev).manual_seed(1)
+    h = crandn(gen, (n, a.shape[1]))
+    return observation.observe(gen, h, SNR, a, n_bits, q)
 
 
 def serving_params():
@@ -222,13 +267,14 @@ def compare64(name, label, got, want, want64):
     return abs_err
 
 
-def main_path_run(run_gmm, kernels, dev, tmp, **change):
+def main_path_run(run_gmm, kernels, dev, tmp, falling=True, use_cache=False,
+                  **change):
     """run_gmm at the defaults (plus `change`) on the card, its kernel
-    launches counted alone; checks every column finite and falling with
-    SNR."""
+    launches counted alone; checks every column finite and (`falling`)
+    falling with SNR."""
     cfg = run_gmm.GmmBenchConfig(results_dir=tmp,
                                  cache_dir=os.path.join(tmp, "saves"),
-                                 use_cache=False, **change)
+                                 use_cache=use_cache, **change)
     kernels.reset_launch_counts()
     tm = time.time()
     mse, rate, timings = run_gmm.run(cfg, device=dev)
@@ -242,7 +288,7 @@ def main_path_run(run_gmm, kernels, dev, tmp, **change):
     for name, vals in mse.items():
         if not all(math.isfinite(v) for v in vals):
             raise AssertionError(f"non-finite MSE in {name}: {vals}")
-        if not vals[0] > vals[-1]:
+        if falling and not vals[0] > vals[-1]:
             raise AssertionError(f"MSE of {name} does not fall with SNR")
     if not all(math.isfinite(v) for v in sum(rate.values(), [])):
         raise AssertionError("non-finite rate row")
@@ -258,11 +304,12 @@ def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
     request, a kernel that was not launched or an answer off the
     reference."""
     rng = np.random.default_rng(1)
+    width = svc.a.shape[0]                   # P D observations a snapshot
 
     def request(size):
-        x = (rng.standard_normal((size, D))
-             + 1j * rng.standard_normal((size, D))).astype(np.complex64)
-        return x.reshape(size // t_coh, t_coh, D) if t_coh > 1 else x
+        x = (rng.standard_normal((size, width))
+             + 1j * rng.standard_normal((size, width))).astype(np.complex64)
+        return x.reshape(size // t_coh, t_coh, width) if t_coh > 1 else x
 
     # one request held against the plain estimator on the card
     r = request(SERVE_REQ)
@@ -335,11 +382,13 @@ def main():
         return 1
     from quantized_channel_estimation_torch import serving
     from quantized_channel_estimation_torch.estimators import (
-        circ_kernels, kernels)
-    from quantized_channel_estimation_torch.harness import run_gmm
+        circ_kernels, kernels, mp_circ_kernels)
+    from quantized_channel_estimation_torch.harness import run_gmm, stages
     from quantized_channel_estimation_torch.models import (
         gmm_estimator, structured_bank)
+    from quantized_channel_estimation_torch.ops import observation, pilots
     from quantized_channel_estimation_torch.ops import quantizer as Q
+    from quantized_channel_estimation_torch.utils import io as qio
     from quantized_channel_estimation_torch.ops.precision import pin_fp32
 
     t0 = time.time()
@@ -489,6 +538,48 @@ def main():
             check_stats(f"K={K_WIDE}, T={t}, alpha={alpha}", kbank, rows,
                         None, t, alpha)
 
+    # 2c. the multi-pilot circulant kernel K10 against its plain version
+    mk = mp_circ_kernels
+
+    def check_mp(label, p, d=D, k=K, n=N_BENCH, t=1, alpha=1.0, n_bits=N_BITS,
+                 n_dead=0, blocks=None):
+        """K10 (t = 1) or its coherent form on n rows of a seeded P-pilot
+        bank against the plain version."""
+        bank_c, a_c, q_c = mp_bank(dev, p, d, k, n_bits, n_dead, blocks)
+        xm = ck._x2(mp_obs(dev, a_c, q_c, n, n_bits))
+        ckb = mk.mp_circ_kernel_bank(bank_c, blocks, t, alpha)
+        label = (f"{label}, P={p}, D={d}, K={k}"
+                 + (f", T={t}, alpha={alpha}" if t > 1 else ""))
+        if t == 1:
+            name, got = "mp_circ_estimate", mk.mp_circ_estimate(xm, ckb)
+            want = mk.mp_circ_estimate_reference(xm, ckb)
+            want64 = mk.mp_circ_estimate_reference(xm.double(), f64(ckb))
+        else:
+            name = "mp_circ_estimate_coherent"
+            got = mk.mp_circ_estimate_coherent(xm, ckb, t, alpha)
+            want = mk.mp_circ_estimate_coherent_reference(xm, ckb, t, alpha)
+            want64 = mk.mp_circ_estimate_coherent_reference(
+                xm.double(), f64(ckb), t, alpha)
+        errs[name].append(compare64(name, label, got, want, want64))
+
+    for p in (2, 3, 4):
+        for d_w, k_w in ((16, 8), (24, 40), (D, K)):
+            check_mp("dead, ragged", p, d_w, k_w, 10001, n_dead=2)
+    check_mp("main path", 2, n=n_val)
+    check_mp("1-bit", 2, n=n_val, n_bits=1)
+    check_mp("unquantized", 3, n=n_val, n_bits="inf")
+    check_mp("blocks=(8, 8)", 2, n=n_val, blocks=(8, 8))
+    check_mp("blocks=(8, 8)", 2, n=n_val, t=4, alpha=0.25, blocks=(8, 8))
+    check_mp("widest", 4, 128, 128, 20001, n_dead=3)
+    check_mp("widest", 4, 128, 128, 32 * 601, 32, 0.25, n_dead=3)
+    check_mp("full", 2)
+    check_mp("full", 4)
+    for t in (2, 4, 16):
+        for alpha in (1.0, 0.25):
+            check_mp("full", 2, t=t, alpha=alpha)
+    check_mp("dead, B=2501", 3, 24, 40, 2501 * 4, 4, 0.25, n_dead=2)
+    check_mp("largest T", 2, n=64 * 301, t=64)
+
     # 3. the main paths, each with its own launch counts
     total_launches = dict.fromkeys(errs, 0)
 
@@ -561,6 +652,86 @@ def main():
         f"{mse_sc['blmmse_gmm_coh'][i_low]:.5f} vs "
         f"{mse_sc['blmmse_gmm'][i_low]:.5f}")
 
+    # the circulant runs under two pilots: the per-bin P x P bank through
+    # K10 and its coherent form. Under several `angle_amp` pilots the
+    # Bussgang gain of the weakest pilot exceeds 1 from 5 dB on, and every
+    # Bussgang estimator of the harness (genie, global, GMM, dense or
+    # structured) then loses to LS, so the invariants are held where the
+    # model is sound (-10 and -5 dB) and the tables are recorded.
+    low = [list(cfg.snrs).index(snr) for snr in (-10, -5)]
+
+    def mp_invariants(label, mse_m, launches_m, kernel_name):
+        for i in low:
+            at = {k: v[i] for k, v in mse_m.items()}
+            if not (at["blmmse_genie"] < at["blmmse_gmm"] < at["LS_glob"]):
+                raise AssertionError(f"{label}: MSE order at "
+                                     f"{cfg.snrs[i]} dB broken: {at}")
+            if not at["blmmse_gmm"] < mse_s["blmmse_gmm"][i]:
+                raise AssertionError(
+                    f"{label}: a second pilot does not help at "
+                    f"{cfg.snrs[i]} dB: {at['blmmse_gmm']} vs "
+                    f"{mse_s['blmmse_gmm'][i]}")
+        if launches_m[kernel_name] != len(cfg.snrs):
+            raise AssertionError(f"{label} launched {kernel_name} "
+                                 f"{launches_m[kernel_name]} times")
+        log(f"blmmse_gmm, {label}: {mse_m['blmmse_gmm']}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_m, mse_m, rate_m, timings_m, mp_s, launches_m = main_path_run(
+            run_gmm, kernels, dev, tmp, falling=False, use_cache=True,
+            cov_type="circulant", n_pilots=2)
+        # the same fit and validation channels through the dense bank (K1
+        # at M = 128) and through the multi-pilot bank (K10), at -10 and
+        # 10 dB
+        saves = os.path.join(tmp, "saves")
+        fit_file, = [f for f in os.listdir(saves) if f.startswith("trained")]
+        data_file, = [f for f in os.listdir(saves) if f.startswith("saved")]
+        fit_params = qio.load_gmm_params(os.path.join(saves, fit_file), dev)
+        h_val = torch.as_tensor(qio.load_channels(
+            os.path.join(saves, data_file))[0][cfg_m.n_train:], device=dev)
+    add(launches_m)
+    mp_invariants("circulant, 2 pilots", mse_m, launches_m,
+                  "mp_circ_estimate")
+    a_mp = pilots.pilot_matrix(D, 2, N_BITS, device=dev)
+    mp_vs_dense = {}
+    for snr in (-10.0, 10.0):
+        q_snr = Q.design_quantizer(snr, N_BITS).to(dev)
+        r_val = observation.observe(torch.Generator(dev).manual_seed(3),
+                                    h_val, snr, a_mp, N_BITS, q_snr)
+        via_k10 = stages.estimate_circulant(
+            stages.prepare_bank_circulant(fit_params, snr, a_mp, N_BITS,
+                                          q_snr), r_val)
+        via_k1 = stages.estimate_auto(
+            stages.prepare_bank(fit_params, snr, a_mp, N_BITS, q_snr), r_val,
+            "all")
+        torch.cuda.synchronize()
+        mp_vs_dense[snr] = float((via_k10 - via_k1).abs().max()
+                                 / via_k1.abs().max())
+        log(f"multi-pilot bank (K10) vs dense bank (K1, M=128) at {snr} dB, "
+            f"N={r_val.shape[0]}: max rel {mp_vs_dense[snr]:.3e} (tol {TOL} "
+            "at -10 dB)")
+    if not mp_vs_dense[-10.0] <= TOL:
+        raise AssertionError(f"multi-pilot bank off the dense bank: "
+                             f"{mp_vs_dense}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_mc, mse_mc, rate_mc, timings_mc, mp_coh_s, launches_mc = \
+            main_path_run(run_gmm, kernels, dev, tmp, falling=False,
+                          cov_type="circulant", n_pilots=2, n_coherence=4,
+                          coherence_alpha=1.0)
+    add(launches_mc)
+    mp_invariants("circulant, 2 pilots, n_coherence=4", mse_mc, launches_mc,
+                  "mp_circ_estimate_coherent")
+    if launches_mc["mp_circ_estimate"] != len(cfg_mc.snrs):
+        raise AssertionError(f"the coherent 2-pilot run launched K10 "
+                             f"{launches_mc['mp_circ_estimate']} times")
+    if not mse_mc["blmmse_gmm_coh"][i_low] < mse_mc["blmmse_gmm"][i_low]:
+        raise AssertionError(f"2-pilot coherent column no better at -10 dB: "
+                             f"{mse_mc['blmmse_gmm_coh'][i_low]} vs "
+                             f"{mse_mc['blmmse_gmm'][i_low]}")
+    log(f"2-pilot coherent column vs per-snapshot at -10 dB: "
+        f"{mse_mc['blmmse_gmm_coh'][i_low]:.5f} vs "
+        f"{mse_mc['blmmse_gmm'][i_low]:.5f}")
+
     params = serving_params()
     a_eye = np.eye(D, dtype=np.complex64)     # the tool's pilot matrix
     params_dev = type(params)(*(torch.as_tensor(x, device=dev)
@@ -589,6 +760,18 @@ def main():
             return structured_bank.estimate_circulant_coherent(
                 serve_cbank, rt, "all", 4096, 1.0, None, "fft")
         return structured_bank.estimate_circulant(serve_cbank, rt, "all",
+                                                  16384, None, "fft")
+
+    # the same prior under the two-pilot matrix: the multi-pilot bank
+    a_mp_np = a_mp.cpu().numpy()
+    serve_mpbank = structured_bank.prepare_bank_circulant(
+        params_dev, SNR, a_mp, N_BITS, q_serve)
+
+    def mp_reference(rt):
+        if rt.dim() == 3:
+            return structured_bank.estimate_circulant_coherent(
+                serve_mpbank, rt, "all", 4096, 1.0, None, "fft")
+        return structured_bank.estimate_circulant(serve_mpbank, rt, "all",
                                                   16384, None, "fft")
 
     # a spectra-native prior of K = 256 components: two shards of 128
@@ -630,15 +813,21 @@ def main():
              (("structured K=256 flat all", 1, "circ_estimate_stats",
                wide_reference, None),
               ("structured K=256 T=4 blocks, alpha=1", 4,
-               "circ_estimate_coherent_stats", wide_reference, None)))):
+               "circ_estimate_coherent_stats", wide_reference, None))),
+            (dict(mode="all", structured=True, a=a_mp_np),
+             (("structured 2 pilots flat all", 1, "mp_circ_estimate",
+               mp_reference, None),
+              ("structured 2 pilots T=4 blocks, alpha=1", 4,
+               "mp_circ_estimate_coherent", mp_reference, None)))):
         spectra = kwargs.pop("spectra", None)
+        a_serve = kwargs.pop("a", a_eye)
         if spectra is not None:
             svc = serving.EstimationService.from_circulant_spectra(
                 np.full((K_WIDE,), 1.0 / K_WIDE, np.float32),
                 np.zeros((K_WIDE, D), np.complex64), spectra, a_eye, N_BITS,
                 max_batch=SERVE_MAX_BATCH, device=dev, **kwargs)
         else:
-            svc = serving.EstimationService(params, a_eye, N_BITS,
+            svc = serving.EstimationService(params, a_serve, N_BITS,
                                             max_batch=SERVE_MAX_BATCH,
                                             device=dev, **kwargs)
         try:
@@ -664,7 +853,7 @@ def main():
         return ms, by
 
     def timed(label, kern, plain, library, flops, nbytes=nbytes,
-              library_chunked=None):
+              library_chunked=None, two_m=two_m):
         plain_ms = cuda_ms(plain)
         ms = cuda_ms(kern)
         ms2 = cuda_ms(kern)
@@ -758,41 +947,88 @@ def main():
                lambda: structured_bank.estimate_circulant_coherent_stats(
                    cbank, r_blocks, 4096, 1.0, None, "fft"))
 
+    # K10: 2 N (P 2D 2D + F K + (P+1) K 2D + 2D 2D) operations with
+    # F = D (3P + P (P-1)) features, the useful work only (the TPU kernel's
+    # forward operands are mostly zero blocks); bytes: the (N, 2PD) rows
+    # read and the (N, 2D) rows written once, the operands once. Library
+    # yardstick as for K6: the torch.fft pipeline over the batch as one
+    # chunk; its default chunks are 8192 rows / 2048 blocks.
+    def timed_mp(p, t=1):
+        bank_p, a_p, q_p = mp_bank(dev, p)
+        rp = mp_obs(dev, a_p, q_p, n)
+        xp = ck._x2(rp)
+        ckb_p = mk.mp_circ_kernel_bank(bank_p, None, t, 1.0)
+        feat = D * (3 * p + p * (p - 1))
+        flops = 2.0 * n * (p * two_d * two_d + feat * K
+                           + (p + 1) * K * two_d + two_d * two_d)
+        nbytes_p = 4.0 * (n * (p * two_d + two_d)
+                          + sum(x.numel() for x in ckb_p))
+        if t == 1:
+            return timed(
+                f"K10 (P={p})", lambda: mk.mp_circ_estimate(xp, ckb_p),
+                lambda: mk.mp_circ_estimate_reference(xp, ckb_p),
+                lambda: structured_bank.estimate_circulant_mp(
+                    bank_p, rp, "all", n, None, "fft"), flops, nbytes_p,
+                lambda: structured_bank.estimate_circulant_mp(
+                    bank_p, rp, "all", 8192, None, "fft"), p * two_d)
+        rp_blocks = rp.reshape(-1, t, rp.shape[-1])
+        return timed(
+            f"K10 coherent (P={p}, T={t}, alpha=1)",
+            lambda: mk.mp_circ_estimate_coherent(xp, ckb_p, t, 1.0),
+            lambda: mk.mp_circ_estimate_coherent_reference(xp, ckb_p, t, 1.0),
+            lambda: structured_bank.estimate_circulant_mp_coherent(
+                bank_p, rp_blocks, "all", n // t, 1.0, None, "fft"),
+            flops + 3.0 * n * K, nbytes_p,
+            lambda: structured_bank.estimate_circulant_mp_coherent(
+                bank_p, rp_blocks, "all", 2048, 1.0, None, "fft"), p * two_d)
+
+    t10, t10_p4, t10_coh = timed_mp(2), timed_mp(4), timed_mp(2, 4)
+
     src = "quantized_channel_estimation_torch/csrc/"
     tpu = "quantized_channel_estimation_tpu/estimators/pallas_kernels.py"
     print(json.dumps({"kernels": [
-        {"name": "grouped_estimate", "route": "cuda",
+        {"name": "grouped_estimate", "id": "K1", "route": "cuda",
          "source": src + "grouped_estimate.cu", "replaces": f"{tpu}:327",
          "launches": total_launches["grouped_estimate"],
          "max_abs_err": max(errs["grouped_estimate"]), **t1},
-        {"name": "grouped_estimate_coherent", "route": "cuda",
+        {"name": "grouped_estimate_coherent", "id": "K3", "route": "cuda",
          "source": src + "grouped_estimate.cu", "replaces": f"{tpu}:1151",
          "launches": total_launches["grouped_estimate_coherent"],
          "max_abs_err": max(errs["grouped_estimate_coherent"]),
          "t_coh": 4, "coh_alpha": 1.0, **t3, "at_t16": t3_16},
-        {"name": "grouped_estimate_topk", "route": "cuda",
+        {"name": "grouped_estimate_topk", "id": "K4", "route": "cuda",
          "source": src + "grouped_topk.cu", "replaces": f"{tpu}:568",
          "launches": total_launches["grouped_estimate_topk"],
          "max_abs_err": max(errs["grouped_estimate_topk"]),
          "k_sel": 1, **t4[1], "at_k4": t4[4]},
-        {"name": "circ_estimate", "route": "cuda",
+        {"name": "circ_estimate", "id": "K6", "route": "cuda",
          "source": src + "circ_estimate.cu", "replaces": f"{tpu}:1309",
          "launches": total_launches["circ_estimate"],
          "max_abs_err": max(errs["circ_estimate"]), **t6},
-        {"name": "circ_estimate_coherent", "route": "cuda",
+        {"name": "circ_estimate_coherent", "id": "K7", "route": "cuda",
          "source": src + "circ_estimate.cu", "replaces": f"{tpu}:1647",
          "launches": total_launches["circ_estimate_coherent"],
          "max_abs_err": max(errs["circ_estimate_coherent"]),
          "t_coh": 4, "coh_alpha": 1.0, **t7},
-        {"name": "circ_estimate_stats", "route": "cuda",
+        {"name": "circ_estimate_stats", "id": "K8", "route": "cuda",
          "source": src + "circ_estimate.cu", "replaces": f"{tpu}:1749",
          "launches": total_launches["circ_estimate_stats"],
          "max_abs_err": max(errs["circ_estimate_stats"]), **t8},
-        {"name": "circ_estimate_coherent_stats", "route": "cuda",
+        {"name": "circ_estimate_coherent_stats", "id": "K9", "route": "cuda",
          "source": src + "circ_estimate.cu", "replaces": f"{tpu}:1822",
          "launches": total_launches["circ_estimate_coherent_stats"],
          "max_abs_err": max(errs["circ_estimate_coherent_stats"]),
          "t_coh": 4, "coh_alpha": 1.0, **t9},
+        {"name": "mp_circ_estimate", "id": "K10", "route": "cuda",
+         "source": src + "mp_circ_estimate.cu", "replaces": f"{tpu}:1505",
+         "launches": total_launches["mp_circ_estimate"],
+         "max_abs_err": max(errs["mp_circ_estimate"]),
+         "n_pilots": 2, **t10, "at_p4": t10_p4},
+        {"name": "mp_circ_estimate_coherent", "id": "K10_coh", "route": "cuda",
+         "source": src + "mp_circ_estimate.cu", "replaces": f"{tpu}:1505",
+         "launches": total_launches["mp_circ_estimate_coherent"],
+         "max_abs_err": max(errs["mp_circ_estimate_coherent"]),
+         "n_pilots": 2, "t_coh": 4, "coh_alpha": 1.0, **t10_coh},
     ]}))
     print(json.dumps({"main_path": {
         "defaults": {"mse": mse, "rate": rate, "seconds": main_s,
@@ -804,6 +1040,13 @@ def main():
         "circulant_n_coherence_4": {
             "mse": mse_sc, "rate": rate_sc, "seconds": circ_coh_s,
             "timings": timings_sc, "launches": launches_sc},
+        "circulant_n_pilots_2": {
+            "mse": mse_m, "rate": rate_m, "seconds": mp_s,
+            "timings": timings_m, "launches": launches_m,
+            "rel_to_dense_bank": {str(k): v for k, v in mp_vs_dense.items()}},
+        "circulant_n_pilots_2_n_coherence_4": {
+            "mse": mse_mc, "rate": rate_mc, "seconds": mp_coh_s,
+            "timings": timings_mc, "launches": launches_mc},
         "total_seconds": time.time() - t0}}))
     print(json.dumps({"serving": serve}))
     print(card)

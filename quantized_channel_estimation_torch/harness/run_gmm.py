@@ -8,7 +8,8 @@ names, same columns in the same order). The GMM estimate runs through the
 CUDA kernel K1 on a card in 'all' mode and K4 in top-k modes; with a
 structured bank (`cov_type` 'circulant' / 'block-circulant' under
 `use_structured_bank='auto'`, or `use_structured_bank=True`) through the
-FFT-domain bank and the circulant kernels K6 (flat) and K7 (coherent). With
+FFT-domain bank and the circulant kernels K6 (flat) and K7 (coherent), or
+with `n_pilots > 1` the multi-pilot kernel K10 in its two forms. With
 `n_coherence` T > 1 the dataset holds coherence blocks of T snapshots: every
 per-snapshot estimator sees the flattened snapshots, and the extra column
 `blmmse_gmm_coh` estimates each block jointly (K3 in 'all' mode), with a
@@ -42,8 +43,8 @@ from quantized_channel_estimation_torch.utils import io as qio
 @dataclasses.dataclass(frozen=True)
 class GmmBenchConfig:
     """Mirrors the JAX `GmmBenchConfig` (and the reference's script
-    constants). The port runs channel_model='3gpp', dense and single-pilot
-    structured banks, every cov_type but the Toeplitz ones,
+    constants). The port runs channel_model='3gpp', dense and structured
+    banks at any n_pilots, every cov_type but the Toeplitz ones,
     gmm_fit_segments=1 and a 1 x 1 mesh; other values raise
     NotImplementedError naming the ROADMAP item that ports them."""
     n_antennas: int = 64
@@ -92,9 +93,6 @@ def _check_supported(cfg: GmmBenchConfig) -> None:
     if cfg.gmm_fit_segments != 1:
         todo.append("segmented fits, em_driver.fit_segmented (ROADMAP Queue "
                     "1 item 8)")
-    if _structured(cfg) and cfg.n_pilots > 1:
-        todo.append("multi-pilot structured banks, n_pilots > 1 (ROADMAP "
-                    "Queue 2, kernel K10)")
     if cfg.cov_type in ("toeplitz", "block-toeplitz"):
         todo.append(f"cov_type={cfg.cov_type!r} (ROADMAP Queue 1 item 8)")
     if todo:

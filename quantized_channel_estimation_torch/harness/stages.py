@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 
 from quantized_channel_estimation_torch.estimators import (
-    blmmse, circ_kernels, kernels, ls)
+    blmmse, circ_kernels, kernels, ls, mp_circ_kernels)
 from quantized_channel_estimation_torch.models import (
     gmm, gmm_estimator, structured_bank)
 from quantized_channel_estimation_torch.ops import observation, pilots, scm
@@ -104,8 +104,9 @@ def estimate_coherent_auto(bank: gmm_estimator.PreparedBank, r: torch.Tensor,
 
 
 def prepare_bank_circulant(params, snr_db, a, n_bits, q=None, blocks=None):
-    """FFT-domain bank of a (block-)circulant fit and the single
-    scaled-identity pilot (`structured_bank.prepare_bank_circulant`)."""
+    """FFT-domain bank of a (block-)circulant fit and a kron(x, I) pilot
+    (`structured_bank.prepare_bank_circulant`): a `CirculantBank` for the
+    single scaled-identity pilot, a `CirculantBankMP` for P > 1."""
     return structured_bank.prepare_bank_circulant(params, snr_db, a, n_bits,
                                                   q, blocks=blocks)
 
@@ -118,57 +119,70 @@ def prepare_bank_circulant_spectra(params, spectra, snr_db, a, n_bits, q=None,
         params, snr_db, a, n_bits, q, blocks=blocks, spectra=spectra)
 
 
-def _circ_method(method: str, mode, d: int, k: int, t: int = 1) -> str:
+def _circ_method(method: str, mode, bank, t: int = 1) -> str:
     """The one dispatch rule of the structured estimators, from shapes
     only: 'auto' is the kernels for an 'all'-mode request within
-    `circ_kernels.circ_kernel_eligible`, else the `torch.fft` pipeline;
-    'kernel' raises outside that range; 'fft' / 'dft' name the pipeline."""
-    kernel_ok = mode == "all" and circ_kernels.circ_kernel_eligible(d, k, t)
+    `circ_kernels.circ_kernel_eligible` (a multi-pilot bank:
+    `mp_circ_kernels.mp_circ_kernel_eligible`), else the `torch.fft`
+    pipeline; 'kernel' raises outside that range; 'fft' / 'dft' name the
+    pipeline."""
+    if isinstance(bank, structured_bank.CirculantBankMP):
+        k, d, p = bank.mean_rf.shape
+        kernel_ok = mp_circ_kernels.mp_circ_kernel_eligible(d, k, p, t)
+        rule = f"mp_circ_kernel_eligible (P={p})"
+    else:
+        k, d = bank.spec_cr.shape
+        kernel_ok = circ_kernels.circ_kernel_eligible(d, k, t)
+        rule = "circ_kernel_eligible"
+    kernel_ok = kernel_ok and mode == "all"
     if method == "kernel" and not kernel_ok:
         raise ValueError(
-            "method='kernel' needs mode='all' and (D, K, T) within "
-            f"circ_kernel_eligible (got mode={mode!r}, D={d}, K={k}, T={t})")
+            f"method='kernel' needs mode='all' and (D, K, T) within {rule} "
+            f"(got mode={mode!r}, D={d}, K={k}, T={t})")
     if method == "auto":
         return "kernel" if kernel_ok else "fft"
     return method
 
 
-def estimate_circulant(bank: structured_bank.CirculantBank, r: torch.Tensor,
-                       mode="all", blocks=None, method: str = "auto",
-                       cache: Optional[dict] = None):
-    """Structured analog of `estimate_auto` for r (N, M): 'all' mode within
-    `circ_kernels.circ_kernel_eligible` -> the circulant kernel K6 (the
-    CUDA kernel for a CUDA tensor, its plain version for a CPU tensor);
-    selection modes and wider banks -> the `torch.fft` pipeline. `method`
-    as in `_circ_method`; `cache` holds the kernel layouts of a bank served
-    many times (`circ_kernels.lowered`)."""
-    k, d = bank.spec_cr.shape
-    method = _circ_method(method, mode, d, k)
-    if method == "kernel":
-        return circ_kernels.estimate_fused_circulant(bank, r, blocks, cache)
-    return structured_bank.estimate_circulant(bank, r, mode, 16384, blocks,
-                                              method)
+def estimate_circulant(bank, r: torch.Tensor, mode="all", blocks=None,
+                       method: str = "auto", cache: Optional[dict] = None):
+    """Structured analog of `estimate_auto` for r (N, M) and a bank of
+    either kind: 'all' mode within the kernels' range -> the circulant
+    kernel K6, or K10 for a multi-pilot bank (the CUDA kernel for a CUDA
+    tensor, its plain version for a CPU tensor); selection modes and wider
+    banks -> the `torch.fft` pipeline. `method` as in `_circ_method`;
+    `cache` holds the kernel layouts of a bank served many times
+    (`circ_kernels.lowered`, `mp_circ_kernels.lowered`)."""
+    method = _circ_method(method, mode, bank)
+    if method != "kernel":
+        return structured_bank.estimate_circulant(bank, r, mode, 16384,
+                                                  blocks, method)
+    if isinstance(bank, structured_bank.CirculantBankMP):
+        return mp_circ_kernels.estimate_fused_circulant_mp(bank, r, blocks,
+                                                           cache)
+    return circ_kernels.estimate_fused_circulant(bank, r, blocks, cache)
 
 
-def estimate_circulant_coherent(bank: structured_bank.CirculantBank,
-                                r: torch.Tensor, mode="all",
+def estimate_circulant_coherent(bank, r: torch.Tensor, mode="all",
                                 alpha: float = 1.0, blocks=None,
                                 method: str = "auto",
                                 cache: Optional[dict] = None):
     """Coherent analog of `estimate_circulant` for blocks r (B, T, M): 'all'
-    mode with (D, K, T) within `circ_kernels.circ_kernel_eligible` -> K7
-    (the alpha blend in the kernel), else the `torch.fft` coherent
-    pipeline."""
+    mode with (D, K, T) within the kernels' range -> K7, or the coherent
+    K10 for a multi-pilot bank (the alpha blend in the kernel), else the
+    `torch.fft` coherent pipeline."""
     if r.dim() != 3:
         raise ValueError(f"estimate_circulant_coherent expects (B, T, M) "
                          f"blocks, got shape {tuple(r.shape)}")
-    k, d = bank.spec_cr.shape
-    method = _circ_method(method, mode, d, k, r.shape[1])
-    if method == "kernel":
-        return circ_kernels.estimate_fused_circulant_coherent(
+    method = _circ_method(method, mode, bank, r.shape[1])
+    if method != "kernel":
+        return structured_bank.estimate_circulant_coherent(
+            bank, r, mode, 4096, alpha, blocks, method)
+    if isinstance(bank, structured_bank.CirculantBankMP):
+        return mp_circ_kernels.estimate_fused_circulant_mp_coherent(
             bank, r, alpha, blocks, cache)
-    return structured_bank.estimate_circulant_coherent(bank, r, mode, 4096,
-                                                       alpha, blocks, method)
+    return circ_kernels.estimate_fused_circulant_coherent(bank, r, alpha,
+                                                          blocks, cache)
 
 
 def nmse(h_est: torch.Tensor, h: torch.Tensor) -> float:

@@ -18,16 +18,17 @@ through the einsum estimator), int top-k modes through K4; float
 cumulative-p modes, and selection modes on blocks, through the einsum
 estimators. A structured service runs 'all'-mode flat requests through the
 circulant kernel K6 and blocks through K7 (within
-`circ_kernels.circ_kernel_eligible`), and every selection mode through the
-`torch.fft` pipeline. On the CPU the same dispatch reaches the kernels' plain
-versions. A worker thread computes on the service's device and its own
-CUDA stream; every fault reaches the waiting clients through their
+`circ_kernels.circ_kernel_eligible`), with a multi-pilot kron(x, I) matrix
+through the two forms of K10 (within
+`mp_circ_kernels.mp_circ_kernel_eligible`), and every selection mode through
+the `torch.fft` pipeline. On the CPU the same dispatch reaches the kernels'
+plain versions. A worker thread computes on the service's device and its
+own CUDA stream; every fault reaches the waiting clients through their
 request.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
 Queue 1 item: `mesh` (item 15, with or without `structured`), `factored`
-and `from_mfa` (item 12), `VaeEstimationService` (item 13); a structured
-service with a multi-pilot matrix names ROADMAP Queue 2 (kernel K10).
+and `from_mfa` (item 12), `VaeEstimationService` (item 13).
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 from quantized_channel_estimation_torch.estimators import (
-    circ_kernels, kernels)
+    circ_kernels, kernels, mp_circ_kernels)
 from quantized_channel_estimation_torch.harness import stages
 from quantized_channel_estimation_torch.harness.stages import resolve_device
 from quantized_channel_estimation_torch.models import (
@@ -51,7 +52,7 @@ from quantized_channel_estimation_torch.models import (
 from quantized_channel_estimation_torch.models.gmm_estimator import (
     PreparedBank)
 from quantized_channel_estimation_torch.models.structured_bank import (
-    CirculantBank)
+    CirculantBank, CirculantBankMP)
 from quantized_channel_estimation_torch.ops import observation
 from quantized_channel_estimation_torch.ops import quantizer as Q
 
@@ -120,8 +121,9 @@ class _Request:
 class _BankEntry(NamedTuple):
     """A cached per-SNR bank and its kernel layouts (the `kernels.lowered`
     cache keyed by (T, alpha), or for a structured bank the
-    `circ_kernels.lowered` cache keyed by (blocks, T, alpha))."""
-    bank: Union[PreparedBank, CirculantBank]
+    `circ_kernels.lowered` / `mp_circ_kernels.lowered` cache keyed by
+    (blocks, T, alpha))."""
+    bank: Union[PreparedBank, CirculantBank, CirculantBankMP]
     lowered: dict
 
 
@@ -150,10 +152,11 @@ class EstimationService:
                  structured_blocks=None, factored: bool = False,
                  device=None):
         """params: the GMM (tensors or numpy arrays; moved to `device`);
-        a: the (M, N) pilot matrix (a structured service also takes the
-        scalar x0 of A = x0 I). max_banks: LRU cap on cached per-SNR
-        banks. snr_step_db: submitted SNRs snap to this grid before bank
-        lookup, so nearby floats share one bank; None disables.
+        a: the (M, N) pilot matrix (a structured service takes A = x0 I,
+        also as the scalar x0, or a multi-pilot kron(x, I)). max_banks: LRU
+        cap on cached per-SNR banks. snr_step_db: submitted SNRs snap to
+        this grid before bank lookup, so nearby floats share one bank; None
+        disables.
         max_queue: high-water mark on pending snapshots across queues;
         submit() raises ServiceOverloadedError beyond it.
         use_kernels: None uses the kernels wherever the mode allows
@@ -161,10 +164,11 @@ class EstimationService:
         True raises for a mode they cannot compute; False serves through
         the einsum estimators. structured: serve through the FFT-domain
         circulant bank (`models.structured_bank`: exact for circulant and
-        block-circulant fits with the single scaled-identity pilot);
+        block-circulant fits under a kron(x, I) pilot);
         `structured_blocks` selects the kron basis of block-circulant fits;
         the kernels are then the circulant ones ('all' mode within
-        `circ_kernels.circ_kernel_eligible`). coherence_alpha: evidence
+        `circ_kernels.circ_kernel_eligible`, or for P > 1 pilots
+        `mp_circ_kernels.mp_circ_kernel_eligible`). coherence_alpha: evidence
         blend for (n, T, M)
         block requests (1 the block posterior, 0 independent snapshots), or
         'auto' to select it per (SNR, T) from
@@ -200,18 +204,16 @@ class EstimationService:
         m = self.a.shape[0]
         if structured:
             # fail at construction, not in the serving thread at the first
-            # submit: the circulant bank takes A = x0 I only
-            if structured_bank._pilot_vector(self.a, d).shape[0] > 1:
-                raise NotImplementedError(
-                    "multi-pilot structured serving (n_pilots > 1) is not "
-                    "ported yet (ROADMAP Queue 2, kernel K10)")
-            kernel_ok = (mode == "all"
-                         and circ_kernels.circ_kernel_eligible(d, k_comp))
+            # submit: the circulant banks take A = kron(x, I) only
+            p = structured_bank._pilot_vector(self.a, d).shape[0]
+            kernel_ok = mode == "all" and (
+                circ_kernels.circ_kernel_eligible(d, k_comp) if p == 1
+                else mp_circ_kernels.mp_circ_kernel_eligible(d, k_comp, p))
             if use_kernels and not kernel_ok:
                 raise ValueError(
                     "use_kernels=True on a structured service requires "
-                    f"mode='all' and D <= {circ_kernels.CIRC_MAX_D} (got "
-                    f"mode={mode!r}, D={d})")
+                    "mode='all' and (D, K, P) within the circulant kernels' "
+                    f"range (got mode={mode!r}, D={d}, K={k_comp}, P={p})")
         else:
             kernel_ok = (max(2 * m, 2 * d) <= kernels.MAX_WIDTH
                          and (mode == "all" or kernels.topk_mode_eligible(

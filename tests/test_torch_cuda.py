@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1, K3, K4 and the circulant K6-K9) against
-their plain versions on the card, and the estimation service on the card.
+"""The port's CUDA kernels (K1, K3, K4, the circulant K6-K9 and the
+multi-pilot circulant K10) against their plain versions on the card, and
+the estimation service on the card.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor the JAX package, so on a machine with a card and
@@ -12,9 +13,10 @@ both are float32 with the products summed in another order. For the top-k
 kernel, rows whose k-th and (k+1)-th logits lie within 1e-3 are left out
 of the comparison: the two sums may order such near-ties differently. The
 circulant kernels expand the quadratic logit, which cancels, and pool it
-over T rows for K7 / K9; where that pushes kernel and plain version past
-1e-4 of each other, both are held against the plain version in float64,
-the kernel to within twice the plain version's own error.
+over T rows for K7 / K9 (K10 sums it group by group where its plain
+version runs one long product); where that pushes kernel and plain version
+past 1e-4 of each other, both are held against the plain version in
+float64, the kernel to within twice the plain version's own error.
 """
 import math
 
@@ -24,6 +26,8 @@ import torch
 
 from quantized_channel_estimation_torch.estimators import circ_kernels as tck
 from quantized_channel_estimation_torch.estimators import kernels as tkn
+from quantized_channel_estimation_torch.estimators import (
+    mp_circ_kernels as tmk)
 from quantized_channel_estimation_torch.harness import stages
 from quantized_channel_estimation_torch.models import gmm as tg
 from quantized_channel_estimation_torch.models import gmm_estimator as tge
@@ -270,8 +274,10 @@ def test_service_on_card_matches_einsum_estimator():
 
 # ------------------------------------------------ the circulant kernels
 
-def _circ_bank(d, k, dev, n_dead=0, blocks=None, seed=0):
-    """A seeded circulant bank at 2 bits, 10 dB, non-zero means."""
+def _circ_bank(d, k, dev, n_dead=0, blocks=None, seed=0, p=1, n_bits=2):
+    """A seeded circulant bank at 10 dB, non-zero means: under the scalar
+    pilot x0 = 1, or for p > 1 the multi-pilot bank under the P-pilot
+    matrix kron(x, I) of `pilots.pilot_matrix`."""
     rng = np.random.default_rng(seed)
     spectra = rng.uniform(0.05, 2.0, (k, d)).astype(np.float32)
     means = (0.2 * (rng.standard_normal((k, d))
@@ -281,10 +287,12 @@ def _circ_bank(d, k, dev, n_dead=0, blocks=None, seed=0):
     dummy = torch.zeros((k, 1, 1), dtype=torch.complex64, device=dev)
     params = tg.GmmParams(torch.as_tensor(w / w.sum(), device=dev),
                           torch.as_tensor(means, device=dev), dummy, dummy)
+    q = tq.design_quantizer(10.0, n_bits)
+    a = torch.tensor(1.0 + 0.0j) if p == 1 \
+        else tp.pilot_matrix(d, p, n_bits, device=dev)
     return tsb.prepare_bank_circulant(
-        params, 10.0, torch.tensor(1.0 + 0.0j), 2,
-        tq.design_quantizer(10.0, 2).to(dev), blocks=blocks,
-        spectra=torch.as_tensor(spectra, device=dev))
+        params, 10.0, a, n_bits, None if q is None else q.to(dev),
+        blocks=blocks, spectra=torch.as_tensor(spectra, device=dev))
 
 
 def _f64(ckb):
@@ -527,6 +535,189 @@ def test_structured_service_on_card_matches_fft_pipeline():
                  tsb.estimate_circulant_coherent(bank, rt.reshape(16, 4, d),
                                                  method="fft"),
                  "circ_estimate_coherent")):
+            before = tkn.launch_counts()[kernel]
+            got = svc.submit(req, 5.0, timeout=30)
+            assert tkn.launch_counts()[kernel] > before
+            want_np = want.cpu().numpy()
+            assert got.shape == want_np.shape
+            assert np.abs(got - want_np).max() < 1e-4
+        assert svc.metrics()["requests_failed"] == 0
+    finally:
+        svc.close(timeout=30)
+
+
+# ------------------------------------- the multi-pilot circulant kernel K10
+
+def _mp_bank(p, d, k, dev, n_dead=0, blocks=None, n_bits=2):
+    bank = _circ_bank(d, k, dev, n_dead, blocks, p=p, n_bits=n_bits)
+    assert isinstance(bank, tsb.CirculantBankMP)
+    return bank
+
+
+# every (CD, CK) instantiation of the template, P = 2, 3, 4, ragged sizes,
+# dead components, widths that are no multiple of 32, the kron basis, the
+# three bit widths, and the edges of the rule (the largest P at D = K = 64
+# and at D = K = 128, K = 128 at D = 64 and P = 4)
+MP_SHAPES = [
+    (2, 8, 4, 1000, 0, None, 2),
+    (3, 32, 40, 4097, 3, None, 2),
+    (4, 16, 100, 333, 0, None, 2),
+    (2, 64, 8, 77, 1, None, 1),
+    (2, 64, 64, 10000, 5, None, 2),
+    (3, 64, 64, 2049, 0, None, "inf"),
+    (4, 64, 64, 4097, 2, (8, 8), 2),
+    (4, 64, 128, 1001, 0, None, 2),
+    (2, 128, 4, 100, 1, None, 2),
+    (3, 100, 50, 517, 2, None, 2),
+    (4, 128, 128, 2049, 0, (8, 16), 2),
+    (16, 16, 8, 129, 0, None, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,d,k,n,n_dead,blocks,n_bits", MP_SHAPES)
+def test_mp_circ_estimate_matches_plain(p, d, k, n, n_dead, blocks, n_bits):
+    dev = _card()
+    assert tmk.mp_circ_kernel_eligible(d, k, p)
+    bank = _mp_bank(p, d, k, dev, n_dead, blocks, n_bits)
+    assert int(torch.isinf(bank.log_weights).sum()) == n_dead
+    ckb = tmk.mp_circ_kernel_bank(bank, blocks)
+    x2 = _rows(n, 2 * p * d, dev)
+    before = tkn.launch_counts()
+    got = tmk.mp_circ_estimate(x2, ckb)
+    torch.cuda.synchronize()
+    after = tkn.launch_counts()
+    assert after["mp_circ_estimate"] == before["mp_circ_estimate"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    assert got.shape == (n, 2 * d)
+    _held(got, tmk.mp_circ_estimate_reference(x2, ckb),
+          tmk.mp_circ_estimate_reference(x2.double(), _f64(ckb)))
+    # the entry on complex observations, against the torch.fft pipeline
+    r = torch.view_as_complex(x2.reshape(n, p * d, 2).contiguous())
+    got_c = stages.estimate_circulant(bank, r, blocks=blocks)
+    assert tkn.launch_counts()["mp_circ_estimate"] \
+        == after["mp_circ_estimate"] + 1
+    want_c = tsb.estimate_circulant(bank, r, "all", 16384, blocks, "fft")
+    assert got_c.dtype == torch.complex64 and got_c.shape == (n, d)
+    assert float((got_c - want_c).abs().max() / want_c.abs().max()) < 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,d,k,n_blocks,t,alpha,n_dead", [
+    (2, 8, 4, 500, 2, 1.0, 0),        # blocks inside a warp's rows
+    (2, 64, 64, 1001, 4, 1.0, 3),     # main-path widths, ragged, dead
+    (3, 64, 64, 333, 3, 0.25, 0),     # T that does not divide the tile
+    (4, 16, 8, 100, 8, 0.25, 0),      # T = a warp's rows
+    (2, 64, 40, 77, 16, 0.0, 1),      # blocks across warps, alpha 0
+    (4, 64, 64, 9, 64, 1.0, 0),       # largest P and T at D = K = 64
+    (4, 128, 128, 50, 32, 0.5, 2),    # largest P, D, K and T of the rule
+    (3, 100, 50, 41, 5, 1.0, 0),      # widths no multiple of 32
+])
+def test_mp_circ_estimate_coherent_matches_plain(p, d, k, n_blocks, t, alpha,
+                                                 n_dead):
+    dev = _card()
+    assert tmk.mp_circ_kernel_eligible(d, k, p, t)
+    bank = _mp_bank(p, d, k, dev, n_dead)
+    ckb = tmk.mp_circ_kernel_bank(bank, None, t, alpha)
+    x2 = _rows(n_blocks * t, 2 * p * d, dev)
+    before = tmk.mp_circ_estimate_coherent.launches
+    got = tmk.mp_circ_estimate_coherent(x2, ckb, t, alpha)
+    torch.cuda.synchronize()
+    assert tmk.mp_circ_estimate_coherent.launches == before + 1
+    _held(got, tmk.mp_circ_estimate_coherent_reference(x2, ckb, t, alpha),
+          tmk.mp_circ_estimate_coherent_reference(x2.double(), _f64(ckb), t,
+                                                  alpha))
+    if alpha == 0.0:      # the per-snapshot estimator
+        flat = tmk.mp_circ_estimate(x2, tmk.mp_circ_kernel_bank(bank))
+        assert float((got - flat).abs().max() / flat.abs().max()) < 1e-4
+    rb = torch.view_as_complex(
+        x2.reshape(n_blocks, t, p * d, 2).contiguous())
+    got_c = stages.estimate_circulant_coherent(bank, rb, alpha=alpha)
+    assert tmk.mp_circ_estimate_coherent.launches == before + 2
+    want_c = tsb.estimate_circulant_coherent(bank, rb, "all", 4096, alpha,
+                                             None, "fft")
+    assert got_c.shape == (n_blocks, t, d)
+    assert float((got_c - want_c).abs().max() / want_c.abs().max()) < 3e-4
+
+
+@pytest.mark.cuda
+def test_mp_circ_kernel_refuses_bad_inputs_and_one_past_the_rule():
+    dev = _card()
+    bank = _mp_bank(2, 8, 4, dev)
+    ckb = tmk.mp_circ_kernel_bank(bank)
+    x2 = torch.zeros(12, 32, device=dev)
+    with pytest.raises(ValueError):
+        tmk.mp_circ_estimate(x2.double(), ckb)
+    with pytest.raises(ValueError):
+        tmk.mp_circ_estimate(torch.zeros(32, 12, device=dev).T, ckb)
+    with pytest.raises(ValueError):
+        tmk.mp_circ_estimate(torch.zeros(12, 48, device=dev), ckb)  # P = 3
+    with pytest.raises(ValueError):
+        tmk.mp_circ_estimate(x2, ckb._replace(const=ckb.const.cpu()))
+    for t, rows in ((1, x2), (5, x2), (65, torch.zeros(130, 32, device=dev))):
+        with pytest.raises(ValueError, match="T"):   # T = 1, N % T, T > tile
+            tmk.mp_circ_estimate_coherent(rows, ckb, t)
+    # one past the rule: P = 5 at D = K = 64 and at D = K = 128, D = 129,
+    # K = 129 (no stats form to split over), T past the 32-row tile
+    for p, d, k, t in ((5, 64, 64, 1), (5, 128, 128, 1), (2, 129, 4, 1),
+                       (2, 8, 129, 1), (2, 128, 8, 33)):
+        assert not tmk.mp_circ_kernel_eligible(d, k, p, t)
+        wide = _mp_bank(p, d, k, dev)
+        r = torch.zeros(2, t, p * d, dtype=torch.complex64, device=dev)
+        r = r[:, 0] if t == 1 else r
+        before = tkn.launch_counts()
+        with pytest.raises(ValueError, match="method='kernel'"):
+            (stages.estimate_circulant if t == 1
+             else stages.estimate_circulant_coherent)(wide, r,
+                                                      method="kernel")
+        with pytest.raises(ValueError, match="multi-pilot circulant kernel"):
+            (tmk.estimate_fused_circulant_mp if t == 1
+             else tmk.estimate_fused_circulant_mp_coherent)(wide, r)
+        with pytest.raises(ValueError, match="shared memory"):
+            x2w = torch.zeros(2 * t, 2 * p * d, device=dev)
+            ckb_w = tmk.mp_circ_kernel_bank(wide, None, t)
+            tmk.mp_circ_estimate(x2w, ckb_w) if t == 1 \
+                else tmk.mp_circ_estimate_coherent(x2w, ckb_w, t)
+        # 'auto' takes the torch.fft pipeline there and launches nothing
+        (stages.estimate_circulant if t == 1
+         else stages.estimate_circulant_coherent)(wide, r)
+        assert tkn.launch_counts() == before
+    before = tkn.launch_counts()
+    assert tmk.mp_circ_estimate(x2[:0], ckb).shape == (0, 16)
+    assert tmk.mp_circ_estimate_coherent(x2[:0], ckb, 2).shape == (0, 16)
+    assert tkn.launch_counts() == before             # nothing to launch
+
+
+@pytest.mark.cuda
+def test_multipilot_structured_service_on_card_matches_fft_pipeline():
+    from quantized_channel_estimation_torch import serving
+    dev = _card()
+    p, d, k = 2, 16, 8
+    rng = np.random.default_rng(3)
+    spectra = rng.uniform(0.05, 2.0, (k, d)).astype(np.float32)
+    weights = np.full((k,), 1.0 / k, np.float32)
+    means = np.zeros((k, d), np.complex64)
+    r = (rng.standard_normal((64, p * d))
+         + 1j * rng.standard_normal((64, p * d))).astype(np.complex64)
+    a = tp.pilot_matrix(d, p, 2, device=dev)
+    dummy = torch.zeros((k, 1, 1), dtype=torch.complex64, device=dev)
+    bank = tsb.prepare_bank_circulant(
+        tg.GmmParams(torch.as_tensor(weights, device=dev),
+                     torch.as_tensor(means, device=dev), dummy, dummy), 5.0,
+        a, 2, tq.design_quantizer(5.0, 2).to(dev),
+        spectra=torch.as_tensor(spectra, device=dev))
+    rt = torch.as_tensor(r, device=dev)
+    svc = serving.EstimationService.from_circulant_spectra(
+        weights, means, spectra, a.cpu().numpy(), 2, max_delay_ms=1.0,
+        use_kernels=True)
+    try:
+        for req, want, kernel in (
+                (r, tsb.estimate_circulant(bank, rt, method="fft"),
+                 "mp_circ_estimate"),
+                (r.reshape(16, 4, p * d),
+                 tsb.estimate_circulant_coherent(
+                     bank, rt.reshape(16, 4, p * d), method="fft"),
+                 "mp_circ_estimate_coherent")):
             before = tkn.launch_counts()[kernel]
             got = svc.submit(req, 5.0, timeout=30)
             assert tkn.launch_counts()[kernel] > before

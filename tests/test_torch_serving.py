@@ -624,6 +624,61 @@ def test_from_circulant_spectra_service(circ_setup, pilot):
         svc.close(timeout=TIMEOUT)
 
 
+@pytest.mark.parametrize("blocks,how", [(None, "params"), ((4, 4), "params"),
+                                        (None, "spectra")])
+def test_structured_service_multipilot_matches_jax_direct(circ_setup, blocks,
+                                                          how):
+    """A kron(x, I) matrix of P = 2 pilots: the structured service prepares
+    the per-bin P x P bank and serves flat (n, P*D) requests through K10
+    and (n, T, P*D) blocks through its coherent form (their plain versions
+    here), equal to the JAX structured estimator of the same matrix (atol
+    1e-4); `from_circulant_spectra` does so with no dense covariance."""
+    fits, a1, h_val = circ_setup
+    x = np.array([[1.0], [-1.0j]], np.complex64)
+    a = np.kron(x, np.asarray(a1)).astype(np.complex64)
+    spectra = np.asarray(jsb.spectra_from_params(fits[blocks], blocks))
+    r = np.asarray(jobs.observe(jax.random.PRNGKey(93), h_val[:100], 5.0,
+                                jnp.asarray(a), 2,
+                                jq.design_quantizer(5.0, 2)))
+    assert r.shape == (100, 2 * N_ANT)
+    rb = r[:96].reshape(24, 4, 2 * N_ANT)
+    if how == "spectra":
+        p = fits[blocks]
+        svc = serving.EstimationService.from_circulant_spectra(
+            np.asarray(p.weights), np.asarray(p.means), spectra, a, 2,
+            max_delay_ms=1.0, device="cpu")
+    else:
+        svc = serving.EstimationService(
+            tg.params_from_numpy([np.asarray(v) for v in fits[blocks]]), a,
+            2, device="cpu", structured=True, structured_blocks=blocks,
+            max_delay_ms=1.0, use_kernels=True)
+    jbank = jsb.prepare_bank_circulant(
+        fits[blocks], 5.0, jnp.asarray(a), 2, jq.design_quantizer(5.0, 2),
+        blocks=blocks, spectra=jnp.asarray(spectra) if how == "spectra"
+        else None)
+    try:
+        assert svc.use_kernels and svc.structured
+        before = tkn.launch_counts()
+        got = svc.submit(r, 5.0, timeout=TIMEOUT)
+        got_b = svc.submit(rb, 5.0, timeout=TIMEOUT)
+        assert tkn.launch_counts() == before                    # the CPU
+        assert got.shape == (100, N_ANT) and got_b.shape == (24, 4, N_ANT)
+        np.testing.assert_allclose(got, np.asarray(jsb.estimate_circulant(
+            jbank, jnp.asarray(r), "all", 16384, blocks, "xla")), atol=1e-4)
+        np.testing.assert_allclose(
+            got_b, np.asarray(jsb.estimate_circulant_coherent(
+                jbank, jnp.asarray(rb), "all", 4096, 1.0, blocks, "xla")),
+            atol=1e-4)
+        entry = svc._banks[5.0]
+        assert isinstance(entry.bank, serving.CirculantBankMP)
+        assert set(entry.lowered) == {(blocks, 1, 1.0), (blocks, 4, 1.0)}
+        with pytest.raises(ValueError, match="observations must have shape"):
+            svc.submit(r[:, :N_ANT], 5.0, timeout=TIMEOUT)
+        assert svc.metrics()["requests_failed"] == 0
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
 def test_structured_service_refusals(circ_setup):
     fits, a, _ = circ_setup
     params = tg.params_from_numpy([np.asarray(x) for x in fits[None]])
@@ -635,6 +690,16 @@ def test_structured_service_refusals(circ_setup):
         serving.EstimationService(params, np.ones((N_ANT, N_ANT)), 2,
                                   device="cpu", structured=True)
     svc = _circ_service(circ_setup, mode="all", use_kernels=True)  # accepted
+    svc.close(timeout=TIMEOUT)
+    # 24 pilots at D = 16 are past K10's shared memory: served through the
+    # `torch.fft` pipeline unless the kernels are demanded
+    wide = np.kron(np.ones((24, 1)), np.asarray(a))
+    with pytest.raises(ValueError, match="circulant kernels' range"):
+        serving.EstimationService(params, wide, 2, device="cpu",
+                                  structured=True, use_kernels=True)
+    svc = serving.EstimationService(params, wide, 2, device="cpu",
+                                    structured=True)
+    assert not svc.use_kernels
     svc.close(timeout=TIMEOUT)
 
 
@@ -648,9 +713,6 @@ def test_structured_service_refusals(circ_setup):
     (lambda p, a: serving.EstimationService(p, a, 2, device="cpu",
                                             factored=True),
      r"factored \(MFA\) serving.*Queue 1 item 12"),
-    (lambda p, a: serving.EstimationService(
-        p, np.kron(np.array([[1.0], [-1.0]]), a), 2, device="cpu",
-        structured=True), "n_pilots > 1.*ROADMAP Queue 2, kernel K10"),
     (lambda p, a: serving.EstimationService.from_mfa(p, a, 2),
      "from_mfa.*Queue 1 item 12"),
     (lambda p, a: serving.VaeEstimationService(None, p, None, a),

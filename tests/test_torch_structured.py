@@ -281,11 +281,16 @@ def test_pilot_refusals(rng):
     kron = torch.kron(x[:, None], eye)
     assert torch.equal(tsb._pilot_vector(kron, D), x)
     assert tsb._pilot_vector(eye, D).shape == (1,)
-    # the multi-pilot bank belongs to the slice that ports kernel K10
-    with pytest.raises(NotImplementedError,
-                       match=r"n_pilots > 1.*ROADMAP Queue 2, kernel K10"):
-        tsb.prepare_bank_circulant(tp, 10.0, kron, 2,
-                                   _quantizers(10.0, 2)[1])
+    # a multi-pilot kron(x, I) is no refusal: the per-bin P x P bank, as the
+    # JAX package prepares it (1e-5 of each field's scale, as the
+    # single-pilot fields above)
+    jp, _ = _params(w, means, spec)
+    qj, qt = _quantizers(10.0, 2)
+    tb = tsb.prepare_bank_circulant(tp, 10.0, kron, 2, qt)
+    jb = jsb.prepare_bank_circulant(jp, 10.0, jnp.asarray(_np(kron)), 2, qj)
+    assert isinstance(tb, tsb.CirculantBankMP) and tb._fields == jb._fields
+    for got, want in zip(tb, jb):
+        _close(got, want)
 
 
 # ---------------------------------------------------------------- estimation
