@@ -27,10 +27,15 @@ Phases (any failure exits non-zero; nothing is caught):
      unquantized banks, `blocks=(8, 8)`, the widest instantiation (D = K =
      128, P = 4), and its coherent form over the same (T, alpha) grid at
      N = 131072, a ragged block count and the largest T of both tile
-     sizes. Where float32 sums in
-     another order push a circulant kernel past TOL of its plain version
-     (large T, or K10's one long logit product), both are held against the
-     float64 evaluation of the same
+     sizes; the factored (MFA) kernels on seeded MFA priors (D = K = 64,
+     M = 16, 2-bit, 10 dB, zero and non-zero means, dead components): K11
+     and K13 at N = 131072, the main path's N and a ragged N, K12 for T = 4
+     at alpha in {1, 0.25, 0}, T = 16 and a ragged block count, the edges
+     M = 6 and D = 32, and K13 as a two-shard split merged with
+     `merge_stats` against K11. Where float32 sums in
+     another order push a circulant or factored kernel past TOL of its plain
+     version (large T, or K10's one long logit product), both are held
+     against the float64 evaluation of the same
      arithmetic, the kernel to within twice the plain version's own error;
   3. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after: `run_gmm.run` at the `GmmBenchConfig`
@@ -39,7 +44,10 @@ Phases (any failure exits non-zero; nothing is caught):
      and those two with `n_pilots=2` (the multi-pilot bank, K10 and its
      coherent form), with the scientific invariants of their MSE tables and
      the multi-pilot estimate held against the dense bank's (K1 at M = 128)
-     from the same fit; then the
+     from the same fit; `run_mfa.run` at the `MfaBenchConfig` defaults
+     (the factored bank, K11) and with `n_coherence=4` (K12), its MSE
+     invariants checked and the factored estimate held against the dense
+     bank's (K1) from the same fit at -10 and 10 dB; then the
      `EstimationService` at the headline widths (the synthetic bank of
      `tools/serving_bench.py`, 8 closed-loop clients of 64-snapshot
      requests at -5/5/15 dB, max_batch 1024) in ten modes: flat 'all',
@@ -49,10 +57,12 @@ Phases (any failure exits non-zero; nothing is caught):
      T=4 blocks (two shards through K8 / K9, merged), and
      `structured=True` with a P = 2 kron(x, I) matrix flat and T=4 blocks
      (K10 and its coherent form), each held against the `torch.fft`
+     pipeline, and `from_mfa` with a seeded MFA prior (D = K = 64, M = 16)
+     flat and T=4 blocks (K11, K12), held against the `torch.matmul`
      pipeline; with its throughput, latency and `metrics()`;
   4. CUDA-event times of each kernel, its plain version and a library
-     yardstick at the headline shapes, beside the least time the card
-     could take;
+     yardstick at the headline shapes (K11-K13 at M = 16), beside the
+     least time the card could take;
 then one JSON line of kernels, one of the main paths' results, one of the
 serving phase, the card line, and the final status line. It imports nothing
 of JAX and uses one card.
@@ -76,6 +86,7 @@ TOL = 1e-4          # max |kernel - plain| / max |plain|, float32 sums
 TIE_GAP = 1e-3      # top-k rows closer than this to a tie are not compared
 N_BENCH, D, K, N_BITS, SNR = 131072, 64, 64, 2, 10.0
 K_WIDE = 256        # components of the spectra-native serving prior
+M_LAT = 16          # latent rank of the MFA priors (run_mfa's D / 4)
 SERVE_SNRS = (-5.0, 5.0, 15.0)
 SERVE_CLIENTS, SERVE_REQ, SERVE_MAX_BATCH, SERVE_SECONDS = 8, 64, 1024, 3.0
 
@@ -178,6 +189,44 @@ def mp_obs(dev, a, q, n, n_bits=N_BITS):
     return observation.observe(gen, h, SNR, a, n_bits, q)
 
 
+def mfa_prior(dev, d=D, k=K, m=M_LAT, n_dead=0, zero_mean=True, seed=0):
+    """Seeded MFA parameters: loadings of total power 0.8 a dimension, psi
+    uniform on [0.05, 0.35], means zero or 0.3 CN(0, 1), weights uniform
+    on [0.5, 1.5] (n_dead of them pushed below the dead floor)."""
+    from quantized_channel_estimation_torch.models import mfa
+    rng = np.random.default_rng(seed)
+
+    def cr(*shape):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)) / np.sqrt(2)
+
+    w = rng.uniform(0.5, 1.5, k)
+    w[:n_dead] = 1e-9
+    params = (w / w.sum(), np.zeros((k, d)) if zero_mean else 0.3 * cr(k, d),
+              np.sqrt(0.8 / m) * cr(k, d, m), rng.uniform(0.05, 0.35, (k, d)))
+    return mfa.MfaParams(*(torch.as_tensor(
+        x.astype(np.complex64 if np.iscomplexobj(x) else np.float32),
+        device=dev) for x in params))
+
+
+def mfa_bank_obs(dev, q, n, **prior):
+    """The factored bank of `mfa_prior(**prior)` at 2 bits, 10 dB under
+    x0 = 1, and n quantized observations of channels drawn from the
+    mixture."""
+    from quantized_channel_estimation_torch.models import mfa_bank
+    from quantized_channel_estimation_torch.ops import observation
+    from quantized_channel_estimation_torch.ops.cplx import crandn
+    p = mfa_prior(dev, **prior)
+    k, d, m = p.lambdas.shape
+    gen = torch.Generator(device=dev).manual_seed(1)
+    c = torch.randint(0, k, (n,), generator=gen, device=dev)
+    h = (p.means[c] + (p.lambdas[c] @ crandn(gen, (n, m, 1)))[..., 0]
+         + p.psis[c].sqrt() * crandn(gen, (n, d)))
+    bank = mfa_bank.prepare_bank_factored(p, SNR, torch.tensor(1.0 + 0.0j),
+                                          N_BITS, q)
+    return bank, observation.observe(gen, h, SNR, None, N_BITS, q)
+
+
 def serving_params():
     """The synthetic GMM of `tools/serving_bench.py` (`synthetic_params`):
     K random covariances A A^H / D + I, uniform weights, zero means, numpy
@@ -265,6 +314,40 @@ def compare64(name, label, got, want, want64):
         raise AssertionError(f"{name} disagrees with its plain version "
                              f"({label})")
     return abs_err
+
+
+def mfa_path_run(run_mfa, stages, kernels, dev, tmp, **change):
+    """run_mfa at the defaults (plus `change`) on the card with the data
+    set cached in `tmp`, its kernel launches counted alone. Returns the
+    config, tables, timings, seconds, launches and the fit it made."""
+    cfg = run_mfa.MfaBenchConfig(results_dir=tmp,
+                                 cache_dir=os.path.join(tmp, "saves"),
+                                 **change)
+    fits, mfa_fit = [], stages.mfa_fit
+
+    def keep_fit(*args):
+        fits.append(mfa_fit(*args))
+        return fits[-1]
+
+    stages.mfa_fit = keep_fit
+    try:
+        kernels.reset_launch_counts()
+        tm = time.time()
+        mse, rate, timings = run_mfa.run(cfg, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.time() - tm
+        launches = kernels.launch_counts()
+    finally:
+        stages.mfa_fit = mfa_fit
+    log(f"run_mfa {change or 'defaults'} (D={cfg.n_antennas}, "
+        f"K={cfg.n_components}, M={cfg.latent_dim}, n_train={cfg.n_train}, "
+        f"n_val={cfg.n_val}, {len(cfg.snrs)} SNRs): {seconds:.1f}s, MFA fit "
+        f"{timings['fit']:.1f}s ({timings['mfa_iters']} iterations); "
+        f"launches {launches}")
+    for name, vals in list(mse.items()) + list(rate.items()):
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"non-finite row {name}: {vals}")
+    return cfg, mse, rate, timings, seconds, launches, fits[0].params
 
 
 def main_path_run(run_gmm, kernels, dev, tmp, falling=True, use_cache=False,
@@ -382,10 +465,11 @@ def main():
         return 1
     from quantized_channel_estimation_torch import serving
     from quantized_channel_estimation_torch.estimators import (
-        circ_kernels, kernels, mp_circ_kernels)
-    from quantized_channel_estimation_torch.harness import run_gmm, stages
+        circ_kernels, fact_kernels, kernels, mp_circ_kernels)
+    from quantized_channel_estimation_torch.harness import (
+        run_gmm, run_mfa, stages)
     from quantized_channel_estimation_torch.models import (
-        gmm_estimator, structured_bank)
+        gmm_estimator, mfa, mfa_bank, structured_bank)
     from quantized_channel_estimation_torch.ops import observation, pilots
     from quantized_channel_estimation_torch.ops import quantizer as Q
     from quantized_channel_estimation_torch.utils import io as qio
@@ -580,6 +664,73 @@ def main():
     check_mp("dead, B=2501", 3, 24, 40, 2501 * 4, 4, 0.25, n_dead=2)
     check_mp("largest T", 2, n=64 * 301, t=64)
 
+    # 2d. the factored (MFA) kernels K11-K13 against their plain versions
+    fk = fact_kernels
+
+    def check_fact(label, bank_c, xf, t=1, alpha=1.0):
+        """K11 (t = 1) or K12 on rows xf against the plain version.
+        Returns the kernel's output."""
+        fkb = fk.fact_kernel_bank(bank_c, t, alpha)
+        if t == 1:
+            name, got = "fact_estimate", fk.fact_estimate(xf, fkb)
+            want = fk.fact_estimate_reference(xf, fkb)
+            want64 = fk.fact_estimate_reference(xf.double(), f64(fkb))
+        else:
+            name = "fact_estimate_coherent"
+            got = fk.fact_estimate_coherent(xf, fkb, t, alpha)
+            want = fk.fact_estimate_coherent_reference(xf, fkb, t, alpha)
+            want64 = fk.fact_estimate_coherent_reference(
+                xf.double(), f64(fkb), t, alpha)
+        errs[name].append(compare64(name, label, got, want, want64))
+        return got
+
+    def check_fact_stats(label, bank_c, xf, whole):
+        """K13 on the two component shards of bank_c, each state against
+        the plain stats, the merged quotient against `whole` (K11 over the
+        whole bank)."""
+        half = bank_c.t_mat.shape[0] // 2
+        states = []
+        for lo, hi in ((0, half), (half, 2 * half)):
+            fkb = fk.fact_kernel_bank(type(bank_c)(*(x[lo:hi]
+                                                     for x in bank_c)))
+            got = fk.fact_estimate_stats(xf, fkb)
+            want = fk.fact_estimate_stats_reference(xf, fkb)
+            want64 = fk.fact_estimate_stats_reference(xf.double(), f64(fkb))
+            for part, g, w, w64 in zip(("m", "den", "acc"), got, want,
+                                       want64):
+                errs["fact_estimate_stats"].append(compare64(
+                    "fact_estimate_stats", f"{label}, shard {lo}:{hi}, {part}",
+                    g.reshape(g.shape[0], -1), w.reshape(w.shape[0], -1),
+                    w64.reshape(w64.shape[0], -1)))
+            states.append(got)
+        _, den, acc = ck.merge_stats(*zip(*states))
+        compare("fact_estimate_stats", f"{label}, two shards merged vs K11",
+                acc / den[:, None], whole)
+
+    fbank, r_f = mfa_bank_obs(dev, q, N_BENCH)
+    fdead, r_fd = mfa_bank_obs(dev, q, N_BENCH, n_dead=5, zero_mean=False)
+    xf, xfd = ck._x2(r_f), ck._x2(r_fd)
+    for label, bank_c, rows in (("zero means", fbank, xf),
+                                ("main path", fbank, xf[:n_val]),
+                                ("means, dead, ragged", fdead, xfd[:8191])):
+        whole = check_fact(label, bank_c, rows)
+        if label != "main path":
+            check_fact_stats(label, bank_c, rows, whole)
+    for label, bank_c, t, alpha, rows in (
+            [(f"T=4, alpha={a}", fbank, 4, a, xf) for a in (1.0, 0.25, 0.0)]
+            + [("T=16, alpha=1", fbank, 16, 1.0, xf),
+               ("means, dead, B=2501", fdead, 4, 0.25, xfd[:2501 * 4]),
+               ("largest T", fdead, 64, 1.0, xfd[:64 * 301])]):
+        check_fact(label, bank_c, rows, t, alpha)
+    for d_w, m_w, k_w in ((D, 6, K), (32, 8, 40)):
+        wbank, rw = mfa_bank_obs(dev, q, 20001 * 4, d=d_w, m=m_w, k=k_w,
+                                 n_dead=3, zero_mean=False)
+        xw = ck._x2(rw)
+        label = f"D={d_w}, M={m_w}, K={k_w}"
+        whole = check_fact(label, wbank, xw[:20001])
+        check_fact_stats(label, wbank, xw[:20001], whole)
+        check_fact(label + ", T=4, alpha=0.25", wbank, xw, 4, 0.25)
+
     # 3. the main paths, each with its own launch counts
     total_launches = dict.fromkeys(errs, 0)
 
@@ -732,6 +883,67 @@ def main():
         f"{mse_mc['blmmse_gmm_coh'][i_low]:.5f} vs "
         f"{mse_mc['blmmse_gmm'][i_low]:.5f}")
 
+    # run_mfa at the defaults: the factored bank through K11, and with
+    # n_coherence=4 the coherent column through K12; the invariants of the
+    # JAX harness tests (`tests/test_harness.py`), and the factored estimate
+    # held against the dense bank (K1) of the same fit
+    with tempfile.TemporaryDirectory() as tmp:
+        (cfg_f, mse_f, rate_f, timings_f, mfa_s, launches_f,
+         fit_f) = mfa_path_run(run_mfa, stages, kernels, dev, tmp)
+        data_file, = os.listdir(os.path.join(tmp, "saves"))
+        h_val_f = torch.as_tensor(qio.load_channels(os.path.join(
+            tmp, "saves", data_file))[0][cfg_f.n_train:], device=dev)
+    add(launches_f)
+    i0, i10, i_low = (list(cfg_f.snrs).index(snr) for snr in (0, 10, -10))
+    if not (mse_f["blmmse_mfa"][i0] > mse_f["blmmse_mfa"][i10]
+            and mse_f["blmmse_mfa"][i10] < 1.0):
+        raise AssertionError(f"blmmse_mfa does not fall from 0 to 10 dB: "
+                             f"{mse_f['blmmse_mfa']}")
+    if launches_f["fact_estimate"] != len(cfg_f.snrs):
+        raise AssertionError(f"run_mfa launched K11 "
+                             f"{launches_f['fact_estimate']} times")
+    log(f"blmmse_mfa: {mse_f['blmmse_mfa']}; mfa_rstat: "
+        f"{rate_f['mfa_rstat']}")
+    a_f = pilots.pilot_matrix(D, 1, N_BITS, device=dev)
+    dense_params = mfa.to_gmm_params(fit_f, 1e-6)
+    mfa_vs_dense = {}
+    for snr in (-10.0, 10.0):
+        q_snr = Q.design_quantizer(snr, N_BITS).to(dev)
+        r_val = observation.observe(torch.Generator(dev).manual_seed(3),
+                                    h_val_f, snr, a_f, N_BITS, q_snr)
+        via_k11 = stages.estimate_factored(
+            stages.prepare_bank_factored(fit_f, snr, a_f, N_BITS, q_snr),
+            r_val)
+        via_k1 = stages.estimate_auto(
+            stages.prepare_bank(dense_params, snr, a_f, N_BITS, q_snr), r_val,
+            "all")
+        torch.cuda.synchronize()
+        mfa_vs_dense[snr] = float((via_k11 - via_k1).abs().max()
+                                  / via_k1.abs().max())
+        log(f"factored bank (K11) vs dense bank (K1) of the same MFA fit at "
+            f"{snr} dB, N={r_val.shape[0]}: max rel {mfa_vs_dense[snr]:.3e} "
+            f"(tol {TOL})")
+    if not max(mfa_vs_dense.values()) <= TOL:
+        raise AssertionError(f"factored bank off the dense bank: "
+                             f"{mfa_vs_dense}")
+    with tempfile.TemporaryDirectory() as tmp:
+        (cfg_fc, mse_fc, rate_fc, timings_fc, mfa_coh_s, launches_fc,
+         _) = mfa_path_run(run_mfa, stages, kernels, dev, tmp, n_coherence=4)
+    add(launches_fc)
+    if not (mse_fc["blmmse_mfa_coh"][i_low]
+            <= 1.02 * mse_fc["blmmse_mfa"][i_low]):
+        raise AssertionError(f"MFA coherent column above 1.02x the "
+                             f"per-snapshot one at -10 dB: {mse_fc}")
+    if (launches_fc["fact_estimate_coherent"] != len(cfg_fc.snrs)
+            or launches_fc["fact_estimate"] != len(cfg_fc.snrs)):
+        raise AssertionError(f"the coherent run_mfa launched K12 / K11 "
+                             f"{launches_fc}")
+    log(f"MSE table, run_mfa (SNRs {list(cfg_f.snrs)}):")
+    for label, table in (("flat", mse_f), ("n_coherence=4", mse_fc)):
+        for name, vals in table.items():
+            log(f"  {label:14s} {name:15s} "
+                + " ".join(f"{v:.5f}" for v in vals))
+
     params = serving_params()
     a_eye = np.eye(D, dtype=np.complex64)     # the tool's pilot matrix
     params_dev = type(params)(*(torch.as_tensor(x, device=dev)
@@ -793,6 +1005,16 @@ def main():
         return structured_bank.estimate_circulant(wide_bank, rt, "all",
                                                   16384, None, "fft")
 
+    # an MFA prior at the headline widths through the factored bank
+    mfa_serve = mfa_prior(dev, n_dead=0, zero_mean=True, seed=2)
+    serve_fbank = mfa_bank.prepare_bank_factored(
+        mfa_serve, SNR, torch.as_tensor(a_eye, device=dev), N_BITS, q_serve)
+
+    def fact_reference(rt):
+        if rt.dim() == 3:
+            return mfa_bank.estimate_factored_coherent(serve_fbank, rt)
+        return mfa_bank.estimate_factored(serve_fbank, rt)
+
     serve = []
     for kwargs, modes in (
             (dict(mode="all"),
@@ -818,10 +1040,21 @@ def main():
              (("structured 2 pilots flat all", 1, "mp_circ_estimate",
                mp_reference, None),
               ("structured 2 pilots T=4 blocks, alpha=1", 4,
-               "mp_circ_estimate_coherent", mp_reference, None)))):
+               "mp_circ_estimate_coherent", mp_reference, None))),
+            (dict(mode="all", mfa=True),
+             (("factored flat all", 1, "fact_estimate", fact_reference,
+               None),
+              ("factored T=4 blocks, alpha=1", 4, "fact_estimate_coherent",
+               fact_reference, None)))):
         spectra = kwargs.pop("spectra", None)
         a_serve = kwargs.pop("a", a_eye)
-        if spectra is not None:
+        if kwargs.pop("mfa", False):
+            svc = serving.EstimationService.from_mfa(
+                mfa_serve, a_eye, N_BITS, max_batch=SERVE_MAX_BATCH,
+                device=dev, **kwargs)
+            if not svc.factored:
+                raise AssertionError("from_mfa did not take the factored bank")
+        elif spectra is not None:
             svc = serving.EstimationService.from_circulant_spectra(
                 np.full((K_WIDE,), 1.0 / K_WIDE, np.float32),
                 np.zeros((K_WIDE, D), np.complex64), spectra, a_eye, N_BITS,
@@ -984,6 +1217,36 @@ def main():
 
     t10, t10_p4, t10_coh = timed_mp(2), timed_mp(4), timed_mp(2, 4)
 
+    # K11-K13: 2 N K (2D 4M + 4M 2D + 3D + 2M + 6D) operations (forward and
+    # combine products, the logit's diagonal and latent terms, the bias and
+    # diagonal combine), K12 plus 3 N K for the pool; bytes: the rows read
+    # and written once, the bank once, m and den for K13. Library yardstick:
+    # the `torch.matmul` pipeline of `models.mfa_bank` over the batch as one
+    # chunk (`library_chunked_ms`: at its default chunks).
+    fkb = fk.fact_kernel_bank(fbank)
+    fkb4 = fk.fact_kernel_bank(fbank, 4, 1.0)
+    fact_flops = 2.0 * n * K * (2 * two_d * 4 * M_LAT + 3 * D + 2 * M_LAT
+                                + 6 * D)
+    fact_bytes = 4.0 * (2 * n * two_d + sum(x.numel() for x in fkb))
+    rf_blocks = r_f.reshape(-1, 4, D)
+    t11 = timed("K11", lambda: fk.fact_estimate(xf, fkb),
+                lambda: fk.fact_estimate_reference(xf, fkb),
+                lambda: mfa_bank.estimate_factored(fbank, r_f, "all", n),
+                fact_flops, fact_bytes,
+                lambda: mfa_bank.estimate_factored(fbank, r_f))
+    t12 = timed("K12 (T=4, alpha=1)",
+                lambda: fk.fact_estimate_coherent(xf, fkb4, 4, 1.0),
+                lambda: fk.fact_estimate_coherent_reference(xf, fkb4, 4, 1.0),
+                lambda: mfa_bank.estimate_factored_coherent(
+                    fbank, rf_blocks, "all", n // 4, 1.0),
+                fact_flops + 3.0 * n * K, fact_bytes,
+                lambda: mfa_bank.estimate_factored_coherent(fbank, rf_blocks))
+    t13 = timed("K13", lambda: fk.fact_estimate_stats(xf, fkb),
+                lambda: fk.fact_estimate_stats_reference(xf, fkb),
+                lambda: mfa_bank.estimate_factored_stats(fbank, r_f, n),
+                fact_flops, fact_bytes + 8.0 * n,
+                lambda: mfa_bank.estimate_factored_stats(fbank, r_f))
+
     src = "quantized_channel_estimation_torch/csrc/"
     tpu = "quantized_channel_estimation_tpu/estimators/pallas_kernels.py"
     print(json.dumps({"kernels": [
@@ -1029,6 +1292,21 @@ def main():
          "launches": total_launches["mp_circ_estimate_coherent"],
          "max_abs_err": max(errs["mp_circ_estimate_coherent"]),
          "n_pilots": 2, "t_coh": 4, "coh_alpha": 1.0, **t10_coh},
+        {"name": "fact_estimate", "id": "K11", "route": "cuda",
+         "source": src + "fact_estimate.cu", "replaces": f"{tpu}:2048",
+         "launches": total_launches["fact_estimate"],
+         "max_abs_err": max(errs["fact_estimate"]), "latent_dim": M_LAT,
+         **t11},
+        {"name": "fact_estimate_coherent", "id": "K12", "route": "cuda",
+         "source": src + "fact_estimate.cu", "replaces": f"{tpu}:2126",
+         "launches": total_launches["fact_estimate_coherent"],
+         "max_abs_err": max(errs["fact_estimate_coherent"]),
+         "latent_dim": M_LAT, "t_coh": 4, "coh_alpha": 1.0, **t12},
+        {"name": "fact_estimate_stats", "id": "K13", "route": "cuda",
+         "source": src + "fact_estimate.cu", "replaces": f"{tpu}:2231",
+         "launches": total_launches["fact_estimate_stats"],
+         "max_abs_err": max(errs["fact_estimate_stats"]),
+         "latent_dim": M_LAT, **t13},
     ]}))
     print(json.dumps({"main_path": {
         "defaults": {"mse": mse, "rate": rate, "seconds": main_s,
@@ -1047,6 +1325,13 @@ def main():
         "circulant_n_pilots_2_n_coherence_4": {
             "mse": mse_mc, "rate": rate_mc, "seconds": mp_coh_s,
             "timings": timings_mc, "launches": launches_mc},
+        "run_mfa": {
+            "mse": mse_f, "rate": rate_f, "seconds": mfa_s,
+            "timings": timings_f, "launches": launches_f,
+            "rel_to_dense_bank": {str(k): v for k, v in mfa_vs_dense.items()}},
+        "run_mfa_n_coherence_4": {
+            "mse": mse_fc, "rate": rate_fc, "seconds": mfa_coh_s,
+            "timings": timings_fc, "launches": launches_fc},
         "total_seconds": time.time() - t0}}))
     print(json.dumps({"serving": serve}))
     print(card)

@@ -88,13 +88,14 @@ class CircKernelBank(NamedTuple):
 
 
 def _cplx_interleaved(b: torch.Tensor) -> torch.Tensor:
-    """(D, P) complex -> (2D, 2P) real with [x_re, x_im] rows interleaved
-    @ it = [Re(x b), Im(x b)] interleaved: the 2x2 block
+    """(..., D, P) complex -> (..., 2D, 2P) real with [x_re, x_im] rows
+    interleaved @ it = [Re(x b), Im(x b)] interleaved: the 2x2 block
     [[re, im], [-im, re]] of every entry."""
-    d, p = b.shape
+    d, p = b.shape[-2:]
     top = torch.stack([b.real, b.imag], dim=-1)        # rows 2d
     bot = torch.stack([-b.imag, b.real], dim=-1)       # rows 2d + 1
-    return torch.stack([top, bot], dim=1).reshape(2 * d, 2 * p)
+    return torch.stack([top, bot], dim=-3).reshape(b.shape[:-2]
+                                                   + (2 * d, 2 * p))
 
 
 def circ_kernel_bank(bank: CirculantBank, blocks=None, t_coh: int = 1,

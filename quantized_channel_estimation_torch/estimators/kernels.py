@@ -14,11 +14,12 @@ and three kernels written in CUDA C++ for `sm_90a`:
   `_estimate_kernel_block_grouped_topk`, entry `estimate_fused_topk`) in
   `csrc/grouped_topk.cu`.
 
-The circulant kernels K6-K9 (`csrc/circ_estimate.cu`) and the multi-pilot
-circulant kernel K10 (`csrc/mp_circ_estimate.cu`) have their layouts, plain
-versions and wrappers in the siblings `circ_kernels` and `mp_circ_kernels`;
-they are built, bound and counted by this module (`build`, `_library`,
-`register_wrappers`).
+The circulant kernels K6-K9 (`csrc/circ_estimate.cu`), the multi-pilot
+circulant kernel K10 (`csrc/mp_circ_estimate.cu`) and the factored (MFA)
+kernels K11-K13 (`csrc/fact_estimate.cu`) have their layouts, plain
+versions and wrappers in the siblings `circ_kernels`, `mp_circ_kernels` and
+`fact_kernels`; they are built, bound and counted by this module (`build`,
+`_library`, `register_wrappers`).
 
 Rows of coherence blocks are laid out block-major (the T rows of a block
 consecutive); the TPU's T-major re-layout served its sublane tiling and has
@@ -131,6 +132,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.mp_circ_estimate_launch.argtypes = (
             [ptr] * 7 + [i32] * 5 + [f32, ptr])
         lib.mp_circ_estimate_launch.restype = i32
+    elif name == "fact_estimate":
+        lib.fact_estimate_launch.argtypes = (
+            [ptr] * 11 + [i32] * 5 + [f32, i32, ptr])
+        lib.fact_estimate_launch.restype = i32
 
 
 def tile_rows(two_m: int, two_d: int) -> int:

@@ -4,9 +4,11 @@ Port of `quantized_channel_estimation_tpu/harness/stages.py`, single-device
 subset: `generate_channels`, `pilot_matrix`, `sample_cov`, `observe`,
 `blmmse_global`, `blmmse_genie`, `ls_global`, `gmm_fit`, `prepare_bank`,
 `nmse`, `rate`, `rate_mf`, `estimate_auto`, `estimate_coherent`,
-`estimate_coherent_auto`, `flatten_coherence`, and for the structured banks
+`estimate_coherent_auto`, `flatten_coherence`, for the structured banks
 `prepare_bank_circulant`, `prepare_bank_circulant_spectra`,
-`estimate_circulant`, `estimate_circulant_coherent`. The JAX stages wrap every
+`estimate_circulant`, `estimate_circulant_coherent`, and for MFA `mfa_fit`,
+`mfa_to_gmm`, `prepare_bank_factored`, `estimate_factored`,
+`estimate_factored_coherent`. The JAX stages wrap every
 function in `cjit` so that complex data crosses program boundaries as
 packed (re, im) reals, because the TPU runtime has no complex buffers;
 PyTorch on CUDA has complex64 tensors, so here the stages are the plain
@@ -19,9 +21,9 @@ from typing import Optional
 import torch
 
 from quantized_channel_estimation_torch.estimators import (
-    blmmse, circ_kernels, kernels, ls, mp_circ_kernels)
+    blmmse, circ_kernels, fact_kernels, kernels, ls, mp_circ_kernels)
 from quantized_channel_estimation_torch.models import (
-    gmm, gmm_estimator, structured_bank)
+    gmm, gmm_estimator, mfa, mfa_bank, structured_bank)
 from quantized_channel_estimation_torch.ops import observation, pilots, scm
 from quantized_channel_estimation_torch.utils import metrics
 
@@ -72,6 +74,8 @@ blmmse_global = blmmse.estimate_global
 blmmse_genie = blmmse.estimate_genie
 ls_global = ls.estimate_global
 gmm_fit = gmm.fit
+mfa_fit = mfa.fit
+mfa_to_gmm = mfa.to_gmm_params
 prepare_bank = gmm_estimator.prepare_bank
 estimate_coherent = gmm_estimator.estimate_coherent
 # block-major snapshot order: (B, T, N) -> (B*T, N), Toeplitz rows repeated
@@ -183,6 +187,65 @@ def estimate_circulant_coherent(bank, r: torch.Tensor, mode="all",
             bank, r, alpha, blocks, cache)
     return circ_kernels.estimate_fused_circulant_coherent(bank, r, alpha,
                                                           blocks, cache)
+
+
+def prepare_bank_factored(params: mfa.MfaParams, snr_db, a, n_bits, q=None):
+    """Factored (Woodbury) bank of an MFA fit and a scaled-identity pilot
+    (`mfa_bank.prepare_bank_factored`): O(K D M) memory, no dense
+    covariance."""
+    return mfa_bank.prepare_bank_factored(params, snr_db, a, n_bits, q)
+
+
+def _fact_method(method: str, mode, bank: mfa_bank.FactoredBank,
+                 t: int = 1) -> str:
+    """The one dispatch rule of the factored estimators, from shapes only:
+    'auto' is the kernels for an 'all'-mode request within
+    `fact_kernels.fact_kernel_eligible`, else the `torch.matmul` pipeline;
+    'kernel' raises outside that range; 'pipeline' names the pipeline."""
+    k, m, d = bank.t_mat.shape
+    kernel_ok = mode == "all" and fact_kernels.fact_kernel_eligible(d, k, m,
+                                                                    t)
+    if method == "kernel" and not kernel_ok:
+        raise ValueError(
+            f"method='kernel' needs mode='all' and (D, M, T) within "
+            f"fact_kernel_eligible (got mode={mode!r}, D={d}, M={m}, K={k}, "
+            f"T={t})")
+    if method == "auto":
+        return "kernel" if kernel_ok else "pipeline"
+    if method not in ("kernel", "pipeline"):
+        raise ValueError(f"method must be 'auto', 'kernel' or 'pipeline'; "
+                         f"got {method!r}")
+    return method
+
+
+def estimate_factored(bank: mfa_bank.FactoredBank, r: torch.Tensor,
+                      mode="all", method: str = "auto",
+                      cache: Optional[dict] = None) -> torch.Tensor:
+    """Factored analog of `estimate_auto` for r (N, D): 'all' mode within
+    the kernels' range -> K11 (the CUDA kernel for a CUDA tensor, its plain
+    version for a CPU tensor); selection modes and wider banks -> the
+    `torch.matmul` pipeline. `method` as in `_fact_method`; `cache` holds
+    the kernel layouts of a bank served many times
+    (`fact_kernels.lowered`)."""
+    if _fact_method(method, mode, bank) == "kernel":
+        return fact_kernels.estimate_fused_factored(bank, r, cache)
+    return mfa_bank.estimate_factored(bank, r, mode, 4096)
+
+
+def estimate_factored_coherent(bank: mfa_bank.FactoredBank, r: torch.Tensor,
+                               mode="all", alpha: float = 1.0,
+                               method: str = "auto",
+                               cache: Optional[dict] = None) -> torch.Tensor:
+    """Coherent analog of `estimate_factored` for blocks r (B, T, D):
+    'all' mode with (D, M, T) within the kernels' range -> K12 (the alpha
+    blend in the kernel), else the `torch.matmul` coherent pipeline."""
+    if r.dim() != 3:
+        raise ValueError(f"estimate_factored_coherent expects (B, T, D) "
+                         f"blocks, got shape {tuple(r.shape)}")
+    if _fact_method(method, mode, bank, r.shape[1]) == "kernel":
+        return fact_kernels.estimate_fused_factored_coherent(bank, r, alpha,
+                                                             cache)
+    return mfa_bank.estimate_factored_coherent(bank, r, mode, 1024, alpha)
 
 
 def nmse(h_est: torch.Tensor, h: torch.Tensor) -> float:

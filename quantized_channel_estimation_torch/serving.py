@@ -2,9 +2,11 @@
 
 Port of `quantized_channel_estimation_tpu/serving.py`, single-device
 subset: `ServiceOverloadedError`, `ServiceClosedError`, `_Metrics`,
-`_Request` and `EstimationService` with a dense GMM bank or, with
-`structured=True` / `from_circulant_spectra`, the FFT-domain circulant bank
-of `models.structured_bank`. Requests of any
+`_Request` and `EstimationService` with a dense GMM bank, with
+`structured=True` / `from_circulant_spectra` the FFT-domain circulant bank
+of `models.structured_bank`, or with `factored=True` / `from_mfa` the
+factored (Woodbury) bank of an MFA prior (`models.mfa_bank`). Requests of
+any
 size are queued per (SNR, T), coalesced into power-of-two microbatches of
 at most `max_batch` snapshots (a coherence block is never split), and
 flushed when a queue fills or its oldest request is older than
@@ -21,14 +23,17 @@ circulant kernel K6 and blocks through K7 (within
 `circ_kernels.circ_kernel_eligible`), with a multi-pilot kron(x, I) matrix
 through the two forms of K10 (within
 `mp_circ_kernels.mp_circ_kernel_eligible`), and every selection mode through
-the `torch.fft` pipeline. On the CPU the same dispatch reaches the kernels'
+the `torch.fft` pipeline. A factored service runs 'all'-mode flat requests
+through K11 and blocks through K12 (within
+`fact_kernels.fact_kernel_eligible`), and selection modes through the
+`torch.matmul` pipeline. On the CPU the same dispatch reaches the kernels'
 plain versions. A worker thread computes on the service's device and its
 own CUDA stream; every fault reaches the waiting clients through their
 request.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-Queue 1 item: `mesh` (item 15, with or without `structured`), `factored`
-and `from_mfa` (item 12), `VaeEstimationService` (item 13).
+Queue 1 item: `mesh` (item 15, with or without `structured` or
+`factored`), `VaeEstimationService` (item 13).
 """
 from __future__ import annotations
 
@@ -44,13 +49,14 @@ import numpy as np
 import torch
 
 from quantized_channel_estimation_torch.estimators import (
-    circ_kernels, kernels, mp_circ_kernels)
+    circ_kernels, fact_kernels, kernels, mp_circ_kernels)
 from quantized_channel_estimation_torch.harness import stages
 from quantized_channel_estimation_torch.harness.stages import resolve_device
 from quantized_channel_estimation_torch.models import (
-    gmm, gmm_estimator, structured_bank)
+    gmm, gmm_estimator, mfa, mfa_bank, structured_bank)
 from quantized_channel_estimation_torch.models.gmm_estimator import (
     PreparedBank)
+from quantized_channel_estimation_torch.models.mfa_bank import FactoredBank
 from quantized_channel_estimation_torch.models.structured_bank import (
     CirculantBank, CirculantBankMP)
 from quantized_channel_estimation_torch.ops import observation
@@ -120,10 +126,10 @@ class _Request:
 
 class _BankEntry(NamedTuple):
     """A cached per-SNR bank and its kernel layouts (the `kernels.lowered`
-    cache keyed by (T, alpha), or for a structured bank the
-    `circ_kernels.lowered` / `mp_circ_kernels.lowered` cache keyed by
-    (blocks, T, alpha))."""
-    bank: Union[PreparedBank, CirculantBank, CirculantBankMP]
+    or `fact_kernels.lowered` cache keyed by (T, alpha), or for a
+    structured bank the `circ_kernels.lowered` / `mp_circ_kernels.lowered`
+    cache keyed by (blocks, T, alpha))."""
+    bank: Union[PreparedBank, CirculantBank, CirculantBankMP, FactoredBank]
     lowered: dict
 
 
@@ -151,9 +157,11 @@ class EstimationService:
                  mesh=None, structured: bool = False,
                  structured_blocks=None, factored: bool = False,
                  device=None):
-        """params: the GMM (tensors or numpy arrays; moved to `device`);
-        a: the (M, N) pilot matrix (a structured service takes A = x0 I,
-        also as the scalar x0, or a multi-pilot kron(x, I)). max_banks: LRU
+        """params: the GMM (tensors or numpy arrays; moved to `device`), or
+        with `factored=True` an `mfa.MfaParams`;
+        a: the (M, N) pilot matrix, or the scalar x0 for A = x0 I (a
+        structured service takes A = x0 I or a multi-pilot kron(x, I), a
+        factored one A = x0 I). max_banks: LRU
         cap on cached per-SNR banks. snr_step_db: submitted SNRs snap to
         this grid before bank lookup, so nearby floats share one bank; None
         disables.
@@ -168,7 +176,12 @@ class EstimationService:
         `structured_blocks` selects the kron basis of block-circulant fits;
         the kernels are then the circulant ones ('all' mode within
         `circ_kernels.circ_kernel_eligible`, or for P > 1 pilots
-        `mp_circ_kernels.mp_circ_kernel_eligible`). coherence_alpha: evidence
+        `mp_circ_kernels.mp_circ_kernel_eligible`). factored: serve an MFA
+        prior through the factored (Woodbury) bank (`models.mfa_bank`: exact
+        for n-bit and unquantized observations under A = x0 I; 1-bit is
+        refused here); the kernels are then K11 / K12 ('all' mode within
+        `fact_kernels.fact_kernel_eligible`), and `use_kernels` names them
+        as it names the dense and circulant ones. coherence_alpha: evidence
         blend for (n, T, M)
         block requests (1 the block posterior, 0 independent snapshots), or
         'auto' to select it per (SNR, T) from
@@ -178,18 +191,28 @@ class EstimationService:
         one)."""
         if mesh is not None:
             raise _not_ported("mesh-backed serving", 15)
-        if factored:
-            if structured:
-                raise ValueError("structured and factored are mutually "
-                                 "exclusive bank representations")
-            raise _not_ported("factored (MFA) serving", 12)
+        if structured and factored:
+            raise ValueError("structured and factored are mutually "
+                             "exclusive bank representations")
+        if factored and not Q.is_inf_bits(n_bits) and n_bits == 1:
+            # fail at construction, not in the serving thread at the first
+            # submit: the factored prepare refuses 1-bit
+            raise ValueError(
+                "factored serving does not support 1-bit quantization "
+                "(arcsine destroys the low-rank structure); use the dense "
+                "bank: from_mfa(..., factored=False)")
         self.device = resolve_device(device)
-        self.params = gmm.GmmParams(*(torch.as_tensor(x, device=self.device)
-                                      for x in params))
+        if factored:
+            self.params = mfa.MfaParams(*(torch.as_tensor(
+                x, device=self.device) for x in params))
+            dtype = self.params.lambdas.dtype
+        else:
+            self.params = gmm.GmmParams(*(torch.as_tensor(
+                x, device=self.device) for x in params))
+            dtype = self.params.covariances.dtype
         k_comp, d = self.params.means.shape
-        a = torch.as_tensor(a, device=self.device).to(
-            self.params.covariances.dtype)
-        if structured and a.dim() == 0:
+        a = torch.as_tensor(a, device=self.device).to(dtype)
+        if a.dim() == 0:   # a scalar pilot is x0 I
             a = a * torch.eye(d, dtype=a.dtype, device=self.device)
         if a.dim() != 2:
             raise ValueError(f"the pilot matrix must be (M, N); got shape "
@@ -200,9 +223,23 @@ class EstimationService:
         self.mode = mode
         self.structured = structured
         self.structured_blocks = structured_blocks
+        self.factored = factored
         self._spectra = None   # set by `from_circulant_spectra`
         m = self.a.shape[0]
-        if structured:
+        if factored:
+            # the factored bank is exact only for A = x0 I: refuse any
+            # other matrix here, like the 1-bit guard above
+            structured_bank._pilot_scalar(self.a, d)
+            rank = self.params.lambdas.shape[-1]
+            kernel_ok = (mode == "all"
+                         and fact_kernels.fact_kernel_eligible(d, k_comp,
+                                                               rank))
+            if use_kernels and not kernel_ok:
+                raise ValueError(
+                    "use_kernels=True on a factored service requires "
+                    "mode='all' and (D, M) within the factored kernels' "
+                    f"range (got mode={mode!r}, D={d}, M={rank})")
+        elif structured:
             # fail at construction, not in the serving thread at the first
             # submit: the circulant banks take A = kron(x, I) only
             p = structured_bank._pilot_vector(self.a, d).shape[0]
@@ -291,8 +328,29 @@ class EstimationService:
         return svc
 
     @classmethod
-    def from_mfa(cls, *args, **kwargs):
-        raise _not_ported("EstimationService.from_mfa", 12)
+    def from_mfa(cls, mfa_params, a, n_bits, reg: float = 1e-6,
+                 factored: Optional[bool] = None, **kwargs):
+        """Serve an MFA prior. factored=True (the default for n-bit and
+        unquantized observations under A = x0 I) keeps the factor model
+        factored end to end: per-SNR Woodbury banks and O(N K D M)
+        estimation through K11 / K12 (`models.mfa_bank`). factored=False,
+        and by default 1-bit or any other pilot matrix, densifies once
+        (`mfa.to_gmm_params` with jitter `reg`) and serves the dense bank.
+        `use_kernels` names the kernels of whichever bank is served (the
+        JAX `use_pallas=True` forces the dense bank instead)."""
+        if factored is None:
+            factored = Q.is_inf_bits(n_bits) or n_bits != 1
+            if factored:
+                try:   # the factored bank needs A = x0 I
+                    structured_bank._pilot_scalar(a, mfa_params[3].shape[-1])
+                except ValueError:
+                    factored = False
+        if factored:
+            return cls(mfa_params, a, n_bits, factored=True, **kwargs)
+        dev = resolve_device(kwargs.get("device"))
+        params = mfa.MfaParams(*(torch.as_tensor(x, device=dev)
+                                 for x in mfa_params))
+        return cls(mfa.to_gmm_params(params, reg), a, n_bits, **kwargs)
 
     def _snap(self, snr: float) -> float:
         if self.snr_step is None:
@@ -314,6 +372,9 @@ class EstimationService:
             bank = structured_bank.prepare_bank_circulant(
                 self.params, snr, self.a, self.n_bits, q,
                 blocks=self.structured_blocks, spectra=self._spectra)
+        elif self.factored:
+            bank = mfa_bank.prepare_bank_factored(self.params, snr, self.a,
+                                                  self.n_bits, q)
         else:
             bank = gmm_estimator.prepare_bank(self.params, snr, self.a,
                                               self.n_bits, q)
@@ -453,11 +514,16 @@ class EstimationService:
     def _estimate(self, entry: _BankEntry, r: torch.Tensor) -> torch.Tensor:
         """Flat snapshots r (n, M) -> (n, D): K1 ('all') or K4 (top-k)
         with the kernels, else the einsum estimator; structured: K6, else
-        the `torch.fft` pipeline."""
+        the `torch.fft` pipeline; factored: K11, else the `torch.matmul`
+        pipeline."""
         if self.structured:
             return stages.estimate_circulant(
                 entry.bank, r, self.mode, self.structured_blocks,
                 "auto" if self.use_kernels else "fft", entry.lowered)
+        if self.factored:
+            return stages.estimate_factored(
+                entry.bank, r, self.mode,
+                "auto" if self.use_kernels else "pipeline", entry.lowered)
         if self.use_kernels:
             if self.mode == "all":
                 return kernels.estimate_fused(entry.bank, r, entry.lowered)
@@ -470,11 +536,16 @@ class EstimationService:
                            alpha: float) -> torch.Tensor:
         """Blocks r (n, T, M) -> (n, T, D): K3 ('all' with the kernels),
         else the einsum coherent estimator; structured: K7, else the
-        `torch.fft` coherent pipeline."""
+        `torch.fft` coherent pipeline; factored: K12, else the
+        `torch.matmul` coherent pipeline."""
         if self.structured:
             return stages.estimate_circulant_coherent(
                 entry.bank, r, self.mode, alpha, self.structured_blocks,
                 "auto" if self.use_kernels else "fft", entry.lowered)
+        if self.factored:
+            return stages.estimate_factored_coherent(
+                entry.bank, r, self.mode, alpha,
+                "auto" if self.use_kernels else "pipeline", entry.lowered)
         if self.use_kernels and self.mode == "all":
             return kernels.estimate_fused_coherent(entry.bank, r, alpha,
                                                    entry.lowered)

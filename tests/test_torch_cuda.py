@@ -727,3 +727,176 @@ def test_multipilot_structured_service_on_card_matches_fft_pipeline():
         assert svc.metrics()["requests_failed"] == 0
     finally:
         svc.close(timeout=30)
+
+
+# ---------------------------------------------------------------------------
+# the factored (MFA) kernels K11-K13
+# ---------------------------------------------------------------------------
+
+def _fact_bank(d, k, m, dev, n_dead=0, zero_mean=False, n_bits=2, seed=0):
+    """A factored bank of seeded MFA parameters (loadings of unit total
+    power, psi on [0.05, 0.35]) at 10 dB under x0 = 1, and observations
+    drawn from the mixture."""
+    from quantized_channel_estimation_torch.models import mfa as tmfa
+    from quantized_channel_estimation_torch.models import mfa_bank as tmb
+    from quantized_channel_estimation_torch.ops import observation as tob
+    g = torch.Generator().manual_seed(seed)
+
+    def cr(*shape):
+        return torch.complex(torch.randn(shape, generator=g),
+                             torch.randn(shape, generator=g)) * math.sqrt(0.5)
+
+    w = torch.rand(k, generator=g) + 0.5
+    w[:n_dead] = 1e-9
+    params = tmfa.MfaParams(
+        w / w.sum(), torch.zeros(k, d, dtype=torch.complex64) if zero_mean
+        else 0.3 * cr(k, d), math.sqrt(0.8 / m) * cr(k, d, m),
+        0.05 + 0.3 * torch.rand(k, d, generator=g))
+    params = tmfa.MfaParams(*(x.to(dev) for x in params))
+    q = tq.design_quantizer(10.0, n_bits)
+    q = None if q is None else q.to(dev)
+    bank = tmb.prepare_bank_factored(params, 10.0, torch.tensor(1.0 + 0j),
+                                     n_bits, q)
+
+    def observe(n):
+        gd = torch.Generator(device=dev).manual_seed(seed + 1)
+        c = torch.randint(0, k, (n,), generator=gd, device=dev)
+        z = torch.complex(torch.randn(n, m, generator=gd, device=dev),
+                          torch.randn(n, m, generator=gd, device=dev))
+        e = torch.complex(torch.randn(n, d, generator=gd, device=dev),
+                          torch.randn(n, d, generator=gd, device=dev))
+        h = (params.means[c] + math.sqrt(0.5) * (
+            (params.lambdas[c] @ z[:, :, None])[..., 0]
+            + params.psis[c].sqrt() * e))
+        return tob.observe(gd, h, 10.0, None, n_bits, q)
+    return bank, observe
+
+
+# (D, M) covering every instantiation: bins a lane CW = 1, 2, 4 (D <= 32,
+# 64, 128) by complex outputs a lane CF = 1, 2, 4 (2M <= 32, 64, 128)
+FACT_WIDTHS = [(24, 6), (64, 16), (128, 9), (32, 20), (48, 32), (128, 24),
+               (20, 40), (64, 64), (128, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m", FACT_WIDTHS)
+def test_fact_kernels_match_plain_at_every_width(d, m):
+    """K11, K13 and K12 (T = 4 at alpha 0.25, the tile's largest T at
+    alpha 1) of every instantiation against their plain versions, with a
+    ragged N and dead components; where float32 sums in another order push
+    K12 past 1e-4, both against the float64 evaluation."""
+    from quantized_channel_estimation_torch.estimators import (
+        fact_kernels as tfk)
+    dev = _card()
+    bank, observe = _fact_bank(d, 9, m, dev, n_dead=2)
+    t_max = tfk.fact_tile_rows(d, m)
+    x2 = tck._x2(observe(t_max * 37))
+    fkb = tfk.fact_kernel_bank(bank)
+    before = dict(tkn.launch_counts())
+    got = tfk.fact_estimate(x2[:1001], fkb)
+    want = tfk.fact_estimate_reference(x2[:1001], fkb)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-4
+    stats = tfk.fact_estimate_stats(x2[:1001], fkb)
+    plain = tfk.fact_estimate_stats_reference(x2[:1001], fkb)
+    torch.cuda.synchronize()
+    for g, w in zip(stats, plain):
+        g, w = g.reshape(g.shape[0], -1), w.reshape(w.shape[0], -1)
+        assert float((g - w).abs().max() / w.abs().max()) < 1e-4
+    for t, alpha in ((4, 0.25), (t_max, 1.0)):
+        rows = x2[:(x2.shape[0] // t) * t]
+        fkb_t = tfk.fact_kernel_bank(bank, t, alpha)
+        got = tfk.fact_estimate_coherent(rows, fkb_t, t, alpha)
+        want = tfk.fact_estimate_coherent_reference(rows, fkb_t, t, alpha)
+        want64 = tfk.fact_estimate_coherent_reference(
+            rows.double(), type(fkb_t)(*(x.double() for x in fkb_t)), t,
+            alpha)
+        _held(got, want, want64)
+    after = tkn.launch_counts()
+    assert after["fact_estimate"] == before["fact_estimate"] + 1
+    assert after["fact_estimate_stats"] == before["fact_estimate_stats"] + 1
+    assert (after["fact_estimate_coherent"]
+            == before["fact_estimate_coherent"] + 2)
+
+
+@pytest.mark.cuda
+def test_fact_kernels_refuse_bad_inputs_and_one_past_the_rule():
+    from quantized_channel_estimation_torch.estimators import (
+        fact_kernels as tfk)
+    from quantized_channel_estimation_torch.models import mfa_bank as tmb
+    dev = _card()
+    bank, observe = _fact_bank(16, 4, 6, dev)
+    fkb = tfk.fact_kernel_bank(bank)
+    x2 = tck._x2(observe(64))
+    with pytest.raises(ValueError):
+        tfk.fact_estimate(x2.double(), fkb)
+    with pytest.raises(ValueError):
+        tfk.fact_estimate(x2, fkb._replace(const=fkb.const.cpu()))
+    with pytest.raises(ValueError):
+        tfk.fact_estimate(x2[:, :30], fkb)
+    with pytest.raises(ValueError, match="T <= 64"):
+        tfk.fact_estimate_coherent(x2.repeat(2, 1), tfk.fact_kernel_bank(
+            bank, 128), 128)
+    assert tfk.fact_estimate(x2[:0], fkb).shape == (0, 32)
+    # the edges of the rule launch; one past them raises
+    for d, m, t in ((128, 64, 32), (64, 32, 64), (1, 1, 1)):
+        wide, obs_w = _fact_bank(d, 2, m, dev)
+        rw = obs_w(4 * t)
+        h = tfk.estimate_fused_factored_coherent(wide, rw.reshape(4, t, d))
+        torch.cuda.synchronize()
+        assert torch.isfinite(h).all()
+    for d, m, t in ((129, 4, 1), (64, 65, 1), (64, 33, 64), (65, 16, 33)):
+        wide = tmb.FactoredBank(
+            torch.zeros(2, device=dev),
+            *(torch.zeros(shape, dtype=dtype, device=dev) for shape, dtype in (
+                ((2, d), torch.complex64), ((2, d), torch.float32),
+                ((2, m, d), torch.complex64), ((2, m), torch.complex64),
+                ((2,), torch.float32), ((2, m, d), torch.complex64),
+                ((2, m, d), torch.complex64), ((2, m, d), torch.complex64),
+                ((2, d), torch.complex64), ((2, d), torch.complex64))))
+        r = torch.zeros(t, d, dtype=torch.complex64, device=dev)
+        with pytest.raises(ValueError, match="factored kernels take"):
+            tfk.estimate_fused_factored_coherent(wide, r[None])
+        with pytest.raises(ValueError, match="fact_kernel_eligible"):
+            stages.estimate_factored_coherent(wide, r[None], method="kernel")
+
+
+@pytest.mark.cuda
+def test_factored_service_on_card_matches_pipeline():
+    """`from_mfa` on the card: flat requests through K11 and T = 4 blocks
+    through K12, each answer within 1e-4 of the `torch.matmul` pipeline."""
+    from quantized_channel_estimation_torch import serving
+    from quantized_channel_estimation_torch.models import mfa as tmfa
+    from quantized_channel_estimation_torch.models import mfa_bank as tmb
+    dev = _card()
+    g = torch.Generator().manual_seed(3)
+    k, d, m = 8, 32, 8
+    params = tmfa.MfaParams(
+        torch.full((k,), 1.0 / k),
+        torch.zeros(k, d, dtype=torch.complex64),
+        torch.complex(torch.randn(k, d, m, generator=g),
+                      torch.randn(k, d, m, generator=g)) * 0.25,
+        0.1 + 0.3 * torch.rand(k, d, generator=g))
+    svc = serving.EstimationService.from_mfa(params, 1.0, 2, max_delay_ms=1.0,
+                                             device=dev)
+    try:
+        assert svc.factored and svc.use_kernels
+        rng = np.random.default_rng(0)
+        r = (rng.choice([-0.6, 0.6], (64, d))
+             + 1j * rng.choice([-0.6, 0.6], (64, d))).astype(np.complex64)
+        before = tkn.launch_counts()
+        flat = svc.submit(r, 10.0, timeout=60.0)
+        blocks = svc.submit(r.reshape(16, 4, d), 10.0, timeout=60.0)
+        after = tkn.launch_counts()
+        assert after["fact_estimate"] > before["fact_estimate"]
+        assert (after["fact_estimate_coherent"]
+                > before["fact_estimate_coherent"])
+        bank = svc._banks[svc._snap(10.0)].bank
+        rt = torch.as_tensor(r, device=dev)
+        want = tmb.estimate_factored(bank, rt).cpu().numpy()
+        want_b = tmb.estimate_factored_coherent(
+            bank, rt.reshape(16, 4, d)).cpu().numpy()
+        assert np.abs(flat - want).max() / np.abs(want).max() < 1e-4
+        assert np.abs(blocks - want_b).max() / np.abs(want_b).max() < 1e-4
+    finally:
+        svc.close(timeout=60.0)

@@ -287,3 +287,139 @@ def test_port_imports_no_jax():
             assert root not in ("jax", "jaxlib", "flax", "optax",
                                 "quantized_channel_estimation_tpu"), \
                 (path, name)
+
+
+# ---------------------------------------------------------------------------
+# run_mfa
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("coh", [{}, dict(n_coherence=4,
+                                          coherence_alpha=0.25)])
+def test_run_mfa_matches_jax_on_shared_cache(tmp_path, monkeypatch, coh):
+    """Both MFA harnesses on one cache (the JAX run writes the data set),
+    the JAX fit carried across (`mfa.params_from_numpy` in place of the
+    port's `stages.mfa_fit`) and the JAX observations in place of the
+    port's `stages.observe`: the same CSV name and columns, every MSE and
+    rate row to rtol 1e-4, the factored bank estimating through the plain
+    K11 (and K12 for the coherent column)."""
+    from quantized_channel_estimation_tpu.harness import run_mfa as jrun_mfa
+    from quantized_channel_estimation_torch.harness import run_mfa as trun_mfa
+    from quantized_channel_estimation_torch.models import mfa as tmfa
+
+    fits, observed = [], {}
+
+    def jax_fit(*args, _fn=jst.mfa_fit):
+        fits.append(_fn(*args))
+        return fits[-1]
+
+    def jax_observe(key, h, snr, *args, _fn=jst.observe):
+        r = _fn(key, h, snr, *args)
+        observed[(snr, tuple(h.shape))] = np.asarray(jst.to_numpy(r))
+        return r
+
+    monkeypatch.setattr(jst, "mfa_fit", jax_fit)
+    monkeypatch.setattr(jst, "observe", jax_observe)
+    jcfg = jrun_mfa.MfaBenchConfig(
+        n_antennas=16, n_components=8, latent_dim=4, n_train=4000,
+        n_val=600, max_iter=10, snrs=(-10, 0, 10),
+        results_dir=str(tmp_path / "jax"), cache_dir=str(tmp_path / "saves"),
+        **coh)
+    jmse, jrate, _ = jrun_mfa.run(jcfg, verbose=False)
+    assert len(fits) == 1 and len(observed) == 3
+
+    jfit = fits[0]
+
+    def shared_fit(gen, h, cfg):
+        assert tuple(h.shape) == (jcfg.n_train, 16)
+        return tmfa.MfaFitResult(
+            tmfa.params_from_numpy([np.asarray(jst.to_numpy(x))
+                                    for x in jfit.params], h.device),
+            torch.tensor(float(jfit.log_likelihood)), int(jfit.n_iter),
+            bool(jfit.converged))
+
+    def shared_observe(gen, h, snr, a, n_bits, q):
+        return torch.as_tensor(observed[(snr, tuple(h.shape))],
+                               device=h.device)
+
+    calls = []
+    for name in ("estimate_factored", "estimate_factored_coherent"):
+        def counted(*args, _fn=getattr(tst, name), _name=name, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(tst, name, counted)
+    monkeypatch.setattr(tst, "mfa_fit", shared_fit)
+    monkeypatch.setattr(tst, "observe", shared_observe)
+    tcfg = trun_mfa.MfaBenchConfig(**{
+        f.name: getattr(jcfg, f.name)
+        for f in dataclasses.fields(trun_mfa.MfaBenchConfig)})
+    tcfg = dataclasses.replace(tcfg, results_dir=str(tmp_path / "port"))
+    tmse, trate, _ = trun_mfa.run(tcfg, verbose=False, device="cpu")
+    assert calls.count("estimate_factored") == 3
+    assert calls.count("estimate_factored_coherent") == (3 if coh else 0)
+
+    assert list(tmse) == list(jmse) and list(trate) == list(jrate)
+    for got, want in ((tmse, jmse), (trate, jrate)):
+        for name in want:
+            np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
+                                       err_msg=name)
+    jname, jrows = _read_csv(jcfg.results_dir, False)
+    tname, trows = _read_csv(tcfg.results_dir, False)
+    assert tname[19:] == jname[19:]
+    assert trows[0] == jrows[0]
+    np.testing.assert_allclose(np.asarray(trows[1:])[:, 1:].astype(float),
+                               np.asarray(jrows[1:])[:, 1:].astype(float),
+                               rtol=1e-4)
+    assert tmse["blmmse_mfa"][0] > tmse["blmmse_mfa"][-1]
+
+
+def test_run_mfa_factored_matches_densified(tmp_path):
+    """`use_factored_bank` 'auto' (the factored bank, plain K11 / K12) and
+    False (the densified fit through the dense bank, plain K1 / K3) give
+    the same MSE columns to 1e-3, from the same fit; 'auto' alpha selection
+    runs on held-out blocks; True with 1 bit is refused."""
+    from quantized_channel_estimation_torch.harness import run_mfa as trun_mfa
+
+    cfg = trun_mfa.MfaBenchConfig(
+        n_antennas=16, n_components=8, latent_dim=4, n_train=4000,
+        n_val=600, max_iter=10, snrs=(-10, 0, 10), n_coherence=4,
+        coherence_alpha=0.25, results_dir=str(tmp_path),
+        cache_dir=str(tmp_path / "c"))
+    assert trun_mfa._factored(cfg)
+    mse_f, _, t_f = trun_mfa.run(cfg, verbose=False, device="cpu")
+    dense = dataclasses.replace(cfg, use_factored_bank=False)
+    assert not trun_mfa._factored(dense)
+    mse_d, _, t_d = trun_mfa.run(dense, verbose=False, device="cpu")
+    assert t_f["mfa_iters"] == t_d["mfa_iters"]
+    for col in ("blmmse_mfa", "blmmse_mfa_coh"):
+        for vf, vd in zip(mse_f[col], mse_d[col]):
+            assert abs(vf - vd) / vd < 1e-3, (col, mse_f[col], mse_d[col])
+    assert mse_f["blmmse_mfa"][0] > mse_f["blmmse_mfa"][-1]
+    auto, _, timings = trun_mfa.run(
+        dataclasses.replace(cfg, coherence_alpha="auto", alpha_val_blocks=50,
+                            eval_rate=False), verbose=False, device="cpu")
+    assert set(timings["coherence_alpha_by_snr"]) == {-10, 0, 10}
+    assert all(np.isfinite(v).all() for v in auto.values())
+    with pytest.raises(ValueError, match="1-bit"):
+        trun_mfa.run(dataclasses.replace(cfg, use_factored_bank=True,
+                                         n_bits=1), device="cpu")
+    with pytest.raises(ValueError, match="multiples of n_coherence"):
+        trun_mfa.run(dataclasses.replace(cfg, n_coherence=3), device="cpu")
+
+
+@pytest.mark.parametrize("change,item", [
+    (dict(channel_model="mimo"), "item 14"),
+    (dict(n_data_shards=2), "item 15"),
+    (dict(n_component_shards=4), "item 15"),
+])
+def test_run_mfa_unported_options_raise(change, item):
+    from quantized_channel_estimation_torch.harness import run_mfa as trun_mfa
+    cfg = dataclasses.replace(trun_mfa.MfaBenchConfig(), **change)
+    with pytest.raises(NotImplementedError, match=item):
+        trun_mfa.run(cfg, device="cpu")
+
+
+def test_run_mfa_raises_without_cuda(monkeypatch):
+    from quantized_channel_estimation_torch.harness import run_mfa as trun_mfa
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trun_mfa.run(trun_mfa.MfaBenchConfig(n_antennas=4, n_components=2))

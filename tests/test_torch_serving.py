@@ -31,6 +31,7 @@ from quantized_channel_estimation_torch import serving
 from quantized_channel_estimation_torch.estimators import circ_kernels as tck
 from quantized_channel_estimation_torch.estimators import kernels as tkn
 from quantized_channel_estimation_torch.models import gmm as tg
+from quantized_channel_estimation_torch.models import mfa_bank as tmb
 
 torch.set_num_threads(2)
 
@@ -711,10 +712,11 @@ def test_structured_service_refusals(circ_setup):
                                             structured=True, mesh=object()),
      "mesh-backed serving.*Queue 1 item 15"),
     (lambda p, a: serving.EstimationService(p, a, 2, device="cpu",
-                                            factored=True),
-     r"factored \(MFA\) serving.*Queue 1 item 12"),
-    (lambda p, a: serving.EstimationService.from_mfa(p, a, 2),
-     "from_mfa.*Queue 1 item 12"),
+                                            factored=True, mesh=object()),
+     "mesh-backed serving.*Queue 1 item 15"),
+    (lambda p, a: serving.EstimationService.from_mfa(p, a, 2, device="cpu",
+                                                     mesh=object()),
+     "mesh-backed serving.*Queue 1 item 15"),
     (lambda p, a: serving.VaeEstimationService(None, p, None, a),
      "VaeEstimationService.*Queue 1 item 13"),
 ])
@@ -729,3 +731,145 @@ def test_service_needs_a_card_or_an_explicit_device(setup, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serving.EstimationService(params, np.asarray(a), 2)
+
+
+# ---------------------------------------------------------------------------
+# MFA priors: the factored (Woodbury) bank
+# ---------------------------------------------------------------------------
+
+MFA_D, MFA_M, MFA_K = 32, 6, 8
+MFA_X0 = 0.7 - 0.2j
+
+
+@pytest.fixture(scope="module")
+def mfa_setup():
+    """Seeded MFA parameters (numpy, as the JAX tests draw them in
+    `tests/test_mfa_bank.py`) and 256 observations from the mixture, 2-bit
+    at 10 dB under x0 I."""
+    from quantized_channel_estimation_tpu.models import mfa as jmfa
+    rng = np.random.default_rng(7)
+
+    def cr(*shape):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)) / np.sqrt(2)
+
+    lam = (0.5 * cr(MFA_K, MFA_D, MFA_M)).astype(np.complex64)
+    psis = (0.1 + rng.uniform(size=(MFA_K, MFA_D))).astype(np.float32)
+    means = (0.3 * cr(MFA_K, MFA_D)).astype(np.complex64)
+    w = (rng.uniform(size=MFA_K) + 0.1).astype(np.float32)
+    params = (w / w.sum(), means, lam, psis)
+    comp = rng.integers(0, MFA_K, 256)
+    h = (means[comp] + np.einsum("ndm,nm->nd", lam[comp], cr(256, MFA_M))
+         + np.sqrt(psis[comp]) * cr(256, MFA_D))
+    y = (MFA_X0 * h + np.sqrt(0.1) * cr(256, MFA_D)).astype(np.complex64)
+    r = np.array(jq.quantize(jnp.asarray(y), 2, jq.design_quantizer(10.0,
+                                                                    2)))
+    return params, jmfa.MfaParams(*(jnp.asarray(x) for x in params)), r
+
+
+def _jax_factored(jparams, r, mode="all", alpha=None):
+    from quantized_channel_estimation_tpu.models import mfa_bank as jmb
+    bank = jmb.prepare_bank_factored(jparams, 10.0, MFA_X0, 2,
+                                     jq.design_quantizer(10.0, 2))
+    if r.ndim == 3:
+        return np.asarray(jmb.estimate_factored_coherent(
+            bank, jnp.asarray(r), mode, 1024, alpha, "xla"))
+    return np.asarray(jmb.estimate_factored(bank, jnp.asarray(r), mode,
+                                            4096, "xla"))
+
+
+def test_from_mfa_serves_the_factored_bank(mfa_setup):
+    """`from_mfa` defaults to the factored bank for n-bit under x0 I and
+    serves the JAX factored estimate (and the JAX dense one) to atol
+    1e-4, flat requests through the plain K11, its layout lowered once."""
+    from quantized_channel_estimation_tpu.models import mfa as jmfa
+    params, jparams, r = mfa_setup
+    svc = serving.EstimationService.from_mfa(params, MFA_X0, 2,
+                                             max_delay_ms=1.0, device="cpu")
+    try:
+        assert svc.factored and svc.use_kernels
+        got = svc.submit(r[:64], 10.0, timeout=TIMEOUT)
+        np.testing.assert_allclose(got, _jax_factored(jparams, r[:64]),
+                                   atol=1e-4)
+        a = jnp.asarray(MFA_X0, jnp.complex64) * jnp.eye(MFA_D,
+                                                         dtype=jnp.complex64)
+        dense = jge.prepare_bank(jmfa.to_gmm_params(jparams), 10.0, a, 2,
+                                 jq.design_quantizer(10.0, 2))
+        np.testing.assert_allclose(
+            got, np.asarray(jge.estimate(dense, jnp.asarray(r[:64]), "all")),
+            atol=1e-4)
+        svc.submit(r[64:96], 10.0, timeout=TIMEOUT)
+        entry = svc._banks[svc._snap(10.0)]
+        assert isinstance(entry.bank, tmb.FactoredBank)
+        assert set(entry.lowered) == {(1, 1.0)}
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.25])
+def test_from_mfa_serves_coherent_blocks(mfa_setup, alpha):
+    params, jparams, r = mfa_setup
+    rb = r[:64].reshape(16, 4, MFA_D)
+    svc = serving.EstimationService.from_mfa(
+        params, MFA_X0, 2, max_delay_ms=1.0, coherence_alpha=alpha,
+        device="cpu")
+    try:
+        got = svc.submit(rb, 10.0, timeout=TIMEOUT)
+        np.testing.assert_allclose(got, _jax_factored(jparams, rb,
+                                                      alpha=alpha),
+                                   atol=1e-4)
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+@pytest.mark.parametrize("mode,use_kernels", [(1, None), (0.9, False),
+                                              ("all", False)])
+def test_factored_service_pipeline_modes(mfa_setup, mode, use_kernels):
+    """Selection modes (and use_kernels=False) take the `torch.matmul`
+    pipeline; the answers are the JAX pipeline's."""
+    params, jparams, r = mfa_setup
+    svc = serving.EstimationService(
+        params, MFA_X0, 2, factored=True, mode=mode, use_kernels=use_kernels,
+        max_delay_ms=1.0, device="cpu")
+    try:
+        assert not svc.use_kernels
+        got = svc.submit(r[:48], 10.0, timeout=TIMEOUT)
+        np.testing.assert_allclose(got, _jax_factored(jparams, r[:48], mode),
+                                   atol=1e-4)
+        assert not svc._banks[svc._snap(10.0)].lowered   # no kernel layout
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+def test_factored_service_refusals_and_dense_fallback(mfa_setup,
+                                                      monkeypatch):
+    """1-bit with factored=True and a pilot other than x0 I are refused at
+    construction; `from_mfa` falls back to the dense bank for either;
+    use_kernels=True with a selection mode is refused; no card and no
+    device raises."""
+    params, _, r = mfa_setup
+    with pytest.raises(ValueError, match="1-bit"):
+        serving.EstimationService(params, MFA_X0, 1, factored=True,
+                                  device="cpu")
+    with pytest.raises(ValueError, match="x0"):
+        serving.EstimationService(params, np.ones((MFA_D, MFA_D)), 2,
+                                  factored=True, device="cpu")
+    with pytest.raises(ValueError, match="mode='all'"):
+        serving.EstimationService(params, MFA_X0, 2, factored=True, mode=1,
+                                  use_kernels=True, device="cpu")
+    for n_bits, a in ((1, MFA_X0), (2, np.diag(np.arange(1.0, MFA_D + 1)))):
+        svc = serving.EstimationService.from_mfa(
+            params, a, n_bits, max_delay_ms=1.0, device="cpu")
+        try:
+            assert not svc.factored
+            out = svc.submit(r[:16], 10.0, timeout=TIMEOUT)
+            assert out.shape == (16, MFA_D) and np.isfinite(out).all()
+        finally:
+            svc.close(timeout=TIMEOUT)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.EstimationService.from_mfa(params, MFA_X0, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.EstimationService.from_mfa(params, MFA_X0, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.EstimationService(params, MFA_X0, 2, factored=True)
