@@ -32,7 +32,21 @@ Phases (any failure exits non-zero; nothing is caught):
      and K13 at N = 131072, the main path's N and a ragged N, K12 for T = 4
      at alpha in {1, 0.25, 0}, T = 16 and a ragged block count, the edges
      M = 6 and D = 32, and K13 as a two-shard split merged with
-     `merge_stats` against K11. Where float32 sums in
+     `merge_stats` against K11; the split-K kernels of the mesh path: K2
+     on the whole bank and on two and four component shards, with dead
+     components and a ragged N, and on the two 128-component shards of a
+     K = 256 bank, its coherent form at T = 4 for alpha in {1, 0.5}, each
+     shard's (m, den, acc) against the plain version and the shards merged
+     with `merge_stats` against one K1 / K3 launch (to 1e-5 of the scale),
+     and K5 for k in {1, 4} (and k = 4 with dead components at a ragged N)
+     on two shards against the plain version and merged with `merge_topk`
+     against one K4 launch (near-tie rows not compared); fault F1: a dense
+     bank with 2M = 512 (four pilots, D = 64) through
+     `stages.estimate_auto` and `kernels.estimate_fused_coherent` at T = 1
+     against the einsum estimator (to 1e-5, no kernel launched); and the
+     entries the mesh path runs on each rank (K8, K9, K13) on two
+     in-process shards, merged, against the unsharded K6 / K7 / K11 stages.
+     Where float32 sums in
      another order push a circulant or factored kernel past TOL of its plain
      version (large T, or K10's one long logit product), both are held
      against the float64 evaluation of the same
@@ -59,10 +73,18 @@ Phases (any failure exits non-zero; nothing is caught):
      (K10 and its coherent form), each held against the `torch.fft`
      pipeline, and `from_mfa` with a seeded MFA prior (D = K = 64, M = 16)
      flat and T=4 blocks (K11, K12), held against the `torch.matmul`
-     pipeline; with its throughput, latency and `metrics()`;
+     pipeline; with its throughput, latency and `metrics()`; then the mesh
+     path at world size 1: a one-rank NCCL group and a (1, 1) mesh,
+     `ShardedStages.gmm_fit` at the `run_gmm` defaults against `gmm.fit`
+     from the same generator (lower bound per iteration to rtol 2e-5) and
+     `estimate_sharded_kernel` (flat, T = 4 blocks),
+     `estimate_sharded_circulant` and `estimate_sharded_factored` (each
+     flat and T = 4 blocks) and `estimate_sharded` (k = 4) on the headline
+     banks against their single-device stages, launching K2, K5, K8, K9
+     and K13;
   4. CUDA-event times of each kernel, its plain version and a library
-     yardstick at the headline shapes (K11-K13 at M = 16), beside the
-     least time the card could take;
+     yardstick at the headline shapes (K11-K13 at M = 16; K2 also on one
+     32-component shard), beside the least time the card could take;
 then one JSON line of kernels, one of the main paths' results, one of the
 serving phase, the card line, and the final status line. It imports nothing
 of JAX and uses one card.
@@ -102,26 +124,27 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def bench_bank(dev, n_dead=0):
+def bench_bank(dev, n_dead=0, k=K, n_pilots=1):
     """A random full-covariance zero-mean GMM bank as the headline
-    benchmark builds it: K covariances A A^H / D + I scaled to trace D,
-    uniform weights (n_dead of them pushed below the dead floor)."""
+    benchmark builds it: k covariances A A^H / D + I scaled to trace D,
+    uniform weights (n_dead of them pushed below the dead floor), under
+    the n_pilots-pilot matrix of `pilots.pilot_matrix`."""
     from quantized_channel_estimation_torch.models import gmm, gmm_estimator
     from quantized_channel_estimation_torch.ops import linalg, pilots
     from quantized_channel_estimation_torch.ops import quantizer as Q
     from quantized_channel_estimation_torch.ops.cplx import crandn
     gen = torch.Generator(device=dev).manual_seed(0)
-    a = crandn(gen, (K, D, D))
+    a = crandn(gen, (k, D, D))
     covs = a @ a.mH / D + torch.eye(D, dtype=a.dtype, device=dev)
     tr = torch.diagonal(covs, dim1=-2, dim2=-1).real.sum(-1)
     covs = covs * (D / tr)[:, None, None]
-    w = torch.full((K,), 1.0 / K, device=dev)
+    w = torch.full((k,), 1.0 / k, device=dev)
     w[:n_dead] = 1e-9
     params = gmm.GmmParams(w / w.sum(),
-                           torch.zeros(K, D, dtype=a.dtype, device=dev),
+                           torch.zeros(k, D, dtype=a.dtype, device=dev),
                            covs, linalg.robust_precision_cholesky(covs))
     q = Q.design_quantizer(SNR, N_BITS).to(dev)
-    a_mat = pilots.pilot_matrix(D, 1, N_BITS, device=dev)
+    a_mat = pilots.pilot_matrix(D, n_pilots, N_BITS, device=dev)
     return gmm_estimator.prepare_bank(params, SNR, a_mat, N_BITS, q), q
 
 
@@ -270,9 +293,20 @@ def near_ties(r2, kb, k_sel):
     return (lg[:, k_sel - 1] - lg[:, k_sel]) < TIE_GAP
 
 
-def compare(name, label, got, want, skip=None):
-    """Max |got - want| over the compared rows, checked against TOL of the
-    output scale; returns the absolute error."""
+def near_order_ties(r2, kb, k_sel):
+    """Rows whose top k_sel + 1 logits hold two within TIE_GAP but not
+    equal: K5 writes its candidates in the order its float32 sums give
+    them. (Dead components sit exactly at the -1e30 floor in both versions
+    and are ordered by index.)"""
+    from quantized_channel_estimation_torch.estimators import kernels
+    lg = kernels.component_logits(r2, kb).sort(-1, descending=True).values
+    gaps = lg[:, :k_sel] - lg[:, 1:k_sel + 1]
+    return ((gaps > 0) & (gaps < TIE_GAP)).any(-1)
+
+
+def compare(name, label, got, want, skip=None, tol=TOL):
+    """Max |got - want| over the compared rows, checked against `tol` of
+    the output scale; returns the absolute error."""
     torch.cuda.synchronize()
     diff = (got - want).abs()
     n_skip = 0 if skip is None else int(skip.sum())
@@ -281,10 +315,10 @@ def compare(name, label, got, want, skip=None):
     abs_err = float(diff.max())
     rel = abs_err / float(want.abs().max())
     log(f"{name} vs plain [{label}, N={got.shape[0]}]: max abs "
-        f"{abs_err:.3e}, max rel {rel:.3e} (tol {TOL})"
+        f"{abs_err:.3e}, max rel {rel:.3e} (tol {tol})"
         + (f", {n_skip} near-tie rows not compared" if skip is not None
            else ""))
-    if not (rel <= TOL and torch.isfinite(got).all()):
+    if not (rel <= tol and torch.isfinite(got).all()):
         raise AssertionError(f"{name} disagrees with its plain version "
                              f"({label}): {rel:.3e}")
     return abs_err
@@ -731,6 +765,148 @@ def main():
         check_fact_stats(label, wbank, xw[:20001], whole)
         check_fact(label + ", T=4, alpha=0.25", wbank, xw, 4, 0.25)
 
+    # 2e. the split-K kernels of the mesh path: K2 (K1's and K3's
+    # un-normalised state) and K5 (K4's candidates), each shard's output
+    # against its plain version and the shards merged against one K1 / K3 /
+    # K4 launch over the whole bank
+    def shards_of(kb_c, parts):
+        k_c = kb_c.pw.shape[0] // parts
+        return [type(kb_c)(*(x[i * k_c:(i + 1) * k_c] for x in kb_c))
+                for i in range(parts)]
+
+    def check_k2(label, kb_c, rows, parts, whole, t=1, alpha=1.0):
+        """K2 (t = 1) or its coherent form on `parts` component shards of
+        kb_c: each state against the plain version, the merged quotient
+        against `whole` (one K1 / K3 launch) to 1e-5 of its scale."""
+        if t == 1:
+            name = "grouped_estimate_stats"
+            launch = kernels.grouped_estimate_stats
+            plain, args = kernels.grouped_estimate_stats_reference, ()
+        else:
+            name = "grouped_estimate_coherent_stats"
+            launch = kernels.grouped_estimate_coherent_stats
+            plain = kernels.grouped_estimate_coherent_stats_reference
+            args = (t, alpha)
+        states = []
+        for i, shard in enumerate(shards_of(kb_c, parts)):
+            got = launch(rows, shard, *args)
+            for part, g, w in zip(("m", "den", "acc"), got,
+                                  plain(rows, shard, *args)):
+                errs[name].append(compare(
+                    name, f"{label}, shard {i + 1}/{parts}, {part}",
+                    g.reshape(g.shape[0], -1), w.reshape(w.shape[0], -1)))
+            states.append(got)
+        _, den, acc = kernels.merge_stats(*zip(*states))
+        compare(name, f"{label}, {parts} shards merged vs one launch",
+                acc / den[:, None], whole, tol=1e-5)
+
+    def check_k5(label, kb_c, rows, k_sel, parts=2):
+        """K5 on `parts` component shards of kb_c: the candidates against
+        the plain version (rows with near-ties among the top k + 1 logits
+        not compared), and merged with `merge_topk` against one K4 launch
+        (rows near a tie at the k-th place not compared)."""
+        name = "grouped_estimate_topk_stats"
+        cands = []
+        for i, shard in enumerate(shards_of(kb_c, parts)):
+            l, z = kernels.grouped_estimate_topk_stats(rows, shard, k_sel)
+            l_p, z_p = kernels.grouped_estimate_topk_stats_reference(
+                rows, shard, k_sel)
+            skip = near_order_ties(rows, shard, k_sel)
+            errs[name].append(compare(name, f"{label}, shard {i + 1}/{parts}"
+                                      ", logits", l, l_p, skip))
+            errs[name].append(compare(
+                name, f"{label}, shard {i + 1}/{parts}, estimates",
+                z.reshape(z.shape[0], -1), z_p.reshape(z_p.shape[0], -1),
+                skip))
+            cands.append((l, z))
+        compare(name, f"{label}, {parts} shards merged vs one K4 launch",
+                kernels.merge_topk(*zip(*cands), k_sel),
+                kernels.grouped_estimate_topk(rows, kb_c, k_sel),
+                near_ties(rows, kb_c, k_sel))
+
+    one_k1 = kernels.grouped_estimate(r2, kb)
+    for parts in (1, 2, 4):
+        check_k2("full", kb, r2, parts, one_k1)
+    check_k2("dead, ragged", kernels.kernel_bank_block(dead_bank), r2[:8191],
+             2, kernels.grouped_estimate(r2[:8191],
+                                         kernels.kernel_bank_block(dead_bank)))
+    # the 128-component shards of a K = 256 bank (the widest a shard of the
+    # served K = 256 prior is); one K1 launch streams all 256
+    kb_wide = kernels.kernel_bank_block(bench_bank(dev, k=K_WIDE)[0])
+    check_k2(f"K={K_WIDE}", kb_wide, r2, 2, kernels.grouped_estimate(r2,
+                                                                     kb_wide))
+    del kb_wide
+    for alpha in (1.0, 0.5):
+        kb_t = kernels.kernel_bank_block(bank, 4, alpha)
+        check_k2(f"T=4, alpha={alpha}", kb_t, r2, 2,
+                 kernels.grouped_estimate_coherent(r2, kb_t, 4, alpha), 4,
+                 alpha)
+    for k_sel in (1, 4):
+        check_k5(f"k={k_sel}", kb, r2, k_sel)
+    check_k5("dead, ragged, k=4", kernels.kernel_bank_block(dead_bank),
+             r2[:10001], 4)
+
+    # 2f. fault F1: a dense bank past the kernels' widths (four pilots at
+    # D = 64, so 2M = 512) through the stages takes the einsum estimator
+    # instead of raising in K1
+    wide_bank = bench_bank(dev, n_pilots=4)[0]
+    a4 = pilots.pilot_matrix(D, 4, N_BITS, device=dev)
+    g4 = torch.Generator(device=dev).manual_seed(2)
+    from quantized_channel_estimation_torch.ops.cplx import crandn
+    r_wide = observation.observe(g4, crandn(g4, (8192, D)), SNR, a4, N_BITS,
+                                 q)
+    before = kernels.launch_counts()
+    want_wide = gmm_estimator.estimate(wide_bank, r_wide, "all")
+    f1 = {}
+    for label, got in (
+            ("stages.estimate_auto", stages.estimate_auto(wide_bank, r_wide,
+                                                          "all")),
+            ("kernels.estimate_fused_coherent, T=1",
+             kernels.estimate_fused_coherent(wide_bank,
+                                             r_wide[:, None])[:, 0])):
+        torch.cuda.synchronize()
+        f1[label] = float((got - want_wide).abs().max()
+                          / want_wide.abs().max())
+        log(f"F1: {label} on a dense bank with 2M = {2 * r_wide.shape[1]}, "
+            f"N={r_wide.shape[0]}: max rel {f1[label]:.3e} against the "
+            "einsum estimator (tol 1e-5)")
+        if not (f1[label] <= 1e-5 and torch.isfinite(got.abs()).all()):
+            raise AssertionError(f"F1: {label} off the einsum estimator")
+    if kernels.launch_counts() != before:
+        raise AssertionError("F1: a kernel was launched past its widths")
+    del wide_bank, r_wide, want_wide
+
+    # 2g. in-process component shards through the entries the mesh path
+    # runs on each rank: K8 / K9 and K13 on two shards, merged, against the
+    # unsharded K6 / K7 / K11 stages
+    def halves_of(bank_c):
+        k_c = bank_c[0].shape[0] // 2
+        return [type(bank_c)(*(x[lo:lo + k_c] for x in bank_c))
+                for lo in (0, k_c)]
+
+    def quotient(states):
+        _, den, acc = kernels.merge_stats(*zip(*states))
+        return acc / den.reshape(den.shape + (1,) * (acc.dim() - den.dim()))
+
+    rb_c = r.reshape(-1, 4, D)
+    in_process = {
+        "K8 vs K6": (structured_bank.unitary_ifft(quotient(
+            [ck.estimate_fused_circulant_stats(h, r)
+             for h in halves_of(cbank)])),
+            stages.estimate_circulant(cbank, r)),
+        "K9 vs K7 (T=4, alpha=1)": (structured_bank.unitary_ifft(quotient(
+            [ck.estimate_fused_circulant_coherent_stats(h, rb_c, 1.0)
+             for h in halves_of(cbank)])),
+            stages.estimate_circulant_coherent(cbank, rb_c, "all", 1.0)),
+        "K13 vs K11": (quotient([fk.estimate_fused_factored_stats(h, r_f)
+                                 for h in halves_of(fbank)]),
+                       stages.estimate_factored(fbank, r_f)),
+    }
+    for label, (got, want) in in_process.items():
+        compare("two in-process shards", label, ck._x2(got.reshape(-1, D)),
+                ck._x2(want.reshape(-1, D)))
+    del in_process
+
     # 3. the main paths, each with its own launch counts
     total_launches = dict.fromkeys(errs, 0)
 
@@ -1071,6 +1247,110 @@ def main():
         finally:
             svc.close(timeout=120.0)
 
+    # 3b. the mesh path at world size 1: a one-rank NCCL group (a file
+    # store in a temporary directory) and a (1, 1) (data, component) mesh.
+    # The data-parallel GMM fit at the `run_gmm` defaults against the
+    # single-device fit from the same generator, and the sharded estimators
+    # on the headline banks against their single-device stages; the
+    # single-device results are made first, so the launch counts read
+    # around the mesh calls are the mesh path's alone.
+    import torch.distributed as dist
+    from quantized_channel_estimation_torch.models import gmm
+    from quantized_channel_estimation_torch.parallel import mesh as pmesh
+    cfg_g = run_gmm.GmmBenchConfig(use_cache=False)
+    s_data, s_gmm, _ = np.random.SeedSequence(cfg_g.seed).spawn(3)
+    h_all, _ = run_gmm._get_data(cfg_g, run_gmm._generator(s_data, dev))
+    h_fit = h_all[:cfg_g.n_train]
+    del h_all
+    gcfg = gmm.GmmConfig(n_components=cfg_g.n_components,
+                         cov_type=cfg_g.cov_type, blocks=cfg_g.blocks,
+                         zero_mean=cfg_g.zero_mean_gmm,
+                         max_iter=cfg_g.gmm_max_iter)
+    tm = time.time()
+    fit_one = stages.gmm_fit(run_gmm._generator(s_gmm, dev), h_fit, gcfg)
+    torch.cuda.synchronize()
+    fit_one_s = time.time() - tm
+    rb_d = r.reshape(-1, 4, D)
+    rb_f = r_f.reshape(-1, 4, D)
+    mesh_cases = {   # name: (mesh call, single-device stage, near-tie rows)
+        "estimate_sharded_kernel": (
+            lambda m: pmesh.estimate_sharded_kernel(m, bank, r),
+            stages.estimate_auto(bank, r, "all"), None),
+        "estimate_sharded_kernel, T=4 blocks": (
+            lambda m: pmesh.estimate_sharded_kernel(m, bank, rb_d),
+            stages.estimate_coherent_auto(bank, rb_d, "all", 1.0), None),
+        "estimate_sharded_circulant": (
+            lambda m: pmesh.estimate_sharded_circulant(m, cbank, r),
+            stages.estimate_circulant(cbank, r), None),
+        "estimate_sharded_circulant, T=4 blocks": (
+            lambda m: pmesh.estimate_sharded_circulant(m, cbank, rb_d),
+            stages.estimate_circulant_coherent(cbank, rb_d, "all", 1.0),
+            None),
+        "estimate_sharded_factored": (
+            lambda m: pmesh.estimate_sharded_factored(m, fbank, r_f),
+            stages.estimate_factored(fbank, r_f), None),
+        "estimate_sharded_factored, T=4 blocks": (
+            lambda m: pmesh.estimate_sharded_factored(m, fbank, rb_f),
+            stages.estimate_factored_coherent(fbank, rb_f), None),
+        "estimate_sharded, k=4": (
+            lambda m: pmesh.estimate_sharded(m, bank, r, 4),
+            stages.estimate_auto(bank, r, 4), near_ties(r2, kb, 4)),
+    }
+    torch.cuda.synchronize()
+    mesh_rec = {"gmm_fit_single_s": fit_one_s, "max_abs_err": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = pmesh.make_mesh(1, 1)
+            sharded = stages.ShardedStages(mesh)
+            # NCCL builds its communicator at the first collective: outside
+            # the timed fit
+            dist.all_reduce(torch.zeros(1, device=dev))
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            tm = time.time()
+            fit_dp = sharded.gmm_fit(run_gmm._generator(s_gmm, dev), h_fit,
+                                     gcfg)
+            torch.cuda.synchronize()
+            mesh_rec["gmm_fit_mesh_s"] = time.time() - tm
+            tm = time.time()
+            mesh_out = {name: call(mesh)
+                        for name, (call, _, _) in mesh_cases.items()}
+            torch.cuda.synchronize()
+            mesh_rec["estimates_s"] = time.time() - tm
+            launches_mesh = kernels.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    add(launches_mesh)
+    lb_dp = np.asarray(fit_dp.lb_history)
+    lb_one = np.asarray(fit_one.lb_history)
+    log(f"mesh (1, 1), NCCL: GMM fit at the run_gmm defaults (N="
+        f"{h_fit.shape[0]}, D={D}, K={cfg_g.n_components}) "
+        f"{len(lb_dp)} iterations in {mesh_rec['gmm_fit_mesh_s']:.1f}s "
+        f"(single device: {len(lb_one)} in {fit_one_s:.1f}s)")
+    if lb_dp.shape != lb_one.shape or not np.allclose(lb_dp, lb_one,
+                                                     rtol=2e-5, atol=0):
+        raise AssertionError(f"mesh GMM fit off the single-device fit: "
+                             f"{lb_dp} vs {lb_one}")
+    mesh_rec["gmm_fit_iters"] = int(len(lb_dp))
+    mesh_rec["gmm_lb_max_rel"] = float(np.max(np.abs(lb_dp - lb_one)
+                                              / np.abs(lb_one)))
+    for name, (_, want, skip) in mesh_cases.items():
+        got = mesh_out[name]
+        mesh_rec["max_abs_err"][name] = compare(
+            "mesh (1, 1)", f"{name} vs the single-device stage",
+            ck._x2(got.reshape(-1, D)), ck._x2(want.reshape(-1, D)), skip)
+    mesh_rec["launches"] = launches_mesh
+    log(f"mesh path launches {launches_mesh}")
+    for name in ("grouped_estimate_stats", "grouped_estimate_coherent_stats",
+                 "grouped_estimate_topk_stats", "circ_estimate_stats",
+                 "circ_estimate_coherent_stats", "fact_estimate_stats"):
+        if launches_mesh[name] < 1:
+            raise AssertionError(f"the mesh path did not launch {name}")
+    del h_fit, mesh_out, mesh_cases
+
     # 4. times at the headline benchmark's shapes
     n, two_m = r2.shape
     _, _, s_cols = kb.pw.shape
@@ -1247,6 +1527,37 @@ def main():
                 fact_flops, fact_bytes + 8.0 * n,
                 lambda: mfa_bank.estimate_factored_stats(fbank, r_f))
 
+    # K2: K1's work and bytes plus m and den written (8 bytes a row); on one
+    # 32-component shard half the bank's work and bytes. K5: K4's work; its
+    # bytes the rows read once, the bank once and k (1 + 2D) floats a row
+    # written. Library yardstick: the GEMM-only torch.matmul, as for K1 / K4.
+    t2 = timed("K2", lambda: kernels.grouped_estimate_stats(r2, kb),
+               lambda: kernels.grouped_estimate_stats_reference(r2, kb), gemm,
+               gemm_flops, nbytes + 8.0 * n)
+    kb32 = type(kb)(*(x[:K // 2] for x in kb))
+    flat32 = kb32.pw.permute(1, 0, 2).reshape(two_m, -1).contiguous()
+    bytes32 = 4.0 * (n * two_m + n * two_d + 2 * n + sum(
+        x.numel() for x in kb32))
+    t2_32 = timed("K2, one 32-component shard",
+                  lambda: kernels.grouped_estimate_stats(r2, kb32),
+                  lambda: kernels.grouped_estimate_stats_reference(r2, kb32),
+                  lambda: r2 @ flat32, gemm_flops / 2, bytes32)
+    t2c = timed("K2 coherent (T=4, alpha=1)",
+                lambda: kernels.grouped_estimate_coherent_stats(r2, kb3, 4,
+                                                                1.0),
+                lambda: kernels.grouped_estimate_coherent_stats_reference(
+                    r2, kb3, 4, 1.0), gemm, gemm_flops + 3.0 * n * K,
+                nbytes + 8.0 * n)
+    bank_bytes = 4.0 * sum(x.numel() for x in kb)
+    t5 = {k_sel: timed(
+        f"K5 (k={k_sel})",
+        lambda: kernels.grouped_estimate_topk_stats(r2, kb, k_sel),
+        lambda: kernels.grouped_estimate_topk_stats_reference(r2, kb, k_sel),
+        logit_gemm,
+        2.0 * n * two_m * two_m * K + k_sel * 2.0 * n * two_m * two_d,
+        4.0 * n * (two_m + k_sel * (1 + two_d)) + bank_bytes)
+        for k_sel in (1, 4)}
+
     src = "quantized_channel_estimation_torch/csrc/"
     tpu = "quantized_channel_estimation_tpu/estimators/pallas_kernels.py"
     print(json.dumps({"kernels": [
@@ -1259,11 +1570,27 @@ def main():
          "launches": total_launches["grouped_estimate_coherent"],
          "max_abs_err": max(errs["grouped_estimate_coherent"]),
          "t_coh": 4, "coh_alpha": 1.0, **t3, "at_t16": t3_16},
+        {"name": "grouped_estimate_stats", "id": "K2", "route": "cuda",
+         "source": src + "grouped_estimate.cu", "replaces": f"{tpu}:454",
+         "launches": total_launches["grouped_estimate_stats"],
+         "max_abs_err": max(errs["grouped_estimate_stats"]), **t2,
+         "at_shard_k32": t2_32},
+        {"name": "grouped_estimate_coherent_stats", "id": "K2_coh",
+         "route": "cuda", "source": src + "grouped_estimate.cu",
+         "replaces": f"{tpu}:454",
+         "launches": total_launches["grouped_estimate_coherent_stats"],
+         "max_abs_err": max(errs["grouped_estimate_coherent_stats"]),
+         "t_coh": 4, "coh_alpha": 1.0, **t2c},
         {"name": "grouped_estimate_topk", "id": "K4", "route": "cuda",
          "source": src + "grouped_topk.cu", "replaces": f"{tpu}:568",
          "launches": total_launches["grouped_estimate_topk"],
          "max_abs_err": max(errs["grouped_estimate_topk"]),
          "k_sel": 1, **t4[1], "at_k4": t4[4]},
+        {"name": "grouped_estimate_topk_stats", "id": "K5", "route": "cuda",
+         "source": src + "grouped_topk.cu", "replaces": f"{tpu}:677",
+         "launches": total_launches["grouped_estimate_topk_stats"],
+         "max_abs_err": max(errs["grouped_estimate_topk_stats"]),
+         "k_sel": 1, **t5[1], "at_k4": t5[4]},
         {"name": "circ_estimate", "id": "K6", "route": "cuda",
          "source": src + "circ_estimate.cu", "replaces": f"{tpu}:1309",
          "launches": total_launches["circ_estimate"],
@@ -1332,6 +1659,7 @@ def main():
         "run_mfa_n_coherence_4": {
             "mse": mse_fc, "rate": rate_fc, "seconds": mfa_coh_s,
             "timings": timings_fc, "launches": launches_fc},
+        "mesh_world_size_1": mesh_rec, "f1_rel_to_einsum": f1,
         "total_seconds": time.time() - t0}}))
     print(json.dumps({"serving": serve}))
     print(card)

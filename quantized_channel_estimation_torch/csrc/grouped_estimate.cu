@@ -1,11 +1,17 @@
-// Grouped online-softmax GMM-Bussgang estimator for Hopper: kernel K1 and
-// its coherent (block-pooled) mode K3, one stream for both.
+// Grouped online-softmax GMM-Bussgang estimator for Hopper: kernel K1, its
+// coherent (block-pooled) mode K3, and their split-K stats form K2, one
+// stream for all three.
 //
 // Replaces the TPU kernel `_grouped_stream` + `_estimate_kernel_block_grouped`
 // launched by `estimate_packed_block_grouped`
 // (quantized_channel_estimation_tpu/estimators/pallas_kernels.py:327, :419,
 // :476), flat (K1) and with `t_coh > 1`, `coh_alpha` (K3, entry
-// `estimate_fused_coherent` :1151). Per row n of r2 = [Re r | Im r]
+// `estimate_fused_coherent` :1151), and `_estimate_kernel_block_grouped_stats`
+// launched by `estimate_packed_block_grouped_stats` (:454, :857; K2, flat and
+// coherent): the STATS form writes each row's running max m, denominator den
+// and un-normalised accumulator acc in place of acc / den, so the states of
+// disjoint component shards merge exactly (m* = max m, den* and acc* the
+// exp(m - m*)-weighted sums). Per row n of r2 = [Re r | Im r]
 // (N x 2M) and component k, with yz_k = r2 @ pw_k (pw_k = [P_k | W_k] in
 // the real 2x2 block embedding):
 //
@@ -44,7 +50,8 @@
 //     component against the two per pipeline stage. T is at most the tile's
 //     8 RPW rows (64 for 2M, 2D <= 128, else 32);
 //   - online-softmax update of the per-row accumulator in registers;
-//   - the ragged last tile is masked in the kernel (no padding copy).
+//   - the ragged last tile is masked in the kernel (no padding copy);
+//   - STATS writes two floats a row more than K1 and skips the division.
 // Any N and K, 2M and 2D up to 256.
 #include "stream_common.cuh"
 
@@ -52,14 +59,16 @@ namespace {
 
 using namespace qce;
 
-template <int CP, int CW, int RPW, bool COH>
+template <int CP, int CW, int RPW, bool COH, bool STATS>
 __global__ void __launch_bounds__(kThreads)
     grouped_estimate_kernel(const float* __restrict__ r2,
                             const float* __restrict__ pw,
                             const float* __restrict__ mu,
                             const float* __restrict__ b,
                             const float* __restrict__ logw,
-                            float* __restrict__ out, int n, int k_comp,
+                            float* __restrict__ out,
+                            float* __restrict__ m_out,
+                            float* __restrict__ den_out, int n, int k_comp,
                             int two_m, int two_d, int vec, int t_coh,
                             float coh_alpha) {
   constexpr int kTileN = kWarps * RPW;
@@ -237,16 +246,23 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < CW; ++j) {
         const int c = lane + 32 * j;
-        if (c < two_d) out[(size_t)row * two_d + c] = acc[i][j] / den[i];
+        if (c < two_d)
+          out[(size_t)row * two_d + c] =
+              STATS ? acc[i][j] : acc[i][j] / den[i];
+      }
+      if (STATS && lane == 0) {  // every lane holds the row's m and den
+        m_out[row] = m_run[i];
+        den_out[row] = den[i];
       }
     }
   }
 }
 
-template <int CP, int CW, int RPW, bool COH>
+template <int CP, int CW, int RPW, bool COH, bool STATS>
 int launch(const float* r2, const float* pw, const float* mu, const float* b,
-           const float* logw, float* out, int n, int k_comp, int two_m,
-           int two_d, int t_coh, float coh_alpha, cudaStream_t stream) {
+           const float* logw, float* out, float* m_out, float* den_out, int n,
+           int k_comp, int two_m, int two_d, int t_coh, float coh_alpha,
+           cudaStream_t stream) {
   constexpr int kTileN = kWarps * RPW;
   if (COH && t_coh > kTileN) return (int)cudaErrorInvalidValue;
   const int s_cols = two_m + two_d;
@@ -256,24 +272,25 @@ int launch(const float* r2, const float* pw, const float* mu, const float* b,
                        (COH ? kTileN : 0));
   const int vec = (s_cols % 4 == 0) &&
                   (reinterpret_cast<uintptr_t>(pw) % 16 == 0);
-  auto kern = grouped_estimate_kernel<CP, CW, RPW, COH>;
+  auto kern = grouped_estimate_kernel<CP, CW, RPW, COH, STATS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int tile_rows = COH ? (kTileN / t_coh) * t_coh : kTileN;
   const int grid = (n + tile_rows - 1) / tile_rows;
-  kern<<<grid, kThreads, smem, stream>>>(r2, pw, mu, b, logw, out, n, k_comp,
-                                         two_m, two_d, vec, t_coh, coh_alpha);
+  kern<<<grid, kThreads, smem, stream>>>(r2, pw, mu, b, logw, out, m_out,
+                                         den_out, n, k_comp, two_m, two_d, vec,
+                                         t_coh, coh_alpha);
   return (int)cudaGetLastError();
 }
 
 // The instantiation for the widths: RPW = 8 rows a warp while both widths
 // are at most 128 (4 columns a lane), else 4 (kernels.tile_rows mirrors it).
-template <bool COH>
+template <bool COH, bool STATS>
 int dispatch(const float* r2, const float* pw, const float* mu,
-             const float* b, const float* logw, float* out, int n,
-             int k_comp, int two_m, int two_d, int t_coh, float coh_alpha,
-             void* stream) {
+             const float* b, const float* logw, float* out, float* m_out,
+             float* den_out, int n, int k_comp, int two_m, int two_d,
+             int t_coh, float coh_alpha, void* stream) {
   if (n < 0 || k_comp < 1 || two_m < 1 || two_m > 256 || two_d < 1 ||
       two_d > 256)
     return (int)cudaErrorInvalidValue;
@@ -282,8 +299,9 @@ int dispatch(const float* r2, const float* pw, const float* mu,
   const int cp = cols_per_lane(two_m), cw = cols_per_lane(two_d);
 #define QCE_LAUNCH(CP_, CW_, RPW_)                                        \
   if (cp == CP_ && cw == CW_)                                             \
-    return launch<CP_, CW_, RPW_, COH>(r2, pw, mu, b, logw, out, n, k_comp, \
-                                       two_m, two_d, t_coh, coh_alpha, s);
+    return launch<CP_, CW_, RPW_, COH, STATS>(                            \
+        r2, pw, mu, b, logw, out, m_out, den_out, n, k_comp, two_m, two_d, \
+        t_coh, coh_alpha, s);
   QCE_LAUNCH(2, 2, 8)
   QCE_LAUNCH(2, 4, 8)
   QCE_LAUNCH(4, 2, 8)
@@ -308,8 +326,8 @@ extern "C" int grouped_estimate_launch(const float* r2, const float* pw,
                                        const float* logw, float* out, int n,
                                        int k_comp, int two_m, int two_d,
                                        void* stream) {
-  return dispatch<false>(r2, pw, mu, b, logw, out, n, k_comp, two_m, two_d,
-                         1, 1.f, stream);
+  return dispatch<false, false>(r2, pw, mu, b, logw, out, nullptr, nullptr, n,
+                                k_comp, two_m, two_d, 1, 1.f, stream);
 }
 
 // K3: r2 (n, two_m) holds n / t_coh blocks of t_coh consecutive rows;
@@ -319,6 +337,25 @@ extern "C" int grouped_estimate_coherent_launch(
     const float* logw, float* out, int n, int k_comp, int two_m, int two_d,
     int t_coh, float coh_alpha, void* stream) {
   if (t_coh < 2 || n % t_coh != 0) return (int)cudaErrorInvalidValue;
-  return dispatch<true>(r2, pw, mu, b, logw, out, n, k_comp, two_m, two_d,
-                        t_coh, coh_alpha, stream);
+  return dispatch<true, false>(r2, pw, mu, b, logw, out, nullptr, nullptr, n,
+                               k_comp, two_m, two_d, t_coh, coh_alpha, stream);
+}
+
+// K2: r2 (n, two_m) -> the K1 state m (n), den (n), acc (n, two_d).
+extern "C" int grouped_estimate_stats_launch(
+    const float* r2, const float* pw, const float* mu, const float* b,
+    const float* logw, float* acc, float* m, float* den, int n, int k_comp,
+    int two_m, int two_d, void* stream) {
+  return dispatch<false, true>(r2, pw, mu, b, logw, acc, m, den, n, k_comp,
+                               two_m, two_d, 1, 1.f, stream);
+}
+
+// K2, coherent: the K3 state per row of n / t_coh blocks of t_coh rows.
+extern "C" int grouped_estimate_coherent_stats_launch(
+    const float* r2, const float* pw, const float* mu, const float* b,
+    const float* logw, float* acc, float* m, float* den, int n, int k_comp,
+    int two_m, int two_d, int t_coh, float coh_alpha, void* stream) {
+  if (t_coh < 2 || n % t_coh != 0) return (int)cudaErrorInvalidValue;
+  return dispatch<true, true>(r2, pw, mu, b, logw, acc, m, den, n, k_comp,
+                              two_m, two_d, t_coh, coh_alpha, stream);
 }

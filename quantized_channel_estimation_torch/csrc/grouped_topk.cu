@@ -1,10 +1,18 @@
-// Top-k selection GMM-Bussgang estimator (kernel K4) for Hopper.
+// Top-k selection GMM-Bussgang estimator (kernel K4) and its split-K stats
+// form (kernel K5) for Hopper.
 //
 // Replaces the TPU kernel `_grouped_stream_topk` +
 // `_estimate_kernel_block_grouped_topk` launched by
 // `estimate_packed_block_grouped_topk`
 // (quantized_channel_estimation_tpu/estimators/pallas_kernels.py:568, :611,
-// :633; entry `estimate_fused_topk` :809). Per row n of r2 = [Re r | Im r]
+// :633; entry `estimate_fused_topk` :809), and
+// `_estimate_kernel_block_grouped_topk_stats` launched by
+// `estimate_packed_block_grouped_topk_stats` (:677, :695; K5). The STATS form
+// writes the shard's candidates instead of combining them: per row the
+// selected logits lg_nj (n, k_sel), sorted descending, and estimates
+// r2_n W_j + b_j (n, k_sel, 2D); slots past the shard's K hold -inf and
+// zeros. The top-k of a union is the top-k of the shards' top-k's, so
+// `merge_topk` merges shards exactly. Per row n of r2 = [Re r | Im r]
 // (N x 2M), with the logits lg_nk = logw_k - |r2_n P_k - mu_k|^2 and S_n
 // the k_sel components of largest logit (ties keep the lower index):
 //
@@ -34,7 +42,9 @@
 // bytes ~0.1 GB (0.03 ms): bound by fp32 FMA throughput. Streaming the whole
 // [P | W] bank as the TPU kernel does could not go below 8.2 ms. The
 // epilogue's W reads are k_sel 2M 2D floats a row from L2, not HBM.
-// Any N, K, 1 <= k_sel <= min(8, K), 2M and 2D up to 256.
+// K5 writes k_sel (1 + 2D) floats a row (0.27 GB at k_sel = 4, 0.08 ms) in
+// place of K4's 2D. Any N, K, 1 <= k_sel <= min(8, K) (K5: 1 <= k_sel <= 8,
+// any K), 2M and 2D up to 256.
 #include "stream_common.cuh"
 
 namespace {
@@ -45,14 +55,16 @@ constexpr int kRpw = 8;         // rows a warp
 constexpr int kTileN = kWarps * kRpw;
 constexpr int kSlots = 8;       // TOPK_KERNEL_MAX
 
-template <int CP, int CW>
+template <int CP, int CW, bool STATS>
 __global__ void __launch_bounds__(kThreads, 2)
     grouped_topk_kernel(const float* __restrict__ r2,
                         const float* __restrict__ pw,
                         const float* __restrict__ mu,
                         const float* __restrict__ b,
                         const float* __restrict__ logw,
-                        float* __restrict__ out, int n, int k_comp,
+                        float* __restrict__ out,      // K5: z (n, k_sel, 2D)
+                        float* __restrict__ l_out,    // K5: l (n, k_sel)
+                        int n, int k_comp,
                         int two_m, int two_d, int k_sel, int vec) {
   extern __shared__ __align__(16) float smem[];
   const int s_cols = two_m + two_d;
@@ -153,11 +165,17 @@ __global__ void __launch_bounds__(kThreads, 2)
         const float lg = lw - warp_sum(q);
         if (i == mine) cand = lg;
       }
+      // insert into the sorted list: the first slot whose logit is below
+      // cand's takes it (strict: ties keep the lower k, which came first),
+      // and every later slot the one pushed out of the slot above, so the
+      // list stays ordered by (logit desc, k asc) also through exact ties
+      // (dead components all sit at the -1e30 floor)
       int cand_k = k;
+      bool placed = false;
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) {
         if (s < k_sel) {
-          const bool take = cand > top_l[s];  // strict: ties keep lower k
+          const bool take = placed || cand > top_l[s];
           const float ev_l = take ? top_l[s] : cand;
           const int ev_k = take ? top_k[s] : cand_k;
           if (take) {
@@ -166,12 +184,14 @@ __global__ void __launch_bounds__(kThreads, 2)
           }
           cand = ev_l;
           cand_k = ev_k;
+          placed = take;
         }
       }
     }
   }
 
-  // epilogue: each warp combines the selected components of its rows
+  // epilogue: each warp combines (K5: writes) the selected components of
+  // its rows
 #pragma unroll 1
   for (int i = 0; i < kRpw; ++i) {
     const int row = row0 + warp * kRpw + i;
@@ -186,8 +206,20 @@ __global__ void __launch_bounds__(kThreads, 2)
       if (s >= k_sel) break;  // uniform
       const float ls = __shfl_sync(0xffffffffu, top_l[s], i);
       const int ks = __shfl_sync(0xffffffffu, top_k[s], i);
-      if (ks < 0) break;      // uniform; only when K < k_sel
-      const float w = s == 0 ? 1.f : expf(ls - l0);
+      float* zrow = out + ((size_t)row * k_sel + s) * two_d;  // K5 only
+      if (ks < 0) {           // uniform; only when K < k_sel
+        if constexpr (STATS) {
+#pragma unroll
+          for (int j = 0; j < CW; ++j) {
+            const int c = lane + 32 * j;
+            if (c < two_d) zrow[c] = 0.f;
+          }
+          if (lane == 0) l_out[(size_t)row * k_sel + s] = -INFINITY;
+          continue;
+        } else {
+          break;
+        }
+      }
       const float* wk = pw + (size_t)ks * two_m * s_cols + two_m;
       const float* bk = b + (size_t)ks * two_d;
       float z[CW];
@@ -200,58 +232,68 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int j = 0; j < CW; ++j) z[j] = fmaf(a, __ldg(wrow + off_w[j]), z[j]);
       }
+      if constexpr (STATS) {
 #pragma unroll
-      for (int j = 0; j < CW; ++j)
-        acc[j] = fmaf(w, z[j] + __ldg(bk + off_w[j]), acc[j]);
-      den += w;
+        for (int j = 0; j < CW; ++j) {
+          const int c = lane + 32 * j;
+          if (c < two_d) zrow[c] = z[j] + __ldg(bk + off_w[j]);
+        }
+        if (lane == 0) l_out[(size_t)row * k_sel + s] = ls;
+      } else {
+        const float w = s == 0 ? 1.f : expf(ls - l0);
+#pragma unroll
+        for (int j = 0; j < CW; ++j)
+          acc[j] = fmaf(w, z[j] + __ldg(bk + off_w[j]), acc[j]);
+        den += w;
+      }
     }
+    if constexpr (!STATS) {
 #pragma unroll
-    for (int j = 0; j < CW; ++j) {
-      const int c = lane + 32 * j;
-      if (c < two_d)
-        out[(size_t)row * two_d + c] = k_sel == 1 ? acc[j] : acc[j] / den;
+      for (int j = 0; j < CW; ++j) {
+        const int c = lane + 32 * j;
+        if (c < two_d)
+          out[(size_t)row * two_d + c] = k_sel == 1 ? acc[j] : acc[j] / den;
+      }
     }
   }
 }
 
-template <int CP, int CW>
+template <int CP, int CW, bool STATS>
 int launch(const float* r2, const float* pw, const float* mu, const float* b,
-           const float* logw, float* out, int n, int k_comp, int two_m,
-           int two_d, int k_sel, cudaStream_t stream) {
+           const float* logw, float* out, float* l_out, int n, int k_comp,
+           int two_m, int two_d, int k_sel, cudaStream_t stream) {
   const int s_cols = two_m + two_d;
   const int r_stride = (two_m + 3) & ~3;
   const size_t smem =
       sizeof(float) * ((size_t)kTileN * r_stride + 2 * (size_t)kKc * two_m);
   const int vec = (two_m % 4 == 0) && (s_cols % 4 == 0) &&
                   (reinterpret_cast<uintptr_t>(pw) % 16 == 0);
-  auto kern = grouped_topk_kernel<CP, CW>;
+  auto kern = grouped_topk_kernel<CP, CW, STATS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (n + kTileN - 1) / kTileN;
-  kern<<<grid, kThreads, smem, stream>>>(r2, pw, mu, b, logw, out, n, k_comp,
-                                         two_m, two_d, k_sel, vec);
+  kern<<<grid, kThreads, smem, stream>>>(r2, pw, mu, b, logw, out, l_out, n,
+                                         k_comp, two_m, two_d, k_sel, vec);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// C entry point, loaded with ctypes. Returns a cudaError_t (0 on success).
-extern "C" int grouped_topk_launch(const float* r2, const float* pw,
-                                   const float* mu, const float* b,
-                                   const float* logw, float* out, int n,
-                                   int k_comp, int two_m, int two_d,
-                                   int k_sel, void* stream) {
+template <bool STATS>
+int dispatch(const float* r2, const float* pw, const float* mu,
+             const float* b, const float* logw, float* out, float* l_out,
+             int n, int k_comp, int two_m, int two_d, int k_sel,
+             void* stream) {
   if (n < 0 || k_comp < 1 || two_m < 1 || two_m > 256 || two_d < 1 ||
-      two_d > 256 || k_sel < 1 || k_sel > kSlots || k_sel > k_comp)
+      two_d > 256 || k_sel < 1 || k_sel > kSlots ||
+      (!STATS && k_sel > k_comp))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int cp = cols_per_lane(two_m), cw = cols_per_lane(two_d);
-#define QCE_LAUNCH(CP_, CW_)                                                  \
-  if (cp == CP_ && cw == CW_)                                                 \
-    return launch<CP_, CW_>(r2, pw, mu, b, logw, out, n, k_comp, two_m, two_d, \
-                            k_sel, s);
+#define QCE_LAUNCH(CP_, CW_)                                                 \
+  if (cp == CP_ && cw == CW_)                                                \
+    return launch<CP_, CW_, STATS>(r2, pw, mu, b, logw, out, l_out, n,      \
+                                   k_comp, two_m, two_d, k_sel, s);
   QCE_LAUNCH(2, 2)
   QCE_LAUNCH(2, 4)
   QCE_LAUNCH(2, 8)
@@ -263,4 +305,31 @@ extern "C" int grouped_topk_launch(const float* r2, const float* pw,
   QCE_LAUNCH(8, 8)
 #undef QCE_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// C entry points, loaded with ctypes. Each returns a cudaError_t (0 on
+// success).
+
+// K4: r2 (n, two_m) -> out (n, two_d); 1 <= k_sel <= min(8, k_comp).
+extern "C" int grouped_topk_launch(const float* r2, const float* pw,
+                                   const float* mu, const float* b,
+                                   const float* logw, float* out, int n,
+                                   int k_comp, int two_m, int two_d,
+                                   int k_sel, void* stream) {
+  return dispatch<false>(r2, pw, mu, b, logw, out, nullptr, n, k_comp, two_m,
+                         two_d, k_sel, stream);
+}
+
+// K5: r2 (n, two_m) -> the candidates l (n, k_sel), z (n, k_sel, two_d);
+// 1 <= k_sel <= 8, any k_comp.
+extern "C" int grouped_topk_stats_launch(const float* r2, const float* pw,
+                                         const float* mu, const float* b,
+                                         const float* logw, float* l,
+                                         float* z, int n, int k_comp,
+                                         int two_m, int two_d, int k_sel,
+                                         void* stream) {
+  return dispatch<true>(r2, pw, mu, b, logw, z, l, n, k_comp, two_m, two_d,
+                        k_sel, stream);
 }

@@ -3,12 +3,13 @@ plain versions.
 
 Port of the structured-bank section of
 `quantized_channel_estimation_tpu/estimators/pallas_kernels.py`:
-`CircKernelBank`, `circ_kernel_bank` (with `blocks`), `merge_stats`, and the
+`CircKernelBank`, `circ_kernel_bank` (with `blocks`), and the
 entries `estimate_fused_circulant` (K6), `estimate_fused_circulant_coherent`
 (K7), `estimate_fused_circulant_stats` (K8) and
 `estimate_fused_circulant_coherent_stats` (K9). The four kernels are one
 CUDA C++ template with COH and STATS flags in `csrc/circ_estimate.cu`,
-built and bound by `estimators.kernels` (nvcc, ctypes, launch counts).
+built and bound by `estimators.kernels` (nvcc, ctypes, launch counts);
+shard states merge with `kernels.merge_stats`.
 
 Differences of layout from the TPU kernels, none of arithmetic:
 
@@ -36,6 +37,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from quantized_channel_estimation_torch.estimators import kernels
+from quantized_channel_estimation_torch.estimators.kernels import merge_stats
 from quantized_channel_estimation_torch.models import structured_bank as sb
 from quantized_channel_estimation_torch.models.structured_bank import (
     CirculantBank)
@@ -163,26 +165,6 @@ def _x2(r: torch.Tensor) -> torch.Tensor:
 def _hc(h2: torch.Tensor, dtype) -> torch.Tensor:
     """float32 interleaved rows (n, 2D) -> complex (n, D) of `dtype`."""
     return torch.view_as_complex(h2.reshape(h2.shape[0], -1, 2)).to(dtype)
-
-
-def merge_stats(ms, dens, accs):
-    """Exact merge of online-softmax estimation states of disjoint
-    component sets (split-K, as in flash attention): with per-set
-    (m_c, den_c, acc_c) and m* = max_c m_c,
-
-        den* = sum_c exp(m_c - m*) den_c,  acc* = sum_c exp(m_c - m*) acc_c,
-
-    so acc* / den* equals the single-pass combine over the union. ms, dens:
-    lists of (...,) tensors; accs: a list of (..., X) tensors, real or
-    complex, whose leading dims are those of m or (coherent states at
-    alpha = 1) one more block dim (..., T, X)."""
-    m_all = torch.stack(list(ms))
-    m_star = m_all.max(0).values
-    w = torch.exp(m_all - m_star[None])
-    den = (torch.stack(list(dens)) * w).sum(0)
-    acc_all = torch.stack(list(accs))
-    wa = w.reshape(w.shape + (1,) * (acc_all.dim() - w.dim()))
-    return m_star, den, (acc_all * wa.to(acc_all.dtype)).sum(0)
 
 
 # ---------------------------------------------------------------------------
@@ -447,12 +429,18 @@ def estimate_fused_circulant_coherent(bank: CirculantBank, r: torch.Tensor,
     return h.reshape(b, t, d)
 
 
-def estimate_fused_circulant_stats(bank: CirculantBank, r: torch.Tensor):
+def estimate_fused_circulant_stats(bank: CirculantBank, r: torch.Tensor,
+                                   blocks=None):
     """Kernel analog of `structured_bank.estimate_circulant_stats` through
     K8: (m (N,), den (N,), acc (N, D) complex64 in the DFT domain) of a
-    (component shard of a) flat-basis bank. Merge kernel states with kernel
-    states (`merge_stats`): their logits drop the row constant -D log pi."""
-    m, den, acc2 = circ_estimate_stats(_x2(r), circ_kernel_bank(bank))
+    (component shard of a) bank, `blocks` selecting the kron basis of a
+    block-circulant one; a bank past one launch's 128 components runs K8
+    on each 128-component part and merges the states. Merge kernel states
+    with kernel states (`merge_stats`): their logits drop the row constant
+    -D log pi."""
+    x2 = _x2(r)
+    m, den, acc2 = merge_stats(*zip(*[circ_estimate_stats(x2, c)
+                                      for c in lowered(bank, None, blocks)]))
     return m, den, _hc(acc2, torch.complex64)
 
 
@@ -466,11 +454,14 @@ def estimate_fused_circulant_coherent_stats(bank: CirculantBank,
     if r.dim() != 3:
         raise ValueError(f"expected (B, T, M) blocks, got {tuple(r.shape)}")
     b, t, d = r.shape
-    ckb = circ_kernel_bank(bank, blocks, t, alpha)
+    x2 = _x2(r)
     if t == 1:
-        m, den, acc2 = circ_estimate_stats(_x2(r), ckb)
+        states = [circ_estimate_stats(x2, c)
+                  for c in lowered(bank, None, blocks)]
     else:
-        m, den, acc2 = circ_estimate_coherent_stats(_x2(r), ckb, t, alpha)
+        states = [circ_estimate_coherent_stats(x2, c, t, alpha)
+                  for c in lowered(bank, None, blocks, t, alpha)]
+    m, den, acc2 = merge_stats(*zip(*states))
     acc = _hc(acc2, torch.complex64).reshape(b, t, d)
     m, den = m.reshape(b, t), den.reshape(b, t)
     if alpha >= 1.0:

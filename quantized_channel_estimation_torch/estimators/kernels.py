@@ -1,18 +1,30 @@
 """Hand-written CUDA kernels of the estimation path and their plain versions.
 
 Port of `quantized_channel_estimation_tpu/estimators/pallas_kernels.py`,
-single-device subset: the block-GEMM bank layout (`KernelBankBlock`,
-`_cplx_block`, `kernel_bank_block`, with the coherent log-weight divisor)
-and three kernels written in CUDA C++ for `sm_90a`:
+dense-bank part: the block-GEMM bank layout (`KernelBankBlock`,
+`_cplx_block`, `kernel_bank_block`, with the coherent log-weight divisor),
+`merge_stats`, `merge_topk`, and five kernels written in CUDA C++ for
+`sm_90a`:
 
 - K1, the 'all'-mode grouped online-softmax estimator (`_grouped_stream` +
   `_estimate_kernel_block_grouped`, entry `estimate_fused`), and
 - K3, its coherent mode pooling each component's logits over the T rows of
   a coherence block with the alpha blend (entry `estimate_fused_coherent`),
   both in `csrc/grouped_estimate.cu`;
+- K2, the split-K stats form of K1 and K3
+  (`_estimate_kernel_block_grouped_stats`, entries `estimate_fused_stats`
+  and `estimate_fused_coherent_stats`): the
+  un-normalised online-softmax state (m, den, acc) of a component shard,
+  which `merge_stats` merges exactly, in the same file (`STATS`);
 - K4, the top-k selection estimator (`_grouped_stream_topk` +
   `_estimate_kernel_block_grouped_topk`, entry `estimate_fused_topk`) in
-  `csrc/grouped_topk.cu`.
+  `csrc/grouped_topk.cu`, and K5, its split-K stats form
+  (`_estimate_kernel_block_grouped_topk_stats`, entry
+  `estimate_fused_topk_stats`): a shard's top-k candidates, which
+  `merge_topk` merges exactly.
+
+K2 and K5 serve banks split over the component axis across ranks
+(`parallel.mesh`); on one card K1, K3 and K4 stream any K in one launch.
 
 The circulant kernels K6-K9 (`csrc/circ_estimate.cu`), the multi-pilot
 circulant kernel K10 (`csrc/mp_circ_estimate.cu`) and the factored (MFA)
@@ -121,9 +133,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.grouped_estimate_coherent_launch.argtypes = (
             [ptr] * 6 + [i32] * 5 + [f32, ptr])
         lib.grouped_estimate_coherent_launch.restype = i32
+        lib.grouped_estimate_stats_launch.argtypes = (
+            [ptr] * 8 + [i32] * 4 + [ptr])
+        lib.grouped_estimate_stats_launch.restype = i32
+        lib.grouped_estimate_coherent_stats_launch.argtypes = (
+            [ptr] * 8 + [i32] * 5 + [f32, ptr])
+        lib.grouped_estimate_coherent_stats_launch.restype = i32
     elif name == "grouped_topk":
         lib.grouped_topk_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib.grouped_topk_launch.restype = i32
+        lib.grouped_topk_stats_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+        lib.grouped_topk_stats_launch.restype = i32
     elif name == "circ_estimate":
         lib.circ_estimate_launch.argtypes = (
             [ptr] * 9 + [i32] * 4 + [f32, i32, ptr])
@@ -136,6 +156,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.fact_estimate_launch.argtypes = (
             [ptr] * 11 + [i32] * 5 + [f32, i32, ptr])
         lib.fact_estimate_launch.restype = i32
+
+
+def fused_kernel_eligible(d: int, m: int) -> bool:
+    """Can the dense kernels (K1-K5) take a bank of channel dim D and
+    observation dim M? 2M, 2D <= `MAX_WIDTH`, any K. A rule of the shapes,
+    decided before any launch; past it the stages take the einsum
+    estimator."""
+    return 1 <= 2 * m <= MAX_WIDTH and 1 <= 2 * d <= MAX_WIDTH
 
 
 def tile_rows(two_m: int, two_d: int) -> int:
@@ -263,7 +291,9 @@ def component_logits(r2: torch.Tensor, kb: KernelBankBlock,
     return torch.cat(out) if out else r2.new_zeros((0, kb.pw.shape[0]))
 
 
-def _grouped_reference(r2, kb, t_coh, coh_alpha, chunk):
+def _grouped_reference(r2, kb, t_coh, coh_alpha, chunk, stats=False):
+    """The K1 / K3 stream in plain PyTorch: the estimate (N, 2D), or with
+    `stats` the un-normalised state m (N,), den (N,), acc (N, 2D) of K2."""
     pin_fp32()
     k_comp = kb.pw.shape[0]
     flat = _flat_bank(kb)
@@ -277,7 +307,18 @@ def _grouped_reference(r2, kb, t_coh, coh_alpha, chunk):
             lg = (s.expand_as(lg3) if coh_alpha >= 1.0
                   else (1.0 - coh_alpha) * lg3 + coh_alpha * s)
             lg = lg.reshape(-1, k_comp)
-        out.append(torch.einsum("nk,nkd->nd", torch.softmax(lg, dim=-1), z))
+        if not stats:
+            out.append(torch.einsum("nk,nkd->nd", torch.softmax(lg, dim=-1),
+                                    z))
+            continue
+        m = lg.max(-1).values
+        p = torch.exp(lg - m[:, None])
+        out.append((m, p.sum(-1), torch.einsum("nk,nkd->nd", p, z)))
+    if stats:
+        if not out:
+            return (r2.new_zeros(0), r2.new_zeros(0),
+                    r2.new_zeros((0, kb.b.shape[1])))
+        return tuple(torch.cat(x) for x in zip(*out))
     return torch.cat(out) if out else r2.new_zeros((0, kb.b.shape[1]))
 
 
@@ -302,6 +343,45 @@ def grouped_estimate_coherent_reference(r2: torch.Tensor, kb: KernelBankBlock,
     return _grouped_reference(r2, kb, t_coh, coh_alpha, chunk)
 
 
+def grouped_estimate_stats_reference(r2: torch.Tensor, kb: KernelBankBlock,
+                                     chunk: int = 8192):
+    """Plain PyTorch version of K2: the state of K1's stream before the
+    softmax combine, m_n = max_k lg_nk, den_n = sum_k exp(lg_nk - m_n),
+    acc_n = sum_k exp(lg_nk - m_n) (yz_k[:, 2M:] + b_k), so acc / den is
+    K1. r2 (N, 2M) -> (m (N,), den (N,), acc (N, 2D))."""
+    return _grouped_reference(r2, kb, 1, 1.0, chunk, stats=True)
+
+
+def grouped_estimate_coherent_stats_reference(r2: torch.Tensor,
+                                              kb: KernelBankBlock, t_coh: int,
+                                              coh_alpha: float = 1.0,
+                                              chunk: int = 8192):
+    """Plain PyTorch version of K2's coherent form: K3's state per row
+    (m, den equal within a block at alpha >= 1), acc / den is K3."""
+    if r2.shape[0] % t_coh:
+        raise ValueError(f"{r2.shape[0]} rows are no whole number of "
+                         f"T={t_coh} blocks")
+    return _grouped_reference(r2, kb, t_coh, coh_alpha, chunk, stats=True)
+
+
+def _topk_candidates(lg: torch.Tensor, z: torch.Tensor, k_sel: int):
+    """Per row the k_sel components of largest logit, sorted descending
+    (ties keep the lower index: a stable sort): logits (n, k) and their
+    estimates (n, k, 2D)."""
+    ls, idx = torch.sort(lg, dim=-1, descending=True, stable=True)
+    ls, idx = ls[:, :k_sel], idx[:, :k_sel]
+    return ls, torch.gather(z, 1, idx[..., None].expand(-1, -1, z.shape[-1]))
+
+
+def _topk_combine(ls: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
+    """The softmax renormalised over sorted candidates ls (n, k), zs
+    (n, k, 2D) -> (n, 2D); k = 1 is the first candidate's estimate."""
+    if ls.shape[1] == 1:
+        return zs[:, 0]
+    w = torch.exp(ls - ls[:, :1])
+    return (w[..., None] * zs).sum(1) / w.sum(1, keepdim=True)
+
+
 def grouped_estimate_topk_reference(r2: torch.Tensor, kb: KernelBankBlock,
                                     k_sel: int,
                                     chunk: int = 8192) -> torch.Tensor:
@@ -311,18 +391,73 @@ def grouped_estimate_topk_reference(r2: torch.Tensor, kb: KernelBankBlock,
     component's estimate. r2 (N, 2M) -> (N, 2D)."""
     pin_fp32()
     flat = _flat_bank(kb)
-    out = []
-    for i0 in range(0, r2.shape[0], chunk):
-        lg, z = _stream_reference(r2[i0:i0 + chunk], kb, flat)
-        ls, idx = torch.sort(lg, dim=-1, descending=True, stable=True)
-        ls, idx = ls[:, :k_sel], idx[:, :k_sel]
-        zs = torch.gather(z, 1, idx[..., None].expand(-1, -1, z.shape[-1]))
-        if k_sel == 1:
-            out.append(zs[:, 0])
-            continue
-        w = torch.exp(ls - ls[:, :1])
-        out.append((w[..., None] * zs).sum(1) / w.sum(1, keepdim=True))
+    out = [_topk_combine(*_topk_candidates(
+        *_stream_reference(r2[i0:i0 + chunk], kb, flat), k_sel))
+        for i0 in range(0, r2.shape[0], chunk)]
     return torch.cat(out) if out else r2.new_zeros((0, kb.b.shape[1]))
+
+
+def grouped_estimate_topk_stats_reference(r2: torch.Tensor,
+                                          kb: KernelBankBlock, k_sel: int,
+                                          chunk: int = 8192):
+    """Plain PyTorch version of K5: per row the shard's k_sel candidates of
+    largest logit, sorted descending (ties keep the lower index), as
+    logits l (N, k_sel) and estimates z (N, k_sel, 2D); slots past the
+    shard's K hold -inf and zeros. `merge_topk` of the shards' candidates
+    is K4 over the union."""
+    pin_fp32()
+    flat = _flat_bank(kb)
+    k_comp, two_d = kb.pw.shape[0], kb.b.shape[1]
+    ls, zs = [], []
+    for i0 in range(0, r2.shape[0], chunk):
+        l_c, z_c = _topk_candidates(
+            *_stream_reference(r2[i0:i0 + chunk], kb, flat), k_sel)
+        ls.append(l_c)
+        zs.append(z_c)
+    n = r2.shape[0]
+    l_out = torch.cat(ls) if ls else r2.new_zeros((0, min(k_sel, k_comp)))
+    z_out = (torch.cat(zs) if zs
+             else r2.new_zeros((0, min(k_sel, k_comp), two_d)))
+    if k_sel > k_comp:   # empty slots of a shard smaller than k_sel
+        l_out = torch.cat([l_out, l_out.new_full((n, k_sel - k_comp),
+                                                 -torch.inf)], 1)
+        z_out = torch.cat([z_out, z_out.new_zeros((n, k_sel - k_comp,
+                                                   two_d))], 1)
+    return l_out, z_out
+
+
+def merge_stats(ms, dens, accs):
+    """Exact merge of online-softmax estimation states of disjoint
+    component sets (split-K, as in flash attention): with per-set
+    (m_c, den_c, acc_c) and m* = max_c m_c,
+
+        den* = sum_c exp(m_c - m*) den_c,  acc* = sum_c exp(m_c - m*) acc_c,
+
+    so acc* / den* equals the single-pass combine over the union. ms, dens:
+    lists of (...,) tensors; accs: a list of (..., X) tensors, real or
+    complex, whose leading dims are those of m or (coherent states at
+    alpha = 1) one more block dim (..., T, X). The same recurrence runs
+    across ranks as one all-reduce MAX and two SUMs
+    (`parallel.mesh.estimate_sharded_kernel`)."""
+    m_all = torch.stack(list(ms))
+    m_star = m_all.max(0).values
+    w = torch.exp(m_all - m_star[None])
+    den = (torch.stack(list(dens)) * w).sum(0)
+    acc_all = torch.stack(list(accs))
+    wa = w.reshape(w.shape + (1,) * (acc_all.dim() - w.dim()))
+    return m_star, den, (acc_all * wa.to(acc_all.dtype)).sum(0)
+
+
+def merge_topk(ls, zs, k_sel: int) -> torch.Tensor:
+    """Exact merge of the top-k candidates of disjoint component shards:
+    the top-k of a union is the top-k of the shards' top-k's. ls: a list
+    of (N, k) logits (each sorted descending), zs: a list of (N, k, 2D)
+    estimates, in component order. Returns the renormalised-softmax top-k
+    combine (N, 2D) (k_sel = 1: the argmax component's estimate). The
+    candidates are concatenated in component order and sorted stably, so
+    exact ties keep the lower component index, as one K4 launch does."""
+    return _topk_combine(*_topk_candidates(torch.cat(list(ls), 1),
+                                           torch.cat(list(zs), 1), k_sel))
 
 
 # ---------------------------------------------------------------------------
@@ -358,14 +493,15 @@ def _check_inputs(kernel: str, r2: torch.Tensor, kb: KernelBankBlock):
 
 
 def _launch(kernel: str, lib_fn, r2: torch.Tensor, kb: KernelBankBlock,
-            out: torch.Tensor, *args) -> None:
-    """Launch on r2's device and current stream; raise on a cudaError."""
+            outs, *args) -> None:
+    """Launch on r2's device and current stream with the output tensors
+    `outs`; raise on a cudaError."""
     dev = r2.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib_fn(r2.data_ptr(), kb.pw.data_ptr(), kb.mu.data_ptr(),
-                     kb.b.data_ptr(), kb.logw.data_ptr(), out.data_ptr(),
-                     *args, stream)
+                     kb.b.data_ptr(), kb.logw.data_ptr(),
+                     *(o.data_ptr() for o in outs), *args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
 
@@ -383,7 +519,7 @@ def grouped_estimate(r2: torch.Tensor, kb: KernelBankBlock) -> torch.Tensor:
         return out
     _launch("grouped_estimate",
             _library("grouped_estimate").grouped_estimate_launch, r2, kb,
-            out, n, k_comp, two_m, two_d)
+            (out,), n, k_comp, two_m, two_d)
     grouped_estimate.launches += 1
     return out
 
@@ -400,19 +536,76 @@ def grouped_estimate_coherent(r2: torch.Tensor, kb: KernelBankBlock,
         return grouped_estimate_coherent_reference(r2, kb, t_coh, coh_alpha)
     n, k_comp, two_m, two_d = _check_inputs("grouped_estimate_coherent",
                                             r2, kb)
-    if not 2 <= t_coh <= tile_rows(two_m, two_d) or n % t_coh:
-        raise ValueError(f"grouped_estimate_coherent takes N rows of whole "
-                         f"T-row blocks, 2 <= T <= "
-                         f"{tile_rows(two_m, two_d)}; got N={n}, T={t_coh}")
+    _check_coherent("grouped_estimate_coherent", n, two_m, two_d, t_coh)
     out = torch.empty((n, two_d), dtype=torch.float32, device=r2.device)
     if n == 0:
         return out
     _launch("grouped_estimate_coherent",
             _library("grouped_estimate").grouped_estimate_coherent_launch,
-            r2, kb, out, n, k_comp, two_m, two_d, int(t_coh),
+            r2, kb, (out,), n, k_comp, two_m, two_d, int(t_coh),
             float(coh_alpha))
     grouped_estimate_coherent.launches += 1
     return out
+
+
+def _check_coherent(kernel: str, n: int, two_m: int, two_d: int,
+                    t_coh: int) -> None:
+    if not 2 <= t_coh <= tile_rows(two_m, two_d) or n % t_coh:
+        raise ValueError(f"{kernel} takes N rows of whole T-row blocks, "
+                         f"2 <= T <= {tile_rows(two_m, two_d)}; got N={n}, "
+                         f"T={t_coh}")
+
+
+def _stats_outputs(n: int, two_d: int, device):
+    f32 = torch.float32
+    return (torch.empty((n, two_d), dtype=f32, device=device),
+            torch.empty((n,), dtype=f32, device=device),
+            torch.empty((n,), dtype=f32, device=device))
+
+
+def grouped_estimate_stats(r2: torch.Tensor, kb: KernelBankBlock):
+    """K2 on r2 (N, 2M) float32 -> (m (N,), den (N,), acc (N, 2D)), the
+    un-normalised state of K1 over this (shard of a) bank. On a CUDA
+    tensor it launches the CUDA kernel (2M and 2D at most 256) on the
+    current stream and raises on any refusal; on a CPU tensor it computes
+    the plain version."""
+    if not r2.is_cuda:
+        return grouped_estimate_stats_reference(r2, kb)
+    n, k_comp, two_m, two_d = _check_inputs("grouped_estimate_stats", r2, kb)
+    acc, m, den = _stats_outputs(n, two_d, r2.device)
+    if n == 0:
+        return m, den, acc
+    _launch("grouped_estimate_stats",
+            _library("grouped_estimate").grouped_estimate_stats_launch, r2,
+            kb, (acc, m, den), n, k_comp, two_m, two_d)
+    grouped_estimate_stats.launches += 1
+    return m, den, acc
+
+
+def grouped_estimate_coherent_stats(r2: torch.Tensor, kb: KernelBankBlock,
+                                    t_coh: int, coh_alpha: float = 1.0):
+    """K2's coherent form on r2 (N, 2M), N / T blocks of T consecutive
+    rows, kb from `kernel_bank_block(bank, t_coh, coh_alpha)` -> K3's
+    state per row (m (N,), den (N,), acc (N, 2D)). On a CUDA tensor it
+    launches the CUDA kernel (2 <= T <= `tile_rows`) on the current stream
+    and raises on any refusal; on a CPU tensor it computes the plain
+    version."""
+    if not r2.is_cuda:
+        return grouped_estimate_coherent_stats_reference(r2, kb, t_coh,
+                                                         coh_alpha)
+    n, k_comp, two_m, two_d = _check_inputs(
+        "grouped_estimate_coherent_stats", r2, kb)
+    _check_coherent("grouped_estimate_coherent_stats", n, two_m, two_d, t_coh)
+    acc, m, den = _stats_outputs(n, two_d, r2.device)
+    if n == 0:
+        return m, den, acc
+    lib = _library("grouped_estimate")
+    _launch("grouped_estimate_coherent_stats",
+            lib.grouped_estimate_coherent_stats_launch, r2, kb,
+            (acc, m, den), n, k_comp, two_m, two_d, int(t_coh),
+            float(coh_alpha))
+    grouped_estimate_coherent_stats.launches += 1
+    return m, den, acc
 
 
 def grouped_estimate_topk(r2: torch.Tensor, kb: KernelBankBlock,
@@ -431,10 +624,37 @@ def grouped_estimate_topk(r2: torch.Tensor, kb: KernelBankBlock,
     if n == 0:
         return out
     _launch("grouped_estimate_topk",
-            _library("grouped_topk").grouped_topk_launch, r2, kb, out, n,
+            _library("grouped_topk").grouped_topk_launch, r2, kb, (out,), n,
             k_comp, two_m, two_d, int(k_sel))
     grouped_estimate_topk.launches += 1
     return out
+
+
+def grouped_estimate_topk_stats(r2: torch.Tensor, kb: KernelBankBlock,
+                                k_sel: int):
+    """K5 on r2 (N, 2M) float32 -> the top-k candidates of this (shard of
+    a) bank, l (N, k_sel) sorted descending and z (N, k_sel, 2D); slots
+    past the shard's K hold -inf and zeros. On a CUDA tensor it launches
+    the CUDA kernel (1 <= k_sel <= 8, any K) on the current stream and
+    raises on any refusal; on a CPU tensor it computes the plain
+    version."""
+    if not r2.is_cuda:
+        return grouped_estimate_topk_stats_reference(r2, kb, k_sel)
+    n, k_comp, two_m, two_d = _check_inputs("grouped_estimate_topk_stats",
+                                            r2, kb)
+    if not 1 <= k_sel <= TOPK_KERNEL_MAX:
+        raise ValueError(f"grouped_estimate_topk_stats takes 1 <= k <= "
+                         f"{TOPK_KERNEL_MAX}; got {k_sel}")
+    f32 = torch.float32
+    l_out = torch.empty((n, k_sel), dtype=f32, device=r2.device)
+    z_out = torch.empty((n, k_sel, two_d), dtype=f32, device=r2.device)
+    if n == 0:
+        return l_out, z_out
+    _launch("grouped_estimate_topk_stats",
+            _library("grouped_topk").grouped_topk_stats_launch, r2, kb,
+            (l_out, z_out), n, k_comp, two_m, two_d, int(k_sel))
+    grouped_estimate_topk_stats.launches += 1
+    return l_out, z_out
 
 
 _WRAPPERS: list = []
@@ -449,7 +669,8 @@ def register_wrappers(*fns) -> None:
 
 
 register_wrappers(grouped_estimate, grouped_estimate_coherent,
-                  grouped_estimate_topk)
+                  grouped_estimate_topk, grouped_estimate_stats,
+                  grouped_estimate_coherent_stats, grouped_estimate_topk_stats)
 
 
 def reset_launch_counts() -> None:
@@ -476,14 +697,30 @@ def estimate_fused(bank: PreparedBank, r: torch.Tensor,
     return _h(h2, bank.filters.shape[1], r.dtype)
 
 
+def estimate_fused_stats(bank: PreparedBank, r: torch.Tensor,
+                         cache: Optional[dict] = None):
+    """'all'-mode estimation state of r (N, M) over this (shard of a) bank
+    through K2: (m (N,), den (N,), acc (N, D) complex64), the kernel analog
+    of `gmm_estimator.estimate_stats`, in its logit convention (2 sum log
+    diag P_k folded into logw, the row constant -M log pi dropped), so
+    states of kernel and einsum shards merge with `merge_stats`. Past
+    `fused_kernel_eligible` it is `gmm_estimator.estimate_stats`. `cache`:
+    see `lowered`."""
+    _, d, m = bank.filters.shape
+    if not fused_kernel_eligible(d, m):
+        return gmm_estimator.estimate_stats(bank, r)
+    ms, den, acc2 = grouped_estimate_stats(_r2(r), lowered(bank, cache))
+    return ms, den, _h(acc2, d, torch.complex64)
+
+
 def coherent_kernel_eligible(bank: PreparedBank, t: int) -> bool:
     """Can K3 pool T-snapshot blocks of this bank? 1 < T <= the kernel's
-    tile rows (64 at 2M, 2D <= 128, else 32), and 2M, 2D <= 256. A rule of
-    the shapes, decided before any launch."""
+    tile rows (64 at 2M, 2D <= 128, else 32), within
+    `fused_kernel_eligible`. A rule of the shapes, decided before any
+    launch."""
     _, d, m = bank.filters.shape
-    two_m, two_d = 2 * m, 2 * d
-    return (two_m <= MAX_WIDTH and two_d <= MAX_WIDTH
-            and 1 < t <= tile_rows(two_m, two_d))
+    return (fused_kernel_eligible(d, m)
+            and 1 < t <= tile_rows(2 * m, 2 * d))
 
 
 def estimate_fused_coherent(bank: PreparedBank, r: torch.Tensor,
@@ -491,20 +728,48 @@ def estimate_fused_coherent(bank: PreparedBank, r: torch.Tensor,
                             cache: Optional[dict] = None) -> torch.Tensor:
     """Coherent 'all'-mode estimate of blocks r (B, T, M) -> (B, T, D): the
     drop-in for `gmm_estimator.estimate_coherent(bank, r, 'all', alpha=)`.
-    T = 1 runs K1; T within `coherent_kernel_eligible` runs K3 with the
-    alpha blend in the kernel; larger T takes the einsum estimator.
-    `cache`: see `lowered`."""
+    T = 1 runs K1 within `fused_kernel_eligible`; T within
+    `coherent_kernel_eligible` runs K3 with the alpha blend in the kernel;
+    anything else takes the einsum estimator. `cache`: see `lowered`."""
     if r.dim() != 3:
         raise ValueError(f"expected (B, T, M) blocks, got {tuple(r.shape)}")
     b, t, _ = r.shape
-    if t == 1:
+    _, d, m = bank.filters.shape
+    if t == 1 and fused_kernel_eligible(d, m):
         return estimate_fused(bank, r[:, 0, :], cache)[:, None, :]
     if not coherent_kernel_eligible(bank, t):
         return gmm_estimator.estimate_coherent(bank, r, "all", 512, alpha)
     h2 = grouped_estimate_coherent(_r2(r), lowered(bank, cache, t, alpha),
                                    t, alpha)
-    d = bank.filters.shape[1]
     return _h(h2, d, r.dtype).reshape(b, t, d)
+
+
+def estimate_fused_coherent_stats(bank: PreparedBank, r: torch.Tensor,
+                                  alpha: float = 1.0,
+                                  cache: Optional[dict] = None):
+    """Coherent 'all'-mode block estimation state of r (B, T, M) over this
+    (shard of a) bank: the kernel analog of
+    `gmm_estimator.estimate_coherent_stats`, in its convention: m, den per
+    block (B,) at alpha >= 1 and per snapshot (B, T) below, acc (B, T, D)
+    complex64. T within `coherent_kernel_eligible` runs K2's coherent form,
+    T = 1 its flat form; anything else is the einsum stats path. `cache`:
+    see `lowered`."""
+    if r.dim() != 3:
+        raise ValueError(f"expected (B, T, M) blocks, got {tuple(r.shape)}")
+    b, t, _ = r.shape
+    _, d, m = bank.filters.shape
+    if t == 1 and fused_kernel_eligible(d, m):
+        ms, den, acc2 = grouped_estimate_stats(_r2(r), lowered(bank, cache))
+    elif coherent_kernel_eligible(bank, t):
+        ms, den, acc2 = grouped_estimate_coherent_stats(
+            _r2(r), lowered(bank, cache, t, alpha), t, alpha)
+    else:
+        return gmm_estimator.estimate_coherent_stats(bank, r, 512, alpha)
+    acc = _h(acc2, d, torch.complex64).reshape(b, t, d)
+    ms, den = ms.reshape(b, t), den.reshape(b, t)
+    if alpha >= 1.0:    # block-constant: one value a block
+        return ms[:, 0], den[:, 0], acc
+    return ms, den, acc
 
 
 def topk_mode_eligible(d: int, k_comp: int, m: int, k_sel) -> bool:
@@ -516,7 +781,7 @@ def topk_mode_eligible(d: int, k_comp: int, m: int, k_sel) -> bool:
     if not isinstance(k_sel, int) or isinstance(k_sel, bool):
         return False
     return (1 <= k_sel <= min(TOPK_KERNEL_MAX, k_comp - 1)
-            and 2 * m <= MAX_WIDTH and 2 * d <= MAX_WIDTH)
+            and fused_kernel_eligible(d, m))
 
 
 def topk_kernel_eligible(bank: PreparedBank, k_sel) -> bool:
@@ -538,3 +803,19 @@ def estimate_fused_topk(bank: PreparedBank, r: torch.Tensor, k_sel: int,
             f"K-1) and 2M, 2D <= {MAX_WIDTH} (got k={k_sel!r}, K={k_comp})")
     h2 = grouped_estimate_topk(_r2(r), lowered(bank, cache), int(k_sel))
     return _h(h2, bank.filters.shape[1], r.dtype)
+
+
+def estimate_fused_topk_stats(bank: PreparedBank, r: torch.Tensor, k_sel: int,
+                              cache: Optional[dict] = None):
+    """Top-k candidates of r (N, M) over this (shard of a) bank through K5:
+    logits l (N, k_sel) sorted descending and estimates z (N, k_sel, 2D)
+    real-packed [Re | Im]; `merge_topk` of the shards' candidates in
+    component order is `estimate_fused_topk` over the whole bank. Raises
+    past `fused_kernel_eligible` or outside 1 <= k_sel <= 8. `cache`: see
+    `lowered`."""
+    _, d, m = bank.filters.shape
+    if not fused_kernel_eligible(d, m):
+        raise ValueError(f"the top-k stats kernel takes 2M, 2D <= "
+                         f"{MAX_WIDTH}; got M={m}, D={d}")
+    return grouped_estimate_topk_stats(_r2(r), lowered(bank, cache),
+                                       int(k_sel))

@@ -20,6 +20,20 @@ Random draws come from `torch.Generator`s seeded from `cfg.seed` through
 numpy's SeedSequence (data, GMM init, one observation stream per SNR); they
 differ from the JAX package's threefry draws, so the two packages agree on
 shared data (the caches both read and write), not on fresh draws.
+
+`n_data_shards` x `n_component_shards` > 1 runs the sweep over that many
+ranks of an initialised `torch.distributed` group (`torchrun`; each rank on
+cuda:LOCAL_RANK, or the device passed): every rank builds the same data set
+from the seed, the GMM fit runs data-parallel and the GMM columns estimate
+with the samples over 'data' and the bank over 'component'
+(`stages.ShardedStages`); rank 0 alone writes the CSVs and the caches, and
+the rows equal the single-device run's to float32 summation order.
+
+    torchrun --nproc-per-node=2 -m quantized_channel_estimation_torch.harness.run_gmm
+
+runs the defaults with the samples over the ranks (`n_data_shards` = the
+world size), one card a rank over NCCL; `--device cpu` runs them on the
+CPU over Gloo.
 """
 from __future__ import annotations
 
@@ -45,8 +59,9 @@ class GmmBenchConfig:
     """Mirrors the JAX `GmmBenchConfig` (and the reference's script
     constants). The port runs channel_model='3gpp', dense and structured
     banks at any n_pilots, every cov_type but the Toeplitz ones,
-    gmm_fit_segments=1 and a 1 x 1 mesh; other values raise
-    NotImplementedError naming the ROADMAP item that ports them."""
+    gmm_fit_segments=1 and any (n_data_shards, n_component_shards) mesh;
+    other values raise NotImplementedError naming the ROADMAP item that
+    ports them."""
     n_antennas: int = 64
     n_components: int = 64
     n_summands_or_proba: Union[str, int, float] = "all"
@@ -88,8 +103,6 @@ def _check_supported(cfg: GmmBenchConfig) -> None:
     if cfg.channel_model != "3gpp":
         todo.append(f"channel_model={cfg.channel_model!r} (ROADMAP Queue 1 "
                     "item 14)")
-    if cfg.n_data_shards * cfg.n_component_shards != 1:
-        todo.append("mesh parallelism (ROADMAP Queue 1 item 15)")
     if cfg.gmm_fit_segments != 1:
         todo.append("segmented fits, em_driver.fit_segmented (ROADMAP Queue "
                     "1 item 8)")
@@ -121,16 +134,21 @@ def _model_tag(cfg: GmmBenchConfig) -> str:
     return "3gpp"
 
 
-def _get_data(cfg: GmmBenchConfig, gen: torch.Generator):
+def _get_data(cfg: GmmBenchConfig, gen: torch.Generator, sharded=None):
     """Load or generate the channel dataset on the generator's device:
     (h, Toeplitz first rows t). With n_coherence T > 1, h holds
-    (n_train + n_val) / T blocks (B, T, N) and t one row per block."""
+    (n_train + n_val) / T blocks (B, T, N) and t one row per block. Over
+    several ranks (`sharded`) every rank decides whether the cache exists
+    before rank 0 may write it."""
     device = gen.device
     n_channels = cfg.n_train + cfg.n_val
     path = qio.dataset_cache_path(cfg.cache_dir, cfg.n_antennas,
                                   _model_tag(cfg), cfg.n_path, cfg.n_train,
                                   n_channels)
-    if cfg.use_cache and os.path.exists(path):
+    cached = cfg.use_cache and os.path.exists(path)
+    if sharded is not None:
+        sharded.barrier()
+    if cached:
         channels, toep = qio.load_channels(path)
         return (torch.as_tensor(channels, device=device),
                 torch.as_tensor(toep, device=device))
@@ -139,16 +157,23 @@ def _get_data(cfg: GmmBenchConfig, gen: torch.Generator):
     h, t = stages.generate_channels(gen,
                                     n_channels // max(1, cfg.n_coherence),
                                     scm_cfg)
-    if cfg.use_cache:
+    if cfg.use_cache and (sharded is None or sharded.writer):
         qio.save_channels(path, h.cpu().numpy(), t.cpu().numpy())
     return h, t
 
 
 def run(cfg: GmmBenchConfig, verbose: bool = True, device=None):
-    """Run the benchmark on `device` (the CUDA card by default; raises when
-    there is none). Returns (mse_columns, rate_columns, timings)."""
+    """Run the benchmark on `device` (the CUDA card by default, cuda:LOCAL_RANK
+    on each rank of a sharded run; raises when there is none). Returns
+    (mse_columns, rate_columns, timings)."""
     _check_supported(cfg)
-    device = stages.resolve_device(device)
+    sharded = stages.sharded_stages(cfg.n_data_shards, cfg.n_component_shards)
+    if sharded is None:
+        device = stages.resolve_device(device)
+    else:
+        device = stages.rank_device(device)
+        sharded.check_divisible(cfg.n_train, cfg.n_val, cfg.n_components)
+        verbose = verbose and sharded.writer
     pin_fp32()
     t_start = time.time()
     s_data, s_gmm, s_obs = np.random.SeedSequence(cfg.seed).spawn(3)
@@ -163,7 +188,7 @@ def run(cfg: GmmBenchConfig, verbose: bool = True, device=None):
         raise ValueError("coherence_alpha='auto' requires n_coherence > 1 "
                          "(there is no coherent column to tune)")
 
-    channels, toep = _get_data(cfg, _generator(s_data, device))
+    channels, toep = _get_data(cfg, _generator(s_data, device), sharded)
     if t_coh > 1:
         nb_train, nb_val = cfg.n_train // t_coh, cfg.n_val // t_coh
         nb_fit = nb_train
@@ -272,13 +297,14 @@ def run(cfg: GmmBenchConfig, verbose: bool = True, device=None):
                                  cov_type=cfg.cov_type, blocks=cfg.blocks,
                                  zero_mean=cfg.zero_mean_gmm,
                                  max_iter=cfg.gmm_max_iter)
-            fit = stages.gmm_fit(_generator(s_gmm, device), h_train, gcfg)
+            fit = (sharded.gmm_fit if sharded else stages.gmm_fit)(
+                _generator(s_gmm, device), h_train, gcfg)
             params = fit.params
             if verbose:
                 print(f"GMM fit: {fit.n_iter} iters, "
                       f"lb={float(fit.lower_bound):.4f}, "
                       f"converged={fit.converged}")
-            if cfg.use_cache:
+            if cfg.use_cache and (sharded is None or sharded.writer):
                 qio.save_gmm_params(gmm_path, params)
         timings["gmm_fit"] = time.time() - t0
 
@@ -300,17 +326,26 @@ def run(cfg: GmmBenchConfig, verbose: bool = True, device=None):
             return banks[snr]
 
         def gmm_est(snr, r):
+            mode = cfg.n_summands_or_proba
+            if structured and sharded:
+                return sharded.estimate_circulant(get_bank(snr), r, mode,
+                                                  cfg.blocks)
             if structured:
-                return stages.estimate_circulant(get_bank(snr), r,
-                                                 cfg.n_summands_or_proba,
+                return stages.estimate_circulant(get_bank(snr), r, mode,
                                                  cfg.blocks)
-            return stages.estimate_auto(get_bank(snr), r,
-                                        cfg.n_summands_or_proba)
+            if sharded:
+                return sharded.estimate(get_bank(snr), r, mode)
+            return stages.estimate_auto(get_bank(snr), r, mode)
 
         def coh_est(bank, rb, mode, alpha):
+            if structured and sharded:
+                return sharded.estimate_circulant(bank, rb, mode, cfg.blocks,
+                                                  float(alpha))
             if structured:
                 return stages.estimate_circulant_coherent(
                     bank, rb, mode, float(alpha), cfg.blocks)
+            if sharded:
+                return sharded.estimate_coherent(bank, rb, mode, alpha)
             return stages.estimate_coherent_auto(bank, rb, mode, alpha)
 
         eval_algo("blmmse_gmm", "gmm_rstat", gmm_est, norm_clip=0.1)
@@ -364,13 +399,35 @@ def run(cfg: GmmBenchConfig, verbose: bool = True, device=None):
             f"_ptype={cfg.pilot_type}_qtype={cfg.quantizer_type}"
             f"_{cfg.cov_type}")
     out_dir = os.path.join(cfg.results_dir, "3gpp")
-    qio.write_result_csv(os.path.join(out_dir, base + ".csv"),
-                         cfg.snrs, mse_cols)
-    if cfg.eval_rate:
-        qio.write_result_csv(os.path.join(out_dir, base + "_rate.csv"),
-                             cfg.snrs, rate_cols)
+    if sharded is None or sharded.writer:
+        qio.write_result_csv(os.path.join(out_dir, base + ".csv"),
+                             cfg.snrs, mse_cols)
+        if cfg.eval_rate:
+            qio.write_result_csv(os.path.join(out_dir, base + "_rate.csv"),
+                                 cfg.snrs, rate_cols)
     return mse_cols, rate_cols, timings
 
 
+def _main(config_cls, run_fn, argv=None):
+    """Run the defaults (`--device cpu` on the CPU); under torchrun
+    (WORLD_SIZE > 1) initialise the process group (NCCL on cards, Gloo on
+    the CPU) and shard the samples over every rank."""
+    import argparse
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--device", default=None,
+                        help="'cpu', or a card (default: cuda:LOCAL_RANK)")
+    device = parser.parse_args(argv).device
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return run_fn(config_cls(), device=device)
+    from quantized_channel_estimation_torch.parallel import distributed
+    distributed.initialize(
+        backend="gloo" if device == "cpu" else None)
+    try:
+        return run_fn(config_cls(n_data_shards=world), device=device)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 if __name__ == "__main__":
-    run(GmmBenchConfig())
+    _main(GmmBenchConfig, run)

@@ -18,8 +18,13 @@ file). Random draws come from `torch.Generator`s seeded from `cfg.seed`
 through numpy's SeedSequence (data, fit, one observation stream per SNR),
 so the two packages agree on shared data, not on fresh draws.
 
-Not ported yet, each raising NotImplementedError: `channel_model` other than
-'3gpp' (ROADMAP Queue 1 item 14), mesh shards (item 15).
+`n_data_shards` x `n_component_shards` > 1 runs over that many ranks of an
+initialised `torch.distributed` group, as `run_gmm` does: the MFA EM
+data-parallel (`stages.ShardedStages.mfa_fit`), the factored or dense
+estimates with the samples over 'data' and the bank over 'component';
+rank 0 writes the CSV and the cache. Not ported yet, raising
+NotImplementedError: `channel_model` other than '3gpp' (ROADMAP Queue 1
+item 14).
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ import numpy as np
 
 from quantized_channel_estimation_torch.harness import stages
 from quantized_channel_estimation_torch.harness.run_gmm import (
-    GmmBenchConfig, _generator, _get_data)
+    GmmBenchConfig, _generator, _get_data, _main)
 from quantized_channel_estimation_torch.models import gmm_estimator, mfa
 from quantized_channel_estimation_torch.ops import quantizer as Q
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
@@ -80,8 +85,6 @@ def _check_supported(cfg: MfaBenchConfig) -> None:
     if cfg.channel_model != "3gpp":
         todo.append(f"channel_model={cfg.channel_model!r} (ROADMAP Queue 1 "
                     "item 14)")
-    if cfg.n_data_shards * cfg.n_component_shards != 1:
-        todo.append("mesh parallelism (ROADMAP Queue 1 item 15)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -102,10 +105,17 @@ def _factored(cfg: MfaBenchConfig) -> bool:
 
 
 def run(cfg: MfaBenchConfig, verbose: bool = True, device=None):
-    """Run the benchmark on `device` (the CUDA card by default; raises when
-    there is none). Returns (mse_columns, rate_columns, timings)."""
+    """Run the benchmark on `device` (the CUDA card by default, cuda:LOCAL_RANK
+    on each rank of a sharded run; raises when there is none). Returns
+    (mse_columns, rate_columns, timings)."""
     _check_supported(cfg)
-    device = stages.resolve_device(device)
+    sharded = stages.sharded_stages(cfg.n_data_shards, cfg.n_component_shards)
+    if sharded is None:
+        device = stages.resolve_device(device)
+    else:
+        device = stages.rank_device(device)
+        sharded.check_divisible(cfg.n_train, cfg.n_val, cfg.n_components)
+        verbose = verbose and sharded.writer
     pin_fp32()
     t_start = time.time()
     s_data, s_fit, s_obs = np.random.SeedSequence(cfg.seed).spawn(3)
@@ -124,7 +134,7 @@ def run(cfg: MfaBenchConfig, verbose: bool = True, device=None):
                           path_sigma=cfg.path_sigma, cache_dir=cfg.cache_dir,
                           use_cache=cfg.use_cache, n_coherence=t_coh)
     dim = cfg.n_antennas
-    channels, _ = _get_data(base, _generator(s_data, device))
+    channels, _ = _get_data(base, _generator(s_data, device), sharded)
     if t_coh > 1:
         nb_train, nb_val = cfg.n_train // t_coh, cfg.n_val // t_coh
         nb_fit = nb_train
@@ -155,7 +165,8 @@ def run(cfg: MfaBenchConfig, verbose: bool = True, device=None):
         ppca=cfg.ppca, lock_psis=cfg.lock_psis, zero_mean=cfg.zero_mean,
         rs_clip=rs_clip, max_iter=cfg.max_iter)
     t0 = time.time()
-    res_fit = stages.mfa_fit(_generator(s_fit, device), h_train, mcfg)
+    res_fit = (sharded.mfa_fit if sharded else stages.mfa_fit)(
+        _generator(s_fit, device), h_train, mcfg)
     # only densify when the factored path is off: the factored bank keeps
     # the O(K D M) representation end to end
     params = None if factored else stages.mfa_to_gmm(res_fit.params, 1e-6)
@@ -172,9 +183,15 @@ def run(cfg: MfaBenchConfig, verbose: bool = True, device=None):
         mse_cols["blmmse_mfa_coh"] = []
         rate_cols["mfa_coh_rstat"] = []
 
-    if factored:
+    if factored and sharded:
+        est_flat = sharded.estimate_factored
+        est_coh = sharded.estimate_factored
+    elif factored:
         est_flat = stages.estimate_factored
         est_coh = stages.estimate_factored_coherent
+    elif sharded:
+        est_flat = sharded.estimate
+        est_coh = sharded.estimate_coherent
     else:
         est_flat = stages.estimate_auto
         est_coh = stages.estimate_coherent_auto
@@ -248,7 +265,9 @@ def run(cfg: MfaBenchConfig, verbose: bool = True, device=None):
     cols = dict(mse_cols)
     if cfg.eval_rate:
         cols.update(rate_cols)
-    qio.write_result_csv(os.path.join(out_dir, name + ".csv"), cfg.snrs, cols)
+    if sharded is None or sharded.writer:
+        qio.write_result_csv(os.path.join(out_dir, name + ".csv"), cfg.snrs,
+                             cols)
     timings = {"fit": fit_time, "mfa_iters": int(res_fit.n_iter),
                "total": time.time() - t_start}
     if auto_alpha:
@@ -257,4 +276,4 @@ def run(cfg: MfaBenchConfig, verbose: bool = True, device=None):
 
 
 if __name__ == "__main__":
-    run(MfaBenchConfig())
+    _main(MfaBenchConfig, run)

@@ -1,14 +1,16 @@
-"""Pipeline stages shared by the harness runners (single device).
+"""Pipeline stages shared by the harness runners.
 
-Port of `quantized_channel_estimation_tpu/harness/stages.py`, single-device
-subset: `generate_channels`, `pilot_matrix`, `sample_cov`, `observe`,
+Port of `quantized_channel_estimation_tpu/harness/stages.py`:
+`generate_channels`, `pilot_matrix`, `sample_cov`, `observe`,
 `blmmse_global`, `blmmse_genie`, `ls_global`, `gmm_fit`, `prepare_bank`,
 `nmse`, `rate`, `rate_mf`, `estimate_auto`, `estimate_coherent`,
 `estimate_coherent_auto`, `flatten_coherence`, for the structured banks
 `prepare_bank_circulant`, `prepare_bank_circulant_spectra`,
 `estimate_circulant`, `estimate_circulant_coherent`, and for MFA `mfa_fit`,
 `mfa_to_gmm`, `prepare_bank_factored`, `estimate_factored`,
-`estimate_factored_coherent`. The JAX stages wrap every
+`estimate_factored_coherent`, and `ShardedStages`, the mesh-parallel set
+of the fits and estimators (`parallel.mesh`), which `sharded_stages` builds
+for a harness run over several ranks. The JAX stages wrap every
 function in `cjit` so that complex data crosses program boundaries as
 packed (re, im) reals, because the TPU runtime has no complex buffers;
 PyTorch on CUDA has complex64 tensors, so here the stages are the plain
@@ -16,15 +18,18 @@ functions and `ops/boundary.py` has no port.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from quantized_channel_estimation_torch.estimators import (
     blmmse, circ_kernels, fact_kernels, kernels, ls, mp_circ_kernels)
 from quantized_channel_estimation_torch.models import (
     gmm, gmm_estimator, mfa, mfa_bank, structured_bank)
 from quantized_channel_estimation_torch.ops import observation, pilots, scm
+from quantized_channel_estimation_torch.parallel import mesh as pmesh
 from quantized_channel_estimation_torch.utils import metrics
 
 
@@ -83,13 +88,15 @@ flatten_coherence = scm.flatten_coherence
 
 
 def estimate_auto(bank: gmm_estimator.PreparedBank, r: torch.Tensor, mode):
-    """'all' mode -> the estimation kernel K1 (`kernels.estimate_fused`);
-    int selection modes within `kernels.topk_kernel_eligible` -> the top-k
-    kernel K4 (`kernels.estimate_fused_topk`); anything else (float
-    cumulative-p modes, k >= K, banks wider than the kernels) -> the einsum
-    estimator. Each kernel entry launches the CUDA kernel for a CUDA tensor
-    and computes its plain version for a CPU tensor."""
-    if mode == "all":
+    """'all' mode within `kernels.fused_kernel_eligible` -> the estimation
+    kernel K1 (`kernels.estimate_fused`); int selection modes within
+    `kernels.topk_kernel_eligible` -> the top-k kernel K4
+    (`kernels.estimate_fused_topk`); anything else (float cumulative-p
+    modes, k >= K, banks wider than the kernels) -> the einsum estimator.
+    Each kernel entry launches the CUDA kernel for a CUDA tensor and
+    computes its plain version for a CPU tensor."""
+    _, d, m = bank.filters.shape
+    if mode == "all" and kernels.fused_kernel_eligible(d, m):
         return kernels.estimate_fused(bank, r)
     if kernels.topk_kernel_eligible(bank, mode):
         return kernels.estimate_fused_topk(bank, r, mode)
@@ -100,8 +107,8 @@ def estimate_coherent_auto(bank: gmm_estimator.PreparedBank, r: torch.Tensor,
                            mode, alpha: float = 1.0):
     """Coherent analog of `estimate_auto` for blocks r (B, T, M): 'all'
     mode -> `kernels.estimate_fused_coherent` (K3, the alpha blend in the
-    kernel; T beyond its range takes the einsum path there), other modes ->
-    the einsum coherent estimator."""
+    kernel, or K1 at T = 1; T or widths beyond their range take the einsum
+    path there), other modes -> the einsum coherent estimator."""
     if mode == "all":
         return kernels.estimate_fused_coherent(bank, r, alpha)
     return estimate_coherent(bank, r, mode, 512, alpha)
@@ -246,6 +253,118 @@ def estimate_factored_coherent(bank: mfa_bank.FactoredBank, r: torch.Tensor,
         return fact_kernels.estimate_fused_factored_coherent(bank, r, alpha,
                                                              cache)
     return mfa_bank.estimate_factored_coherent(bank, r, mode, 1024, alpha)
+
+
+def rank_device(device=None) -> torch.device:
+    """The device of this rank of a multi-rank run: `device` when given,
+    else the card cuda:LOCAL_RANK (raises without CUDA, as
+    `resolve_device`)."""
+    if device is not None:
+        return torch.device(device)
+    resolve_device()
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+
+
+def sharded_stages(n_data_shards: int = 1, n_component_shards: int = 1):
+    """The `ShardedStages` of a harness run over n_data_shards x
+    n_component_shards ranks, or None for one rank. The default process
+    group must be initialised with exactly that many ranks, as `torchrun`
+    and `parallel.distributed.initialize` do."""
+    n = n_data_shards * n_component_shards
+    if n == 1:
+        return None
+    world = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else 1)
+    if world != n:
+        raise ValueError(
+            f"n_data_shards * n_component_shards = {n} needs torch.distributed"
+            f" initialised with {n} ranks (it has {world}): launch the script "
+            f"under torchrun --nproc-per-node={n} and call "
+            "parallel.distributed.initialize() first")
+    return ShardedStages(pmesh.make_mesh(n_data_shards, n_component_shards))
+
+
+class ShardedStages:
+    """Mesh-parallel stage set for the harness runners (JAX
+    `stages.ShardedStages`): fits run data-parallel over 'data'
+    (`parallel.mesh.fit_gmm_shard_map` / `fit_mfa_shard_map`); 'all'-mode
+    estimation runs through the sharded stats merges (samples on 'data',
+    bank on 'component': `estimate_sharded_kernel` with K2,
+    `estimate_sharded_circulant` with K8 / K9, `estimate_sharded_factored`
+    with K13), selection modes through `estimate_sharded` (K5 candidates,
+    or the einsum estimator). Every rank holds the global rows; the
+    estimators return them whole, gathered over 'data'
+    (`parallel.mesh.gather_data`)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.n_data = pmesh.axis_size(mesh, pmesh.DATA_AXIS)
+        self.n_component = pmesh.axis_size(mesh, pmesh.COMPONENT_AXIS)
+
+    @property
+    def writer(self) -> bool:
+        """Does this rank write the run's files (rank 0)?"""
+        return dist.get_rank() == 0
+
+    def barrier(self) -> None:
+        dist.barrier()
+
+    def check_divisible(self, n_train: int, n_val: int, k: int) -> None:
+        """Fail before any compute when the sweep's shapes cannot shard
+        over this mesh."""
+        if n_train % self.n_data or n_val % self.n_data:
+            raise ValueError(
+                f"n_train={n_train} and n_val={n_val} must divide over "
+                f"{self.n_data} data shards")
+        if k % self.n_component:
+            raise ValueError(f"n_components={k} must divide over "
+                             f"{self.n_component} component shards")
+
+    def gmm_fit(self, gen, h, cfg):
+        return pmesh.fit_gmm_shard_map(self.mesh, gen, h, cfg)
+
+    def mfa_fit(self, gen, x, cfg):
+        return pmesh.fit_mfa_shard_map(self.mesh, gen, x, cfg)
+
+    def gmm_quant_fit(self, *args, **kwargs):
+        raise NotImplementedError("the data-parallel quantized-training EM "
+                                  "is not ported yet (ROADMAP Queue 1 item "
+                                  "10)")
+
+    def _whole(self, x: torch.Tensor) -> torch.Tensor:
+        return pmesh.gather_data(self.mesh, x)
+
+    def estimate(self, bank, r, mode):
+        """Dense-bank sharded estimation of flat rows r (N, M)."""
+        return self._whole(pmesh.estimate_sharded(self.mesh, bank, r, mode))
+
+    def estimate_coherent(self, bank, r, mode, alpha: float = 1.0):
+        """Dense-bank sharded block estimation (r (B, T, M))."""
+        return self._whole(pmesh.estimate_sharded(
+            self.mesh, bank, r, mode, coherence_alpha=float(alpha)))
+
+    def estimate_circulant(self, bank, r, mode, blocks=None,
+                           alpha: float = 1.0):
+        """FFT-domain sharded estimation, flat or blocks; the stats merge
+        computes the 'all'-mode combine only."""
+        if mode != "all":
+            raise ValueError(
+                "mesh-sharded structured estimation computes the 'all'-mode "
+                f"stats merge (got mode={mode!r}); run selection modes "
+                "single-device or through the dense sharded route")
+        return self._whole(pmesh.estimate_sharded_circulant(
+            self.mesh, bank, r, coherence_alpha=float(alpha), blocks=blocks))
+
+    def estimate_factored(self, bank, r, mode, alpha: float = 1.0):
+        """Factored-bank sharded estimation ('all'-mode stats merge), flat
+        or blocks."""
+        if mode != "all":
+            raise ValueError(
+                "mesh-sharded factored estimation computes the 'all'-mode "
+                f"stats merge (got mode={mode!r}); run selection modes "
+                "single-device or densify for the dense sharded route")
+        return self._whole(pmesh.estimate_sharded_factored(
+            self.mesh, bank, r, coherence_alpha=float(alpha)))
 
 
 def nmse(h_est: torch.Tensor, h: torch.Tensor) -> float:

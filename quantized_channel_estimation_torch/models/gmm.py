@@ -12,21 +12,34 @@ log-likelihood| < tol, at least one iteration). The (block-)circulant types
 run the diagonal EM on the unitary-DFT-domain data and return dense
 covariances F^H diag(s) F, as every fit does. 'toeplitz' and
 'block-toeplitz' raise `NotImplementedError` (ROADMAP Queue 1 item 8).
+
+Data-parallel EM (JAX `GmmConfig.axis_name` under `shard_map`): `fit(...,
+group=)` takes this rank's equal window of the global rows (in rank order)
+and a `torch.distributed` process group over the data shards. After each
+local pass the statistics (Nk, sum r.x, sum r.xx^H or sum r.|x|^2, sum
+log-norm) are all-reduced, so every rank runs the same M-step; the init is
+the data-parallel k-means or the global random stream's window, and the
+lower bound is over the global n. `GmmConfig.psum_segments` S > 1 splits
+the pass into S segments whose partial statistics are all-reduced
+asynchronously while later chunks compute (JAX `segmented_psum_scan`);
+'auto' is 1.
 """
 from __future__ import annotations
 
 import math
 import os
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from quantized_channel_estimation_torch.models.kmeans import kmeans
 from quantized_channel_estimation_torch.ops import linalg
 from quantized_channel_estimation_torch.ops.cplx import (
     cplx2real, real_dtype_of)
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
+from quantized_channel_estimation_torch.parallel.comm import Comm, pack, unpack
 
 _F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -43,6 +56,10 @@ class GmmConfig(NamedTuple):
     kmeans_iter: int = 50
     init: str = "kmeans"    # 'kmeans' | 'random'
     n_init: int = 1         # EM restarts, best lower bound kept
+    # data-parallel fits: > 1 all-reduces the statistics of S segments of
+    # the pass as each finishes, overlapping the collective with the later
+    # chunks; 'auto' is 1 (JAX `_resolve_segments`). No effect on one device
+    psum_segments: Union[int, str] = "auto"
 
 
 class GmmParams(NamedTuple):
@@ -139,19 +156,57 @@ def _update_stats(stats: _Stats, resp: torch.Tensor, xc: torch.Tensor,
                   stats.sxx + sxx, stats.log_norm + log_norm_inc)
 
 
+def _resolve_segments(segments: Union[int, str]) -> int:
+    """'auto' -> 1, as JAX `_resolve_segments` decides from its
+    measurements (the collective is a small share of an EM pass)."""
+    return 1 if segments == "auto" else int(segments)
+
+
+def all_reduce_stats(stats: _Stats, group) -> _Stats:
+    """The statistics summed over the ranks of `group` (one collective of
+    O(K D^2) floats); unchanged without a group."""
+    if group is None:
+        return stats
+    buf = pack(list(stats))
+    dist.all_reduce(buf, group=group)
+    return _Stats(*unpack(buf, list(stats)))
+
+
 def accumulate_stats(x: torch.Tensor, log_weights: torch.Tensor, log_prob_fn,
-                     chunk: int, diag: bool = False) -> _Stats:
+                     chunk: int, diag: bool = False, group=None,
+                     psum_segments: Union[int, str] = 1) -> _Stats:
     """One pass over the data: responsibilities chunk by chunk, accumulated
-    into (Nk, sum r.x, sum r.xx^H or sum r.|x|^2, sum log-norm)."""
-    stats = _zero_stats(log_weights.shape[0], x.shape[-1], x.dtype, x.device,
-                        diag)
-    for i0 in range(0, x.shape[0], chunk):
-        xc = x[i0:i0 + chunk]
-        lp = log_prob_fn(xc) + log_weights[None, :]
-        log_norm = torch.logsumexp(lp, dim=-1)
-        resp = torch.exp(lp - log_norm[:, None])
-        stats = _update_stats(stats, resp, xc, log_norm.sum())
-    return stats
+    into (Nk, sum r.x, sum r.xx^H or sum r.|x|^2, sum log-norm). With a
+    process group the statistics are all-reduced over it; psum_segments
+    S > 1 all-reduces S partial sums asynchronously as each segment of the
+    pass finishes (equal to one all-reduce of the total up to float32
+    summation order)."""
+    starts = list(range(0, x.shape[0], chunk))
+    segs = (1 if group is None
+            else max(1, min(_resolve_segments(psum_segments), len(starts))))
+    bounds = [round(i * len(starts) / segs) for i in range(segs + 1)]
+    pending = []
+    for seg in range(segs):
+        stats = _zero_stats(log_weights.shape[0], x.shape[-1], x.dtype,
+                            x.device, diag)
+        for i0 in starts[bounds[seg]:bounds[seg + 1]]:
+            xc = x[i0:i0 + chunk]
+            lp = log_prob_fn(xc) + log_weights[None, :]
+            log_norm = torch.logsumexp(lp, dim=-1)
+            resp = torch.exp(lp - log_norm[:, None])
+            stats = _update_stats(stats, resp, xc, log_norm.sum())
+        if group is None:
+            return stats
+        buf = pack(list(stats))
+        pending.append((buf, dist.all_reduce(buf, group=group,
+                                             async_op=True)))
+    total = None
+    for buf, work in pending:
+        work.wait()
+        part = _Stats(*unpack(buf, list(stats)))
+        total = part if total is None else _Stats(
+            *(a + b for a, b in zip(total, part)))
+    return total
 
 
 def _means_from_stats(stats: _Stats, zero_mean: bool):
@@ -192,23 +247,35 @@ def _stats_from_labels(x: torch.Tensor, labels: torch.Tensor, k: int,
 
 
 def _init_resp_stats(gen: torch.Generator, x: torch.Tensor, cfg: GmmConfig,
-                     chunk: int, diag: bool = False) -> _Stats:
+                     chunk: int, diag: bool = False,
+                     group=None) -> _Stats:
     """Initial responsibilities folded into sufficient statistics:
     init='kmeans' is the hard assignment of k-means on [Re, Im]-stacked
-    float32 data; init='random' draws rows of U(0,1) normalized to sum 1."""
+    float32 data; init='random' draws rows of U(0,1) normalized to sum 1.
+    Under a group both are the single-device init of the global rows: the
+    data-parallel k-means, or the global random stream drawn chunk by chunk
+    on every rank with this rank's window kept; the statistics are
+    all-reduced."""
     k = cfg.n_components
+    comm = Comm(group, x.shape[0], x.device)
     if cfg.init == "random":
         stats = _zero_stats(k, x.shape[-1], x.dtype, x.device, diag)
-        for i0 in range(0, x.shape[0], chunk):
-            xc = x[i0:i0 + chunk]
-            resp = torch.rand((xc.shape[0], k), generator=gen,
+        lo, hi = comm.lo, comm.lo + comm.n_local
+        for i0 in range(0, comm.n_global, chunk):
+            n_c = min(chunk, comm.n_global - i0)
+            resp = torch.rand((n_c, k), generator=gen,
                               dtype=stats.nk.dtype, device=gen.device)
+            a, b = max(i0, lo), min(i0 + n_c, hi)
+            if a >= b:
+                continue
+            resp = resp[a - i0:b - i0]
             resp = (resp / resp.sum(-1, keepdim=True)).to(x.device)
-            stats = _update_stats(stats, resp, xc)
-        return stats
+            stats = _update_stats(stats, resp, x[a - lo:b - lo])
+        return all_reduce_stats(stats, group)
     labels = kmeans(gen, cplx2real(x, dim=-1).to(torch.float32), k,
-                    max_iter=cfg.kmeans_iter).labels
-    return _stats_from_labels(x, labels, k, chunk, diag)
+                    max_iter=cfg.kmeans_iter, group=group).labels
+    return all_reduce_stats(_stats_from_labels(x, labels, k, chunk, diag),
+                            group)
 
 
 class _State(NamedTuple):
@@ -230,11 +297,13 @@ def _params_from_stats(stats: _Stats, cfg: GmmConfig,
 
 
 def _em_loop(x: torch.Tensor, init_stats: _Stats, cfg: GmmConfig,
-             mode: str = "full"):
-    """EM from initial statistics, mode in {'full', 'diag', 'spherical'}.
-    Returns (state, lower_bound, n_iter, converged, lb_history)."""
-    n = x.shape[0]
-    chunk = min(cfg.chunk_size, n)
+             mode: str = "full", group=None):
+    """EM from initial statistics, mode in {'full', 'diag', 'spherical'};
+    under a group x is this rank's window and the statistics of every pass
+    are all-reduced. Returns (state, lower_bound, n_iter, converged,
+    lb_history)."""
+    n = Comm(group, x.shape[0], x.device).n_global
+    chunk = min(cfg.chunk_size, x.shape[0])
     diag = mode != "full"
     state = _params_from_stats(init_stats, cfg, mode)
     rdt = init_stats.nk.dtype
@@ -251,7 +320,7 @@ def _em_loop(x: torch.Tensor, init_stats: _Stats, cfg: GmmConfig,
             prec = linalg.robust_precision_cholesky(covs)
             log_prob_fn = lambda xc: log_prob_full(xc, means, prec)  # noqa: E731
         stats = accumulate_stats(x, torch.log(state.weights), log_prob_fn,
-                                 chunk, diag)
+                                 chunk, diag, group, cfg.psum_segments)
         state = _params_from_stats(stats, cfg, mode)
         prev, lb = lb, stats.log_norm / n
         n_iter += 1
@@ -272,27 +341,31 @@ def _dft_for(cfg: GmmConfig, d: int, dtype, device=None) -> torch.Tensor:
                       linalg.unitary_dft(n2, dtype, device))
 
 
-def _fit_once(gen: torch.Generator, h: torch.Tensor,
-              cfg: GmmConfig) -> GmmFitResult:
+def _fit_once(gen: torch.Generator, h: torch.Tensor, cfg: GmmConfig,
+              group=None) -> GmmFitResult:
     d, dtype = h.shape[-1], h.dtype
     if cfg.cov_type in ("circulant", "block-circulant"):
         f = _dft_for(cfg, d, dtype, h.device)
         x = h @ f.T                        # unitary-DFT-domain data
-        init_stats = _init_resp_stats(gen, x, cfg, cfg.chunk_size, True)
+        init_stats = _init_resp_stats(gen, x, cfg, cfg.chunk_size, True,
+                                      group)
         state, lb, n_iter, converged, history = _em_loop(x, init_stats, cfg,
-                                                         "diag")
+                                                         "diag", group)
         means = state.means @ f.conj()     # back-transform row vectors
         covs = torch.einsum("fd,kf,fe->kde", f.conj(), state.covs.to(dtype),
                             f)
         covs = linalg.hermitize(covs)
     elif cfg.cov_type == "full":
-        init_stats = _init_resp_stats(gen, h, cfg, cfg.chunk_size)
-        state, lb, n_iter, converged, history = _em_loop(h, init_stats, cfg)
+        init_stats = _init_resp_stats(gen, h, cfg, cfg.chunk_size,
+                                      group=group)
+        state, lb, n_iter, converged, history = _em_loop(h, init_stats, cfg,
+                                                         "full", group)
         means, covs = state.means, linalg.hermitize(state.covs)
     elif cfg.cov_type in ("diag", "spherical"):
-        init_stats = _init_resp_stats(gen, h, cfg, cfg.chunk_size, True)
+        init_stats = _init_resp_stats(gen, h, cfg, cfg.chunk_size, True,
+                                      group)
         state, lb, n_iter, converged, history = _em_loop(h, init_stats, cfg,
-                                                         cfg.cov_type)
+                                                         cfg.cov_type, group)
         means = state.means
         covs = torch.diag_embed(state.covs.to(dtype))
     elif cfg.cov_type in ("toeplitz", "block-toeplitz"):
@@ -308,16 +381,19 @@ def _fit_once(gen: torch.Generator, h: torch.Tensor,
     return GmmFitResult(params, lb, n_iter, converged, history)
 
 
-def fit(gen: torch.Generator, h: torch.Tensor,
-        cfg: GmmConfig) -> GmmFitResult:
+def fit(gen: torch.Generator, h: torch.Tensor, cfg: GmmConfig,
+        group: Optional[dist.ProcessGroup] = None) -> GmmFitResult:
     """Fit the complex GMM with EM; runs cfg.n_init restarts (successive
     draws of `gen`) and keeps the best lower bound. Matrix products run in
     full fp32 (`ops.precision.pin_fp32`): reduced-precision multiplies NaN
-    the factorizations at D=64."""
+    the factorizations at D=64. With `group`, h is this rank's window of
+    the global rows and the EM runs data-parallel over the group (every
+    rank returns the same fit, that of the global rows up to float32
+    summation order)."""
     pin_fp32()
-    best = _fit_once(gen, h, cfg)
+    best = _fit_once(gen, h, cfg, group)
     for _ in range(1, cfg.n_init):
-        cand = _fit_once(gen, h, cfg)
+        cand = _fit_once(gen, h, cfg, group)
         if bool(cand.lower_bound > best.lower_bound):
             best = cand
     return best

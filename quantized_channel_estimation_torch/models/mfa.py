@@ -25,8 +25,14 @@ C^{-1} = Psi^{-1} - T^H T, so no (K, D, D) inverse is ever built.
 The EM loop is a Python loop with the JAX stopping rule: at least six
 iterations (the relative change is not read while the count is <= 5), then
 until |change of the summed log-likelihood| / |log-likelihood| < tol.
-`axis_name` and `psum_segments` other than their single-device values raise
-NotImplementedError (ROADMAP Queue 1 item 15).
+
+Data-parallel EM (JAX `MfaConfig.axis_name` under `shard_map`): `fit` and
+`fit_resume` take a `torch.distributed` process group over the data
+shards and this rank's equal window of the global rows. The statistics of
+every pass are all-reduced as the GMM's are (`gmm.accumulate_stats`, with
+`psum_segments`), the initial psi is the global per-dimension variance, and
+nonzero-mean fits start from the data-parallel k-means, so every rank runs
+the fit of the global rows up to float32 summation order.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from quantized_channel_estimation_torch.models import gmm as gmm_mod
 from quantized_channel_estimation_torch.models.gmm import GmmParams
@@ -43,6 +50,7 @@ from quantized_channel_estimation_torch.ops import linalg
 from quantized_channel_estimation_torch.ops.cplx import (
     cplx2real, real_dtype_of)
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
+from quantized_channel_estimation_torch.parallel.comm import Comm
 
 _F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -62,7 +70,8 @@ class MfaConfig(NamedTuple):
     psi_floor: float = 1e-6
     chunk_size: int = 4096
     kmeans_iter: int = 50
-    axis_name: Optional[str] = None
+    # data-parallel fits: statistics all-reduced in this many segments of
+    # a pass (`gmm.accumulate_stats`); 'auto' is 1
     psum_segments: Union[int, str] = "auto"
 
 
@@ -130,13 +139,6 @@ def _weighted_cross(stats, mu_a: torch.Tensor,
             - stats.sx[:, :, None] * mu_b.conj()[:, None, :]
             - mu_a[:, :, None] * stats.sx.conj()[:, None, :]
             + nk * mu_a[:, :, None] * mu_b.conj()[:, None, :])
-
-
-def _check_supported(cfg: MfaConfig) -> None:
-    if cfg.axis_name is not None or cfg.psum_segments not in ("auto", 1):
-        raise NotImplementedError(
-            "data-parallel MFA fits (axis_name, psum_segments) are not "
-            "ported yet (ROADMAP Queue 1 item 15)")
 
 
 def _e_step_terms(p: MfaParams):
@@ -226,13 +228,13 @@ def _m_step(p: MfaParams, stats, chol, t_mat, n: int,
     return MfaParams(nk / n, means, lambdas, psis.contiguous())
 
 
-def _run_em(params0: MfaParams, x: torch.Tensor,
-            cfg: MfaConfig) -> MfaFitResult:
+def _run_em(params0: MfaParams, x: torch.Tensor, cfg: MfaConfig,
+            group=None) -> MfaFitResult:
     """The EM loop from given starting parameters (shared by `fit` and
-    `fit_resume`)."""
-    _check_supported(cfg)
-    n = x.shape[0]
-    chunk = min(cfg.chunk_size, n)
+    `fit_resume`); under a group x is this rank's window and n the global
+    row count."""
+    n = Comm(group, x.shape[0], x.device).n_global
+    chunk = min(cfg.chunk_size, x.shape[0])
     rdt = real_dtype_of(x.dtype)
     p = params0
     log_like = torch.tensor(-math.inf, dtype=rdt, device=x.device)
@@ -247,7 +249,8 @@ def _run_em(params0: MfaParams, x: torch.Tensor,
                                      or bool(rel_change() >= cfg.tol)):
         chol, t_mat, log_prob_fn = _e_step_terms(p)
         stats = gmm_mod.accumulate_stats(x, torch.log(p.weights),
-                                         log_prob_fn, chunk)
+                                         log_prob_fn, chunk, group=group,
+                                         psum_segments=cfg.psum_segments)
         p = _m_step(p, stats, chol, t_mat, n, cfg)
         prev_ll, log_like = log_like, stats.log_norm
         n_iter += 1
@@ -255,16 +258,18 @@ def _run_em(params0: MfaParams, x: torch.Tensor,
     return MfaFitResult(p, log_like, n_iter, converged)
 
 
-def fit(gen: torch.Generator, x: torch.Tensor, cfg: MfaConfig) -> MfaFitResult:
+def fit(gen: torch.Generator, x: torch.Tensor, cfg: MfaConfig,
+        group: Optional[dist.ProcessGroup] = None) -> MfaFitResult:
     """EM fit from the reference's initialisation: k-means means (zero
     means for `zero_mean`), loadings of scale 1 / sqrt(2
     max_condition_number), every psi the per-dimension data variance,
     uniform random weights. Draws come from `gen` (k-means first, then the
     loadings' real and imaginary parts, then the weights). Matrix products
-    run in full fp32 (`ops.precision.pin_fp32`)."""
-    _check_supported(cfg)
+    run in full fp32 (`ops.precision.pin_fp32`). With `group`, x is this
+    rank's window of the global rows and the fit runs data-parallel."""
     pin_fp32()
-    n, d = x.shape
+    comm = Comm(group, x.shape[0], x.device)
+    d = x.shape[1]
     m, k = cfg.latent_dim, cfg.n_components
     dtype, rdt = x.dtype, real_dtype_of(x.dtype)
     dev = gen.device
@@ -272,25 +277,25 @@ def fit(gen: torch.Generator, x: torch.Tensor, cfg: MfaConfig) -> MfaFitResult:
         means0 = torch.zeros((k, d), dtype=dtype, device=x.device)
     else:
         km = kmeans(gen, cplx2real(x, dim=-1).to(torch.float32), k,
-                    max_iter=cfg.kmeans_iter)
+                    max_iter=cfg.kmeans_iter, group=group)
         means0 = torch.complex(km.centers[:, :d], km.centers[:, d:]).to(
             dtype)
     lam_scale = 1.0 / math.sqrt(2.0 * cfg.max_condition_number)
     lr = torch.randn((k, d, m), generator=gen, dtype=rdt, device=dev)
     li = torch.randn((k, d, m), generator=gen, dtype=rdt, device=dev)
     lambdas0 = (lam_scale * torch.complex(lr, li)).to(dtype).to(x.device)
-    var = ((x - x.mean(0)).abs() ** 2).mean(0)
-    psis0 = var[None, :].expand(k, d).contiguous()
+    psis0 = comm.global_var(x)[None, :].expand(k, d).contiguous()
     amps0 = torch.rand((k,), generator=gen, dtype=rdt, device=dev)
     amps0 = (amps0 / amps0.sum()).to(x.device)
-    return _run_em(MfaParams(amps0, means0, lambdas0, psis0), x, cfg)
+    return _run_em(MfaParams(amps0, means0, lambdas0, psis0), x, cfg, group)
 
 
-def fit_resume(params: MfaParams, x: torch.Tensor,
-               cfg: MfaConfig) -> MfaFitResult:
-    """Warm-start EM from existing parameters (checkpoint-based restart)."""
+def fit_resume(params: MfaParams, x: torch.Tensor, cfg: MfaConfig,
+               group: Optional[dist.ProcessGroup] = None) -> MfaFitResult:
+    """Warm-start EM from existing parameters (checkpoint-based restart);
+    `group` as in `fit`."""
     pin_fp32()
-    return _run_em(MfaParams(*params), x, cfg)
+    return _run_em(MfaParams(*params), x, cfg, group)
 
 
 def to_gmm_params(params: MfaParams, reg: float = 0.0) -> GmmParams:

@@ -252,7 +252,7 @@ class EstimationService:
                     "mode='all' and (D, K, P) within the circulant kernels' "
                     f"range (got mode={mode!r}, D={d}, K={k_comp}, P={p})")
         else:
-            kernel_ok = (max(2 * m, 2 * d) <= kernels.MAX_WIDTH
+            kernel_ok = (kernels.fused_kernel_eligible(d, m)
                          and (mode == "all" or kernels.topk_mode_eligible(
                              d, k_comp, m, mode)))
             if use_kernels and not kernel_ok:

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1, K3, K4, the circulant K6-K9 and the
-multi-pilot circulant K10) against their plain versions on the card, and
-the estimation service on the card.
+"""The port's CUDA kernels (K1-K5, the circulant K6-K9, the multi-pilot
+circulant K10 and the factored K11-K13) against their plain versions on
+the card, the split-K forms' shard merges against one launch, and the
+estimation service on the card.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor the JAX package, so on a machine with a card and
@@ -232,6 +233,179 @@ def test_coherent_and_topk_refuse_bad_inputs():
         tkn.grouped_estimate_topk(r2.double(), kb, 1)
     assert tkn.grouped_estimate_coherent(r2[:0], kb, 2).shape == (0, 16)
     assert tkn.grouped_estimate_topk(r2[:0], kb, 2).shape == (0, 16)
+
+
+# ------------------------------------- the split-K stats kernels K2 and K5
+
+# 2M and 2D of each template instantiation (csrc/grouped_estimate.cu and
+# csrc/grouped_topk.cu dispatch on columns a lane: 2 up to 64, 4 up to 128,
+# 8 up to 256)
+WIDTH_OF_COLS = {2: 40, 4: 128, 8: 256}
+K2_COLS = [(2, 2), (2, 4), (4, 2), (4, 4), (2, 8), (8, 2), (4, 8), (8, 4),
+           (8, 8)]
+K5_COLS = [(cp, cw) for cp in (2, 4, 8) for cw in (2, 4, 8)]
+
+
+def _rand_kb(two_m, two_d, k, dev, n_dead=0, seed=0):
+    """A random kernel bank of any widths (the stats kernels need no GMM):
+    logits of a few units' spread at every width (pooled over 16 rows they
+    stay within float32's reach of the plain version), dead components at
+    the -1e30 floor."""
+    g = torch.Generator().manual_seed(seed)
+    pw = 0.3 * torch.randn(k, two_m, two_m + two_d,
+                           generator=g) / math.sqrt(two_m)
+    logw = 0.5 * torch.randn(k, generator=g)
+    logw[:n_dead] = -1e30
+    kb = tkn.KernelBankBlock(pw, 0.3 * torch.randn(k, two_m, generator=g),
+                             torch.randn(k, two_d, generator=g), logw)
+    return tkn.KernelBankBlock(*(x.to(dev).contiguous() for x in kb))
+
+
+def _rel(got, want):
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def _near_order_ties(r2, kb, k_sel, gap=1e-3):
+    """Rows whose top k_sel + 1 logits hold two within `gap` of each other
+    but not equal: float32 sums in another order may order them
+    differently, and K5 writes its candidates in that order. Dead
+    components sit exactly at the -1e30 floor in both, ordered by index."""
+    lg = tkn.component_logits(r2, kb).sort(-1, descending=True).values
+    top = lg[:, :k_sel + 1]
+    gaps = top[:, :-1] - top[:, 1:]
+    return ((gaps > 0) & (gaps < gap)).any(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cp,cw", K2_COLS)
+def test_grouped_estimate_stats_match_plain_at_every_width(cp, cw):
+    """K2 flat (ragged N, dead components) and coherent (T = 4 at alpha
+    0.5, pooled in a warp; T = 16 at alpha 1, pooled through shared memory)
+    at each instantiation: each
+    of m, den, acc against the plain version, and two shards merged with
+    `merge_stats` against one K1 / K3 launch over the whole bank."""
+    dev = _card()
+    two_m, two_d = WIDTH_OF_COLS[cp], WIDTH_OF_COLS[cw]
+    kb = _rand_kb(two_m, two_d, 6, dev, n_dead=2)
+    halves = [tkn.KernelBankBlock(*(x[lo:lo + 3] for x in kb))
+              for lo in (0, 3)]
+    for t, alpha, n in ((1, 1.0, 1001), (4, 0.5, 4 * 251),
+                        (16, 1.0, 16 * 77)):
+        r2 = _rows(n, two_m, dev)
+        # a random bank's logw stands for the coherent layout's divided one
+        if t == 1:
+            launch, plain = tkn.grouped_estimate_stats, \
+                tkn.grouped_estimate_stats_reference
+            args, whole = (), tkn.grouped_estimate(r2, kb)
+        else:
+            launch, plain = tkn.grouped_estimate_coherent_stats, \
+                tkn.grouped_estimate_coherent_stats_reference
+            args = (t, alpha)
+            whole = tkn.grouped_estimate_coherent(r2, kb, t, alpha)
+        before = launch.launches
+        states = [launch(r2, h, *args) for h in halves]
+        torch.cuda.synchronize()
+        assert launch.launches == before + 2
+        for h, got in zip(halves, states):
+            for g_part, w_part in zip(got, plain(r2, h, *args)):
+                assert g_part.shape == w_part.shape
+                assert torch.isfinite(g_part).all()
+                assert _rel(g_part, w_part) < 1e-4
+        _, den, acc = tkn.merge_stats(*zip(*states))
+        assert _rel(acc / den[:, None], whole) < 1e-4
+        _, den, acc = launch(r2, kb, *args)
+        assert _rel(acc / den[:, None], whole) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cp,cw", K5_COLS)
+def test_grouped_estimate_topk_stats_match_plain_at_every_width(cp, cw):
+    """K5 at each instantiation for k in {1, 3, 8}: the candidates against
+    the plain version (rows with near-ties among the top k + 1 logits left
+    out), and two shards merged with `merge_topk` against one K4 launch
+    (rows near a tie at the k-th place left out)."""
+    dev = _card()
+    two_m, two_d = WIDTH_OF_COLS[cp], WIDTH_OF_COLS[cw]
+    kb = _rand_kb(two_m, two_d, 16, dev, n_dead=3, seed=cp * 10 + cw)
+    halves = [tkn.KernelBankBlock(*(x[lo:lo + 8] for x in kb))
+              for lo in (0, 8)]
+    r2 = _rows(777, two_m, dev)
+    for k_sel in (1, 3, 8):
+        before = tkn.grouped_estimate_topk_stats.launches
+        cands = [tkn.grouped_estimate_topk_stats(r2, h, k_sel)
+                 for h in halves]
+        torch.cuda.synchronize()
+        assert tkn.grouped_estimate_topk_stats.launches == before + 2
+        for h, (l, z) in zip(halves, cands):
+            l_p, z_p = tkn.grouped_estimate_topk_stats_reference(r2, h, k_sel)
+            assert l.shape == (777, k_sel) and z.shape == (777, k_sel, two_d)
+            keep = ~_near_order_ties(r2, h, k_sel)
+            assert int(keep.sum()) > 0.8 * 777
+            assert _rel(l[keep], l_p[keep]) < 1e-4
+            assert _rel(z[keep], z_p[keep]) < 1e-4
+        got = tkn.merge_topk(*zip(*cands), k_sel)
+        want = tkn.grouped_estimate_topk(r2, kb, k_sel)
+        keep = ~_near_tie_rows(r2, kb, k_sel)
+        assert _rel(got[keep], want[keep]) < 1e-4
+
+
+@pytest.mark.cuda
+def test_stats_kernels_refuse_bad_inputs_and_one_past_the_rule():
+    """The widths' edge (2M = 2D = 256 runs; 258 is refused by the
+    wrappers and taken by the einsum stats path in the entries), K5's k
+    range and a shard smaller than k (padded with -inf and zeros)."""
+    dev = _card()
+    kb = _rand_kb(16, 16, 3, dev)
+    r2 = _rows(12, 16, dev)
+    for k_sel in (0, 9):
+        with pytest.raises(ValueError, match="k"):
+            tkn.grouped_estimate_topk_stats(r2, kb, k_sel)
+    l, z = tkn.grouped_estimate_topk_stats(r2, kb, 5)
+    l_p, z_p = tkn.grouped_estimate_topk_stats_reference(r2, kb, 5)
+    assert torch.isinf(l[:, 3:]).all() and bool((z[:, 3:] == 0).all())
+    assert torch.equal(torch.isinf(l_p), torch.isinf(l))
+    assert _rel(z, z_p) < 1e-4
+    with pytest.raises(ValueError, match="T"):
+        tkn.grouped_estimate_coherent_stats(r2, kb, 5)
+    wide = _rand_kb(258, 16, 2, dev)
+    with pytest.raises(ValueError, match="256"):
+        tkn.grouped_estimate_stats(_rows(3, 258, dev), wide)
+    for m_out, _, acc in (tkn.grouped_estimate_stats(r2[:0], kb),
+                          tkn.grouped_estimate_coherent_stats(r2[:0], kb, 2)):
+        assert m_out.shape == (0,) and acc.shape == (0, 16)
+    # the entries past the rule: the einsum stats path, on the card
+    bank = _bank(8, 4, 17, dev)                      # M = 136: 2M = 272
+    assert not tkn.fused_kernel_eligible(8, 136)
+    g = torch.Generator(device=dev).manual_seed(4)
+    r = torch.complex(torch.randn(64, 136, generator=g, device=dev),
+                      torch.randn(64, 136, generator=g, device=dev))
+    before = tkn.launch_counts()
+    for got, want in zip(tkn.estimate_fused_stats(bank, r),
+                         tge.estimate_stats(bank, r)):
+        assert _rel(got, want) < 1e-5
+    assert tkn.launch_counts() == before
+    with pytest.raises(ValueError, match="256"):
+        tkn.estimate_fused_topk_stats(bank, r, 2)
+
+
+@pytest.mark.cuda
+def test_f1_wide_dense_bank_takes_the_einsum_estimator():
+    """Fault F1: a dense bank with 2M = 512 (four pilots, D = 64) through
+    `stages.estimate_auto` and `kernels.estimate_fused_coherent` at T = 1
+    returns the einsum estimator's answer instead of raising."""
+    dev = _card()
+    bank = _bank(64, 8, 4, dev, n_dead=1)
+    g = torch.Generator(device=dev).manual_seed(5)
+    r = torch.complex(torch.randn(2048, 256, generator=g, device=dev),
+                      torch.randn(2048, 256, generator=g, device=dev))
+    want = tge.estimate(bank, r, "all")
+    before = tkn.launch_counts()
+    for got in (stages.estimate_auto(bank, r, "all"),
+                tkn.estimate_fused_coherent(bank, r[:, None])[:, 0],
+                stages.estimate_coherent_auto(bank, r[:, None], "all")[:, 0]):
+        assert got.shape == want.shape and torch.isfinite(got.abs()).all()
+        assert _rel(got, want) < 1e-5
+    assert tkn.launch_counts() == before
 
 
 @pytest.mark.cuda

@@ -8,12 +8,17 @@ run's own keys. Both then write the same CSV columns, and every MSE and
 rate row agrees to rtol 1e-4 (complex64 data, float32 sums in another
 order; the 'all'-mode GMM estimate goes through the plain K1 here and the
 einsum estimator in JAX).
+
+The mesh options (`n_data_shards`, `n_component_shards`) run in one
+2-rank Gloo group spawned for this file (tests/_torch_parallel_worker.py);
+their rows equal the single-device run's to rtol 1e-4.
 """
 import ast
 import csv
 import dataclasses
 import glob
 import os
+import sys
 from pathlib import Path
 
 import jax
@@ -30,6 +35,8 @@ from quantized_channel_estimation_torch.harness import stages as tst
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO / "tests"))
+import _torch_parallel_worker as worker  # noqa: E402
 
 
 def _read_csv(results_dir, rate):
@@ -245,6 +252,43 @@ def test_run_gmm_fits_and_caches_on_its_own(tmp_path):
     np.testing.assert_allclose(again["blmmse_genie"], mse["blmmse_genie"])
 
 
+@pytest.fixture(scope="module")
+def sharded_runs(tmp_path_factory):
+    """The sharded `run_gmm` / `run_mfa` runs of `worker.HARNESS` in one
+    2-rank Gloo group (tests/_torch_parallel_worker.py), with rank 0's
+    single-device run of each; a hang fails at the timeout."""
+    root = tmp_path_factory.mktemp("gloo2_harness")
+    try:
+        return worker.spawn_group(root, "harness", 300), root
+    except RuntimeError as err:
+        pytest.fail(str(err))
+
+
+def _sharded_rows_match(sharded_runs, name):
+    """Both ranks' MSE and rate rows of the sharded run `name` equal the
+    single-device run's to rtol 1e-4 (float32 sums in another order);
+    rank 0 alone wrote the tables."""
+    res, root = sharded_runs
+    mse1, rate1 = res[0][f"harness1/{name}"]
+    for rank in range(2):
+        mse, rate = res[rank][f"harness/{name}"]
+        assert mse.keys() == mse1.keys() and rate.keys() == rate1.keys()
+        for col in mse1:
+            np.testing.assert_allclose(mse[col], mse1[col], rtol=1e-4,
+                                       err_msg=col)
+        for col in rate1:
+            np.testing.assert_allclose(rate[col], rate1[col], rtol=1e-4,
+                                       err_msg=col)
+    assert len(os.listdir(root / name / "rank0" / "3gpp")) >= 1
+    assert not (root / name / "rank1" / "3gpp").exists()
+
+
+@pytest.mark.parametrize("name", sorted(worker.HARNESS))
+def test_sharded_harness_rows_match_the_single_device_run(sharded_runs,
+                                                          name):
+    _sharded_rows_match(sharded_runs, name)
+
+
 @pytest.mark.parametrize("change,item", [
     (dict(channel_model="mimo"), "item 14"),
     (dict(cov_type="toeplitz"), "Queue 1 item 8"),
@@ -252,7 +296,14 @@ def test_run_gmm_fits_and_caches_on_its_own(tmp_path):
     (dict(gmm_fit_segments=2), "item 8"),
     (dict(cov_type="block-toeplitz", blocks=(8, 8)), "Queue 1 item 8"),
 ])
-def test_unported_options_raise(change, item):
+def test_unported_options_raise(change, item, request):
+    """Options of later slices raise naming their ROADMAP item. Item 15
+    (mesh parallelism) is ported: its case holds the 2-rank run's rows
+    against the single-device run's instead."""
+    if item == "item 15":
+        _sharded_rows_match(request.getfixturevalue("sharded_runs"),
+                            "gmm_data2")
+        return
     cfg = dataclasses.replace(trun.GmmBenchConfig(), **change)
     with pytest.raises(NotImplementedError, match=item):
         trun.run(cfg, device="cpu")
@@ -409,13 +460,39 @@ def test_run_mfa_factored_matches_densified(tmp_path):
 @pytest.mark.parametrize("change,item", [
     (dict(channel_model="mimo"), "item 14"),
     (dict(n_data_shards=2), "item 15"),
-    (dict(n_component_shards=4), "item 15"),
+    (dict(n_component_shards=2), "item 15"),
 ])
-def test_run_mfa_unported_options_raise(change, item):
+def test_run_mfa_unported_options_raise(change, item, request):
+    """As `test_unported_options_raise`: the mesh options' cases hold the
+    2-rank runs' rows against the single-device run's."""
+    if item == "item 15":
+        name = ("mfa_data2" if change.get("n_data_shards", 1) > 1
+                else "mfa_comp2")
+        _sharded_rows_match(request.getfixturevalue("sharded_runs"), name)
+        return
     from quantized_channel_estimation_torch.harness import run_mfa as trun_mfa
     cfg = dataclasses.replace(trun_mfa.MfaBenchConfig(), **change)
     with pytest.raises(NotImplementedError, match=item):
         trun_mfa.run(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("runner,change", [
+    ("gmm", dict(n_data_shards=2)),
+    ("gmm", dict(n_component_shards=2)),
+    ("mfa", dict(n_data_shards=2)),
+    ("mfa", dict(n_component_shards=4)),
+])
+def test_sharded_options_need_a_group_of_that_size(runner, change):
+    """The mesh options run over the ranks of an initialised
+    torch.distributed group (their rows against the single-device run:
+    tests/test_torch_parallel.py); outside one they refuse before any
+    work, naming torchrun."""
+    from quantized_channel_estimation_torch.harness import run_mfa as trun_mfa
+    mod = trun if runner == "gmm" else trun_mfa
+    config = trun.GmmBenchConfig if runner == "gmm" \
+        else trun_mfa.MfaBenchConfig
+    with pytest.raises(ValueError, match="torchrun"):
+        mod.run(dataclasses.replace(config(), **change), device="cpu")
 
 
 def test_run_mfa_raises_without_cuda(monkeypatch):

@@ -174,10 +174,15 @@ def test_fit_runs_the_jax_stopping_rule_and_init():
     assert np.isfinite(float(res.log_likelihood))
     more = tmfa.fit_resume(res.params, xt, cfg._replace(max_iter=3))
     assert float(more.log_likelihood) >= float(res.log_likelihood) - 1e-3
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tmfa.fit(gen, xt, cfg._replace(axis_name="data"))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tmfa.fit_resume(res.params, xt, cfg._replace(psum_segments=2))
+    # psum_segments only splits a process group's all-reduce: one device
+    # fits alike (the 2-rank forms are in tests/test_torch_parallel.py)
+    seg = tmfa.fit(torch.Generator().manual_seed(0), xt,
+                   cfg._replace(psum_segments=2))
+    assert seg.n_iter == res.n_iter
+    assert float(seg.log_likelihood) == float(res.log_likelihood)
+    seg_more = tmfa.fit_resume(res.params, xt,
+                               cfg._replace(max_iter=3, psum_segments=2))
+    assert float(seg_more.log_likelihood) == float(more.log_likelihood)
 
 
 def test_to_gmm_params_matches_jax(prior):
