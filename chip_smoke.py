@@ -85,6 +85,18 @@ Phases (any failure exits non-zero; nothing is caught):
   4. CUDA-event times of each kernel, its plain version and a library
      yardstick at the headline shapes (K11-K13 at M = 16; K2 also on one
      32-component shard), beside the least time the card could take;
+  5. the kernel-measurement path, K1's variants: the Karatsuba estimator
+     K14a, the bf16 tensor-core modes K14b ('bf16', 'split2', 'split3') and
+     the seven bodies of the floor probe K15 against their plain versions
+     at the headline shapes, a ragged N and with dead components, and
+     against K1 (K14a to 1e-4 of the scale, K15 `full` bit for bit, K14b
+     within the JAX tests' relative norms 3e-2 / 1e-4 / 3e-2); then the
+     tools `kernel_floor_probe`, `kernel_bench` and `kernel_split_bench`
+     at their defaults with their own launch counts (no probe variant under
+     the GEMM's operation floor; K1's and split3's MSE within 1e-3 of the
+     einsum estimator's at 10 and 20 dB), the times of K14a, K14b and K15
+     as in phase 4, and one K1 launch under `utils.profiling.trace` with
+     its row of the profiler's table;
 then one JSON line of kernels, one of the main paths' results, one of the
 serving phase, the card line, and the final status line. It imports nothing
 of JAX and uses one card.
@@ -103,8 +115,11 @@ import torch
 
 # published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12   # dense, tensor cores
 PEAK_HBM_BYTES = 3.35e12
 TOL = 1e-4          # max |kernel - plain| / max |plain|, float32 sums
+# K14b against K1: relative norms of the JAX tests (test_pallas_kernels.py)
+TC_BOUNDS = {"bf16": 3e-2, "split3": 1e-4, "split2": 3e-2}
 TIE_GAP = 1e-3      # top-k rows closer than this to a tie are not compared
 N_BENCH, D, K, N_BITS, SNR = 131072, 64, 64, 2, 10.0
 K_WIDE = 256        # components of the spectra-native serving prior
@@ -122,39 +137,6 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def bench_bank(dev, n_dead=0, k=K, n_pilots=1):
-    """A random full-covariance zero-mean GMM bank as the headline
-    benchmark builds it: k covariances A A^H / D + I scaled to trace D,
-    uniform weights (n_dead of them pushed below the dead floor), under
-    the n_pilots-pilot matrix of `pilots.pilot_matrix`."""
-    from quantized_channel_estimation_torch.models import gmm, gmm_estimator
-    from quantized_channel_estimation_torch.ops import linalg, pilots
-    from quantized_channel_estimation_torch.ops import quantizer as Q
-    from quantized_channel_estimation_torch.ops.cplx import crandn
-    gen = torch.Generator(device=dev).manual_seed(0)
-    a = crandn(gen, (k, D, D))
-    covs = a @ a.mH / D + torch.eye(D, dtype=a.dtype, device=dev)
-    tr = torch.diagonal(covs, dim1=-2, dim2=-1).real.sum(-1)
-    covs = covs * (D / tr)[:, None, None]
-    w = torch.full((k,), 1.0 / k, device=dev)
-    w[:n_dead] = 1e-9
-    params = gmm.GmmParams(w / w.sum(),
-                           torch.zeros(k, D, dtype=a.dtype, device=dev),
-                           covs, linalg.robust_precision_cholesky(covs))
-    q = Q.design_quantizer(SNR, N_BITS).to(dev)
-    a_mat = pilots.pilot_matrix(D, n_pilots, N_BITS, device=dev)
-    return gmm_estimator.prepare_bank(params, SNR, a_mat, N_BITS, q), q
-
-
-def bench_obs(dev, q, n, d=D):
-    """Quantized observations of unit-power channels at 10 dB, 2 bits."""
-    from quantized_channel_estimation_torch.ops import observation
-    from quantized_channel_estimation_torch.ops.cplx import crandn
-    gen = torch.Generator(device=dev).manual_seed(1)
-    h = crandn(gen, (n, d))
-    return observation.observe(gen, h, SNR, None, N_BITS, q)
 
 
 def circ_prior(dev, d=D, k=K, n_dead=0):
@@ -265,23 +247,6 @@ def serving_params():
         np.complex64)
     return gmm.GmmParams(np.full((K,), 1.0 / K, np.float32),
                          np.zeros((K, D), np.complex64), covs, prec)
-
-
-def cuda_ms(fn, reps=5):
-    """Median over `reps` of one call timed with CUDA events (after one
-    warm-up call)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
 
 
 def near_ties(r2, kb, k_sel):
@@ -499,14 +464,17 @@ def main():
         return 1
     from quantized_channel_estimation_torch import serving
     from quantized_channel_estimation_torch.estimators import (
-        circ_kernels, fact_kernels, kernels, mp_circ_kernels)
+        circ_kernels, fact_kernels, kernels, mp_circ_kernels, variant_kernels)
     from quantized_channel_estimation_torch.harness import (
         run_gmm, run_mfa, stages)
     from quantized_channel_estimation_torch.models import (
         gmm_estimator, mfa, mfa_bank, structured_bank)
     from quantized_channel_estimation_torch.ops import observation, pilots
     from quantized_channel_estimation_torch.ops import quantizer as Q
+    from quantized_channel_estimation_torch.tools import (
+        common, kernel_bench, kernel_floor_probe, kernel_split_bench)
     from quantized_channel_estimation_torch.utils import io as qio
+    from quantized_channel_estimation_torch.utils import profiling
     from quantized_channel_estimation_torch.ops.precision import pin_fp32
 
     t0 = time.time()
@@ -522,10 +490,10 @@ def main():
     log(f"build: {time.time() - tb:.1f}s")
 
     # 2. kernels against their plain versions
-    bank, q = bench_bank(dev)
-    dead_bank = bench_bank(dev, n_dead=5)[0]
+    bank, q = common.headline_bank(dev)
+    dead_bank = common.headline_bank(dev, n_dead=5)[0]
     kb = kernels.kernel_bank_block(bank)
-    r = bench_obs(dev, q, N_BENCH)
+    r = common.observations(dev, q, N_BENCH)
     r2 = torch.cat([r.real, r.imag], dim=-1).float().contiguous()
     errs = {name: [] for name in kernels.launch_counts()}
     n_val = run_gmm.GmmBenchConfig().n_val     # the main path's batch
@@ -641,7 +609,7 @@ def main():
                4, 0.25)
     for d_w, k_w in ((32, 40), (128, 128)):
         wbank = circ_bank(dev, q, d_w, k_w, n_dead=3)
-        xw = ck._x2(bench_obs(dev, q, 20001 * 4, d_w))
+        xw = ck._x2(common.observations(dev, q, 20001 * 4, d_w))
         whole = check_circ(f"D={d_w}, K={k_w}", wbank, xw[:20001])
         check_stats(f"D={d_w}, K={k_w}", wbank, xw[:20001], whole)
         check_circ(f"D={d_w}, K={k_w}, T=4, alpha=0.25", wbank, xw, None, 4,
@@ -832,7 +800,7 @@ def main():
                                          kernels.kernel_bank_block(dead_bank)))
     # the 128-component shards of a K = 256 bank (the widest a shard of the
     # served K = 256 prior is); one K1 launch streams all 256
-    kb_wide = kernels.kernel_bank_block(bench_bank(dev, k=K_WIDE)[0])
+    kb_wide = kernels.kernel_bank_block(common.headline_bank(dev, k_comp=K_WIDE)[0])
     check_k2(f"K={K_WIDE}", kb_wide, r2, 2, kernels.grouped_estimate(r2,
                                                                      kb_wide))
     del kb_wide
@@ -849,7 +817,7 @@ def main():
     # 2f. fault F1: a dense bank past the kernels' widths (four pilots at
     # D = 64, so 2M = 512) through the stages takes the einsum estimator
     # instead of raising in K1
-    wide_bank = bench_bank(dev, n_pilots=4)[0]
+    wide_bank = common.headline_bank(dev, n_pilots=4)[0]
     a4 = pilots.pilot_matrix(D, 4, N_BITS, device=dev)
     g4 = torch.Generator(device=dev).manual_seed(2)
     from quantized_channel_estimation_torch.ops.cplx import crandn
@@ -1359,25 +1327,25 @@ def main():
     nbytes = 4.0 * (n * two_m + n * two_d + kb.pw.numel() + kb.mu.numel()
                     + kb.b.numel() + kb.logw.numel())
 
-    def bound(flops, nbytes=nbytes):
-        ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-        by = ("operations" if flops / PEAK_FP32_FLOPS
-              >= nbytes / PEAK_HBM_BYTES else "bytes")
+    def bound(flops, nbytes=nbytes, tc_flops=0.0):
+        ops_s = flops / PEAK_FP32_FLOPS + tc_flops / PEAK_BF16_FLOPS
+        ms = max(ops_s, nbytes / PEAK_HBM_BYTES) * 1e3
+        by = "operations" if ops_s >= nbytes / PEAK_HBM_BYTES else "bytes"
         return ms, by
 
     def timed(label, kern, plain, library, flops, nbytes=nbytes,
-              library_chunked=None, two_m=two_m):
-        plain_ms = cuda_ms(plain)
-        ms = cuda_ms(kern)
-        ms2 = cuda_ms(kern)
-        plain_ms2 = cuda_ms(plain)
-        library_ms = cuda_ms(library)
-        bound_ms, bound_by = bound(flops, nbytes)
+              library_chunked=None, two_m=two_m, tc_flops=0.0):
+        plain_ms = profiling.device_ms(plain)
+        ms = profiling.device_ms(kern)
+        ms2 = profiling.device_ms(kern)
+        plain_ms2 = profiling.device_ms(plain)
+        library_ms = profiling.device_ms(library)
+        bound_ms, bound_by = bound(flops, nbytes, tc_flops)
         rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": library_ms}
         note = ""
         if library_chunked is not None:
-            rec["library_chunked_ms"] = cuda_ms(library_chunked)
+            rec["library_chunked_ms"] = profiling.device_ms(library_chunked)
             note = (f" (at the pipeline's default chunks "
                     f"{rec['library_chunked_ms']:.3f} ms)")
         log(f"{label} at N={n}, 2M={two_m}, 2D={two_d}, K={K}: kernel "
@@ -1558,6 +1526,151 @@ def main():
         4.0 * n * (two_m + k_sel * (1 + two_d)) + bank_bytes)
         for k_sel in (1, 4)}
 
+    # 5. the kernel-measurement path: K1's variants K14a (Karatsuba), K14b
+    # ('bf16', 'split2', 'split3' on bf16 tensor cores) and the floor probe
+    # K15. 5a: each against its plain version at the headline shapes, a
+    # ragged N and with 5 dead components (full_fixedmax not on the dead
+    # bank: it anchors its softmax at logw_0, a dead component there, so
+    # both versions give NaN), and against K1 on the same bank: K14a and
+    # K15 full are K1's function (K15 full bit for bit), K14b within the
+    # JAX tests' bounds.
+    vk, fp_tool = variant_kernels, kernel_floor_probe
+    r_re, r_im = r.real.contiguous(), r.imag.contiguous()
+    kk = vk.kernel_bank(bank)
+    planes = vk.split_planes(kb.pw)
+    probe_errs = {}
+    for label, bank_c, rows in (("full", bank, r),
+                                ("ragged", bank, r[:10001]),
+                                ("dead", dead_bank, r[:8191])):
+        kb_c, kk_c = kernels.kernel_bank_block(bank_c), vk.kernel_bank(bank_c)
+        planes_c = vk.split_planes(kb_c.pw)
+        x2 = kernels._r2(rows)
+        x_re, x_im = rows.real.contiguous(), rows.imag.contiguous()
+        errs["karatsuba_estimate"].append(compare(
+            "karatsuba_estimate", label,
+            torch.cat(vk.karatsuba_estimate(x_re, x_im, kk_c), -1),
+            torch.cat(vk.reference_estimate_packed(kk_c, x_re, x_im), -1)))
+        for mode, wrapper in vk.TC_WRAPPERS.items():
+            errs[wrapper.__name__].append(compare(
+                wrapper.__name__, label, wrapper(x2, kb_c, planes_c),
+                vk.grouped_tc_estimate_reference(x2, kb_c, planes_c,
+                                                 vk.MODES[mode])))
+        for name in fp_tool.VARIANTS:
+            if name == "full_fixedmax" and label == "dead":
+                continue
+            err = compare("floor_probe", f"{name}, {label}",
+                          fp_tool.floor_probe(x2, kb_c, name),
+                          fp_tool.floor_probe_reference(x2, kb_c, name))
+            probe_errs[name] = max(probe_errs.get(name, 0.0), err)
+    # the row's error is `full`'s; combine_only weighs a dead component by
+    # its -1e30 log-weight, so its outputs (and errors) reach 1e30 there
+    errs["floor_probe"].append(probe_errs["full"])
+    h1 = kernels.grouped_estimate(r2, kb)
+    scale1 = float(h1.abs().max())
+    vs_k1 = {"karatsuba_estimate": float((torch.cat(vk.karatsuba_estimate(
+        r_re, r_im, kk), -1) - h1).abs().max()) / scale1}
+    if not vs_k1["karatsuba_estimate"] <= TOL:
+        raise AssertionError(f"K14a off K1: {vs_k1}")
+    if not torch.equal(fp_tool.floor_probe(r2, kb, "full"), h1):
+        raise AssertionError("K15 full is not K1 bit for bit")
+    for mode, wrapper in vk.TC_WRAPPERS.items():
+        got = wrapper(r2, kb, planes)
+        vs_k1[wrapper.__name__] = float(torch.linalg.vector_norm(got - h1)
+                                        / torch.linalg.vector_norm(h1))
+        if not vs_k1[wrapper.__name__] < TC_BOUNDS[mode]:
+            raise AssertionError(f"K14b {mode} off K1: {vs_k1}")
+    log(f"against K1 at N={n}: K14a max rel {vs_k1['karatsuba_estimate']:.3e}"
+        f" (tol {TOL}); K15 full bit for bit; K14b relative norms "
+        + ", ".join(f"{m} {vs_k1[w.__name__]:.3e} (bound {TC_BOUNDS[m]})"
+                    for m, w in vk.TC_WRAPPERS.items()))
+
+    # 5b. the path itself, through the tools' entry points at their
+    # defaults, its launches counted alone: the floor probe, kernel_bench
+    # and kernel_split_bench (an SCM fit, 10 and 20 dB). No probe variant
+    # may run under the GEMM's operation floor (a variant that did would
+    # have lost GEMM work); K1's and split3's MSE within 1e-3 of the
+    # einsum estimator's.
+    kernels.reset_launch_counts()
+    tm = time.time()
+    probe = kernel_floor_probe.main([])
+    bench = kernel_bench.main([])
+    split = kernel_split_bench.main([])
+    torch.cuda.synchronize()
+    tools_s = time.time() - tm
+    launches_tools = kernels.launch_counts()
+    add(launches_tools)
+    log(f"kernel tools: {tools_s:.1f}s; launches {launches_tools}")
+    for name in ("grouped_estimate", "karatsuba_estimate", "floor_probe",
+                 *(w.__name__ for w in vk.TC_WRAPPERS.values())):
+        if launches_tools[name] < 1:
+            raise AssertionError(f"the kernel tools did not launch {name}")
+    under = {k: v for k, v in probe["ms"].items() if v < probe["floor_ms"]}
+    if under:
+        raise AssertionError(f"probe variants under the GEMM floor "
+                             f"{probe['floor_ms']:.3f} ms: {under}")
+    for snr, row in split["rows"].items():
+        yard = row["einsum_f32"]["mse"]
+        for name, rec in row.items():
+            if not math.isfinite(rec["mse"]):
+                raise AssertionError(f"non-finite MSE at {snr} dB: {name}")
+        for name in ("kernel_f32", "kernel_split3"):
+            if abs(row[name]["mse"] - yard) > 1e-3 * yard:
+                raise AssertionError(f"{name} MSE off the einsum estimator's "
+                                     f"at {snr} dB: {row[name]['mse']} vs "
+                                     f"{yard}")
+
+    # 5c. times at the headline shapes. K14a: 6 N M (M+D) K operations;
+    # bytes: r_re, r_im read, h_re, h_im written, the bank once; library:
+    # the complex GEMM r [conj(P) | W^T] over all components. K14b: passes
+    # x K1's GEMM on the bf16 tensor cores plus 2 N K (2M + 2D) fp32
+    # epilogue operations; bytes: r2 read, the output written, the bf16
+    # planes (one, or hi and lo) and mu, b, logw once; library: the same
+    # one, two or three bf16 torch.matmul products. K15 full: K1's bound
+    # and yardstick.
+    kar_bytes = 4.0 * (4 * n * D + sum(x.numel() for x in kk))
+    flat_c = torch.cat([torch.complex(kk.pc_re, kk.pc_im),
+                        torch.complex(kk.wt_re, kk.wt_im)], -1).permute(
+        1, 0, 2).reshape(D, -1).contiguous()
+    t14a = timed("K14a", lambda: vk.karatsuba_estimate(r_re, r_im, kk),
+                 lambda: vk.reference_estimate_packed(kk, r_re, r_im),
+                 lambda: r @ flat_c, 6.0 * n * D * (D + D) * K, kar_bytes,
+                 two_m=D)
+    rh = r2.to(torch.bfloat16)
+    rl = (r2 - rh.float()).to(torch.bfloat16)
+    fh, fl = (p.permute(1, 0, 2).reshape(two_m, -1).contiguous()
+              for p in planes)
+    library_tc = {"bf16": lambda: rh @ fh,
+                  "split2": lambda: (rh @ fh, rh @ fl),
+                  "split3": lambda: (rh @ fh, rh @ fl, rl @ fh)}
+    t14b = {}
+    for mode, wrapper in vk.TC_WRAPPERS.items():
+        passes = vk.MODES[mode]
+        tc_bytes = 4.0 * (n * two_m + n * two_d + kb.mu.numel()
+                          + kb.b.numel() + kb.logw.numel()) \
+            + 2.0 * kb.pw.numel() * min(passes, 2)
+        t14b[mode] = timed(
+            f"K14b ({mode})", lambda w=wrapper: w(r2, kb, planes),
+            lambda p=passes: vk.grouped_tc_estimate_reference(r2, kb, planes,
+                                                              p),
+            library_tc[mode], 2.0 * n * K * (two_m + two_d), tc_bytes,
+            tc_flops=passes * gemm_flops)
+    t15 = timed("K15 (full)", lambda: fp_tool.floor_probe(r2, kb, "full"),
+                lambda: fp_tool.floor_probe_reference(r2, kb, "full"), gemm,
+                gemm_flops)
+
+    # 5d. one K1 launch under `profiling.trace`, and its row of the
+    # profiler's table
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as prof:
+            kernels.grouped_estimate(r2, kb)
+        table = prof.key_averages().table(row_limit=-1).splitlines()
+        traced = os.path.getsize(os.path.join(tmp, "trace.json"))
+    rows_k1 = [line for line in table if "grouped_estimate_kernel" in line]
+    log("profiler (one K1 launch, trace "
+        f"{traced} bytes):\n" + "\n".join(table[:3] + rows_k1))
+    if not rows_k1:
+        raise AssertionError("the profiler table holds no K1 kernel row")
+
     src = "quantized_channel_estimation_torch/csrc/"
     tpu = "quantized_channel_estimation_tpu/estimators/pallas_kernels.py"
     print(json.dumps({"kernels": [
@@ -1634,6 +1747,25 @@ def main():
          "launches": total_launches["fact_estimate_stats"],
          "max_abs_err": max(errs["fact_estimate_stats"]),
          "latent_dim": M_LAT, **t13},
+        {"name": "karatsuba_estimate", "id": "K14a", "route": "cuda",
+         "source": src + "karatsuba_estimate.cu", "replaces": f"{tpu}:105",
+         "launches": total_launches["karatsuba_estimate"],
+         "max_abs_err": max(errs["karatsuba_estimate"]),
+         "vs_k1_max_rel": vs_k1["karatsuba_estimate"], **t14a},
+        *({"name": w.__name__, "id": f"K14b_{mode}", "route": "cuda",
+           "source": src + "grouped_tc_estimate.cu",
+           "replaces": f"{tpu}:{430 if mode == 'bf16' else 440}",
+           "launches": total_launches[w.__name__],
+           "max_abs_err": max(errs[w.__name__]),
+           "vs_k1_rel_norm": vs_k1[w.__name__], **t14b[mode]}
+          for mode, w in vk.TC_WRAPPERS.items()),
+        {"name": "floor_probe", "id": "K15", "route": "cuda",
+         "source": src + "floor_probe.cu",
+         "replaces": "tools/kernel_floor_probe.py:191",
+         "launches": total_launches["floor_probe"],
+         "max_abs_err": max(errs["floor_probe"]), "variant": "full", **t15,
+         "variants_ms": probe["ms"], "gemm_floor_ms": probe["floor_ms"],
+         "variants_max_abs_err": probe_errs},
     ]}))
     print(json.dumps({"main_path": {
         "defaults": {"mse": mse, "rate": rate, "seconds": main_s,
@@ -1660,6 +1792,9 @@ def main():
             "mse": mse_fc, "rate": rate_fc, "seconds": mfa_coh_s,
             "timings": timings_fc, "launches": launches_fc},
         "mesh_world_size_1": mesh_rec, "f1_rel_to_einsum": f1,
+        "kernel_tools": {"seconds": tools_s, "launches": launches_tools,
+                         "kernel_bench_ms": bench["ms"],
+                         "split_bench": split},
         "total_seconds": time.time() - t0}}))
     print(json.dumps({"serving": serve}))
     print(card)

@@ -30,8 +30,8 @@
 // against ~0.15 GB of compulsory traffic (0.04 ms at 3.35 TB/s): the kernel
 // is bound by fp32 FMA throughput; the pooling adds O(N K) work. TF32
 // tensor cores are excluded for accuracy (logits at 20 dB are large and a
-// 10-bit mantissa moves the posterior); 3xTF32 tensor-core GEMMs are later
-// work (kernel K14).
+// 10-bit mantissa moves the posterior); the opt-in bf16 and hi/lo split
+// tensor-core modes are K14b (grouped_tc_estimate.cu).
 //
 // Design, simple and correct first:
 //   - one block of 8 warps per tile of 8*RPW rows; the r tile sits in shared
@@ -52,8 +52,10 @@
 //   - online-softmax update of the per-row accumulator in registers;
 //   - the ragged last tile is masked in the kernel (no padding copy);
 //   - STATS writes two floats a row more than K1 and skips the division.
-// Any N and K, 2M and 2D up to 256.
-#include "stream_common.cuh"
+// Any N and K, 2M and 2D up to 256. The stream itself is in
+// grouped_stream.cuh, which the floor probe K15 (floor_probe.cu) compiles
+// too.
+#include "grouped_stream.cuh"
 
 namespace {
 
@@ -71,191 +73,9 @@ __global__ void __launch_bounds__(kThreads)
                             float* __restrict__ den_out, int n, int k_comp,
                             int two_m, int two_d, int vec, int t_coh,
                             float coh_alpha) {
-  constexpr int kTileN = kWarps * RPW;
-  extern __shared__ __align__(16) float smem[];
-  const int s_cols = two_m + two_d;
-  const int r_stride = (two_m + 3) & ~3;
-  const int buf_floats = kKc * s_cols;
-  float* r_s = smem;
-  float* pw_s = smem + kTileN * r_stride;
-  float* lg_s = pw_s + 2 * buf_floats;  // K3: one component's tile logits
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  // rows of this tile: whole T-row blocks for K3
-  const int tile_rows = COH ? (kTileN / t_coh) * t_coh : kTileN;
-  const int row0 = blockIdx.x * tile_rows;
-  // K3 blocks inside one warp (T divides RPW, so T is a power of two):
-  // rows i and j share a block iff (i ^ j) & ~(T - 1) == 0
-  const bool in_warp = COH && (RPW % t_coh == 0);
-  const int t_mask = ~(t_coh - 1);
-
-  // r tile -> shared memory; masked rows read as zeros (never stored)
-  for (int i = threadIdx.x; i < kTileN * two_m; i += kThreads) {
-    const int rr = i / two_m, cc = i - rr * two_m;
-    const int row = row0 + rr;
-    r_s[rr * r_stride + cc] =
-        (rr < tile_rows && row < n) ? r2[(size_t)row * two_m + cc] : 0.f;
-  }
-
-  // per-lane column offsets into a pw_k row; masked columns read column 0
-  // (in bounds) and their accumulators are never used
-  int off_p[CP], off_w[CW];
-#pragma unroll
-  for (int j = 0; j < CP; ++j) {
-    const int c = lane + 32 * j;
-    off_p[j] = c < two_m ? c : 0;
-  }
-#pragma unroll
-  for (int j = 0; j < CW; ++j) {
-    const int c = lane + 32 * j;
-    off_w[j] = c < two_d ? two_m + c : 0;
-  }
-
-  float yp[RPW][CP], yw[RPW][CW], acc[RPW][CW], m_run[RPW], den[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    m_run[i] = -INFINITY;
-    den[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CP; ++j) yp[i][j] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CW; ++j) {
-      yw[i][j] = 0.f;
-      acc[i][j] = 0.f;
-    }
-  }
-
-  const int n_ch = (two_m + kKc - 1) / kKc;
-  const int total = k_comp * n_ch;
-  issue_stage(pw_s, pw, 0, n_ch, two_m, s_cols, s_cols, vec);
-  cp_async_commit();
-
-  for (int t = 0; t < total; ++t) {
-    if (t + 1 < total)
-      issue_stage(pw_s + ((t + 1) & 1) * buf_floats, pw, t + 1, n_ch, two_m,
-                  s_cols, s_cols, vec);
-    cp_async_commit();  // possibly empty: keeps the group count uniform
-    cp_async_wait_one();
-    __syncthreads();
-
-    const float* ps = pw_s + (t & 1) * buf_floats;
-    const int k = t / n_ch;
-    const int kk0 = (t % n_ch) * kKc;
-    const int rows = min(kKc, two_m - kk0);
-    const float* rs = r_s + warp * RPW * r_stride + kk0;
-#pragma unroll 2
-    for (int kk = 0; kk < rows; ++kk) {
-      float a[RPW], bp[CP], bw[CW];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) a[i] = rs[i * r_stride + kk];
-      const float* prow = ps + kk * s_cols;
-#pragma unroll
-      for (int j = 0; j < CP; ++j) bp[j] = prow[off_p[j]];
-#pragma unroll
-      for (int j = 0; j < CW; ++j) bw[j] = prow[off_w[j]];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-#pragma unroll
-        for (int j = 0; j < CP; ++j) yp[i][j] = fmaf(a[i], bp[j], yp[i][j]);
-#pragma unroll
-        for (int j = 0; j < CW; ++j) yw[i][j] = fmaf(a[i], bw[j], yw[i][j]);
-      }
-    }
-    __syncthreads();  // buffer t & 1 is refilled by the issue at t + 1
-
-    if (kk0 + rows == two_m) {  // component k complete: online softmax
-      const float* muk = mu + (size_t)k * two_m;
-      const float* bk = b + (size_t)k * two_d;
-      const float lw = logw[k];
-      float lg[RPW];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        float q = 0.f;
-#pragma unroll
-        for (int j = 0; j < CP; ++j) {
-          const int c = lane + 32 * j;
-          if (c < two_m) {
-            const float d = yp[i][j] - __ldg(muk + c);
-            q = fmaf(d, d, q);
-          }
-          yp[i][j] = 0.f;
-        }
-        lg[i] = lw - warp_sum(q);
-      }
-      if constexpr (COH) {
-        float s[RPW];
-        if (in_warp) {
-#pragma unroll
-          for (int i = 0; i < RPW; ++i) {
-            s[i] = 0.f;
-#pragma unroll
-            for (int j = 0; j < RPW; ++j)
-              if (((i ^ j) & t_mask) == 0) s[i] += lg[j];
-          }
-        } else {
-          // lg_s was last read before this stage's first barrier
-          if (lane == 0) {
-#pragma unroll
-            for (int i = 0; i < RPW; ++i) lg_s[warp * RPW + i] = lg[i];
-          }
-          __syncthreads();
-#pragma unroll
-          for (int i = 0; i < RPW; ++i) {
-            const int rr = warp * RPW + i;
-            s[i] = lg[i];  // masked rows: never stored
-            if (rr < tile_rows) {
-              const int b0 = rr / t_coh * t_coh;
-              float sum = 0.f;
-              for (int j = 0; j < t_coh; ++j) sum += lg_s[b0 + j];
-              s[i] = sum;
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < RPW; ++i)
-          lg[i] = coh_alpha >= 1.f ? s[i]
-                                   : (1.f - coh_alpha) * lg[i] + coh_alpha * s[i];
-      }
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float logit = lg[i];
-        const float m_new = fmaxf(m_run[i], logit);
-        // exp(-inf - (-inf)) would be NaN: an all -inf prefix scales by 0
-        const float scale =
-            m_run[i] == -INFINITY ? 0.f : expf(m_run[i] - m_new);
-        const float p = logit == -INFINITY ? 0.f : expf(logit - m_new);
-        den[i] = fmaf(den[i], scale, p);
-#pragma unroll
-        for (int j = 0; j < CW; ++j) {
-          const int c = lane + 32 * j;
-          const float z = yw[i][j] + (c < two_d ? __ldg(bk + c) : 0.f);
-          acc[i][j] = fmaf(p, z, acc[i][j] * scale);
-          yw[i][j] = 0.f;
-        }
-        m_run[i] = m_new;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int rr = warp * RPW + i;
-    const int row = row0 + rr;
-    if (rr < tile_rows && row < n) {
-#pragma unroll
-      for (int j = 0; j < CW; ++j) {
-        const int c = lane + 32 * j;
-        if (c < two_d)
-          out[(size_t)row * two_d + c] =
-              STATS ? acc[i][j] : acc[i][j] / den[i];
-      }
-      if (STATS && lane == 0) {  // every lane holds the row's m and den
-        m_out[row] = m_run[i];
-        den_out[row] = den[i];
-      }
-    }
-  }
+  grouped_stream<CP, CW, RPW, COH, STATS, kFull>(
+      r2, pw, mu, b, logw, out, m_out, den_out, n, k_comp, two_m, two_d, vec,
+      t_coh, coh_alpha, nullptr, 0);
 }
 
 template <int CP, int CW, int RPW, bool COH, bool STATS>

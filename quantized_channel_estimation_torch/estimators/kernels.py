@@ -27,11 +27,15 @@ K2 and K5 serve banks split over the component axis across ranks
 (`parallel.mesh`); on one card K1, K3 and K4 stream any K in one launch.
 
 The circulant kernels K6-K9 (`csrc/circ_estimate.cu`), the multi-pilot
-circulant kernel K10 (`csrc/mp_circ_estimate.cu`) and the factored (MFA)
-kernels K11-K13 (`csrc/fact_estimate.cu`) have their layouts, plain
-versions and wrappers in the siblings `circ_kernels`, `mp_circ_kernels` and
-`fact_kernels`; they are built, bound and counted by this module (`build`,
-`_library`, `register_wrappers`).
+circulant kernel K10 (`csrc/mp_circ_estimate.cu`), the factored (MFA)
+kernels K11-K13 (`csrc/fact_estimate.cu`), the Karatsuba and tensor-core
+variants of K1, K14a and K14b (`csrc/karatsuba_estimate.cu`,
+`csrc/grouped_tc_estimate.cu`), and the floor probe K15
+(`csrc/floor_probe.cu`, which compiles K1's stream) have their layouts,
+plain versions and wrappers in the siblings `circ_kernels`,
+`mp_circ_kernels`, `fact_kernels`, `variant_kernels` and
+`tools.kernel_floor_probe`; they are built, bound and counted by this
+module (`build`, `_library`, `register_wrappers`).
 
 Rows of coherence blocks are laid out block-major (the T rows of a block
 consecutive); the TPU's T-major re-layout served its sublane tiling and has
@@ -156,6 +160,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.fact_estimate_launch.argtypes = (
             [ptr] * 11 + [i32] * 5 + [f32, i32, ptr])
         lib.fact_estimate_launch.restype = i32
+    elif name == "karatsuba_estimate":
+        lib.karatsuba_estimate_launch.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
+        lib.karatsuba_estimate_launch.restype = i32
+    elif name == "grouped_tc_estimate":
+        lib.grouped_tc_estimate_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+        lib.grouped_tc_estimate_launch.restype = i32
+    elif name == "floor_probe":
+        lib.floor_probe_launch.argtypes = (
+            [ptr] * 6 + [i32] * 5 + [ptr, i32, ptr])
+        lib.floor_probe_launch.restype = i32
 
 
 def fused_kernel_eligible(d: int, m: int) -> bool:
@@ -269,16 +283,22 @@ def _flat_bank(kb: KernelBankBlock) -> torch.Tensor:
     return kb.pw.permute(1, 0, 2).reshape(two_m, k_comp * s_cols)
 
 
+def logits_and_estimates(yz: torch.Tensor, kb: KernelBankBlock):
+    """The kernels' epilogue on the products yz (n, K, 2M+2D) = r2 pw_k:
+    the logits lg (n, K) = logw - |yz[..., :2M] - mu_k|^2 and the
+    per-component estimates z (n, K, 2D) = yz[..., 2M:] + b_k."""
+    two_m = kb.mu.shape[1]
+    dy = yz[..., :two_m] - kb.mu[None]
+    return kb.logw[None] - (dy * dy).sum(-1), yz[..., two_m:] + kb.b[None]
+
+
 def _stream_reference(r2: torch.Tensor, kb: KernelBankBlock,
                       flat: torch.Tensor):
     """What the kernels' stream computes for rows r2 (n, 2M): the logits
     lg (n, K) = logw - |r2 P_k - mu_k|^2 and the per-component estimates
     z (n, K, 2D) = r2 W_k + b_k."""
-    two_m = r2.shape[1]
     k_comp, _, s_cols = kb.pw.shape
-    yz = (r2 @ flat).reshape(-1, k_comp, s_cols)
-    dy = yz[..., :two_m] - kb.mu[None]
-    return kb.logw[None] - (dy * dy).sum(-1), yz[..., two_m:] + kb.b[None]
+    return logits_and_estimates((r2 @ flat).reshape(-1, k_comp, s_cols), kb)
 
 
 def component_logits(r2: torch.Tensor, kb: KernelBankBlock,

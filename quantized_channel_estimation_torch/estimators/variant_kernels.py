@@ -1,0 +1,362 @@
+"""Variants of the dense estimation kernel K1, opt-in and for measurement.
+
+Port of the rest of the dense part of
+`quantized_channel_estimation_tpu/estimators/pallas_kernels.py`, with two
+kernels written in CUDA C++ for `sm_90a`:
+
+- K14a, the Karatsuba-layout estimator (`_estimate_kernel`, launched by
+  `estimate_packed`, entry `estimate`) in `csrc/karatsuba_estimate.cu`:
+  K1's 'all'-mode estimate with three real products per complex product
+  (`KernelBank`, `kernel_bank`, plain version `reference_estimate_packed`);
+- K14b, K1's GEMM-precision modes (`_estimate_kernel_block_grouped_bf16`,
+  `_estimate_kernel_block_grouped_split`, the `mode=` of
+  `estimate_packed_block_grouped` / `estimate_block_grouped`) in
+  `csrc/grouped_tc_estimate.cu`: 'bf16', 'split2' and 'split3' on bf16
+  tensor cores, the bank split into hi / lo bf16 planes (`split_planes`,
+  cached beside the bank by `lowered_split`); one wrapper, and one launch
+  count, a mode (`grouped_tc_bf16`, `grouped_tc_split2`,
+  `grouped_tc_split3`).
+
+`mode='f32'` is K1 itself (`kernels.grouped_estimate`), and `estimate_block`
+is that same call: `tile_n` and `group` are MXU knobs with no counterpart
+here. Neither kernel is on a default path; the tools under
+`quantized_channel_estimation_torch.tools` measure them.
+
+A wrapper launches its kernel on a CUDA tensor (or raises) and takes the
+plain PyTorch version only for a tensor on the CPU; each counts its
+launches (`kernels.register_wrappers`).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from quantized_channel_estimation_torch.estimators import kernels
+from quantized_channel_estimation_torch.models.gmm_estimator import (
+    PreparedBank)
+from quantized_channel_estimation_torch.ops.precision import pin_fp32
+
+KARATSUBA_MAX = 128   # M and D of K14a
+MODES = {"bf16": 1, "split2": 2, "split3": 3}   # K14b: tensor-core passes
+
+
+# ---------------------------------------------------------------------------
+# K14a: the Karatsuba layout
+# ---------------------------------------------------------------------------
+
+class KernelBank(NamedTuple):
+    """PreparedBank in the Karatsuba layout of K14a, all real.
+
+    A complex product y = r B with r = rr + i ri, B = B_re + i B_im runs as
+    p1 = rr B_re, p2 = ri B_im, p3 = (rr + ri)(B_re + B_im), Re y = p1 - p2,
+    Im y = p3 - p1 - p2, so the bank holds B_re, B_im and the sum plane.
+
+    pc_re / pc_im / pc_s: (K, M, M)  conj(P_k) (+ sum plane)
+    wt_re / wt_im / wt_s: (K, M, D)  W_k^T (+ sum plane)
+    mu_re / mu_im:        (K, M)     mu~_k = means_r_k @ conj(P_k)
+    b_re / b_im:          (K, D)     bias_k
+    logw:                 (K,)       log weights + 2 sum log diag(P_k),
+                                     floored at -1e30
+    (JAX keeps mu and b as (K, 1, M) / (K, 1, D).)
+    """
+    pc_re: torch.Tensor
+    pc_im: torch.Tensor
+    pc_s: torch.Tensor
+    wt_re: torch.Tensor
+    wt_im: torch.Tensor
+    wt_s: torch.Tensor
+    mu_re: torch.Tensor
+    mu_im: torch.Tensor
+    b_re: torch.Tensor
+    b_im: torch.Tensor
+    logw: torch.Tensor
+
+
+def kernel_bank(bank: PreparedBank) -> KernelBank:
+    """Lower a PreparedBank to the Karatsuba layout (JAX `kernel_bank`).
+    Dead components carry log-weight -inf; the -1e30 floor keeps the online
+    softmax exact (their exp underflows to 0 once a live logit appears)."""
+    pin_fp32()
+    pc = bank.prec_chol_r.conj()                           # (K, M, M)
+    mu = torch.matmul(bank.means_r[:, None, :], pc)[:, 0]  # (K, M)
+    wt = bank.filters.transpose(-1, -2)                    # (K, M, D)
+    diag = torch.diagonal(bank.prec_chol_r, dim1=-2, dim2=-1).real
+    logw = torch.clamp(bank.log_weights + 2.0 * torch.log(diag).sum(-1),
+                       min=-1e30)
+    f32 = torch.float32
+
+    def real(x):
+        return x.real.to(f32).contiguous()
+
+    def imag(x):
+        return x.imag.to(f32).contiguous()
+
+    pc_re, pc_im, wt_re, wt_im = real(pc), imag(pc), real(wt), imag(wt)
+    return KernelBank(pc_re, pc_im, pc_re + pc_im, wt_re, wt_im,
+                      wt_re + wt_im, real(mu), imag(mu), real(bank.bias),
+                      imag(bank.bias), logw.to(f32).contiguous())
+
+
+def reference_estimate_packed(kb: KernelBank, r_re: torch.Tensor,
+                              r_im: torch.Tensor, chunk: int = 8192):
+    """Plain PyTorch version of K14a (JAX `reference_estimate_packed`): the
+    same estimate with complex products, r_re / r_im (N, M) float32 ->
+    (h_re, h_im), each (N, D) float32."""
+    pin_fp32()
+    pc = torch.complex(kb.pc_re, kb.pc_im)
+    wt = torch.complex(kb.wt_re, kb.wt_im)
+    mu = torch.complex(kb.mu_re, kb.mu_im)
+    b = torch.complex(kb.b_re, kb.b_im)
+    out = []
+    for i0 in range(0, r_re.shape[0], chunk):
+        r = torch.complex(r_re[i0:i0 + chunk], r_im[i0:i0 + chunk])
+        y = torch.einsum("nm,kmp->knp", r, pc)
+        quad = (y - mu[:, None, :]).abs().square().sum(-1)    # (K, n)
+        w = torch.softmax(kb.logw[:, None] - quad, dim=0)
+        z = torch.einsum("nm,kmd->knd", r, wt) + b[:, None, :]
+        out.append(torch.einsum("kn,knd->nd", w.to(z.dtype), z))
+    h = (torch.cat(out) if out
+         else r_re.new_zeros((0, kb.b_re.shape[1]), dtype=torch.complex64))
+    return h.real.contiguous(), h.imag.contiguous()
+
+
+def _check_karatsuba_widths(m: int, d: int) -> None:
+    if not (1 <= m <= KARATSUBA_MAX and 1 <= d <= KARATSUBA_MAX):
+        raise ValueError(f"the Karatsuba estimator K14a takes M, D <= "
+                         f"{KARATSUBA_MAX}; got M={m}, D={d}")
+
+
+def _slab(kb: KernelBank) -> torch.Tensor:
+    """The kernel's bank operand: (K, M, 3M + 3D), a contraction row of
+    every plane side by side [pc_re | pc_im | pc_s | wt_re | wt_im |
+    wt_s]."""
+    return torch.cat([kb.pc_re, kb.pc_im, kb.pc_s, kb.wt_re, kb.wt_im,
+                      kb.wt_s], dim=-1).contiguous()
+
+
+def karatsuba_estimate(r_re: torch.Tensor, r_im: torch.Tensor,
+                       kb: KernelBank):
+    """K14a on r_re / r_im (N, M) float32 -> (h_re, h_im), each (N, D)
+    float32, any N. On a CUDA tensor it launches the CUDA kernel (M and D
+    at most 128) on the current stream and raises on any refusal; on a CPU
+    tensor it computes the plain version."""
+    if not r_re.is_cuda:
+        return reference_estimate_packed(kb, r_re, r_im)
+    n, m = r_re.shape
+    k_comp, _, d = kb.wt_re.shape
+    _check_karatsuba_widths(m, d)
+    dev = r_re.device
+    check = kernels._check_cuda
+    check("r_re", r_re, (n, m), dev)
+    check("r_im", r_im, (n, m), dev)
+    for name in ("pc_re", "pc_im", "pc_s"):
+        check(name, getattr(kb, name), (k_comp, m, m), dev)
+    for name in ("wt_re", "wt_im", "wt_s"):
+        check(name, getattr(kb, name), (k_comp, m, d), dev)
+    check("mu_re", kb.mu_re, (k_comp, m), dev)
+    check("mu_im", kb.mu_im, (k_comp, m), dev)
+    check("b_re", kb.b_re, (k_comp, d), dev)
+    check("b_im", kb.b_im, (k_comp, d), dev)
+    check("logw", kb.logw, (k_comp,), dev)
+    h_re = torch.empty((n, d), dtype=torch.float32, device=dev)
+    h_im = torch.empty((n, d), dtype=torch.float32, device=dev)
+    if n == 0:
+        return h_re, h_im
+    slab = _slab(kb)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = kernels._library("karatsuba_estimate").karatsuba_estimate_launch(
+            r_re.data_ptr(), r_im.data_ptr(), slab.data_ptr(),
+            kb.mu_re.data_ptr(), kb.mu_im.data_ptr(), kb.b_re.data_ptr(),
+            kb.b_im.data_ptr(), kb.logw.data_ptr(), h_re.data_ptr(),
+            h_im.data_ptr(), n, k_comp, m, d, stream)
+    if err != 0:
+        raise RuntimeError(f"karatsuba_estimate launch failed: cudaError "
+                           f"{err}")
+    karatsuba_estimate.launches += 1
+    return h_re, h_im
+
+
+def estimate_packed(kb: KernelBank, r_re: torch.Tensor, r_im: torch.Tensor):
+    """'all'-mode estimation in the Karatsuba layout (JAX
+    `estimate_packed`): r_re / r_im (N, M) float32 -> (h_re, h_im) (N, D)
+    float32 through K14a. Any N: the kernel masks the ragged tile, so there
+    is no `tile_n` and no padding."""
+    return karatsuba_estimate(r_re, r_im, kb)
+
+
+def estimate(bank: PreparedBank, r: torch.Tensor) -> torch.Tensor:
+    """Drop-in Karatsuba replacement for `gmm_estimator.estimate(bank, r,
+    'all')` (JAX `estimate`): complex r (N, M) -> (N, D) through K14a.
+    Raises past M, D <= 128, on any device: there is no fallback."""
+    _, d, m = bank.filters.shape
+    _check_karatsuba_widths(m, d)
+    h_re, h_im = karatsuba_estimate(r.real.to(torch.float32).contiguous(),
+                                    r.imag.to(torch.float32).contiguous(),
+                                    kernel_bank(bank))
+    return torch.complex(h_re, h_im).to(r.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K14b: the GEMM-precision modes
+# ---------------------------------------------------------------------------
+
+def split_planes(pw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """pw float32 -> (pw_hi, pw_lo) bfloat16: pw_hi = bf16(pw), pw_lo =
+    bf16(pw - pw_hi), both rounded to nearest even, as JAX splits its bank
+    (`estimate_packed_block_grouped`)."""
+    hi = pw.to(torch.bfloat16)
+    return hi.contiguous(), (pw - hi.to(torch.float32)).to(
+        torch.bfloat16).contiguous()
+
+
+def lowered_split(bank: PreparedBank, cache: Optional[dict] = None):
+    """K1's layout of the bank and its hi / lo planes, (kb, (pw_hi, pw_lo)),
+    kept in `cache` beside `kernels.lowered`'s layouts, so a bank measured
+    many times is split once."""
+    kb = kernels.lowered(bank, cache)
+    if cache is None:
+        return kb, split_planes(kb.pw)
+    if "bf16_planes" not in cache:
+        cache["bf16_planes"] = split_planes(kb.pw)
+    return kb, cache["bf16_planes"]
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def grouped_tc_estimate_reference(r2: torch.Tensor,
+                                  kb: kernels.KernelBankBlock, planes,
+                                  passes: int,
+                                  chunk: int = 8192) -> torch.Tensor:
+    """Plain PyTorch version of K14b: K1 with yz_k = r_hi pw_hi (+ r_hi
+    pw_lo at passes >= 2, + r_lo pw_hi at 3), each a float32 product of
+    bf16 values (exact), r_hi = bf16(r2), r_lo = bf16(r2 - r_hi); the
+    logits, softmax and combine in float32. r2 (N, 2M) -> (N, 2D)."""
+    pin_fp32()
+    k_comp, two_m, s_cols = kb.pw.shape
+    flat_hi, flat_lo = (p.to(torch.float32).permute(1, 0, 2).reshape(
+        two_m, k_comp * s_cols) for p in planes)
+    out = []
+    for i0 in range(0, r2.shape[0], chunk):
+        rc = r2[i0:i0 + chunk]
+        r_hi = _round_bf16(rc)
+        yz = r_hi @ flat_hi
+        if passes >= 2:
+            yz = yz + r_hi @ flat_lo
+        if passes == 3:
+            yz = yz + _round_bf16(rc - r_hi) @ flat_hi
+        lg, z = kernels.logits_and_estimates(yz.reshape(-1, k_comp, s_cols),
+                                             kb)
+        out.append(torch.einsum("nk,nkd->nd", torch.softmax(lg, dim=-1), z))
+    return torch.cat(out) if out else r2.new_zeros((0, kb.b.shape[1]))
+
+
+def _grouped_tc(r2: torch.Tensor, kb: kernels.KernelBankBlock, planes,
+                passes: int, wrapper) -> torch.Tensor:
+    """Launch K14b with `passes` bf16 tensor-core products, counted on
+    `wrapper` (one registered wrapper a mode)."""
+    if not r2.is_cuda:
+        return grouped_tc_estimate_reference(r2, kb, planes, passes)
+    n, k_comp, two_m, two_d = kernels._check_inputs(wrapper.__name__, r2, kb)
+    for name, p in zip(("pw_hi", "pw_lo"), planes):
+        if (p.device != r2.device or p.dtype != torch.bfloat16
+                or tuple(p.shape) != tuple(kb.pw.shape)
+                or not p.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous bfloat16 "
+                             f"{tuple(kb.pw.shape)} on {r2.device}, got "
+                             f"{p.dtype} {tuple(p.shape)} on {p.device}")
+    out = torch.empty((n, two_d), dtype=torch.float32, device=r2.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(r2.device):
+        stream = torch.cuda.current_stream(r2.device).cuda_stream
+        err = kernels._library(
+            "grouped_tc_estimate").grouped_tc_estimate_launch(
+            r2.data_ptr(), planes[0].data_ptr(), planes[1].data_ptr(),
+            kb.mu.data_ptr(), kb.b.data_ptr(), kb.logw.data_ptr(),
+            out.data_ptr(), n, k_comp, two_m, two_d, passes, stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} launch failed: cudaError "
+                           f"{err}")
+    wrapper.launches += 1
+    return out
+
+
+def grouped_tc_bf16(r2: torch.Tensor, kb: kernels.KernelBankBlock,
+                    planes) -> torch.Tensor:
+    """K14b in mode 'bf16' (one pass, r_hi pw_hi) on r2 (N, 2M) float32 ->
+    (N, 2D) float32; planes = `split_planes(kb.pw)`. On a CUDA tensor it
+    launches the CUDA kernel (2M and 2D at most 256) on the current stream
+    and raises on any refusal; on a CPU tensor it computes the plain
+    version."""
+    return _grouped_tc(r2, kb, planes, 1, grouped_tc_bf16)
+
+
+def grouped_tc_split2(r2: torch.Tensor, kb: kernels.KernelBankBlock,
+                      planes) -> torch.Tensor:
+    """K14b in mode 'split2' (r_hi pw_hi + r_hi pw_lo); otherwise as
+    `grouped_tc_bf16`."""
+    return _grouped_tc(r2, kb, planes, 2, grouped_tc_split2)
+
+
+def grouped_tc_split3(r2: torch.Tensor, kb: kernels.KernelBankBlock,
+                      planes) -> torch.Tensor:
+    """K14b in mode 'split3' (r_hi pw_hi + r_hi pw_lo + r_lo pw_hi);
+    otherwise as `grouped_tc_bf16`."""
+    return _grouped_tc(r2, kb, planes, 3, grouped_tc_split3)
+
+
+kernels.register_wrappers(karatsuba_estimate, grouped_tc_bf16,
+                          grouped_tc_split2, grouped_tc_split3)
+TC_WRAPPERS = {"bf16": grouped_tc_bf16, "split2": grouped_tc_split2,
+               "split3": grouped_tc_split3}
+
+
+def estimate_packed_block_grouped(kb: kernels.KernelBankBlock,
+                                  r2: torch.Tensor, mode: str = "f32",
+                                  t_coh: int = 1, coh_alpha: float = 1.0,
+                                  planes=None) -> torch.Tensor:
+    """K1's estimate of r2 (N, 2M) float32 -> (N, 2D) in GEMM-precision
+    mode `mode` (JAX `estimate_packed_block_grouped`): 'f32' is K1 (K3 at
+    t_coh > 1, r2 block-major, kb from `kernel_bank_block(bank, t_coh,
+    coh_alpha)`); 'bf16', 'split2' and 'split3' are K14b with `planes`
+    (default: split from kb.pw). The coherent pool is f32-only:
+    t_coh > 1 with another mode raises NotImplementedError; an unknown mode
+    raises ValueError."""
+    if mode == "f32":
+        if t_coh > 1:
+            return kernels.grouped_estimate_coherent(r2, kb, t_coh,
+                                                     coh_alpha)
+        return kernels.grouped_estimate(r2, kb)
+    if mode in MODES:
+        if t_coh > 1:
+            raise NotImplementedError("coherent pooling is f32-only")
+        return TC_WRAPPERS[mode](
+            r2, kb, split_planes(kb.pw) if planes is None else planes)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def estimate_block_grouped(bank: PreparedBank, r: torch.Tensor,
+                           mode: str = "f32",
+                           cache: Optional[dict] = None) -> torch.Tensor:
+    """'all'-mode estimate of complex r (N, M) -> (N, D) in GEMM-precision
+    mode `mode` (JAX `estimate_block_grouped`): 'f32' through K1, 'bf16' /
+    'split2' / 'split3' through K14b. `cache`: a dict held beside the bank
+    for its layout and planes (`lowered_split`)."""
+    if mode in MODES:
+        kb, planes = lowered_split(bank, cache)
+    else:
+        kb, planes = kernels.lowered(bank, cache), None
+    h2 = estimate_packed_block_grouped(kb, kernels._r2(r), mode,
+                                       planes=planes)
+    return kernels._h(h2, bank.filters.shape[1], r.dtype)
+
+
+def estimate_block(bank: PreparedBank, r: torch.Tensor,
+                   cache: Optional[dict] = None) -> torch.Tensor:
+    """JAX `estimate_block`, the grouped kernel at group 1: here K1 itself,
+    `estimate_block_grouped(bank, r, 'f32', cache)`."""
+    return estimate_block_grouped(bank, r, "f32", cache)

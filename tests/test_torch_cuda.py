@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1-K5, the circulant K6-K9, the multi-pilot
-circulant K10 and the factored K11-K13) against their plain versions on
-the card, the split-K forms' shard merges against one launch, and the
-estimation service on the card.
+circulant K10, the factored K11-K13, and K1's variants K14a, K14b and the
+floor probe K15) against their plain versions on the card, the split-K
+forms' shard merges against one launch, the kernel-measurement tools and
+`utils.profiling` on the card, and the estimation service on the card.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor the JAX package, so on a machine with a card and
@@ -29,6 +30,8 @@ from quantized_channel_estimation_torch.estimators import circ_kernels as tck
 from quantized_channel_estimation_torch.estimators import kernels as tkn
 from quantized_channel_estimation_torch.estimators import (
     mp_circ_kernels as tmk)
+from quantized_channel_estimation_torch.estimators import (
+    variant_kernels as tvk)
 from quantized_channel_estimation_torch.harness import stages
 from quantized_channel_estimation_torch.models import gmm as tg
 from quantized_channel_estimation_torch.models import gmm_estimator as tge
@@ -1074,3 +1077,189 @@ def test_factored_service_on_card_matches_pipeline():
         assert np.abs(blocks - want_b).max() / np.abs(want_b).max() < 1e-4
     finally:
         svc.close(timeout=60.0)
+
+
+# ---------------------------------------------------------------------------
+# K1's variants: K14a (Karatsuba), K14b (bf16 tensor cores), K15 (the floor
+# probe). K14b's bf16 products are exact in float32 on both sides, so it is
+# held against its plain version like the float32 kernels (1e-4).
+# ---------------------------------------------------------------------------
+
+def _rand_karatsuba(m, d, k, dev, n_dead=0, seed=0):
+    """A random Karatsuba bank of any widths (M need not reach D)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g)
+
+    pc_re, pc_im = rnd(k, m, m, scale=0.3 / math.sqrt(m)), rnd(
+        k, m, m, scale=0.3 / math.sqrt(m))
+    wt_re, wt_im = rnd(k, m, d, scale=1 / math.sqrt(m)), rnd(
+        k, m, d, scale=1 / math.sqrt(m))
+    logw = 0.5 * rnd(k)
+    logw[:n_dead] = -1e30
+    kb = tvk.KernelBank(pc_re, pc_im, pc_re + pc_im, wt_re, wt_im,
+                        wt_re + wt_im, rnd(k, m, scale=0.3),
+                        rnd(k, m, scale=0.3), rnd(k, d), rnd(k, d), logw)
+    return tvk.KernelBank(*(x.to(dev).contiguous() for x in kb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,k,n,n_dead", [
+    (64, 64, 64, 4097, 3),   # main-path widths, ragged N, dead components
+    (12, 12, 5, 333, 0),     # widths no multiple of 16
+    (40, 100, 6, 515, 1),    # M <= 64 < D: 4 rows a warp
+    (128, 40, 6, 300, 0),    # D <= 64 < M
+    (128, 128, 4, 200, 1),   # the widest: 2 rows a warp
+])
+def test_karatsuba_estimate_matches_plain(m, d, k, n, n_dead):
+    dev = _card()
+    kb = _rand_karatsuba(m, d, k, dev, n_dead)
+    r_re, r_im = _rows(n, m, dev), _rows(n, m, dev, seed=2)
+    before = tvk.karatsuba_estimate.launches
+    h_re, h_im = tvk.karatsuba_estimate(r_re, r_im, kb)
+    torch.cuda.synchronize()
+    assert tvk.karatsuba_estimate.launches == before + 1
+    w_re, w_im = tvk.reference_estimate_packed(kb, r_re, r_im)
+    got, want = torch.cat([h_re, h_im], -1), torch.cat([w_re, w_im], -1)
+    assert got.shape == (n, 2 * d) and torch.isfinite(got).all()
+    assert _rel(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+def test_karatsuba_estimate_is_k1_on_a_bank():
+    """The same function as K1 on one bank (dead components, ragged N)."""
+    dev = _card()
+    bank = _bank(32, 8, 1, dev, n_dead=2)
+    r = torch.complex(_rows(1001, 32, dev), _rows(1001, 32, dev, seed=3))
+    got = tvk.estimate(bank, r)
+    want = tkn.estimate_fused(bank, r)
+    assert _rel(torch.view_as_real(got), torch.view_as_real(want)) < 1e-4
+    with pytest.raises(ValueError, match="128"):
+        tvk.karatsuba_estimate(_rows(4, 130, dev), _rows(4, 130, dev),
+                               _rand_karatsuba(130, 8, 2, dev))
+    kb = _rand_karatsuba(8, 8, 2, dev)
+    with pytest.raises(ValueError):
+        tvk.karatsuba_estimate(_rows(4, 8, dev).double(), _rows(4, 8, dev),
+                               kb)
+    empty = tvk.karatsuba_estimate(_rows(4, 8, dev)[:0], _rows(4, 8, dev)[:0],
+                                   kb)
+    assert empty[0].shape == (0, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "split2", "split3"])
+@pytest.mark.parametrize("two_m,two_d,k,n,n_dead", [
+    (128, 128, 16, 4097, 3),  # main-path widths, ragged N, dead components
+    (24, 24, 5, 333, 0),      # D = 12: widths no multiple of 16
+    (40, 100, 6, 515, 1),     # 2M + 2D = 140 -> padded to 144
+    (256, 256, 4, 200, 1),    # the widest: 32-row tiles, 16-row slices
+    (256, 24, 3, 70, 0),      # 2M + 2D = 280: 32-row tiles
+])
+def test_grouped_tc_matches_plain(mode, two_m, two_d, k, n, n_dead):
+    dev = _card()
+    kb = _rand_kb(two_m, two_d, k, dev, n_dead)
+    planes = tvk.split_planes(kb.pw)
+    r2 = _rows(n, two_m, dev)
+    wrapper = tvk.TC_WRAPPERS[mode]
+    before = wrapper.launches
+    got = wrapper(r2, kb, planes)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = tvk.grouped_tc_estimate_reference(r2, kb, planes, tvk.MODES[mode])
+    assert got.shape == (n, two_d) and torch.isfinite(got).all()
+    assert _rel(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+def test_precision_modes_on_a_bank_within_jax_bounds():
+    """Each mode's estimate against K1 (`mode='f32'`) within the JAX tests'
+    bounds (relative norms 3e-2, 1e-4, 3e-2), the planes cached beside the
+    bank; refusals as on the CPU."""
+    dev = _card()
+    bank = _bank(64, 16, 1, dev, n_dead=1)
+    r = torch.complex(_rows(2000, 64, dev), _rows(2000, 64, dev, seed=3))
+    cache = {}
+    f32 = tvk.estimate_block_grouped(bank, r, "f32", cache)
+    for mode, bound in (("bf16", 3e-2), ("split3", 1e-4), ("split2", 3e-2)):
+        got = tvk.estimate_block_grouped(bank, r, mode, cache)
+        rel = float(torch.linalg.vector_norm(got - f32)
+                    / torch.linalg.vector_norm(f32))
+        assert rel < bound, (mode, rel)
+    kb, planes = tvk.lowered_split(bank, cache)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tvk.grouped_tc_split3(tkn._r2(r), kb, (kb.pw, planes[1]))
+    with pytest.raises(NotImplementedError):
+        tvk.estimate_packed_block_grouped(kb, tkn._r2(r), "split3", t_coh=4)
+
+
+PROBE_COLS = [(2, 2), (2, 4), (4, 2), (4, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cp,cw", PROBE_COLS)
+def test_floor_probe_matches_plain_at_every_width(cp, cw):
+    """Every variant at each instantiation (ragged N, dead components past
+    component 0: full_fixedmax anchors at logw_0), `full` bit for bit K1."""
+    from quantized_channel_estimation_torch.tools import (
+        kernel_floor_probe as tfp)
+    dev = _card()
+    two_m, two_d = {2: 40, 4: 128}[cp], {2: 40, 4: 128}[cw]
+    kb = _rand_kb(two_m, two_d, 6, dev)
+    kb = kb._replace(logw=torch.cat([kb.logw[:1], torch.full(
+        (2,), -1e30, device=dev), kb.logw[3:]]))
+    r2 = _rows(1001, two_m, dev)
+    for name in tfp.VARIANTS:
+        if name == "square_only" and two_d > two_m:
+            with pytest.raises(ValueError, match="2D <= 2M"):
+                tfp.floor_probe(r2, kb, name)
+            continue
+        before = tfp.floor_probe.launches
+        got = tfp.floor_probe(r2, kb, name)
+        torch.cuda.synchronize()
+        assert tfp.floor_probe.launches == before + 1
+        want = tfp.floor_probe_reference(r2, kb, name)
+        assert got.shape == (1001, two_d) and torch.isfinite(got).all()
+        assert _rel(got, want) < 1e-4, name
+    assert torch.equal(tfp.floor_probe(r2, kb, "full"),
+                       tkn.grouped_estimate(r2, kb))
+    with pytest.raises(ValueError, match="128"):
+        tfp.floor_probe(_rows(3, 256, dev), _rand_kb(256, 16, 2, dev), "full")
+
+
+@pytest.mark.cuda
+def test_kernel_tools_run_on_card_at_a_small_size():
+    from quantized_channel_estimation_torch.tools import (
+        kernel_bench, kernel_floor_probe, kernel_split_bench)
+    _card()
+    small = ["--n-ant", "16", "--components", "8", "--repeats", "2"]
+    tkn.reset_launch_counts()
+    probe = kernel_floor_probe.main(small + ["--batch", "4096"])
+    bench = kernel_bench.main(small + ["--batch", "4096"])
+    split = kernel_split_bench.main(small + ["--n-train", "4000",
+                                             "--n-val", "4096",
+                                             "--max-iter", "5"])
+    counts = tkn.launch_counts()
+    for name in ("floor_probe", "karatsuba_estimate", "grouped_estimate",
+                 "grouped_tc_bf16", "grouped_tc_split2", "grouped_tc_split3"):
+        assert counts[name] >= 1, name
+    assert all(v > 0 for v in probe["ms"].values())
+    assert all(v > 0 for v in bench["ms"].values())
+    assert split["rows"][20.0]["kernel_split3"]["rel_to_f32"] < 1e-3
+
+
+@pytest.mark.cuda
+def test_profiling_on_card():
+    from quantized_channel_estimation_torch.utils import profiling
+    dev = _card()
+    kb = _rand_kb(40, 40, 4, dev)
+    r2 = _rows(4096, 40, dev)
+    assert profiling.device_ms(lambda: tkn.grouped_estimate(r2, kb), 3) > 0
+    with pytest.raises(RuntimeError):
+        with profiling.no_implicit_transfers():
+            float(r2.sum())
+    assert torch.cuda.get_sync_debug_mode() == 0
+    timer = profiling.Timer()
+    with timer.section("k1", barrier_tree=tkn.grouped_estimate(r2, kb)):
+        pass
+    assert timer.counts == {"k1": 1}
