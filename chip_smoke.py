@@ -90,7 +90,10 @@ Phases (any failure exits non-zero; nothing is caught):
      the seven bodies of the floor probe K15 against their plain versions
      at the headline shapes, a ragged N and with dead components, and
      against K1 (K14a to 1e-4 of the scale, K15 `full` bit for bit, K14b
-     within the JAX tests' relative norms 3e-2 / 1e-4 / 3e-2); then the
+     within the JAX tests' relative norms 3e-2 / 1e-4 / 3e-2); K14b
+     launched 100 times at each shape of `tools.tc_repeat_check`, each
+     launch after a fill of every SM's shared memory with NaN and held
+     against its plain version; then the
      tools `kernel_floor_probe`, `kernel_bench` and `kernel_split_bench`
      at their defaults with their own launch counts (no probe variant under
      the GEMM's operation floor; K1's and split3's MSE within 1e-3 of the
@@ -104,6 +107,7 @@ of JAX and uses one card.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -130,6 +134,36 @@ SERVE_CLIENTS, SERVE_REQ, SERVE_MAX_BATCH, SERVE_SECONDS = 8, 64, 1024, 3.0
 
 def log(msg):
     print(f"[{time.strftime('%H:%M:%S')}] {msg}", flush=True)
+
+
+def ptxas_summary(out):
+    """Per entry of an `nvcc -Xptxas -v` log: its template arguments,
+    registers, spill stores / loads (bytes), static shared memory and the
+    codes of ptxas's wgmma notes (C7514: wgmma serialised)."""
+    def template_args(name):
+        return ",".join(re.findall(r"L[ib](\d+)E", name))
+    notes = {}
+    for line in out.splitlines():
+        m = re.search(r"\((C75\d+)\).* function '(\S+?)'", line)
+        if m:
+            notes.setdefault(template_args(m.group(2)), set()).add(m.group(1))
+    rows, args, spills = [], "?", "spills ?"
+    for line in out.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            args = template_args(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = f"spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            note = ", ".join(sorted(notes.get(args, ())))
+            rows.append(f"<{args}> {m.group(1)} registers, {spills}, "
+                        f"{smem.group(1) if smem else 0} B static smem"
+                        + (f", wgmma notes {note}" if note else ""))
+    return rows
 
 
 def card_line():
@@ -259,14 +293,16 @@ def near_ties(r2, kb, k_sel):
 
 
 def near_order_ties(r2, kb, k_sel):
-    """Rows whose top k_sel + 1 logits hold two within TIE_GAP but not
-    equal: K5 writes its candidates in the order its float32 sums give
-    them. (Dead components sit exactly at the -1e30 floor in both versions
-    and are ordered by index.)"""
+    """Rows whose top k_sel + 1 logits hold two live ones within TIE_GAP,
+    equal ones included: K5 writes its candidates in the order its float32
+    sums give them, and two logits equal in the plain version's sums need
+    not be in the kernel's. (Dead components sit exactly at the -1e30 floor
+    in both versions and are ordered by index.)"""
     from quantized_channel_estimation_torch.estimators import kernels
     lg = kernels.component_logits(r2, kb).sort(-1, descending=True).values
-    gaps = lg[:, :k_sel] - lg[:, 1:k_sel + 1]
-    return ((gaps > 0) & (gaps < TIE_GAP)).any(-1)
+    top = lg[:, :k_sel + 1]
+    gaps = top[:, :-1] - top[:, 1:]
+    return ((gaps < TIE_GAP) & (top[:, 1:] > -1e29)).any(-1)
 
 
 def compare(name, label, got, want, skip=None, tol=TOL):
@@ -472,7 +508,8 @@ def main():
     from quantized_channel_estimation_torch.ops import observation, pilots
     from quantized_channel_estimation_torch.ops import quantizer as Q
     from quantized_channel_estimation_torch.tools import (
-        common, kernel_bench, kernel_floor_probe, kernel_split_bench)
+        common, kernel_bench, kernel_floor_probe, kernel_split_bench,
+        tc_repeat_check)
     from quantized_channel_estimation_torch.utils import io as qio
     from quantized_channel_estimation_torch.utils import profiling
     from quantized_channel_estimation_torch.ops.precision import pin_fp32
@@ -485,8 +522,15 @@ def main():
 
     # 1. build every kernel (one nvcc per source, all started together)
     tb = time.time()
-    for name, out in kernels.build().items():
+    build_logs = kernels.build()
+    for name, out in build_logs.items():
         log(f"nvcc {name}:\n{out.strip()}")
+    # the two sources redesigned for Hopper (K14b; K4 / K5): registers,
+    # spills and shared memory of every instantiation
+    for name in ("grouped_tc_estimate", "grouped_topk"):
+        summary = ptxas_summary(build_logs.get(name, ""))
+        log(f"ptxas {name} (dynamic shared memory is set per launch): "
+            + ("; ".join(summary) if summary else "not rebuilt"))
     log(f"build: {time.time() - tb:.1f}s")
 
     # 2. kernels against their plain versions
@@ -780,8 +824,15 @@ def main():
             l_p, z_p = kernels.grouped_estimate_topk_stats_reference(
                 rows, shard, k_sel)
             skip = near_order_ties(rows, shard, k_sel)
+            # the empty slots of a shard smaller than k: -inf in both, and
+            # compared as such
+            empty = torch.isinf(l_p)
+            if not torch.equal(torch.isinf(l), empty):
+                raise AssertionError(f"{name}: -inf slots differ ({label}, "
+                                     f"shard {i + 1}/{parts})")
             errs[name].append(compare(name, f"{label}, shard {i + 1}/{parts}"
-                                      ", logits", l, l_p, skip))
+                                      ", logits", l.masked_fill(empty, 0.0),
+                                      l_p.masked_fill(empty, 0.0), skip))
             errs[name].append(compare(
                 name, f"{label}, shard {i + 1}/{parts}, estimates",
                 z.reshape(z.shape[0], -1), z_p.reshape(z_p.shape[0], -1),
@@ -809,8 +860,10 @@ def main():
         check_k2(f"T=4, alpha={alpha}", kb_t, r2, 2,
                  kernels.grouped_estimate_coherent(r2, kb_t, 4, alpha), 4,
                  alpha)
-    for k_sel in (1, 4):
+    for k_sel in (1, 4, 8):
         check_k5(f"k={k_sel}", kb, r2, k_sel)
+    # shards of 4 components: four empty slots of -inf and zeros a row
+    check_k5("k=8, 16 shards of 4", kb, r2[:20001], 8, parts=16)
     check_k5("dead, ragged, k=4", kernels.kernel_bank_block(dead_bank),
              r2[:10001], 4)
 
@@ -1538,6 +1591,7 @@ def main():
     r_re, r_im = r.real.contiguous(), r.imag.contiguous()
     kk = vk.kernel_bank(bank)
     planes = vk.split_planes(kb.pw)
+    tc_ops = vk.tc_operands(kb, planes)   # laid out once, as lowered_tc
     probe_errs = {}
     for label, bank_c, rows in (("full", bank, r),
                                 ("ragged", bank, r[:10001]),
@@ -1583,6 +1637,22 @@ def main():
         f" (tol {TOL}); K15 full bit for bit; K14b relative norms "
         + ", ".join(f"{m} {vs_k1[w.__name__]:.3e} (bound {TC_BOUNDS[m]})"
                     for m, w in vk.TC_WRAPPERS.items()))
+
+    # 5a'. K14b launched many times at each shape of tc_repeat_check (the
+    # shared-memory-A path at 2M > 128, one and two warpgroups, one block
+    # to three waves, and a main-path shape), each launch after a kernel
+    # that fills every SM's shared memory with NaN and held against the
+    # plain version: a race that one launch may not show fails here
+    tm = time.time()
+    rep = tc_repeat_check.repeat_check(dev, repeats=100)["kernel"]
+    bad = {k: v for k, v in rep.items() if v["failures"]}
+    log(f"K14b repeated: {sum(v['launches'] for v in rep.values())} launches "
+        f"in {time.time() - tm:.1f}s, max err "
+        f"{max(v['max_err'] for v in rep.values()):.3e} (tol "
+        f"{tc_repeat_check.TOL}), failures {bad or 0}")
+    if bad:
+        raise AssertionError(f"K14b off its plain version on repeated "
+                             f"launches: {bad}")
 
     # 5b. the path itself, through the tools' entry points at their
     # defaults, its launches counted alone: the floor probe, kernel_bench
@@ -1649,7 +1719,7 @@ def main():
                           + kb.b.numel() + kb.logw.numel()) \
             + 2.0 * kb.pw.numel() * min(passes, 2)
         t14b[mode] = timed(
-            f"K14b ({mode})", lambda w=wrapper: w(r2, kb, planes),
+            f"K14b ({mode})", lambda w=wrapper: w(r2, kb, planes, tc_ops),
             lambda p=passes: vk.grouped_tc_estimate_reference(r2, kb, planes,
                                                               p),
             library_tc[mode], 2.0 * n * K * (two_m + two_d), tc_bytes,
@@ -1657,6 +1727,16 @@ def main():
     t15 = timed("K15 (full)", lambda: fp_tool.floor_probe(r2, kb, "full"),
                 lambda: fp_tool.floor_probe_reference(r2, kb, "full"), gemm,
                 gemm_flops)
+    # the kernels redesigned for Hopper (K14b on wgmma, K4 / K5 on a
+    # register-tiled fp32 loop): time, bound, the share of the bound
+    # reached, and the one-call yardstick
+    for label, rec in ([(f"K14b {m}", t14b[m]) for m in t14b]
+                       + [(f"K4 k={k}", t4[k]) for k in (1, 4)]
+                       + [(f"K5 k={k}", t5[k]) for k in (1, 4)]):
+        log(f"redesigned {label}: {rec['ms']:.3f} ms, bound "
+            f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}; "
+            f"{rec['bound_ms'] / rec['ms']:.1%} of it reached), yardstick "
+            f"{rec['library_ms']:.3f} ms")
 
     # 5d. one K1 launch under `profiling.trace`, and its row of the
     # profiler's table

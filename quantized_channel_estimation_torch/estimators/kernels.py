@@ -144,7 +144,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             [ptr] * 8 + [i32] * 5 + [f32, ptr])
         lib.grouped_estimate_coherent_stats_launch.restype = i32
     elif name == "grouped_topk":
-        lib.grouped_topk_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.grouped_topk_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
         lib.grouped_topk_launch.restype = i32
         lib.grouped_topk_stats_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
         lib.grouped_topk_stats_launch.restype = i32
@@ -164,7 +164,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.karatsuba_estimate_launch.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
         lib.karatsuba_estimate_launch.restype = i32
     elif name == "grouped_tc_estimate":
-        lib.grouped_tc_estimate_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+        lib.grouped_tc_estimate_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib.grouped_tc_estimate_launch.restype = i32
     elif name == "floor_probe":
         lib.floor_probe_launch.argtypes = (
@@ -643,9 +643,13 @@ def grouped_estimate_topk(r2: torch.Tensor, kb: KernelBankBlock,
     out = torch.empty((n, two_d), dtype=torch.float32, device=r2.device)
     if n == 0:
         return out
+    # the kernel's candidates (n, k, 2D), combined per row; at k = 1 it
+    # writes the one candidate to `out` and reads no scratch
+    scratch = out if k_sel == 1 else torch.empty(
+        (n, k_sel, two_d), dtype=torch.float32, device=r2.device)
     _launch("grouped_estimate_topk",
-            _library("grouped_topk").grouped_topk_launch, r2, kb, (out,), n,
-            k_comp, two_m, two_d, int(k_sel))
+            _library("grouped_topk").grouped_topk_launch, r2, kb,
+            (out, scratch), n, k_comp, two_m, two_d, int(k_sel))
     grouped_estimate_topk.launches += 1
     return out
 

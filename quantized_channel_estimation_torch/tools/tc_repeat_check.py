@@ -1,0 +1,251 @@
+"""Launch K14b many times at each shape and hold every output against the
+plain version: a check for races, which one launch in a test may not show.
+
+For each shape (2M, 2D, K, N, dead components) and mode ('bf16', 'split2',
+'split3') the plain version is computed once; then K14b runs `--repeats`
+times, each launch on a fresh output and, unless `--no-poison` is given,
+after a kernel that fills the shared memory of every SM with NaN, so that
+a read of shared memory before its write shows as NaN and not as the last
+kernel's data. Every launch's error (max |kernel - plain| / max |plain|)
+is kept; a launch over 1e-4 (or NaN) counts as a failure. The default
+shapes are the shared-memory-A path (2M > 128: one and two consumer
+warpgroups, one block, several waves) and a main-path shape.
+
+`--without-proxy-fence` also builds a copy of csrc/grouped_tc_estimate.cu
+without the `fence.proxy.async` before each stage's release and runs it
+launch for launch beside the kernel, to measure what the fence does;
+with `--time` it also times both (CUDA events, median of 10, in the order
+kernel, copy, copy, kernel) at the headline widths (131072 rows,
+2M = 2D = 128, K = 64).
+
+    python -m quantized_channel_estimation_torch.tools.tc_repeat_check \
+        [--repeats R] [--no-poison] [--without-proxy-fence [--time]]
+
+Exits 1 if any launch of the kernel (not of the copy) failed.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import subprocess
+import sys
+import time
+
+import torch
+
+from quantized_channel_estimation_torch.estimators import kernels
+from quantized_channel_estimation_torch.estimators import variant_kernels as vk
+from quantized_channel_estimation_torch.harness import stages
+from quantized_channel_estimation_torch.utils import profiling
+
+TOL = 1e-4
+# (2M, 2D, K, N, dead components)
+SHAPES = (
+    (256, 24, 3, 70, 0),        # A in shared memory, two warpgroups
+    (256, 256, 4, 200, 1),      # A in shared memory, one warpgroup
+    (192, 64, 5, 1000, 0),      # 3 contraction chunks, 8 blocks
+    (256, 24, 3, 3 * 132 * 128 + 5, 0),  # three waves of blocks
+    (128, 128, 16, 4097, 3),    # the main path: A in registers
+)
+REPEATS = 300
+# the fence before a stage's release: the one at an indent of two
+FENCE = '\n  asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");\n'
+
+_POISON_SRC = r"""
+#include <cuda_runtime.h>
+// Fill every word of a block's dynamic shared memory with `bits`.
+__global__ void smem_poison_kernel(unsigned bits, int words) {
+  extern __shared__ unsigned s[];
+  for (int i = threadIdx.x; i < words; i += blockDim.x) {
+    unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(s + i));
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(a), "r"(bits) : "memory");
+  }
+}
+extern "C" int smem_poison_launch(unsigned bits, int blocks, void* stream) {
+  const int bytes = 232448;  // a block's shared memory on an H100
+  cudaError_t err = cudaFuncSetAttribute(
+      smem_poison_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  smem_poison_kernel<<<blocks, 1024, bytes, (cudaStream_t)stream>>>(
+      bits, bytes / 4);
+  return (int)cudaGetLastError();
+}
+"""
+
+_libs = {}
+
+
+def _compile(name: str, source: str) -> ctypes.CDLL:
+    """Compile `source` (a .cu text) into build/tc_repeat_check/ (kept
+    while the text is unchanged) and load it; cached for the process."""
+    if name not in _libs:
+        out = kernels.BUILD_DIR.parent / "tc_repeat_check"
+        out.mkdir(parents=True, exist_ok=True)
+        src, lib = out / f"{name}.cu", out / f"lib{name}.so"
+        if not (lib.exists() and src.exists() and src.read_text() == source):
+            src.write_text(source)
+            run = subprocess.run(
+                [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
+                 str(kernels.CSRC), "-o", str(lib), str(src)],
+                capture_output=True, text=True)
+            if run.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{run.stdout}"
+                                   f"{run.stderr}")
+        _libs[name] = ctypes.CDLL(str(lib))
+    return _libs[name]
+
+
+def poison_shared_memory(dev: torch.device) -> None:
+    """Fill the shared memory of every SM with NaN (four blocks an SM, one
+    resident at a time) on the current stream."""
+    lib = _compile("smem_poison", _POISON_SRC)
+    lib.smem_poison_launch.argtypes = [ctypes.c_uint, ctypes.c_int,
+                                       ctypes.c_void_p]
+    blocks = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    err = lib.smem_poison_launch(0x7FC00000, blocks,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"smem poison launch failed: cudaError {err}")
+
+
+def _without_fence() -> ctypes.CDLL:
+    """csrc/grouped_tc_estimate.cu without the proxy fence before each
+    stage's release."""
+    text = (kernels.CSRC / "grouped_tc_estimate.cu").read_text()
+    if text.count(FENCE) != 1:
+        raise RuntimeError("the fence before a stage's release is not in "
+                           "csrc/grouped_tc_estimate.cu as expected")
+    lib = _compile("grouped_tc_estimate_nofence", text.replace(FENCE, "\n"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.grouped_tc_estimate_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.grouped_tc_estimate_launch.restype = i32
+    return lib
+
+
+def random_bank(two_m, two_d, k, dev, n_dead=0, seed=0):
+    """A random kernel bank of any widths: logits a few units apart, dead
+    components at the -1e30 floor."""
+    g = torch.Generator().manual_seed(seed)
+    pw = 0.3 * torch.randn(k, two_m, two_m + two_d,
+                           generator=g) / math.sqrt(two_m)
+    logw = 0.5 * torch.randn(k, generator=g)
+    logw[:n_dead] = -1e30
+    kb = kernels.KernelBankBlock(pw, 0.3 * torch.randn(k, two_m, generator=g),
+                                 torch.randn(k, two_d, generator=g), logw)
+    return kernels.KernelBankBlock(*(x.to(dev).contiguous() for x in kb))
+
+
+def random_rows(n, two_m, dev, seed=1):
+    """n rows of +-0.7 (quantized observations' values)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randint(0, 2, (n, two_m), generator=g,
+                          device=dev).float() - 0.5) * 1.4
+
+
+def _launch_copy(lib, r2, kb, ops, passes):
+    n, two_m = r2.shape
+    two_d = kb.b.shape[1]
+    out = torch.empty((n, two_d), dtype=torch.float32, device=r2.device)
+    err = lib.grouped_tc_estimate_launch(
+        r2.data_ptr(), ops.hi.data_ptr(), ops.lo.data_ptr(),
+        ops.vec.data_ptr(), kb.logw.data_ptr(), out.data_ptr(), n,
+        kb.mu.shape[0], two_m, two_d, passes,
+        torch.cuda.current_stream(r2.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"copy without the fence: cudaError {err}")
+    return out
+
+
+def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
+                 without_fence=False, modes=tuple(vk.TC_WRAPPERS)) -> dict:
+    """Every (shape, mode): `repeats` launches of K14b (and of the copy
+    without the fence), each held against the plain version. Returns
+    {"kernel" (and "no fence"): {label: {"launches", "failures",
+    "max_err"}}}."""
+    copy = _without_fence() if without_fence else None
+    result = {"kernel": {}, "no fence": {}} if copy else {"kernel": {}}
+    for two_m, two_d, k, n, n_dead in shapes:
+        kb = random_bank(two_m, two_d, k, dev, n_dead)
+        planes = vk.split_planes(kb.pw)
+        ops = vk.tc_operands(kb, planes)
+        r2 = random_rows(n, two_m, dev)
+        for mode in modes:
+            wrapper, passes = vk.TC_WRAPPERS[mode], vk.MODES[mode]
+            want = vk.grouped_tc_estimate_reference(r2, kb, planes, passes)
+            scale = want.abs().max()
+            runs = {"kernel": lambda: wrapper(r2, kb, planes, ops)}
+            if copy:
+                runs["no fence"] = lambda: _launch_copy(copy, r2, kb, ops,
+                                                        passes)
+            errs = {name: [] for name in runs}
+            for _ in range(repeats):
+                for name, run in runs.items():
+                    if poison:
+                        poison_shared_memory(dev)
+                    errs[name].append((run() - want).abs().max() / scale)
+            label = f"{two_m}/{two_d} K={k} N={n} dead={n_dead} {mode}"
+            for name, e in errs.items():
+                e = torch.stack(e).cpu()
+                bad = ~(e <= TOL)   # NaN fails
+                result[name][label] = {
+                    "launches": len(e), "failures": int(bad.sum()),
+                    "max_err": float(e.nan_to_num(float("inf")).max())}
+    return result
+
+
+def time_fence(dev, n=131072, two_m=128, two_d=128, k=64) -> dict:
+    """ms of K14b and of the copy without the fence, per mode, at these
+    widths: {mode: [kernel, copy, copy, kernel]}."""
+    copy = _without_fence()
+    kb = random_bank(two_m, two_d, k, dev)
+    planes = vk.split_planes(kb.pw)
+    ops = vk.tc_operands(kb, planes)
+    r2 = random_rows(n, two_m, dev)
+    out = {}
+    for mode, wrapper in vk.TC_WRAPPERS.items():
+        passes = vk.MODES[mode]
+        runs = [lambda: wrapper(r2, kb, planes, ops),
+                lambda: _launch_copy(copy, r2, kb, ops, passes)]
+        out[mode] = [profiling.device_ms(runs[i], reps=10)
+                     for i in (0, 1, 1, 0)]
+    return out
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--device", default=None)
+    p.add_argument("--repeats", type=int, default=REPEATS)
+    p.add_argument("--no-poison", action="store_true")
+    p.add_argument("--without-proxy-fence", action="store_true")
+    p.add_argument("--time", action="store_true")
+    args = p.parse_args(argv)
+    dev = stages.resolve_device(args.device)
+    if dev.type != "cuda":
+        raise SystemExit("tc_repeat_check needs an NVIDIA card")
+    t0 = time.time()
+    result = repeat_check(dev, repeats=args.repeats,
+                          poison=not args.no_poison,
+                          without_fence=args.without_proxy_fence)
+    times = (time_fence(dev) if args.time and args.without_proxy_fence
+             else None)
+    torch.cuda.synchronize()
+    for mode, ms in (times or {}).items():
+        print(f"{mode}: kernel {ms[0]:.3f} / {ms[3]:.3f} ms, without the "
+              f"fence {ms[1]:.3f} / {ms[2]:.3f} ms")
+    for name, rows in result.items():
+        for label, rec in rows.items():
+            print(f"{name:9s} {label:40s} launches {rec['launches']:5d} "
+                  f"failures {rec['failures']:4d} max err "
+                  f"{rec['max_err']:.3e}")
+    print(json.dumps({"seconds": time.time() - t0,
+                      "poison": not args.no_poison,
+                      "device": torch.cuda.get_device_name(dev),
+                      "ms": times, "result": result}))
+    return result
+
+
+if __name__ == "__main__":
+    res = main()
+    sys.exit(1 if any(r["failures"] for r in res["kernel"].values()) else 0)

@@ -39,6 +39,7 @@ from quantized_channel_estimation_torch.models import structured_bank as tsb
 from quantized_channel_estimation_torch.ops import linalg as tl
 from quantized_channel_estimation_torch.ops import pilots as tp
 from quantized_channel_estimation_torch.ops import quantizer as tq
+from quantized_channel_estimation_torch.tools import tc_repeat_check
 
 torch.set_num_threads(2)
 
@@ -198,6 +199,12 @@ def _near_tie_rows(r2, kb, k_sel, gap=1e-3):
     (64, 8, 2, 333, 3, 0),       # 2M = 256
     (128, 4, 1, 100, 3, 1),      # 2M = 2D = 256, k = the live count
     (24, 5, 1, 50, 4, 0),        # widths no multiple of 32
+    (64, 64, 1, 1, 1, 0),        # N = 1
+    (64, 1, 1, 300, 1, 0),       # K = 1
+    (64, 64, 1, 127, 4, 0),      # a 128-row tile less one
+    (64, 64, 1, 129, 2, 0),      # a tile and one row
+    (64, 8, 1, 500, 1, 7),       # all but one component at weight 1e-9
+    (16, 8, 1, 257, 8, 0),       # 2M = 32: a 256-row tile and one, k = K = 8
 ])
 def test_grouped_estimate_topk_matches_plain(d, k, n_pilots, n, k_sel,
                                              n_dead):
@@ -350,6 +357,37 @@ def test_grouped_estimate_topk_stats_match_plain_at_every_width(cp, cw):
         want = tkn.grouped_estimate_topk(r2, kb, k_sel)
         keep = ~_near_tie_rows(r2, kb, k_sel)
         assert _rel(got[keep], want[keep]) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_m,two_d,k,n,k_sel,n_dead", [
+    (128, 128, 1, 1, 8, 0),     # N = 1, K = 1: seven empty slots
+    (128, 128, 5, 127, 8, 0),   # K = 5 < k = 8; a 128-row tile less one
+    (128, 128, 6, 129, 3, 5),   # all but one component dead; a tile + 1
+    (40, 40, 3, 255, 8, 0),     # the 256-row tile of 2M <= 64, less one
+    (256, 256, 4, 65, 8, 1),    # the 64-row tile of 2M = 256, and one
+])
+def test_grouped_estimate_topk_stats_at_the_tile_edges(two_m, two_d, k, n,
+                                                       k_sel, n_dead):
+    """K5 at the edges of its tiles and of its k range: the candidates
+    against the plain version (rows with near-ties left out), the empty
+    slots of a bank smaller than k at -inf and zeros in both."""
+    dev = _card()
+    kb = _rand_kb(two_m, two_d, k, dev, n_dead=n_dead, seed=k + n)
+    r2 = _rows(n, two_m, dev)
+    before = tkn.grouped_estimate_topk_stats.launches
+    l, z = tkn.grouped_estimate_topk_stats(r2, kb, k_sel)
+    torch.cuda.synchronize()
+    assert tkn.grouped_estimate_topk_stats.launches == before + 1
+    l_p, z_p = tkn.grouped_estimate_topk_stats_reference(r2, kb, k_sel)
+    assert l.shape == (n, k_sel) and z.shape == (n, k_sel, two_d)
+    assert torch.equal(torch.isinf(l), torch.isinf(l_p))
+    assert bool((z[:, k:] == 0).all())
+    keep = ~_near_order_ties(r2, kb, k_sel)
+    assert int(keep.sum()) > 0.8 * n
+    live = torch.isfinite(l_p[keep])
+    assert _rel(l[keep][live], l_p[keep][live]) < 1e-4
+    assert _rel(z[keep], z_p[keep]) < 1e-4
 
 
 @pytest.mark.cuda
@@ -1152,9 +1190,14 @@ def test_karatsuba_estimate_is_k1_on_a_bank():
 @pytest.mark.parametrize("two_m,two_d,k,n,n_dead", [
     (128, 128, 16, 4097, 3),  # main-path widths, ragged N, dead components
     (24, 24, 5, 333, 0),      # D = 12: widths no multiple of 16
-    (40, 100, 6, 515, 1),     # 2M + 2D = 140 -> padded to 144
-    (256, 256, 4, 200, 1),    # the widest: 32-row tiles, 16-row slices
-    (256, 24, 3, 70, 0),      # 2M + 2D = 280: 32-row tiles
+    (40, 100, 6, 515, 1),     # 2D = 100: two value pieces, one padded
+    (256, 256, 4, 200, 1),    # the widest: one warpgroup, 4 chunks
+    (256, 24, 3, 70, 0),      # 2M = 256, one padded value piece
+    (128, 128, 1, 1, 0),      # N = 1, K = 1
+    (128, 128, 5, 127, 4),    # a 128-row block less one; all dead but one
+    (128, 128, 5, 129, 0),    # a block and one row
+    (64, 192, 3, 65, 0),      # 2D = 192: the widest two-warpgroup block
+    (128, 128, 64, 3 * 132 * 128 + 5, 0),  # three waves of 132 blocks
 ])
 def test_grouped_tc_matches_plain(mode, two_m, two_d, k, n, n_dead):
     dev = _card()
@@ -1172,6 +1215,25 @@ def test_grouped_tc_matches_plain(mode, two_m, two_d, k, n, n_dead):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "split2", "split3"])
+def test_grouped_tc_repeated_launches_match_plain(mode):
+    """K14b launched 100 times at each shape of `tools.tc_repeat_check`
+    (the shared-memory-A path at 2M > 128 with one and two warpgroups, one
+    block to three waves, and a main-path shape), each launch after a fill
+    of every SM's shared memory with NaN and held against the plain
+    version: a race that one launch may not show fails here."""
+    dev = _card()
+    wrapper = tvk.TC_WRAPPERS[mode]
+    before = wrapper.launches
+    got = tc_repeat_check.repeat_check(dev, repeats=100, modes=(mode,))
+    runs = got["kernel"]
+    assert wrapper.launches == before + 100 * len(tc_repeat_check.SHAPES)
+    assert len(runs) == len(tc_repeat_check.SHAPES)
+    assert not {k: v for k, v in runs.items() if v["failures"]}, runs
+    assert max(v["max_err"] for v in runs.values()) < 1e-4
+
+
+@pytest.mark.cuda
 def test_precision_modes_on_a_bank_within_jax_bounds():
     """Each mode's estimate against K1 (`mode='f32'`) within the JAX tests'
     bounds (relative norms 3e-2, 1e-4, 3e-2), the planes cached beside the
@@ -1186,9 +1248,13 @@ def test_precision_modes_on_a_bank_within_jax_bounds():
         rel = float(torch.linalg.vector_norm(got - f32)
                     / torch.linalg.vector_norm(f32))
         assert rel < bound, (mode, rel)
-    kb, planes = tvk.lowered_split(bank, cache)
+    kb, planes, ops = tvk.lowered_tc(bank, cache)
+    assert cache["tc_operands"] is ops
     with pytest.raises(ValueError, match="bfloat16"):
         tvk.grouped_tc_split3(tkn._r2(r), kb, (kb.pw, planes[1]))
+    with pytest.raises(ValueError, match="tc_operands"):
+        tvk.grouped_tc_split3(tkn._r2(r), kb, planes, ops._replace(
+            vec=ops.vec[:, :-1].contiguous()))
     with pytest.raises(NotImplementedError):
         tvk.estimate_packed_block_grouped(kb, tkn._r2(r), "split3", t_coh=4)
 

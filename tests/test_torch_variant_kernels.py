@@ -7,13 +7,16 @@ the kernel-measurement tools on the CPU:
   components against JAX's `estimate` and the einsum estimator;
 - K14b, the GEMM-precision modes: the bf16 hi / lo bank planes bitwise
   equal to JAX's, each plain mode against JAX's interpret-mode
-  `estimate_block_grouped(mode=)` and against f32 within JAX's bounds, and
-  the modes' refusals;
+  `estimate_block_grouped(mode=)` and against f32 within JAX's bounds, the
+  modes' refusals, and the kernel's host-side layouts: `tc_slab` read back
+  through its swizzle to the bf16 planes bit for bit (ragged widths, zero
+  padding) and `tc_vectors`, laid out once per bank cache (`lowered_tc`);
 - K15, the floor probe: each plain body against the JAX tool's
   `BODIES[name]` called on JAX arrays in its GROUP = 4 layout, `full`
   equal to the plain K1;
 - each tool's `main` at a tiny size on the CPU, and its refusal to run
-  without a card unless `--device cpu` is given.
+  without a card unless `--device cpu` is given; `tc_repeat_check`'s
+  repeated launches through the plain versions.
 
 Tolerances (max |port - JAX| / max |JAX|): 1e-5 where both sides compute
 the same float32 products summed in another order (K14b's bf16 products
@@ -46,6 +49,7 @@ from quantized_channel_estimation_torch.ops import quantizer as tq
 from quantized_channel_estimation_torch.tools import kernel_bench as tkb
 from quantized_channel_estimation_torch.tools import kernel_floor_probe as tfp
 from quantized_channel_estimation_torch.tools import kernel_split_bench as tks
+from quantized_channel_estimation_torch.tools import tc_repeat_check as trc
 
 torch.set_num_threads(2)
 
@@ -248,6 +252,84 @@ def test_precision_modes_refuse_as_jax_does(rng):
                        tkn.grouped_estimate_coherent_reference(r2, kb2, 2))
 
 
+@pytest.mark.parametrize("two_m,two_d,k", [
+    (128, 128, 3),   # main-path widths: 2 logit + 2 value pieces
+    (24, 24, 2),     # D = 12: one padded piece each, 40 zero rows
+    (40, 100, 2),    # 2M + 2D = 140, value half in 2 pieces
+    (256, 256, 1),   # the widest: 4 + 4 pieces, 4 contraction chunks
+    (256, 24, 2),
+    (2, 2, 1),       # M = D = 1
+])
+def test_tc_slab_unpermutes_to_the_bf16_planes(two_m, two_d, k):
+    """K14b's B layout of each bf16 plane (`tc_slab`), read back element
+    by element through the 128-byte swizzle (column n, contraction row kk
+    of a 64 x 64 chunk at n 64 + ((kk // 8) ^ (n % 8)) 8 + kk % 8), is
+    `split_planes(pw)` bit for bit, with every padding row and column
+    zero."""
+    g = torch.Generator().manual_seed(two_m + two_d)
+    pw = torch.randn(k, two_m, two_m + two_d, generator=g)
+    mp, dp = -(-two_m // 64), -(-two_d // 64)
+    col = torch.arange(64)[:, None]
+    row = torch.arange(64)[None, :]
+    pos = col * 64 + ((row // 8) ^ (col % 8)) * 8 + row % 8   # (n, kk)
+    cols = tvk._tc_columns(two_m, two_d)
+    assert int((cols >= 0).sum()) == two_m + two_d
+    for plane in tvk.split_planes(pw):
+        slab = tvk.tc_slab(plane, two_m)
+        assert slab.shape == (k, mp + dp, mp, 64, 64)
+        assert slab.dtype == torch.bfloat16 and slab.is_contiguous()
+        logical = slab.reshape(k, mp + dp, mp, 64 * 64)[..., pos]
+        full = logical.permute(0, 2, 4, 1, 3).reshape(k, 64 * mp,
+                                                      64 * (mp + dp))
+        bits = full.view(torch.int16)
+        assert torch.equal(bits[:, :two_m][:, :, cols >= 0],
+                           plane.view(torch.int16))
+        assert not bits[:, two_m:].any() and not bits[:, :, cols < 0].any()
+        # the swizzle is its own inverse
+        assert torch.equal(tvk._sw128(tvk._sw128(slab)), slab)
+
+
+def test_lowered_tc_lays_out_the_operands_once_per_cache(rng):
+    """`lowered_tc` keeps K14b's operands in the bank's cache beside its
+    planes: one layout per cache, equal to `tc_operands` of the planes, and
+    a fresh one without a cache; the entry fills the cache."""
+    _, bt = _banks(rng, 1)
+    cache = {}
+    kb, planes, ops = tvk.lowered_tc(bt, cache)
+    assert cache["tc_operands"] is ops and cache["bf16_planes"] is planes
+    again = tvk.lowered_tc(bt, cache)
+    assert again[2] is ops and again[1] is planes and again[0] is kb
+    fresh = tvk.tc_operands(kb, planes)
+    for got, want in zip(ops, fresh):
+        assert torch.equal(got, want)
+    assert torch.equal(ops.hi, tvk.tc_slab(planes[0], kb.mu.shape[1]))
+    assert torch.equal(ops.lo, tvk.tc_slab(planes[1], kb.mu.shape[1]))
+    assert torch.equal(ops.vec, tvk.tc_vectors(kb))
+    assert tvk.lowered_tc(bt)[2] is not ops
+    other = {}
+    tvk.estimate_block_grouped(bt, torch.as_tensor(_obs(rng, 8)), "split3",
+                               other)
+    assert "tc_operands" in other
+
+
+@pytest.mark.parametrize("two_m,two_d", [(128, 128), (40, 100), (256, 24)])
+def test_tc_vectors_hold_mu_and_b_by_piece(two_m, two_d):
+    """mu over the logit pieces, b over the value pieces, zero padding."""
+    g = torch.Generator().manual_seed(two_m)
+    kb = tkn.KernelBankBlock(torch.randn(3, two_m, two_m + two_d, generator=g),
+                             torch.randn(3, two_m, generator=g),
+                             torch.randn(3, two_d, generator=g),
+                             torch.randn(3, generator=g))
+    vec = tvk.tc_vectors(kb)
+    mp, dp = -(-two_m // 64), -(-two_d // 64)
+    assert vec.shape == (3, mp + dp, 64) and vec.is_contiguous()
+    flat_m = vec[:, :mp].reshape(3, -1)
+    flat_d = vec[:, mp:].reshape(3, -1)
+    assert torch.equal(flat_m[:, :two_m], kb.mu)
+    assert torch.equal(flat_d[:, :two_d], kb.b)
+    assert not flat_m[:, two_m:].any() and not flat_d[:, two_d:].any()
+
+
 # ----------------------------------------------------------------- K15
 
 def _jax_probe():
@@ -365,7 +447,24 @@ def test_kernel_split_bench_main_on_cpu(capsys):
     assert capsys.readouterr().out.count("einsum_f32") == 8
 
 
-@pytest.mark.parametrize("tool", [tfp, tkb, tks])
+def test_tc_repeat_check_holds_every_launch_on_cpu():
+    """`tc_repeat_check.repeat_check` on the CPU (the wrappers' plain
+    versions, no poison): every launch of every (shape, mode) held, none
+    off; the fence its copy removes is in the source once; `main` refuses
+    the CPU."""
+    shapes = ((40, 24, 3, 70, 0), (24, 100, 2, 5, 1))
+    got = trc.repeat_check(torch.device("cpu"), shapes=shapes, repeats=2,
+                           poison=False)
+    assert set(got) == {"kernel"} and len(got["kernel"]) == 2 * 3
+    for rec in got["kernel"].values():
+        assert rec == {"launches": 2, "failures": 0, "max_err": 0.0}
+    src = (tkn.CSRC / "grouped_tc_estimate.cu").read_text()
+    assert src.count(trc.FENCE) == 1
+    with pytest.raises(SystemExit, match="needs an NVIDIA card"):
+        trc.main(["--device", "cpu"])
+
+
+@pytest.mark.parametrize("tool", [tfp, tkb, tks, trc])
 def test_tools_raise_without_cuda(monkeypatch, tool):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
