@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught):
      widths of the main path (D = M = 64, K = 64): K1 at the headline batch
      N = 131072, at the main path's ragged N = 10000 and with dead
      components; K3 at B*T = 131072 rows for T in {2, 4, 16} and alpha in
-     {1, 0.25}, and at a ragged block count with dead components; K4 for
+     {1, 0.25}, T = 3 (alpha 0.5) and T = 64 (alpha 1, held under the
+     float64 rule), and at a ragged block count with dead components; K4 for
      k in {1, 2, 4, 8} at N = 131072, and at a ragged N with dead
      components (rows whose k-th and (k+1)-th logits lie within 1e-3 are
      counted, not compared); the circulant kernels on a seeded circulant
@@ -53,7 +54,10 @@ Phases (any failure exits non-zero; nothing is caught):
      arithmetic, the kernel to within twice the plain version's own error;
   3. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after: `run_gmm.run` at the `GmmBenchConfig`
-     defaults, and again with `n_coherence=4` (alpha 1), then both once
+     defaults (its fitted bank and observations kept: K1, and K3 at T = 4,
+     against their plain versions at each of its 7 SNRs, with the
+     blmmse_gmm NMSE of each), and again with `n_coherence=4` (alpha 1),
+     then both once
      more with `cov_type='circulant'` (the FFT-domain bank, K6 and K7),
      and those two with `n_pilots=2` (the multi-pilot bank, K10 and its
      coherent form), with the scientific invariants of their MSE tables and
@@ -84,22 +88,30 @@ Phases (any failure exits non-zero; nothing is caught):
      and K13;
   4. CUDA-event times of each kernel, its plain version and a library
      yardstick at the headline shapes (K11-K13 at M = 16; K2 also on one
-     32-component shard), beside the least time the card could take;
+     32-component shard), beside the least time the card could take (for
+     K1-K3 and K15 also the bound of their products as fp32 FMAs and a
+     chain of the six bf16 GEMMs, each adding into one float32 result);
   5. the kernel-measurement path, K1's variants: the Karatsuba estimator
      K14a, the bf16 tensor-core modes K14b ('bf16', 'split2', 'split3') and
      the seven bodies of the floor probe K15 against their plain versions
      at the headline shapes, a ragged N and with dead components, and
      against K1 (K14a to 1e-4 of the scale, K15 `full` bit for bit, K14b
-     within the JAX tests' relative norms 3e-2 / 1e-4 / 3e-2); K14b
-     launched 100 times at each shape of `tools.tc_repeat_check`, each
+     within the JAX tests' relative norms 3e-2 / 1e-4 / 3e-2; split3's
+     max-abs error against K1's plain version); K1, K3 at T = 4 and
+     split3 against the plain version in float64, where K1 and K3 must be
+     within twice the float32 plain version's error and split3 must not
+     be (`fp32_accuracy`, also on the fitted banks of phase 3); K14b
+     launched 100 times
+     and K1 / K3 150 times at each shape of `tools.tc_repeat_check`, each
      launch after a fill of every SM's shared memory with NaN and held
      against its plain version; then the
      tools `kernel_floor_probe`, `kernel_bench` and `kernel_split_bench`
      at their defaults with their own launch counts (no probe variant under
      the GEMM's operation floor; K1's and split3's MSE within 1e-3 of the
      einsum estimator's at 10 and 20 dB), the times of K14a, K14b and K15
-     as in phase 4, and one K1 launch under `utils.profiling.trace` with
-     its row of the profiler's table;
+     as in phase 4, one K1 launch under `utils.profiling.trace` with
+     its row of the profiler's table, and K1 / K3 at 512 and 4096 rows
+     (`tools.batch_sweep`);
 then one JSON line of kernels, one of the main paths' results, one of the
 serving phase, the card line, and the final status line. It imports nothing
 of JAX and uses one card.
@@ -326,9 +338,10 @@ def compare(name, label, got, want, skip=None, tol=TOL):
 
 
 def compare64(name, label, got, want, want64):
-    """`compare` for the circulant kernels: within TOL of the plain
-    version, or, where float32 sums in another order push the two apart
-    (logits pooled over many rows), both held against `want64`, the plain
+    """`compare` for kernels whose logits pool many rows or expand a
+    product (K3 past T = 16, the circulant kernels): within TOL of the plain
+    version, or, where float32 sums in another order push the two apart,
+    both held against `want64`, the plain
     version evaluated in float64: the kernel's error at most twice the
     plain version's own and at most 10 TOL of the output scale. Returns
     the absolute error against the plain version."""
@@ -349,6 +362,24 @@ def compare64(name, label, got, want, want64):
         raise AssertionError(f"{name} disagrees with its plain version "
                              f"({label})")
     return abs_err
+
+
+def fp32_accuracy(name, label, got, want, want64):
+    """The six-product route's claim, that it keeps float32's accuracy:
+    got's max |error| against `want64` (the plain version in float64) at
+    most twice that of `want` (the plain version in float32). TOL cannot
+    tell: K14b's split3, which drops the 2^-16 terms, stays within it.
+    Returns {"kernel", "plain"} (errors as fractions of the output scale)
+    and whether the rule held."""
+    torch.cuda.synchronize()
+    scale = float(want64.abs().max())
+    e = {"kernel": float((got.double() - want64).abs().max()) / scale,
+         "plain": float((want.double() - want64).abs().max()) / scale}
+    held = bool(e["kernel"] <= 2.0 * e["plain"])
+    log(f"{name} against float64 [{label}, N={got.shape[0]}]: "
+        f"{e['kernel']:.3e} of scale, the float32 plain version "
+        f"{e['plain']:.3e} ({'held' if held else 'NOT held'}: at most 2x)")
+    return e, held
 
 
 def mfa_path_run(run_mfa, stages, kernels, dev, tmp, **change):
@@ -508,8 +539,8 @@ def main():
     from quantized_channel_estimation_torch.ops import observation, pilots
     from quantized_channel_estimation_torch.ops import quantizer as Q
     from quantized_channel_estimation_torch.tools import (
-        common, kernel_bench, kernel_floor_probe, kernel_split_bench,
-        tc_repeat_check)
+        batch_sweep, common, kernel_bench, kernel_floor_probe,
+        kernel_split_bench, tc_repeat_check)
     from quantized_channel_estimation_torch.utils import io as qio
     from quantized_channel_estimation_torch.utils import profiling
     from quantized_channel_estimation_torch.ops.precision import pin_fp32
@@ -524,10 +555,17 @@ def main():
     tb = time.time()
     build_logs = kernels.build()
     for name, out in build_logs.items():
-        log(f"nvcc {name}:\n{out.strip()}")
-    # the two sources redesigned for Hopper (K14b; K4 / K5): registers,
-    # spills and shared memory of every instantiation
-    for name in ("grouped_tc_estimate", "grouped_topk"):
+        # ptxas's wgmma notes come a line per injected wait: counted here,
+        # listed by code in the summary below
+        notes = sum("(C75" in line for line in out.splitlines())
+        kept = "\n".join(line for line in out.splitlines()
+                         if "(C75" not in line)
+        log(f"nvcc {name} ({notes} wgmma note lines):\n{kept.strip()}")
+    # the sources redesigned for Hopper (the wgmma stream of K1-K3, K15 and
+    # K14b; K4 / K5): registers, spills and shared memory of every
+    # instantiation
+    for name in ("grouped_estimate", "floor_probe", "grouped_tc_estimate",
+                 "grouped_topk"):
         summary = ptxas_summary(build_logs.get(name, ""))
         log(f"ptxas {name} (dynamic shared memory is set per launch): "
             + ("; ".join(summary) if summary else "not rebuilt"))
@@ -551,13 +589,24 @@ def main():
     for label, bank_c, t, alpha, rows in (
             [(f"T={t}, alpha={a}", bank, t, a, r2)
              for t in (2, 4, 16) for a in (1.0, 0.25)]
-            + [("dead, B=2501", dead_bank, 4, 0.25, r2[:2501 * 4])]):
+            + [("dead, B=2501", dead_bank, 4, 0.25, r2[:2501 * 4]),
+               ("T=3, alpha=0.5", bank, 3, 0.5, r2[:3 * 43690]),
+               ("T=64, alpha=1", bank, 64, 1.0, r2)]):
+        # T = 2, 4, 16 pooled by shuffles, T = 3 and 64 through shared
+        # memory; past T = 16 both float32 versions round the pooled logit
+        # apart and are held against the float64 evaluation (as the card
+        # tests hold them)
         kb_c = kernels.kernel_bank_block(bank_c, t, alpha)
-        errs["grouped_estimate_coherent"].append(compare(
-            "grouped_estimate_coherent", label,
-            kernels.grouped_estimate_coherent(rows, kb_c, t, alpha),
-            kernels.grouped_estimate_coherent_reference(rows, kb_c, t,
-                                                        alpha)))
+        got = kernels.grouped_estimate_coherent(rows, kb_c, t, alpha)
+        want = kernels.grouped_estimate_coherent_reference(rows, kb_c, t,
+                                                           alpha)
+        errs["grouped_estimate_coherent"].append(
+            compare("grouped_estimate_coherent", label, got, want) if t <= 16
+            else compare64("grouped_estimate_coherent", label, got, want,
+                           kernels.grouped_estimate_coherent_reference(
+                               rows.double(), type(kb_c)(
+                                   *(x.double() for x in kb_c)), t, alpha)))
+        del got, want
     for label, bank_c, k_sel, rows in (
             [(f"k={k}", bank, k, r2) for k in (1, 2, 4, 8)]
             + [("dead, k=4", dead_bank, 4, r2[:10001])]):
@@ -851,7 +900,8 @@ def main():
                                          kernels.kernel_bank_block(dead_bank)))
     # the 128-component shards of a K = 256 bank (the widest a shard of the
     # served K = 256 prior is); one K1 launch streams all 256
-    kb_wide = kernels.kernel_bank_block(common.headline_bank(dev, k_comp=K_WIDE)[0])
+    kb_wide = kernels.kernel_bank_block(
+        common.headline_bank(dev, k_comp=K_WIDE)[0])
     check_k2(f"K={K_WIDE}", kb_wide, r2, 2, kernels.grouped_estimate(r2,
                                                                      kb_wide))
     del kb_wide
@@ -935,10 +985,28 @@ def main():
         for name, c in counts.items():
             total_launches[name] += c
 
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg, mse, rate, timings, main_s, launches = main_path_run(
-            run_gmm, kernels, dev, tmp)
-        csvs = sorted(os.listdir(os.path.join(tmp, "3gpp")))
+    # the default run keeps the fitted banks and observations it estimates
+    # (stages.estimate_auto) and the channels it scores against
+    # (stages.nmse) for the fitted-bank check below
+    fitted_calls, truth = [], []
+    estimate_auto, nmse = stages.estimate_auto, stages.nmse
+
+    def keep_estimate(bank_s, r_s, mode):
+        fitted_calls.append((bank_s, r_s))
+        return estimate_auto(bank_s, r_s, mode)
+
+    def keep_truth(h_est, h):
+        truth[:] = [h]
+        return nmse(h_est, h)
+
+    stages.estimate_auto, stages.nmse = keep_estimate, keep_truth
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg, mse, rate, timings, main_s, launches = main_path_run(
+                run_gmm, kernels, dev, tmp)
+            csvs = sorted(os.listdir(os.path.join(tmp, "3gpp")))
+    finally:
+        stages.estimate_auto, stages.nmse = estimate_auto, nmse
     add(launches)
     i10 = list(cfg.snrs).index(10)
     at10 = {k: v[i10] for k, v in mse.items()}
@@ -967,6 +1035,58 @@ def main():
     log(f"coherent column vs per-snapshot GMM at -10 dB: "
         f"{mse_c['blmmse_gmm_coh'][i_low]:.5f} vs "
         f"{mse_c['blmmse_gmm'][i_low]:.5f}")
+
+    # 3a. the fitted GMM of the default run at each of its SNRs (the
+    # logits are largest at 20 dB): K1, and K3 at T = 4 (four consecutive
+    # validation snapshots a block), against their plain float32 versions
+    # at TOL of the scale and against float64 under `fp32_accuracy`
+    # (K14b's split3 beside them, recorded), with the blmmse_gmm NMSE of
+    # each
+    if len(fitted_calls) != len(cfg.snrs):
+        raise AssertionError(f"the default run estimated {len(fitted_calls)}"
+                             f" banks for {len(cfg.snrs)} SNRs")
+    fitted, fitted_acc = {}, {}
+    for snr, (bank_s, r_s) in zip(cfg.snrs, fitted_calls):
+        x2 = kernels._r2(r_s)
+        kb_1 = kernels.kernel_bank_block(bank_s)
+        kb_4 = kernels.kernel_bank_block(bank_s, 4, 1.0)
+        outs = {"K1": kernels.grouped_estimate(x2, kb_1),
+                "K1 plain": kernels.grouped_estimate_reference(x2, kb_1),
+                "K3 T=4": kernels.grouped_estimate_coherent(x2, kb_4, 4, 1.0),
+                "K3 T=4 plain": kernels.grouped_estimate_coherent_reference(
+                    x2, kb_4, 4, 1.0)}
+        errs["grouped_estimate"].append(compare(
+            "grouped_estimate", f"fitted bank, {snr} dB", outs["K1"],
+            outs["K1 plain"]))
+        errs["grouped_estimate_coherent"].append(compare(
+            "grouped_estimate_coherent", f"fitted bank, {snr} dB, T=4",
+            outs["K3 T=4"], outs["K3 T=4 plain"]))
+        x64 = x2.double()
+        want64 = {"K1": kernels.grouped_estimate_reference(x64, f64(kb_1)),
+                  "K3 T=4": kernels.grouped_estimate_coherent_reference(
+                      x64, f64(kb_4), 4, 1.0)}
+        acc = {}
+        for key, name in (("K1", "grouped_estimate"),
+                          ("K3 T=4", "grouped_estimate_coherent")):
+            acc[key], held = fp32_accuracy(
+                name, f"fitted bank, {snr} dB", outs[key],
+                outs[key + " plain"], want64[key])
+            if not held:
+                raise AssertionError(f"{key} less accurate than float32 on "
+                                     f"the fitted bank at {snr} dB: {acc}")
+        acc["split3"], _ = fp32_accuracy(
+            "grouped_tc_split3", f"fitted bank, {snr} dB",
+            variant_kernels.grouped_tc_split3(
+                x2, kb_1, kernels.split_planes(kb_1.pw)),
+            outs["K1 plain"], want64["K1"])
+        fitted_acc[str(snr)] = acc
+        del x64, want64
+        fitted[str(snr)] = {name: stages.nmse(kernels._h(x, D, r_s.dtype),
+                                              truth[0])
+                            for name, x in outs.items()}
+        log(f"fitted bank at {snr} dB: blmmse_gmm NMSE "
+            + ", ".join(f"{k} {v:.6f}" for k, v in fitted[str(snr)].items()))
+    del fitted_calls, truth
 
     # the same two runs with circulant covariances: the FFT-domain bank
     # through K6 and K7. The 3GPP covariances are Toeplitz, so the circulant
@@ -1413,20 +1533,65 @@ def main():
         two_m, K * two_m).contiguous()
     gemm = lambda: r2 @ flat  # noqa: E731
     logit_gemm = lambda: r2 @ flat_p  # noqa: E731
-    t1 = timed("K1", lambda: kernels.grouped_estimate(r2, kb),
-               lambda: kernels.grouped_estimate_reference(r2, kb), gemm,
-               gemm_flops)
+
+    # K1-K3 and K15 (the wgmma stream): six bf16 products of K1's GEMM on
+    # the tensor cores plus 2 N K (2M + 2D) fp32 epilogue operations (K3:
+    # + 3 N K); beside it the bound of the same products as fp32 FMAs
+    # (`bound_fp32_ms`), the fp32 GEMM yardstick (`library_ms`) and a chain
+    # of the six bf16 products, one cuBLAS call a product, each adding into
+    # one float32 result as the kernel's accumulator does
+    # (`library_six_bf16_ms`)
+    tc_ops = kernels.tc_operands(kb)   # laid out once, as lowered_tc
+    rh = r2.to(torch.bfloat16)
+    rl = (r2 - rh.float()).to(torch.bfloat16)
+    rl2 = ((r2 - rh.float()) - rl.float()).to(torch.bfloat16)
+    r_planes = (rh, rl, rl2)
+
+    def six_chain(kb_c):
+        """The six bf16 products of kb_c's bank, one call each, in the
+        kernel's order, summed into a float32 result (torch.mm, then
+        torch.addmm, with out_dtype float32)."""
+        flats = [p.permute(1, 0, 2).reshape(two_m, -1).contiguous()
+                 for p in kernels.split_planes3(kb_c.pw)]
+        pairs = ((0, 2), (1, 1), (2, 0), (1, 0), (0, 1), (0, 0))
+        f32 = torch.float32
+
+        def run():
+            (a, b), *rest = pairs
+            acc = torch.mm(r_planes[a], flats[b], out_dtype=f32)
+            for a, b in rest:
+                acc = torch.addmm(acc, r_planes[a], flats[b], out_dtype=f32)
+            return acc
+        return run
+
+    def timed_tc6(label, kern, plain, library, gemm_fl, extra=0.0,
+                  nbytes=nbytes, kb_c=kb):
+        rec = timed(label, kern, plain, library,
+                    2.0 * n * kb_c.pw.shape[0] * (two_m + two_d) + extra,
+                    nbytes, tc_flops=6.0 * gemm_fl)
+        rec["bound_fp32_ms"] = bound(gemm_fl + extra, nbytes)[0]
+        rec["library_six_bf16_ms"] = profiling.device_ms(six_chain(kb_c))
+        log(f"{label}: bound of the six products {rec['bound_ms']:.3f} ms, "
+            f"as fp32 FMAs {rec['bound_fp32_ms']:.3f} ms; yardsticks fp32 "
+            f"GEMM {rec['library_ms']:.3f} ms, six bf16 GEMMs "
+            f"{rec['library_six_bf16_ms']:.3f} ms")
+        return rec
+
+    t1 = timed_tc6("K1", lambda: kernels.grouped_estimate(r2, kb, tc_ops),
+                   lambda: kernels.grouped_estimate_reference(r2, kb), gemm,
+                   gemm_flops)
     kb3 = kernels.kernel_bank_block(bank, 4, 1.0)
-    t3 = timed("K3 (T=4, alpha=1)",
-               lambda: kernels.grouped_estimate_coherent(r2, kb3, 4, 1.0),
-               lambda: kernels.grouped_estimate_coherent_reference(
-                   r2, kb3, 4, 1.0), gemm, gemm_flops + 3.0 * n * K)
+    t3 = timed_tc6("K3 (T=4, alpha=1)",
+                   lambda: kernels.grouped_estimate_coherent(r2, kb3, 4, 1.0,
+                                                             tc_ops),
+                   lambda: kernels.grouped_estimate_coherent_reference(
+                       r2, kb3, 4, 1.0), gemm, gemm_flops, 3.0 * n * K)
     kb16 = kernels.kernel_bank_block(bank, 16, 1.0)
-    t3_16 = timed("K3 (T=16, alpha=1)",
-                  lambda: kernels.grouped_estimate_coherent(r2, kb16, 16,
-                                                            1.0),
-                  lambda: kernels.grouped_estimate_coherent_reference(
-                      r2, kb16, 16, 1.0), gemm, gemm_flops + 3.0 * n * K)
+    t3_16 = timed_tc6("K3 (T=16, alpha=1)",
+                      lambda: kernels.grouped_estimate_coherent(
+                          r2, kb16, 16, 1.0, tc_ops),
+                      lambda: kernels.grouped_estimate_coherent_reference(
+                          r2, kb16, 16, 1.0), gemm, gemm_flops, 3.0 * n * K)
     t4 = {k_sel: timed(
         f"K4 (k={k_sel})",
         lambda: kernels.grouped_estimate_topk(r2, kb, k_sel),
@@ -1552,23 +1717,27 @@ def main():
     # 32-component shard half the bank's work and bytes. K5: K4's work; its
     # bytes the rows read once, the bank once and k (1 + 2D) floats a row
     # written. Library yardstick: the GEMM-only torch.matmul, as for K1 / K4.
-    t2 = timed("K2", lambda: kernels.grouped_estimate_stats(r2, kb),
-               lambda: kernels.grouped_estimate_stats_reference(r2, kb), gemm,
-               gemm_flops, nbytes + 8.0 * n)
+    t2 = timed_tc6("K2", lambda: kernels.grouped_estimate_stats(r2, kb,
+                                                                tc_ops),
+                   lambda: kernels.grouped_estimate_stats_reference(r2, kb),
+                   gemm, gemm_flops, nbytes=nbytes + 8.0 * n)
     kb32 = type(kb)(*(x[:K // 2] for x in kb))
+    ops32 = kernels.tc_operands(kb32)
     flat32 = kb32.pw.permute(1, 0, 2).reshape(two_m, -1).contiguous()
     bytes32 = 4.0 * (n * two_m + n * two_d + 2 * n + sum(
         x.numel() for x in kb32))
-    t2_32 = timed("K2, one 32-component shard",
-                  lambda: kernels.grouped_estimate_stats(r2, kb32),
-                  lambda: kernels.grouped_estimate_stats_reference(r2, kb32),
-                  lambda: r2 @ flat32, gemm_flops / 2, bytes32)
-    t2c = timed("K2 coherent (T=4, alpha=1)",
-                lambda: kernels.grouped_estimate_coherent_stats(r2, kb3, 4,
-                                                                1.0),
-                lambda: kernels.grouped_estimate_coherent_stats_reference(
-                    r2, kb3, 4, 1.0), gemm, gemm_flops + 3.0 * n * K,
-                nbytes + 8.0 * n)
+    t2_32 = timed_tc6("K2, one 32-component shard",
+                      lambda: kernels.grouped_estimate_stats(r2, kb32, ops32),
+                      lambda: kernels.grouped_estimate_stats_reference(r2,
+                                                                       kb32),
+                      lambda: r2 @ flat32, gemm_flops / 2, nbytes=bytes32,
+                      kb_c=kb32)
+    t2c = timed_tc6("K2 coherent (T=4, alpha=1)",
+                    lambda: kernels.grouped_estimate_coherent_stats(
+                        r2, kb3, 4, 1.0, tc_ops),
+                    lambda: kernels.grouped_estimate_coherent_stats_reference(
+                        r2, kb3, 4, 1.0), gemm, gemm_flops, 3.0 * n * K,
+                    nbytes + 8.0 * n)
     bank_bytes = 4.0 * sum(x.numel() for x in kb)
     t5 = {k_sel: timed(
         f"K5 (k={k_sel})",
@@ -1590,14 +1759,13 @@ def main():
     vk, fp_tool = variant_kernels, kernel_floor_probe
     r_re, r_im = r.real.contiguous(), r.imag.contiguous()
     kk = vk.kernel_bank(bank)
-    planes = vk.split_planes(kb.pw)
-    tc_ops = vk.tc_operands(kb, planes)   # laid out once, as lowered_tc
+    planes = kernels.split_planes(kb.pw)
     probe_errs = {}
     for label, bank_c, rows in (("full", bank, r),
                                 ("ragged", bank, r[:10001]),
                                 ("dead", dead_bank, r[:8191])):
         kb_c, kk_c = kernels.kernel_bank_block(bank_c), vk.kernel_bank(bank_c)
-        planes_c = vk.split_planes(kb_c.pw)
+        planes_c = kernels.split_planes(kb_c.pw)
         x2 = kernels._r2(rows)
         x_re, x_im = rows.real.contiguous(), rows.imag.contiguous()
         errs["karatsuba_estimate"].append(compare(
@@ -1633,6 +1801,37 @@ def main():
                                         / torch.linalg.vector_norm(h1))
         if not vs_k1[wrapper.__name__] < TC_BOUNDS[mode]:
             raise AssertionError(f"K14b {mode} off K1: {vs_k1}")
+    # split3 against K1's plain float32 version, max-abs (the rule K1 is
+    # held to), beside K1's own; then K1, K3 at T = 4 and split3 against
+    # float64 (`fp32_accuracy`): K1 and K3 must hold the rule, split3, which
+    # TOL passes, must fail it
+    plain1 = kernels.grouped_estimate_reference(r2, kb)
+    scale_p = float(plain1.abs().max())
+    split3 = vk.grouped_tc_split3(r2, kb, planes, tc_ops)
+    split3_vs_plain = float((split3 - plain1).abs().max()) / scale_p
+    k1_vs_plain = float((h1 - plain1).abs().max()) / scale_p
+    log(f"max |x - K1 plain| / max |K1 plain| at N={n}: K14b split3 "
+        f"{split3_vs_plain:.3e}, K1 {k1_vs_plain:.3e} (K1's tol {TOL})")
+    r64 = r2.double()
+    want64 = kernels.grouped_estimate_reference(r64, f64(kb))
+    headline_acc = {}
+    headline_acc["K1"], held_1 = fp32_accuracy(
+        "grouped_estimate", "headline", h1, plain1, want64)
+    headline_acc["split3"], held_s = fp32_accuracy(
+        "grouped_tc_split3", "headline", split3, plain1, want64)
+    del plain1, split3
+    kb4 = kernels.kernel_bank_block(bank, 4, 1.0)
+    want64 = kernels.grouped_estimate_coherent_reference(r64, f64(kb4), 4,
+                                                         1.0)
+    headline_acc["K3 T=4"], held_3 = fp32_accuracy(
+        "grouped_estimate_coherent", "headline, T=4",
+        kernels.grouped_estimate_coherent(r2, kb4, 4, 1.0),
+        kernels.grouped_estimate_coherent_reference(r2, kb4, 4, 1.0),
+        want64)
+    del r64, want64
+    if not (held_1 and held_3) or held_s:
+        raise AssertionError(f"float64 rule at the headline: K1 and K3 must "
+                             f"hold it, split3 must not: {headline_acc}")
     log(f"against K1 at N={n}: K14a max rel {vs_k1['karatsuba_estimate']:.3e}"
         f" (tol {TOL}); K15 full bit for bit; K14b relative norms "
         + ", ".join(f"{m} {vs_k1[w.__name__]:.3e} (bound {TC_BOUNDS[m]})"
@@ -1653,6 +1852,21 @@ def main():
     if bad:
         raise AssertionError(f"K14b off its plain version on repeated "
                              f"launches: {bad}")
+    # ... and K1 / K3 at each of tc_repeat_check's F32_SHAPES (64- and
+    # 128-row blocks, the one-stage ring, each pooling route), at least
+    # 1000 launches, each bit for bit the first and within the card tests'
+    # rule of the plain version
+    tm = time.time()
+    rep_f32 = tc_repeat_check.repeat_check(dev, repeats=150,
+                                           modes=("f32",))["kernel"]
+    n_rep = sum(v["launches"] for v in rep_f32.values())
+    bad = {k: v for k, v in rep_f32.items() if v["failures"]}
+    log(f"K1 / K3 repeated: {n_rep} launches in {time.time() - tm:.1f}s, max "
+        f"err {max(v['max_err'] for v in rep_f32.values()):.3e}, failures "
+        f"{bad or 0}")
+    if bad or n_rep < 1000:
+        raise AssertionError(f"K1 / K3 off on repeated launches ({n_rep}): "
+                             f"{bad}")
 
     # 5b. the path itself, through the tools' entry points at their
     # defaults, its launches counted alone: the floor probe, kernel_bench
@@ -1724,9 +1938,10 @@ def main():
                                                               p),
             library_tc[mode], 2.0 * n * K * (two_m + two_d), tc_bytes,
             tc_flops=passes * gemm_flops)
-    t15 = timed("K15 (full)", lambda: fp_tool.floor_probe(r2, kb, "full"),
-                lambda: fp_tool.floor_probe_reference(r2, kb, "full"), gemm,
-                gemm_flops)
+    t15 = timed_tc6("K15 (full)",
+                    lambda: fp_tool.floor_probe(r2, kb, "full", tc_ops),
+                    lambda: fp_tool.floor_probe_reference(r2, kb, "full"),
+                    gemm, gemm_flops)
     # the kernels redesigned for Hopper (K14b on wgmma, K4 / K5 on a
     # register-tiled fp32 loop): time, bound, the share of the bound
     # reached, and the one-call yardstick
@@ -1745,11 +1960,14 @@ def main():
             kernels.grouped_estimate(r2, kb)
         table = prof.key_averages().table(row_limit=-1).splitlines()
         traced = os.path.getsize(os.path.join(tmp, "trace.json"))
-    rows_k1 = [line for line in table if "grouped_estimate_kernel" in line]
+    rows_k1 = [line for line in table if "grouped_tc_kernel" in line]
     log("profiler (one K1 launch, trace "
         f"{traced} bytes):\n" + "\n".join(table[:3] + rows_k1))
     if not rows_k1:
         raise AssertionError("the profiler table holds no K1 kernel row")
+
+    # 5e. K1 / K3 at the service's microbatch sizes
+    sweep = batch_sweep.main(["--rows", "512", "4096"])["ms"]
 
     src = "quantized_channel_estimation_torch/csrc/"
     tpu = "quantized_channel_estimation_tpu/estimators/pallas_kernels.py"
@@ -1757,12 +1975,17 @@ def main():
         {"name": "grouped_estimate", "id": "K1", "route": "cuda",
          "source": src + "grouped_estimate.cu", "replaces": f"{tpu}:327",
          "launches": total_launches["grouped_estimate"],
-         "max_abs_err": max(errs["grouped_estimate"]), **t1},
+         "max_abs_err": max(errs["grouped_estimate"]), **t1,
+         "at_rows_ms": {k: v for k, v in sweep.items() if k.startswith("K1")},
+         "fitted_bank_nmse": fitted,
+         "fp32_accuracy": {"headline": headline_acc,
+                           "fitted_bank": fitted_acc}},
         {"name": "grouped_estimate_coherent", "id": "K3", "route": "cuda",
          "source": src + "grouped_estimate.cu", "replaces": f"{tpu}:1151",
          "launches": total_launches["grouped_estimate_coherent"],
          "max_abs_err": max(errs["grouped_estimate_coherent"]),
-         "t_coh": 4, "coh_alpha": 1.0, **t3, "at_t16": t3_16},
+         "t_coh": 4, "coh_alpha": 1.0, **t3, "at_t16": t3_16,
+         "at_rows_ms": {k: v for k, v in sweep.items() if k.startswith("K3")}},
         {"name": "grouped_estimate_stats", "id": "K2", "route": "cuda",
          "source": src + "grouped_estimate.cu", "replaces": f"{tpu}:454",
          "launches": total_launches["grouped_estimate_stats"],
@@ -1837,7 +2060,9 @@ def main():
            "replaces": f"{tpu}:{430 if mode == 'bf16' else 440}",
            "launches": total_launches[w.__name__],
            "max_abs_err": max(errs[w.__name__]),
-           "vs_k1_rel_norm": vs_k1[w.__name__], **t14b[mode]}
+           "vs_k1_rel_norm": vs_k1[w.__name__], **t14b[mode],
+           **({"vs_k1_plain_max_rel": split3_vs_plain}
+              if mode == "split3" else {})}
           for mode, w in vk.TC_WRAPPERS.items()),
         {"name": "floor_probe", "id": "K15", "route": "cuda",
          "source": src + "floor_probe.cu",

@@ -10,7 +10,12 @@ dense-bank part: the block-GEMM bank layout (`KernelBankBlock`,
   `_estimate_kernel_block_grouped`, entry `estimate_fused`), and
 - K3, its coherent mode pooling each component's logits over the T rows of
   a coherence block with the alpha blend (entry `estimate_fused_coherent`),
-  both in `csrc/grouped_estimate.cu`;
+  both in `csrc/grouped_estimate.cu` on the wgmma stream of
+  `csrc/grouped_tc_stream.cuh`: each product r2 pw_k as six bf16
+  tensor-core products of three-plane splits of r2 and the bank
+  (`split_planes3`), accumulated in fp32, which keeps fp32's accuracy; the
+  bank's planes are laid out once in the kernel's shared-memory layout
+  (`tc_operands`, cached beside the bank by `lowered_tc`);
 - K2, the split-K stats form of K1 and K3
   (`_estimate_kernel_block_grouped_stats`, entries `estimate_fused_stats`
   and `estimate_fused_coherent_stats`): the
@@ -35,7 +40,8 @@ variants of K1, K14a and K14b (`csrc/karatsuba_estimate.cu`,
 plain versions and wrappers in the siblings `circ_kernels`,
 `mp_circ_kernels`, `fact_kernels`, `variant_kernels` and
 `tools.kernel_floor_probe`; they are built, bound and counted by this
-module (`build`, `_library`, `register_wrappers`).
+module (`build`, `_library`, `register_wrappers`). K14b and K15 share K1's
+stream and its `tc_operands`.
 
 Rows of coherence blocks are laid out block-major (the T rows of a block
 consecutive); the TPU's T-major re-layout served its sublane tiling and has
@@ -56,7 +62,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -132,16 +138,16 @@ def _library(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "grouped_estimate":
-        lib.grouped_estimate_launch.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        lib.grouped_estimate_launch.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
         lib.grouped_estimate_launch.restype = i32
         lib.grouped_estimate_coherent_launch.argtypes = (
-            [ptr] * 6 + [i32] * 5 + [f32, ptr])
+            [ptr] * 7 + [i32] * 5 + [f32, ptr])
         lib.grouped_estimate_coherent_launch.restype = i32
         lib.grouped_estimate_stats_launch.argtypes = (
-            [ptr] * 8 + [i32] * 4 + [ptr])
+            [ptr] * 9 + [i32] * 4 + [ptr])
         lib.grouped_estimate_stats_launch.restype = i32
         lib.grouped_estimate_coherent_stats_launch.argtypes = (
-            [ptr] * 8 + [i32] * 5 + [f32, ptr])
+            [ptr] * 9 + [i32] * 5 + [f32, ptr])
         lib.grouped_estimate_coherent_stats_launch.restype = i32
     elif name == "grouped_topk":
         lib.grouped_topk_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
@@ -168,7 +174,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.grouped_tc_estimate_launch.restype = i32
     elif name == "floor_probe":
         lib.floor_probe_launch.argtypes = (
-            [ptr] * 6 + [i32] * 5 + [ptr, i32, ptr])
+            [ptr] * 7 + [i32] * 5 + [ptr, i32, ptr])
         lib.floor_probe_launch.restype = i32
 
 
@@ -181,10 +187,11 @@ def fused_kernel_eligible(d: int, m: int) -> bool:
 
 
 def tile_rows(two_m: int, two_d: int) -> int:
-    """Rows of one tile of the K1/K3 kernel at these widths (8 warps of 8
-    rows while 2M, 2D <= 128, else of 4; `dispatch` in
-    csrc/grouped_estimate.cu): the largest coherence block K3 pools."""
-    return 64 if max(two_m, two_d) <= 128 else 32
+    """Rows of one consumer warpgroup's tile of the K1 / K3 stream at these
+    widths (csrc/grouped_tc_stream.cuh: 64 at every width), the largest
+    coherence block K3 pools: every T the fp32 stream took (64 rows while
+    2M, 2D <= 128, else 32) and more."""
+    return 64
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +269,140 @@ def lowered(bank: PreparedBank, cache: Optional[dict] = None,
     return cache[key]
 
 
+# ---------------------------------------------------------------------------
+# the tensor-core layout of the bank (K1-K3, K14b, K15)
+# ---------------------------------------------------------------------------
+
+def split_planes(pw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """pw float32 -> (pw_hi, pw_lo) bfloat16: pw_hi = bf16(pw), pw_lo =
+    bf16(pw - pw_hi), both rounded to nearest even, as JAX splits its bank
+    (`estimate_packed_block_grouped`)."""
+    hi = pw.to(torch.bfloat16)
+    return hi.contiguous(), (pw - hi.to(torch.float32)).to(
+        torch.bfloat16).contiguous()
+
+
+def split_planes3(x: torch.Tensor):
+    """x float32 -> (hi, lo, lo2) bfloat16, each rounded to nearest even:
+    hi, lo = `split_planes(x)` and lo2 = bf16(x - hi - lo), so that hi + lo
+    + lo2 = x exactly for normal x (8 + 8 + 8 significand bits). The planes
+    of K1's six products."""
+    hi, lo = split_planes(x)
+    rest = (x - hi.to(torch.float32)) - lo.to(torch.float32)
+    return hi, lo, rest.to(torch.bfloat16).contiguous()
+
+
+TC_PIECE = 64   # columns a piece, contraction rows a swizzle chunk
+
+
+def _tc_columns(two_m: int, two_d: int) -> torch.Tensor:
+    """The column of pw behind each column of the stream's pieces: the
+    logit half [0, 2M) in ceil(2M / 64) pieces, then the value half
+    [2M, 2M + 2D) in ceil(2D / 64), each padded with -1 (a zero column) to
+    64."""
+    mp, dp = -(-two_m // TC_PIECE), -(-two_d // TC_PIECE)
+    cols = torch.full(((mp + dp) * TC_PIECE,), -1, dtype=torch.long)
+    cols[:two_m] = torch.arange(two_m)
+    cols[mp * TC_PIECE:mp * TC_PIECE + two_d] = two_m + torch.arange(two_d)
+    return cols
+
+
+def _sw128(x: torch.Tensor) -> torch.Tensor:
+    """The 128-byte swizzle of rows of 64 bf16 values (..., rows, 64): row
+    r's 16-byte chunk c moves to chunk c ^ (r % 8). Its own inverse."""
+    rows = x.shape[-2]
+    chunk = (torch.arange(rows, device=x.device)[:, None] % 8
+             ^ torch.arange(8, device=x.device)[None, :])
+    y = x.reshape(*x.shape[:-1], 8, 8)
+    idx = chunk[:, :, None].expand(*y.shape)
+    return torch.gather(y, -2, idx).reshape(x.shape)
+
+
+def tc_slab(plane: torch.Tensor, two_m: int) -> torch.Tensor:
+    """One bf16 plane of the bank (K, 2M, 2M + 2D) in the stream's B layout
+    (csrc/grouped_tc_stream.cuh): (K, mp + dp, Kp / 64, 64, 64), per
+    component and piece of 64 columns (`_tc_columns`) its transpose,
+    Kp = 2M rounded up to 64 contraction rows in chunks of 64, each chunk
+    64 columns x 64 rows in the 128-byte swizzle (`_sw128`); padding
+    columns and rows are zero. One (component, piece) is one contiguous run
+    the kernel copies into shared memory as it is."""
+    k_comp, _, s_cols = plane.shape
+    cols = _tc_columns(two_m, s_cols - two_m).to(plane.device)
+    n_ch = -(-two_m // TC_PIECE)
+    pieces = cols.numel() // TC_PIECE
+    padded = torch.cat([plane, plane.new_zeros(k_comp, two_m, 1)], -1)
+    x = padded[:, :, torch.where(cols < 0, s_cols, cols)]
+    x = torch.cat([x, x.new_zeros(k_comp, n_ch * TC_PIECE - two_m,
+                                  x.shape[-1])], 1)       # (K, Kp, P 64)
+    x = x.reshape(k_comp, n_ch, TC_PIECE, pieces, TC_PIECE).permute(
+        0, 3, 1, 4, 2)                                    # (K, P, ch, n, k)
+    return _sw128(x).contiguous()
+
+
+def tc_vectors(kb: KernelBankBlock) -> torch.Tensor:
+    """mu and b in the stream's pieces: (K, mp + dp, 64) float32, per
+    component the values of each piece's columns (`_tc_columns`: mu_k over
+    the logit pieces, b_k over the value pieces), padding zero."""
+    k_comp, two_m = kb.mu.shape
+    two_d = kb.b.shape[1]
+    cols = _tc_columns(two_m, two_d).to(kb.mu.device)
+    both = torch.cat([kb.mu, kb.b, kb.mu.new_zeros(k_comp, 1)], 1)
+    return both[:, torch.where(cols < 0, two_m + two_d, cols)].reshape(
+        k_comp, -1, TC_PIECE).contiguous()
+
+
+class TcOperands(NamedTuple):
+    """The bank as the wgmma stream reads it: its bf16 planes hi, lo, lo2
+    (`split_planes3`) in the B layout (`tc_slab`; K14b reads hi and lo,
+    K1-K3 and K15 all three) and mu and b by piece (`tc_vectors`). The
+    same for every (T, alpha) layout of a bank: they differ in logw only,
+    which the kernels read from the layout."""
+    hi: torch.Tensor
+    lo: torch.Tensor
+    lo2: torch.Tensor
+    vec: torch.Tensor
+
+
+def tc_operands(kb: KernelBankBlock, planes=None) -> TcOperands:
+    """The stream's operands of kb: its three bf16 planes (`planes`,
+    default `split_planes3(kb.pw)`) in the B layout, and mu and b by
+    piece."""
+    if planes is None:
+        planes = split_planes3(kb.pw)
+    two_m = kb.mu.shape[1]
+    return TcOperands(*(tc_slab(p, two_m) for p in planes), tc_vectors(kb))
+
+
+def _cached_tc(kb: KernelBankBlock, cache: Optional[dict]):
+    """(planes, operands) of kb's bank: `split_planes3(kb.pw)` and their
+    `tc_operands`, kept in `cache` ("bf16_planes", "tc_operands"), so a
+    bank served many times is split and laid out once, for every (T,
+    alpha) layout and for K1-K3, K14b and K15 alike."""
+    if cache is None:
+        planes = split_planes3(kb.pw)
+        return planes, tc_operands(kb, planes)
+    if "bf16_planes" not in cache:
+        cache["bf16_planes"] = split_planes3(kb.pw)
+    if "tc_operands" not in cache:
+        cache["tc_operands"] = tc_operands(kb, cache["bf16_planes"])
+    return cache["bf16_planes"], cache["tc_operands"]
+
+
+def lowered_tc(bank: PreparedBank, cache: Optional[dict] = None):
+    """(kb, planes, operands): the T = 1 layout of the bank (`lowered`),
+    its three bf16 planes and their `tc_operands`, all kept in `cache`."""
+    kb = lowered(bank, cache)
+    return (kb, *_cached_tc(kb, cache))
+
+
+def _launch_ops(kb: KernelBankBlock, r: torch.Tensor,
+                cache: Optional[dict]) -> Optional[TcOperands]:
+    """The operands an entry hands its wrapper: the cached `tc_operands`
+    for observations on a card, None on the CPU (the plain versions read
+    kb alone)."""
+    return _cached_tc(kb, cache)[1] if r.is_cuda else None
+
+
 def _r2(r: torch.Tensor) -> torch.Tensor:
     """Complex observations (..., M) -> float32 rows [re | im] (n, 2M)."""
     r2 = torch.cat([r.real, r.imag], dim=-1).to(torch.float32)
@@ -311,16 +452,24 @@ def component_logits(r2: torch.Tensor, kb: KernelBankBlock,
     return torch.cat(out) if out else r2.new_zeros((0, kb.pw.shape[0]))
 
 
-def _grouped_reference(r2, kb, t_coh, coh_alpha, chunk, stats=False):
+def _grouped_reference(r2, kb, t_coh, coh_alpha, chunk, stats=False,
+                       products=None):
     """The K1 / K3 stream in plain PyTorch: the estimate (N, 2D), or with
-    `stats` the un-normalised state m (N,), den (N,), acc (N, 2D) of K2."""
+    `stats` the un-normalised state m (N,), den (N,), acc (N, 2D) of K2.
+    `products(rows)` -> (n, K (2M+2D)): the products r2 pw_k of a chunk of
+    rows (default: one float32 GEMM)."""
     pin_fp32()
-    k_comp = kb.pw.shape[0]
-    flat = _flat_bank(kb)
+    k_comp, _, s_cols = kb.pw.shape
+    if products is None:
+        flat = _flat_bank(kb)
+
+        def products(rows):
+            return rows @ flat
     chunk = max(t_coh, chunk // t_coh * t_coh)   # whole blocks per chunk
     out = []
     for i0 in range(0, r2.shape[0], chunk):
-        lg, z = _stream_reference(r2[i0:i0 + chunk], kb, flat)
+        lg, z = logits_and_estimates(
+            products(r2[i0:i0 + chunk]).reshape(-1, k_comp, s_cols), kb)
         if t_coh > 1:
             lg3 = lg.reshape(-1, t_coh, k_comp)
             s = lg3.sum(1, keepdim=True)
@@ -526,32 +675,77 @@ def _launch(kernel: str, lib_fn, r2: torch.Tensor, kb: KernelBankBlock,
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
 
 
-def grouped_estimate(r2: torch.Tensor, kb: KernelBankBlock) -> torch.Tensor:
-    """K1 on r2 (N, 2M) float32 -> (N, 2D) float32. On a CUDA tensor it
-    launches the CUDA kernel (2M and 2D at most 256) on the current stream
-    and raises on any refusal; on a CPU tensor it computes the plain
-    version."""
+def check_tc_operands(kernel: str, ops: TcOperands, kb: KernelBankBlock,
+                      device) -> None:
+    """Raise unless ops holds the three B-layout slabs and the vectors of a
+    bank of kb's shape on `device` (`tc_operands`)."""
+    k_comp, two_m, s_cols = kb.pw.shape
+    n_ch = -(-two_m // TC_PIECE)
+    pieces = n_ch + -(-(s_cols - two_m) // TC_PIECE)
+    slab = (k_comp, pieces, n_ch, TC_PIECE, TC_PIECE)
+    fields = [("hi", ops.hi, torch.bfloat16, slab),
+              ("lo", ops.lo, torch.bfloat16, slab),
+              ("lo2", ops.lo2, torch.bfloat16, slab),
+              ("vec", ops.vec, torch.float32, (k_comp, pieces, TC_PIECE))]
+    for name, t, dtype, shape in fields:
+        if (t is None or t.device != device or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            got = ("None" if t is None
+                   else f"{t.dtype} {tuple(t.shape)} on {t.device}")
+            raise ValueError(f"{kernel}: operand {name} must be contiguous "
+                             f"{dtype} {shape} on {device} (`tc_operands`), "
+                             f"got {got}")
+
+
+def launch_tc(kernel: str, lib_fn, r2: torch.Tensor, kb: KernelBankBlock,
+              ops: Optional[TcOperands], outs, *args) -> None:
+    """Launch a kernel of the wgmma stream (K1-K3, K15) on r2's device and
+    current stream: r2, the three planes and vectors of `ops` (laid out
+    from kb here when None), logw, the output tensors `outs`, then `args`;
+    raise on a cudaError."""
+    dev = r2.device
+    if ops is None:
+        ops = tc_operands(kb)
+    check_tc_operands(kernel, ops, kb, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib_fn(r2.data_ptr(), ops.hi.data_ptr(), ops.lo.data_ptr(),
+                     ops.lo2.data_ptr(), ops.vec.data_ptr(),
+                     kb.logw.data_ptr(), *(o.data_ptr() for o in outs),
+                     *args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+
+
+def grouped_estimate(r2: torch.Tensor, kb: KernelBankBlock,
+                     ops: Optional[TcOperands] = None) -> torch.Tensor:
+    """K1 on r2 (N, 2M) float32 -> (N, 2D) float32; ops: `tc_operands(kb)`
+    (`lowered_tc` keeps them beside a bank; laid out in the call when
+    None). On a CUDA tensor it launches the CUDA kernel (2M and 2D at most
+    256) on the current stream and raises on any refusal; on a CPU tensor
+    it computes the plain version."""
     if not r2.is_cuda:
         return grouped_estimate_reference(r2, kb)
     n, k_comp, two_m, two_d = _check_inputs("grouped_estimate", r2, kb)
     out = torch.empty((n, two_d), dtype=torch.float32, device=r2.device)
     if n == 0:
         return out
-    _launch("grouped_estimate",
-            _library("grouped_estimate").grouped_estimate_launch, r2, kb,
-            (out,), n, k_comp, two_m, two_d)
+    launch_tc("grouped_estimate",
+              _library("grouped_estimate").grouped_estimate_launch, r2, kb,
+              ops, (out,), n, k_comp, two_m, two_d)
     grouped_estimate.launches += 1
     return out
 
 
 def grouped_estimate_coherent(r2: torch.Tensor, kb: KernelBankBlock,
-                              t_coh: int,
-                              coh_alpha: float = 1.0) -> torch.Tensor:
+                              t_coh: int, coh_alpha: float = 1.0,
+                              ops: Optional[TcOperands] = None
+                              ) -> torch.Tensor:
     """K3 on r2 (N, 2M) float32, N / T blocks of T consecutive rows ->
-    (N, 2D) float32, kb from `kernel_bank_block(bank, t_coh, coh_alpha)`.
-    On a CUDA tensor it launches the CUDA kernel (2 <= T <= `tile_rows`)
-    on the current stream and raises on any refusal; on a CPU tensor it
-    computes the plain version."""
+    (N, 2D) float32, kb from `kernel_bank_block(bank, t_coh, coh_alpha)`,
+    ops as for `grouped_estimate`. On a CUDA tensor it launches the CUDA
+    kernel (2 <= T <= `tile_rows`) on the current stream and raises on any
+    refusal; on a CPU tensor it computes the plain version."""
     if not r2.is_cuda:
         return grouped_estimate_coherent_reference(r2, kb, t_coh, coh_alpha)
     n, k_comp, two_m, two_d = _check_inputs("grouped_estimate_coherent",
@@ -560,10 +754,10 @@ def grouped_estimate_coherent(r2: torch.Tensor, kb: KernelBankBlock,
     out = torch.empty((n, two_d), dtype=torch.float32, device=r2.device)
     if n == 0:
         return out
-    _launch("grouped_estimate_coherent",
-            _library("grouped_estimate").grouped_estimate_coherent_launch,
-            r2, kb, (out,), n, k_comp, two_m, two_d, int(t_coh),
-            float(coh_alpha))
+    launch_tc("grouped_estimate_coherent",
+              _library("grouped_estimate").grouped_estimate_coherent_launch,
+              r2, kb, ops, (out,), n, k_comp, two_m, two_d, int(t_coh),
+              float(coh_alpha))
     grouped_estimate_coherent.launches += 1
     return out
 
@@ -583,33 +777,35 @@ def _stats_outputs(n: int, two_d: int, device):
             torch.empty((n,), dtype=f32, device=device))
 
 
-def grouped_estimate_stats(r2: torch.Tensor, kb: KernelBankBlock):
+def grouped_estimate_stats(r2: torch.Tensor, kb: KernelBankBlock,
+                           ops: Optional[TcOperands] = None):
     """K2 on r2 (N, 2M) float32 -> (m (N,), den (N,), acc (N, 2D)), the
-    un-normalised state of K1 over this (shard of a) bank. On a CUDA
-    tensor it launches the CUDA kernel (2M and 2D at most 256) on the
-    current stream and raises on any refusal; on a CPU tensor it computes
-    the plain version."""
+    un-normalised state of K1 over this (shard of a) bank; ops as for
+    `grouped_estimate`. On a CUDA tensor it launches the CUDA kernel (2M
+    and 2D at most 256) on the current stream and raises on any refusal;
+    on a CPU tensor it computes the plain version."""
     if not r2.is_cuda:
         return grouped_estimate_stats_reference(r2, kb)
     n, k_comp, two_m, two_d = _check_inputs("grouped_estimate_stats", r2, kb)
     acc, m, den = _stats_outputs(n, two_d, r2.device)
     if n == 0:
         return m, den, acc
-    _launch("grouped_estimate_stats",
-            _library("grouped_estimate").grouped_estimate_stats_launch, r2,
-            kb, (acc, m, den), n, k_comp, two_m, two_d)
+    launch_tc("grouped_estimate_stats",
+              _library("grouped_estimate").grouped_estimate_stats_launch, r2,
+              kb, ops, (acc, m, den), n, k_comp, two_m, two_d)
     grouped_estimate_stats.launches += 1
     return m, den, acc
 
 
 def grouped_estimate_coherent_stats(r2: torch.Tensor, kb: KernelBankBlock,
-                                    t_coh: int, coh_alpha: float = 1.0):
+                                    t_coh: int, coh_alpha: float = 1.0,
+                                    ops: Optional[TcOperands] = None):
     """K2's coherent form on r2 (N, 2M), N / T blocks of T consecutive
-    rows, kb from `kernel_bank_block(bank, t_coh, coh_alpha)` -> K3's
-    state per row (m (N,), den (N,), acc (N, 2D)). On a CUDA tensor it
-    launches the CUDA kernel (2 <= T <= `tile_rows`) on the current stream
-    and raises on any refusal; on a CPU tensor it computes the plain
-    version."""
+    rows, kb from `kernel_bank_block(bank, t_coh, coh_alpha)`, ops as for
+    `grouped_estimate` -> K3's state per row (m (N,), den (N,), acc (N,
+    2D)). On a CUDA tensor it launches the CUDA kernel (2 <= T <=
+    `tile_rows`) on the current stream and raises on any refusal; on a CPU
+    tensor it computes the plain version."""
     if not r2.is_cuda:
         return grouped_estimate_coherent_stats_reference(r2, kb, t_coh,
                                                          coh_alpha)
@@ -620,10 +816,10 @@ def grouped_estimate_coherent_stats(r2: torch.Tensor, kb: KernelBankBlock,
     if n == 0:
         return m, den, acc
     lib = _library("grouped_estimate")
-    _launch("grouped_estimate_coherent_stats",
-            lib.grouped_estimate_coherent_stats_launch, r2, kb,
-            (acc, m, den), n, k_comp, two_m, two_d, int(t_coh),
-            float(coh_alpha))
+    launch_tc("grouped_estimate_coherent_stats",
+              lib.grouped_estimate_coherent_stats_launch, r2, kb, ops,
+              (acc, m, den), n, k_comp, two_m, two_d, int(t_coh),
+              float(coh_alpha))
     grouped_estimate_coherent_stats.launches += 1
     return m, den, acc
 
@@ -717,7 +913,8 @@ def estimate_fused(bank: PreparedBank, r: torch.Tensor,
     """'all'-mode estimate of complex observations r (N, M) -> (N, D)
     through K1: the drop-in for `gmm_estimator.estimate(bank, r, 'all')`.
     `cache`: see `lowered`."""
-    h2 = grouped_estimate(_r2(r), lowered(bank, cache))
+    kb = lowered(bank, cache)
+    h2 = grouped_estimate(_r2(r), kb, _launch_ops(kb, r, cache))
     return _h(h2, bank.filters.shape[1], r.dtype)
 
 
@@ -733,15 +930,16 @@ def estimate_fused_stats(bank: PreparedBank, r: torch.Tensor,
     _, d, m = bank.filters.shape
     if not fused_kernel_eligible(d, m):
         return gmm_estimator.estimate_stats(bank, r)
-    ms, den, acc2 = grouped_estimate_stats(_r2(r), lowered(bank, cache))
+    kb = lowered(bank, cache)
+    ms, den, acc2 = grouped_estimate_stats(_r2(r), kb,
+                                           _launch_ops(kb, r, cache))
     return ms, den, _h(acc2, d, torch.complex64)
 
 
 def coherent_kernel_eligible(bank: PreparedBank, t: int) -> bool:
     """Can K3 pool T-snapshot blocks of this bank? 1 < T <= the kernel's
-    tile rows (64 at 2M, 2D <= 128, else 32), within
-    `fused_kernel_eligible`. A rule of the shapes, decided before any
-    launch."""
+    tile rows (`tile_rows`: 64), within `fused_kernel_eligible`. A rule of
+    the shapes, decided before any launch."""
     _, d, m = bank.filters.shape
     return (fused_kernel_eligible(d, m)
             and 1 < t <= tile_rows(2 * m, 2 * d))
@@ -763,8 +961,9 @@ def estimate_fused_coherent(bank: PreparedBank, r: torch.Tensor,
         return estimate_fused(bank, r[:, 0, :], cache)[:, None, :]
     if not coherent_kernel_eligible(bank, t):
         return gmm_estimator.estimate_coherent(bank, r, "all", 512, alpha)
-    h2 = grouped_estimate_coherent(_r2(r), lowered(bank, cache, t, alpha),
-                                   t, alpha)
+    kb = lowered(bank, cache, t, alpha)
+    h2 = grouped_estimate_coherent(_r2(r), kb, t, alpha,
+                                   _launch_ops(kb, r, cache))
     return _h(h2, d, r.dtype).reshape(b, t, d)
 
 
@@ -783,10 +982,13 @@ def estimate_fused_coherent_stats(bank: PreparedBank, r: torch.Tensor,
     b, t, _ = r.shape
     _, d, m = bank.filters.shape
     if t == 1 and fused_kernel_eligible(d, m):
-        ms, den, acc2 = grouped_estimate_stats(_r2(r), lowered(bank, cache))
+        kb = lowered(bank, cache)
+        ms, den, acc2 = grouped_estimate_stats(_r2(r), kb,
+                                               _launch_ops(kb, r, cache))
     elif coherent_kernel_eligible(bank, t):
+        kb = lowered(bank, cache, t, alpha)
         ms, den, acc2 = grouped_estimate_coherent_stats(
-            _r2(r), lowered(bank, cache, t, alpha), t, alpha)
+            _r2(r), kb, t, alpha, _launch_ops(kb, r, cache))
     else:
         return gmm_estimator.estimate_coherent_stats(bank, r, 512, alpha)
     acc = _h(acc2, d, torch.complex64).reshape(b, t, d)

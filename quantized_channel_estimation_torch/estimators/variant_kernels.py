@@ -11,14 +11,16 @@ kernels written in CUDA C++ for `sm_90a`:
 - K14b, K1's GEMM-precision modes (`_estimate_kernel_block_grouped_bf16`,
   `_estimate_kernel_block_grouped_split`, the `mode=` of
   `estimate_packed_block_grouped` / `estimate_block_grouped`) in
-  `csrc/grouped_tc_estimate.cu`: 'bf16', 'split2' and 'split3' on the
-  bf16 tensor cores (wgmma), the bank split into hi / lo bf16 planes
-  (`split_planes`, cached beside the bank by `lowered_split`) and each
-  plane laid out in the kernel's shared-memory layout (`tc_slab`, with mu
-  and b by piece in `tc_vectors`: `tc_operands`, cached beside them by
-  `lowered_tc`); one wrapper, and one launch
-  count, a mode (`grouped_tc_bf16`, `grouped_tc_split2`,
-  `grouped_tc_split3`).
+  `csrc/grouped_tc_estimate.cu`: 'bf16', 'split2' and 'split3', one to
+  three bf16 tensor-core products on K1's wgmma stream
+  (`csrc/grouped_tc_stream.cuh`, where K1 runs six), the bank split into
+  hi / lo bf16 planes (`kernels.split_planes`) and laid out in the
+  stream's shared-memory layout (`kernels.tc_operands`, with K1's third
+  plane; `kernels.lowered_tc` caches planes and layout beside the bank);
+  one wrapper, and one launch count, a mode
+  (`grouped_tc_bf16`, `grouped_tc_split2`, `grouped_tc_split3`).
+  `grouped_tc_estimate_reference` is the plain version of the stream's
+  arithmetic for any of its product counts, K1's six included.
 
 `mode='f32'` is K1 itself (`kernels.grouped_estimate`), and `estimate_block`
 is that same call: `tile_n` and `group` are MXU knobs with no counterpart
@@ -31,11 +33,12 @@ launches (`kernels.register_wrappers`).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from quantized_channel_estimation_torch.estimators import kernels
+from quantized_channel_estimation_torch.estimators.kernels import TcOperands
 from quantized_channel_estimation_torch.models.gmm_estimator import (
     PreparedBank)
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
@@ -205,149 +208,56 @@ def estimate(bank: PreparedBank, r: torch.Tensor) -> torch.Tensor:
 # K14b: the GEMM-precision modes
 # ---------------------------------------------------------------------------
 
-def split_planes(pw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """pw float32 -> (pw_hi, pw_lo) bfloat16: pw_hi = bf16(pw), pw_lo =
-    bf16(pw - pw_hi), both rounded to nearest even, as JAX splits its bank
-    (`estimate_packed_block_grouped`)."""
-    hi = pw.to(torch.bfloat16)
-    return hi.contiguous(), (pw - hi.to(torch.float32)).to(
-        torch.bfloat16).contiguous()
-
-
-def lowered_split(bank: PreparedBank, cache: Optional[dict] = None):
-    """K1's layout of the bank and its hi / lo planes, (kb, (pw_hi, pw_lo)),
-    kept in `cache` beside `kernels.lowered`'s layouts, so a bank measured
-    many times is split once."""
-    kb = kernels.lowered(bank, cache)
-    if cache is None:
-        return kb, split_planes(kb.pw)
-    if "bf16_planes" not in cache:
-        cache["bf16_planes"] = split_planes(kb.pw)
-    return kb, cache["bf16_planes"]
-
-
-TC_PIECE = 64   # K14b: columns a piece, contraction rows a swizzle chunk
-
-
-def _tc_columns(two_m: int, two_d: int) -> torch.Tensor:
-    """The column of pw behind each column of K14b's pieces: the logit
-    half [0, 2M) in ceil(2M / 64) pieces, then the value half [2M, 2M + 2D)
-    in ceil(2D / 64), each padded with -1 (a zero column) to 64."""
-    mp, dp = -(-two_m // TC_PIECE), -(-two_d // TC_PIECE)
-    cols = torch.full(((mp + dp) * TC_PIECE,), -1, dtype=torch.long)
-    cols[:two_m] = torch.arange(two_m)
-    cols[mp * TC_PIECE:mp * TC_PIECE + two_d] = two_m + torch.arange(two_d)
-    return cols
-
-
-def _sw128(x: torch.Tensor) -> torch.Tensor:
-    """The 128-byte swizzle of rows of 64 bf16 values (..., rows, 64): row
-    r's 16-byte chunk c moves to chunk c ^ (r % 8). Its own inverse."""
-    rows = x.shape[-2]
-    chunk = (torch.arange(rows, device=x.device)[:, None] % 8
-             ^ torch.arange(8, device=x.device)[None, :])
-    y = x.reshape(*x.shape[:-1], 8, 8)
-    idx = chunk[:, :, None].expand(*y.shape)
-    return torch.gather(y, -2, idx).reshape(x.shape)
-
-
-def tc_slab(plane: torch.Tensor, two_m: int) -> torch.Tensor:
-    """One bf16 plane of the bank (K, 2M, 2M + 2D) in K14b's B layout
-    (csrc/grouped_tc_estimate.cu): (K, mp + dp, Kp / 64, 64, 64), per
-    component and piece of 64 columns (`_tc_columns`) its transpose,
-    Kp = 2M rounded up to 64 contraction rows in chunks of 64, each chunk
-    64 columns x 64 rows in the 128-byte swizzle (`_sw128`); padding
-    columns and rows are zero. One (component, piece) is one contiguous run
-    the kernel copies into shared memory as it is."""
-    k_comp, _, s_cols = plane.shape
-    cols = _tc_columns(two_m, s_cols - two_m).to(plane.device)
-    n_ch = -(-two_m // TC_PIECE)
-    pieces = cols.numel() // TC_PIECE
-    padded = torch.cat([plane, plane.new_zeros(k_comp, two_m, 1)], -1)
-    x = padded[:, :, torch.where(cols < 0, s_cols, cols)]
-    x = torch.cat([x, x.new_zeros(k_comp, n_ch * TC_PIECE - two_m,
-                                  x.shape[-1])], 1)       # (K, Kp, P 64)
-    x = x.reshape(k_comp, n_ch, TC_PIECE, pieces, TC_PIECE).permute(
-        0, 3, 1, 4, 2)                                    # (K, P, ch, n, k)
-    return _sw128(x).contiguous()
-
-
-def tc_vectors(kb: kernels.KernelBankBlock) -> torch.Tensor:
-    """mu and b in K14b's pieces: (K, mp + dp, 64) float32, per component
-    the values of each piece's columns (`_tc_columns`: mu_k over the logit
-    pieces, b_k over the value pieces), padding zero."""
-    k_comp, two_m = kb.mu.shape
-    two_d = kb.b.shape[1]
-    cols = _tc_columns(two_m, two_d).to(kb.mu.device)
-    both = torch.cat([kb.mu, kb.b, kb.mu.new_zeros(k_comp, 1)], 1)
-    return both[:, torch.where(cols < 0, two_m + two_d, cols)].reshape(
-        k_comp, -1, TC_PIECE).contiguous()
-
-
-class TcOperands(NamedTuple):
-    """K14b's operands of a bank: its bf16 planes in the kernel's B layout
-    (`tc_slab`; mode 'bf16' reads no lo) and mu and b by piece
-    (`tc_vectors`)."""
-    hi: torch.Tensor
-    lo: torch.Tensor
-    vec: torch.Tensor
-
-
-def tc_operands(kb: kernels.KernelBankBlock, planes) -> TcOperands:
-    """K14b's operands of kb and its planes (`split_planes(kb.pw)`)."""
-    two_m = kb.mu.shape[1]
-    return TcOperands(tc_slab(planes[0], two_m), tc_slab(planes[1], two_m),
-                      tc_vectors(kb))
-
-
-def lowered_tc(bank: PreparedBank, cache: Optional[dict] = None):
-    """`lowered_split(bank, cache)` and K14b's operands of its planes,
-    (kb, planes, operands), the operands kept in `cache` beside them, so a
-    bank measured many times is laid out once."""
-    kb, planes = lowered_split(bank, cache)
-    if cache is None:
-        return kb, planes, tc_operands(kb, planes)
-    if "tc_operands" not in cache:
-        cache["tc_operands"] = tc_operands(kb, planes)
-    return kb, planes, cache["tc_operands"]
-
-
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def tc_products(rows: torch.Tensor, flats, passes: int) -> torch.Tensor:
+    """The products of the wgmma stream for rows (n, 2M) float32: rows
+    split into bf16 planes (hi, lo, lo2 as `kernels.split_planes3`), and the
+    `passes` products of a row plane and a bank plane (flats: the bank's
+    planes as float32 (2M, K (2M+2D)) matrices), each a float32 product of
+    bf16 values (exact), summed in the kernel's issue order: hi.hi,
+    hi.lo, lo.hi for 1-3 passes; hi.lo2, lo.lo, lo2.hi, lo.hi, hi.lo,
+    hi.hi for 6 (the row's plane first)."""
+    hi = _round_bf16(rows)
+    lo = _round_bf16(rows - hi)
+    r_planes = (hi, lo, _round_bf16((rows - hi) - lo))
+    order = (((0, 2), (1, 1), (2, 0), (1, 0), (0, 1), (0, 0)) if passes == 6
+             else ((0, 0), (0, 1), (1, 0))[:passes])
+    yz = None
+    for a, b in order:
+        term = r_planes[a] @ flats[b]
+        yz = term if yz is None else yz + term
+    return yz
+
+
 def grouped_tc_estimate_reference(r2: torch.Tensor,
                                   kb: kernels.KernelBankBlock, planes,
-                                  passes: int,
-                                  chunk: int = 8192) -> torch.Tensor:
-    """Plain PyTorch version of K14b: K1 with yz_k = r_hi pw_hi (+ r_hi
-    pw_lo at passes >= 2, + r_lo pw_hi at 3), each a float32 product of
-    bf16 values (exact), r_hi = bf16(r2), r_lo = bf16(r2 - r_hi); the
-    logits, softmax and combine in float32. r2 (N, 2M) -> (N, 2D)."""
+                                  passes: int, chunk: int = 8192,
+                                  t_coh: int = 1,
+                                  coh_alpha: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of the wgmma stream's arithmetic: K1 (K3 at
+    t_coh > 1) with yz_k = `tc_products` of r2 and the bank's bf16 planes
+    (`kernels.split_planes` for 1-3 passes, K14b's modes: r_hi pw_hi,
+    + r_hi pw_lo at passes >= 2, + r_lo pw_hi at 3; `kernels.split_planes3`
+    for K1's 6), the logits, pooling, softmax and combine in float32. r2
+    (N, 2M) -> (N, 2D). K1's plain version is `kernels.grouped_estimate_reference`,
+    the same function with one float32 product."""
     pin_fp32()
     k_comp, two_m, s_cols = kb.pw.shape
-    flat_hi, flat_lo = (p.to(torch.float32).permute(1, 0, 2).reshape(
-        two_m, k_comp * s_cols) for p in planes)
-    out = []
-    for i0 in range(0, r2.shape[0], chunk):
-        rc = r2[i0:i0 + chunk]
-        r_hi = _round_bf16(rc)
-        yz = r_hi @ flat_hi
-        if passes >= 2:
-            yz = yz + r_hi @ flat_lo
-        if passes == 3:
-            yz = yz + _round_bf16(rc - r_hi) @ flat_hi
-        lg, z = kernels.logits_and_estimates(yz.reshape(-1, k_comp, s_cols),
-                                             kb)
-        out.append(torch.einsum("nk,nkd->nd", torch.softmax(lg, dim=-1), z))
-    return torch.cat(out) if out else r2.new_zeros((0, kb.b.shape[1]))
+    flats = [p.to(torch.float32).permute(1, 0, 2).reshape(
+        two_m, k_comp * s_cols) for p in planes[:3 if passes == 6 else 2]]
+    return kernels._grouped_reference(
+        r2, kb, t_coh, coh_alpha, chunk,
+        products=lambda rows: tc_products(rows, flats, passes))
 
 
 def _grouped_tc(r2: torch.Tensor, kb: kernels.KernelBankBlock, planes,
                 passes: int, wrapper, operands) -> torch.Tensor:
     """Launch K14b with `passes` bf16 tensor-core products, counted on
-    `wrapper` (one registered wrapper a mode); operands: `tc_operands(kb,
-    planes)`, laid out here when None."""
+    `wrapper` (one registered wrapper a mode); operands:
+    `kernels.tc_operands(kb)`, laid out here when None."""
     if not r2.is_cuda:
         return grouped_tc_estimate_reference(r2, kb, planes, passes)
     n, k_comp, two_m, two_d = kernels._check_inputs(wrapper.__name__, r2, kb)
@@ -359,20 +269,8 @@ def _grouped_tc(r2: torch.Tensor, kb: kernels.KernelBankBlock, planes,
                              f"{tuple(kb.pw.shape)} on {r2.device}, got "
                              f"{p.dtype} {tuple(p.shape)} on {p.device}")
     if operands is None:
-        operands = tc_operands(kb, planes)
-    n_ch = -(-two_m // TC_PIECE)
-    pieces = n_ch + -(-two_d // TC_PIECE)
-    for name, t, dtype, shape in (
-            ("hi", operands.hi, torch.bfloat16,
-             (k_comp, pieces, n_ch, TC_PIECE, TC_PIECE)),
-            ("lo", operands.lo, torch.bfloat16,
-             (k_comp, pieces, n_ch, TC_PIECE, TC_PIECE)),
-            ("vec", operands.vec, torch.float32, (k_comp, pieces, TC_PIECE))):
-        if (t.device != r2.device or t.dtype != dtype
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(f"operand {name} must be contiguous {dtype} "
-                             f"{shape} on {r2.device} (`tc_operands`), got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        operands = kernels.tc_operands(kb)
+    kernels.check_tc_operands(wrapper.__name__, operands, kb, r2.device)
     out = torch.empty((n, two_d), dtype=torch.float32, device=r2.device)
     if n == 0:
         return out
@@ -394,9 +292,10 @@ def grouped_tc_bf16(r2: torch.Tensor, kb: kernels.KernelBankBlock,
                     planes, operands: Optional[TcOperands] = None
                     ) -> torch.Tensor:
     """K14b in mode 'bf16' (one pass, r_hi pw_hi) on r2 (N, 2M) float32 ->
-    (N, 2D) float32; planes = `split_planes(kb.pw)`, operands =
-    `tc_operands(kb, planes)` (laid out in the call when None; `lowered_tc`
-    keeps them beside a bank). On a CUDA tensor it launches the CUDA kernel
+    (N, 2D) float32; planes = `kernels.split_planes(kb.pw)` (or the first
+    two of `kernels.split_planes3`), operands = `kernels.tc_operands(kb)`
+    (laid out in the call when None; `kernels.lowered_tc` keeps them beside
+    a bank). On a CUDA tensor it launches the CUDA kernel
     (2M and 2D at most 256) on the current stream and raises on any
     refusal; on a CPU tensor it computes the plain version."""
     return _grouped_tc(r2, kb, planes, 1, grouped_tc_bf16, operands)
@@ -434,19 +333,20 @@ def estimate_packed_block_grouped(kb: kernels.KernelBankBlock,
     mode `mode` (JAX `estimate_packed_block_grouped`): 'f32' is K1 (K3 at
     t_coh > 1, r2 block-major, kb from `kernel_bank_block(bank, t_coh,
     coh_alpha)`); 'bf16', 'split2' and 'split3' are K14b with `planes`
-    (default: split from kb.pw) and their `operands` (default: laid out in
-    the call). The coherent pool is f32-only: t_coh > 1 with another mode
-    raises NotImplementedError; an unknown mode raises ValueError."""
+    (default: split from kb.pw); `operands`: the bank's `tc_operands`
+    (default: laid out in the call; K1 and K3 read all three planes). The
+    coherent pool is f32-only: t_coh > 1 with another mode raises
+    NotImplementedError; an unknown mode raises ValueError."""
     if mode == "f32":
         if t_coh > 1:
             return kernels.grouped_estimate_coherent(r2, kb, t_coh,
-                                                     coh_alpha)
-        return kernels.grouped_estimate(r2, kb)
+                                                     coh_alpha, operands)
+        return kernels.grouped_estimate(r2, kb, operands)
     if mode in MODES:
         if t_coh > 1:
             raise NotImplementedError("coherent pooling is f32-only")
         return TC_WRAPPERS[mode](
-            r2, kb, split_planes(kb.pw) if planes is None else planes,
+            r2, kb, kernels.split_planes(kb.pw) if planes is None else planes,
             operands)
     raise ValueError(f"unknown mode {mode!r}")
 
@@ -457,9 +357,9 @@ def estimate_block_grouped(bank: PreparedBank, r: torch.Tensor,
     """'all'-mode estimate of complex r (N, M) -> (N, D) in GEMM-precision
     mode `mode` (JAX `estimate_block_grouped`): 'f32' through K1, 'bf16' /
     'split2' / 'split3' through K14b. `cache`: a dict held beside the bank
-    for its layout, planes and K14b operands (`lowered_tc`)."""
-    if mode in MODES:
-        kb, planes, operands = lowered_tc(bank, cache)
+    for its layout, planes and tensor-core operands (`lowered_tc`)."""
+    if mode in MODES or mode == "f32":
+        kb, planes, operands = kernels.lowered_tc(bank, cache)
     else:
         kb, planes, operands = kernels.lowered(bank, cache), None, None
     h2 = estimate_packed_block_grouped(kb, kernels._r2(r), mode,

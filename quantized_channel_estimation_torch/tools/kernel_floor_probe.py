@@ -2,8 +2,9 @@
 
 Port of the JAX repository's `tools/kernel_floor_probe.py` (`BODIES` :191,
 `run_variant` :203). It times seven stripped variants of K1 on K1's own
-stream (`csrc/floor_probe.cu`, which compiles `csrc/grouped_stream.cuh`)
-to attribute K1's time:
+stream (`csrc/floor_probe.cu`, which compiles `csrc/grouped_tc_stream.cuh`:
+six bf16 tensor-core products a piece, an fp32 epilogue) to attribute K1's
+time:
 
   full          K1 itself (GEMM + logits + online softmax + combine)
   gemm_only     the GEMM and a sum of the z columns (the GEMM floor)
@@ -13,11 +14,11 @@ to attribute K1's time:
   quad_only     GEMM + square + lane reduction, no exp / max / denominator
   full_fixedmax the full math with the softmax anchored at logw_0
 
-Every variant runs the whole (2M+2D)-wide GEMM (see the source), so none
-can come in under the GEMM's operation floor. The plain versions of the
-bodies (`BODIES`, `floor_probe_reference`) work on K1's bank layout
-(`kernels.KernelBankBlock`); JAX's work on its GROUP = 4 layout, the same
-function.
+Every variant runs the whole (2M+2D)-wide GEMM as K1's six products (see
+the source), so none can come in under their tensor-core operation floor.
+The plain versions of the bodies (`BODIES`, `floor_probe_reference`) work
+on K1's bank layout (`kernels.KernelBankBlock`); JAX's work on its GROUP =
+4 layout, the same function.
 
     python -m quantized_channel_estimation_torch.tools.kernel_floor_probe \
         [--batch N] [--repeats R] [--device cpu]
@@ -28,13 +29,16 @@ JAX tool's random bank).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from quantized_channel_estimation_torch.estimators import kernels
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
 from quantized_channel_estimation_torch.tools import common
 
-PEAK_FP32_FLOPS = 67e12   # H100 SXM, outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
+TC_PASSES = 6             # K1's bf16 products a piece
 PROBE_MAX = 128           # 2M and 2D of the probe's instantiations
 
 
@@ -116,9 +120,11 @@ def floor_probe_reference(r2: torch.Tensor, kb: kernels.KernelBankBlock,
 
 
 def floor_probe(r2: torch.Tensor, kb: kernels.KernelBankBlock,
-                variant: str) -> torch.Tensor:
-    """K15's `variant` on r2 (N, 2M) float32 -> (N, 2D) float32. On a CUDA
-    tensor it launches the CUDA kernel (2M and 2D at most 128) on the
+                variant: str,
+                ops: Optional[kernels.TcOperands] = None) -> torch.Tensor:
+    """K15's `variant` on r2 (N, 2M) float32 -> (N, 2D) float32; ops: the
+    bank's `kernels.tc_operands` (laid out in the call when None). On a
+    CUDA tensor it launches the CUDA kernel (2M and 2D at most 128) on the
     current stream and raises on any refusal; on a CPU tensor it computes
     the plain version."""
     if not r2.is_cuda:
@@ -132,9 +138,9 @@ def floor_probe(r2: torch.Tensor, kb: kernels.KernelBankBlock,
     if n == 0:
         return out
     # no sink (None, store_sink 0): the folded accumulators are not stored
-    kernels._launch("floor_probe", kernels._library("floor_probe")
-                    .floor_probe_launch, r2, kb, (out,), n, k_comp, two_m,
-                    two_d, VARIANTS.index(variant), None, 0)
+    kernels.launch_tc("floor_probe", kernels._library("floor_probe")
+                      .floor_probe_launch, r2, kb, ops, (out,), n, k_comp,
+                      two_m, two_d, VARIANTS.index(variant), None, 0)
     floor_probe.launches += 1
     return out
 
@@ -143,10 +149,12 @@ kernels.register_wrappers(floor_probe)
 
 
 def gemm_floor_ms(n: int, kb: kernels.KernelBankBlock) -> float:
-    """K1's GEMM, 2 N 2M (2M+2D) K fp32 operations, at the H100's fp32
-    peak: the least time any variant can take."""
+    """K1's GEMM as its six bf16 products, 6 x 2 N 2M (2M+2D) K operations,
+    at the H100's bf16 tensor-core peak: the least time any variant can
+    take."""
     k_comp, two_m, s_cols = kb.pw.shape
-    return 2.0 * n * two_m * s_cols * k_comp / PEAK_FP32_FLOPS * 1e3
+    return (TC_PASSES * 2.0 * n * two_m * s_cols * k_comp / PEAK_BF16_FLOPS
+            * 1e3)
 
 
 def main(argv=None) -> dict:
@@ -156,21 +164,23 @@ def main(argv=None) -> dict:
     dev = common.device(args.device)
     bank, q = common.headline_bank(dev, args.n_ant, args.components,
                                    args.bits)
-    kb = kernels.kernel_bank_block(bank)
+    kb, _, ops = kernels.lowered_tc(bank, {})
     r2 = kernels._r2(common.observations(dev, q, args.batch, args.n_ant,
                                          args.bits))
     n = r2.shape[0]
     floor = gemm_floor_ms(n, kb)
     print(f"# K15 floor probe on {common.device_label(dev)}: N={n}, "
           f"2M={r2.shape[1]}, 2D={kb.b.shape[1]}, K={kb.pw.shape[0]}; GEMM "
-          f"operation floor {floor:.3f} ms at the fp32 peak", flush=True)
+          f"operation floor {floor:.3f} ms ({TC_PASSES} bf16 products at "
+          "the tensor-core peak)", flush=True)
     ms = {}
     for name in VARIANTS:
-        out = floor_probe(r2, kb, name)
+        out = floor_probe(r2, kb, name, ops)
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{name}: non-finite output")
-        ms[name] = common.time_ms(lambda name=name: floor_probe(r2, kb, name),
-                                  dev, args.repeats)
+        ms[name] = common.time_ms(
+            lambda name=name: floor_probe(r2, kb, name, ops), dev,
+            args.repeats)
         print(f"{name:14s} {ms[name]:8.3f} ms/batch  "
               f"{n / ms[name] / 1e3:8.2f} M/s  "
               f"{ms[name] - ms['full']:+8.3f} ms vs full", flush=True)

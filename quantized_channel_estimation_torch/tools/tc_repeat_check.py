@@ -1,27 +1,38 @@
-"""Launch K14b many times at each shape and hold every output against the
-plain version: a check for races, which one launch in a test may not show.
+"""Launch the kernels of the wgmma stream many times at each shape and hold
+every output against the plain version: a check for races, which one
+launch in a test may not show.
 
-For each shape (2M, 2D, K, N, dead components) and mode ('bf16', 'split2',
-'split3') the plain version is computed once; then K14b runs `--repeats`
-times, each launch on a fresh output and, unless `--no-poison` is given,
-after a kernel that fills the shared memory of every SM with NaN, so that
-a read of shared memory before its write shows as NaN and not as the last
-kernel's data. Every launch's error (max |kernel - plain| / max |plain|)
-is kept; a launch over 1e-4 (or NaN) counts as a failure. The default
-shapes are the shared-memory-A path (2M > 128: one and two consumer
-warpgroups, one block, several waves) and a main-path shape.
+For each shape (2M, 2D, K, N, dead components) and mode of K14b ('bf16',
+'split2', 'split3') the plain version is computed once; then K14b runs
+`--repeats` times, each launch on a fresh output and, unless `--no-poison`
+is given, after a kernel that fills the shared memory of every SM with
+NaN, so that a read of shared memory before its write shows as NaN and not
+as the last kernel's data. Every launch's error (max |kernel - plain| /
+max |plain|) is kept; a launch over 1e-4 (or NaN) counts as a failure. The
+default shapes are the shared-memory-A path (2M > 128: one and two
+consumer warpgroups, one block, several waves) and a main-path shape.
 
-`--without-proxy-fence` also builds a copy of csrc/grouped_tc_estimate.cu
-without the `fence.proxy.async` before each stage's release and runs it
-launch for launch beside the kernel, to measure what the fence does;
-with `--time` it also times both (CUDA events, median of 10, in the order
-kernel, copy, copy, kernel) at the headline widths (131072 rows,
-2M = 2D = 128, K = 64).
+Mode 'f32' does the same for K1 and K3 (`F32_SHAPES`: K1 with 64- and
+128-row blocks and the one-stage ring of the widest bank; K3 at T = 4 and
+16, pooled by shuffles, and T = 64 and 3, pooled through shared memory).
+A launch fails if its bits differ from the first launch's, or if it is
+further than 1e-4 of the scale from the plain version and further from the
+plain version evaluated in float64 than twice the plain version's own
+error plus 1e-5 (a logit pooled over many rows rounds differently in any
+two float32 orders).
+
+`--without-proxy-fence` also builds a copy of K14b without the
+`fence.proxy.async` before each stage's release (in
+csrc/grouped_tc_stream.cuh) and runs it launch for launch beside the
+kernel, to measure what the fence does; with `--time` it also times both
+(CUDA events, median of 10, in the order kernel, copy, copy, kernel) at the
+headline widths (131072 rows, 2M = 2D = 128, K = 64).
 
     python -m quantized_channel_estimation_torch.tools.tc_repeat_check \
-        [--repeats R] [--no-poison] [--without-proxy-fence [--time]]
+        [--repeats R] [--modes bf16 split2 split3 f32] [--no-poison] \
+        [--without-proxy-fence [--time]]
 
-Exits 1 if any launch of the kernel (not of the copy) failed.
+Exits 1 if any launch of a kernel (not of the copy) failed.
 """
 from __future__ import annotations
 
@@ -49,8 +60,20 @@ SHAPES = (
     (256, 24, 3, 3 * 132 * 128 + 5, 0),  # three waves of blocks
     (128, 128, 16, 4097, 3),    # the main path: A in registers
 )
+# K1 (T = 1) and K3: (2M, 2D, K, N, dead components, T, alpha)
+F32_SHAPES = (
+    (128, 128, 16, 4097, 3, 1, 1.0),       # main widths, 64-row blocks
+    (128, 128, 16, 2 * 132 * 128 + 5, 0, 1, 1.0),  # 128-row blocks, 2 waves
+    (256, 256, 4, 200, 1, 1, 1.0),         # the widest: a one-stage ring
+    (128, 128, 16, 4 * 8193, 2, 4, 1.0),   # T = 4: quad shuffles
+    (128, 128, 16, 16 * 2049, 0, 16, 0.25),  # T = 16: a thread's two rows
+    (128, 128, 8, 64 * 301, 1, 64, 1.0),   # T = 64: shared memory
+    (128, 128, 8, 3 * 4001, 0, 3, 0.5),    # T = 3: 63-row warpgroup tiles
+)
 REPEATS = 300
-# the fence before a stage's release: the one at an indent of two
+STREAM = "grouped_tc_stream.cuh"
+# the fence before a stage's release (in STREAM): the one at an indent of
+# two
 FENCE = '\n  asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");\n'
 
 _POISON_SRC = r"""
@@ -111,13 +134,17 @@ def poison_shared_memory(dev: torch.device) -> None:
 
 
 def _without_fence() -> ctypes.CDLL:
-    """csrc/grouped_tc_estimate.cu without the proxy fence before each
-    stage's release."""
-    text = (kernels.CSRC / "grouped_tc_estimate.cu").read_text()
-    if text.count(FENCE) != 1:
-        raise RuntimeError("the fence before a stage's release is not in "
-                           "csrc/grouped_tc_estimate.cu as expected")
-    lib = _compile("grouped_tc_estimate_nofence", text.replace(FENCE, "\n"))
+    """csrc/grouped_tc_estimate.cu (K14b) with its stream, inlined, without
+    the proxy fence before each stage's release."""
+    stream = (kernels.CSRC / STREAM).read_text()
+    if stream.count(FENCE) != 1:
+        raise RuntimeError(f"the fence before a stage's release is not in "
+                           f"csrc/{STREAM} as expected")
+    entry = (kernels.CSRC / "grouped_tc_estimate.cu").read_text()
+    include = f'#include "{STREAM}"\n'
+    text = entry.replace(include, stream.replace("#pragma once\n", "")
+                         .replace(FENCE, "\n"))
+    lib = _compile("grouped_tc_estimate_nofence", text)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.grouped_tc_estimate_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.grouped_tc_estimate_launch.restype = i32
@@ -158,18 +185,69 @@ def _launch_copy(lib, r2, kb, ops, passes):
     return out
 
 
+def _f32_runs(shape, dev):
+    """K1 (T = 1) or K3 at an F32_SHAPES entry: (label, launch, plain
+    output, float64 plain output)."""
+    two_m, two_d, k, n, n_dead, t, alpha = shape
+    kb = random_bank(two_m, two_d, k, dev, n_dead)
+    kb64 = kernels.KernelBankBlock(*(x.double() for x in kb))
+    ops = kernels.tc_operands(kb)
+    r2 = random_rows(n, two_m, dev)
+    label = f"{two_m}/{two_d} K={k} N={n} dead={n_dead} T={t} a={alpha} f32"
+    if t == 1:
+        return (label, lambda: kernels.grouped_estimate(r2, kb, ops),
+                kernels.grouped_estimate_reference(r2, kb),
+                kernels.grouped_estimate_reference(r2.double(), kb64))
+    return (label,
+            lambda: kernels.grouped_estimate_coherent(r2, kb, t, alpha, ops),
+            kernels.grouped_estimate_coherent_reference(r2, kb, t, alpha),
+            kernels.grouped_estimate_coherent_reference(r2.double(), kb64, t,
+                                                        alpha))
+
+
+def _f32_check(dev, shapes, repeats, poison) -> dict:
+    """Mode 'f32' of `repeat_check`: {label: {"launches", "failures",
+    "max_err"}} over K1 and K3 at `shapes`."""
+    out = {}
+    for shape in shapes:
+        label, run, want, exact = _f32_runs(shape, dev)
+        scale = want.abs().max()
+        plain_err = float((want.double() - exact).abs().max() / scale)
+        first, errs, fails = None, [], 0
+        for _ in range(repeats):
+            if poison:
+                poison_shared_memory(dev)
+            got = run()
+            err = float((got - want).abs().max() / scale)
+            err64 = float((got.double() - exact).abs().max() / scale)
+            if first is None:
+                first = got
+            ok = (torch.equal(got, first)
+                  and (err <= TOL or err64 <= 2 * plain_err + 1e-5))
+            fails += not ok     # NaN fails both comparisons
+            errs.append(err)
+        out[label] = {"launches": repeats, "failures": fails,
+                      "max_err": max(e if e == e else math.inf
+                                     for e in errs)}
+    return out
+
+
 def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
-                 without_fence=False, modes=tuple(vk.TC_WRAPPERS)) -> dict:
+                 without_fence=False, modes=tuple(vk.TC_WRAPPERS),
+                 f32_shapes=F32_SHAPES) -> dict:
     """Every (shape, mode): `repeats` launches of K14b (and of the copy
-    without the fence), each held against the plain version. Returns
-    {"kernel" (and "no fence"): {label: {"launches", "failures",
-    "max_err"}}}."""
+    without the fence), each held against the plain version; mode 'f32':
+    K1 and K3 at `f32_shapes`. Returns {"kernel" (and "no fence"): {label:
+    {"launches", "failures", "max_err"}}}."""
     copy = _without_fence() if without_fence else None
     result = {"kernel": {}, "no fence": {}} if copy else {"kernel": {}}
-    for two_m, two_d, k, n, n_dead in shapes:
+    if "f32" in modes:
+        result["kernel"].update(_f32_check(dev, f32_shapes, repeats, poison))
+    modes = [m for m in modes if m != "f32"]
+    for two_m, two_d, k, n, n_dead in shapes if modes else ():
         kb = random_bank(two_m, two_d, k, dev, n_dead)
-        planes = vk.split_planes(kb.pw)
-        ops = vk.tc_operands(kb, planes)
+        planes = kernels.split_planes(kb.pw)
+        ops = kernels.tc_operands(kb)
         r2 = random_rows(n, two_m, dev)
         for mode in modes:
             wrapper, passes = vk.TC_WRAPPERS[mode], vk.MODES[mode]
@@ -200,8 +278,8 @@ def time_fence(dev, n=131072, two_m=128, two_d=128, k=64) -> dict:
     widths: {mode: [kernel, copy, copy, kernel]}."""
     copy = _without_fence()
     kb = random_bank(two_m, two_d, k, dev)
-    planes = vk.split_planes(kb.pw)
-    ops = vk.tc_operands(kb, planes)
+    planes = kernels.split_planes(kb.pw)
+    ops = kernels.tc_operands(kb)
     r2 = random_rows(n, two_m, dev)
     out = {}
     for mode, wrapper in vk.TC_WRAPPERS.items():
@@ -217,6 +295,8 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default=None)
     p.add_argument("--repeats", type=int, default=REPEATS)
+    p.add_argument("--modes", nargs="+", default=[*vk.TC_WRAPPERS, "f32"],
+                   choices=[*vk.TC_WRAPPERS, "f32"])
     p.add_argument("--no-poison", action="store_true")
     p.add_argument("--without-proxy-fence", action="store_true")
     p.add_argument("--time", action="store_true")
@@ -227,7 +307,8 @@ def main(argv=None) -> dict:
     t0 = time.time()
     result = repeat_check(dev, repeats=args.repeats,
                           poison=not args.no_poison,
-                          without_fence=args.without_proxy_fence)
+                          without_fence=args.without_proxy_fence,
+                          modes=tuple(args.modes))
     times = (time_fence(dev) if args.time and args.without_proxy_fence
              else None)
     torch.cuda.synchronize()
@@ -236,7 +317,7 @@ def main(argv=None) -> dict:
               f"fence {ms[1]:.3f} / {ms[2]:.3f} ms")
     for name, rows in result.items():
         for label, rec in rows.items():
-            print(f"{name:9s} {label:40s} launches {rec['launches']:5d} "
+            print(f"{name:9s} {label:52s} launches {rec['launches']:5d} "
                   f"failures {rec['failures']:4d} max err "
                   f"{rec['max_err']:.3e}")
     print(json.dumps({"seconds": time.time() - t0,

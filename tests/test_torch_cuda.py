@@ -1,8 +1,10 @@
 """The port's CUDA kernels (K1-K5, the circulant K6-K9, the multi-pilot
 circulant K10, the factored K11-K13, and K1's variants K14a, K14b and the
 floor probe K15) against their plain versions on the card, the split-K
-forms' shard merges against one launch, the kernel-measurement tools and
-`utils.profiling` on the card, and the estimation service on the card.
+forms' shard merges against one launch, K1 / K3 and K14b over many
+NaN-poisoned launches (`tools.tc_repeat_check`), the kernel-measurement
+tools and `utils.profiling` on the card, and the estimation service on the
+card.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor the JAX package, so on a machine with a card and
@@ -18,7 +20,10 @@ circulant kernels expand the quadratic logit, which cancels, and pool it
 over T rows for K7 / K9 (K10 sums it group by group where its plain
 version runs one long product); where that pushes kernel and plain version
 past 1e-4 of each other, both are held against the plain version in
-float64, the kernel to within twice the plain version's own error.
+float64, the kernel to within twice the plain version's own error. K1 and
+K3, six bf16 tensor-core products, are also held to that float64 rule
+where their plain version agrees within 1e-4, since 1e-4 alone passes a
+three-product split too.
 """
 import math
 
@@ -75,6 +80,7 @@ def _bank(d, k, n_pilots, dev, n_dead=0, seed=0):
     (64, 8, 2, 333, 0),      # 2M = 256
     (128, 4, 1, 100, 1),     # 2M = 2D = 256
     (24, 5, 1, 50, 0),       # widths that are no multiple of 32
+    (64, 64, 1, 2 * 132 * 128 + 3, 2),  # 128-row blocks, two waves
 ])
 def test_grouped_estimate_matches_plain(d, k, n_pilots, n, n_dead):
     dev = _card()
@@ -178,6 +184,100 @@ def test_grouped_estimate_coherent_matches_plain(d, k, n_pilots, n_blocks, t,
         err_kernel = float((got - exact).abs().max()) / scale
         err_plain = float((want - exact).abs().max()) / scale
         assert err_kernel <= 2 * err_plain + 1e-5, (err_kernel, err_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,alpha,n_blocks", [
+    (2, 1.0, 16001),    # quad-group shuffles (xor 4)
+    (16, 0.5, 1001),    # a thread's two rows, then shuffles
+    (64, 1.0, 301),     # a warpgroup's 64 logits through shared memory
+    (5, 0.25, 2001),    # no power of two: shared memory, 60-row tiles
+])
+def test_grouped_estimate_coherent_pooling_routes(t, alpha, n_blocks):
+    """K3 at 2M = 2D = 128 (the main path's widths, 16 components, one
+    dead) through each pooling route of the wgmma stream, with 64-row
+    blocks (T = 16, 5) and 128-row blocks (T = 2, 64) and a ragged last
+    tile; held as in `test_grouped_estimate_coherent_matches_plain`."""
+    dev = _card()
+    bank = _bank(64, 16, 1, dev, n_dead=1)
+    kb = tkn.kernel_bank_block(bank, t, alpha)
+    r2 = _rows(n_blocks * t, 128, dev)
+    before = tkn.grouped_estimate_coherent.launches
+    got = tkn.grouped_estimate_coherent(r2, kb, t, alpha,
+                                        tkn.tc_operands(kb))
+    torch.cuda.synchronize()
+    assert tkn.grouped_estimate_coherent.launches == before + 1
+    want = tkn.grouped_estimate_coherent_reference(r2, kb, t, alpha)
+    assert got.shape == want.shape == (n_blocks * t, 128)
+    assert torch.isfinite(got).all()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    if t <= 16:
+        assert err < 1e-4, err
+    else:
+        exact = tkn.grouped_estimate_coherent_reference(
+            r2.double(), tkn.KernelBankBlock(*(x.double() for x in kb)), t,
+            alpha)
+        err_kernel = float((got - exact).abs().max()) / scale
+        err_plain = float((want - exact).abs().max()) / scale
+        assert err_kernel <= 2 * err_plain + 1e-5, (err_kernel, err_plain)
+
+
+@pytest.mark.cuda
+def test_grouped_estimate_repeated_launches_match_plain():
+    """K1 and K3 launched 100 times at each shape of
+    `tools.tc_repeat_check.F32_SHAPES` (64- and 128-row blocks, the
+    one-stage ring of the widest bank, each pooling route), each launch
+    after a fill of every SM's shared memory with NaN, each bit for bit the
+    first launch and held against the plain version: a race that one
+    launch may not show fails here."""
+    dev = _card()
+    shapes = tc_repeat_check.F32_SHAPES
+    n_k1 = sum(1 for s in shapes if s[5] == 1)
+    before = (tkn.grouped_estimate.launches,
+              tkn.grouped_estimate_coherent.launches)
+    runs = tc_repeat_check.repeat_check(dev, repeats=100,
+                                        modes=("f32",))["kernel"]
+    assert tkn.grouped_estimate.launches == before[0] + 100 * n_k1
+    assert (tkn.grouped_estimate_coherent.launches
+            == before[1] + 100 * (len(shapes) - n_k1))
+    assert len(runs) == len(shapes)
+    assert not {k: v for k, v in runs.items() if v["failures"]}, runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4])
+def test_grouped_estimate_keeps_fp32_accuracy(t):
+    """K1 (t = 1) and K3 at T = 4 on the tools' headline bank (K = D = 64,
+    2 bits, 10 dB) are no less accurate than float32: the max |error|
+    against the plain version in float64 at most twice the float32 plain
+    version's own. K14b's split3, which drops the 2^-16 terms yet stays
+    within 1e-4 of the plain version, fails the same rule."""
+    from quantized_channel_estimation_torch.tools import common
+    dev = _card()
+    bank, q = common.headline_bank(dev)
+    kb = tkn.kernel_bank_block(bank, t, 1.0)
+    r2 = tkn._r2(common.observations(dev, q, 8192))
+    kb64 = type(kb)(*(x.double() for x in kb))
+    if t == 1:
+        got = tkn.grouped_estimate(r2, kb)
+        want = tkn.grouped_estimate_reference(r2, kb)
+        want64 = tkn.grouped_estimate_reference(r2.double(), kb64)
+    else:
+        got = tkn.grouped_estimate_coherent(r2, kb, t, 1.0)
+        want = tkn.grouped_estimate_coherent_reference(r2, kb, t, 1.0)
+        want64 = tkn.grouped_estimate_coherent_reference(r2.double(), kb64,
+                                                         t, 1.0)
+
+    def err(x):
+        return float((x.double() - want64).abs().max())
+
+    assert torch.isfinite(got).all()
+    assert err(got) <= 2 * err(want), (err(got), err(want))
+    if t == 1:
+        split3 = tvk.grouped_tc_split3(r2, kb, tkn.split_planes(kb.pw))
+        assert _rel(split3, want) < 1e-4
+        assert err(split3) > 2 * err(want), (err(split3), err(want))
 
 
 def _near_tie_rows(r2, kb, k_sel, gap=1e-3):
@@ -1202,7 +1302,7 @@ def test_karatsuba_estimate_is_k1_on_a_bank():
 def test_grouped_tc_matches_plain(mode, two_m, two_d, k, n, n_dead):
     dev = _card()
     kb = _rand_kb(two_m, two_d, k, dev, n_dead)
-    planes = tvk.split_planes(kb.pw)
+    planes = tkn.split_planes(kb.pw)
     r2 = _rows(n, two_m, dev)
     wrapper = tvk.TC_WRAPPERS[mode]
     before = wrapper.launches
@@ -1248,7 +1348,7 @@ def test_precision_modes_on_a_bank_within_jax_bounds():
         rel = float(torch.linalg.vector_norm(got - f32)
                     / torch.linalg.vector_norm(f32))
         assert rel < bound, (mode, rel)
-    kb, planes, ops = tvk.lowered_tc(bank, cache)
+    kb, planes, ops = tkn.lowered_tc(bank, cache)
     assert cache["tc_operands"] is ops
     with pytest.raises(ValueError, match="bfloat16"):
         tvk.grouped_tc_split3(tkn._r2(r), kb, (kb.pw, planes[1]))

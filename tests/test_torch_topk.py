@@ -184,10 +184,10 @@ def test_topk_entry_refuses_ineligible_modes(rng):
 
 
 @pytest.mark.parametrize("two_m,two_d,rows", [(16, 16, 64), (128, 128, 64),
-                                              (130, 16, 32), (64, 256, 32)])
+                                              (130, 16, 64), (64, 256, 64)])
 def test_coherent_tile_rule(two_m, two_d, rows):
-    """K3's largest T is its tile's rows: 64 while 2M, 2D <= 128, else
-    32."""
+    """K3's largest T is its tile's rows: one consumer warpgroup's 64 at
+    every width (the fp32 stream's tile held 32 rows past 2M, 2D = 128)."""
     assert tkn.tile_rows(two_m, two_d) == rows
     bank = tge.PreparedBank(
         torch.zeros(2), torch.zeros(2, two_m // 2, dtype=torch.complex64),

@@ -181,7 +181,7 @@ def test_bf16_planes_are_bitwise_jax_planes(rng):
     pw = np.asarray(kj.pw)
     hi_j = jnp.asarray(pw).astype(jnp.bfloat16)
     lo_j = (jnp.asarray(pw) - hi_j.astype(jnp.float32)).astype(jnp.bfloat16)
-    hi, lo = tvk.split_planes(torch.as_tensor(pw))
+    hi, lo = tkn.split_planes(torch.as_tensor(pw))
     assert hi.dtype == lo.dtype == torch.bfloat16
     for got, want in ((hi, hi_j), (lo, lo_j)):
         assert np.array_equal(got.view(torch.int16).numpy(),
@@ -209,7 +209,7 @@ def test_plain_k14b_modes_match_jax(rng, mode, bound):
     f32 = tvk.estimate_block_grouped(bt, torch.as_tensor(r), "f32", cache)
     assert _rel_norm(got, f32) < bound
     # the wrapper on the planes, against the plain version it takes
-    kb, planes = tvk.lowered_split(bt, cache)
+    kb, planes, _ = tkn.lowered_tc(bt, cache)
     r2 = tkn._r2(torch.as_tensor(r))
     assert torch.equal(wrapper(r2, kb, planes),
                        tvk.grouped_tc_estimate_reference(r2, kb, planes,
@@ -272,10 +272,10 @@ def test_tc_slab_unpermutes_to_the_bf16_planes(two_m, two_d, k):
     col = torch.arange(64)[:, None]
     row = torch.arange(64)[None, :]
     pos = col * 64 + ((row // 8) ^ (col % 8)) * 8 + row % 8   # (n, kk)
-    cols = tvk._tc_columns(two_m, two_d)
+    cols = tkn._tc_columns(two_m, two_d)
     assert int((cols >= 0).sum()) == two_m + two_d
-    for plane in tvk.split_planes(pw):
-        slab = tvk.tc_slab(plane, two_m)
+    for plane in tkn.split_planes(pw):
+        slab = tkn.tc_slab(plane, two_m)
         assert slab.shape == (k, mp + dp, mp, 64, 64)
         assert slab.dtype == torch.bfloat16 and slab.is_contiguous()
         logical = slab.reshape(k, mp + dp, mp, 64 * 64)[..., pos]
@@ -286,7 +286,7 @@ def test_tc_slab_unpermutes_to_the_bf16_planes(two_m, two_d, k):
                            plane.view(torch.int16))
         assert not bits[:, two_m:].any() and not bits[:, :, cols < 0].any()
         # the swizzle is its own inverse
-        assert torch.equal(tvk._sw128(tvk._sw128(slab)), slab)
+        assert torch.equal(tkn._sw128(tkn._sw128(slab)), slab)
 
 
 def test_lowered_tc_lays_out_the_operands_once_per_cache(rng):
@@ -295,17 +295,17 @@ def test_lowered_tc_lays_out_the_operands_once_per_cache(rng):
     a fresh one without a cache; the entry fills the cache."""
     _, bt = _banks(rng, 1)
     cache = {}
-    kb, planes, ops = tvk.lowered_tc(bt, cache)
+    kb, planes, ops = tkn.lowered_tc(bt, cache)
     assert cache["tc_operands"] is ops and cache["bf16_planes"] is planes
-    again = tvk.lowered_tc(bt, cache)
+    again = tkn.lowered_tc(bt, cache)
     assert again[2] is ops and again[1] is planes and again[0] is kb
-    fresh = tvk.tc_operands(kb, planes)
+    fresh = tkn.tc_operands(kb, planes)
     for got, want in zip(ops, fresh):
         assert torch.equal(got, want)
-    assert torch.equal(ops.hi, tvk.tc_slab(planes[0], kb.mu.shape[1]))
-    assert torch.equal(ops.lo, tvk.tc_slab(planes[1], kb.mu.shape[1]))
-    assert torch.equal(ops.vec, tvk.tc_vectors(kb))
-    assert tvk.lowered_tc(bt)[2] is not ops
+    assert torch.equal(ops.hi, tkn.tc_slab(planes[0], kb.mu.shape[1]))
+    assert torch.equal(ops.lo, tkn.tc_slab(planes[1], kb.mu.shape[1]))
+    assert torch.equal(ops.vec, tkn.tc_vectors(kb))
+    assert tkn.lowered_tc(bt)[2] is not ops
     other = {}
     tvk.estimate_block_grouped(bt, torch.as_tensor(_obs(rng, 8)), "split3",
                                other)
@@ -320,7 +320,7 @@ def test_tc_vectors_hold_mu_and_b_by_piece(two_m, two_d):
                              torch.randn(3, two_m, generator=g),
                              torch.randn(3, two_d, generator=g),
                              torch.randn(3, generator=g))
-    vec = tvk.tc_vectors(kb)
+    vec = tkn.tc_vectors(kb)
     mp, dp = -(-two_m // 64), -(-two_d // 64)
     assert vec.shape == (3, mp + dp, 64) and vec.is_contiguous()
     flat_m = vec[:, :mp].reshape(3, -1)
@@ -458,7 +458,7 @@ def test_tc_repeat_check_holds_every_launch_on_cpu():
     assert set(got) == {"kernel"} and len(got["kernel"]) == 2 * 3
     for rec in got["kernel"].values():
         assert rec == {"launches": 2, "failures": 0, "max_err": 0.0}
-    src = (tkn.CSRC / "grouped_tc_estimate.cu").read_text()
+    src = (tkn.CSRC / trc.STREAM).read_text()
     assert src.count(trc.FENCE) == 1
     with pytest.raises(SystemExit, match="needs an NVIDIA card"):
         trc.main(["--device", "cpu"])
