@@ -4,7 +4,9 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit, the torch/CUDA versions, and the
-     build of every CUDA kernel of the port from `csrc/` with `nvcc`;
+     build of every CUDA kernel of the port from `csrc/` with `nvcc` (the
+     `-Xptxas -v` summary of the redesigned sources; K14a's forms at M, D
+     <= 64 must not spill);
   2. every kernel against its plain PyTorch version on the card, at the
      widths of the main path (D = M = 64, K = 64): K1 at the headline batch
      N = 131072, at the main path's ragged N = 10000 and with dead
@@ -54,9 +56,10 @@ Phases (any failure exits non-zero; nothing is caught):
      arithmetic, the kernel to within twice the plain version's own error;
   3. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after: `run_gmm.run` at the `GmmBenchConfig`
-     defaults (its fitted bank and observations kept: K1, and K3 at T = 4,
-     against their plain versions at each of its 7 SNRs, with the
-     blmmse_gmm NMSE of each), and again with `n_coherence=4` (alpha 1),
+     defaults (its fitted bank and observations kept: K1, K3 at T = 4 and
+     K14a against their plain versions and under the float64 rule at each
+     of its 7 SNRs, with the blmmse_gmm NMSE of K1 and K3), and again with
+     `n_coherence=4` (alpha 1),
      then both once
      more with `cov_type='circulant'` (the FFT-domain bank, K6 and K7),
      and those two with `n_pilots=2` (the multi-pilot bank, K10 and its
@@ -97,20 +100,20 @@ Phases (any failure exits non-zero; nothing is caught):
      at the headline shapes, a ragged N and with dead components, and
      against K1 (K14a to 1e-4 of the scale, K15 `full` bit for bit, K14b
      within the JAX tests' relative norms 3e-2 / 1e-4 / 3e-2; split3's
-     max-abs error against K1's plain version); K1, K3 at T = 4 and
-     split3 against the plain version in float64, where K1 and K3 must be
-     within twice the float32 plain version's error and split3 must not
-     be (`fp32_accuracy`, also on the fitted banks of phase 3); K14b
-     launched 100 times
-     and K1 / K3 150 times at each shape of `tools.tc_repeat_check`, each
-     launch after a fill of every SM's shared memory with NaN and held
-     against its plain version; then the
+     max-abs error against K1's plain version); K1, K3 at T = 4, K14a and
+     split3 against the plain version in float64, where K1, K3 and K14a
+     must be within twice the float32 plain version's error and split3
+     must not be (`fp32_accuracy`, also on the fitted banks of phase 3);
+     K14b and K14a launched 100 times and K1 / K3 150 times at each shape
+     of `tools.tc_repeat_check`, each launch after a fill of every SM's
+     shared memory with NaN and held against its plain version; then the
      tools `kernel_floor_probe`, `kernel_bench` and `kernel_split_bench`
      at their defaults with their own launch counts (no probe variant under
      the GEMM's operation floor; K1's and split3's MSE within 1e-3 of the
      einsum estimator's at 10 and 20 dB), the times of K14a, K14b and K15
-     as in phase 4, one K1 launch under `utils.profiling.trace` with
-     its row of the profiler's table, and K1 / K3 at 512 and 4096 rows
+     as in phase 4 (K14a's bound that of its six bf16 products per real
+     product), one K1 launch under `utils.profiling.trace` with its row of
+     the profiler's table, and K1 / K3 / K14a at 512 and 4096 rows
      (`tools.batch_sweep`);
 then one JSON line of kernels, one of the main paths' results, one of the
 serving phase, the card line, and the final status line. It imports nothing
@@ -562,13 +565,21 @@ def main():
                          if "(C75" not in line)
         log(f"nvcc {name} ({notes} wgmma note lines):\n{kept.strip()}")
     # the sources redesigned for Hopper (the wgmma stream of K1-K3, K15 and
-    # K14b; K4 / K5): registers, spills and shared memory of every
+    # K14b; K4 / K5; K14a): registers, spills and shared memory of every
     # instantiation
     for name in ("grouped_estimate", "floor_probe", "grouped_tc_estimate",
-                 "grouped_topk"):
+                 "grouped_topk", "karatsuba_estimate"):
         summary = ptxas_summary(build_logs.get(name, ""))
         log(f"ptxas {name} (dynamic shared memory is set per launch): "
             + ("; ".join(summary) if summary else "not rebuilt"))
+    # K14a's forms at M, D <= 64 (64-column pieces: <MC,64,XP,WGS>) must
+    # not spill
+    k14a_rows = [row for row in ptxas_summary(
+        build_logs.get("karatsuba_estimate", "")) if row.startswith("<1,64,")]
+    if "karatsuba_estimate" in build_logs and (
+            len(k14a_rows) != 2
+            or not all("spills 0/0 B" in row for row in k14a_rows)):
+        raise AssertionError(f"K14a's forms at M, D <= 64 spill: {k14a_rows}")
     log(f"build: {time.time() - tb:.1f}s")
 
     # 2. kernels against their plain versions
@@ -1037,15 +1048,15 @@ def main():
         f"{mse_c['blmmse_gmm'][i_low]:.5f}")
 
     # 3a. the fitted GMM of the default run at each of its SNRs (the
-    # logits are largest at 20 dB): K1, and K3 at T = 4 (four consecutive
-    # validation snapshots a block), against their plain float32 versions
-    # at TOL of the scale and against float64 under `fp32_accuracy`
-    # (K14b's split3 beside them, recorded), with the blmmse_gmm NMSE of
-    # each
+    # logits are largest at 20 dB): K1, K3 at T = 4 (four consecutive
+    # validation snapshots a block) and K14a, against their plain float32
+    # versions at TOL of the scale and against float64 under
+    # `fp32_accuracy` (K14b's split3 beside them, recorded), with the
+    # blmmse_gmm NMSE of K1 and K3
     if len(fitted_calls) != len(cfg.snrs):
         raise AssertionError(f"the default run estimated {len(fitted_calls)}"
                              f" banks for {len(cfg.snrs)} SNRs")
-    fitted, fitted_acc = {}, {}
+    fitted, fitted_acc, fitted_acc14 = {}, {}, {}
     for snr, (bank_s, r_s) in zip(cfg.snrs, fitted_calls):
         x2 = kernels._r2(r_s)
         kb_1 = kernels.kernel_bank_block(bank_s)
@@ -1080,7 +1091,27 @@ def main():
                 x2, kb_1, kernels.split_planes(kb_1.pw)),
             outs["K1 plain"], want64["K1"])
         fitted_acc[str(snr)] = acc
-        del x64, want64
+        # K14a on the same bank in the Karatsuba layout: within TOL of its
+        # plain version and under the same float64 rule
+        kk_s = variant_kernels.kernel_bank(bank_s)
+        x_re = r_s.real.to(torch.float32).contiguous()
+        x_im = r_s.imag.to(torch.float32).contiguous()
+        got14 = torch.cat(variant_kernels.karatsuba_estimate(x_re, x_im,
+                                                             kk_s), -1)
+        plain14 = torch.cat(variant_kernels.reference_estimate_packed(
+            kk_s, x_re, x_im), -1)
+        errs["karatsuba_estimate"].append(compare(
+            "karatsuba_estimate", f"fitted bank, {snr} dB", got14, plain14))
+        want14 = torch.cat(variant_kernels.reference_estimate_packed(
+            f64(kk_s), x_re.double(), x_im.double()), -1)
+        fitted_acc14[str(snr)], held = fp32_accuracy(
+            "karatsuba_estimate", f"fitted bank, {snr} dB", got14, plain14,
+            want14)
+        if not held:
+            raise AssertionError(f"K14a less accurate than float32 on the "
+                                 f"fitted bank at {snr} dB: "
+                                 f"{fitted_acc14[str(snr)]}")
+        del x64, want64, got14, plain14, want14
         fitted[str(snr)] = {name: stages.nmse(kernels._h(x, D, r_s.dtype),
                                               truth[0])
                             for name, x in outs.items()}
@@ -1829,9 +1860,20 @@ def main():
         kernels.grouped_estimate_coherent_reference(r2, kb4, 4, 1.0),
         want64)
     del r64, want64
-    if not (held_1 and held_3) or held_s:
-        raise AssertionError(f"float64 rule at the headline: K1 and K3 must "
-                             f"hold it, split3 must not: {headline_acc}")
+    # K14a, six bf16 products for each of its three real products, under
+    # the same rule on the same rows (in the Karatsuba layout)
+    kk_ops = vk.karatsuba_operands(kk)
+    got14 = torch.cat(vk.karatsuba_estimate(r_re, r_im, kk, kk_ops), -1)
+    plain14 = torch.cat(vk.reference_estimate_packed(kk, r_re, r_im), -1)
+    want14 = torch.cat(vk.reference_estimate_packed(
+        f64(kk), r_re.double(), r_im.double()), -1)
+    headline_acc["K14a"], held_14 = fp32_accuracy(
+        "karatsuba_estimate", "headline", got14, plain14, want14)
+    del got14, plain14, want14
+    if not (held_1 and held_3 and held_14) or held_s:
+        raise AssertionError(f"float64 rule at the headline: K1, K3 and K14a "
+                             f"must hold it, split3 must not: "
+                             f"{headline_acc}")
     log(f"against K1 at N={n}: K14a max rel {vs_k1['karatsuba_estimate']:.3e}"
         f" (tol {TOL}); K15 full bit for bit; K14b relative norms "
         + ", ".join(f"{m} {vs_k1[w.__name__]:.3e} (bound {TC_BOUNDS[m]})"
@@ -1867,6 +1909,19 @@ def main():
     if bad or n_rep < 1000:
         raise AssertionError(f"K1 / K3 off on repeated launches ({n_rep}): "
                              f"{bad}")
+    # ... and K14a at each of tc_repeat_check's KARATSUBA_SHAPES (one and
+    # two warpgroups, 32-column pieces, two contraction chunks), each
+    # launch bit for bit the first and within TOL of its plain version
+    tm = time.time()
+    rep_14 = tc_repeat_check.repeat_check(dev, repeats=100,
+                                          modes=("karatsuba",))["kernel"]
+    bad = {k: v for k, v in rep_14.items() if v["failures"]}
+    log(f"K14a repeated: {sum(v['launches'] for v in rep_14.values())} "
+        f"launches in {time.time() - tm:.1f}s, max err "
+        f"{max(v['max_err'] for v in rep_14.values()):.3e}, failures "
+        f"{bad or 0}")
+    if bad:
+        raise AssertionError(f"K14a off on repeated launches: {bad}")
 
     # 5b. the path itself, through the tools' entry points at their
     # defaults, its launches counted alone: the floor probe, kernel_bench
@@ -1903,22 +1958,28 @@ def main():
                                      f"at {snr} dB: {row[name]['mse']} vs "
                                      f"{yard}")
 
-    # 5c. times at the headline shapes. K14a: 6 N M (M+D) K operations;
-    # bytes: r_re, r_im read, h_re, h_im written, the bank once; library:
-    # the complex GEMM r [conj(P) | W^T] over all components. K14b: passes
-    # x K1's GEMM on the bf16 tensor cores plus 2 N K (2M + 2D) fp32
-    # epilogue operations; bytes: r2 read, the output written, the bf16
-    # planes (one, or hi and lo) and mu, b, logw once; library: the same
-    # one, two or three bf16 torch.matmul products. K15 full: K1's bound
-    # and yardstick.
+    # 5c. times at the headline shapes. K14a: three real products, each
+    # six bf16 products on the tensor cores, 3 x 6 x 2 N M (M+D) K
+    # operations, plus N K (9 M + 11 D) fp32 epilogue operations (as fp32
+    # FMAs the products are 6 N M (M+D) K: `bound_fp32_ms`); bytes: r_re,
+    # r_im read, h_re, h_im written, the bank once; library: the complex
+    # GEMM r [conj(P) | W^T] over all components. K14b: passes x K1's GEMM
+    # on the bf16 tensor cores plus 2 N K (2M + 2D) fp32 epilogue
+    # operations; bytes: r2 read, the output written, the bf16 planes (one,
+    # or hi and lo) and mu, b, logw once; library: the same one, two or
+    # three bf16 torch.matmul products. K15 full: K1's bound and yardstick.
     kar_bytes = 4.0 * (4 * n * D + sum(x.numel() for x in kk))
+    kar_epilogue = n * K * (9.0 * D + 11.0 * D)
     flat_c = torch.cat([torch.complex(kk.pc_re, kk.pc_im),
                         torch.complex(kk.wt_re, kk.wt_im)], -1).permute(
         1, 0, 2).reshape(D, -1).contiguous()
-    t14a = timed("K14a", lambda: vk.karatsuba_estimate(r_re, r_im, kk),
+    t14a = timed("K14a",
+                 lambda: vk.karatsuba_estimate(r_re, r_im, kk, kk_ops),
                  lambda: vk.reference_estimate_packed(kk, r_re, r_im),
-                 lambda: r @ flat_c, 6.0 * n * D * (D + D) * K, kar_bytes,
-                 two_m=D)
+                 lambda: r @ flat_c, kar_epilogue, kar_bytes, two_m=D,
+                 tc_flops=36.0 * n * D * (D + D) * K)
+    t14a["bound_fp32_ms"] = bound(6.0 * n * D * (D + D) * K + kar_epilogue,
+                                  kar_bytes)[0]
     rh = r2.to(torch.bfloat16)
     rl = (r2 - rh.float()).to(torch.bfloat16)
     fh, fl = (p.permute(1, 0, 2).reshape(two_m, -1).contiguous()
@@ -1945,7 +2006,8 @@ def main():
     # the kernels redesigned for Hopper (K14b on wgmma, K4 / K5 on a
     # register-tiled fp32 loop): time, bound, the share of the bound
     # reached, and the one-call yardstick
-    for label, rec in ([(f"K14b {m}", t14b[m]) for m in t14b]
+    for label, rec in ([("K14a", t14a)]
+                       + [(f"K14b {m}", t14b[m]) for m in t14b]
                        + [(f"K4 k={k}", t4[k]) for k in (1, 4)]
                        + [(f"K5 k={k}", t5[k]) for k in (1, 4)]):
         log(f"redesigned {label}: {rec['ms']:.3f} ms, bound "
@@ -1976,7 +2038,8 @@ def main():
          "source": src + "grouped_estimate.cu", "replaces": f"{tpu}:327",
          "launches": total_launches["grouped_estimate"],
          "max_abs_err": max(errs["grouped_estimate"]), **t1,
-         "at_rows_ms": {k: v for k, v in sweep.items() if k.startswith("K1")},
+         "at_rows_ms": {k: v for k, v in sweep.items()
+                        if k.startswith("K1 ")},
          "fitted_bank_nmse": fitted,
          "fp32_accuracy": {"headline": headline_acc,
                            "fitted_bank": fitted_acc}},
@@ -2054,7 +2117,12 @@ def main():
          "source": src + "karatsuba_estimate.cu", "replaces": f"{tpu}:105",
          "launches": total_launches["karatsuba_estimate"],
          "max_abs_err": max(errs["karatsuba_estimate"]),
-         "vs_k1_max_rel": vs_k1["karatsuba_estimate"], **t14a},
+         "vs_k1_max_rel": vs_k1["karatsuba_estimate"], **t14a,
+         "share_of_bound": t14a["bound_ms"] / t14a["ms"],
+         "at_rows_ms": {k: v for k, v in sweep.items()
+                        if k.startswith("K14a")},
+         "fp32_accuracy": {"headline": headline_acc["K14a"],
+                           "fitted_bank": fitted_acc14}},
         *({"name": w.__name__, "id": f"K14b_{mode}", "route": "cuda",
            "source": src + "grouped_tc_estimate.cu",
            "replaces": f"{tpu}:{430 if mode == 'bf16' else 440}",

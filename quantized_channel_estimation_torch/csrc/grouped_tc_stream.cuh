@@ -289,9 +289,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // keep the compiler from moving accesses of d across an asynchronous wgmma
-__device__ __forceinline__ void fence_operand(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A B for a 64 x 64 x 16 tile: A, B K-major bf16 in shared memory

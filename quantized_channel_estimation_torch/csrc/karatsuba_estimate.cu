@@ -1,5 +1,5 @@
-// Karatsuba-layout online-softmax GMM-Bussgang estimator for Hopper: kernel
-// K14a.
+// Karatsuba-layout online-softmax GMM-Bussgang estimator on Hopper's tensor
+// cores: kernel K14a.
 //
 // Replaces the TPU kernel `_estimate_kernel` launched by `estimate_packed`
 // (quantized_channel_estimation_tpu/estimators/pallas_kernels.py:105,
@@ -8,279 +8,580 @@
 // per row n of r = rr + i ri (M wide) and component k, every complex
 // product y = r B runs as three real ones,
 //
-//   p1 = rr B_re,  p2 = ri B_im,  p3 = (rr + ri)(B_re + B_im),
-//   Re y = p1 - p2,  Im y = (p3 - p1) - p2,
+//   p1 = rr B_re,  p2 = ri B_im,  p3 = rs B_s,  rs = rr + ri,
+//   B_s = B_re + B_im,  Re y = p1 - p2,  Im y = (p3 - p1) - p2,
 //
 // for B = conj(P_k) (y, M wide) and B = W_k^T (z, D wide, plus b_k), then
 //
 //   lg_nk = logw_k - |y_k - mu_k|^2,
 //   h_n   = sum_k softmax_k(lg_nk) z_nk,
 //
-// with a running max / denominator / accumulator over k. The bank arrives
-// as one slab (K, M, 3M + 3D) = [pc_re | pc_im | pc_s | wt_re | wt_im |
-// wt_s] per contraction row, the sum planes precomputed as the JAX layout
-// `kernel_bank` holds them.
+// with a running max / denominator / accumulator over k.
 //
-// Bound on an H100: 6 N M (M + D) K fp32 operations (4.12e11 for 131072
-// rows at M = D = K = 64, 6.15 ms at the 67 TFLOP/s fp32 peak; K1's block
-// embedding does 4/3 of that) against ~0.17 GB of compulsory traffic
-// (0.05 ms at 3.35 TB/s): bound by fp32 FMA throughput.
+// The products. Each of p1, p2, p3 is the product of K1's stream
+// (grouped_tc_stream.cuh): both operands split into three bf16 planes (hi,
+// lo, lo2, each rounded to nearest even, hi + lo + lo2 = x exactly for
+// normal x), six exact bf16 products accumulated in fp32 (hi.lo2, lo.lo,
+// lo2.hi, lo.hi, hi.lo, hi.hi: smallest first, so the tensor core's
+// alignment of each k16 step to the largest term costs the small ones
+// nothing). The bank's planes B_re, B_im, B_s are split once on the host
+// (`variant_kernels.karatsuba_operands`); rr, ri and rs (formed in fp32, the
+// JAX kernel's shared operand) per tile in the kernel. p1, p2 and p3 are
+// three accumulators, each fp32-accurate before Re and Im are formed from
+// them in fp32 in the JAX kernel's order: the imaginary part p3 - p1 - p2
+// cancels, its rounding error scales with |p1| + |p2| + |p3|, as in the
+// fp32 plain version, so no product may fold two of them. Everything after
+// the products is fp32; a row's quadratic term sums its columns as a tree.
 //
-// Design, K1's, simple and correct first:
-//   - one block of 8 warps per tile of 8 RPW rows; the rr and ri tiles sit
-//     in shared memory, each warp owns RPW rows, each lane the columns
-//     lane + 32 j of each plane (CP of the M-wide P planes, CW of the D-wide
-//     W planes); rr + ri is formed in registers (the JAX kernel's shared
-//     operand rs, the same float32 sum);
-//   - the slab is streamed through shared memory in slices of kKc
-//     contraction rows, double-buffered with cp.async from L2
-//     (stream_common.cuh);
-//   - plain fp32 FMAs into three register accumulators per output column;
-//   - the quadratic term of each row is reduced across its warp by shuffles;
+// Bound on an H100 (131072 rows, M = D = K = 64): 3 x 6 x 2 N M (M + D) K
+// = 2.47e12 bf16 tensor-core operations (2.50 ms at 989 TFLOP/s) plus N K
+// (9 M + 11 D) = 1.1e10 fp32 epilogue operations (0.16 ms at 67 TFLOP/s),
+// against ~0.17 GB of compulsory traffic (0.05 ms at 3.35 TB/s): 2.66 ms,
+// against 6.15 ms for the three products as fp32 FMAs.
+//
+// Design:
+//   - a block is WGS consumer warpgroups of 64 rows and one producer
+//     warpgroup; WGS = 2 at M, D <= 64 (`setmaxnreg`: 232 registers a
+//     consumer thread, 40 a producer thread), WGS = 1 where 128-row blocks
+//     would not cover the SMs (the service's microbatches) or past 64;
+//   - the rows' nine A planes (rr, ri, rs x hi, lo, lo2) sit in the
+//     warpgroup's shared memory (K-major, 128-byte swizzle, M padded to 64
+//     MC): three accumulators and the running output leave no registers
+//     for them;
+//   - the bank streams as units: one PW-column piece of one of B_re, B_im,
+//     B_s (in that order), one 64-deep contraction chunk, its three bf16
+//     planes, and the piece's vector values (mu or b, [Re | Im]); a
+//     component's logit pieces come first, then its value pieces. PW = 64
+//     at M, D <= 64, else 32, so that three 16-column accumulators beside
+//     up to four value pieces of output fit 255 registers. One producer
+//     thread copies unit after unit with cp.async.bulk into a ring of
+//     stages under full and empty mbarriers, deep enough for a whole piece
+//     (3 MC units);
+//   - a piece is three commit groups of 24 MC wgmma m64nPWk16 (both
+//     operands in shared memory, the descriptors offset inside the asm so
+//     only their bases stay live), product by product over the piece's
+//     chunks; p1's and p2's units go back to the ring as their groups
+//     complete, p3's after the epilogue, which reads the vector values from
+//     its stage and fences the proxy before the release (fault F2: a generic
+//     read of the stage must be performed before the async refill lands);
+//   - the epilogue reads the accumulators in registers (a thread holds rows
+//     16 w + lane / 4 and + 8 of its warp w): a logit piece adds its
+//     columns to the rows' quadratic terms (the thread's columns as a tree,
+//     then the row's four threads by quad shuffles after the last logit
+//     piece, then the online softmax), a value piece folds p z into the
+//     running output;
+//   - no wgmma group is in flight across a loop's back edge (ptxas
+//     serialises every wgmma of a kernel where one is): the piece loop waits
+//     for all three groups; the other warpgroup's products fill the tensor
+//     cores during one warpgroup's epilogue;
 //   - the ragged last tile is masked in the kernel (any N, no padding).
-// The Karatsuba imaginary part p3 - p1 - p2 cancels: its rounding error
-// scales with |p1| + |p2| + |p3|, not with |Im y|. It is formed in the JAX
-// kernel's order, and the kernel is held against the complex-product plain
-// version and against K1 on the same bank.
 // Any N and K, M and D up to 128.
-#include "stream_common.cuh"
+#include "grouped_tc_stream.cuh"
 
 namespace {
 
-using namespace qce;
+using namespace qce_tc;
 
-template <int CP, int CW, int RPW>
-__global__ void __launch_bounds__(kThreads)
-    karatsuba_kernel(const float* __restrict__ r_re,
-                     const float* __restrict__ r_im,
-                     const float* __restrict__ slab,
-                     const float* __restrict__ mu_re,
-                     const float* __restrict__ mu_im,
-                     const float* __restrict__ b_re,
-                     const float* __restrict__ b_im,
-                     const float* __restrict__ logw, float* __restrict__ h_re,
-                     float* __restrict__ h_im, int n, int k_comp, int m,
-                     int d, int vec) {
-  constexpr int kTileN = kWarps * RPW;
-  extern __shared__ __align__(16) float smem[];
-  const int s_cols = 3 * m + 3 * d;
-  const int r_stride = (m + 3) & ~3;
-  const int buf_floats = kKc * s_cols;
-  float* rr_s = smem;
-  float* ri_s = rr_s + kTileN * r_stride;
-  float* pw_s = ri_s + kTileN * r_stride;
+// One instantiation: MC 64-deep contraction chunks, PW-column pieces, XP
+// value pieces of running output (at most), WGS consumer warpgroups.
+template <int MC_, int PW_, int XP_, int WGS_>
+struct KarCfg {
+  static constexpr int MC = MC_, PW = PW_, XP = XP_, WGS = WGS_;
+  static constexpr int kAcc = PW / 2;                // accumulator floats
+  static constexpr unsigned kPlane = PW * 128;       // a unit's bf16 plane
+  static constexpr unsigned kStage = 3 * kPlane;     // hi, lo, lo2
+  static constexpr unsigned kVec = 2 * PW * 4;       // [Re | Im] of mu or b
+  static constexpr unsigned kAWg = 9 * MC * kAtomBytes;  // a warpgroup's A
+};
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kTileN;
+// The ring: stage s's planes at b + s kStage, its barriers at full / empty
+// + 8 s and its vector values at vec + s kVec.
+struct KarRing {
+  unsigned b, full, empty, vec;
+  int stages;
+};
 
-  for (int i = threadIdx.x; i < kTileN * m; i += kThreads) {
-    const int rr = i / m, cc = i - rr * m;
-    const int row = row0 + rr;
-    const bool in = row < n;
-    rr_s[rr * r_stride + cc] = in ? r_re[(size_t)row * m + cc] : 0.f;
-    ri_s[rr * r_stride + cc] = in ? r_im[(size_t)row * m + cc] : 0.f;
+// d (+)= A B for a 64 x N x 16 tile, A and B K-major bf16 in shared memory
+// at the descriptors da + OA and db + OB (offsets in 16-byte units, added
+// in the asm so that only the bases stay live); d is overwritten where
+// accumulate == 0.
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_at(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 a, b;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "add.s64 a, %32, %35;\n"
+      "add.s64 b, %33, %36;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, a, b, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(OA), "n"(OB));
+}
+
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_at(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 a, b;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "add.s64 a, %16, %19;\n"
+      "add.s64 b, %17, %20;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, a, b, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(OA), "n"(OB));
+}
+
+// k16 step I of operand O's six products (product-major over the piece's
+// MC chunks, each chunk four steps): A plane (3 O + its plane) of chunk c
+// in the warpgroup's A planes at da, B plane of the chunk's unit at db[c].
+template <class C, int O, int I = 0>
+__device__ __forceinline__ void operand_steps(float (&d)[C::kAcc],
+                                              uint64_t da,
+                                              const uint64_t (&db)[C::MC]) {
+  if constexpr (I < 24 * C::MC) {
+    constexpr int P = I / (4 * C::MC), c = (I / 4) % C::MC, ks = I % 4;
+    constexpr int oa =
+        (((3 * O + prod_a(6, P)) * C::MC + c) * kAtomBytes + ks * 32) >> 4;
+    constexpr int ob = (prod_b(6, P) * (int)C::kPlane + ks * 32) >> 4;
+    wgmma_at<oa, ob>(d, da, db[c], I > 0);
+    operand_steps<C, O, I + 1>(d, da, db);
   }
+}
 
-  // per-lane column offsets into a slab row (the re plane; im and sum lie
-  // m or d further); masked columns read column 0 of the plane
-  int off_p[CP], off_w[CW];
+// Wait for operand O's MC units at the cursor (s, ph), note their stages in
+// st and issue its six products into d as one commit group.
+template <class C, int O>
+__device__ __forceinline__ void issue_operand(float (&d)[C::kAcc],
+                                              uint64_t da,
+                                              const KarRing& ring, int& s,
+                                              int& ph, int (&st)[C::MC]) {
+  uint64_t db[C::MC];
 #pragma unroll
-  for (int j = 0; j < CP; ++j) {
-    const int c = lane + 32 * j;
-    off_p[j] = c < m ? c : 0;
-  }
-#pragma unroll
-  for (int j = 0; j < CW; ++j) {
-    const int c = lane + 32 * j;
-    off_w[j] = 3 * m + (c < d ? c : 0);
-  }
-
-  float p1p[RPW][CP], p2p[RPW][CP], p3p[RPW][CP];
-  float p1w[RPW][CW], p2w[RPW][CW], p3w[RPW][CW];
-  float acc_re[RPW][CW], acc_im[RPW][CW], m_run[RPW], den[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    m_run[i] = -INFINITY;
-    den[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CP; ++j) p1p[i][j] = p2p[i][j] = p3p[i][j] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CW; ++j) {
-      p1w[i][j] = p2w[i][j] = p3w[i][j] = 0.f;
-      acc_re[i][j] = acc_im[i][j] = 0.f;
+  for (int c = 0; c < C::MC; ++c) {
+    mbar_wait(ring.full + 8 * s, ph);
+    st[c] = s;
+    db[c] = sw128_desc(ring.b + s * C::kStage);
+    if (++s == ring.stages) {
+      s = 0;
+      ph ^= 1;
     }
   }
+  wgmma_fence();
+  fence_operand(d);
+  operand_steps<C, O>(d, da, db);
+  wgmma_commit();
+  fence_operand(d);
+}
 
-  const int n_ch = (m + kKc - 1) / kKc;
-  const int total = k_comp * n_ch;
-  issue_stage(pw_s, slab, 0, n_ch, m, s_cols, s_cols, vec);
-  cp_async_commit();
+// a warp's arrival on stage s's empty barrier
+__device__ __forceinline__ void release(const KarRing& ring, int s) {
+  __syncwarp();
+  if (lane_id() == 0) mbar_arrive(ring.empty + 8 * s);
+}
 
-  for (int t = 0; t < total; ++t) {
-    if (t + 1 < total)
-      issue_stage(pw_s + ((t + 1) & 1) * buf_floats, slab, t + 1, n_ch, m,
-                  s_cols, s_cols, vec);
-    cp_async_commit();  // possibly empty: keeps the group count uniform
-    cp_async_wait_one();
-    __syncthreads();
+// x[0] + ... + x[N - 1] as a tree (N a power of two)
+template <int N>
+__device__ __forceinline__ float tree_sum(const float* x) {
+  if constexpr (N == 1)
+    return x[0];
+  else
+    return tree_sum<N / 2>(x) + tree_sum<N / 2>(x + N / 2);
+}
 
-    const float* ps = pw_s + (t & 1) * buf_floats;
-    const int k = t / n_ch;
-    const int kk0 = (t % n_ch) * kKc;
-    const int rows = min(kKc, m - kk0);
-    const float* ra = rr_s + warp * RPW * r_stride + kk0;
-    const float* rb = ri_s + warp * RPW * r_stride + kk0;
-#pragma unroll 2
-    for (int kk = 0; kk < rows; ++kk) {
-      float a[RPW], ai[RPW];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        a[i] = ra[i * r_stride + kk];
-        ai[i] = rb[i * r_stride + kk];
-      }
-      const float* prow = ps + kk * s_cols;
-      float pre[CP], pim[CP], psm[CP], wre[CW], wim[CW], wsm[CW];
-#pragma unroll
-      for (int j = 0; j < CP; ++j) {
-        pre[j] = prow[off_p[j]];
-        pim[j] = prow[off_p[j] + m];
-        psm[j] = prow[off_p[j] + 2 * m];
-      }
-#pragma unroll
-      for (int j = 0; j < CW; ++j) {
-        wre[j] = prow[off_w[j]];
-        wim[j] = prow[off_w[j] + d];
-        wsm[j] = prow[off_w[j] + 2 * d];
-      }
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float s = a[i] + ai[i];
-#pragma unroll
-        for (int j = 0; j < CP; ++j) {
-          p1p[i][j] = fmaf(a[i], pre[j], p1p[i][j]);
-          p2p[i][j] = fmaf(ai[i], pim[j], p2p[i][j]);
-          p3p[i][j] = fmaf(s, psm[j], p3p[i][j]);
-        }
-#pragma unroll
-        for (int j = 0; j < CW; ++j) {
-          p1w[i][j] = fmaf(a[i], wre[j], p1w[i][j]);
-          p2w[i][j] = fmaf(ai[i], wim[j], p2w[i][j]);
-          p3w[i][j] = fmaf(s, wsm[j], p3w[i][j]);
-        }
-      }
-    }
-    __syncthreads();  // buffer t & 1 is refilled by the issue at t + 1
+// A thread's rows: the running output of each value piece at columns 8 t +
+// 2 (lane % 4) + {0, 1}, the online-softmax state and the quadratic terms.
+template <class C>
+struct KarRows {
+  float o_re[C::XP][C::kAcc], o_im[C::XP][C::kAcc];
+  float m_run[2], den[2], q[2], sc[2], p[2];
+};
 
-    if (kk0 + rows == m) {  // component k complete: online softmax
-      const float* mrk = mu_re + (size_t)k * m;
-      const float* mik = mu_im + (size_t)k * m;
-      const float* brk = b_re + (size_t)k * d;
-      const float* bik = b_im + (size_t)k * d;
-      const float lw = logw[k];
+// A logit piece: the squared distances of its columns from mu added to the
+// rows' quadratic terms. vec: this lane's first vector value in the stage.
+template <class C>
+__device__ __forceinline__ void logit_piece(KarRows<C>& st,
+                                            const float (&p1)[C::kAcc],
+                                            const float (&p2)[C::kAcc],
+                                            const float (&p3)[C::kAcc],
+                                            unsigned vec) {
+  constexpr int T = C::PW / 8;
+  float part[2][2 * T];
 #pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        float q = 0.f;
+  for (int t = 0; t < T; ++t) {
+    const float2 mr = ld_shared_f2(vec + 32 * t);
+    const float2 mi = ld_shared_f2(vec + C::PW * 4 + 32 * t);
 #pragma unroll
-        for (int j = 0; j < CP; ++j) {
-          const int c = lane + 32 * j;
-          if (c < m) {
-            const float dre = (p1p[i][j] - p2p[i][j]) - __ldg(mrk + c);
-            const float dim =
-                ((p3p[i][j] - p1p[i][j]) - p2p[i][j]) - __ldg(mik + c);
-            q = fmaf(dre, dre, q);
-            q = fmaf(dim, dim, q);
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * t + 2 * r + h;
+        const float dre = (p1[i] - p2[i]) - (h ? mr.y : mr.x);
+        const float dim = ((p3[i] - p1[i]) - p2[i]) - (h ? mi.y : mi.x);
+        part[r][2 * t + h] = fmaf(dim, dim, dre * dre);
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) st.q[r] += tree_sum<2 * T>(part[r]);
+}
+
+// The rows' logits complete (component k): the online softmax.
+template <class C>
+__device__ __forceinline__ void softmax_step(KarRows<C>& st, float lw) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float q = st.q[r];
+    q += __shfl_xor_sync(0xffffffffu, q, 1);
+    q += __shfl_xor_sync(0xffffffffu, q, 2);
+    st.q[r] = 0.f;
+    const float logit = lw - q;
+    const float m_new = fmaxf(st.m_run[r], logit);
+    // exp(-inf - (-inf)) would be NaN: an all -inf prefix scales by 0
+    st.sc[r] = st.m_run[r] == -INFINITY ? 0.f : expf(st.m_run[r] - m_new);
+    st.p[r] = logit == -INFINITY ? 0.f : expf(logit - m_new);
+    st.den[r] = fmaf(st.den[r], st.sc[r], st.p[r]);
+    st.m_run[r] = m_new;
+  }
+}
+
+// Value piece jd: p (z + b) folded into the running output.
+template <class C>
+__device__ __forceinline__ void value_piece(KarRows<C>& st,
+                                            const float (&p1)[C::kAcc],
+                                            const float (&p2)[C::kAcc],
+                                            const float (&p3)[C::kAcc],
+                                            unsigned vec, int jd) {
+  constexpr int T = C::PW / 8;
+#pragma unroll
+  for (int jj = 0; jj < C::XP; ++jj) {
+    if (jj == jd) {
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        const float2 br = ld_shared_f2(vec + 32 * t);
+        const float2 bi = ld_shared_f2(vec + C::PW * 4 + 32 * t);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * t + 2 * r + h;
+            const float zr = (p1[i] - p2[i]) + (h ? br.y : br.x);
+            const float zi = ((p3[i] - p1[i]) - p2[i]) + (h ? bi.y : bi.x);
+            st.o_re[jj][i] = fmaf(st.p[r], zr, st.o_re[jj][i] * st.sc[r]);
+            st.o_im[jj][i] = fmaf(st.p[r], zi, st.o_im[jj][i] * st.sc[r]);
           }
-          p1p[i][j] = p2p[i][j] = p3p[i][j] = 0.f;
-        }
-        const float logit = lw - warp_sum(q);
-        const float m_new = fmaxf(m_run[i], logit);
-        // exp(-inf - (-inf)) would be NaN: an all -inf prefix scales by 0
-        const float scale =
-            m_run[i] == -INFINITY ? 0.f : expf(m_run[i] - m_new);
-        const float p = logit == -INFINITY ? 0.f : expf(logit - m_new);
-        den[i] = fmaf(den[i], scale, p);
-#pragma unroll
-        for (int j = 0; j < CW; ++j) {
-          const int c = lane + 32 * j;
-          const bool in = c < d;
-          const float z_re =
-              (p1w[i][j] - p2w[i][j]) + (in ? __ldg(brk + c) : 0.f);
-          const float z_im = ((p3w[i][j] - p1w[i][j]) - p2w[i][j]) +
-                             (in ? __ldg(bik + c) : 0.f);
-          acc_re[i][j] = fmaf(p, z_re, acc_re[i][j] * scale);
-          acc_im[i][j] = fmaf(p, z_im, acc_im[i][j] * scale);
-          p1w[i][j] = p2w[i][j] = p3w[i][j] = 0.f;
-        }
-        m_run[i] = m_new;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int row = row0 + warp * RPW + i;
-    if (row < n) {
-#pragma unroll
-      for (int j = 0; j < CW; ++j) {
-        const int c = lane + 32 * j;
-        if (c < d) {
-          h_re[(size_t)row * d + c] = acc_re[i][j] / den[i];
-          h_im[(size_t)row * d + c] = acc_im[i][j] / den[i];
-        }
       }
     }
   }
 }
 
-template <int CP, int CW, int RPW>
-int launch(const float* r_re, const float* r_im, const float* slab,
-           const float* mu_re, const float* mu_im, const float* b_re,
-           const float* b_im, const float* logw, float* h_re, float* h_im,
-           int n, int k_comp, int m, int d, cudaStream_t stream) {
-  constexpr int kTileN = kWarps * RPW;
-  const int s_cols = 3 * m + 3 * d;
-  const int r_stride = (m + 3) & ~3;
-  const size_t smem = sizeof(float) * (2 * (size_t)kTileN * r_stride +
-                                       2 * (size_t)kKc * s_cols);
-  const int vec = (s_cols % 4 == 0) &&
-                  (reinterpret_cast<uintptr_t>(slab) % 16 == 0);
-  auto kern = karatsuba_kernel<CP, CW, RPW>;
+// The warpgroup's 64 rows of r_re, r_im -> the nine A planes at a: operand
+// o (rr, ri, rs = rr + ri), plane q (hi, lo, lo2), chunk c at a + ((3 o + q)
+// MC + c) kAtomBytes, each 64 rows x 64 bf16 in the 128-byte swizzle; rows
+// past N and columns past M zero. 16 bytes (8 columns of one row) of each
+// plane at a time.
+template <class C>
+__device__ __forceinline__ void load_rows(unsigned a,
+                                          const float* __restrict__ r_re,
+                                          const float* __restrict__ r_im,
+                                          int m, int row0, int n) {
+  constexpr int kUnitsRow = C::MC * 8;
+  for (int u = threadIdx.x % kWg; u < 64 * kUnitsRow; u += kWg) {
+    const int rr = u / kUnitsRow, kq = u - rr * kUnitsRow;
+    const int row = row0 + rr;
+    float x[3][8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = kq * 8 + e;
+      const bool in = row < n && c < m;
+      x[0][e] = in ? __ldg(r_re + (size_t)row * m + c) : 0.f;
+      x[1][e] = in ? __ldg(r_im + (size_t)row * m + c) : 0.f;
+      x[2][e] = x[0][e] + x[1][e];  // the JAX kernel's shared operand rs
+    }
+    const unsigned off = sw128_off(rr, kq * 8);
+#pragma unroll
+    for (int o = 0; o < 3; ++o) {
+      unsigned pl[3][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bf16 p[3][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float v = x[o][2 * e + h];
+          p[0][h] = __float2bfloat16_rn(v);
+          const float y = v - __bfloat162float(p[0][h]);
+          p[1][h] = __float2bfloat16_rn(y);
+          p[2][h] = __float2bfloat16_rn(y - __bfloat162float(p[1][h]));
+        }
+#pragma unroll
+        for (int q = 0; q < 3; ++q) pl[q][e] = pack_bf16(p[q][0], p[q][1]);
+      }
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        st_shared_v4(a + (3 * o + q) * C::MC * kAtomBytes + off, pl[q]);
+    }
+  }
+}
+
+// The kernel. r_re, r_im (n, m) fp32; hi, lo, lo2: the bank's bf16 planes
+// as units (`karatsuba_operands`: (k_comp, pieces, 3, MC, PW, 64)); vec:
+// each piece's [Re | Im] vector values (k_comp, pieces, 2, PW); logw
+// (k_comp); h_re, h_im (n, d).
+template <class C>
+__global__ void __launch_bounds__((C::WGS + 1) * kWg, 1)
+    karatsuba_tc_kernel(const float* __restrict__ r_re,
+                        const float* __restrict__ r_im,
+                        const bf16* __restrict__ hi,
+                        const bf16* __restrict__ lo,
+                        const bf16* __restrict__ lo2,
+                        const float* __restrict__ vec,
+                        const float* __restrict__ logw,
+                        float* __restrict__ h_re, float* __restrict__ h_im,
+                        int n, int k_comp, int m, int d, int stages) {
+  constexpr int WGS = C::WGS, MC = C::MC, PW = C::PW, XP = C::XP;
+  constexpr int kAcc = C::kAcc;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const unsigned base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  KarRing ring;
+  ring.b = base + WGS * C::kAWg;
+  ring.stages = stages;
+  ring.full = ring.b + stages * C::kStage;
+  ring.empty = ring.full + 8 * stages;
+  ring.vec = ring.empty + 8 * stages;
+  const int mp = (m + PW - 1) / PW, pieces = mp + (d + PW - 1) / PW;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, WGS * 4);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == WGS) {  // the producer warpgroup: one thread streams the units
+    if constexpr (WGS == 2) setmaxnreg_dec<40>();
+    if (threadIdx.x == WGS * kWg) {
+      const int total = k_comp * pieces * 3 * MC;
+      int s = 0, ph = 0;
+      for (int g = 0; g < total; ++g) {
+        const unsigned full = ring.full + 8 * s;
+        mbar_wait(ring.empty + 8 * s, ph ^ 1);
+        mbar_expect_tx(full, C::kStage + C::kVec);
+        bulk_copy(ring.vec + s * C::kVec,
+                  vec + (size_t)(g / (3 * MC)) * 2 * PW, C::kVec, full);
+        const size_t off = (size_t)g * C::kPlane;  // unit order
+        const unsigned dst = ring.b + s * C::kStage;
+        bulk_copy(dst, reinterpret_cast<const char*>(hi) + off, C::kPlane,
+                  full);
+        bulk_copy(dst + C::kPlane, reinterpret_cast<const char*>(lo) + off,
+                  C::kPlane, full);
+        bulk_copy(dst + 2 * C::kPlane,
+                  reinterpret_cast<const char*>(lo2) + off, C::kPlane, full);
+        if (++s == stages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  if constexpr (WGS == 2) setmaxnreg_inc<232>();
+
+  const int row0 = blockIdx.x * (WGS * 64) + wg * 64;
+  const unsigned a = base + wg * C::kAWg;
+  load_rows<C>(a, r_re, r_im, m, row0, n);
+  // the generic-proxy stores become visible to wgmma, then the warpgroup
+  // meets
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  wg_sync(1 + wg);
+  const uint64_t da = sw128_desc(a);
+
+  KarRows<C> st;
+#pragma unroll
+  for (int j = 0; j < XP; ++j)
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) st.o_re[j][i] = st.o_im[j][i] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    st.m_run[r] = -INFINITY;
+    st.den[r] = st.q[r] = st.sc[r] = st.p[r] = 0.f;
+  }
+  // this lane's vector values: columns 8 t + 2 (lane % 4) + {0, 1}
+  const unsigned vec_lane = ring.vec + 8 * (lane_id() & 3);
+
+  float p1[kAcc], p2[kAcc], p3[kAcc];
+  int s = 0, ph = 0;
+  for (int k = 0; k < k_comp; ++k) {
+    for (int j = 0; j < pieces; ++j) {
+      int s1[MC], s2[MC], s3[MC];
+      issue_operand<C, 0>(p1, da, ring, s, ph, s1);
+      issue_operand<C, 1>(p2, da, ring, s, ph, s2);
+      issue_operand<C, 2>(p3, da, ring, s, ph, s3);
+      wgmma_wait<2>();  // p1 complete: its units go back to the ring
+#pragma unroll
+      for (int c = 0; c < MC; ++c) release(ring, s1[c]);
+      wgmma_wait<1>();
+#pragma unroll
+      for (int c = 0; c < MC; ++c) release(ring, s2[c]);
+      wgmma_wait<0>();
+      fence_operand(p1);
+      fence_operand(p2);
+      fence_operand(p3);
+      const unsigned v = vec_lane + s3[0] * C::kVec;
+      if (j < mp) {
+        logit_piece<C>(st, p1, p2, p3, v);
+        if (j == mp - 1) softmax_step<C>(st, __ldg(logw + k));
+      } else {
+        value_piece<C>(st, p1, p2, p3, v, j - mp);
+      }
+      // The stage is refilled by cp.async.bulk, a write of the async proxy;
+      // the barrier's release orders the reads of its vector values above
+      // only against the generic proxy, so this proxy fence keeps the
+      // refill from landing before they are performed (fault F2).
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#pragma unroll
+      for (int c = 0; c < MC; ++c) release(ring, s3[c]);
+    }
+  }
+
+  const int lane = lane_id();
+  const bool pairs = (d & 1) == 0;  // then a thread's two columns are 8-byte
+                                    // aligned
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + row_in_wg() + 8 * r;
+    if (row >= n) continue;
+    const float inv = 1.f / st.den[r];
+    float* ore = h_re + (size_t)row * d;
+    float* oim = h_im + (size_t)row * d;
+#pragma unroll
+    for (int jj = 0; jj < XP; ++jj)
+#pragma unroll
+      for (int t = 0; t < PW / 8; ++t) {
+        const int c = jj * PW + 8 * t + 2 * (lane & 3);
+        const int i = 4 * t + 2 * r;
+        if (pairs && c < d) {
+          *reinterpret_cast<float2*>(ore + c) =
+              make_float2(st.o_re[jj][i] * inv, st.o_re[jj][i + 1] * inv);
+          *reinterpret_cast<float2*>(oim + c) =
+              make_float2(st.o_im[jj][i] * inv, st.o_im[jj][i + 1] * inv);
+        } else {
+          if (c < d) {
+            ore[c] = st.o_re[jj][i] * inv;
+            oim[c] = st.o_im[jj][i] * inv;
+          }
+          if (c + 1 < d) {
+            ore[c + 1] = st.o_re[jj][i + 1] * inv;
+            oim[c + 1] = st.o_im[jj][i + 1] * inv;
+          }
+        }
+      }
+  }
+}
+
+// shared memory of a launch with `stages` ring stages
+template <class C>
+size_t kar_smem(int stages) {
+  return 1024 + (size_t)C::WGS * C::kAWg +
+         (size_t)stages * (C::kStage + 16 + C::kVec);
+}
+
+// the deepest ring (up to kMaxStages) that fits, 0 if not even one does
+template <class C>
+int kar_stages() {
+  int s = kMaxStages;
+  while (s > 0 && kar_smem<C>(s) > (size_t)kSmemMax) --s;
+  return s;
+}
+
+struct KarArgs {
+  const float* r_re;
+  const float* r_im;
+  const bf16* planes[3];
+  const float* vec;
+  const float* logw;
+  float* h_re;
+  float* h_im;
+  int n, k_comp, m, d;
+  cudaStream_t stream;
+};
+
+template <class C>
+int kar_launch(const KarArgs& g) {
+  const int stages = kar_stages<C>();
+  if (stages < 3 * C::MC) return (int)cudaErrorInvalidValue;  // a piece
+  const size_t smem = kar_smem<C>(stages);
+  auto kern = karatsuba_tc_kernel<C>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (n + kTileN - 1) / kTileN;
-  kern<<<grid, kThreads, smem, stream>>>(r_re, r_im, slab, mu_re, mu_im, b_re,
-                                         b_im, logw, h_re, h_im, n, k_comp, m,
-                                         d, vec);
+  const int rows = C::WGS * 64;
+  kern<<<(g.n + rows - 1) / rows, (C::WGS + 1) * kWg, smem, g.stream>>>(
+      g.r_re, g.r_im, g.planes[0], g.planes[1], g.planes[2], g.vec, g.logw,
+      g.h_re, g.h_im, g.n, g.k_comp, g.m, g.d, stages);
   return (int)cudaGetLastError();
+}
+
+// M, D <= 64: 64-column pieces, two consumer warpgroups where 128-row
+// blocks cover the SMs, else one. Wider: 32-column pieces, one warpgroup.
+int kar_dispatch(const KarArgs& g) {
+  if (g.m <= 64 && g.d <= 64) {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return (int)cudaErrorInvalidDevice;
+    if ((g.n + 127) / 128 >= sms) return kar_launch<KarCfg<1, 64, 1, 2>>(g);
+    return kar_launch<KarCfg<1, 64, 1, 1>>(g);
+  }
+  if (g.m <= 64) return kar_launch<KarCfg<1, 32, 4, 1>>(g);
+  if (g.d <= 64) return kar_launch<KarCfg<2, 32, 2, 1>>(g);
+  return kar_launch<KarCfg<2, 32, 4, 1>>(g);
 }
 
 }  // namespace
 
 // C entry point, loaded with ctypes; returns a cudaError_t (0 on success).
-// K14a: r_re, r_im (n, m) -> h_re, h_im (n, d); slab (k_comp, m, 3m + 3d),
-// mu_re, mu_im (k_comp, m), b_re, b_im (k_comp, d), logw (k_comp).
-// Rows a warp: 8 while m, d <= 64 (two columns a lane and plane), 4 with
-// one of them past 64, 2 with both (the accumulators' registers).
+// K14a: r_re, r_im (n, m) -> h_re, h_im (n, d), all fp32; hi, lo, lo2: the
+// bank's three bf16 planes as units and vec their vector values
+// (`variant_kernels.karatsuba_operands`, 16-byte aligned); logw (k_comp).
 extern "C" int karatsuba_estimate_launch(
-    const float* r_re, const float* r_im, const float* slab,
-    const float* mu_re, const float* mu_im, const float* b_re,
-    const float* b_im, const float* logw, float* h_re, float* h_im, int n,
-    int k_comp, int m, int d, void* stream) {
+    const float* r_re, const float* r_im, const void* hi, const void* lo,
+    const void* lo2, const float* vec, const float* logw, float* h_re,
+    float* h_im, int n, int k_comp, int m, int d, void* stream) {
   if (n < 0 || k_comp < 1 || m < 1 || m > 128 || d < 1 || d > 128)
     return (int)cudaErrorInvalidValue;
+  const void* aligned[4] = {hi, lo, lo2, vec};
+  for (const void* p : aligned)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
   if (n == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cp = cols_per_lane(m), cw = cols_per_lane(d);
-#define QCE_LAUNCH(CP_, CW_, RPW_)                                           \
-  if (cp == CP_ && cw == CW_)                                                \
-    return launch<CP_, CW_, RPW_>(r_re, r_im, slab, mu_re, mu_im, b_re, b_im, \
-                                  logw, h_re, h_im, n, k_comp, m, d, s);
-  QCE_LAUNCH(2, 2, 8)
-  QCE_LAUNCH(2, 4, 4)
-  QCE_LAUNCH(4, 2, 4)
-  QCE_LAUNCH(4, 4, 2)
-#undef QCE_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  const KarArgs g{r_re,
+                  r_im,
+                  {static_cast<const bf16*>(hi), static_cast<const bf16*>(lo),
+                   static_cast<const bf16*>(lo2)},
+                  vec,
+                  logw,
+                  h_re,
+                  h_im,
+                  n,
+                  k_comp,
+                  m,
+                  d,
+                  static_cast<cudaStream_t>(stream)};
+  return kar_dispatch(g);
 }

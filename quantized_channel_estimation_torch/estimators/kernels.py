@@ -167,7 +167,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             [ptr] * 11 + [i32] * 5 + [f32, i32, ptr])
         lib.fact_estimate_launch.restype = i32
     elif name == "karatsuba_estimate":
-        lib.karatsuba_estimate_launch.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
+        lib.karatsuba_estimate_launch.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
         lib.karatsuba_estimate_launch.restype = i32
     elif name == "grouped_tc_estimate":
         lib.grouped_tc_estimate_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]

@@ -7,7 +7,12 @@ kernels written in CUDA C++ for `sm_90a`:
 - K14a, the Karatsuba-layout estimator (`_estimate_kernel`, launched by
   `estimate_packed`, entry `estimate`) in `csrc/karatsuba_estimate.cu`:
   K1's 'all'-mode estimate with three real products per complex product
-  (`KernelBank`, `kernel_bank`, plain version `reference_estimate_packed`);
+  (`KernelBank`, `kernel_bank`, plain version `reference_estimate_packed`),
+  each of them six bf16 tensor-core products of three-plane splits
+  accumulated in fp32, as K1's; the bank's planes are split and laid out
+  once in the kernel's units (`karatsuba_operands`), and
+  `karatsuba_tc_reference` is the plain version of the kernel's
+  arithmetic;
 - K14b, K1's GEMM-precision modes (`_estimate_kernel_block_grouped_bf16`,
   `_estimate_kernel_block_grouped_split`, the `mode=` of
   `estimate_packed_block_grouped` / `estimate_block_grouped`) in
@@ -133,20 +138,155 @@ def _check_karatsuba_widths(m: int, d: int) -> None:
                          f"{KARATSUBA_MAX}; got M={m}, D={d}")
 
 
-def _slab(kb: KernelBank) -> torch.Tensor:
-    """The kernel's bank operand: (K, M, 3M + 3D), a contraction row of
-    every plane side by side [pc_re | pc_im | pc_s | wt_re | wt_im |
-    wt_s]."""
-    return torch.cat([kb.pc_re, kb.pc_im, kb.pc_s, kb.wt_re, kb.wt_im,
-                      kb.wt_s], dim=-1).contiguous()
+SIX_PRODUCTS = ((0, 2), (1, 1), (2, 0), (1, 0), (0, 1), (0, 0))
+"""The six bf16 products of an fp32 product, in the kernels' issue order:
+(plane of the rows, plane of the bank), planes 0 = hi, 1 = lo, 2 = lo2
+(`kernels.split_planes3`): hi.lo2, lo.lo, lo2.hi, lo.hi, hi.lo, hi.hi."""
+
+
+def karatsuba_piece(m: int, d: int) -> int:
+    """Columns of one piece of K14a's bank: 64 while M, D <= 64, else 32
+    (three accumulators and up to four value pieces of output in
+    registers)."""
+    return 64 if m <= 64 and d <= 64 else 32
+
+
+class KaratsubaOperands(NamedTuple):
+    """The bank as K14a streams it, unit by unit: per component, piece of
+    PW columns (`karatsuba_piece`; the logit half's ceil(M / PW) pieces of
+    conj(P_k), then the value half's ceil(D / PW) of W_k^T), operand (B_re,
+    B_im, B_s) and 64-deep contraction chunk, the PW x 64 transpose of each
+    bf16 plane (hi, lo, lo2 of `kernels.split_planes3`) in the 128-byte
+    swizzle (`kernels._sw128`), padding zero; and each piece's vector
+    values [Re | Im] (mu_k over the logit pieces, b_k over the value
+    pieces).
+
+    hi, lo, lo2: (K, pieces, 3, ceil(M / 64), PW, 64) bfloat16
+    vec:         (K, pieces, 2, PW)                    float32
+    """
+    hi: torch.Tensor
+    lo: torch.Tensor
+    lo2: torch.Tensor
+    vec: torch.Tensor
+
+
+def _karatsuba_units(x: torch.Tensor, pw: int) -> torch.Tensor:
+    """(K, 3, M, X) planes of one half -> (K, ceil(X / pw), 3, ceil(M / 64),
+    pw, 64): a piece's columns, a chunk's contraction rows, transposed;
+    zero-padded."""
+    k_comp, _, m, x_cols = x.shape
+    n_ch, pieces = -(-m // 64), -(-x_cols // pw)
+    x = torch.nn.functional.pad(x, (0, pieces * pw - x_cols,
+                                    0, n_ch * 64 - m))
+    return x.reshape(k_comp, 3, n_ch, 64, pieces, pw).permute(0, 4, 1, 2, 5,
+                                                              3)
+
+
+def _karatsuba_vec(re: torch.Tensor, im: torch.Tensor,
+                   pw: int) -> torch.Tensor:
+    """(K, X) re / im -> (K, ceil(X / pw), 2, pw), zero-padded."""
+    k_comp, x_cols = re.shape
+    pieces = -(-x_cols // pw)
+    both = torch.nn.functional.pad(torch.stack([re, im], 1),
+                                   (0, pieces * pw - x_cols))
+    return both.reshape(k_comp, 2, pieces, pw).transpose(1, 2)
+
+
+def karatsuba_operands(kb: KernelBank) -> KaratsubaOperands:
+    """Split kb's six planes into bf16 hi / lo / lo2 and lay them out as
+    K14a's units (`KaratsubaOperands`); once per bank (`estimate` keeps
+    them in its cache)."""
+    m, d = kb.pc_re.shape[1], kb.wt_re.shape[2]
+    pw = karatsuba_piece(m, d)
+    x = torch.cat([
+        _karatsuba_units(torch.stack([kb.pc_re, kb.pc_im, kb.pc_s], 1), pw),
+        _karatsuba_units(torch.stack([kb.wt_re, kb.wt_im, kb.wt_s], 1), pw)],
+        1)
+    planes = (kernels._sw128(p).contiguous()
+              for p in kernels.split_planes3(x.contiguous()))
+    vec = torch.cat([_karatsuba_vec(kb.mu_re, kb.mu_im, pw),
+                     _karatsuba_vec(kb.b_re, kb.b_im, pw)], 1)
+    return KaratsubaOperands(*planes, vec.contiguous())
+
+
+def check_karatsuba_operands(ops: KaratsubaOperands, kb: KernelBank,
+                             device) -> None:
+    """Raise unless ops holds the units and vectors of a bank of kb's shape
+    on `device` (`karatsuba_operands`)."""
+    k_comp, m, _ = kb.pc_re.shape
+    d = kb.wt_re.shape[2]
+    pw = karatsuba_piece(m, d)
+    pieces = -(-m // pw) + -(-d // pw)
+    units = (k_comp, pieces, 3, -(-m // 64), pw, 64)
+    fields = [("hi", ops.hi, torch.bfloat16, units),
+              ("lo", ops.lo, torch.bfloat16, units),
+              ("lo2", ops.lo2, torch.bfloat16, units),
+              ("vec", ops.vec, torch.float32, (k_comp, pieces, 2, pw))]
+    for name, t, dtype, shape in fields:
+        if (t is None or t.device != device or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            got = ("None" if t is None
+                   else f"{t.dtype} {tuple(t.shape)} on {t.device}")
+            raise ValueError(f"karatsuba_estimate: operand {name} must be "
+                             f"contiguous {dtype} {shape} on {device} "
+                             f"(`karatsuba_operands`), got {got}")
+
+
+def karatsuba_tc_reference(kb: KernelBank, r_re: torch.Tensor,
+                           r_im: torch.Tensor, chunk: int = 8192):
+    """Plain PyTorch version of the kernel's arithmetic: p1 = rr B_re, p2 =
+    ri B_im, p3 = (rr + ri) B_s, each the six bf16 products of `tc_products`
+    with the bank's bf16 planes, Re = p1 - p2 and Im = (p3 - p1) - p2, then
+    the logits, softmax and combine in float32. r_re / r_im (N, M) ->
+    (h_re, h_im) (N, D). `reference_estimate_packed` is the same function
+    with complex float32 products."""
+    pin_fp32()
+
+    def split(*xs):
+        return [[p.to(torch.float32) for p in kernels.split_planes3(x)]
+                for x in xs]
+
+    pc = split(kb.pc_re, kb.pc_im, kb.pc_s)
+    wt = split(kb.wt_re, kb.wt_im, kb.wt_s)
+    out_re, out_im = [], []
+    for i0 in range(0, r_re.shape[0], chunk):
+        rr, ri = r_re[i0:i0 + chunk], r_im[i0:i0 + chunk]
+        rs = rr + ri
+
+        def product(b):
+            p1, p2 = tc_products(rr, b[0], 6), tc_products(ri, b[1], 6)
+            p3 = tc_products(rs, b[2], 6)
+            return p1 - p2, (p3 - p1) - p2
+
+        y_re, y_im = product(pc)                               # (K, n, M)
+        quad = ((y_re - kb.mu_re[:, None]).square()
+                + (y_im - kb.mu_im[:, None]).square()).sum(-1)   # (K, n)
+        w = torch.softmax(kb.logw[:, None] - quad, dim=0)
+        z_re, z_im = product(wt)                               # (K, n, D)
+        out_re.append(torch.einsum("kn,knd->nd", w,
+                                   z_re + kb.b_re[:, None]))
+        out_im.append(torch.einsum("kn,knd->nd", w,
+                                   z_im + kb.b_im[:, None]))
+    if not out_re:
+        empty = r_re.new_zeros((0, kb.b_re.shape[1]))
+        return empty, empty.clone()
+    return torch.cat(out_re), torch.cat(out_im)
+
+
+def _check_karatsuba_widths(m: int, d: int) -> None:
+    if not (1 <= m <= KARATSUBA_MAX and 1 <= d <= KARATSUBA_MAX):
+        raise ValueError(f"the Karatsuba estimator K14a takes M, D <= "
+                         f"{KARATSUBA_MAX}; got M={m}, D={d}")
 
 
 def karatsuba_estimate(r_re: torch.Tensor, r_im: torch.Tensor,
-                       kb: KernelBank):
+                       kb: KernelBank,
+                       operands: Optional[KaratsubaOperands] = None):
     """K14a on r_re / r_im (N, M) float32 -> (h_re, h_im), each (N, D)
     float32, any N. On a CUDA tensor it launches the CUDA kernel (M and D
-    at most 128) on the current stream and raises on any refusal; on a CPU
-    tensor it computes the plain version."""
+    at most 128) on the current stream with the bank's `operands`
+    (`karatsuba_operands(kb)`, laid out in the call when None) and raises
+    on any refusal; on a CPU tensor it computes the plain version."""
     if not r_re.is_cuda:
         return reference_estimate_packed(kb, r_re, r_im)
     n, m = r_re.shape
@@ -165,17 +305,19 @@ def karatsuba_estimate(r_re: torch.Tensor, r_im: torch.Tensor,
     check("b_re", kb.b_re, (k_comp, d), dev)
     check("b_im", kb.b_im, (k_comp, d), dev)
     check("logw", kb.logw, (k_comp,), dev)
+    if operands is None:
+        operands = karatsuba_operands(kb)
+    check_karatsuba_operands(operands, kb, dev)
     h_re = torch.empty((n, d), dtype=torch.float32, device=dev)
     h_im = torch.empty((n, d), dtype=torch.float32, device=dev)
     if n == 0:
         return h_re, h_im
-    slab = _slab(kb)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = kernels._library("karatsuba_estimate").karatsuba_estimate_launch(
-            r_re.data_ptr(), r_im.data_ptr(), slab.data_ptr(),
-            kb.mu_re.data_ptr(), kb.mu_im.data_ptr(), kb.b_re.data_ptr(),
-            kb.b_im.data_ptr(), kb.logw.data_ptr(), h_re.data_ptr(),
+            r_re.data_ptr(), r_im.data_ptr(), operands.hi.data_ptr(),
+            operands.lo.data_ptr(), operands.lo2.data_ptr(),
+            operands.vec.data_ptr(), kb.logw.data_ptr(), h_re.data_ptr(),
             h_im.data_ptr(), n, k_comp, m, d, stream)
     if err != 0:
         raise RuntimeError(f"karatsuba_estimate launch failed: cudaError "
@@ -184,23 +326,36 @@ def karatsuba_estimate(r_re: torch.Tensor, r_im: torch.Tensor,
     return h_re, h_im
 
 
-def estimate_packed(kb: KernelBank, r_re: torch.Tensor, r_im: torch.Tensor):
+def estimate_packed(kb: KernelBank, r_re: torch.Tensor, r_im: torch.Tensor,
+                    operands: Optional[KaratsubaOperands] = None):
     """'all'-mode estimation in the Karatsuba layout (JAX
     `estimate_packed`): r_re / r_im (N, M) float32 -> (h_re, h_im) (N, D)
     float32 through K14a. Any N: the kernel masks the ragged tile, so there
     is no `tile_n` and no padding."""
-    return karatsuba_estimate(r_re, r_im, kb)
+    return karatsuba_estimate(r_re, r_im, kb, operands)
 
 
-def estimate(bank: PreparedBank, r: torch.Tensor) -> torch.Tensor:
+def estimate(bank: PreparedBank, r: torch.Tensor,
+             cache: Optional[dict] = None) -> torch.Tensor:
     """Drop-in Karatsuba replacement for `gmm_estimator.estimate(bank, r,
     'all')` (JAX `estimate`): complex r (N, M) -> (N, D) through K14a.
+    `cache`: a dict held beside the bank for its Karatsuba layout and, on a
+    card, its `karatsuba_operands` ("karatsuba", "karatsuba_operands").
     Raises past M, D <= 128, on any device: there is no fallback."""
     _, d, m = bank.filters.shape
     _check_karatsuba_widths(m, d)
+    cache = {} if cache is None else cache
+    if "karatsuba" not in cache:
+        cache["karatsuba"] = kernel_bank(bank)
+    kb = cache["karatsuba"]
+    operands = None
+    if r.is_cuda:
+        if "karatsuba_operands" not in cache:
+            cache["karatsuba_operands"] = karatsuba_operands(kb)
+        operands = cache["karatsuba_operands"]
     h_re, h_im = karatsuba_estimate(r.real.to(torch.float32).contiguous(),
                                     r.imag.to(torch.float32).contiguous(),
-                                    kernel_bank(bank))
+                                    kb, operands)
     return torch.complex(h_re, h_im).to(r.dtype)
 
 
@@ -213,17 +368,18 @@ def _round_bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def tc_products(rows: torch.Tensor, flats, passes: int) -> torch.Tensor:
-    """The products of the wgmma stream for rows (n, 2M) float32: rows
+    """The products of the wgmma kernels for rows (n, W) float32: rows
     split into bf16 planes (hi, lo, lo2 as `kernels.split_planes3`), and the
     `passes` products of a row plane and a bank plane (flats: the bank's
-    planes as float32 (2M, K (2M+2D)) matrices), each a float32 product of
-    bf16 values (exact), summed in the kernel's issue order: hi.hi,
-    hi.lo, lo.hi for 1-3 passes; hi.lo2, lo.lo, lo2.hi, lo.hi, hi.lo,
-    hi.hi for 6 (the row's plane first)."""
+    planes as float32 matrices, (2M, K (2M+2D)) for K1's stream, (K, M, X)
+    for K14a's), each a float32 product of bf16 values (exact), summed in
+    the kernel's issue order: hi.hi, hi.lo, lo.hi for 1-3 passes;
+    `SIX_PRODUCTS` (hi.lo2, lo.lo, lo2.hi, lo.hi, hi.lo, hi.hi) for 6 (the
+    row's plane first)."""
     hi = _round_bf16(rows)
     lo = _round_bf16(rows - hi)
     r_planes = (hi, lo, _round_bf16((rows - hi) - lo))
-    order = (((0, 2), (1, 1), (2, 0), (1, 0), (0, 1), (0, 0)) if passes == 6
+    order = (SIX_PRODUCTS if passes == 6
              else ((0, 0), (0, 1), (1, 0))[:passes])
     yz = None
     for a, b in order:

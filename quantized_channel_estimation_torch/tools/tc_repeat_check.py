@@ -21,6 +21,11 @@ plain version evaluated in float64 than twice the plain version's own
 error plus 1e-5 (a logit pooled over many rows rounds differently in any
 two float32 orders).
 
+Mode 'karatsuba' does the same for K14a (`KARATSUBA_SHAPES`: one and two
+consumer warpgroups a block, 32-column pieces, two contraction chunks); a
+launch fails if its bits differ from the first launch's or if it is
+further than 1e-4 of the scale from its plain version.
+
 `--without-proxy-fence` also builds a copy of K14b without the
 `fence.proxy.async` before each stage's release (in
 csrc/grouped_tc_stream.cuh) and runs it launch for launch beside the
@@ -29,7 +34,8 @@ kernel, to measure what the fence does; with `--time` it also times both
 headline widths (131072 rows, 2M = 2D = 128, K = 64).
 
     python -m quantized_channel_estimation_torch.tools.tc_repeat_check \
-        [--repeats R] [--modes bf16 split2 split3 f32] [--no-poison] \
+        [--repeats R] [--modes bf16 split2 split3 f32 karatsuba] \
+        [--no-poison] \
         [--without-proxy-fence [--time]]
 
 Exits 1 if any launch of a kernel (not of the copy) failed.
@@ -69,6 +75,13 @@ F32_SHAPES = (
     (128, 128, 16, 16 * 2049, 0, 16, 0.25),  # T = 16: a thread's two rows
     (128, 128, 8, 64 * 301, 1, 64, 1.0),   # T = 64: shared memory
     (128, 128, 8, 3 * 4001, 0, 3, 0.5),    # T = 3: 63-row warpgroup tiles
+)
+# K14a: (M, D, K, N, dead components)
+KARATSUBA_SHAPES = (
+    (64, 64, 16, 4097, 3),                 # one consumer warpgroup a block
+    (64, 64, 16, 2 * 132 * 128 + 5, 0),    # two, two waves of blocks
+    (40, 100, 6, 515, 1),                  # 32-column pieces
+    (128, 128, 4, 200, 1),                 # two contraction chunks
 )
 REPEATS = 300
 STREAM = "grouped_tc_stream.cuh"
@@ -171,6 +184,52 @@ def random_rows(n, two_m, dev, seed=1):
                           device=dev).float() - 0.5) * 1.4
 
 
+def random_karatsuba_bank(m, d, k, dev, n_dead=0, seed=0):
+    """A random K14a bank of any widths (M need not reach D): logits a few
+    units apart, dead components at the -1e30 floor."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g)
+
+    pc_re, pc_im = (rnd(k, m, m, scale=0.3 / math.sqrt(m)),
+                    rnd(k, m, m, scale=0.3 / math.sqrt(m)))
+    wt_re, wt_im = (rnd(k, m, d, scale=1 / math.sqrt(m)),
+                    rnd(k, m, d, scale=1 / math.sqrt(m)))
+    logw = 0.5 * rnd(k)
+    logw[:n_dead] = -1e30
+    kb = vk.KernelBank(pc_re, pc_im, pc_re + pc_im, wt_re, wt_im,
+                       wt_re + wt_im, rnd(k, m, scale=0.3),
+                       rnd(k, m, scale=0.3), rnd(k, d), rnd(k, d), logw)
+    return vk.KernelBank(*(x.to(dev).contiguous() for x in kb))
+
+
+def _karatsuba_check(dev, shapes, repeats, poison) -> dict:
+    """Mode 'karatsuba' of `repeat_check`: {label: {"launches",
+    "failures", "max_err"}} over K14a at `shapes`."""
+    out = {}
+    for m, d, k, n, n_dead in shapes:
+        kb = random_karatsuba_bank(m, d, k, dev, n_dead)
+        ops = vk.karatsuba_operands(kb) if dev.type == "cuda" else None
+        r_re, r_im = random_rows(n, m, dev), random_rows(n, m, dev, seed=2)
+        want = torch.cat(vk.reference_estimate_packed(kb, r_re, r_im), -1)
+        scale = want.abs().max()
+        first, errs, fails = None, [], 0
+        for _ in range(repeats):
+            if poison:
+                poison_shared_memory(dev)
+            got = torch.cat(vk.karatsuba_estimate(r_re, r_im, kb, ops), -1)
+            err = float((got - want).abs().max() / scale)
+            if first is None:
+                first = got
+            fails += not (torch.equal(got, first) and err <= TOL)  # NaN too
+            errs.append(err)
+        out[f"M={m} D={d} K={k} N={n} dead={n_dead} karatsuba"] = {
+            "launches": repeats, "failures": fails,
+            "max_err": max(e if e == e else math.inf for e in errs)}
+    return out
+
+
 def _launch_copy(lib, r2, kb, ops, passes):
     n, two_m = r2.shape
     two_d = kb.b.shape[1]
@@ -234,16 +293,21 @@ def _f32_check(dev, shapes, repeats, poison) -> dict:
 
 def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
                  without_fence=False, modes=tuple(vk.TC_WRAPPERS),
-                 f32_shapes=F32_SHAPES) -> dict:
+                 f32_shapes=F32_SHAPES,
+                 karatsuba_shapes=KARATSUBA_SHAPES) -> dict:
     """Every (shape, mode): `repeats` launches of K14b (and of the copy
     without the fence), each held against the plain version; mode 'f32':
-    K1 and K3 at `f32_shapes`. Returns {"kernel" (and "no fence"): {label:
+    K1 and K3 at `f32_shapes`; mode 'karatsuba': K14a at
+    `karatsuba_shapes`. Returns {"kernel" (and "no fence"): {label:
     {"launches", "failures", "max_err"}}}."""
     copy = _without_fence() if without_fence else None
     result = {"kernel": {}, "no fence": {}} if copy else {"kernel": {}}
     if "f32" in modes:
         result["kernel"].update(_f32_check(dev, f32_shapes, repeats, poison))
-    modes = [m for m in modes if m != "f32"]
+    if "karatsuba" in modes:
+        result["kernel"].update(_karatsuba_check(dev, karatsuba_shapes,
+                                                 repeats, poison))
+    modes = [m for m in modes if m not in ("f32", "karatsuba")]
     for two_m, two_d, k, n, n_dead in shapes if modes else ():
         kb = random_bank(two_m, two_d, k, dev, n_dead)
         planes = kernels.split_planes(kb.pw)
@@ -295,8 +359,9 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default=None)
     p.add_argument("--repeats", type=int, default=REPEATS)
-    p.add_argument("--modes", nargs="+", default=[*vk.TC_WRAPPERS, "f32"],
-                   choices=[*vk.TC_WRAPPERS, "f32"])
+    p.add_argument("--modes", nargs="+",
+                   default=[*vk.TC_WRAPPERS, "f32", "karatsuba"],
+                   choices=[*vk.TC_WRAPPERS, "f32", "karatsuba"])
     p.add_argument("--no-poison", action="store_true")
     p.add_argument("--without-proxy-fence", action="store_true")
     p.add_argument("--time", action="store_true")

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1-K5, the circulant K6-K9, the multi-pilot
 circulant K10, the factored K11-K13, and K1's variants K14a, K14b and the
 floor probe K15) against their plain versions on the card, the split-K
-forms' shard merges against one launch, K1 / K3 and K14b over many
+forms' shard merges against one launch, K1 / K3, K14a and K14b over many
 NaN-poisoned launches (`tools.tc_repeat_check`), the kernel-measurement
 tools and `utils.profiling` on the card, and the estimation service on the
 card.
@@ -23,7 +23,8 @@ past 1e-4 of each other, both are held against the plain version in
 float64, the kernel to within twice the plain version's own error. K1 and
 K3, six bf16 tensor-core products, are also held to that float64 rule
 where their plain version agrees within 1e-4, since 1e-4 alone passes a
-three-product split too.
+three-product split too; so is K14a, six bf16 products for each of its
+three real products. K14a's repeated launches are bit for bit the first.
 """
 import math
 
@@ -1223,32 +1224,23 @@ def test_factored_service_on_card_matches_pipeline():
 # held against its plain version like the float32 kernels (1e-4).
 # ---------------------------------------------------------------------------
 
-def _rand_karatsuba(m, d, k, dev, n_dead=0, seed=0):
-    """A random Karatsuba bank of any widths (M need not reach D)."""
-    g = torch.Generator().manual_seed(seed)
-
-    def rnd(*shape, scale=1.0):
-        return scale * torch.randn(*shape, generator=g)
-
-    pc_re, pc_im = rnd(k, m, m, scale=0.3 / math.sqrt(m)), rnd(
-        k, m, m, scale=0.3 / math.sqrt(m))
-    wt_re, wt_im = rnd(k, m, d, scale=1 / math.sqrt(m)), rnd(
-        k, m, d, scale=1 / math.sqrt(m))
-    logw = 0.5 * rnd(k)
-    logw[:n_dead] = -1e30
-    kb = tvk.KernelBank(pc_re, pc_im, pc_re + pc_im, wt_re, wt_im,
-                        wt_re + wt_im, rnd(k, m, scale=0.3),
-                        rnd(k, m, scale=0.3), rnd(k, d), rnd(k, d), logw)
-    return tvk.KernelBank(*(x.to(dev).contiguous() for x in kb))
+_rand_karatsuba = tc_repeat_check.random_karatsuba_bank
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,d,k,n,n_dead", [
     (64, 64, 64, 4097, 3),   # main-path widths, ragged N, dead components
     (12, 12, 5, 333, 0),     # widths no multiple of 16
-    (40, 100, 6, 515, 1),    # M <= 64 < D: 4 rows a warp
-    (128, 40, 6, 300, 0),    # D <= 64 < M
-    (128, 128, 4, 200, 1),   # the widest: 2 rows a warp
+    (40, 100, 6, 515, 1),    # M <= 64 < D: 32-column pieces, 4 value pieces
+    (128, 40, 6, 300, 0),    # D <= 64 < M: two contraction chunks
+    (128, 128, 4, 200, 1),   # the widest
+    (64, 64, 64, 20000, 2),  # two consumer warpgroups a block
+    (64, 32, 8, 3 * 132 * 128 + 5, 0),  # three waves of 128-row blocks
+    (64, 64, 1, 1, 0),       # N = 1, K = 1
+    (64, 64, 5, 127, 4),     # a 128-row block less one; all dead but one
+    (64, 64, 5, 129, 0),     # a block and one row
+    (33, 65, 3, 100, 0),     # odd widths, 32-column pieces
+    (100, 20, 3, 64, 0),     # two chunks, one padded value piece
 ])
 def test_karatsuba_estimate_matches_plain(m, d, k, n, n_dead):
     dev = _card()
@@ -1262,6 +1254,54 @@ def test_karatsuba_estimate_matches_plain(m, d, k, n, n_dead):
     got, want = torch.cat([h_re, h_im], -1), torch.cat([w_re, w_im], -1)
     assert got.shape == (n, 2 * d) and torch.isfinite(got).all()
     assert _rel(got, want) < 1e-4
+    # the operands laid out once give the same bits
+    again = torch.cat(tvk.karatsuba_estimate(
+        r_re, r_im, kb, tvk.karatsuba_operands(kb)), -1)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,k,n,n_dead", [
+    (64, 64, 16, 4097, 3),    # main-path widths
+    (40, 100, 6, 515, 1),     # 32-column pieces
+    (128, 128, 4, 200, 1),    # the widest
+])
+def test_karatsuba_estimate_keeps_fp32_accuracy(m, d, k, n, n_dead):
+    """K14a, six bf16 products for each of its three real products, is no
+    less accurate than float32: the max |error| against the plain version
+    in float64 at most twice the float32 plain version's own, with dead
+    components (the rule `test_grouped_estimate_keeps_fp32_accuracy` holds
+    K1 to)."""
+    dev = _card()
+    kb = _rand_karatsuba(m, d, k, dev, n_dead)
+    r_re, r_im = _rows(n, m, dev), _rows(n, m, dev, seed=2)
+    got = torch.cat(tvk.karatsuba_estimate(r_re, r_im, kb), -1)
+    want = torch.cat(tvk.reference_estimate_packed(kb, r_re, r_im), -1)
+    want64 = torch.cat(tvk.reference_estimate_packed(
+        tvk.KernelBank(*(x.double() for x in kb)), r_re.double(),
+        r_im.double()), -1)
+
+    def err(x):
+        return float((x.double() - want64).abs().max())
+
+    assert torch.isfinite(got).all()
+    assert err(got) <= 2 * err(want), (err(got), err(want))
+
+
+@pytest.mark.cuda
+def test_karatsuba_repeated_launches_match_plain():
+    """K14a launched 100 times at each shape of
+    `tools.tc_repeat_check.KARATSUBA_SHAPES`, each launch after a fill of
+    every SM's shared memory with NaN, each bit for bit the first launch
+    and within 1e-4 of the plain version."""
+    dev = _card()
+    shapes = tc_repeat_check.KARATSUBA_SHAPES
+    before = tvk.karatsuba_estimate.launches
+    runs = tc_repeat_check.repeat_check(dev, repeats=100,
+                                        modes=("karatsuba",))["kernel"]
+    assert tvk.karatsuba_estimate.launches == before + 100 * len(shapes)
+    assert len(runs) == len(shapes)
+    assert not {k: v for k, v in runs.items() if v["failures"]}, runs
 
 
 @pytest.mark.cuda
@@ -1283,6 +1323,10 @@ def test_karatsuba_estimate_is_k1_on_a_bank():
     empty = tvk.karatsuba_estimate(_rows(4, 8, dev)[:0], _rows(4, 8, dev)[:0],
                                    kb)
     assert empty[0].shape == (0, 8)
+    with pytest.raises(ValueError, match="karatsuba_operands"):
+        tvk.karatsuba_estimate(_rows(4, 8, dev), _rows(4, 8, dev), kb,
+                               tvk.karatsuba_operands(_rand_karatsuba(
+                                   8, 8, 3, dev)))
 
 
 @pytest.mark.cuda

@@ -3,8 +3,12 @@ the kernel-measurement tools on the CPU:
 
 - K14a, the Karatsuba-layout estimator: `kernel_bank` against JAX's, the
   plain `reference_estimate_packed` against JAX's interpret-mode
-  `estimate_packed`, and the entry `estimate` at a ragged N with dead
-  components against JAX's `estimate` and the einsum estimator;
+  `estimate_packed`, the entry `estimate` at a ragged N with dead
+  components against JAX's `estimate` and the einsum estimator, and the
+  kernel's host side: its units (`karatsuba_operands`) read back through
+  the swizzle to the bf16 planes and the six fp32 planes bit for bit, and
+  the plain version of its six-product arithmetic
+  (`karatsuba_tc_reference`) against the complex products and JAX's K14a;
 - K14b, the GEMM-precision modes: the bf16 hi / lo bank planes bitwise
   equal to JAX's, each plain mode against JAX's interpret-mode
   `estimate_block_grouped(mode=)` and against f32 within JAX's bounds, the
@@ -23,8 +27,11 @@ the same float32 products summed in another order (K14b's bf16 products
 are exact in float32, so the modes compare like f32); 1e-5 for the bank
 fields (JAX lowers the float64 bank in float64, the port the complex64 one);
 the Karatsuba kernel against complex products 1e-5 (three real products
-round differently). Precision modes against f32: JAX's own bounds,
-relative norms 3e-2 (bf16, split2) and 1e-4 (split3).
+round differently); its six bf16 products per real product against the
+complex float32 products 1e-6 at these widths (the difference is the
+three-product combine's rounding), against JAX's K14a 1e-5. Precision
+modes against f32: JAX's own bounds, relative norms 3e-2 (bf16, split2)
+and 1e-4 (split3).
 """
 import importlib.util
 from pathlib import Path
@@ -160,6 +167,126 @@ def test_estimate_at_a_ragged_n_matches_jax_and_einsum(rng):
     _close(tvk.estimate_packed(tvk.kernel_bank(bt),
                                torch.as_tensor(r.real.copy()),
                                torch.as_tensor(r.imag.copy()))[0], want.real)
+
+
+@pytest.mark.parametrize("m,d,k", [
+    (64, 64, 3),     # 64-column pieces: one logit and one value piece
+    (12, 20, 2),     # one padded piece each, 52 zero contraction rows
+    (40, 100, 2),    # 32-column pieces: 2 logit, 4 value (one padded)
+    (128, 40, 2),    # two contraction chunks
+    (128, 128, 1),   # the widest: 4 + 4 pieces, 2 chunks
+    (1, 1, 1),
+])
+def test_karatsuba_operands_unpermute_to_the_bank_planes(m, d, k):
+    """K14a's units (`karatsuba_operands`), read back element by element
+    through the 128-byte swizzle (column n, contraction row kk of a unit at
+    n 64 + ((kk // 8) ^ (n % 8)) 8 + kk % 8), are `split_planes3` of the
+    six fp32 planes bit for bit, hi + lo + lo2 is each fp32 plane exactly,
+    every padding row and column is zero, and the vector values are mu and
+    b by piece."""
+    kb = trc.random_karatsuba_bank(m, d, k, torch.device("cpu"))
+    ops = tvk.karatsuba_operands(kb)
+    pw = tvk.karatsuba_piece(m, d)
+    mp, dp, n_ch = -(-m // pw), -(-d // pw), -(-m // 64)
+    assert pw == (64 if max(m, d) <= 64 else 32)
+    for t in ops[:3]:
+        assert t.shape == (k, mp + dp, 3, n_ch, pw, 64)
+        assert t.dtype == torch.bfloat16 and t.is_contiguous()
+    col = torch.arange(pw)[:, None]
+    row = torch.arange(64)[None, :]
+    pos = col * 64 + ((row // 8) ^ (col % 8)) * 8 + row % 8   # (n, kk)
+    halves = {}
+    for q, plane in enumerate(ops[:3]):
+        logical = plane.reshape(k, mp + dp, 3, n_ch, pw * 64)[..., pos]
+        full = logical.permute(0, 2, 3, 5, 1, 4).reshape(
+            k, 3, 64 * n_ch, pw * (mp + dp))      # (K, operand, row, col)
+        for half, (names, width, cols) in enumerate((
+                (("pc_re", "pc_im", "pc_s"), m, full[..., :mp * pw]),
+                (("wt_re", "wt_im", "wt_s"), d, full[..., mp * pw:]))):
+            bits = cols.view(torch.int16)
+            assert not bits[:, :, m:].any() and not bits[..., width:].any()
+            for o, name in enumerate(names):
+                want = tkn.split_planes3(getattr(kb, name))[q]
+                assert torch.equal(bits[:, o, :m, :width],
+                                   want.view(torch.int16)), (name, q)
+                halves.setdefault(name, []).append(cols[:, o, :m, :width])
+    for name, (hi, lo, lo2) in halves.items():
+        total = hi.double() + lo.double() + lo2.double()
+        assert torch.equal(total, getattr(kb, name).double()), name
+    for first, re, im, width in ((0, kb.mu_re, kb.mu_im, m),
+                                 (mp, kb.b_re, kb.b_im, d)):
+        n_p = mp if first == 0 else dp
+        vec = ops.vec[:, first:first + n_p]       # (K, pieces, 2, pw)
+        flat = vec.permute(0, 2, 1, 3).reshape(k, 2, n_p * pw)
+        assert torch.equal(flat[:, 0, :width], re)
+        assert torch.equal(flat[:, 1, :width], im)
+        assert not flat[..., width:].any()
+    assert ops.vec.shape == (k, mp + dp, 2, pw) and ops.vec.is_contiguous()
+    with pytest.raises(ValueError, match="lo2"):
+        tvk.check_karatsuba_operands(ops._replace(lo2=ops.lo2[:, :1]), kb,
+                                     torch.device("cpu"))
+
+
+@pytest.mark.parametrize("case", ["bank", "random 12x20", "random 32x32"])
+def test_plain_six_product_k14a_matches_complex_products(rng, case):
+    """`karatsuba_tc_reference`, the plain version of the kernel's six bf16
+    products per real product (the stream's issue order) and its fp32
+    Karatsuba combine, with dead components: against the float64 complex
+    products at most twice as far as `reference_estimate_packed` (complex
+    float32 products), and within 1e-6 of scale of it on the prepared bank
+    (D = 8) and at 12 x 20 (at 32 x 32 the combine's own rounding, which a
+    float32 Karatsuba shares, reaches ~1e-6 of scale); on the prepared
+    bank also within 1e-5 of JAX's K14a (`estimate_packed` in interpret
+    mode and `reference_estimate_packed`) on the same numpy inputs."""
+    if case == "bank":
+        bj, _ = _banks(rng, 2)
+        kj = jpk.kernel_bank(bj)
+        kb = tvk.KernelBank(*(torch.as_tensor(
+            np.asarray(x)[:, 0] if x.ndim == 3 and x.shape[1] == 1
+            else np.asarray(x)) for x in kj))
+        r = _obs(rng, 128)
+    else:
+        m, d = (int(x) for x in case.split()[1].split("x"))
+        kb = trc.random_karatsuba_bank(m, d, 8, torch.device("cpu"), 2)
+        r = _obs(rng, 300, m)
+    r_re, r_im = torch.as_tensor(r.real.copy()), torch.as_tensor(
+        r.imag.copy())
+    six = torch.cat(tvk.karatsuba_tc_reference(kb, r_re, r_im, chunk=100),
+                    -1)
+    plain = torch.cat(tvk.reference_estimate_packed(kb, r_re, r_im), -1)
+    exact = torch.cat(tvk.reference_estimate_packed(
+        tvk.KernelBank(*(x.double() for x in kb)), r_re.double(),
+        r_im.double()), -1)
+    assert six.shape == plain.shape and torch.isfinite(six).all()
+
+    def err(x):
+        return float((x.double() - exact).abs().max())
+
+    assert err(six) <= 2 * err(plain), (err(six), err(plain))
+    if case != "random 32x32":
+        _close(six, plain, 1e-6)
+    if case == "bank":
+        jre, jim = jpk.estimate_packed(kj, jnp.asarray(r.real.copy()),
+                                       jnp.asarray(r.imag.copy()), 128, True)
+        _close(six, np.concatenate([np.asarray(jre), np.asarray(jim)], -1))
+        ref = jpk.reference_estimate_packed(kj, jnp.asarray(r.real.copy()),
+                                            jnp.asarray(r.imag.copy()))
+        _close(six, np.concatenate([np.asarray(x) for x in ref], -1))
+
+
+def test_estimate_keeps_the_karatsuba_layout_in_its_cache(rng):
+    """`estimate(bank, r, cache)` lowers the bank once per cache (on the
+    CPU the plain version reads the layout alone: no kernel operands), and
+    equals the call without a cache."""
+    _, bt = _banks(rng, 1)
+    r = torch.as_tensor(_obs(rng, 40))
+    cache = {}
+    first = tvk.estimate(bt, r, cache)
+    kb = cache["karatsuba"]
+    again = tvk.estimate(bt, r, cache)
+    assert cache["karatsuba"] is kb and "karatsuba_operands" not in cache
+    assert torch.equal(first, again)
+    assert torch.equal(first, tvk.estimate(bt, r))
 
 
 def test_karatsuba_estimate_refuses_past_its_widths():
@@ -429,7 +556,10 @@ def test_kernel_floor_probe_main_on_cpu(capsys):
 def test_kernel_bench_main_on_cpu(capsys):
     out = tkb.main(TINY + ["--batch", "200"])
     assert set(out["ms"]) == {"karatsuba", "block", "einsum"}
-    assert "best:" in capsys.readouterr().out
+    assert out["karatsuba_over_block"] == (out["ms"]["karatsuba"]
+                                           / out["ms"]["block"])
+    text = capsys.readouterr().out
+    assert "best:" in text and "karatsuba / block" in text
 
 
 def test_kernel_split_bench_main_on_cpu(capsys):
@@ -462,6 +592,22 @@ def test_tc_repeat_check_holds_every_launch_on_cpu():
     assert src.count(trc.FENCE) == 1
     with pytest.raises(SystemExit, match="needs an NVIDIA card"):
         trc.main(["--device", "cpu"])
+
+
+def test_tc_repeat_check_holds_every_karatsuba_launch_on_cpu():
+    """Mode 'karatsuba' of `tc_repeat_check.repeat_check` on the CPU (the
+    plain K14a, no poison): every launch held; its default shapes cover
+    both warpgroup counts, 32-column pieces and two contraction chunks."""
+    shapes = ((12, 20, 3, 70, 1), (40, 100, 2, 5, 0))
+    got = trc.repeat_check(torch.device("cpu"), repeats=2, poison=False,
+                           modes=("karatsuba",), karatsuba_shapes=shapes)
+    assert set(got) == {"kernel"} and len(got["kernel"]) == 2
+    for rec in got["kernel"].values():
+        assert rec == {"launches": 2, "failures": 0, "max_err": 0.0}
+    sizes = {(max(m, d) <= 64, m > 64, n >= 132 * 128)
+             for m, d, _, n, _ in trc.KARATSUBA_SHAPES}
+    assert {(True, False, False), (True, False, True), (False, False, False),
+            (False, True, False)} <= sizes
 
 
 @pytest.mark.parametrize("tool", [tfp, tkb, tks, trc])
