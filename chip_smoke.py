@@ -6,7 +6,7 @@ Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit, the torch/CUDA versions, and the
      build of every CUDA kernel of the port from `csrc/` with `nvcc` (the
      `-Xptxas -v` summary of the redesigned sources; K14a's forms at M, D
-     <= 64 must not spill);
+     <= 64 and every instantiation of K11-K13 must not spill);
   2. every kernel against its plain PyTorch version on the card, at the
      widths of the main path (D = M = 64, K = 64): K1 at the headline batch
      N = 131072, at the main path's ragged N = 10000 and with dead
@@ -35,7 +35,10 @@ Phases (any failure exits non-zero; nothing is caught):
      and K13 at N = 131072, the main path's N and a ragged N, K12 for T = 4
      at alpha in {1, 0.25, 0}, T = 16 and a ragged block count, the edges
      M = 6 and D = 32, and K13 as a two-shard split merged with
-     `merge_stats` against K11; the split-K kernels of the mesh path: K2
+     `merge_stats` against K11, and K11, K12 (T = 4) and K13 at the
+     headline under the float64 rule (`fp32_accuracy`: within twice the
+     float32 plain version's error against float64, their six-product
+     claim); the split-K kernels of the mesh path: K2
      on the whole bank and on two and four component shards, with dead
      components and a ragged N, and on the two 128-component shards of a
      K = 256 bank, its coherent form at T = 4 for alpha in {1, 0.5}, each
@@ -66,9 +69,11 @@ Phases (any failure exits non-zero; nothing is caught):
      coherent form), with the scientific invariants of their MSE tables and
      the multi-pilot estimate held against the dense bank's (K1 at M = 128)
      from the same fit; `run_mfa.run` at the `MfaBenchConfig` defaults
-     (the factored bank, K11) and with `n_coherence=4` (K12), its MSE
-     invariants checked and the factored estimate held against the dense
-     bank's (K1) from the same fit at -10 and 10 dB; then the
+     (the factored bank, K11; its fitted bank at each of its 7 SNRs kept:
+     K11, K12 at T = 4 and K13 against their plain versions and under the
+     float64 rule) and with `n_coherence=4` (K12), its MSE invariants
+     checked and the factored estimate held against the dense bank's (K1)
+     from the same fit at -10 and 10 dB; then the
      `EstimationService` at the headline widths (the synthetic bank of
      `tools/serving_bench.py`, 8 closed-loop clients of 64-snapshot
      requests at -5/5/15 dB, max_batch 1024) in ten modes: flat 'all',
@@ -92,8 +97,9 @@ Phases (any failure exits non-zero; nothing is caught):
   4. CUDA-event times of each kernel, its plain version and a library
      yardstick at the headline shapes (K11-K13 at M = 16; K2 also on one
      32-component shard), beside the least time the card could take (for
-     K1-K3 and K15 also the bound of their products as fp32 FMAs and a
-     chain of the six bf16 GEMMs, each adding into one float32 result);
+     K1-K3, K11-K13 and K15, six bf16 products on the tensor cores, also
+     the bound of their products as fp32 FMAs; for K1-K3 and K15 a chain of
+     the six bf16 GEMMs, each adding into one float32 result);
   5. the kernel-measurement path, K1's variants: the Karatsuba estimator
      K14a, the bf16 tensor-core modes K14b ('bf16', 'split2', 'split3') and
      the seven bodies of the floor probe K15 against their plain versions
@@ -104,17 +110,18 @@ Phases (any failure exits non-zero; nothing is caught):
      split3 against the plain version in float64, where K1, K3 and K14a
      must be within twice the float32 plain version's error and split3
      must not be (`fp32_accuracy`, also on the fitted banks of phase 3);
-     K14b and K14a launched 100 times and K1 / K3 150 times at each shape
-     of `tools.tc_repeat_check`, each launch after a fill of every SM's
-     shared memory with NaN and held against its plain version; then the
+     K14b, K14a and K11-K13 launched 100 times and K1 / K3 150 times at
+     each shape of `tools.tc_repeat_check`, each launch after a fill of
+     every SM's shared memory with NaN and held against its plain version;
+     then the
      tools `kernel_floor_probe`, `kernel_bench` and `kernel_split_bench`
      at their defaults with their own launch counts (no probe variant under
      the GEMM's operation floor; K1's and split3's MSE within 1e-3 of the
      einsum estimator's at 10 and 20 dB), the times of K14a, K14b and K15
      as in phase 4 (K14a's bound that of its six bf16 products per real
      product), one K1 launch under `utils.profiling.trace` with its row of
-     the profiler's table, and K1 / K3 / K14a at 512 and 4096 rows
-     (`tools.batch_sweep`);
+     the profiler's table, and K1 / K3 / K14a / K11-K13 at 512, 4096 and
+     131072 rows (`tools.batch_sweep`);
 then one JSON line of kernels, one of the main paths' results, one of the
 serving phase, the card line, and the final status line. It imports nothing
 of JAX and uses one card.
@@ -385,20 +392,29 @@ def fp32_accuracy(name, label, got, want, want64):
     return e, held
 
 
-def mfa_path_run(run_mfa, stages, kernels, dev, tmp, **change):
+def mfa_path_run(run_mfa, stages, kernels, dev, tmp, fitted_calls=None,
+                 **change):
     """run_mfa at the defaults (plus `change`) on the card with the data
-    set cached in `tmp`, its kernel launches counted alone. Returns the
-    config, tables, timings, seconds, launches and the fit it made."""
+    set cached in `tmp`, its kernel launches counted alone; the (bank,
+    observations) of each flat factored estimate are appended to
+    `fitted_calls` where one is given. Returns the config, tables, timings,
+    seconds, launches and the fit it made."""
     cfg = run_mfa.MfaBenchConfig(results_dir=tmp,
                                  cache_dir=os.path.join(tmp, "saves"),
                                  **change)
     fits, mfa_fit = [], stages.mfa_fit
+    estimate_factored = stages.estimate_factored
 
     def keep_fit(*args):
         fits.append(mfa_fit(*args))
         return fits[-1]
 
-    stages.mfa_fit = keep_fit
+    def keep_estimate(bank_s, r_s, *args, **kwargs):
+        if fitted_calls is not None:
+            fitted_calls.append((bank_s, r_s))
+        return estimate_factored(bank_s, r_s, *args, **kwargs)
+
+    stages.mfa_fit, stages.estimate_factored = keep_fit, keep_estimate
     try:
         kernels.reset_launch_counts()
         tm = time.time()
@@ -407,7 +423,7 @@ def mfa_path_run(run_mfa, stages, kernels, dev, tmp, **change):
         seconds = time.time() - tm
         launches = kernels.launch_counts()
     finally:
-        stages.mfa_fit = mfa_fit
+        stages.mfa_fit, stages.estimate_factored = mfa_fit, estimate_factored
     log(f"run_mfa {change or 'defaults'} (D={cfg.n_antennas}, "
         f"K={cfg.n_components}, M={cfg.latent_dim}, n_train={cfg.n_train}, "
         f"n_val={cfg.n_val}, {len(cfg.snrs)} SNRs): {seconds:.1f}s, MFA fit "
@@ -568,7 +584,7 @@ def main():
     # K14b; K4 / K5; K14a): registers, spills and shared memory of every
     # instantiation
     for name in ("grouped_estimate", "floor_probe", "grouped_tc_estimate",
-                 "grouped_topk", "karatsuba_estimate"):
+                 "grouped_topk", "karatsuba_estimate", "fact_estimate"):
         summary = ptxas_summary(build_logs.get(name, ""))
         log(f"ptxas {name} (dynamic shared memory is set per launch): "
             + ("; ".join(summary) if summary else "not rebuilt"))
@@ -580,6 +596,13 @@ def main():
             len(k14a_rows) != 2
             or not all("spills 0/0 B" in row for row in k14a_rows)):
         raise AssertionError(f"K14a's forms at M, D <= 64 spill: {k14a_rows}")
+    # K11-K13 (the factored template on the tensor cores): no instantiation
+    # may spill
+    fact_rows = ptxas_summary(build_logs.get("fact_estimate", ""))
+    if "fact_estimate" in build_logs and (
+            not fact_rows
+            or not all("spills 0/0 B" in row for row in fact_rows)):
+        raise AssertionError(f"K11-K13 instantiations spill: {fact_rows}")
     log(f"build: {time.time() - tb:.1f}s")
 
     # 2. kernels against their plain versions
@@ -813,9 +836,45 @@ def main():
         compare("fact_estimate_stats", f"{label}, two shards merged vs K11",
                 acc / den[:, None], whole)
 
+    def fact_accuracy(label, bank_c, xf_c):
+        """K11, K12 (T = 4, alpha 1) and K13 (the whole bank as one shard)
+        on rows xf_c against their plain versions (TOL, or `compare64`) and
+        under the float64 rule `fp32_accuracy` (K13: its un-normalised
+        accumulator); raises where a kernel breaks the rule. Returns the
+        errors of each."""
+        fkb1 = fk.fact_kernel_bank(bank_c)
+        fkb4 = fk.fact_kernel_bank(bank_c, 4, 1.0)
+        ops_c = fk.fact_tc_operands(fkb1)
+        x64 = xf_c.double()
+        runs = {
+            "K11": ("fact_estimate", fk.fact_estimate(xf_c, fkb1, ops_c),
+                    fk.fact_estimate_reference(xf_c, fkb1),
+                    fk.fact_estimate_reference(x64, f64(fkb1))),
+            "K12 T=4": ("fact_estimate_coherent",
+                        fk.fact_estimate_coherent(xf_c, fkb4, 4, 1.0, ops_c),
+                        fk.fact_estimate_coherent_reference(xf_c, fkb4, 4,
+                                                            1.0),
+                        fk.fact_estimate_coherent_reference(x64, f64(fkb4),
+                                                            4, 1.0)),
+            "K13": ("fact_estimate_stats",
+                    fk.fact_estimate_stats(xf_c, fkb1, ops_c)[2],
+                    fk.fact_estimate_stats_reference(xf_c, fkb1)[2],
+                    fk.fact_estimate_stats_reference(x64, f64(fkb1))[2])}
+        acc = {}
+        for key, (name, got, want, want64) in runs.items():
+            errs[name].append(compare64(name, label, got, want, want64))
+            acc[key], held = fp32_accuracy(name, label, got, want, want64)
+            if not held:
+                raise AssertionError(f"{key} less accurate than float32 "
+                                     f"({label}): {acc[key]}")
+        return acc
+
     fbank, r_f = mfa_bank_obs(dev, q, N_BENCH)
     fdead, r_fd = mfa_bank_obs(dev, q, N_BENCH, n_dead=5, zero_mean=False)
     xf, xfd = ck._x2(r_f), ck._x2(r_fd)
+    # the float64 rule at the headline: the six-product route keeps
+    # float32's accuracy
+    fact_acc = {"headline": fact_accuracy("headline", fbank, xf)}
     for label, bank_c, rows in (("zero means", fbank, xf),
                                 ("main path", fbank, xf[:n_val]),
                                 ("means, dead, ragged", fdead, xfd[:8191])):
@@ -1235,9 +1294,11 @@ def main():
     # n_coherence=4 the coherent column through K12; the invariants of the
     # JAX harness tests (`tests/test_harness.py`), and the factored estimate
     # held against the dense bank (K1) of the same fit
+    fact_calls = []
     with tempfile.TemporaryDirectory() as tmp:
         (cfg_f, mse_f, rate_f, timings_f, mfa_s, launches_f,
-         fit_f) = mfa_path_run(run_mfa, stages, kernels, dev, tmp)
+         fit_f) = mfa_path_run(run_mfa, stages, kernels, dev, tmp,
+                               fact_calls)
         data_file, = os.listdir(os.path.join(tmp, "saves"))
         h_val_f = torch.as_tensor(qio.load_channels(os.path.join(
             tmp, "saves", data_file))[0][cfg_f.n_train:], device=dev)
@@ -1252,6 +1313,18 @@ def main():
                              f"{launches_f['fact_estimate']} times")
     log(f"blmmse_mfa: {mse_f['blmmse_mfa']}; mfa_rstat: "
         f"{rate_f['mfa_rstat']}")
+    # the factored bank of each SNR of the run (the logits are largest at
+    # 20 dB): K11, K12 (T = 4: four consecutive validation snapshots a
+    # block) and K13 against their plain versions and under the float64
+    # rule
+    if len(fact_calls) != len(cfg_f.snrs):
+        raise AssertionError(f"run_mfa estimated {len(fact_calls)} banks for "
+                             f"{len(cfg_f.snrs)} SNRs")
+    fact_acc["fitted_bank"] = {
+        str(snr): fact_accuracy(f"fitted bank, {snr} dB", bank_s,
+                                ck._x2(r_s))
+        for snr, (bank_s, r_s) in zip(cfg_f.snrs, fact_calls)}
+    del fact_calls
     a_f = pilots.pilot_matrix(D, 1, N_BITS, device=dev)
     dense_params = mfa.to_gmm_params(fit_f, 1e-6)
     mfa_vs_dense = {}
@@ -1714,35 +1787,52 @@ def main():
 
     t10, t10_p4, t10_coh = timed_mp(2), timed_mp(4), timed_mp(2, 4)
 
-    # K11-K13: 2 N K (2D 4M + 4M 2D + 3D + 2M + 6D) operations (forward and
-    # combine products, the logit's diagonal and latent terms, the bias and
-    # diagonal combine), K12 plus 3 N K for the pool; bytes: the rows read
-    # and written once, the bank once, m and den for K13. Library yardstick:
-    # the `torch.matmul` pipeline of `models.mfa_bank` over the batch as one
-    # chunk (`library_chunked_ms`: at its default chunks).
+    # K11-K13: the forward and combine products, 2 N K (2D 4M + 4M 2D), as
+    # six bf16 products on the tensor cores, plus 2 N K (3D + 2M + 6D) fp32
+    # operations (the logit's diagonal and latent terms, the bias and
+    # diagonal combine), K12 plus 3 N K for the pool (`bound_fp32_ms`: the
+    # products as fp32 FMAs); bytes: the rows read and written once, the
+    # bank once, m and den for K13. Library yardstick: the `torch.matmul`
+    # pipeline of `models.mfa_bank` over the batch as one chunk
+    # (`library_chunked_ms`: at its default chunks). The bank's operands
+    # are laid out once, as `fact_kernels.lowered_tc` keeps them.
     fkb = fk.fact_kernel_bank(fbank)
     fkb4 = fk.fact_kernel_bank(fbank, 4, 1.0)
-    fact_flops = 2.0 * n * K * (2 * two_d * 4 * M_LAT + 3 * D + 2 * M_LAT
-                                + 6 * D)
+    fact_ops = fk.fact_tc_operands(fkb)
+    fact_gemm = 2.0 * n * K * (2 * two_d * 4 * M_LAT)
+    fact_epi = 2.0 * n * K * (3 * D + 2 * M_LAT + 6 * D)
     fact_bytes = 4.0 * (2 * n * two_d + sum(x.numel() for x in fkb))
     rf_blocks = r_f.reshape(-1, 4, D)
-    t11 = timed("K11", lambda: fk.fact_estimate(xf, fkb),
-                lambda: fk.fact_estimate_reference(xf, fkb),
-                lambda: mfa_bank.estimate_factored(fbank, r_f, "all", n),
-                fact_flops, fact_bytes,
-                lambda: mfa_bank.estimate_factored(fbank, r_f))
-    t12 = timed("K12 (T=4, alpha=1)",
-                lambda: fk.fact_estimate_coherent(xf, fkb4, 4, 1.0),
-                lambda: fk.fact_estimate_coherent_reference(xf, fkb4, 4, 1.0),
-                lambda: mfa_bank.estimate_factored_coherent(
-                    fbank, rf_blocks, "all", n // 4, 1.0),
-                fact_flops + 3.0 * n * K, fact_bytes,
-                lambda: mfa_bank.estimate_factored_coherent(fbank, rf_blocks))
-    t13 = timed("K13", lambda: fk.fact_estimate_stats(xf, fkb),
-                lambda: fk.fact_estimate_stats_reference(xf, fkb),
-                lambda: mfa_bank.estimate_factored_stats(fbank, r_f, n),
-                fact_flops, fact_bytes + 8.0 * n,
-                lambda: mfa_bank.estimate_factored_stats(fbank, r_f))
+
+    def timed_fact(label, kern, plain, library, extra, nbytes, chunked):
+        rec = timed(label, kern, plain, library, fact_epi + extra, nbytes,
+                    chunked, tc_flops=6.0 * fact_gemm)
+        rec["bound_fp32_ms"] = bound(fact_gemm + fact_epi + extra, nbytes)[0]
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        log(f"{label}: bound of the six products {rec['bound_ms']:.3f} ms, "
+            f"as fp32 FMAs {rec['bound_fp32_ms']:.3f} ms")
+        return rec
+
+    t11 = timed_fact("K11", lambda: fk.fact_estimate(xf, fkb, fact_ops),
+                     lambda: fk.fact_estimate_reference(xf, fkb),
+                     lambda: mfa_bank.estimate_factored(fbank, r_f, "all", n),
+                     0.0, fact_bytes,
+                     lambda: mfa_bank.estimate_factored(fbank, r_f))
+    t12 = timed_fact("K12 (T=4, alpha=1)",
+                     lambda: fk.fact_estimate_coherent(xf, fkb4, 4, 1.0,
+                                                       fact_ops),
+                     lambda: fk.fact_estimate_coherent_reference(xf, fkb4, 4,
+                                                                 1.0),
+                     lambda: mfa_bank.estimate_factored_coherent(
+                         fbank, rf_blocks, "all", n // 4, 1.0),
+                     3.0 * n * K, fact_bytes,
+                     lambda: mfa_bank.estimate_factored_coherent(fbank,
+                                                                 rf_blocks))
+    t13 = timed_fact("K13", lambda: fk.fact_estimate_stats(xf, fkb, fact_ops),
+                     lambda: fk.fact_estimate_stats_reference(xf, fkb),
+                     lambda: mfa_bank.estimate_factored_stats(fbank, r_f, n),
+                     0.0, fact_bytes + 8.0 * n,
+                     lambda: mfa_bank.estimate_factored_stats(fbank, r_f))
 
     # K2: K1's work and bytes plus m and den written (8 bytes a row); on one
     # 32-component shard half the bank's work and bytes. K5: K4's work; its
@@ -1922,6 +2012,21 @@ def main():
         f"{bad or 0}")
     if bad:
         raise AssertionError(f"K14a off on repeated launches: {bad}")
+    # ... and K11-K13 at each of tc_repeat_check's FACT_SHAPES (the
+    # combine's A in registers with one and two warpgroups, A in shared
+    # memory with 64-, 32- and 16-column pieces, each pooling route, K13),
+    # each launch bit for bit the first and within TOL of its plain version
+    # or within the float64 rule
+    tm = time.time()
+    rep_fact = tc_repeat_check.repeat_check(dev, repeats=100,
+                                            modes=("fact",))["kernel"]
+    bad = {k: v for k, v in rep_fact.items() if v["failures"]}
+    log(f"K11-K13 repeated: {sum(v['launches'] for v in rep_fact.values())} "
+        f"launches in {time.time() - tm:.1f}s, max err "
+        f"{max(v['max_err'] for v in rep_fact.values()):.3e}, failures "
+        f"{bad or 0}")
+    if bad:
+        raise AssertionError(f"K11-K13 off on repeated launches: {bad}")
 
     # 5b. the path itself, through the tools' entry points at their
     # defaults, its launches counted alone: the floor probe, kernel_bench
@@ -2006,7 +2111,8 @@ def main():
     # the kernels redesigned for Hopper (K14b on wgmma, K4 / K5 on a
     # register-tiled fp32 loop): time, bound, the share of the bound
     # reached, and the one-call yardstick
-    for label, rec in ([("K14a", t14a)]
+    for label, rec in ([("K14a", t14a), ("K11", t11), ("K12 T=4", t12),
+                        ("K13", t13)]
                        + [(f"K14b {m}", t14b[m]) for m in t14b]
                        + [(f"K4 k={k}", t4[k]) for k in (1, 4)]
                        + [(f"K5 k={k}", t5[k]) for k in (1, 4)]):
@@ -2028,8 +2134,9 @@ def main():
     if not rows_k1:
         raise AssertionError("the profiler table holds no K1 kernel row")
 
-    # 5e. K1 / K3 at the service's microbatch sizes
-    sweep = batch_sweep.main(["--rows", "512", "4096"])["ms"]
+    # 5e. K1 / K3 / K14a / K11-K13 at the service's microbatch sizes and
+    # the headline batch
+    sweep = batch_sweep.main([])["ms"]
 
     src = "quantized_channel_estimation_torch/csrc/"
     tpu = "quantized_channel_estimation_tpu/estimators/pallas_kernels.py"
@@ -2102,17 +2209,35 @@ def main():
          "source": src + "fact_estimate.cu", "replaces": f"{tpu}:2048",
          "launches": total_launches["fact_estimate"],
          "max_abs_err": max(errs["fact_estimate"]), "latent_dim": M_LAT,
-         **t11},
+         **t11,
+         "at_rows_ms": {k: v for k, v in sweep.items()
+                        if k.startswith("K11 ")},
+         "fp32_accuracy": {
+             "headline": fact_acc["headline"]["K11"],
+             "fitted_bank": {k: v["K11"]
+                             for k, v in fact_acc["fitted_bank"].items()}}},
         {"name": "fact_estimate_coherent", "id": "K12", "route": "cuda",
          "source": src + "fact_estimate.cu", "replaces": f"{tpu}:2126",
          "launches": total_launches["fact_estimate_coherent"],
          "max_abs_err": max(errs["fact_estimate_coherent"]),
-         "latent_dim": M_LAT, "t_coh": 4, "coh_alpha": 1.0, **t12},
+         "latent_dim": M_LAT, "t_coh": 4, "coh_alpha": 1.0, **t12,
+         "at_rows_ms": {k: v for k, v in sweep.items()
+                        if k.startswith("K12 ")},
+         "fp32_accuracy": {
+             "headline": fact_acc["headline"]["K12 T=4"],
+             "fitted_bank": {k: v["K12 T=4"]
+                             for k, v in fact_acc["fitted_bank"].items()}}},
         {"name": "fact_estimate_stats", "id": "K13", "route": "cuda",
          "source": src + "fact_estimate.cu", "replaces": f"{tpu}:2231",
          "launches": total_launches["fact_estimate_stats"],
          "max_abs_err": max(errs["fact_estimate_stats"]),
-         "latent_dim": M_LAT, **t13},
+         "latent_dim": M_LAT, **t13,
+         "at_rows_ms": {k: v for k, v in sweep.items()
+                        if k.startswith("K13 ")},
+         "fp32_accuracy": {
+             "headline": fact_acc["headline"]["K13"],
+             "fitted_bank": {k: v["K13"]
+                             for k, v in fact_acc["fitted_bank"].items()}}},
         {"name": "karatsuba_estimate", "id": "K14a", "route": "cuda",
          "source": src + "karatsuba_estimate.cu", "replaces": f"{tpu}:105",
          "launches": total_launches["karatsuba_estimate"],

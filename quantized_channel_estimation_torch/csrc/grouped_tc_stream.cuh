@@ -340,6 +340,65 @@ __device__ __forceinline__ void wgmma_64x64_rs(float (&d)[32],
         "r"(accumulate));
 }
 
+// d (+)= A B for a 64 x N x 16 tile (N = 64, 32, 16 by d's size), A and B
+// K-major bf16 in shared memory at the descriptors da + OA and db + OB
+// (offsets in 16-byte units, added in the asm so that only the bases stay
+// live); d is overwritten where accumulate == 0.
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_at(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 a, b;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "add.s64 a, %32, %35;\n"
+      "add.s64 b, %33, %36;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, a, b, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(OA), "n"(OB));
+}
+
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_at(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 a, b;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "add.s64 a, %16, %19;\n"
+      "add.s64 b, %17, %20;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, a, b, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(OA), "n"(OB));
+}
+
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_at(float (&d)[8], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 a, b;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "add.s64 a, %8, %11;\n"
+      "add.s64 b, %9, %12;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, a, b, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(OA), "n"(OB));
+}
+
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -504,6 +563,22 @@ __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 // the thread's first row within its warpgroup's 64 (its second: + 8)
 __device__ __forceinline__ int row_in_wg() {
   return 16 * ((threadIdx.x % kWg) >> 5) + ((threadIdx.x & 31) >> 2);
+}
+
+// a warp's arrival on a ring barrier that counts one arrival a consumer
+// warp
+__device__ __forceinline__ void warp_arrive(unsigned bar) {
+  __syncwarp();
+  if (lane_id() == 0) mbar_arrive(bar);
+}
+
+// x[0] + ... + x[N - 1] as a tree (N a power of two)
+template <int N>
+__device__ __forceinline__ float tree_sum(const float* x) {
+  if constexpr (N == 1)
+    return x[0];
+  else
+    return tree_sum<N / 2>(x) + tree_sum<N / 2>(x + N / 2);
 }
 
 // K3: replace each row's logit by (1 - a) lg + a s, s the sum of lg over

@@ -101,50 +101,6 @@ struct KarRing {
   int stages;
 };
 
-// d (+)= A B for a 64 x N x 16 tile, A and B K-major bf16 in shared memory
-// at the descriptors da + OA and db + OB (offsets in 16-byte units, added
-// in the asm so that only the bases stay live); d is overwritten where
-// accumulate == 0.
-template <int OA, int OB>
-__device__ __forceinline__ void wgmma_at(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 a, b;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "add.s64 a, %32, %35;\n"
-      "add.s64 b, %33, %36;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, a, b, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(OA), "n"(OB));
-}
-
-template <int OA, int OB>
-__device__ __forceinline__ void wgmma_at(float (&d)[16], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 a, b;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "add.s64 a, %16, %19;\n"
-      "add.s64 b, %17, %20;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, a, b, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(OA), "n"(OB));
-}
-
 // k16 step I of operand O's six products (product-major over the piece's
 // MC chunks, each chunk four steps): A plane (3 O + its plane) of chunk c
 // in the warpgroup's A planes at da, B plane of the chunk's unit at db[c].
@@ -185,21 +141,6 @@ __device__ __forceinline__ void issue_operand(float (&d)[C::kAcc],
   operand_steps<C, O>(d, da, db);
   wgmma_commit();
   fence_operand(d);
-}
-
-// a warp's arrival on stage s's empty barrier
-__device__ __forceinline__ void release(const KarRing& ring, int s) {
-  __syncwarp();
-  if (lane_id() == 0) mbar_arrive(ring.empty + 8 * s);
-}
-
-// x[0] + ... + x[N - 1] as a tree (N a power of two)
-template <int N>
-__device__ __forceinline__ float tree_sum(const float* x) {
-  if constexpr (N == 1)
-    return x[0];
-  else
-    return tree_sum<N / 2>(x) + tree_sum<N / 2>(x + N / 2);
 }
 
 // A thread's rows: the running output of each value piece at columns 8 t +
@@ -433,10 +374,10 @@ __global__ void __launch_bounds__((C::WGS + 1) * kWg, 1)
       issue_operand<C, 2>(p3, da, ring, s, ph, s3);
       wgmma_wait<2>();  // p1 complete: its units go back to the ring
 #pragma unroll
-      for (int c = 0; c < MC; ++c) release(ring, s1[c]);
+      for (int c = 0; c < MC; ++c) warp_arrive(ring.empty + 8 * s1[c]);
       wgmma_wait<1>();
 #pragma unroll
-      for (int c = 0; c < MC; ++c) release(ring, s2[c]);
+      for (int c = 0; c < MC; ++c) warp_arrive(ring.empty + 8 * s2[c]);
       wgmma_wait<0>();
       fence_operand(p1);
       fence_operand(p2);
@@ -454,7 +395,7 @@ __global__ void __launch_bounds__((C::WGS + 1) * kWg, 1)
       // refill from landing before they are performed (fault F2).
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 #pragma unroll
-      for (int c = 0; c < MC; ++c) release(ring, s3[c]);
+      for (int c = 0; c < MC; ++c) warp_arrive(ring.empty + 8 * s3[c]);
     }
   }
 

@@ -8,7 +8,12 @@ Port of the factored section of
 and `estimate_fused_factored_stats` (K13). The three kernels are one CUDA
 C++ template with COH and STATS flags in `csrc/fact_estimate.cu`, built and
 bound by `estimators.kernels` (nvcc, ctypes, launch counts); shard states of
-K13 merge with `circ_kernels.merge_stats`.
+K13 merge with `circ_kernels.merge_stats`. The kernel runs both products on
+Hopper's tensor cores as six exact bf16 products of three-plane splits
+(`kernels.split_planes3`), accumulated in fp32: the bank's planes of fwd and
+comb are laid out once in its units (`fact_tc_operands`, cached beside the
+bank by `lowered_tc`), and `fact_tc_reference` is the plain version of that
+arithmetic.
 
 Differences of layout from the TPU kernels, none of arithmetic:
 
@@ -24,7 +29,7 @@ Differences of layout from the TPU kernels, none of arithmetic:
 - coherence blocks are block-major (the T rows of a block consecutive), as
   in K3, K7 and K10, not the TPU's T-major tiles;
 - the range rule `fact_kernel_eligible` is the CUDA kernel's (D <= 128,
-  M <= 64, any K in one launch, T up to a tile's rows), in place of the
+  M <= 64, any K in one launch, T <= 64 at every width), in place of the
   TPU's 13 MiB VMEM gates `_fact_kernel_eligible` / `_fact_tile_n` and its
   T <= 16 cap `_check_t_coh`; beyond it the entries raise and
   `harness.stages` takes the `torch.matmul` pipeline of
@@ -44,6 +49,8 @@ from quantized_channel_estimation_torch.estimators.circ_kernels import (
     _cplx_interleaved, _hc, _pool, _x2)
 from quantized_channel_estimation_torch.estimators.mp_circ_kernels import (
     _interleave)
+from quantized_channel_estimation_torch.estimators.variant_kernels import (
+    tc_products)
 from quantized_channel_estimation_torch.models.mfa_bank import FactoredBank
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
 
@@ -52,10 +59,11 @@ FACT_MAX_M = 64    # latent rank of the factored kernels
 
 
 def fact_tile_rows(d: int, m: int) -> int:
-    """Rows of one tile of the factored kernels (8 warps of 8 rows while
-    D <= 64 and M <= 32, else of 4; `dispatch` in csrc/fact_estimate.cu):
-    the largest coherence block K12 pools."""
-    return 64 if d <= 64 and m <= 32 else 32
+    """Rows of one consumer warpgroup's tile of the factored kernels
+    (csrc/fact_estimate.cu: 64 at every width), the largest coherence block
+    K12 pools: every T the fp32 template took (64 rows while D <= 64 and
+    M <= 32, else 32) and more."""
+    return 64
 
 
 def fact_kernel_eligible(d: int, k: int, m: int, t: int = 1) -> bool:
@@ -142,10 +150,118 @@ def lowered(bank: FactoredBank, cache: Optional[dict] = None, t_coh: int = 1,
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core layout of the bank
+# ---------------------------------------------------------------------------
+
+def _chunks(w: int) -> int:
+    """64-deep contraction chunks the kernel gives w columns: 1, 2 or 4."""
+    return 1 if w <= 64 else 2 if w <= 128 else 4
+
+
+def fact_tc_shape(d: int, m: int):
+    """(PW, NCX, NCU) of the kernel's instantiation at these widths
+    (`fact_dispatch` in csrc/fact_estimate.cu): NCX chunks of the forward
+    contraction 2D, NCU of the combine's 4M, and the columns of a piece: 64
+    while both are at most 2, 16 where both are 4, else 32."""
+    ncx, ncu = _chunks(2 * d), _chunks(4 * m)
+    pw = 16 if (ncx, ncu) == (4, 4) else 32 if 4 in (ncx, ncu) else 64
+    return pw, ncx, ncu
+
+
+class FactTcOperands(NamedTuple):
+    """The bank as the kernel streams it. hi, lo, lo2: the bf16 planes
+    (`kernels.split_planes3`) of fwd and comb as units, per component its
+    ceil(4M / PW) forward pieces of NCX units, then its ceil(2D / PW)
+    combine pieces of NCU units (`fact_tc_shape`), each unit the PW x 64
+    transpose of one piece's columns over one 64-deep contraction chunk in
+    the 128-byte swizzle (`kernels._sw128`), padding zero; rec: each
+    component's record, T mu (2M, zero-padded to a multiple of 4), then per
+    bin d the 8 floats (l0_d, l1_d, l2_d, 0, Re b_d, Im b_d, Re a1_d,
+    Im a1_d) of lcoef, bias and a1. The same for every (T, alpha) layout:
+    those differ in `const` only, which the kernel reads from the layout.
+
+    hi, lo, lo2: (K, units, PW, 64) bfloat16
+    rec:         (K, 2Mp + 8D)     float32
+    """
+    hi: torch.Tensor
+    lo: torch.Tensor
+    lo2: torch.Tensor
+    rec: torch.Tensor
+
+
+def _fact_units(w: torch.Tensor, nc: int, pw: int) -> torch.Tensor:
+    """(K, rows, cols) -> (K, ceil(cols / pw) nc, pw, 64): per piece of pw
+    columns its nc chunks of 64 contraction rows, transposed; zero-padded."""
+    k_comp, rows, cols = w.shape
+    pieces = -(-cols // pw)
+    w = torch.nn.functional.pad(w, (0, pieces * pw - cols,
+                                    0, nc * 64 - rows))
+    return w.reshape(k_comp, nc, 64, pieces, pw).permute(
+        0, 3, 1, 4, 2).reshape(k_comp, pieces * nc, pw, 64)
+
+
+def fact_tc_operands(fkb: FactKernelBank) -> FactTcOperands:
+    """Split the bank's fwd and comb into bf16 hi / lo / lo2 and lay them
+    out as the kernel's units, with each component's record
+    (`FactTcOperands`); once per bank (`lowered_tc` keeps them)."""
+    k_comp, two_d, four_m = fkb.fwd.shape
+    d, m = two_d // 2, four_m // 4
+    pw, ncx, ncu = fact_tc_shape(d, m)
+    units = torch.cat([_fact_units(fkb.fwd, ncx, pw),
+                       _fact_units(fkb.comb, ncu, pw)], 1)
+    planes = (kernels._sw128(p).contiguous()
+              for p in kernels.split_planes3(units.contiguous()))
+    tmu = torch.nn.functional.pad(fkb.tmu, (0, -(-2 * m // 4) * 4 - 2 * m))
+    lc = fkb.lcoef.reshape(k_comp, 3, d).transpose(1, 2)     # (K, D, 3)
+    per_bin = torch.cat([lc, torch.zeros_like(lc[..., :1]),
+                         fkb.bias.reshape(k_comp, d, 2),
+                         fkb.a1.reshape(k_comp, d, 2)], -1)
+    rec = torch.cat([tmu, per_bin.reshape(k_comp, 8 * d)], 1)
+    return FactTcOperands(*planes, rec.contiguous())
+
+
+def check_fact_tc_operands(kernel: str, ops: FactTcOperands,
+                           fkb: FactKernelBank, device) -> None:
+    """Raise unless ops holds the units and records of a bank of fkb's
+    shape on `device` (`fact_tc_operands`)."""
+    k_comp, two_d, four_m = fkb.fwd.shape
+    d, m = two_d // 2, four_m // 4
+    pw, ncx, ncu = fact_tc_shape(d, m)
+    units = -(-four_m // pw) * ncx + -(-two_d // pw) * ncu
+    fields = [("hi", ops.hi, torch.bfloat16, (k_comp, units, pw, 64)),
+              ("lo", ops.lo, torch.bfloat16, (k_comp, units, pw, 64)),
+              ("lo2", ops.lo2, torch.bfloat16, (k_comp, units, pw, 64)),
+              ("rec", ops.rec, torch.float32,
+               (k_comp, -(-2 * m // 4) * 4 + 8 * d))]
+    for name, t, dtype, shape in fields:
+        if (t is None or t.device != device or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            got = ("None" if t is None
+                   else f"{t.dtype} {tuple(t.shape)} on {t.device}")
+            raise ValueError(f"{kernel}: operand {name} must be contiguous "
+                             f"{dtype} {shape} on {device} "
+                             f"(`fact_tc_operands`), got {got}")
+
+
+def lowered_tc(bank: FactoredBank, cache: Optional[dict] = None
+               ) -> FactTcOperands:
+    """The kernel's operands of the bank (`fact_tc_operands` of its T = 1
+    layout), kept in `cache` ("fact_tc_operands") beside the layouts of
+    `lowered`, so a bank served many times is split and laid out once."""
+    if cache is None:
+        return fact_tc_operands(lowered(bank))
+    if "fact_tc_operands" not in cache:
+        cache["fact_tc_operands"] = fact_tc_operands(lowered(bank, cache))
+    return cache["fact_tc_operands"]
+
+
+# ---------------------------------------------------------------------------
 # plain versions: the kernels' own arithmetic in float32
 # ---------------------------------------------------------------------------
 
-def _fact_reference(x2, fkb, t_coh, coh_alpha, stats, chunk):
+def _fact_reference(x2, fkb, t_coh, coh_alpha, stats, chunk, six=False):
+    """The plain versions: the two products in float32 or (six) as the
+    kernel's six bf16 products, everything else in float32."""
     pin_fp32()
     k, two_d, four_m = fkb.fwd.shape
     d, two_m = two_d // 2, four_m // 2
@@ -154,12 +270,18 @@ def _fact_reference(x2, fkb, t_coh, coh_alpha, stats, chunk):
                          f"T={t_coh} blocks")
     fwd = fkb.fwd.permute(1, 0, 2).reshape(two_d, k * four_m)
     comb = fkb.comb.reshape(k * four_m, two_d)
+    if six:
+        fwd6 = [p.to(x2.dtype) for p in kernels.split_planes3(fkb.fwd)]
+        comb6 = [p.to(x2.dtype) for p in kernels.split_planes3(fkb.comb)]
     chunk = max(t_coh, chunk // t_coh * t_coh)   # whole blocks per chunk
     ms, dens, outs = [], [], []
     for i0 in range(0, x2.shape[0], chunk):
         xc = x2[i0:i0 + chunk]
         n = xc.shape[0]
-        u = (xc @ fwd).reshape(n, k, four_m)             # [beta | gamma]
+        if six:                                      # [beta | gamma]
+            u = tc_products(xc, fwd6, 6).transpose(0, 1)
+        else:
+            u = (xc @ fwd).reshape(n, k, four_m)
         diff = u[..., :two_m] - fkb.tmu[None]
         x3 = xc.reshape(n, d, 2)
         z = torch.cat([x3[..., 0], x3[..., 1], (x3 * x3).sum(-1)], dim=-1)
@@ -173,7 +295,11 @@ def _fact_reference(x2, fkb, t_coh, coh_alpha, stats, chunk):
         h = torch.stack([a[..., 0] * x3[..., 0] - a[..., 1] * x3[..., 1],
                          a[..., 0] * x3[..., 1] + a[..., 1] * x3[..., 0]],
                         dim=-1).reshape(n, two_d)
-        h = h + w @ fkb.bias + (w[..., None] * u).reshape(n, -1) @ comb
+        if six:   # the kernel's order: C_k = u_k comb_k, then w C
+            h = h + w @ fkb.bias + torch.einsum(
+                "kn,knd->nd", w.T, tc_products(u.transpose(0, 1), comb6, 6))
+        else:
+            h = h + w @ fkb.bias + (w[..., None] * u).reshape(n, -1) @ comb
         ms.append(m)
         dens.append(den)
         outs.append(h)
@@ -183,6 +309,20 @@ def _fact_reference(x2, fkb, t_coh, coh_alpha, stats, chunk):
     if not ms:
         return x2.new_zeros((0,)), x2.new_zeros((0,)), out
     return torch.cat(ms), torch.cat(dens), out
+
+
+def fact_tc_reference(x2: torch.Tensor, fkb: FactKernelBank, t_coh: int = 1,
+                      coh_alpha: float = 1.0, stats: bool = False,
+                      chunk: int = 8192):
+    """Plain PyTorch version of the kernel's arithmetic: K11 (K12 at
+    t_coh > 1, K13 with `stats`) with [beta | gamma] = x fwd_k and C_k =
+    [beta | gamma] comb_k each the six bf16 products of
+    `variant_kernels.tc_products` (both operands split into hi, lo, lo2;
+    [beta | gamma] split as the kernel splits its accumulator), the logits,
+    pooling, softmax and the fold w (C + bias + a1 o x) in float32. For the
+    CPU tests; nothing on the main path calls it. `fact_estimate_reference`
+    is the same function with float32 products."""
+    return _fact_reference(x2, fkb, t_coh, coh_alpha, stats, chunk, True)
 
 
 def fact_estimate_reference(x2: torch.Tensor, fkb: FactKernelBank,
@@ -217,9 +357,10 @@ def fact_estimate_stats_reference(x2: torch.Tensor, fkb: FactKernelBank,
 # ---------------------------------------------------------------------------
 
 def _launch(name: str, x2: torch.Tensor, fkb: FactKernelBank, t_coh: int,
-            coh_alpha: float, stats: bool):
-    """Validate, allocate and launch on x2's device and current stream;
-    raise on any refusal. Returns out, or (m, den, out) for stats."""
+            coh_alpha: float, stats: bool, ops: Optional[FactTcOperands]):
+    """Validate, allocate and launch on x2's device and current stream with
+    the bank's operands `ops` (laid out here when None); raise on any
+    refusal. Returns out, or (m, den, out) for stats."""
     n, two_d = x2.shape
     k, _, four_m = fkb.fwd.shape
     d, m = two_d // 2, four_m // 4
@@ -239,6 +380,9 @@ def _launch(name: str, x2: torch.Tensor, fkb: FactKernelBank, t_coh: int,
     kernels._check_cuda("const", fkb.const, (k,), dev)
     kernels._check_cuda("bias", fkb.bias, (k, two_d), dev)
     kernels._check_cuda("a1", fkb.a1, (k, two_d), dev)
+    if ops is None:
+        ops = fact_tc_operands(fkb)
+    check_fact_tc_operands(name, ops, fkb, dev)
     out = torch.empty((n, two_d), dtype=torch.float32, device=dev)
     m_out = den = None
     if stats:
@@ -249,10 +393,9 @@ def _launch(name: str, x2: torch.Tensor, fkb: FactKernelBank, t_coh: int,
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.fact_estimate_launch(
-                x2.data_ptr(), fkb.fwd.data_ptr(), fkb.comb.data_ptr(),
-                fkb.tmu.data_ptr(), fkb.lcoef.data_ptr(),
-                fkb.const.data_ptr(), fkb.bias.data_ptr(),
-                fkb.a1.data_ptr(), out.data_ptr(),
+                x2.data_ptr(), ops.hi.data_ptr(), ops.lo.data_ptr(),
+                ops.lo2.data_ptr(), ops.rec.data_ptr(),
+                fkb.const.data_ptr(), out.data_ptr(),
                 m_out.data_ptr() if stats else None,
                 den.data_ptr() if stats else None, n, d, m, k, int(t_coh),
                 float(coh_alpha), int(stats), stream)
@@ -261,39 +404,47 @@ def _launch(name: str, x2: torch.Tensor, fkb: FactKernelBank, t_coh: int,
     return (m_out, den, out) if stats else out
 
 
-def fact_estimate(x2: torch.Tensor, fkb: FactKernelBank) -> torch.Tensor:
+def fact_estimate(x2: torch.Tensor, fkb: FactKernelBank,
+                  operands: Optional[FactTcOperands] = None) -> torch.Tensor:
     """K11 on x2 (N, 2D) float32 interleaved -> (N, 2D). On a CUDA tensor
-    it launches the CUDA kernel on the current stream and raises on any
-    refusal; on a CPU tensor it computes the plain version."""
+    it launches the CUDA kernel on the current stream with the bank's
+    `operands` (`fact_tc_operands(fkb)`, laid out in the call when None) and
+    raises on any refusal; on a CPU tensor it computes the plain version."""
     if not x2.is_cuda:
         return fact_estimate_reference(x2, fkb)
-    out = _launch("fact_estimate", x2, fkb, 1, 1.0, False)
+    out = _launch("fact_estimate", x2, fkb, 1, 1.0, False, operands)
     if x2.shape[0]:
         fact_estimate.launches += 1
     return out
 
 
 def fact_estimate_coherent(x2: torch.Tensor, fkb: FactKernelBank, t_coh: int,
-                           coh_alpha: float = 1.0) -> torch.Tensor:
+                           coh_alpha: float = 1.0,
+                           operands: Optional[FactTcOperands] = None
+                           ) -> torch.Tensor:
     """K12 on x2 (N, 2D), N / T blocks of T consecutive rows (2 <= T <=
-    `fact_tile_rows`), fkb from `fact_kernel_bank(bank, t_coh, coh_alpha)`.
-    CUDA kernel on a CUDA tensor, plain version on the CPU."""
+    `fact_tile_rows`), fkb from `fact_kernel_bank(bank, t_coh, coh_alpha)`,
+    `operands` as for `fact_estimate` (any layout of the bank). CUDA kernel
+    on a CUDA tensor, plain version on the CPU."""
     if t_coh < 2:
         raise ValueError(f"fact_estimate_coherent takes T >= 2; got {t_coh}")
     if not x2.is_cuda:
         return fact_estimate_coherent_reference(x2, fkb, t_coh, coh_alpha)
-    out = _launch("fact_estimate_coherent", x2, fkb, t_coh, coh_alpha, False)
+    out = _launch("fact_estimate_coherent", x2, fkb, t_coh, coh_alpha, False,
+                  operands)
     if x2.shape[0]:
         fact_estimate_coherent.launches += 1
     return out
 
 
-def fact_estimate_stats(x2: torch.Tensor, fkb: FactKernelBank):
-    """K13 on x2 (N, 2D) -> (m (N,), den (N,), acc (N, 2D) un-normalised).
-    CUDA kernel on a CUDA tensor, plain version on the CPU."""
+def fact_estimate_stats(x2: torch.Tensor, fkb: FactKernelBank,
+                        operands: Optional[FactTcOperands] = None):
+    """K13 on x2 (N, 2D) -> (m (N,), den (N,), acc (N, 2D) un-normalised),
+    `operands` as for `fact_estimate`. CUDA kernel on a CUDA tensor, plain
+    version on the CPU."""
     if not x2.is_cuda:
         return fact_estimate_stats_reference(x2, fkb)
-    res = _launch("fact_estimate_stats", x2, fkb, 1, 1.0, True)
+    res = _launch("fact_estimate_stats", x2, fkb, 1, 1.0, True, operands)
     if x2.shape[0]:
         fact_estimate_stats.launches += 1
     return res
@@ -324,7 +475,8 @@ def estimate_fused_factored(bank: FactoredBank, r: torch.Tensor,
     (`harness.stages.estimate_factored` sends those to the pipeline).
     `cache`: see `lowered`."""
     _check_eligible(bank, 1)
-    return _hc(fact_estimate(_x2(r), lowered(bank, cache)), r.dtype)
+    ops = lowered_tc(bank, cache) if r.is_cuda else None
+    return _hc(fact_estimate(_x2(r), lowered(bank, cache), ops), r.dtype)
 
 
 def estimate_fused_factored_coherent(bank: FactoredBank, r: torch.Tensor,
@@ -342,8 +494,9 @@ def estimate_fused_factored_coherent(bank: FactoredBank, r: torch.Tensor,
     if t == 1:
         return estimate_fused_factored(bank, r[:, 0, :], cache)[:, None, :]
     _check_eligible(bank, t)
+    ops = lowered_tc(bank, cache) if r.is_cuda else None
     h2 = fact_estimate_coherent(_x2(r), lowered(bank, cache, t, alpha), t,
-                                alpha)
+                                alpha, ops)
     return _hc(h2, r.dtype).reshape(b, t, d)
 
 

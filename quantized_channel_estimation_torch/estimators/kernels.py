@@ -164,7 +164,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.mp_circ_estimate_launch.restype = i32
     elif name == "fact_estimate":
         lib.fact_estimate_launch.argtypes = (
-            [ptr] * 11 + [i32] * 5 + [f32, i32, ptr])
+            [ptr] * 9 + [i32] * 5 + [f32, i32, ptr])
         lib.fact_estimate_launch.restype = i32
     elif name == "karatsuba_estimate":
         lib.karatsuba_estimate_launch.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]

@@ -1,4 +1,5 @@
-"""Time K1, K3 and K14a at the batch sizes the service and the sweeps send.
+"""Time K1, K3, K14a, K11, K12 and K13 at the batch sizes the service and
+the sweeps send.
 
 The service flushes microbatches of 256-1024 rows, `run_gmm` estimates
 10000 rows an SNR, and the kernel tools 131072. A kernel's time at a small
@@ -6,26 +7,53 @@ batch is set by how many blocks it can spread over the card's SMs, so it
 need not follow its time at the headline batch. This tool times, on the
 headline bank (K = D = 64, 2 bits, 10 dB), K1 (`kernels.grouped_estimate`),
 K3 (`kernels.grouped_estimate_coherent` at T = 4 and 16, alpha 1) and
-K14a (`variant_kernels.karatsuba_estimate`) at each `--rows`, with CUDA
-events (median of `--repeats`), the bank's kernel layouts made once
-beforehand, and prints one JSON line. Run as a file with an older
-checkout first on the path (`PYTHONPATH=<checkout> python3
+K14a (`variant_kernels.karatsuba_estimate`), and on the factored bank of
+a seeded MFA prior at the same widths (`--latent` M = 16, zero means,
+loadings of total power 0.8 a dimension) K11 (`fact_kernels.fact_estimate`),
+K12 (`fact_kernels.fact_estimate_coherent` at T = 4, alpha 1) and K13
+(`fact_kernels.fact_estimate_stats`, the whole bank as one shard), at each
+`--rows`, with CUDA events (median of `--repeats`), the banks' kernel
+layouts made once beforehand, and prints one JSON line. Run as a file with
+an older checkout first on the path (`PYTHONPATH=<checkout> python3
 <this file>`), it times that checkout's kernels, so that one call can time
-a parent and a change in turns; a K14a wrapper that takes no laid-out
-operands (the fp32 loop it replaced) gets none.
+a parent and a change in turns; a K14a or K11-K13 wrapper that takes no
+laid-out operands (the fp32 loops they replaced) gets none.
 
     python -m quantized_channel_estimation_torch.tools.batch_sweep \
-        [--rows 512 4096 131072] [--repeats R]
+        [--rows 512 4096 131072] [--repeats R] [--latent M]
 """
 from __future__ import annotations
 
 import json
 
+import numpy as np
+import torch
+
+from quantized_channel_estimation_torch.estimators import fact_kernels
 from quantized_channel_estimation_torch.estimators import kernels
 from quantized_channel_estimation_torch.estimators import variant_kernels
+from quantized_channel_estimation_torch.models import mfa, mfa_bank
 from quantized_channel_estimation_torch.tools import common
 
 ROWS = (512, 4096, 131072)
+LATENT = 16   # M of the MFA prior: run_mfa's D / 4
+
+
+def fact_bank(dev, q, n_ant, k_comp, m, n_bits, seed=0):
+    """The factored bank at 10 dB under x0 = 1 of a seeded MFA prior:
+    weights uniform on [0.5, 1.5], zero means, loadings of total power 0.8
+    a dimension, psi uniform on [0.05, 0.35]."""
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(0.5, 1.5, k_comp)
+    lam = np.sqrt(0.8 / m) * (rng.standard_normal((k_comp, n_ant, m))
+                              + 1j * rng.standard_normal((k_comp, n_ant, m))
+                              ) / np.sqrt(2)
+    params = mfa.MfaParams(*(torch.as_tensor(x, device=dev) for x in (
+        (w / w.sum()).astype(np.float32),
+        np.zeros((k_comp, n_ant), np.complex64), lam.astype(np.complex64),
+        rng.uniform(0.05, 0.35, (k_comp, n_ant)).astype(np.float32))))
+    return mfa_bank.prepare_bank_factored(
+        params, common.SNR_DB, torch.tensor(1.0 + 0.0j), n_bits, q)
 
 
 def _wrappers(kb_t, kk, r2):
@@ -49,19 +77,40 @@ def _wrappers(kb_t, kk, r2):
     return calls
 
 
+def _fact_wrappers(fbank, x2):
+    """{label: (T, call(n))} of K11, K12 (T = 4, alpha 1) and K13 on the
+    factored bank's layouts, each on the first n rows of x2 (interleaved),
+    with the bank's tensor-core operands made once."""
+    fk = fact_kernels
+    fkb, fkb4 = fk.fact_kernel_bank(fbank), fk.fact_kernel_bank(fbank, 4,
+                                                                1.0)
+    ops = ((fk.fact_tc_operands(fkb),)
+           if hasattr(fk, "fact_tc_operands") else ())
+    return {"K11": (1, lambda n: fk.fact_estimate(x2[:n], fkb, *ops)),
+            "K12 T=4": (4, lambda n: fk.fact_estimate_coherent(
+                x2[:n], fkb4, 4, 1.0, *ops)),
+            "K13": (1, lambda n: fk.fact_estimate_stats(x2[:n], fkb, *ops))}
+
+
 def main(argv=None) -> dict:
     p = common.parser(__doc__)
     p.add_argument("--rows", type=int, nargs="+", default=list(ROWS))
+    p.add_argument("--latent", type=int, default=LATENT)
     args = p.parse_args(argv)
     dev = common.device(args.device)
     bank, q = common.headline_bank(dev, args.n_ant, args.components,
                                    args.bits)
     kb_t = {t: kernels.kernel_bank_block(bank, t, 1.0) for t in (1, 4, 16)}
     kk = variant_kernels.kernel_bank(bank)
-    r2 = kernels._r2(common.observations(dev, q, max(args.rows), args.n_ant,
-                                         args.bits))
+    r = common.observations(dev, q, max(args.rows), args.n_ant, args.bits)
+    r2 = kernels._r2(r)
+    x2 = torch.view_as_real(r.to(torch.complex64)).reshape(
+        r.shape[0], -1).contiguous()            # interleaved [re, im]
+    fbank = fact_bank(dev, q, args.n_ant, args.components, args.latent,
+                      args.bits)
+    calls = {**_wrappers(kb_t, kk, r2), **_fact_wrappers(fbank, x2)}
     ms = {}
-    for label, (t, call) in _wrappers(kb_t, kk, r2).items():
+    for label, (t, call) in calls.items():
         for n in args.rows:
             rows = n - n % t
             ms[f"{label} N={rows}"] = common.time_ms(

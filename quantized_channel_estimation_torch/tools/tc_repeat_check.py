@@ -26,6 +26,12 @@ consumer warpgroups a block, 32-column pieces, two contraction chunks); a
 launch fails if its bits differ from the first launch's or if it is
 further than 1e-4 of the scale from its plain version.
 
+Mode 'fact' does the same for the factored kernels K11, K12 and K13
+(`FACT_SHAPES`: the combine's A in registers with one and two consumer
+warpgroups a block, A in shared memory with 64-, 32- and 16-column pieces,
+K12 pooled by shuffles and through shared memory, K13), with the rule of
+mode 'f32' (for K13 on each of m, den and the accumulator).
+
 `--without-proxy-fence` also builds a copy of K14b without the
 `fence.proxy.async` before each stage's release (in
 csrc/grouped_tc_stream.cuh) and runs it launch for launch beside the
@@ -34,7 +40,7 @@ kernel, to measure what the fence does; with `--time` it also times both
 headline widths (131072 rows, 2M = 2D = 128, K = 64).
 
     python -m quantized_channel_estimation_torch.tools.tc_repeat_check \
-        [--repeats R] [--modes bf16 split2 split3 f32 karatsuba] \
+        [--repeats R] [--modes bf16 split2 split3 f32 karatsuba fact] \
         [--no-poison] \
         [--without-proxy-fence [--time]]
 
@@ -52,6 +58,7 @@ import time
 
 import torch
 
+from quantized_channel_estimation_torch.estimators import fact_kernels as fk
 from quantized_channel_estimation_torch.estimators import kernels
 from quantized_channel_estimation_torch.estimators import variant_kernels as vk
 from quantized_channel_estimation_torch.harness import stages
@@ -82,6 +89,20 @@ KARATSUBA_SHAPES = (
     (64, 64, 16, 2 * 132 * 128 + 5, 0),    # two, two waves of blocks
     (40, 100, 6, 515, 1),                  # 32-column pieces
     (128, 128, 4, 200, 1),                 # two contraction chunks
+)
+# K11 / K12 / K13: (D, M, K, N, dead components, T, alpha, kernel)
+FACT_SHAPES = (
+    (64, 16, 16, 4097, 3, 1, 1.0, "K11"),     # A in registers, 1 warpgroup
+    (64, 16, 16, 2 * 132 * 128 + 5, 0, 1, 1.0, "K11"),  # 2, two waves
+    (32, 6, 5, 1000, 1, 1, 1.0, "K11"),       # one forward chunk
+    (48, 32, 6, 777, 1, 1, 1.0, "K13"),       # A in shared memory
+    (100, 24, 3, 515, 0, 1, 1.0, "K11"),      # 32-column pieces
+    (128, 64, 4, 300, 1, 1, 1.0, "K11"),      # the widest: 16-column pieces
+    (64, 16, 16, 4 * 8193, 2, 4, 1.0, "K12"),  # quad shuffles, 2 warpgroups
+    (64, 16, 8, 16 * 2049, 0, 16, 0.25, "K12"),  # a thread's two rows
+    (64, 16, 8, 64 * 301, 1, 64, 1.0, "K12"),  # shared memory
+    (64, 64, 4, 3 * 1001, 0, 3, 0.5, "K12"),   # 63-row tiles, A in smem
+    (64, 16, 16, 4097, 3, 1, 1.0, "K13"),     # A in registers
 )
 REPEATS = 300
 STREAM = "grouped_tc_stream.cuh"
@@ -230,6 +251,75 @@ def _karatsuba_check(dev, shapes, repeats, poison) -> dict:
     return out
 
 
+def random_fact_bank(d, m, k, dev, n_dead=0, t_coh=1, seed=0):
+    """A random factored-kernel bank of any widths: logits a few units
+    apart, dead components at the -1e30 floor."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g)
+
+    const = 0.5 * rnd(k)
+    const[:n_dead] = -1e30
+    fkb = fk.FactKernelBank(
+        rnd(k, 2 * d, 4 * m, scale=0.5 / math.sqrt(2 * d)),
+        rnd(k, 4 * m, 2 * d, scale=1 / math.sqrt(4 * m)),
+        rnd(k, 2 * m, scale=0.3), rnd(k, 3 * d, scale=0.3 / math.sqrt(d)),
+        const / t_coh, rnd(k, 2 * d, scale=0.3), rnd(k, 2 * d, scale=0.3))
+    return fk.FactKernelBank(*(x.to(dev).contiguous() for x in fkb))
+
+
+def _fact_check(dev, shapes, repeats, poison) -> dict:
+    """Mode 'fact' of `repeat_check`: {label: {"launches", "failures",
+    "max_err"}} over K11, K12 and K13 at `shapes`."""
+    out = {}
+    for d, m, k, n, n_dead, t, alpha, name in shapes:
+        fkb = random_fact_bank(d, m, k, dev, n_dead, t)
+        f64 = fk.FactKernelBank(*(x.double() for x in fkb))
+        ops = fk.fact_tc_operands(fkb) if dev.type == "cuda" else None
+        x2 = random_rows(n, 2 * d, dev)
+        if name == "K11":
+            def run():
+                return (fk.fact_estimate(x2, fkb, ops),)
+            want = (fk.fact_estimate_reference(x2, fkb),)
+            exact = (fk.fact_estimate_reference(x2.double(), f64),)
+        elif name == "K12":
+            def run():
+                return (fk.fact_estimate_coherent(x2, fkb, t, alpha, ops),)
+            want = (fk.fact_estimate_coherent_reference(x2, fkb, t, alpha),)
+            exact = (fk.fact_estimate_coherent_reference(x2.double(), f64, t,
+                                                         alpha),)
+        else:
+            def run():
+                return fk.fact_estimate_stats(x2, fkb, ops)
+            want = fk.fact_estimate_stats_reference(x2, fkb)
+            exact = fk.fact_estimate_stats_reference(x2.double(), f64)
+        scales = [w.abs().max() for w in want]
+        plain_errs = [float((w.double() - e).abs().max() / sc)
+                      for w, e, sc in zip(want, exact, scales)]
+        first, errs, fails = None, [], 0
+        for _ in range(repeats):
+            if poison:
+                poison_shared_memory(dev)
+            got = run()
+            ok = first is None or all(torch.equal(g, f)
+                                      for g, f in zip(got, first))
+            err = 0.0
+            for g, w, e, sc, pe in zip(got, want, exact, scales, plain_errs):
+                rel = float((g - w).abs().max() / sc)
+                rel64 = float((g.double() - e).abs().max() / sc)
+                ok = ok and (rel <= TOL or rel64 <= 2 * pe + 1e-5)
+                err = max(err, rel if rel == rel else math.inf)
+            if first is None:
+                first = got
+            fails += not ok     # NaN fails both comparisons
+            errs.append(err)
+        out[f"D={d} M={m} K={k} N={n} dead={n_dead} T={t} a={alpha} "
+            f"{name}"] = {"launches": repeats, "failures": fails,
+                          "max_err": max(errs)}
+    return out
+
+
 def _launch_copy(lib, r2, kb, ops, passes):
     n, two_m = r2.shape
     two_d = kb.b.shape[1]
@@ -294,12 +384,14 @@ def _f32_check(dev, shapes, repeats, poison) -> dict:
 def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
                  without_fence=False, modes=tuple(vk.TC_WRAPPERS),
                  f32_shapes=F32_SHAPES,
-                 karatsuba_shapes=KARATSUBA_SHAPES) -> dict:
+                 karatsuba_shapes=KARATSUBA_SHAPES,
+                 fact_shapes=FACT_SHAPES) -> dict:
     """Every (shape, mode): `repeats` launches of K14b (and of the copy
     without the fence), each held against the plain version; mode 'f32':
     K1 and K3 at `f32_shapes`; mode 'karatsuba': K14a at
-    `karatsuba_shapes`. Returns {"kernel" (and "no fence"): {label:
-    {"launches", "failures", "max_err"}}}."""
+    `karatsuba_shapes`; mode 'fact': K11-K13 at `fact_shapes`. Returns
+    {"kernel" (and "no fence"): {label: {"launches", "failures",
+    "max_err"}}}."""
     copy = _without_fence() if without_fence else None
     result = {"kernel": {}, "no fence": {}} if copy else {"kernel": {}}
     if "f32" in modes:
@@ -307,7 +399,10 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     if "karatsuba" in modes:
         result["kernel"].update(_karatsuba_check(dev, karatsuba_shapes,
                                                  repeats, poison))
-    modes = [m for m in modes if m not in ("f32", "karatsuba")]
+    if "fact" in modes:
+        result["kernel"].update(_fact_check(dev, fact_shapes, repeats,
+                                            poison))
+    modes = [m for m in modes if m not in ("f32", "karatsuba", "fact")]
     for two_m, two_d, k, n, n_dead in shapes if modes else ():
         kb = random_bank(two_m, two_d, k, dev, n_dead)
         planes = kernels.split_planes(kb.pw)
@@ -360,8 +455,8 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default=None)
     p.add_argument("--repeats", type=int, default=REPEATS)
     p.add_argument("--modes", nargs="+",
-                   default=[*vk.TC_WRAPPERS, "f32", "karatsuba"],
-                   choices=[*vk.TC_WRAPPERS, "f32", "karatsuba"])
+                   default=[*vk.TC_WRAPPERS, "f32", "karatsuba", "fact"],
+                   choices=[*vk.TC_WRAPPERS, "f32", "karatsuba", "fact"])
     p.add_argument("--no-poison", action="store_true")
     p.add_argument("--without-proxy-fence", action="store_true")
     p.add_argument("--time", action="store_true")

@@ -24,7 +24,9 @@ float64, the kernel to within twice the plain version's own error. K1 and
 K3, six bf16 tensor-core products, are also held to that float64 rule
 where their plain version agrees within 1e-4, since 1e-4 alone passes a
 three-product split too; so is K14a, six bf16 products for each of its
-three real products. K14a's repeated launches are bit for bit the first.
+three real products, and so are the factored kernels K11-K13, six bf16
+products for each of their two products. The repeated launches of K14a and
+K11-K13 are bit for bit the first.
 """
 import math
 
@@ -1088,8 +1090,9 @@ def _fact_bank(d, k, m, dev, n_dead=0, zero_mean=False, n_bits=2, seed=0):
     return bank, observe
 
 
-# (D, M) covering every instantiation: bins a lane CW = 1, 2, 4 (D <= 32,
-# 64, 128) by complex outputs a lane CF = 1, 2, 4 (2M <= 32, 64, 128)
+# (D, M) covering every instantiation: forward contraction chunks NCX = 1,
+# 2, 4 (D <= 32, 64, 128) by combine contraction chunks NCU = 1, 2, 4
+# (M <= 16, 32, 64)
 FACT_WIDTHS = [(24, 6), (64, 16), (128, 9), (32, 20), (48, 32), (128, 24),
                (20, 40), (64, 64), (128, 64)]
 
@@ -1155,13 +1158,13 @@ def test_fact_kernels_refuse_bad_inputs_and_one_past_the_rule():
             bank, 128), 128)
     assert tfk.fact_estimate(x2[:0], fkb).shape == (0, 32)
     # the edges of the rule launch; one past them raises
-    for d, m, t in ((128, 64, 32), (64, 32, 64), (1, 1, 1)):
+    for d, m, t in ((128, 64, 64), (64, 32, 64), (65, 16, 33), (1, 1, 1)):
         wide, obs_w = _fact_bank(d, 2, m, dev)
         rw = obs_w(4 * t)
         h = tfk.estimate_fused_factored_coherent(wide, rw.reshape(4, t, d))
         torch.cuda.synchronize()
         assert torch.isfinite(h).all()
-    for d, m, t in ((129, 4, 1), (64, 65, 1), (64, 33, 64), (65, 16, 33)):
+    for d, m, t in ((129, 4, 1), (64, 65, 1), (64, 16, 65), (128, 64, 65)):
         wide = tmb.FactoredBank(
             torch.zeros(2, device=dev),
             *(torch.zeros(shape, dtype=dtype, device=dev) for shape, dtype in (
@@ -1175,6 +1178,79 @@ def test_fact_kernels_refuse_bad_inputs_and_one_past_the_rule():
             tfk.estimate_fused_factored_coherent(wide, r[None])
         with pytest.raises(ValueError, match="fact_kernel_eligible"):
             stages.estimate_factored_coherent(wide, r[None], method="kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K11", "K12", "K13"])
+@pytest.mark.parametrize("d,m,k,n", [
+    (64, 16, 64, 8192),     # the headline widths: A in registers
+    (32, 6, 9, 4097),       # one forward chunk, padded 4M
+    (128, 64, 6, 1001),     # the widest: 16-column pieces, A in shared memory
+])
+def test_fact_kernels_keep_fp32_accuracy(kernel, d, m, k, n):
+    """K11, K12 (T = 4, alpha 1) and K13 (its un-normalised accumulator),
+    six bf16 products for each of their two products, are no less accurate
+    than float32: the max |error| against the plain version in float64 at
+    most twice the float32 plain version's own, with dead components (the
+    rule `test_grouped_estimate_keeps_fp32_accuracy` holds K1 to). The
+    operands laid out once give the same bits as those laid out in the
+    call."""
+    from quantized_channel_estimation_torch.estimators import (
+        fact_kernels as tfk)
+    dev = _card()
+    bank, observe = _fact_bank(d, k, m, dev, n_dead=2)
+    x2 = tck._x2(observe(n - n % 4))
+    t = 4 if kernel == "K12" else 1
+    fkb = tfk.fact_kernel_bank(bank, t, 1.0)
+    f64 = type(fkb)(*(x.double() for x in fkb))
+    ops = tfk.fact_tc_operands(fkb)
+    if kernel == "K11":
+        run = lambda o: tfk.fact_estimate(x2, fkb, o)  # noqa: E731
+        want = tfk.fact_estimate_reference(x2, fkb)
+        want64 = tfk.fact_estimate_reference(x2.double(), f64)
+    elif kernel == "K12":
+        run = lambda o: tfk.fact_estimate_coherent(  # noqa: E731
+            x2, fkb, 4, 1.0, o)
+        want = tfk.fact_estimate_coherent_reference(x2, fkb, 4, 1.0)
+        want64 = tfk.fact_estimate_coherent_reference(x2.double(), f64, 4,
+                                                      1.0)
+    else:
+        run = lambda o: tfk.fact_estimate_stats(x2, fkb, o)[2]  # noqa: E731
+        want = tfk.fact_estimate_stats_reference(x2, fkb)[2]
+        want64 = tfk.fact_estimate_stats_reference(x2.double(), f64)[2]
+    got = run(None)
+    torch.cuda.synchronize()
+
+    def err(x):
+        return float((x.double() - want64).abs().max())
+
+    assert torch.isfinite(got).all()
+    assert err(got) <= 2 * err(want), (err(got), err(want))
+    assert torch.equal(run(ops), got)
+
+
+@pytest.mark.cuda
+def test_fact_repeated_launches_match_plain():
+    """K11, K12 and K13 launched 100 times at each shape of
+    `tools.tc_repeat_check.FACT_SHAPES` (the combine's A in registers with
+    one and two warpgroups, A in shared memory with 64-, 32- and 16-column
+    pieces, each pooling route), each launch after a fill of every SM's
+    shared memory with NaN, each bit for bit the first launch and held
+    against the plain version."""
+    from quantized_channel_estimation_torch.estimators import (
+        fact_kernels as tfk)
+    dev = _card()
+    shapes = tc_repeat_check.FACT_SHAPES
+    names = {"K11": tfk.fact_estimate, "K12": tfk.fact_estimate_coherent,
+             "K13": tfk.fact_estimate_stats}
+    before = {k: fn.launches for k, fn in names.items()}
+    runs = tc_repeat_check.repeat_check(dev, repeats=100,
+                                        modes=("fact",))["kernel"]
+    for key, fn in names.items():
+        assert fn.launches == before[key] + 100 * sum(
+            1 for s in shapes if s[-1] == key)
+    assert len(runs) == len(shapes)
+    assert not {k: v for k, v in runs.items() if v["failures"]}, runs
 
 
 @pytest.mark.cuda

@@ -1,6 +1,9 @@
 """The plain versions of the port's factored kernels (K11-K13) against the
-JAX package's Pallas kernels in interpret mode, and the one dispatch rule
-of `harness.stages` for factored banks.
+JAX package's Pallas kernels in interpret mode, the kernel's tensor-core
+layout of the bank and the plain version of its six-product arithmetic,
+the repeated-launch check of `tools.tc_repeat_check` (mode 'fact') on the
+plain versions, and the one dispatch rule of `harness.stages` for factored
+banks.
 
 On the CPU a wrapper of `estimators.fact_kernels` computes its kernel's
 plain PyTorch version, the arithmetic the CUDA kernel repeats on the card
@@ -12,7 +15,15 @@ made by the JAX package and carried over with `mfa_bank.bank_from_numpy`.
 
 Tolerance: 1e-5 of the output scale, the JAX kernel tests' own
 (`tests/test_mfa_bank.py`): both sides are float32 and expand the
-quadratic logit, with the products summed in another order.
+quadratic logit, with the products summed in another order. The plain
+six-product version (`fact_tc_reference`) is held to the same 1e-5 of the
+scale against the float32 plain version and to the float64 rule the card
+holds the kernel to: its max error against the plain version in float64
+at most twice the float32 plain version's own. (The six bf16 products drop
+only terms of order 2^-24 of each product, but on these banks the float32
+plain version is itself 2-6e-6 of the scale off float64, the logits
+cancelling, so two float32 orders differ by up to ~4e-6.) The layout is
+read back bit for bit.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +39,7 @@ from quantized_channel_estimation_torch.estimators import fact_kernels as tfk
 from quantized_channel_estimation_torch.estimators import kernels as tkn
 from quantized_channel_estimation_torch.harness import stages
 from quantized_channel_estimation_torch.models import mfa_bank as tmb
+from quantized_channel_estimation_torch.tools import tc_repeat_check as trc
 
 torch.set_num_threads(2)
 
@@ -166,16 +178,19 @@ def test_fact_kernel_bank_holds_the_jax_operands():
 
 
 def test_eligibility_rule_reads_shapes_only():
+    """D <= 128, M <= 64, any K, T <= 64 at every width (one consumer
+    warpgroup's 64-row tile)."""
     assert tfk.fact_kernel_eligible(64, 64, 16)
     assert tfk.fact_kernel_eligible(64, 64, 16, 64)
-    assert tfk.fact_kernel_eligible(128, 1000, 64, 32)   # any K, one launch
+    assert tfk.fact_kernel_eligible(128, 1000, 64, 64)   # any K, one launch
     assert tfk.fact_kernel_eligible(1, 1, 1)
+    assert tfk.fact_kernel_eligible(64, 8, 33, 64)
+    assert tfk.fact_kernel_eligible(65, 8, 16, 33)
     assert not tfk.fact_kernel_eligible(129, 8, 4)
     assert not tfk.fact_kernel_eligible(64, 8, 65)
-    assert not tfk.fact_kernel_eligible(64, 8, 33, 64)  # past the 32-row tile
-    assert not tfk.fact_kernel_eligible(65, 8, 16, 33)
-    assert tfk.fact_tile_rows(64, 32) == 64
-    assert tfk.fact_tile_rows(65, 16) == tfk.fact_tile_rows(64, 33) == 32
+    assert not tfk.fact_kernel_eligible(64, 8, 16, 65)   # past the tile
+    assert not tfk.fact_kernel_eligible(128, 8, 64, 65)
+    assert tfk.fact_tile_rows(64, 32) == tfk.fact_tile_rows(128, 64) == 64
 
 
 def test_stages_rule_and_refusals(monkeypatch):
@@ -231,3 +246,162 @@ def test_stages_rule_and_refusals(monkeypatch):
     assert m.shape == den.shape == (0,) and acc.shape == (0, 2 * D)
     assert {"fact_estimate", "fact_estimate_coherent",
             "fact_estimate_stats"} <= set(tkn.launch_counts())
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core layout and the plain six-product version
+# ---------------------------------------------------------------------------
+
+def _random_fkb(d, m, k=3, seed=0):
+    return trc.random_fact_bank(d, m, k, torch.device("cpu"), 1, seed=seed)
+
+
+def _unswizzle_units(plane, pw):
+    """A plane of units (K, U, pw, 64), swizzled -> the same unswizzled
+    (the 128-byte swizzle is its own inverse)."""
+    return tkn._sw128(plane)
+
+
+@pytest.mark.parametrize("d,m", [(32, 6), (8, 3), (100, 24), (128, 64)])
+def test_fact_tc_operands_unpermute_bit_for_bit(d, m):
+    """The kernel's units read back to `split_planes3` of fwd and comb bit
+    for bit, padding zero, at padded widths (4M = 24 of a 64-column piece at
+    M = 6, D = 32) and at the 32- and 16-column pieces; the record holds
+    T mu and the per-bin lcoef, bias and a1."""
+    fkb = _random_fkb(d, m)
+    k = fkb.fwd.shape[0]
+    ops = tfk.fact_tc_operands(fkb)
+    pw, ncx, ncu = tfk.fact_tc_shape(d, m)
+    assert pw == (16 if (ncx, ncu) == (4, 4) else
+                  32 if 4 in (ncx, ncu) else 64)
+    fp, cp = -(-4 * m // pw), -(-2 * d // pw)
+    tfk.check_fact_tc_operands("k", ops, fkb, torch.device("cpu"))
+    for plane, want_f, want_c in zip(
+            (ops.hi, ops.lo, ops.lo2), tkn.split_planes3(fkb.fwd),
+            tkn.split_planes3(fkb.comb)):
+        units = _unswizzle_units(plane, pw)            # (K, U, pw, 64)
+        fwd_u = units[:, :fp * ncx].reshape(k, fp, ncx, pw, 64)
+        fwd = fwd_u.permute(0, 2, 4, 1, 3).reshape(k, ncx * 64, fp * pw)
+        comb_u = units[:, fp * ncx:].reshape(k, cp, ncu, pw, 64)
+        comb = comb_u.permute(0, 2, 4, 1, 3).reshape(k, ncu * 64, cp * pw)
+        assert torch.equal(fwd[:, :2 * d, :4 * m], want_f)
+        assert torch.equal(comb[:, :4 * m, :2 * d], want_c)
+        assert not fwd[:, 2 * d:].any() and not fwd[:, :, 4 * m:].any()
+        assert not comb[:, 4 * m:].any() and not comb[:, :, 2 * d:].any()
+    two_mp = -(-2 * m // 4) * 4
+    assert torch.equal(ops.rec[:, :2 * m], fkb.tmu)
+    assert not ops.rec[:, 2 * m:two_mp].any()
+    bins = ops.rec[:, two_mp:].reshape(k, d, 8)
+    assert torch.equal(bins[..., :3].transpose(1, 2).reshape(k, 3 * d),
+                       fkb.lcoef)
+    assert not bins[..., 3].any()
+    assert torch.equal(bins[..., 4:6].reshape(k, 2 * d), fkb.bias)
+    assert torch.equal(bins[..., 6:].reshape(k, 2 * d), fkb.a1)
+
+
+def test_fact_tc_operands_are_cached_and_checked():
+    """`lowered_tc` lays the bank out once per cache; the check refuses a
+    missing plane, a wrong type, shape or layout of another width."""
+    _, tbank = _banks(n_dead=1)
+    cache = {}
+    ops = tfk.lowered_tc(tbank, cache)
+    assert tfk.lowered_tc(tbank, cache) is ops
+    assert set(cache) == {(1, 1.0), "fact_tc_operands"}
+    fkb = tfk.fact_kernel_bank(tbank)
+    want = tfk.fact_tc_operands(fkb)
+    assert all(torch.equal(a, b) for a, b in zip(ops, want))
+    cpu = torch.device("cpu")
+    tfk.check_fact_tc_operands("k", ops, fkb, cpu)
+    for bad in (ops._replace(lo2=None), ops._replace(hi=ops.hi.float()),
+                ops._replace(rec=ops.rec[:, :-1].contiguous()),
+                tfk.fact_tc_operands(_random_fkb(D, 2 * M, K))):
+        with pytest.raises(ValueError, match="fact_tc_operands"):
+            tfk.check_fact_tc_operands("k", bad, fkb, cpu)
+
+
+@pytest.mark.parametrize("kernel,t,alpha", [
+    ("K11", 1, 1.0), ("K12", 4, 0.25), ("K12", 4, 1.0), ("K13", 1, 1.0)])
+def test_fact_tc_reference_matches_plain_and_jax(kernel, t, alpha):
+    """The plain six-product version against the float32 plain version
+    (1e-6 of the scale) and the JAX interpret-mode kernels (1e-5), for K11,
+    K12 (T = 4) and K13 on one component shard."""
+    jbank, tbank = _banks(n_dead=1)
+    r = _obs(256)
+    x2 = tck._x2(torch.as_tensor(r))
+    if kernel == "K13":
+        shard = tmb.FactoredBank(*(x[:K // 2] for x in tbank))
+        fkb = tfk.fact_kernel_bank(shard)
+        got = tfk.fact_tc_reference(x2, fkb, stats=True)
+        plain = tfk.fact_estimate_stats_reference(x2, fkb)
+        want = pk.estimate_fused_factored_stats(
+            jmb.FactoredBank(*(x[:K // 2] for x in jbank)), jnp.asarray(r),
+            interpret=True)
+        exact = tfk.fact_estimate_stats_reference(
+            x2.double(), type(fkb)(*(x.double() for x in fkb)))
+        for g, p, e, w in zip(got, plain, exact, want):
+            _close(g, p.numpy())
+            _held64(g, p, e)
+            _close(tck._hc(g, torch.complex64) if g.dim() == 2 else g, w)
+        return
+    fkb = tfk.fact_kernel_bank(tbank, t, alpha)
+    f64 = type(fkb)(*(x.double() for x in fkb))
+    got = tfk.fact_tc_reference(x2, fkb, t, alpha)
+    if t == 1:
+        plain = tfk.fact_estimate_reference(x2, fkb)
+        exact = tfk.fact_estimate_reference(x2.double(), f64)
+        want = pk.estimate_fused_factored(jbank, jnp.asarray(r), tile_n=64,
+                                          interpret=True)
+    else:
+        plain = tfk.fact_estimate_coherent_reference(x2, fkb, t, alpha)
+        exact = tfk.fact_estimate_coherent_reference(x2.double(), f64, t,
+                                                     alpha)
+        want = pk.estimate_fused_factored_coherent(
+            jbank, jnp.asarray(r).reshape(-1, t, D), alpha=alpha,
+            interpret=True).reshape(-1, D)
+    _close(got, plain.numpy())
+    _held64(got, plain, exact)
+    _close(tck._hc(got, torch.complex64), want)
+
+
+def _held64(got, plain, exact):
+    """The float64 rule: got's max |error| against `exact` at most twice
+    the float32 plain version's."""
+    def err(x):
+        return float((x.double() - exact).abs().max())
+    assert err(got) <= 2 * err(plain), (err(got), err(plain))
+
+
+def test_new_tile_rule_admits_every_old_shape():
+    """The tensor-core template's rule admits every (D, M, T) the float32
+    template's did (T up to 64 while D <= 64 and M <= 32, else 32), and
+    T up to 64 at every width."""
+    for d in range(1, tfk.FACT_MAX_D + 1):
+        for m in range(1, tfk.FACT_MAX_M + 1):
+            old = 64 if d <= 64 and m <= 32 else 32
+            assert tfk.fact_kernel_eligible(d, 5, m, old)
+            assert tfk.fact_kernel_eligible(d, 5, m, 64)
+            assert not tfk.fact_kernel_eligible(d, 5, m, 65)
+
+
+def test_tc_repeat_check_fact_mode_on_cpu():
+    """Mode 'fact' of `tc_repeat_check` (K11, K12, K13) through the plain
+    versions: every launch held, none off; its card shapes cover the
+    combine's A in registers with one and two warpgroups, A in shared memory
+    with 64-, 32- and 16-column pieces, each pooling route and K13."""
+    shapes = ((8, 3, 3, 70, 1, 1, 1.0, "K11"), (12, 20, 2, 4 * 9, 0, 4, 0.5,
+                                                  "K12"),
+              (8, 3, 2, 3 * 11, 0, 3, 1.0, "K12"), (10, 5, 4, 33, 1, 1, 1.0,
+                                                    "K13"))
+    got = trc.repeat_check(torch.device("cpu"), repeats=2, poison=False,
+                           modes=("fact",), fact_shapes=shapes)
+    assert set(got) == {"kernel"} and len(got["kernel"]) == len(shapes)
+    for rec in got["kernel"].values():
+        assert rec == {"launches": 2, "failures": 0, "max_err": 0.0}
+    forms = {(tfk.fact_tc_shape(d, m), n >= 2 * 132 * 64 // t, t, name)
+             for d, m, _, n, _, t, _, name in trc.FACT_SHAPES}
+    pws = {f[0][0] for f in forms}
+    assert pws == {16, 32, 64}
+    ars = {f[1] for f in forms if f[0][1] <= 2 and f[0][2] == 1}
+    assert ars == {True, False}            # one and two warpgroups
+    assert {1, 3, 4, 16, 64} <= {f[2] for f in forms}
+    assert {"K11", "K12", "K13"} == {f[3] for f in forms}
