@@ -6,7 +6,7 @@ Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit, the torch/CUDA versions, and the
      build of every CUDA kernel of the port from `csrc/` with `nvcc` (the
      `-Xptxas -v` summary of the redesigned sources; K14a's forms at M, D
-     <= 64 and every instantiation of K11-K13 must not spill);
+     <= 64 and every instantiation of K11-K13 and of K10 must not spill);
   2. every kernel against its plain PyTorch version on the card, at the
      widths of the main path (D = M = 64, K = 64): K1 at the headline batch
      N = 131072, at the main path's ragged N = 10000 and with dead
@@ -30,7 +30,9 @@ Phases (any failure exits non-zero; nothing is caught):
      unquantized banks, `blocks=(8, 8)`, the widest instantiation (D = K =
      128, P = 4), and its coherent form over the same (T, alpha) grid at
      N = 131072, a ragged block count and the largest T of both tile
-     sizes; the factored (MFA) kernels on seeded MFA priors (D = K = 64,
+     sizes, and K10 flat and coherent (T = 4) at the headline for P = 2
+     and 4 under the float64 rule (`fp32_accuracy`, below); the factored
+     (MFA) kernels on seeded MFA priors (D = K = 64,
      M = 16, 2-bit, 10 dB, zero and non-zero means, dead components): K11
      and K13 at N = 131072, the main path's N and a ragged N, K12 for T = 4
      at alpha in {1, 0.25, 0}, T = 16 and a ragged block count, the edges
@@ -66,9 +68,11 @@ Phases (any failure exits non-zero; nothing is caught):
      then both once
      more with `cov_type='circulant'` (the FFT-domain bank, K6 and K7),
      and those two with `n_pilots=2` (the multi-pilot bank, K10 and its
-     coherent form), with the scientific invariants of their MSE tables and
-     the multi-pilot estimate held against the dense bank's (K1 at M = 128)
-     from the same fit; `run_mfa.run` at the `MfaBenchConfig` defaults
+     coherent form; the fitted 2-pilot bank of each of the 7 SNRs kept: K10
+     and its coherent form at T = 4 against their plain versions and under
+     the float64 rule), with the scientific invariants of their MSE tables
+     and the multi-pilot estimate held against the dense bank's (K1 at M =
+     128) from the same fit; `run_mfa.run` at the `MfaBenchConfig` defaults
      (the factored bank, K11; its fitted bank at each of its 7 SNRs kept:
      K11, K12 at T = 4 and K13 against their plain versions and under the
      float64 rule) and with `n_coherence=4` (K12), its MSE invariants
@@ -97,9 +101,9 @@ Phases (any failure exits non-zero; nothing is caught):
   4. CUDA-event times of each kernel, its plain version and a library
      yardstick at the headline shapes (K11-K13 at M = 16; K2 also on one
      32-component shard), beside the least time the card could take (for
-     K1-K3, K11-K13 and K15, six bf16 products on the tensor cores, also
-     the bound of their products as fp32 FMAs; for K1-K3 and K15 a chain of
-     the six bf16 GEMMs, each adding into one float32 result);
+     K1-K3, K10, K11-K13 and K15, six bf16 products on the tensor cores,
+     also the bound of their products as fp32 FMAs; for K1-K3 and K15 a
+     chain of the six bf16 GEMMs, each adding into one float32 result);
   5. the kernel-measurement path, K1's variants: the Karatsuba estimator
      K14a, the bf16 tensor-core modes K14b ('bf16', 'split2', 'split3') and
      the seven bodies of the floor probe K15 against their plain versions
@@ -110,7 +114,7 @@ Phases (any failure exits non-zero; nothing is caught):
      split3 against the plain version in float64, where K1, K3 and K14a
      must be within twice the float32 plain version's error and split3
      must not be (`fp32_accuracy`, also on the fitted banks of phase 3);
-     K14b, K14a and K11-K13 launched 100 times and K1 / K3 150 times at
+     K14b, K14a, K11-K13 and K10 launched 100 times and K1 / K3 150 times at
      each shape of `tools.tc_repeat_check`, each launch after a fill of
      every SM's shared memory with NaN and held against its plain version;
      then the
@@ -120,8 +124,8 @@ Phases (any failure exits non-zero; nothing is caught):
      einsum estimator's at 10 and 20 dB), the times of K14a, K14b and K15
      as in phase 4 (K14a's bound that of its six bf16 products per real
      product), one K1 launch under `utils.profiling.trace` with its row of
-     the profiler's table, and K1 / K3 / K14a / K11-K13 at 512, 4096 and
-     131072 rows (`tools.batch_sweep`);
+     the profiler's table, and K1 / K3 / K14a / K11-K13 / K10 at 512, 4096
+     and 131072 rows (`tools.batch_sweep`);
 then one JSON line of kernels, one of the main paths' results, one of the
 serving phase, the card line, and the final status line. It imports nothing
 of JAX and uses one card.
@@ -584,7 +588,8 @@ def main():
     # K14b; K4 / K5; K14a): registers, spills and shared memory of every
     # instantiation
     for name in ("grouped_estimate", "floor_probe", "grouped_tc_estimate",
-                 "grouped_topk", "karatsuba_estimate", "fact_estimate"):
+                 "grouped_topk", "karatsuba_estimate", "fact_estimate",
+                 "mp_circ_estimate"):
         summary = ptxas_summary(build_logs.get(name, ""))
         log(f"ptxas {name} (dynamic shared memory is set per launch): "
             + ("; ".join(summary) if summary else "not rebuilt"))
@@ -603,6 +608,12 @@ def main():
             not fact_rows
             or not all("spills 0/0 B" in row for row in fact_rows)):
         raise AssertionError(f"K11-K13 instantiations spill: {fact_rows}")
+    # K10 (the multi-pilot template on the tensor cores): no instantiation
+    # may spill
+    mp_rows = ptxas_summary(build_logs.get("mp_circ_estimate", ""))
+    if "mp_circ_estimate" in build_logs and (
+            not mp_rows or not all("spills 0/0 B" in row for row in mp_rows)):
+        raise AssertionError(f"K10 instantiations spill: {mp_rows}")
     log(f"build: {time.time() - tb:.1f}s")
 
     # 2. kernels against their plain versions
@@ -792,6 +803,43 @@ def main():
             check_mp("full", 2, t=t, alpha=alpha)
     check_mp("dead, B=2501", 3, 24, 40, 2501 * 4, 4, 0.25, n_dead=2)
     check_mp("largest T", 2, n=64 * 301, t=64)
+
+    def mp_accuracy(label, bank_c, rows):
+        """K10 and its coherent form (T = 4, alpha 1) on the complex rows
+        (N, P D) of the multi-pilot bank bank_c against their plain versions
+        (`compare64`) and under the float64 rule `fp32_accuracy` (the bank's
+        operands laid out once); raises where the kernel breaks the rule.
+        Returns the errors of each."""
+        xm = ck._x2(rows)
+        ckb1 = mk.mp_circ_kernel_bank(bank_c)
+        ckb4 = mk.mp_circ_kernel_bank(bank_c, None, 4, 1.0)
+        ops_c = mk.mp_circ_tc_operands(ckb1)
+        x64 = xm.double()
+        runs = {
+            "K10": ("mp_circ_estimate", mk.mp_circ_estimate(xm, ckb1, ops_c),
+                    mk.mp_circ_estimate_reference(xm, ckb1),
+                    mk.mp_circ_estimate_reference(x64, f64(ckb1))),
+            "K10 T=4": ("mp_circ_estimate_coherent",
+                        mk.mp_circ_estimate_coherent(xm, ckb4, 4, 1.0, ops_c),
+                        mk.mp_circ_estimate_coherent_reference(xm, ckb4, 4,
+                                                               1.0),
+                        mk.mp_circ_estimate_coherent_reference(
+                            x64, f64(ckb4), 4, 1.0))}
+        acc = {}
+        for key, (name, got, want, want64) in runs.items():
+            errs[name].append(compare64(name, label, got, want, want64))
+            acc[key], held = fp32_accuracy(name, label, got, want, want64)
+            if not held:
+                raise AssertionError(f"{key} less accurate than float32 "
+                                     f"({label}): {acc[key]}")
+        return acc
+
+    # the float64 rule at the headline: P = 2 and 4, flat and T = 4
+    mp_acc = {}
+    for p_h in (2, 4):
+        bank_h, a_h, q_h = mp_bank(dev, p_h)
+        mp_acc[f"headline P={p_h}"] = mp_accuracy(
+            f"headline, P={p_h}", bank_h, mp_obs(dev, a_h, q_h, N_BENCH))
 
     # 2d. the factored (MFA) kernels K11-K13 against their plain versions
     fk = fact_kernels
@@ -1234,19 +1282,37 @@ def main():
                                  f"{launches_m[kernel_name]} times")
         log(f"blmmse_gmm, {label}: {mse_m['blmmse_gmm']}")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg_m, mse_m, rate_m, timings_m, mp_s, launches_m = main_path_run(
-            run_gmm, kernels, dev, tmp, falling=False, use_cache=True,
-            cov_type="circulant", n_pilots=2)
-        # the same fit and validation channels through the dense bank (K1
-        # at M = 128) and through the multi-pilot bank (K10), at -10 and
-        # 10 dB
-        saves = os.path.join(tmp, "saves")
-        fit_file, = [f for f in os.listdir(saves) if f.startswith("trained")]
-        data_file, = [f for f in os.listdir(saves) if f.startswith("saved")]
-        fit_params = qio.load_gmm_params(os.path.join(saves, fit_file), dev)
-        h_val = torch.as_tensor(qio.load_channels(
-            os.path.join(saves, data_file))[0][cfg_m.n_train:], device=dev)
+    # the 2-pilot run keeps the fitted multi-pilot banks and observations
+    # it estimates (stages.estimate_circulant) for the float64 rule below
+    mp_calls, estimate_circulant = [], stages.estimate_circulant
+
+    def keep_circulant(bank_s, r_s, *args, **kwargs):
+        if isinstance(bank_s, structured_bank.CirculantBankMP):
+            mp_calls.append((bank_s, r_s))
+        return estimate_circulant(bank_s, r_s, *args, **kwargs)
+
+    stages.estimate_circulant = keep_circulant
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg_m, mse_m, rate_m, timings_m, mp_s, launches_m = \
+                main_path_run(run_gmm, kernels, dev, tmp, falling=False,
+                              use_cache=True, cov_type="circulant",
+                              n_pilots=2)
+            # the same fit and validation channels through the dense bank
+            # (K1 at M = 128) and through the multi-pilot bank (K10), at
+            # -10 and 10 dB
+            saves = os.path.join(tmp, "saves")
+            fit_file, = [f for f in os.listdir(saves)
+                         if f.startswith("trained")]
+            data_file, = [f for f in os.listdir(saves)
+                          if f.startswith("saved")]
+            fit_params = qio.load_gmm_params(os.path.join(saves, fit_file),
+                                             dev)
+            h_val = torch.as_tensor(qio.load_channels(
+                os.path.join(saves, data_file))[0][cfg_m.n_train:],
+                device=dev)
+    finally:
+        stages.estimate_circulant = estimate_circulant
     add(launches_m)
     mp_invariants("circulant, 2 pilots", mse_m, launches_m,
                   "mp_circ_estimate")
@@ -1271,6 +1337,15 @@ def main():
     if not mp_vs_dense[-10.0] <= TOL:
         raise AssertionError(f"multi-pilot bank off the dense bank: "
                              f"{mp_vs_dense}")
+    # K10 and its coherent form (T = 4) on the fitted 2-pilot bank of each
+    # SNR and the observations the run estimated, under the float64 rule
+    if len(mp_calls) != len(cfg_m.snrs):
+        raise AssertionError(f"the 2-pilot run estimated {len(mp_calls)} "
+                             f"multi-pilot banks for {len(cfg_m.snrs)} SNRs")
+    mp_acc["fitted_bank"] = {
+        str(snr): mp_accuracy(f"fitted 2-pilot bank, {snr} dB", bank_s, r_s)
+        for snr, (bank_s, r_s) in zip(cfg_m.snrs, mp_calls)}
+    del mp_calls
     with tempfile.TemporaryDirectory() as tmp:
         cfg_mc, mse_mc, rate_mc, timings_mc, mp_coh_s, launches_mc = \
             main_path_run(run_gmm, kernels, dev, tmp, falling=False,
@@ -1750,40 +1825,75 @@ def main():
                lambda: structured_bank.estimate_circulant_coherent_stats(
                    cbank, r_blocks, 4096, 1.0, None, "fft"))
 
-    # K10: 2 N (P 2D 2D + F K + (P+1) K 2D + 2D 2D) operations with
-    # F = D (3P + P (P-1)) features, the useful work only (the TPU kernel's
-    # forward operands are mostly zero blocks); bytes: the (N, 2PD) rows
-    # read and the (N, 2D) rows written once, the operands once. Library
-    # yardstick as for K6: the torch.fft pipeline over the batch as one
-    # chunk; its default chunks are 8192 rows / 2048 blocks.
+    # K10: its four products, 2 N (P 2D 2D + F K + (P+1) K 2D + 2D 2D) with
+    # F = D (3P + P (P-1)) features (the useful work only: the TPU kernel's
+    # forward operands are mostly zero blocks), as six bf16 products on the
+    # tensor cores, plus the fp32 work around them: the features (3 P D for
+    # |u_p|^2, 6 D a pair), the complex combine (8 P D), the constant and the
+    # softmax (5 K), the coherent pool (3 K); `bound_fp32_ms`: the products
+    # as fp32 FMAs. Bytes: the (N, 2PD) rows read and the (N, 2D) rows
+    # written once, the operands once. The bank's units from L2
+    # (`l2_operand_bytes`): `mp_circ_units` x 24 KB a block, of 128 rows
+    # where two warpgroups take a block (D, K <= 64, both warpgroups' u
+    # beside a ring of two units, blocks over the SMs: `mp_plan` in
+    # csrc/mp_circ_estimate.cu), else of 64. Library yardstick as for K6:
+    # the torch.fft pipeline over the batch as one chunk; its default
+    # chunks are 8192 rows / 2048 blocks.
     def timed_mp(p, t=1):
         bank_p, a_p, q_p = mp_bank(dev, p)
         rp = mp_obs(dev, a_p, q_p, n)
         xp = ck._x2(rp)
         ckb_p = mk.mp_circ_kernel_bank(bank_p, None, t, 1.0)
+        ops_p = mk.mp_circ_tc_operands(ckb_p)   # laid out once
         feat = D * (3 * p + p * (p - 1))
-        flops = 2.0 * n * (p * two_d * two_d + feat * K
-                           + (p + 1) * K * two_d + two_d * two_d)
+        gemm = 2.0 * n * (p * two_d * two_d + feat * K
+                          + (p + 1) * K * two_d + two_d * two_d)
+        epi = n * (3.0 * p * D + 3.0 * p * (p - 1) * D + 8.0 * p * D
+                   + 5.0 * K + (3.0 * K if t > 1 else 0.0))
         nbytes_p = 4.0 * (n * (p * two_d + two_d)
                           + sum(x.numel() for x in ckb_p))
+        wg_rows = 64 // t * t
+        two_wg = (D <= 64 and K <= 64 and mk.mp_circ_smem_bytes(
+            D, K, p, t, 2) <= mk.SMEM_BLOCK_BYTES
+                  and (n + 2 * wg_rows - 1) // (2 * wg_rows)
+                  >= torch.cuda.get_device_properties(dev)
+                  .multi_processor_count)
+        block_rows = (2 if two_wg else 1) * wg_rows
         if t == 1:
-            return timed(
-                f"K10 (P={p})", lambda: mk.mp_circ_estimate(xp, ckb_p),
+            rec = timed(
+                f"K10 (P={p})", lambda: mk.mp_circ_estimate(xp, ckb_p, ops_p),
                 lambda: mk.mp_circ_estimate_reference(xp, ckb_p),
                 lambda: structured_bank.estimate_circulant_mp(
-                    bank_p, rp, "all", n, None, "fft"), flops, nbytes_p,
+                    bank_p, rp, "all", n, None, "fft"), epi, nbytes_p,
                 lambda: structured_bank.estimate_circulant_mp(
-                    bank_p, rp, "all", 8192, None, "fft"), p * two_d)
-        rp_blocks = rp.reshape(-1, t, rp.shape[-1])
-        return timed(
-            f"K10 coherent (P={p}, T={t}, alpha=1)",
-            lambda: mk.mp_circ_estimate_coherent(xp, ckb_p, t, 1.0),
-            lambda: mk.mp_circ_estimate_coherent_reference(xp, ckb_p, t, 1.0),
-            lambda: structured_bank.estimate_circulant_mp_coherent(
-                bank_p, rp_blocks, "all", n // t, 1.0, None, "fft"),
-            flops + 3.0 * n * K, nbytes_p,
-            lambda: structured_bank.estimate_circulant_mp_coherent(
-                bank_p, rp_blocks, "all", 2048, 1.0, None, "fft"), p * two_d)
+                    bank_p, rp, "all", 8192, None, "fft"), p * two_d,
+                tc_flops=6.0 * gemm)
+        else:
+            rp_blocks = rp.reshape(-1, t, rp.shape[-1])
+            rec = timed(
+                f"K10 coherent (P={p}, T={t}, alpha=1)",
+                lambda: mk.mp_circ_estimate_coherent(xp, ckb_p, t, 1.0,
+                                                     ops_p),
+                lambda: mk.mp_circ_estimate_coherent_reference(xp, ckb_p, t,
+                                                               1.0),
+                lambda: structured_bank.estimate_circulant_mp_coherent(
+                    bank_p, rp_blocks, "all", n // t, 1.0, None, "fft"),
+                epi, nbytes_p,
+                lambda: structured_bank.estimate_circulant_mp_coherent(
+                    bank_p, rp_blocks, "all", 2048, 1.0, None, "fft"),
+                p * two_d, tc_flops=6.0 * gemm)
+        rec["tc_flops"] = 6.0 * gemm
+        rec["bound_fp32_ms"] = bound(gemm + epi, nbytes_p)[0]
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["block_rows"] = block_rows
+        rec["l2_operand_bytes"] = (mk.mp_circ_units(D, K, p) * 24576.0
+                                   * -(-n // block_rows))
+        log(f"K10 (P={p}, T={t}): bound of the six products "
+            f"{rec['bound_ms']:.3f} ms ({rec['share_of_bound']:.0%} "
+            f"reached), as fp32 FMAs {rec['bound_fp32_ms']:.3f} ms; the "
+            f"bank's units from L2 {rec['l2_operand_bytes'] / 1e9:.3f} GB "
+            f"({block_rows}-row blocks)")
+        return rec
 
     t10, t10_p4, t10_coh = timed_mp(2), timed_mp(4), timed_mp(2, 4)
 
@@ -2027,6 +2137,19 @@ def main():
         f"{bad or 0}")
     if bad:
         raise AssertionError(f"K11-K13 off on repeated launches: {bad}")
+    # ... and K10 at each of tc_repeat_check's MPCIRC_SHAPES (one and two
+    # warpgroups a block, 32 live rows, one, two and four pieces of 2D, two
+    # of K, each pool), under the same rule
+    tm = time.time()
+    rep_mp = tc_repeat_check.repeat_check(dev, repeats=100,
+                                          modes=("mpcirc",))["kernel"]
+    bad = {k: v for k, v in rep_mp.items() if v["failures"]}
+    log(f"K10 repeated: {sum(v['launches'] for v in rep_mp.values())} "
+        f"launches in {time.time() - tm:.1f}s, max err "
+        f"{max(v['max_err'] for v in rep_mp.values()):.3e}, failures "
+        f"{bad or 0}")
+    if bad:
+        raise AssertionError(f"K10 off on repeated launches: {bad}")
 
     # 5b. the path itself, through the tools' entry points at their
     # defaults, its launches counted alone: the floor probe, kernel_bench
@@ -2199,12 +2322,26 @@ def main():
          "source": src + "mp_circ_estimate.cu", "replaces": f"{tpu}:1505",
          "launches": total_launches["mp_circ_estimate"],
          "max_abs_err": max(errs["mp_circ_estimate"]),
-         "n_pilots": 2, **t10, "at_p4": t10_p4},
+         "n_pilots": 2, **t10, "at_p4": t10_p4,
+         "at_rows_ms": {k: v for k, v in sweep.items()
+                        if k.startswith("K10 P=2 N")},
+         "fp32_accuracy": {
+             "headline": {k: v["K10"] for k, v in mp_acc.items()
+                          if k.startswith("headline")},
+             "fitted_bank": {k: v["K10"]
+                             for k, v in mp_acc["fitted_bank"].items()}}},
         {"name": "mp_circ_estimate_coherent", "id": "K10_coh", "route": "cuda",
          "source": src + "mp_circ_estimate.cu", "replaces": f"{tpu}:1505",
          "launches": total_launches["mp_circ_estimate_coherent"],
          "max_abs_err": max(errs["mp_circ_estimate_coherent"]),
-         "n_pilots": 2, "t_coh": 4, "coh_alpha": 1.0, **t10_coh},
+         "n_pilots": 2, "t_coh": 4, "coh_alpha": 1.0, **t10_coh,
+         "at_rows_ms": {k: v for k, v in sweep.items()
+                        if k.startswith("K10 P=2 T=4")},
+         "fp32_accuracy": {
+             "headline": {k: v["K10 T=4"] for k, v in mp_acc.items()
+                          if k.startswith("headline")},
+             "fitted_bank": {k: v["K10 T=4"]
+                             for k, v in mp_acc["fitted_bank"].items()}}},
         {"name": "fact_estimate", "id": "K11", "route": "cuda",
          "source": src + "fact_estimate.cu", "replaces": f"{tpu}:2048",
          "launches": total_launches["fact_estimate"],

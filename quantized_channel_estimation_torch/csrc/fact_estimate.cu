@@ -137,15 +137,6 @@ __device__ __forceinline__ unsigned ld_shared_b32(unsigned addr) {
   return v;
 }
 
-__device__ __forceinline__ float4 ld_shared_f4(unsigned addr) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
 // k16 step I of a piece's six products with both operands in shared
 // memory, product by product over the piece's NC chunks (each four steps):
 // A plane prod_a of chunk c at da (planes NC atoms apart), B plane prod_b of
@@ -198,23 +189,6 @@ __device__ __forceinline__ float bf_lo(unsigned w) {
 }
 __device__ __forceinline__ float bf_hi(unsigned w) {
   return __uint_as_float(w & 0xFFFF0000u);
-}
-
-__device__ __forceinline__ unsigned bf2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// v0, v1 -> their three bf16 planes as packed pairs pl[plane] (v0 in the
-// low half), each rounded to nearest even, two values an instruction
-__device__ __forceinline__ void split3(float v0, float v1, unsigned (&pl)[3]) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  const float y0 = v0 - hf.x, y1 = v1 - hf.y;
-  const __nv_bfloat162 l = __floats2bfloat162_rn(y0, y1);
-  const float2 lf = __bfloat1622float2(l);
-  pl[0] = bf2_bits(h);
-  pl[1] = bf2_bits(l);
-  pl[2] = bf2_bits(__floats2bfloat162_rn(y0 - lf.x, y1 - lf.y));
 }
 
 // The complex value at (row, columns c, c + 1) of the rows whose planes
@@ -295,24 +269,6 @@ __device__ __forceinline__ void quad_piece(float (&q)[2],
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) q[r] += tree_sum<2 * C::kT>(part[r]);
-}
-
-// ARS: the forward accumulator (64 x 64) -> the combine's A fragments,
-// three planes of four k16 steps: step s, register e holds columns 16 s +
-// 2 (lane % 4) + 8 (e >> 1) + {0, 1} of row lane / 4 + 8 (e & 1), which
-// are accumulator pair 4 (2 s + (e >> 1)) + 2 (e & 1).
-__device__ __forceinline__ void to_a_regs(unsigned (&a)[3][4][4],
-                                          const float (&acc)[32]) {
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = 4 * (2 * s + (e >> 1)) + 2 * (e & 1);
-      unsigned w[3];
-      split3(acc[i], acc[i + 1], w);
-#pragma unroll
-      for (int q = 0; q < 3; ++q) a[q][s][e] = w[q];
-    }
 }
 
 // SS: forward piece j's accumulator -> its columns of the warpgroup's U

@@ -414,6 +414,50 @@ __device__ __forceinline__ unsigned pack_bf16(bf16 lo, bf16 hi) {
          (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
 }
 
+__device__ __forceinline__ float4 ld_shared_f4(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// v0, v1 -> their three bf16 planes as packed pairs pl[plane] (v0 in the
+// low half), each rounded to nearest even
+__device__ __forceinline__ void split3(float v0, float v1, unsigned (&pl)[3]) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const float y0 = v0 - hf.x, y1 = v1 - hf.y;
+  const __nv_bfloat162 l = __floats2bfloat162_rn(y0, y1);
+  const float2 lf = __bfloat1622float2(l);
+  pl[0] = bf2_bits(h);
+  pl[1] = bf2_bits(l);
+  pl[2] = bf2_bits(__floats2bfloat162_rn(y0 - lf.x, y1 - lf.y));
+}
+
+// An m64n64 accumulator (or values in its layout) -> the A fragments of one
+// 64-deep chunk, three planes of four k16 steps: step s, register e holds
+// columns 16 s + 8 (e >> 1) + 2 (lane % 4) + {0, 1} of row lane / 4 + 8 (e
+// & 1), which are accumulator pair 4 (2 s + (e >> 1)) + 2 (e & 1).
+__device__ __forceinline__ void to_a_regs(unsigned (&a)[3][4][4],
+                                          const float (&v)[32]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * (2 * s + (e >> 1)) + 2 * (e & 1);
+      unsigned w[3];
+      split3(v[i], v[i + 1], w);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) a[q][s][e] = w[q];
+    }
+}
+
 // Shared memory, from a 1024-aligned base: with A in shared memory each
 // warpgroup's A planes [plane][chunk][64 rows][128 B]; the ring of stages,
 // a stage one piece of each B plane [plane][chunk][64 columns][128 B];

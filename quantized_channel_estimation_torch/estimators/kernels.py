@@ -160,7 +160,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.circ_estimate_launch.restype = i32
     elif name == "mp_circ_estimate":
         lib.mp_circ_estimate_launch.argtypes = (
-            [ptr] * 7 + [i32] * 5 + [f32, ptr])
+            [ptr] * 6 + [i32] * 6 + [f32, ptr])
         lib.mp_circ_estimate_launch.restype = i32
     elif name == "fact_estimate":
         lib.fact_estimate_launch.argtypes = (

@@ -1,5 +1,5 @@
-"""Time K1, K3, K14a, K11, K12 and K13 at the batch sizes the service and
-the sweeps send.
+"""Time K1, K3, K14a, K11, K12, K13 and K10 at the batch sizes the service
+and the sweeps send.
 
 The service flushes microbatches of 256-1024 rows, `run_gmm` estimates
 10000 rows an SNR, and the kernel tools 131072. A kernel's time at a small
@@ -11,13 +11,17 @@ K14a (`variant_kernels.karatsuba_estimate`), and on the factored bank of
 a seeded MFA prior at the same widths (`--latent` M = 16, zero means,
 loadings of total power 0.8 a dimension) K11 (`fact_kernels.fact_estimate`),
 K12 (`fact_kernels.fact_estimate_coherent` at T = 4, alpha 1) and K13
-(`fact_kernels.fact_estimate_stats`, the whole bank as one shard), at each
-`--rows`, with CUDA events (median of `--repeats`), the banks' kernel
-layouts made once beforehand, and prints one JSON line. Run as a file with
-an older checkout first on the path (`PYTHONPATH=<checkout> python3
-<this file>`), it times that checkout's kernels, so that one call can time
-a parent and a change in turns; a K14a or K11-K13 wrapper that takes no
-laid-out operands (the fp32 loops they replaced) gets none.
+(`fact_kernels.fact_estimate_stats`, the whole bank as one shard), and on
+the 2-pilot bank of a seeded circulant prior at the same widths (spectra
+uniform on [0.05, 2], small non-zero means, uniform weights; the P = 2
+`pilots.pilot_matrix`) K10 (`mp_circ_kernels.mp_circ_estimate`) and its
+coherent form at T = 4, alpha 1, at each `--rows`, with CUDA events
+(median of `--repeats`), the banks' kernel layouts made once beforehand,
+and prints one JSON line. Run as a file with an older checkout first on the
+path (`PYTHONPATH=<checkout> python3 <this file>`), it times that
+checkout's kernels, so that one call can time a parent and a change in
+turns; a K14a, K11-K13 or K10 wrapper that takes no laid-out operands (the
+fp32 loops they replaced) gets none.
 
     python -m quantized_channel_estimation_torch.tools.batch_sweep \
         [--rows 512 4096 131072] [--repeats R] [--latent M]
@@ -31,12 +35,17 @@ import torch
 
 from quantized_channel_estimation_torch.estimators import fact_kernels
 from quantized_channel_estimation_torch.estimators import kernels
+from quantized_channel_estimation_torch.estimators import mp_circ_kernels
 from quantized_channel_estimation_torch.estimators import variant_kernels
-from quantized_channel_estimation_torch.models import mfa, mfa_bank
+from quantized_channel_estimation_torch.models import (
+    gmm, mfa, mfa_bank, structured_bank)
+from quantized_channel_estimation_torch.ops import observation, pilots
+from quantized_channel_estimation_torch.ops.cplx import crandn
 from quantized_channel_estimation_torch.tools import common
 
 ROWS = (512, 4096, 131072)
 LATENT = 16   # M of the MFA prior: run_mfa's D / 4
+PILOTS = 2    # P of the multi-pilot bank: run_gmm's `n_pilots=2`
 
 
 def fact_bank(dev, q, n_ant, k_comp, m, n_bits, seed=0):
@@ -54,6 +63,46 @@ def fact_bank(dev, q, n_ant, k_comp, m, n_bits, seed=0):
         rng.uniform(0.05, 0.35, (k_comp, n_ant)).astype(np.float32))))
     return mfa_bank.prepare_bank_factored(
         params, common.SNR_DB, torch.tensor(1.0 + 0.0j), n_bits, q)
+
+
+def mp_bank_rows(dev, q, n_ant, k_comp, n_bits, n, p=PILOTS, seed=0):
+    """The multi-pilot bank at 10 dB under the P-pilot matrix of a seeded
+    circulant prior (spectra uniform on [0.05, 2], means of power 0.08,
+    uniform weights), and n of its quantized observations of unit-power
+    channels, interleaved (n, 2 P D)."""
+    rng = np.random.default_rng(seed)
+    spectra = torch.as_tensor(
+        rng.uniform(0.05, 2.0, (k_comp, n_ant)).astype(np.float32),
+        device=dev)
+    means = torch.as_tensor(
+        (0.2 * (rng.standard_normal((k_comp, n_ant))
+                + 1j * rng.standard_normal((k_comp, n_ant)))).astype(
+                    np.complex64), device=dev)
+    dummy = torch.zeros((k_comp, 1, 1), dtype=torch.complex64, device=dev)
+    params = gmm.GmmParams(torch.full((k_comp,), 1.0 / k_comp, device=dev),
+                           means, dummy, dummy)
+    a = pilots.pilot_matrix(n_ant, p, n_bits, device=dev)
+    bank = structured_bank.prepare_bank_circulant(
+        params, common.SNR_DB, a, n_bits, q, spectra=spectra)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    r = observation.observe(gen, crandn(gen, (n, n_ant)), common.SNR_DB, a,
+                            n_bits, q)
+    return bank, torch.view_as_real(r.to(torch.complex64)).reshape(
+        n, -1).contiguous()
+
+
+def _mp_wrappers(bank, xm):
+    """{label: (T, call(n))} of K10 and its coherent form (T = 4, alpha 1)
+    on the multi-pilot bank's layouts, each on the first n rows of xm, with
+    the bank's tensor-core operands made once."""
+    mk = mp_circ_kernels
+    ckb, ckb4 = mk.mp_circ_kernel_bank(bank), mk.mp_circ_kernel_bank(
+        bank, None, 4, 1.0)
+    ops = ((mk.mp_circ_tc_operands(ckb),)
+           if hasattr(mk, "mp_circ_tc_operands") else ())
+    return {"K10 P=2": (1, lambda n: mk.mp_circ_estimate(xm[:n], ckb, *ops)),
+            "K10 P=2 T=4": (4, lambda n: mk.mp_circ_estimate_coherent(
+                xm[:n], ckb4, 4, 1.0, *ops))}
 
 
 def _wrappers(kb_t, kk, r2):
@@ -108,7 +157,10 @@ def main(argv=None) -> dict:
         r.shape[0], -1).contiguous()            # interleaved [re, im]
     fbank = fact_bank(dev, q, args.n_ant, args.components, args.latent,
                       args.bits)
-    calls = {**_wrappers(kb_t, kk, r2), **_fact_wrappers(fbank, x2)}
+    mbank, xm = mp_bank_rows(dev, q, args.n_ant, args.components, args.bits,
+                             max(args.rows))
+    calls = {**_wrappers(kb_t, kk, r2), **_fact_wrappers(fbank, x2),
+             **_mp_wrappers(mbank, xm)}
     ms = {}
     for label, (t, call) in calls.items():
         for n in args.rows:

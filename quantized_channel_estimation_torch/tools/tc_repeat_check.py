@@ -32,6 +32,11 @@ warpgroups a block, A in shared memory with 64-, 32- and 16-column pieces,
 K12 pooled by shuffles and through shared memory, K13), with the rule of
 mode 'f32' (for K13 on each of m, den and the accumulator).
 
+Mode 'mpcirc' does the same for the multi-pilot circulant kernel K10, flat
+and coherent (`MPCIRC_SHAPES`: one and two consumer warpgroups a block, 32
+live rows a warpgroup, one, two and four 64-column pieces of 2D, two of K,
+the coherent pool at T = 3, 4, 32 and 64), with the rule of mode 'f32'.
+
 `--without-proxy-fence` also builds a copy of K14b without the
 `fence.proxy.async` before each stage's release (in
 csrc/grouped_tc_stream.cuh) and runs it launch for launch beside the
@@ -40,7 +45,8 @@ kernel, to measure what the fence does; with `--time` it also times both
 headline widths (131072 rows, 2M = 2D = 128, K = 64).
 
     python -m quantized_channel_estimation_torch.tools.tc_repeat_check \
-        [--repeats R] [--modes bf16 split2 split3 f32 karatsuba fact] \
+        [--repeats R] \
+        [--modes bf16 split2 split3 f32 karatsuba fact mpcirc] \
         [--no-poison] \
         [--without-proxy-fence [--time]]
 
@@ -60,6 +66,7 @@ import torch
 
 from quantized_channel_estimation_torch.estimators import fact_kernels as fk
 from quantized_channel_estimation_torch.estimators import kernels
+from quantized_channel_estimation_torch.estimators import mp_circ_kernels as mk
 from quantized_channel_estimation_torch.estimators import variant_kernels as vk
 from quantized_channel_estimation_torch.harness import stages
 from quantized_channel_estimation_torch.utils import profiling
@@ -103,6 +110,17 @@ FACT_SHAPES = (
     (64, 16, 8, 64 * 301, 1, 64, 1.0, "K12"),  # shared memory
     (64, 64, 4, 3 * 1001, 0, 3, 0.5, "K12"),   # 63-row tiles, A in smem
     (64, 16, 16, 4097, 3, 1, 1.0, "K13"),     # A in registers
+)
+# K10: (P, D, K, N, dead components, T, alpha)
+MPCIRC_SHAPES = (
+    (2, 64, 64, 2 * 132 * 128 + 5, 0, 1, 1.0),  # two warpgroups, two waves
+    (2, 64, 16, 4097, 3, 1, 1.0),              # one warpgroup
+    (3, 24, 40, 1000, 1, 1, 1.0),              # one piece of 2D, 6 groups
+    (4, 100, 70, 515, 1, 1, 1.0),              # four pieces, two of K, HALF
+    (2, 64, 64, 4 * 8193, 2, 4, 1.0),          # pool, two warpgroups
+    (3, 32, 8, 3 * 1001, 0, 3, 0.5),           # T = 3: 63-row tiles
+    (4, 64, 64, 64 * 101, 1, 64, 1.0),         # T = 64
+    (4, 128, 128, 32 * 61, 0, 32, 0.25),       # the widest, HALF
 )
 REPEATS = 300
 STREAM = "grouped_tc_stream.cuh"
@@ -320,6 +338,66 @@ def _fact_check(dev, shapes, repeats, poison) -> dict:
     return out
 
 
+def random_mp_bank(p, d, k, dev, n_dead=0, t_coh=1, seed=0):
+    """A random multi-pilot kernel bank of any widths: unitary-scale
+    transforms, logits a few units apart, dead components at the -1e30
+    floor."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g)
+
+    feat = d * (3 * p + p * (p - 1))
+    const = 0.5 * rnd(k)
+    const[:n_dead] = -1e30
+    ckb = mk.MpCircKernelBank(
+        rnd(2 * d, 2 * d, scale=1 / math.sqrt(2 * d)),
+        rnd(feat, k, scale=0.3 / math.sqrt(feat)), const / t_coh,
+        rnd(p + 1, k, 2 * d, scale=0.5),
+        rnd(2 * d, 2 * d, scale=1 / math.sqrt(2 * d)))
+    return mk.MpCircKernelBank(*(x.to(dev).contiguous() for x in ckb))
+
+
+def _mp_check(dev, shapes, repeats, poison) -> dict:
+    """Mode 'mpcirc' of `repeat_check`: {label: {"launches", "failures",
+    "max_err"}} over K10 flat and coherent at `shapes`."""
+    out = {}
+    for p, d, k, n, n_dead, t, alpha in shapes:
+        ckb = random_mp_bank(p, d, k, dev, n_dead, t)
+        f64 = mk.MpCircKernelBank(*(x.double() for x in ckb))
+        ops = mk.mp_circ_tc_operands(ckb) if dev.type == "cuda" else None
+        x2 = random_rows(n, 2 * p * d, dev)
+        if t == 1:
+            def run():
+                return mk.mp_circ_estimate(x2, ckb, ops)
+            want = mk.mp_circ_estimate_reference(x2, ckb)
+            exact = mk.mp_circ_estimate_reference(x2.double(), f64)
+        else:
+            def run():
+                return mk.mp_circ_estimate_coherent(x2, ckb, t, alpha, ops)
+            want = mk.mp_circ_estimate_coherent_reference(x2, ckb, t, alpha)
+            exact = mk.mp_circ_estimate_coherent_reference(x2.double(), f64,
+                                                           t, alpha)
+        scale = want.abs().max()
+        plain_err = float((want.double() - exact).abs().max() / scale)
+        first, errs, fails = None, [], 0
+        for _ in range(repeats):
+            if poison:
+                poison_shared_memory(dev)
+            got = run()
+            rel = float((got - want).abs().max() / scale)
+            rel64 = float((got.double() - exact).abs().max() / scale)
+            ok = (first is None or torch.equal(got, first)) and (
+                rel <= TOL or rel64 <= 2 * plain_err + 1e-5)
+            if first is None:
+                first = got
+            fails += not ok     # NaN fails both comparisons
+            errs.append(rel if rel == rel else math.inf)
+        out[f"P={p} D={d} K={k} N={n} dead={n_dead} T={t} a={alpha} K10"] = {
+            "launches": repeats, "failures": fails, "max_err": max(errs)}
+    return out
+
+
 def _launch_copy(lib, r2, kb, ops, passes):
     n, two_m = r2.shape
     two_d = kb.b.shape[1]
@@ -385,11 +463,13 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
                  without_fence=False, modes=tuple(vk.TC_WRAPPERS),
                  f32_shapes=F32_SHAPES,
                  karatsuba_shapes=KARATSUBA_SHAPES,
-                 fact_shapes=FACT_SHAPES) -> dict:
+                 fact_shapes=FACT_SHAPES,
+                 mpcirc_shapes=MPCIRC_SHAPES) -> dict:
     """Every (shape, mode): `repeats` launches of K14b (and of the copy
     without the fence), each held against the plain version; mode 'f32':
     K1 and K3 at `f32_shapes`; mode 'karatsuba': K14a at
-    `karatsuba_shapes`; mode 'fact': K11-K13 at `fact_shapes`. Returns
+    `karatsuba_shapes`; mode 'fact': K11-K13 at `fact_shapes`; mode
+    'mpcirc': K10 at `mpcirc_shapes`. Returns
     {"kernel" (and "no fence"): {label: {"launches", "failures",
     "max_err"}}}."""
     copy = _without_fence() if without_fence else None
@@ -402,7 +482,11 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     if "fact" in modes:
         result["kernel"].update(_fact_check(dev, fact_shapes, repeats,
                                             poison))
-    modes = [m for m in modes if m not in ("f32", "karatsuba", "fact")]
+    if "mpcirc" in modes:
+        result["kernel"].update(_mp_check(dev, mpcirc_shapes, repeats,
+                                          poison))
+    modes = [m for m in modes
+             if m not in ("f32", "karatsuba", "fact", "mpcirc")]
     for two_m, two_d, k, n, n_dead in shapes if modes else ():
         kb = random_bank(two_m, two_d, k, dev, n_dead)
         planes = kernels.split_planes(kb.pw)
@@ -455,8 +539,10 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default=None)
     p.add_argument("--repeats", type=int, default=REPEATS)
     p.add_argument("--modes", nargs="+",
-                   default=[*vk.TC_WRAPPERS, "f32", "karatsuba", "fact"],
-                   choices=[*vk.TC_WRAPPERS, "f32", "karatsuba", "fact"])
+                   default=[*vk.TC_WRAPPERS, "f32", "karatsuba", "fact",
+                            "mpcirc"],
+                   choices=[*vk.TC_WRAPPERS, "f32", "karatsuba", "fact",
+                            "mpcirc"])
     p.add_argument("--no-poison", action="store_true")
     p.add_argument("--without-proxy-fence", action="store_true")
     p.add_argument("--time", action="store_true")

@@ -25,7 +25,8 @@ K3, six bf16 tensor-core products, are also held to that float64 rule
 where their plain version agrees within 1e-4, since 1e-4 alone passes a
 three-product split too; so is K14a, six bf16 products for each of its
 three real products, and so are the factored kernels K11-K13, six bf16
-products for each of their two products. The repeated launches of K14a and
+products for each of their two products, and the multi-pilot K10, six bf16
+products for each of its four. The repeated launches of K14a, K10 and
 K11-K13 are bit for bit the first.
 """
 import math
@@ -872,10 +873,11 @@ def _mp_bank(p, d, k, dev, n_dead=0, blocks=None, n_bits=2):
     return bank
 
 
-# every (CD, CK) instantiation of the template, P = 2, 3, 4, ragged sizes,
-# dead components, widths that are no multiple of 32, the kron basis, the
-# three bit widths, and the edges of the rule (the largest P at D = K = 64
-# and at D = K = 128, K = 128 at D = 64 and P = 4)
+# every width of the template (one, two and four 64-column pieces of 2D,
+# one and two of K), P = 2, 3, 4, ragged sizes, dead components, widths
+# that are no multiple of 32, the kron basis, the three bit widths, and the
+# edges of the rule (the largest P at D = K = 64 and at D = K = 128, both
+# with 32 live rows a warpgroup, K = 128 at D = 64 and P = 4)
 MP_SHAPES = [
     (2, 8, 4, 1000, 0, None, 2),
     (3, 32, 40, 4097, 3, None, 2),
@@ -889,6 +891,8 @@ MP_SHAPES = [
     (3, 100, 50, 517, 2, None, 2),
     (4, 128, 128, 2049, 0, (8, 16), 2),
     (16, 16, 8, 129, 0, None, 2),
+    (11, 64, 64, 300, 2, None, 2),
+    (5, 128, 128, 300, 0, None, 2),
 ]
 
 
@@ -975,10 +979,11 @@ def test_mp_circ_kernel_refuses_bad_inputs_and_one_past_the_rule():
     for t, rows in ((1, x2), (5, x2), (65, torch.zeros(130, 32, device=dev))):
         with pytest.raises(ValueError, match="T"):   # T = 1, N % T, T > tile
             tmk.mp_circ_estimate_coherent(rows, ckb, t)
-    # one past the rule: P = 5 at D = K = 64 and at D = K = 128, D = 129,
-    # K = 129 (no stats form to split over), T past the 32-row tile
-    for p, d, k, t in ((5, 64, 64, 1), (5, 128, 128, 1), (2, 129, 4, 1),
-                       (2, 8, 129, 1), (2, 128, 8, 33)):
+    # one past the rule: P = 12 at D = K = 64 and P = 6 at D = K = 128,
+    # D = 129, K = 129 (no stats form to split over), T past a warpgroup's
+    # 32 live rows
+    for p, d, k, t in ((12, 64, 64, 1), (6, 128, 128, 1), (2, 129, 4, 1),
+                       (2, 8, 129, 1), (3, 128, 8, 33)):
         assert not tmk.mp_circ_kernel_eligible(d, k, p, t)
         wide = _mp_bank(p, d, k, dev)
         r = torch.zeros(2, t, p * d, dtype=torch.complex64, device=dev)
@@ -1004,6 +1009,67 @@ def test_mp_circ_kernel_refuses_bad_inputs_and_one_past_the_rule():
     assert tmk.mp_circ_estimate(x2[:0], ckb).shape == (0, 16)
     assert tmk.mp_circ_estimate_coherent(x2[:0], ckb, 2).shape == (0, 16)
     assert tkn.launch_counts() == before             # nothing to launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("p,d,k,n", [
+    (2, 64, 64, 8192),      # the headline widths: two warpgroups a block
+    (4, 64, 64, 8192),      # one warpgroup of 64 rows
+    (4, 128, 128, 2048),    # the widest: 32 live rows, two pieces of K
+])
+def test_mp_circ_estimate_keeps_fp32_accuracy(t, p, d, k, n):
+    """K10, six bf16 products for each of its four products, is no less
+    accurate than float32: the max |error| against the plain version in
+    float64 at most twice the float32 plain version's own, flat and
+    coherent (T = 4, alpha 1), with dead components (the rule
+    `test_fact_kernels_keep_fp32_accuracy` holds K11-K13 to). The operands
+    laid out once give the same bits as those laid out in the call."""
+    dev = _card()
+    bank = _mp_bank(p, d, k, dev, n_dead=2)
+    ckb = tmk.mp_circ_kernel_bank(bank, None, t, 1.0)
+    x2 = _rows(n, 2 * p * d, dev)
+    ops = tmk.mp_circ_tc_operands(ckb)
+    if t == 1:
+        run = lambda o: tmk.mp_circ_estimate(x2, ckb, o)  # noqa: E731
+        want = tmk.mp_circ_estimate_reference(x2, ckb)
+        want64 = tmk.mp_circ_estimate_reference(x2.double(), _f64(ckb))
+    else:
+        run = lambda o: tmk.mp_circ_estimate_coherent(  # noqa: E731
+            x2, ckb, t, 1.0, o)
+        want = tmk.mp_circ_estimate_coherent_reference(x2, ckb, t, 1.0)
+        want64 = tmk.mp_circ_estimate_coherent_reference(
+            x2.double(), _f64(ckb), t, 1.0)
+    got = run(None)
+    torch.cuda.synchronize()
+
+    def err(x):
+        return float((x.double() - want64).abs().max())
+
+    assert torch.isfinite(got).all()
+    assert err(got) <= 2 * err(want), (err(got), err(want))
+    assert torch.equal(run(ops), got)
+
+
+@pytest.mark.cuda
+def test_mp_circ_repeated_launches_match_plain():
+    """K10 flat and coherent launched 100 times at each shape of
+    `tools.tc_repeat_check.MPCIRC_SHAPES` (one and two warpgroups a block,
+    32 live rows, one, two and four pieces of 2D, two of K, each pool), each
+    launch after a fill of every SM's shared memory with NaN, each bit for
+    bit the first launch and held against the plain version."""
+    dev = _card()
+    shapes = tc_repeat_check.MPCIRC_SHAPES
+    before = (tmk.mp_circ_estimate.launches,
+              tmk.mp_circ_estimate_coherent.launches)
+    runs = tc_repeat_check.repeat_check(dev, repeats=100,
+                                        modes=("mpcirc",))["kernel"]
+    n_coh = sum(1 for s in shapes if s[5] > 1)
+    assert tmk.mp_circ_estimate.launches == before[0] + 100 * (
+        len(shapes) - n_coh)
+    assert tmk.mp_circ_estimate_coherent.launches == before[1] + 100 * n_coh
+    assert len(runs) == len(shapes)
+    assert not {k: v for k, v in runs.items() if v["failures"]}, runs
 
 
 @pytest.mark.cuda

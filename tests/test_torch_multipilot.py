@@ -471,16 +471,19 @@ def test_mp_eligibility_rule_reads_shapes_only():
     assert mk.mp_circ_kernel_eligible(128, 128, 4, 32)
     assert mk.mp_circ_kernel_eligible(24, 40, 3, 16)    # no powers of two
     assert mk.mp_circ_kernel_eligible(16, 8, 16)
-    assert not mk.mp_circ_kernel_eligible(64, 64, 5)    # past shared memory
-    assert not mk.mp_circ_kernel_eligible(128, 128, 5)
+    assert mk.mp_circ_kernel_eligible(64, 64, 11)       # 32 live rows
+    assert not mk.mp_circ_kernel_eligible(64, 64, 12)   # past shared memory
+    assert mk.mp_circ_kernel_eligible(128, 128, 5)
+    assert not mk.mp_circ_kernel_eligible(128, 128, 6)
     assert not mk.mp_circ_kernel_eligible(129, 8, 2)
     assert not mk.mp_circ_kernel_eligible(64, 129, 2)   # no stats form
     assert not mk.mp_circ_kernel_eligible(64, 64, 2, 65)
-    assert not mk.mp_circ_kernel_eligible(128, 64, 2, 33)
-    # the tile of [u | group | w] rows and the ring, in bytes
-    assert mk.mp_circ_smem_bytes(64, 64, 2) == 4 * (64 * 448 + 8192)
-    assert mk.mp_circ_smem_bytes(64, 64, 4) == 212992
-    assert mk.mp_circ_smem_bytes(64, 64, 5) > mk.SMEM_BLOCK_BYTES
+    assert not mk.mp_circ_kernel_eligible(128, 64, 3, 33)
+    # a warpgroup's u beside a ring of two units, in bytes
+    assert mk.mp_circ_smem_bytes(64, 64, 2) == 1024 + 2 * 24592 + 65536
+    assert mk.mp_circ_smem_bytes(64, 64, 4) == 181280
+    assert mk.mp_circ_smem_bytes(64, 64, 12, half=True) \
+        > mk.SMEM_BLOCK_BYTES
 
 
 def test_mp_method_dispatch_and_refusals():
@@ -526,7 +529,7 @@ def test_mp_method_dispatch_and_refusals():
         tst.estimate_circulant_coherent(tb, rt, method="kernel")
     # K past one launch (there is no stats form to split over), and P past
     # the shared memory of a block
-    for p, k, d in ((2, ck.CIRC_MAX_K + 2, 4), (6, 4, 64)):
+    for p, k, d in ((2, ck.CIRC_MAX_K + 2, 4), (12, 4, 64)):
         _, wide = _banks(p, k=k, d=d, n_dead=0)
         rw = torch.as_tensor(_obs(12, p * d))
         assert not mk.mp_circ_kernel_eligible(d, k, p)

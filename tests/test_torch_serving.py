@@ -692,9 +692,9 @@ def test_structured_service_refusals(circ_setup):
                                   device="cpu", structured=True)
     svc = _circ_service(circ_setup, mode="all", use_kernels=True)  # accepted
     svc.close(timeout=TIMEOUT)
-    # 24 pilots at D = 16 are past K10's shared memory: served through the
+    # 48 pilots at D = 16 are past K10's shared memory: served through the
     # `torch.fft` pipeline unless the kernels are demanded
-    wide = np.kron(np.ones((24, 1)), np.asarray(a))
+    wide = np.kron(np.ones((48, 1)), np.asarray(a))
     with pytest.raises(ValueError, match="circulant kernels' range"):
         serving.EstimationService(params, wide, 2, device="cpu",
                                   structured=True, use_kernels=True)
