@@ -6,7 +6,8 @@ Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit, the torch/CUDA versions, and the
      build of every CUDA kernel of the port from `csrc/` with `nvcc` (the
      `-Xptxas -v` summary of the redesigned sources; K14a's forms at M, D
-     <= 64 and every instantiation of K11-K13 and of K10 must not spill);
+     <= 64 and every instantiation of K11-K13 and of K6-K10 (the 44 of
+     `mp_circ_estimate.cu`) must not spill);
   2. every kernel against its plain PyTorch version on the card, at the
      widths of the main path (D = M = 64, K = 64): K1 at the headline batch
      N = 131072, at the main path's ragged N = 10000 and with dead
@@ -23,7 +24,10 @@ Phases (any failure exits non-zero; nothing is caught):
      block-circulant case `blocks=(8, 8)` and two other template widths
      (D = 32 with K = 40, D = 128 with K = 128), and K8 / K9 on the two
      128-component shards of a K = 256 bank, as the K = 256 service runs
-     them, at a 512-row microbatch and at N = 131072; the multi-pilot
+     them, at a 512-row microbatch and at N = 131072, K7 and K9 at T = 64
+     at D = K = 128, and K6, K7 (T = 4), K8 and K9 (T = 4, two shards,
+     each state and the merged quotient) at the headline and at D = K =
+     128 under the float64 rule (`fp32_accuracy`, below); the multi-pilot
      circulant kernel K10 on seeded banks under the kron(x, I) pilot of
      `pilots.pilot_matrix`: P in {2, 3, 4} pilots at D, K = (16, 8),
      (24, 40), (64, 64) with dead components and a ragged N, 1-bit and
@@ -66,7 +70,9 @@ Phases (any failure exits non-zero; nothing is caught):
      of its 7 SNRs, with the blmmse_gmm NMSE of K1 and K3), and again with
      `n_coherence=4` (alpha 1),
      then both once
-     more with `cov_type='circulant'` (the FFT-domain bank, K6 and K7),
+     more with `cov_type='circulant'` (the FFT-domain bank, K6 and K7; the
+     fitted circulant bank of each of the 7 SNRs kept: K6, K7 at T = 4 and
+     K8 / K9 as two merged shards under the float64 rule),
      and those two with `n_pilots=2` (the multi-pilot bank, K10 and its
      coherent form; the fitted 2-pilot bank of each of the 7 SNRs kept: K10
      and its coherent form at T = 4 against their plain versions and under
@@ -101,7 +107,7 @@ Phases (any failure exits non-zero; nothing is caught):
   4. CUDA-event times of each kernel, its plain version and a library
      yardstick at the headline shapes (K11-K13 at M = 16; K2 also on one
      32-component shard), beside the least time the card could take (for
-     K1-K3, K10, K11-K13 and K15, six bf16 products on the tensor cores,
+     K1-K3, K6-K10, K11-K13 and K15, six bf16 products on the tensor cores,
      also the bound of their products as fp32 FMAs; for K1-K3 and K15 a
      chain of the six bf16 GEMMs, each adding into one float32 result);
   5. the kernel-measurement path, K1's variants: the Karatsuba estimator
@@ -114,7 +120,8 @@ Phases (any failure exits non-zero; nothing is caught):
      split3 against the plain version in float64, where K1, K3 and K14a
      must be within twice the float32 plain version's error and split3
      must not be (`fp32_accuracy`, also on the fitted banks of phase 3);
-     K14b, K14a, K11-K13 and K10 launched 100 times and K1 / K3 150 times at
+     K14b, K14a, K11-K13, K10 and K6-K9 launched 100 times and K1 / K3 150
+     times at
      each shape of `tools.tc_repeat_check`, each launch after a fill of
      every SM's shared memory with NaN and held against its plain version;
      then the
@@ -124,8 +131,8 @@ Phases (any failure exits non-zero; nothing is caught):
      einsum estimator's at 10 and 20 dB), the times of K14a, K14b and K15
      as in phase 4 (K14a's bound that of its six bf16 products per real
      product), one K1 launch under `utils.profiling.trace` with its row of
-     the profiler's table, and K1 / K3 / K14a / K11-K13 / K10 at 512, 4096
-     and 131072 rows (`tools.batch_sweep`);
+     the profiler's table, and K1 / K3 / K14a / K11-K13 / K10 / K6-K9 at
+     512, 4096 and 131072 rows (`tools.batch_sweep`);
 then one JSON line of kernels, one of the main paths' results, one of the
 serving phase, the card line, and the final status line. It imports nothing
 of JAX and uses one card.
@@ -608,12 +615,14 @@ def main():
             not fact_rows
             or not all("spills 0/0 B" in row for row in fact_rows)):
         raise AssertionError(f"K11-K13 instantiations spill: {fact_rows}")
-    # K10 (the multi-pilot template on the tensor cores): no instantiation
-    # may spill
+    # K6-K10 (the multi-pilot template on the tensor cores, K10's 28 forms
+    # and the 16 STATS forms of K8 / K9): no instantiation may spill
     mp_rows = ptxas_summary(build_logs.get("mp_circ_estimate", ""))
     if "mp_circ_estimate" in build_logs and (
-            not mp_rows or not all("spills 0/0 B" in row for row in mp_rows)):
-        raise AssertionError(f"K10 instantiations spill: {mp_rows}")
+            len(mp_rows) != 44
+            or not all("spills 0/0 B" in row for row in mp_rows)):
+        raise AssertionError(f"K6-K10 instantiations spill or are missing: "
+                             f"{mp_rows}")
     log(f"build: {time.time() - tb:.1f}s")
 
     # 2. kernels against their plain versions
@@ -690,16 +699,19 @@ def main():
         return ck._x2(structured_bank.unitary_ifft(
             ck._hc(acc / den[:, None], torch.complex64)))
 
-    def check_stats(label, bank_c, x2, whole=None, t=1, alpha=1.0):
+    def check_stats(label, bank_c, x2, whole=None, t=1, alpha=1.0,
+                    merge64=False):
         """K8 (t = 1) or K9 on the two component shards of bank_c: each
         shard's state against the plain stats, and the merged,
         inverse-transformed quotient against `whole`, K6's / K7's output
         over the whole bank (None, for a bank past one launch's 128
-        components: the plain states merged likewise)."""
+        components: the plain states merged likewise; `merge64`: those
+        under `compare64`, against the plain states in float64 merged
+        likewise)."""
         name = "circ_estimate_stats" if t == 1 \
             else "circ_estimate_coherent_stats"
         half = bank_c.spec_cr.shape[0] // 2
-        states, plain = [], []
+        states, plain, exact = [], [], []
         for lo, hi in ((0, half), (half, 2 * half)):
             shard = type(bank_c)(*(x[lo:hi] for x in bank_c))
             ckb = ck.circ_kernel_bank(shard, None, t, alpha)
@@ -722,8 +734,87 @@ def main():
                     w64.reshape(w64.shape[0], -1)))
             states.append(got)
             plain.append(want)
-        compare(name, f"{label}, two shards merged vs the whole bank",
-                merged(states), merged(plain) if whole is None else whole)
+            exact.append(want64)
+        if merge64:
+            compare64(name, f"{label}, two shards merged",
+                      merged(states), merged(plain), merged64(exact))
+        else:
+            compare(name, f"{label}, two shards merged vs the whole bank",
+                    merged(states), merged(plain) if whole is None else whole)
+
+    def merged64(states):
+        """Per-row stats states merged in float64 and inverse-transformed
+        once: rows of interleaved [re, im] pairs."""
+        _, den, acc = ck.merge_stats(*zip(*[[x.double() for x in st]
+                                            for st in states]))
+        hq = ck._hc(acc / den[:, None], torch.complex128)
+        return torch.view_as_real(structured_bank.unitary_ifft(hq)).reshape(
+            hq.shape[0], -1)
+
+    def circ_accuracy(label, bank_c, rows, t=4):
+        """K6 and K7 (T = t, alpha 1) on the complex rows (N, D) of bank_c,
+        and K8 and K9 (T = t) on its two component shards (each shard's m,
+        den and accumulator, and the states merged in float64 and
+        inverse-transformed once), against their plain versions in float64
+        under the float64 rule `fp32_accuracy` (the operands laid out once);
+        raises where a kernel breaks the rule. Returns the errors of each."""
+        xr = ck._x2(rows)
+        x64 = xr.double()
+
+        def held(key, name, got, want, want64, where=""):
+            e, ok = fp32_accuracy(name, label + where, got, want, want64)
+            if not ok:
+                raise AssertionError(f"{key} less accurate than float32 "
+                                     f"({label}{where}): {e}")
+            return e
+
+        ckb1 = ck.circ_kernel_bank(bank_c)
+        ckbt = ck.circ_kernel_bank(bank_c, None, t, 1.0)
+        ops_c = ck.circ_tc_operands(ckb1)
+        acc = {"K6": held("K6", "circ_estimate",
+                          ck.circ_estimate(xr, ckb1, ops_c),
+                          ck.circ_estimate_reference(xr, ckb1),
+                          ck.circ_estimate_reference(x64, f64(ckb1))),
+               "K7": held(
+                   "K7", "circ_estimate_coherent",
+                   ck.circ_estimate_coherent(xr, ckbt, t, 1.0, ops_c),
+                   ck.circ_estimate_coherent_reference(xr, ckbt, t, 1.0),
+                   ck.circ_estimate_coherent_reference(x64, f64(ckbt), t,
+                                                       1.0), f", T={t}")}
+        half = bank_c.spec_cr.shape[0] // 2
+        for key, tt in (("K8", 1), ("K9", t)):
+            name = ("circ_estimate_stats" if tt == 1
+                    else "circ_estimate_coherent_stats")
+            states, plain, exact, parts = [], [], [], {}
+            for lo, hi in ((0, half), (half, 2 * half)):
+                c = ck.circ_kernel_bank(
+                    type(bank_c)(*(x[lo:hi] for x in bank_c)), None, tt, 1.0)
+                o = ck.circ_tc_operands(c, True)
+                if tt == 1:
+                    got = ck.circ_estimate_stats(xr, c, o)
+                    want = ck.circ_estimate_stats_reference(xr, c)
+                    want64 = ck.circ_estimate_stats_reference(x64, f64(c))
+                else:
+                    got = ck.circ_estimate_coherent_stats(xr, c, tt, 1.0, o)
+                    want = ck.circ_estimate_coherent_stats_reference(
+                        xr, c, tt, 1.0)
+                    want64 = ck.circ_estimate_coherent_stats_reference(
+                        x64, f64(c), tt, 1.0)
+                for part, g, w, w64 in zip(("m", "den", "acc"), got, want,
+                                           want64):
+                    parts[f"shard {lo}:{hi} {part}"] = held(
+                        key, name, g.reshape(g.shape[0], -1),
+                        w.reshape(w.shape[0], -1),
+                        w64.reshape(w64.shape[0], -1),
+                        f", T={tt}, shard {lo}:{hi}, {part}")
+                states.append(got)
+                plain.append(want)
+                exact.append(want64)
+            parts["merged"] = held(key, name, merged64(states),
+                                   merged64(plain), merged64(exact),
+                                   f", T={tt}, two shards merged")
+            acc[key] = parts
+        return acc
 
     cbank = circ_bank(dev, q)
     cdead = circ_bank(dev, q, n_dead=5)
@@ -747,11 +838,25 @@ def main():
                4, 0.25)
     for d_w, k_w in ((32, 40), (128, 128)):
         wbank = circ_bank(dev, q, d_w, k_w, n_dead=3)
-        xw = ck._x2(common.observations(dev, q, 20001 * 4, d_w))
+        rw = common.observations(dev, q, 20001 * 4, d_w)
+        xw = ck._x2(rw)
         whole = check_circ(f"D={d_w}, K={k_w}", wbank, xw[:20001])
         check_stats(f"D={d_w}, K={k_w}", wbank, xw[:20001], whole)
         check_circ(f"D={d_w}, K={k_w}, T=4, alpha=0.25", wbank, xw, None, 4,
                    0.25)
+    # T = 64 at D = 128, which the fp32 loop K6-K9 replaced did not take:
+    # both float32 versions round the pooled logit of 64 rows (the plain
+    # version's merged shards lie 2.4e-4 of the scale off the kernel's),
+    # so the merge too is held against float64
+    check_circ("D=128, K=128, T=64", wbank, xw[:64 * 301], None, 64, 1.0)
+    check_stats("D=128, K=128, T=64", wbank, xw[:64 * 301], None, 64, 1.0,
+                merge64=True)
+
+    # the float64 rule at the headline (flat, T = 4, two shards) and at
+    # D = K = 128 (T = 4)
+    circ_acc = {
+        "headline": circ_accuracy("headline", cbank, r),
+        "D=K=128": circ_accuracy("D=K=128", wbank, rw[:8192])}
 
     # the shards the K = 256 service gives K8 / K9: 128 components at
     # D = 64 (the widest instantiation of the stats template), on a service
@@ -1165,21 +1270,22 @@ def main():
                              f" banks for {len(cfg.snrs)} SNRs")
     fitted, fitted_acc, fitted_acc14 = {}, {}, {}
     for snr, (bank_s, r_s) in zip(cfg.snrs, fitted_calls):
-        x2 = kernels._r2(r_s)
+        r2_s = kernels._r2(r_s)
         kb_1 = kernels.kernel_bank_block(bank_s)
         kb_4 = kernels.kernel_bank_block(bank_s, 4, 1.0)
-        outs = {"K1": kernels.grouped_estimate(x2, kb_1),
-                "K1 plain": kernels.grouped_estimate_reference(x2, kb_1),
-                "K3 T=4": kernels.grouped_estimate_coherent(x2, kb_4, 4, 1.0),
+        outs = {"K1": kernels.grouped_estimate(r2_s, kb_1),
+                "K1 plain": kernels.grouped_estimate_reference(r2_s, kb_1),
+                "K3 T=4": kernels.grouped_estimate_coherent(r2_s, kb_4, 4,
+                                                            1.0),
                 "K3 T=4 plain": kernels.grouped_estimate_coherent_reference(
-                    x2, kb_4, 4, 1.0)}
+                    r2_s, kb_4, 4, 1.0)}
         errs["grouped_estimate"].append(compare(
             "grouped_estimate", f"fitted bank, {snr} dB", outs["K1"],
             outs["K1 plain"]))
         errs["grouped_estimate_coherent"].append(compare(
             "grouped_estimate_coherent", f"fitted bank, {snr} dB, T=4",
             outs["K3 T=4"], outs["K3 T=4 plain"]))
-        x64 = x2.double()
+        x64 = r2_s.double()
         want64 = {"K1": kernels.grouped_estimate_reference(x64, f64(kb_1)),
                   "K3 T=4": kernels.grouped_estimate_coherent_reference(
                       x64, f64(kb_4), 4, 1.0)}
@@ -1195,7 +1301,7 @@ def main():
         acc["split3"], _ = fp32_accuracy(
             "grouped_tc_split3", f"fitted bank, {snr} dB",
             variant_kernels.grouped_tc_split3(
-                x2, kb_1, kernels.split_planes(kb_1.pw)),
+                r2_s, kb_1, kernels.split_planes(kb_1.pw)),
             outs["K1 plain"], want64["K1"])
         fitted_acc[str(snr)] = acc
         # K14a on the same bank in the Karatsuba layout: within TOL of its
@@ -1228,10 +1334,24 @@ def main():
 
     # the same two runs with circulant covariances: the FFT-domain bank
     # through K6 and K7. The 3GPP covariances are Toeplitz, so the circulant
-    # fit is an approximation; its NMSE cost is recorded, not asserted.
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg_s, mse_s, rate_s, timings_s, circ_s, launches_s = main_path_run(
-            run_gmm, kernels, dev, tmp, cov_type="circulant")
+    # fit is an approximation; its NMSE cost is recorded, not asserted. The
+    # flat run keeps the fitted banks and observations it estimates
+    # (stages.estimate_circulant) for the float64 rule below.
+    circ_calls, estimate_circulant = [], stages.estimate_circulant
+
+    def keep_circ(bank_s, r_s, *args, **kwargs):
+        if isinstance(bank_s, structured_bank.CirculantBank):
+            circ_calls.append((bank_s, r_s))
+        return estimate_circulant(bank_s, r_s, *args, **kwargs)
+
+    stages.estimate_circulant = keep_circ
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg_s, mse_s, rate_s, timings_s, circ_s, launches_s = \
+                main_path_run(run_gmm, kernels, dev, tmp,
+                              cov_type="circulant")
+    finally:
+        stages.estimate_circulant = estimate_circulant
     add(launches_s)
     at10 = {k: v[i10] for k, v in mse_s.items()}
     if not (at10["blmmse_genie"] < at10["blmmse_gmm"] < at10["LS_glob"]):
@@ -1241,6 +1361,17 @@ def main():
                              f"{launches_s['circ_estimate']} times")
     log(f"blmmse_gmm, circulant fit: {mse_s['blmmse_gmm']}")
     log(f"blmmse_gmm, full fit:      {mse['blmmse_gmm']}")
+    # K6, K7 (T = 4: four consecutive validation snapshots a block), K8 and
+    # K9 (two shards, merged) on the fitted circulant bank of each SNR and
+    # the observations the run estimated, under the float64 rule
+    if len(circ_calls) != len(cfg_s.snrs):
+        raise AssertionError(f"the circulant run estimated {len(circ_calls)} "
+                             f"circulant banks for {len(cfg_s.snrs)} SNRs")
+    circ_acc["fitted_bank"] = {
+        str(snr): circ_accuracy(f"fitted circulant bank, {snr} dB", bank_s,
+                                r_s)
+        for snr, (bank_s, r_s) in zip(cfg_s.snrs, circ_calls)}
+    del circ_calls
     with tempfile.TemporaryDirectory() as tmp:
         cfg_sc, mse_sc, rate_sc, timings_sc, circ_coh_s, launches_sc = \
             main_path_run(run_gmm, kernels, dev, tmp, cov_type="circulant",
@@ -1779,51 +1910,91 @@ def main():
         2.0 * n * two_m * two_m * K + k_sel * 2.0 * n * two_m * two_d)
         for k_sel in (1, 4)}
 
-    # the circulant kernels: 2 N (2D 2D + 3D K + K 4D + 2D 2D) operations
-    # (K8/K9 less the inverse transform); bytes: the rows read and written
-    # once, the operands once, m and den for the stats forms. Library
+    # the circulant kernels K6-K9 (the multi-pilot template at one pilot):
+    # the products 2 N (2D 2D + 3D K + K 4D + 2D 2D) (K8/K9 less the
+    # inverse transform) as six bf16 products on the tensor cores, plus
+    # the fp32 work around them, N (3D + 8D + 5K): |u|^2, the complex
+    # combine, the constant and the softmax (K7 / K9 + 3 N K for the pool);
+    # `bound_fp32_ms`: the products as fp32 FMAs (the bound of the fp32
+    # loop these replaced). Bytes: the rows read and written once, the
+    # operands once, m and den for the stats forms. The bank's units from
+    # L2 (`l2_operand_bytes`): `mp_circ_units` x 24 KB a block, of 128
+    # rows where two warpgroups take a block, as for K10. Library
     # yardstick: the torch.fft pipeline of the same entry, which the port
     # never calls where the kernel is eligible, over the batch as one chunk
     # (the best the library calls do); at the pipeline's default chunks of
     # 16384 rows / 4096 blocks it is bound by host launches and is kept as
-    # `library_chunked_ms` only.
+    # `library_chunked_ms` only. The operands are laid out once, as
+    # `circ_kernels.lowered_tc` keeps them.
     ckb = ck.circ_kernel_bank(cbank)
     ckb4 = ck.circ_kernel_bank(cbank, None, 4, 1.0)
+    ops6, ops8 = ck.circ_tc_operands(ckb), ck.circ_tc_operands(ckb, True)
     circ_flops = 2.0 * n * (2 * two_d * two_d + 3 * D * K + 4 * K * D)
+    circ_epi = n * (3.0 * D + 8.0 * D + 5.0 * K)
     circ_bytes = 4.0 * (2 * n * two_d + sum(x.numel() for x in ckb))
     r_blocks = r.reshape(-1, 4, D)
-    t6 = timed("K6", lambda: ck.circ_estimate(x2, ckb),
-               lambda: ck.circ_estimate_reference(x2, ckb),
-               lambda: structured_bank.estimate_circulant(
-                   cbank, r, "all", n, None, "fft"),
-               circ_flops, circ_bytes,
-               lambda: structured_bank.estimate_circulant(
-                   cbank, r, "all", 16384, None, "fft"))
-    t7 = timed("K7 (T=4, alpha=1)",
-               lambda: ck.circ_estimate_coherent(x2, ckb4, 4, 1.0),
-               lambda: ck.circ_estimate_coherent_reference(x2, ckb4, 4, 1.0),
-               lambda: structured_bank.estimate_circulant_coherent(
-                   cbank, r_blocks, "all", n // 4, 1.0, None, "fft"),
-               circ_flops + 3.0 * n * K, circ_bytes,
-               lambda: structured_bank.estimate_circulant_coherent(
-                   cbank, r_blocks, "all", 4096, 1.0, None, "fft"))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def circ_rec(rec, label, gemm, epi, nbytes_c, t, stats):
+        rec["tc_flops"] = 6.0 * gemm
+        rec["bound_fp32_ms"] = bound(gemm, nbytes_c)[0]
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        wg_rows = 64 // t * t
+        block_rows = (2 if -(-n // (2 * wg_rows)) >= sms else 1) * wg_rows
+        rec["block_rows"] = block_rows
+        rec["l2_operand_bytes"] = (mk.mp_circ_units(D, K, 1, stats)
+                                   * 24576.0 * -(-n // block_rows))
+        log(f"{label}: bound of the six products {rec['bound_ms']:.3f} ms "
+            f"({rec['share_of_bound']:.0%} reached), as fp32 FMAs "
+            f"{rec['bound_fp32_ms']:.3f} ms; the bank's units from L2 "
+            f"{rec['l2_operand_bytes'] / 1e9:.3f} GB ({block_rows}-row "
+            "blocks)")
+        return rec
+
+    t6 = circ_rec(timed(
+        "K6", lambda: ck.circ_estimate(x2, ckb, ops6),
+        lambda: ck.circ_estimate_reference(x2, ckb),
+        lambda: structured_bank.estimate_circulant(
+            cbank, r, "all", n, None, "fft"),
+        circ_epi, circ_bytes,
+        lambda: structured_bank.estimate_circulant(
+            cbank, r, "all", 16384, None, "fft"),
+        tc_flops=6.0 * circ_flops), "K6", circ_flops, circ_epi, circ_bytes,
+        1, False)
+    t7 = circ_rec(timed(
+        "K7 (T=4, alpha=1)",
+        lambda: ck.circ_estimate_coherent(x2, ckb4, 4, 1.0, ops6),
+        lambda: ck.circ_estimate_coherent_reference(x2, ckb4, 4, 1.0),
+        lambda: structured_bank.estimate_circulant_coherent(
+            cbank, r_blocks, "all", n // 4, 1.0, None, "fft"),
+        circ_epi + 3.0 * n * K, circ_bytes,
+        lambda: structured_bank.estimate_circulant_coherent(
+            cbank, r_blocks, "all", 4096, 1.0, None, "fft"),
+        tc_flops=6.0 * circ_flops), "K7", circ_flops,
+        circ_epi + 3.0 * n * K, circ_bytes, 4, False)
     stats_flops = circ_flops - 2.0 * n * two_d * two_d
     stats_bytes = circ_bytes + 8.0 * n - 4.0 * ckb.binv.numel()
-    t8 = timed("K8", lambda: ck.circ_estimate_stats(x2, ckb),
-               lambda: ck.circ_estimate_stats_reference(x2, ckb),
-               lambda: structured_bank.estimate_circulant_stats(
-                   cbank, r, n, None, "fft"), stats_flops, stats_bytes,
-               lambda: structured_bank.estimate_circulant_stats(
-                   cbank, r, 16384, None, "fft"))
-    t9 = timed("K9 (T=4, alpha=1)",
-               lambda: ck.circ_estimate_coherent_stats(x2, ckb4, 4, 1.0),
-               lambda: ck.circ_estimate_coherent_stats_reference(
-                   x2, ckb4, 4, 1.0),
-               lambda: structured_bank.estimate_circulant_coherent_stats(
-                   cbank, r_blocks, n // 4, 1.0, None, "fft"),
-               stats_flops + 3.0 * n * K, stats_bytes,
-               lambda: structured_bank.estimate_circulant_coherent_stats(
-                   cbank, r_blocks, 4096, 1.0, None, "fft"))
+    t8 = circ_rec(timed(
+        "K8", lambda: ck.circ_estimate_stats(x2, ckb, ops8),
+        lambda: ck.circ_estimate_stats_reference(x2, ckb),
+        lambda: structured_bank.estimate_circulant_stats(
+            cbank, r, n, None, "fft"), circ_epi, stats_bytes,
+        lambda: structured_bank.estimate_circulant_stats(
+            cbank, r, 16384, None, "fft"),
+        tc_flops=6.0 * stats_flops), "K8", stats_flops, circ_epi,
+        stats_bytes, 1, True)
+    t9 = circ_rec(timed(
+        "K9 (T=4, alpha=1)",
+        lambda: ck.circ_estimate_coherent_stats(x2, ckb4, 4, 1.0, ops8),
+        lambda: ck.circ_estimate_coherent_stats_reference(
+            x2, ckb4, 4, 1.0),
+        lambda: structured_bank.estimate_circulant_coherent_stats(
+            cbank, r_blocks, n // 4, 1.0, None, "fft"),
+        circ_epi + 3.0 * n * K, stats_bytes,
+        lambda: structured_bank.estimate_circulant_coherent_stats(
+            cbank, r_blocks, 4096, 1.0, None, "fft"),
+        tc_flops=6.0 * stats_flops), "K9", stats_flops,
+        circ_epi + 3.0 * n * K, stats_bytes, 4, True)
 
     # K10: its four products, 2 N (P 2D 2D + F K + (P+1) K 2D + 2D 2D) with
     # F = D (3P + P (P-1)) features (the useful work only: the TPU kernel's
@@ -2150,6 +2321,19 @@ def main():
         f"{bad or 0}")
     if bad:
         raise AssertionError(f"K10 off on repeated launches: {bad}")
+    # ... and K6-K9 at each of tc_repeat_check's CIRC_SHAPES (one and two
+    # warpgroups a block, one, two and four pieces of 2D, a 128-component
+    # shard, D = K = 128, each pool), under the same rule
+    tm = time.time()
+    rep_circ = tc_repeat_check.repeat_check(dev, repeats=100,
+                                            modes=("circ",))["kernel"]
+    bad = {k: v for k, v in rep_circ.items() if v["failures"]}
+    log(f"K6-K9 repeated: {sum(v['launches'] for v in rep_circ.values())} "
+        f"launches in {time.time() - tm:.1f}s, max err "
+        f"{max(v['max_err'] for v in rep_circ.values()):.3e}, failures "
+        f"{bad or 0}")
+    if bad:
+        raise AssertionError(f"K6-K9 off on repeated launches: {bad}")
 
     # 5b. the path itself, through the tools' entry points at their
     # defaults, its launches counted alone: the floor probe, kernel_bench
@@ -2257,8 +2441,8 @@ def main():
     if not rows_k1:
         raise AssertionError("the profiler table holds no K1 kernel row")
 
-    # 5e. K1 / K3 / K14a / K11-K13 at the service's microbatch sizes and
-    # the headline batch
+    # 5e. K1 / K3 / K14a / K11-K13 / K10 / K6-K9 at the service's
+    # microbatch sizes and the headline batch
     sweep = batch_sweep.main([])["ms"]
 
     src = "quantized_channel_estimation_torch/csrc/"
@@ -2300,24 +2484,22 @@ def main():
          "launches": total_launches["grouped_estimate_topk_stats"],
          "max_abs_err": max(errs["grouped_estimate_topk_stats"]),
          "k_sel": 1, **t5[1], "at_k4": t5[4]},
-        {"name": "circ_estimate", "id": "K6", "route": "cuda",
-         "source": src + "circ_estimate.cu", "replaces": f"{tpu}:1309",
-         "launches": total_launches["circ_estimate"],
-         "max_abs_err": max(errs["circ_estimate"]), **t6},
-        {"name": "circ_estimate_coherent", "id": "K7", "route": "cuda",
-         "source": src + "circ_estimate.cu", "replaces": f"{tpu}:1647",
-         "launches": total_launches["circ_estimate_coherent"],
-         "max_abs_err": max(errs["circ_estimate_coherent"]),
-         "t_coh": 4, "coh_alpha": 1.0, **t7},
-        {"name": "circ_estimate_stats", "id": "K8", "route": "cuda",
-         "source": src + "circ_estimate.cu", "replaces": f"{tpu}:1749",
-         "launches": total_launches["circ_estimate_stats"],
-         "max_abs_err": max(errs["circ_estimate_stats"]), **t8},
-        {"name": "circ_estimate_coherent_stats", "id": "K9", "route": "cuda",
-         "source": src + "circ_estimate.cu", "replaces": f"{tpu}:1822",
-         "launches": total_launches["circ_estimate_coherent_stats"],
-         "max_abs_err": max(errs["circ_estimate_coherent_stats"]),
-         "t_coh": 4, "coh_alpha": 1.0, **t9},
+        *({"name": name, "id": kid, "route": "cuda",
+           "source": src + "mp_circ_estimate.cu", "replaces": f"{tpu}:{line}",
+           "launches": total_launches[name], "max_abs_err": max(errs[name]),
+           **({"t_coh": 4, "coh_alpha": 1.0} if coh else {}), **rec,
+           "at_rows_ms": {k: v for k, v in sweep.items()
+                          if k.startswith(f"{kid} ")},
+           "fp32_accuracy": {k: v[key] for k, v in circ_acc.items()
+                             if k != "fitted_bank"}
+           | {"fitted_bank": {k: v[key] for k, v in
+                              circ_acc["fitted_bank"].items()}}}
+          for name, kid, line, coh, key, rec in (
+              ("circ_estimate", "K6", 1309, False, "K6", t6),
+              ("circ_estimate_coherent", "K7", 1647, True, "K7", t7),
+              ("circ_estimate_stats", "K8", 1749, False, "K8", t8),
+              ("circ_estimate_coherent_stats", "K9", 1822, True, "K9",
+               t9))),
         {"name": "mp_circ_estimate", "id": "K10", "route": "cuda",
          "source": src + "mp_circ_estimate.cu", "replaces": f"{tpu}:1505",
          "launches": total_launches["mp_circ_estimate"],

@@ -1,9 +1,14 @@
 // Single-pass multi-pilot circulant (FFT-domain) GMM-Bussgang estimator on
-// Hopper's tensor cores: kernel K10, flat and coherent, one template with a
-// COH flag.
+// Hopper's tensor cores: kernel K10, flat and coherent, and at one pilot the
+// circulant kernels K6 (flat), K7 (coherent), K8 (stats) and K9 (coherent
+// stats); one template with COH and STATS flags.
 //
 // Replaces the TPU kernel `_mp_circ_kernel` (:1505) launched by
-// `estimate_mp_circ_packed` (:1578) of
+// `estimate_mp_circ_packed` (:1578), and the kernels `_circ_kernel` (:1309),
+// `_circ_kernel_coh` (:1647), `_circ_kernel_stats` (:1749) and
+// `_circ_kernel_coh_stats` (:1822) launched by `estimate_circ_packed`
+// (:1346), `estimate_circ_packed_coh` (:1698), `estimate_circ_packed_stats`
+// (:1789) and `estimate_circ_packed_coh_stats` (:1868), of
 // quantized_channel_estimation_tpu/estimators/pallas_kernels.py. The
 // observation of a row is P pilot segments of D complex values (the
 // reference's kron(x, I) layout), a complex64 tensor's interleaved [re, im]
@@ -22,31 +27,41 @@
 // (the T rows of a coherence block consecutive), s_k = sum of lg_k over the
 // row's block and lg' = lg + alpha (s - lg) (alpha >= 1: s); the caller
 // divides the mixture log-weight inside const by (1 - alpha + alpha T) so
-// that it enters once per block.
+// that it enters once per block. At P = 1 the features are [u | |u|^2] and
+// the combine's two slabs are the bias and the filter: K6 and K7 (their
+// const keeps the circulant layout's convention, without the row constant
+// -D log pi). The STATS form (K8, K9) stops before the normalisation and the
+// inverse: it writes m = max_k lg', den = sum_k exp(lg' - m) and the
+// un-normalised h (the DFT-domain accumulator), so that the states of
+// disjoint component shards merge exactly; the inverse runs once after the
+// merge.
 //
 // The products. All four run on the tensor cores as K1's and K11's do:
 // each fp32 operand split into three bf16 planes (hi, lo, lo2, each rounded
 // to nearest even, hi + lo + lo2 = x exactly for normal x), six exact bf16
 // products accumulated in fp32, smallest first (hi.lo2, lo.lo, lo2.hi,
 // lo.hi, hi.lo, hi.hi; the rows' plane first). The bank's planes are split
-// once on the host (`mp_circ_kernels.mp_circ_tc_operands`), the rows' in
-// the kernel. Every product is cut into units, one 64-column piece of the
-// bank operand over one 64-deep contraction chunk: each unit's six products
-// go into a fresh fp32 accumulator, and the units of one output piece are
-// added in fp32; the logit's units, a fresh accumulator for each k16 step,
-// in a compensated sum. Everything else is fp32: the features, the pooling,
-// the softmax, the complex combine. TF32
-// stays excluded: the expanded quadratic sums P^2 terms that cancel at high
-// SNR and a 10-bit mantissa moves the posterior.
+// once on the host (`mp_circ_kernels.mp_circ_tc_operands`,
+// `circ_kernels.circ_tc_operands`), the rows' in the kernel. Every product
+// is cut into units, one 64-column piece of the bank operand over one
+// 64-deep contraction chunk: each unit's six products go into a fresh fp32
+// accumulator, and the units of one output piece are added in fp32; the
+// logit's units, a fresh accumulator for each k16 step, in a compensated
+// sum. Everything else is fp32: the features, the pooling, the softmax, the
+// complex combine. TF32 stays excluded: the expanded quadratic sums P^2
+// terms that cancel at high SNR and a 10-bit mantissa moves the posterior.
 //
-// Bound on an H100 (131072 rows, P = 2, D = K = 64): six times 2 N (P 2D 2D
-// + F K + (P+1) K 2D + 2D 2D) = 6 x 2.79e10 bf16 tensor-core operations
-// (0.17 ms at 989 TFLOP/s) plus ~1e9 fp32 epilogue operations (0.02 ms at
-// 67 TFLOP/s), against N (2PD + 2D) 4 bytes of compulsory traffic (0.20 GB,
-// 0.06 ms at 3.35 TB/s): ~0.19 ms, against 0.42 ms for the products as fp32
-// FMAs. The bank streams from L2 once a block: P NPD^2 + (P NPD + P NCD +
-// P (P-1)/2 NPD) KP + NPD (P+1) KP + NPD^2 units of 24 KB (26 units, 624 KB
-// at the headline; 0.64 GB a 131072-row batch in 128-row blocks).
+// Bound on an H100 (131072 rows, D = K = 64): six times 2 N (P 2D 2D + F K
+// + (P+1) K 2D + 2D 2D) bf16 tensor-core operations, 6 x 2.79e10 at P = 2
+// (0.17 ms at 989 TFLOP/s) and 6 x 1.61e10 at P = 1 (0.098 ms; the STATS
+// form without the inverse 6 x 1.18e10, 0.072 ms), plus the fp32 epilogue
+// (~1e9 operations at P = 2, 0.02 ms at 67 TFLOP/s; ~1.3e8 at P = 1),
+// against N (2PD + 2D) 4 bytes of compulsory traffic (0.20 GB, 0.06 ms at
+// 3.35 TB/s at P = 2; 0.13 GB at P = 1): bound by operations, ~0.19 ms at
+// P = 2 and ~0.10 ms at P = 1, against 0.42 / 0.24 ms for the products as
+// fp32 FMAs. The bank streams from L2 once a block: P NPD^2 + (P NPD + P
+// NCD + P (P-1)/2 NPD) KP + NPD (P+1) KP + NPD^2 units of 24 KB (26 units,
+// 624 KB at P = 2; 15 at P = 1 and 11 for STATS, which streams no inverse).
 //
 // Design:
 //   - a block is WGS consumer warpgroups of 64 rows (the coherent form:
@@ -101,10 +116,24 @@
 //     -1e30 floor of const); the coherent pool writes the warpgroup's logits
 //     to shared memory, sums each (block, component) in a compensated sum
 //     over T, and reads the block sums back (any T up to the live rows);
+//   - STATS: the state is the plain version's, m = max_k lg' with the
+//     offset back in and den = sum_k exp(lg' - m): the row's offset o (the
+//     coherent form: its pooled value off + alpha (sum_T off - off), the
+//     block sum of the offsets in float64 beside the pool's logits) is
+//     added back once, m = fl(o + max l), and the weights are exp(l - max
+//     l), the largest exactly 1, as in the plain version. Taking them
+//     against the rounded m instead (exp(l - (m - o))) made the state
+//     exact under a merge but moved den and acc by the rounding of m, up to
+//     2.4e-4 of them at the pooled logits of T = 64 (37x the plain
+//     version's error against float64); as it is, the rounding of m enters
+//     the merge weights exp(m_i - m*) once, as the plain version's own
+//     rounded logits do. h goes to out as the combine leaves it, and the
+//     producer streams no inverse;
 //   - the ragged last tile is masked in the kernel (any N, no padding copy).
 // Any N, P >= 1, 1 <= D <= 128, 1 <= K <= 128, T up to the live rows of a
 // warpgroup, as far as u and a two-unit ring fit a block's shared memory
-// (`mp_circ_kernels.mp_circ_tile_rows` mirrors `mp_plan` below).
+// (`mp_circ_kernels.mp_circ_tile_rows` mirrors `mp_plan` below); STATS
+// where a warpgroup keeps 64 live rows (every shape at P = 1).
 #include "grouped_tc_stream.cuh"
 
 namespace {
@@ -117,16 +146,18 @@ constexpr unsigned kUnit = 3 * kPlane;  // a unit: hi, lo, lo2
 // One instantiation: NPD 64-column pieces of 2D (also the chunks of the
 // forward and inverse contractions), KP 64-column pieces of K (the chunks
 // of the combine's contraction), WGS consumer warpgroups, 32 live rows a
-// warpgroup (HALF) or 64, and the coherent form.
-template <int NPD_, int KP_, int WGS_, bool HALF_, bool COH_>
+// warpgroup (HALF) or 64, the coherent form and the stats form.
+template <int NPD_, int KP_, int WGS_, bool HALF_, bool COH_, bool STATS_>
 struct MpCfg {
   static constexpr int NPD = NPD_, KP = KP_, WGS = WGS_;
-  static constexpr bool HALF = HALF_, COH = COH_;
+  static constexpr bool HALF = HALF_, COH = COH_, STATS = STATS_;
   static constexpr int NCD = (NPD + 1) / 2;  // chunks of a |u_p|^2 group
   static constexpr int kRows = HALF ? 32 : 64;
   static constexpr int kLive = HALF ? 64 : 128;  // threads with live rows
   static constexpr unsigned kSlot = kLive * 16;  // bytes of one u slot
-  static constexpr int kPoolStride = 64 * KP + 8;  // floats a pool row
+  // floats a pool row: the logits, then (STATS) the row's offset, whose
+  // block sum replaces the block's first two as a double
+  static constexpr int kPoolStride = 64 * KP + 8;
   // a warpgroup's pool rows (COH) or its stash of the first piece's
   // logits while the second's are summed (two pieces of K), in bytes
   static constexpr unsigned kPool =
@@ -144,6 +175,16 @@ __device__ __forceinline__ void st_shared_f2(unsigned addr, float a,
   asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a),
                "f"(b)
                : "memory");
+}
+
+__device__ __forceinline__ void st_shared_f64(unsigned addr, double v) {
+  asm volatile("st.shared.f64 [%0], %1;\n" ::"r"(addr), "d"(v) : "memory");
+}
+
+__device__ __forceinline__ double ld_shared_f64(unsigned addr) {
+  double v;
+  asm volatile("ld.shared.f64 %0, [%1];\n" : "=d"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // d = the six products of A (registers) and the unit at db over its k16
@@ -451,14 +492,17 @@ __device__ __forceinline__ void fold(float (&lg)[32], const float (&lost)[32],
 // The coherent form's pool: each row's logit of each live component
 // replaced by lg + alpha (s - lg), s the compensated sum over the row's
 // block of T consecutive rows (alpha >= 1: s). The warpgroup's logits go
-// through its pool rows at pa; named barriers of the warpgroup only.
+// through its pool rows at pa; named barriers of the warpgroup only. STATS:
+// the rows' offsets off pooled alike, in float64, into o.
 template <class C>
 __device__ __forceinline__ void pool_blocks(float (&lgk)[C::KP][32],
                                             unsigned pa, int wg_rows,
                                             int t_coh, int k_comp,
-                                            float alpha, int wg) {
+                                            float alpha, int wg,
+                                            const float (&off)[2],
+                                            double (&o)[2]) {
   const int g0 = row_in_wg(), q = lane_id() & 3;
-  constexpr int S = C::kPoolStride;
+  constexpr int S = C::kPoolStride, kOff = 64 * C::KP;
 #pragma unroll
   for (int kp = 0; kp < C::KP; ++kp)
 #pragma unroll
@@ -468,6 +512,13 @@ __device__ __forceinline__ void pool_blocks(float (&lgk)[C::KP][32],
         if (g0 + 8 * r < C::kRows)
           st_shared_f2(pa + 4 * ((g0 + 8 * r) * S + 64 * kp + 8 * t + 2 * q),
                        lgk[kp][4 * t + 2 * r], lgk[kp][4 * t + 2 * r + 1]);
+  if constexpr (C::STATS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (q == 0 && g0 + 8 * r < C::kRows)
+        st_shared_b32(pa + 4 * ((g0 + 8 * r) * S + kOff),
+                      __float_as_uint(off[r]));
+  }
   wg_sync(1 + wg);
   // each (block, component) by one thread, into the block's first row
   const int nb = wg_rows / t_coh;
@@ -479,7 +530,29 @@ __device__ __forceinline__ void pool_blocks(float (&lgk)[C::KP][32],
       kahan(sum, lost, ld_shared_f32(col + 4 * j * S));
     st_shared_b32(col, __float_as_uint(sum));
   }
+  // each block's offsets by one thread, in float64
+  if constexpr (C::STATS) {
+    for (int b = threadIdx.x % kWg; b < nb; b += kWg) {
+      const unsigned col = pa + 4 * (b * t_coh * S + kOff);
+      double sum = 0.0;
+      for (int j = 0; j < t_coh; ++j)
+        sum += (double)ld_shared_f32(col + 4 * j * S);
+      st_shared_f64(col, sum);
+    }
+  }
   wg_sync(1 + wg);
+  if constexpr (C::STATS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = g0 + 8 * r;
+      o[r] = off[r];
+      if (rr < wg_rows) {
+        const double s =
+            ld_shared_f64(pa + 4 * (rr / t_coh * t_coh * S + kOff));
+        o[r] = alpha >= 1.f ? s : o[r] + (double)alpha * (s - o[r]);
+      }
+    }
+  }
 #pragma unroll
   for (int kp = 0; kp < C::KP; ++kp)
 #pragma unroll
@@ -499,9 +572,14 @@ __device__ __forceinline__ void pool_blocks(float (&lgk)[C::KP][32],
 }
 
 // lgk -> the softmax weights over the components of each row (a row's
-// values on the four threads of a quad); an all -inf row weighs nothing
+// values on the four threads of a quad); an all -inf row weighs nothing.
+// STATS: the weights stay un-normalised, and (m, den) go to m_row, den_row
+// with m = fl(o + max l) the row's maximum with its offset o back in.
 template <class C>
-__device__ __forceinline__ void softmax_rows(float (&lgk)[C::KP][32]) {
+__device__ __forceinline__ void softmax_rows(float (&lgk)[C::KP][32],
+                                             const double (&o)[2],
+                                             float (&m_row)[2],
+                                             float (&den_row)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float m = -INFINITY;
@@ -514,6 +592,7 @@ __device__ __forceinline__ void softmax_rows(float (&lgk)[C::KP][32]) {
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
     if (m == -INFINITY) m = 0.f;
+    if constexpr (C::STATS) m_row[r] = (float)(o[r] + (double)m);
     float den = 0.f;
 #pragma unroll
     for (int kp = 0; kp < C::KP; ++kp)
@@ -527,25 +606,52 @@ __device__ __forceinline__ void softmax_rows(float (&lgk)[C::KP][32]) {
         }
     den += __shfl_xor_sync(0xffffffffu, den, 1);
     den += __shfl_xor_sync(0xffffffffu, den, 2);
+    if constexpr (C::STATS) {
+      den_row[r] = den;
+    } else {
 #pragma unroll
-    for (int kp = 0; kp < C::KP; ++kp)
+      for (int kp = 0; kp < C::KP; ++kp)
 #pragma unroll
-      for (int t = 0; t < 8; ++t)
+        for (int t = 0; t < 8; ++t)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) lgk[kp][4 * t + 2 * r + h] /= den;
+          for (int h = 0; h < 2; ++h) lgk[kp][4 * t + 2 * r + h] /= den;
+    }
   }
+}
+
+// The thread's values v of output piece j (columns [64 j, 64 j + 64) of
+// its rows, the accumulator layout) to out (n, 2D), masked rows skipped;
+// 2D is even: a thread's two columns are 8-byte aligned
+__device__ __forceinline__ void store_rows(float* out, const int (&rows)[2],
+                                           int two_d, int j,
+                                           const float (&v)[32]) {
+  const int q = lane_id() & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (rows[r] >= 0) {
+      float* orow = out + (size_t)rows[r] * two_d;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int col = 64 * j + 8 * t + 2 * q;
+        if (col < two_d)
+          *reinterpret_cast<float2*>(orow + col) =
+              make_float2(v[4 * t + 2 * r], v[4 * t + 2 * r + 1]);
+      }
+    }
 }
 
 // The kernel. x (n, 2PD) fp32 interleaved, pilot-major; hi, lo, lo2: the
 // bank's bf16 planes as the tile's sequence of `units` units
 // (`mp_circ_tc_operands`: (units, 64, 64) each); cst (k_comp) the layout's
-// constants; out (n, 2D).
+// constants; out (n, 2D): the estimate, or (STATS) the DFT-domain
+// accumulator, with m_out, den_out (n).
 template <class C>
 __global__ void __launch_bounds__((C::WGS + 1) * kWg, 1)
     mp_circ_tc_kernel(const float* __restrict__ x, const bf16* __restrict__ hi,
                       const bf16* __restrict__ lo,
                       const bf16* __restrict__ lo2,
                       const float* __restrict__ cst, float* __restrict__ out,
+                      float* __restrict__ m_out, float* __restrict__ den_out,
                       int n, int d, int p_pil, int k_comp, int units,
                       int stages, int tl, int t_coh, float alpha) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -600,7 +706,7 @@ __global__ void __launch_bounds__((C::WGS + 1) * kWg, 1)
   const int wg_rows = C::COH ? C::kRows / t_coh * t_coh : C::kRows;
   const int row0 = blockIdx.x * (C::WGS * wg_rows) + wg * wg_rows;
   const int tid = threadIdx.x % kWg;
-  const int g0 = row_in_wg(), q = lane_id() & 3;
+  const int g0 = row_in_wg();
   const Own own{u_all + wg * u_bytes + tid * 16u, tl, tid < C::kLive};
   const int two_pd = p_pil * two_d;
   int rows[2];
@@ -637,8 +743,8 @@ __global__ void __launch_bounds__((C::WGS + 1) * kWg, 1)
 
   // 2. the logits, one 64-column piece of K after the other
   float lgk[C::KP][32];
+  float off[2];
   {
-    float off[2];
     // two pieces of K: the first's logits wait in the warpgroup's pool
     // rows, a thread's own float4 slots, while the second's are summed
     const unsigned stash = pool + wg * C::kPool + tid * 16u;
@@ -670,14 +776,26 @@ __global__ void __launch_bounds__((C::WGS + 1) * kWg, 1)
     }
   }
 
-  // 3. the coherent pool, the softmax
+  // 3. the coherent pool, the softmax (STATS: its row states)
+  double o[2] = {off[0], off[1]};
   if constexpr (C::COH)
     pool_blocks<C>(lgk, pool + wg * C::kPool, wg_rows, t_coh, k_comp, alpha,
-                   wg);
-  softmax_rows<C>(lgk);
+                   wg, off, o);
+  {
+    float m_row[2], den_row[2];
+    softmax_rows<C>(lgk, o, m_row, den_row);
+    if constexpr (C::STATS) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if ((lane_id() & 3) == 0 && rows[r] >= 0) {
+          m_out[rows[r]] = m_row[r];
+          den_out[rows[r]] = den_row[r];
+        }
+    }
+  }
 
   // 4. the combine, piece j of h = c_0 + sum_p c_p * u_p with c_p = w
-  // comb_p, into the first pilot's slots of piece j
+  // comb_p, into the first pilot's slots of piece j (STATS: to out)
   {
     unsigned aw[C::KP][3][4][4];
 #pragma unroll
@@ -706,40 +824,33 @@ __global__ void __launch_bounds__((C::WGS + 1) * kWg, 1)
           }
         }
       }
-      store_u<C>(own, 0, j, h, false);
+      if constexpr (C::STATS) {
+        store_rows(out, rows, two_d, j, h);
+      } else {
+        store_u<C>(own, 0, j, h, false);
+      }
     }
   }
-
   // 5. out = h binv, piece jo from h's chunks j
+  if constexpr (!C::STATS) {
 #pragma unroll 1
-  for (int jo = 0; jo < C::NPD; ++jo) {
-    float o[32];
+    for (int jo = 0; jo < C::NPD; ++jo) {
+      float ov[32];
 #pragma unroll 1
-    for (int j = 0; j < C::NPD; ++j) {
-      unsigned a[3][4][4];
-      {
-        float v[32];
-        load_u<C>(v, own, 0, j);
-        to_a_regs(a, v);
-      }
-      float acc[32];
-      unit_product(acc, a, ring);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = j ? o[i] + acc[i] : acc[i];
-    }
-    // 2D is even: a thread's two columns are 8-byte aligned
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (rows[r] >= 0) {
-        float* orow = out + (size_t)rows[r] * two_d;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int col = 64 * jo + 8 * t + 2 * q;
-          if (col < two_d)
-            *reinterpret_cast<float2*>(orow + col) =
-                make_float2(o[4 * t + 2 * r], o[4 * t + 2 * r + 1]);
+      for (int j = 0; j < C::NPD; ++j) {
+        unsigned a[3][4][4];
+        {
+          float v[32];
+          load_u<C>(v, own, 0, j);
+          to_a_regs(a, v);
         }
+        float acc[32];
+        unit_product(acc, a, ring);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) ov[i] = j ? ov[i] + acc[i] : acc[i];
       }
+      store_rows(out, rows, two_d, jo, ov);
+    }
   }
 }
 
@@ -810,6 +921,7 @@ struct MpArgs {
   const bf16* planes[3];
   const float* cst;
   float* out;
+  float *m_out, *den_out;
   int n, d, p, k, units, t_coh;
   float alpha;
   cudaStream_t stream;
@@ -823,16 +935,19 @@ int mp_launch(const MpArgs& g, const Plan& pl) {
   if (err != cudaSuccess) return (int)err;
   const int rows = C::WGS * (C::kRows / g.t_coh * g.t_coh);
   kern<<<(g.n + rows - 1) / rows, (C::WGS + 1) * kWg, pl.smem, g.stream>>>(
-      g.x, g.planes[0], g.planes[1], g.planes[2], g.cst, g.out, g.n, g.d,
-      g.p, g.k, g.units, pl.stages, pl.tl, g.t_coh, g.alpha);
+      g.x, g.planes[0], g.planes[1], g.planes[2], g.cst, g.out, g.m_out,
+      g.den_out, g.n, g.d, g.p, g.k, g.units, pl.stages, pl.tl, g.t_coh,
+      g.alpha);
   return (int)cudaGetLastError();
 }
 
-template <bool COH>
+// the STATS forms only where a warpgroup keeps 64 live rows: the circulant
+// kernels K8 / K9 (one pilot) never need 32
+template <bool COH, bool STATS>
 int mp_dispatch(const MpArgs& g, const Plan& pl) {
 #define QCE_MP(NPD_, KP_, WGS_, HALF_)                                     \
   if (pl.npd == NPD_ && pl.kp == KP_ && pl.wgs == WGS_ && pl.half == HALF_) \
-    return mp_launch<MpCfg<NPD_, KP_, WGS_, HALF_, COH>>(g, pl);
+    return mp_launch<MpCfg<NPD_, KP_, WGS_, HALF_, COH, STATS>>(g, pl);
   QCE_MP(1, 1, 2, false)
   QCE_MP(2, 1, 2, false)
   QCE_MP(1, 1, 1, false)
@@ -841,12 +956,14 @@ int mp_dispatch(const MpArgs& g, const Plan& pl) {
   QCE_MP(1, 2, 1, false)
   QCE_MP(2, 2, 1, false)
   QCE_MP(4, 2, 1, false)
-  QCE_MP(1, 1, 1, true)
-  QCE_MP(2, 1, 1, true)
-  QCE_MP(4, 1, 1, true)
-  QCE_MP(1, 2, 1, true)
-  QCE_MP(2, 2, 1, true)
-  QCE_MP(4, 2, 1, true)
+  if constexpr (!STATS) {
+    QCE_MP(1, 1, 1, true)
+    QCE_MP(2, 1, 1, true)
+    QCE_MP(4, 1, 1, true)
+    QCE_MP(1, 2, 1, true)
+    QCE_MP(2, 2, 1, true)
+    QCE_MP(4, 2, 1, true)
+  }
 #undef QCE_MP
   return (int)cudaErrorInvalidValue;
 }
@@ -856,24 +973,28 @@ int mp_dispatch(const MpArgs& g, const Plan& pl) {
 // C entry point, loaded with ctypes; returns a cudaError_t (0 on success).
 // x (n, 2 p d) and out (n, 2 d) hold complex values as interleaved [re, im]
 // pairs, x pilot-major; hi, lo, lo2 are the bank's `units` units
-// (`mp_circ_kernels.mp_circ_tc_operands`, 16-byte aligned), cst (k_comp)
-// the layout's constants. t_coh > 1 selects the coherent form (n a whole
-// number of t_coh row blocks).
+// (`mp_circ_kernels.mp_circ_tc_operands`, `circ_kernels.circ_tc_operands`,
+// 16-byte aligned), cst (k_comp) the layout's constants. t_coh > 1 selects
+// the coherent form (n a whole number of t_coh row blocks); stats != 0 the
+// stats form, which writes the DFT-domain accumulator to out and m, den (n)
+// to m_out, den_out, from units without the inverse operand's.
 extern "C" int mp_circ_estimate_launch(const float* x, const void* hi,
                                        const void* lo, const void* lo2,
-                                       const float* cst, float* out, int n,
+                                       const float* cst, float* out,
+                                       float* m_out, float* den_out, int n,
                                        int d, int p_pil, int k_comp,
                                        int units, int t_coh, float alpha,
-                                       void* stream) {
+                                       int stats, void* stream) {
   if (n < 0 || d < 1 || d > 128 || p_pil < 1 || k_comp < 1 || k_comp > 128 ||
-      t_coh < 1 || n % t_coh != 0)
+      t_coh < 1 || n % t_coh != 0 ||
+      (stats && (m_out == nullptr || den_out == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int npd = pieces_of(2 * d), ncd = (npd + 1) / 2;
   const int kp = pieces_of(k_comp);
   const int pairs = p_pil * (p_pil - 1) / 2;
   if (units != p_pil * npd * npd +
                    kp * (p_pil * npd + p_pil * ncd + pairs * npd) +
-                   npd * (p_pil + 1) * kp + npd * npd)
+                   npd * (p_pil + 1) * kp + (stats ? 0 : npd * npd))
     return (int)cudaErrorInvalidValue;
   const void* aligned[3] = {hi, lo, lo2};
   for (const void* ptr : aligned)
@@ -896,6 +1017,8 @@ extern "C" int mp_circ_estimate_launch(const float* x, const void* hi,
                   static_cast<const bf16*>(lo2)},
                  cst,
                  out,
+                 m_out,
+                 den_out,
                  n,
                  d,
                  p_pil,
@@ -904,6 +1027,9 @@ extern "C" int mp_circ_estimate_launch(const float* x, const void* hi,
                  t_coh,
                  alpha,
                  static_cast<cudaStream_t>(stream)};
-  if (t_coh > 1) return mp_dispatch<true>(g, pl);
-  return mp_dispatch<false>(g, pl);
+  if (stats)
+    return t_coh > 1 ? mp_dispatch<true, true>(g, pl)
+                     : mp_dispatch<false, true>(g, pl);
+  return t_coh > 1 ? mp_dispatch<true, false>(g, pl)
+                   : mp_dispatch<false, false>(g, pl);
 }

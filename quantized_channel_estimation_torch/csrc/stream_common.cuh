@@ -1,8 +1,7 @@
 // Shared pieces of the fp32 bank-streaming kernels (K4 / K5 in
-// grouped_topk.cu, K14a in karatsuba_estimate.cu, the circulant kernels
-// through circ_common.cuh): the block shape, the cp.async primitives, the
-// warp butterfly sum and the copy of one pipeline stage of the bank into
-// shared memory.
+// grouped_topk.cu, K14a in karatsuba_estimate.cu): the block shape, the
+// cp.async primitives, the warp butterfly sum and the copy of one pipeline
+// stage of the bank into shared memory.
 #pragma once
 
 #include <cuda_runtime.h>

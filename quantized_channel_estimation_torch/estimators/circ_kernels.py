@@ -6,10 +6,15 @@ Port of the structured-bank section of
 `CircKernelBank`, `circ_kernel_bank` (with `blocks`), and the
 entries `estimate_fused_circulant` (K6), `estimate_fused_circulant_coherent`
 (K7), `estimate_fused_circulant_stats` (K8) and
-`estimate_fused_circulant_coherent_stats` (K9). The four kernels are one
-CUDA C++ template with COH and STATS flags in `csrc/circ_estimate.cu`,
-built and bound by `estimators.kernels` (nvcc, ctypes, launch counts);
-shard states merge with `kernels.merge_stats`.
+`estimate_fused_circulant_coherent_stats` (K9). The four kernels are the
+multi-pilot template of `mp_circ_kernels` at one pilot (its COH and STATS
+flags, `csrc/mp_circ_estimate.cu`), on Hopper's tensor cores: the
+features [u | |u|^2] are K10's at P = 1, the logit coefficients are the
+same numbers, and the combine (K, 4D) is K10's two slabs (bias, filter).
+`circ_tc_operands` lays a `CircKernelBank` out as that template's bf16
+units (cached per shard by `lowered_tc`), and `circ_tc_reference` is the
+plain version of that arithmetic; shard states merge with
+`kernels.merge_stats`.
 
 Differences of layout from the TPU kernels, none of arithmetic:
 
@@ -20,12 +25,12 @@ Differences of layout from the TPU kernels, none of arithmetic:
 - coherence blocks are block-major (the T rows of a block consecutive), as
   in `ops.scm.flatten_coherence` and K3, not the TPU's T-major tiles;
 - the eligibility rule `circ_kernel_eligible` is the CUDA kernel's range
-  (D <= 128, T up to a tile's rows), in place of the TPU's resident-bank
-  budget; beyond it the entries raise and `harness.stages` takes the
-  `torch.fft` pipeline. One launch
-  takes K <= 128 components; a larger bank is split over K into shards of
-  128, each through the stats kernel (K8 / K9), merged with `merge_stats`
-  and inverse-transformed once.
+  (D <= 128, T up to a warpgroup's 64 live rows), in place of the TPU's
+  resident-bank budget; beyond it the entries raise and `harness.stages`
+  takes the `torch.fft` pipeline. One launch takes K <= 128 components; a
+  larger bank is split over K into shards of 128, each through the stats
+  kernel (K8 / K9), merged with `merge_stats` and inverse-transformed
+  once.
 
 A wrapper launches its kernel on a CUDA tensor (or raises) and takes the
 plain PyTorch version only for a tensor on the CPU.
@@ -37,29 +42,33 @@ from typing import NamedTuple, Optional
 import torch
 
 from quantized_channel_estimation_torch.estimators import kernels
+from quantized_channel_estimation_torch.estimators import (
+    mp_circ_kernels as mk)
 from quantized_channel_estimation_torch.estimators.kernels import merge_stats
+from quantized_channel_estimation_torch.estimators.mp_circ_kernels import (
+    CIRC_MAX_D, CIRC_MAX_K, MpCircTcOperands, _cplx_interleaved, _hc, _pool,
+    _x2)
 from quantized_channel_estimation_torch.models import structured_bank as sb
 from quantized_channel_estimation_torch.models.structured_bank import (
     CirculantBank)
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
 
-CIRC_MAX_D = 128   # bins of the circulant kernels
-CIRC_MAX_K = 128   # components of the circulant kernels
-
 
 def circ_tile_rows(d: int) -> int:
-    """Rows of one tile of the circulant kernels (8 warps of 8 rows up to
-    D = 64, else of 4; `dispatch` in csrc/circ_estimate.cu): the largest
-    coherence block K7/K9 pool."""
-    return 64 if d <= 64 else 32
+    """Live rows of one warpgroup of the circulant kernels at D bins
+    (`mp_circ_kernels.mp_circ_tile_rows` at one pilot, pooled, at the
+    widest launch of 128 components: 64 at every D <= 128): the largest
+    coherence block K7 / K9 pool."""
+    return mk.mp_circ_tile_rows(d, CIRC_MAX_K, 1, 2)
 
 
 def circ_kernel_eligible(d: int, k: int, t: int = 1) -> bool:
     """Can the circulant kernels serve a bank of K components over D bins,
-    pooling T-snapshot blocks? D <= 128 and T within a tile's rows; any K
-    (more than 128 components are split into shards, see
-    `estimate_fused_circulant`). A rule of the shapes, decided before any
-    launch."""
+    pooling T-snapshot blocks? D <= 128 and T within a warpgroup's live
+    rows at the widest launch (`circ_tile_rows`: T <= 64 at every D; a
+    narrower launch or T = 1 leaves at least as many); any K (more than 128
+    components are split into shards, see `estimate_fused_circulant`). A
+    rule of the shapes, decided before any launch."""
     return 1 <= d <= CIRC_MAX_D and k >= 1 and 1 <= t <= circ_tile_rows(d)
 
 
@@ -87,17 +96,6 @@ class CircKernelBank(NamedTuple):
     const: torch.Tensor
     comb: torch.Tensor
     binv: torch.Tensor
-
-
-def _cplx_interleaved(b: torch.Tensor) -> torch.Tensor:
-    """(..., D, P) complex -> (..., 2D, 2P) real with [x_re, x_im] rows
-    interleaved @ it = [Re(x b), Im(x b)] interleaved: the 2x2 block
-    [[re, im], [-im, re]] of every entry."""
-    d, p = b.shape[-2:]
-    top = torch.stack([b.real, b.imag], dim=-1)        # rows 2d
-    bot = torch.stack([-b.imag, b.real], dim=-1)       # rows 2d + 1
-    return torch.stack([top, bot], dim=-3).reshape(b.shape[:-2]
-                                                   + (2 * d, 2 * p))
 
 
 def circ_kernel_bank(bank: CirculantBank, blocks=None, t_coh: int = 1,
@@ -155,16 +153,51 @@ def lowered(bank: CirculantBank, cache: Optional[dict] = None, blocks=None,
     return ckbs
 
 
-def _x2(r: torch.Tensor) -> torch.Tensor:
-    """Complex observations (..., D) -> float32 rows of interleaved
-    [re, im] pairs (n, 2D): a view of a contiguous complex64 tensor."""
-    x = torch.view_as_real(r.to(torch.complex64).contiguous())
-    return x.reshape(-1, 2 * r.shape[-1])
+# ---------------------------------------------------------------------------
+# the tensor-core layout of the bank: K10's units at one pilot
+# ---------------------------------------------------------------------------
+
+def circ_mp_bank(ckb: CircKernelBank) -> mk.MpCircKernelBank:
+    """The bank as K10's layout at P = 1: bfwd, lcoef (K6's rows 2 Re cm,
+    -2 Im cm are K10's 2 Re pm, 2 Im pm with pm = prec mean; -prec on
+    |u|^2), const (K6's, without the row constant -D log pi) and binv as
+    they are; comb (K, 4D) of [br, bi, fr, fi] per bin as the two
+    interleaved slabs (2, K, 2D), bias then filter."""
+    k, four_d = ckb.comb.shape
+    comb = ckb.comb.reshape(k, four_d // 4, 2, 2).permute(2, 0, 1, 3)
+    return mk.MpCircKernelBank(ckb.bfwd, ckb.lcoef, ckb.const,
+                               comb.reshape(2, k, four_d // 2).contiguous(),
+                               ckb.binv)
 
 
-def _hc(h2: torch.Tensor, dtype) -> torch.Tensor:
-    """float32 interleaved rows (n, 2D) -> complex (n, D) of `dtype`."""
-    return torch.view_as_complex(h2.reshape(h2.shape[0], -1, 2)).to(dtype)
+def circ_tc_operands(ckb: CircKernelBank,
+                     stats: bool = False) -> MpCircTcOperands:
+    """The bank's bf16 units as the template streams them at one pilot
+    (`mp_circ_kernels.mp_circ_tc_operands` of `circ_mp_bank`): 15 at D =
+    K = 64, the stats forms' without the inverse operand's (11). The same
+    for every (T, alpha) layout of a bank."""
+    return mk.mp_circ_tc_operands(circ_mp_bank(ckb), stats)
+
+
+def _units(ckb: CircKernelBank, stats: bool) -> int:
+    return mk.mp_circ_units(ckb.bfwd.shape[0] // 2, ckb.const.shape[0], 1,
+                            stats)
+
+
+def lowered_tc(bank: CirculantBank, cache: Optional[dict] = None,
+               blocks=None, stats: bool = False):
+    """The kernels' operands of each shard of `bank` (`circ_tc_operands`
+    of its T = 1 layouts, `lowered`), kept in `cache` under
+    ("circ_tc_operands", blocks, stats) beside the layouts, so a bank
+    served many times is split and laid out once."""
+    key = ("circ_tc_operands", blocks, bool(stats))
+    if cache is not None and key in cache:
+        return cache[key]
+    ops = tuple(circ_tc_operands(c, stats)
+                for c in lowered(bank, cache, blocks))
+    if cache is not None:
+        cache[key] = ops
+    return ops
 
 
 # ---------------------------------------------------------------------------
@@ -178,18 +211,6 @@ def _circ_logits(x2: torch.Tensor, ckb: CircKernelBank):
     u3 = u.reshape(u.shape[0], -1, 2)
     z = torch.cat([u, (u3 * u3).sum(-1)], dim=-1)
     return u3, z @ ckb.lcoef + ckb.const[None]
-
-
-def _pool(lg: torch.Tensor, t_coh: int, coh_alpha: float) -> torch.Tensor:
-    """lg + a (s - lg), s the sum over each block of T consecutive rows
-    (a >= 1: s)."""
-    if t_coh <= 1:
-        return lg
-    lg3 = lg.reshape(-1, t_coh, lg.shape[-1])
-    s = lg3.sum(1, keepdim=True)
-    out = s.expand_as(lg3) if coh_alpha >= 1.0 \
-        else lg3 + coh_alpha * (s - lg3)
-    return out.reshape(lg.shape)
 
 
 def _combine(u3: torch.Tensor, w: torch.Tensor,
@@ -264,14 +285,29 @@ def circ_estimate_coherent_stats_reference(x2: torch.Tensor,
     return _circ_reference(x2, ckb, t_coh, coh_alpha, True, chunk)
 
 
+def circ_tc_reference(x2: torch.Tensor, ckb: CircKernelBank, t_coh: int = 1,
+                      coh_alpha: float = 1.0, stats: bool = False,
+                      chunk: int = 16384):
+    """Plain PyTorch version of the tensor-core arithmetic of K6-K9
+    (`mp_circ_kernels.mp_circ_tc_reference` at one pilot): the flat form
+    at t_coh = 1, the coherent one above; `stats` returns (m, den, acc) as
+    the stats forms do. For the CPU tests; nothing on the main path calls
+    it."""
+    return mk.mp_circ_tc_reference(x2, circ_mp_bank(ckb), t_coh, coh_alpha,
+                                   chunk, stats)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
 def _launch(name: str, x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
-            coh_alpha: float, stats: bool):
-    """Validate, allocate and launch on x2's device and current stream;
-    raise on any refusal. Returns out, or (m, den, out) for stats."""
+            coh_alpha: float, stats: bool,
+            ops: Optional[MpCircTcOperands]):
+    """Validate, allocate and launch the template at one pilot on x2's
+    device and current stream with the bank's operands `ops` (laid out
+    here when None); raise on any refusal. Returns out, or (m, den, out)
+    for stats."""
     n, two_d = x2.shape
     d = two_d // 2
     k = ckb.const.shape[0]
@@ -279,8 +315,8 @@ def _launch(name: str, x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
             or not circ_kernel_eligible(d, k, t_coh)):
         raise ValueError(
             f"{name} takes N rows of whole T-row blocks with D, K <= "
-            f"{CIRC_MAX_D}, {CIRC_MAX_K} and T <= {circ_tile_rows(d)}; got "
-            f"N={n}, D={d}, K={k}, T={t_coh}")
+            f"{CIRC_MAX_D}, {CIRC_MAX_K} and T <= {circ_tile_rows(d)}; "
+            f"got N={n}, D={d}, K={k}, T={t_coh}")
     dev = x2.device
     kernels._check_cuda("x2", x2, (n, two_d), dev)
     kernels._check_cuda("bfwd", ckb.bfwd, (two_d, two_d), dev)
@@ -288,70 +324,70 @@ def _launch(name: str, x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
     kernels._check_cuda("const", ckb.const, (k,), dev)
     kernels._check_cuda("comb", ckb.comb, (k, 4 * d), dev)
     kernels._check_cuda("binv", ckb.binv, (two_d, two_d), dev)
-    out = torch.empty((n, two_d), dtype=torch.float32, device=dev)
-    m = den = None
-    if stats:
-        m = torch.empty((n,), dtype=torch.float32, device=dev)
-        den = torch.empty((n,), dtype=torch.float32, device=dev)
-    if n:
-        lib = kernels._library("circ_estimate")
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.circ_estimate_launch(
-                x2.data_ptr(), ckb.bfwd.data_ptr(), ckb.lcoef.data_ptr(),
-                ckb.const.data_ptr(), ckb.comb.data_ptr(),
-                ckb.binv.data_ptr(), out.data_ptr(),
-                m.data_ptr() if stats else None,
-                den.data_ptr() if stats else None, n, d, k, int(t_coh),
-                float(coh_alpha), int(stats), stream)
-        if err != 0:
-            raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    return (m, den, out) if stats else out
+    if ops is None:
+        ops = circ_tc_operands(ckb, stats)
+    mk.check_units(name, ops, _units(ckb, stats), dev, "circ_tc_operands"
+                   + (" with stats=True" if stats else ""))
+    return mk.launch_tc(name, x2, ops, ckb.const, d, 1, t_coh, coh_alpha,
+                        stats)
 
 
-def circ_estimate(x2: torch.Tensor, ckb: CircKernelBank) -> torch.Tensor:
+def circ_estimate(x2: torch.Tensor, ckb: CircKernelBank,
+                  operands: Optional[MpCircTcOperands] = None
+                  ) -> torch.Tensor:
     """K6 on x2 (N, 2D) float32 interleaved -> (N, 2D). On a CUDA tensor it
-    launches the CUDA kernel on the current stream and raises on any
-    refusal; on a CPU tensor it computes the plain version."""
+    launches the CUDA kernel on the current stream with the bank's
+    `operands` (`circ_tc_operands(ckb)`, laid out in the call when None)
+    and raises on any refusal; on a CPU tensor it computes the plain
+    version."""
     if not x2.is_cuda:
         return circ_estimate_reference(x2, ckb)
-    out = _launch("circ_estimate", x2, ckb, 1, 1.0, False)
+    out = _launch("circ_estimate", x2, ckb, 1, 1.0, False, operands)
     if x2.shape[0]:
         circ_estimate.launches += 1
     return out
 
 
 def circ_estimate_coherent(x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
-                           coh_alpha: float = 1.0) -> torch.Tensor:
+                           coh_alpha: float = 1.0,
+                           operands: Optional[MpCircTcOperands] = None
+                           ) -> torch.Tensor:
     """K7 on x2 (N, 2D), N / T blocks of T consecutive rows (2 <= T <=
     `circ_tile_rows`), ckb from `circ_kernel_bank(bank, blocks, t_coh,
-    coh_alpha)`. CUDA kernel on a CUDA tensor, plain version on the CPU."""
+    coh_alpha)`, `operands` as for `circ_estimate` (any layout of the
+    bank). CUDA kernel on a CUDA tensor, plain version on the CPU."""
     if t_coh < 2:
         raise ValueError(f"circ_estimate_coherent takes T >= 2; got {t_coh}")
     if not x2.is_cuda:
         return circ_estimate_coherent_reference(x2, ckb, t_coh, coh_alpha)
-    out = _launch("circ_estimate_coherent", x2, ckb, t_coh, coh_alpha, False)
+    out = _launch("circ_estimate_coherent", x2, ckb, t_coh, coh_alpha, False,
+                  operands)
     if x2.shape[0]:
         circ_estimate_coherent.launches += 1
     return out
 
 
-def circ_estimate_stats(x2: torch.Tensor, ckb: CircKernelBank):
+def circ_estimate_stats(x2: torch.Tensor, ckb: CircKernelBank,
+                        operands: Optional[MpCircTcOperands] = None):
     """K8 on x2 (N, 2D) -> (m (N,), den (N,), acc (N, 2D) in the DFT
-    domain). CUDA kernel on a CUDA tensor, plain version on the CPU."""
+    domain), `operands` from `circ_tc_operands(ckb, stats=True)` (laid out
+    in the call when None). CUDA kernel on a CUDA tensor, plain version on
+    the CPU."""
     if not x2.is_cuda:
         return circ_estimate_stats_reference(x2, ckb)
-    res = _launch("circ_estimate_stats", x2, ckb, 1, 1.0, True)
+    res = _launch("circ_estimate_stats", x2, ckb, 1, 1.0, True, operands)
     if x2.shape[0]:
         circ_estimate_stats.launches += 1
     return res
 
 
 def circ_estimate_coherent_stats(x2: torch.Tensor, ckb: CircKernelBank,
-                                 t_coh: int, coh_alpha: float = 1.0):
+                                 t_coh: int, coh_alpha: float = 1.0,
+                                 operands: Optional[MpCircTcOperands] = None):
     """K9 on x2 (N, 2D) of T-row blocks -> per-row (m (N,), den (N,)) and
-    acc (N, 2D) in the DFT domain. CUDA kernel on a CUDA tensor, plain
-    version on the CPU."""
+    acc (N, 2D) in the DFT domain, `operands` as for
+    `circ_estimate_stats`. CUDA kernel on a CUDA tensor, plain version on
+    the CPU."""
     if t_coh < 2:
         raise ValueError(f"circ_estimate_coherent_stats takes T >= 2; got "
                          f"{t_coh}")
@@ -359,7 +395,7 @@ def circ_estimate_coherent_stats(x2: torch.Tensor, ckb: CircKernelBank,
         return circ_estimate_coherent_stats_reference(x2, ckb, t_coh,
                                                       coh_alpha)
     res = _launch("circ_estimate_coherent_stats", x2, ckb, t_coh, coh_alpha,
-                  True)
+                  True, operands)
     if x2.shape[0]:
         circ_estimate_coherent_stats.launches += 1
     return res
@@ -372,6 +408,14 @@ kernels.register_wrappers(circ_estimate, circ_estimate_coherent,
 # ---------------------------------------------------------------------------
 # entries on complex observations and circulant banks
 # ---------------------------------------------------------------------------
+
+def _ops(bank, r, cache, blocks, stats, n_shards):
+    """The shards' operands for a launch on r's device (`lowered_tc`), or
+    Nones on the CPU, where the wrappers take their plain versions."""
+    if r.is_cuda:
+        return lowered_tc(bank, cache, blocks, stats)
+    return (None,) * n_shards
+
 
 def _merged(states, blocks, dtype) -> torch.Tensor:
     """Per-row stats states of disjoint component shards -> the estimate:
@@ -389,13 +433,14 @@ def estimate_fused_circulant(bank: CirculantBank, r: torch.Tensor,
     the kron basis of block-circulant banks; selection modes stay on the
     `torch.fft` path). K <= 128 is one launch of K6; a larger bank runs K8
     on each shard of 128 components and merges the states. `cache`: see
-    `lowered`."""
+    `lowered` and `lowered_tc`."""
     ckbs = lowered(bank, cache, blocks)
     x2 = _x2(r)
+    ops = _ops(bank, r, cache, blocks, len(ckbs) > 1, len(ckbs))
     if len(ckbs) == 1:
-        return _hc(circ_estimate(x2, ckbs[0]), r.dtype)
-    return _merged([circ_estimate_stats(x2, c) for c in ckbs], blocks,
-                   r.dtype)
+        return _hc(circ_estimate(x2, ckbs[0], ops[0]), r.dtype)
+    return _merged([circ_estimate_stats(x2, c, o)
+                    for c, o in zip(ckbs, ops)], blocks, r.dtype)
 
 
 def estimate_fused_circulant_coherent(bank: CirculantBank, r: torch.Tensor,
@@ -408,7 +453,7 @@ def estimate_fused_circulant_coherent(bank: CirculantBank, r: torch.Tensor,
     `circ_kernel_eligible` runs K7 with the alpha blend in the kernel (K9
     per shard and a merge for K > 128); a larger T raises
     (`harness.stages.estimate_circulant_coherent` sends it to the
-    `torch.fft` coherent path). `cache`: see `lowered`."""
+    `torch.fft` coherent path). `cache`: see `lowered` and `lowered_tc`."""
     if r.dim() != 3:
         raise ValueError(f"expected (B, T, M) blocks, got {tuple(r.shape)}")
     b, t, d = r.shape
@@ -421,46 +466,53 @@ def estimate_fused_circulant_coherent(bank: CirculantBank, r: torch.Tensor,
             f"T <= {circ_tile_rows(d)}; got D={d}, T={t}")
     ckbs = lowered(bank, cache, blocks, t, alpha)
     x2 = _x2(r)
+    ops = _ops(bank, r, cache, blocks, len(ckbs) > 1, len(ckbs))
     if len(ckbs) == 1:
-        h = _hc(circ_estimate_coherent(x2, ckbs[0], t, alpha), r.dtype)
+        h = _hc(circ_estimate_coherent(x2, ckbs[0], t, alpha, ops[0]),
+                r.dtype)
     else:
-        h = _merged([circ_estimate_coherent_stats(x2, c, t, alpha)
-                     for c in ckbs], blocks, r.dtype)
+        h = _merged([circ_estimate_coherent_stats(x2, c, t, alpha, o)
+                     for c, o in zip(ckbs, ops)], blocks, r.dtype)
     return h.reshape(b, t, d)
 
 
 def estimate_fused_circulant_stats(bank: CirculantBank, r: torch.Tensor,
-                                   blocks=None):
+                                   blocks=None, cache: Optional[dict] = None):
     """Kernel analog of `structured_bank.estimate_circulant_stats` through
     K8: (m (N,), den (N,), acc (N, D) complex64 in the DFT domain) of a
     (component shard of a) bank, `blocks` selecting the kron basis of a
     block-circulant one; a bank past one launch's 128 components runs K8
     on each 128-component part and merges the states. Merge kernel states
     with kernel states (`merge_stats`): their logits drop the row constant
-    -D log pi."""
+    -D log pi. `cache`: see `lowered` and `lowered_tc`."""
     x2 = _x2(r)
-    m, den, acc2 = merge_stats(*zip(*[circ_estimate_stats(x2, c)
-                                      for c in lowered(bank, None, blocks)]))
+    ckbs = lowered(bank, cache, blocks)
+    ops = _ops(bank, r, cache, blocks, True, len(ckbs))
+    m, den, acc2 = merge_stats(*zip(*[circ_estimate_stats(x2, c, o)
+                                      for c, o in zip(ckbs, ops)]))
     return m, den, _hc(acc2, torch.complex64)
 
 
 def estimate_fused_circulant_coherent_stats(bank: CirculantBank,
                                             r: torch.Tensor,
-                                            alpha: float = 1.0, blocks=None):
+                                            alpha: float = 1.0, blocks=None,
+                                            cache: Optional[dict] = None):
     """Kernel analog of
     `structured_bank.estimate_circulant_coherent_stats` through K9:
     per-block state (m (B,), den (B,)) at alpha >= 1, per-snapshot ((B, T))
-    below, acc (B, T, D) complex64 in the DFT domain."""
+    below, acc (B, T, D) complex64 in the DFT domain. `cache`: see
+    `lowered` and `lowered_tc`."""
     if r.dim() != 3:
         raise ValueError(f"expected (B, T, M) blocks, got {tuple(r.shape)}")
     b, t, d = r.shape
     x2 = _x2(r)
+    ckbs = lowered(bank, cache, blocks, t, alpha)
+    ops = _ops(bank, r, cache, blocks, True, len(ckbs))
     if t == 1:
-        states = [circ_estimate_stats(x2, c)
-                  for c in lowered(bank, None, blocks)]
+        states = [circ_estimate_stats(x2, c, o) for c, o in zip(ckbs, ops)]
     else:
-        states = [circ_estimate_coherent_stats(x2, c, t, alpha)
-                  for c in lowered(bank, None, blocks, t, alpha)]
+        states = [circ_estimate_coherent_stats(x2, c, t, alpha, o)
+                  for c, o in zip(ckbs, ops)]
     m, den, acc2 = merge_stats(*zip(*states))
     acc = _hc(acc2, torch.complex64).reshape(b, t, d)
     m, den = m.reshape(b, t), den.reshape(b, t)

@@ -45,10 +45,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from quantized_channel_estimation_torch.estimators import kernels
-from quantized_channel_estimation_torch.estimators.circ_kernels import (
-    _cplx_interleaved, _hc, _pool, _x2)
 from quantized_channel_estimation_torch.estimators.mp_circ_kernels import (
-    _interleave)
+    _cplx_interleaved, _hc, _interleave, _pool, _x2)
 from quantized_channel_estimation_torch.estimators.variant_kernels import (
     tc_products)
 from quantized_channel_estimation_torch.models.mfa_bank import FactoredBank

@@ -31,8 +31,8 @@ dense-bank part: the block-GEMM bank layout (`KernelBankBlock`,
 K2 and K5 serve banks split over the component axis across ranks
 (`parallel.mesh`); on one card K1, K3 and K4 stream any K in one launch.
 
-The circulant kernels K6-K9 (`csrc/circ_estimate.cu`), the multi-pilot
-circulant kernel K10 (`csrc/mp_circ_estimate.cu`), the factored (MFA)
+The circulant kernels K6-K9 and the multi-pilot circulant kernel K10 (one
+template, `csrc/mp_circ_estimate.cu`), the factored (MFA)
 kernels K11-K13 (`csrc/fact_estimate.cu`), the Karatsuba and tensor-core
 variants of K1, K14a and K14b (`csrc/karatsuba_estimate.cu`,
 `csrc/grouped_tc_estimate.cu`), and the floor probe K15
@@ -154,13 +154,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.grouped_topk_launch.restype = i32
         lib.grouped_topk_stats_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
         lib.grouped_topk_stats_launch.restype = i32
-    elif name == "circ_estimate":
-        lib.circ_estimate_launch.argtypes = (
-            [ptr] * 9 + [i32] * 4 + [f32, i32, ptr])
-        lib.circ_estimate_launch.restype = i32
     elif name == "mp_circ_estimate":
         lib.mp_circ_estimate_launch.argtypes = (
-            [ptr] * 6 + [i32] * 6 + [f32, ptr])
+            [ptr] * 8 + [i32] * 6 + [f32, i32, ptr])
         lib.mp_circ_estimate_launch.restype = i32
     elif name == "fact_estimate":
         lib.fact_estimate_launch.argtypes = (

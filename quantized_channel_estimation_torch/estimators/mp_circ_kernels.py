@@ -5,15 +5,16 @@ Port of the multi-pilot section of
 `quantized_channel_estimation_tpu/estimators/pallas_kernels.py`:
 `MpCircKernelBank`, `mp_circ_kernel_bank` (with `blocks`), and the entries
 `estimate_fused_circulant_mp` and `estimate_fused_circulant_mp_coherent`.
-Both forms are one CUDA C++ template with a COH flag in
+Both forms are one CUDA C++ template with COH and STATS flags in
 `csrc/mp_circ_estimate.cu`, built and bound by `estimators.kernels` (nvcc,
-ctypes, launch counts). The kernel runs its four products (forward
-transform, logit, combine, inverse transform) on Hopper's tensor cores as
-six exact bf16 products of three-plane splits (`kernels.split_planes3`),
-accumulated in fp32: the bank's operands are laid out once as the units
-the kernel streams (`mp_circ_tc_operands`, cached beside the bank by
-`lowered_tc`), and `mp_circ_tc_reference` is the plain version of that
-arithmetic.
+ctypes, launch counts); at one pilot the same template is the circulant
+kernels K6-K9 of `circ_kernels` (`launch_tc` launches either). The kernel
+runs its four products (forward transform, logit, combine, inverse
+transform) on Hopper's tensor cores as six exact bf16 products of
+three-plane splits (`kernels.split_planes3`), accumulated in fp32: the
+bank's operands are laid out once as the units the kernel streams
+(`mp_circ_tc_operands`, cached beside the bank by `lowered_tc`), and
+`mp_circ_tc_reference` is the plain version of that arithmetic.
 
 Differences of layout from the TPU kernel, none of arithmetic:
 
@@ -47,8 +48,6 @@ from typing import NamedTuple, Optional
 import torch
 
 from quantized_channel_estimation_torch.estimators import kernels
-from quantized_channel_estimation_torch.estimators.circ_kernels import (
-    CIRC_MAX_D, CIRC_MAX_K, _cplx_interleaved, _hc, _pool, _x2)
 from quantized_channel_estimation_torch.estimators.variant_kernels import (
     tc_products)
 from quantized_channel_estimation_torch.models import structured_bank as sb
@@ -56,8 +55,45 @@ from quantized_channel_estimation_torch.models.structured_bank import (
     CirculantBankMP)
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
 
+CIRC_MAX_D = 128   # bins of the circulant kernels
+CIRC_MAX_K = 128   # components of one launch of the circulant kernels
 SMEM_BLOCK_BYTES = 232_448   # shared memory one block can use on sm_90
 UNIT_BYTES = 3 * 64 * 64 * 2  # a unit: 64 columns x 64 deep, three planes
+
+
+def _cplx_interleaved(b: torch.Tensor) -> torch.Tensor:
+    """(..., D, P) complex -> (..., 2D, 2P) real with [x_re, x_im] rows
+    interleaved @ it = [Re(x b), Im(x b)] interleaved: the 2x2 block
+    [[re, im], [-im, re]] of every entry."""
+    d, p = b.shape[-2:]
+    top = torch.stack([b.real, b.imag], dim=-1)        # rows 2d
+    bot = torch.stack([-b.imag, b.real], dim=-1)       # rows 2d + 1
+    return torch.stack([top, bot], dim=-3).reshape(b.shape[:-2]
+                                                   + (2 * d, 2 * p))
+
+
+def _x2(r: torch.Tensor) -> torch.Tensor:
+    """Complex observations (..., D) -> float32 rows of interleaved
+    [re, im] pairs (n, 2D): a view of a contiguous complex64 tensor."""
+    x = torch.view_as_real(r.to(torch.complex64).contiguous())
+    return x.reshape(-1, 2 * r.shape[-1])
+
+
+def _hc(h2: torch.Tensor, dtype) -> torch.Tensor:
+    """float32 interleaved rows (n, 2D) -> complex (n, D) of `dtype`."""
+    return torch.view_as_complex(h2.reshape(h2.shape[0], -1, 2)).to(dtype)
+
+
+def _pool(lg: torch.Tensor, t_coh: int, coh_alpha: float) -> torch.Tensor:
+    """lg + a (s - lg), s the sum over each block of T consecutive rows
+    (a >= 1: s)."""
+    if t_coh <= 1:
+        return lg
+    lg3 = lg.reshape(-1, t_coh, lg.shape[-1])
+    s = lg3.sum(1, keepdim=True)
+    out = s.expand_as(lg3) if coh_alpha >= 1.0 \
+        else lg3 + coh_alpha * (s - lg3)
+    return out.reshape(lg.shape)
 
 
 def _pieces(w: int) -> int:
@@ -66,16 +102,17 @@ def _pieces(w: int) -> int:
     return 1 if w <= 64 else 2 if w <= 128 else 4
 
 
-def mp_circ_units(d: int, k: int, p: int) -> int:
+def mp_circ_units(d: int, k: int, p: int, stats: bool = False) -> int:
     """Units (64 columns x 64 deep) of the bank a tile streams: the forward
     operand once a pilot, the logit's feature groups for each 64-column
-    piece of K, the P + 1 combine slabs and the inverse operand
-    (`mp_circ_estimate_launch` in csrc/mp_circ_estimate.cu)."""
+    piece of K, the P + 1 combine slabs and, except for the stats form, the
+    inverse operand (`mp_circ_estimate_launch` in
+    csrc/mp_circ_estimate.cu)."""
     npd, kp = _pieces(2 * d), _pieces(k)
     ncd = (npd + 1) // 2
     pairs = p * (p - 1) // 2
     return (p * npd * npd + kp * (p * npd + p * ncd + pairs * npd)
-            + npd * (p + 1) * kp + npd * npd)
+            + npd * (p + 1) * kp + (0 if stats else npd * npd))
 
 
 def mp_circ_smem_bytes(d: int, k: int, p: int, t: int = 1, wgs: int = 1,
@@ -250,14 +287,16 @@ def _sq_order(d: int) -> torch.Tensor:
     return torch.where(bins < d, bins, -1)
 
 
-def mp_circ_tc_units(ckb: MpCircKernelBank) -> torch.Tensor:
+def mp_circ_tc_units(ckb: MpCircKernelBank,
+                     stats: bool = False) -> torch.Tensor:
     """The bank's four operands in float32 as the units of one tile, in the
     kernel's order (`mp_circ_units` of them, (units, 64, 64)): the forward
     operand's units (c, j) for each pilot; for each 64-column piece of K
     the logit operand's rows of the u_p groups (pieces of 2D), the |u_p|^2
     groups (`_sq_order`) and the pair groups; for each piece j of 2D the
     units of the P + 1 combine slabs over the chunks of K; the inverse
-    operand's units (j, jo) for each output piece jo."""
+    operand's units (j, jo) for each output piece jo, except for the stats
+    form (`stats`), which streams no inverse."""
     two_d = ckb.bfwd.shape[0]
     d, p, k = two_d // 2, ckb.comb.shape[0] - 1, ckb.const.shape[0]
     npd, kp = _pieces(two_d), _pieces(k)
@@ -282,27 +321,27 @@ def mp_circ_tc_units(ckb: MpCircKernelBank) -> torch.Tensor:
     comb = [_blocks(ckb.comb[si], wk, w2) for si in range(p + 1)]
     units += [comb[si][kc, j] for j in range(npd) for si in range(p + 1)
               for kc in range(kp)]
-    inv = _blocks(ckb.binv, w2, w2)
-    units += [inv[j, jo] for jo in range(npd) for j in range(npd)]
+    if not stats:
+        inv = _blocks(ckb.binv, w2, w2)
+        units += [inv[j, jo] for jo in range(npd) for j in range(npd)]
     return torch.stack(units)
 
 
-def mp_circ_tc_operands(ckb: MpCircKernelBank) -> MpCircTcOperands:
+def mp_circ_tc_operands(ckb: MpCircKernelBank,
+                        stats: bool = False) -> MpCircTcOperands:
     """Split the bank's operands into bf16 hi / lo / lo2 and lay them out
-    as the kernel's units (`MpCircTcOperands`); once per bank (`lowered_tc`
-    keeps them)."""
+    as the kernel's units (`MpCircTcOperands`; the stats form's without the
+    inverse); once per bank (`lowered_tc` keeps them)."""
     return MpCircTcOperands(*(kernels._sw128(pl).contiguous()
                               for pl in kernels.split_planes3(
-                                  mp_circ_tc_units(ckb).contiguous())))
+                                  mp_circ_tc_units(ckb, stats).contiguous())))
 
 
-def check_mp_circ_tc_operands(kernel: str, ops: MpCircTcOperands,
-                              ckb: MpCircKernelBank, device) -> None:
-    """Raise unless ops holds the units of a bank of ckb's shape on
-    `device` (`mp_circ_tc_operands`)."""
-    two_d = ckb.bfwd.shape[0]
-    shape = (mp_circ_units(two_d // 2, ckb.const.shape[0],
-                           ckb.comb.shape[0] - 1), 64, 64)
+def check_units(kernel: str, ops: MpCircTcOperands, units: int, device,
+                source: str) -> None:
+    """Raise unless ops holds `units` units on `device`, as `source` lays
+    them out."""
+    shape = (units, 64, 64)
     for name, t in zip(MpCircTcOperands._fields, ops):
         if (t is None or t.device != device or t.dtype != torch.bfloat16
                 or tuple(t.shape) != shape or not t.is_contiguous()):
@@ -310,7 +349,17 @@ def check_mp_circ_tc_operands(kernel: str, ops: MpCircTcOperands,
                    else f"{t.dtype} {tuple(t.shape)} on {t.device}")
             raise ValueError(f"{kernel}: operand {name} must be contiguous "
                              f"torch.bfloat16 {shape} on {device} "
-                             f"(`mp_circ_tc_operands`), got {got}")
+                             f"(`{source}`), got {got}")
+
+
+def check_mp_circ_tc_operands(kernel: str, ops: MpCircTcOperands,
+                              ckb: MpCircKernelBank, device) -> None:
+    """Raise unless ops holds the units of a bank of ckb's shape on
+    `device` (`mp_circ_tc_operands`)."""
+    two_d = ckb.bfwd.shape[0]
+    check_units(kernel, ops, mp_circ_units(two_d // 2, ckb.const.shape[0],
+                                           ckb.comb.shape[0] - 1), device,
+                "mp_circ_tc_operands")
 
 
 def lowered_tc(bank: CirculantBankMP, cache: Optional[dict] = None,
@@ -414,7 +463,7 @@ def _chunked(rows: torch.Tensor, w: torch.Tensor, width: int):
 
 def mp_circ_tc_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
                          t_coh: int = 1, coh_alpha: float = 1.0,
-                         chunk: int = 8192) -> torch.Tensor:
+                         chunk: int = 8192, stats: bool = False):
     """Plain PyTorch version of K10's arithmetic (the coherent form at
     t_coh > 1): each of the four products as the kernel cuts it, every
     64-deep chunk of the forward, combine and inverse contractions the six
@@ -425,7 +474,10 @@ def mp_circ_tc_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
     first 64 components) is taken off; the features, pooling, softmax and
     complex combine in float32. For the CPU tests; nothing on the main path
     calls it. `mp_circ_estimate_reference` is the same function with
-    float32 products. x2 (N, 2PD) float32 -> (N, 2D)."""
+    float32 products. x2 (N, 2PD) float32 -> (N, 2D); `stats`: the stats
+    form's (m (N,), den (N,), h (N, 2D)) instead, the un-normalised
+    weights exp(l - max l) and m = fl(o + max l), o the row's offset (the
+    coherent form: pooled as the logits are, in float64)."""
     pin_fp32()
     two_d = ckb.bfwd.shape[0]
     d, p, k = two_d // 2, ckb.comb.shape[0] - 1, ckb.const.shape[0]
@@ -436,7 +488,7 @@ def mp_circ_tc_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
         raise ValueError(f"{x2.shape[0]} rows are no whole number of "
                          f"T={t_coh} blocks")
     chunk = max(t_coh, chunk // t_coh * t_coh)   # whole blocks per chunk
-    outs = []
+    ms, dens, outs = [], [], []
     for i0 in range(0, x2.shape[0], chunk):
         xc = x2[i0:i0 + chunk]
         n = xc.shape[0]
@@ -467,7 +519,17 @@ def mp_circ_tc_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
         lg, lost = _kahan(lg, lost, ckb.const[None])
         off = lg[:, :64].max(-1, keepdim=True).values   # the row's offset
         off = torch.where(off > -1e29, off, torch.zeros_like(off))
-        w = torch.softmax(_pool((lg - off) - lost, t_coh, coh_alpha), -1)
+        lg = _pool((lg - off) - lost, t_coh, coh_alpha)
+        if stats:
+            o = _pool(off.double(), t_coh, coh_alpha)
+            mx = lg.max(-1, keepdim=True).values
+            mx = torch.where(mx > -torch.inf, mx, 0.0)
+            m = (o + mx.double()).float()
+            w = torch.exp(lg - mx)
+            ms.append(m[:, 0])
+            dens.append(w.sum(-1))
+        else:
+            w = torch.softmax(lg, -1)
         h = _chunked(w, ckb.comb[0], wk).reshape(n, d, 2)
         hr, hi = h[..., 0], h[..., 1]
         wpad = torch.nn.functional.pad(w, (0, wk - k))
@@ -479,9 +541,14 @@ def mp_circ_tc_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
                     n, d, 2)
                 fr, fi = f[..., 0], f[..., 1]
                 hr, hi = hr + fr * ur - fi * ui, hi + fr * ui + fi * ur
-        outs.append(_chunked(torch.stack([hr, hi], -1).reshape(n, two_d),
-                             ckb.binv, w2))
-    return torch.cat(outs) if outs else x2.new_zeros((0, two_d))
+        h = torch.stack([hr, hi], -1).reshape(n, two_d)
+        outs.append(h if stats else _chunked(h, ckb.binv, w2))
+    out = torch.cat(outs) if outs else x2.new_zeros((0, two_d))
+    if not stats:
+        return out
+    if not ms:
+        return x2.new_zeros((0,)), x2.new_zeros((0,)), out
+    return torch.cat(ms), torch.cat(dens), out
 
 
 # ---------------------------------------------------------------------------
@@ -522,19 +589,37 @@ def _launch(name: str, x2: torch.Tensor, ckb: MpCircKernelBank, t_coh: int,
     if ops is None:
         ops = mp_circ_tc_operands(ckb)
     check_mp_circ_tc_operands(name, ops, ckb, dev)
-    out = torch.empty((n, two_d), dtype=torch.float32, device=dev)
+    return launch_tc(name, x2, ops, ckb.const, d, p, t_coh, coh_alpha,
+                     False)
+
+
+def launch_tc(name: str, x2: torch.Tensor, ops: MpCircTcOperands,
+              const: torch.Tensor, d: int, p: int, t_coh: int,
+              coh_alpha: float, stats: bool):
+    """Allocate the outputs and launch csrc/mp_circ_estimate.cu on x2's
+    device and current stream, the inputs validated by the caller (K10's
+    `_launch`, `circ_kernels._launch`); raise on any refusal. Returns out
+    (N, 2D), or for `stats` (m (N,), den (N,), out)."""
+    n, dev = x2.shape[0], x2.device
+    out = torch.empty((n, 2 * d), dtype=torch.float32, device=dev)
+    m = den = None
+    if stats:
+        m = torch.empty((n,), dtype=torch.float32, device=dev)
+        den = torch.empty((n,), dtype=torch.float32, device=dev)
     if n:
         lib = kernels._library("mp_circ_estimate")
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.mp_circ_estimate_launch(
                 x2.data_ptr(), ops.hi.data_ptr(), ops.lo.data_ptr(),
-                ops.lo2.data_ptr(), ckb.const.data_ptr(), out.data_ptr(), n,
-                d, p, k, ops.hi.shape[0], int(t_coh), float(coh_alpha),
+                ops.lo2.data_ptr(), const.data_ptr(), out.data_ptr(),
+                m.data_ptr() if stats else None,
+                den.data_ptr() if stats else None, n, d, p, const.shape[0],
+                ops.hi.shape[0], int(t_coh), float(coh_alpha), int(stats),
                 stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    return out
+    return (m, den, out) if stats else out
 
 
 def mp_circ_estimate(x2: torch.Tensor, ckb: MpCircKernelBank,

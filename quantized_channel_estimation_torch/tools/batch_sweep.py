@@ -1,5 +1,5 @@
-"""Time K1, K3, K14a, K11, K12, K13 and K10 at the batch sizes the service
-and the sweeps send.
+"""Time K1, K3, K14a, K11, K12, K13, K10 and K6-K9 at the batch sizes the
+service and the sweeps send.
 
 The service flushes microbatches of 256-1024 rows, `run_gmm` estimates
 10000 rows an SNR, and the kernel tools 131072. A kernel's time at a small
@@ -15,13 +15,15 @@ K12 (`fact_kernels.fact_estimate_coherent` at T = 4, alpha 1) and K13
 the 2-pilot bank of a seeded circulant prior at the same widths (spectra
 uniform on [0.05, 2], small non-zero means, uniform weights; the P = 2
 `pilots.pilot_matrix`) K10 (`mp_circ_kernels.mp_circ_estimate`) and its
-coherent form at T = 4, alpha 1, at each `--rows`, with CUDA events
-(median of `--repeats`), the banks' kernel layouts made once beforehand,
-and prints one JSON line. Run as a file with an older checkout first on the
-path (`PYTHONPATH=<checkout> python3 <this file>`), it times that
-checkout's kernels, so that one call can time a parent and a change in
-turns; a K14a, K11-K13 or K10 wrapper that takes no laid-out operands (the
-fp32 loops they replaced) gets none.
+coherent form at T = 4, alpha 1, and on the bank of the same prior under
+the scalar pilot x0 = 1 K6 (`circ_kernels.circ_estimate`), K7 (T = 4,
+alpha 1), K8 and K9 (T = 4, alpha 1; the whole bank as one shard), at
+each `--rows`, with CUDA events (median of `--repeats`), the banks' kernel
+layouts made once beforehand, and prints one JSON line. Run as a file with
+an older checkout first on the path (`PYTHONPATH=<checkout> python3 <this
+file>`), it times that checkout's kernels, so that one call can time a
+parent and a change in turns; a K14a, K11-K13, K10 or K6-K9 wrapper that
+takes no laid-out operands (the fp32 loops they replaced) gets none.
 
     python -m quantized_channel_estimation_torch.tools.batch_sweep \
         [--rows 512 4096 131072] [--repeats R] [--latent M]
@@ -33,6 +35,7 @@ import json
 import numpy as np
 import torch
 
+from quantized_channel_estimation_torch.estimators import circ_kernels
 from quantized_channel_estimation_torch.estimators import fact_kernels
 from quantized_channel_estimation_torch.estimators import kernels
 from quantized_channel_estimation_torch.estimators import mp_circ_kernels
@@ -65,11 +68,10 @@ def fact_bank(dev, q, n_ant, k_comp, m, n_bits, seed=0):
         params, common.SNR_DB, torch.tensor(1.0 + 0.0j), n_bits, q)
 
 
-def mp_bank_rows(dev, q, n_ant, k_comp, n_bits, n, p=PILOTS, seed=0):
-    """The multi-pilot bank at 10 dB under the P-pilot matrix of a seeded
-    circulant prior (spectra uniform on [0.05, 2], means of power 0.08,
-    uniform weights), and n of its quantized observations of unit-power
-    channels, interleaved (n, 2 P D)."""
+def _circ_prior(dev, n_ant, k_comp, seed):
+    """A seeded circulant prior (spectra uniform on [0.05, 2], means of
+    power 0.08, uniform weights): (params with placeholder covariances,
+    spectra)."""
     rng = np.random.default_rng(seed)
     spectra = torch.as_tensor(
         rng.uniform(0.05, 2.0, (k_comp, n_ant)).astype(np.float32),
@@ -81,6 +83,14 @@ def mp_bank_rows(dev, q, n_ant, k_comp, n_bits, n, p=PILOTS, seed=0):
     dummy = torch.zeros((k_comp, 1, 1), dtype=torch.complex64, device=dev)
     params = gmm.GmmParams(torch.full((k_comp,), 1.0 / k_comp, device=dev),
                            means, dummy, dummy)
+    return params, spectra
+
+
+def mp_bank_rows(dev, q, n_ant, k_comp, n_bits, n, p=PILOTS, seed=0):
+    """The multi-pilot bank at 10 dB under the P-pilot matrix of the
+    seeded circulant prior (`_circ_prior`), and n of its quantized
+    observations of unit-power channels, interleaved (n, 2 P D)."""
+    params, spectra = _circ_prior(dev, n_ant, k_comp, seed)
     a = pilots.pilot_matrix(n_ant, p, n_bits, device=dev)
     bank = structured_bank.prepare_bank_circulant(
         params, common.SNR_DB, a, n_bits, q, spectra=spectra)
@@ -89,6 +99,33 @@ def mp_bank_rows(dev, q, n_ant, k_comp, n_bits, n, p=PILOTS, seed=0):
                             n_bits, q)
     return bank, torch.view_as_real(r.to(torch.complex64)).reshape(
         n, -1).contiguous()
+
+
+def circ_bank_of(dev, q, n_ant, k_comp, n_bits, seed=0):
+    """The circulant bank at 10 dB under the scalar pilot x0 = 1 of the
+    seeded circulant prior (`_circ_prior`)."""
+    params, spectra = _circ_prior(dev, n_ant, k_comp, seed)
+    return structured_bank.prepare_bank_circulant(
+        params, common.SNR_DB, torch.tensor(1.0 + 0.0j), n_bits, q,
+        spectra=spectra)
+
+
+def _circ_wrappers(bank, x2):
+    """{label: (T, call(n))} of K6, K7 (T = 4, alpha 1), K8 and K9 (T = 4,
+    alpha 1) on the circulant bank's layouts, each on the first n rows of
+    x2 (interleaved), with the bank's tensor-core operands made once."""
+    ck = circ_kernels
+    ckb, ckb4 = ck.circ_kernel_bank(bank), ck.circ_kernel_bank(bank, None,
+                                                               4, 1.0)
+    tc = hasattr(ck, "circ_tc_operands")
+    ops = (ck.circ_tc_operands(ckb),) if tc else ()
+    ops_s = (ck.circ_tc_operands(ckb, True),) if tc else ()
+    return {"K6": (1, lambda n: ck.circ_estimate(x2[:n], ckb, *ops)),
+            "K7 T=4": (4, lambda n: ck.circ_estimate_coherent(
+                x2[:n], ckb4, 4, 1.0, *ops)),
+            "K8": (1, lambda n: ck.circ_estimate_stats(x2[:n], ckb, *ops_s)),
+            "K9 T=4": (4, lambda n: ck.circ_estimate_coherent_stats(
+                x2[:n], ckb4, 4, 1.0, *ops_s))}
 
 
 def _mp_wrappers(bank, xm):
@@ -159,8 +196,9 @@ def main(argv=None) -> dict:
                       args.bits)
     mbank, xm = mp_bank_rows(dev, q, args.n_ant, args.components, args.bits,
                              max(args.rows))
+    cbank = circ_bank_of(dev, q, args.n_ant, args.components, args.bits)
     calls = {**_wrappers(kb_t, kk, r2), **_fact_wrappers(fbank, x2),
-             **_mp_wrappers(mbank, xm)}
+             **_mp_wrappers(mbank, xm), **_circ_wrappers(cbank, x2)}
     ms = {}
     for label, (t, call) in calls.items():
         for n in args.rows:

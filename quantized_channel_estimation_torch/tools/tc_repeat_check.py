@@ -37,6 +37,12 @@ and coherent (`MPCIRC_SHAPES`: one and two consumer warpgroups a block, 32
 live rows a warpgroup, one, two and four 64-column pieces of 2D, two of K,
 the coherent pool at T = 3, 4, 32 and 64), with the rule of mode 'f32'.
 
+Mode 'circ' does the same for the circulant kernels K6-K9, the same
+template at one pilot (`CIRC_SHAPES`: one and two consumer warpgroups a
+block, one, two and four 64-column pieces of 2D, a 128-component shard,
+D = K = 128, the pool at T = 3, 4 and 64), with the rule of mode 'f32' (for
+K8 and K9 on each of m, den and the accumulator).
+
 `--without-proxy-fence` also builds a copy of K14b without the
 `fence.proxy.async` before each stage's release (in
 csrc/grouped_tc_stream.cuh) and runs it launch for launch beside the
@@ -46,7 +52,7 @@ headline widths (131072 rows, 2M = 2D = 128, K = 64).
 
     python -m quantized_channel_estimation_torch.tools.tc_repeat_check \
         [--repeats R] \
-        [--modes bf16 split2 split3 f32 karatsuba fact mpcirc] \
+        [--modes bf16 split2 split3 f32 karatsuba fact mpcirc circ] \
         [--no-poison] \
         [--without-proxy-fence [--time]]
 
@@ -64,6 +70,7 @@ import time
 
 import torch
 
+from quantized_channel_estimation_torch.estimators import circ_kernels as ck
 from quantized_channel_estimation_torch.estimators import fact_kernels as fk
 from quantized_channel_estimation_torch.estimators import kernels
 from quantized_channel_estimation_torch.estimators import mp_circ_kernels as mk
@@ -121,6 +128,19 @@ MPCIRC_SHAPES = (
     (3, 32, 8, 3 * 1001, 0, 3, 0.5),           # T = 3: 63-row tiles
     (4, 64, 64, 64 * 101, 1, 64, 1.0),         # T = 64
     (4, 128, 128, 32 * 61, 0, 32, 0.25),       # the widest, HALF
+)
+# K6-K9: (D, K, N, dead components, T, alpha, stats)
+CIRC_SHAPES = (
+    (64, 64, 2 * 132 * 128 + 5, 0, 1, 1.0, False),  # K6, two warpgroups
+    (64, 64, 4097, 3, 1, 1.0, True),           # K8, one warpgroup
+    (16, 8, 1000, 1, 1, 1.0, False),           # one piece of 2D
+    (64, 128, 4097, 1, 1, 1.0, True),          # a 128-component shard
+    (128, 128, 2049, 0, 1, 1.0, False),        # four pieces of 2D, two of K
+    (64, 64, 4 * 8193, 2, 4, 1.0, False),      # K7, pool, two warpgroups
+    (64, 64, 4 * 8193, 2, 4, 1.0, True),       # K9, two warpgroups
+    (128, 128, 64 * 33, 1, 64, 1.0, True),     # K9 at D = 128, T = 64
+    (32, 40, 3 * 1001, 0, 3, 0.5, True),       # K9, alpha < 1, 63-row tiles
+    (100, 50, 4 * 101, 1, 4, 0.25, False),     # widths no multiple of 32
 )
 REPEATS = 300
 STREAM = "grouped_tc_stream.cuh"
@@ -398,6 +418,88 @@ def _mp_check(dev, shapes, repeats, poison) -> dict:
     return out
 
 
+def random_circ_bank(d, k, dev, n_dead=0, t_coh=1, seed=0):
+    """A random circulant kernel bank (`circ_kernels.CircKernelBank`) of
+    any widths: unitary-scale transforms, logits a few units apart, dead
+    components at the -1e30 floor."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g)
+
+    const = 0.5 * rnd(k)
+    const[:n_dead] = -1e30
+    ckb = ck.CircKernelBank(
+        rnd(2 * d, 2 * d, scale=1 / math.sqrt(2 * d)),
+        rnd(3 * d, k, scale=0.3 / math.sqrt(3 * d)), const / t_coh,
+        rnd(k, 4 * d, scale=0.5),
+        rnd(2 * d, 2 * d, scale=1 / math.sqrt(2 * d)))
+    return ck.CircKernelBank(*(x.to(dev).contiguous() for x in ckb))
+
+
+def _circ_check(dev, shapes, repeats, poison) -> dict:
+    """Mode 'circ' of `repeat_check`: {label: {"launches", "failures",
+    "max_err"}} over K6-K9 at `shapes`."""
+    out = {}
+    for d, k, n, n_dead, t, alpha, stats in shapes:
+        ckb = random_circ_bank(d, k, dev, n_dead, t)
+        f64 = ck.CircKernelBank(*(x.double() for x in ckb))
+        ops = ck.circ_tc_operands(ckb, stats) if dev.type == "cuda" else None
+        x2 = random_rows(n, 2 * d, dev)
+        if t == 1 and not stats:
+            name = "K6"
+            want = (ck.circ_estimate_reference(x2, ckb),)
+            exact = (ck.circ_estimate_reference(x2.double(), f64),)
+        elif not stats:
+            name = "K7"
+            want = (ck.circ_estimate_coherent_reference(x2, ckb, t, alpha),)
+            exact = (ck.circ_estimate_coherent_reference(x2.double(), f64, t,
+                                                         alpha),)
+        elif t == 1:
+            name = "K8"
+            want = ck.circ_estimate_stats_reference(x2, ckb)
+            exact = ck.circ_estimate_stats_reference(x2.double(), f64)
+        else:
+            name = "K9"
+            want = ck.circ_estimate_coherent_stats_reference(x2, ckb, t,
+                                                             alpha)
+            exact = ck.circ_estimate_coherent_stats_reference(
+                x2.double(), f64, t, alpha)
+
+        def run():
+            if name == "K6":
+                return (ck.circ_estimate(x2, ckb, ops),)
+            if name == "K7":
+                return (ck.circ_estimate_coherent(x2, ckb, t, alpha, ops),)
+            if name == "K8":
+                return ck.circ_estimate_stats(x2, ckb, ops)
+            return ck.circ_estimate_coherent_stats(x2, ckb, t, alpha, ops)
+
+        scales = [w.abs().max() for w in want]
+        plain_errs = [float((w.double() - e).abs().max() / sc)
+                      for w, e, sc in zip(want, exact, scales)]
+        first, errs, fails = None, [], 0
+        for _ in range(repeats):
+            if poison:
+                poison_shared_memory(dev)
+            got = run()
+            ok = first is None or all(torch.equal(g, f)
+                                      for g, f in zip(got, first))
+            err = 0.0
+            for g, w, e, sc, pe in zip(got, want, exact, scales, plain_errs):
+                rel = float((g - w).abs().max() / sc)
+                rel64 = float((g.double() - e).abs().max() / sc)
+                ok = ok and (rel <= TOL or rel64 <= 2 * pe + 1e-5)
+                err = max(err, rel if rel == rel else math.inf)
+            if first is None:
+                first = got
+            fails += not ok     # NaN fails both comparisons
+            errs.append(err)
+        out[f"D={d} K={k} N={n} dead={n_dead} T={t} a={alpha} {name}"] = {
+            "launches": repeats, "failures": fails, "max_err": max(errs)}
+    return out
+
+
 def _launch_copy(lib, r2, kb, ops, passes):
     n, two_m = r2.shape
     two_d = kb.b.shape[1]
@@ -464,12 +566,14 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
                  f32_shapes=F32_SHAPES,
                  karatsuba_shapes=KARATSUBA_SHAPES,
                  fact_shapes=FACT_SHAPES,
-                 mpcirc_shapes=MPCIRC_SHAPES) -> dict:
+                 mpcirc_shapes=MPCIRC_SHAPES,
+                 circ_shapes=CIRC_SHAPES) -> dict:
     """Every (shape, mode): `repeats` launches of K14b (and of the copy
     without the fence), each held against the plain version; mode 'f32':
     K1 and K3 at `f32_shapes`; mode 'karatsuba': K14a at
     `karatsuba_shapes`; mode 'fact': K11-K13 at `fact_shapes`; mode
-    'mpcirc': K10 at `mpcirc_shapes`. Returns
+    'mpcirc': K10 at `mpcirc_shapes`; mode 'circ': K6-K9 at
+    `circ_shapes`. Returns
     {"kernel" (and "no fence"): {label: {"launches", "failures",
     "max_err"}}}."""
     copy = _without_fence() if without_fence else None
@@ -485,8 +589,11 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     if "mpcirc" in modes:
         result["kernel"].update(_mp_check(dev, mpcirc_shapes, repeats,
                                           poison))
+    if "circ" in modes:
+        result["kernel"].update(_circ_check(dev, circ_shapes, repeats,
+                                            poison))
     modes = [m for m in modes
-             if m not in ("f32", "karatsuba", "fact", "mpcirc")]
+             if m not in ("f32", "karatsuba", "fact", "mpcirc", "circ")]
     for two_m, two_d, k, n, n_dead in shapes if modes else ():
         kb = random_bank(two_m, two_d, k, dev, n_dead)
         planes = kernels.split_planes(kb.pw)
@@ -540,9 +647,9 @@ def main(argv=None) -> dict:
     p.add_argument("--repeats", type=int, default=REPEATS)
     p.add_argument("--modes", nargs="+",
                    default=[*vk.TC_WRAPPERS, "f32", "karatsuba", "fact",
-                            "mpcirc"],
+                            "mpcirc", "circ"],
                    choices=[*vk.TC_WRAPPERS, "f32", "karatsuba", "fact",
-                            "mpcirc"])
+                            "mpcirc", "circ"])
     p.add_argument("--no-poison", action="store_true")
     p.add_argument("--without-proxy-fence", action="store_true")
     p.add_argument("--time", action="store_true")

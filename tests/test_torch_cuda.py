@@ -1,10 +1,10 @@
 """The port's CUDA kernels (K1-K5, the circulant K6-K9, the multi-pilot
 circulant K10, the factored K11-K13, and K1's variants K14a, K14b and the
 floor probe K15) against their plain versions on the card, the split-K
-forms' shard merges against one launch, K1 / K3, K14a and K14b over many
-NaN-poisoned launches (`tools.tc_repeat_check`), the kernel-measurement
-tools and `utils.profiling` on the card, and the estimation service on the
-card.
+forms' shard merges against one launch, K1 / K3, K6-K13, K14a and K14b
+over many NaN-poisoned launches (`tools.tc_repeat_check`), the
+kernel-measurement tools and `utils.profiling` on the card, and the
+estimation service on the card.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor the JAX package, so on a machine with a card and
@@ -25,9 +25,11 @@ K3, six bf16 tensor-core products, are also held to that float64 rule
 where their plain version agrees within 1e-4, since 1e-4 alone passes a
 three-product split too; so is K14a, six bf16 products for each of its
 three real products, and so are the factored kernels K11-K13, six bf16
-products for each of their two products, and the multi-pilot K10, six bf16
-products for each of its four. The repeated launches of K14a, K10 and
-K11-K13 are bit for bit the first.
+products for each of their two products, and the multi-pilot K10 and, at
+one pilot, K6-K9, six bf16 products for each of their four (K8 / K9 on
+each of m, den and the accumulator, and on the merged quotient). The
+repeated launches of K14a, K10, K6-K9 and K11-K13 are bit for bit the
+first.
 """
 import math
 
@@ -593,10 +595,12 @@ def test_service_on_card_matches_einsum_estimator():
 
 # ------------------------------------------------ the circulant kernels
 
-def _circ_bank(d, k, dev, n_dead=0, blocks=None, seed=0, p=1, n_bits=2):
+def _circ_bank(d, k, dev, n_dead=0, blocks=None, seed=0, p=1, n_bits=2,
+               multi=False):
     """A seeded circulant bank at 10 dB, non-zero means: under the scalar
     pilot x0 = 1, or for p > 1 the multi-pilot bank under the P-pilot
-    matrix kron(x, I) of `pilots.pilot_matrix`."""
+    matrix kron(x, I) of `pilots.pilot_matrix`; `multi` at p = 1: the
+    multi-pilot form of the x0 = 1 bank (K10 at one pilot)."""
     rng = np.random.default_rng(seed)
     spectra = rng.uniform(0.05, 2.0, (k, d)).astype(np.float32)
     means = (0.2 * (rng.standard_normal((k, d))
@@ -607,6 +611,13 @@ def _circ_bank(d, k, dev, n_dead=0, blocks=None, seed=0, p=1, n_bits=2):
     params = tg.GmmParams(torch.as_tensor(w / w.sum(), device=dev),
                           torch.as_tensor(means, device=dev), dummy, dummy)
     q = tq.design_quantizer(10.0, n_bits)
+    if multi and p == 1:
+        return tsb._prepare_circulant_mp(
+            torch.as_tensor(spectra, device=dev), params.means,
+            params.weights, n_bits,
+            torch.ones(1, dtype=torch.complex64, device=dev),
+            torch.tensor(0.1, dtype=torch.float32).item(), blocks,
+            None if q is None else q.to(dev), 1e-6, 1e-2)
     a = torch.tensor(1.0 + 0.0j) if p == 1 \
         else tp.pilot_matrix(d, p, n_bits, device=dev)
     return tsb.prepare_bank_circulant(
@@ -629,7 +640,8 @@ def _held(got, want, want64):
     assert err_kernel <= 2 * err_plain + 1e-5, (err_kernel, err_plain)
 
 
-# every (CD, CK) instantiation of the template, ragged sizes, dead
+# the template at one pilot: one, two and four 64-column pieces of 2D, one
+# and two of K, one and two warpgroups a block, ragged sizes, dead
 # components, K and D that are no multiple of 32, the kron basis
 CIRC_SHAPES = [
     (8, 4, 1000, 0, None),
@@ -675,8 +687,8 @@ def test_circ_estimate_matches_plain(d, k, n, n_dead, blocks):
     (64, 64, 333, 3, 0.25, 0),     # T that does not divide the tile
     (16, 8, 100, 8, 0.25, 0),      # T = a warp's rows
     (64, 40, 77, 16, 0.0, 1),      # blocks across warps, alpha 0
-    (64, 64, 9, 64, 1.0, 0),       # T = the tile's 64 rows
-    (128, 128, 50, 32, 0.5, 2),    # D = 128: T = the 32-row tile
+    (64, 64, 9, 64, 1.0, 0),       # T = a warpgroup's 64 rows
+    (128, 128, 50, 32, 0.5, 2),    # D = 128: T = 32
     (100, 50, 41, 5, 1.0, 0),      # widths no multiple of 32
 ])
 def test_circ_estimate_coherent_matches_plain(d, k, n_blocks, t, alpha,
@@ -802,6 +814,115 @@ def test_circ_kernels_refuse_bad_inputs():
     assert tkn.launch_counts() == before             # nothing to launch
 
 
+def _ifft_rows(acc, den):
+    """Merged stats (float64) -> the inverse-transformed quotient, rows of
+    interleaved [re, im] pairs."""
+    q = tck._hc(acc / den[:, None], torch.complex128)
+    return torch.view_as_real(tsb.unitary_ifft(q)).reshape(q.shape[0], -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("d,k,n", [(64, 64, 8192), (128, 128, 2048)])
+def test_circ_estimate_keeps_fp32_accuracy(stats, t, d, k, n):
+    """K6-K9, six bf16 products for each of the template's products at one
+    pilot, are no less accurate than float32: the max |error| against the
+    plain version in float64 at most twice the float32 plain version's
+    own, flat and coherent (T = 4, alpha 1), with dead components; the
+    stats forms (K8, K9) on the two halves of the bank, for each of m, den
+    and the accumulator, and for the states merged with `merge_stats` and
+    inverse-transformed once. The operands laid out once give the same bits
+    as those laid out in the call."""
+    dev = _card()
+    bank = _circ_bank(d, k, dev, n_dead=2)
+    x2 = _rows(n, 2 * d, dev)
+
+    def err(x, want64):
+        return float((x.double() - want64).abs().max())
+
+    def runs(ckb):
+        """(launch(operands), plain, plain in float64) of the form."""
+        c64 = _f64(ckb)
+        if not stats and t == 1:
+            return ((lambda o: tck.circ_estimate(x2, ckb, o)),
+                    tck.circ_estimate_reference(x2, ckb),
+                    tck.circ_estimate_reference(x2.double(), c64))
+        if not stats:
+            return ((lambda o: tck.circ_estimate_coherent(x2, ckb, t, 1.0,
+                                                          o)),
+                    tck.circ_estimate_coherent_reference(x2, ckb, t, 1.0),
+                    tck.circ_estimate_coherent_reference(x2.double(), c64,
+                                                         t, 1.0))
+        if t == 1:
+            return ((lambda o: tck.circ_estimate_stats(x2, ckb, o)),
+                    tck.circ_estimate_stats_reference(x2, ckb),
+                    tck.circ_estimate_stats_reference(x2.double(), c64))
+        return ((lambda o: tck.circ_estimate_coherent_stats(x2, ckb, t, 1.0,
+                                                            o)),
+                tck.circ_estimate_coherent_stats_reference(x2, ckb, t, 1.0),
+                tck.circ_estimate_coherent_stats_reference(x2.double(), c64,
+                                                           t, 1.0))
+
+    if not stats:
+        ckb = tck.circ_kernel_bank(bank, None, t, 1.0)
+        run, want, want64 = runs(ckb)
+        got = run(None)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert err(got, want64) <= 2 * err(want, want64)
+        assert torch.equal(run(tck.circ_tc_operands(ckb)), got)
+        return
+    states, plain, exact = [], [], []
+    for lo, hi in ((0, k // 2), (k // 2, k)):
+        ckb = tck.circ_kernel_bank(
+            tsb.CirculantBank(*(x[lo:hi] for x in bank)), None, t, 1.0)
+        run, want, want64 = runs(ckb)
+        got = run(None)
+        torch.cuda.synchronize()
+        for g, w, w64 in zip(got, want, want64):
+            assert torch.isfinite(g).all()
+            assert err(g, w64) <= 2 * err(w, w64), (err(g, w64), err(w, w64))
+        again = run(tck.circ_tc_operands(ckb, True))
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+        states.append(got)
+        plain.append(want)
+        exact.append(want64)
+
+    def merged(sts):
+        _, den, acc = tck.merge_stats(*zip(*[[x.double() for x in st]
+                                             for st in sts]))
+        return _ifft_rows(acc, den)
+
+    whole64 = merged(exact)
+    assert err(merged(states), whole64) <= 2 * err(merged(plain), whole64)
+
+
+@pytest.mark.cuda
+def test_circ_repeated_launches_match_plain():
+    """K6-K9 launched 100 times at each shape of
+    `tools.tc_repeat_check.CIRC_SHAPES` (one and two warpgroups a block,
+    one, two and four pieces of 2D, a 128-component shard, D = K = 128,
+    each pool), each launch after a fill of every SM's shared memory with
+    NaN, each bit for bit the first launch and held against the plain
+    version."""
+    dev = _card()
+    shapes = tc_repeat_check.CIRC_SHAPES
+    names = {(False, False): "circ_estimate",
+             (True, False): "circ_estimate_coherent",
+             (False, True): "circ_estimate_stats",
+             (True, True): "circ_estimate_coherent_stats"}
+    before = tkn.launch_counts()
+    runs = tc_repeat_check.repeat_check(dev, repeats=100,
+                                        modes=("circ",))["kernel"]
+    after = tkn.launch_counts()
+    for (coh, stats), name in names.items():
+        n = sum(1 for *_, t, _, st in shapes if (t > 1, st) == (coh, stats))
+        assert after[name] == before[name] + 100 * n, name
+    assert len(runs) == len(shapes)
+    assert not {k: v for k, v in runs.items() if v["failures"]}, runs
+
+
 @pytest.mark.cuda
 def test_wide_bank_splits_over_k_on_card():
     """K = 300 components: three shards through K8 / K9, merged; the
@@ -868,17 +989,19 @@ def test_structured_service_on_card_matches_fft_pipeline():
 # ------------------------------------- the multi-pilot circulant kernel K10
 
 def _mp_bank(p, d, k, dev, n_dead=0, blocks=None, n_bits=2):
-    bank = _circ_bank(d, k, dev, n_dead, blocks, p=p, n_bits=n_bits)
+    bank = _circ_bank(d, k, dev, n_dead, blocks, p=p, n_bits=n_bits,
+                      multi=True)
     assert isinstance(bank, tsb.CirculantBankMP)
     return bank
 
 
 # every width of the template (one, two and four 64-column pieces of 2D,
-# one and two of K), P = 2, 3, 4, ragged sizes, dead components, widths
+# one and two of K), P = 1, 2, 3, 4, ragged sizes, dead components, widths
 # that are no multiple of 32, the kron basis, the three bit widths, and the
 # edges of the rule (the largest P at D = K = 64 and at D = K = 128, both
 # with 32 live rows a warpgroup, K = 128 at D = 64 and P = 4)
 MP_SHAPES = [
+    (1, 64, 64, 4097, 2, None, 2),
     (2, 8, 4, 1000, 0, None, 2),
     (3, 32, 40, 4097, 3, None, 2),
     (4, 16, 100, 333, 0, None, 2),

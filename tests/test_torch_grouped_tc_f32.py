@@ -278,14 +278,17 @@ def test_tc_repeat_check_f32_mode_on_cpu():
 
 def test_batch_sweep_on_cpu(capsys):
     """The small-batch timing tool (K1, K3, K14a, K11-K13 on a factored
-    bank, and K10 flat and at T = 4 on a 2-pilot circulant bank) at a tiny
-    size through the plain versions (host clock), one JSON line."""
+    bank, K10 flat and at T = 4 on a 2-pilot circulant bank, and K6-K9 on
+    a one-pilot circulant bank) at a tiny size through the plain versions
+    (host clock), one JSON line."""
     out = tbs.main(["--device", "cpu", "--n-ant", "8", "--components", "4",
                     "--rows", "32", "64", "--repeats", "1", "--latent", "2"])
     assert set(out["ms"]) == {f"{k} N={n}" for k in ("K1", "K3 T=4",
                                                      "K3 T=16", "K14a",
                                                      "K11", "K12 T=4", "K13",
-                                                     "K10 P=2", "K10 P=2 T=4")
+                                                     "K10 P=2", "K10 P=2 T=4",
+                                                     "K6", "K7 T=4", "K8",
+                                                     "K9 T=4")
                               for n in (32, 64)}
     assert all(v > 0 for v in out["ms"].values())
     assert capsys.readouterr().out.strip().startswith("{")
