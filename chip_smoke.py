@@ -103,7 +103,21 @@ Phases (any failure exits non-zero; nothing is caught):
      `estimate_sharded_circulant` and `estimate_sharded_factored` (each
      flat and T = 4 blocks) and `estimate_sharded` (k = 4) on the headline
      banks against their single-device stages, launching K2, K5, K8, K9
-     and K13;
+     and K13; then `run_gmm` at the defaults with `cov_type='toeplitz'`
+     (the inverse EM; K1 launched once an SNR, genie < gmm < LS at 10 dB,
+     the fitted covariances Toeplitz to the JAX test's 5e-2), and again
+     with `gmm_fit_segments=4` (every segment but the last its 25
+     iterations, the total the whole fit's unless that converged earlier,
+     when both must have; its lower bound within 0.3 of the whole fit's),
+     both runs' NMSE rows printed; then the service over
+     in-process meshes (`parallel.mesh.make_local_mesh`) of 1 x 2 and 2 x 2
+     shards in eight modes each (dense, structured at K = 64 and the K =
+     256 spectra-native prior, factored; flat and T=4 blocks; 1 s each),
+     every answer within TOL of scale of the one-device service's to the
+     same request, each mode launching its stats kernel (K2, K8 / K9, K13;
+     factored blocks the `torch.matmul` coherent stats, K12 having no stats
+     form) and no pipeline stats path where the kernel is eligible, with
+     estimates/s, p50 and p99 beside the one-device service's;
   4. CUDA-event times of each kernel, its plain version and a library
      yardstick at the headline shapes (K11-K13 at M = 16; K2 also on one
      32-component shard), beside the least time the card could take (for
@@ -134,7 +148,8 @@ Phases (any failure exits non-zero; nothing is caught):
      the profiler's table, and K1 / K3 / K14a / K11-K13 / K10 / K6-K9 at
      512, 4096 and 131072 rows (`tools.batch_sweep`);
 then one JSON line of kernels, one of the main paths' results, one of the
-serving phase, the card line, and the final status line. It imports nothing
+serving phases (one device and meshes), the card line, and the final
+status line. It imports nothing
 of JAX and uses one card.
 """
 import json
@@ -475,13 +490,15 @@ def main_path_run(run_gmm, kernels, dev, tmp, falling=True, use_cache=False,
 
 
 def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
-               near_tie=None):
+               near_tie=None, seconds=SERVE_SECONDS, same_as=None):
     """Closed-loop load on one service mode: warm-up, then SERVE_CLIENTS
-    clients for SERVE_SECONDS, the launch counts read around the window.
+    clients for `seconds`, the launch counts read around the window.
     `reference(r)` is the mode's plain estimator on the card, `near_tie(r)`
-    the rows not compared. Returns the mode's record; raises on a failed
-    request, a kernel that was not launched or an answer off the
-    reference."""
+    the rows not compared. With `same_as` (another service) every answer
+    of the window is held within TOL of the scale of that service's answer
+    to the same request. Returns the mode's record; raises on a failed
+    request, a kernel that was not launched (`kernel_name` None: no kernel
+    to count) or an answer off the reference."""
     rng = np.random.default_rng(1)
     width = svc.a.shape[0]                   # P D observations a snapshot
 
@@ -506,19 +523,29 @@ def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
             svc.submit(request(size - size % t_coh), snr, timeout=120.0)
         size *= 2
 
+    reqs = [request(SERVE_REQ) for _ in range(SERVE_CLIENTS)]
+    expected = None if same_as is None else {
+        (i, snr): same_as.submit(reqs[i], snr, timeout=120.0)
+        for i in range(SERVE_CLIENTS) for snr in SERVE_SNRS}
     latencies, stop, lock = [], threading.Event(), threading.Lock()
-    served = [0]
+    served, off = [0], [0.0]
 
     def client(i):
-        req, j = request(SERVE_REQ), 0
+        j = 0
         while not stop.is_set():
+            snr = SERVE_SNRS[(i + j) % len(SERVE_SNRS)]
             t0 = time.perf_counter()
-            svc.submit(req, SERVE_SNRS[(i + j) % len(SERVE_SNRS)],
-                       timeout=120.0)
+            out = svc.submit(reqs[i], snr, timeout=120.0)
             dt = time.perf_counter() - t0
+            dev_rel = 0.0
+            if expected is not None:
+                want = expected[(i, snr)]
+                dev_rel = float(np.abs(out - want).max()
+                                / np.abs(want).max())
             with lock:
                 latencies.append(dt)
                 served[0] += SERVE_REQ
+                off[0] = max(off[0], dev_rel)
             j += 1
 
     m0 = svc.metrics()
@@ -528,7 +555,7 @@ def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
     t_start = time.perf_counter()
     for th in threads:
         th.start()
-    time.sleep(SERVE_SECONDS)
+    time.sleep(seconds)
     stop.set()
     for th in threads:
         th.join(timeout=120.0)
@@ -544,14 +571,19 @@ def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
            "p99_ms": float(np.percentile(lat, 99)),
            "microbatches": m["microbatches"] - m0["microbatches"],
            "launches": launches, "max_abs_err": err, "metrics": m}
+    if expected is not None:
+        rec["max_rel_to_same_as"] = off[0]
     log(f"serving [{label}]: {rec['estimates_per_s']:.0f} estimates/s, "
         f"p50 {rec['p50_ms']:.2f} ms, p99 {rec['p99_ms']:.2f} ms over "
         f"{len(lat)} requests in {rec['microbatches']} microbatches; "
         f"launches {launches}; metrics {m}")
     if m["requests_failed"] != 0:
         raise AssertionError(f"failed requests in {label}: {m}")
-    if launches[kernel_name] < 1:
+    if kernel_name is not None and launches[kernel_name] < 1:
         raise AssertionError(f"{label} did not launch {kernel_name}")
+    if expected is not None and not off[0] <= TOL:
+        raise AssertionError(f"{label}: an answer {off[0]:.3e} of scale off "
+                             "the one-device service's")
     return rec
 
 
@@ -1802,6 +1834,199 @@ def main():
             raise AssertionError(f"the mesh path did not launch {name}")
     del h_fit, mesh_out, mesh_cases
 
+    # 3c. the Toeplitz fit (ROADMAP item 8): run_gmm at the defaults with
+    # cov_type='toeplitz' (the inverse EM; a dense fit, estimated through
+    # K1), once whole and once as 4 segments (`em_driver.fit_segmented`
+    # over `gmm.fit_resume`), each fit kept for its checks
+    t_new = time.time()
+    toep_fits = {}
+    gmm_fit, gmm_fit_resume = stages.gmm_fit, stages.gmm_fit_resume
+
+    def keep_fit(label, fn):
+        def kept(*args, **kw):
+            toep_fits.setdefault(label, []).append(fn(*args, **kw))
+            return toep_fits[label][-1]
+        return kept
+
+    toep = {}
+    try:
+        for label, change in (("toeplitz", {}),
+                              ("toeplitz, 4 segments",
+                               dict(gmm_fit_segments=4))):
+            stages.gmm_fit = keep_fit(label, gmm_fit)
+            stages.gmm_fit_resume = keep_fit(label, gmm_fit_resume)
+            with tempfile.TemporaryDirectory() as tmp:
+                cfg_t, mse_t, rate_t, timings_t, sec_t, launches_t = \
+                    main_path_run(run_gmm, kernels, dev, tmp,
+                                  cov_type="toeplitz", **change)
+            add(launches_t)
+            fits_t = toep_fits[label]
+            toep[label] = {"mse": mse_t, "rate": rate_t, "seconds": sec_t,
+                           "timings": timings_t, "launches": launches_t,
+                           "segments": len(fits_t),
+                           "n_iter": sum(f.n_iter for f in fits_t),
+                           "lower_bound": float(fits_t[-1].lower_bound),
+                           "converged": fits_t[-1].converged}
+            at10 = {k: v[list(cfg_t.snrs).index(10)]
+                    for k, v in mse_t.items()}
+            if not (at10["blmmse_genie"] < at10["blmmse_gmm"]
+                    < at10["LS_glob"]):
+                raise AssertionError(f"{label}: MSE order at 10 dB broken: "
+                                     f"{at10}")
+            if launches_t["grouped_estimate"] != len(cfg_t.snrs):
+                raise AssertionError(f"{label}: K1 launched "
+                                     f"{launches_t['grouped_estimate']} "
+                                     f"times, not {len(cfg_t.snrs)}")
+            # the fitted covariances are Toeplitz: each of the first four
+            # off-diagonals constant to 5e-2 of the mean diagonal
+            # (`tests/test_gmm.py:88`)
+            covs = fits_t[-1].params.covariances
+            diag = torch.diagonal(covs, dim1=-2, dim2=-1).abs().mean(-1)
+            spread = max(float(((d - d.mean(-1, keepdim=True)).abs()
+                                .amax(-1) / diag).max())
+                         for d in (torch.diagonal(covs, off, -2, -1)
+                                   for off in range(1, 5)))
+            toep[label]["toeplitz_spread"] = spread
+            if not spread < 5e-2:
+                raise AssertionError(f"{label}: covariances not Toeplitz "
+                                     f"({spread:.3e} of the diagonal)")
+            log(f"{label}: {toep[label]['segments']} fit call(s), "
+                f"{toep[label]['n_iter']} iterations, lower bound "
+                f"{toep[label]['lower_bound']:.4f}, converged "
+                f"{toep[label]['converged']}, off-diagonal spread "
+                f"{spread:.2e}; NMSE (SNRs {list(cfg_t.snrs)}):")
+            for name, vals in mse_t.items():
+                log(f"  {name:15s} " + " ".join(f"{v:.5f}" for v in vals))
+    finally:
+        stages.gmm_fit, stages.gmm_fit_resume = gmm_fit, gmm_fit_resume
+    # the segments' budgets are ceil(100 / 4) = 25; the total is the whole
+    # fit's unless that converged before its budget, and then both did
+    whole, seg = toep["toeplitz"], toep["toeplitz, 4 segments"]
+    seg_iters = [f.n_iter for f in toep_fits["toeplitz, 4 segments"]]
+    seg["segment_iters"] = seg_iters
+    budget = run_gmm.GmmBenchConfig().gmm_max_iter
+    if any(n != -(-budget // 4) for n in seg_iters[:-1]):
+        raise AssertionError(f"a segment stopped short: {seg_iters}")
+    if not (seg["n_iter"] == whole["n_iter"]
+            or (whole["converged"] and seg["converged"])):
+        raise AssertionError(f"segmented fit ran {seg['n_iter']} iterations, "
+                             f"the whole fit {whole['n_iter']}")
+    if not abs(seg["lower_bound"] - whole["lower_bound"]) < 0.3:
+        raise AssertionError(f"segmented lower bound {seg['lower_bound']} "
+                             f"off the whole fit's {whole['lower_bound']}")
+    toep_s = time.time() - t_new
+
+    # 3d. the service over in-process meshes of 1 x 2 and 2 x 2 shards: the
+    # dense, structured (K = 64, and the K = 256 spectra-native prior in two
+    # component shards of 128, which K8 / K9 take whole) and factored banks
+    # of the serving phase above, flat and T = 4 blocks, each window 1 s,
+    # every answer held against the one-device service's to the same
+    # request. Each mode must launch its stats kernel (K2, K8 / K9, K13;
+    # factored blocks have none in either package: the `torch.matmul`
+    # coherent stats) and run no pipeline stats path where the kernel is
+    # eligible.
+    from quantized_channel_estimation_torch.parallel import mesh as pmesh
+    t_mesh = time.time()
+    pipeline_stats = {
+        "einsum": (gmm_estimator, ("estimate_stats",
+                                   "estimate_coherent_stats")),
+        "fft": (structured_bank, ("estimate_circulant_stats",
+                                  "estimate_circulant_coherent_stats")),
+        "matmul": (mfa_bank, ("estimate_factored_stats",
+                              "estimate_factored_coherent_stats"))}
+    pipeline_calls = {}
+    saved = {}
+    for mod, names in pipeline_stats.values():
+        for name in names:
+            saved[(mod, name)] = getattr(mod, name)
+
+            def counted(*args, _fn=saved[(mod, name)], _name=name, **kw):
+                pipeline_calls[_name] = pipeline_calls.get(_name, 0) + 1
+                return _fn(*args, **kw)
+            setattr(mod, name, counted)
+    one_device = {rec["mode"]: rec for rec in serve}
+    mesh_serve = []
+    try:
+        for shape in ((1, 2), (2, 2)):
+            for kind, modes in (
+                    ("dense", (("flat all", 1, "grouped_estimate_stats",
+                                dense_reference("all")),
+                               ("T=4 blocks, alpha=1", 4,
+                                "grouped_estimate_coherent_stats",
+                                dense_reference("all")))),
+                    ("structured", (("structured flat all", 1,
+                                     "circ_estimate_stats", fft_reference),
+                                    ("structured T=4 blocks, alpha=1", 4,
+                                     "circ_estimate_coherent_stats",
+                                     fft_reference))),
+                    ("wide", (("structured K=256 flat all", 1,
+                               "circ_estimate_stats", wide_reference),
+                              ("structured K=256 T=4 blocks, alpha=1", 4,
+                               "circ_estimate_coherent_stats",
+                               wide_reference))),
+                    ("factored", (("factored flat all", 1,
+                                   "fact_estimate_stats", fact_reference),
+                                  ("factored T=4 blocks, alpha=1", 4, None,
+                                   fact_reference)))):
+                svcs = []
+                for mesh in (None, pmesh.make_local_mesh(*shape)):
+                    kw = dict(max_batch=SERVE_MAX_BATCH, device=dev,
+                              mesh=mesh)
+                    if kind == "factored":
+                        svcs.append(serving.EstimationService.from_mfa(
+                            mfa_serve, a_eye, N_BITS, **kw))
+                    elif kind == "wide":
+                        svcs.append(
+                            serving.EstimationService.from_circulant_spectra(
+                                np.full((K_WIDE,), 1.0 / K_WIDE, np.float32),
+                                np.zeros((K_WIDE, D), np.complex64),
+                                wide_spectra, a_eye, N_BITS, **kw))
+                    else:
+                        svcs.append(serving.EstimationService(
+                            params, a_eye, N_BITS,
+                            structured=kind == "structured", **kw))
+                one, svc = svcs
+                try:
+                    for label, t_coh, kernel_name, reference in modes:
+                        pipeline_calls.clear()
+                        rec = serve_mode(
+                            svc, kernels, dev,
+                            f"mesh {shape[0]}x{shape[1]} {label}", t_coh,
+                            kernel_name, reference, seconds=1.0,
+                            same_as=one)
+                        add(rec["launches"])
+                        rec["pipeline_stats_calls"] = dict(pipeline_calls)
+                        ran = {k for k, v in pipeline_calls.items() if v}
+                        allowed = ({"estimate_factored_coherent_stats"}
+                                   if kernel_name is None else set())
+                        if ran != allowed:
+                            raise AssertionError(
+                                f"{rec['mode']}: pipeline stats paths "
+                                f"{pipeline_calls}, expected only "
+                                f"{allowed or 'none'}")
+                        base = one_device[label]
+                        rec["one_device"] = {
+                            k: base[k] for k in ("estimates_per_s", "p50_ms",
+                                                 "p99_ms")}
+                        log(f"  beside the one-device service: "
+                            f"{rec['estimates_per_s']:.0f} vs "
+                            f"{base['estimates_per_s']:.0f} estimates/s, "
+                            f"p50 {rec['p50_ms']:.2f} vs "
+                            f"{base['p50_ms']:.2f} ms, p99 "
+                            f"{rec['p99_ms']:.2f} vs {base['p99_ms']:.2f} "
+                            f"ms; max {rec['max_rel_to_same_as']:.2e} of "
+                            "scale off its answers")
+                        mesh_serve.append(rec)
+                finally:
+                    for x in svcs:
+                        x.close(timeout=120.0)
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    mesh_serve_s = time.time() - t_mesh
+    log(f"new phases (Toeplitz and segmented run_gmm {toep_s:.1f}s, mesh "
+        f"service {mesh_serve_s:.1f}s): {toep_s + mesh_serve_s:.1f}s")
+
     # 4. times at the headline benchmark's shapes
     n, two_m = r2.shape
     _, _, s_cols = kb.pw.shape
@@ -2609,11 +2834,15 @@ def main():
             "mse": mse_fc, "rate": rate_fc, "seconds": mfa_coh_s,
             "timings": timings_fc, "launches": launches_fc},
         "mesh_world_size_1": mesh_rec, "f1_rel_to_einsum": f1,
+        "toeplitz": toep["toeplitz"],
+        "toeplitz_4_segments": toep["toeplitz, 4 segments"],
+        "new_phases_seconds": {"toeplitz": toep_s,
+                               "mesh_service": mesh_serve_s},
         "kernel_tools": {"seconds": tools_s, "launches": launches_tools,
                          "kernel_bench_ms": bench["ms"],
                          "split_bench": split},
         "total_seconds": time.time() - t0}}))
-    print(json.dumps({"serving": serve}))
+    print(json.dumps({"serving": serve, "mesh_serving": mesh_serve}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -498,12 +498,14 @@ def estimate_fused_factored_coherent(bank: FactoredBank, r: torch.Tensor,
     return _hc(h2, r.dtype).reshape(b, t, d)
 
 
-def estimate_fused_factored_stats(bank: FactoredBank, r: torch.Tensor):
+def estimate_fused_factored_stats(bank: FactoredBank, r: torch.Tensor,
+                                  cache: Optional[dict] = None):
     """Kernel analog of `mfa_bank.estimate_factored_stats` through K13:
     (m (N,), den (N,), acc (N, D) complex64) of a (component shard of a)
     factored bank, in the logit convention of `mfa_bank._stats_chunk`, so
-    kernel and pipeline shard states merge with `circ_kernels.merge_stats`.
-    """
+    kernel and pipeline shard states merge with `kernels.merge_stats`.
+    `cache`: see `lowered` and `lowered_tc`."""
     _check_eligible(bank, 1)
-    m, den, acc2 = fact_estimate_stats(_x2(r), fact_kernel_bank(bank))
+    ops = lowered_tc(bank, cache) if r.is_cuda else None
+    m, den, acc2 = fact_estimate_stats(_x2(r), lowered(bank, cache), ops)
     return m, den, _hc(acc2, torch.complex64)

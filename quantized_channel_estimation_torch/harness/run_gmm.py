@@ -16,6 +16,14 @@ per-snapshot estimator sees the flattened snapshots, and the extra column
 fixed evidence blend `coherence_alpha` or one selected per SNR ('auto') on
 `alpha_val_blocks` training blocks held out of the fit.
 
+Every `cov_type` of `models.gmm` fits here; the Toeplitz fits are dense and
+estimate through K1 / K3. `gmm_fit_segments` S > 1 runs a 'full' or
+Toeplitz fit as S segments of ceil(gmm_max_iter / S) iterations
+(`models.em_driver.fit_segmented` over `stages.gmm_fit_resume`), the last
+capped so that the total stays gmm_max_iter; a Toeplitz segment continues
+from the previous segment's spectrum (JAX recovers it from the
+covariances).
+
 Random draws come from `torch.Generator`s seeded from `cfg.seed` through
 numpy's SeedSequence (data, GMM init, one observation stream per SNR); they
 differ from the JAX package's threefry draws, so the two packages agree on
@@ -47,7 +55,8 @@ import numpy as np
 import torch
 
 from quantized_channel_estimation_torch.harness import stages
-from quantized_channel_estimation_torch.models import gmm, gmm_estimator
+from quantized_channel_estimation_torch.models import (
+    em_driver, gmm, gmm_estimator)
 from quantized_channel_estimation_torch.ops import quantizer as Q
 from quantized_channel_estimation_torch.ops import scm
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
@@ -58,10 +67,9 @@ from quantized_channel_estimation_torch.utils import io as qio
 class GmmBenchConfig:
     """Mirrors the JAX `GmmBenchConfig` (and the reference's script
     constants). The port runs channel_model='3gpp', dense and structured
-    banks at any n_pilots, every cov_type but the Toeplitz ones,
-    gmm_fit_segments=1 and any (n_data_shards, n_component_shards) mesh;
-    other values raise NotImplementedError naming the ROADMAP item that
-    ports them."""
+    banks at any n_pilots, every cov_type, segmented fits and any
+    (n_data_shards, n_component_shards) mesh; another channel_model raises
+    NotImplementedError naming the ROADMAP item that ports it."""
     n_antennas: int = 64
     n_components: int = 64
     n_summands_or_proba: Union[str, int, float] = "all"
@@ -103,11 +111,6 @@ def _check_supported(cfg: GmmBenchConfig) -> None:
     if cfg.channel_model != "3gpp":
         todo.append(f"channel_model={cfg.channel_model!r} (ROADMAP Queue 1 "
                     "item 14)")
-    if cfg.gmm_fit_segments != 1:
-        todo.append("segmented fits, em_driver.fit_segmented (ROADMAP Queue "
-                    "1 item 8)")
-    if cfg.cov_type in ("toeplitz", "block-toeplitz"):
-        todo.append(f"cov_type={cfg.cov_type!r} (ROADMAP Queue 1 item 8)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -162,11 +165,51 @@ def _get_data(cfg: GmmBenchConfig, gen: torch.Generator, sharded=None):
     return h, t
 
 
+def _fit_gmm(cfg: GmmBenchConfig, gen: torch.Generator, h_train, sharded):
+    """The GMM fit of the sweep: one `fit` (data-parallel when sharded), or
+    with gmm_fit_segments S > 1 S segments of ceil(gmm_max_iter / S)
+    iterations whose total stays gmm_max_iter."""
+    segs = max(1, cfg.gmm_fit_segments)
+    if segs > 1 and cfg.cov_type not in ("full", "toeplitz",
+                                         "block-toeplitz"):
+        # before the first segment: fit_resume would refuse only at the
+        # second
+        raise NotImplementedError(
+            f"gmm_fit_segments>1 requires a resumable cov_type ('full', "
+            f"'toeplitz', 'block-toeplitz'); got {cfg.cov_type!r}")
+    if segs > 1 and cfg.gmm_max_iter < 1:
+        raise ValueError(f"gmm_fit_segments={segs} requires gmm_max_iter "
+                         f">= 1 (got {cfg.gmm_max_iter})")
+    per_seg = -(-cfg.gmm_max_iter // segs)
+    gcfg = gmm.GmmConfig(n_components=cfg.n_components,
+                         cov_type=cfg.cov_type, blocks=cfg.blocks,
+                         zero_mean=cfg.zero_mean_gmm, max_iter=per_seg)
+    if segs == 1:
+        return (sharded.gmm_fit if sharded else stages.gmm_fit)(gen, h_train,
+                                                                gcfg)
+    # prev.n_iter is the running total, so each resumed segment is capped at
+    # the budget left and the total stays gmm_max_iter; a Toeplitz segment
+    # continues from the previous one's spectrum, not one recovered from its
+    # covariances (which steps the fit back at D = 64)
+    return em_driver.fit_segmented(
+        lambda: stages.gmm_fit(gen, h_train, gcfg),
+        lambda prev: stages.gmm_fit_resume(
+            prev.params, h_train, gcfg._replace(max_iter=min(
+                per_seg, cfg.gmm_max_iter - int(prev.n_iter))),
+            spectrum=prev.spectrum),
+        n_segments=-(-cfg.gmm_max_iter // per_seg))
+
+
 def run(cfg: GmmBenchConfig, verbose: bool = True, device=None):
     """Run the benchmark on `device` (the CUDA card by default, cuda:LOCAL_RANK
     on each rank of a sharded run; raises when there is none). Returns
     (mse_columns, rate_columns, timings)."""
     _check_supported(cfg)
+    if (cfg.gmm_fit_segments > 1
+            and cfg.n_data_shards * cfg.n_component_shards > 1):
+        raise NotImplementedError(
+            "gmm_fit_segments > 1 is single-device-only (the resume path has "
+            "no mesh form)")
     sharded = stages.sharded_stages(cfg.n_data_shards, cfg.n_component_shards)
     if sharded is None:
         device = stages.resolve_device(device)
@@ -293,12 +336,7 @@ def run(cfg: GmmBenchConfig, verbose: bool = True, device=None):
         if cfg.use_cache and os.path.exists(gmm_path):
             params = qio.load_gmm_params(gmm_path, device)
         else:
-            gcfg = gmm.GmmConfig(n_components=cfg.n_components,
-                                 cov_type=cfg.cov_type, blocks=cfg.blocks,
-                                 zero_mean=cfg.zero_mean_gmm,
-                                 max_iter=cfg.gmm_max_iter)
-            fit = (sharded.gmm_fit if sharded else stages.gmm_fit)(
-                _generator(s_gmm, device), h_train, gcfg)
+            fit = _fit_gmm(cfg, _generator(s_gmm, device), h_train, sharded)
             params = fit.params
             if verbose:
                 print(f"GMM fit: {fit.n_iter} iters, "

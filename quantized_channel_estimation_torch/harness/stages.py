@@ -2,7 +2,8 @@
 
 Port of `quantized_channel_estimation_tpu/harness/stages.py`:
 `generate_channels`, `pilot_matrix`, `sample_cov`, `observe`,
-`blmmse_global`, `blmmse_genie`, `ls_global`, `gmm_fit`, `prepare_bank`,
+`blmmse_global`, `blmmse_genie`, `ls_global`, `gmm_fit`, `gmm_fit_resume`,
+`prepare_bank`,
 `nmse`, `rate`, `rate_mf`, `estimate_auto`, `estimate_coherent`,
 `estimate_coherent_auto`, `flatten_coherence`, for the structured banks
 `prepare_bank_circulant`, `prepare_bank_circulant_spectra`,
@@ -79,6 +80,7 @@ blmmse_global = blmmse.estimate_global
 blmmse_genie = blmmse.estimate_genie
 ls_global = ls.estimate_global
 gmm_fit = gmm.fit
+gmm_fit_resume = gmm.fit_resume
 mfa_fit = mfa.fit
 mfa_to_gmm = mfa.to_gmm_params
 prepare_bank = gmm_estimator.prepare_bank

@@ -1,17 +1,24 @@
 """Complex Gaussian mixture model fitted by EM.
 
-Port of `quantized_channel_estimation_tpu/models/gmm.py` for the covariance
-types 'full', 'circulant', 'block-circulant', 'diag' and 'spherical':
-`GmmConfig`, `GmmParams`, `GmmFitResult`, `log_prob_full`, `log_prob_diag`,
-`accumulate_stats`, `_m_step_full`, `_m_step_diag`, `_init_resp_stats`,
-`_em_loop`, `_dft_for`, `fit` and `predict_proba`. E and M are fused into
-one chunked pass over the data that accumulates the sufficient statistics
-(Nk, sum r.x, and sum r.xx^H or, for the diagonal modes, sum r.|x|^2); the
-EM loop is a Python loop with the JAX stopping rule (|change of the mean
+Port of `quantized_channel_estimation_tpu/models/gmm.py`: `GmmConfig`,
+`GmmParams`, `GmmFitResult`, `log_prob_full`, `log_prob_diag`,
+`accumulate_stats`, `_m_step_full`, `_m_step_diag`, `_m_step_toeplitz`,
+`_init_resp_stats`, `_em_loop`, `_dft_for`, `_oversampled_dft_for`, `fit`,
+`fit_resume` and `predict_proba`. E and M are fused into one chunked pass
+over the data that accumulates the sufficient statistics (Nk, sum r.x, and
+sum r.xx^H or, for the diagonal modes, sum r.|x|^2); the EM loop is a
+Python loop with the JAX stopping rule (|change of the mean
 log-likelihood| < tol, at least one iteration). The (block-)circulant types
 run the diagonal EM on the unitary-DFT-domain data and return dense
 covariances F^H diag(s) F, as every fit does. 'toeplitz' and
-'block-toeplitz' raise `NotImplementedError` (ROADMAP Queue 1 item 8).
+'block-toeplitz' run the Barton-Fuhrmann inverse EM: a full-covariance
+E-step and an M-step that moves a nonnegative spectrum on the oversampled
+DFT frame F2 (`ops.linalg.oversampled_dft`, kron of two for
+'block-toeplitz'), C = F2^H diag(s) F2, by its trust-region-clipped
+fixed-point step. `fit_resume` continues a 'full' or Toeplitz fit from its
+parameters (the Toeplitz spectrum given, or recovered from the covariances
+by `linalg.spectrum_from_covariance`), which `models.em_driver` uses to
+split a fit into segments.
 
 Data-parallel EM (JAX `GmmConfig.axis_name` under `shard_map`): `fit(...,
 group=)` takes this rank's equal window of the global rows (in rank order)
@@ -84,6 +91,9 @@ class GmmFitResult(NamedTuple):
     n_iter: int
     converged: bool
     lb_history: List[float]    # lower bound after each EM iteration
+    # the inverse-EM spectrum (K, F) of a Toeplitz fit, which `fit_resume`
+    # continues from exactly; None for the other types
+    spectrum: Optional[torch.Tensor] = None
 
 
 def params_from_numpy(params, device=None) -> GmmParams:
@@ -234,6 +244,36 @@ def _m_step_diag(stats: _Stats, cfg: GmmConfig):
     return nk, means, var + cfg.reg_covar
 
 
+def _m_step_toeplitz(stats: _Stats, cfg: GmmConfig, prev_covs: torch.Tensor,
+                     sigma_spec: torch.Tensor, f2: torch.Tensor):
+    """Barton-Fuhrmann inverse-EM spectrum update on the frame F2 (F, D):
+    sigma_f += sigma_f^2 Re(f_f^H (C^-1 S C^-1 - C^-1) f_f) with C the
+    previous covariance and S the weighted sample covariance, the step
+    clipped to [0.1 sigma, 10 sigma] (the raw step overshoots in float32 on
+    peaked spectra) and floored at reg_covar. C^-1 is the eigenvalue
+    pseudo-inverse (rcond 1e-7): a jittered Cholesky inverse would blow up
+    on near-singular covariances. Returns (nk, means, covs, sigma)."""
+    nk, means = _means_from_stats(stats, cfg.zero_mean)
+    s = stats.sxx / nk[:, None, None].to(stats.sxx.dtype)
+    if not cfg.zero_mean:
+        s = s - means[:, :, None] * means[:, None, :].conj()
+    cinv = linalg.psd_pinv(prev_covs, rcond=1e-7)
+    m = cinv @ s @ cinv - cinv
+    theta = torch.einsum("fd,kde,fe->kf", f2, m, f2.conj()).real
+    raw = sigma_spec + sigma_spec ** 2 * theta
+    sigma_spec = torch.clamp(raw, 0.1 * sigma_spec, 10.0 * sigma_spec)
+    sigma_spec = sigma_spec.clamp(min=cfg.reg_covar)
+    return (nk, means, _frame_covs(f2, sigma_spec, cfg.reg_covar),
+            sigma_spec)
+
+
+def _frame_covs(f2: torch.Tensor, sigma: torch.Tensor,
+                reg_covar: float) -> torch.Tensor:
+    """The inverse EM's covariances F2^H diag(sigma_k) F2 + reg_covar I."""
+    covs = torch.einsum("fd,kf,fe->kde", f2.conj(), sigma.to(f2.dtype), f2)
+    return linalg.add_jitter(covs, reg_covar)
+
+
 def _stats_from_labels(x: torch.Tensor, labels: torch.Tensor, k: int,
                        chunk: int, diag: bool = False) -> _Stats:
     """Sufficient statistics of a hard assignment (one-hot
@@ -282,31 +322,48 @@ class _State(NamedTuple):
     weights: torch.Tensor
     means: torch.Tensor
     covs: torch.Tensor   # (K, D, D) complex (full) or (K, D) real (diag)
+    sigma: Optional[torch.Tensor] = None   # (K, F) inverse-EM spectrum
 
 
-def _params_from_stats(stats: _Stats, cfg: GmmConfig,
-                       mode: str = "full") -> _State:
+def _params_from_stats(stats: _Stats, cfg: GmmConfig, mode: str = "full",
+                       prev: Optional[_State] = None,
+                       f2: Optional[torch.Tensor] = None) -> _State:
+    """The M-step of `mode`. 'inv-em' starts (prev None) from the full
+    M-step with the spectrum of its oversampled-DFT diagonal, and later
+    moves the spectrum of `prev` (`_m_step_toeplitz`)."""
+    sigma = None if prev is None else prev.sigma
     if mode == "full":
         nk, means, covs = _m_step_full(stats, cfg)
+    elif mode == "inv-em" and prev is None:
+        nk, means, covs = _m_step_full(stats, cfg)
+        sigma = torch.einsum("fd,kde,fe->kf", f2, covs,
+                             f2.conj()).real.clamp(min=cfg.reg_covar)
+    elif mode == "inv-em":
+        nk, means, covs, sigma = _m_step_toeplitz(stats, cfg, prev.covs,
+                                                  prev.sigma, f2)
     else:
         nk, means, covs = _m_step_diag(stats, cfg)
         if mode == "spherical":
             # one variance per component: the diagonal averaged over dims
             covs = covs.mean(-1, keepdim=True).expand_as(covs)
-    return _State(nk / nk.sum(), means, covs)
+    return _State(nk / nk.sum(), means, covs, sigma)
 
 
-def _em_loop(x: torch.Tensor, init_stats: _Stats, cfg: GmmConfig,
-             mode: str = "full", group=None):
-    """EM from initial statistics, mode in {'full', 'diag', 'spherical'};
-    under a group x is this rank's window and the statistics of every pass
-    are all-reduced. Returns (state, lower_bound, n_iter, converged,
-    lb_history)."""
+def _em_loop(x: torch.Tensor, init_stats: Optional[_Stats], cfg: GmmConfig,
+             mode: str = "full", group=None, f2: Optional[torch.Tensor] = None,
+             state0: Optional[_State] = None):
+    """EM, mode in {'full', 'diag', 'spherical', 'inv-em'} ('inv-em' on the
+    frame `f2`), from initial statistics (the first M-step builds the
+    parameters from them) or, to resume, from the parameters `state0`
+    (for 'inv-em' with its spectrum). Under a group x is this rank's
+    window and the statistics of every pass are all-reduced. Returns
+    (state, lower_bound, n_iter, converged, lb_history)."""
     n = Comm(group, x.shape[0], x.device).n_global
     chunk = min(cfg.chunk_size, x.shape[0])
-    diag = mode != "full"
-    state = _params_from_stats(init_stats, cfg, mode)
-    rdt = init_stats.nk.dtype
+    diag = mode in ("diag", "spherical")
+    state = (_params_from_stats(init_stats, cfg, mode, None, f2)
+             if state0 is None else state0)
+    rdt = state.weights.dtype
     # lower bound -inf and previous +inf: the first check sees an infinite
     # change, so the loop always runs at least one iteration
     lb = torch.tensor(-math.inf, dtype=rdt, device=x.device)
@@ -321,7 +378,7 @@ def _em_loop(x: torch.Tensor, init_stats: _Stats, cfg: GmmConfig,
             log_prob_fn = lambda xc: log_prob_full(xc, means, prec)  # noqa: E731
         stats = accumulate_stats(x, torch.log(state.weights), log_prob_fn,
                                  chunk, diag, group, cfg.psum_segments)
-        state = _params_from_stats(stats, cfg, mode)
+        state = _params_from_stats(stats, cfg, mode, state, f2)
         prev, lb = lb, stats.log_norm / n
         n_iter += 1
         history.append(float(lb))
@@ -339,6 +396,19 @@ def _dft_for(cfg: GmmConfig, d: int, dtype, device=None) -> torch.Tensor:
         raise ValueError(f"blocks {cfg.blocks} incompatible with dim {d}")
     return torch.kron(linalg.unitary_dft(n1, dtype, device),
                       linalg.unitary_dft(n2, dtype, device))
+
+
+def _oversampled_dft_for(cfg: GmmConfig, d: int, dtype,
+                         device=None) -> torch.Tensor:
+    """The inverse-EM frame: the oversampled DFT (2D, D) for 'toeplitz',
+    kron(F2_n1, F2_n2) (4D, D) for 'block-toeplitz'."""
+    if cfg.cov_type == "toeplitz":
+        return linalg.oversampled_dft(d, dtype, device)
+    n1, n2 = cfg.blocks
+    if n1 * n2 != d:
+        raise ValueError(f"blocks {cfg.blocks} incompatible with dim {d}")
+    return torch.kron(linalg.oversampled_dft(n1, dtype, device),
+                      linalg.oversampled_dft(n2, dtype, device))
 
 
 def _fit_once(gen: torch.Generator, h: torch.Tensor, cfg: GmmConfig,
@@ -369,16 +439,19 @@ def _fit_once(gen: torch.Generator, h: torch.Tensor, cfg: GmmConfig,
         means = state.means
         covs = torch.diag_embed(state.covs.to(dtype))
     elif cfg.cov_type in ("toeplitz", "block-toeplitz"):
-        raise NotImplementedError(
-            f"cov_type={cfg.cov_type!r} (the inverse-EM Toeplitz fit) is not "
-            "ported yet (ROADMAP Queue 1 item 8)")
+        f2 = _oversampled_dft_for(cfg, d, dtype, h.device)
+        init_stats = _init_resp_stats(gen, h, cfg, cfg.chunk_size,
+                                      group=group)
+        state, lb, n_iter, converged, history = _em_loop(
+            h, init_stats, cfg, "inv-em", group, f2)
+        means, covs = state.means, linalg.hermitize(state.covs)
     else:
         raise NotImplementedError(
             f"covariance_type={cfg.cov_type!r} is not implemented")
     covs = linalg.add_jitter(covs, cfg.reg_covar)
     prec = linalg.robust_precision_cholesky(covs)
     params = GmmParams(state.weights, means, covs, prec)
-    return GmmFitResult(params, lb, n_iter, converged, history)
+    return GmmFitResult(params, lb, n_iter, converged, history, state.sigma)
 
 
 def fit(gen: torch.Generator, h: torch.Tensor, cfg: GmmConfig,
@@ -397,6 +470,52 @@ def fit(gen: torch.Generator, h: torch.Tensor, cfg: GmmConfig,
         if bool(cand.lower_bound > best.lower_bound):
             best = cand
     return best
+
+
+def fit_resume(params: GmmParams, h: torch.Tensor, cfg: GmmConfig,
+               group: Optional[dist.ProcessGroup] = None,
+               spectrum: Optional[torch.Tensor] = None) -> GmmFitResult:
+    """Continue EM from existing parameters (a checkpoint restart, or the
+    next segment of `models.em_driver.fit_segmented`). 'full': one E-pass
+    with the given parameters yields the statistics the loop continues
+    from. 'toeplitz' / 'block-toeplitz': given `spectrum` (the previous
+    result's), the loop continues exactly where that fit stopped, from the
+    spectrum and the covariances it defines; else, as JAX does, from the
+    covariances and the spectrum recovered from them by
+    `linalg.spectrum_from_covariance`. That recovery is inexact at D = 64
+    (200 Richardson-Lucy steps) and the saved covariances carry the jitter
+    `fit` adds once more, so the lower bound steps back for several
+    iterations; the frame diagonal would be worse still. Other types raise
+    NotImplementedError. `group` as in `fit`."""
+    if cfg.cov_type not in ("full", "toeplitz", "block-toeplitz"):
+        raise NotImplementedError(
+            "fit_resume supports 'full' and 'toeplitz'/'block-toeplitz' "
+            f"state (got {cfg.cov_type!r})")
+    pin_fp32()
+    params = GmmParams(*(torch.as_tensor(p, device=h.device) for p in params))
+    if cfg.cov_type == "full":
+        stats = accumulate_stats(
+            h, torch.log(params.weights),
+            lambda xc: log_prob_full(xc, params.means, params.prec_chol),
+            min(cfg.chunk_size, h.shape[0]), False, group, cfg.psum_segments)
+        state, lb, n_iter, converged, history = _em_loop(h, stats, cfg,
+                                                         "full", group)
+    else:
+        f2 = _oversampled_dft_for(cfg, h.shape[-1], h.dtype, h.device)
+        if spectrum is None:
+            covs = params.covariances.to(h.dtype)
+            spectrum = linalg.spectrum_from_covariance(covs, f2,
+                                                       cfg.reg_covar)
+        else:
+            spectrum = torch.as_tensor(spectrum, device=h.device)
+            covs = _frame_covs(f2, spectrum, cfg.reg_covar)
+        state0 = _State(params.weights, params.means, covs, spectrum)
+        state, lb, n_iter, converged, history = _em_loop(
+            h, None, cfg, "inv-em", group, f2, state0)
+    covs = linalg.add_jitter(linalg.hermitize(state.covs), cfg.reg_covar)
+    out = GmmParams(state.weights, state.means, covs,
+                    linalg.robust_precision_cholesky(covs))
+    return GmmFitResult(out, lb, n_iter, converged, history, state.sigma)
 
 
 def predict_proba(params: GmmParams, x: torch.Tensor) -> torch.Tensor:

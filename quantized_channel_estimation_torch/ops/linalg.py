@@ -1,9 +1,11 @@
 """Batched Hermitian linear algebra (main-path subset).
 
 Port of `quantized_channel_estimation_tpu/ops/linalg.py`: the Toeplitz and
-DFT matrices, the Cholesky-based solves the GMM fit, the bank preparation
-and the BLMMSE/LS baselines use, and the (block-)circulant spectra helpers
-of the structured banks. Every function is batched over leading axes and
+DFT matrices, the oversampled DFT frame of the inverse-EM Toeplitz fit and
+its spectrum recovery, the Cholesky-based solves the GMM fit, the bank
+preparation and the BLMMSE/LS baselines use, the eigenvalue pseudo-inverse
+and PSD projection, and the (block-)circulant spectra helpers of the
+structured banks. Every function is batched over leading axes and
 follows the dtype of its input.
 """
 from __future__ import annotations
@@ -30,6 +32,38 @@ def unitary_dft(n: int, dtype=torch.complex64, device=None) -> torch.Tensor:
     w = torch.exp(torch.tensor(-2j * math.pi / n, dtype=dtype, device=device)
                   * torch.outer(k, k))
     return w / math.sqrt(n)
+
+
+def oversampled_dft(n: int, dtype=torch.complex64, device=None) -> torch.Tensor:
+    """F2 = fft(I_2n)[:, :n] / sqrt(2n): the (2n, n) oversampled DFT frame
+    of the Barton-Fuhrmann Toeplitz EM. F2^H diag(s) F2 is a Toeplitz PSD
+    matrix for s >= 0."""
+    k2 = torch.arange(2 * n, device=device).to(dtype)
+    kn = torch.arange(n, device=device).to(dtype)
+    w = torch.exp(torch.tensor(-1j * math.pi / n, dtype=dtype, device=device)
+                  * torch.outer(k2, kn))
+    return w / math.sqrt(2 * n)
+
+
+def spectrum_from_covariance(covs: torch.Tensor, f2: torch.Tensor,
+                             floor: float, iters: int = 200) -> torch.Tensor:
+    """The frame spectrum s with C = F2^H diag(s) F2, recovered from C.
+
+    The frame's rows are not orthogonal, so the diagonal b_f = f_f^H C f_f
+    is a smoothed spectrum (b = G s with the Gram G_fg = |f_f^H f_g|^2),
+    not s. The Gram system is solved by Richardson-Lucy multiplicative
+    updates (KL(b || G s) over s >= 0), which stay stable in float32 where
+    a pseudo-inverse of the rank-deficient Gram does not. covs (K, D, D)
+    Hermitian, f2 (F, D) -> (K, F) >= floor."""
+    gram = (f2 @ f2.mH).abs() ** 2
+    b = torch.einsum("fd,kde,fe->kf", f2, covs, f2.conj()).real.clamp(min=0.0)
+    gsum = gram.sum(0)
+    tiny = torch.finfo(b.dtype).tiny
+    sigma = b.clamp(min=floor)
+    for _ in range(iters):
+        ratio = b / (sigma @ gram).clamp(min=tiny)
+        sigma = sigma * (ratio @ gram) / gsum
+    return sigma.clamp(min=floor)
 
 
 def add_jitter(c: torch.Tensor, eps: float) -> torch.Tensor:
@@ -106,6 +140,13 @@ def psd_pinv(c: torch.Tensor, rcond: float = 1e-10) -> torch.Tensor:
     return (v * w_inv[..., None, :]) @ v.mH
 
 
+def psd_project(c: torch.Tensor, floor: float = 0.0) -> torch.Tensor:
+    """Project Hermitian matrices onto the PSD cone by clipping their
+    eigenvalues at `floor`."""
+    w, v = torch.linalg.eigh(c)
+    return (v * w.clamp(min=floor).to(c.dtype)[..., None, :]) @ v.mH
+
+
 def hermitize(c: torch.Tensor) -> torch.Tensor:
     """(C + C^H)/2."""
     return 0.5 * (c + c.mH)
@@ -157,3 +198,15 @@ def circulant_spectra_from_first_rows(rows: torch.Tensor,
         return torch.fft.ifft(rows, dim=-1).real * d
     s = torch.fft.ifft2(_block_reshape(rows, blocks))
     return s.real.reshape(rows.shape) * d
+
+
+def best_circulant_approximation(t: torch.Tensor) -> torch.Tensor:
+    """Spectrum (real, (..., n)) of the Frobenius-best circulant
+    approximation F^H diag(s) F of the Hermitian Toeplitz matrix with first
+    row t: s = n ifft(w) of the triangular weights
+    w_m = ((n - m) t_m + m conj(t_{n-m})) / n."""
+    n = t.shape[-1]
+    m = torch.arange(n, device=t.device)
+    idx = torch.where(m == 0, 0, n - m)
+    w = ((n - m) * t + m * t[..., idx].conj()) / n
+    return torch.fft.ifft(w, dim=-1).real * n

@@ -2,34 +2,44 @@
 
 Port of `quantized_channel_estimation_tpu/parallel/mesh.py`. JAX runs one
 program over a mesh of devices and reduces with `psum` / `pmax` inside
-`shard_map`; here every rank is one process with one device (one card, or
-the CPU under Gloo) and the mesh is a `torch.distributed` `DeviceMesh`
-with dims named "data" and "component", whose per-dim process groups carry
-the collectives:
+`shard_map`. Here a mesh is one of two kinds, with dims named "data" and
+"component":
+
+  - a `torch.distributed` `DeviceMesh` (`make_mesh`): every rank is one
+    process with one device (one card, or the CPU under Gloo), and the
+    per-dim process groups carry the collectives;
+  - a `LocalMesh` (`make_local_mesh`): one process drives every shard on
+    one device, each component shard on its own CUDA stream on a card (the
+    counterpart of JAX's single controller; the estimation service's
+    `mesh=`).
 
   - EM training is data-parallel: each rank holds a window of the samples
     (its "data" coordinate), the E+M pass produces the window's sufficient
     statistics, and one all-reduce over "data" makes every rank run the
     same M-step (`fit_gmm_shard_map`, `kmeans_shard_map`,
-    `fit_mfa_shard_map`);
+    `fit_mfa_shard_map`; `DeviceMesh` only);
   - estimation shards the samples over "data" and the component bank over
-    "component": each rank computes the un-normalised online-softmax state
-    (m, den, acc) of its components, and the shards merge exactly with one
-    all-reduce MAX of m and two SUMs of exp(m - m*) den and exp(m - m*) acc
-    over "component" (`estimate_sharded_kernel` through K2,
+    "component": each shard computes the un-normalised online-softmax state
+    (m, den, acc) of its components, and the shards merge exactly: across
+    ranks with one all-reduce MAX of m and two SUMs of exp(m - m*) den and
+    exp(m - m*) acc over "component", in one process with
+    `kernels.merge_stats` (`estimate_sharded_kernel` through K2,
     `estimate_sharded_circulant` through K8 / K9, `estimate_sharded_factored`
     through K13). Per sample the payload is two floats and one complex
     D-vector, independent of K. Top-k modes gather each shard's k
-    candidates (K5) and merge them (`estimate_sharded`).
+    candidates (K5) and merge them (`estimate_sharded`, `DeviceMesh` only).
 
 The functions take the global bank and rows, which every rank holds (every
-rank builds the same data from the seed), work on this rank's shard and
-return this rank's data shard of the result; `gather_data` reassembles
-rows over "data". Rows and components must divide evenly over their axes.
+rank builds the same data from the seed). On a `DeviceMesh` they work on
+this rank's shard and return this rank's data shard of the result
+(`gather_data` reassembles rows over "data"); on a `LocalMesh` they run
+every shard and return all rows, the data shards concatenated in order.
+Rows and components must divide evenly over their axes.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import threading
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -37,6 +47,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from quantized_channel_estimation_torch.estimators import (
     circ_kernels, fact_kernels, kernels)
+from quantized_channel_estimation_torch.estimators.kernels import merge_stats
 from quantized_channel_estimation_torch.models import (
     gmm, gmm_estimator, mfa, mfa_bank, structured_bank)
 from quantized_channel_estimation_torch.models.gmm import GmmConfig
@@ -67,7 +78,45 @@ def make_mesh(n_data: Optional[int] = None, n_component: int = 1,
                             mesh_dim_names=(DATA_AXIS, COMPONENT_AXIS))
 
 
-def axis_size(mesh: DeviceMesh, axis: str) -> int:
+class LocalMesh:
+    """A (data, component) mesh of one process on one device (JAX's single
+    controller): `shape` maps "data" and "component" to their sizes, and on
+    a card each component shard runs on its own CUDA stream (`streams`),
+    made at first use. Built by `make_local_mesh`."""
+
+    def __init__(self, n_data: int, n_component: int, device=None):
+        if n_data < 1 or n_component < 1:
+            raise ValueError(f"a mesh needs at least one shard an axis; got "
+                             f"{n_data} x {n_component}")
+        self.shape = {DATA_AXIS: int(n_data), COMPONENT_AXIS: int(n_component)}
+        self.device = None if device is None else torch.device(device)
+        self._streams = {}
+        self._lock = threading.Lock()   # services sharing a mesh
+
+    def streams(self, device: torch.device) -> list:
+        """One CUDA stream a component shard on `device` (a card), or Nones
+        on the CPU, where the shards run in turn."""
+        n_c = self.shape[COMPONENT_AXIS]
+        if device.type != "cuda":
+            return [None] * n_c
+        with self._lock:
+            if device not in self._streams:
+                self._streams[device] = [torch.cuda.Stream(device)
+                                         for _ in range(n_c)]
+            return self._streams[device]
+
+
+def make_local_mesh(n_data: int, n_component: int,
+                    device=None) -> LocalMesh:
+    """The in-process (data, component) mesh of n_data x n_component
+    shards on one device (`device`, or the device of the rows it is given:
+    an estimation service's). No process group is needed."""
+    return LocalMesh(n_data, n_component, device)
+
+
+def axis_size(mesh, axis: str) -> int:
+    if isinstance(mesh, LocalMesh):
+        return mesh.shape[axis]
     return mesh.size(mesh.mesh_dim_names.index(axis))
 
 
@@ -84,13 +133,19 @@ def shard_data(mesh: DeviceMesh, x: torch.Tensor) -> torch.Tensor:
                      mesh.get_local_rank(DATA_AXIS), "n_samples")]
 
 
-def shard_bank(mesh: DeviceMesh, bank):
-    """This rank's components of a bank of any type (`PreparedBank`,
-    `CirculantBank`, `CirculantBankMP`, `FactoredBank`: every field leads
-    with K)."""
-    sl = _window(bank[0].shape[0], axis_size(mesh, COMPONENT_AXIS),
-                 mesh.get_local_rank(COMPONENT_AXIS), "K")
+def bank_shard(bank, n_component: int, idx: int):
+    """Component shard `idx` of `n_component` of a bank of any type
+    (`PreparedBank`, `CirculantBank`, `CirculantBankMP`, `FactoredBank`:
+    every field leads with K); views, no copy."""
+    sl = _window(bank[0].shape[0], n_component, idx, "K")
     return type(bank)(*(x[sl] for x in bank))
+
+
+def shard_bank(mesh: DeviceMesh, bank):
+    """This rank's components of a bank (`bank_shard` at its 'component'
+    coordinate)."""
+    return bank_shard(bank, axis_size(mesh, COMPONENT_AXIS),
+                      mesh.get_local_rank(COMPONENT_AXIS))
 
 
 def _all_gather(group, x: torch.Tensor, n: int) -> list:
@@ -117,6 +172,12 @@ def _gather_components(mesh: DeviceMesh, x: torch.Tensor) -> list:
                        axis_size(mesh, COMPONENT_AXIS))
 
 
+def _quotient(den: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """The normalised estimate acc / den of a merged state."""
+    expand = (1,) * (acc.dim() - den.dim())
+    return acc / den.reshape(den.shape + expand).to(acc.dtype)
+
+
 def _merge_components(mesh: DeviceMesh, m, den, acc) -> torch.Tensor:
     """The exact cross-rank merge of shard states (`kernels.merge_stats`
     as collectives): m* = all-reduce MAX of m over 'component', then
@@ -133,11 +194,58 @@ def _merge_components(mesh: DeviceMesh, m, den, acc) -> torch.Tensor:
     acc = (acc * w.reshape(w.shape + expand).to(acc.dtype)).contiguous()
     dist.all_reduce(torch.view_as_real(acc) if acc.is_complex() else acc,
                     group=group)
-    return acc / den.reshape(den.shape + expand).to(acc.dtype)
+    return _quotient(den, acc)
 
 
-def _shards(mesh: DeviceMesh, bank, r: torch.Tensor):
-    return shard_bank(mesh, bank), shard_data(mesh, r)
+def _local_merged(mesh: LocalMesh, bank, r: torch.Tensor, stats_fn,
+                  caches) -> torch.Tensor:
+    """Every shard of an in-process mesh: for each 'data' window of r, each
+    component shard's state by `stats_fn(bank_l, r_l, cache)` on its own
+    stream, merged with `kernels.merge_stats`; the windows' quotients in
+    order. On a card every shard stream waits for r to land on the
+    current stream, r is recorded on the streams that read it and the
+    states on the current stream, which waits for every shard before the
+    merge."""
+    n_d, n_c = mesh.shape[DATA_AXIS], mesh.shape[COMPONENT_AXIS]
+    shards = [bank_shard(bank, n_c, j) for j in range(n_c)]
+    caches = [None] * n_c if caches is None else caches
+    rows = [r[_window(r.shape[0], n_d, i, "n_samples")] for i in range(n_d)]
+    streams = mesh.streams(r.device)
+    if streams[0] is None:
+        return torch.cat([_quotient(*merge_stats(*zip(*[
+            stats_fn(shards[j], r_i, caches[j]) for j in range(n_c)]))[1:])
+            for r_i in rows])
+    main = torch.cuda.current_stream(r.device)
+    landed = main.record_event()
+    states = [[None] * n_c for _ in rows]
+    for j, stream in enumerate(streams):
+        stream.wait_event(landed)
+        r.record_stream(stream)
+        with torch.cuda.stream(stream):
+            for i, r_i in enumerate(rows):
+                states[i][j] = stats_fn(shards[j], r_i, caches[j])
+        main.wait_event(stream.record_event())
+    for row_states in states:
+        for state in row_states:
+            for x in state:
+                x.record_stream(main)
+    return torch.cat([_quotient(*merge_stats(*zip(*row_states))[1:])
+                      for row_states in states])
+
+
+def _sharded(mesh, bank, r: torch.Tensor, stats_fn: Callable,
+             caches: Optional[Sequence[dict]]) -> torch.Tensor:
+    """The merged quotient of the sharded estimate: on a `DeviceMesh`
+    this rank's shard state `stats_fn(bank_l, r_l, cache)` merged by
+    collectives (this rank's rows); on a `LocalMesh` every shard's, merged
+    in process (all rows). `caches`: one dict a component shard for the
+    kernel layouts of its bank shard, or None."""
+    if isinstance(mesh, LocalMesh):
+        return _local_merged(mesh, bank, r, stats_fn, caches)
+    j = mesh.get_local_rank(COMPONENT_AXIS)
+    m, den, acc = stats_fn(shard_bank(mesh, bank), shard_data(mesh, r),
+                           None if caches is None else caches[j])
+    return _merge_components(mesh, m, den, acc)
 
 
 # ---------------------------------------------------------------------------
@@ -211,121 +319,144 @@ def vae_run_epochs_shard_map(mesh, model, cfg, a, snrs, quantizers, state,
 # tensor-parallel estimation
 # ---------------------------------------------------------------------------
 
-def estimate_sharded_kernel(mesh: DeviceMesh, bank: PreparedBank,
+def kernel_shard_stats(bank_l: PreparedBank, r_l: torch.Tensor,
+                       use_kernel: bool = True, chunk_size: int = 2048,
+                       coherence_alpha: float = 1.0,
+                       cache: Optional[dict] = None):
+    """One dense shard's 'all'-mode state (m, den, acc) of rows r_l: K2
+    (`kernels.estimate_fused_stats`: the CUDA kernel on a card, its plain
+    version on the CPU, the einsum stats path past the kernel's widths),
+    for rank-3 r_l (B, T, M) K2's coherent form with the alpha blend;
+    `use_kernel=False` the einsum stats path (the same logit convention).
+    `cache`: the shard's kernel layouts (`kernels.lowered`)."""
+    alpha = float(coherence_alpha)
+    if r_l.dim() == 3:
+        if use_kernel:
+            return kernels.estimate_fused_coherent_stats(bank_l, r_l, alpha,
+                                                         cache)
+        return gmm_estimator.estimate_coherent_stats(
+            bank_l, r_l, max(1, chunk_size // r_l.shape[1]), alpha)
+    if use_kernel:
+        return kernels.estimate_fused_stats(bank_l, r_l, cache)
+    return gmm_estimator.estimate_stats(bank_l, r_l, chunk_size)
+
+
+def estimate_sharded_kernel(mesh, bank: PreparedBank,
                             r: torch.Tensor, use_kernel: bool = True,
                             chunk_size: int = 2048,
-                            coherence_alpha: float = 1.0) -> torch.Tensor:
+                            coherence_alpha: float = 1.0,
+                            caches: Optional[Sequence[dict]] = None
+                            ) -> torch.Tensor:
     """Tensor-parallel 'all'-mode estimation: samples over 'data', the
-    bank's components over 'component'. Each rank runs K2 on its shard
-    (`kernels.estimate_fused_stats`: the CUDA kernel on a card, its plain
-    version on the CPU, the einsum stats path past the kernel's widths) and
-    the shard states merge exactly across ranks (`_merge_components`).
-    `use_kernel=False` takes the einsum stats path
-    (`gmm_estimator.estimate_stats`, the same logit convention).
+    bank's components over 'component'. Each shard runs K2
+    (`kernel_shard_stats`) and the shard states merge exactly.
 
     r of rank 3 is (B, T, M) coherence blocks: each shard's block-pooled
-    state through K2's coherent form (`kernels.estimate_fused_coherent_stats`
-    with the alpha blend; per block at alpha = 1, per snapshot below),
-    merged the same way; equals `estimate_coherent(bank, r, 'all')` on
-    every mesh. Returns this rank's data shard of the estimate."""
-    bank_l, r_l = _shards(mesh, bank, r)
-    alpha = float(coherence_alpha)
-    if r.dim() == 3:
-        if use_kernel:
-            m, den, acc = kernels.estimate_fused_coherent_stats(bank_l, r_l,
-                                                                alpha)
-        else:
-            m, den, acc = gmm_estimator.estimate_coherent_stats(
-                bank_l, r_l, max(1, chunk_size // r.shape[1]), alpha)
-    elif use_kernel:
-        m, den, acc = kernels.estimate_fused_stats(bank_l, r_l)
-    else:
-        m, den, acc = gmm_estimator.estimate_stats(bank_l, r_l, chunk_size)
-    return _merge_components(mesh, m, den, acc).to(r.dtype)
+    state through K2's coherent form (per block at alpha = 1, per snapshot
+    below), merged the same way; equals `estimate_coherent(bank, r,
+    'all')` on every mesh. Returns this rank's data shard of the estimate
+    (a `LocalMesh`: all rows). `caches`: see `_sharded`."""
+    return _sharded(mesh, bank, r, lambda b, x, c: kernel_shard_stats(
+        b, x, use_kernel, chunk_size, coherence_alpha, c), caches).to(r.dtype)
 
 
-def estimate_sharded_circulant(mesh: DeviceMesh, bank, r: torch.Tensor,
-                               chunk_size: int = 16384,
-                               coherence_alpha: float = 1.0, blocks=None,
-                               use_kernel: Optional[bool] = None
-                               ) -> torch.Tensor:
-    """Tensor-parallel FFT-domain estimation of a `CirculantBank` or
-    `CirculantBankMP` split over 'component': each rank computes its
-    components' DFT-domain state, the shards merge as in
-    `estimate_sharded_kernel`, and one inverse transform runs on the merged
-    quotient (it commutes with the per-row normalisation). Rank-3 r:
-    coherence blocks.
-
-    `use_kernel=None` takes the stats kernels K8 (flat) / K9 (coherent)
-    for a single-pilot bank whose shard is within
-    `circ_kernels.circ_kernel_eligible`, else the `torch.fft` pipelines'
-    stats forms; a `CirculantBankMP` always takes the pipeline. The route
-    is decided from shapes equal on every rank, so every shard takes the
-    same one: kernel and pipeline logits differ by a row constant and must
-    not be merged."""
-    multi = isinstance(bank, structured_bank.CirculantBankMP)
-    bank_l, r_l = _shards(mesh, bank, r)
-    coherent = r.dim() == 3
-    t = r.shape[1] if coherent else 1
-    alpha = float(coherence_alpha)
-    if use_kernel is None:
-        k_l, d = bank_l.mean_rf.shape[:2]
-        use_kernel = (not multi
-                      and circ_kernels.circ_kernel_eligible(d, k_l, t))
+def circulant_shard_stats(bank_l, r_l: torch.Tensor, use_kernel: bool,
+                          chunk_size: int = 16384,
+                          coherence_alpha: float = 1.0, blocks=None,
+                          cache: Optional[dict] = None):
+    """One circulant shard's DFT-domain state (m, den, acc) of rows r_l
+    (rank 3: coherence blocks): K8 (flat) / K9 (coherent) with
+    `use_kernel`, else the `torch.fft` pipelines' stats forms (a
+    `CirculantBankMP`: the multi-pilot ones). `cache`: the shard's kernel
+    layouts and operands (`circ_kernels.lowered`, `lowered_tc`)."""
+    multi = isinstance(bank_l, structured_bank.CirculantBankMP)
     if use_kernel and multi:
         raise ValueError("the circulant stats kernels take single-pilot "
                          "banks; a CirculantBankMP takes the pipeline")
+    coherent = r_l.dim() == 3
+    t = r_l.shape[1] if coherent else 1
+    alpha = float(coherence_alpha)
     sb = structured_bank
     if multi and coherent:
-        m, den, acc = sb.estimate_circulant_mp_coherent_stats(
+        return sb.estimate_circulant_mp_coherent_stats(
             bank_l, r_l, max(1, chunk_size // (4 * t)), alpha, blocks)
-    elif multi:
-        m, den, acc = sb.estimate_circulant_mp_stats(
+    if multi:
+        return sb.estimate_circulant_mp_stats(
             bank_l, r_l, max(1, chunk_size // 4), blocks)
-    elif use_kernel and coherent:
-        m, den, acc = circ_kernels.estimate_fused_circulant_coherent_stats(
-            bank_l, r_l, alpha, blocks)
-    elif use_kernel:
-        m, den, acc = circ_kernels.estimate_fused_circulant_stats(
-            bank_l, r_l, blocks)
-    elif coherent:
-        m, den, acc = sb.estimate_circulant_coherent_stats(
+    if use_kernel and coherent:
+        return circ_kernels.estimate_fused_circulant_coherent_stats(
+            bank_l, r_l, alpha, blocks, cache)
+    if use_kernel:
+        return circ_kernels.estimate_fused_circulant_stats(bank_l, r_l,
+                                                           blocks, cache)
+    if coherent:
+        return sb.estimate_circulant_coherent_stats(
             bank_l, r_l, max(1, chunk_size // t), alpha, blocks)
-    else:
-        m, den, acc = sb.estimate_circulant_stats(bank_l, r_l, chunk_size,
-                                                  blocks)
-    h_f = _merge_components(mesh, m, den, acc)
-    return sb.unitary_ifft(h_f, blocks).to(r.dtype)
+    return sb.estimate_circulant_stats(bank_l, r_l, chunk_size, blocks)
 
 
-def estimate_sharded_factored(mesh: DeviceMesh, bank, r: torch.Tensor,
+def estimate_sharded_circulant(mesh, bank, r: torch.Tensor,
+                               chunk_size: int = 16384,
+                               coherence_alpha: float = 1.0, blocks=None,
+                               use_kernel: Optional[bool] = None,
+                               caches: Optional[Sequence[dict]] = None
+                               ) -> torch.Tensor:
+    """Tensor-parallel FFT-domain estimation of a `CirculantBank` or
+    `CirculantBankMP` split over 'component': each shard computes its
+    components' DFT-domain state (`circulant_shard_stats`), the shards
+    merge as in `estimate_sharded_kernel`, and one inverse transform runs
+    on the merged quotient (it commutes with the per-row normalisation).
+    Rank-3 r: coherence blocks. `use_kernel=None` takes the stats kernels
+    K8 / K9 for a single-pilot bank whose shard is within
+    `circ_kernels.circ_kernel_eligible`, else the pipelines (always for a
+    `CirculantBankMP`): a rule of shapes equal on every shard, so every
+    shard takes the same route (kernel and pipeline logits differ by a row
+    constant and must not be merged). `caches`: see `_sharded`."""
+    if use_kernel is None:
+        k, d = bank.mean_rf.shape[:2]
+        use_kernel = (not isinstance(bank, structured_bank.CirculantBankMP)
+                      and circ_kernels.circ_kernel_eligible(
+                          d, k // axis_size(mesh, COMPONENT_AXIS),
+                          r.shape[1] if r.dim() == 3 else 1))
+    h_f = _sharded(mesh, bank, r, lambda b, x, c: circulant_shard_stats(
+        b, x, use_kernel, chunk_size, coherence_alpha, blocks, c), caches)
+    return structured_bank.unitary_ifft(h_f, blocks).to(r.dtype)
+
+
+def factored_shard_stats(bank_l, r_l: torch.Tensor, use_kernel: bool,
+                         chunk_size: int = 4096, coherence_alpha: float = 1.0,
+                         cache: Optional[dict] = None):
+    """One factored shard's state (m, den, acc) of rows r_l: K13 with
+    `use_kernel` (flat rows), else the `torch.matmul` pipeline's stats
+    forms (rank-3 r_l: the coherent one). `cache`: the shard's kernel
+    layouts and operands (`fact_kernels.lowered`, `lowered_tc`)."""
+    if r_l.dim() == 3:
+        return mfa_bank.estimate_factored_coherent_stats(
+            bank_l, r_l, max(1, chunk_size // r_l.shape[1]),
+            float(coherence_alpha))
+    if use_kernel:
+        return fact_kernels.estimate_fused_factored_stats(bank_l, r_l, cache)
+    return mfa_bank.estimate_factored_stats(bank_l, r_l, chunk_size)
+
+
+def estimate_sharded_factored(mesh, bank, r: torch.Tensor,
                               chunk_size: int = 4096,
                               coherence_alpha: float = 1.0,
-                              use_kernel: Optional[bool] = None
+                              use_kernel: Optional[bool] = None,
+                              caches: Optional[Sequence[dict]] = None
                               ) -> torch.Tensor:
     """Tensor-parallel factored (MFA, Woodbury) estimation of a
-    `FactoredBank` split over 'component', merged as in
-    `estimate_sharded_kernel`. `use_kernel=None` takes the stats kernel
-    K13 for flat rows whose shard is within
-    `fact_kernels.fact_kernel_eligible`, else the `torch.matmul` pipeline's
-    stats form (the same logit convention); coherence blocks (rank-3 r)
-    take the pipeline's coherent stats form."""
-    bank_l, r_l = _shards(mesh, bank, r)
-    alpha = float(coherence_alpha)
-    if r.dim() == 3:
-        m, den, acc = mfa_bank.estimate_factored_coherent_stats(
-            bank_l, r_l, max(1, chunk_size // r.shape[1]), alpha)
-    else:
-        if use_kernel is None:
-            k_l, m_lat, d = bank_l.t_mat.shape
-            use_kernel = fact_kernels.fact_kernel_eligible(d, k_l, m_lat)
-        if use_kernel:
-            m, den, acc = fact_kernels.estimate_fused_factored_stats(bank_l,
-                                                                     r_l)
-        else:
-            m, den, acc = mfa_bank.estimate_factored_stats(bank_l, r_l,
-                                                           chunk_size)
-    return _merge_components(mesh, m, den, acc).to(r.dtype)
+    `FactoredBank` split over 'component' (`factored_shard_stats`), merged
+    as in `estimate_sharded_kernel`. `use_kernel=None` takes the stats
+    kernel K13 for flat rows whose shard is within
+    `fact_kernels.fact_kernel_eligible`; coherence blocks take the
+    pipeline (K12 has no stats form). `caches`: see `_sharded`."""
+    if use_kernel is None:
+        k, m_lat, d = bank.t_mat.shape
+        use_kernel = r.dim() == 2 and fact_kernels.fact_kernel_eligible(
+            d, k // axis_size(mesh, COMPONENT_AXIS), m_lat)
+    return _sharded(mesh, bank, r, lambda b, x, c: factored_shard_stats(
+        b, x, use_kernel, chunk_size, coherence_alpha, c), caches).to(r.dtype)
 
 
 def _gather_bank(mesh: DeviceMesh, bank_l):
@@ -356,7 +487,7 @@ def estimate_sharded(mesh: DeviceMesh, bank: PreparedBank, r: torch.Tensor,
         return estimate_sharded_kernel(mesh, bank, r, chunk_size=chunk_size,
                                        coherence_alpha=coherence_alpha)
     k, d, m = bank.filters.shape
-    bank_l, r_l = _shards(mesh, bank, r)
+    bank_l, r_l = shard_bank(mesh, bank), shard_data(mesh, r)
     if r.dim() == 2 and kernels.topk_mode_eligible(d, k, m, mode):
         ls, zs = kernels.estimate_fused_topk_stats(bank_l, r_l, mode)
         h2 = kernels.merge_topk(_gather_components(mesh, ls),

@@ -1,17 +1,17 @@
-"""Continuous-batching service for channel-estimation requests (one device).
+"""Continuous-batching service for channel-estimation requests.
 
-Port of `quantized_channel_estimation_tpu/serving.py`, single-device
-subset: `ServiceOverloadedError`, `ServiceClosedError`, `_Metrics`,
-`_Request` and `EstimationService` with a dense GMM bank, with
-`structured=True` / `from_circulant_spectra` the FFT-domain circulant bank
-of `models.structured_bank`, or with `factored=True` / `from_mfa` the
-factored (Woodbury) bank of an MFA prior (`models.mfa_bank`). Requests of
-any
-size are queued per (SNR, T), coalesced into power-of-two microbatches of
-at most `max_batch` snapshots (a coherence block is never split), and
-flushed when a queue fills or its oldest request is older than
-`max_delay_ms`. Banks are prepared per snapped SNR and kept in an LRU cache
-together with their kernel layouts, lowered once per (T, alpha).
+Port of `quantized_channel_estimation_tpu/serving.py`:
+`ServiceOverloadedError`, `ServiceClosedError`, `_Metrics`, `_Request` and
+`EstimationService` with a dense GMM bank, with `structured=True` /
+`from_circulant_spectra` the FFT-domain circulant bank of
+`models.structured_bank`, or with `factored=True` / `from_mfa` the factored
+(Woodbury) bank of an MFA prior (`models.mfa_bank`), on one device or over
+an in-process mesh (`mesh=`). Requests of any size are queued per (SNR, T),
+coalesced into power-of-two microbatches of at most `max_batch` snapshots
+(a coherence block is never split), and flushed when a queue fills or its
+oldest request is older than `max_delay_ms`. Banks are prepared per
+snapped SNR and kept in an LRU cache together with their kernel layouts,
+lowered once per (T, alpha).
 
 On the service's device (the CUDA card unless `device` says otherwise) the
 estimates run through the hand-written kernels: 'all'-mode flat requests
@@ -31,9 +31,19 @@ plain versions. A worker thread computes on the service's device and its
 own CUDA stream; every fault reaches the waiting clients through their
 request.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-Queue 1 item: `mesh` (item 15, with or without `structured` or
-`factored`), `VaeEstimationService` (item 13).
+With `mesh=parallel.mesh.make_local_mesh(n_data, n_component)` ('all'
+mode only) every microbatch runs split: its rows over "data", the bank's
+components over "component", each component shard through its stats
+kernel on its own CUDA stream (K2 flat and coherent for a dense bank, K8 /
+K9 for a single-pilot circulant one, K13 for flat factored requests; the
+pipelines' stats forms for a multi-pilot circulant bank and factored
+blocks), the shard states merged with `kernels.merge_stats`
+(`parallel.mesh.estimate_sharded_kernel` / `_circulant` / `_factored`).
+Each bank shard's kernel layouts are kept with the bank. The service is one
+process: a `torch.distributed` `DeviceMesh` is refused.
+
+Not ported yet: `VaeEstimationService` (ROADMAP Queue 1 item 13) raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -61,6 +71,7 @@ from quantized_channel_estimation_torch.models.structured_bank import (
     CirculantBank, CirculantBankMP)
 from quantized_channel_estimation_torch.ops import observation
 from quantized_channel_estimation_torch.ops import quantizer as Q
+from quantized_channel_estimation_torch.parallel import mesh as pmesh
 
 
 class ServiceOverloadedError(RuntimeError):
@@ -128,9 +139,11 @@ class _BankEntry(NamedTuple):
     """A cached per-SNR bank and its kernel layouts (the `kernels.lowered`
     or `fact_kernels.lowered` cache keyed by (T, alpha), or for a
     structured bank the `circ_kernels.lowered` / `mp_circ_kernels.lowered`
-    cache keyed by (blocks, T, alpha))."""
+    cache keyed by (blocks, T, alpha)); on a mesh one such cache a
+    component shard (`shards`)."""
     bank: Union[PreparedBank, CirculantBank, CirculantBankMP, FactoredBank]
     lowered: dict
+    shards: Tuple[dict, ...] = ()
 
 
 def _not_ported(what: str, item: int):
@@ -189,8 +202,6 @@ class EstimationService:
         held-out channel blocks (n, T, D). device: as
         `stages.resolve_device` (the CUDA card by default; raises without
         one)."""
-        if mesh is not None:
-            raise _not_ported("mesh-backed serving", 15)
         if structured and factored:
             raise ValueError("structured and factored are mutually "
                              "exclusive bank representations")
@@ -201,7 +212,27 @@ class EstimationService:
                 "factored serving does not support 1-bit quantization "
                 "(arcsine destroys the low-rank structure); use the dense "
                 "bank: from_mfa(..., factored=False)")
+        if mesh is not None and not isinstance(mesh, pmesh.LocalMesh):
+            raise ValueError(
+                "the service is one process: mesh= takes the in-process mesh "
+                "of parallel.mesh.make_local_mesh(n_data, n_component), not "
+                f"{type(mesh).__name__} (a torch.distributed DeviceMesh "
+                "serves through the harness stages instead)")
+        if mesh is not None and mode != "all":
+            raise ValueError("mesh-backed serving computes the dense "
+                             f"'all'-mode merge (got mode={mode!r})")
+        n_data = 1 if mesh is None else mesh.shape[pmesh.DATA_AXIS]
+        if n_data & (n_data - 1):
+            # microbatches are padded to powers of two
+            raise ValueError(f"the mesh's data axis must be a power of two "
+                             f"(got {n_data})")
         self.device = resolve_device(device)
+        if (mesh is not None and mesh.device is not None
+                and mesh.device != self.device):
+            raise ValueError(f"the mesh's shards are on {mesh.device}; the "
+                             f"service runs on {self.device}")
+        self.mesh = mesh
+        n_comp = 1 if mesh is None else mesh.shape[pmesh.COMPONENT_AXIS]
         if factored:
             self.params = mfa.MfaParams(*(torch.as_tensor(
                 x, device=self.device) for x in params))
@@ -211,6 +242,10 @@ class EstimationService:
                 x, device=self.device) for x in params))
             dtype = self.params.covariances.dtype
         k_comp, d = self.params.means.shape
+        if k_comp % n_comp:
+            raise ValueError(f"the bank's {k_comp} components must divide "
+                             f"over the mesh's {n_comp} component shards")
+        k_shard = k_comp // n_comp
         a = torch.as_tensor(a, device=self.device).to(dtype)
         if a.dim() == 0:   # a scalar pilot is x0 I
             a = a * torch.eye(d, dtype=a.dtype, device=self.device)
@@ -232,7 +267,7 @@ class EstimationService:
             structured_bank._pilot_scalar(self.a, d)
             rank = self.params.lambdas.shape[-1]
             kernel_ok = (mode == "all"
-                         and fact_kernels.fact_kernel_eligible(d, k_comp,
+                         and fact_kernels.fact_kernel_eligible(d, k_shard,
                                                                rank))
             if use_kernels and not kernel_ok:
                 raise ValueError(
@@ -243,9 +278,12 @@ class EstimationService:
             # fail at construction, not in the serving thread at the first
             # submit: the circulant banks take A = kron(x, I) only
             p = structured_bank._pilot_vector(self.a, d).shape[0]
+            # a mesh runs multi-pilot shards through the pipeline: K10 has
+            # no stats form
             kernel_ok = mode == "all" and (
-                circ_kernels.circ_kernel_eligible(d, k_comp) if p == 1
-                else mp_circ_kernels.mp_circ_kernel_eligible(d, k_comp, p))
+                circ_kernels.circ_kernel_eligible(d, k_shard) if p == 1
+                else mesh is None
+                and mp_circ_kernels.mp_circ_kernel_eligible(d, k_comp, p))
             if use_kernels and not kernel_ok:
                 raise ValueError(
                     "use_kernels=True on a structured service requires "
@@ -269,6 +307,12 @@ class EstimationService:
                         if self.device.type == "cuda" else None)
         self._init_runtime(max_batch, max_delay_ms, max_banks, snr_step_db,
                            max_queue, coherence_alpha, alpha_val)
+        if (mesh is not None and coherence_alpha == "auto"
+                and self.alpha_val.shape[0]
+                < mesh.shape[pmesh.DATA_AXIS]):
+            raise ValueError(
+                f"alpha_val has {self.alpha_val.shape[0]} blocks; the mesh "
+                f"data axis needs at least {mesh.shape[pmesh.DATA_AXIS]}")
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -378,11 +422,53 @@ class EstimationService:
         else:
             bank = gmm_estimator.prepare_bank(self.params, snr, self.a,
                                               self.n_bits, q)
-        entry = _BankEntry(bank, {})
+        entry = _BankEntry(bank, {}, self._lower_shards(bank))
         self._banks[snr] = entry
         while len(self._banks) > self.max_banks:
             self._banks.popitem(last=False)
         return entry
+
+    def _lower_shards(self, bank) -> Tuple[dict, ...]:
+        """On a mesh, one layout cache a component shard of `bank`, its T =
+        1 kernel layouts and operands made here, once for the bank (the
+        coherent layouts once per (T, alpha) at first use); () without a
+        mesh."""
+        if self.mesh is None:
+            return ()
+        n_c = self.mesh.shape[pmesh.COMPONENT_AXIS]
+        caches = tuple({} for _ in range(n_c))
+        if not self.use_kernels or self.device.type != "cuda":
+            return caches
+        for j, cache in enumerate(caches):
+            shard = pmesh.bank_shard(bank, n_c, j)
+            if self.structured:
+                circ_kernels.lowered_tc(shard, cache, self.structured_blocks,
+                                        stats=True)
+            elif self.factored:
+                fact_kernels.lowered_tc(shard, cache)
+            else:
+                kernels.lowered_tc(shard, cache)
+        return caches
+
+    def _estimate_mesh(self, entry: _BankEntry, r: torch.Tensor,
+                       alpha: float) -> torch.Tensor:
+        """Flat rows or blocks through the mesh's component shards, merged
+        (`parallel.mesh`): K2, K8 / K9 or K13 with the kernels, else the
+        einsum, `torch.fft` or `torch.matmul` stats paths."""
+        if self.structured:
+            return pmesh.estimate_sharded_circulant(
+                self.mesh, entry.bank, r, coherence_alpha=alpha,
+                blocks=self.structured_blocks,
+                use_kernel=None if self.use_kernels else False,
+                caches=entry.shards)
+        if self.factored:
+            return pmesh.estimate_sharded_factored(
+                self.mesh, entry.bank, r, coherence_alpha=alpha,
+                use_kernel=None if self.use_kernels else False,
+                caches=entry.shards)
+        return pmesh.estimate_sharded_kernel(
+            self.mesh, entry.bank, r, use_kernel=self.use_kernels,
+            coherence_alpha=alpha, caches=entry.shards)
 
     def _resolve_alpha(self, snr: float, t_coh: int) -> float:
         """Blend for a (snr, T) block queue: the fixed setting, or the
@@ -401,6 +487,10 @@ class EstimationService:
             q = None if q is None else q.to(self.device)
             h_val = torch.as_tensor(self.alpha_val, device=self.device).to(
                 self.a.dtype)
+            if self.mesh is not None:
+                # the mesh splits the blocks over its data axis
+                n_d = self.mesh.shape[pmesh.DATA_AXIS]
+                h_val = h_val[:(h_val.shape[0] // n_d) * n_d]
             gen = torch.Generator(device=self.device).manual_seed(0)
             r_val = observation.observe(gen, h_val, snr, self.a, self.n_bits,
                                         q)
@@ -476,6 +566,12 @@ class EstimationService:
             if t_coh is not None:
                 cap = max(1, cap // t_coh)
                 min_bits = max(0, 4 - (t_coh - 1).bit_length())
+            if self.mesh is not None:
+                # the mesh splits a microbatch's rows over its data axis:
+                # pads are powers of two, so a floor of at least n_data
+                # keeps them divisible for power-of-two meshes
+                min_bits = max(min_bits, (self.mesh.shape[pmesh.DATA_AXIS]
+                                          - 1).bit_length())
             outs = []
             for off in range(0, n, cap):
                 chunk = rs[off:off + cap]
@@ -515,7 +611,9 @@ class EstimationService:
         """Flat snapshots r (n, M) -> (n, D): K1 ('all') or K4 (top-k)
         with the kernels, else the einsum estimator; structured: K6, else
         the `torch.fft` pipeline; factored: K11, else the `torch.matmul`
-        pipeline."""
+        pipeline; on a mesh the sharded stats merge."""
+        if self.mesh is not None:
+            return self._estimate_mesh(entry, r, 1.0)
         if self.structured:
             return stages.estimate_circulant(
                 entry.bank, r, self.mode, self.structured_blocks,
@@ -537,7 +635,10 @@ class EstimationService:
         """Blocks r (n, T, M) -> (n, T, D): K3 ('all' with the kernels),
         else the einsum coherent estimator; structured: K7, else the
         `torch.fft` coherent pipeline; factored: K12, else the
-        `torch.matmul` coherent pipeline."""
+        `torch.matmul` coherent pipeline; on a mesh the sharded stats
+        merge."""
+        if self.mesh is not None:
+            return self._estimate_mesh(entry, r, alpha)
         if self.structured:
             return stages.estimate_circulant_coherent(
                 entry.bank, r, self.mode, alpha, self.structured_blocks,

@@ -3,8 +3,9 @@ circulant K10, the factored K11-K13, and K1's variants K14a, K14b and the
 floor probe K15) against their plain versions on the card, the split-K
 forms' shard merges against one launch, K1 / K3, K6-K13, K14a and K14b
 over many NaN-poisoned launches (`tools.tc_repeat_check`), the
-kernel-measurement tools and `utils.profiling` on the card, and the
-estimation service on the card.
+kernel-measurement tools and `utils.profiling` on the card, the
+estimation service on the card (one device and a 2 x 2 in-process mesh),
+and the inverse-EM Toeplitz fit on the card.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor the JAX package, so on a machine with a card and
@@ -591,6 +592,116 @@ def test_service_on_card_matches_einsum_estimator():
             assert svc.metrics()["requests_failed"] == 0
         finally:
             svc.close(timeout=30)
+
+
+def _mesh_service_pair(kind, dev, mesh):
+    """A one-device service and one over `mesh` of one seeded prior (D = K
+    = 64; factored: M = 16) on the card."""
+    from quantized_channel_estimation_torch import serving
+    from quantized_channel_estimation_torch.models import mfa
+    d, k = 64, 64
+    g = torch.Generator().manual_seed(11)
+    if kind == "factored":
+        lam = torch.complex(torch.randn(k, d, 16, generator=g),
+                            torch.randn(k, d, 16, generator=g)) * 0.35
+        prior = mfa.MfaParams(torch.full((k,), 1.0 / k),
+                              torch.zeros(k, d, dtype=torch.complex64), lam,
+                              0.1 + torch.rand(k, d, generator=g))
+        return [serving.EstimationService.from_mfa(
+            prior, 1.0 + 0.0j, 2, max_delay_ms=1.0, device=dev, mesh=m)
+            for m in (None, mesh)]
+    a = torch.complex(torch.randn(k, d, d, generator=g),
+                      torch.randn(k, d, d, generator=g))
+    covs = a @ a.mH / d + torch.eye(d)
+    params = tg.GmmParams(torch.full((k,), 1.0 / k),
+                          torch.zeros(k, d, dtype=torch.complex64), covs,
+                          tl.robust_precision_cholesky(covs))
+    return [serving.EstimationService(
+        params, np.eye(d, dtype=np.complex64), 2, max_delay_ms=1.0,
+        device=dev, mesh=m, structured=kind == "structured")
+        for m in (None, mesh)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,stats_kernels", [
+    ("dense", ("grouped_estimate_stats", "grouped_estimate_coherent_stats")),
+    ("structured", ("circ_estimate_stats", "circ_estimate_coherent_stats")),
+    ("factored", ("fact_estimate_stats",))])
+def test_mesh_service_matches_one_device_service_over_many_microbatches(
+        kind, stats_kernels):
+    """A 2 x 2 in-process mesh, each component shard on its own stream:
+    60 requests of ragged sizes, flat and T = 4 blocks at three SNRs, sent
+    in bursts of three threads so that microbatches follow each other on
+    the worker's stream; every answer within 1e-4 of scale of the
+    one-device service's, and each stats kernel of the bank launched."""
+    import threading
+    from quantized_channel_estimation_torch.parallel import mesh as pm
+    dev = _card()
+    one, svc = _mesh_service_pair(kind, dev, pm.make_local_mesh(2, 2))
+    rng = np.random.default_rng(5)
+    reqs = []
+    for i in range(60):
+        n = int(rng.integers(1, 40)) * 4
+        x = (rng.standard_normal((n, 64))
+             + 1j * rng.standard_normal((n, 64))).astype(np.complex64)
+        reqs.append((x.reshape(n // 4, 4, 64) if i % 2 else x,
+                     (-5.0, 5.0, 15.0)[i % 3]))
+    try:
+        want = [one.submit(x, snr, timeout=60) for x, snr in reqs]
+        before = tkn.launch_counts()
+        got = [None] * len(reqs)
+
+        def client(lo):
+            for i in range(lo, len(reqs), 3):
+                got[i] = svc.submit(*reqs[i], timeout=60)
+
+        threads = [threading.Thread(target=client, args=(lo,))
+                   for lo in range(3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        after = tkn.launch_counts()
+        for name in stats_kernels:
+            assert after[name] > before[name], name
+        for g_i, w_i in zip(got, want):
+            assert g_i is not None and g_i.shape == w_i.shape
+            assert np.abs(g_i - w_i).max() <= 1e-4 * np.abs(w_i).max()
+        m = svc.metrics()
+        assert m["requests_failed"] == 0 and m["microbatches"] >= 20
+    finally:
+        one.close(timeout=60)
+        svc.close(timeout=60)
+
+
+@pytest.mark.cuda
+def test_toeplitz_fit_on_card_is_toeplitz_and_resumes():
+    """The inverse-EM Toeplitz fit at D = K = 64 on 20000 SCM channels on
+    the card: finite, Toeplitz covariances (each of the first four
+    off-diagonals constant to 5e-2 of the diagonal), and a resume from the
+    fit's spectrum (as `run_gmm`'s segments resume) that does not step the
+    lower bound back by more than 0.02."""
+    from quantized_channel_estimation_torch.ops import scm
+    dev = _card()
+    h, _ = scm.generate_channels(torch.Generator(dev).manual_seed(4), 20000,
+                                 scm.ScmConfig(64, 1))
+    cfg = tg.GmmConfig(n_components=64, cov_type="toeplitz", max_iter=10,
+                       tol=0.0)
+    first = tg.fit(torch.Generator(dev).manual_seed(5), h, cfg)
+    assert first.n_iter == 10 and all(map(math.isfinite, first.lb_history))
+    resumed = tg.fit_resume(first.params, h, cfg._replace(max_iter=5),
+                            spectrum=first.spectrum)
+    assert all(map(math.isfinite, resumed.lb_history))
+    assert float(resumed.lower_bound) >= float(first.lower_bound) - 0.02
+    for p in resumed.params:
+        assert torch.isfinite(torch.view_as_real(p) if p.is_complex()
+                              else p).all()
+    covs = resumed.params.covariances
+    diag = torch.diagonal(covs, dim1=-2, dim2=-1).abs().mean(-1)
+    for off in range(1, 5):
+        d_off = torch.diagonal(covs, off, -2, -1)
+        spread = (d_off - d_off.mean(-1, keepdim=True)).abs().amax(-1)
+        assert torch.all(spread < 5e-2 * diag), off
 
 
 # ------------------------------------------------ the circulant kernels

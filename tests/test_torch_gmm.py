@@ -1,5 +1,6 @@
 """Parity of the port's k-means and GMM EM (full, circulant,
-block-circulant, diag and spherical covariances) with the JAX package.
+block-circulant, diag and spherical covariances) with the JAX package
+(the Toeplitz fits: tests/test_torch_toeplitz.py).
 
 The JAX EM accumulates its statistics in float32 scan carries
 (`gmm.py:167-171`, `:451`), so it cannot run on complex128 data; EM is
@@ -284,6 +285,9 @@ def test_structured_fits_return_dense_params_like_jax(rng, cov_type, d,
 
 
 def test_block_circulant_fit_checks_its_blocks():
+    """Block structures check their blocks; the Toeplitz types (item 8,
+    ported) fit: their covariances are Hermitian PSD with a valid
+    precision factor, and 'block-toeplitz' checks its blocks too."""
     x = torch.as_tensor(_mixture_data(np.random.default_rng(1)))
     with pytest.raises(ValueError, match="incompatible"):
         tg.fit(torch.Generator(), x, tg.GmmConfig(
@@ -291,19 +295,37 @@ def test_block_circulant_fit_checks_its_blocks():
     with pytest.raises(NotImplementedError, match="not implemented"):
         tg.fit(torch.Generator(), x, tg.GmmConfig(K, cov_type="tied"))
     for cov_type in ("toeplitz", "block-toeplitz"):
-        with pytest.raises(NotImplementedError,
-                           match=r"Toeplitz fit.*ROADMAP Queue 1 item 8"):
-            tg.fit(torch.Generator(), x, tg.GmmConfig(K, cov_type=cov_type,
-                                                      blocks=(2, 3)))
+        res = tg.fit(torch.Generator().manual_seed(0), x, tg.GmmConfig(
+            K, cov_type=cov_type, blocks=(2, 3), max_iter=5))
+        p = res.params
+        assert res.n_iter == 5 and np.isfinite(float(res.lower_bound))
+        assert (p.covariances - p.covariances.mH).abs().max() < 1e-6
+        assert torch.linalg.eigvalsh(p.covariances).min() > 0
+        eye = torch.eye(D, dtype=p.prec_chol.dtype)
+        assert (p.covariances @ p.prec_chol @ p.prec_chol.mH
+                - eye).abs().max() < 1e-3
+    with pytest.raises(ValueError, match="incompatible"):
+        tg.fit(torch.Generator(), x, tg.GmmConfig(
+            K, cov_type="block-toeplitz", blocks=(2, 4)))
 
 
 def test_random_init_and_unported_cov_types():
+    """The random init, for the full fit and (item 8, ported) the Toeplitz
+    one, whose covariances are Toeplitz (the JAX test's rule,
+    `tests/test_gmm.py:88`)."""
     x = torch.as_tensor(_mixture_data(np.random.default_rng(1)))
     res = tg.fit(torch.Generator().manual_seed(0), x,
                  tg.GmmConfig(n_components=K, init="random", max_iter=5))
     assert np.isfinite(float(res.lower_bound)) and res.n_iter == 5
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tg.fit(torch.Generator(), x, tg.GmmConfig(K, cov_type="toeplitz"))
+    res = tg.fit(torch.Generator().manual_seed(0), x,
+                 tg.GmmConfig(1, cov_type="toeplitz", init="random",
+                              max_iter=8))
+    assert np.isfinite(float(res.lower_bound)) and res.n_iter == 8
+    c = res.params.covariances[0]
+    for off in range(1, 5):
+        diag = torch.diagonal(c, offset=off)
+        assert (diag - diag.mean()).abs().max() \
+            < 5e-2 * torch.diagonal(c).abs().mean()
 
 
 def test_params_roundtrip_through_both_packages_npz(tmp_path, rng):

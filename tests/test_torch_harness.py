@@ -289,24 +289,133 @@ def test_sharded_harness_rows_match_the_single_device_run(sharded_runs,
     _sharded_rows_match(sharded_runs, name)
 
 
+def _item8_runs_match_jax(tmp_path, monkeypatch, change):
+    """A Toeplitz or segmented `run_gmm` (item 8) of both harnesses on one
+    cache and the JAX observations: the same CSV names, columns and rows
+    (rtol 1e-4) as `test_run_gmm_matches_jax_on_shared_cache`, the port
+    estimating the JAX fit through the dense bank. Then the port fits the
+    same config itself: each segment's budget (ceil(15 / S), the last
+    capped at what is left), finite rows with genie < gmm < LS at the top
+    SNR, and Toeplitz covariances for cov_type='toeplitz'."""
+    cache = str(tmp_path / "saves")
+    jcfg = jrun.GmmBenchConfig(
+        n_antennas=16, n_components=8, n_train=4000, n_val=600,
+        snrs=(-5, 5, 15), results_dir=str(tmp_path / "jax"),
+        cache_dir=cache, gmm_max_iter=15, **change)
+    jmse, jrate, _ = jrun.run(jcfg, verbose=False)
+    data = np.load(glob.glob(os.path.join(cache, "saved_data*"))[0])
+    h_val = jst.from_numpy(data["channels"][jcfg.n_train:])
+    a = jst.pilot_matrix(16, 1, 2, "angle_amp")
+    k_obs = jax.random.split(jax.random.PRNGKey(jcfg.seed), 3)[2]
+    r_jax = {snr: jst.to_numpy(jst.observe(
+        jax.random.fold_in(k_obs, i), h_val, snr, a, 2,
+        jq.design_quantizer(snr, 2))) for i, snr in enumerate(jcfg.snrs)}
+    monkeypatch.setattr(tst, "observe", lambda gen, h, snr, a, n_bits, q:
+                        torch.as_tensor(r_jax[snr], device=h.device))
+    banks = []
+    prepare = tst.prepare_bank
+    monkeypatch.setattr(tst, "prepare_bank", lambda *args: banks.append(
+        args) or prepare(*args))
+    tcfg = trun.GmmBenchConfig(**{
+        f.name: getattr(jcfg, f.name)
+        for f in dataclasses.fields(trun.GmmBenchConfig)})
+    tcfg = dataclasses.replace(tcfg, results_dir=str(tmp_path / "port"))
+    assert not trun._structured(tcfg)
+    tmse, trate, _ = trun.run(tcfg, verbose=False, device="cpu")
+    assert len(banks) == 3
+    assert list(tmse) == list(jmse) and list(trate) == list(jrate)
+    for got, want in ((tmse, jmse), (trate, jrate)):
+        for name in want:
+            np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
+                                       err_msg=name)
+    for rate in (False, True):
+        jname, jrows = _read_csv(jcfg.results_dir, rate)
+        tname, trows = _read_csv(tcfg.results_dir, rate)
+        assert tname[19:] == jname[19:] and f"_{jcfg.cov_type}" in tname
+        assert trows[0] == jrows[0]
+        np.testing.assert_allclose(np.asarray(trows[1:])[:, 1:].astype(float),
+                                   np.asarray(jrows[1:])[:, 1:].astype(float),
+                                   rtol=1e-4)
+
+    # the port's own fit of the same config
+    gmm_path = glob.glob(os.path.join(cache, "*gmm*"))
+    assert len(gmm_path) == 1
+    os.remove(gmm_path[0])
+    fits = []
+    for name in ("gmm_fit", "gmm_fit_resume"):
+        def counted(*args, _fn=getattr(tst, name), _name=name, **kw):
+            fits.append((_name, args[2].max_iter, _fn(*args, **kw)))
+            return fits[-1][2]
+        monkeypatch.setattr(tst, name, counted)
+    own, _, _ = trun.run(dataclasses.replace(
+        tcfg, results_dir=str(tmp_path / "own"), eval_rate=False),
+        verbose=False, device="cpu")
+    segs = jcfg.gmm_fit_segments
+    budgets = [15] if segs == 1 else [8, 7]
+    assert [f[0] for f in fits] == ["gmm_fit"] + ["gmm_fit_resume"] * (
+        len(fits) - 1)
+    assert [f[1] for f in fits] == budgets[:len(fits)]
+    assert len(fits) == len(budgets) or fits[-1][2].converged
+    assert sum(f[2].n_iter for f in fits) <= 15
+    for vals in own.values():
+        assert np.all(np.isfinite(vals))
+    assert own["blmmse_genie"][-1] < own["blmmse_gmm"][-1] \
+        < own["LS_glob"][-1]
+    if jcfg.cov_type == "toeplitz":
+        covs = fits[-1][2].params.covariances
+        for off in range(1, 5):
+            diag = torch.diagonal(covs, offset=off, dim1=-2, dim2=-1)
+            spread = (diag - diag.mean(-1, keepdim=True)).abs().amax(-1)
+            assert torch.all(spread < 5e-2 * torch.diagonal(
+                covs, dim1=-2, dim2=-1).abs().mean(-1))
+
+
 @pytest.mark.parametrize("change,item", [
     (dict(channel_model="mimo"), "item 14"),
     (dict(cov_type="toeplitz"), "Queue 1 item 8"),
     (dict(n_data_shards=2), "item 15"),
     (dict(gmm_fit_segments=2), "item 8"),
-    (dict(cov_type="block-toeplitz", blocks=(8, 8)), "Queue 1 item 8"),
+    (dict(cov_type="block-toeplitz", blocks=(4, 4)), "Queue 1 item 8"),
 ])
 def test_unported_options_raise(change, item, request):
     """Options of later slices raise naming their ROADMAP item. Item 15
     (mesh parallelism) is ported: its case holds the 2-rank run's rows
-    against the single-device run's instead."""
+    against the single-device run's instead. Item 8 (the Toeplitz fits and
+    segmented fits) is ported: its cases hold the port's rows against the
+    JAX harness's (`_item8_runs_match_jax`)."""
     if item == "item 15":
         _sharded_rows_match(request.getfixturevalue("sharded_runs"),
                             "gmm_data2")
         return
+    if "item 8" in item:
+        _item8_runs_match_jax(request.getfixturevalue("tmp_path"),
+                              request.getfixturevalue("monkeypatch"), change)
+        return
     cfg = dataclasses.replace(trun.GmmBenchConfig(), **change)
     with pytest.raises(NotImplementedError, match=item):
         trun.run(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change,error", [
+    (dict(gmm_fit_segments=2, cov_type="circulant"),
+     (NotImplementedError, "resumable cov_type")),
+    (dict(gmm_fit_segments=2, cov_type="diag"),
+     (NotImplementedError, "resumable cov_type")),
+    (dict(gmm_fit_segments=2, gmm_max_iter=0),
+     (ValueError, "gmm_max_iter >= 1")),
+    (dict(gmm_fit_segments=2, n_data_shards=2),
+     (NotImplementedError, "single-device-only")),
+])
+def test_segmented_run_gmm_refusals(tmp_path, change, error):
+    """The JAX harness's segment rules: a cov_type `fit_resume` cannot
+    continue, no iteration budget, or a sharded run are refused before the
+    fit (the data set is made first)."""
+    cfg = trun.GmmBenchConfig(
+        n_antennas=8, n_components=4, n_train=400, n_val=100, snrs=(0,),
+        results_dir=str(tmp_path), cache_dir=str(tmp_path / "c"),
+        eval_rate=False, **change)
+    with pytest.raises(error[0], match=error[1]):
+        trun.run(cfg, verbose=False, device="cpu")
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -720,10 +720,69 @@ def test_structured_service_refusals(circ_setup):
     (lambda p, a: serving.VaeEstimationService(None, p, None, a),
      "VaeEstimationService.*Queue 1 item 13"),
 ])
-def test_unported_options_raise(setup, make, item):
+def test_unported_options_raise(setup, make, item, request):
+    """Options of later slices raise naming their ROADMAP item. Item 15
+    (the service's `mesh=`) is ported: each of its cases builds that
+    service over an in-process mesh instead (the dense and structured
+    banks of the JAX fit, the factored bank of the seeded MFA prior) and
+    holds its flat and T = 4 answers against the one-device service and
+    the JAX direct estimator (atol 1e-4); a mesh that is not a
+    `LocalMesh` is refused."""
     _, params, a, _ = setup
-    with pytest.raises(NotImplementedError, match=item):
+    if "item 15" not in item:
+        with pytest.raises(NotImplementedError, match=item):
+            make(params, np.asarray(a))
+        return
+    with pytest.raises(ValueError, match="make_local_mesh"):
         make(params, np.asarray(a))
+    case = request.node.callspec.indices["make"]
+    from quantized_channel_estimation_torch.parallel import mesh as pm
+    mesh = pm.make_local_mesh(*((4, 2), (1, 2), (2, 2), (1, 4))[case])
+    if case < 2:
+        kw = dict(structured=case == 1, max_delay_ms=1.0, device="cpu")
+        one = serving.EstimationService(params, np.asarray(a), 2, **kw)
+        svc = serving.EstimationService(params, np.asarray(a), 2, mesh=mesh,
+                                        **kw)
+        r = _observe(setup, 64, 5.0, 74)
+        if case == 0:
+            want = [_direct(setup, 5.0, r),
+                    _direct(setup, 5.0, r.reshape(16, 4, N_ANT))]
+        else:
+            jparams = setup[0]
+            bank = jsb.prepare_bank_circulant(jparams, 5.0, a, 2,
+                                              jq.design_quantizer(5.0, 2))
+            want = [np.asarray(jsb.estimate_circulant(
+                        bank, jnp.asarray(r), "all", 16384, None, "fft")),
+                    np.asarray(jsb.estimate_circulant_coherent(
+                        bank, jnp.asarray(r).reshape(16, 4, N_ANT), "all",
+                        4096, 1.0, None, "fft"))]
+    else:
+        mparams, jmparams, r = request.getfixturevalue("mfa_setup")
+        kw = dict(max_delay_ms=1.0, device="cpu")
+        if case == 2:
+            one = serving.EstimationService(mparams, MFA_X0, 2, factored=True,
+                                            **kw)
+            svc = serving.EstimationService(mparams, MFA_X0, 2, factored=True,
+                                            mesh=mesh, **kw)
+        else:
+            one = serving.EstimationService.from_mfa(mparams, MFA_X0, 2, **kw)
+            svc = serving.EstimationService.from_mfa(mparams, MFA_X0, 2,
+                                                     mesh=mesh, **kw)
+        r = r[:64]
+        want = [_jax_factored(jmparams, r),
+                _jax_factored(jmparams, r.reshape(16, 4, MFA_D), alpha=1.0)]
+    try:
+        assert svc.mesh is mesh and svc.use_kernels
+        for req, ref in zip((r, r.reshape(16, 4, -1)), want):
+            got = svc.submit(req, 5.0 if case < 2 else 10.0, timeout=TIMEOUT)
+            np.testing.assert_allclose(got, ref, atol=1e-4)
+            np.testing.assert_allclose(
+                got, one.submit(req, 5.0 if case < 2 else 10.0,
+                                timeout=TIMEOUT), atol=1e-4)
+        assert svc.metrics()["requests_failed"] == 0
+    finally:
+        one.close(timeout=TIMEOUT)
+        svc.close(timeout=TIMEOUT)
 
 
 def test_service_needs_a_card_or_an_explicit_device(setup, monkeypatch):
