@@ -109,7 +109,20 @@ Phases (any failure exits non-zero; nothing is caught):
      with `gmm_fit_segments=4` (every segment but the last its 25
      iterations, the total the whole fit's unless that converged earlier,
      when both must have; its lower bound within 0.3 of the whole fit's),
-     both runs' NMSE rows printed; then the service over
+     both runs' NMSE rows printed; then CSI-free training:
+     `run_gmm_quant.run` at the `QuantGmmBenchConfig` defaults (the
+     quantized EM on 100k 2-bit pilots at 5 dB, K1 launched exactly once;
+     K1 on its fitted bank and validation observations against its plain
+     version and under the float64 rule; every recovered covariance at or
+     above its floor; the NMSE finite and below the LS estimate's on the
+     same observations, printed beside `run_gmm`'s `blmmse_gmm` at 5 dB;
+     the fit's iterations, seconds and host synchronizations) and again
+     with 'toeplitz', 'diag' (K1 once each) and 'circulant' at
+     `n_coherence=4` (K6 and K7 once each), and `run_cov_recovery.run` at
+     the `CovRecoveryConfig` defaults without its plot (the recovered NMSE
+     falling with n and below the quantized sample covariance's from
+     n = 10^4 on: at D = 64 the two cross between 10^3 and 10^4 samples,
+     in the JAX harness too); then the service over
      in-process meshes (`parallel.mesh.make_local_mesh`) of 1 x 2 and 2 x 2
      shards in eight modes each (dense, structured at K = 64 and the K =
      256 spectra-native prior, factored; flat and T=4 blocks; 1 s each),
@@ -161,6 +174,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -487,6 +501,74 @@ def main_path_run(run_gmm, kernels, dev, tmp, falling=True, use_cache=False,
     if not all(math.isfinite(v) for v in sum(rate.values(), [])):
         raise AssertionError("non-finite rate row")
     return cfg, mse, rate, timings, seconds, launches
+
+
+def quant_path_run(run_gmm_quant, stages, kernels, dev, **change):
+    """run_gmm_quant at the defaults (plus `change`) on the card, its
+    kernel launches counted alone. The fit's host synchronizations are
+    counted (`torch.cuda.set_sync_debug_mode('warn')` around the fit,
+    k-means init included), and the run keeps the fit, the training sample
+    covariance, and each bank, observations and truth it estimated and
+    scored. Returns (cfg, mse, rate, timings, seconds, launches, kept)."""
+    kept = {"banks": [], "truth": []}
+    names = ("gmm_quant_fit", "sample_cov", "estimate_auto",
+             "estimate_circulant", "nmse")
+    saved = {name: getattr(stages, name) for name in names}
+
+    def fit(*args, **kw):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                kept["fit"] = saved["gmm_quant_fit"](*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        kept["fit_syncs"] = sum("synchroniz" in str(w.message)
+                                for w in caught)
+        return kept["fit"]
+
+    def sample_cov(h):
+        kept["cov"] = saved["sample_cov"](h)
+        return kept["cov"]
+
+    def estimate(name):
+        def kept_estimate(bank_s, r_s, *args, **kw):
+            kept["banks"].append((bank_s, r_s))
+            return saved[name](bank_s, r_s, *args, **kw)
+        return kept_estimate
+
+    def nmse(h_est, h):
+        kept["truth"][:] = [h]
+        return saved["nmse"](h_est, h)
+
+    for name, fn in (("gmm_quant_fit", fit), ("sample_cov", sample_cov),
+                     ("estimate_auto", estimate("estimate_auto")),
+                     ("estimate_circulant", estimate("estimate_circulant")),
+                     ("nmse", nmse)):
+        setattr(stages, name, fn)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = run_gmm_quant.QuantGmmBenchConfig(
+                results_dir=tmp, cache_dir=os.path.join(tmp, "saves"),
+                use_cache=False, **change)
+            kernels.reset_launch_counts()
+            tm = time.time()
+            mse, rate, timings = run_gmm_quant.run(cfg, verbose=False,
+                                                   device=dev)
+            torch.cuda.synchronize()
+            seconds = time.time() - tm
+            launches = kernels.launch_counts()
+            csvs = os.listdir(os.path.join(tmp, "3gpp"))
+    finally:
+        for name, fn in saved.items():
+            setattr(stages, name, fn)
+    if len(csvs) != 1:
+        raise AssertionError(f"run_gmm_quant {change}: CSV missing: {csvs}")
+    for name, vals in list(mse.items()) + list(rate.items()):
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"run_gmm_quant {change}: non-finite row "
+                                 f"{name}: {vals}")
+    return cfg, mse, rate, timings, seconds, launches, kept
 
 
 def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
@@ -1916,6 +1998,114 @@ def main():
                              f"off the whole fit's {whole['lower_bound']}")
     toep_s = time.time() - t_new
 
+    # 3e. CSI-free training (ROADMAP item 10a): run_gmm_quant at the
+    # QuantGmmBenchConfig defaults (D = K = 64, 2 bits, 'full', trained and
+    # evaluated at 5 dB on 100k / 10k channels, max_iter 100), the GMM
+    # column through K1, launched exactly once; on its fitted bank and
+    # validation observations K1 against its plain version (TOL) and under
+    # the float64 rule; every recovered covariance keeps its floor (min
+    # eigenvalue >= reg_covar within float32 rounding of its norm); the
+    # NMSE finite and below the LS estimate's on the same observations.
+    # Then 'toeplitz', 'diag' (each K1 once) and 'circulant' with
+    # n_coherence=4 (K6 and K7 once each), and run_cov_recovery at the
+    # CovRecoveryConfig defaults without its plot (matplotlib is not on
+    # every machine): the recovered NMSE falls with n and stays below the
+    # quantized sample covariance's from n = 10^4 on (at D = 64 the
+    # recovery's noise still exceeds the quantization bias at 10^3 samples,
+    # in the JAX harness as here).
+    from quantized_channel_estimation_torch.harness import (
+        run_cov_recovery, run_gmm_quant)
+    t_quant = time.time()
+    i5 = list(cfg.snrs).index(5)
+    quant = {}
+    for label, change, expect in (
+            ("full", {}, {"grouped_estimate": 1}),
+            ("toeplitz", dict(cov_type="toeplitz"), {"grouped_estimate": 1}),
+            ("diag", dict(cov_type="diag"), {"grouped_estimate": 1}),
+            ("circulant, T=4", dict(cov_type="circulant", n_coherence=4),
+             {"circ_estimate": 1, "circ_estimate_coherent": 1})):
+        cfg_q, mse_q, rate_q, times_q, sec_q, launches_q, kept = \
+            quant_path_run(run_gmm_quant, stages, kernels, dev, **change)
+        add(launches_q)
+        for name, n in expect.items():
+            if launches_q[name] != n:
+                raise AssertionError(f"run_gmm_quant {label}: {name} "
+                                     f"launched {launches_q[name]} times, "
+                                     f"not {n}")
+        fit_q = kept["fit"]
+        covs = fit_q.params.covariances
+        eig_min = torch.linalg.eigvalsh(covs).min(-1).values
+        slack = 2e-6 * torch.linalg.matrix_norm(covs)
+        floor_margin = float((eig_min - 1e-5 + slack).min())
+        if floor_margin < 0:
+            raise AssertionError(f"run_gmm_quant {label}: a recovered "
+                                 f"covariance under its floor "
+                                 f"({float(eig_min.min()):.3e})")
+        # the LS estimate of the same validation observations
+        (bank_q, r_q), h_q = kept["banks"][0], kept["truth"][0]
+        a_q = stages.pilot_matrix(cfg_q.n_antennas, 1, cfg_q.n_bits,
+                                  device=dev)
+        q5 = Q.design_quantizer(5.0, cfg_q.n_bits).to(dev)
+        ls_q = stages.nmse(stages.ls_global(r_q, kept["cov"], 5.0, a_q,
+                                            cfg_q.n_bits, q5), h_q)
+        nmse_q = mse_q["blmmse_gmm_quant"][0]
+        if not nmse_q < ls_q:
+            raise AssertionError(f"run_gmm_quant {label}: NMSE {nmse_q} not "
+                                 f"below LS {ls_q}")
+        rec = {"mse": mse_q, "rate": rate_q, "seconds": sec_q,
+               "timings": times_q, "launches": launches_q,
+               "n_iter": fit_q.n_iter, "converged": fit_q.converged,
+               "lower_bound": float(fit_q.lower_bound),
+               "fit_s": times_q["fit"],
+               "ms_per_em_iteration": 1e3 * times_q["fit"] / fit_q.n_iter,
+               "fit_host_syncs": kept["fit_syncs"], "ls_nmse": ls_q,
+               "floor_margin": floor_margin}
+        if label == "full":
+            # K1 on the fitted bank and the observations the run estimated
+            r2_q = kernels._r2(r_q)
+            kb_q = kernels.kernel_bank_block(bank_q)
+            got_q = kernels.grouped_estimate(r2_q, kb_q)
+            plain_q = kernels.grouped_estimate_reference(r2_q, kb_q)
+            errs["grouped_estimate"].append(compare(
+                "grouped_estimate", "CSI-free fitted bank, 5 dB", got_q,
+                plain_q))
+            rec["k1_fp32_accuracy"], held = fp32_accuracy(
+                "grouped_estimate", "CSI-free fitted bank, 5 dB", got_q,
+                plain_q, kernels.grouped_estimate_reference(
+                    r2_q.double(), f64(kb_q)))
+            if not held:
+                raise AssertionError("K1 less accurate than float32 on the "
+                                     "CSI-free fitted bank")
+            rec["run_gmm_blmmse_gmm_5db"] = mse["blmmse_gmm"][i5]
+        quant[label] = rec
+        del kept, bank_q, r_q, h_q
+        log(f"run_gmm_quant {label}: {sec_q:.1f}s, fit {times_q['fit']:.2f}s "
+            f"({fit_q.n_iter} iterations, {rec['ms_per_em_iteration']:.1f} "
+            f"ms an iteration, {rec['fit_host_syncs']} host synchronizations), "
+            f"lower bound {rec['lower_bound']:.4f}, converged "
+            f"{fit_q.converged}; NMSE at 5 dB {nmse_q:.5f} (LS {ls_q:.5f}"
+            + (f", run_gmm's CSI-trained blmmse_gmm {mse['blmmse_gmm'][i5]:.5f}"
+               if label == "full" else "")
+            + "); launches "
+            + str({k: v for k, v in launches_q.items() if v}))
+    tc = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        cov_rec = run_cov_recovery.run(run_cov_recovery.CovRecoveryConfig(
+            plot=False, results_dir=tmp), verbose=False, device=dev)
+    cov_rec_s = time.time() - tc
+    rec_n, quant_n = cov_rec["Cov_est"], cov_rec["sampcov_quant"]
+    n_list = list(run_cov_recovery.CovRecoveryConfig().n_data_list)
+    log(f"run_cov_recovery defaults ({cov_rec_s:.1f}s), NMSE by n {n_list}:")
+    for name, vals in cov_rec.items():
+        log(f"  {name:16s} " + " ".join(f"{v:.4g}" for v in vals))
+    if not all(a > b for a, b in zip(rec_n, rec_n[1:])):
+        raise AssertionError(f"recovered NMSE does not fall with n: {rec_n}")
+    if not all(r < q for n_, r, q in zip(n_list, rec_n, quant_n)
+               if n_ >= 10_000):
+        raise AssertionError("recovery not below the quantized sample "
+                             f"covariance from n = 10^4 on: {cov_rec}")
+    quant_s = time.time() - t_quant
+
     # 3d. the service over in-process meshes of 1 x 2 and 2 x 2 shards: the
     # dense, structured (K = 64, and the K = 256 spectra-native prior in two
     # component shards of 128, which K8 / K9 take whole) and factored banks
@@ -2024,8 +2214,10 @@ def main():
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
     mesh_serve_s = time.time() - t_mesh
-    log(f"new phases (Toeplitz and segmented run_gmm {toep_s:.1f}s, mesh "
-        f"service {mesh_serve_s:.1f}s): {toep_s + mesh_serve_s:.1f}s")
+    log(f"new phases (Toeplitz and segmented run_gmm {toep_s:.1f}s, "
+        f"CSI-free run_gmm_quant and run_cov_recovery {quant_s:.1f}s, mesh "
+        f"service {mesh_serve_s:.1f}s): "
+        f"{toep_s + quant_s + mesh_serve_s:.1f}s")
 
     # 4. times at the headline benchmark's shapes
     n, two_m = r2.shape
@@ -2836,8 +3028,12 @@ def main():
         "mesh_world_size_1": mesh_rec, "f1_rel_to_einsum": f1,
         "toeplitz": toep["toeplitz"],
         "toeplitz_4_segments": toep["toeplitz, 4 segments"],
+        "gmm_quant": quant,
+        "cov_recovery": {"n_data": n_list, "nmse": cov_rec,
+                         "seconds": cov_rec_s},
         "new_phases_seconds": {"toeplitz": toep_s,
-                               "mesh_service": mesh_serve_s},
+                               "mesh_service": mesh_serve_s,
+                               "csi_free": quant_s},
         "kernel_tools": {"seconds": tools_s, "launches": launches_tools,
                          "kernel_bench_ms": bench["ms"],
                          "split_bench": split},

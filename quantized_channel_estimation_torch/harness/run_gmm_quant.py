@@ -1,0 +1,290 @@
+"""CSI-free training benchmark: the port of `Bussgang_GMM_quant.py`.
+
+Port of `quantized_channel_estimation_tpu/harness/run_gmm_quant.py` on a
+dense dataset: a GMM fitted by EM on quantized pilots alone at
+`snr_train` (`models.gmm_quant`, no clean channels), evaluated at the
+configured SNRs; the MSE and rate rows go to one CSV with the JAX
+harness's name and columns (the reference crashes at CSV time on a
+never-set 'genie_gmm' key; neither package writes that field).
+
+The channel dataset is `run_gmm`'s (`run_gmm._get_data`, the same cache
+files as both packages' `run_gmm`). The GMM column estimates through the
+dense bank (K1 in 'all' mode, K4 in top-k modes), through the FFT-domain
+bank for circulant fits (K6, and K7 for the coherent column), and with
+`n_coherence` T > 1 the column `blmmse_gmm_quant_coh` estimates blocks of
+T snapshots jointly (K3 on the dense bank) with a fixed evidence blend or
+one selected per SNR ('auto') on training blocks held out of the fit.
+
+Options of later slices raise NotImplementedError naming their ROADMAP
+item: the streamed pilots and the spectra-native circulant fit (item 10,
+its second half 10b, whose 'auto' values engage them only at D >= 8192
+and D >= 2048), the mesh (item 10) and channel models other than '3gpp'
+(item 14). The quantized EM fits in the observation domain with A = I:
+`n_pilots > 1` raises ValueError (the JAX harness fails there too, in its
+bank preparation).
+
+Random draws come from `torch.Generator`s seeded from `cfg.seed` through
+numpy's SeedSequence (data, fit, observations); the two packages agree on
+shared data, not on fresh draws.
+
+    python -m quantized_channel_estimation_torch.harness.run_gmm_quant
+
+runs the defaults on the card; `--device cpu` on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import time
+from typing import Sequence, Union
+
+import numpy as np
+
+from quantized_channel_estimation_torch.harness import run_gmm, stages
+from quantized_channel_estimation_torch.models import gmm, gmm_estimator
+from quantized_channel_estimation_torch.ops import quantizer as Q
+from quantized_channel_estimation_torch.ops.precision import pin_fp32
+from quantized_channel_estimation_torch.utils import io as qio
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantGmmBenchConfig:
+    """Mirrors the JAX `QuantGmmBenchConfig`, every field."""
+    n_antennas: int = 64
+    n_components: int = 64
+    n_summands_or_proba: Union[str, int, float] = "all"
+    n_path: int = 1
+    channel_model: str = "3gpp"
+    n_antennas_ms: int = 1
+    n_coherence: int = 1
+    coherence_alpha: object = 1.0
+    alpha_val_blocks: int = 1024
+    n_pilots: int = 1
+    n_bits: int = 2
+    cov_type: str = "full"
+    blocks: tuple = None
+    pilot_type: str = "angle_amp"
+    quantizer_type: str = "uniform"
+    snrs: Sequence[float] = (5,)
+    snr_train: float = 5.0
+    max_iter: int = 100
+    n_train: int = 100_000
+    n_val: int = 10_000
+    zero_mean_gmm: bool = True
+    path_sigma: float = 2.0
+    seed: int = 0
+    eval_rate: bool = True
+    results_dir: str = "results"
+    cache_dir: str = "results/saves"
+    use_cache: bool = True
+    use_structured_bank: object = "auto"
+    n_data_shards: int = 1
+    n_component_shards: int = 1
+    use_spectra_fit: object = "auto"
+    stream_pilots: object = "auto"
+    # EM chunk (memory knob, no math effect): 'auto' is 4096 rows up to
+    # D = 1024 and 1024 beyond
+    em_chunk_size: object = "auto"
+
+
+def _stream_pilots(cfg: QuantGmmBenchConfig) -> bool:
+    """The JAX rule: 'auto' streams flat '3gpp' runs from D = 8192 on."""
+    if cfg.stream_pilots != "auto":
+        return bool(cfg.stream_pilots)
+    return (cfg.n_antennas >= 8192 and cfg.channel_model == "3gpp"
+            and cfg.n_coherence <= 1)
+
+
+def _spectra_fit(cfg: QuantGmmBenchConfig) -> bool:
+    """The JAX rule: 'auto' fits circulant spectra natively from D = 2048."""
+    if cfg.use_spectra_fit != "auto":
+        return bool(cfg.use_spectra_fit)
+    return cfg.cov_type == "circulant" and cfg.n_antennas >= 2048
+
+
+def _check_supported(cfg: QuantGmmBenchConfig) -> None:
+    todo = []
+    if cfg.channel_model != "3gpp":
+        todo.append(f"channel_model={cfg.channel_model!r} (ROADMAP Queue 1 "
+                    "item 14)")
+    if _stream_pilots(cfg):
+        todo.append("stream_pilots (ROADMAP Queue 1 item 10, 10b)")
+    if _spectra_fit(cfg):
+        todo.append("use_spectra_fit (ROADMAP Queue 1 item 10, 10b)")
+    if cfg.n_data_shards * cfg.n_component_shards > 1:
+        todo.append("n_data_shards / n_component_shards > 1 (ROADMAP Queue "
+                    "1 item 10, 10b)")
+    if todo:
+        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+    if cfg.n_pilots != 1:
+        raise ValueError(
+            f"n_pilots={cfg.n_pilots}: the quantized EM fits in the "
+            "observation domain and recovers channel covariances for A = I "
+            "(one pilot) only")
+
+
+def _em_chunk(cfg: QuantGmmBenchConfig) -> int:
+    if cfg.em_chunk_size != "auto":
+        return int(cfg.em_chunk_size)
+    return 4096 if cfg.n_antennas <= 1024 else 1024
+
+
+def run(cfg: QuantGmmBenchConfig, verbose: bool = True, device=None):
+    """Run the benchmark on `device` (the CUDA card by default; raises when
+    there is none). Returns (mse_columns, rate_columns, timings)."""
+    _check_supported(cfg)
+    device = stages.resolve_device(device)
+    pin_fp32()
+    t_start = time.time()
+    s_data, s_fit, s_obs = np.random.SeedSequence(cfg.seed).spawn(3)
+
+    t_coh = max(1, cfg.n_coherence)
+    if t_coh > 1 and (cfg.n_train % t_coh or cfg.n_val % t_coh):
+        raise ValueError(
+            f"n_train={cfg.n_train} and n_val={cfg.n_val} must be "
+            f"multiples of n_coherence={t_coh} (they count snapshots)")
+    auto_alpha = cfg.coherence_alpha == "auto"
+    if auto_alpha and t_coh <= 1:
+        raise ValueError("coherence_alpha='auto' requires n_coherence > 1")
+    base_cfg = run_gmm.GmmBenchConfig(
+        n_antennas=cfg.n_antennas, n_path=cfg.n_path, n_train=cfg.n_train,
+        channel_model=cfg.channel_model, n_antennas_ms=cfg.n_antennas_ms,
+        n_val=cfg.n_val, path_sigma=cfg.path_sigma, cache_dir=cfg.cache_dir,
+        use_cache=cfg.use_cache, n_coherence=t_coh)
+    dim = cfg.n_antennas
+    channels, _ = run_gmm._get_data(base_cfg,
+                                    run_gmm._generator(s_data, device))
+    alpha_val_h = None
+    if t_coh > 1:
+        nb_train, nb_val = cfg.n_train // t_coh, cfg.n_val // t_coh
+        nb_fit = nb_train
+        if auto_alpha:   # training blocks held out of the fit for 'auto'
+            nb_fit = nb_train - max(1, min(cfg.alpha_val_blocks,
+                                           nb_train // 10))
+            alpha_val_h = channels[nb_fit:nb_train]
+        h_train = stages.flatten_coherence(channels[:nb_fit])
+        h_val_blocks = channels[nb_train:nb_train + nb_val]
+        h_val = stages.flatten_coherence(h_val_blocks)
+    else:
+        h_train = channels[:cfg.n_train]
+        h_val = channels[cfg.n_train:cfg.n_train + cfg.n_val]
+
+    a = stages.pilot_matrix(dim, cfg.n_pilots, cfg.n_bits, cfg.pilot_type,
+                            device=device)
+    quantizers = {}
+    for snr in sorted(set(list(cfg.snrs) + [cfg.snr_train])):
+        q = Q.design_quantizer(snr, cfg.n_bits, cfg.quantizer_type)
+        quantizers[snr] = None if q is None else q.to(device)
+    seq_train, *seq_snrs = s_obs.spawn(1 + len(cfg.snrs))
+
+    sigma2_train = 10.0 ** (-cfg.snr_train / 10.0)
+    cov = stages.sample_cov(h_train)
+    r_train = stages.observe(run_gmm._generator(seq_train, device), h_train,
+                             cfg.snr_train, a, cfg.n_bits,
+                             quantizers[cfg.snr_train])
+    gcfg = gmm.GmmConfig(n_components=cfg.n_components,
+                         cov_type=cfg.cov_type, blocks=cfg.blocks,
+                         zero_mean=cfg.zero_mean_gmm, max_iter=cfg.max_iter,
+                         chunk_size=_em_chunk(cfg))
+    t0 = time.time()
+    fit = stages.gmm_quant_fit(run_gmm._generator(s_fit, device), r_train,
+                               gcfg, cfg.n_bits, sigma2_train,
+                               quantizers[cfg.snr_train])
+    fit_time = time.time() - t0
+    if verbose:
+        print(f"quant-GMM fit: {int(fit.n_iter)} iters "
+              f"lb={float(fit.lower_bound):.4f} ({fit_time:.1f}s)")
+
+    structured = (cfg.use_structured_bank
+                  if cfg.use_structured_bank != "auto"
+                  else cfg.cov_type in ("circulant", "block-circulant"))
+    mode = cfg.n_summands_or_proba
+    mse_cols = {"blmmse_gmm_quant": []}
+    rate_cols = {"blmmse_gmm_quant_rstat": []}
+    alpha_by_snr = {}
+
+    def coh_est(bank, rb, alpha):
+        if structured:
+            return stages.estimate_circulant_coherent(bank, rb, mode,
+                                                      float(alpha),
+                                                      cfg.blocks)
+        return stages.estimate_coherent_auto(bank, rb, mode, alpha)
+
+    def coherent_alpha(bank, snr):
+        if not auto_alpha:
+            return cfg.coherence_alpha
+        if snr not in alpha_by_snr:
+            r_a = stages.observe(run_gmm._generator(alpha_seqs[snr], device),
+                                 alpha_val_h, snr, a, cfg.n_bits,
+                                 quantizers[snr])
+            alpha_by_snr[snr], _ = gmm_estimator.select_coherence_alpha(
+                lambda rb, al: coh_est(bank, rb, al), r_a, alpha_val_h)
+            if verbose:
+                print(f"  alpha[{snr} dB] = {alpha_by_snr[snr]}")
+        return alpha_by_snr[snr]
+
+    if t_coh > 1:
+        mse_cols["blmmse_gmm_quant_coh"] = []
+        rate_cols["blmmse_gmm_quant_coh_rstat"] = []
+        if auto_alpha:   # streams disjoint from the eval observations
+            alpha_seqs = dict(zip(cfg.snrs, s_obs.spawn(len(cfg.snrs))))
+    for snr, seq in zip(cfg.snrs, seq_snrs):
+        gen = run_gmm._generator(seq, device)
+        if structured:
+            bank = stages.prepare_bank_circulant(fit.params, snr, a,
+                                                 cfg.n_bits, quantizers[snr],
+                                                 cfg.blocks)
+        else:
+            bank = stages.prepare_bank(fit.params, snr, a, cfg.n_bits,
+                                       quantizers[snr])
+        if t_coh > 1:
+            r_blocks = stages.observe(gen, h_val_blocks, snr, a, cfg.n_bits,
+                                      quantizers[snr])
+            r_val = stages.flatten_coherence(r_blocks)
+            res_coh = stages.flatten_coherence(
+                coh_est(bank, r_blocks, coherent_alpha(bank, snr)))
+            mse_cols["blmmse_gmm_quant_coh"].append(
+                stages.nmse(res_coh, h_val))
+            if cfg.eval_rate:
+                rate_cols["blmmse_gmm_quant_coh_rstat"].append(
+                    stages.rate(res_coh, h_val, cov, snr, cfg.n_bits,
+                                quantizers[snr], norm_clip=0.1))
+        else:
+            r_val = stages.observe(gen, h_val, snr, a, cfg.n_bits,
+                                   quantizers[snr])
+        if structured:
+            res = stages.estimate_circulant(bank, r_val, mode, cfg.blocks)
+        else:
+            res = stages.estimate_auto(bank, r_val, mode)
+        mse_cols["blmmse_gmm_quant"].append(stages.nmse(res, h_val))
+        if cfg.eval_rate:
+            rate_cols["blmmse_gmm_quant_rstat"].append(
+                stages.rate(res, h_val, cov, snr, cfg.n_bits,
+                            quantizers[snr], norm_clip=0.1))
+    if verbose:
+        print(f"mse={mse_cols['blmmse_gmm_quant']}")
+        if t_coh > 1:
+            print(f"mse_coh={mse_cols['blmmse_gmm_quant_coh']}")
+
+    stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    coh_tag = f"_coh={t_coh}" if t_coh > 1 else ""
+    base = (f"{stamp}_ant={dim}_path={cfg.n_path}{coh_tag}"
+            f"_ntr={cfg.n_train // 1000}k_comp={cfg.n_components}"
+            f"_pilots={cfg.n_pilots}_bits={cfg.n_bits}"
+            f"_0mean={cfg.zero_mean_gmm}_sums={cfg.n_summands_or_proba}"
+            f"_ptype={cfg.pilot_type}_qtype={cfg.quantizer_type}"
+            f"_{cfg.cov_type}_snrtr={cfg.snr_train}")
+    cols = dict(mse_cols)
+    if cfg.eval_rate:
+        cols.update(rate_cols)
+    qio.write_result_csv(os.path.join(cfg.results_dir, "3gpp", base + ".csv"),
+                         cfg.snrs, cols)
+    timings = {"fit": fit_time, "total": time.time() - t_start}
+    if auto_alpha:
+        timings["coherence_alpha_by_snr"] = dict(alpha_by_snr)
+    return mse_cols, rate_cols, timings
+
+
+if __name__ == "__main__":
+    run_gmm._main(QuantGmmBenchConfig, run)

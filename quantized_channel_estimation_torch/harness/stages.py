@@ -3,7 +3,7 @@
 Port of `quantized_channel_estimation_tpu/harness/stages.py`:
 `generate_channels`, `pilot_matrix`, `sample_cov`, `observe`,
 `blmmse_global`, `blmmse_genie`, `ls_global`, `gmm_fit`, `gmm_fit_resume`,
-`prepare_bank`,
+`gmm_quant_fit`, `gmm_quant_fit_resume`, `prepare_bank`,
 `nmse`, `rate`, `rate_mf`, `estimate_auto`, `estimate_coherent`,
 `estimate_coherent_auto`, `flatten_coherence`, for the structured banks
 `prepare_bank_circulant`, `prepare_bank_circulant_spectra`,
@@ -28,7 +28,7 @@ import torch.distributed as dist
 from quantized_channel_estimation_torch.estimators import (
     blmmse, circ_kernels, fact_kernels, kernels, ls, mp_circ_kernels)
 from quantized_channel_estimation_torch.models import (
-    gmm, gmm_estimator, mfa, mfa_bank, structured_bank)
+    gmm, gmm_estimator, gmm_quant, mfa, mfa_bank, structured_bank)
 from quantized_channel_estimation_torch.ops import observation, pilots, scm
 from quantized_channel_estimation_torch.parallel import mesh as pmesh
 from quantized_channel_estimation_torch.utils import metrics
@@ -81,6 +81,8 @@ blmmse_genie = blmmse.estimate_genie
 ls_global = ls.estimate_global
 gmm_fit = gmm.fit
 gmm_fit_resume = gmm.fit_resume
+gmm_quant_fit = gmm_quant.fit
+gmm_quant_fit_resume = gmm_quant.fit_resume
 mfa_fit = mfa.fit
 mfa_to_gmm = mfa.to_gmm_params
 prepare_bank = gmm_estimator.prepare_bank
@@ -331,7 +333,7 @@ class ShardedStages:
     def gmm_quant_fit(self, *args, **kwargs):
         raise NotImplementedError("the data-parallel quantized-training EM "
                                   "is not ported yet (ROADMAP Queue 1 item "
-                                  "10)")
+                                  "10, 10b)")
 
     def _whole(self, x: torch.Tensor) -> torch.Tensor:
         return pmesh.gather_data(self.mesh, x)

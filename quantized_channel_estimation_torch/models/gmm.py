@@ -107,6 +107,24 @@ def params_from_numpy(params, device=None) -> GmmParams:
                        for p in params))
 
 
+def quant_fit_from_numpy(params, cov_quant, device=None,
+                         lower_bound: float = math.nan, n_iter: int = 0,
+                         converged: bool = False):
+    """The JAX package's `gmm_quant.QuantGmmFitResult` as numpy arrays (its
+    params, as `params_from_numpy` takes them, and cov_quant), with its
+    telemetry, -> the port's `gmm_quant.QuantGmmFitResult` on `device`,
+    which `gmm_quant.fit_resume` continues and the harnesses estimate
+    from. The result carries no spectrum: a Toeplitz fit resumed from it
+    recovers one from the covariances, as JAX does."""
+    from quantized_channel_estimation_torch.models.gmm_quant import (
+        QuantGmmFitResult)
+    p = params_from_numpy(params, device)
+    return QuantGmmFitResult(
+        p, torch.as_tensor(np.asarray(cov_quant), device=device),
+        torch.tensor(float(lower_bound), dtype=p.weights.dtype,
+                     device=device), int(n_iter), bool(converged), [])
+
+
 def log_prob_full(x: torch.Tensor, means: torch.Tensor,
                   prec_chol: torch.Tensor) -> torch.Tensor:
     """log CN(x; mu_k, C_k) for x (N, D) -> (N, K):
@@ -182,6 +200,14 @@ def all_reduce_stats(stats: _Stats, group) -> _Stats:
     return _Stats(*unpack(buf, list(stats)))
 
 
+def resp_chunk(xc: torch.Tensor, log_weights: torch.Tensor, log_prob_fn):
+    """The E-step of one chunk: responsibilities (nc, K) and the sum of the
+    rows' log-normalizers log p(x_n)."""
+    lp = log_prob_fn(xc) + log_weights[None, :]
+    log_norm = torch.logsumexp(lp, dim=-1)
+    return torch.exp(lp - log_norm[:, None]), log_norm.sum()
+
+
 def accumulate_stats(x: torch.Tensor, log_weights: torch.Tensor, log_prob_fn,
                      chunk: int, diag: bool = False, group=None,
                      psum_segments: Union[int, str] = 1) -> _Stats:
@@ -201,10 +227,8 @@ def accumulate_stats(x: torch.Tensor, log_weights: torch.Tensor, log_prob_fn,
                             x.device, diag)
         for i0 in starts[bounds[seg]:bounds[seg + 1]]:
             xc = x[i0:i0 + chunk]
-            lp = log_prob_fn(xc) + log_weights[None, :]
-            log_norm = torch.logsumexp(lp, dim=-1)
-            resp = torch.exp(lp - log_norm[:, None])
-            stats = _update_stats(stats, resp, xc, log_norm.sum())
+            resp, log_norm = resp_chunk(xc, log_weights, log_prob_fn)
+            stats = _update_stats(stats, resp, xc, log_norm)
         if group is None:
             return stats
         buf = pack(list(stats))

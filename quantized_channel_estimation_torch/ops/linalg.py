@@ -4,7 +4,8 @@ Port of `quantized_channel_estimation_tpu/ops/linalg.py`: the Toeplitz and
 DFT matrices, the oversampled DFT frame of the inverse-EM Toeplitz fit and
 its spectrum recovery, the Cholesky-based solves the GMM fit, the bank
 preparation and the BLMMSE/LS baselines use, the eigenvalue pseudo-inverse
-and PSD projection, and the (block-)circulant spectra helpers of the
+and PSD projection, the products-only PSD projection of the quantized EM
+(`psd_project_polar`), and the (block-)circulant spectra helpers of the
 structured banks. Every function is batched over leading axes and
 follows the dtype of its input.
 """
@@ -150,6 +151,29 @@ def psd_project(c: torch.Tensor, floor: float = 0.0) -> torch.Tensor:
 def hermitize(c: torch.Tensor) -> torch.Tensor:
     """(C + C^H)/2."""
     return 0.5 * (c + c.mH)
+
+
+def psd_project_polar(c: torch.Tensor, floor: float = 0.0,
+                      iters: int = 40) -> torch.Tensor:
+    """PSD projection through the matrix sign function (Newton-Schulz),
+    products only: max(A, f) = f I + (B + sign(B) B)/2 with B = A - f I,
+    and sign(B) from X <- X(3I - X^2)/2 on B scaled below unit spectral
+    norm (its Frobenius norm). Eigenvalues under ~1.5^-iters of the norm do
+    not saturate; at 40 steps that is ~1e-7 ||B||, below the norm-relative
+    diagonal guard 2e-6 ||B|| added at the end, so the result keeps its
+    floor even for near-zero negative spectra. The guard is above TF32's
+    error, so the products need fp32 (`ops.precision.pin_fp32`)."""
+    d = c.shape[-1]
+    eye = torch.eye(d, dtype=c.dtype, device=c.device)
+    b = hermitize(c) - floor * eye
+    nrm = torch.sqrt((b.abs() ** 2).sum(dim=(-2, -1), keepdim=True))
+    nrm = nrm.clamp(min=torch.finfo(torch.float32).tiny)
+    x = b / nrm.to(b.dtype)
+    for _ in range(iters):
+        x = 0.5 * (x @ (3.0 * eye - x @ x))
+    pos = 0.5 * (b + hermitize(x) @ b)
+    guard = (2e-6 * nrm).to(c.dtype)
+    return hermitize(pos) + (floor + guard) * eye
 
 
 def _block_reshape(x: torch.Tensor, blocks) -> torch.Tensor:

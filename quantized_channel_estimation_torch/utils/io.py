@@ -6,7 +6,8 @@ reference's transposed tables (an 'SNR' header row, one column per
 estimator); caches are config-keyed .npz files that both packages read and
 write: `load_gmm_arrays` reads the `leaf_0..leaf_3` npz the JAX package's
 `save_pytree_npz` writes, and `save_gmm_params` writes one its
-`load_gmm_params` accepts.
+`load_gmm_params` accepts. `save_loglog_plot` draws the covariance-recovery
+figure (matplotlib, imported when called).
 """
 from __future__ import annotations
 
@@ -80,3 +81,24 @@ def load_gmm_params(path: str, device=None):
     from quantized_channel_estimation_torch.models.gmm import (
         params_from_numpy)
     return params_from_numpy(load_gmm_arrays(path), device)
+
+
+def save_loglog_plot(path: str, x, series: Dict[str, Sequence[float]],
+                     title: str = "", xlabel: str = "",
+                     ylabel: str = "") -> None:
+    """Log-log comparison PNG like the reference's covariance-recovery
+    figure. Imports matplotlib (Agg backend) on call; without matplotlib
+    it raises ImportError."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig, ax = plt.subplots()
+    for name, vals in series.items():
+        ax.loglog(x, vals, label=name)
+    ax.legend()
+    ax.set_title(title)
+    ax.set_xlabel(xlabel)
+    ax.set_ylabel(ylabel)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fig.savefig(path)
+    plt.close(fig)

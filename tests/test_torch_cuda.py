@@ -5,7 +5,9 @@ forms' shard merges against one launch, K1 / K3, K6-K13, K14a and K14b
 over many NaN-poisoned launches (`tools.tc_repeat_check`), the
 kernel-measurement tools and `utils.profiling` on the card, the
 estimation service on the card (one device and a 2 x 2 in-process mesh),
-and the inverse-EM Toeplitz fit on the card.
+the inverse-EM Toeplitz fit on the card, and the quantized EM
+(CSI-free training) on the card against the port on the CPU, with
+`run_gmm_quant` launching its kernels.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor the JAX package, so on a machine with a card and
@@ -702,6 +704,104 @@ def test_toeplitz_fit_on_card_is_toeplitz_and_resumes():
         d_off = torch.diagonal(covs, off, -2, -1)
         spread = (d_off - d_off.mean(-1, keepdim=True)).abs().amax(-1)
         assert torch.all(spread < 5e-2 * diag), off
+
+
+# ------------------------------------------ the quantized EM (CSI-free)
+
+def _quant_data(n_bits, n=4000, d=16, k=8):
+    """2-bit (or 1-bit / unquantized) SCM pilots at 5 dB on the CPU, the
+    port's k-means labels, and the quantizer."""
+    from quantized_channel_estimation_torch.models import kmeans
+    from quantized_channel_estimation_torch.ops import observation, scm
+    from quantized_channel_estimation_torch.ops.cplx import cplx2real
+    gen = torch.Generator().manual_seed(6)
+    h, _ = scm.generate_channels(gen, n, scm.ScmConfig(d, 1))
+    q = tq.design_quantizer(5.0, n_bits)
+    r = observation.observe(gen, h, 5.0, tp.pilot_matrix(d, 1, n_bits),
+                            n_bits, q)
+    labels = kmeans.kmeans(gen, cplx2real(r, dim=-1), k).labels
+    return r, labels, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cov_type,n_bits", [
+    ("full", 2), ("full", 1), ("full", math.inf), ("toeplitz", 2),
+    ("diag", 2), ("circulant", 2)])
+def test_quant_em_on_card_matches_cpu_per_iteration(cov_type, n_bits):
+    """The quantized EM on the card against the port on the CPU from the
+    same k-means labels: the lower bound after each of 5 iterations to
+    rtol 1e-4; every recovered covariance keeps its floor (min eigenvalue
+    >= reg_covar within float32 rounding of its norm)."""
+    from quantized_channel_estimation_torch.models import gmm_quant as tgq
+    dev = _card()
+    r, labels, q = _quant_data(n_bits)
+    cfg = tg.GmmConfig(n_components=8, cov_type=cov_type, max_iter=5,
+                       tol=0.0, chunk_size=1024)
+    fits = []
+    for device in ("cpu", dev):
+        x = r.to(device)
+        diag = cov_type == "diag"
+        stats = tg._stats_from_labels(x, labels.to(device), 8, 1024, diag)
+        fits.append(tgq.fit_from_stats(
+            torch.Generator(device).manual_seed(0), x, stats, cfg, n_bits,
+            10 ** -0.5, None if q is None else q.to(device)))
+    cpu, card = fits
+    assert card.n_iter == cpu.n_iter == 5
+    np.testing.assert_allclose(card.lb_history, cpu.lb_history, rtol=1e-4)
+    covs = card.params.covariances
+    w = torch.linalg.eigvalsh(covs).min(-1).values
+    assert torch.all(w >= cfg.reg_covar
+                     - 2e-6 * torch.linalg.matrix_norm(covs))
+
+
+@pytest.mark.cuda
+def test_psd_project_polar_keeps_its_floor_on_card():
+    """The Newton-Schulz projection at K = D = 64 on the card: near-zero
+    negative spectra come out >= the floor (within 1e-7), and random
+    Hermitian matrices match the eigh clip to 1e-4 (relative Frobenius)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(7)
+    d, floor = 64, 1e-5
+    a = torch.complex(torch.randn(64, d, d, generator=g),
+                      torch.randn(64, d, d, generator=g))
+    qmat, _ = torch.linalg.qr(a)
+    for negscale in (1e-3, 1e-5, 1e-7):
+        lam = torch.ones(d)
+        lam[:8] = -negscale * d
+        h = tl.hermitize((qmat * lam) @ qmat.mH).to(dev)
+        got = tl.psd_project_polar(h, floor)
+        assert float(torch.linalg.eigvalsh(got).min()) >= floor - 1e-7
+    h = tl.hermitize(a @ a.mH / d - 0.3 * torch.eye(d)).to(dev)
+    want = tl.psd_project(h, floor)
+    got = tl.psd_project_polar(h, floor)
+    rel = torch.linalg.matrix_norm(got - want) / torch.linalg.matrix_norm(
+        want)
+    assert float(rel.max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change,kernel", [
+    ({}, "grouped_estimate"),
+    (dict(cov_type="circulant", n_coherence=2), "circ_estimate")])
+def test_run_gmm_quant_on_card_launches_its_kernel(tmp_path, change, kernel):
+    """`run_gmm_quant` at a small size on the card: the GMM column through
+    K1 (dense) or K6 and K7 (circulant, coherence blocks of 2) once an
+    SNR, the MSE finite and falling with SNR."""
+    from quantized_channel_estimation_torch.harness import run_gmm_quant
+    _card()
+    cfg = run_gmm_quant.QuantGmmBenchConfig(
+        n_antennas=16, n_components=8, n_train=4000, n_val=600,
+        max_iter=10, snrs=(-5, 5, 15), results_dir=str(tmp_path),
+        cache_dir=str(tmp_path / "c"), **change)
+    tkn.reset_launch_counts()
+    mse, rate, _ = run_gmm_quant.run(cfg, verbose=False)
+    counts = tkn.launch_counts()
+    assert counts[kernel] == 3
+    if change:
+        assert counts["circ_estimate_coherent"] == 3
+    col = mse["blmmse_gmm_quant"]
+    assert all(map(math.isfinite, col)) and col[0] > col[-1]
+    assert all(map(math.isfinite, sum(rate.values(), [])))
 
 
 # ------------------------------------------------ the circulant kernels

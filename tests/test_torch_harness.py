@@ -1,4 +1,4 @@
-"""The port's `run_gmm` against the JAX harness on shared data, and the
+"""The port's harnesses against the JAX harnesses on shared data, and the
 port's boundaries: no JAX imports, no silent CPU fallback.
 
 Both harnesses read one cache: the JAX run writes the channel dataset and
@@ -8,6 +8,11 @@ run's own keys. Both then write the same CSV columns, and every MSE and
 rate row agrees to rtol 1e-4 (complex64 data, float32 sums in another
 order; the 'all'-mode GMM estimate goes through the plain K1 here and the
 einsum estimator in JAX).
+
+The CSI-free harnesses `run_gmm_quant` and `run_cov_recovery` are held
+the same way: on the JAX data set, observations and fit (carried across
+by `gmm.quant_fit_from_numpy`), and on the JAX covariance draws and
+samples; their options of later slices raise naming their ROADMAP item.
 
 The mesh options (`n_data_shards`, `n_component_shards`) run in one
 2-rank Gloo group spawned for this file (tests/_torch_parallel_worker.py);
@@ -609,3 +614,256 @@ def test_run_mfa_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trun_mfa.run(trun_mfa.MfaBenchConfig(n_antennas=4, n_components=2))
+
+
+# ---------------------------------------------------------------------------
+# run_gmm_quant and run_cov_recovery (CSI-free training)
+# ---------------------------------------------------------------------------
+
+def _quant_csv(results_dir):
+    paths = glob.glob(os.path.join(results_dir, "3gpp", "*.csv"))
+    assert len(paths) == 1, paths
+    with open(paths[0]) as f:
+        return os.path.basename(paths[0]), list(csv.reader(f))
+
+
+@pytest.mark.parametrize("t_coh,cov_type", [(1, "full"), (2, "full"),
+                                            (1, "circulant"),
+                                            (2, "circulant")])
+def test_run_gmm_quant_matches_jax_on_shared_cache(tmp_path, monkeypatch,
+                                                   t_coh, cov_type):
+    """Both CSI-free harnesses on one cache (the JAX run writes the data
+    set) with the JAX observations (training pilots and validation) in
+    place of the port's `stages.observe` and the JAX fit carried across
+    (`gmm.quant_fit_from_numpy` in place of the port's
+    `stages.gmm_quant_fit`: the two k-means inits differ, so two fits of
+    the harness's own would not agree row for row; the EMs themselves are
+    held per iteration in tests/test_torch_gmm_quant.py). The same CSV name
+    and columns, every MSE and rate row to rtol 1e-4, the GMM column
+    through the plain K1 (dense; K3 for the coherent column) or K6 / K7
+    (circulant)."""
+    from quantized_channel_estimation_tpu.harness import (
+        run_gmm_quant as jrun_q)
+    from quantized_channel_estimation_torch.harness import (
+        run_gmm_quant as trun_q)
+    from quantized_channel_estimation_torch.models import gmm as tg
+
+    fits, observed = [], {}
+
+    def jax_fit(*args, _fn=jst.gmm_quant_fit):
+        fits.append(_fn(*args))
+        return fits[-1]
+
+    def jax_observe(key, h, snr, *args, _fn=jst.observe):
+        r = _fn(key, h, snr, *args)
+        observed[(snr, tuple(h.shape))] = np.asarray(jst.to_numpy(r))
+        return r
+
+    monkeypatch.setattr(jst, "gmm_quant_fit", jax_fit)
+    monkeypatch.setattr(jst, "observe", jax_observe)
+    coh = dict(n_coherence=2, coherence_alpha=0.5) if t_coh > 1 else {}
+    jcfg = jrun_q.QuantGmmBenchConfig(
+        n_antennas=16, n_components=8, n_train=4000, n_val=600,
+        max_iter=10, snrs=(-5, 5, 15), cov_type=cov_type,
+        results_dir=str(tmp_path / "jax"), cache_dir=str(tmp_path / "saves"),
+        **coh)
+    jmse, jrate, jtimes = jrun_q.run(jcfg, verbose=False)
+    assert len(fits) == 1 and len(observed) == 4
+    jfit = fits[0]
+
+    def shared_fit(gen, r, cfg, n_bits, sigma2, q):
+        np.testing.assert_array_equal(
+            r.numpy(), observed[(jcfg.snr_train, (jcfg.n_train, 16))])
+        assert (cfg.cov_type, cfg.max_iter, n_bits) == (cov_type, 10, 2)
+        return tg.quant_fit_from_numpy(
+            [np.asarray(jst.to_numpy(x)) for x in jfit.params],
+            np.asarray(jst.to_numpy(jfit.cov_quant)), r.device,
+            float(jfit.lower_bound), int(jfit.n_iter), bool(jfit.converged))
+
+    def shared_observe(gen, h, snr, a, n_bits, q):
+        return torch.as_tensor(observed[(snr, tuple(h.shape))],
+                               device=h.device)
+
+    calls = []
+    for name in ("estimate_auto", "estimate_coherent_auto",
+                 "estimate_circulant", "estimate_circulant_coherent"):
+        def counted(*args, _fn=getattr(tst, name), _name=name, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(tst, name, counted)
+    monkeypatch.setattr(tst, "gmm_quant_fit", shared_fit)
+    monkeypatch.setattr(tst, "observe", shared_observe)
+    tcfg = trun_q.QuantGmmBenchConfig(**{
+        f.name: getattr(jcfg, f.name)
+        for f in dataclasses.fields(jrun_q.QuantGmmBenchConfig)})
+    tcfg = dataclasses.replace(tcfg, results_dir=str(tmp_path / "port"))
+    tmse, trate, ttimes = trun_q.run(tcfg, verbose=False, device="cpu")
+    flat, coherent = (("estimate_circulant", "estimate_circulant_coherent")
+                      if cov_type == "circulant"
+                      else ("estimate_auto", "estimate_coherent_auto"))
+    assert calls == ([coherent, flat] if t_coh > 1 else [flat]) * 3
+
+    assert list(tmse) == list(jmse) and list(trate) == list(jrate)
+    assert ("blmmse_gmm_quant_coh" in tmse) == (t_coh > 1)
+    for got, want in ((tmse, jmse), (trate, jrate)):
+        for name in want:
+            np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
+                                       err_msg=name)
+    assert set(ttimes) == set(jtimes) == {"fit", "total"}
+    jname, jrows = _quant_csv(jcfg.results_dir)
+    tname, trows = _quant_csv(tcfg.results_dir)
+    assert tname[19:] == jname[19:] and f"_{cov_type}_snrtr=5.0" in tname
+    assert trows[0] == jrows[0]
+    assert [r[0] for r in trows] == [r[0] for r in jrows]
+    np.testing.assert_allclose(np.asarray(trows[1:])[:, 1:].astype(float),
+                               np.asarray(jrows[1:])[:, 1:].astype(float),
+                               rtol=1e-4)
+    assert tmse["blmmse_gmm_quant"][0] > tmse["blmmse_gmm_quant"][-1]
+
+
+def test_run_gmm_quant_fits_on_its_own(tmp_path):
+    """The port's own CSI-free fit through its harness: 'auto' coherence
+    blends selected on held-out blocks (the timings record them), every
+    row finite, the MSE falling with SNR; a top-2 diagonal run estimates
+    through the plain K4; n_coherence must divide the sets."""
+    from quantized_channel_estimation_torch.harness import (
+        run_gmm_quant as trun_q)
+    cfg = trun_q.QuantGmmBenchConfig(
+        n_antennas=16, n_components=8, n_train=4000, n_val=600,
+        max_iter=10, snrs=(-5, 15), n_coherence=2, coherence_alpha="auto",
+        alpha_val_blocks=50, results_dir=str(tmp_path),
+        cache_dir=str(tmp_path / "c"))
+    mse, rate, timings = trun_q.run(cfg, verbose=False, device="cpu")
+    assert set(timings["coherence_alpha_by_snr"]) == {-5, 15}
+    for vals in list(mse.values()) + list(rate.values()):
+        assert np.all(np.isfinite(vals))
+    assert mse["blmmse_gmm_quant"][0] > mse["blmmse_gmm_quant"][1]
+    assert mse["blmmse_gmm_quant_coh"][0] < 1.0
+    mse_d, _, _ = trun_q.run(dataclasses.replace(
+        cfg, cov_type="diag", n_summands_or_proba=2, n_coherence=1,
+        coherence_alpha=1.0, eval_rate=False), verbose=False, device="cpu")
+    assert 0 < mse_d["blmmse_gmm_quant"][1] < mse_d["blmmse_gmm_quant"][0]
+    with pytest.raises(ValueError, match="multiples of n_coherence"):
+        trun_q.run(dataclasses.replace(cfg, n_coherence=3), device="cpu")
+
+
+@pytest.mark.parametrize("change,error", [
+    (dict(stream_pilots=True), "item 10"),
+    (dict(n_antennas=8192), "item 10"),
+    (dict(use_spectra_fit=True, cov_type="circulant"), "item 10"),
+    (dict(n_antennas=2048, cov_type="circulant"), "item 10"),
+    (dict(n_data_shards=2), "item 10"),
+    (dict(n_component_shards=2), "item 10"),
+    (dict(channel_model="urban-macro"), "item 14"),
+    (dict(n_pilots=2), "A = I"),
+])
+def test_run_gmm_quant_unported_options_raise(change, error):
+    """The options of later slices raise NotImplementedError naming their
+    ROADMAP item before any work, their 'auto' values only where JAX's
+    engage them (streamed pilots from D = 8192, the spectra-native fit for
+    circulant fits from D = 2048); the mesh form of the fit raises too.
+    Several pilots raise ValueError: the quantized EM recovers channel
+    covariances for A = I only (JAX fails in its bank preparation)."""
+    from quantized_channel_estimation_torch.harness import (
+        run_gmm_quant as trun_q)
+    from quantized_channel_estimation_torch.parallel import mesh as pmesh
+    cfg = dataclasses.replace(trun_q.QuantGmmBenchConfig(), **change)
+    kind = ValueError if "n_pilots" in change else NotImplementedError
+    with pytest.raises(kind, match=error):
+        trun_q.run(cfg, device="cpu")
+    for off in (trun_q.QuantGmmBenchConfig(),
+                trun_q.QuantGmmBenchConfig(cov_type="circulant",
+                                           n_antennas=1024)):
+        assert not trun_q._stream_pilots(off)
+        assert not trun_q._spectra_fit(off)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tst.ShardedStages.gmm_quant_fit(None)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        pmesh.fit_gmm_quant_shard_map(None, None, None, None, 2, 0.1)
+
+
+def _jax_cov_draws(cfg):
+    """The covariances and samples the JAX `run_cov_recovery` draws from
+    its keys (the same jitted programs), in its order."""
+    from quantized_channel_estimation_tpu.ops import cplx as jcplx
+    from quantized_channel_estimation_tpu.ops import linalg as jl
+    from quantized_channel_estimation_tpu.ops import scm as jscm
+    scm_cfg = jscm.ScmConfig(cfg.n_dim, cfg.n_path, cfg.path_sigma)
+
+    @jax.jit
+    def draw(k_t, k_g):
+        _, toep = jscm.generate_channels(k_t, cfg.mc_runs, scm_cfg,
+                                         dtype=jax.numpy.complex64)
+        covs = jl.toeplitz_from_first_row(toep)
+        loads = jax.numpy.abs(jax.random.normal(k_g, (cfg.mc_runs,)))
+        covs = covs + loads[:, None, None].astype(covs.dtype) * \
+            jax.numpy.eye(cfg.n_dim, dtype=covs.dtype)
+        avg = jax.numpy.real(jax.numpy.trace(covs, axis1=-2, axis2=-1)) \
+            / cfg.n_dim
+        return (covs, 10.0 * jax.numpy.log10(1.0 / (avg - 1.0)),
+                jax.numpy.mean(jax.numpy.sum(jax.numpy.abs(covs) ** 2,
+                                             axis=(-2, -1))))
+
+    def sample(kr, cov, n):
+        w = jcplx.crandn(kr, (n, cfg.n_dim), dtype=cov.dtype)
+        return w @ jax.numpy.linalg.cholesky(cov).T
+
+    sample = jax.jit(sample, static_argnums=(2,))
+    key = jax.random.PRNGKey(cfg.seed)
+    covs_out, samples = [], []
+    for n_data in cfg.n_data_list:
+        key, k_t, k_g = jax.random.split(key, 3)
+        covs, snr_eq, norm = draw(k_t, k_g)
+        covs_out.append((np.asarray(covs), np.asarray(snr_eq), float(norm)))
+        for i in range(cfg.mc_runs):
+            key, kr, _ = jax.random.split(key, 3)
+            samples.append(np.asarray(sample(kr, covs[i], n_data)))
+    return covs_out, samples
+
+
+def test_run_cov_recovery_matches_jax(tmp_path, monkeypatch):
+    """The Fig. 2 benchmark of both packages on the JAX draws (covariances
+    and samples, in place of the port's `draw_covs` and `sample`): the same
+    CSV name, columns and rows (rtol 1e-4); the recovery beats the
+    quantized sample covariance from n = 1000 on and falls with n. The
+    port's `plot` switch: the PNG with matplotlib, none with
+    plot=False."""
+    from quantized_channel_estimation_tpu.harness import (
+        run_cov_recovery as jrun_c)
+    from quantized_channel_estimation_torch.harness import (
+        run_cov_recovery as trun_c)
+    jcfg = jrun_c.CovRecoveryConfig(n_dim=16, mc_runs=3,
+                                    n_data_list=(10, 100, 1000, 10000),
+                                    results_dir=str(tmp_path / "jax"))
+    want = jrun_c.run(jcfg, verbose=False)
+    covs, samples = _jax_cov_draws(jcfg)
+    monkeypatch.setattr(trun_c, "draw_covs", lambda gen, cfg: (
+        lambda c: (torch.as_tensor(c[0], device=gen.device), c[1], c[2]))(
+            covs.pop(0)))
+    monkeypatch.setattr(trun_c, "sample", lambda gen, cov, n: torch.as_tensor(
+        samples.pop(0), device=cov.device))
+    tcfg = trun_c.CovRecoveryConfig(**{
+        **dataclasses.asdict(jcfg), "results_dir": str(tmp_path / "port")})
+    got = trun_c.run(tcfg, verbose=False, device="cpu")
+    assert not covs and not samples
+    assert list(got) == list(want)
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
+                                   err_msg=name)
+    names = [sorted(os.listdir(c.results_dir)) for c in (jcfg, tcfg)]
+    assert names[0] == names[1] and len(names[1]) == 2   # CSV and PNG
+    rows = []
+    for c in (jcfg, tcfg):
+        with open(os.path.join(c.results_dir, names[1][0])) as f:
+            rows.append(list(csv.reader(f)))
+    assert rows[0][0] == rows[1][0] and rows[1][0][1:] == list(want)
+    np.testing.assert_allclose(np.asarray(rows[1][1:], float),
+                               np.asarray(rows[0][1:], float), rtol=1e-4)
+    rec, quant = got["Cov_est"], got["sampcov_quant"]
+    assert all(a > b for a, b in zip(rec, rec[1:]))
+    assert all(r < q for r, q in zip(rec[2:], quant[2:]))
+    monkeypatch.undo()
+    own = dataclasses.replace(tcfg, n_data_list=(100, 1000), plot=False,
+                              results_dir=str(tmp_path / "own"))
+    trun_c.run(own, verbose=False, device="cpu")
+    assert [f.endswith(".csv") for f in os.listdir(own.results_dir)] == [True]
