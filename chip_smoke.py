@@ -98,7 +98,11 @@ Phases (any failure exits non-zero; nothing is caught):
      pipeline; with its throughput, latency and `metrics()`; then the mesh
      path at world size 1: a one-rank NCCL group and a (1, 1) mesh,
      `ShardedStages.gmm_fit` at the `run_gmm` defaults against `gmm.fit`
-     from the same generator (lower bound per iteration to rtol 2e-5) and
+     from the same generator (lower bound per iteration to rtol 2e-5), the
+     quantized EMs' mesh forms `ShardedStages.gmm_quant_fit` ('full') and
+     `gmm_quant_fit_circulant_spectra` on 2-bit pilots of those channels at
+     5 dB against the single-device fits (lower bound per iteration to
+     rtol 2e-5, covariances / spectra to TOL of scale), and
      `estimate_sharded_kernel` (flat, T = 4 blocks),
      `estimate_sharded_circulant` and `estimate_sharded_factored` (each
      flat and T = 4 blocks) and `estimate_sharded` (k = 4) on the headline
@@ -122,7 +126,18 @@ Phases (any failure exits non-zero; nothing is caught):
      the `CovRecoveryConfig` defaults without its plot (the recovered NMSE
      falling with n and below the quantized sample covariance's from
      n = 10^4 on: at D = 64 the two cross between 10^3 and 10^4 samples,
-     in the JAX harness too); then the service over
+     in the JAX harness too); then CSI-free training at frontier D (phase
+     3f): the circulant `n_coherence=4` run with `use_spectra_fit=True`
+     (K6 and K7 launched once each on the spectra-fed bank and held
+     against their plain versions and under the float64 rule; the NMSE
+     within 1.25x of the dense-recovery circulant run), again with the
+     streamed k-means init forced (within 1.15x), and through
+     `tools.quant_frontier` the JAX tool's D = 16384 row (K = 16, 40k / 2k
+     rows, 10 dB, 30 iterations: streamed pilots, streamed init and the
+     spectra fit engaged by 'auto') and D = 2048 with 60k rows and the
+     rate column, each with datagen and fit seconds, iterations, host
+     synchronizations, peak memory and the NMSE below LS; then the service
+     over
      in-process meshes (`parallel.mesh.make_local_mesh`) of 1 x 2 and 2 x 2
      shards in eight modes each (dense, structured at K = 64 and the K =
      256 spectra-native prior, factored; flat and T=4 blocks; 1 s each),
@@ -506,26 +521,29 @@ def main_path_run(run_gmm, kernels, dev, tmp, falling=True, use_cache=False,
 def quant_path_run(run_gmm_quant, stages, kernels, dev, **change):
     """run_gmm_quant at the defaults (plus `change`) on the card, its
     kernel launches counted alone. The fit's host synchronizations are
-    counted (`torch.cuda.set_sync_debug_mode('warn')` around the fit,
-    k-means init included), and the run keeps the fit, the training sample
-    covariance, and each bank, observations and truth it estimated and
-    scored. Returns (cfg, mse, rate, timings, seconds, launches, kept)."""
+    counted (`torch.cuda.set_sync_debug_mode('warn')` around the fit, dense
+    or spectra-native, k-means init included), and the run keeps the fit,
+    the training sample covariance, and each bank, observations and truth
+    it estimated and scored. Returns (cfg, mse, rate, timings, seconds,
+    launches, kept)."""
     kept = {"banks": [], "truth": []}
-    names = ("gmm_quant_fit", "sample_cov", "estimate_auto",
-             "estimate_circulant", "nmse")
+    names = ("gmm_quant_fit", "gmm_quant_fit_circulant_spectra",
+             "sample_cov", "estimate_auto", "estimate_circulant", "nmse")
     saved = {name: getattr(stages, name) for name in names}
 
-    def fit(*args, **kw):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                kept["fit"] = saved["gmm_quant_fit"](*args, **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        kept["fit_syncs"] = sum("synchroniz" in str(w.message)
-                                for w in caught)
-        return kept["fit"]
+    def counted_fit(name):
+        def fit(*args, **kw):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    kept["fit"] = saved[name](*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            kept["fit_syncs"] = sum("synchroniz" in str(w.message)
+                                    for w in caught)
+            return kept["fit"]
+        return fit
 
     def sample_cov(h):
         kept["cov"] = saved["sample_cov"](h)
@@ -541,7 +559,10 @@ def quant_path_run(run_gmm_quant, stages, kernels, dev, **change):
         kept["truth"][:] = [h]
         return saved["nmse"](h_est, h)
 
-    for name, fn in (("gmm_quant_fit", fit), ("sample_cov", sample_cov),
+    for name, fn in (("gmm_quant_fit", counted_fit("gmm_quant_fit")),
+                     ("gmm_quant_fit_circulant_spectra",
+                      counted_fit("gmm_quant_fit_circulant_spectra")),
+                     ("sample_cov", sample_cov),
                      ("estimate_auto", estimate("estimate_auto")),
                      ("estimate_circulant", estimate("estimate_circulant")),
                      ("nmse", nmse)):
@@ -1835,6 +1856,28 @@ def main():
     fit_one = stages.gmm_fit(run_gmm._generator(s_gmm, dev), h_fit, gcfg)
     torch.cuda.synchronize()
     fit_one_s = time.time() - tm
+    # the quantized EMs' mesh forms (item 10b): 'full' and the
+    # spectra-native circulant EM on 2-bit pilots of the same channels at
+    # 5 dB, single-device first
+    from quantized_channel_estimation_torch.models import gmm_quant
+    q5 = Q.design_quantizer(5.0, N_BITS).to(dev)
+    r_q5 = observation.observe(torch.Generator(dev).manual_seed(5), h_fit,
+                               5.0, pilots.pilot_matrix(D, 1, N_BITS,
+                                                        device=dev),
+                               N_BITS, q5)
+    quant_cfgs = {
+        "fit_gmm_quant_shard_map, full": (
+            gmm_quant.fit, "gmm_quant_fit",
+            gmm.GmmConfig(n_components=K, max_iter=100)),
+        "fit_circulant_spectra_shard_map": (
+            gmm_quant.fit_circulant_spectra,
+            "gmm_quant_fit_circulant_spectra",
+            gmm.GmmConfig(n_components=K, cov_type="circulant",
+                          max_iter=100))}
+    quant_one = {name: fn(torch.Generator(dev).manual_seed(6), r_q5, c,
+                          N_BITS, 10 ** -0.5, q5)
+                 for name, (fn, _, c) in quant_cfgs.items()}
+    torch.cuda.synchronize()
     rb_d = r.reshape(-1, 4, D)
     rb_f = r_f.reshape(-1, 4, D)
     mesh_cases = {   # name: (mesh call, single-device stage, near-tie rows)
@@ -1886,6 +1929,11 @@ def main():
             torch.cuda.synchronize()
             mesh_rec["estimates_s"] = time.time() - tm
             launches_mesh = kernels.launch_counts()
+            quant_dp = {name: getattr(sharded, stage)(
+                torch.Generator(dev).manual_seed(6), r_q5, c, N_BITS,
+                10 ** -0.5, q5)
+                for name, (_, stage, c) in quant_cfgs.items()}
+            torch.cuda.synchronize()
         finally:
             dist.destroy_process_group()
     add(launches_mesh)
@@ -1902,6 +1950,35 @@ def main():
     mesh_rec["gmm_fit_iters"] = int(len(lb_dp))
     mesh_rec["gmm_lb_max_rel"] = float(np.max(np.abs(lb_dp - lb_one)
                                               / np.abs(lb_one)))
+    # the quantized mesh forms equal the single-device fits: the lower
+    # bound per iteration to rtol 2e-5, the covariances or spectra to 1e-4
+    # of scale
+    mesh_rec["quant"] = {}
+    for name, dp in quant_dp.items():
+        one = quant_one[name]
+        lb_q, lb_q1 = np.asarray(dp.lb_history), np.asarray(one.lb_history)
+        got, want = ((dp.params.covariances, one.params.covariances)
+                     if hasattr(dp, "params") else (dp.spectra, one.spectra))
+        rel = float((got - want).abs().max() / want.abs().max())
+        mesh_rec["quant"][name] = {
+            "n_iter": int(dp.n_iter),
+            "lb_max_rel": float(np.max(np.abs(lb_q - lb_q1)
+                                       / np.abs(lb_q1))),
+            "max_rel": rel}
+        log(f"mesh (1, 1), NCCL: {name} on 2-bit pilots at 5 dB (N="
+            f"{r_q5.shape[0]}, D={D}, K={K}): {dp.n_iter} iterations "
+            f"(single device {one.n_iter}), lower bound max rel "
+            f"{mesh_rec['quant'][name]['lb_max_rel']:.2e}, "
+            f"{'covariances' if hasattr(dp, 'params') else 'spectra'} "
+            f"max rel {rel:.2e}")
+        if lb_q.shape != lb_q1.shape or not np.allclose(lb_q, lb_q1,
+                                                        rtol=2e-5, atol=0):
+            raise AssertionError(f"mesh {name} off the single-device fit: "
+                                 f"{lb_q} vs {lb_q1}")
+        if not rel <= TOL:
+            raise AssertionError(f"mesh {name}: parameters {rel:.3e} of "
+                                 "scale off the single-device fit")
+    del quant_dp, quant_one, r_q5
     for name, (_, want, skip) in mesh_cases.items():
         got = mesh_out[name]
         mesh_rec["max_abs_err"][name] = compare(
@@ -2105,6 +2182,122 @@ def main():
         raise AssertionError("recovery not below the quantized sample "
                              f"covariance from n = 10^4 on: {cov_rec}")
     quant_s = time.time() - t_quant
+
+    # 3f. CSI-free training at frontier D (ROADMAP item 10b): phase 3e's
+    # circulant run (D = K = 64, 2 bits, 5 dB, 100k / 10k, T = 4) with the
+    # spectra-native fit, K6 and K7 launched once each on the spectra-fed
+    # bank and held against their plain versions (TOL, the float64 rule);
+    # its NMSE within 1.25x of 3e's dense-recovery circulant run (the JAX
+    # harness test's band); the same with the streamed k-means init forced
+    # (budget 0), within 1.15x of the dense init (the JAX test's band).
+    # Then the frontier through `tools.quant_frontier` (the JAX tool's
+    # D = 16384 row: K = 16, 40k / 2k rows, 10 dB, 30 iterations, no rate;
+    # 'auto' must stream the pilots, stream the init and fit the spectra),
+    # and D = 2048, K = 16, 60k rows with the rate column (the spectra fit
+    # alone): datagen and fit seconds, iterations, host synchronizations,
+    # peak memory, the NMSE below LS on the same observations.
+    from quantized_channel_estimation_torch.models import gmm_quant
+    from quantized_channel_estimation_torch.tools import quant_frontier
+    t_front = time.time()
+    frontier = {}
+    base_nmse = quant["circulant, T=4"]["mse"]["blmmse_gmm_quant"][0]
+    streamed_init = gmm_quant._streamed_init_stats
+    for label, budget in (("spectra, T=4", gmm_quant._INIT_ELEM_BUDGET),
+                          ("spectra, T=4, streamed init", 0)):
+        calls = []
+        gmm_quant._INIT_ELEM_BUDGET, saved_budget = (
+            budget, gmm_quant._INIT_ELEM_BUDGET)
+        gmm_quant._streamed_init_stats = lambda *args: (
+            calls.append(1), streamed_init(*args))[1]
+        try:
+            cfg_q, mse_q, rate_q, times_q, sec_q, launches_q, kept = \
+                quant_path_run(run_gmm_quant, stages, kernels, dev,
+                               cov_type="circulant", n_coherence=4,
+                               use_spectra_fit=True)
+        finally:
+            gmm_quant._INIT_ELEM_BUDGET = saved_budget
+            gmm_quant._streamed_init_stats = streamed_init
+        add(launches_q)
+        if calls != ([1] if budget == 0 else []):
+            raise AssertionError(f"run_gmm_quant {label}: streamed init "
+                                 f"calls {calls}")
+        for name in ("circ_estimate", "circ_estimate_coherent"):
+            if launches_q[name] != 1:
+                raise AssertionError(f"run_gmm_quant {label}: {name} "
+                                     f"launched {launches_q[name]} times")
+        fit_q = kept["fit"]
+        (bank_q, r_q), h_q = kept["banks"][0], kept["truth"][0]
+        nmse_q = mse_q["blmmse_gmm_quant"][0]
+        rec = {"mse": mse_q, "rate": rate_q, "seconds": sec_q,
+               "timings": times_q, "launches": launches_q,
+               "n_iter": fit_q.n_iter, "converged": fit_q.converged,
+               "lower_bound": float(fit_q.lower_bound),
+               "fit_s": times_q["fit"],
+               "ms_per_em_iteration": 1e3 * times_q["fit"] / fit_q.n_iter,
+               "fit_host_syncs": kept["fit_syncs"],
+               "dense_recovery_nmse": base_nmse}
+        if label == "spectra, T=4":
+            # K6 and K7 (T = 4: the run's validation blocks) on the
+            # spectra-fed bank of the run
+            x2_q = ck._x2(r_q)
+            check_circ("spectra-fed bank, 5 dB", bank_q, x2_q)
+            check_circ("spectra-fed bank, 5 dB, T=4", bank_q, x2_q, t=4)
+            rec["fp32_accuracy"] = circ_accuracy(
+                "spectra-fed bank, 5 dB", bank_q, r_q)
+            if not nmse_q <= 1.25 * base_nmse:
+                raise AssertionError(
+                    f"run_gmm_quant {label}: NMSE {nmse_q} past 1.25x the "
+                    f"dense-recovery circulant run's {base_nmse}")
+        elif not nmse_q <= 1.15 * frontier["spectra, T=4"]["mse"][
+                "blmmse_gmm_quant"][0]:
+            raise AssertionError(f"run_gmm_quant {label}: NMSE {nmse_q} "
+                                 "past 1.15x the dense init's")
+        frontier[label] = rec
+        del kept, bank_q, r_q, h_q
+        log(f"run_gmm_quant {label} (D={cfg_q.n_antennas}, "
+            f"K={cfg_q.n_components}): {sec_q:.1f}s, fit "
+            f"{times_q['fit']:.2f}s ({fit_q.n_iter} iterations, "
+            f"{rec['ms_per_em_iteration']:.1f} ms an iteration, "
+            f"{rec['fit_host_syncs']} host synchronizations), NMSE at 5 dB "
+            f"{nmse_q:.5f} (coherent {mse_q['blmmse_gmm_quant_coh'][0]:.5f}"
+            f"; dense recovery {base_nmse:.5f}); launches "
+            + str({k: v for k, v in launches_q.items() if v}))
+    for label, kw, engaged in (
+            ("D=16384", dict(), dict(stream_pilots=True, spectra_fit=True,
+                                 streamed_init=True)),
+            ("D=2048, rate", dict(n_antennas=2048, n_train=60_000,
+                                  eval_rate=True),
+             dict(stream_pilots=False, spectra_fit=True,
+                  streamed_init=False))):
+        kernels.reset_launch_counts()
+        rec = quant_frontier.measure(device=dev, **kw)
+        rec["launches"] = {k: v for k, v in kernels.launch_counts().items()
+                           if v}
+        frontier[label] = rec
+        log(f"run_gmm_quant {label} (K={rec['n_components']}, n_train="
+            f"{rec['n_train']}, n_val={rec['n_val']}, {rec['snr']} dB): "
+            f"datagen {rec['datagen_s']:.1f}s, fit {rec['fit_s']:.1f}s "
+            f"({rec['n_iter']} iterations, {rec['ms_per_iteration']:.0f} ms "
+            f"an iteration, {rec['host_syncs']} host synchronizations), "
+            f"total {rec['total_s']:.1f}s, peak memory "
+            f"{rec['peak_gib']:.2f} GiB ({rec['allocated_before_gib']:.2f} "
+            f"GiB held before the run); NMSE {rec['nmse']:.5f} (LS "
+            f"{rec['ls_nmse']:.5f})"
+            + (f", rate {rec['rate']:.4f}" if rec["rate"] is not None
+               else "") + f"; engaged {rec['engaged']}; {card}")
+        for key, want in engaged.items():
+            if rec["engaged"][key] != want:
+                raise AssertionError(f"run_gmm_quant {label}: {key} "
+                                     f"engaged {rec['engaged'][key]}")
+        if not (math.isfinite(rec["nmse"]) and rec["nmse"] < rec["ls_nmse"]):
+            raise AssertionError(f"run_gmm_quant {label}: NMSE "
+                                 f"{rec['nmse']} not below LS "
+                                 f"{rec['ls_nmse']}")
+        if rec["rate"] is not None and not math.isfinite(rec["rate"]):
+            raise AssertionError(f"run_gmm_quant {label}: rate "
+                                 f"{rec['rate']}")
+    frontier_s = time.time() - t_front
+    log(f"CSI-free frontier phase 3f: {frontier_s:.1f}s")
 
     # 3d. the service over in-process meshes of 1 x 2 and 2 x 2 shards: the
     # dense, structured (K = 64, and the K = 256 spectra-native prior in two
@@ -3031,9 +3224,11 @@ def main():
         "gmm_quant": quant,
         "cov_recovery": {"n_data": n_list, "nmse": cov_rec,
                          "seconds": cov_rec_s},
+        "gmm_quant_frontier": frontier,
         "new_phases_seconds": {"toeplitz": toep_s,
                                "mesh_service": mesh_serve_s,
-                               "csi_free": quant_s},
+                               "csi_free": quant_s,
+                               "csi_free_frontier": frontier_s},
         "kernel_tools": {"seconds": tools_s, "launches": launches_tools,
                          "kernel_bench_ms": bench["ms"],
                          "split_bench": split},

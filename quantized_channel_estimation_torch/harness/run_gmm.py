@@ -123,10 +123,7 @@ def _structured(cfg: GmmBenchConfig) -> bool:
     return cfg.cov_type in ("circulant", "block-circulant")
 
 
-def _generator(seq: np.random.SeedSequence,
-               device: torch.device) -> torch.Generator:
-    seed = int(seq.generate_state(1, dtype=np.uint64)[0] >> 1)
-    return torch.Generator(device=device).manual_seed(seed)
+_generator = stages.seed_generator
 
 
 def _model_tag(cfg: GmmBenchConfig) -> str:
@@ -159,7 +156,8 @@ def _get_data(cfg: GmmBenchConfig, gen: torch.Generator, sharded=None):
                             n_coherence=cfg.n_coherence)
     h, t = stages.generate_channels(gen,
                                     n_channels // max(1, cfg.n_coherence),
-                                    scm_cfg)
+                                    scm_cfg,
+                                    stages.auto_gen_chunk(cfg.n_antennas))
     if cfg.use_cache and (sharded is None or sharded.writer):
         qio.save_channels(path, h.cpu().numpy(), t.cpu().numpy())
     return h, t

@@ -2,8 +2,10 @@
 
 Port of `quantized_channel_estimation_tpu/harness/stages.py`:
 `generate_channels`, `pilot_matrix`, `sample_cov`, `observe`,
+`auto_gen_chunk`, `stream_quantized_pilots`,
 `blmmse_global`, `blmmse_genie`, `ls_global`, `gmm_fit`, `gmm_fit_resume`,
-`gmm_quant_fit`, `gmm_quant_fit_resume`, `prepare_bank`,
+`gmm_quant_fit`, `gmm_quant_fit_resume`, `gmm_quant_fit_circulant_spectra`,
+`prepare_bank`,
 `nmse`, `rate`, `rate_mf`, `estimate_auto`, `estimate_coherent`,
 `estimate_coherent_auto`, `flatten_coherence`, for the structured banks
 `prepare_bank_circulant`, `prepare_bank_circulant_spectra`,
@@ -22,6 +24,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -45,6 +48,15 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the port "
             "on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def seed_generator(seq: np.random.SeedSequence,
+                   device: torch.device) -> torch.Generator:
+    """A `torch.Generator` on `device` seeded from a numpy SeedSequence
+    (the harnesses' streams: one SeedSequence a purpose, spawned from the
+    config's seed)."""
+    seed = int(seq.generate_state(1, dtype=np.uint64)[0] >> 1)
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def generate_channels(gen: torch.Generator, n_batches: int,
@@ -76,6 +88,56 @@ def sample_cov(h: torch.Tensor) -> torch.Tensor:
 
 
 observe = observation.observe
+
+
+def auto_gen_chunk(n_antennas: int) -> int:
+    """The SCM generation chunk by width: the generator's temporaries are
+    chunk x 100 D elements per live array, so the chunk shrinks as D grows
+    (chunk x D ~ 2M elements), floored at 128 rows (64 beyond D = 32768)."""
+    floor = 64 if n_antennas > 32768 else 128
+    return max(floor, min(8192, (2048 * 1024) // max(1, n_antennas)))
+
+
+def stream_quantized_pilots(seq_data: np.random.SeedSequence,
+                            seq_obs: np.random.SeedSequence, n_batches: int,
+                            scm_cfg: scm.ScmConfig, snr_db, a, n_bits,
+                            q=None, slab: Optional[int] = None,
+                            gen_chunk: Optional[int] = None,
+                            want_cov: bool = False, device=None):
+    """Slab-streamed quantized-pilot datagen: slab i's channels are drawn
+    from the i-th child of `seq_data`, observed with the i-th child of
+    `seq_obs` (`SeedSequence.spawn`: children never collide with each
+    other nor with any other spawn of the parents), written into the
+    preallocated (n_batches, M) pilots, and dropped before the next slab,
+    so the clean training set never exists whole. The draw is an i.i.d.
+    data set, not the one-shot `generate_channels` draw. With `want_cov`
+    the sample covariance is summed slab by slab (`sample_cov`'s math), so
+    the rate bounds need no clean channels. Returns (r, cov), cov None
+    without `want_cov`."""
+    if n_batches <= 0:
+        raise ValueError(f"n_batches must be positive (got {n_batches})")
+    device = resolve_device(device)
+    d = scm_cfg.n_antennas
+    gen_chunk = gen_chunk or auto_gen_chunk(d)
+    slab = slab or max(gen_chunk, (4096 * 2048) // max(1, d))
+    n_slabs = -(-n_batches // slab)
+    m = d if a is None or a.dim() == 0 else a.shape[0]
+    r = torch.empty((n_batches, m), dtype=torch.complex64, device=device)
+    cov = (torch.zeros((d, d), dtype=torch.complex64, device=device)
+           if want_cov else None)
+    for i, (s_data, s_obs) in enumerate(zip(seq_data.spawn(n_slabs),
+                                            seq_obs.spawn(n_slabs))):
+        i0 = i * slab
+        n = min(slab, n_batches - i0)
+        h, _ = generate_channels(seed_generator(s_data, device), n, scm_cfg,
+                                 gen_chunk)
+        r[i0:i0 + n] = observe(seed_generator(s_obs, device), h, snr_db, a,
+                               n_bits, q)
+        if want_cov:
+            cov += h.T @ h.conj()
+        del h
+    return r, None if cov is None else cov / n_batches
+
 blmmse_global = blmmse.estimate_global
 blmmse_genie = blmmse.estimate_genie
 ls_global = ls.estimate_global
@@ -83,6 +145,7 @@ gmm_fit = gmm.fit
 gmm_fit_resume = gmm.fit_resume
 gmm_quant_fit = gmm_quant.fit
 gmm_quant_fit_resume = gmm_quant.fit_resume
+gmm_quant_fit_circulant_spectra = gmm_quant.fit_circulant_spectra
 mfa_fit = mfa.fit
 mfa_to_gmm = mfa.to_gmm_params
 prepare_bank = gmm_estimator.prepare_bank
@@ -291,7 +354,8 @@ def sharded_stages(n_data_shards: int = 1, n_component_shards: int = 1):
 class ShardedStages:
     """Mesh-parallel stage set for the harness runners (JAX
     `stages.ShardedStages`): fits run data-parallel over 'data'
-    (`parallel.mesh.fit_gmm_shard_map` / `fit_mfa_shard_map`); 'all'-mode
+    (`parallel.mesh.fit_gmm_shard_map` / `fit_mfa_shard_map` /
+    `fit_gmm_quant_shard_map` / `fit_circulant_spectra_shard_map`); 'all'-mode
     estimation runs through the sharded stats merges (samples on 'data',
     bank on 'component': `estimate_sharded_kernel` with K2,
     `estimate_sharded_circulant` with K8 / K9, `estimate_sharded_factored`
@@ -330,10 +394,14 @@ class ShardedStages:
     def mfa_fit(self, gen, x, cfg):
         return pmesh.fit_mfa_shard_map(self.mesh, gen, x, cfg)
 
-    def gmm_quant_fit(self, *args, **kwargs):
-        raise NotImplementedError("the data-parallel quantized-training EM "
-                                  "is not ported yet (ROADMAP Queue 1 item "
-                                  "10, 10b)")
+    def gmm_quant_fit(self, gen, r, cfg, n_bits, sigma2, q=None):
+        return pmesh.fit_gmm_quant_shard_map(self.mesh, gen, r, cfg, n_bits,
+                                             sigma2, q)
+
+    def gmm_quant_fit_circulant_spectra(self, gen, r, cfg, n_bits, sigma2,
+                                        q=None):
+        return pmesh.fit_circulant_spectra_shard_map(self.mesh, gen, r, cfg,
+                                                     n_bits, sigma2, q)
 
     def _whole(self, x: torch.Tensor) -> torch.Tensor:
         return pmesh.gather_data(self.mesh, x)

@@ -28,14 +28,16 @@ log-norm) are all-reduced, so every rank runs the same M-step; the init is
 the data-parallel k-means or the global random stream's window, and the
 lower bound is over the global n. `GmmConfig.psum_segments` S > 1 splits
 the pass into S segments whose partial statistics are all-reduced
-asynchronously while later chunks compute (JAX `segmented_psum_scan`);
-'auto' is 1.
+asynchronously while later chunks compute (JAX `segmented_psum_scan`;
+`chunked_pass`, which the quantized EMs share); 'auto' is 1.
+`params_from_numpy`, `quant_fit_from_numpy` and `quant_circ_fit_from_numpy`
+carry JAX fits across.
 """
 from __future__ import annotations
 
 import math
 import os
-from typing import List, NamedTuple, Optional, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -125,6 +127,25 @@ def quant_fit_from_numpy(params, cov_quant, device=None,
                      device=device), int(n_iter), bool(converged), [])
 
 
+def quant_circ_fit_from_numpy(weights, means, spectra, spec_quant,
+                              device=None, lower_bound: float = math.nan,
+                              n_iter: int = 0, converged: bool = False):
+    """The JAX package's `gmm_quant.QuantCircFitResult` as numpy arrays
+    (weights (K,), data-domain means (K, D), channel spectra and
+    quantized-observation spectra (K, D)), with its telemetry, -> the
+    port's `gmm_quant.QuantCircFitResult` on `device`, which
+    `gmm_quant.fit_circulant_spectra_resume` continues and the harnesses
+    estimate from."""
+    from quantized_channel_estimation_torch.models.gmm_quant import (
+        QuantCircFitResult)
+    w, mu, spec, spec_q = (torch.as_tensor(np.array(x), device=device)
+                           for x in (weights, means, spectra, spec_quant))
+    return QuantCircFitResult(
+        w, mu, spec, spec_q,
+        torch.tensor(float(lower_bound), dtype=w.dtype, device=device),
+        int(n_iter), bool(converged), [])
+
+
 def log_prob_full(x: torch.Tensor, means: torch.Tensor,
                   prec_chol: torch.Tensor) -> torch.Tensor:
     """log CN(x; mu_k, C_k) for x (N, D) -> (N, K):
@@ -208,39 +229,57 @@ def resp_chunk(xc: torch.Tensor, log_weights: torch.Tensor, log_prob_fn):
     return torch.exp(lp - log_norm[:, None]), log_norm.sum()
 
 
-def accumulate_stats(x: torch.Tensor, log_weights: torch.Tensor, log_prob_fn,
-                     chunk: int, diag: bool = False, group=None,
-                     psum_segments: Union[int, str] = 1) -> _Stats:
-    """One pass over the data: responsibilities chunk by chunk, accumulated
-    into (Nk, sum r.x, sum r.xx^H or sum r.|x|^2, sum log-norm). With a
-    process group the statistics are all-reduced over it; psum_segments
-    S > 1 all-reduces S partial sums asynchronously as each segment of the
-    pass finishes (equal to one all-reduce of the total up to float32
-    summation order)."""
-    starts = list(range(0, x.shape[0], chunk))
+def chunked_pass(n_rows: int, chunk: int, zero: Callable[[], NamedTuple],
+                 body: Callable, group=None,
+                 psum_segments: Union[int, str] = 1):
+    """One pass over rows [0, n_rows) in chunks: `body(stats, i0)` adds the
+    chunk that starts at row i0 to the statistics `zero()` starts from (a
+    NamedTuple of tensors, None fields allowed). With a process group the
+    statistics are all-reduced over it; psum_segments S > 1 all-reduces S
+    partial sums asynchronously as each segment of the pass finishes (equal
+    to one all-reduce of the total up to float32 summation order)."""
+    starts = list(range(0, n_rows, chunk))
     segs = (1 if group is None
             else max(1, min(_resolve_segments(psum_segments), len(starts))))
     bounds = [round(i * len(starts) / segs) for i in range(segs + 1)]
     pending = []
     for seg in range(segs):
-        stats = _zero_stats(log_weights.shape[0], x.shape[-1], x.dtype,
-                            x.device, diag)
+        stats = zero()
         for i0 in starts[bounds[seg]:bounds[seg + 1]]:
-            xc = x[i0:i0 + chunk]
-            resp, log_norm = resp_chunk(xc, log_weights, log_prob_fn)
-            stats = _update_stats(stats, resp, xc, log_norm)
+            stats = body(stats, i0)
         if group is None:
             return stats
-        buf = pack(list(stats))
+        fields = [t for t in stats if t is not None]
+        buf = pack(fields)
         pending.append((buf, dist.all_reduce(buf, group=group,
                                              async_op=True)))
     total = None
     for buf, work in pending:
         work.wait()
-        part = _Stats(*unpack(buf, list(stats)))
-        total = part if total is None else _Stats(
-            *(a + b for a, b in zip(total, part)))
-    return total
+        part = unpack(buf, fields)
+        total = part if total is None else [a + b for a, b in zip(total,
+                                                                  part)]
+    summed = iter(total)
+    return type(stats)(*(None if t is None else next(summed)
+                         for t in stats))
+
+
+def accumulate_stats(x: torch.Tensor, log_weights: torch.Tensor, log_prob_fn,
+                     chunk: int, diag: bool = False, group=None,
+                     psum_segments: Union[int, str] = 1) -> _Stats:
+    """One pass over the data: responsibilities chunk by chunk, accumulated
+    into (Nk, sum r.x, sum r.xx^H or sum r.|x|^2, sum log-norm), all-reduced
+    over `group` as `chunked_pass` does."""
+    def body(stats: _Stats, i0: int) -> _Stats:
+        xc = x[i0:i0 + chunk]
+        resp, log_norm = resp_chunk(xc, log_weights, log_prob_fn)
+        return _update_stats(stats, resp, xc, log_norm)
+
+    return chunked_pass(
+        x.shape[0], chunk,
+        lambda: _zero_stats(log_weights.shape[0], x.shape[-1], x.dtype,
+                            x.device, diag),
+        body, group, psum_segments)
 
 
 def _means_from_stats(stats: _Stats, zero_mean: bool):

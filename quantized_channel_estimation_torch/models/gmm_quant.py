@@ -1,12 +1,14 @@
 """Complex GMM fitted by EM on quantized observations alone (CSI-free
 training), recovering the channel covariances every M-step.
 
-Port of the dense-dataset part of
-`quantized_channel_estimation_tpu/models/gmm_quant.py`:
+Port of `quantized_channel_estimation_tpu/models/gmm_quant.py`:
 `QuantGmmFitResult`, the quantized-EM states and statistics, `_accumulate`,
 `_accumulate_diag`, `_run_quant_em_diag`, `_recover_covs`, `_prep`, `fit`,
-`_run_quant_em` and `fit_resume`. The spectra-native circulant EM
-(`fit_circulant_spectra`) is not ported here.
+`_run_quant_em` and `fit_resume` (the dense EM), and the spectra-native
+circulant EM: `_QStatsCirc`, `_QStateCirc`, `QuantCircFitResult`, `_ufft`,
+`_accumulate_circ`, `_recover_circ`, `_run_quant_em_circ`,
+`_INIT_ELEM_BUDGET`, `_streamed_init_stats`, `_circ_state0`,
+`fit_circulant_spectra` and `fit_circulant_spectra_resume`.
 
 Model state per component k: the channel covariance C_k (recovered, the
 quantity of interest) and the quantized-observation covariance Cq_k (it
@@ -28,9 +30,31 @@ projected onto the circulant cone through the DFT diagonal).
 One pass over the data per iteration computes the E-step, the moments
 (`gmm._update_stats`) and the recovery sums (1-bit correlation, bin
 occupancy; `ops.cov_recovery`). The loop is a Python loop with the JAX
-stopping rule. Products run in full fp32 (`ops.precision.pin_fp32`):
+stopping rule, read on the host once an iteration. Products run in full fp32 (`ops.precision.pin_fp32`):
 `psd_project_polar`'s guard lies below TF32's error. The carries are
 complex64 as the JAX EM's float32 ones.
+
+The spectra-native circulant EM (`fit_circulant_spectra`, the frontier-D
+entry) never forms a (K, D, D) array: each chunk's unitary DFT feeds a
+diagonal E-step (`gmm.log_prob_diag`, a GEMM) and the statistics are
+(K, D) spectra sums, |F r|^2 of the rows and of their 1-bit
+requantization, and (K, B, 2) bin occupancies pooled over dimensions;
+the recovery (arcsine law, one 1-D Gauss-Newton a component) acts on the
+first rows of the projected statistics, and the PSD projection is a clip
+of the spectrum. O(N K D + N D log D) an iteration. Beyond
+`_INIT_ELEM_BUDGET` rows x dimensions its k-means init clusters a row
+prefix and assigns the rest chunk by chunk (`_streamed_init_stats`), so
+no full-dataset DFT exists either.
+
+Data parallelism (JAX `GmmConfig.axis_name` under `shard_map`): `fit`,
+`fit_from_stats`, `fit_resume` and the spectra fits take `group=`, as
+`gmm.fit` does: r is this rank's equal window of the global rows, every
+statistic (moments, 1-bit correlation, occupancy counts, spectra sums) is
+all-reduced over the group (`gmm.chunked_pass`, `cfg.psum_segments`), the
+lower bound is over the global n and the init is the data-parallel one
+(`gmm._init_resp_stats(..., group=)`; the streamed init is for one device
+only, as in JAX). The Gauss-Newton restarts draw from `gen`, which must be
+seeded alike on every rank, so the M-step stays replicated.
 
 Deviations from the JAX package:
 - the Gauss-Newton restarts draw from the fit's `torch.Generator`
@@ -47,17 +71,21 @@ from __future__ import annotations
 import math
 from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from quantized_channel_estimation_torch.models import gmm
+from quantized_channel_estimation_torch.models import kmeans as km
 from quantized_channel_estimation_torch.models.gmm import (
     GmmConfig, GmmParams)
 from quantized_channel_estimation_torch.ops import cov_recovery, linalg
+from quantized_channel_estimation_torch.ops.cplx import cplx2real
 from quantized_channel_estimation_torch.ops.bussgang import (
     bank_gains_and_cov, bussgang_gain_diag, quantized_variance)
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
 from quantized_channel_estimation_torch.ops.quantizer import (
     ScalarQuantizer, is_inf_bits)
+from quantized_channel_estimation_torch.parallel.comm import Comm
 
 COV_TYPES = ("full", "toeplitz", "block-toeplitz", "diag", "spherical",
              "circulant")
@@ -100,31 +128,44 @@ class _QStats(NamedTuple):
 
 
 def _accumulate(x: torch.Tensor, log_weights: torch.Tensor, log_prob_fn,
-                chunk: int, pos_tau: Optional[torch.Tensor],
-                diag: bool) -> _QStats:
+                chunk: int, pos_tau: Optional[torch.Tensor], diag: bool,
+                group=None, psum_segments=1) -> _QStats:
     """The fused E-step and statistics pass over x chunk by chunk: the
     moments (sum r, sum r.x, sum r.xx^H or r.|x|^2, sum log p(x)) and,
     with n-bit thresholds `pos_tau`, the bin occupancy and (full models)
-    the 1-bit correlation of the same responsibilities."""
+    the 1-bit correlation of the same responsibilities; all-reduced over
+    `group`."""
     k = log_weights.shape[0]
-    n, d = x.shape
-    base = gmm._zero_stats(k, d, x.dtype, x.device, diag)
-    corr = below = None
-    if pos_tau is not None:
-        below = torch.zeros((k, d, pos_tau.shape[0], 2),
-                            dtype=base.nk.dtype, device=x.device)
-        if not diag:
-            corr = torch.zeros((k, d, d), dtype=x.dtype, device=x.device)
-    for i0 in range(0, n, chunk):
+    d = x.shape[-1]
+
+    def zero() -> _QStats:
+        base = gmm._zero_stats(k, d, x.dtype, x.device, diag)
+        corr = below = None
+        if pos_tau is not None:
+            below = torch.zeros((k, d, pos_tau.shape[0], 2),
+                                dtype=base.nk.dtype, device=x.device)
+            if not diag:
+                corr = torch.zeros((k, d, d), dtype=x.dtype, device=x.device)
+        return _QStats(base.nk, base.sx, base.sxx, corr, below,
+                       base.log_norm)
+
+    def body(stats: _QStats, i0: int) -> _QStats:
         xc = x[i0:i0 + chunk]
         resp, log_norm = gmm.resp_chunk(xc, log_weights, log_prob_fn)
-        base = gmm._update_stats(base, resp, xc, log_norm)
+        base = gmm._update_stats(
+            gmm._Stats(stats.nk, stats.sx, stats.sxx, stats.log_norm), resp,
+            xc, log_norm)
+        corr, below = stats.corr_1bit, stats.below
         if pos_tau is not None:
             below = below + cov_recovery.occupancy(xc, resp, pos_tau)
             if not diag:
                 corr = corr + cov_recovery.weighted_gram(
                     resp, cov_recovery.one_bit_requantize(xc))
-    return _QStats(base.nk, base.sx, base.sxx, corr, below, base.log_norm)
+        return _QStats(base.nk, base.sx, base.sxx, corr, below,
+                       base.log_norm)
+
+    return gmm.chunked_pass(x.shape[0], chunk, zero, body, group,
+                            psum_segments)
 
 
 def _recover_covs(stats: _QStats, cfg: GmmConfig, n_bits, sigma2,
@@ -204,23 +245,29 @@ def _em(state, step, n: int, cfg: GmmConfig):
     """The EM loop with the JAX stopping rule: |change of the mean
     log-likelihood| < tol after at least one iteration, at most max_iter,
     a NaN lower bound stops it. `step(state)` returns the next state and
-    the sum of the rows' log-normalizers. Returns (state, lower bound,
-    n_iter, converged, lower bound after each iteration)."""
-    rdt, dev = state.weights.dtype, state.weights.device
-    lb = torch.tensor(-math.inf, dtype=rdt, device=dev)
-    prev = torch.tensor(math.inf, dtype=rdt, device=dev)
+    the sum of the rows' log-normalizers; n is the global row count. The
+    lower bound is read on the host once an iteration and the rule is
+    evaluated there in float32, as on the device. Returns (state, lower
+    bound, n_iter, converged, lower bound after each iteration)."""
+    tol = np.float32(cfg.tol)
+    lb_f, prev_f = np.float32(-np.inf), np.float32(np.inf)
+    lb = None
     n_iter, history = 0, []
-    while n_iter < cfg.max_iter and bool((lb - prev).abs() >= cfg.tol):
+    while n_iter < cfg.max_iter and abs(lb_f - prev_f) >= tol:
         state, log_norm = step(state)
-        prev, lb = lb, log_norm / n
+        lb = log_norm / n
+        prev_f, lb_f = lb_f, np.float32(lb.item())
         n_iter += 1
-        history.append(float(lb))
-    return state, lb, n_iter, bool((lb - prev).abs() < cfg.tol), history
+        history.append(float(lb_f))
+    if lb is None:
+        lb = torch.tensor(-math.inf, dtype=state.weights.dtype,
+                          device=state.weights.device)
+    return state, lb, n_iter, bool(abs(lb_f - prev_f) < tol), history
 
 
 def _run_quant_em_diag(x: torch.Tensor, state: _QStateDiag, cfg: GmmConfig,
-                       n_bits, sigma2, q, pos_tau,
-                       gen: torch.Generator) -> QuantGmmFitResult:
+                       n_bits, sigma2, q, pos_tau, gen: torch.Generator,
+                       group=None) -> QuantGmmFitResult:
     """Diagonal quantized EM: per-dimension variances from bin occupancy
     (n bits) or the sample moment (inf), the exact quantized variance for
     the E-step. Returns the densified result, as the clean EM's diagonal
@@ -232,7 +279,7 @@ def _run_quant_em_diag(x: torch.Tensor, state: _QStateDiag, cfg: GmmConfig,
         stats = _accumulate(
             x, torch.log(state.weights),
             lambda xc: gmm.log_prob_diag(xc, means, var_quant), chunk,
-            pos_tau, True)
+            pos_tau, True, group, cfg.psum_segments)
         nk = stats.nk + 10.0 * gmm._F32_EPS
         means = (torch.zeros_like(means) if cfg.zero_mean
                  else stats.sx / nk[:, None].to(means.dtype))
@@ -252,8 +299,8 @@ def _run_quant_em_diag(x: torch.Tensor, state: _QStateDiag, cfg: GmmConfig,
         return (_QStateDiag(nk / nk.sum(), means, var, var_quant),
                 stats.log_norm)
 
-    state, lb, n_iter, converged, history = _em(state, step, x.shape[0],
-                                                cfg)
+    state, lb, n_iter, converged, history = _em(
+        state, step, Comm(group, x.shape[0], x.device).n_global, cfg)
     dtype = state.means.dtype
     covs = torch.diag_embed(state.var.to(dtype))
     prec = torch.diag_embed((1.0 / torch.sqrt(state.var)).to(dtype))
@@ -265,11 +312,12 @@ def _run_quant_em_diag(x: torch.Tensor, state: _QStateDiag, cfg: GmmConfig,
 
 def _run_quant_em(x: torch.Tensor, state: _QState, cfg: GmmConfig, n_bits,
                   sigma2, q, pos_tau, f2: Optional[torch.Tensor],
-                  gen: torch.Generator) -> QuantGmmFitResult:
+                  gen: torch.Generator, group=None) -> QuantGmmFitResult:
     """The quantized EM of the full-covariance types from a given state
     (`fit` and `fit_resume`)."""
     n, d = x.shape
     chunk = min(cfg.chunk_size, n)
+    n = Comm(group, n, x.device).n_global
     inv_em = cfg.cov_type in ("toeplitz", "block-toeplitz")
     reg = cfg.reg_covar
     eye = torch.eye(d, dtype=x.dtype, device=x.device)
@@ -280,7 +328,7 @@ def _run_quant_em(x: torch.Tensor, state: _QState, cfg: GmmConfig, n_bits,
         stats = _accumulate(
             x, torch.log(state.weights),
             lambda xc: gmm.log_prob_full(xc, means, prec_q), chunk, pos_tau,
-            False)
+            False, group, cfg.psum_segments)
         nk = stats.nk + 10.0 * gmm._F32_EPS
         means = (torch.zeros_like(means) if cfg.zero_mean
                  else stats.sx / nk[:, None].to(means.dtype))
@@ -352,44 +400,53 @@ def _state0(init: gmm._Stats, cfg: GmmConfig,
 
 def fit_from_stats(gen: torch.Generator, r: torch.Tensor,
                    init_stats: gmm._Stats, cfg: GmmConfig, n_bits, sigma2,
-                   q: Optional[ScalarQuantizer] = None) -> QuantGmmFitResult:
+                   q: Optional[ScalarQuantizer] = None,
+                   group=None) -> QuantGmmFitResult:
     """`fit` from given initial statistics (those of a hard assignment:
-    `gmm._stats_from_labels`, diagonal for 'diag' / 'spherical')."""
+    `gmm._stats_from_labels`, diagonal for 'diag' / 'spherical'; under a
+    group, the global statistics)."""
     pin_fp32()
     pos_tau, f2 = _prep(r, cfg, n_bits, q)
     if cfg.cov_type in ("diag", "spherical"):
         return _run_quant_em_diag(r, _diag_state0(init_stats, cfg), cfg,
-                                  n_bits, sigma2, q, pos_tau, gen)
+                                  n_bits, sigma2, q, pos_tau, gen, group)
     return _run_quant_em(r, _state0(init_stats, cfg, f2), cfg, n_bits,
-                         sigma2, q, pos_tau, f2, gen)
+                         sigma2, q, pos_tau, f2, gen, group)
 
 
 def fit(gen: torch.Generator, r: torch.Tensor, cfg: GmmConfig, n_bits,
-        sigma2, q: Optional[ScalarQuantizer] = None) -> QuantGmmFitResult:
+        sigma2, q: Optional[ScalarQuantizer] = None,
+        group=None) -> QuantGmmFitResult:
     """Fit on quantized observations r (N, M) on r's device; sigma2 is the
     training SNR's noise variance and q the quantizer of r (on r's
     device; it encodes the design, so JAX's `quantizer_type` argument has
     no counterpart). `gen` draws the k-means (or random) init and the Gauss-Newton
     restarts. 'circulant' runs the dense recovery and then projects (a
     same-init A/B at D = 64, K = 8, 2 bits measured it 5-9% better in NMSE
-    than recovering on the projected statistics)."""
+    than recovering on the projected statistics). With `group`, r is
+    this rank's window of the global rows and the EM runs data-parallel
+    over the group (every rank returns the fit of the global rows up to
+    float32 summation order; `gen` seeded alike on every rank)."""
     pin_fp32()
     _prep(r, cfg, n_bits, q)
     init_stats = gmm._init_resp_stats(gen, r, cfg, cfg.chunk_size,
-                                      cfg.cov_type in ("diag", "spherical"))
-    return fit_from_stats(gen, r, init_stats, cfg, n_bits, sigma2, q)
+                                      cfg.cov_type in ("diag", "spherical"),
+                                      group)
+    return fit_from_stats(gen, r, init_stats, cfg, n_bits, sigma2, q, group)
 
 
 def fit_resume(gen: torch.Generator, prev, r: torch.Tensor, cfg: GmmConfig,
                n_bits, sigma2, q: Optional[ScalarQuantizer] = None,
-               spectrum: Optional[torch.Tensor] = None) -> QuantGmmFitResult:
+               spectrum: Optional[torch.Tensor] = None,
+               group=None) -> QuantGmmFitResult:
     """Continue the quantized EM from a previous result `prev` (anything
     with `params` and `cov_quant`; a checkpoint restart). `gen` draws the
     Gauss-Newton restarts only. 'toeplitz' / 'block-toeplitz': given
     `spectrum` (the previous result's), the loop continues exactly where
     that fit stopped; else, as JAX does, from the saved covariances and the
     spectrum recovered from them (`linalg.spectrum_from_covariance`), which
-    is inexact at D = 64 and steps the lower bound back."""
+    is inexact at D = 64 and steps the lower bound back. `group` as in
+    `fit`."""
     pin_fp32()
     pos_tau, f2 = _prep(r, cfg, n_bits, q)
     dev, dtype = r.device, r.dtype
@@ -402,7 +459,7 @@ def fit_resume(gen: torch.Generator, prev, r: torch.Tensor, cfg: GmmConfig,
             torch.diagonal(params.covariances, dim1=-2, dim2=-1).real,
             torch.diagonal(cov_quant, dim1=-2, dim2=-1).real)
         return _run_quant_em_diag(r, state0, cfg, n_bits, sigma2, q,
-                                  pos_tau, gen)
+                                  pos_tau, gen, group)
     covs = params.covariances.to(dtype)
     k = params.weights.shape[0]
     if cfg.cov_type in ("toeplitz", "block-toeplitz"):
@@ -418,4 +475,279 @@ def fit_resume(gen: torch.Generator, prev, r: torch.Tensor, cfg: GmmConfig,
                                  dtype=params.weights.dtype, device=dev)
     state0 = _QState(params.weights, params.means, covs, cov_quant,
                      sigma_spec)
-    return _run_quant_em(r, state0, cfg, n_bits, sigma2, q, pos_tau, f2, gen)
+    return _run_quant_em(r, state0, cfg, n_bits, sigma2, q, pos_tau, f2, gen,
+                         group)
+
+
+# ---------------------------------------------------------------------------
+# the spectra-native circulant quantized EM (the frontier-D entry)
+# ---------------------------------------------------------------------------
+
+class _QStatsCirc(NamedTuple):
+    nk: torch.Tensor                 # (K,)
+    sx_f: torch.Tensor               # (K, D) complex: DFT-domain mean sums
+    sxx_f: torch.Tensor              # (K, D) real: sum r |F x|^2, the
+    #                                  spectrum of the circulant projection
+    #                                  of the weighted sample covariance
+    spec_q1: Optional[torch.Tensor]  # (K, D): the same of the 1-bit
+    #                                  requantized rows (n bits only)
+    below: Optional[torch.Tensor]    # (K, B, 2): bin occupancy pooled over
+    #                                  dimensions (n bits only)
+    log_norm: torch.Tensor
+
+
+class _QStateCirc(NamedTuple):
+    weights: torch.Tensor
+    means_f: torch.Tensor     # (K, D) complex DFT-domain means (0 zero_mean)
+    spec_chan: torch.Tensor   # (K, D) recovered channel spectra
+    spec_quant: torch.Tensor  # (K, D) quantized-observation spectra (E-step)
+
+
+class QuantCircFitResult(NamedTuple):
+    """The spectra-native result: `structured_bank.prepare_bank_circulant(
+    spectra=)` takes it as it is, with no dense (K, D, D) anywhere."""
+    weights: torch.Tensor     # (K,)
+    means: torch.Tensor       # (K, D) complex, data domain
+    spectra: torch.Tensor     # (K, D) recovered channel spectra
+    spec_quant: torch.Tensor  # (K, D)
+    lower_bound: torch.Tensor
+    n_iter: int
+    converged: bool
+    lb_history: List[float]   # lower bound after each EM iteration
+
+
+def _ufft(x: torch.Tensor) -> torch.Tensor:
+    """The unitary DFT along the last axis, fft / sqrt(D)."""
+    return torch.fft.fft(x, dim=-1) / math.sqrt(x.shape[-1])
+
+
+def _below_counts(xc: torch.Tensor, pos_tau: torch.Tensor) -> torch.Tensor:
+    """(nc, B, 2): for each row, the dimensions whose |Re| / |Im| lie below
+    each positive threshold (one (nc, D) comparison at a time)."""
+    return torch.stack(
+        [torch.stack([(part.abs() < t).sum(-1) for t in pos_tau], -1)
+         for part in (xc.real, xc.imag)], -1)
+
+
+def _accumulate_circ(x: torch.Tensor, log_weights: torch.Tensor,
+                     means_f: torch.Tensor, spec_quant: torch.Tensor,
+                     pos_tau: Optional[torch.Tensor], chunk: int, group=None,
+                     psum_segments=1) -> _QStatsCirc:
+    """The fused E-step and circulant recovery statistics: each chunk's
+    unitary DFT feeds the diagonal DFT-domain E-step; with n-bit
+    thresholds also the spectrum of the 1-bit requantized rows and the
+    dimension-pooled bin occupancy. Every field is a data sum, all-reduced
+    over `group`."""
+    k = log_weights.shape[0]
+    d = x.shape[-1]
+    rdt = x.real.dtype
+
+    def zero() -> _QStatsCirc:
+        spec_q1 = below = None
+        if pos_tau is not None:
+            spec_q1 = torch.zeros((k, d), dtype=rdt, device=x.device)
+            below = torch.zeros((k, pos_tau.shape[0], 2), dtype=rdt,
+                                device=x.device)
+        return _QStatsCirc(
+            torch.zeros(k, dtype=rdt, device=x.device),
+            torch.zeros((k, d), dtype=x.dtype, device=x.device),
+            torch.zeros((k, d), dtype=rdt, device=x.device), spec_q1, below,
+            torch.zeros((), dtype=rdt, device=x.device))
+
+    def body(stats: _QStatsCirc, i0: int) -> _QStatsCirc:
+        xc = x[i0:i0 + chunk]
+        u = _ufft(xc)
+        resp, log_norm = gmm.resp_chunk(
+            u, log_weights,
+            lambda uu: gmm.log_prob_diag(uu, means_f, spec_quant))
+        spec_q1, below = stats.spec_q1, stats.below
+        if pos_tau is not None:
+            uq = _ufft(cov_recovery.one_bit_requantize(xc))
+            spec_q1 = spec_q1 + resp.T @ (uq.real ** 2 + uq.imag ** 2)
+            cnt = _below_counts(xc, pos_tau)
+            below = below + (resp.T @ cnt.reshape(cnt.shape[0], -1).to(
+                resp.dtype)).reshape(below.shape)
+        return _QStatsCirc(stats.nk + resp.sum(0),
+                           stats.sx_f + resp.to(u.dtype).T @ u,
+                           stats.sxx_f + resp.T @ (u.real ** 2
+                                                   + u.imag ** 2),
+                           spec_q1, below, stats.log_norm + log_norm)
+
+    return gmm.chunked_pass(x.shape[0], chunk, zero, body, group,
+                            psum_segments)
+
+
+def _recover_circ(stats: _QStatsCirc, cfg: GmmConfig, n_bits, sigma2, q,
+                  pos_tau, prev_spec_quant: torch.Tensor,
+                  gen: torch.Generator):
+    """Channel-spectrum recovery and quantized-spectrum resynthesis, the
+    spectrum-domain restatement of `_recover_covs`: the arcsine law and the
+    occupancy scale act on the projected statistics' first rows, the PSD
+    projection is a spectrum clip, and the resynthesis takes the
+    constant-diagonal closed forms of the structured bank."""
+    d = stats.sxx_f.shape[-1]
+    nk, reg = stats.nk, cfg.reg_covar
+    spec_samp = stats.sxx_f / nk[:, None]
+    if n_bits == 1:
+        spec_quant = spec_samp + reg
+        # 1-bit data are their own requantization (|r_d| = 1)
+        row = cov_recovery.arcsine_correlation(
+            linalg.circulant_first_rows(spec_samp))
+        spec_chan = linalg.circulant_spectra_from_first_rows(row).clamp(
+            min=reg)
+    elif is_inf_bits(n_bits):
+        spec_chan = (spec_samp - sigma2).clamp(min=reg)
+        spec_quant = spec_chan + sigma2
+    else:
+        row = cov_recovery.arcsine_correlation(
+            linalg.circulant_first_rows(stats.spec_q1 / nk[:, None]))
+        spec_corr = linalg.circulant_spectra_from_first_rows(row).clamp(
+            min=0.0)
+        # one scale a component from the dimension-pooled occupancy (a
+        # circulant covariance has a constant diagonal): one 1-D
+        # Gauss-Newton problem each
+        x0 = prev_spec_quant.mean(-1)[:, None]
+        s2 = cov_recovery.recover_variances(
+            nk, stats.below[:, None] / d, pos_tau, x0, gen)[:, 0]
+        spec_chan = (s2[:, None] * spec_corr - sigma2).clamp(min=reg)
+        # resynthesis: scalar gain and variance a component
+        sy = spec_chan + sigma2
+        c0 = sy.mean(-1)
+        beta2 = bussgang_gain_diag(c0, n_bits, q).clamp(0.0, 1.0) ** 2
+        qvar = quantized_variance(c0, q)
+        spec_quant = beta2[:, None] * sy + (qvar - beta2 * c0)[:, None]
+    spec_quant = spec_quant.clamp(min=reg)
+    # the empty-component guard (see _recover_covs): unit power
+    valid = (nk >= 2.0)[:, None]
+    ones = torch.ones_like(spec_chan)
+    return (torch.where(valid, spec_chan, ones),
+            torch.where(valid, spec_quant, ones))
+
+
+def _run_quant_em_circ(x: torch.Tensor, state: _QStateCirc, cfg: GmmConfig,
+                       n_bits, sigma2, q, pos_tau, gen: torch.Generator,
+                       group=None) -> QuantCircFitResult:
+    """The spectra-native EM from a given state (`fit_circulant_spectra`
+    and its resume), on the `_em` loop."""
+    chunk = min(cfg.chunk_size, x.shape[0])
+
+    def step(state: _QStateCirc):
+        stats = _accumulate_circ(x, torch.log(state.weights), state.means_f,
+                                 state.spec_quant, pos_tau, chunk, group,
+                                 cfg.psum_segments)
+        nk = stats.nk + 10.0 * gmm._F32_EPS
+        means_f = (torch.zeros_like(state.means_f) if cfg.zero_mean
+                   else stats.sx_f / nk[:, None].to(stats.sx_f.dtype))
+        spec_chan, spec_quant = _recover_circ(stats, cfg, n_bits, sigma2, q,
+                                              pos_tau, state.spec_quant, gen)
+        return (_QStateCirc(nk / nk.sum(), means_f, spec_chan, spec_quant),
+                stats.log_norm)
+
+    state, lb, n_iter, converged, history = _em(
+        state, step, Comm(group, x.shape[0], x.device).n_global, cfg)
+    means = torch.fft.ifft(state.means_f, dim=-1) * math.sqrt(
+        state.means_f.shape[-1])
+    return QuantCircFitResult(state.weights, means, state.spec_chan,
+                              state.spec_quant, lb, n_iter, converged,
+                              history)
+
+
+# rows x dimensions above which the one-device k-means init streams: the
+# dense init holds the full-dataset DFT and k-means' (N, 2D) copy beside
+# the pilots (40k x 16384 rows: 6.55e8, over)
+_INIT_ELEM_BUDGET = 600_000_000
+
+
+def _streamed_init_stats(gen: torch.Generator, r: torch.Tensor,
+                         cfg: GmmConfig) -> gmm._Stats:
+    """The frontier-D init: k-means centres from a row prefix of
+    min(N, max(4096, 50 K)) rows (the rows are i.i.d., so the prefix is an
+    unbiased subsample), then one chunked DFT and hard-assignment pass
+    folds every row's label into the init statistics. Neither the
+    full-dataset DFT nor an (N, 2D) copy exists; the EM that follows is
+    exact."""
+    n, d = r.shape
+    k = cfg.n_components
+    n_sub = min(n, max(4096, 50 * k))
+    centers = km.kmeans(gen, cplx2real(_ufft(r[:n_sub])).to(torch.float32), k,
+                        max_iter=cfg.kmeans_iter).centers
+    stats = gmm._zero_stats(k, d, r.dtype, r.device, diag=True)
+    chunk = min(cfg.chunk_size, n)
+    for i0 in range(0, n, chunk):
+        uc = _ufft(r[i0:i0 + chunk])
+        labels = torch.argmin(km._sq_dists(
+            cplx2real(uc).to(torch.float32), centers), dim=-1)
+        onehot = torch.nn.functional.one_hot(labels, k).to(stats.nk.dtype)
+        stats = gmm._update_stats(stats, onehot, uc)
+    return stats
+
+
+def _circ_state0(gen: torch.Generator, r: torch.Tensor, cfg: GmmConfig,
+                 group=None) -> _QStateCirc:
+    """The init of k-means (or random) responsibilities on the DFT-domain
+    data, the clean circulant fit's init domain; streamed past
+    `_INIT_ELEM_BUDGET` on one device, the data-parallel dense init under
+    a group."""
+    if (group is None and cfg.init == "kmeans"
+            and r.shape[0] * r.shape[-1] > _INIT_ELEM_BUDGET):
+        init = _streamed_init_stats(gen, r, cfg)
+    else:
+        init = gmm._init_resp_stats(gen, _ufft(r), cfg, cfg.chunk_size,
+                                    True, group)
+    nk0 = init.nk + 10.0 * gmm._F32_EPS
+    means_f0 = (torch.zeros_like(init.sx) if cfg.zero_mean
+                else init.sx / nk0[:, None].to(init.sx.dtype))
+    spec_quant0 = init.sxx / nk0[:, None] + cfg.reg_covar
+    return _QStateCirc(nk0 / nk0.sum(), means_f0, spec_quant0, spec_quant0)
+
+
+def _circ_prep(cfg: GmmConfig, n_bits, q: Optional[ScalarQuantizer],
+               name: str, device) -> Optional[torch.Tensor]:
+    """The refusals of the spectra fits; the n-bit thresholds (None at 1
+    and inf bits)."""
+    if cfg.cov_type != "circulant":
+        raise ValueError(f"{name} requires cov_type='circulant' (got "
+                         f"{cfg.cov_type!r})")
+    if is_inf_bits(n_bits) or n_bits == 1:
+        return None
+    if q is None:
+        raise ValueError("n-bit circulant recovery needs the quantizer")
+    return cov_recovery.positive_thresholds(q).to(device)
+
+
+def fit_circulant_spectra(gen: torch.Generator, r: torch.Tensor,
+                          cfg: GmmConfig, n_bits, sigma2,
+                          q: Optional[ScalarQuantizer] = None,
+                          group=None) -> QuantCircFitResult:
+    """CSI-free circulant training, spectra-native: the frontier-D entry,
+    O(N K D + N D log D) an iteration with no (K, D, D) array, returning
+    spectra that `structured_bank.prepare_bank_circulant(spectra=)` takes
+    as they are. `gen` draws the init and the Gauss-Newton restarts;
+    `group` as in `fit`. Recovering on the projected statistics costs NMSE
+    against `fit(cov_type='circulant')`, whose dense recovery projects
+    after (5-9% in the JAX package's same-init A/B at D = 64, K = 8, 2
+    bits): use `fit` where its dense intermediates fit the device."""
+    pin_fp32()
+    pos_tau = _circ_prep(cfg, n_bits, q, "fit_circulant_spectra", r.device)
+    state0 = _circ_state0(gen, r, cfg, group)
+    return _run_quant_em_circ(r, state0, cfg, n_bits, sigma2, q, pos_tau,
+                              gen, group)
+
+
+def fit_circulant_spectra_resume(gen: torch.Generator, prev, r: torch.Tensor,
+                                 cfg: GmmConfig, n_bits, sigma2,
+                                 q: Optional[ScalarQuantizer] = None,
+                                 group=None) -> QuantCircFitResult:
+    """Continue the spectra-native EM from a previous result `prev`
+    (anything with weights, means, spectra and spec_quant; a checkpoint
+    restart or the next segment of `em_driver.fit_segmented`): the state
+    is the O(K D) spectra themselves, so the restart is exact. `gen` draws
+    the Gauss-Newton restarts only."""
+    pin_fp32()
+    pos_tau = _circ_prep(cfg, n_bits, q, "fit_circulant_spectra_resume",
+                         r.device)
+    w, mu, spec, spec_q = (torch.as_tensor(x, device=r.device) for x in (
+        prev.weights, prev.means, prev.spectra, prev.spec_quant))
+    state0 = _QStateCirc(w, _ufft(mu.to(r.dtype)), spec, spec_q)
+    return _run_quant_em_circ(r, state0, cfg, n_bits, sigma2, q, pos_tau,
+                              gen, group)

@@ -16,9 +16,13 @@ from quantized_channel_estimation_torch.ops.quantizer import (
 
 
 def apply_pilots(h: torch.Tensor, a: Optional[torch.Tensor]) -> torch.Tensor:
-    """y = A h for h (..., N); A (M, N) or None (identity)."""
+    """y = A h for h (..., N); A (M, N), a 0-d tensor x (A = x I, which
+    the structured banks take too, without the (N, N) matrix) or None
+    (identity)."""
     if a is None:
         return h
+    if a.dim() == 0:
+        return a * h
     return h @ a.T
 
 
@@ -37,6 +41,6 @@ def observe(gen: torch.Generator, h: torch.Tensor, snr_db,
             a: Optional[torch.Tensor], n_bits,
             q: Optional[ScalarQuantizer] = None) -> torch.Tensor:
     """r = Q(A h + 10^(-snr/20) w), w ~ CN(0, I) drawn from `gen`."""
-    m = h.shape[-1] if a is None else a.shape[0]
+    m = h.shape[-1] if a is None or a.dim() == 0 else a.shape[0]
     w = crandn(gen, h.shape[:-1] + (m,), dtype=h.dtype)
     return observe_noise(h, w, snr_db, a, n_bits, q)

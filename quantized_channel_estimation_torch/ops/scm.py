@@ -77,9 +77,11 @@ def channel_from_noise(fs: torch.Tensor, x: torch.Tensor,
     # sqrt(F) is taken in float32, as the JAX model does (`scm.py:86`)
     root = torch.sqrt(torch.tensor(float(n_freq), dtype=torch.float32))
     h = torch.fft.ifft(colored, dim=-1) * root.to(dtype)
-    h = h[..., :n_antennas]
+    # copies: a view of the first N of F = 100 N bins would keep the whole
+    # lattice's storage alive for as long as the channels live
+    h = h[..., :n_antennas].clone()
     t = (torch.fft.fft(fs.to(dtype), dim=-1) / n_freq)[..., :n_antennas]
-    return h, t
+    return h, t.clone()
 
 
 def channel_from_psd(gen: torch.Generator, fs: torch.Tensor, n_antennas: int,

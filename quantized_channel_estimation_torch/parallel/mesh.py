@@ -17,7 +17,8 @@ program over a mesh of devices and reduces with `psum` / `pmax` inside
     (its "data" coordinate), the E+M pass produces the window's sufficient
     statistics, and one all-reduce over "data" makes every rank run the
     same M-step (`fit_gmm_shard_map`, `kmeans_shard_map`,
-    `fit_mfa_shard_map`; `DeviceMesh` only);
+    `fit_mfa_shard_map`, `fit_gmm_quant_shard_map`,
+    `fit_circulant_spectra_shard_map`; `DeviceMesh` only);
   - estimation shards the samples over "data" and the component bank over
     "component": each shard computes the un-normalised online-softmax state
     (m, den, acc) of its components, and the shards merge exactly: across
@@ -49,7 +50,7 @@ from quantized_channel_estimation_torch.estimators import (
     circ_kernels, fact_kernels, kernels)
 from quantized_channel_estimation_torch.estimators.kernels import merge_stats
 from quantized_channel_estimation_torch.models import (
-    gmm, gmm_estimator, mfa, mfa_bank, structured_bank)
+    gmm, gmm_estimator, gmm_quant, mfa, mfa_bank, structured_bank)
 from quantized_channel_estimation_torch.models.gmm import GmmConfig
 from quantized_channel_estimation_torch.models.gmm_estimator import (
     PreparedBank)
@@ -292,15 +293,30 @@ def _not_ported(what: str, item: int):
                               f"item {item})")
 
 
-def fit_gmm_quant_shard_map(mesh, gen, r, cfg, n_bits, sigma2, q=None):
-    """Data-parallel quantized-training EM (CSI-free training)."""
-    _not_ported("the data-parallel quantized-training EM", 10)
+def fit_gmm_quant_shard_map(mesh: DeviceMesh, gen: torch.Generator,
+                            r: torch.Tensor, cfg: GmmConfig, n_bits, sigma2,
+                            q=None) -> gmm_quant.QuantGmmFitResult:
+    """Data-parallel quantized-training EM (CSI-free training): the
+    recovery statistics (1-bit requantized correlation, bin-occupancy
+    counts) are data sums like the moments and are all-reduced with them
+    over 'data', so the covariance recovery runs replicated; the init is
+    the data-parallel k-means (or the global random stream's window).
+    `gen` must be seeded alike on every rank (its Gauss-Newton restarts
+    keep the M-step replicated)."""
+    return gmm_quant.fit(gen, shard_data(mesh, r), cfg, n_bits, sigma2, q,
+                         group=mesh.get_group(DATA_AXIS))
 
 
-def fit_circulant_spectra_shard_map(mesh, gen, r, cfg, n_bits, sigma2,
-                                    q=None):
-    """Data-parallel spectra-native circulant quantized EM."""
-    _not_ported("the data-parallel spectra-native quantized EM", 10)
+def fit_circulant_spectra_shard_map(mesh: DeviceMesh, gen: torch.Generator,
+                                    r: torch.Tensor, cfg: GmmConfig, n_bits,
+                                    sigma2, q=None
+                                    ) -> gmm_quant.QuantCircFitResult:
+    """Data-parallel spectra-native circulant quantized EM: the statistics
+    all-reduced an iteration are O(K D) spectra sums (O(K D^2) for the
+    dense types); the init is the data-parallel dense one."""
+    return gmm_quant.fit_circulant_spectra(gen, shard_data(mesh, r), cfg,
+                                           n_bits, sigma2, q,
+                                           group=mesh.get_group(DATA_AXIS))
 
 
 def make_vae_epochs_runner(mesh, model, cfg, a, snrs, quantizers, n_steps,

@@ -5,10 +5,10 @@
 Each rank joins a 2-rank CPU group through a file store, runs one job on
 seeded inputs and saves what it computed, beside the single-device results
 of the same inputs, to <out dir>/rank<rank>.pt: 'mesh' runs the data- and
-tensor-parallel fits and estimators (`parallel.mesh`) for
-tests/test_torch_parallel.py, 'harness' the `n_data_shards` /
-`n_component_shards` options of `run_gmm` and `run_mfa` for
-tests/test_torch_harness.py. `spawn_group` starts both ranks and reads
+tensor-parallel fits and estimators (`parallel.mesh`, the quantized EMs'
+data-parallel forms among them) for tests/test_torch_parallel.py,
+'harness' the `n_data_shards` / `n_component_shards` options of
+`run_gmm`, `run_mfa` and `run_gmm_quant` for tests/test_torch_harness.py. `spawn_group` starts both ranks and reads
 their results. Imports torch, not JAX; the inputs are made by the functions
 below, which the test files import too.
 """
@@ -24,7 +24,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from quantized_channel_estimation_torch.models import (  # noqa: E402
-    gmm, gmm_estimator, mfa, mfa_bank, structured_bank)
+    gmm, gmm_estimator, gmm_quant, mfa, mfa_bank, structured_bank)
 from quantized_channel_estimation_torch.ops import (  # noqa: E402
     linalg, observation, pilots)
 from quantized_channel_estimation_torch.ops import quantizer as Q  # noqa
@@ -126,6 +126,12 @@ GMM_FITS = {   # name: config changes; chunk 256 gives 4 chunks a rank
     "diag_kmeans": dict(cov_type="diag", zero_mean=False),
 }
 GMM_BASE = dict(n_components=K, max_iter=8, tol=0.0, chunk_size=256)
+QUANT_FITS = {   # name: (EM, config changes); 2-bit pilots at 0 dB
+    "full": ("dense", dict()),
+    "diag": ("dense", dict(cov_type="diag", zero_mean=False,
+                           psum_segments=2)),
+    "spectra": ("spectra", dict(cov_type="circulant", psum_segments=2)),
+}
 MFA_FITS = {"zero_mean": dict(zero_mean=True, ppca=True),
             "means_seg2": dict(zero_mean=False, psum_segments=2)}
 MFA_BASE = dict(n_components=K, latent_dim=M_LAT, max_iter=8, tol=0.0,
@@ -139,18 +145,29 @@ HARNESS = {   # name: (runner, config changes)
     "mfa_data2": ("mfa", dict(n_data_shards=2)),
     "mfa_comp2": ("mfa", dict(n_component_shards=2)),
     "mfa_comp2_coh": ("mfa", dict(n_component_shards=2, n_coherence=2)),
+    "quant_data2": ("quant", dict(n_data_shards=2)),
+    "quant_comp2": ("quant", dict(n_component_shards=2)),
+    "quant_spectra_data2": ("quant", dict(n_data_shards=2,
+                                          cov_type="circulant",
+                                          use_spectra_fit=True)),
 }
 
 
 def harness_run(kind, root, change):
-    """run_gmm / run_mfa at a small size, results under `root`."""
-    from quantized_channel_estimation_torch.harness import run_gmm, run_mfa
+    """run_gmm / run_mfa / run_gmm_quant at a small size, results under
+    `root`."""
+    from quantized_channel_estimation_torch.harness import (
+        run_gmm, run_gmm_quant, run_mfa)
     common = dict(n_antennas=D, n_components=K, n_train=3000, n_val=400,
                   snrs=(-10, 10), results_dir=str(root), use_cache=False,
                   cache_dir=str(root / "saves"))
     if kind == "gmm":
         cfg = run_gmm.GmmBenchConfig(gmm_max_iter=8, **common, **change)
         return run_gmm.run(cfg, verbose=False, device="cpu")[:2]
+    if kind == "quant":
+        cfg = run_gmm_quant.QuantGmmBenchConfig(max_iter=8, **common,
+                                                **change)
+        return run_gmm_quant.run(cfg, verbose=False, device="cpu")[:2]
     cfg = run_mfa.MfaBenchConfig(latent_dim=M_LAT, max_iter=8, **common,
                                  **change)
     return run_mfa.run(cfg, verbose=False, device="cpu")[:2]
@@ -221,6 +238,23 @@ def mesh_job(rank, root):
         one = gmm.fit(torch.Generator().manual_seed(1), x, cfg)
         out[f"gmm/{name}"] = ((dp.lb_history, tuple(dp.params)),
                               (one.lb_history, tuple(one.params)))
+    q = Q.design_quantizer(SNR, 2)
+    r = observe(x / x.abs().pow(2).mean().sqrt(),
+                pilots.pilot_matrix(D, 1, 2, device="cpu"), q, seed=8)
+    for name, (kind, change) in QUANT_FITS.items():
+        cfg = gmm.GmmConfig(**GMM_BASE, **change)
+        dp_fit, one_fit = (
+            (pm.fit_gmm_quant_shard_map, gmm_quant.fit) if kind == "dense"
+            else (pm.fit_circulant_spectra_shard_map,
+                  gmm_quant.fit_circulant_spectra))
+        fits = (dp_fit(data_mesh, torch.Generator().manual_seed(3), r, cfg,
+                       2, 10 ** (-SNR / 10), q),
+                one_fit(torch.Generator().manual_seed(3), r, cfg, 2,
+                        10 ** (-SNR / 10), q))
+        out[f"quant/{name}"] = tuple(
+            (f.lb_history, tuple(f.params[:3]) if kind == "dense"
+             else (f.weights, f.means, f.spectra, f.spec_quant))
+            for f in fits)
     for name, change in MFA_FITS.items():
         cfg = mfa.MfaConfig(**MFA_BASE, **change)
         dp = pm.fit_mfa_shard_map(data_mesh, torch.Generator().manual_seed(2),

@@ -7,7 +7,9 @@ kernel-measurement tools and `utils.profiling` on the card, the
 estimation service on the card (one device and a 2 x 2 in-process mesh),
 the inverse-EM Toeplitz fit on the card, and the quantized EM
 (CSI-free training) on the card against the port on the CPU, with
-`run_gmm_quant` launching its kernels.
+`run_gmm_quant` launching its kernels, the spectra-native EM against the
+CPU from one state, K6 / K7 on its spectra-fed bank, and the streamed
+pilots on the card.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor the JAX package, so on a machine with a card and
@@ -802,6 +804,108 @@ def test_run_gmm_quant_on_card_launches_its_kernel(tmp_path, change, kernel):
     col = mse["blmmse_gmm_quant"]
     assert all(map(math.isfinite, col)) and col[0] > col[-1]
     assert all(map(math.isfinite, sum(rate.values(), [])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits", [2, 1, math.inf])
+def test_spectra_fit_on_card_matches_cpu_per_iteration(n_bits):
+    """The spectra-native circulant EM on the card against the port on the
+    CPU from one state (a CPU fit of 2 iterations, resumed for 5 on each
+    device, tol 0): the lower bound after each iteration to rtol 1e-4, the
+    spectra to 1e-3 of scale, every spectrum positive."""
+    from quantized_channel_estimation_torch.models import gmm_quant as tgq
+    dev = _card()
+    r, _, q = _quant_data(n_bits, d=32)
+    cfg = tg.GmmConfig(n_components=8, cov_type="circulant", max_iter=5,
+                       tol=0.0, chunk_size=1024)
+    first = tgq.fit_circulant_spectra(torch.Generator().manual_seed(0), r,
+                                      cfg._replace(max_iter=2), n_bits,
+                                      10 ** -0.5, q)
+    fits = [tgq.fit_circulant_spectra_resume(
+        torch.Generator(device).manual_seed(1),
+        type(first)(*(x.to(device) if isinstance(x, torch.Tensor) else x
+                      for x in first)),
+        r.to(device), cfg, n_bits, 10 ** -0.5,
+        None if q is None else q.to(device)) for device in ("cpu", dev)]
+    cpu, card = fits
+    assert card.n_iter == cpu.n_iter == 5
+    np.testing.assert_allclose(card.lb_history, cpu.lb_history, rtol=1e-4)
+    assert torch.all(card.spectra > 0) and torch.all(card.spec_quant > 0)
+    assert _rel(card.spectra.cpu(), cpu.spectra) < 1e-3
+
+
+@pytest.mark.cuda
+def test_circ_kernels_on_a_spectra_fed_bank_match_plain():
+    """K6 and K7 (T = 4) on the bank of a CSI-free spectra fit at D = 64
+    (`stages.prepare_bank_circulant_spectra`, no dense covariance): one
+    launch each through the stages, against their plain versions (1e-4 of
+    scale, or the float64 rule)."""
+    from quantized_channel_estimation_torch.models import gmm_quant as tgq
+    dev = _card()
+    r, _, q = _quant_data(2, n=8000, d=64)
+    r = r.to(dev)
+    q = q.to(dev)
+    res = tgq.fit_circulant_spectra(
+        torch.Generator(dev).manual_seed(0), r[:6000],
+        tg.GmmConfig(n_components=16, cov_type="circulant", max_iter=8,
+                     chunk_size=2048), 2, 10 ** -0.5, q)
+    dummy = torch.zeros((16, 1, 1), dtype=torch.complex64, device=dev)
+    bank = stages.prepare_bank_circulant_spectra(
+        tg.GmmParams(res.weights, res.means, dummy, dummy), res.spectra, 5.0,
+        torch.tensor(1.0 + 0.0j, device=dev), 2, q)
+    rows = r[6000:]
+    before = tkn.launch_counts()
+    got = stages.estimate_circulant(bank, rows)
+    got_c = stages.estimate_circulant_coherent(bank, rows.reshape(-1, 4, 64))
+    torch.cuda.synchronize()
+    after = tkn.launch_counts()
+    assert after["circ_estimate"] == before["circ_estimate"] + 1
+    assert after["circ_estimate_coherent"] == (
+        before["circ_estimate_coherent"] + 1)
+    x2 = tck._x2(rows)
+    for t, out in ((1, got), (4, got_c)):
+        ckb = tck.circ_kernel_bank(bank, None, t, 1.0)
+        f64 = type(ckb)(*(x.double() for x in ckb))
+        if t == 1:
+            want = tck.circ_estimate_reference(x2, ckb)
+            want64 = tck.circ_estimate_reference(x2.double(), f64)
+        else:
+            want = tck.circ_estimate_coherent_reference(x2, ckb, t, 1.0)
+            want64 = tck.circ_estimate_coherent_reference(x2.double(), f64,
+                                                          t, 1.0)
+        _held(tck._x2(out.reshape(-1, 64)), want, want64)
+
+
+@pytest.mark.cuda
+def test_stream_quantized_pilots_on_card():
+    """`stages.stream_quantized_pilots` on the card (three slabs, the last
+    ragged, the scalar pilot): each slab is generate + observe from its
+    spawned generators (1e-6 of scale), the summed covariance is
+    `sample_cov`'s (1e-5 of scale), and every value a quantizer label."""
+    from quantized_channel_estimation_torch.ops import scm
+    dev = _card()
+    scm_cfg = scm.ScmConfig(64, 1)
+    q = tq.design_quantizer(5.0, 2).to(dev)
+    x0 = torch.tensor(1.0 + 0.0j, device=dev)
+    r, cov = stages.stream_quantized_pilots(
+        np.random.SeedSequence(1), np.random.SeedSequence(2), 2500, scm_cfg,
+        5.0, x0, 2, q, slab=1000, gen_chunk=512, want_cov=True, device=dev)
+    hs, rs = [], []
+    for i, (s_d, s_o) in enumerate(zip(np.random.SeedSequence(1).spawn(3),
+                                       np.random.SeedSequence(2).spawn(3))):
+        h, _ = stages.generate_channels(stages.seed_generator(s_d, dev),
+                                        min(1000, 2500 - 1000 * i), scm_cfg,
+                                        512)
+        hs.append(h)
+        rs.append(stages.observe(stages.seed_generator(s_o, dev), h, 5.0, x0,
+                                 2, q))
+    want = torch.cat(rs)
+    assert r.shape == (2500, 64) and r.device.type == "cuda"
+    assert _rel(r, want) < 1e-6
+    assert _rel(cov, stages.sample_cov(torch.cat(hs))) < 1e-5
+    labels = q.labels.to(torch.float32)
+    assert bool(torch.isin(r.real, labels).all())
+    assert bool(torch.isin(r.imag, labels).all())
 
 
 # ------------------------------------------------ the circulant kernels

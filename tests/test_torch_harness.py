@@ -747,6 +747,159 @@ def test_run_gmm_quant_fits_on_its_own(tmp_path):
         trun_q.run(dataclasses.replace(cfg, n_coherence=3), device="cpu")
 
 
+def _quant_cfg(tmp_path, **change):
+    from quantized_channel_estimation_torch.harness import (
+        run_gmm_quant as trun_q)
+    kw = dict(n_antennas=16, n_components=8, n_train=6000, n_val=600,
+              max_iter=15, snrs=(-5, 5, 15), results_dir=str(tmp_path),
+              cache_dir=str(tmp_path / "saves"), use_cache=False)
+    return trun_q, trun_q.QuantGmmBenchConfig(**{**kw, **change})
+
+
+def _spy(monkeypatch, module, names):
+    """Count the calls of `module`'s functions `names`."""
+    calls = {name: 0 for name in names}
+    for name in names:
+        def counted(*args, _fn=getattr(module, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+def _streamed_run_tracks_dense(tmp_path, monkeypatch):
+    """`stream_pilots=True` at D = 16: the pilots come from
+    `stages.stream_quantized_pilots` with the training covariance summed
+    slab by slab, no dense data set is made (`run_gmm._get_data` not
+    called), and the MSE at each SNR is within 35% of the dense run's (the
+    draws differ); the rate column is there and finite."""
+    trun_q, cfg = _quant_cfg(tmp_path / "dense")
+    dense, dense_rate, _ = trun_q.run(cfg, verbose=False, device="cpu")
+    calls = _spy(monkeypatch, tst, ["stream_quantized_pilots", "sample_cov"])
+    get_data = _spy(monkeypatch, trun, ["_get_data"])
+    mse, rate, _ = trun_q.run(dataclasses.replace(
+        cfg, stream_pilots=True, results_dir=str(tmp_path / "stream")),
+        verbose=False, device="cpu")
+    assert calls == {"stream_quantized_pilots": 1, "sample_cov": 0}
+    assert get_data == {"_get_data": 0}
+    np.testing.assert_allclose(mse["blmmse_gmm_quant"],
+                               dense["blmmse_gmm_quant"], rtol=0.35)
+    assert list(rate) == list(dense_rate) == ["blmmse_gmm_quant_rstat"]
+    assert np.all(np.isfinite(rate["blmmse_gmm_quant_rstat"]))
+    name, rows = _quant_csv(str(tmp_path / "stream"))
+    assert rows[0][1:] == ["blmmse_gmm_quant", "blmmse_gmm_quant_rstat"]
+
+
+def _auto_frontier_run(tmp_path, monkeypatch, dim):
+    """'auto' engages what JAX's does: from D = 2048 a circulant fit is
+    spectra-native (`stages.gmm_quant_fit_circulant_spectra`, no dense
+    fit), from D = 8192 flat '3gpp' pilots stream as well; a tiny run at
+    that D (K = 2, 2 EM iterations) makes finite rows through the
+    spectra-fed bank."""
+    trun_q, cfg = _quant_cfg(tmp_path, n_antennas=dim, cov_type="circulant",
+                             n_components=2, n_train=32, n_val=8,
+                             max_iter=2, snrs=(5,), eval_rate=False)
+    def rules(**change):
+        other = dataclasses.replace(cfg, **change)
+        return trun_q._stream_pilots(other), trun_q._spectra_fit(other)
+
+    assert rules() == (dim >= 8192, True)
+    assert rules(n_antennas=dim // 2) == (False, dim >= 4096)
+    assert rules(cov_type="full") == (dim >= 8192, False)
+    assert rules(n_coherence=2) == (False, True)
+    calls = _spy(monkeypatch, tst, [
+        "stream_quantized_pilots", "gmm_quant_fit",
+        "gmm_quant_fit_circulant_spectra", "prepare_bank_circulant_spectra",
+        "estimate_circulant"])
+    mse, _, _ = trun_q.run(cfg, verbose=False, device="cpu")
+    assert calls == {"stream_quantized_pilots": int(dim >= 8192),
+                     "gmm_quant_fit": 0,
+                     "gmm_quant_fit_circulant_spectra": 1,
+                     "prepare_bank_circulant_spectra": 1,
+                     "estimate_circulant": 1}
+    assert 0 < mse["blmmse_gmm_quant"][0] < 1.5
+
+
+def _spectra_rows_match_jax(tmp_path, monkeypatch):
+    """`use_spectra_fit=True` in both harnesses on one cache, the JAX
+    observations and the JAX spectra fit carried across
+    (`gmm.quant_circ_fit_from_numpy` in place of the port's
+    `stages.gmm_quant_fit_circulant_spectra`): the same CSV name and
+    columns, every MSE and rate row to rtol 1e-4, the banks from the
+    spectra (`stages.prepare_bank_circulant_spectra`) through the plain
+    K6."""
+    from quantized_channel_estimation_tpu.harness import (
+        run_gmm_quant as jrun_q)
+    from quantized_channel_estimation_tpu.models import gmm_quant as jgq
+    from quantized_channel_estimation_tpu.ops import boundary as jb
+    from quantized_channel_estimation_torch.harness import (
+        run_gmm_quant as trun_q)
+    from quantized_channel_estimation_torch.models import gmm as tg
+
+    sfits, observed = [], {}
+    orig_cjit = jb.cjit
+
+    def recording_cjit(fn, *args, **kw):
+        compiled = orig_cjit(fn, *args, **kw)
+        if fn is not jgq.fit_circulant_spectra:
+            return compiled
+
+        def run(*a):
+            sfits.append(compiled(*a))
+            return sfits[-1]
+        return run
+
+    def jax_observe(key, h, snr, *args, _fn=jst.observe):
+        r = _fn(key, h, snr, *args)
+        observed[(snr, tuple(h.shape))] = np.asarray(jst.to_numpy(r))
+        return r
+
+    monkeypatch.setattr(jb, "cjit", recording_cjit)
+    monkeypatch.setattr(jst, "observe", jax_observe)
+    jcfg = jrun_q.QuantGmmBenchConfig(
+        n_antennas=16, n_components=8, n_train=4000, n_val=600,
+        max_iter=10, snrs=(-5, 5, 15), cov_type="circulant",
+        use_spectra_fit=True, results_dir=str(tmp_path / "jax"),
+        cache_dir=str(tmp_path / "saves"))
+    jmse, jrate, _ = jrun_q.run(jcfg, verbose=False)
+    assert len(sfits) == 1 and len(observed) == 4
+    jfit = jst.to_numpy(sfits[0])
+
+    def shared_fit(gen, r, cfg, n_bits, sigma2, q):
+        np.testing.assert_array_equal(
+            r.numpy(), observed[(jcfg.snr_train, (jcfg.n_train, 16))])
+        assert (cfg.cov_type, cfg.max_iter, n_bits) == ("circulant", 10, 2)
+        return tg.quant_circ_fit_from_numpy(
+            jfit.weights, jfit.means, jfit.spectra, jfit.spec_quant,
+            r.device, float(jfit.lower_bound), int(jfit.n_iter),
+            bool(jfit.converged))
+
+    monkeypatch.setattr(tst, "gmm_quant_fit_circulant_spectra", shared_fit)
+    monkeypatch.setattr(tst, "observe", lambda gen, h, snr, a, n_bits, q:
+                        torch.as_tensor(observed[(snr, tuple(h.shape))]))
+    calls = _spy(monkeypatch, tst, ["prepare_bank_circulant_spectra",
+                                    "prepare_bank_circulant",
+                                    "estimate_circulant"])
+    tcfg = trun_q.QuantGmmBenchConfig(**{
+        f.name: getattr(jcfg, f.name)
+        for f in dataclasses.fields(jrun_q.QuantGmmBenchConfig)})
+    tcfg = dataclasses.replace(tcfg, results_dir=str(tmp_path / "port"))
+    tmse, trate, _ = trun_q.run(tcfg, verbose=False, device="cpu")
+    assert calls == {"prepare_bank_circulant_spectra": 3,
+                     "prepare_bank_circulant": 0, "estimate_circulant": 3}
+    assert list(tmse) == list(jmse) and list(trate) == list(jrate)
+    for got, want in ((tmse, jmse), (trate, jrate)):
+        for name in want:
+            np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
+                                       err_msg=name)
+    jname, jrows = _quant_csv(jcfg.results_dir)
+    tname, trows = _quant_csv(tcfg.results_dir)
+    assert tname[19:] == jname[19:] and trows[0] == jrows[0]
+    np.testing.assert_allclose(np.asarray(trows[1:])[:, 1:].astype(float),
+                               np.asarray(jrows[1:])[:, 1:].astype(float),
+                               rtol=1e-4)
+
+
 @pytest.mark.parametrize("change,error", [
     (dict(stream_pilots=True), "item 10"),
     (dict(n_antennas=8192), "item 10"),
@@ -757,29 +910,165 @@ def test_run_gmm_quant_fits_on_its_own(tmp_path):
     (dict(channel_model="urban-macro"), "item 14"),
     (dict(n_pilots=2), "A = I"),
 ])
-def test_run_gmm_quant_unported_options_raise(change, error):
-    """The options of later slices raise NotImplementedError naming their
-    ROADMAP item before any work, their 'auto' values only where JAX's
-    engage them (streamed pilots from D = 8192, the spectra-native fit for
-    circulant fits from D = 2048); the mesh form of the fit raises too.
-    Several pilots raise ValueError: the quantized EM recovers channel
-    covariances for A = I only (JAX fails in its bank preparation)."""
+def test_run_gmm_quant_unported_options_raise(change, error, request):
+    """Channel models other than '3gpp' raise NotImplementedError naming
+    item 14, before any work; several pilots raise ValueError (the
+    quantized EM recovers channel covariances for A = I only; JAX fails in
+    its bank preparation). Item 10 (10b) is ported, and its cases run:
+    the streamed pilots against the dense run (`_streamed_run_tracks_dense`),
+    'auto' at D = 8192 and 2048 (`_auto_frontier_run`), the spectra-native
+    fit against the JAX harness (`_spectra_rows_match_jax`), and the mesh
+    options' 2-rank rows against the one-rank run's."""
+    tmp_path = request.getfixturevalue("tmp_path")
+    monkeypatch = request.getfixturevalue("monkeypatch")
+    if error == "item 10":
+        if "n_data_shards" in change or "n_component_shards" in change:
+            _sharded_rows_match(request.getfixturevalue("sharded_runs"),
+                                "quant_data2" if "n_data_shards" in change
+                                else "quant_comp2")
+        elif change == dict(stream_pilots=True):
+            _streamed_run_tracks_dense(tmp_path, monkeypatch)
+        elif "use_spectra_fit" in change:
+            _spectra_rows_match_jax(tmp_path, monkeypatch)
+        else:
+            _auto_frontier_run(tmp_path, monkeypatch, change["n_antennas"])
+        return
     from quantized_channel_estimation_torch.harness import (
         run_gmm_quant as trun_q)
-    from quantized_channel_estimation_torch.parallel import mesh as pmesh
     cfg = dataclasses.replace(trun_q.QuantGmmBenchConfig(), **change)
     kind = ValueError if "n_pilots" in change else NotImplementedError
     with pytest.raises(kind, match=error):
         trun_q.run(cfg, device="cpu")
-    for off in (trun_q.QuantGmmBenchConfig(),
-                trun_q.QuantGmmBenchConfig(cov_type="circulant",
-                                           n_antennas=1024)):
-        assert not trun_q._stream_pilots(off)
-        assert not trun_q._spectra_fit(off)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tst.ShardedStages.gmm_quant_fit(None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pmesh.fit_gmm_quant_shard_map(None, None, None, None, 2, 0.1)
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(stream_pilots=True, n_coherence=2), "stream_pilots supports"),
+    (dict(use_spectra_fit=True), "requires cov_type='circulant'"),
+    (dict(use_spectra_fit=True, cov_type="circulant",
+          use_structured_bank=False), "use_structured_bank"),
+])
+def test_run_gmm_quant_frontier_refusals(tmp_path, change, match):
+    """The JAX harness's three ValueErrors of the frontier options, raised
+    before any work (JAX raises the last after its fit): nothing is
+    written."""
+    trun_q, cfg = _quant_cfg(tmp_path, **change)
+    with pytest.raises(ValueError, match=match):
+        trun_q.run(cfg, verbose=False, device="cpu")
+    assert not os.path.exists(tmp_path / "3gpp")
+
+
+def test_stream_quantized_pilots_is_per_slab_generate_and_observe():
+    """`stages.stream_quantized_pilots` (three slabs, the last ragged):
+    slab i is `generate_channels` from the i-th child of the data
+    SeedSequence observed with the i-th child of the observation one, bit
+    for bit, and the covariance summed slab by slab equals `sample_cov` of
+    the same channels (1e-6 of scale). n_batches <= 0 raises ValueError
+    (JAX raises IndexError). The generation chunk by width is JAX's."""
+    from quantized_channel_estimation_torch.ops import quantizer as tq
+    from quantized_channel_estimation_torch.ops import scm as tscm
+    cpu = torch.device("cpu")
+    scm_cfg = tscm.ScmConfig(16, 1)
+    a = tst.pilot_matrix(16, 1, 2, device=cpu)
+    q = tq.design_quantizer(5.0, 2)
+    r, cov = tst.stream_quantized_pilots(
+        np.random.SeedSequence(1), np.random.SeedSequence(2), 1100, scm_cfg,
+        5.0, a, 2, q, slab=400, gen_chunk=128, want_cov=True, device=cpu)
+    hs, rs = [], []
+    for i, (s_d, s_o) in enumerate(zip(np.random.SeedSequence(1).spawn(3),
+                                       np.random.SeedSequence(2).spawn(3))):
+        h, _ = tst.generate_channels(tst.seed_generator(s_d, cpu),
+                                     min(400, 1100 - 400 * i), scm_cfg, 128)
+        hs.append(h)
+        rs.append(tst.observe(tst.seed_generator(s_o, cpu), h, 5.0, a, 2, q))
+    assert r.shape == (1100, 16) and torch.equal(r, torch.cat(rs))
+    assert not torch.equal(rs[0][:300], rs[1][:300])
+    want = tst.sample_cov(torch.cat(hs))
+    np.testing.assert_allclose(cov.numpy(), want.numpy(), rtol=0,
+                               atol=1e-6 * float(want.abs().max()))
+    r2, none = tst.stream_quantized_pilots(
+        np.random.SeedSequence(1), np.random.SeedSequence(2), 1100, scm_cfg,
+        5.0, a, 2, q, slab=400, gen_chunk=128, device=cpu)
+    assert none is None and torch.equal(r2, r)
+    for n in (0, -3):
+        with pytest.raises(ValueError, match="n_batches"):
+            tst.stream_quantized_pilots(
+                np.random.SeedSequence(1), np.random.SeedSequence(2), n,
+                scm_cfg, 5.0, a, 2, q, device=cpu)
+    from quantized_channel_estimation_tpu.ops import scm as jscm
+    with pytest.raises(IndexError):
+        jst.stream_quantized_pilots(jax.random.PRNGKey(0),
+                                    jax.random.PRNGKey(1), 0,
+                                    jscm.ScmConfig(16, 1), 5.0, None, 2,
+                                    jq.design_quantizer(5.0, 2))
+    widths = (16, 64, 2048, 16384, 65536)
+    assert [tst.auto_gen_chunk(d) for d in widths] == [
+        jst.auto_gen_chunk(d) for d in widths] == [8192, 8192, 1024, 128, 64]
+
+
+def test_streamed_slabs_and_validation_draw_from_disjoint_streams(
+        tmp_path, monkeypatch):
+    """Deviation from JAX, whose slab i draws from fold_in(k_data, i) and
+    whose validation set from fold_in(k_data, 10_000), the same key at
+    10,000 slabs: here the slabs are the children of one SeedSequence and
+    the validation set another's, siblings under the data stream, so no
+    slab index reaches the validation stream. Every generator a streamed
+    run (four slabs) seeds is recorded by its spawn key: the validation
+    key is no slab's and no prefix of one, the slab keys are distinct, and
+    the observation keys lie under another stream."""
+    keys = []
+    seed_generator = tst.seed_generator
+
+    def recording(seq, device):
+        keys.append(seq.spawn_key)
+        return seed_generator(seq, device)
+
+    stream = tst.stream_quantized_pilots
+    monkeypatch.setattr(tst, "seed_generator", recording)
+    monkeypatch.setattr(tst, "stream_quantized_pilots",
+                        lambda *a, **kw: stream(*a, slab=500, **kw))
+    trun_q, cfg = _quant_cfg(tmp_path, n_train=2000, n_val=200,
+                             stream_pilots=True, max_iter=2, snrs=(5,),
+                             eval_rate=False)
+    trun_q.run(cfg, verbose=False, device="cpu")
+    data = [k for k in keys if k[:1] == (0,)]
+    val, slabs = data[0], data[1:5]
+    assert len(slabs) == 4 and len(set(slabs)) == 4
+    assert len({k[:-1] for k in slabs}) == 1
+    assert all(val != s[:len(val)] and s != val[:len(s)] for s in slabs)
+    obs = [k for k in keys if k[:1] == (2,)]
+    assert len(obs) == 4 and not set(obs) & set(data)
+
+
+def test_quant_frontier_tool_on_the_cpu(monkeypatch):
+    """`tools.quant_frontier.measure` at D = 32 with every frontier option
+    forced (the streamed init through a zero budget): each engaged, the
+    datagen and fit timed, the NMSE below LS; its `ls_scalar_pilot` is
+    `stages.ls_global` under A = x0 I given the covariance's diagonal
+    (1e-5 of scale), for a complex pilot too."""
+    from quantized_channel_estimation_torch.models import gmm_quant as tgq
+    from quantized_channel_estimation_torch.ops import quantizer as tq
+    from quantized_channel_estimation_torch.tools import quant_frontier
+    monkeypatch.setattr(tgq, "_INIT_ELEM_BUDGET", 0)
+    rec = quant_frontier.measure(32, 4, 3000, 400, 10.0, 5, device="cpu",
+                                 stream_pilots=True, use_spectra_fit=True)
+    assert rec["engaged"] == {"stream_pilots": True, "spectra_fit": True,
+                              "dense_fit": False, "streamed_init": True}
+    assert rec["n_iter"] == 5 and rec["datagen_s"] > 0 and rec["fit_s"] > 0
+    assert rec["peak_gib"] is None and rec["rate"] is None
+    assert 0 < rec["nmse"] < rec["ls_nmse"] < 1
+    gen = torch.Generator().manual_seed(0)
+    h = torch.complex(torch.randn(500, 16, generator=gen),
+                      torch.randn(500, 16, generator=gen)) * 0.7
+    cov = tst.sample_cov(h)
+    q = tq.design_quantizer(5.0, 2)
+    for x0 in (1.0 + 0.0j, 0.6 - 0.8j):
+        a = x0 * torch.eye(16, dtype=torch.complex64)
+        r = tst.observe(gen, h, 5.0, a, 2, q)
+        want = tst.ls_global(r, cov, 5.0, a, 2, q)
+        got = quant_frontier.ls_scalar_pilot(
+            r, torch.diagonal(cov).real, 5.0, torch.tensor(x0), 2, q)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
 
 
 def _jax_cov_draws(cfg):

@@ -1,7 +1,7 @@
 """The port's data and tensor parallelism (`parallel.mesh`: the
-data-parallel k-means, GMM and MFA fits, the sharded estimators) in a
-2-rank Gloo group on the CPU, against the single-device results of the
-same inputs; one dense tensor-parallel case against JAX's
+data-parallel k-means, GMM, MFA and quantized (CSI-free) fits, the sharded
+estimators) in a 2-rank Gloo group on the CPU, against the single-device
+results of the same inputs; one dense tensor-parallel case against JAX's
 `estimate_sharded_kernel` on the virtual CPU mesh. The sharded harness
 runs are held in tests/test_torch_harness.py.
 
@@ -78,6 +78,25 @@ def test_dp_gmm_em_matches_the_single_device_fit(group_results, name):
     (lb_r1, params_r1), _ = res[1][f"gmm/{name}"]
     assert lb_r1 == lb
     for a, b in zip(params, params_r1):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(worker.QUANT_FITS))
+def test_dp_quantized_em_matches_the_single_device_fit(group_results, name):
+    """The data-parallel quantized EMs ('full', 'diag' with two psum
+    segments, the spectra-native circulant EM) against the single-device
+    fits of the same pilots and generator: the lower bound after each of 8
+    iterations to rtol 2e-5, the parameters (covariances or spectra) to
+    1e-4 of scale; both ranks run the same M-step."""
+    res = group_results
+    (lb, fields), (lb1, fields1) = res[0][f"quant/{name}"]
+    assert len(lb) == len(lb1) == worker.GMM_BASE["max_iter"]
+    np.testing.assert_allclose(lb, lb1, rtol=2e-5)
+    for got, want in zip(fields, fields1):
+        _close(got, want, 1e-4)
+    (lb_r1, fields_r1), _ = res[1][f"quant/{name}"]
+    assert lb_r1 == lb
+    for a, b in zip(fields, fields_r1):
         assert torch.equal(a, b)
 
 

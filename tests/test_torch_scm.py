@@ -96,3 +96,15 @@ def test_generate_channels_statistics():
     assert float(err) < 0.08
     h3, _ = ts.generate_channels(gen, 5, cfg._replace(n_coherence=3))
     assert h3.shape == (5, 3, 8) and h3.dtype == torch.complex64
+
+
+@pytest.mark.parametrize("n_coherence", [1, 3])
+def test_channels_own_their_storage(n_coherence):
+    """The channels and Toeplitz rows are the first N of F = 100 N lattice
+    bins, copied: each holds exactly its own elements, so a batch kept
+    does not keep its (B, F) FFT buffers alive (100x its size)."""
+    gen = torch.Generator().manual_seed(1)
+    h, t = ts.generate_channels(gen, 16, ts.ScmConfig(64, 1,
+                                                      n_coherence=n_coherence))
+    for x in (h, t):
+        assert x.untyped_storage().nbytes() == x.numel() * x.element_size()

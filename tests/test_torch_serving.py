@@ -625,6 +625,47 @@ def test_from_circulant_spectra_service(circ_setup, pilot):
         svc.close(timeout=TIMEOUT)
 
 
+def test_spectra_fit_serves_like_the_densified_dense_service():
+    """A CSI-free spectra-native fit (`gmm_quant.fit_circulant_spectra` on
+    2-bit pilots at 5 dB) served through `from_circulant_spectra`, with no
+    dense covariance anywhere, equals the dense service of the densified
+    spectra, F^H diag(s) F + 1e-5 I (JAX `test_from_circulant_spectra_service`,
+    atol 2e-3)."""
+    from quantized_channel_estimation_torch.models import gmm_quant as tgq
+    from quantized_channel_estimation_torch.ops import linalg as tl
+    from quantized_channel_estimation_torch.ops import quantizer as tq
+    h, _ = jscm.generate_channels(jax.random.PRNGKey(98), 7064,
+                                  jscm.ScmConfig(N_ANT, 1))
+    snr, a, q = 5.0, jp.pilot_matrix(N_ANT, 1, 2), jq.design_quantizer(5.0, 2)
+    r_train, r = (np.asarray(jobs.observe(jax.random.PRNGKey(k), rows, snr,
+                                          a, 2, q))
+                  for k, rows in ((99, h[:7000]), (101, h[7000:])))
+    res = tgq.fit_circulant_spectra(
+        torch.Generator().manual_seed(100), torch.as_tensor(r_train),
+        tg.GmmConfig(n_components=4, cov_type="circulant", max_iter=10,
+                     chunk_size=2048), 2, 10 ** (-snr / 10),
+        tq.design_quantizer(snr, 2))
+    f = tl.unitary_dft(N_ANT)
+    covs = tl.hermitize(torch.einsum("fd,kf,fe->kde", f.conj(),
+                                     res.spectra.to(f.dtype), f))
+    covs = tl.add_jitter(covs, 1e-5)
+    dense = tg.GmmParams(res.weights, res.means, covs,
+                         tl.robust_precision_cholesky(covs))
+    svcs = [serving.EstimationService.from_circulant_spectra(
+                res.weights.numpy(), res.means.numpy(), res.spectra.numpy(),
+                np.asarray(a), 2, max_delay_ms=1.0, device="cpu"),
+            serving.EstimationService(dense, np.asarray(a), 2,
+                                      max_delay_ms=1.0, device="cpu")]
+    try:
+        assert svcs[0].structured and not svcs[1].structured
+        assert svcs[0].params.covariances.shape == (4, 1, 1)
+        got, want = (svc.submit(r, snr, timeout=TIMEOUT) for svc in svcs)
+    finally:
+        for svc in svcs:
+            svc.close(timeout=TIMEOUT)
+    np.testing.assert_allclose(got, want, atol=2e-3)
+
+
 @pytest.mark.parametrize("blocks,how", [(None, "params"), ((4, 4), "params"),
                                         (None, "spectra")])
 def test_structured_service_multipilot_matches_jax_direct(circ_setup, blocks,
