@@ -136,7 +136,20 @@ Phases (any failure exits non-zero; nothing is caught):
      rows, 10 dB, 30 iterations: streamed pilots, streamed init and the
      spectra fit engaged by 'auto') and D = 2048 with 60k rows and the
      rate column, each with datagen and fit seconds, iterations, host
-     synchronizations, peak memory and the NMSE below LS; then the service
+     synchronizations, peak memory and the NMSE below LS; then the VAE
+     (phase 3g, `vae_phase`; no kernel of its own, its launch counts read
+     and held at 0): `run_vae.run` in genie, noisy and real mode at the
+     `VaeBenchConfig` widths (D = 64, latent 16, 4 layers, batch 200, 2
+     bits, 7 SNRs) under the JAX package's D = 64 protocol (20k / 2k
+     channels, 60 epochs), its NMSE at 5 and 15 dB within 1.10x the JAX
+     package's recorded values and falling from -10 to 10 dB, with train
+     seconds, steps/s, host synchronizations per epoch and peak memory;
+     noisy with `n_coherence=4`; the structured estimate against the dense
+     one at every SNR, 1 and 2 bits; one epoch at 100k channels timed and
+     projected to 500 epochs; bit-identical resume, the NaN guard, the
+     data-parallel trainer over a one-rank NCCL group against one device,
+     and `VaeEstimationService` under the serving protocol (flat, T = 4)
+     against direct `vae.estimate`; then the service
      over
      in-process meshes (`parallel.mesh.make_local_mesh`) of 1 x 2 and 2 x 2
      shards in eight modes each (dense, structured at K = 64 and the K =
@@ -687,6 +700,318 @@ def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
     if expected is not None and not off[0] <= TOL:
         raise AssertionError(f"{label}: an answer {off[0]:.3e} of scale off "
                              "the one-device service's")
+    return rec
+
+
+# phase 3g: the VAE under the JAX package's D = 64 protocol (20k / 2k
+# channels, 60 epochs at the `VaeBenchConfig` widths), held to 1.10x the
+# NMSE the JAX package recorded under it at 5 and 15 dB (PARITY_NOTES.md)
+VAE_PROTOCOL = dict(n_train=20_000, n_val=2_000, epochs=60)
+VAE_JAX_NMSE = {"genie": (0.19668, 0.10051), "noisy": (0.25639, 0.12664),
+                "real": (0.24875, 0.12121)}
+VAE_BAND = 1.10
+
+
+def vae_phase(dev, card, kernels):
+    """Phase 3g, the VAE (no kernel of its own; the launch counts are read
+    around every run and stay 0): `run_vae.run` at the `VaeBenchConfig`
+    widths under VAE_PROTOCOL in genie, noisy and real mode (train
+    seconds, steps/s, host synchronizations per epoch from
+    `set_sync_debug_mode('warn')` around `vae.train`, peak memory, the MSE
+    and rate rows; NMSE at 5 and 15 dB within VAE_BAND of the JAX
+    package's, the MSE falling from -10 to 10 dB), noisy with
+    n_coherence=4 (the `_coh` columns finite); on the trained noisy and
+    real parameters the structured estimate against the dense one at every
+    SNR at 1 and 2 bits (TOL of scale); one epoch at the default 100k
+    channels (noisy), timed and projected to 500 epochs; a run of 2 epochs
+    resumed to 3 against an uninterrupted 3 (losses to rtol 1e-6,
+    parameters within 1e-6 of scale); 2 epochs as CUDA-graph replays of
+    the step against the eager steps (bit for bit; ms a step of each); the
+    NaN guard on a poisoned batch;
+    `vae.train(mesh=)` over a one-rank NCCL group against the one-device
+    run; and `VaeEstimationService` on the noisy parameters under the
+    serving protocol, flat and T = 4, every answer within TOL of scale of
+    direct `vae.estimate`. Returns the phase's record."""
+    import torch.distributed as dist
+    from quantized_channel_estimation_torch import serving
+    from quantized_channel_estimation_torch.harness import run_vae, stages
+    from quantized_channel_estimation_torch.models import vae
+    from quantized_channel_estimation_torch.ops import pilots, scm
+    from quantized_channel_estimation_torch.ops import quantizer as Q
+    from quantized_channel_estimation_torch.parallel import mesh as pmesh
+    t_phase = time.time()
+    rec = {"protocol": dict(VAE_PROTOCOL), "runs": {}}
+    kept = {}
+    train = vae.train
+
+    def timed_train(label):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t = time.time()
+                try:
+                    out = train(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+            kept[label] = {"train_s": time.time() - t, "out": out,
+                           "h_train": args[2], "quantizers": args[5],
+                           "syncs": sum("synchroniz" in str(w.message)
+                                        for w in caught),
+                           "peak_gib": torch.cuda.max_memory_allocated(dev)
+                           / 2 ** 30}
+            return out
+        return wrapped
+
+    def run(label, **change):
+        vae.train = timed_train(label)
+        kernels.reset_launch_counts()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                cfg = run_vae.VaeBenchConfig(
+                    **VAE_PROTOCOL, use_cache=False, plot=False,
+                    results_dir=tmp, cache_dir=os.path.join(tmp, "saves"),
+                    **change)
+                t = time.time()
+                mse, rate, times = run_vae.run(cfg, verbose=False, device=dev)
+                sec = time.time() - t
+                csvs = sorted(os.listdir(os.path.join(tmp, "vae")))
+        finally:
+            vae.train = train
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        k = kept[label]
+        steps = cfg.epochs * (k["h_train"].shape[0] // cfg.batch_size)
+        r = {"mse": mse, "rate": rate, "seconds": sec, "timings": times,
+             "train_s": k["train_s"], "steps": steps,
+             "steps_per_s": steps / k["train_s"],
+             "host_syncs": k["syncs"],
+             "host_syncs_per_epoch": k["syncs"] / cfg.epochs,
+             "peak_gib": k["peak_gib"], "final_loss": k["out"][2][-1],
+             "launches": launches}
+        rec["runs"][label] = r
+        col = f"vae_{cfg.vae_mode}"
+        log(f"run_vae {label} (D={cfg.n_antennas}, latent "
+            f"{cfg.latent_dim}, {cfg.n_layers} layers, batch "
+            f"{cfg.batch_size}, {cfg.n_train} / {cfg.n_val} channels, "
+            f"{cfg.epochs} epochs): {sec:.1f}s, train {k['train_s']:.1f}s "
+            f"({steps} steps, {r['steps_per_s']:.0f} steps/s, "
+            f"{k['syncs']} host synchronizations = "
+            f"{r['host_syncs_per_epoch']:.3f} an epoch), peak memory "
+            f"{k['peak_gib']:.2f} GiB, final loss {r['final_loss']:.2f}; "
+            f"NMSE {dict(zip(cfg.snrs, mse[col]))}"
+            + (f"; coherent {dict(zip(cfg.snrs, mse[col + '_coh']))}"
+               if col + "_coh" in mse else "") + f"; launches {launches}; "
+            f"{card}")
+        if len(csvs) != 3:
+            raise AssertionError(f"run_vae {label}: CSVs {csvs}")
+        for name, vals in (*mse.items(), *rate.items()):
+            if not all(math.isfinite(v) for v in vals):
+                raise AssertionError(f"run_vae {label}: {name} {vals}")
+        if launches:
+            raise AssertionError(f"run_vae {label} launched {launches}")
+        return cfg, r
+
+    snrs = list(run_vae.VaeBenchConfig().snrs)
+    i5, i15 = snrs.index(5), snrs.index(15)
+    for mode in ("genie", "noisy", "real"):
+        cfg, r = run(mode, vae_mode=mode)
+        got = r["mse"][f"vae_{mode}"]
+        want = VAE_JAX_NMSE[mode]
+        r["rel_to_jax_recorded"] = [got[i5] / want[0], got[i15] / want[1]]
+        log(f"run_vae {mode}: NMSE at 5 / 15 dB {got[i5]:.5f} / "
+            f"{got[i15]:.5f}, the JAX package's recorded {want[0]} / "
+            f"{want[1]} ({r['rel_to_jax_recorded'][0]:.3f}x / "
+            f"{r['rel_to_jax_recorded'][1]:.3f}x; band {VAE_BAND}x)")
+        if not (got[i5] <= VAE_BAND * want[0]
+                and got[i15] <= VAE_BAND * want[1]):
+            raise AssertionError(f"run_vae {mode}: NMSE past {VAE_BAND}x "
+                                 "the JAX package's")
+        low = got[:snrs.index(10) + 1]
+        if not all(x > y for x, y in zip(low, low[1:])):
+            raise AssertionError(f"run_vae {mode}: MSE not falling from "
+                                 f"-10 to 10 dB: {low}")
+    cfg_c, _ = run("noisy, T=4", vae_mode="noisy", n_coherence=4)
+
+    # the structured estimate against the dense one on the trained noisy
+    # and real parameters, fresh validation channels, 1 and 2 bits
+    d = cfg_c.n_antennas
+    h_val, _ = stages.generate_channels(
+        torch.Generator(dev).manual_seed(60), VAE_PROTOCOL["n_val"],
+        scm.ScmConfig(d, cfg_c.n_path, cfg_c.path_sigma))
+    a = pilots.pilot_matrix(d, 1, N_BITS, device=dev)
+    gen = torch.Generator(dev).manual_seed(61)
+    rec["structured_vs_dense"] = {}
+    for mode in ("noisy", "real"):
+        model, state, _ = kept[mode]["out"]
+        for bits in (1, 2):
+            vcfg = model.cfg._replace(n_bits=bits)
+            rels = []
+            for snr in snrs:
+                q = Q.design_quantizer(snr, bits).to(dev)
+                r_o = stages.observe(gen, h_val, snr, a, bits, q)
+                dense, circ = (vae.estimate(model, state.params, vcfg, r_o,
+                                            snr, a, q, structured=s)
+                               for s in (False, True))
+                rels.append(float((circ - dense).abs().max()
+                                  / dense.abs().max()))
+            rec["structured_vs_dense"][f"{mode}, {bits} bit"] = rels
+            log(f"vae {mode}, {bits} bit: structured vs dense max rel "
+                f"{max(rels):.2e} over {snrs} dB")
+            if not max(rels) <= TOL:
+                raise AssertionError(f"vae {mode} {bits} bit: structured "
+                                     f"off dense: {rels}")
+
+    # one epoch at the default 100k channels (noisy, 500 steps)
+    model_n, state_n, _ = kept["noisy"]["out"]
+    vcfg_n = model_n.cfg
+    qs = kept["noisy"]["quantizers"]
+    full = run_vae.VaeBenchConfig()
+    h_full, _ = stages.generate_channels(
+        torch.Generator(dev).manual_seed(62), full.n_train,
+        scm.ScmConfig(d, full.n_path, full.path_sigma),
+        stages.auto_gen_chunk(d))
+    torch.cuda.synchronize()
+    t = time.time()
+    _, _, l_full = train(63, vcfg_n._replace(epochs=1), h_full, a, snrs, qs,
+                         verbose=False)
+    torch.cuda.synchronize()
+    epoch_s = time.time() - t
+    # the first call of a new training set captures its step graph
+    rec["epoch_100k"] = {"seconds": epoch_s,
+                         "steps": full.n_train // full.batch_size,
+                         "projected_500_epochs_s": 500 * epoch_s,
+                         "loss": l_full[0]}
+    log(f"vae noisy, one epoch at {full.n_train} channels "
+        f"({full.n_train // full.batch_size} steps): {epoch_s:.2f}s; "
+        f"projected {full.epochs} epochs {full.epochs * epoch_s:.0f}s; "
+        f"{card}")
+    del h_full
+
+    # resume: 2 epochs, then resumed to 3, against an uninterrupted 3
+    h_tr = kept["noisy"]["h_train"]
+    cfg3 = vcfg_n._replace(epochs=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt")
+        _, _, l_2 = train(64, cfg3._replace(epochs=2), h_tr, a, snrs, qs,
+                          verbose=False, checkpoint_path=path)
+        _, s_res, l_res = train(64, cfg3, h_tr, a, snrs, qs, verbose=False,
+                                checkpoint_path=path)
+    _, s_one, l_one = train(64, cfg3, h_tr, a, snrs, qs, verbose=False)
+    p_rel = float((s_res.params - s_one.params).abs().max()
+                  / s_one.params.abs().max())
+    rec["resume"] = {"losses_resumed": l_res, "losses_uninterrupted": l_one,
+                     "params_max_rel": p_rel,
+                     "bit_identical": all(torch.equal(x, y) for x, y in
+                                          zip(s_res, s_one))}
+    log(f"vae resume: 2 epochs + 1 resumed vs 3: losses {l_res} vs {l_one},"
+        f" parameters max rel {p_rel:.2e}, bit identical "
+        f"{rec['resume']['bit_identical']}")
+    if not (l_res[:2] == l_2 and np.allclose(l_res, l_one, rtol=1e-6,
+                                              atol=0) and p_rel <= 1e-6):
+        raise AssertionError("vae resume differs from the uninterrupted run")
+
+    # the epochs as CUDA-graph replays of the step against the eager
+    # steps: bit for bit, and each timed (the graph's first call captures)
+    step = vae.make_train_step(model_n, vcfg_n, a, snrs, qs)
+    n_steps = h_tr.shape[0] // vcfg_n.batch_size
+    runs = {}
+    for label, graphed in (("eager", False), ("graph, capture", True),
+                           ("graph", True)):
+        torch.cuda.synchronize()
+        t = time.time()
+        st_g, ml_g = step.run_epochs(state_n, h_tr,
+                                     np.random.SeedSequence(67), 0, n_steps,
+                                     2, cuda_graph=graphed)
+        torch.cuda.synchronize()
+        runs[label] = (st_g, ml_g, time.time() - t)
+    same = all(torch.equal(x, y) for x, y in zip(runs["eager"][0],
+                                                 runs["graph"][0])) \
+        and torch.equal(runs["eager"][1], runs["graph"][1]) \
+        and all(torch.equal(x, y) for x, y in zip(
+            runs["graph, capture"][0], runs["graph"][0]))
+    rec["cuda_graph"] = {
+        "bit_identical": same,
+        **{f"{k} ms/step": 1e3 * v[2] / (2 * n_steps)
+           for k, v in runs.items()}}
+    log(f"vae epochs as CUDA-graph replays vs eager steps (2 epochs of "
+        f"{n_steps}): bit identical {same}; ms a step "
+        + ", ".join(f"{k} {1e3 * v[2] / (2 * n_steps):.3f}"
+                    for k, v in runs.items()) + f"; {card}")
+    if not same:
+        raise AssertionError("vae CUDA-graph epochs differ from eager")
+    del runs
+
+    # the NaN guard: a poisoned batch keeps parameters, moments and count
+    g = torch.Generator(dev).manual_seed(65)
+    guarded, loss = step(state_n, torch.full_like(h_tr[:1000],
+                                                  complex("nan")), g)
+    kept_all = all(torch.equal(x, y) for x, y in zip(guarded[:4],
+                                                     state_n[:4]))
+    rec["nan_guard"] = {"loss": repr(float(loss)), "state_kept": kept_all,
+                        "step_counted": int(guarded.step)
+                        == int(state_n.step) + 1}
+    log(f"vae NaN guard: loss {float(loss)}, state kept {kept_all}")
+    if not (kept_all and rec["nan_guard"]["step_counted"]):
+        raise AssertionError("vae NaN guard changed the state")
+
+    # data parallelism at world size 1 (a one-rank NCCL group) against the
+    # one-device run
+    cfg2 = vcfg_n._replace(epochs=2)
+    _, s_1, l_1 = train(66, cfg2, h_tr, a, snrs, qs, verbose=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = pmesh.make_mesh(1, 1)
+            _, s_dp, l_dp = train(66, cfg2, h_tr, a, snrs, qs,
+                                  verbose=False, mesh=mesh)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    dp_rel = float((s_dp.params - s_1.params).abs().max()
+                   / s_1.params.abs().max())
+    rec["dp_world_size_1"] = {"losses": l_dp, "losses_one_device": l_1,
+                              "params_max_rel": dp_rel}
+    log(f"vae DP over a one-rank NCCL group vs one device: losses {l_dp} vs "
+        f"{l_1}, parameters max rel {dp_rel:.2e}")
+    if not (np.allclose(l_dp, l_1, rtol=1e-6, atol=0) and dp_rel <= 1e-6):
+        raise AssertionError("vae DP at world size 1 off the one-device run")
+
+    # the service on the trained noisy parameters
+    class Direct:
+        """`vae.estimate` behind the service's submit()."""
+
+        def submit(self, r_np, snr, timeout=None):
+            rt = torch.as_tensor(r_np, device=dev)
+            t_coh = rt.shape[1] if rt.dim() == 3 else 1
+            q = Q.design_quantizer(snr, N_BITS).to(dev)
+            out = vae.estimate(model_n, state_n.params, vcfg_n,
+                               rt.reshape(-1, d), snr, a, q,
+                               coherence=t_coh, structured=True)
+            return out.reshape(rt.shape).cpu().numpy()
+
+    direct = Direct()
+    rec["serving"] = []
+    svc = serving.VaeEstimationService(model_n, state_n.params, vcfg_n, a,
+                                       max_batch=SERVE_MAX_BATCH, device=dev)
+    try:
+        if not svc.structured:
+            raise AssertionError("the VAE service did not detect A = x0 I")
+        for label, t_coh in (("vae noisy flat", 1),
+                             ("vae noisy T=4 blocks", 4)):
+            rec["serving"].append(serve_mode(
+                svc, kernels, dev, label, t_coh, None,
+                lambda rt, t=t_coh: torch.as_tensor(
+                    direct.submit(rt.cpu().numpy(), SNR), device=dev),
+                same_as=direct))
+    finally:
+        svc.close(timeout=120.0)
+    rec["seconds"] = time.time() - t_phase
+    log(f"VAE phase 3g: {rec['seconds']:.1f}s")
     return rec
 
 
@@ -2299,6 +2624,9 @@ def main():
     frontier_s = time.time() - t_front
     log(f"CSI-free frontier phase 3f: {frontier_s:.1f}s")
 
+    # 3g. the VAE (ROADMAP item 13), `vae_phase` above
+    vae_rec = vae_phase(dev, card, kernels)
+
     # 3d. the service over in-process meshes of 1 x 2 and 2 x 2 shards: the
     # dense, structured (K = 64, and the K = 256 spectra-native prior in two
     # component shards of 128, which K8 / K9 take whole) and factored banks
@@ -3225,10 +3553,12 @@ def main():
         "cov_recovery": {"n_data": n_list, "nmse": cov_rec,
                          "seconds": cov_rec_s},
         "gmm_quant_frontier": frontier,
+        "vae": vae_rec,
         "new_phases_seconds": {"toeplitz": toep_s,
                                "mesh_service": mesh_serve_s,
                                "csi_free": quant_s,
-                               "csi_free_frontier": frontier_s},
+                               "csi_free_frontier": frontier_s,
+                               "vae": vae_rec["seconds"]},
         "kernel_tools": {"seconds": tools_s, "launches": launches_tools,
                          "kernel_bench_ms": bench["ms"],
                          "split_bench": split},

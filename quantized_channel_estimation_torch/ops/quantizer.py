@@ -47,6 +47,13 @@ def uniform_step(snr_db, n_bits: int) -> float:
         * standard_quantization_step(n_bits)
 
 
+def uniform_step_tensor(snr_db: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """`uniform_step` of a tensor of SNRs (one a sample, the VAE's 'real'
+    mode), on their device and in their dtype."""
+    return torch.sqrt((1.0 + 10.0 ** (-snr_db / 10.0)) / 2.0) \
+        * standard_quantization_step(n_bits)
+
+
 class ScalarQuantizer(NamedTuple):
     """Symmetric scalar quantizer for one real component.
 

@@ -18,7 +18,9 @@ program over a mesh of devices and reduces with `psum` / `pmax` inside
     statistics, and one all-reduce over "data" makes every rank run the
     same M-step (`fit_gmm_shard_map`, `kmeans_shard_map`,
     `fit_mfa_shard_map`, `fit_gmm_quant_shard_map`,
-    `fit_circulant_spectra_shard_map`; `DeviceMesh` only);
+    `fit_circulant_spectra_shard_map`; `DeviceMesh` only); VAE training
+    is data-parallel the same way, its gradient averaged over "data" every
+    step (`make_vae_epochs_runner`);
   - estimation shards the samples over "data" and the component bank over
     "component": each shard computes the un-normalised online-softmax state
     (m, den, acc) of its components, and the shards merge exactly: across
@@ -288,11 +290,6 @@ def fit_mfa_shard_map(mesh: DeviceMesh, gen: torch.Generator,
                    group=mesh.get_group(DATA_AXIS))
 
 
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                              f"item {item})")
-
-
 def fit_gmm_quant_shard_map(mesh: DeviceMesh, gen: torch.Generator,
                             r: torch.Tensor, cfg: GmmConfig, n_bits, sigma2,
                             q=None) -> gmm_quant.QuantGmmFitResult:
@@ -319,16 +316,43 @@ def fit_circulant_spectra_shard_map(mesh: DeviceMesh, gen: torch.Generator,
                                            group=mesh.get_group(DATA_AXIS))
 
 
-def make_vae_epochs_runner(mesh, model, cfg, a, snrs, quantizers, n_steps,
-                           n_epochs):
-    """Data-parallel VAE epoch runner."""
-    _not_ported("the data-parallel VAE trainer", 13)
+def make_vae_epochs_runner(mesh: DeviceMesh, model, cfg, a, snrs, quantizers,
+                           n_steps: int, n_epochs: int):
+    """A data-parallel VAE epoch-block runner over the mesh's 'data' axis:
+    each rank trains on its window of the rows and draws its own batches
+    (its data rank keys its stream; rank 0 draws the single-device stream),
+    and the gradient and the loss are averaged over 'data' every step in one
+    all-reduce (`vae.make_train_step(group=)`), so the state stays
+    replicated. Effective batch cfg.batch_size x n_data_shards.
+
+    Returns run(state, h_train, stream, epoch0) -> (state, per-epoch mean
+    losses on the device): h_train the global rows, which every rank
+    holds; stream the training SeedSequence (`vae.train`'s second child of
+    its seed); epoch0 the first epoch's index."""
+    from quantized_channel_estimation_torch.models import vae
+    if isinstance(mesh, LocalMesh):
+        raise ValueError("data-parallel VAE training runs over the ranks of "
+                         "a torch.distributed DeviceMesh (make_mesh), not an "
+                         "in-process LocalMesh")
+    step = vae.make_train_step(model, cfg, a, snrs, quantizers,
+                               group=mesh.get_group(DATA_AXIS),
+                               rank=mesh.get_local_rank(DATA_AXIS))
+
+    def run(state, h_train, stream, epoch0: int = 0):
+        return step.run_epochs(state, shard_data(mesh, h_train), stream,
+                               int(epoch0), n_steps, n_epochs)
+
+    return run
 
 
-def vae_run_epochs_shard_map(mesh, model, cfg, a, snrs, quantizers, state,
-                             h_train, key, n_steps, n_epochs, epoch0=0):
+def vae_run_epochs_shard_map(mesh: DeviceMesh, model, cfg, a, snrs,
+                             quantizers, state, h_train: torch.Tensor,
+                             stream, n_steps: int, n_epochs: int,
+                             epoch0: int = 0):
     """One-shot form of `make_vae_epochs_runner`."""
-    _not_ported("the data-parallel VAE trainer", 13)
+    run = make_vae_epochs_runner(mesh, model, cfg, a, snrs, quantizers,
+                                 n_steps, n_epochs)
+    return run(state, h_train, stream, epoch0)
 
 
 # ---------------------------------------------------------------------------

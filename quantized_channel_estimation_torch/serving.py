@@ -42,8 +42,10 @@ blocks), the shard states merged with `kernels.merge_stats`
 Each bank shard's kernel layouts are kept with the bank. The service is one
 process: a `torch.distributed` `DeviceMesh` is refused.
 
-Not ported yet: `VaeEstimationService` (ROADMAP Queue 1 item 13) raises
-NotImplementedError.
+`VaeEstimationService` serves a trained VAE prior (noisy and real modes)
+on the same runtime: each microbatch through `models.vae.estimate` (the
+per-sample circulant algebra for A = x0 I, else the dense per-sample
+solve); it launches no kernel of the port.
 """
 from __future__ import annotations
 
@@ -144,11 +146,6 @@ class _BankEntry(NamedTuple):
     bank: Union[PreparedBank, CirculantBank, CirculantBankMP, FactoredBank]
     lowered: dict
     shards: Tuple[dict, ...] = ()
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item {item})")
 
 
 class EstimationService:
@@ -746,8 +743,96 @@ class EstimationService:
         self._thread.join(timeout=timeout)
 
 
-class VaeEstimationService:
-    """The VAE-prior service of the JAX package; not ported yet."""
+class VaeEstimationService(EstimationService):
+    """Microbatching front-end over a trained VAE prior (noisy and real
+    modes): each request's per-sample conditional covariance comes from the
+    decoder and feeds the batched Bussgang-LMMSE of `vae.estimate` on the
+    service's device.
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("VaeEstimationService", 13)
+    Unlike the GMM services there is no prepared bank (the covariance
+    depends on the request), so the per-SNR cache holds the quantizer
+    design. Genie mode is refused at construction: its encoder needs the
+    true channel, which a client asking for an estimate cannot have.
+    Coherence blocks (n, T, M) pool the decoder's predicted spectra per
+    block (`vae.estimate(coherence=T)`). Queues, microbatching, metrics,
+    drain and backpressure are the base service's (`_init_runtime`)."""
+
+    def __init__(self, model, params, cfg, a, max_batch: int = 4096,
+                 max_delay_ms: float = 5.0, max_banks: int = 64,
+                 snr_step_db: Optional[float] = 0.1,
+                 max_queue: int = 262_144, chunk_size: int = 512,
+                 structured: Union[bool, str] = "auto", device=None):
+        """model: the `vae.DnnVae`; params: its flat parameter vector
+        (`VaeTrainState.params`), a params dict, or None for the module's
+        own; a: the (M, N) pilot matrix or a scalar x0 for A = x0 I.
+        structured: route `vae.estimate` through its per-sample circulant
+        path, exact when A = x0 I, which 'auto' detects from the pilot
+        matrix. device: as `stages.resolve_device` (the CUDA card by
+        default; raises without one)."""
+        if cfg.vae_mode == "genie":
+            raise ValueError(
+                "genie-mode VAE estimation is genie-aided (the encoder "
+                "sees the true channel); it cannot serve estimation "
+                "requests: train and serve 'noisy' or 'real' instead")
+        from quantized_channel_estimation_torch.models import vae
+        self._vae = vae
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.params = (None if params is None else
+                       {k: torch.as_tensor(v, device=self.device)
+                        for k, v in params.items()}
+                       if isinstance(params, dict)
+                       else torch.as_tensor(params, device=self.device))
+        self.cfg = cfg
+        a = torch.as_tensor(a, device=self.device).to(torch.complex64)
+        if a.dim() == 0:
+            a = a * torch.eye(cfg.n_antennas, dtype=a.dtype,
+                              device=self.device)
+        self.a = a
+        self.n_bits = cfg.n_bits
+        self.quantizer_type = cfg.quantizer_type
+        self.mode = "all"
+        self.use_kernels = False
+        self.mesh = None
+        if structured == "auto":
+            x0 = a[0, 0]
+            structured = bool(
+                a.shape[0] == a.shape[1]
+                and torch.allclose(a, x0 * torch.eye(a.shape[0], dtype=a.dtype,
+                                                     device=self.device),
+                                   rtol=0.0,
+                                   atol=1e-6 * max(1.0, float(x0.abs()))))
+        self.structured = bool(structured)
+        self._chunk = chunk_size
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._init_runtime(max_batch, max_delay_ms, max_banks, snr_step_db,
+                           max_queue)
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _bank(self, snr: float):
+        """The per-SNR cached object: (snr, quantizer design)."""
+        if snr in self._banks:
+            self._banks.move_to_end(snr)
+            self._metrics.bank_cache_hits += 1
+            return self._banks[snr]
+        self._metrics.bank_cache_misses += 1
+        q = Q.design_quantizer(snr, self.n_bits, self.quantizer_type)
+        self._banks[snr] = (snr, None if q is None else q.to(self.device))
+        while len(self._banks) > self.max_banks:
+            self._banks.popitem(last=False)
+        return self._banks[snr]
+
+    def _compute(self, bank, rp: np.ndarray, t_coh: Optional[int],
+                 alpha: Optional[float]) -> np.ndarray:
+        snr, q = bank
+        r = torch.as_tensor(rp, device=self.device).to(torch.complex64)
+        t = t_coh or 1
+        # vae.estimate pools T consecutive rows: blocks go block-major
+        flat = r.reshape(r.shape[0] * t, r.shape[-1])
+        out = self._vae.estimate(self.model, self.params, self.cfg, flat,
+                                 float(snr), self.a, q,
+                                 chunk_size=self._chunk, coherence=t,
+                                 structured=self.structured)
+        return out.reshape(r.shape[:-1] + (-1,)).cpu().numpy()

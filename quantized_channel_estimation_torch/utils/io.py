@@ -7,7 +7,8 @@ estimator); caches are config-keyed .npz files that both packages read and
 write: `load_gmm_arrays` reads the `leaf_0..leaf_3` npz the JAX package's
 `save_pytree_npz` writes, and `save_gmm_params` writes one its
 `load_gmm_params` accepts. `save_loglog_plot` draws the covariance-recovery
-figure (matplotlib, imported when called).
+figure and `save_loss_plot` a training-loss curve (matplotlib, imported
+when called).
 """
 from __future__ import annotations
 
@@ -81,6 +82,24 @@ def load_gmm_params(path: str, device=None):
     from quantized_channel_estimation_torch.models.gmm import (
         params_from_numpy)
     return params_from_numpy(load_gmm_arrays(path), device)
+
+
+def save_loss_plot(path: str, losses, val_losses=None) -> None:
+    """Training-loss PNG over epochs (the VAE runs'). Imports matplotlib
+    (Agg backend) on call; without matplotlib it raises ImportError."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig, ax = plt.subplots()
+    ax.plot(range(1, len(losses) + 1), losses, label="train-loss")
+    if val_losses is not None:
+        ax.plot(range(1, len(val_losses) + 1), val_losses, label="val-loss")
+    ax.legend()
+    ax.set_xlabel("Epoch")
+    ax.set_ylabel("Loss")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fig.savefig(path)
+    plt.close(fig)
 
 
 def save_loglog_plot(path: str, x, series: Dict[str, Sequence[float]],

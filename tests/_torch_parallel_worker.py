@@ -6,7 +6,10 @@ Each rank joins a 2-rank CPU group through a file store, runs one job on
 seeded inputs and saves what it computed, beside the single-device results
 of the same inputs, to <out dir>/rank<rank>.pt: 'mesh' runs the data- and
 tensor-parallel fits and estimators (`parallel.mesh`, the quantized EMs'
-data-parallel forms among them) for tests/test_torch_parallel.py,
+data-parallel forms among them, and the data-parallel VAE trainer: its
+step on injected draws, `vae.train(mesh=)` with a checkpoint that rank 0
+then resumes on one device, and `run_vae` over both ranks) for
+tests/test_torch_parallel.py,
 'harness' the `n_data_shards` / `n_component_shards` options of
 `run_gmm`, `run_mfa` and `run_gmm_quant` for tests/test_torch_harness.py. `spawn_group` starts both ranks and reads
 their results. Imports torch, not JAX; the inputs are made by the functions
@@ -24,7 +27,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from quantized_channel_estimation_torch.models import (  # noqa: E402
-    gmm, gmm_estimator, gmm_quant, mfa, mfa_bank, structured_bank)
+    gmm, gmm_estimator, gmm_quant, mfa, mfa_bank, structured_bank, vae)
 from quantized_channel_estimation_torch.ops import (  # noqa: E402
     linalg, observation, pilots)
 from quantized_channel_estimation_torch.ops import quantizer as Q  # noqa
@@ -153,11 +156,72 @@ HARNESS = {   # name: (runner, config changes)
 }
 
 
+VAE_MODES = ("genie", "noisy", "real")
+VAE_SNRS = (-5.0, 5.0)
+VAE_STEPS = 3
+
+
+def vae_case(mode):
+    """(cfg, channels (512, D), pilot matrix, quantizers, model, initial
+    state) of the data-parallel VAE cases."""
+    cfg = vae.VaeConfig(n_antennas=D, latent_dim=2, n_layers=2,
+                        vae_mode=mode, batch_size=32, epochs=2,
+                        steps_per_epoch=VAE_STEPS)
+    qs = [Q.design_quantizer(s, 2) for s in VAE_SNRS]
+    model, state = vae.init_vae(torch.Generator().manual_seed(20), cfg)
+    return (cfg, fit_data(512), pilots.pilot_matrix(D, 1, 2, device="cpu"),
+            qs, model, state)
+
+
+def vae_dp_steps(pm, mesh, mode):
+    """VAE_STEPS data-parallel steps on injected draws (each rank's from
+    its own seed), beside the one-process steps on the two ranks' draws
+    concatenated (the rows of rank 1 offset by its window)."""
+    cfg, h, a, qs, model, state = vae_case(mode)
+    one = vae.make_train_step(model, cfg, a, VAE_SNRS, qs)
+    dp = vae.make_train_step(model, cfg, a, VAE_SNRS, qs,
+                             group=mesh.get_group(pm.DATA_AXIS),
+                             rank=mesh.get_local_rank(pm.DATA_AXIS))
+    h_local = pm.shard_data(mesh, h)
+    n_local = h_local.shape[0]
+    st_dp, st_one, l_dp, l_one = state, state, [], []
+    for i in range(VAE_STEPS):
+        draws = [one.draw(torch.Generator().manual_seed(100 + 10 * i + r),
+                          n_local) for r in range(2)]
+        st_dp, loss = dp.apply(st_dp, h_local,
+                               draws[mesh.get_local_rank(pm.DATA_AXIS)])
+        l_dp.append(float(loss))
+        cat = vae.StepDraws(*(
+            None if x0 is None else torch.cat([x0, x1 + n_local])
+            if k == 0 else torch.cat([x0, x1])
+            for k, (x0, x1) in enumerate(zip(*draws))))
+        st_one, loss = one.apply(st_one, h, cat)
+        l_one.append(float(loss))
+    return (l_dp, tuple(st_dp)), (l_one, tuple(st_one))
+
+
+def vae_run(cfg_kw, root, mesh=None, path=None):
+    """`vae.train` of the noisy case (data-parallel with `mesh`):
+    (losses, state)."""
+    cfg, h, a, qs, _, _ = vae_case("noisy")
+    _, state, losses = vae.train(21, cfg._replace(**cfg_kw), h, a, VAE_SNRS,
+                                 qs, verbose=False, checkpoint_path=path,
+                                 mesh=mesh)
+    return losses, tuple(state)
+
+
 def harness_run(kind, root, change):
     """run_gmm / run_mfa / run_gmm_quant at a small size, results under
     `root`."""
     from quantized_channel_estimation_torch.harness import (
-        run_gmm, run_gmm_quant, run_mfa)
+        run_gmm, run_gmm_quant, run_mfa, run_vae)
+    if kind == "vae":
+        cfg = run_vae.VaeBenchConfig(
+            n_antennas=D, latent_dim=2, n_layers=2, n_train=1024, n_val=256,
+            batch_size=64, epochs=2, snrs=(-10, 10), results_dir=str(root),
+            cache_dir=str(root / "saves"), use_cache=False, plot=False,
+            **change)
+        return run_vae.run(cfg, verbose=False, device="cpu")[:2]
     common = dict(n_antennas=D, n_components=K, n_train=3000, n_val=400,
                   snrs=(-10, 10), results_dir=str(root), use_cache=False,
                   cache_dir=str(root / "saves"))
@@ -263,6 +327,23 @@ def mesh_job(rank, root):
         out[f"mfa/{name}"] = ((float(dp.log_likelihood), tuple(dp.params)),
                               (float(one.log_likelihood), tuple(one.params)))
 
+    for mode in VAE_MODES:
+        out[f"vae_step/{mode}"] = vae_dp_steps(pm, data_mesh, mode)
+    out["vae_train_dp"] = vae_run({}, root, data_mesh,
+                                  str(root / "vae_ckpt"))
+    cfg, h, a, qs, model, state = vae_case("real")
+    stream = np.random.SeedSequence(22)
+    one_shot = pm.vae_run_epochs_shard_map(data_mesh, model, cfg, a,
+                                           VAE_SNRS, qs, state, h, stream,
+                                           VAE_STEPS, 2, epoch0=1)
+    runner = pm.make_vae_epochs_runner(data_mesh, model, cfg, a, VAE_SNRS,
+                                       qs, VAE_STEPS, 1)
+    st1, l1 = runner(state, h, stream, 1)
+    st2, l2 = runner(st1, h, stream, 2)
+    out["vae_blocks"] = ((tuple(one_shot[0]), one_shot[1]),
+                         (tuple(st2), torch.cat([l1, l2])))
+    out["vae_run_dp"] = harness_run("vae", root / f"vae_rank{rank}",
+                                    dict(n_data_shards=2))
     sharded_paths(pm, data_mesh, out, "data2")
     sharded_paths(pm, comp_mesh, out, "comp2")
     # the dense TP case the test holds against JAX's estimate_sharded_kernel
@@ -282,6 +363,13 @@ def harness_job(rank, root):
             for name, (kind, change) in HARNESS.items()}
 
 
+def vae_resume_single(root):
+    """Rank 0, after the group: the data-parallel run's checkpoint resumed
+    on one device to a third epoch."""
+    return {"vae_resume_single": vae_run(dict(epochs=3), root,
+                                         path=str(root / "vae_ckpt"))}
+
+
 def single_runs(root):
     one = {k: 1 for k in ("n_data_shards", "n_component_shards")}
     return {f"harness1/{name}": harness_run(kind, root / name / "single",
@@ -290,6 +378,8 @@ def single_runs(root):
 
 
 JOBS = {"mesh": mesh_job, "harness": harness_job}
+# run by rank 0 alone once the group is destroyed
+AFTER = {"mesh": vae_resume_single, "harness": single_runs}
 
 
 def spawn_group(out_dir, job, timeout):
@@ -333,8 +423,8 @@ def main():
     out = JOBS[job](rank, root)
     dist.barrier()
     dist.destroy_process_group()
-    if job == "harness" and rank == 0:
-        out.update(single_runs(root))
+    if rank == 0:
+        out.update(AFTER[job](root))
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     print("WORKER_OK", flush=True)
 

@@ -9,7 +9,10 @@ the inverse-EM Toeplitz fit on the card, and the quantized EM
 (CSI-free training) on the card against the port on the CPU, with
 `run_gmm_quant` launching its kernels, the spectra-native EM against the
 CPU from one state, K6 / K7 on its spectra-fed bank, and the streamed
-pilots on the card.
+pilots on the card; the VAE on the card (no kernel of its own): its train
+step against the CPU's on the same draws, the NaN guard, its epochs free
+of host synchronization, bit-identical resume from a card checkpoint,
+structured estimation against dense, and its service.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor the JAX package, so on a machine with a card and
@@ -2053,3 +2056,159 @@ def test_profiling_on_card():
     with timer.section("k1", barrier_tree=tkn.grouped_estimate(r2, kb)):
         pass
     assert timer.counts == {"k1": 1}
+
+
+# ---------------------------------------------------------------------------
+# the VAE on the card
+# ---------------------------------------------------------------------------
+
+VAE_SNRS = (-10.0, 0.0, 10.0, 20.0)
+
+
+def _vae_case(mode, dev, d=32, n=2000):
+    """(cfg, model, state, step, channels, pilot, quantizers) on `dev`."""
+    from quantized_channel_estimation_torch.models import vae as tv
+    from quantized_channel_estimation_torch.ops import scm as tscm
+    cfg = tv.VaeConfig(n_antennas=d, latent_dim=8, n_layers=3,
+                       vae_mode=mode, batch_size=128, epochs=3,
+                       steps_per_epoch=10)
+    h, _ = stages.generate_channels(torch.Generator().manual_seed(40), n,
+                                    tscm.ScmConfig(d, 1))
+    a = tp.pilot_matrix(d, 1, 2)
+    qs = [tq.design_quantizer(s, 2) for s in VAE_SNRS]
+    model, state = tv.init_vae(torch.Generator().manual_seed(41), cfg)
+    model, state = model.to(dev), tv.VaeTrainState(*(x.to(dev)
+                                                     for x in state))
+    step = tv.make_train_step(model, cfg, a.to(dev), VAE_SNRS,
+                              [q.to(dev) for q in qs])
+    return cfg, model, state, step, h.to(dev), a.to(dev), [q.to(dev)
+                                                         for q in qs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["genie", "noisy", "real"])
+def test_vae_step_on_card_matches_cpu(mode):
+    """Five Adam steps on the card and on the CPU from one state on the
+    same draws: the loss to rtol 1e-5, the parameters and moments to 1e-5
+    of their scale, the same count."""
+    from quantized_channel_estimation_torch.models import vae as tv
+    dev = _card()
+    _, _, st_c, step_c, h_c, _, _ = _vae_case(mode, "cpu")
+    _, _, st_g, step_g, h_g, _, _ = _vae_case(mode, dev)
+    gen = torch.Generator().manual_seed(42)
+    for _ in range(5):
+        d = step_c.draw(gen, h_c.shape[0])
+        st_c, l_c = step_c.apply(st_c, h_c, d)
+        st_g, l_g = step_g.apply(st_g, h_g, tv.StepDraws(
+            *(None if x is None else x.to(dev) for x in d)))
+        np.testing.assert_allclose(float(l_g), float(l_c), rtol=1e-5)
+    for g, c in zip(st_g[:3], st_c[:3]):
+        assert float((g.cpu() - c).abs().max()) <= 1e-5 * float(c.abs().max())
+    assert int(st_g.count) == int(st_c.count) == 5
+
+
+@pytest.mark.cuda
+def test_vae_nan_guard_and_epochs_without_host_reads_on_card():
+    """A poisoned batch leaves parameters, moments and count unchanged on
+    the card; a block of epochs runs with no host synchronization
+    (`set_sync_debug_mode('error')`)."""
+    dev = _card()
+    _, _, state, step, h, _, _ = _vae_case("noisy", dev)
+    gen = torch.Generator(dev).manual_seed(43)
+    state, _ = step(state, h, gen)
+    new, loss = step(state, torch.full_like(h, complex("nan")), gen)
+    assert not bool(torch.isfinite(loss))
+    for got, want in zip(new[:4], state[:4]):
+        assert torch.equal(got, want)
+    assert int(new.step) == int(state.step) + 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, means = step.run_epochs(state, h,
+                                       np.random.SeedSequence(44), 0, 10, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert means.shape == (2,) and bool(torch.isfinite(means).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["genie", "noisy", "real"])
+def test_vae_graph_epochs_replay_the_eager_steps(mode):
+    """Epochs as CUDA-graph replays of one step equal the eager steps bit
+    for bit (state and mean losses), also on a second call that reuses the
+    captured graph."""
+    dev = _card()
+    _, _, state, step, h, _, _ = _vae_case(mode, dev)
+    stream = np.random.SeedSequence(47)
+    eager = step.run_epochs(state, h, stream, 3, 10, 2, cuda_graph=False)
+    for _ in range(2):
+        graphed = step.run_epochs(state, h, stream, 3, 10, 2,
+                                  cuda_graph=True)
+        assert torch.equal(graphed[1], eager[1])
+        assert all(torch.equal(x, y) for x, y in zip(graphed[0], eager[0]))
+
+
+@pytest.mark.cuda
+def test_vae_resume_on_card_is_bit_identical(tmp_path):
+    from quantized_channel_estimation_torch.models import vae as tv
+    dev = _card()
+    cfg, _, _, _, h, a, qs = _vae_case("real", dev)
+    cfg2 = cfg._replace(epochs=2)
+    path = str(tmp_path / "ckpt")
+    _, _, l1 = tv.train(0, cfg2, h, a, VAE_SNRS, qs, verbose=False,
+                        checkpoint_path=path)
+    _, s2, l2 = tv.train(0, cfg, h, a, VAE_SNRS, qs, verbose=False,
+                         checkpoint_path=path)
+    _, s3, l3 = tv.train(0, cfg, h, a, VAE_SNRS, qs, verbose=False)
+    assert l2[:2] == l1 and l2 == l3
+    for got, want in zip(s2, s3):
+        assert got.device.type == "cuda" and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits", [2, 1, math.inf])
+def test_vae_structured_estimate_matches_dense_on_card(n_bits):
+    """The per-sample circulant path against the dense solve on the card,
+    and the card against the CPU, to 1e-4 of the scale."""
+    from quantized_channel_estimation_torch.models import vae as tv
+    dev = _card()
+    cfg, model, state, _, h, a, _ = _vae_case("noisy", dev)
+    cfg = cfg._replace(n_bits=n_bits)
+    q = tq.design_quantizer(10.0, n_bits)
+    q = None if q is None else q.to(dev)
+    r = stages.observe(torch.Generator(dev).manual_seed(45), h[:512], 10.0,
+                       a, n_bits, q)
+    outs = [tv.estimate(model, state.params, cfg, r, 10.0, a, q,
+                        structured=s) for s in (False, True)]
+    cpu = tv.estimate(model.cpu(), state.params.cpu(), cfg, r.cpu(), 10.0,
+                      a.cpu(), None if q is None else q.to("cpu"),
+                      structured=True)
+    for got in (outs[1], cpu.to(dev)):
+        scale = float(outs[0].abs().max())
+        assert float((got - outs[0]).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_vae_service_on_card_matches_direct():
+    from quantized_channel_estimation_torch import serving
+    from quantized_channel_estimation_torch.models import vae as tv
+    dev = _card()
+    cfg, model, state, _, h, a, _ = _vae_case("noisy", dev)
+    q = tq.design_quantizer(5.0, 2).to(dev)
+    r = stages.observe(torch.Generator(dev).manual_seed(46), h[:256], 5.0, a,
+                       2, q)
+    svc = serving.VaeEstimationService(model, state.params, cfg, a,
+                                       max_delay_ms=1.0)
+    try:
+        assert svc.structured and svc.device.type == "cuda"
+        for t in (1, 4):
+            req = r.cpu().numpy().reshape((-1, t, r.shape[-1]) if t > 1
+                                          else r.shape)
+            got = svc.submit(req, 5.0, timeout=60.0)
+            want = tv.estimate(model, state.params, cfg, r, 5.0, a, q,
+                               coherence=t, structured=True)
+            np.testing.assert_allclose(got.reshape(want.shape),
+                                       want.cpu().numpy(), atol=1e-4)
+        assert svc.metrics()["requests_failed"] == 0
+    finally:
+        svc.close(timeout=60.0)

@@ -449,7 +449,7 @@ def test_port_imports_no_jax():
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "optax",
+            assert root not in ("jax", "jaxlib", "flax", "optax", "orbax",
                                 "quantized_channel_estimation_tpu"), \
                 (path, name)
 

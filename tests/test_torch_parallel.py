@@ -1,7 +1,7 @@
 """The port's data and tensor parallelism (`parallel.mesh`: the
 data-parallel k-means, GMM, MFA and quantized (CSI-free) fits, the sharded
-estimators) in a 2-rank Gloo group on the CPU, against the single-device
-results of the same inputs; one dense tensor-parallel case against JAX's
+estimators, the data-parallel VAE trainer) in a 2-rank Gloo group on the
+CPU, against the single-device results of the same inputs; one dense tensor-parallel case against JAX's
 `estimate_sharded_kernel` on the virtual CPU mesh. The sharded harness
 runs are held in tests/test_torch_harness.py.
 
@@ -108,6 +108,61 @@ def test_dp_mfa_em_matches_the_single_device_fit(group_results, name):
     for got, want in zip(params, params1):
         _close(got, want, 2e-4)
     assert res[1][f"mfa/{name}"][0][0] == ll
+
+
+@pytest.mark.parametrize("mode", worker.VAE_MODES)
+def test_dp_vae_step_matches_the_one_process_step(group_results, mode):
+    """Three data-parallel VAE steps (each rank its own injected draws,
+    the gradient and loss averaged over the group) against the one-process
+    steps on the two ranks' draws concatenated: the loss of each step to
+    rtol 1e-5, the parameters and Adam's moments to rtol 1e-5 (atol 1e-5
+    of their scale), the count and step; both ranks hold the same state
+    bit for bit."""
+    (l_dp, st_dp), (l_one, st_one) = group_results[0][f"vae_step/{mode}"]
+    np.testing.assert_allclose(l_dp, l_one, rtol=1e-5)
+    for got, want in zip(st_dp[:3], st_one[:3]):
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+    for got, want in zip(st_dp[3:], st_one[3:]):
+        assert int(got) == int(want) == worker.VAE_STEPS
+    (l_r1, st_r1), _ = group_results[1][f"vae_step/{mode}"]
+    assert l_r1 == l_dp
+    assert all(torch.equal(a, b) for a, b in zip(st_dp, st_r1))
+
+
+def test_dp_vae_checkpoint_resumes_on_one_device(group_results):
+    """`vae.train(mesh=)` over the 2-rank group (its checkpoint written by
+    rank 0) leaves both ranks with one state; one device resumes it to a
+    third epoch, its first two losses the data-parallel run's."""
+    losses, state = group_results[0]["vae_train_dp"]
+    assert len(losses) == 2 and np.all(np.isfinite(losses))
+    assert group_results[1]["vae_train_dp"][0] == losses
+    assert all(torch.equal(a, b) for a, b in
+               zip(state, group_results[1]["vae_train_dp"][1]))
+    assert int(state[4]) == 2 * worker.VAE_STEPS
+    resumed, state3 = group_results[0]["vae_resume_single"]
+    assert resumed[:2] == losses and len(resumed) == 3
+    assert int(state3[4]) == 3 * worker.VAE_STEPS
+
+
+def test_dp_vae_epoch_blocks_are_one_schedule(group_results):
+    """Two data-parallel epochs in one block (`vae_run_epochs_shard_map`)
+    equal them in two blocks of one (`make_vae_epochs_runner`) bit for
+    bit: every epoch's draws are keyed by its index."""
+    for rank in range(2):
+        (st_a, l_a), (st_b, l_b) = group_results[rank]["vae_blocks"]
+        assert torch.equal(l_a, l_b) and bool(torch.isfinite(l_a).all())
+        assert all(torch.equal(x, y) for x, y in zip(st_a, st_b))
+
+
+def test_dp_run_vae_rows_agree_over_the_ranks(group_results):
+    """`run_vae` with n_data_shards=2: finite MSE and rate rows, the same
+    on both ranks (every rank evaluates the replicated state)."""
+    mse0, rate0 = group_results[0]["vae_run_dp"]
+    mse1, rate1 = group_results[1]["vae_run_dp"]
+    assert list(mse0) == ["vae_noisy"] and mse0 == mse1 and rate0 == rate1
+    assert np.all(np.isfinite(mse0["vae_noisy"]))
+    assert mse0["vae_noisy"][1] < mse0["vae_noisy"][0] < 2.0
 
 
 PATHS = ["kernel_flat", "kernel_flat_einsum", "kernel_coh_1.0",

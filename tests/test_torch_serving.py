@@ -6,7 +6,8 @@ versions of K1, K3 and K4, and of K6 and K7 for a structured service)
 serves the JAX fit, carried over with `gmm.params_from_numpy`, and each
 answer is held against the JAX direct estimator on the same observations
 at atol 1e-4, as the JAX tests hold the JAX service (complex64 estimates,
-float32 sums in another order).
+float32 sums in another order). `VaeEstimationService` serves a VAE trained
+by JAX (`vae_setup`) and is held against JAX's direct `vae.estimate`.
 Every submit has a timeout of at most 30 s and every close a timeout, so a
 hang fails one test.
 """
@@ -30,8 +31,10 @@ from quantized_channel_estimation_tpu.ops import scm as jscm
 from quantized_channel_estimation_torch import serving
 from quantized_channel_estimation_torch.estimators import circ_kernels as tck
 from quantized_channel_estimation_torch.estimators import kernels as tkn
+from quantized_channel_estimation_torch.harness import stages as tst
 from quantized_channel_estimation_torch.models import gmm as tg
 from quantized_channel_estimation_torch.models import mfa_bank as tmb
+from quantized_channel_estimation_torch.ops import quantizer as tq
 
 torch.set_num_threads(2)
 
@@ -745,6 +748,112 @@ def test_structured_service_refusals(circ_setup):
     svc.close(timeout=TIMEOUT)
 
 
+VAE_SNRS = (-5.0, 5.0, 15.0)
+
+
+@pytest.fixture(scope="module")
+def vae_setup(setup):
+    """A noisy VAE trained by JAX (2 epochs of 5 steps at D = 16) and its
+    port: (jax cfg, jax model, jax state, port cfg, port model, params)."""
+    from quantized_channel_estimation_tpu.models import vae as jv
+    from quantized_channel_estimation_torch.models import vae as tv
+    _, _, a, h_val = setup
+    kw = dict(n_antennas=N_ANT, latent_dim=4, n_layers=2, vae_mode="noisy",
+              batch_size=200, epochs=2, steps_per_epoch=5)
+    jcfg = jv.VaeConfig(**kw)
+    jmodel, jstate, _ = jv.train(
+        jax.random.PRNGKey(81), jcfg, h_val, a, VAE_SNRS,
+        [jq.design_quantizer(s, 2) for s in VAE_SNRS], verbose=False)
+    tcfg = tv.VaeConfig(**kw)
+    params = tv.params_from_flax(
+        jax.tree_util.tree_map(np.asarray, jstate.params), tcfg)
+    return jcfg, jmodel, jstate, tcfg, tv.DnnVae(tcfg), params
+
+
+def _jax_vae(vae_setup, r, snr, t=1):
+    from quantized_channel_estimation_tpu.models import vae as jv
+    jcfg, jmodel, jstate, _, _, _ = vae_setup
+    out = jv.estimate(jmodel, jstate.params, jcfg,
+                      jnp.asarray(r.reshape(-1, N_ANT)), snr,
+                      jp.pilot_matrix(N_ANT, 1, 2),
+                      jq.design_quantizer(snr, 2), coherence=t)
+    return np.asarray(out).reshape(r.shape)
+
+
+def _vae_service_matches_jax(setup, vae_setup):
+    _, _, _, tcfg, tmodel, params = vae_setup
+    _, _, a, _ = setup
+    svc = serving.VaeEstimationService(tmodel, params, tcfg, np.asarray(a),
+                                       max_delay_ms=1.0, device="cpu")
+    try:
+        assert svc.structured        # A = x0 I: the per-sample circulant
+        r = _observe(setup, 64, 5.0, 74)
+        for req, t in ((r, 1), (r.reshape(16, 4, N_ANT), 4)):
+            got = svc.submit(req, 5.0, timeout=TIMEOUT)
+            assert got.shape == req.shape and got.dtype == np.complex64
+            np.testing.assert_allclose(got, _jax_vae(vae_setup, req, 5.0, t),
+                                       atol=1e-4)
+        m = svc.metrics()
+        assert m["requests_failed"] == 0 and m["requests_completed"] == 2
+        assert m["banks_cached"] == 1
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+@pytest.mark.parametrize("pilot", ["matrix", "scalar", "two_pilots",
+                                   "dense"])
+def test_vae_service_pilots_and_structure(setup, vae_setup, pilot):
+    """'auto' takes the circulant path for A = x0 I (a matrix or a scalar
+    x0) and the dense per-sample solve otherwise (two pilots; or asked);
+    every path answers as the port's direct `vae.estimate` (atol 1e-5)
+    and, for one pilot, as JAX's (atol 1e-4)."""
+    from quantized_channel_estimation_torch.models import vae as tv
+    from quantized_channel_estimation_torch.ops import pilots as tp
+    _, _, _, tcfg, tmodel, params = vae_setup
+    two = pilot == "two_pilots"
+    cfg = tcfg._replace(n_pilots=2, n_pilot_convs=1) if two else tcfg
+    model = tv.DnnVae(cfg) if two else tmodel
+    if two:
+        _, st = tv.init_vae(torch.Generator().manual_seed(5), cfg)
+        params = st.params
+    a = tp.pilot_matrix(N_ANT, 2 if two else 1, 2)
+    a_arg = {"scalar": a[0, 0]}.get(pilot, a)
+    svc = serving.VaeEstimationService(
+        model, params, cfg, a_arg, max_delay_ms=1.0, device="cpu",
+        **({"structured": False} if pilot == "dense" else {}))
+    try:
+        assert svc.structured == (pilot in ("matrix", "scalar"))
+        _, _, _, h_val = setup
+        q = tq.design_quantizer(15.0, 2)
+        r = tst.observe(torch.Generator().manual_seed(75),
+                        torch.as_tensor(np.asarray(h_val[:48])), 15.0, a, 2,
+                        q).numpy()
+        got = svc.submit(r, 15.0, timeout=TIMEOUT)
+        want = tv.estimate(model, params, cfg, torch.as_tensor(r), 15.0, a,
+                           q, structured=svc.structured)
+        np.testing.assert_allclose(got, want.numpy(), atol=1e-5)
+        if not two:
+            np.testing.assert_allclose(got, _jax_vae(vae_setup, r, 15.0),
+                                       atol=1e-4)
+        with pytest.raises(ValueError, match="observations must have"):
+            svc.submit(r[:, :N_ANT - 1], 15.0, timeout=TIMEOUT)
+    finally:
+        svc.close(timeout=TIMEOUT)
+
+
+def test_vae_service_refuses_genie_and_needs_a_device(vae_setup,
+                                                      monkeypatch):
+    _, _, _, tcfg, tmodel, params = vae_setup
+    a = np.eye(N_ANT, dtype=np.complex64)
+    with pytest.raises(ValueError, match="genie-aided"):
+        serving.VaeEstimationService(tmodel, params,
+                                     tcfg._replace(vae_mode="genie"), a,
+                                     device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.VaeEstimationService(tmodel, params, tcfg, a)
+
+
 @pytest.mark.parametrize("make,item", [
     (lambda p, a: serving.EstimationService(p, a, 2, device="cpu",
                                             mesh=object()),
@@ -768,8 +877,13 @@ def test_unported_options_raise(setup, make, item, request):
     banks of the JAX fit, the factored bank of the seeded MFA prior) and
     holds its flat and T = 4 answers against the one-device service and
     the JAX direct estimator (atol 1e-4); a mesh that is not a
-    `LocalMesh` is refused."""
+    `LocalMesh` is refused. Item 13 (the VAE) is ported: its case serves
+    the JAX-trained VAE (`vae_setup`) and holds the flat and T = 4 answers
+    against JAX's direct `vae.estimate` (atol 1e-4)."""
     _, params, a, _ = setup
+    if "item 13" in item:
+        _vae_service_matches_jax(setup, request.getfixturevalue("vae_setup"))
+        return
     if "item 15" not in item:
         with pytest.raises(NotImplementedError, match=item):
             make(params, np.asarray(a))
