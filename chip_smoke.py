@@ -149,7 +149,22 @@ Phases (any failure exits non-zero; nothing is caught):
      projected to 500 epochs; bit-identical resume, the NaN guard, the
      data-parallel trainer over a one-rank NCCL group against one device,
      and `VaeEstimationService` under the serving protocol (flat, T = 4)
-     against direct `vae.estimate`; then the service
+     against direct `vae.estimate`; then the other channel models (phase
+     3h, `channel_models_phase`): `run_gmm` on Kronecker-MIMO channels
+     (16 x 4 antennas, 2 paths, T = 4 at alpha 0.25; K1 and K3 once an SNR
+     and held against their plain versions on the run's fitted banks, the
+     kron genie < GMM < global BLMMSE at 20 dB, the NMSE at -10 and -5 dB
+     within 1.10x of BASELINE.md:101), on urban-macro channels (6 paths,
+     T = 4, alpha 1; within 1.10x of BASELINE.md:100 at -10 dB), `run_mfa`
+     on the MIMO data set (T = 4, alpha 'auto'; K11 and K12 held against
+     their plain versions, within 1.10x of BASELINE.md:149 at every SNR),
+     `run_gmm_quant` on urban-macro channels (K1 once, NMSE below LS),
+     `run_vae` noisy on MIMO channels (no kernel, NMSE falling), and the
+     three generators alone at 110k rows (datagen seconds, host
+     synchronizations, peak memory, the MIMO power and covariance against
+     the kron genie, the urban-macro path-loss range), each run with its
+     seconds, datagen seconds, fit iterations, host synchronizations and
+     peak memory; then the service
      over
      in-process meshes (`parallel.mesh.make_local_mesh`) of 1 x 2 and 2 x 2
      shards in eight modes each (dense, structured at K = 64 and the K =
@@ -1012,6 +1027,388 @@ def vae_phase(dev, card, kernels):
         svc.close(timeout=120.0)
     rec["seconds"] = time.time() - t_phase
     log(f"VAE phase 3g: {rec['seconds']:.1f}s")
+    return rec
+
+
+# phase 3h: the other channel models (ROADMAP item 14) at the `run_gmm`
+# defaults (D = 64, K = 64, 2 bits, 100k / 10k channels, 7 SNRs), each
+# held to 1.10x the NMSE the JAX package recorded at full scale
+# (BASELINE.md)
+MODELS_BAND = 1.10
+MIMO = dict(channel_model="mimo", n_antennas=16, n_antennas_ms=4, n_path=2)
+MACRO = dict(channel_model="urban-macro", n_path=6)
+# BASELINE.md:101: run_gmm, MIMO 16 x 4, T = 4, alpha 0.25
+MIMO_GMM_JAX = {"blmmse_gmm": {-10: 0.813, -5: 0.506},
+                "blmmse_gmm_coh": {-10: 0.779, -5: 0.460}}
+# BASELINE.md:100: run_gmm, urban-macro, 6 paths, T = 4, alpha 1
+MACRO_GMM_JAX = {"blmmse_gmm": {-10: 1.546}, "blmmse_gmm_coh": {-10: 1.421}}
+# BASELINE.md:149: run_mfa, MIMO 16 x 4, T = 4, alpha 'auto', per snapshot
+MIMO_MFA_JAX = (0.832, 0.522, 0.272, 0.154, 0.105, 0.089, 0.084)
+GEN_ROWS = 110_000
+
+
+def channel_models_phase(dev, card, kernels, errs, add):
+    """Phase 3h, the other channel models: (a) `run_gmm` on Kronecker-MIMO
+    channels (16 x 4 antennas, 2 paths, T = 4 at alpha 0.25): K1 and K3
+    launched once an SNR and held against their plain versions on the
+    run's fitted banks and observations, blmmse_genie (the kron genie) <
+    blmmse_gmm < blmmse_glob at 20 dB, the per-snapshot and coherent NMSE
+    at -10 and -5 dB within MODELS_BAND of BASELINE.md:101 and the
+    coherent column below the per-snapshot one at -5 dB; (b) `run_gmm` on
+    urban-macro channels (6 paths, T = 4, alpha 1), K1 and K3 launched,
+    the NMSE at -10 dB within MODELS_BAND of BASELINE.md:100; (c)
+    `run_mfa` on (a)'s data set (T = 4, alpha 'auto'), K11 and K12
+    launched and held against their plain versions, the per-snapshot NMSE
+    within MODELS_BAND of BASELINE.md:149 at every SNR; (d)
+    `run_gmm_quant` on urban-macro channels, K1 launched, the NMSE at 5 dB
+    below LS; (e) `run_vae` in noisy mode on MIMO channels under
+    VAE_PROTOCOL, no kernel launched, the NMSE finite and falling from -10
+    to 10 dB; (f) the generators alone, GEN_ROWS rows of each model:
+    datagen seconds (CUDA events), host synchronizations and peak memory,
+    MIMO power per entry within 2% of 1 and the sample covariance within
+    5% (relative Frobenius) of the mean kron genie covariance, urban-macro
+    genie powers inside the path-loss range [1, 1.5^3.5]. Every run prints
+    its seconds, datagen seconds, fit iterations, host synchronizations
+    and peak memory. Returns the phase's record."""
+    from quantized_channel_estimation_torch.estimators import (
+        circ_kernels, fact_kernels)
+    from quantized_channel_estimation_torch.harness import (
+        run_gmm, run_gmm_quant, run_mfa, run_vae, stages)
+    from quantized_channel_estimation_torch.models import gmm_estimator
+    from quantized_channel_estimation_torch.ops import linalg, scm, scm_mimo
+    t_phase = time.time()
+    rec = {}
+    wrapped = ("generate_channels", "generate_channels_macro",
+               "generate_channels_mimo", "gmm_fit", "mfa_fit",
+               "estimate_auto", "estimate_coherent_auto",
+               "estimate_factored", "estimate_factored_coherent")
+
+    def instrumented(label, run_fn, cfg):
+        """`run_fn(cfg)` on the card with the launch counts set to 0 just
+        before it and read just after, the host synchronizations counted
+        (`set_sync_debug_mode('warn')`), datagen timed with CUDA events
+        around the stages' generators, the fit's iterations read, and each
+        (bank, observations, alpha) the stages estimated kept."""
+        saved = {name: getattr(stages, name) for name in wrapped}
+        kept = {"gen_events": [], "fits": [], "flat": [], "coh": [],
+                "gen_syncs": 0}
+        caught = []
+
+        def generator(name):
+            def gen_fn(*args, **kw):
+                n0 = len(caught)
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = saved[name](*args, **kw)
+                ev[1].record()
+                kept["gen_events"].append(ev)
+                kept["gen_syncs"] += len(caught) - n0
+                return out
+            return gen_fn
+
+        def fit(name):
+            def fit_fn(*args, **kw):
+                kept["fits"].append(saved[name](*args, **kw))
+                return kept["fits"][-1]
+            return fit_fn
+
+        def keep(name, key):
+            def est_fn(bank_s, r_s, mode="all", *args, **kw):
+                alpha = (args[0] if args else kw.get("alpha", 1.0))
+                kept[key].append((bank_s, r_s, float(alpha)))
+                return saved[name](bank_s, r_s, mode, *args, **kw)
+            return est_fn
+
+        for name in wrapped[:3]:
+            setattr(stages, name, generator(name))
+        for name in ("gmm_fit", "mfa_fit"):
+            setattr(stages, name, fit(name))
+        stages.estimate_auto = keep("estimate_auto", "flat")
+        stages.estimate_factored = keep("estimate_factored", "flat")
+        stages.estimate_coherent_auto = keep("estimate_coherent_auto", "coh")
+        stages.estimate_factored_coherent = keep("estimate_factored_coherent",
+                                                 "coh")
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            kernels.reset_launch_counts()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t = time.time()
+                try:
+                    mse, rate, timings = run_fn(cfg, verbose=False,
+                                                device=dev)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                seconds = time.time() - t
+            launches = kernels.launch_counts()
+        finally:
+            for name, fn in saved.items():
+                setattr(stages, name, fn)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        r = {"mse": mse, "rate": rate, "seconds": seconds,
+             "timings": {k: v for k, v in timings.items()
+                         if isinstance(v, (int, float))},
+             "datagen_s": sum(a.elapsed_time(b) for a, b in
+                              kept["gen_events"]) / 1e3,
+             "datagen_host_syncs": kept["gen_syncs"],
+             "fit_iterations": [int(f.n_iter) for f in kept["fits"]],
+             "host_syncs": syncs,
+             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+             "launches": {k: v for k, v in launches.items() if v}}
+        if "coherence_alpha_by_snr" in timings:
+            r["alpha_by_snr"] = {str(k): v for k, v in
+                                 timings["coherence_alpha_by_snr"].items()}
+        for name, vals in (*mse.items(), *rate.items()):
+            if not all(math.isfinite(v) for v in vals):
+                raise AssertionError(f"{label}: non-finite row {name}")
+        add(launches)
+        rec[label] = r
+        log(f"{label}: {seconds:.1f}s, datagen {r['datagen_s']:.2f}s "
+            f"({r['datagen_host_syncs']} host synchronizations), fit "
+            f"iterations {r['fit_iterations']}, {syncs} host "
+            f"synchronizations, peak memory {r['peak_gib']:.2f} GiB; "
+            f"launches {r['launches']}; {card}")
+        for name, vals in mse.items():
+            log(f"  {name:16s} " + " ".join(f"{v:.5f}" for v in vals))
+        return r, kept
+
+    def within(label, got, want):
+        ratio = got / want
+        log(f"{label}: {got:.5f} against the JAX package's recorded "
+            f"{want} ({ratio:.3f}x; band {MODELS_BAND}x)")
+        if not ratio <= MODELS_BAND:
+            raise AssertionError(f"{label} past {MODELS_BAND}x the JAX "
+                                 "package's")
+        return ratio
+
+    def check_k1_k3(label, kept, snrs, t_coh):
+        """K1 and K3 against their plain versions on each fitted bank and
+        observations a run estimated."""
+        for snr, (bank_s, r_s, _) in zip(snrs, kept["flat"]):
+            r2 = kernels._r2(r_s)
+            kb = kernels.kernel_bank_block(bank_s)
+            errs["grouped_estimate"].append(compare(
+                "grouped_estimate", f"{label} fitted bank, {snr} dB",
+                kernels.grouped_estimate(r2, kb),
+                kernels.grouped_estimate_reference(r2, kb)))
+        for snr, (bank_s, rb, alpha) in zip(snrs, kept["coh"]):
+            r2 = kernels._r2(rb.reshape(-1, rb.shape[-1]))
+            kb = kernels.kernel_bank_block(bank_s, t_coh, alpha)
+            errs["grouped_estimate_coherent"].append(compare64(
+                "grouped_estimate_coherent",
+                f"{label} fitted bank, {snr} dB, T={t_coh}, alpha {alpha}",
+                kernels.grouped_estimate_coherent(r2, kb, t_coh, alpha),
+                kernels.grouped_estimate_coherent_reference(r2, kb, t_coh,
+                                                            alpha),
+                kernels.grouped_estimate_coherent_reference(
+                    r2.double(), type(kb)(*(x.double() for x in kb)),
+                    t_coh, alpha)))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        common = dict(results_dir=tmp, cache_dir=os.path.join(tmp, "saves"))
+        # (a) MIMO GMM; its data set stays cached for (c)
+        cfg_a = run_gmm.GmmBenchConfig(**MIMO, n_coherence=4,
+                                       coherence_alpha=0.25, **common)
+        r_a, kept = instrumented("(a) run_gmm mimo 16x4, T=4, alpha 0.25",
+                                 run_gmm.run, cfg_a)
+        snrs = list(cfg_a.snrs)
+        for name in ("grouped_estimate", "grouped_estimate_coherent"):
+            if r_a["launches"].get(name) != len(snrs):
+                raise AssertionError(f"(a) launched {name} "
+                                     f"{r_a['launches'].get(name)} times")
+        check_k1_k3("(a) mimo", kept, snrs, 4)
+        del kept
+        mse = r_a["mse"]
+        at20 = {k: v[snrs.index(20)] for k, v in mse.items()}
+        if not (at20["blmmse_genie"] < at20["blmmse_gmm"]
+                < at20["blmmse_glob"]):
+            raise AssertionError(f"(a) order at 20 dB broken: {at20}")
+        r_a["rel_to_jax_recorded"] = {
+            f"{col} {snr}": within(f"(a) {col} at {snr} dB",
+                                   mse[col][snrs.index(snr)], want)
+            for col, by_snr in MIMO_GMM_JAX.items()
+            for snr, want in by_snr.items()}
+        i5 = snrs.index(-5)
+        if not mse["blmmse_gmm_coh"][i5] < mse["blmmse_gmm"][i5]:
+            raise AssertionError("(a) coherent column not below the "
+                                 "per-snapshot one at -5 dB")
+
+        # (c) MIMO MFA on (a)'s data set (read from the cache)
+        cfg_c = run_mfa.MfaBenchConfig(**MIMO, n_coherence=4,
+                                       coherence_alpha="auto", **common)
+        r_c, kept = instrumented("(c) run_mfa mimo 16x4, T=4, alpha auto",
+                                 run_mfa.run, cfg_c)
+        if r_c["datagen_s"] != 0.0:
+            raise AssertionError("(c) generated its data set again")
+        if (r_c["launches"].get("fact_estimate") != len(snrs)
+                or r_c["launches"].get("fact_estimate_coherent", 0)
+                < len(snrs)):
+            raise AssertionError(f"(c) launches {r_c['launches']}")
+        n_blocks = cfg_c.n_val // 4
+        evals = [k for k in kept["coh"] if k[1].shape[0] == n_blocks]
+        for snr, (bank_s, r_s, _), (bank_b, rb, alpha) in zip(
+                snrs, kept["flat"], evals):
+            fkb = fact_kernels.fact_kernel_bank(bank_s)
+            x2 = circ_kernels._x2(r_s)
+            errs["fact_estimate"].append(compare(
+                "fact_estimate", f"(c) mimo fitted bank, {snr} dB",
+                fact_kernels.fact_estimate(x2, fkb),
+                fact_kernels.fact_estimate_reference(x2, fkb)))
+            fkb4 = fact_kernels.fact_kernel_bank(bank_b, 4, alpha)
+            xb2 = circ_kernels._x2(rb.reshape(-1, rb.shape[-1]))
+            errs["fact_estimate_coherent"].append(compare64(
+                "fact_estimate_coherent",
+                f"(c) mimo fitted bank, {snr} dB, T=4, alpha {alpha}",
+                fact_kernels.fact_estimate_coherent(xb2, fkb4, 4, alpha),
+                fact_kernels.fact_estimate_coherent_reference(xb2, fkb4, 4,
+                                                              alpha),
+                fact_kernels.fact_estimate_coherent_reference(
+                    xb2.double(), type(fkb4)(*(x.double() for x in fkb4)),
+                    4, alpha)))
+        del kept, evals
+        r_c["rel_to_jax_recorded"] = [
+            within(f"(c) blmmse_mfa at {snr} dB", got, want)
+            for snr, got, want in zip(snrs, r_c["mse"]["blmmse_mfa"],
+                                      MIMO_MFA_JAX)]
+
+    # (b) urban-macro GMM
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_b = run_gmm.GmmBenchConfig(**MACRO, n_coherence=4,
+                                       coherence_alpha=1.0, use_cache=False,
+                                       results_dir=tmp,
+                                       cache_dir=os.path.join(tmp, "saves"))
+        r_b, kept = instrumented("(b) run_gmm urban-macro, T=4, alpha 1",
+                                 run_gmm.run, cfg_b)
+        del kept
+    for name in ("grouped_estimate", "grouped_estimate_coherent"):
+        if r_b["launches"].get(name) != len(snrs):
+            raise AssertionError(f"(b) launched {name} "
+                                 f"{r_b['launches'].get(name)} times")
+    r_b["rel_to_jax_recorded"] = {
+        f"{col} {snr}": within(f"(b) {col} at {snr} dB",
+                               r_b["mse"][col][snrs.index(snr)], want)
+        for col, by_snr in MACRO_GMM_JAX.items()
+        for snr, want in by_snr.items()}
+
+    # (d) urban-macro CSI-free
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg_d, mse_d, rate_d, times_d, sec_d, launches_d, kept = quant_path_run(
+        run_gmm_quant, stages, kernels, dev, **MACRO)
+    peak_d = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    add(launches_d)
+    if launches_d["grouped_estimate"] != 1:
+        raise AssertionError(f"(d) launched K1 "
+                             f"{launches_d['grouped_estimate']} times")
+    (bank_d, r_d, *_), h_d = kept["banks"][0], kept["truth"][0]
+    a_d = stages.pilot_matrix(cfg_d.n_antennas, 1, cfg_d.n_bits, device=dev)
+    from quantized_channel_estimation_torch.ops import quantizer as Q
+    ls_d = stages.nmse(stages.ls_global(
+        r_d, kept["cov"], 5.0, a_d, cfg_d.n_bits,
+        Q.design_quantizer(5.0, cfg_d.n_bits).to(dev)), h_d)
+    nmse_d = mse_d["blmmse_gmm_quant"][0]
+    rec["(d) run_gmm_quant urban-macro"] = {
+        "mse": mse_d, "seconds": sec_d, "fit_s": times_d["fit"],
+        "fit_iterations": int(kept["fit"].n_iter),
+        "fit_host_syncs": kept["fit_syncs"], "ls_nmse": ls_d,
+        "peak_gib": peak_d,
+        "launches": {k: v for k, v in launches_d.items() if v}}
+    log(f"(d) run_gmm_quant urban-macro: {sec_d:.1f}s, fit "
+        f"{times_d['fit']:.2f}s ({int(kept['fit'].n_iter)} iterations, "
+        f"{kept['fit_syncs']} host synchronizations), peak memory "
+        f"{peak_d:.2f} GiB; NMSE at 5 dB {nmse_d:.5f} (LS {ls_d:.5f}); "
+        f"launches {rec['(d) run_gmm_quant urban-macro']['launches']}; "
+        f"{card}")
+    del kept, bank_d, r_d, h_d
+    if not nmse_d < ls_d:
+        raise AssertionError(f"(d) NMSE {nmse_d} not below LS {ls_d}")
+
+    # (e) MIMO VAE, noisy mode, under the D = 64 protocol
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_e = run_vae.VaeBenchConfig(**VAE_PROTOCOL, **MIMO,
+                                       vae_mode="noisy", use_cache=False,
+                                       plot=False, results_dir=tmp,
+                                       cache_dir=os.path.join(tmp, "saves"))
+        r_e, kept = instrumented("(e) run_vae noisy mimo 16x4", run_vae.run,
+                                 cfg_e)
+        del kept
+    if r_e["launches"]:
+        raise AssertionError(f"(e) run_vae launched {r_e['launches']}")
+    low = r_e["mse"]["vae_noisy"][:snrs.index(10) + 1]
+    if not all(x > y for x, y in zip(low, low[1:])):
+        raise AssertionError(f"(e) MSE not falling from -10 to 10 dB: {low}")
+
+    # (f) the generators alone
+    gens = {}
+    for label, fn, cfg_g in (
+            ("3gpp", stages.generate_channels, scm.ScmConfig(64, 1)),
+            ("urban-macro", stages.generate_channels_macro,
+             scm.UrbanMacroConfig(64, n_paths=6)),
+            ("mimo 16x4", stages.generate_channels_mimo,
+             scm_mimo.ScmMimoConfig(16, 4, n_path=2))):
+        gen = torch.Generator(dev).manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                ev[0].record()
+                out = fn(gen, GEN_ROWS, cfg_g, stages.auto_gen_chunk(
+                    cfg_g[0]))
+                ev[1].record()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        g = {"datagen_s": ev[0].elapsed_time(ev[1]) / 1e3,
+             "host_syncs": sum("synchroniz" in str(w.message)
+                               for w in caught),
+             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+        h = out[0]
+        g["mean_power"] = float((h.abs() ** 2).mean())
+        if label == "mimo 16x4":
+            _, t_bs, t_ms = out
+            c_bs = linalg.toeplitz_from_first_row(t_bs)
+            c_ms = linalg.toeplitz_from_first_row(t_ms)
+            genie = torch.einsum("bij,bkl->ikjl", c_ms, c_bs).reshape(
+                64, 64) / GEN_ROWS
+            sample = h.T @ h.conj() / GEN_ROWS
+            g["cov_rel_frobenius"] = float(torch.linalg.norm(sample - genie)
+                                           / torch.linalg.norm(genie))
+            if not abs(g["mean_power"] - 1.0) <= 0.02:
+                raise AssertionError(f"(f) MIMO power {g['mean_power']}")
+            if not g["cov_rel_frobenius"] <= 0.05:
+                raise AssertionError(f"(f) MIMO sample covariance "
+                                     f"{g['cov_rel_frobenius']} off the "
+                                     "kron genie")
+        if label == "urban-macro":
+            t0 = out[1][:, 0].real
+            g["genie_power_range"] = [float(t0.min()), float(t0.max())]
+            if not (g["genie_power_range"][0] >= 1.0 - 1e-3
+                    and g["genie_power_range"][1] <= 1.5 ** 3.5 + 1e-3):
+                raise AssertionError(f"(f) urban-macro powers "
+                                     f"{g['genie_power_range']}")
+            g["mean_power_over_genie"] = g["mean_power"] / float(t0.mean())
+            if not abs(g["mean_power_over_genie"] - 1.0) <= 0.02:
+                raise AssertionError(f"(f) urban-macro power "
+                                     f"{g['mean_power_over_genie']}x its "
+                                     "genie's")
+        del out, h
+        gens[label] = g
+        log(f"(f) {label} generator, {GEN_ROWS} rows: {g['datagen_s']:.3f}s "
+            f"({g['host_syncs']} host synchronizations), peak memory "
+            f"{g['peak_gib']:.2f} GiB; "
+            + ", ".join(f"{k} {v}" for k, v in g.items()
+                        if k not in ("datagen_s", "host_syncs", "peak_gib"))
+            + f"; {card}")
+    rec["generators"] = gens
+    rec["seconds"] = time.time() - t_phase
+    log(f"channel models phase 3h: {rec['seconds']:.1f}s")
     return rec
 
 
@@ -2627,6 +3024,10 @@ def main():
     # 3g. the VAE (ROADMAP item 13), `vae_phase` above
     vae_rec = vae_phase(dev, card, kernels)
 
+    # 3h. the other channel models (ROADMAP item 14),
+    # `channel_models_phase` above
+    models_rec = channel_models_phase(dev, card, kernels, errs, add)
+
     # 3d. the service over in-process meshes of 1 x 2 and 2 x 2 shards: the
     # dense, structured (K = 64, and the K = 256 spectra-native prior in two
     # component shards of 128, which K8 / K9 take whole) and factored banks
@@ -3554,11 +3955,13 @@ def main():
                          "seconds": cov_rec_s},
         "gmm_quant_frontier": frontier,
         "vae": vae_rec,
+        "channel_models": models_rec,
         "new_phases_seconds": {"toeplitz": toep_s,
                                "mesh_service": mesh_serve_s,
                                "csi_free": quant_s,
                                "csi_free_frontier": frontier_s,
-                               "vae": vae_rec["seconds"]},
+                               "vae": vae_rec["seconds"],
+                               "channel_models": models_rec["seconds"]},
         "kernel_tools": {"seconds": tools_s, "launches": launches_tools,
                          "kernel_bench_ms": bench["ms"],
                          "split_bench": split},

@@ -1,9 +1,11 @@
 """Classical Bussgang-LMMSE estimators.
 
 Port of `quantized_channel_estimation_tpu/estimators/blmmse.py`
-(`estimate_genie`, `global_filter`, `estimate_global`): genie BLMMSE with
-each sample's true Toeplitz covariance, batched over samples, and global
-BLMMSE with one filter from the shared sample covariance. Solves are
+(`estimate_genie`, `estimate_genie_kron`, `global_filter`,
+`estimate_global`): genie BLMMSE with each sample's true Toeplitz (or, for
+Kronecker MIMO channels, kron of two Toeplitz) covariance, batched over
+samples, and global BLMMSE with one filter from the shared sample
+covariance. Solves are
 Cholesky-based with a small diagonal jitter.
 """
 from __future__ import annotations
@@ -61,6 +63,22 @@ def estimate_genie(r: torch.Tensor, t: torch.Tensor, snr_db, a: torch.Tensor,
                    jitter: float = 1e-6) -> torch.Tensor:
     """Genie BLMMSE with C_b = toeplitz(t_b); r (B, M), t (B, N)."""
     c = linalg.toeplitz_from_first_row(t.to(r.dtype))
+    return estimate_genie_cov(r, c, snr_db, a, n_bits, q, jitter)
+
+
+def estimate_genie_kron(r: torch.Tensor, t_bs: torch.Tensor,
+                        t_ms: torch.Tensor, snr_db, a: torch.Tensor, n_bits,
+                        q: Optional[ScalarQuantizer] = None,
+                        jitter: float = 1e-6) -> torch.Tensor:
+    """Genie BLMMSE for Kronecker MIMO channels (`ops.scm_mimo`): C_b =
+    kron(toeplitz(t_ms_b), toeplitz(t_bs_b)), the covariance of the
+    vectorized channel in layout i_ms * N_BS + i_bs; r (B, M), t_bs
+    (B, N_BS), t_ms (B, N_MS)."""
+    c_bs = linalg.toeplitz_from_first_row(t_bs.to(r.dtype))
+    c_ms = linalg.toeplitz_from_first_row(t_ms.to(r.dtype))
+    n = c_bs.shape[-1] * c_ms.shape[-1]
+    c = (c_ms[..., :, None, :, None] * c_bs[..., None, :, None, :]).reshape(
+        *c_ms.shape[:-2], n, n)
     return estimate_genie_cov(r, c, snr_db, a, n_bits, q, jitter)
 
 

@@ -1,7 +1,7 @@
 """Main benchmark harness: the port of `Bussgang_GMM.py`.
 
-Port of `quantized_channel_estimation_tpu/harness/run_gmm.py` for the
-'3gpp' channel model on one device: global-Bussgang BLMMSE, Bussgang-LS,
+Port of `quantized_channel_estimation_tpu/harness/run_gmm.py`:
+global-Bussgang BLMMSE, Bussgang-LS,
 genie-Bussgang BLMMSE, the perfect-CSI rate anchor and GMM-Bussgang over an
 SNR sweep, written as the same transposed MSE/rate CSV tables (same file
 names, same columns in the same order). The GMM estimate runs through the
@@ -15,6 +15,17 @@ per-snapshot estimator sees the flattened snapshots, and the extra column
 `blmmse_gmm_coh` estimates each block jointly (K3 in 'all' mode), with a
 fixed evidence blend `coherence_alpha` or one selected per SNR ('auto') on
 `alpha_val_blocks` training blocks held out of the fit.
+
+`channel_model` picks the data set: '3gpp' (`ops.scm`), 'urban-macro'
+(`scm.generate_channels_urban_macro`; `n_path` paths, the per-path spread
+fixed at 2.82843, `path_sigma` unused) or 'mimo' (`ops.scm_mimo`, the
+Kronecker model between `n_antennas` base-station and `n_antennas_ms`
+mobile antennas; `path_sigma` is the base-station spread and the channel
+dimension `channel_dim` is their product). The MIMO genie column uses
+each sample's kron(toeplitz(t_ms), toeplitz(t_bs))
+(`stages.blmmse_genie_kron`); its data set is the JAX package's npz
+(`channels`, `toep_bs`, `toep_ms`) under the same cache path, so a data
+set written by either package feeds the other.
 
 Every `cov_type` of `models.gmm` fits here; the Toeplitz fits are dense and
 estimate through K1 / K3. `gmm_fit_segments` S > 1 runs a 'full' or
@@ -58,7 +69,7 @@ from quantized_channel_estimation_torch.harness import stages
 from quantized_channel_estimation_torch.models import (
     em_driver, gmm, gmm_estimator)
 from quantized_channel_estimation_torch.ops import quantizer as Q
-from quantized_channel_estimation_torch.ops import scm
+from quantized_channel_estimation_torch.ops import scm, scm_mimo
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
 from quantized_channel_estimation_torch.utils import io as qio
 
@@ -66,10 +77,9 @@ from quantized_channel_estimation_torch.utils import io as qio
 @dataclasses.dataclass(frozen=True)
 class GmmBenchConfig:
     """Mirrors the JAX `GmmBenchConfig` (and the reference's script
-    constants). The port runs channel_model='3gpp', dense and structured
-    banks at any n_pilots, every cov_type, segmented fits and any
-    (n_data_shards, n_component_shards) mesh; another channel_model raises
-    NotImplementedError naming the ROADMAP item that ports it."""
+    constants): every channel_model of `CHANNEL_MODELS`, dense and
+    structured banks at any n_pilots, every cov_type, segmented fits and
+    any (n_data_shards, n_component_shards) mesh."""
     n_antennas: int = 64
     n_components: int = 64
     n_summands_or_proba: Union[str, int, float] = "all"
@@ -106,15 +116,6 @@ class GmmBenchConfig:
     n_component_shards: int = 1
 
 
-def _check_supported(cfg: GmmBenchConfig) -> None:
-    todo = []
-    if cfg.channel_model != "3gpp":
-        todo.append(f"channel_model={cfg.channel_model!r} (ROADMAP Queue 1 "
-                    "item 14)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
-
-
 def _structured(cfg: GmmBenchConfig) -> bool:
     """Does the GMM column estimate through the FFT-domain bank? 'auto':
     for the fits whose covariances are (block-)circulant."""
@@ -126,38 +127,93 @@ def _structured(cfg: GmmBenchConfig) -> bool:
 _generator = stages.seed_generator
 
 
+CHANNEL_MODELS = ("3gpp", "urban-macro", "mimo")
+
+
+def channel_dim(cfg: GmmBenchConfig) -> int:
+    """Dimension of the vectorized channel (N_BS * N_MS for 'mimo')."""
+    if cfg.channel_model not in CHANNEL_MODELS:
+        raise ValueError(f"channel_model={cfg.channel_model!r}; "
+                         f"expected one of {CHANNEL_MODELS}")
+    if cfg.channel_model == "mimo":
+        return cfg.n_antennas * cfg.n_antennas_ms
+    return cfg.n_antennas
+
+
 def _model_tag(cfg: GmmBenchConfig) -> str:
-    """Cache and result key of the channel model; a block-shaped dataset
-    (n_coherence > 1) has its own."""
+    """Cache and result key of the channel model: 'mimo' names both antenna
+    counts (two splits of one product must not share a file), and a
+    block-shaped data set (n_coherence > 1) has its own key."""
+    tag = (f"mimo{cfg.n_antennas}x{cfg.n_antennas_ms}"
+           if cfg.channel_model == "mimo" else cfg.channel_model)
     if cfg.n_coherence > 1:
-        return f"3gpp-coh{cfg.n_coherence}"
-    return "3gpp"
+        return f"{tag}-coh{cfg.n_coherence}"
+    return tag
+
+
+def data_config(cfg) -> GmmBenchConfig:
+    """The `GmmBenchConfig` of the data set of another harness's config
+    (`run_mfa`, `run_gmm_quant`, `run_vae`: the same data fields), whose
+    `_get_data` reads or writes the same cache file."""
+    return GmmBenchConfig(
+        n_antennas=cfg.n_antennas, n_path=cfg.n_path,
+        channel_model=cfg.channel_model, n_antennas_ms=cfg.n_antennas_ms,
+        n_train=cfg.n_train, n_val=cfg.n_val, path_sigma=cfg.path_sigma,
+        cache_dir=cfg.cache_dir, use_cache=cfg.use_cache,
+        n_coherence=max(1, cfg.n_coherence))
 
 
 def _get_data(cfg: GmmBenchConfig, gen: torch.Generator, sharded=None):
     """Load or generate the channel dataset on the generator's device:
-    (h, Toeplitz first rows t). With n_coherence T > 1, h holds
-    (n_train + n_val) / T blocks (B, T, N) and t one row per block. Over
-    several ranks (`sharded`) every rank decides whether the cache exists
-    before rank 0 may write it."""
+    (h, genie), genie the Toeplitz first rows t for '3gpp' and
+    'urban-macro' and the pair (t_bs, t_ms) for 'mimo'. With n_coherence
+    T > 1, h holds (n_train + n_val) / T blocks (B, T, N) and the genie
+    rows one row per block. Over several ranks (`sharded`) every rank
+    decides whether the cache exists before rank 0 may write it."""
     device = gen.device
     n_channels = cfg.n_train + cfg.n_val
-    path = qio.dataset_cache_path(cfg.cache_dir, cfg.n_antennas,
+    path = qio.dataset_cache_path(cfg.cache_dir, channel_dim(cfg),
                                   _model_tag(cfg), cfg.n_path, cfg.n_train,
                                   n_channels)
     cached = cfg.use_cache and os.path.exists(path)
     if sharded is not None:
         sharded.barrier()
+    mimo = cfg.channel_model == "mimo"
     if cached:
+        if mimo:
+            data = np.load(path)
+            return (torch.as_tensor(data["channels"], device=device),
+                    (torch.as_tensor(data["toep_bs"], device=device),
+                     torch.as_tensor(data["toep_ms"], device=device)))
         channels, toep = qio.load_channels(path)
         return (torch.as_tensor(channels, device=device),
                 torch.as_tensor(toep, device=device))
-    scm_cfg = scm.ScmConfig(cfg.n_antennas, cfg.n_path, cfg.path_sigma,
-                            n_coherence=cfg.n_coherence)
-    h, t = stages.generate_channels(gen,
-                                    n_channels // max(1, cfg.n_coherence),
-                                    scm_cfg,
-                                    stages.auto_gen_chunk(cfg.n_antennas))
+    n_gen = n_channels // max(1, cfg.n_coherence)   # blocks, not rows
+    # the chunk follows the widest PSD lattice (100 x n_antennas points)
+    chunk = stages.auto_gen_chunk(cfg.n_antennas)
+    if mimo:
+        h, t_bs, t_ms = stages.generate_channels_mimo(
+            gen, n_gen, scm_mimo.ScmMimoConfig(
+                cfg.n_antennas, cfg.n_antennas_ms, cfg.n_path,
+                path_sigma_bs=cfg.path_sigma, n_coherence=cfg.n_coherence),
+            chunk)
+        if cfg.use_cache and (sharded is None or sharded.writer):
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            np.savez(path, channels=h.cpu().numpy(),
+                     toep_bs=t_bs.cpu().numpy(), toep_ms=t_ms.cpu().numpy())
+        return h, (t_bs, t_ms)
+    if cfg.channel_model == "urban-macro":
+        # path_sigma is not used: urban-macro fixes the per-path spread
+        h, t = stages.generate_channels_macro(
+            gen, n_gen, scm.UrbanMacroConfig(cfg.n_antennas,
+                                             n_paths=cfg.n_path,
+                                             n_coherence=cfg.n_coherence),
+            chunk)
+    else:
+        h, t = stages.generate_channels(
+            gen, n_gen, scm.ScmConfig(cfg.n_antennas, cfg.n_path,
+                                      cfg.path_sigma,
+                                      n_coherence=cfg.n_coherence), chunk)
     if cfg.use_cache and (sharded is None or sharded.writer):
         qio.save_channels(path, h.cpu().numpy(), t.cpu().numpy())
     return h, t
@@ -202,7 +258,7 @@ def run(cfg: GmmBenchConfig, verbose: bool = True, device=None):
     """Run the benchmark on `device` (the CUDA card by default, cuda:LOCAL_RANK
     on each rank of a sharded run; raises when there is none). Returns
     (mse_columns, rate_columns, timings)."""
-    _check_supported(cfg)
+    dim = channel_dim(cfg)
     if (cfg.gmm_fit_segments > 1
             and cfg.n_data_shards * cfg.n_component_shards > 1):
         raise NotImplementedError(
@@ -230,6 +286,8 @@ def run(cfg: GmmBenchConfig, verbose: bool = True, device=None):
                          "(there is no coherent column to tune)")
 
     channels, toep = _get_data(cfg, _generator(s_data, device), sharded)
+    # the genie rows: (t,), or the MIMO pair (t_bs, t_ms)
+    genie = toep if isinstance(toep, tuple) else (toep,)
     if t_coh > 1:
         nb_train, nb_val = cfg.n_train // t_coh, cfg.n_val // t_coh
         nb_fit = nb_train
@@ -239,14 +297,17 @@ def run(cfg: GmmBenchConfig, verbose: bool = True, device=None):
             alpha_val_h = channels[nb_fit:nb_train]
         h_train = stages.flatten_coherence(channels[:nb_fit])
         h_val_blocks = channels[nb_train:nb_train + nb_val]
-        h_val, toep_val = stages.flatten_coherence(
-            h_val_blocks, toep[nb_train:nb_train + nb_val])
+        h_val = stages.flatten_coherence(h_val_blocks)
+        # each block's genie rows repeated for its snapshots
+        toep_val = tuple(stages.repeat_blocks(t[nb_train:nb_train + nb_val],
+                                              t_coh) for t in genie)
     else:
         h_train = channels[:cfg.n_train]
         h_val = channels[cfg.n_train:cfg.n_train + cfg.n_val]
-        toep_val = toep[cfg.n_train:cfg.n_train + cfg.n_val]
+        toep_val = tuple(t[cfg.n_train:cfg.n_train + cfg.n_val]
+                         for t in genie)
+    del channels, toep, genie
 
-    dim = cfg.n_antennas
     a = stages.pilot_matrix(dim, cfg.n_pilots, cfg.n_bits, cfg.pilot_type,
                             device=device)
     quantizers = {}
@@ -313,9 +374,12 @@ def run(cfg: GmmBenchConfig, verbose: bool = True, device=None):
                                quantizers[snr]) for snr in cfg.snrs]
 
     if cfg.eval_blmmse_genie:
+        # for 'mimo' each sample's kron(toeplitz(t_ms), toeplitz(t_bs))
+        genie_est = (stages.blmmse_genie_kron if cfg.channel_model == "mimo"
+                     else stages.blmmse_genie)
         eval_algo("blmmse_genie", "blmmse_genie_rstat",
-                  lambda snr, r: stages.blmmse_genie(
-                      r, toep_val, snr, a, cfg.n_bits, quantizers[snr]))
+                  lambda snr, r: genie_est(r, *toep_val, snr, a, cfg.n_bits,
+                                           quantizers[snr]))
 
     if cfg.eval_rate:
         rate_cols["perfect_rstat"] = [

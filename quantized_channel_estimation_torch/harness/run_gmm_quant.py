@@ -33,10 +33,11 @@ The frontier options, whose 'auto' values engage where JAX's do:
   columns with the samples over 'data' and the bank over 'component'
   (K2, or K8 / K9 for structured banks), rank 0 alone writing the CSV.
 
-`channel_model` other than '3gpp' raises NotImplementedError naming
-ROADMAP item 14. The quantized EM fits in the observation domain with
-A = I: `n_pilots > 1` raises ValueError (the JAX harness fails there too,
-in its bank preparation).
+`channel_model` is `run_gmm`'s ('3gpp', 'urban-macro', 'mimo'; the fit's
+dimension `run_gmm.channel_dim`); `stream_pilots` streams '3gpp' only, and
+'auto' never streams another model. The quantized EM fits in the
+observation domain with A = I: `n_pilots > 1` raises ValueError (the JAX
+harness fails there too, in its bank preparation).
 
 Random draws come from `torch.Generator`s seeded from `cfg.seed` through
 numpy's SeedSequence (data, fit, observations; the streamed slabs and the
@@ -124,19 +125,17 @@ def _spectra_fit(cfg: QuantGmmBenchConfig) -> bool:
 
 
 def _check_supported(cfg: QuantGmmBenchConfig) -> None:
-    """The refusals, before any work: item 14's channel models, several
+    """The refusals, before any work: an unknown channel model, several
     pilots, and the JAX harness's three ValueErrors of the frontier
     options (JAX raises the last one after the fit)."""
-    if cfg.channel_model != "3gpp":
-        raise NotImplementedError(
-            f"not ported yet: channel_model={cfg.channel_model!r} (ROADMAP "
-            "Queue 1 item 14)")
+    run_gmm.channel_dim(run_gmm.data_config(cfg))
     if cfg.n_pilots != 1:
         raise ValueError(
             f"n_pilots={cfg.n_pilots}: the quantized EM fits in the "
             "observation domain and recovers channel covariances for A = I "
             "(one pilot) only")
-    if _stream_pilots(cfg) and cfg.n_coherence > 1:
+    if _stream_pilots(cfg) and (cfg.n_coherence > 1
+                                or cfg.channel_model != "3gpp"):
         raise ValueError("stream_pilots supports flat (n_coherence=1) "
                          "'3gpp' runs only")
     if _spectra_fit(cfg) and cfg.cov_type != "circulant":
@@ -149,7 +148,8 @@ def _check_supported(cfg: QuantGmmBenchConfig) -> None:
 def _em_chunk(cfg: QuantGmmBenchConfig) -> int:
     if cfg.em_chunk_size != "auto":
         return int(cfg.em_chunk_size)
-    return 4096 if cfg.n_antennas <= 1024 else 1024
+    dim = run_gmm.channel_dim(run_gmm.data_config(cfg))
+    return 4096 if dim <= 1024 else 1024
 
 
 def run(cfg: QuantGmmBenchConfig, verbose: bool = True, device=None):
@@ -176,7 +176,8 @@ def run(cfg: QuantGmmBenchConfig, verbose: bool = True, device=None):
     auto_alpha = cfg.coherence_alpha == "auto"
     if auto_alpha and t_coh <= 1:
         raise ValueError("coherence_alpha='auto' requires n_coherence > 1")
-    dim = cfg.n_antennas
+    base_cfg = run_gmm.data_config(cfg)
+    dim = run_gmm.channel_dim(base_cfg)
     stream = _stream_pilots(cfg)
     structured = run_gmm._structured(cfg)
     # one pilot: A = x I; the structured banks and the observations take
@@ -208,12 +209,6 @@ def run(cfg: QuantGmmBenchConfig, verbose: bool = True, device=None):
         if verbose:
             print(f"streamed pilot datagen: {cfg.n_train} rows at D={dim}")
     else:
-        base_cfg = run_gmm.GmmBenchConfig(
-            n_antennas=cfg.n_antennas, n_path=cfg.n_path,
-            n_train=cfg.n_train, channel_model=cfg.channel_model,
-            n_antennas_ms=cfg.n_antennas_ms, n_val=cfg.n_val,
-            path_sigma=cfg.path_sigma, cache_dir=cfg.cache_dir,
-            use_cache=cfg.use_cache, n_coherence=t_coh)
         channels, _ = run_gmm._get_data(
             base_cfg, run_gmm._generator(s_data, device), sharded)
         if t_coh > 1:
@@ -347,7 +342,9 @@ def run(cfg: QuantGmmBenchConfig, verbose: bool = True, device=None):
 
     stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     coh_tag = f"_coh={t_coh}" if t_coh > 1 else ""
-    base = (f"{stamp}_ant={dim}_path={cfg.n_path}{coh_tag}"
+    model_tag = ("" if cfg.channel_model == "3gpp"
+                 else f"_model={run_gmm._model_tag(base_cfg)}")
+    base = (f"{stamp}_ant={dim}{model_tag}_path={cfg.n_path}{coh_tag}"
             f"_ntr={cfg.n_train // 1000}k_comp={cfg.n_components}"
             f"_pilots={cfg.n_pilots}_bits={cfg.n_bits}"
             f"_0mean={cfg.zero_mean_gmm}_sums={cfg.n_summands_or_proba}"

@@ -1,7 +1,7 @@
 """MFA-Bussgang benchmark: the port of `Bussgang_MFA.py`.
 
-Port of `quantized_channel_estimation_tpu/harness/run_mfa.py` for the
-'3gpp' channel model on one device: fit a complex mixture of factor
+Port of `quantized_channel_estimation_tpu/harness/run_mfa.py`: fit a
+complex mixture of factor
 analyzers on clean channels (n_path=3, latent dim N/4, PPCA, zero mean),
 then estimate over the SNR sweep and write the MSE and rate rows to one
 CSV (the JAX harness's file name and columns: `blmmse_mfa`, `mfa_rstat`,
@@ -14,17 +14,17 @@ K12 for the coherent one ('all' mode within
 `fact_kernels.fact_kernel_eligible`; else the `torch.matmul` pipeline).
 False densifies the fit once (`mfa.to_gmm_params`) and estimates through
 the dense bank, K1 and K3. The data set is `run_gmm`'s (the same cache
-file). Random draws come from `torch.Generator`s seeded from `cfg.seed`
-through numpy's SeedSequence (data, fit, one observation stream per SNR),
-so the two packages agree on shared data, not on fresh draws.
+file) for any `channel_model` ('3gpp', 'urban-macro', 'mimo'; for 'mimo'
+the fit's dimension is `run_gmm.channel_dim`, N_BS * N_MS). Random draws
+come from `torch.Generator`s seeded from `cfg.seed` through numpy's
+SeedSequence (data, fit, one observation stream per SNR), so the two
+packages agree on shared data, not on fresh draws.
 
 `n_data_shards` x `n_component_shards` > 1 runs over that many ranks of an
 initialised `torch.distributed` group, as `run_gmm` does: the MFA EM
 data-parallel (`stages.ShardedStages.mfa_fit`), the factored or dense
 estimates with the samples over 'data' and the bank over 'component';
-rank 0 writes the CSV and the cache. Not ported yet, raising
-NotImplementedError: `channel_model` other than '3gpp' (ROADMAP Queue 1
-item 14).
+rank 0 writes the CSV and the cache.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ import numpy as np
 
 from quantized_channel_estimation_torch.harness import stages
 from quantized_channel_estimation_torch.harness.run_gmm import (
-    GmmBenchConfig, _generator, _get_data, _main)
+    _generator, _get_data, _main, _model_tag, channel_dim, data_config)
 from quantized_channel_estimation_torch.models import gmm_estimator, mfa
 from quantized_channel_estimation_torch.ops import quantizer as Q
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
@@ -80,15 +80,6 @@ class MfaBenchConfig:
     n_component_shards: int = 1
 
 
-def _check_supported(cfg: MfaBenchConfig) -> None:
-    todo = []
-    if cfg.channel_model != "3gpp":
-        todo.append(f"channel_model={cfg.channel_model!r} (ROADMAP Queue 1 "
-                    "item 14)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
-
-
 def _factored(cfg: MfaBenchConfig) -> bool:
     """Does the sweep estimate through the factored bank? 'auto': where it
     is exact, n_bits != 1 under the one scaled-identity pilot."""
@@ -108,7 +99,6 @@ def run(cfg: MfaBenchConfig, verbose: bool = True, device=None):
     """Run the benchmark on `device` (the CUDA card by default, cuda:LOCAL_RANK
     on each rank of a sharded run; raises when there is none). Returns
     (mse_columns, rate_columns, timings)."""
-    _check_supported(cfg)
     sharded = stages.sharded_stages(cfg.n_data_shards, cfg.n_component_shards)
     if sharded is None:
         device = stages.resolve_device(device)
@@ -129,11 +119,8 @@ def run(cfg: MfaBenchConfig, verbose: bool = True, device=None):
     if auto_alpha and t_coh <= 1:
         raise ValueError("coherence_alpha='auto' requires n_coherence > 1")
     factored = _factored(cfg)
-    base = GmmBenchConfig(n_antennas=cfg.n_antennas, n_path=cfg.n_path,
-                          n_train=cfg.n_train, n_val=cfg.n_val,
-                          path_sigma=cfg.path_sigma, cache_dir=cfg.cache_dir,
-                          use_cache=cfg.use_cache, n_coherence=t_coh)
-    dim = cfg.n_antennas
+    base = data_config(cfg)
+    dim = channel_dim(base)
     channels, _ = _get_data(base, _generator(s_data, device), sharded)
     if t_coh > 1:
         nb_train, nb_val = cfg.n_train // t_coh, cfg.n_val // t_coh
@@ -254,8 +241,9 @@ def run(cfg: MfaBenchConfig, verbose: bool = True, device=None):
     stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     out_dir = os.path.join(cfg.results_dir, "3gpp")
     coh_tag = f"_coh={t_coh}" if t_coh > 1 else ""
-    # the JAX name's `_model=` tag is empty for the '3gpp' model
-    name = (f"{stamp}_ant={dim}_path={cfg.n_path}{coh_tag}"
+    model_tag = ("" if cfg.channel_model == "3gpp"
+                 else f"_model={_model_tag(base)}")
+    name = (f"{stamp}_ant={dim}{model_tag}_path={cfg.n_path}{coh_tag}"
             f"_train={cfg.n_train}_comp={cfg.n_components}"
             f"_pil={cfg.n_pilots}_bits={cfg.n_bits}"
             f"_sums={cfg.n_summands_or_proba}_L={cfg.latent_dim}"

@@ -14,7 +14,9 @@ drawing exactly the JAX harness's trials from the seed (numpy), and
 ranks them in a summary CSV.
 
 The channel dataset is `run_gmm`'s (`run_gmm._get_data`, the same cache
-files as both packages' `run_gmm`). `use_structured_bank` 'auto' estimates
+files as both packages' `run_gmm`) for any `channel_model` ('3gpp',
+'urban-macro', 'mimo'); the VAE's width is `run_gmm.channel_dim`
+(N_BS * N_MS for 'mimo'). `use_structured_bank` 'auto' estimates
 through the per-sample circulant algebra for one pilot (A = x0 I).
 `n_data_shards` > 1 trains data-parallel over that many ranks of an
 initialised `torch.distributed` group (`vae.train(mesh=)`; effective batch
@@ -28,8 +30,6 @@ runs); the JAX harness always plots. Random draws come from
 (data, training, observations); the two packages agree on shared data and
 parameters, not on fresh draws. A checkpoint of the JAX package (Orbax)
 is not read: the port keeps its own files beside it under the same key.
-`channel_model` other than '3gpp' raises NotImplementedError naming
-ROADMAP item 14.
 
     python -m quantized_channel_estimation_torch.harness.run_vae --vae 1
 
@@ -94,21 +94,19 @@ class VaeBenchConfig:
     plot: bool = True
 
 
-def _check_supported(cfg: VaeBenchConfig) -> None:
-    if cfg.channel_model != "3gpp":
-        raise NotImplementedError(
-            f"not ported yet: channel_model={cfg.channel_model!r} (ROADMAP "
-            "Queue 1 item 14)")
-
-
 def checkpoint_dir(cfg: VaeBenchConfig) -> str:
     """The JAX harness's checkpoint key: lr and batch_size in it (search
-    trials share the seed), and a data-parallel run apart from a
+    trials share the seed), the model tag for models other than '3gpp'
+    (a '3gpp' key carries none), and a data-parallel run apart from a
     single-device one."""
-    t_coh = max(1, cfg.n_coherence)
+    base = run_gmm.data_config(cfg)
+    t_coh = base.n_coherence
     return os.path.join(
         cfg.cache_dir,
-        f"vae_ckpt_{cfg.vae_mode}_ant={cfg.n_antennas}_bits={cfg.n_bits}"
+        f"vae_ckpt_{cfg.vae_mode}_ant={run_gmm.channel_dim(base)}"
+        + ("" if cfg.channel_model == "3gpp"
+           else f"_model={run_gmm._model_tag(base)}")
+        + f"_bits={cfg.n_bits}"
         f"_train={cfg.n_train}_seed={cfg.seed}_lr={cfg.lr:g}"
         f"_bs={cfg.batch_size}" + (f"_coh{t_coh}" if t_coh > 1 else "")
         + (f"_dp{cfg.n_data_shards}" if cfg.n_data_shards > 1 else ""))
@@ -118,7 +116,8 @@ def run(cfg: VaeBenchConfig, verbose: bool = True, device=None):
     """Run the benchmark on `device` (the CUDA card by default,
     cuda:LOCAL_RANK on each rank of a data-parallel run; raises when there
     is none). Returns (mse_columns, rate_columns, timings)."""
-    _check_supported(cfg)
+    base = run_gmm.data_config(cfg)
+    dim = run_gmm.channel_dim(base)
     sharded = stages.sharded_stages(cfg.n_data_shards, 1)
     if sharded is None:
         device = stages.resolve_device(device)
@@ -134,12 +133,6 @@ def run(cfg: VaeBenchConfig, verbose: bool = True, device=None):
         raise ValueError(
             f"n_train={cfg.n_train} and n_val={cfg.n_val} must be "
             f"multiples of n_coherence={t_coh} (they count snapshots)")
-    base = run_gmm.GmmBenchConfig(
-        n_antennas=cfg.n_antennas, n_path=cfg.n_path,
-        channel_model=cfg.channel_model, n_antennas_ms=cfg.n_antennas_ms,
-        n_train=cfg.n_train, n_val=cfg.n_val, path_sigma=cfg.path_sigma,
-        cache_dir=cfg.cache_dir, use_cache=cfg.use_cache, n_coherence=t_coh)
-    dim = cfg.n_antennas
     channels, _ = run_gmm._get_data(base, run_gmm._generator(s_data, device),
                                     sharded)
     if t_coh > 1:

@@ -1,9 +1,11 @@
 """Pipeline stages shared by the harness runners.
 
 Port of `quantized_channel_estimation_tpu/harness/stages.py`:
-`generate_channels`, `pilot_matrix`, `sample_cov`, `observe`,
+`generate_channels`, `generate_channels_macro`, `generate_channels_mimo`,
+`pilot_matrix`, `sample_cov`, `observe`, `repeat_blocks`,
 `auto_gen_chunk`, `stream_quantized_pilots`,
-`blmmse_global`, `blmmse_genie`, `ls_global`, `gmm_fit`, `gmm_fit_resume`,
+`blmmse_global`, `blmmse_genie`, `blmmse_genie_kron`,
+`chunked_genie_nmse`, `ls_global`, `gmm_fit`, `gmm_fit_resume`,
 `gmm_quant_fit`, `gmm_quant_fit_resume`, `gmm_quant_fit_circulant_spectra`,
 `prepare_bank`,
 `nmse`, `rate`, `rate_mf`, `estimate_auto`, `estimate_coherent`,
@@ -32,7 +34,8 @@ from quantized_channel_estimation_torch.estimators import (
     blmmse, circ_kernels, fact_kernels, kernels, ls, mp_circ_kernels)
 from quantized_channel_estimation_torch.models import (
     gmm, gmm_estimator, gmm_quant, mfa, mfa_bank, structured_bank)
-from quantized_channel_estimation_torch.ops import observation, pilots, scm
+from quantized_channel_estimation_torch.ops import (
+    observation, pilots, scm, scm_mimo)
 from quantized_channel_estimation_torch.parallel import mesh as pmesh
 from quantized_channel_estimation_torch.utils import metrics
 
@@ -63,12 +66,22 @@ def generate_channels(gen: torch.Generator, n_batches: int,
                       cfg: scm.ScmConfig, chunk: int = 8192):
     """Chunked SCM channel generation (bounds the (chunk, 100 N) PSD
     intermediate): (h, t) on the generator's device."""
-    hs, ts = [], []
-    for i0 in range(0, n_batches, chunk):
-        h, t = scm.generate_channels(gen, min(chunk, n_batches - i0), cfg)
-        hs.append(h)
-        ts.append(t)
-    return torch.cat(hs), torch.cat(ts)
+    return scm.generate_channels_chunked(gen, n_batches, cfg, chunk)
+
+
+def generate_channels_macro(gen: torch.Generator, n_batches: int,
+                            cfg: scm.UrbanMacroConfig, chunk: int = 8192):
+    """Chunked urban-macro channel generation: (h, t)."""
+    return scm.generate_channels_chunked(
+        gen, n_batches, cfg, chunk,
+        generator=scm.generate_channels_urban_macro)
+
+
+def generate_channels_mimo(gen: torch.Generator, n_batches: int,
+                           cfg: scm_mimo.ScmMimoConfig, chunk: int = 4096):
+    """Chunked Kronecker-MIMO channel generation: (h, t_bs, t_ms)."""
+    return scm_mimo.generate_channels_mimo_chunked(gen, n_batches, cfg,
+                                                   chunk)
 
 
 def pilot_matrix(n_antennas, n_pilots, n_bits, pilot_type="angle_amp",
@@ -88,6 +101,14 @@ def sample_cov(h: torch.Tensor) -> torch.Tensor:
 
 
 observe = observation.observe
+
+
+def repeat_blocks(t: torch.Tensor, n_coh: int) -> torch.Tensor:
+    """Per-block rows (B, ...) -> per-snapshot rows (B*T, ...), each block's
+    row repeated for its T snapshots (`flatten_coherence`'s block-major
+    order); for the MIMO pair (t_bs, t_ms), which `flatten_coherence`'s
+    single t does not carry."""
+    return t.repeat_interleave(n_coh, dim=0)
 
 
 def auto_gen_chunk(n_antennas: int) -> int:
@@ -140,6 +161,7 @@ def stream_quantized_pilots(seq_data: np.random.SeedSequence,
 
 blmmse_global = blmmse.estimate_global
 blmmse_genie = blmmse.estimate_genie
+blmmse_genie_kron = blmmse.estimate_genie_kron
 ls_global = ls.estimate_global
 gmm_fit = gmm.fit
 gmm_fit_resume = gmm.fit_resume
@@ -441,6 +463,21 @@ class ShardedStages:
 
 def nmse(h_est: torch.Tensor, h: torch.Tensor) -> float:
     return float(metrics.nmse(h_est, h))
+
+
+def chunked_genie_nmse(r, t_val, h_val, snr_db, a, n_bits, q,
+                       max_bytes: int = 1 << 28) -> float:
+    """Genie-BLMMSE NMSE in chunks whose (chunk, D, D) covariance stack
+    stays under `max_bytes`, the chunks' NMSEs weighted by their sample
+    counts (exact: the NMSE is a mean over samples)."""
+    n_val, d = h_val.shape[0], h_val.shape[-1]
+    chunk = max(1, min(n_val, max_bytes // (8 * d * d)))
+    total = 0.0
+    for i0 in range(0, n_val, chunk):
+        i1 = min(i0 + chunk, n_val)
+        h_gen = blmmse_genie(r[i0:i1], t_val[i0:i1], snr_db, a, n_bits, q)
+        total += nmse(h_gen, h_val[i0:i1]) * (i1 - i0) / n_val
+    return total
 
 
 def rate(h_est, h, cov, snr_db, n_bits, q, norm_clip=None) -> float:

@@ -3,7 +3,9 @@
 Port of `quantized_channel_estimation_tpu/ops/linalg.py`: the Toeplitz and
 DFT matrices, the oversampled DFT frame of the inverse-EM Toeplitz fit and
 its spectrum recovery, the Cholesky-based solves the GMM fit, the bank
-preparation and the BLMMSE/LS baselines use, the eigenvalue pseudo-inverse
+preparation and the BLMMSE/LS baselines use, the jitter ladders
+`robust_precision_cholesky` and `robust_chol_lower` (the MIMO coloring
+factor), the eigenvalue pseudo-inverse
 and PSD projection, the products-only PSD projection of the quantized EM
 (`psd_project_polar`), and the (block-)circulant spectra helpers of the
 structured banks. Every function is batched over leading axes and
@@ -89,22 +91,38 @@ def prec_from_chol(l: torch.Tensor) -> torch.Tensor:
     return linv.mH.resolve_conj()
 
 
-def robust_precision_cholesky(c: torch.Tensor,
-                              base_jitter: float = 0.0) -> torch.Tensor:
-    """Precision Cholesky with an escalating relative-jitter ladder: each
-    matrix is factored at +0, +1e-4 d and +1e-2 d (d = its mean diagonal)
-    and the first finite factor is kept, as in the JAX `_robust_chol`."""
+def _robust_chol(c: torch.Tensor, base_jitter: float, scales) -> torch.Tensor:
+    """Batched Cholesky with an escalating relative-jitter ladder, as the JAX
+    `_robust_chol`: each matrix is factored at every rung (base_jitter +
+    scale x its mean diagonal) and the first finite factor is kept. The
+    choice is made on the device (no `info` is read on the host)."""
     eye = torch.eye(c.shape[-1], dtype=c.dtype, device=c.device)
     diag_mean = torch.diagonal(c, dim1=-2, dim2=-1).real.mean(-1)[..., None,
                                                                   None]
     ls = [chol_lower(c + (base_jitter + s * diag_mean) * eye)
-          for s in (0.0, 1e-4, 1e-2)]
+          for s in scales]
     l = ls[-1]
     for cand in reversed(ls[:-1]):
         bad = torch.isnan(cand).any(dim=-1, keepdim=True).any(dim=-2,
                                                               keepdim=True)
         l = torch.where(bad, l, cand)
-    return prec_from_chol(l)
+    return l
+
+
+def robust_precision_cholesky(c: torch.Tensor,
+                              base_jitter: float = 0.0) -> torch.Tensor:
+    """Precision Cholesky with the jitter ladder +0, +1e-4 d, +1e-2 d (d =
+    each matrix's mean diagonal)."""
+    return prec_from_chol(_robust_chol(c, base_jitter, (0.0, 1e-4, 1e-2)))
+
+
+def robust_chol_lower(c: torch.Tensor,
+                      base_jitter: float = 0.0) -> torch.Tensor:
+    """Lower Cholesky factor with the finer ladder +0, +1e-6 d, +1e-4 d,
+    +1e-2 d: the coloring factor of a near-singular PSD matrix (truncated
+    Toeplitz covariances of narrow angular spreads are numerically
+    rank-deficient), which takes the smallest jitter that factors."""
+    return _robust_chol(c, base_jitter, (0.0, 1e-6, 1e-4, 1e-2))
 
 
 def logdet_from_prec_chol(p: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,10 @@ step on injected draws, `vae.train(mesh=)` with a checkpoint that rank 0
 then resumes on one device, and `run_vae` over both ranks) for
 tests/test_torch_parallel.py,
 'harness' the `n_data_shards` / `n_component_shards` options of
-`run_gmm`, `run_mfa` and `run_gmm_quant` for tests/test_torch_harness.py. `spawn_group` starts both ranks and reads
-their results. Imports torch, not JAX; the inputs are made by the functions
-below, which the test files import too.
+`run_gmm` (one run on Kronecker-MIMO channels), `run_mfa` and
+`run_gmm_quant` for tests/test_torch_harness.py. `spawn_group` starts both
+ranks and reads their results. Imports torch, not JAX; the inputs are made
+by the functions below, which the test files import too.
 """
 import datetime
 import os
@@ -145,6 +146,9 @@ HARNESS = {   # name: (runner, config changes)
     "gmm_comp2_coh": ("gmm", dict(n_component_shards=2, n_coherence=2)),
     "gmm_circ_comp2": ("gmm", dict(n_component_shards=2,
                                    cov_type="circulant")),
+    "gmm_mimo_data2": ("gmm", dict(n_data_shards=2, channel_model="mimo",
+                                   n_antennas_ms=2, n_coherence=2,
+                                   coherence_alpha=0.5)),
     "mfa_data2": ("mfa", dict(n_data_shards=2)),
     "mfa_comp2": ("mfa", dict(n_component_shards=2)),
     "mfa_comp2_coh": ("mfa", dict(n_component_shards=2, n_coherence=2)),

@@ -12,7 +12,10 @@ CPU from one state, K6 / K7 on its spectra-fed bank, and the streamed
 pilots on the card; the VAE on the card (no kernel of its own): its train
 step against the CPU's on the same draws, the NaN guard, its epochs free
 of host synchronization, bit-identical resume from a card checkpoint,
-structured estimation against dense, and its service.
+structured estimation against dense, and its service; the other channel
+models on the card: urban-macro and Kronecker-MIMO draws in law, the
+coloring factors' jitter ladder against the CPU, and a MIMO `run_gmm`
+launching K1 and K3.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor the JAX package, so on a machine with a card and
@@ -40,6 +43,7 @@ repeated launches of K14a, K10, K6-K9 and K11-K13 are bit for bit the
 first.
 """
 import math
+import os
 
 import numpy as np
 import pytest
@@ -2212,3 +2216,108 @@ def test_vae_service_on_card_matches_direct():
         assert svc.metrics()["requests_failed"] == 0
     finally:
         svc.close(timeout=60.0)
+
+
+@pytest.mark.cuda
+def test_mimo_and_macro_generation_on_card_in_law():
+    """The other channel models drawn on the card: MIMO unit power per
+    entry and unit genie diagonals, the coherence draws of one sample with
+    the dense np.kron(C_MS, C_BS) as covariance (atol 0.12); urban-macro
+    powers inside the path-loss range [1, 1.5^3.5]; every output on the
+    card and owning its storage; no host synchronization while drawing."""
+    from quantized_channel_estimation_torch.ops import scm, scm_mimo
+    dev = _card()
+    gen = torch.Generator(dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h, t_bs, t_ms = scm_mimo.generate_channels_mimo(
+            gen, 1500, scm_mimo.ScmMimoConfig(16, 4, n_path=2))
+        hc, tc_bs, tc_ms = scm_mimo.generate_channels_mimo(
+            gen, 2, scm_mimo.ScmMimoConfig(4, 3, n_path=1,
+                                           n_coherence=8000))
+        hm, tm = scm.generate_channels_urban_macro(
+            gen, 3000, scm.UrbanMacroConfig(n_antennas=16))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for x in (h, t_bs, t_ms, hm, tm):
+        assert x.is_cuda and x.untyped_storage().nbytes() == \
+            x.numel() * x.element_size()
+    assert h.shape == (1500, 64) and hm.shape == (3000, 16)
+    assert abs(float((h.abs() ** 2).mean()) - 1.0) < 0.1
+    np.testing.assert_allclose(t_bs[:, 0].real.cpu().numpy(), 1.0, atol=1e-3)
+    np.testing.assert_allclose(t_ms[:, 0].real.cpu().numpy(), 1.0, atol=1e-3)
+    for b in range(2):
+        c_true = np.kron(tl.toeplitz_from_first_row(tc_ms[b]).cpu().numpy(),
+                         tl.toeplitz_from_first_row(tc_bs[b]).cpu().numpy())
+        emp = (hc[b].T @ hc[b].conj()).cpu().numpy() / hc.shape[1]
+        np.testing.assert_allclose(emp, c_true, atol=0.12)
+    t0 = tm[:, 0].real.cpu().numpy()
+    assert t0.min() > 1.0 - 1e-3 and t0.max() < 1.5 ** 3.5 + 1e-3
+
+
+@pytest.mark.cuda
+def test_mimo_coloring_ladder_on_card_matches_cpu():
+    """The jitter ladder on the card (cuSOLVER) against the CPU (LAPACK) on
+    truncated Toeplitz matrices at a 2-degree spread, numerically
+    rank-deficient: each factor finite and lower triangular, its L L^H the
+    covariance jittered at the rung its device chose (to 1e-5 relative),
+    the card's L L^H the CPU's to 1e-5 of scale, and no host
+    synchronization on the card."""
+    from quantized_channel_estimation_torch.ops import scm
+    dev = _card()
+    g = torch.Generator().manual_seed(3)
+    gains = torch.rand(256, 2, generator=g, dtype=torch.float64)
+    gains = gains / gains.sum(-1, keepdim=True)
+    fs = scm.sample_psd((torch.rand(256, 2, generator=g,
+                                    dtype=torch.float64) - 0.5) * 180,
+                        gains, 16, 2.0)
+    t = (torch.fft.fft(fs.to(torch.complex64), dim=-1) / fs.shape[-1])[:, :16]
+    c = tl.toeplitz_from_first_row(t)
+    l_cpu = tl.robust_chol_lower(c)
+    c_dev = c.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        l_gpu = tl.robust_chol_lower(c_dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    d = torch.diagonal(c, dim1=-2, dim2=-1).real.mean(-1)[:, None, None]
+    eye = torch.eye(16)
+    for l in (l_cpu, l_gpu.cpu()):
+        assert bool(torch.isfinite(torch.view_as_real(l)).all())
+        assert torch.equal(l, torch.tril(l))
+        llh = l @ l.mH
+        rel = torch.stack([
+            torch.linalg.norm(llh - (c + s * d * eye), dim=(-2, -1))
+            / torch.linalg.norm(c, dim=(-2, -1))
+            for s in (0.0, 1e-6, 1e-4, 1e-2)]).amin(0)
+        assert float(rel.max()) < 1e-5
+    llh_cpu, llh_gpu = l_cpu @ l_cpu.mH, (l_gpu @ l_gpu.mH).cpu()
+    assert float((llh_gpu - llh_cpu).abs().max()) < 1e-5 * float(
+        llh_cpu.abs().max())
+
+
+@pytest.mark.cuda
+def test_mimo_run_gmm_on_card_launches_k1_and_k3(tmp_path):
+    """`run_gmm` on Kronecker-MIMO channels at a small size on the card
+    (8 x 4 antennas, K = 8, blocks of T = 4 at alpha 0.25): the GMM column
+    through K1 and the coherent column through K3 once an SNR, the kron
+    genie below the GMM column at the top SNR, every row finite."""
+    from quantized_channel_estimation_torch.harness import run_gmm
+    _card()
+    cfg = run_gmm.GmmBenchConfig(
+        channel_model="mimo", n_antennas=8, n_antennas_ms=4, n_path=2,
+        n_components=8, n_train=4000, n_val=800, n_coherence=4,
+        coherence_alpha=0.25, snrs=(-5, 5, 15), gmm_max_iter=20,
+        results_dir=str(tmp_path), cache_dir=str(tmp_path / "c"))
+    tkn.reset_launch_counts()
+    mse, rate, _ = run_gmm.run(cfg, verbose=False)
+    counts = tkn.launch_counts()
+    assert counts["grouped_estimate"] == 3
+    assert counts["grouped_estimate_coherent"] == 3
+    assert mse["blmmse_genie"][-1] < mse["blmmse_gmm"][-1] \
+        < mse["LS_glob"][-1]
+    for col in (*mse.values(), *rate.values()):
+        assert all(map(math.isfinite, col))
+    assert any("_model=mimo8x4-coh4_" in f for f in os.listdir(tmp_path / "c"))

@@ -12,7 +12,9 @@ einsum estimator in JAX).
 The CSI-free harnesses `run_gmm_quant` and `run_cov_recovery` are held
 the same way: on the JAX data set, observations and fit (carried across
 by `gmm.quant_fit_from_numpy`), and on the JAX covariance draws and
-samples; their options of later slices raise naming their ROADMAP item.
+samples. The options of later slices were pinned here as refusals naming
+their ROADMAP item; each pin now holds the ported option (the other
+channel models of item 14: `_channel_model_runs_match_jax`).
 
 The mesh options (`n_data_shards`, `n_component_shards`) run in one
 2-rank Gloo group spawned for this file (tests/_torch_parallel_worker.py);
@@ -375,6 +377,70 @@ def _item8_runs_match_jax(tmp_path, monkeypatch, change):
                 covs, dim1=-2, dim2=-1).abs().mean(-1))
 
 
+def _channel_model_runs_match_jax(tmp_path, monkeypatch, **change):
+    """`run_gmm` with another `channel_model` (item 14) in both harnesses
+    on one cache (the JAX run writes the data set, for 'mimo' its npz of
+    `channels`, `toep_bs`, `toep_ms`, and the fit) and the JAX
+    observations: the same CSV names (with `_model=<tag>`) and columns,
+    every MSE and rate row to rtol 1e-4, the 'mimo' genie column through
+    `stages.blmmse_genie_kron`. 'mimo' runs 8 x 2 antennas (channel
+    dimension 16), 'urban-macro' 16. Returns the port's MSE table."""
+    model = change["channel_model"]
+    mimo = model == "mimo"
+    dims = dict(n_antennas=8, n_antennas_ms=2) if mimo else dict(
+        n_antennas=16)
+    observed = {}
+
+    def jax_observe(key, h, snr, *args, _fn=jst.observe):
+        r = _fn(key, h, snr, *args)
+        observed[(snr, tuple(h.shape))] = np.asarray(jst.to_numpy(r))
+        return r
+
+    monkeypatch.setattr(jst, "observe", jax_observe)
+    jcfg = jrun.GmmBenchConfig(
+        n_components=8, n_path=2, n_train=4000, n_val=600, snrs=(-5, 5, 15),
+        results_dir=str(tmp_path / "jax"), cache_dir=str(tmp_path / "saves"),
+        gmm_max_iter=15, **dims, **change)
+    jmse, jrate, _ = jrun.run(jcfg, verbose=False)
+    data_file = glob.glob(os.path.join(jcfg.cache_dir, "saved_data*"))
+    assert len(data_file) == 1 and f"_model={jrun._model_tag(jcfg)}_" \
+        in data_file[0]
+    if mimo:
+        assert set(np.load(data_file[0]).files) == {"channels", "toep_bs",
+                                                     "toep_ms"}
+
+    monkeypatch.setattr(tst, "observe", lambda gen, h, snr, a, n_bits, q:
+                        torch.as_tensor(observed[(snr, tuple(h.shape))]))
+    genie = _spy(monkeypatch, tst, ["blmmse_genie", "blmmse_genie_kron"])
+    tcfg = trun.GmmBenchConfig(**{
+        f.name: getattr(jcfg, f.name)
+        for f in dataclasses.fields(trun.GmmBenchConfig)})
+    tcfg = dataclasses.replace(tcfg, results_dir=str(tmp_path / "port"))
+    assert trun.channel_dim(tcfg) == jrun.channel_dim(jcfg) == 16
+    assert trun._model_tag(tcfg) == jrun._model_tag(jcfg)
+    tmse, trate, _ = trun.run(tcfg, verbose=False, device="cpu")
+    assert genie == {"blmmse_genie": 0 if mimo else 3,
+                     "blmmse_genie_kron": 3 if mimo else 0}
+    assert list(tmse) == list(jmse) and list(trate) == list(jrate)
+    for got, want in ((tmse, jmse), (trate, jrate)):
+        for name in want:
+            np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
+                                       err_msg=name)
+    for rate in (False, True):
+        jname, jrows = _read_csv(jcfg.results_dir, rate)
+        tname, trows = _read_csv(tcfg.results_dir, rate)
+        assert tname[19:] == jname[19:]
+        assert f"_ant=16_model={jrun._model_tag(jcfg)}_" in tname
+        assert trows[0] == jrows[0]
+        assert [r[0] for r in trows] == [r[0] for r in jrows]
+        np.testing.assert_allclose(np.asarray(trows[1:])[:, 1:].astype(float),
+                                   np.asarray(jrows[1:])[:, 1:].astype(float),
+                                   rtol=1e-4)
+    assert tmse["blmmse_genie"][-1] < tmse["blmmse_gmm"][-1] \
+        < tmse["LS_glob"][-1]
+    return tmse
+
+
 @pytest.mark.parametrize("change,item", [
     (dict(channel_model="mimo"), "item 14"),
     (dict(cov_type="toeplitz"), "Queue 1 item 8"),
@@ -383,22 +449,24 @@ def _item8_runs_match_jax(tmp_path, monkeypatch, change):
     (dict(cov_type="block-toeplitz", blocks=(4, 4)), "Queue 1 item 8"),
 ])
 def test_unported_options_raise(change, item, request):
-    """Options of later slices raise naming their ROADMAP item. Item 15
-    (mesh parallelism) is ported: its case holds the 2-rank run's rows
-    against the single-device run's instead. Item 8 (the Toeplitz fits and
-    segmented fits) is ported: its cases hold the port's rows against the
-    JAX harness's (`_item8_runs_match_jax`)."""
+    """The options of later slices, each now ported and held: item 15
+    (mesh parallelism) by the 2-rank run's rows against the single-device
+    run's; item 8 (the Toeplitz fits and segmented fits) by the port's
+    rows against the JAX harness's (`_item8_runs_match_jax`); item 14 (the
+    other channel models) by the Kronecker-MIMO run with coherence blocks
+    of T = 2 against the JAX harness's (`_channel_model_runs_match_jax`)."""
     if item == "item 15":
         _sharded_rows_match(request.getfixturevalue("sharded_runs"),
                             "gmm_data2")
         return
+    tmp_path = request.getfixturevalue("tmp_path")
+    monkeypatch = request.getfixturevalue("monkeypatch")
     if "item 8" in item:
-        _item8_runs_match_jax(request.getfixturevalue("tmp_path"),
-                              request.getfixturevalue("monkeypatch"), change)
+        _item8_runs_match_jax(tmp_path, monkeypatch, change)
         return
-    cfg = dataclasses.replace(trun.GmmBenchConfig(), **change)
-    with pytest.raises(NotImplementedError, match=item):
-        trun.run(cfg, device="cpu")
+    assert item == "item 14"
+    _channel_model_runs_match_jax(tmp_path, monkeypatch, n_coherence=2,
+                                  coherence_alpha=0.5, **change)
 
 
 @pytest.mark.parametrize("change,error", [
@@ -467,6 +535,13 @@ def test_run_mfa_matches_jax_on_shared_cache(tmp_path, monkeypatch, coh):
     port's `stages.observe`: the same CSV name and columns, every MSE and
     rate row to rtol 1e-4, the factored bank estimating through the plain
     K11 (and K12 for the coherent column)."""
+    _run_mfa_matches_jax(tmp_path, monkeypatch, coh)
+
+
+def _run_mfa_matches_jax(tmp_path, monkeypatch, coh, **change):
+    """The body of `test_run_mfa_matches_jax_on_shared_cache`; `change`
+    picks another channel model (the 'mimo' case: 8 x 2 antennas, a
+    16-dimensional channel)."""
     from quantized_channel_estimation_tpu.harness import run_mfa as jrun_mfa
     from quantized_channel_estimation_torch.harness import run_mfa as trun_mfa
     from quantized_channel_estimation_torch.models import mfa as tmfa
@@ -484,11 +559,11 @@ def test_run_mfa_matches_jax_on_shared_cache(tmp_path, monkeypatch, coh):
 
     monkeypatch.setattr(jst, "mfa_fit", jax_fit)
     monkeypatch.setattr(jst, "observe", jax_observe)
-    jcfg = jrun_mfa.MfaBenchConfig(
-        n_antennas=16, n_components=8, latent_dim=4, n_train=4000,
-        n_val=600, max_iter=10, snrs=(-10, 0, 10),
-        results_dir=str(tmp_path / "jax"), cache_dir=str(tmp_path / "saves"),
-        **coh)
+    jcfg = jrun_mfa.MfaBenchConfig(**{
+        **dict(n_antennas=16, n_components=8, latent_dim=4, n_train=4000,
+               n_val=600, max_iter=10, snrs=(-10, 0, 10),
+               results_dir=str(tmp_path / "jax"),
+               cache_dir=str(tmp_path / "saves")), **coh, **change})
     jmse, jrate, _ = jrun_mfa.run(jcfg, verbose=False)
     assert len(fits) == 1 and len(observed) == 3
 
@@ -530,6 +605,7 @@ def test_run_mfa_matches_jax_on_shared_cache(tmp_path, monkeypatch, coh):
     jname, jrows = _read_csv(jcfg.results_dir, False)
     tname, trows = _read_csv(tcfg.results_dir, False)
     assert tname[19:] == jname[19:]
+    assert ("_model=" in tname) == (jcfg.channel_model != "3gpp")
     assert trows[0] == jrows[0]
     np.testing.assert_allclose(np.asarray(trows[1:])[:, 1:].astype(float),
                                np.asarray(jrows[1:])[:, 1:].astype(float),
@@ -578,16 +654,18 @@ def test_run_mfa_factored_matches_densified(tmp_path):
 ])
 def test_run_mfa_unported_options_raise(change, item, request):
     """As `test_unported_options_raise`: the mesh options' cases hold the
-    2-rank runs' rows against the single-device run's."""
+    2-rank runs' rows against the single-device run's, and the 'mimo' case
+    (item 14) the port's rows against the JAX harness's on shared data
+    (8 x 2 antennas, the factored bank through the plain K11)."""
     if item == "item 15":
         name = ("mfa_data2" if change.get("n_data_shards", 1) > 1
                 else "mfa_comp2")
         _sharded_rows_match(request.getfixturevalue("sharded_runs"), name)
         return
-    from quantized_channel_estimation_torch.harness import run_mfa as trun_mfa
-    cfg = dataclasses.replace(trun_mfa.MfaBenchConfig(), **change)
-    with pytest.raises(NotImplementedError, match=item):
-        trun_mfa.run(cfg, device="cpu")
+    assert item == "item 14"
+    _run_mfa_matches_jax(request.getfixturevalue("tmp_path"),
+                         request.getfixturevalue("monkeypatch"), {},
+                         n_antennas=8, n_antennas_ms=2, n_path=2, **change)
 
 
 @pytest.mark.parametrize("runner,change", [
@@ -642,6 +720,13 @@ def test_run_gmm_quant_matches_jax_on_shared_cache(tmp_path, monkeypatch,
     and columns, every MSE and rate row to rtol 1e-4, the GMM column
     through the plain K1 (dense; K3 for the coherent column) or K6 / K7
     (circulant)."""
+    _run_gmm_quant_matches_jax(tmp_path, monkeypatch, t_coh, cov_type)
+
+
+def _run_gmm_quant_matches_jax(tmp_path, monkeypatch, t_coh, cov_type,
+                               **change):
+    """The body of `test_run_gmm_quant_matches_jax_on_shared_cache`;
+    `change` picks another channel model (at a channel dimension of 16)."""
     from quantized_channel_estimation_tpu.harness import (
         run_gmm_quant as jrun_q)
     from quantized_channel_estimation_torch.harness import (
@@ -662,11 +747,11 @@ def test_run_gmm_quant_matches_jax_on_shared_cache(tmp_path, monkeypatch,
     monkeypatch.setattr(jst, "gmm_quant_fit", jax_fit)
     monkeypatch.setattr(jst, "observe", jax_observe)
     coh = dict(n_coherence=2, coherence_alpha=0.5) if t_coh > 1 else {}
-    jcfg = jrun_q.QuantGmmBenchConfig(
-        n_antennas=16, n_components=8, n_train=4000, n_val=600,
-        max_iter=10, snrs=(-5, 5, 15), cov_type=cov_type,
-        results_dir=str(tmp_path / "jax"), cache_dir=str(tmp_path / "saves"),
-        **coh)
+    jcfg = jrun_q.QuantGmmBenchConfig(**{
+        **dict(n_antennas=16, n_components=8, n_train=4000, n_val=600,
+               max_iter=10, snrs=(-5, 5, 15), cov_type=cov_type,
+               results_dir=str(tmp_path / "jax"),
+               cache_dir=str(tmp_path / "saves")), **coh, **change})
     jmse, jrate, jtimes = jrun_q.run(jcfg, verbose=False)
     assert len(fits) == 1 and len(observed) == 4
     jfit = fits[0]
@@ -713,6 +798,7 @@ def test_run_gmm_quant_matches_jax_on_shared_cache(tmp_path, monkeypatch,
     jname, jrows = _quant_csv(jcfg.results_dir)
     tname, trows = _quant_csv(tcfg.results_dir)
     assert tname[19:] == jname[19:] and f"_{cov_type}_snrtr=5.0" in tname
+    assert ("_model=" in tname) == (jcfg.channel_model != "3gpp")
     assert trows[0] == jrows[0]
     assert [r[0] for r in trows] == [r[0] for r in jrows]
     np.testing.assert_allclose(np.asarray(trows[1:])[:, 1:].astype(float),
@@ -911,10 +997,12 @@ def _spectra_rows_match_jax(tmp_path, monkeypatch):
     (dict(n_pilots=2), "A = I"),
 ])
 def test_run_gmm_quant_unported_options_raise(change, error, request):
-    """Channel models other than '3gpp' raise NotImplementedError naming
-    item 14, before any work; several pilots raise ValueError (the
-    quantized EM recovers channel covariances for A = I only; JAX fails in
-    its bank preparation). Item 10 (10b) is ported, and its cases run:
+    """Several pilots raise ValueError, before any work (the quantized EM
+    recovers channel covariances for A = I only; JAX fails in its bank
+    preparation). Item 14 is ported: its case holds the urban-macro rows
+    against the JAX harness's on shared data, and `stream_pilots=True` on
+    a model other than '3gpp' raises JAX's ValueError. Item 10 (10b) is
+    ported, and its cases run:
     the streamed pilots against the dense run (`_streamed_run_tracks_dense`),
     'auto' at D = 8192 and 2048 (`_auto_frontier_run`), the spectra-native
     fit against the JAX harness (`_spectra_rows_match_jax`), and the mesh
@@ -935,9 +1023,18 @@ def test_run_gmm_quant_unported_options_raise(change, error, request):
         return
     from quantized_channel_estimation_torch.harness import (
         run_gmm_quant as trun_q)
+    if error == "item 14":
+        _run_gmm_quant_matches_jax(tmp_path, monkeypatch, 1, "full",
+                                   n_path=2, **change)
+        for model in ("urban-macro", "mimo"):
+            with pytest.raises(ValueError, match="'3gpp' runs only"):
+                trun_q.run(trun_q.QuantGmmBenchConfig(
+                    channel_model=model, stream_pilots=True), device="cpu")
+            assert not trun_q._stream_pilots(trun_q.QuantGmmBenchConfig(
+                channel_model=model, n_antennas=8192))
+        return
     cfg = dataclasses.replace(trun_q.QuantGmmBenchConfig(), **change)
-    kind = ValueError if "n_pilots" in change else NotImplementedError
-    with pytest.raises(kind, match=error):
+    with pytest.raises(ValueError, match=error):
         trun_q.run(cfg, device="cpu")
 
 
