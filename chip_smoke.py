@@ -164,7 +164,12 @@ Phases (any failure exits non-zero; nothing is caught):
      synchronizations, peak memory, the MIMO power and covariance against
      the kron genie, the urban-macro path-loss range), each run with its
      seconds, datagen seconds, fit iterations, host synchronizations and
-     peak memory; then the service
+     peak memory; then the user examples (phase 3i, `examples_phase`):
+     the ten modules of `quantized_channel_estimation_torch.examples` at
+     their JAX scripts' sizes (10 at a 1 x 1 mesh), each with its own
+     claim held (`check`), its seconds, headline NMSE and the launches of
+     the kernels it reaches (K1 in 01, 07 and 10, K2 in 03, K3 and K11 in
+     07, K6 / K7 in 08, K11 in 09; none in 02 and 04-06); then the service
      over
      in-process meshes (`parallel.mesh.make_local_mesh`) of 1 x 2 and 2 x 2
      shards in eight modes each (dense, structured at K = 64 and the K =
@@ -204,8 +209,8 @@ Phases (any failure exits non-zero; nothing is caught):
      the profiler's table, and K1 / K3 / K14a / K11-K13 / K10 / K6-K9 at
      512, 4096 and 131072 rows (`tools.batch_sweep`);
 then one JSON line of kernels, one of the main paths' results, one of the
-serving phases (one device and meshes), the card line, and the final
-status line. It imports nothing
+serving phases (one device and meshes), one of the examples, the card
+line, and the final status line. It imports nothing
 of JAX and uses one card.
 """
 import json
@@ -1409,6 +1414,100 @@ def channel_models_phase(dev, card, kernels, errs, add):
     rec["generators"] = gens
     rec["seconds"] = time.time() - t_phase
     log(f"channel models phase 3h: {rec['seconds']:.1f}s")
+    return rec
+
+
+# phase 3i: the user examples (ROADMAP item 17), each at its JAX script's
+# sizes, 10 at a 1 x 1 mesh (one card)
+EXAMPLE_KERNELS = {   # the kernels each example must launch, and no other
+    "01": {"grouped_estimate"},                             # K1
+    "02": set(), "04": set(), "05": set(), "06": set(),
+    "03": {"grouped_estimate_stats"},                       # K2
+    "07": {"grouped_estimate", "grouped_estimate_coherent",  # K1, K3, K11
+           "fact_estimate"},
+    "08": {"circ_estimate", "circ_estimate_coherent"},      # K6, K7
+    "09": {"fact_estimate"},                                # K11
+    "10": {"grouped_estimate"},                             # K1
+}
+
+
+def example_numbers(key, out):
+    """The headline numbers of one example's result: its NMSE values (and
+    the differences its claim reads)."""
+    if key == "01":
+        return dict(out["nmse"])
+    if key == "02":
+        return {**out["nmse"], "genie": out["genie"], "ls": out["ls"]}
+    if key == "03":
+        return {k: out[k] for k in ("nmse", "max_abs_diff", "scale",
+                                    "lower_bound", "n_iter")}
+    if key == "04":
+        return {"nmse": out["nmse"], "loss_first": out["losses"][0],
+                "loss_last": out["losses"][-1]}
+    if key == "05":
+        whole = out["whole"]
+        return {"nmse": whole["nmse"], "lower_bound": whole["lower_bound"],
+                "n_iter": whole["n_iter"],
+                "resumed_after": out["resumed"]["resumed_after"]}
+    if key == "06":
+        return {str(snr): m for snr, m in out["nmse"].items()}
+    if key == "07":
+        return {p: out[p]["max_rel_diff"] for p in ("gmm", "mfa", "vae")}
+    if key == "08":
+        return {**{str(snr): {k: m[k] for k in ("dense", "structured",
+                                                 "max_rel_diff")}
+                   for snr, m in out["nmse"].items()},
+                "auto_alpha": out["auto_alpha"]}
+    if key == "09":
+        return {**{k: out["nmse"][k] for k in ("factored", "dense",
+                                               "coherent", "max_rel_diff")},
+                "served": out["service"]["served_nmse"]}
+    return {"single": out["single"]["blmmse_gmm"],
+            "mesh": out["mesh_rows"]["blmmse_gmm"],
+            "max_rel_diff": out["max_rel_diff"]}
+
+
+def examples_phase(kernels, add):
+    """Phase 3i, the user examples (`quantized_channel_estimation_torch.
+    examples`): each example's `main()` on the card at the JAX script's
+    sizes (05 as `cut_and_resume`: a run cut after segment 2, resumed on
+    its checkpoints to 5 segments, and an uninterrupted 5-segment run; 10
+    at a 1 x 1 mesh), with the launch counts set to 0 just before it and
+    read just after; each example's own claim (`check`) must hold and it
+    must launch exactly the kernels of EXAMPLE_KERNELS. Returns the
+    phase's record: per example its seconds (host clock, from the first
+    call of the phase's shapes), headline numbers and launches."""
+    from quantized_channel_estimation_torch import examples
+    t_phase = time.time()
+    rec = {}
+    for name in examples.NAMES:
+        key = name[:2]
+        ex = examples.load(name)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.time()
+        if key == "05":
+            with tempfile.TemporaryDirectory() as tmp:
+                out = ex.cut_and_resume(None, tmp)
+        elif key == "10":
+            out = ex.main(mesh=(1, 1))
+        else:
+            out = ex.main()
+        torch.cuda.synchronize()
+        seconds = time.time() - t
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        add(launches)
+        ex.check(out)
+        if set(launches) != EXAMPLE_KERNELS[key]:
+            raise AssertionError(f"example {name} launched {launches}; it "
+                                 f"must launch {EXAMPLE_KERNELS[key]}")
+        rec[key] = {"seconds": seconds,
+                    "numbers": example_numbers(key, out),
+                    "launches": launches}
+        log(f"example {name}: {seconds:.1f}s, launches {launches}, "
+            f"{rec[key]['numbers']}")
+    rec["seconds"] = time.time() - t_phase
+    log(f"examples phase 3i: {rec['seconds']:.1f}s")
     return rec
 
 
@@ -3028,6 +3127,9 @@ def main():
     # `channel_models_phase` above
     models_rec = channel_models_phase(dev, card, kernels, errs, add)
 
+    # 3i. the user examples (ROADMAP item 17), `examples_phase` above
+    examples_rec = examples_phase(kernels, add)
+
     # 3d. the service over in-process meshes of 1 x 2 and 2 x 2 shards: the
     # dense, structured (K = 64, and the K = 256 spectra-native prior in two
     # component shards of 128, which K8 / K9 take whole) and factored banks
@@ -3967,6 +4069,7 @@ def main():
                          "split_bench": split},
         "total_seconds": time.time() - t0}}))
     print(json.dumps({"serving": serve, "mesh_serving": mesh_serve}))
+    print(json.dumps({"examples": examples_rec}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,7 @@ Port of `quantized_channel_estimation_tpu/harness/stages.py`:
 `chunked_genie_nmse`, `ls_global`, `gmm_fit`, `gmm_fit_resume`,
 `gmm_quant_fit`, `gmm_quant_fit_resume`, `gmm_quant_fit_circulant_spectra`,
 `prepare_bank`,
-`nmse`, `rate`, `rate_mf`, `estimate_auto`, `estimate_coherent`,
+`nmse`, `rate`, `rate_mf`, `estimate`, `estimate_auto`, `estimate_coherent`,
 `estimate_coherent_auto`, `flatten_coherence`, for the structured banks
 `prepare_bank_circulant`, `prepare_bank_circulant_spectra`,
 `estimate_circulant`, `estimate_circulant_coherent`, and for MFA `mfa_fit`,
@@ -171,6 +171,9 @@ gmm_quant_fit_circulant_spectra = gmm_quant.fit_circulant_spectra
 mfa_fit = mfa.fit
 mfa_to_gmm = mfa.to_gmm_params
 prepare_bank = gmm_estimator.prepare_bank
+# the plain einsum estimators, as JAX binds them (no kernel; the kernel
+# routes are `estimate_auto` / `estimate_coherent_auto`)
+estimate = gmm_estimator.estimate
 estimate_coherent = gmm_estimator.estimate_coherent
 # block-major snapshot order: (B, T, N) -> (B*T, N), Toeplitz rows repeated
 flatten_coherence = scm.flatten_coherence

@@ -12,7 +12,9 @@ then resumes on one device, and `run_vae` over both ranks) for
 tests/test_torch_parallel.py,
 'harness' the `n_data_shards` / `n_component_shards` options of
 `run_gmm` (one run on Kronecker-MIMO channels), `run_mfa` and
-`run_gmm_quant` for tests/test_torch_harness.py. `spawn_group` starts both
+`run_gmm_quant` for tests/test_torch_harness.py, 'examples' the user
+examples 03 and 10 over the group for tests/test_torch_examples_mesh.py.
+`spawn_group` starts both
 ranks and reads their results. Imports torch, not JAX; the inputs are made
 by the functions below, which the test files import too.
 """
@@ -381,9 +383,44 @@ def single_runs(root):
             for name, (kind, change) in HARNESS.items()}
 
 
-JOBS = {"mesh": mesh_job, "harness": harness_job}
+# the user examples over the group: 03's sizes (its data-parallel fit) and
+# 10's sweep (at a 1 x 2 mesh)
+EX03 = dict(n_ant=16, k=8, n_train=2000, n_val=400, max_iter=10)
+EX10 = dict(n_antennas=16, n_components=8, n_train=2000, n_val=400,
+            snrs=(-10, 0, 10), gmm_max_iter=10)
+
+
+def examples_job(rank, root):
+    """03 and 10 of `quantized_channel_estimation_torch.examples` on the
+    group (each uses the group it finds and leaves it), and 10 asked for a
+    mesh the group does not hold (its refusal's message)."""
+    from quantized_channel_estimation_torch import examples
+    ex03, ex10 = examples.load("03"), examples.load("10")
+    out = {"ex03": ex03.main(device="cpu", **EX03),
+           "ex10": ex10.main(device="cpu", mesh=(1, 2), **EX10)}
+    try:
+        ex10.main(device="cpu", mesh=(2, 2), **EX10)
+    except ValueError as err:
+        out["ex10_refused"] = str(err)
+    return out
+
+
+def examples_single(root):
+    """Rank 0, after the group: 03's fit on one device (the same data,
+    config and generator)."""
+    from quantized_channel_estimation_torch import examples
+    ex03 = examples.load("03")
+    h_train, _ = ex03.data("cpu", EX03["n_ant"], EX03["n_train"],
+                           EX03["n_val"])
+    res = gmm.fit(ex03.generator(2, "cpu"), h_train,
+                  ex03.config(EX03["k"], EX03["max_iter"]))
+    return {"ex03_single_lb": [float(v) for v in res.lb_history]}
+
+
+JOBS = {"mesh": mesh_job, "harness": harness_job, "examples": examples_job}
 # run by rank 0 alone once the group is destroyed
-AFTER = {"mesh": vae_resume_single, "harness": single_runs}
+AFTER = {"mesh": vae_resume_single, "harness": single_runs,
+         "examples": examples_single}
 
 
 def spawn_group(out_dir, job, timeout):

@@ -491,6 +491,33 @@ def test_segmented_run_gmm_refusals(tmp_path, change, error):
         trun.run(cfg, verbose=False, device="cpu")
 
 
+def test_stages_estimate_matches_jax():
+    """`stages.estimate` is the plain einsum estimator, as JAX binds it
+    (`harness/stages.py`: `gmm_estimator.estimate` under `cjit`): on one
+    seeded GMM, its bank and observations carried across, the port's
+    estimate equals JAX's `stages.estimate` to 1e-4 of scale."""
+    from quantized_channel_estimation_tpu.models import gmm as jgmm
+    from quantized_channel_estimation_torch.ops import quantizer as tq
+    assert tst.estimate is tst.gmm_estimator.estimate
+    params = worker.gmm_params(seed=5)
+    a_t = tst.pilot_matrix(worker.D, 1, 2, device="cpu")
+    q_t = tq.design_quantizer(0.0, 2)
+    bank = tst.prepare_bank(params, 0.0, a_t, 2, q_t)
+    h = torch.as_tensor(worker._cr(np.random.default_rng(8), 300,
+                                   worker.D).astype(np.complex64))
+    r = worker.observe(h, a_t, q_t)
+    got = tst.estimate(bank, r, "all", 128)
+    jparams = jgmm.GmmParams(*jst.from_numpy(tuple(p.numpy()
+                                                   for p in params)))
+    jbank = jst.prepare_bank(jparams, 0.0, jst.pilot_matrix(
+        worker.D, 1, 2, "angle_amp"), 2, jq.design_quantizer(0.0, 2))
+    want = jst.to_numpy(jst.estimate(jbank, jst.from_numpy(r.numpy()),
+                                     "all", 128))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
