@@ -53,7 +53,8 @@ Phases (any failure exits non-zero; nothing is caught):
      and K5 for k in {1, 4} (and k = 4 with dead components at a ragged N)
      on two shards against the plain version and merged with `merge_topk`
      against one K4 launch (near-tie rows not compared); fault F1: a dense
-     bank with 2M = 512 (four pilots, D = 64) through
+     bank with 2M = 2064 (129 pilots, D = 8), past the dense kernels' 2M <=
+     2048, through
      `stages.estimate_auto` and `kernels.estimate_fused_coherent` at T = 1
      against the einsum estimator (to 1e-5, no kernel launched); and the
      entries the mesh path runs on each rank (K8, K9, K13) on two
@@ -169,8 +170,19 @@ Phases (any failure exits non-zero; nothing is caught):
      their JAX scripts' sizes (10 at a 1 x 1 mesh), each with its own
      claim held (`check`), its seconds, headline NMSE and the launches of
      the kernels it reaches (K1 in 01, 07 and 10, K2 in 03, K3 and K11 in
-     07, K6 / K7 in 08, K11 in 09; none in 02 and 04-06); then the service
-     over
+     07, K6 / K7 in 08, K11 in 09; none in 02 and 04-06); then the
+     large-array dense path (phase 3j, `wide_dense_phase`): the wide form
+     of K1-K3 (2M or 2D past 256) at (2M, 2D) = (512, 512), (512, 128),
+     (640, 128), (512, 256) and (400, 400) against the plain versions and
+     under the float64 rule, K2 on two component shards merged against
+     one K1 launch, `tools.scale_bench_large_d` at D = 256, K = 32
+     (Toeplitz; genie < GMM < LS, the wide K1 within TOL of the einsum
+     estimator, its rate beside the einsum's), the wide K3 through
+     `stages.estimate_coherent_auto` and the wide K2 through
+     `estimate_sharded_kernel` on a four-pilot bank (2M = 512), the einsum
+     estimators made to raise on those routes, 20 NaN-poisoned repeats a
+     shape, and the wide kernels' times at D = 256, K = 32, 32768 rows;
+     then the service over
      in-process meshes (`parallel.mesh.make_local_mesh`) of 1 x 2 and 2 x 2
      shards in eight modes each (dense, structured at K = 64 and the K =
      256 spectra-native prior, factored; flat and T=4 blocks; 1 s each),
@@ -1511,6 +1523,357 @@ def examples_phase(kernels, add):
     return rec
 
 
+WIDE_SHAPES = ((512, 512), (512, 128), (640, 128), (512, 256), (400, 400))
+WIDE_K = 32        # components of the wide shapes' random banks (the scale
+#                    bench's K)
+WIDE_N = 8191      # rows a shape's check: a ragged count
+# GMM banks at the deep end of the rule, (D, pilots, K): 2M = 896 (JAX's
+# chunk rule at K = 4) and 2M = 1792 (its whole-bank rule at K < 4)
+WIDE_DEEP = ((64, 7, 4), (128, 7, 2))
+WIDE_BATCH = 32768  # rows of the times (the scale bench's batch)
+
+
+def wide_bound(n, two_m, two_d, k, coherent=False, stats=False):
+    """(bound ms, 'operations' or 'bytes', tc operations, fp32 operations,
+    bytes) of K1 / K2 / K3 at these widths: six bf16 products of r2 [P_k |
+    W_k] on the tensor cores plus the fp32 epilogue 2 N K (2M + 2D) (K3 +
+    3 N K), against r2 read once, the output (and m, den) written once and
+    the fp32 bank read once."""
+    tc = 6.0 * 2 * n * two_m * (two_m + two_d) * k
+    fp32 = 2.0 * n * k * (two_m + two_d) + (3.0 * n * k if coherent else 0)
+    nbytes = 4.0 * (n * two_m + n * two_d + (2 * n if stats else 0)
+                    + k * two_m * (two_m + two_d) + k * (two_m + two_d + 1))
+    ops_s = fp32 / PEAK_FP32_FLOPS + tc / PEAK_BF16_FLOPS
+    by = "operations" if ops_s >= nbytes / PEAK_HBM_BYTES else "bytes"
+    return (max(ops_s, nbytes / PEAK_HBM_BYTES) * 1e3, by, tc, fp32, nbytes)
+
+
+def wide_dense_phase(dev, card, kernels, errs, add):
+    """Phase 3j, the large-array dense path: the wide form of K1, K2 and K3
+    (`csrc/grouped_wide_estimate.cu`, past the stream's 2M, 2D <= 256).
+
+    1. At (2M, 2D) in WIDE_SHAPES (random banks of 32 components, two
+       dead, 8191 rows): K1, K3 (T = 4, alpha 1) and K2 (flat on two
+       component shards, and coherent at T = 4, alpha 0.5) against their
+       plain versions within TOL of the scale; K1, K3 and the shards'
+       merged quotient under the float64 rule (`fp32_accuracy`); the two
+       shards merged with `merge_stats` within 1e-5 of one K1 launch.
+       Then GMM banks at WIDE_DEEP (2M = 896, K = 4; 2M = 1792, K = 2):
+       K1 within TOL, and K1, K3 (T = 4) and K2 on two shards merged
+       under the float64 rule.
+    2. The main paths, each with the launch counts set to 0 just before it
+       and read just after, the einsum estimators made to raise inside the
+       kernel routes: `tools.scale_bench_large_d` at its defaults (D = 256,
+       K = 32, Toeplitz, 60k / 2k rows, 30 iterations, 10 dB, 2 bits;
+       genie < GMM < LS, the kernel's estimate within TOL of the einsum
+       estimator's, the wide K1 launched and the stream's not);
+       `stages.estimate_coherent_auto` at T = 4 on the four-pilot D = 64
+       headline bank (2M = 512: the wide K3) and
+       `parallel.mesh.estimate_sharded_kernel` over an in-process 1 x 2
+       mesh, flat and T = 4 blocks at alpha 0.5 (the wide K2, flat and
+       coherent), each within TOL of the einsum estimator's scale.
+    3. The wide K1 and K3 launched 20 times at each shape of
+       `tools.tc_repeat_check.WIDE_SHAPES` after a NaN fill of shared
+       memory, bit for bit the first launch.
+    4. CUDA-event times at D = 256, K = 32, 32768 rows (K1, K3 at T = 4,
+       K2 flat and coherent), each beside its plain version, the bound
+       (`wide_bound`) and the library yardstick (one cuBLAS fp32 GEMM of
+       r2 against all K [P_k | W_k] blocks), and K1 at every WIDE_SHAPES
+       width.
+    Returns the phase's record; its timing records are the kernels line's
+    entries of the four wide wrappers."""
+    from quantized_channel_estimation_torch.harness import stages
+    from quantized_channel_estimation_torch.models import gmm_estimator
+    from quantized_channel_estimation_torch.ops import observation, pilots
+    from quantized_channel_estimation_torch.ops.cplx import crandn
+    from quantized_channel_estimation_torch.parallel import mesh as pmesh
+    from quantized_channel_estimation_torch.tools import common
+    from quantized_channel_estimation_torch.tools import (
+        scale_bench_large_d, tc_repeat_check as trc)
+    from quantized_channel_estimation_torch.utils import profiling
+    t_phase = time.time()
+    rec = {"shapes": {}}
+
+    def f64(kb_c):
+        return type(kb_c)(*(x.double() for x in kb_c))
+
+    # 1. every listed width against its plain version
+    for two_m, two_d in WIDE_SHAPES:
+        label = f"2M={two_m}, 2D={two_d}, K={WIDE_K}"
+        kb = trc.random_bank(two_m, two_d, WIDE_K, dev, n_dead=2)
+        kb64 = f64(kb)
+        ops = kernels.tc_operands(kb)
+        rows = trc.random_rows(WIDE_N, two_m, dev)
+        rows4 = rows[:WIDE_N // 4 * 4]
+        got = kernels.grouped_estimate(rows, kb, ops)
+        want = kernels.grouped_estimate_reference(rows, kb)
+        want64 = kernels.grouped_estimate_reference(rows.double(), kb64)
+        errs["grouped_estimate_wide"].append(compare(
+            "grouped_estimate_wide", label, got, want))
+        acc1, held1 = fp32_accuracy("grouped_estimate_wide", label, got,
+                                    want, want64)
+        got3 = kernels.grouped_estimate_coherent(rows4, kb, 4, 1.0, ops)
+        want3 = kernels.grouped_estimate_coherent_reference(rows4, kb, 4,
+                                                            1.0)
+        errs["grouped_estimate_coherent_wide"].append(compare(
+            "grouped_estimate_coherent_wide", f"{label}, T=4", got3, want3))
+        acc3, held3 = fp32_accuracy(
+            "grouped_estimate_coherent_wide", f"{label}, T=4", got3, want3,
+            kernels.grouped_estimate_coherent_reference(rows4.double(), kb64,
+                                                        4, 1.0))
+        del got3, want3
+        half = WIDE_K // 2
+        shards = [kernels.KernelBankBlock(*(x[sl].contiguous() for x in kb))
+                  for sl in (slice(0, half), slice(half, WIDE_K))]
+        states = []
+        for j, shard in enumerate(shards):
+            st = kernels.grouped_estimate_stats(rows, shard,
+                                                kernels.tc_operands(shard))
+            for field, g_x, w_x in zip(
+                    ("m", "den", "acc"), st,
+                    kernels.grouped_estimate_stats_reference(rows, shard)):
+                errs["grouped_estimate_stats_wide"].append(compare(
+                    "grouped_estimate_stats_wide",
+                    f"{label}, shard {j} {field}", g_x, w_x))
+            states.append(st)
+        _, den, acc = kernels.merge_stats(*zip(*states))
+        merged = acc / den[:, None]
+        compare("K2 wide, two shards merged, against one K1 launch", label,
+                merged, got, tol=1e-5)
+        acc2, held2 = fp32_accuracy(
+            "grouped_estimate_stats_wide", f"{label}, merged", merged, want,
+            want64)
+        for field, g_x, w_x in zip(
+                ("m", "den", "acc"),
+                kernels.grouped_estimate_coherent_stats(rows4, kb, 4, 0.5,
+                                                        ops),
+                kernels.grouped_estimate_coherent_stats_reference(
+                    rows4, kb, 4, 0.5)):
+            errs["grouped_estimate_coherent_stats_wide"].append(compare(
+                "grouped_estimate_coherent_stats_wide",
+                f"{label}, T=4, alpha=0.5, {field}", g_x, w_x))
+        if not (held1 and held2 and held3):
+            raise AssertionError(f"the wide form at {label} is less "
+                                 "accurate than float32")
+        rec["shapes"][label] = {"fp32_accuracy": {
+            "K1": acc1, "K3 T=4": acc3, "K2 merged": acc2}}
+        del got, want, want64, merged, states, kb64
+
+    # 1b. the float64 rule on GMM banks at the deep end of the rule
+    rec["deep"] = {}
+    for d_g, p_g, k_g in WIDE_DEEP:
+        two_m = 2 * d_g * p_g
+        label = f"GMM bank D={d_g}, {p_g} pilots (2M={two_m}), K={k_g}"
+        bank_g, _ = common.headline_bank(dev, n_ant=d_g, k_comp=k_g,
+                                         n_dead=1 if k_g > 2 else 0,
+                                         n_pilots=p_g)
+        rows = trc.random_rows(WIDE_N, two_m, dev)
+        rows4 = rows[:WIDE_N // 4 * 4]
+        kb = kernels.kernel_bank_block(bank_g, 1, 1.0)
+        got = kernels.grouped_estimate(rows, kb)
+        want = kernels.grouped_estimate_reference(rows, kb)
+        want64 = kernels.grouped_estimate_reference(rows.double(), f64(kb))
+        errs["grouped_estimate_wide"].append(compare(
+            "grouped_estimate_wide", label, got, want))
+        acc1, held1 = fp32_accuracy("grouped_estimate_wide", label, got,
+                                    want, want64)
+        shards = [kernels.KernelBankBlock(*(x[sl].contiguous() for x in kb))
+                  for sl in (slice(0, k_g // 2), slice(k_g // 2, k_g))]
+        _, den, acc = kernels.merge_stats(*zip(*(
+            kernels.grouped_estimate_stats(rows, sh) for sh in shards)))
+        acc2, held2 = fp32_accuracy("grouped_estimate_stats_wide",
+                                    f"{label}, merged", acc / den[:, None],
+                                    want, want64)
+        kb4 = kernels.kernel_bank_block(bank_g, 4, 1.0)
+        acc3, held3 = fp32_accuracy(
+            "grouped_estimate_coherent_wide", f"{label}, T=4",
+            kernels.grouped_estimate_coherent(rows4, kb4, 4, 1.0),
+            kernels.grouped_estimate_coherent_reference(rows4, kb4, 4, 1.0),
+            kernels.grouped_estimate_coherent_reference(rows4.double(),
+                                                        f64(kb4), 4, 1.0))
+        if not (held1 and held2 and held3):
+            raise AssertionError(f"the wide form on the {label} is less "
+                                 "accurate than float32")
+        rec["deep"][label] = {"fp32_accuracy": {
+            "K1": acc1, "K3 T=4": acc3, "K2 merged": acc2}}
+        del bank_g, kb, kb4, got, want, want64, acc, den, shards
+
+    # 2. the main paths, the einsum estimators raising inside the kernel
+    # routes
+    names = ("estimate", "estimate_coherent", "estimate_stats",
+             "estimate_coherent_stats")
+    saved = {n: getattr(gmm_estimator, n) for n in names}
+    in_route = [0]
+
+    def guarded(name):
+        def run(*args, **kw):
+            if in_route[0]:
+                raise AssertionError(f"the einsum {name} was reached on a "
+                                     "wide kernel route")
+            return saved[name](*args, **kw)
+        return run
+
+    def route(fn):
+        def run(*args, **kw):
+            in_route[0] += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                in_route[0] -= 1
+        return run
+
+    def counted(label, fn, want_kernels):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.time() - t
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        add(launches)
+        log(f"wide path {label}: {seconds:.1f}s, launches {launches}")
+        if set(launches) != want_kernels:
+            raise AssertionError(f"wide path {label} launched {launches}; "
+                                 f"it must launch {want_kernels}")
+        return out, launches, seconds
+
+    saved_auto = stages.estimate_auto
+    try:
+        for n in names:
+            setattr(gmm_estimator, n, guarded(n))
+        stages.estimate_auto = route(saved_auto)
+        sb, sb_launches, sb_s = counted(
+            "scale_bench_large_d (D=256, K=32, toeplitz)",
+            lambda: scale_bench_large_d.main(device=dev),
+            {"grouped_estimate_wide"})
+    finally:
+        stages.estimate_auto = saved_auto
+        for n, fn in saved.items():
+            setattr(gmm_estimator, n, fn)
+    log(f"scale_bench_large_d: datagen {sb['datagen_s']:.1f}s, fit "
+        f"{sb['fit_s']:.1f}s ({sb['n_iter']} iterations), NMSE gmm "
+        f"{sb['nmse_gmm']:.5f}, genie {sb['nmse_genie']:.5f}, LS "
+        f"{sb['nmse_ls']:.5f} (gmm / genie {sb['gmm_over_genie']:.3f}); "
+        f"estimation {sb['rate_kernel']:.4g} est/s through the {sb['route']}"
+        f" K1 ({sb['kernel_ms']:.3f} ms a {WIDE_BATCH}-row call), einsum "
+        f"{sb['rate_einsum']:.4g} est/s ({sb['einsum_ms']:.3f} ms); kernel "
+        f"vs einsum {sb['kernel_vs_einsum']:.2e} of scale; {card}")
+    if not (sb["nmse_genie"] < sb["nmse_gmm"] < sb["nmse_ls"]):
+        raise AssertionError(f"scale_bench_large_d: NMSE order off: {sb}")
+    if not (sb["kernel_vs_einsum"] <= TOL and sb["route"] == "wide"):
+        raise AssertionError(f"scale_bench_large_d: the kernel estimate is "
+                             f"off the einsum's: {sb}")
+    rec["scale_bench_large_d"] = {**sb, "seconds": sb_s}
+
+    bank4, q = common.headline_bank(dev, n_pilots=4)    # 2M = 512, 2D = 128
+    a4 = pilots.pilot_matrix(D, 4, N_BITS, device=dev)
+    g4 = torch.Generator(device=dev).manual_seed(2)
+    r4 = observation.observe(g4, crandn(g4, (8192, D)), SNR, a4, N_BITS, q)
+    rb4 = r4.reshape(-1, 4, r4.shape[1])
+    want_flat = gmm_estimator.estimate(bank4, r4, "all")
+    want_b = {a: gmm_estimator.estimate_coherent(bank4, rb4, "all", 512, a)
+              for a in (1.0, 0.5)}
+    mesh12 = pmesh.make_local_mesh(1, 2)
+    paths = (
+        ("stages.estimate_coherent_auto, T=4",
+         lambda: stages.estimate_coherent_auto(bank4, rb4, "all", 1.0),
+         want_b[1.0], {"grouped_estimate_coherent_wide"}),
+        ("estimate_sharded_kernel, 1 x 2 mesh, flat",
+         lambda: pmesh.estimate_sharded_kernel(mesh12, bank4, r4),
+         want_flat, {"grouped_estimate_stats_wide"}),
+        ("estimate_sharded_kernel, 1 x 2 mesh, T=4, alpha=0.5",
+         lambda: pmesh.estimate_sharded_kernel(mesh12, bank4, rb4,
+                                               coherence_alpha=0.5),
+         want_b[0.5], {"grouped_estimate_coherent_stats_wide"}))
+    rec["paths"] = {}
+    try:
+        for n in names:
+            setattr(gmm_estimator, n, guarded(n))
+        in_route[0] += 1
+        for label, fn, want, kset in paths:
+            got, launches, seconds = counted(label, fn, kset)
+            rel = float((got - want).abs().max() / want.abs().max())
+            log(f"{label} on the four-pilot bank (2M = 512, N = "
+                f"{r4.shape[0]}): {rel:.3e} of the einsum estimator's "
+                f"scale (tol {TOL})")
+            if not (rel <= TOL and torch.isfinite(got.abs()).all()):
+                raise AssertionError(f"{label}: off the einsum estimator")
+            rec["paths"][label] = {"rel_to_einsum": rel,
+                                   "launches": launches, "seconds": seconds}
+    finally:
+        in_route[0] -= 1
+        for n, fn in saved.items():
+            setattr(gmm_estimator, n, fn)
+    del bank4, r4, rb4, want_flat, want_b
+
+    # 3. repeated launches
+    tm = time.time()
+    rep = trc.repeat_check(dev, repeats=20, modes=("wide",))["kernel"]
+    bad = {k: v for k, v in rep.items() if v["failures"]}
+    log(f"wide K1 / K3 repeated: {sum(v['launches'] for v in rep.values())}"
+        f" launches in {time.time() - tm:.1f}s, max err "
+        f"{max(v['max_err'] for v in rep.values()):.3e}, failures "
+        f"{bad or 0}")
+    if bad:
+        raise AssertionError(f"the wide K1 / K3 off on repeated launches: "
+                             f"{bad}")
+    rec["repeat_check"] = rep
+
+    # 4. times at the scale bench's widths, and K1 at every listed width
+    n = WIDE_BATCH
+    times = {}
+    for two_m, two_d in WIDE_SHAPES:     # (512, 512) first
+        kb = trc.random_bank(two_m, two_d, WIDE_K, dev, n_dead=2)
+        ops = kernels.tc_operands(kb)
+        r2 = trc.random_rows(n, two_m, dev)
+        flat = kb.pw.permute(1, 0, 2).reshape(two_m, -1).contiguous()
+        gemm = lambda: r2 @ flat  # noqa: E731
+        forms = [("grouped_estimate_wide", False, False,
+                  lambda: kernels.grouped_estimate(r2, kb, ops),
+                  lambda: kernels.grouped_estimate_reference(r2, kb))]
+        if (two_m, two_d) == (512, 512):
+            forms += [
+                ("grouped_estimate_coherent_wide", True, False,
+                 lambda: kernels.grouped_estimate_coherent(r2, kb, 4, 1.0,
+                                                           ops),
+                 lambda: kernels.grouped_estimate_coherent_reference(
+                     r2, kb, 4, 1.0)),
+                ("grouped_estimate_stats_wide", False, True,
+                 lambda: kernels.grouped_estimate_stats(r2, kb, ops),
+                 lambda: kernels.grouped_estimate_stats_reference(r2, kb)),
+                ("grouped_estimate_coherent_stats_wide", True, True,
+                 lambda: kernels.grouped_estimate_coherent_stats(
+                     r2, kb, 4, 1.0, ops),
+                 lambda: kernels.grouped_estimate_coherent_stats_reference(
+                     r2, kb, 4, 1.0))]
+        for name, coh, stats, kern, plain in forms:
+            plain_ms = profiling.device_ms(plain)
+            ms = profiling.device_ms(kern)
+            ms2 = profiling.device_ms(kern)
+            plain_ms2 = profiling.device_ms(plain)
+            library_ms = profiling.device_ms(gemm)
+            bound_ms, by, tc, fp32, nbytes = wide_bound(
+                n, two_m, two_d, WIDE_K, coh, stats)
+            t = {"ms": ms, "ms_again": ms2, "plain_ms": plain_ms,
+                 "plain_ms_again": plain_ms2, "bound_ms": bound_ms,
+                 "bound_by": by, "library_ms": library_ms,
+                 "tc_flops": tc, "fp32_flops": fp32, "bytes": nbytes,
+                 "share_of_bound": bound_ms / ms}
+            log(f"{name} at N={n}, 2M={two_m}, 2D={two_d}, K={WIDE_K}"
+                + (", T=4" if coh else "") + f": kernel {ms:.3f} / "
+                f"{ms2:.3f} ms, plain {plain_ms:.3f} / {plain_ms2:.3f} ms, "
+                f"library (fp32 GEMM) {library_ms:.3f} ms, bound "
+                f"{bound_ms:.3f} ms ({by}; {bound_ms / ms:.0%} reached), "
+                f"{n / (ms * 1e-3):.4g} estimates/s; {card}")
+            times[name if (two_m, two_d) == (512, 512)
+                  else f"{name} 2M={two_m}, 2D={two_d}"] = t
+        del kb, ops, r2, flat
+    rec["times"] = times
+    rec["seconds"] = time.time() - t_phase
+    log(f"wide dense phase 3j: {rec['seconds']:.1f}s")
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1550,9 +1913,9 @@ def main():
     # the sources redesigned for Hopper (the wgmma stream of K1-K3, K15 and
     # K14b; K4 / K5; K14a): registers, spills and shared memory of every
     # instantiation
-    for name in ("grouped_estimate", "floor_probe", "grouped_tc_estimate",
-                 "grouped_topk", "karatsuba_estimate", "fact_estimate",
-                 "mp_circ_estimate"):
+    for name in ("grouped_estimate", "grouped_wide_estimate", "floor_probe",
+                 "grouped_tc_estimate", "grouped_topk", "karatsuba_estimate",
+                 "fact_estimate", "mp_circ_estimate"):
         summary = ptxas_summary(build_logs.get(name, ""))
         log(f"ptxas {name} (dynamic shared memory is set per launch): "
             + ("; ".join(summary) if summary else "not rebuilt"))
@@ -1579,6 +1942,12 @@ def main():
             or not all("spills 0/0 B" in row for row in mp_rows)):
         raise AssertionError(f"K6-K10 instantiations spill or are missing: "
                              f"{mp_rows}")
+    # the wide form of K1-K3: no instantiation may spill
+    wide_rows = ptxas_summary(build_logs.get("grouped_wide_estimate", ""))
+    if "grouped_wide_estimate" in build_logs and (
+            not wide_rows
+            or not all("spills 0/0 B" in row for row in wide_rows)):
+        raise AssertionError(f"the wide K1-K3 spill: {wide_rows}")
     log(f"build: {time.time() - tb:.1f}s")
 
     # 2. kernels against their plain versions
@@ -2096,15 +2465,17 @@ def main():
     check_k5("dead, ragged, k=4", kernels.kernel_bank_block(dead_bank),
              r2[:10001], 4)
 
-    # 2f. fault F1: a dense bank past the kernels' widths (four pilots at
-    # D = 64, so 2M = 512) through the stages takes the einsum estimator
-    # instead of raising in K1
-    wide_bank = common.headline_bank(dev, n_pilots=4)[0]
-    a4 = pilots.pilot_matrix(D, 4, N_BITS, device=dev)
+    # 2f. fault F1: a dense bank past the kernels' widths (129 pilots at
+    # D = 8, so 2M = 2064 > 2048) through the stages takes the einsum
+    # estimator instead of raising in K1 (2M = 512 takes the wide K1: phase
+    # 3j)
+    wide_bank = common.headline_bank(dev, n_ant=8, k_comp=8,
+                                     n_pilots=129)[0]
+    a_f1 = pilots.pilot_matrix(8, 129, N_BITS, device=dev)
     g4 = torch.Generator(device=dev).manual_seed(2)
     from quantized_channel_estimation_torch.ops.cplx import crandn
-    r_wide = observation.observe(g4, crandn(g4, (8192, D)), SNR, a4, N_BITS,
-                                 q)
+    r_wide = observation.observe(g4, crandn(g4, (8192, 8)), SNR, a_f1,
+                                 N_BITS, q)
     before = kernels.launch_counts()
     want_wide = gmm_estimator.estimate(wide_bank, r_wide, "all")
     f1 = {}
@@ -3130,6 +3501,10 @@ def main():
     # 3i. the user examples (ROADMAP item 17), `examples_phase` above
     examples_rec = examples_phase(kernels, add)
 
+    # 3j. the large-array dense path: the wide K1-K3, `wide_dense_phase`
+    # above
+    wide_rec = wide_dense_phase(dev, card, kernels, errs, add)
+
     # 3d. the service over in-process meshes of 1 x 2 and 2 x 2 shards: the
     # dense, structured (K = 64, and the K = 256 spectra-native prior in two
     # component shards of 128, which K8 / K9 take whole) and factored banks
@@ -3915,6 +4290,21 @@ def main():
          "launches": total_launches["grouped_estimate_coherent_stats"],
          "max_abs_err": max(errs["grouped_estimate_coherent_stats"]),
          "t_coh": 4, "coh_alpha": 1.0, **t2c},
+        *({"name": name, "id": kid, "route": "cuda",
+           "source": src + "grouped_wide_estimate.cu",
+           "replaces": f"{tpu}:454", "launches": total_launches[name],
+           "max_abs_err": max(errs[name]), "widths": [512, 512],
+           "n_components": WIDE_K,
+           **({"t_coh": 4, "coh_alpha": 1.0} if "coherent" in name else {}),
+           **wide_rec["times"][name],
+           **({"at_widths": {k.split(" ", 1)[1]: v for k, v in
+                             wide_rec["times"].items() if " " in k}}
+              if name == "grouped_estimate_wide" else {})}
+          for name, kid in (("grouped_estimate_wide", "K1_wide"),
+                            ("grouped_estimate_coherent_wide", "K3_wide"),
+                            ("grouped_estimate_stats_wide", "K2_wide"),
+                            ("grouped_estimate_coherent_stats_wide",
+                             "K2_coh_wide"))),
         {"name": "grouped_estimate_topk", "id": "K4", "route": "cuda",
          "source": src + "grouped_topk.cu", "replaces": f"{tpu}:568",
          "launches": total_launches["grouped_estimate_topk"],
@@ -4058,12 +4448,14 @@ def main():
         "gmm_quant_frontier": frontier,
         "vae": vae_rec,
         "channel_models": models_rec,
+        "wide_dense": {k: v for k, v in wide_rec.items() if k != "times"},
         "new_phases_seconds": {"toeplitz": toep_s,
                                "mesh_service": mesh_serve_s,
                                "csi_free": quant_s,
                                "csi_free_frontier": frontier_s,
                                "vae": vae_rec["seconds"],
-                               "channel_models": models_rec["seconds"]},
+                               "channel_models": models_rec["seconds"],
+                               "wide_dense": wide_rec["seconds"]},
         "kernel_tools": {"seconds": tools_s, "launches": launches_tools,
                          "kernel_bench_ms": bench["ms"],
                          "split_bench": split},

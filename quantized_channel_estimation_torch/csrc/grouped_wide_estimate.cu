@@ -1,0 +1,527 @@
+// The wide form of the grouped online-softmax estimator for Hopper: K1,
+// its coherent mode K3 and their split-K stats form K2 at every width past
+// the wgmma stream of grouped_estimate.cu (2M or 2D > 256), up to 2M = 2048
+// and any 2D.
+//
+// Replaces, at those widths, the TPU kernels that
+// quantized_channel_estimation_tpu/estimators/pallas_kernels.py runs there:
+// `_estimate_kernel_block_grouped_stats` (:454, pallas_call :892), which
+// `estimate_fused` (:1026) splits the bank into K-chunks for
+// (`estimate_block_grouped_chunked` :963, `_stats_chunked` :934, merged by
+// `merge_stats`), `estimate_fused_stats` (:982) and the coherent
+// `_coherent_stats_merged` (:1076) run; and the whole-bank
+// `_estimate_kernel_block_grouped` (:419, pallas_call :536) where a wide
+// bank fits its VMEM budget. The function is that of grouped_estimate.cu
+// (see grouped_tc_stream.cuh): per row of r2 = [Re r | Im r] (N x 2M) and
+// component k, yz_k = r2 [P_k | W_k],
+//
+//   lg_nk = logw_k - |yz_k[:, :2M] - mu_k|^2     (K3: pooled over T rows)
+//   h2_n  = sum_k softmax_k(lg_nk) (yz_k[:, 2M:] + b_k)
+//
+// or, STATS, the state m_n = max_k lg_nk, den_n = sum_k exp(lg_nk - m_n),
+// acc_n = sum_k exp(lg_nk - m_n) (yz_k[:, 2M:] + b_k). Every product is
+// the stream's six bf16 products of three-plane splits accumulated in
+// fp32 on wgmma; everything after the products is fp32.
+//
+// Why a design of its own: the stream keeps each row's running output in
+// registers (2D / 64 pieces of 32 floats a thread) and r2's three planes
+// over the whole contraction in registers or shared memory. At 2D = 512
+// the output alone is 256 registers a thread; at 2M = 512 r2's planes for
+// 64 rows are 196 KB, and a ring stage of one piece's three B planes over
+// Kp = 512 contraction rows another 196 KB, against 227 KB a block.
+//
+// Design: one launch of three kernels on the stream.
+//   - `split_rows_kernel` splits r2 into its three bf16 planes, laid out as
+//     the bank's B slabs are: per 64-row tile and 64-wide contraction chunk
+//     one 8 KB run, K-major in the 128-byte swizzle, padding rows and
+//     columns zero (a tile holds floor(64 / T) whole blocks for K3);
+//   - every product is cut along the contraction into 64-deep chunks: a
+//     ring stage holds one chunk of r2's three planes for each of the two
+//     consumer warpgroups (48 KB) and the same chunk of two pieces' three B
+//     planes (48 KB), copied by one producer thread with cp.async.bulk; two
+//     stages (192 KB). A chunk of a piece is 6 x 4 wgmma m64n64k16 into
+//     fresh fp32 accumulators (the stream's order, hi.hi last), added to
+//     the piece's sum over the chunks in fp32;
+//   - pass 1 (`wide_kernel<1>`) streams each component's logit pieces, two
+//     at a time, with hi.hi in an accumulator of its own, sums each
+//     piece's squares |yz - mu|^2 as a tree a row and the pieces in a
+//     compensated sum, pools (K3, the stream's `pool_logits`) and writes
+//     each row's logits lg (N x K floats of scratch): K2's state before
+//     the combine. The logit of a 512- to 2048-deep product is a sum of
+//     hundreds of squares, each of them hundreds of products: one
+//     accumulator for all six products over every chunk, and a running
+//     sum of the squares, left the estimate up to 2.6x the plain float32
+//     version's error against float64 (the float32 claim allows 2x); as
+//     here, 0.6-1.1x (H100, 2M = 512 and 640);
+//   - pass 2 (`wide_kernel<2>`) splits the value columns over the grid's
+//     y: a block takes two value pieces (128 columns) of its rows, reads
+//     their logits, m and den, and for each component folds p = exp(lg -
+//     m) times (yz + b) of its two pieces into 64 registers a thread of
+//     output. The value half is computed once; no piece is recomputed.
+// Bound on an H100 (D = 256, K = 32, N = 32768, 2M = 2D = 512): six bf16
+// products 6 x 2 N 2M (2M + 2D) K = 6.6e12 operations, 6.67 ms at 989
+// TFLOP/s, plus 2 N K (2M + 2D) fp32 epilogue operations, 0.03 ms. Each
+// 128-row block reads the bank's three planes once (100.7 MB) and its rows'
+// planes once a piece pair; both come mostly from L2 when neighbouring
+// blocks stream the same pieces.
+// Any N and K, 2M <= 2048, any 2D; K3 any 2 <= T <= 64.
+#include "grouped_tc_stream.cuh"
+
+namespace {
+
+using namespace qce_tc;
+
+constexpr int kWgs = 2;     // consumer warpgroups a block, 64 rows each
+constexpr int kGroup = 2;   // pieces a ring stage
+constexpr int kStages = 2;
+constexpr int kPlanes = 3;  // hi, lo, lo2
+constexpr int kStageA = kWgs * kPlanes * kAtomBytes;          // 48 KB
+constexpr int kStageBytes = kStageA + kGroup * kPlanes * kAtomBytes;
+constexpr int kMaxTwoM = 2048;
+constexpr int kThreads = (kWgs + 1) * kWg;
+
+// r2 (n, two_m) -> its three bf16 planes a (plane stride `plane_units` 16-
+// byte units): tile i, chunk c is the 8 KB run at unit (i n_ch + c) 512,
+// row rr of the tile r2's row i wg_rows + rr (zero past wg_rows or n),
+// column c 64 + j at the 128-byte swizzle's place (zero past 2M). One
+// thread a 16-byte unit (8 columns of one row).
+__global__ void split_rows_kernel(const float* __restrict__ r2,
+                                  uint4* __restrict__ a, int n, int two_m,
+                                  int n_ch, int tiles, int wg_rows,
+                                  size_t plane_units) {
+  const size_t units = (size_t)tiles * n_ch * 512;
+  for (size_t u = (size_t)blockIdx.x * blockDim.x + threadIdx.x; u < units;
+       u += (size_t)gridDim.x * blockDim.x) {
+    const int kq = (int)(u & 7), rr = (int)((u >> 3) & 63);
+    const size_t tc = u >> 9;  // tile * n_ch + chunk
+    const int c = (int)(tc % n_ch), tile = (int)(tc / n_ch);
+    const int row = tile * wg_rows + rr;
+    const bool live = rr < wg_rows && row < n;
+    unsigned pl[3][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = c * 64 + kq * 8 + 2 * e;  // 2M is even
+      float2 x = make_float2(0.f, 0.f);
+      if (live && col < two_m)
+        x = __ldg(reinterpret_cast<const float2*>(r2 + (size_t)row * two_m +
+                                                   col));
+      unsigned w[3];
+      split3(x.x, x.y, w);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) pl[q][e] = w[q];
+    }
+    const size_t dst = tc * 512 + rr * 8 + (kq ^ (rr & 7));
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      a[q * plane_units + dst] = make_uint4(pl[q][0], pl[q][1], pl[q][2],
+                                            pl[q][3]);
+  }
+}
+
+struct WideArgs {
+  const uint4* a;  // r2's planes (split_rows_kernel)
+  const bf16* planes[3];
+  const float* vec;
+  const float* logw;
+  float* lg;  // (n, k_comp) logits: pass 1 writes, pass 2 reads
+  float* out;
+  float* m_out;
+  float* den_out;
+  int n, k_comp, two_m, two_d, n_ch, tiles, wg_rows, t_coh;
+  float alpha;
+  size_t plane_units;
+};
+
+// The pieces a block streams for each component: pass 1 the logit pieces
+// [0, mp), pass 2 the two value pieces mp + 2 y, + 1 of its column slice.
+template <int PASS>
+__device__ __forceinline__ void block_pieces(const WideArgs& g, int& j0,
+                                             int& j1) {
+  const int mp = g.n_ch, pieces = g.n_ch + (g.two_d + kPiece - 1) / kPiece;
+  j0 = PASS == 1 ? 0 : mp + kGroup * blockIdx.y;
+  j1 = PASS == 1 ? mp : min(j0 + kGroup, pieces);
+}
+
+// The producer: one thread copies, for each component, piece pair and
+// chunk, the chunk of both warpgroups' row planes and of the pieces' B
+// planes into the ring.
+template <int PASS>
+__device__ void produce_wide(const WideArgs& g, unsigned base,
+                             unsigned full0, unsigned empty0) {
+  int j0, j1;
+  block_pieces<PASS>(g, j0, j1);
+  const int pieces = g.n_ch + (g.two_d + kPiece - 1) / kPiece;
+  int s = 0, ph = 0;
+  for (int k = 0; k < g.k_comp; ++k)
+    for (int j = j0; j < j1; j += kGroup) {
+      const int gn = min(kGroup, j1 - j);
+      for (int c = 0; c < g.n_ch; ++c) {
+        const unsigned full = full0 + 8 * s;
+        mbar_wait(empty0 + 8 * s, ph ^ 1);
+        mbar_expect_tx(full, kStageA + gn * kPlanes * kAtomBytes);
+        const unsigned dst = base + s * kStageBytes;
+#pragma unroll
+        for (int w = 0; w < kWgs; ++w) {
+          const size_t run =
+              ((size_t)(blockIdx.x * kWgs + w) * g.n_ch + c) * 512;
+#pragma unroll
+          for (int p = 0; p < kPlanes; ++p)
+            bulk_copy(dst + (w * kPlanes + p) * kAtomBytes,
+                      g.a + p * g.plane_units + run, kAtomBytes, full);
+        }
+        for (int gp = 0; gp < gn; ++gp) {
+          const size_t off =
+              (((size_t)k * pieces + j + gp) * g.n_ch + c) * kAtomBytes;
+#pragma unroll
+          for (int p = 0; p < kPlanes; ++p)
+            bulk_copy(dst + kStageA + (gp * kPlanes + p) * kAtomBytes,
+                      reinterpret_cast<const char*>(g.planes[p]) + off,
+                      kAtomBytes, full);
+        }
+        if (++s == kStages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+}
+
+// Products [p0, p1) of one chunk in stage st, k16 steps [k0, k1), into
+// both pieces' accumulators, the first step of product p0 overwriting: the
+// stream's order (prod_a / prod_b, hi.hi last). A stage holding one piece
+// leaves acc[1] to a stale product nobody reads.
+template <int P0, int P1, int K0, int K1>
+__device__ __forceinline__ void issue_chunk(float (&acc)[kGroup][32],
+                                            unsigned st, int wg) {
+  const uint64_t da = sw128_desc(st + wg * kPlanes * kAtomBytes);
+  const uint64_t db = sw128_desc(st + kStageA);
+#pragma unroll
+  for (int p = P0; p < P1; ++p)
+#pragma unroll
+    for (int ks = K0; ks < K1; ++ks)
+#pragma unroll
+      for (int gp = 0; gp < kGroup; ++gp)
+        wgmma_64x64(acc[gp],
+                    step_desc(da + prod_a(6, p) * (kAtomBytes >> 4), ks),
+                    step_desc(db + (gp * kPlanes + prod_b(6, p)) *
+                                       (kAtomBytes >> 4),
+                              ks),
+                    p > P0 || ks > K0);
+}
+
+// A chunk's partial products f of the live pieces into their sums over
+// the chunks (`first`: the pieces' first chunk).
+__device__ __forceinline__ void fold(float (&sum)[kGroup][32],
+                                     const float (&f)[kGroup][32], int gn,
+                                     bool first) {
+#pragma unroll
+  for (int gp = 0; gp < kGroup; ++gp) {
+    if (gp >= gn) continue;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      sum[gp][i] = first ? f[gp][i] : sum[gp][i] + f[gp][i];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&x)[N][32]) {
+#pragma unroll
+  for (int gp = 0; gp < N; ++gp) fence_operand(x[gp]);
+}
+
+// The kernel. Pass 1 writes the (pooled) logits lg; pass 2 the output
+// columns of its slice (STATS: acc, and slice 0 m and den).
+template <int PASS, bool COH, bool STATS>
+__global__ void __launch_bounds__(kThreads, 1) wide_kernel(WideArgs g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const unsigned base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const unsigned full0 = base + kStages * kStageBytes;
+  const unsigned empty0 = full0 + 8 * kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kWgs * 4);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == kWgs) {  // the producer warpgroup: one thread streams
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == kWgs * kWg) produce_wide<PASS>(g, base, full0, empty0);
+    return;
+  }
+  setmaxnreg_inc<232>();
+
+  int j0, j1;
+  block_pieces<PASS>(g, j0, j1);
+  const int pieces = g.n_ch + (g.two_d + kPiece - 1) / kPiece;
+  const int lane = threadIdx.x & 31;
+  const int tile = blockIdx.x * kWgs + wg;
+  int row[2];
+  bool live[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row_in_wg() + 8 * r;
+    row[r] = tile * g.wg_rows + rr;
+    live[r] = rr < g.wg_rows && row[r] < g.n;
+  }
+
+  // pass 2: the rows' softmax state from their logits
+  float m[2] = {0.f, 0.f}, den[2] = {1.f, 1.f};
+  float o[kGroup][32];
+  if constexpr (PASS == 2) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!live[r]) continue;
+      const float* lr = g.lg + (size_t)row[r] * g.k_comp;
+      float mx = -INFINITY;
+      for (int k = 0; k < g.k_comp; ++k) mx = fmaxf(mx, __ldg(lr + k));
+      float sum = 0.f;
+      for (int k = 0; k < g.k_comp; ++k) sum += expf(__ldg(lr + k) - mx);
+      m[r] = mx;
+      den[r] = sum;
+    }
+#pragma unroll
+    for (int gp = 0; gp < kGroup; ++gp)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[gp][i] = 0.f;
+  }
+  const Epi ep{g.logw, g.n_ch, pieces, g.t_coh, g.alpha, 0.f,
+               empty0 + 8 * kStages};
+
+  // a chunk's products: pass 1 the five small ones in acc and hi.hi in hh,
+  // each fresh (the logits' accuracy, see the design note); pass 2 all
+  // six in acc
+  float acc[kGroup][32], hh[kGroup][32], sum[kGroup][32];
+  int s = 0, ph = 0;
+  for (int k = 0; k < g.k_comp; ++k) {
+    // pass 1: the rows' quadratic terms, a compensated sum of the pieces'
+    float q[2] = {0.f, 0.f}, qc[2] = {0.f, 0.f}, p[2] = {0.f, 0.f};
+    if constexpr (PASS == 2) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (live[r])
+          p[r] = expf(__ldg(g.lg + (size_t)row[r] * g.k_comp + k) - m[r]);
+    }
+    for (int j = j0; j < j1; j += kGroup) {
+      const int gn = min(kGroup, j1 - j);
+      for (int c = 0; c < g.n_ch; ++c) {
+        const unsigned st = base + s * kStageBytes;
+        mbar_wait(full0 + 8 * s, ph);
+        wgmma_fence();
+        fence_all(acc);
+        if constexpr (PASS == 1) {
+          fence_all(hh);
+          issue_chunk<0, 5, 0, 4>(acc, st, wg);
+          issue_chunk<5, 6, 0, 4>(hh, st, wg);
+        } else {
+          issue_chunk<0, 6, 0, 4>(acc, st, wg);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_all(acc);
+        warp_arrive(empty0 + 8 * s);  // the products have read the stage
+        if (++s == kStages) {
+          s = 0;
+          ph ^= 1;
+        }
+        fold(sum, acc, gn, c == 0);
+        if constexpr (PASS == 1) {
+          fence_all(hh);
+          fold(sum, hh, gn, false);
+        }
+      }
+      // the pieces' epilogues: this lane's columns 8 t + 2 (lane % 4) +
+      // {0, 1} of each piece, its rows lane / 4 and + 8 of its warp's 16
+#pragma unroll
+      for (int gp = 0; gp < kGroup; ++gp) {
+        if (gp >= gn) continue;
+        const float* v = g.vec + ((size_t)k * pieces + j + gp) * kPiece +
+                         2 * (lane & 3);
+        float sq[2][16];  // pass 1: the piece's squares, a row's 16 columns
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const float2 vv = __ldg(reinterpret_cast<const float2*>(v + 8 * t));
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int i = 4 * t + 2 * r + h;
+              const float vc = h ? vv.y : vv.x;  // padding: 0
+              if constexpr (PASS == 1) {
+                const float dv = sum[gp][i] - vc;
+                sq[r][2 * t + h] = dv * dv;
+              } else {
+                o[gp][i] = fmaf(p[r], sum[gp][i] + vc, o[gp][i]);
+              }
+            }
+        }
+        if constexpr (PASS == 1) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {  // Kahan: q + the piece's tree sum
+            const float y = tree_sum<16>(sq[r]) - qc[r];
+            const float nq = q[r] + y;
+            qc[r] = (nq - q[r]) - y;
+            q[r] = nq;
+          }
+        }
+      }
+    }
+    if constexpr (PASS == 1) {  // the rows' logits of component k
+      const float lw = __ldg(g.logw + k);
+      float lg[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float qq = q[r];
+        qq += __shfl_xor_sync(0xffffffffu, qq, 1);
+        qq += __shfl_xor_sync(0xffffffffu, qq, 2);
+        lg[r] = lw - qq;
+      }
+      if constexpr (COH) pool_logits(lg, ep);
+      if ((lane & 3) == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (live[r]) g.lg[(size_t)row[r] * g.k_comp + k] = lg[r];
+      }
+    }
+  }
+
+  if constexpr (PASS == 2) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!live[r]) continue;
+      float* orow = g.out + (size_t)row[r] * g.two_d;
+#pragma unroll
+      for (int gp = 0; gp < kGroup; ++gp)
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int col = (j0 - g.n_ch + gp) * kPiece + 8 * t +
+                          2 * (lane & 3);  // even
+          if (col < g.two_d) {
+            const float x0 = o[gp][4 * t + 2 * r];
+            const float x1 = o[gp][4 * t + 2 * r + 1];
+            *reinterpret_cast<float2*>(orow + col) =
+                STATS ? make_float2(x0, x1)
+                      : make_float2(x0 / den[r], x1 / den[r]);
+          }
+        }
+      if constexpr (STATS) {
+        if (blockIdx.y == 0 && (lane & 3) == 0) {
+          g.m_out[row[r]] = m[r];
+          g.den_out[row[r]] = den[r];
+        }
+      }
+    }
+  }
+}
+
+template <int PASS, bool COH, bool STATS>
+int launch_pass(const WideArgs& g, int pairs, int slices,
+                cudaStream_t stream) {
+  const size_t smem =
+      1024 + (size_t)kStages * (kStageBytes + 16) + (COH ? kWgs * 64 * 4 : 0);
+  auto kern = wide_kernel<PASS, COH, STATS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(pairs, slices), kThreads, smem, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+int split_rows(const float* r2, void* a, int n, int two_m, int n_ch,
+               int tiles, int wg_rows, cudaStream_t stream) {
+  const size_t units = (size_t)tiles * n_ch * 512;
+  const int grid = (int)((units + 255) / 256 < 65535 ? (units + 255) / 256
+                                                     : 65535);
+  split_rows_kernel<<<grid, 256, 0, stream>>>(
+      r2, static_cast<uint4*>(a), n, two_m, n_ch, tiles, wg_rows, units);
+  return (int)cudaGetLastError();
+}
+
+// 64-row tiles of n rows (floor(64 / T) whole blocks a tile for K3),
+// rounded up to whole blocks of kWgs tiles: what the scratch a holds.
+int row_tiles(int n, int wg_rows) {
+  const int tiles = (n + wg_rows - 1) / wg_rows;
+  return (tiles + kWgs - 1) / kWgs * kWgs;
+}
+
+}  // namespace
+
+// C entry points, loaded with ctypes. Each returns a cudaError_t (0 on
+// success).
+
+// r2 (n, two_m) -> its three bf16 planes in a: (3, tiles, n_ch, 64, 64)
+// bf16, tiles = `kernels.wide_row_tiles(n, t_coh)`: the layout passes 1
+// and 2 stream, the first kernel of `grouped_wide_launch`
+// (`kernels.wide_row_planes` is its plain version).
+extern "C" int grouped_wide_split_launch(const float* r2, void* a, int n,
+                                         int two_m, int t_coh, void* stream) {
+  if (n < 1 || two_m < 2 || two_m % 2 || two_m > kMaxTwoM || t_coh < 1 ||
+      t_coh > 64)
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(r2) % 8)
+    return (int)cudaErrorMisalignedAddress;
+  const int wg_rows = t_coh > 1 ? 64 / t_coh * t_coh : 64;
+  return split_rows(r2, a, n, two_m, (two_m + 63) / 64, row_tiles(n, wg_rows),
+                    wg_rows, static_cast<cudaStream_t>(stream));
+}
+
+// K1 (t_coh = 1), K3 (t_coh > 1) and, with stats != 0, K2 (flat and
+// coherent) at any width: r2 (n, two_m); slab_hi / lo / lo2 and vec the
+// bank's `tc_operands`; logw (k_comp); out (n, two_d) (STATS: acc); m_out,
+// den_out (n) for STATS; scratch: a (3, tiles, n_ch, 64, 64) bf16 (see
+// `grouped_wide_split_launch`), lg (n, k_comp) fp32. n / t_coh whole blocks
+// of t_coh consecutive rows, 1 <= t_coh <= 64.
+extern "C" int grouped_wide_launch(const float* r2, const void* slab_hi,
+                                   const void* slab_lo, const void* slab_lo2,
+                                   const float* vec, const float* logw,
+                                   float* out, float* m_out, float* den_out,
+                                   void* a, float* lg, int n, int k_comp,
+                                   int two_m, int two_d, int t_coh,
+                                   float alpha, int stats, void* stream) {
+  if (n < 0 || k_comp < 1 || two_m < 2 || two_m % 2 || two_m > kMaxTwoM ||
+      two_d < 2 || two_d % 2 || t_coh < 1 || t_coh > 64 || n % t_coh)
+    return (int)cudaErrorInvalidValue;
+  const void* planes[3] = {slab_hi, slab_lo, slab_lo2};
+  for (const void* p : planes)
+    if (reinterpret_cast<uintptr_t>(p) % 16)
+      return (int)cudaErrorMisalignedAddress;
+  if (reinterpret_cast<uintptr_t>(vec) % 8)
+    return (int)cudaErrorMisalignedAddress;
+  if (n == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (int err = grouped_wide_split_launch(r2, a, n, two_m, t_coh, stream))
+    return err;
+  const int wg_rows = t_coh > 1 ? 64 / t_coh * t_coh : 64;
+  const int n_ch = (two_m + 63) / 64, tiles = row_tiles(n, wg_rows);
+  const int dp = (two_d + kPiece - 1) / kPiece;
+  WideArgs g{static_cast<const uint4*>(a),
+             {static_cast<const bf16*>(slab_hi),
+              static_cast<const bf16*>(slab_lo),
+              static_cast<const bf16*>(slab_lo2)},
+             vec,
+             logw,
+             lg,
+             out,
+             m_out,
+             den_out,
+             n,
+             k_comp,
+             two_m,
+             two_d,
+             n_ch,
+             tiles,
+             wg_rows,
+             t_coh,
+             alpha,
+             (size_t)tiles * n_ch * 512};
+  const int pairs = tiles / kWgs, slices = (dp + kGroup - 1) / kGroup;
+  int err = t_coh > 1 ? launch_pass<1, true, false>(g, pairs, 1, st)
+                      : launch_pass<1, false, false>(g, pairs, 1, st);
+  if (err) return err;
+  return stats ? launch_pass<2, false, true>(g, pairs, slices, st)
+               : launch_pass<2, false, false>(g, pairs, slices, st);
+}

@@ -21,6 +21,13 @@ dense-bank part: the block-GEMM bank layout (`KernelBankBlock`,
   and `estimate_fused_coherent_stats`): the
   un-normalised online-softmax state (m, den, acc) of a component shard,
   which `merge_stats` merges exactly, in the same file (`STATS`);
+- the wide form of K1, K2 and K3 (`csrc/grouped_wide_estimate.cu`, the
+  wrappers `grouped_estimate_wide` and its coherent and stats siblings),
+  which the same wrappers launch past the stream's widths (2M or 2D >
+  256, up to 2M = 2048, any 2D; `fused_kernel_eligible`): the same six
+  bf16 products, cut into 64-deep contraction chunks, in two passes (the
+  logits, then the value half split over column slices), where JAX runs
+  its split-K chunked kernel K2 (`estimate_block_grouped_chunked`);
 - K4, the top-k selection estimator (`_grouped_stream_topk` +
   `_estimate_kernel_block_grouped_topk`, entry `estimate_fused_topk`) in
   `csrc/grouped_topk.cu`, and K5, its split-K stats form
@@ -75,7 +82,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-MAX_WIDTH = 256      # 2M and 2D of every kernel
+TC_MAX_WIDTH = 256      # 2M and 2D of the wgmma stream (grouped_estimate.cu)
+WIDE_MAX_TWO_M = 2048   # 2M of the wide form (grouped_wide_estimate.cu)
+TOPK_MAX_WIDTH = 256    # 2M and 2D of K4 / K5 (grouped_topk.cu)
 TOPK_KERNEL_MAX = 8  # K4's top-k slots a row
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -149,6 +158,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.grouped_estimate_coherent_stats_launch.argtypes = (
             [ptr] * 9 + [i32] * 5 + [f32, ptr])
         lib.grouped_estimate_coherent_stats_launch.restype = i32
+    elif name == "grouped_wide_estimate":
+        lib.grouped_wide_launch.argtypes = [ptr] * 11 + [i32] * 5 + [
+            f32, i32, ptr]
+        lib.grouped_wide_launch.restype = i32
+        lib.grouped_wide_split_launch.argtypes = [ptr] * 2 + [i32] * 3 + [ptr]
+        lib.grouped_wide_split_launch.restype = i32
     elif name == "grouped_topk":
         lib.grouped_topk_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
         lib.grouped_topk_launch.restype = i32
@@ -175,11 +190,30 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
 
 
 def fused_kernel_eligible(d: int, m: int) -> bool:
-    """Can the dense kernels (K1-K5) take a bank of channel dim D and
-    observation dim M? 2M, 2D <= `MAX_WIDTH`, any K. A rule of the shapes,
-    decided before any launch; past it the stages take the einsum
-    estimator."""
-    return 1 <= 2 * m <= MAX_WIDTH and 1 <= 2 * d <= MAX_WIDTH
+    """Can the dense estimation kernels K1-K3 (and K2) take a bank of
+    channel dim D and observation dim M? 2M <= `WIDE_MAX_TWO_M` (2048), any
+    D and K: the wgmma stream up to 2M, 2D <= 256, its wide form past it
+    (`wide_form`). A rule of the shapes, decided before any launch; past it
+    the stages take the einsum estimator. It admits every (M, D, K, T) for
+    which JAX's `estimate_fused`, `estimate_fused_stats` and
+    `estimate_fused_coherent` run a Pallas kernel: 4 2M (2M + 2D) bytes a
+    component, K of them within 13 MiB for the whole bank or four within
+    the 8-10 MiB chunk budget (`pallas_kernels.py:1043-1060`), so 2M <=
+    1842 at K = 1 and <= 922 from K = 4.
+    K4 / K5 keep their own widths (`topk_width_eligible`)."""
+    return 1 <= 2 * m <= WIDE_MAX_TWO_M and d >= 1
+
+
+def wide_form(two_m: int, two_d: int) -> bool:
+    """Does a launch at these widths take the wide form
+    (`csrc/grouped_wide_estimate.cu`)? Past the stream's 2M, 2D <= 256."""
+    return two_m > TC_MAX_WIDTH or two_d > TC_MAX_WIDTH
+
+
+def topk_width_eligible(d: int, m: int) -> bool:
+    """Can the top-k kernels K4 / K5 take a bank of channel dim D and
+    observation dim M? 2M, 2D <= `TOPK_MAX_WIDTH` (256), any K."""
+    return 1 <= 2 * m <= TOPK_MAX_WIDTH and 1 <= 2 * d <= TOPK_MAX_WIDTH
 
 
 def tile_rows(two_m: int, two_d: int) -> int:
@@ -640,13 +674,20 @@ def _check_cuda(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_inputs(kernel: str, r2: torch.Tensor, kb: KernelBankBlock):
-    """Validate a CUDA launch's inputs; returns (n, K, 2M, 2D)."""
+def _check_inputs(kernel: str, r2: torch.Tensor, kb: KernelBankBlock,
+                  max_width: Optional[int] = None):
+    """Validate a CUDA launch's inputs, for a kernel that takes only 2M,
+    2D <= `max_width` (K4 / K5, K14b) or K1-K3's widths (None); returns
+    (n, K, 2M, 2D)."""
     n, two_m = r2.shape
     k_comp, _, s_cols = kb.pw.shape
     two_d = s_cols - two_m
-    if not (1 <= two_m <= MAX_WIDTH and 1 <= two_d <= MAX_WIDTH):
-        raise ValueError(f"{kernel} takes 2M, 2D <= {MAX_WIDTH}; got "
+    if max_width is not None and not (1 <= two_m <= max_width
+                                      and 1 <= two_d <= max_width):
+        raise ValueError(f"{kernel} takes 2M, 2D <= {max_width}; got "
+                         f"2M={two_m}, 2D={two_d}")
+    if not fused_kernel_eligible(two_d // 2, two_m // 2):
+        raise ValueError(f"{kernel} takes 2M <= {WIDE_MAX_TWO_M}; got "
                          f"2M={two_m}, 2D={two_d}")
     dev = r2.device
     _check_cuda("r2", r2, (n, two_m), dev)
@@ -717,12 +758,16 @@ def grouped_estimate(r2: torch.Tensor, kb: KernelBankBlock,
                      ops: Optional[TcOperands] = None) -> torch.Tensor:
     """K1 on r2 (N, 2M) float32 -> (N, 2D) float32; ops: `tc_operands(kb)`
     (`lowered_tc` keeps them beside a bank; laid out in the call when
-    None). On a CUDA tensor it launches the CUDA kernel (2M and 2D at most
-    256) on the current stream and raises on any refusal; on a CPU tensor
-    it computes the plain version."""
+    None). On a CUDA tensor it launches the CUDA kernel on the current
+    stream (past 2M, 2D <= 256 its wide form, `grouped_estimate_wide`) and
+    raises on any refusal; on a CPU tensor it computes the plain
+    version."""
     if not r2.is_cuda:
         return grouped_estimate_reference(r2, kb)
     n, k_comp, two_m, two_d = _check_inputs("grouped_estimate", r2, kb)
+    if wide_form(two_m, two_d):
+        return _launch_wide(grouped_estimate_wide, r2, kb, ops,
+                            dims=(n, k_comp, two_m, two_d))
     out = torch.empty((n, two_d), dtype=torch.float32, device=r2.device)
     if n == 0:
         return out
@@ -740,13 +785,17 @@ def grouped_estimate_coherent(r2: torch.Tensor, kb: KernelBankBlock,
     """K3 on r2 (N, 2M) float32, N / T blocks of T consecutive rows ->
     (N, 2D) float32, kb from `kernel_bank_block(bank, t_coh, coh_alpha)`,
     ops as for `grouped_estimate`. On a CUDA tensor it launches the CUDA
-    kernel (2 <= T <= `tile_rows`) on the current stream and raises on any
-    refusal; on a CPU tensor it computes the plain version."""
+    kernel (2 <= T <= `tile_rows`; past 2M, 2D <= 256 its wide form,
+    `grouped_estimate_coherent_wide`) on the current stream and raises on
+    any refusal; on a CPU tensor it computes the plain version."""
     if not r2.is_cuda:
         return grouped_estimate_coherent_reference(r2, kb, t_coh, coh_alpha)
     n, k_comp, two_m, two_d = _check_inputs("grouped_estimate_coherent",
                                             r2, kb)
     _check_coherent("grouped_estimate_coherent", n, two_m, two_d, t_coh)
+    if wide_form(two_m, two_d):
+        return _launch_wide(grouped_estimate_coherent_wide, r2, kb, ops,
+                            t_coh, coh_alpha, dims=(n, k_comp, two_m, two_d))
     out = torch.empty((n, two_d), dtype=torch.float32, device=r2.device)
     if n == 0:
         return out
@@ -777,12 +826,16 @@ def grouped_estimate_stats(r2: torch.Tensor, kb: KernelBankBlock,
                            ops: Optional[TcOperands] = None):
     """K2 on r2 (N, 2M) float32 -> (m (N,), den (N,), acc (N, 2D)), the
     un-normalised state of K1 over this (shard of a) bank; ops as for
-    `grouped_estimate`. On a CUDA tensor it launches the CUDA kernel (2M
-    and 2D at most 256) on the current stream and raises on any refusal;
-    on a CPU tensor it computes the plain version."""
+    `grouped_estimate`. On a CUDA tensor it launches the CUDA kernel (past
+    2M, 2D <= 256 its wide form, `grouped_estimate_stats_wide`) on the
+    current stream and raises on any refusal; on a CPU tensor it computes
+    the plain version."""
     if not r2.is_cuda:
         return grouped_estimate_stats_reference(r2, kb)
     n, k_comp, two_m, two_d = _check_inputs("grouped_estimate_stats", r2, kb)
+    if wide_form(two_m, two_d):
+        return _launch_wide(grouped_estimate_stats_wide, r2, kb, ops,
+                            stats=True, dims=(n, k_comp, two_m, two_d))
     acc, m, den = _stats_outputs(n, two_d, r2.device)
     if n == 0:
         return m, den, acc
@@ -800,14 +853,19 @@ def grouped_estimate_coherent_stats(r2: torch.Tensor, kb: KernelBankBlock,
     rows, kb from `kernel_bank_block(bank, t_coh, coh_alpha)`, ops as for
     `grouped_estimate` -> K3's state per row (m (N,), den (N,), acc (N,
     2D)). On a CUDA tensor it launches the CUDA kernel (2 <= T <=
-    `tile_rows`) on the current stream and raises on any refusal; on a CPU
-    tensor it computes the plain version."""
+    `tile_rows`; past 2M, 2D <= 256 its wide form,
+    `grouped_estimate_coherent_stats_wide`) on the current stream and
+    raises on any refusal; on a CPU tensor it computes the plain version."""
     if not r2.is_cuda:
         return grouped_estimate_coherent_stats_reference(r2, kb, t_coh,
                                                          coh_alpha)
     n, k_comp, two_m, two_d = _check_inputs(
         "grouped_estimate_coherent_stats", r2, kb)
     _check_coherent("grouped_estimate_coherent_stats", n, two_m, two_d, t_coh)
+    if wide_form(two_m, two_d):
+        return _launch_wide(grouped_estimate_coherent_stats_wide, r2, kb, ops,
+                            t_coh, coh_alpha, stats=True,
+                            dims=(n, k_comp, two_m, two_d))
     acc, m, den = _stats_outputs(n, two_d, r2.device)
     if n == 0:
         return m, den, acc
@@ -828,7 +886,8 @@ def grouped_estimate_topk(r2: torch.Tensor, kb: KernelBankBlock,
     version."""
     if not r2.is_cuda:
         return grouped_estimate_topk_reference(r2, kb, k_sel)
-    n, k_comp, two_m, two_d = _check_inputs("grouped_estimate_topk", r2, kb)
+    n, k_comp, two_m, two_d = _check_inputs("grouped_estimate_topk", r2, kb,
+                                            max_width=TOPK_MAX_WIDTH)
     if not 1 <= k_sel <= min(TOPK_KERNEL_MAX, k_comp):
         raise ValueError(f"grouped_estimate_topk takes 1 <= k <= "
                          f"min({TOPK_KERNEL_MAX}, K={k_comp}); got {k_sel}")
@@ -857,7 +916,7 @@ def grouped_estimate_topk_stats(r2: torch.Tensor, kb: KernelBankBlock,
     if not r2.is_cuda:
         return grouped_estimate_topk_stats_reference(r2, kb, k_sel)
     n, k_comp, two_m, two_d = _check_inputs("grouped_estimate_topk_stats",
-                                            r2, kb)
+                                            r2, kb, max_width=TOPK_MAX_WIDTH)
     if not 1 <= k_sel <= TOPK_KERNEL_MAX:
         raise ValueError(f"grouped_estimate_topk_stats takes 1 <= k <= "
                          f"{TOPK_KERNEL_MAX}; got {k_sel}")
@@ -873,6 +932,151 @@ def grouped_estimate_topk_stats(r2: torch.Tensor, kb: KernelBankBlock,
     return l_out, z_out
 
 
+# ---------------------------------------------------------------------------
+# the wide form of K1-K3 (csrc/grouped_wide_estimate.cu)
+# ---------------------------------------------------------------------------
+
+def _wide_rows(t_coh: int) -> int:
+    """Rows of r2 in one 64-row tile of the wide form: floor(64 / T) whole
+    blocks for K3."""
+    return 64 // t_coh * t_coh if t_coh > 1 else 64
+
+
+def wide_row_tiles(n: int, t_coh: int = 1) -> int:
+    """64-row tiles of the wide form's row planes for n rows, rounded up to
+    the two tiles of a block (the kernel's `row_tiles`)."""
+    tiles = -(-n // _wide_rows(t_coh))
+    return -(-tiles // 2) * 2
+
+
+def wide_row_planes(r2: torch.Tensor, t_coh: int = 1) -> torch.Tensor:
+    """r2 (N, 2M) float32 -> its three bf16 planes (`split_planes3`) as the
+    wide form streams them: (3, tiles, Kp / 64, 64, 64), per 64-row tile
+    (`wide_row_tiles`; tile i holds rows i w .. i w + w - 1, w = 64 or
+    floor(64 / T) T) and 64-wide contraction chunk the tile's 64 rows x 64
+    columns in the 128-byte swizzle (`_sw128`), as `tc_slab` lays out the
+    bank; padding rows and columns zero. On a CUDA tensor it launches the
+    wide form's first kernel (`grouped_wide_split_launch`; uncounted: the
+    wide wrappers count their launch), on a CPU tensor it computes this
+    plain version."""
+    n, two_m = r2.shape
+    n_ch = -(-two_m // TC_PIECE)
+    tiles = wide_row_tiles(n, t_coh)
+    if r2.is_cuda:
+        _check_cuda("r2", r2, (n, two_m), r2.device)
+        a = torch.empty((3, tiles, n_ch, TC_PIECE, TC_PIECE),
+                        dtype=torch.bfloat16, device=r2.device)
+        if n == 0:
+            return a.zero_()
+        with torch.cuda.device(r2.device):
+            stream = torch.cuda.current_stream(r2.device).cuda_stream
+            err = _library("grouped_wide_estimate").grouped_wide_split_launch(
+                r2.data_ptr(), a.data_ptr(), n, two_m, int(t_coh), stream)
+        if err != 0:
+            raise RuntimeError(f"grouped_wide_split launch failed: "
+                               f"cudaError {err}")
+        return a
+    w = _wide_rows(t_coh)
+    x = r2.new_zeros((tiles, TC_PIECE, n_ch * TC_PIECE))
+    idx = torch.arange(n, device=r2.device)
+    x[idx // w, idx % w, :two_m] = r2
+    x = x.reshape(tiles, TC_PIECE, n_ch, TC_PIECE).permute(0, 2, 1, 3)
+    return torch.stack([_sw128(p) for p in split_planes3(x)]).contiguous()
+
+
+def _launch_wide(wrapper, r2: torch.Tensor, kb: KernelBankBlock,
+                 ops: Optional[TcOperands], t_coh: int = 1,
+                 coh_alpha: float = 1.0, stats: bool = False, dims=None):
+    """Launch the wide form (split, pass 1, pass 2) on r2's device and
+    current stream and add one to `wrapper`'s count: -> the output (N, 2D),
+    or with `stats` (m (N,), den (N,), acc (N, 2D)); raise on a cudaError.
+    dims: (N, K, 2M, 2D) from a caller that has checked the inputs, else
+    None (checked here)."""
+    kernel = wrapper.__name__
+    if dims is None:
+        dims = _check_inputs(kernel, r2, kb)
+        if t_coh > 1:
+            _check_coherent(kernel, dims[0], dims[2], dims[3], t_coh)
+    n, k_comp, two_m, two_d = dims
+    dev = r2.device
+    if stats:
+        out, m, den = _stats_outputs(n, two_d, dev)
+    else:
+        out = torch.empty((n, two_d), dtype=torch.float32, device=dev)
+        m = den = None
+    result = (m, den, out) if stats else out
+    if n == 0:
+        return result
+    if ops is None:
+        ops = tc_operands(kb)
+    check_tc_operands(kernel, ops, kb, dev)
+    a = torch.empty((3, wide_row_tiles(n, t_coh), -(-two_m // TC_PIECE),
+                     TC_PIECE, TC_PIECE), dtype=torch.bfloat16, device=dev)
+    lg = torch.empty((n, k_comp), dtype=torch.float32, device=dev)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library("grouped_wide_estimate").grouped_wide_launch(
+            r2.data_ptr(), ops.hi.data_ptr(), ops.lo.data_ptr(),
+            ops.lo2.data_ptr(), ops.vec.data_ptr(), kb.logw.data_ptr(),
+            out.data_ptr(), ptr(m), ptr(den), a.data_ptr(), lg.data_ptr(),
+            n, k_comp, two_m, two_d, int(t_coh), float(coh_alpha),
+            int(stats), stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+    wrapper.launches += 1
+    return result
+
+
+def grouped_estimate_wide(r2: torch.Tensor, kb: KernelBankBlock,
+                          ops: Optional[TcOperands] = None) -> torch.Tensor:
+    """K1's wide form on r2 (N, 2M) float32 -> (N, 2D) float32, ops as for
+    `grouped_estimate` (which launches it past 2M, 2D <= 256). On a CUDA
+    tensor it launches the CUDA kernels (2M <= 2048, any 2D) on the
+    current stream and raises on any refusal; on a CPU tensor it computes
+    the plain version (`grouped_estimate_reference`)."""
+    if not r2.is_cuda:
+        return grouped_estimate_reference(r2, kb)
+    return _launch_wide(grouped_estimate_wide, r2, kb, ops)
+
+
+def grouped_estimate_coherent_wide(r2: torch.Tensor, kb: KernelBankBlock,
+                                   t_coh: int, coh_alpha: float = 1.0,
+                                   ops: Optional[TcOperands] = None
+                                   ) -> torch.Tensor:
+    """K3's wide form: `grouped_estimate_coherent` (which launches it past
+    2M, 2D <= 256) at any width up to 2M = 2048, 2 <= T <= 64. On a CPU
+    tensor the plain version."""
+    if not r2.is_cuda:
+        return grouped_estimate_coherent_reference(r2, kb, t_coh, coh_alpha)
+    return _launch_wide(grouped_estimate_coherent_wide, r2, kb, ops, t_coh,
+                        coh_alpha)
+
+
+def grouped_estimate_stats_wide(r2: torch.Tensor, kb: KernelBankBlock,
+                                ops: Optional[TcOperands] = None):
+    """K2's wide form: `grouped_estimate_stats` (which launches it past
+    2M, 2D <= 256) at any width up to 2M = 2048 -> (m (N,), den (N,), acc
+    (N, 2D)). On a CPU tensor the plain version."""
+    if not r2.is_cuda:
+        return grouped_estimate_stats_reference(r2, kb)
+    return _launch_wide(grouped_estimate_stats_wide, r2, kb, ops, stats=True)
+
+
+def grouped_estimate_coherent_stats_wide(r2: torch.Tensor,
+                                         kb: KernelBankBlock, t_coh: int,
+                                         coh_alpha: float = 1.0,
+                                         ops: Optional[TcOperands] = None):
+    """K2's coherent wide form: `grouped_estimate_coherent_stats` (which
+    launches it past 2M, 2D <= 256) at any width up to 2M = 2048, 2 <= T
+    <= 64. On a CPU tensor the plain version."""
+    if not r2.is_cuda:
+        return grouped_estimate_coherent_stats_reference(r2, kb, t_coh,
+                                                         coh_alpha)
+    return _launch_wide(grouped_estimate_coherent_stats_wide, r2, kb, ops,
+                        t_coh, coh_alpha, stats=True)
+
+
 _WRAPPERS: list = []
 
 
@@ -886,7 +1090,10 @@ def register_wrappers(*fns) -> None:
 
 register_wrappers(grouped_estimate, grouped_estimate_coherent,
                   grouped_estimate_topk, grouped_estimate_stats,
-                  grouped_estimate_coherent_stats, grouped_estimate_topk_stats)
+                  grouped_estimate_coherent_stats, grouped_estimate_topk_stats,
+                  grouped_estimate_wide, grouped_estimate_coherent_wide,
+                  grouped_estimate_stats_wide,
+                  grouped_estimate_coherent_stats_wide)
 
 
 def reset_launch_counts() -> None:
@@ -998,12 +1205,12 @@ def topk_mode_eligible(d: int, k_comp: int, m: int, k_sel) -> bool:
     """Can K4 serve selection mode `k_sel` for a bank of K components,
     channel dim D and observation dim M? An int (not a bool)
     1 <= k <= min(8, K - 1) (k = K is the 'all' combine), and
-    2M, 2D <= 256. Dims-based, so a service can decide before any bank
-    exists."""
+    2M, 2D <= 256 (`topk_width_eligible`). Dims-based, so a service can
+    decide before any bank exists."""
     if not isinstance(k_sel, int) or isinstance(k_sel, bool):
         return False
     return (1 <= k_sel <= min(TOPK_KERNEL_MAX, k_comp - 1)
-            and fused_kernel_eligible(d, m))
+            and topk_width_eligible(d, m))
 
 
 def topk_kernel_eligible(bank: PreparedBank, k_sel) -> bool:
@@ -1022,7 +1229,8 @@ def estimate_fused_topk(bank: PreparedBank, r: torch.Tensor, k_sel: int,
         k_comp = bank.filters.shape[0]
         raise ValueError(
             f"top-k kernel needs an int 1 <= k <= min({TOPK_KERNEL_MAX}, "
-            f"K-1) and 2M, 2D <= {MAX_WIDTH} (got k={k_sel!r}, K={k_comp})")
+            f"K-1) and 2M, 2D <= {TOPK_MAX_WIDTH} (got k={k_sel!r}, "
+            f"K={k_comp})")
     h2 = grouped_estimate_topk(_r2(r), lowered(bank, cache), int(k_sel))
     return _h(h2, bank.filters.shape[1], r.dtype)
 
@@ -1033,11 +1241,11 @@ def estimate_fused_topk_stats(bank: PreparedBank, r: torch.Tensor, k_sel: int,
     logits l (N, k_sel) sorted descending and estimates z (N, k_sel, 2D)
     real-packed [Re | Im]; `merge_topk` of the shards' candidates in
     component order is `estimate_fused_topk` over the whole bank. Raises
-    past `fused_kernel_eligible` or outside 1 <= k_sel <= 8. `cache`: see
+    past `topk_width_eligible` or outside 1 <= k_sel <= 8. `cache`: see
     `lowered`."""
     _, d, m = bank.filters.shape
-    if not fused_kernel_eligible(d, m):
+    if not topk_width_eligible(d, m):
         raise ValueError(f"the top-k stats kernel takes 2M, 2D <= "
-                         f"{MAX_WIDTH}; got M={m}, D={d}")
+                         f"{TOPK_MAX_WIDTH}; got M={m}, D={d}")
     return grouped_estimate_topk_stats(_r2(r), lowered(bank, cache),
                                        int(k_sel))

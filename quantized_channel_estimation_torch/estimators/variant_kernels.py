@@ -416,7 +416,8 @@ def _grouped_tc(r2: torch.Tensor, kb: kernels.KernelBankBlock, planes,
     `kernels.tc_operands(kb)`, laid out here when None."""
     if not r2.is_cuda:
         return grouped_tc_estimate_reference(r2, kb, planes, passes)
-    n, k_comp, two_m, two_d = kernels._check_inputs(wrapper.__name__, r2, kb)
+    n, k_comp, two_m, two_d = kernels._check_inputs(
+        wrapper.__name__, r2, kb, kernels.TC_MAX_WIDTH)
     for name, p in zip(("pw_hi", "pw_lo"), planes):
         if (p.device != r2.device or p.dtype != torch.bfloat16
                 or tuple(p.shape) != tuple(kb.pw.shape)

@@ -288,16 +288,17 @@ class EstimationService:
                     f"range (got mode={mode!r}, D={d}, K={k_comp}, P={p})")
         else:
             kernel_ok = (kernels.fused_kernel_eligible(d, m)
-                         and (mode == "all" or kernels.topk_mode_eligible(
-                             d, k_comp, m, mode)))
+                         if mode == "all" else kernels.topk_mode_eligible(
+                             d, k_comp, m, mode))
             if use_kernels and not kernel_ok:
                 # the kernels compute the 'all' combine and int top-k
                 # selections; serving 'all' results for another mode would
                 # be wrong answers, not slow ones
                 raise ValueError(
-                    "use_kernels=True requires mode='all' or an int top-k "
-                    f"mode with 1 <= k <= min({kernels.TOPK_KERNEL_MAX}, "
-                    f"K-1), and 2M, 2D <= {kernels.MAX_WIDTH} (got "
+                    "use_kernels=True requires mode='all' with 2M <= "
+                    f"{kernels.WIDE_MAX_TWO_M}, or an int top-k mode with "
+                    f"1 <= k <= min({kernels.TOPK_KERNEL_MAX}, K-1) and "
+                    f"2M, 2D <= {kernels.TOPK_MAX_WIDTH} (got "
                     f"mode={mode!r}, K={k_comp}, M={m}, D={d})")
         self.use_kernels = kernel_ok if use_kernels is None else use_kernels
         self._stream = (torch.cuda.Stream(self.device)

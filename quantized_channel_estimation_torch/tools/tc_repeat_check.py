@@ -21,6 +21,11 @@ plain version evaluated in float64 than twice the plain version's own
 error plus 1e-5 (a logit pooled over many rows rounds differently in any
 two float32 orders).
 
+Mode 'wide' does the same, with the rule of mode 'f32', for the wide form
+of K1 and K3 (`WIDE_SHAPES`: 2M and 2D past the stream's 256, an odd
+number of value pieces, contraction widths no multiple of 64, one and
+three waves of blocks, K3 at T = 4 and 3).
+
 Mode 'karatsuba' does the same for K14a (`KARATSUBA_SHAPES`: one and two
 consumer warpgroups a block, 32-column pieces, two contraction chunks); a
 launch fails if its bits differ from the first launch's or if it is
@@ -52,7 +57,7 @@ headline widths (131072 rows, 2M = 2D = 128, K = 64).
 
     python -m quantized_channel_estimation_torch.tools.tc_repeat_check \
         [--repeats R] \
-        [--modes bf16 split2 split3 f32 karatsuba fact mpcirc circ] \
+        [--modes bf16 split2 split3 f32 wide karatsuba fact mpcirc circ] \
         [--no-poison] \
         [--without-proxy-fence [--time]]
 
@@ -96,6 +101,14 @@ F32_SHAPES = (
     (128, 128, 16, 16 * 2049, 0, 16, 0.25),  # T = 16: a thread's two rows
     (128, 128, 8, 64 * 301, 1, 64, 1.0),   # T = 64: shared memory
     (128, 128, 8, 3 * 4001, 0, 3, 0.5),    # T = 3: 63-row warpgroup tiles
+)
+# the wide form of K1 (T = 1) and K3, as F32_SHAPES
+WIDE_SHAPES = (
+    (512, 512, 4, 300, 1, 1, 1.0),          # D = 256: four column slices
+    (640, 128, 5, 1001, 0, 1, 1.0),         # five pilots at D = 64
+    (400, 400, 3, 2 * 132 * 128 + 5, 0, 1, 1.0),  # ragged pieces, 2 waves
+    (512, 128, 4, 4 * 1001, 1, 4, 1.0),     # K3, T = 4: quad shuffles
+    (512, 256, 4, 3 * 701, 0, 3, 0.5),      # K3, T = 3: shared memory
 )
 # K14a: (M, D, K, N, dead components)
 KARATSUBA_SHAPES = (
@@ -522,7 +535,8 @@ def _f32_runs(shape, dev):
     kb64 = kernels.KernelBankBlock(*(x.double() for x in kb))
     ops = kernels.tc_operands(kb)
     r2 = random_rows(n, two_m, dev)
-    label = f"{two_m}/{two_d} K={k} N={n} dead={n_dead} T={t} a={alpha} f32"
+    label = (f"{two_m}/{two_d} K={k} N={n} dead={n_dead} T={t} a={alpha} "
+             + ("wide" if kernels.wide_form(two_m, two_d) else "f32"))
     if t == 1:
         return (label, lambda: kernels.grouped_estimate(r2, kb, ops),
                 kernels.grouped_estimate_reference(r2, kb),
@@ -564,13 +578,15 @@ def _f32_check(dev, shapes, repeats, poison) -> dict:
 def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
                  without_fence=False, modes=tuple(vk.TC_WRAPPERS),
                  f32_shapes=F32_SHAPES,
+                 wide_shapes=WIDE_SHAPES,
                  karatsuba_shapes=KARATSUBA_SHAPES,
                  fact_shapes=FACT_SHAPES,
                  mpcirc_shapes=MPCIRC_SHAPES,
                  circ_shapes=CIRC_SHAPES) -> dict:
     """Every (shape, mode): `repeats` launches of K14b (and of the copy
     without the fence), each held against the plain version; mode 'f32':
-    K1 and K3 at `f32_shapes`; mode 'karatsuba': K14a at
+    K1 and K3 at `f32_shapes`; mode 'wide': their wide form at
+    `wide_shapes`; mode 'karatsuba': K14a at
     `karatsuba_shapes`; mode 'fact': K11-K13 at `fact_shapes`; mode
     'mpcirc': K10 at `mpcirc_shapes`; mode 'circ': K6-K9 at
     `circ_shapes`. Returns
@@ -580,6 +596,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     result = {"kernel": {}, "no fence": {}} if copy else {"kernel": {}}
     if "f32" in modes:
         result["kernel"].update(_f32_check(dev, f32_shapes, repeats, poison))
+    if "wide" in modes:
+        result["kernel"].update(_f32_check(dev, wide_shapes, repeats, poison))
     if "karatsuba" in modes:
         result["kernel"].update(_karatsuba_check(dev, karatsuba_shapes,
                                                  repeats, poison))
@@ -593,7 +611,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
         result["kernel"].update(_circ_check(dev, circ_shapes, repeats,
                                             poison))
     modes = [m for m in modes
-             if m not in ("f32", "karatsuba", "fact", "mpcirc", "circ")]
+             if m not in ("f32", "wide", "karatsuba", "fact", "mpcirc",
+                          "circ")]
     for two_m, two_d, k, n, n_dead in shapes if modes else ():
         kb = random_bank(two_m, two_d, k, dev, n_dead)
         planes = kernels.split_planes(kb.pw)
@@ -646,10 +665,10 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default=None)
     p.add_argument("--repeats", type=int, default=REPEATS)
     p.add_argument("--modes", nargs="+",
-                   default=[*vk.TC_WRAPPERS, "f32", "karatsuba", "fact",
-                            "mpcirc", "circ"],
-                   choices=[*vk.TC_WRAPPERS, "f32", "karatsuba", "fact",
-                            "mpcirc", "circ"])
+                   default=[*vk.TC_WRAPPERS, "f32", "wide", "karatsuba",
+                            "fact", "mpcirc", "circ"],
+                   choices=[*vk.TC_WRAPPERS, "f32", "wide", "karatsuba",
+                            "fact", "mpcirc", "circ"])
     p.add_argument("--no-poison", action="store_true")
     p.add_argument("--without-proxy-fence", action="store_true")
     p.add_argument("--time", action="store_true")

@@ -132,12 +132,12 @@ def test_grouped_estimate_refuses_bad_inputs():
         tkn.grouped_estimate(torch.zeros(10, 12, device=dev), kb)
     with pytest.raises(ValueError):
         tkn.grouped_estimate(r2, kb._replace(logw=kb.logw.cpu()))
-    big = tkn.KernelBankBlock(torch.zeros(1, 258, 260, device=dev),
-                              torch.zeros(1, 258, device=dev),
+    big = tkn.KernelBankBlock(torch.zeros(1, 2050, 2052, device=dev),
+                              torch.zeros(1, 2050, device=dev),
                               torch.zeros(1, 2, device=dev),
                               torch.zeros(1, device=dev))
-    with pytest.raises(ValueError, match="256"):
-        tkn.grouped_estimate(torch.zeros(3, 258, device=dev), big)
+    with pytest.raises(ValueError, match="2048"):
+        tkn.grouped_estimate(torch.zeros(3, 2050, device=dev), big)
     empty = tkn.grouped_estimate(r2[:0], kb)
     assert empty.shape == (0, 16)
 
@@ -510,9 +510,10 @@ def test_grouped_estimate_topk_stats_at_the_tile_edges(two_m, two_d, k, n,
 
 @pytest.mark.cuda
 def test_stats_kernels_refuse_bad_inputs_and_one_past_the_rule():
-    """The widths' edge (2M = 2D = 256 runs; 258 is refused by the
-    wrappers and taken by the einsum stats path in the entries), K5's k
-    range and a shard smaller than k (padded with -inf and zeros)."""
+    """The widths' edge (2M = 2048 runs, in the wide form past 2M, 2D =
+    256; 2050 is refused by the wrappers and taken by the einsum stats
+    path in the entries; K5 stays at 2M, 2D <= 256), K5's k range and a
+    shard smaller than k (padded with -inf and zeros)."""
     dev = _card()
     kb = _rand_kb(16, 16, 3, dev)
     r2 = _rows(12, 16, dev)
@@ -526,18 +527,29 @@ def test_stats_kernels_refuse_bad_inputs_and_one_past_the_rule():
     assert _rel(z, z_p) < 1e-4
     with pytest.raises(ValueError, match="T"):
         tkn.grouped_estimate_coherent_stats(r2, kb, 5)
-    wide = _rand_kb(258, 16, 2, dev)
+    wide = _rand_kb(2050, 16, 2, dev)
+    with pytest.raises(ValueError, match="2048"):
+        tkn.grouped_estimate_stats(_rows(3, 2050, dev), wide)
     with pytest.raises(ValueError, match="256"):
-        tkn.grouped_estimate_stats(_rows(3, 258, dev), wide)
+        tkn.grouped_estimate_topk_stats(_rows(3, 258, dev),
+                                        _rand_kb(258, 16, 2, dev), 2)
+    edge = _rand_kb(2048, 16, 2, dev)
+    before = tkn.grouped_estimate_stats_wide.launches
+    for got, want in zip(tkn.grouped_estimate_stats(_rows(70, 2048, dev),
+                                                    edge),
+                         tkn.grouped_estimate_stats_reference(
+                             _rows(70, 2048, dev), edge)):
+        assert _rel(got, want) < 1e-4
+    assert tkn.grouped_estimate_stats_wide.launches == before + 1
     for m_out, _, acc in (tkn.grouped_estimate_stats(r2[:0], kb),
                           tkn.grouped_estimate_coherent_stats(r2[:0], kb, 2)):
         assert m_out.shape == (0,) and acc.shape == (0, 16)
     # the entries past the rule: the einsum stats path, on the card
-    bank = _bank(8, 4, 17, dev)                      # M = 136: 2M = 272
-    assert not tkn.fused_kernel_eligible(8, 136)
+    bank = _bank(8, 4, 129, dev)                     # M = 1032: 2M = 2064
+    assert not tkn.fused_kernel_eligible(8, 1032)
     g = torch.Generator(device=dev).manual_seed(4)
-    r = torch.complex(torch.randn(64, 136, generator=g, device=dev),
-                      torch.randn(64, 136, generator=g, device=dev))
+    r = torch.complex(torch.randn(64, 1032, generator=g, device=dev),
+                      torch.randn(64, 1032, generator=g, device=dev))
     before = tkn.launch_counts()
     for got, want in zip(tkn.estimate_fused_stats(bank, r),
                          tge.estimate_stats(bank, r)):
@@ -549,14 +561,15 @@ def test_stats_kernels_refuse_bad_inputs_and_one_past_the_rule():
 
 @pytest.mark.cuda
 def test_f1_wide_dense_bank_takes_the_einsum_estimator():
-    """Fault F1: a dense bank with 2M = 512 (four pilots, D = 64) through
-    `stages.estimate_auto` and `kernels.estimate_fused_coherent` at T = 1
-    returns the einsum estimator's answer instead of raising."""
+    """Fault F1: a dense bank past the dense kernels' widths (2M = 2064:
+    129 pilots at D = 8) through `stages.estimate_auto` and
+    `kernels.estimate_fused_coherent` at T = 1 returns the einsum
+    estimator's answer instead of raising, and launches no kernel."""
     dev = _card()
-    bank = _bank(64, 8, 4, dev, n_dead=1)
+    bank = _bank(8, 4, 129, dev, n_dead=1)
     g = torch.Generator(device=dev).manual_seed(5)
-    r = torch.complex(torch.randn(2048, 256, generator=g, device=dev),
-                      torch.randn(2048, 256, generator=g, device=dev))
+    r = torch.complex(torch.randn(512, 1032, generator=g, device=dev),
+                      torch.randn(512, 1032, generator=g, device=dev))
     want = tge.estimate(bank, r, "all")
     before = tkn.launch_counts()
     for got in (stages.estimate_auto(bank, r, "all"),
@@ -565,6 +578,206 @@ def test_f1_wide_dense_bank_takes_the_einsum_estimator():
         assert got.shape == want.shape and torch.isfinite(got.abs()).all()
         assert _rel(got, want) < 1e-5
     assert tkn.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_wide_dense_bank_takes_the_wide_kernels():
+    """A dense bank with 2M = 512 (four pilots, D = 64, one dead
+    component) through `stages.estimate_auto`, the coherent entries at T =
+    1 and 4 and the stats entries: the wide K1, K3 and K2, within 1e-4 of
+    the einsum estimator's scale, no einsum call and no launch of the
+    stream's K1 - K3. The T = 4 blocks pool four logits of a few hundred
+    each, which moves any two float32 versions about 1e-4 apart: past
+    1e-4 of the einsum estimator they are held, as chip_smoke's
+    `compare64`, to twice the plain float32 version's error against its
+    float64 evaluation."""
+    dev = _card()
+    bank = _bank(64, 8, 4, dev, n_dead=1)
+    g = torch.Generator(device=dev).manual_seed(5)
+    r = torch.complex(torch.randn(2048, 256, generator=g, device=dev),
+                      torch.randn(2048, 256, generator=g, device=dev))
+    want = tge.estimate(bank, r, "all")
+    rb = r.reshape(512, 4, 256)
+    want_b = tge.estimate_coherent(bank, rb, "all", 512, 0.5)
+    names = ("estimate", "estimate_coherent", "estimate_stats",
+             "estimate_coherent_stats")
+    saved = {n: getattr(tge, n) for n in names}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the einsum estimator was reached")
+
+    before = tkn.launch_counts()
+    try:
+        for n in names:
+            setattr(tge, n, refuse)
+        got = [stages.estimate_auto(bank, r, "all"),
+               tkn.estimate_fused_coherent(bank, r[:, None])[:, 0],
+               stages.estimate_coherent_auto(bank, r[:, None], "all")[:, 0]]
+        got_b = tkn.estimate_fused_coherent(bank, rb, 0.5)
+        _, den, acc = tkn.estimate_fused_stats(bank, r)
+        _, den_b, acc_b = tkn.estimate_fused_coherent_stats(bank, rb, 0.5)
+    finally:
+        for n, fn in saved.items():
+            setattr(tge, n, fn)
+    for x in got + [acc / den[:, None]]:
+        assert x.shape == want.shape and _rel(x, want) < 1e-4
+    kb4 = tkn.kernel_bank_block(bank, 4, 0.5)
+    r2b = tkn._r2(rb)
+    plain = tkn._h(tkn.grouped_estimate_coherent_reference(r2b, kb4, 4, 0.5),
+                   64, torch.complex128).reshape(want_b.shape)
+    exact = tkn._h(tkn.grouped_estimate_coherent_reference(
+        r2b.double(), tkn.KernelBankBlock(*(x.double() for x in kb4)), 4,
+        0.5), 64, torch.complex128).reshape(want_b.shape)
+
+    def err(x):
+        return float((x.to(torch.complex128) - exact).abs().max())
+
+    for x in (got_b, acc_b / den_b[..., None]):
+        assert x.shape == want_b.shape
+        assert _rel(x, want_b) < 1e-4 or err(x) <= 2 * err(plain), (
+            _rel(x, want_b), err(x), err(plain))
+    after = tkn.launch_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {"grouped_estimate_wide": 3,
+                     "grouped_estimate_coherent_wide": 1,
+                     "grouped_estimate_stats_wide": 1,
+                     "grouped_estimate_coherent_stats_wide": 1}, moved
+
+
+# the wide form: (2M, 2D, K, N, dead components)
+WIDE_CASES = [
+    (512, 512, 4, 1000, 1),     # D = 256 at one pilot: four column slices
+    (512, 128, 5, 777, 0),      # four pilots at D = 64
+    (640, 128, 3, 1201, 1),     # five pilots at D = 64: 2M = 640
+    (512, 256, 4, 333, 0),      # two pilots at D = 128
+    (400, 400, 3, 2 * 132 * 128 + 5, 2),   # no multiple of 64, two waves
+    (272, 16, 6, 500, 0),       # just past the stream's 2M
+    (16, 300, 2, 130, 0),       # just past the stream's 2D, odd pieces
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_m,two_d,k,n,n_dead", WIDE_CASES)
+def test_grouped_wide_matches_plain(two_m, two_d, k, n, n_dead):
+    """The wide K1, K2 (flat, and coherent at T = 4, alpha 0.5) and K3 (T
+    = 4, alpha 1; T = 3, alpha 0.25) against their plain versions within
+    1e-4 of the scale, ragged N and dead components; K2 on two component
+    shards merged with `merge_stats` against one wide K1 launch; the
+    stream's own wrappers route there and count nothing of their own."""
+    dev = _card()
+    kb = _rand_kb(two_m, two_d, k, dev, n_dead)
+    ops = tkn.tc_operands(kb)
+    r2 = _rows(n, two_m, dev)
+    before = tkn.launch_counts()
+    got = tkn.grouped_estimate(r2, kb, ops)
+    want = tkn.grouped_estimate_reference(r2, kb)
+    assert got.shape == want.shape == (n, two_d)
+    assert torch.isfinite(got).all() and _rel(got, want) < 1e-4
+    for g_x, w_x in zip(tkn.grouped_estimate_stats(r2, kb, ops),
+                        tkn.grouped_estimate_stats_reference(r2, kb)):
+        assert _rel(g_x, w_x) < 1e-4
+    half = k // 2
+    shards = [tkn.KernelBankBlock(*(x[sl].contiguous() for x in kb))
+              for sl in (slice(0, half), slice(half, k))]
+    _, den, acc = tkn.merge_stats(*zip(*(tkn.grouped_estimate_stats_wide(
+        r2, s) for s in shards)))
+    assert _rel(acc / den[:, None], got) < 1e-5
+    for t, alpha in ((4, 1.0), (3, 0.25)):
+        rows = r2[:n // t * t]
+        kb_t = kb._replace(logw=kb.logw / (1 - alpha + alpha * t))
+        got_t = tkn.grouped_estimate_coherent(rows, kb_t, t, alpha, ops)
+        want_t = tkn.grouped_estimate_coherent_reference(rows, kb_t, t,
+                                                         alpha)
+        assert torch.isfinite(got_t).all() and _rel(got_t, want_t) < 1e-4
+    rows = r2[:n // 4 * 4]
+    for g_x, w_x in zip(
+            tkn.grouped_estimate_coherent_stats(rows, kb, 4, 0.5, ops),
+            tkn.grouped_estimate_coherent_stats_reference(rows, kb, 4, 0.5)):
+        assert _rel(g_x, w_x) < 1e-4
+    after = tkn.launch_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {"grouped_estimate_wide": 1,
+                     "grouped_estimate_stats_wide": 3,
+                     "grouped_estimate_coherent_wide": 2,
+                     "grouped_estimate_coherent_stats_wide": 1}, moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_m,t", [(512, 1), (640, 3), (400, 16)])
+def test_grouped_wide_row_planes_read_back_bit_for_bit(two_m, t):
+    """The wide form's first kernel lays r2's three bf16 planes out as its
+    plain version `wide_row_planes` does, bit for bit (padding zero)."""
+    dev = _card()
+    r2 = torch.randn(3 * 64 + 7 - (3 * 64 + 7) % t, two_m, device=dev)
+    got = tkn.wide_row_planes(r2, t)
+    want = tkn.wide_row_planes(r2.cpu(), t)
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n_pilots,k,t", [
+    (256, 1, 4, 1), (64, 4, 4, 1), (256, 1, 4, 4), (64, 5, 4, 4),
+    (64, 7, 4, 1), (64, 7, 4, 4),       # 2M = 896: JAX's chunk rule at K = 4
+    (128, 7, 2, 1), (128, 7, 2, 4),     # 2M = 1792: JAX's whole-bank rule
+])
+def test_grouped_wide_keeps_fp32_accuracy(d, n_pilots, k, t):
+    """The wide K1 (t = 1) and K3 (T = 4) on GMM banks at 2M = 512, 640,
+    896 and 1792 (2 bits, 10 dB): max |error| against the plain version in
+    float64 at most twice the float32 plain version's own; K1 also within
+    1e-4 of the plain version's scale, and K2 on two component shards,
+    merged with `merge_stats`, held to the same float64 rule (K3 pools
+    four logits of a few hundred each, which moves both float32 versions
+    apart by about that much, so the float64 rule alone holds it, as
+    chip_smoke's `compare64` holds K3 past T = 16)."""
+    dev = _card()
+    bank = _bank(d, k, n_pilots, dev, n_dead=1 if k > 2 else 0)
+    kb = tkn.kernel_bank_block(bank, t, 1.0)
+    kb64 = type(kb)(*(x.double() for x in kb))
+    r2 = _rows(2048, 2 * d * n_pilots, dev)
+    if t == 1:
+        got = tkn.grouped_estimate(r2, kb)
+        want = tkn.grouped_estimate_reference(r2, kb)
+        want64 = tkn.grouped_estimate_reference(r2.double(), kb64)
+    else:
+        got = tkn.grouped_estimate_coherent(r2, kb, t, 1.0)
+        want = tkn.grouped_estimate_coherent_reference(r2, kb, t, 1.0)
+        want64 = tkn.grouped_estimate_coherent_reference(r2.double(), kb64,
+                                                         t, 1.0)
+
+    def err(x):
+        return float((x.double() - want64).abs().max())
+
+    assert torch.isfinite(got).all()
+    assert t > 1 or _rel(got, want) < 1e-4, _rel(got, want)
+    assert err(got) <= 2 * err(want), (err(got), err(want))
+    if t == 1:
+        shards = [tkn.KernelBankBlock(*(x[sl].contiguous() for x in kb))
+                  for sl in (slice(0, k // 2), slice(k // 2, k))]
+        _, den, acc = tkn.merge_stats(*zip(*(
+            tkn.grouped_estimate_stats(r2, s) for s in shards)))
+        merged = acc / den[:, None]
+        assert torch.isfinite(merged).all()
+        assert err(merged) <= 2 * err(want), (err(merged), err(want))
+
+
+@pytest.mark.cuda
+def test_grouped_wide_repeated_launches_match_plain():
+    """The wide K1 and K3 launched 20 times at each shape of
+    `tools.tc_repeat_check.WIDE_SHAPES`, each launch after a fill of every
+    SM's shared memory with NaN, each bit for bit the first launch and held
+    against the plain version."""
+    dev = _card()
+    shapes = tc_repeat_check.WIDE_SHAPES
+    n_k1 = sum(1 for s in shapes if s[5] == 1)
+    before = (tkn.grouped_estimate_wide.launches,
+              tkn.grouped_estimate_coherent_wide.launches)
+    runs = tc_repeat_check.repeat_check(dev, repeats=20,
+                                        modes=("wide",))["kernel"]
+    assert tkn.grouped_estimate_wide.launches == before[0] + 20 * n_k1
+    assert (tkn.grouped_estimate_coherent_wide.launches
+            == before[1] + 20 * (len(shapes) - n_k1))
+    assert len(runs) == len(shapes)
+    assert not {k: v for k, v in runs.items() if v["failures"]}, runs
 
 
 @pytest.mark.cuda

@@ -4,7 +4,7 @@ a component shard), and K5, the stats form of K4 (a shard's top-k
 candidates), against JAX's interpret-mode Pallas kernels on shared numpy
 inputs; their shard merges against the plain K1 / K3 / K4 over the whole
 bank; and the dense kernels' shape rule `fused_kernel_eligible`, past which
-every entry takes the einsum estimator (banks with 2M or 2D > 256).
+every entry takes the einsum estimator (banks with 2M > 2048).
 
 Tolerances: 1e-5 of each output's scale (max |port - JAX| / max |JAX|):
 float32 products summed in another order. Merged shard states against the
@@ -307,16 +307,16 @@ def _wide_bank(rng, d, m, k=3):
 
 
 @pytest.mark.parametrize("d,m,ok", [
-    (128, 128, True), (8, 128, True), (129, 8, False), (8, 129, False),
-    (8, 160, False), (0, 8, False),
+    (128, 128, True), (8, 1024, True), (1024, 8, True), (8, 1025, False),
+    (2000, 1025, False), (0, 8, False),
 ])
 def test_fused_kernel_eligible_rule(d, m, ok):
     assert tkn.fused_kernel_eligible(d, m) is ok
 
 
-@pytest.mark.parametrize("d,m", [(8, 136), (130, 8)])
+@pytest.mark.parametrize("d,m", [(8, 1025), (2, 1100)])
 def test_wide_banks_never_reach_the_dense_kernels(monkeypatch, rng, d, m):
-    """Fault F1: past 2M, 2D <= 256 every 'all'-mode entry (`estimate_auto`,
+    """Fault F1: past 2M <= 2048 every 'all'-mode entry (`estimate_auto`,
     `estimate_fused_coherent` at T = 1, the stats entries) is the einsum
     estimator; the kernels' own entries are never called."""
     bank = _wide_bank(rng, d, m)
@@ -329,7 +329,8 @@ def test_wide_banks_never_reach_the_dense_kernels(monkeypatch, rng, d, m):
 
     for name in ("estimate_fused", "grouped_estimate",
                  "grouped_estimate_reference", "grouped_estimate_stats",
-                 "grouped_estimate_coherent", "grouped_estimate_topk"):
+                 "grouped_estimate_coherent", "grouped_estimate_topk",
+                 "grouped_estimate_wide", "grouped_estimate_stats_wide"):
         monkeypatch.setattr(tkn, name, refuse)
     want = tge.estimate(bank, r, "all")
     _close(tst.estimate_auto(bank, r, "all"), want)
