@@ -182,7 +182,21 @@ Phases (any failure exits non-zero; nothing is caught):
      `estimate_sharded_kernel` on a four-pilot bank (2M = 512), the einsum
      estimators made to raise on those routes, 20 NaN-poisoned repeats a
      shape, and the wide kernels' times at D = 256, K = 32, 32768 rows;
-     then the service over
+     then top-k selection on wide banks (phase 3k, `wide_topk_phase`): the
+     wide form of K4 and K5 at the same five widths for k in {1, 4}
+     against their plain versions (rows whose k-th and (k+1)-th logits lie
+     within max(1e-3, 1e-5 |logit|) not compared, at least 90% compared),
+     its picks those of the float64 plain version and under the float64
+     rule, K5 on two component shards merged within 1e-5 of one K4 launch;
+     `stages.estimate_auto` at k = 1 and 4 on phase 3j's fitted D = 256
+     bank (its NMSE beside the 'all' mode's), `run_gmm` at the defaults
+     with three pilots (2M = 384) in top-1 mode, the service in mode 1 on
+     the four-pilot headline prior (every answer against an einsum
+     service's) and `estimate_sharded` at k = 4 over an in-process 1 x 2
+     mesh, the einsum estimator made to raise on those routes; 20
+     repeats a shape on NaN-filled outputs, and the times at D = 256, K =
+     32, 32768 rows beside the bound, the fp32 logit GEMM and the einsum
+     estimator; then the service over
      in-process meshes (`parallel.mesh.make_local_mesh`) of 1 x 2 and 2 x 2
      shards in eight modes each (dense, structured at K = 64 and the K =
      256 spectra-native prior, factored; flat and T=4 blocks; 1 s each),
@@ -638,13 +652,15 @@ def quant_path_run(run_gmm_quant, stages, kernels, dev, **change):
 
 
 def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
-               near_tie=None, seconds=SERVE_SECONDS, same_as=None):
+               near_tie=None, seconds=SERVE_SECONDS, same_as=None,
+               same_as_near_tie=None):
     """Closed-loop load on one service mode: warm-up, then SERVE_CLIENTS
     clients for `seconds`, the launch counts read around the window.
     `reference(r)` is the mode's plain estimator on the card, `near_tie(r)`
     the rows not compared. With `same_as` (another service) every answer
     of the window is held within TOL of the scale of that service's answer
-    to the same request. Returns the mode's record; raises on a failed
+    to the same request (`same_as_near_tie(r, snr)`: a numpy mask of the
+    rows not compared). Returns the mode's record; raises on a failed
     request, a kernel that was not launched (`kernel_name` None: no kernel
     to count) or an answer off the reference."""
     rng = np.random.default_rng(1)
@@ -675,6 +691,9 @@ def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
     expected = None if same_as is None else {
         (i, snr): same_as.submit(reqs[i], snr, timeout=120.0)
         for i in range(SERVE_CLIENTS) for snr in SERVE_SNRS}
+    compared = None if same_as_near_tie is None else {
+        (i, snr): ~same_as_near_tie(reqs[i], snr)
+        for i in range(SERVE_CLIENTS) for snr in SERVE_SNRS}
     latencies, stop, lock = [], threading.Event(), threading.Lock()
     served, off = [0], [0.0]
 
@@ -688,7 +707,9 @@ def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
             dev_rel = 0.0
             if expected is not None:
                 want = expected[(i, snr)]
-                dev_rel = float(np.abs(out - want).max()
+                rows = (slice(None) if compared is None
+                        else compared[(i, snr)])
+                dev_rel = float(np.abs(out - want)[rows].max()
                                 / np.abs(want).max())
             with lock:
                 latencies.append(dt)
@@ -1548,7 +1569,7 @@ def wide_bound(n, two_m, two_d, k, coherent=False, stats=False):
     return (max(ops_s, nbytes / PEAK_HBM_BYTES) * 1e3, by, tc, fp32, nbytes)
 
 
-def wide_dense_phase(dev, card, kernels, errs, add):
+def wide_dense_phase(dev, card, kernels, errs, add, keep=None):
     """Phase 3j, the large-array dense path: the wide form of K1, K2 and K3
     (`csrc/grouped_wide_estimate.cu`, past the stream's 2M, 2D <= 256).
 
@@ -1581,7 +1602,9 @@ def wide_dense_phase(dev, card, kernels, errs, add):
        r2 against all K [P_k | W_k] blocks), and K1 at every WIDE_SHAPES
        width.
     Returns the phase's record; its timing records are the kernels line's
-    entries of the four wide wrappers."""
+    entries of the four wide wrappers. `keep` (a dict) receives the scale
+    bench's fitted bank, observations and timed batch (phase 3k reads
+    them)."""
     from quantized_channel_estimation_torch.harness import stages
     from quantized_channel_estimation_torch.models import gmm_estimator
     from quantized_channel_estimation_torch.ops import observation, pilots
@@ -1744,7 +1767,7 @@ def wide_dense_phase(dev, card, kernels, errs, add):
         stages.estimate_auto = route(saved_auto)
         sb, sb_launches, sb_s = counted(
             "scale_bench_large_d (D=256, K=32, toeplitz)",
-            lambda: scale_bench_large_d.main(device=dev),
+            lambda: scale_bench_large_d.main(device=dev, keep=keep),
             {"grouped_estimate_wide"})
     finally:
         stages.estimate_auto = saved_auto
@@ -1871,6 +1894,393 @@ def wide_dense_phase(dev, card, kernels, errs, add):
     rec["times"] = times
     rec["seconds"] = time.time() - t_phase
     log(f"wide dense phase 3j: {rec['seconds']:.1f}s")
+    return rec
+
+WIDE_TIE_REL = 1e-5  # the wide top-k's tie gap: max(TIE_GAP, 1e-5 |logit|)
+WIDE_TOPK_K = (1, 4)
+
+
+def wide_topk_bound(n, two_m, two_d, k, k_sel, stats=False):
+    """(bound ms, 'operations' or 'bytes', tc operations, fp32 operations,
+    bytes) of the wide K4 / K5: six bf16 products of the logits r2 P_k (2 N
+    2M 2M K) and of the picked rows' values r2 W_j (2 N 2M 2D a slot) on
+    the tensor cores, plus the fp32 epilogue (the logits' 2 N K 2M, the
+    values' bias N k 2D and K4's combine 2 N k 2D), against r2 read once,
+    the outputs written once (K4 (N, 2D); K5 (N, k) and (N, k, 2D)) and
+    the fp32 bank read once."""
+    tc = 6.0 * 2 * n * two_m * (two_m * k + two_d * k_sel)
+    fp32 = 2.0 * n * k * two_m + n * k_sel * two_d * (1 if stats else 3)
+    out = n * k_sel * (1 + two_d) if stats else n * two_d
+    nbytes = 4.0 * (n * two_m + out + k * two_m * (two_m + two_d)
+                    + k * (two_m + two_d + 1))
+    ops_s = fp32 / PEAK_FP32_FLOPS + tc / PEAK_BF16_FLOPS
+    by = "operations" if ops_s >= nbytes / PEAK_HBM_BYTES else "bytes"
+    return (max(ops_s, nbytes / PEAK_HBM_BYTES) * 1e3, by, tc, fp32, nbytes)
+
+
+def wide_keep(kernels, r2, kb, k_sel, order=False):
+    """The rows the wide top-k is compared on: those whose k-th and
+    (k+1)-th logits (`order`: any two live ones of the top k + 1, whose
+    order K5 writes) lie further apart than max(TIE_GAP, WIDE_TIE_REL
+    |logit|). At 2M = 512 a logit is a sum of hundreds of squares in the
+    hundreds, where TIE_GAP is a few float32 ulps."""
+    from quantized_channel_estimation_torch.tools.tc_repeat_check import (
+        topk_near_ties)
+    lg = kernels.component_logits(r2, kb)
+    if not order:
+        return ~topk_near_ties(lg, k_sel, TIE_GAP, WIDE_TIE_REL)
+    top = lg.sort(-1, descending=True).values[:, :k_sel + 1]
+    gap = torch.clamp(WIDE_TIE_REL * top[:, :-1].abs(), min=TIE_GAP)
+    return ~(((top[:, :-1] - top[:, 1:]) < gap)
+             & (top[:, 1:] > -1e29)).any(-1)
+
+
+def wide_picks(kernels, r2, kb, k_sel):
+    """The components the wide top-k picks a row, read through the wide K5
+    on kb with W = 0 and b_j = j: the same logits and picks, and each
+    candidate's first value its component (-1 for an empty slot)."""
+    k_comp, two_m, _ = kb.pw.shape
+    tag = kb._replace(
+        pw=torch.cat([kb.pw[:, :, :two_m],
+                      torch.zeros_like(kb.pw[:, :, two_m:])], -1)
+        .contiguous(),
+        b=torch.arange(k_comp, dtype=torch.float32, device=kb.b.device)[
+            :, None].expand_as(kb.b).contiguous())
+    l_t, z_t = kernels.grouped_estimate_topk_stats_wide(r2, tag, k_sel)
+    return torch.where(torch.isinf(l_t), -1, z_t[..., 0].round().long())
+
+
+def wide_topk_phase(dev, card, kernels, errs, add, fitted):
+    """Phase 3k, top-k selection on wide banks: the wide form of K4 and K5
+    (`grouped_wide_topk_launch` in `csrc/grouped_wide_estimate.cu`, past
+    the narrow `grouped_topk.cu`'s 2M, 2D <= 256).
+
+    1. At (2M, 2D) in WIDE_SHAPES (random banks of 32 components, two
+       dead, 8191 rows), k in {1, 4}: the wide K4 against its plain
+       version within TOL of the scale on the rows not near a tie
+       (`wide_keep`; the count left out printed; at least 90% compared),
+       its picks (`wide_picks`) the float64 plain version's on those rows
+       and its error against float64 at most twice the float32 plain
+       version's (`fp32_accuracy`); K5 on two component shards against
+       its plain version (rows without a near tie among the top k + 1)
+       and merged with `merge_topk` within 1e-5 of one wide K4 launch.
+    2. The main paths, each with the launch counts set to 0 just before it
+       and read just after, the einsum estimator made to raise inside the
+       kernel routes: `stages.estimate_auto` at k = 1 and 4 on the D = 256,
+       K = 32 Toeplitz bank phase 3j fitted (`fitted`: the scale bench's
+       `keep`), its NMSE at 10 dB beside the 'all' mode's and the
+       estimate on the 32768-row batch within TOL of the einsum
+       estimator's; `run_gmm` at the defaults with `n_pilots=3` (2M = 384)
+       and `n_summands_or_proba=1` (genie < GMM < LS at -10 and -5 dB; at
+       5 dB on every Bussgang column loses to LS under `angle_amp` pilots,
+       so those rows are printed); the service in mode 1 on the
+       four-pilot headline prior (2M = 512), 8 clients x 64 snapshots for
+       1 s, every answer within TOL of the scale of an einsum service's
+       (near-tie rows left out) and no failed request; and
+       `parallel.mesh.estimate_sharded` at k = 4 over an in-process 1 x 2
+       mesh (the wide K5 a shard, merged).
+    3. The wide K4 and K5 launched 20 times at each shape of
+       `tools.tc_repeat_check.WIDE_TOPK_SHAPES`, each launch on the NaN-
+       filled memory of the last one's outputs after a NaN fill of shared
+       memory, bit for bit the first launch.
+    4. CUDA-event times on the fitted bank at 32768 rows, k = 1 and 4: the
+       wide K4 and K5, each beside its plain version, the bound
+       (`wide_topk_bound`), the library yardstick (one cuBLAS fp32 GEMM of
+       r2 against all K precision blocks P_k: the logits' product) and the
+       einsum estimator in the same mode.
+    Returns the phase's record; its timing records are the kernels line's
+    entries of the two wide top-k wrappers."""
+    from quantized_channel_estimation_torch import serving
+    from quantized_channel_estimation_torch.harness import run_gmm, stages
+    from quantized_channel_estimation_torch.models import gmm_estimator
+    from quantized_channel_estimation_torch.ops import observation, pilots
+    from quantized_channel_estimation_torch.ops import quantizer as Q
+    from quantized_channel_estimation_torch.ops.cplx import crandn
+    from quantized_channel_estimation_torch.parallel import mesh as pmesh
+    from quantized_channel_estimation_torch.tools import (
+        tc_repeat_check as trc)
+    from quantized_channel_estimation_torch.utils import profiling
+    t_phase = time.time()
+    rec = {"tie_gap": {"abs": TIE_GAP, "rel": WIDE_TIE_REL}, "shapes": {}}
+    k4, k5 = "grouped_estimate_topk_wide", "grouped_estimate_topk_stats_wide"
+
+    # 1. every listed width against its plain version
+    for two_m, two_d in WIDE_SHAPES:
+        kb = trc.random_bank(two_m, two_d, WIDE_K, dev, n_dead=2)
+        kb64 = type(kb)(*(x.double() for x in kb))
+        ops = kernels.tc_operands(kb)
+        rows = trc.random_rows(WIDE_N, two_m, dev)
+        lg64 = kernels.component_logits(rows.double(), kb64)
+        half = WIDE_K // 2
+        shards = [kernels.KernelBankBlock(*(x[sl].contiguous() for x in kb))
+                  for sl in (slice(0, half), slice(half, WIDE_K))]
+        for k_sel in WIDE_TOPK_K:
+            label = f"2M={two_m}, 2D={two_d}, K={WIDE_K}, k={k_sel}"
+            keep = wide_keep(kernels, rows, kb, k_sel)
+            n_cmp = int(keep.sum())
+            if n_cmp < 0.9 * WIDE_N:
+                raise AssertionError(f"wide top-k at {label}: only {n_cmp} "
+                                     f"of {WIDE_N} rows clear of a tie")
+            got = kernels.grouped_estimate_topk(rows, kb, k_sel, ops)
+            want = kernels.grouped_estimate_topk_reference(rows, kb, k_sel)
+            want64 = kernels.grouped_estimate_topk_reference(
+                rows.double(), kb64, k_sel)
+            errs[k4].append(compare(k4, label, got, want, ~keep))
+            acc, held = fp32_accuracy(k4, label, got[keep], want[keep],
+                                      want64[keep])
+            picked64 = lg64.sort(dim=-1, descending=True,
+                                 stable=True).indices[:, :k_sel]
+            mine = wide_picks(kernels, rows, kb, k_sel)
+            same = bool(torch.equal(mine[keep].sort(-1).values,
+                                    picked64[keep].sort(-1).values))
+            cands = []
+            for j, shard in enumerate(shards):
+                l_j, z_j = kernels.grouped_estimate_topk_stats(
+                    rows, shard, k_sel, kernels.tc_operands(shard))
+                l_p, z_p = kernels.grouped_estimate_topk_stats_reference(
+                    rows, shard, k_sel)
+                ok = wide_keep(kernels, rows, shard, k_sel, order=True)
+                errs[k5].append(compare(k5, f"{label}, shard {j} z",
+                                        z_j.reshape(WIDE_N, -1),
+                                        z_p.reshape(WIDE_N, -1), ~ok))
+                compare(k5, f"{label}, shard {j} l", l_j, l_p, ~ok)
+                cands.append((l_j, z_j))
+            merged = kernels.merge_topk(*zip(*cands), k_sel)
+            compare("K5 wide, two shards merged, against one K4 launch",
+                    label, merged, got, ~keep, tol=1e-5)
+            log(f"wide top-k at {label}: {WIDE_N - n_cmp} rows within the "
+                f"tie gap max({TIE_GAP}, {WIDE_TIE_REL} |logit|) not "
+                f"compared; picks equal float64's: {same}")
+            if not (held and same):
+                raise AssertionError(f"the wide K4 at {label}: float64 rule "
+                                     f"{held}, picks {same}")
+            rec["shapes"][label] = {"rows_not_compared": WIDE_N - n_cmp,
+                                    "fp32_accuracy": acc}
+        del kb, kb64, ops, rows, lg64, shards, got, want, want64, merged
+
+    # 2. the main paths, the einsum estimator raising inside the kernel
+    # routes
+    saved = gmm_estimator.estimate
+    in_route = [0]
+
+    def guarded(*args, **kw):
+        if in_route[0]:
+            raise AssertionError("the einsum estimator was reached on a "
+                                 "wide top-k route")
+        return saved(*args, **kw)
+
+    def route(fn):
+        def run(*args, **kw):
+            in_route[0] += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                in_route[0] -= 1
+        return run
+
+    def counted(label, fn, want_kernels):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.time() - t
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        add(launches)
+        log(f"wide top-k path {label}: {seconds:.1f}s, launches {launches}")
+        if set(launches) != want_kernels:
+            raise AssertionError(f"wide top-k path {label} launched "
+                                 f"{launches}; it must launch {want_kernels}")
+        return out, launches, seconds
+
+    bank, r_val, h_val, rb = (fitted[x] for x in ("bank", "r", "h_val",
+                                                  "batch"))
+    kb = kernels.kernel_bank_block(bank)
+    r2b = kernels._r2(rb)
+    saved_auto, saved_topk = stages.estimate_auto, kernels.estimate_fused_topk
+    rec["paths"] = {}
+    try:
+        gmm_estimator.estimate = guarded
+        stages.estimate_auto = route(saved_auto)
+        kernels.estimate_fused_topk = route(saved_topk)
+        for k_sel in WIDE_TOPK_K:
+            label = f"stages.estimate_auto, k={k_sel}, D=256, K=32"
+            (h_k, got_b), launches, seconds = counted(
+                label, lambda: (stages.estimate_auto(bank, r_val, k_sel),
+                                stages.estimate_auto(bank, rb, k_sel)),
+                {k4})
+            nmse = stages.nmse(h_k, h_val)
+            want_b = saved(bank, rb, k_sel, 4096)
+            keep = wide_keep(kernels, r2b, kb, k_sel)
+            rel = float((got_b - want_b).abs()[keep].max()
+                        / want_b.abs().max())
+            log(f"{label}: NMSE at 10 dB {nmse:.5f} ('all' "
+                f"{fitted['nmse_gmm']:.5f}, genie {fitted['nmse_genie']:.5f},"
+                f" LS {fitted['nmse_ls']:.5f}); on the {r2b.shape[0]}-row "
+                f"batch {rel:.3e} of the einsum estimator's scale "
+                f"({int((~keep).sum())} near-tie rows not compared)")
+            if not (rel <= TOL and math.isfinite(nmse)
+                    and nmse < fitted["nmse_ls"]):
+                raise AssertionError(f"{label}: off the einsum estimator or "
+                                     f"above LS: {rel}, {nmse}")
+            rec["paths"][label] = {"nmse": nmse, "rel_to_einsum": rel,
+                                   "launches": launches, "seconds": seconds}
+        del h_k, got_b, want_b
+
+        # run_gmm under three angle_amp pilots (2M = 384), argmax mode
+        with tempfile.TemporaryDirectory() as tmp:
+            (cfg, mse, _, _, seconds, launches) = main_path_run(
+                run_gmm, kernels, dev, tmp, falling=False, n_pilots=3,
+                n_summands_or_proba=1)
+        launches = {k: v for k, v in launches.items() if v}
+        add(launches)
+        for snr in (-10, -5):
+            i = list(cfg.snrs).index(snr)
+            at = {k: v[i] for k, v in mse.items()}
+            if not (at["blmmse_genie"] < at["blmmse_gmm"] < at["LS_glob"]):
+                raise AssertionError(f"run_gmm n_pilots=3, top-1: MSE order "
+                                     f"at {snr} dB broken: {at}")
+        if launches != {k4: len(cfg.snrs)}:
+            raise AssertionError(f"run_gmm n_pilots=3, top-1 launched "
+                                 f"{launches}")
+        log("run_gmm n_pilots=3, n_summands_or_proba=1 (2M = 384): "
+            + "; ".join(f"{k} {['%.4f' % v for v in vals]}"
+                        for k, vals in mse.items()))
+        rec["paths"]["run_gmm n_pilots=3, top-1"] = {
+            "mse": mse, "launches": launches, "seconds": seconds}
+    finally:
+        gmm_estimator.estimate = saved
+        stages.estimate_auto = saved_auto
+        kernels.estimate_fused_topk = saved_topk
+
+    # the service in mode 1 on the four-pilot prior (2M = 512), every
+    # answer held against an einsum service's to the same request
+    params = serving_params()
+    a4 = pilots.pilot_matrix(D, 4, N_BITS, device=dev)
+    a4_np = a4.cpu().numpy()
+    params_dev = type(params)(*(torch.as_tensor(x, device=dev)
+                                for x in params))
+    banks4 = {snr: gmm_estimator.prepare_bank(
+        params_dev, snr, a4, N_BITS,
+        Q.design_quantizer(snr, N_BITS, device=dev))
+        for snr in (*SERVE_SNRS, SNR)}
+
+    def near_tie4(r_np, snr):
+        rt = torch.as_tensor(r_np, device=dev)
+        return (~wide_keep(kernels, kernels._r2(rt),
+                           kernels.kernel_bank_block(banks4[snr]), 1)
+                ).cpu().numpy()
+
+    svc = serving.EstimationService(params, a4_np, N_BITS, mode=1,
+                                    use_kernels=True,
+                                    max_batch=SERVE_MAX_BATCH, device=dev)
+    plain = serving.EstimationService(params, a4_np, N_BITS, mode=1,
+                                      use_kernels=False,
+                                      max_batch=SERVE_MAX_BATCH, device=dev)
+    try:
+        gmm_estimator.estimate = guarded
+        kernels.estimate_fused_topk = route(saved_topk)
+        rec["service"] = serve_mode(
+            svc, kernels, dev, "top-1, 4 pilots (2M = 512)", 1, k4,
+            lambda rt: saved(banks4[SNR], rt, 1),
+            lambda rt: torch.as_tensor(near_tie4(rt.cpu().numpy(), SNR),
+                                       device=dev),
+            seconds=1.0, same_as=plain, same_as_near_tie=near_tie4)
+        add(rec["service"]["launches"])
+    finally:
+        gmm_estimator.estimate = saved
+        kernels.estimate_fused_topk = saved_topk
+        svc.close(timeout=120.0)
+        plain.close(timeout=120.0)
+    if set(k for k, v in rec["service"]["launches"].items() if v) != {k4}:
+        raise AssertionError(f"the top-1 service launched "
+                             f"{rec['service']['launches']}")
+
+    # estimate_sharded at k = 4 over an in-process 1 x 2 mesh
+    bank4 = banks4[SNR]
+    g4 = torch.Generator(device=dev).manual_seed(2)
+    r4 = observation.observe(g4, crandn(g4, (8192, D)), SNR, a4, N_BITS,
+                             Q.design_quantizer(SNR, N_BITS, device=dev))
+    want4 = saved(bank4, r4, 4)
+    keep4 = wide_keep(kernels, kernels._r2(r4),
+                      kernels.kernel_bank_block(bank4), 4)
+    try:
+        gmm_estimator.estimate = guarded
+        in_route[0] += 1
+        got4, launches, seconds = counted(
+            "estimate_sharded, k=4, 1 x 2 mesh",
+            lambda: pmesh.estimate_sharded(pmesh.make_local_mesh(1, 2),
+                                           bank4, r4, 4), {k5})
+    finally:
+        in_route[0] -= 1
+        gmm_estimator.estimate = saved
+    rel = float((got4 - want4).abs()[keep4].max() / want4.abs().max())
+    log(f"estimate_sharded, k=4 over a 1 x 2 mesh (2M = 512, N = 8192): "
+        f"{rel:.3e} of the einsum estimator's scale (tol {TOL}; "
+        f"{int((~keep4).sum())} near-tie rows not compared)")
+    if not rel <= TOL:
+        raise AssertionError("estimate_sharded, k=4: off the einsum "
+                             "estimator")
+    rec["paths"]["estimate_sharded, k=4, 1 x 2 mesh"] = {
+        "rel_to_einsum": rel, "launches": launches, "seconds": seconds}
+    del r4, want4, got4
+
+    # 3. repeated launches
+    tm = time.time()
+    rep = trc.repeat_check(dev, repeats=20, modes=("wide_topk",))["kernel"]
+    bad = {k: v for k, v in rep.items() if v["failures"]}
+    log(f"wide K4 / K5 repeated: {sum(v['launches'] for v in rep.values())}"
+        f" launches in {time.time() - tm:.1f}s, failures {bad or 0}")
+    if bad:
+        raise AssertionError(f"the wide K4 / K5 off on repeated launches: "
+                             f"{bad}")
+    rec["repeat_check"] = rep
+
+    # 4. times on the fitted bank at the scale bench's batch
+    ops = kernels.tc_operands(kb)
+    two_m = kb.mu.shape[1]
+    two_d = kb.b.shape[1]
+    k_comp = kb.pw.shape[0]
+    n = r2b.shape[0]
+    logit_flat = kb.pw[:, :, :two_m].permute(1, 0, 2).reshape(
+        two_m, -1).contiguous()
+    gemm = lambda: r2b @ logit_flat  # noqa: E731
+    times = {}
+    for k_sel in WIDE_TOPK_K:
+        einsum_ms = profiling.device_ms(lambda: saved(bank, rb, k_sel, 4096))
+        for name, stats, kern, plain_fn in (
+                (k4, False,
+                 lambda: kernels.grouped_estimate_topk(r2b, kb, k_sel, ops),
+                 lambda: kernels.grouped_estimate_topk_reference(r2b, kb,
+                                                                 k_sel)),
+                (k5, True,
+                 lambda: kernels.grouped_estimate_topk_stats(r2b, kb, k_sel,
+                                                             ops),
+                 lambda: kernels.grouped_estimate_topk_stats_reference(
+                     r2b, kb, k_sel))):
+            plain_ms = profiling.device_ms(plain_fn)
+            ms = profiling.device_ms(kern)
+            ms2 = profiling.device_ms(kern)
+            plain_ms2 = profiling.device_ms(plain_fn)
+            library_ms = profiling.device_ms(gemm)
+            bound_ms, by, tc, fp32, nbytes = wide_topk_bound(
+                n, two_m, two_d, k_comp, k_sel, stats)
+            t = {"ms": ms, "ms_again": ms2, "plain_ms": plain_ms,
+                 "plain_ms_again": plain_ms2, "bound_ms": bound_ms,
+                 "bound_by": by, "library_ms": library_ms,
+                 "einsum_ms": einsum_ms, "tc_flops": tc, "fp32_flops": fp32,
+                 "bytes": nbytes, "share_of_bound": bound_ms / ms}
+            log(f"{name} at N={n}, 2M={two_m}, 2D={two_d}, K={k_comp}, "
+                f"k={k_sel}: kernel {ms:.3f} / {ms2:.3f} ms, plain "
+                f"{plain_ms:.3f} / {plain_ms2:.3f} ms, library (fp32 logit "
+                f"GEMM) {library_ms:.3f} ms, einsum estimator "
+                f"{einsum_ms:.3f} ms, bound {bound_ms:.3f} ms ({by}; "
+                f"{bound_ms / ms:.0%} reached), {n / (ms * 1e-3):.4g} "
+                f"estimates/s; {card}")
+            times[f"{name} k={k_sel}"] = t
+    rec["times"] = times
+    rec["seconds"] = time.time() - t_phase
+    log(f"wide top-k phase 3k: {rec['seconds']:.1f}s")
     return rec
 
 
@@ -3503,7 +3913,15 @@ def main():
 
     # 3j. the large-array dense path: the wide K1-K3, `wide_dense_phase`
     # above
-    wide_rec = wide_dense_phase(dev, card, kernels, errs, add)
+    scale_fit = {}
+    wide_rec = wide_dense_phase(dev, card, kernels, errs, add, scale_fit)
+
+    # 3k. top-k selection on wide banks: the wide K4 / K5,
+    # `wide_topk_phase` above, on the bank phase 3j fitted
+    topk_rec = wide_topk_phase(
+        dev, card, kernels, errs, add,
+        {**scale_fit, **wide_rec["scale_bench_large_d"]})
+    del scale_fit
 
     # 3d. the service over in-process meshes of 1 x 2 and 2 x 2 shards: the
     # dense, structured (K = 64, and the K = 256 spectra-native prior in two
@@ -4316,6 +4734,16 @@ def main():
          "max_abs_err": max(errs["grouped_estimate_topk_stats"]),
          "k_sel": 1, **t5[1], "at_k4": t5[4]},
         *({"name": name, "id": kid, "route": "cuda",
+           "source": src + "grouped_wide_estimate.cu",
+           "replaces": f"{tpu}:{line}", "launches": total_launches[name],
+           "max_abs_err": max(errs[name]), "widths": [512, 512],
+           "n_components": 32, "k_sel": 1,
+           **topk_rec["times"][f"{name} k=1"],
+           "at_k4": topk_rec["times"][f"{name} k=4"]}
+          for name, kid, line in (
+              ("grouped_estimate_topk_wide", "K4_wide", 568),
+              ("grouped_estimate_topk_stats_wide", "K5_wide", 677))),
+        *({"name": name, "id": kid, "route": "cuda",
            "source": src + "mp_circ_estimate.cu", "replaces": f"{tpu}:{line}",
            "launches": total_launches[name], "max_abs_err": max(errs[name]),
            **({"t_coh": 4, "coh_alpha": 1.0} if coh else {}), **rec,
@@ -4449,13 +4877,15 @@ def main():
         "vae": vae_rec,
         "channel_models": models_rec,
         "wide_dense": {k: v for k, v in wide_rec.items() if k != "times"},
+        "wide_topk": {k: v for k, v in topk_rec.items() if k != "times"},
         "new_phases_seconds": {"toeplitz": toep_s,
                                "mesh_service": mesh_serve_s,
                                "csi_free": quant_s,
                                "csi_free_frontier": frontier_s,
                                "vae": vae_rec["seconds"],
                                "channel_models": models_rec["seconds"],
-                               "wide_dense": wide_rec["seconds"]},
+                               "wide_dense": wide_rec["seconds"],
+                               "wide_topk": topk_rec["seconds"]},
         "kernel_tools": {"seconds": tools_s, "launches": launches_tools,
                          "kernel_bench_ms": bench["ms"],
                          "split_bench": split},

@@ -33,7 +33,12 @@ dense-bank part: the block-GEMM bank layout (`KernelBankBlock`,
   `csrc/grouped_topk.cu`, and K5, its split-K stats form
   (`_estimate_kernel_block_grouped_topk_stats`, entry
   `estimate_fused_topk_stats`): a shard's top-k candidates, which
-  `merge_topk` merges exactly.
+  `merge_topk` merges exactly; past 2M, 2D <= 256 the same wrappers launch
+  their wide form (`csrc/grouped_wide_estimate.cu`, the wrappers
+  `grouped_estimate_topk_wide` and `grouped_estimate_topk_stats_wide`):
+  the wide K1's row split and logit pass, the picks bucketed by component
+  on the card, and the six bf16 products of the picked rows with their
+  W_j alone.
 
 K2 and K5 serve banks split over the component axis across ranks
 (`parallel.mesh`); on one card K1, K3 and K4 stream any K in one launch.
@@ -83,9 +88,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 TC_MAX_WIDTH = 256      # 2M and 2D of the wgmma stream (grouped_estimate.cu)
+#                         and of K4 / K5's narrow form (grouped_topk.cu)
 WIDE_MAX_TWO_M = 2048   # 2M of the wide form (grouped_wide_estimate.cu)
-TOPK_MAX_WIDTH = 256    # 2M and 2D of K4 / K5 (grouped_topk.cu)
 TOPK_KERNEL_MAX = 8  # K4's top-k slots a row
+# scratch bytes of one wide top-k launch; a wrapper cuts larger row counts
+# into launches of at most this much
+WIDE_TOPK_SCRATCH = 1 << 30
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -164,6 +172,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.grouped_wide_launch.restype = i32
         lib.grouped_wide_split_launch.argtypes = [ptr] * 2 + [i32] * 3 + [ptr]
         lib.grouped_wide_split_launch.restype = i32
+        lib.grouped_wide_topk_launch.argtypes = [ptr] * 12 + [i32] * 6 + [ptr]
+        lib.grouped_wide_topk_launch.restype = i32
     elif name == "grouped_topk":
         lib.grouped_topk_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
         lib.grouped_topk_launch.restype = i32
@@ -200,20 +210,26 @@ def fused_kernel_eligible(d: int, m: int) -> bool:
     component, K of them within 13 MiB for the whole bank or four within
     the 8-10 MiB chunk budget (`pallas_kernels.py:1043-1060`), so 2M <=
     1842 at K = 1 and <= 922 from K = 4.
-    K4 / K5 keep their own widths (`topk_width_eligible`)."""
+    K4 / K5 take the same widths (`topk_width_eligible`)."""
     return 1 <= 2 * m <= WIDE_MAX_TWO_M and d >= 1
 
 
 def wide_form(two_m: int, two_d: int) -> bool:
     """Does a launch at these widths take the wide form
-    (`csrc/grouped_wide_estimate.cu`)? Past the stream's 2M, 2D <= 256."""
+    (`csrc/grouped_wide_estimate.cu`)? Past the stream's 2M, 2D <= 256, for
+    K1-K3 and K4 / K5 alike."""
     return two_m > TC_MAX_WIDTH or two_d > TC_MAX_WIDTH
 
 
 def topk_width_eligible(d: int, m: int) -> bool:
     """Can the top-k kernels K4 / K5 take a bank of channel dim D and
-    observation dim M? 2M, 2D <= `TOPK_MAX_WIDTH` (256), any K."""
-    return 1 <= 2 * m <= TOPK_MAX_WIDTH and 1 <= 2 * d <= TOPK_MAX_WIDTH
+    observation dim M? The dense kernels' widths (`fused_kernel_eligible`:
+    2M <= 2048, any D and K): `csrc/grouped_topk.cu` up to 2M, 2D <= 256,
+    the wide form past it (`wide_form`). It admits every (D, K, M, k) for
+    which JAX's `topk_mode_eligible` runs a Pallas kernel: K 4 2M (2M +
+    2D) bytes within 13 MiB for the whole bank, or chunks of four within
+    the 8-10 MiB budget (`pallas_kernels.py:764-780`)."""
+    return fused_kernel_eligible(d, m)
 
 
 def tile_rows(two_m: int, two_d: int) -> int:
@@ -677,7 +693,7 @@ def _check_cuda(name: str, t: torch.Tensor, shape, device) -> None:
 def _check_inputs(kernel: str, r2: torch.Tensor, kb: KernelBankBlock,
                   max_width: Optional[int] = None):
     """Validate a CUDA launch's inputs, for a kernel that takes only 2M,
-    2D <= `max_width` (K4 / K5, K14b) or K1-K3's widths (None); returns
+    2D <= `max_width` (K14b) or the widths of K1-K5 (None); returns
     (n, K, 2M, 2D)."""
     n, two_m = r2.shape
     k_comp, _, s_cols = kb.pw.shape
@@ -878,19 +894,32 @@ def grouped_estimate_coherent_stats(r2: torch.Tensor, kb: KernelBankBlock,
     return m, den, acc
 
 
+def _check_topk(kernel: str, k_sel: int, k_comp: int, stats: bool) -> None:
+    """K4 takes 1 <= k <= min(8, K), K5 1 <= k <= 8 (slots past a shard's
+    K hold -inf and zeros)."""
+    top = (f"{TOPK_KERNEL_MAX}" if stats
+           else f"min({TOPK_KERNEL_MAX}, K={k_comp})")
+    if not 1 <= k_sel <= (TOPK_KERNEL_MAX if stats
+                          else min(TOPK_KERNEL_MAX, k_comp)):
+        raise ValueError(f"{kernel} takes 1 <= k <= {top}; got {k_sel}")
+
+
 def grouped_estimate_topk(r2: torch.Tensor, kb: KernelBankBlock,
-                          k_sel: int) -> torch.Tensor:
+                          k_sel: int,
+                          ops: Optional[TcOperands] = None) -> torch.Tensor:
     """K4 on r2 (N, 2M) float32 -> (N, 2D) float32. On a CUDA tensor it
-    launches the CUDA kernel (1 <= k_sel <= min(8, K)) on the current
+    launches the CUDA kernel (1 <= k_sel <= min(8, K); past 2M, 2D <= 256
+    its wide form, `grouped_estimate_topk_wide`, which reads `ops`, the
+    bank's `tc_operands`, laid out in the call when None) on the current
     stream and raises on any refusal; on a CPU tensor it computes the plain
     version."""
     if not r2.is_cuda:
         return grouped_estimate_topk_reference(r2, kb, k_sel)
-    n, k_comp, two_m, two_d = _check_inputs("grouped_estimate_topk", r2, kb,
-                                            max_width=TOPK_MAX_WIDTH)
-    if not 1 <= k_sel <= min(TOPK_KERNEL_MAX, k_comp):
-        raise ValueError(f"grouped_estimate_topk takes 1 <= k <= "
-                         f"min({TOPK_KERNEL_MAX}, K={k_comp}); got {k_sel}")
+    n, k_comp, two_m, two_d = _check_inputs("grouped_estimate_topk", r2, kb)
+    _check_topk("grouped_estimate_topk", k_sel, k_comp, False)
+    if wide_form(two_m, two_d):
+        return _launch_wide_topk(grouped_estimate_topk_wide, r2, kb, k_sel,
+                                 ops, dims=(n, k_comp, two_m, two_d))
     out = torch.empty((n, two_d), dtype=torch.float32, device=r2.device)
     if n == 0:
         return out
@@ -906,20 +935,24 @@ def grouped_estimate_topk(r2: torch.Tensor, kb: KernelBankBlock,
 
 
 def grouped_estimate_topk_stats(r2: torch.Tensor, kb: KernelBankBlock,
-                                k_sel: int):
+                                k_sel: int,
+                                ops: Optional[TcOperands] = None):
     """K5 on r2 (N, 2M) float32 -> the top-k candidates of this (shard of
     a) bank, l (N, k_sel) sorted descending and z (N, k_sel, 2D); slots
     past the shard's K hold -inf and zeros. On a CUDA tensor it launches
-    the CUDA kernel (1 <= k_sel <= 8, any K) on the current stream and
-    raises on any refusal; on a CPU tensor it computes the plain
-    version."""
+    the CUDA kernel (1 <= k_sel <= 8, any K; past 2M, 2D <= 256 its wide
+    form, `grouped_estimate_topk_stats_wide`, ops as for
+    `grouped_estimate_topk`) on the current stream and raises on any
+    refusal; on a CPU tensor it computes the plain version."""
     if not r2.is_cuda:
         return grouped_estimate_topk_stats_reference(r2, kb, k_sel)
     n, k_comp, two_m, two_d = _check_inputs("grouped_estimate_topk_stats",
-                                            r2, kb, max_width=TOPK_MAX_WIDTH)
-    if not 1 <= k_sel <= TOPK_KERNEL_MAX:
-        raise ValueError(f"grouped_estimate_topk_stats takes 1 <= k <= "
-                         f"{TOPK_KERNEL_MAX}; got {k_sel}")
+                                            r2, kb)
+    _check_topk("grouped_estimate_topk_stats", k_sel, k_comp, True)
+    if wide_form(two_m, two_d):
+        return _launch_wide_topk(grouped_estimate_topk_stats_wide, r2, kb,
+                                 k_sel, ops, stats=True,
+                                 dims=(n, k_comp, two_m, two_d))
     f32 = torch.float32
     l_out = torch.empty((n, k_sel), dtype=f32, device=r2.device)
     z_out = torch.empty((n, k_sel, two_d), dtype=f32, device=r2.device)
@@ -1077,6 +1110,149 @@ def grouped_estimate_coherent_stats_wide(r2: torch.Tensor,
                         t_coh, coh_alpha, stats=True)
 
 
+# ---------------------------------------------------------------------------
+# the wide form of K4 and K5 (csrc/grouped_wide_estimate.cu)
+# ---------------------------------------------------------------------------
+
+def wide_topk_pairs(n: int, k_comp: int, k_sel: int) -> int:
+    """Blocks of two 64-row tiles that the wide top-k's value pass may need
+    for n rows' k_sel picks over K components: each component's picks
+    start a block of their own, so ceil(n k / 128) + K (the kernel's
+    `topk_pairs`)."""
+    return -(-n * k_sel // 128) + k_comp
+
+
+def wide_topk_buckets(idx: torch.Tensor, k_comp: int):
+    """The layout of the picks that the wide top-k's value pass reads, in
+    plain PyTorch: idx (N, k) the picked component of each (row, slot)
+    entry (-1: an empty slot) -> (pair_comp (`wide_topk_pairs`,) int32, the
+    component of each block of 128 positions, -1 past the used ones; perm
+    (128 pairs,) int32, the entry row k + slot at each position, -1 for
+    padding). Component j's entries fill positions from 128 times the
+    blocks before it; here in ascending entry order, on the card in the
+    order of the scatter's atomics (no sum depends on it)."""
+    n, k_sel = idx.shape
+    pairs = wide_topk_pairs(n, k_comp, k_sel)
+    flat = idx.reshape(-1).long()
+    count = torch.bincount(flat[flat >= 0], minlength=k_comp)
+    blocks = (count + 127) // 128
+    start = torch.cumsum(blocks, 0) - blocks                # in blocks
+    pair_comp = torch.full((pairs,), -1, dtype=torch.int32)
+    pair_comp[:int(blocks.sum())] = torch.repeat_interleave(
+        torch.arange(k_comp, dtype=torch.int32), blocks)
+    perm = torch.full((128 * pairs,), -1, dtype=torch.int32)
+    ent = torch.nonzero(flat >= 0)[:, 0]
+    comp = flat[ent]
+    order = torch.argsort(comp, stable=True)
+    ent, comp = ent[order], comp[order]
+    rank = torch.arange(ent.numel()) - (torch.cumsum(count, 0) - count)[comp]
+    perm[128 * start[comp] + rank] = ent.to(torch.int32)
+    return pair_comp, perm
+
+
+def _wide_topk_rows(n: int, k_comp: int, two_m: int, two_d: int, k_sel: int,
+                    stats: bool) -> int:
+    """Rows of one wide top-k launch: all n, or as many as keep its scratch
+    within `WIDE_TOPK_SCRATCH`, a multiple of 128. A row costs its three
+    bf16 planes once for the logits and once a pick, its K logits, and its
+    picks' logits, components and positions (and, for K4 at k > 1, their
+    candidates); each component's last block of 128 positions may be
+    padding."""
+    planes = 6 * 64 * -(-two_m // 64)
+    per_row = (planes * (k_sel + 1) + 4 * (k_comp + 3 * k_sel)
+               + (0 if stats or k_sel == 1 else 4 * k_sel * two_d))
+    padding = (planes + 4) * 128 * k_comp
+    rows = max(128, (WIDE_TOPK_SCRATCH - padding) // per_row // 128 * 128)
+    return min(n, rows)
+
+
+def _launch_wide_topk(wrapper, r2: torch.Tensor, kb: KernelBankBlock,
+                      k_sel: int, ops: Optional[TcOperands],
+                      stats: bool = False, dims=None):
+    """Launch the wide K4 (or with `stats` K5) on r2's device and current
+    stream, one launch of `grouped_wide_topk_launch` for each row chunk
+    (`_wide_topk_rows`), and add one to `wrapper`'s count for each: -> the
+    output (N, 2D), or with `stats` (l (N, k), z (N, k, 2D)); raise on a
+    cudaError. dims: (N, K, 2M, 2D) from a caller that has checked the
+    inputs and k, else None (checked here)."""
+    kernel = wrapper.__name__
+    if dims is None:
+        dims = _check_inputs(kernel, r2, kb)
+        _check_topk(kernel, k_sel, dims[1], stats)
+    n, k_comp, two_m, two_d = dims
+    dev, f32 = r2.device, torch.float32
+    if stats:
+        l_out = torch.empty((n, k_sel), dtype=f32, device=dev)
+        z_out = torch.empty((n, k_sel, two_d), dtype=f32, device=dev)
+        out, result = None, (l_out, z_out)
+    else:
+        out = torch.empty((n, two_d), dtype=f32, device=dev)
+        result = out
+    if n == 0:
+        return result
+    if ops is None:
+        ops = tc_operands(kb)
+    check_tc_operands(kernel, ops, kb, dev)
+    rows = _wide_topk_rows(n, k_comp, two_m, two_d, k_sel, stats)
+    n_ch = -(-two_m // TC_PIECE)
+    pairs = wide_topk_pairs(rows, k_comp, k_sel)
+    tiles = max(wide_row_tiles(rows), 2 * pairs)
+    a = torch.empty((3, tiles, n_ch, TC_PIECE, TC_PIECE),
+                    dtype=torch.bfloat16, device=dev)
+    lg = torch.empty((rows, k_comp), dtype=f32, device=dev)
+    ints = torch.empty((rows * k_sel + 2 * k_comp + 129 * pairs,),
+                       dtype=torch.int32, device=dev)
+    if not stats:
+        l_out = torch.empty((rows, k_sel), dtype=f32, device=dev)
+        z_out = (torch.empty((rows, k_sel, two_d), dtype=f32, device=dev)
+                 if k_sel > 1 else None)
+    lib = _library("grouped_wide_estimate")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for i0 in range(0, n, rows):
+            i1 = min(n, i0 + rows)
+            chunk = slice(i0, i1) if stats else slice(0, i1 - i0)
+            err = lib.grouped_wide_topk_launch(
+                r2[i0:i1].data_ptr(), ops.hi.data_ptr(), ops.lo.data_ptr(),
+                ops.lo2.data_ptr(), ops.vec.data_ptr(), kb.logw.data_ptr(),
+                l_out[chunk].data_ptr(),
+                None if z_out is None else z_out[chunk].data_ptr(),
+                None if out is None else out[i0:i1].data_ptr(), a.data_ptr(),
+                lg.data_ptr(), ints.data_ptr(), i1 - i0, k_comp, two_m, two_d,
+                int(k_sel), int(stats), stream)
+            if err != 0:
+                raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+            wrapper.launches += 1
+    return result
+
+
+def grouped_estimate_topk_wide(r2: torch.Tensor, kb: KernelBankBlock,
+                               k_sel: int,
+                               ops: Optional[TcOperands] = None
+                               ) -> torch.Tensor:
+    """K4's wide form on r2 (N, 2M) float32 -> (N, 2D) float32, ops as for
+    `grouped_estimate_topk` (which launches it past 2M, 2D <= 256). On a
+    CUDA tensor it launches the CUDA kernels (2M <= 2048, any 2D, 1 <= k_sel
+    <= min(8, K)) on the current stream and raises on any refusal; on a
+    CPU tensor it computes the plain version
+    (`grouped_estimate_topk_reference`)."""
+    if not r2.is_cuda:
+        return grouped_estimate_topk_reference(r2, kb, k_sel)
+    return _launch_wide_topk(grouped_estimate_topk_wide, r2, kb, k_sel, ops)
+
+
+def grouped_estimate_topk_stats_wide(r2: torch.Tensor, kb: KernelBankBlock,
+                                     k_sel: int,
+                                     ops: Optional[TcOperands] = None):
+    """K5's wide form: `grouped_estimate_topk_stats` (which launches it
+    past 2M, 2D <= 256) at any width up to 2M = 2048 -> (l (N, k_sel), z
+    (N, k_sel, 2D)). On a CPU tensor the plain version."""
+    if not r2.is_cuda:
+        return grouped_estimate_topk_stats_reference(r2, kb, k_sel)
+    return _launch_wide_topk(grouped_estimate_topk_stats_wide, r2, kb, k_sel,
+                             ops, stats=True)
+
+
 _WRAPPERS: list = []
 
 
@@ -1093,7 +1269,8 @@ register_wrappers(grouped_estimate, grouped_estimate_coherent,
                   grouped_estimate_coherent_stats, grouped_estimate_topk_stats,
                   grouped_estimate_wide, grouped_estimate_coherent_wide,
                   grouped_estimate_stats_wide,
-                  grouped_estimate_coherent_stats_wide)
+                  grouped_estimate_coherent_stats_wide,
+                  grouped_estimate_topk_wide, grouped_estimate_topk_stats_wide)
 
 
 def reset_launch_counts() -> None:
@@ -1204,9 +1381,11 @@ def estimate_fused_coherent_stats(bank: PreparedBank, r: torch.Tensor,
 def topk_mode_eligible(d: int, k_comp: int, m: int, k_sel) -> bool:
     """Can K4 serve selection mode `k_sel` for a bank of K components,
     channel dim D and observation dim M? An int (not a bool)
-    1 <= k <= min(8, K - 1) (k = K is the 'all' combine), and
-    2M, 2D <= 256 (`topk_width_eligible`). Dims-based, so a service can
-    decide before any bank exists."""
+    1 <= k <= min(8, K - 1) (k = K is the 'all' combine), and 2M <= 2048
+    (`topk_width_eligible`; past 2M, 2D <= 256 the wide form). The one
+    rule of `stages.estimate_auto`, the service and
+    `parallel.mesh.estimate_sharded`. Dims-based, so a service can decide
+    before any bank exists."""
     if not isinstance(k_sel, int) or isinstance(k_sel, bool):
         return False
     return (1 <= k_sel <= min(TOPK_KERNEL_MAX, k_comp - 1)
@@ -1221,18 +1400,28 @@ def topk_kernel_eligible(bank: PreparedBank, k_sel) -> bool:
 
 def estimate_fused_topk(bank: PreparedBank, r: torch.Tensor, k_sel: int,
                         cache: Optional[dict] = None) -> torch.Tensor:
-    """Top-k selection estimate of r (N, M) -> (N, D) through K4: the
-    drop-in for `gmm_estimator.estimate(bank, r, k_sel)` for int modes
-    within `topk_kernel_eligible` (others raise). `cache`: see
-    `lowered`."""
+    """Top-k selection estimate of r (N, M) -> (N, D) through K4 (past 2M,
+    2D <= 256 its wide form): the drop-in for `gmm_estimator.estimate(bank,
+    r, k_sel)` for int modes within `topk_kernel_eligible` (others raise).
+    `cache`: see `lowered`."""
     if not topk_kernel_eligible(bank, k_sel):
-        k_comp = bank.filters.shape[0]
+        k_comp, _, m = bank.filters.shape
         raise ValueError(
             f"top-k kernel needs an int 1 <= k <= min({TOPK_KERNEL_MAX}, "
-            f"K-1) and 2M, 2D <= {TOPK_MAX_WIDTH} (got k={k_sel!r}, "
-            f"K={k_comp})")
-    h2 = grouped_estimate_topk(_r2(r), lowered(bank, cache), int(k_sel))
+            f"K-1) and 2M <= {WIDE_MAX_TWO_M} (got k={k_sel!r}, K={k_comp}, "
+            f"2M={2 * m})")
+    kb = lowered(bank, cache)
+    h2 = grouped_estimate_topk(_r2(r), kb, int(k_sel),
+                               _topk_ops(bank, kb, r, cache))
     return _h(h2, bank.filters.shape[1], r.dtype)
+
+
+def _topk_ops(bank: PreparedBank, kb: KernelBankBlock, r: torch.Tensor,
+              cache: Optional[dict]) -> Optional[TcOperands]:
+    """The cached `tc_operands` for a top-k launch in the wide form (on a
+    card past 2M, 2D <= 256), else None: the narrow K4 / K5 read kb."""
+    _, d, m = bank.filters.shape
+    return (_launch_ops(kb, r, cache) if wide_form(2 * m, 2 * d) else None)
 
 
 def estimate_fused_topk_stats(bank: PreparedBank, r: torch.Tensor, k_sel: int,
@@ -1245,7 +1434,9 @@ def estimate_fused_topk_stats(bank: PreparedBank, r: torch.Tensor, k_sel: int,
     `lowered`."""
     _, d, m = bank.filters.shape
     if not topk_width_eligible(d, m):
-        raise ValueError(f"the top-k stats kernel takes 2M, 2D <= "
-                         f"{TOPK_MAX_WIDTH}; got M={m}, D={d}")
-    return grouped_estimate_topk_stats(_r2(r), lowered(bank, cache),
-                                       int(k_sel))
+        raise ValueError(f"the top-k stats kernel takes 2M <= "
+                         f"{WIDE_MAX_TWO_M} (its wide form past 2M, 2D <= "
+                         f"{TC_MAX_WIDTH}); got M={m}, D={d}")
+    kb = lowered(bank, cache)
+    return grouped_estimate_topk_stats(_r2(r), kb, int(k_sel),
+                                       _topk_ops(bank, kb, r, cache))

@@ -200,24 +200,29 @@ def _merge_components(mesh: DeviceMesh, m, den, acc) -> torch.Tensor:
     return _quotient(den, acc)
 
 
+def _merged_quotient(states) -> torch.Tensor:
+    """The component shards' states (m, den, acc) merged with
+    `kernels.merge_stats`: the normalised quotient."""
+    return _quotient(*merge_stats(*zip(*states))[1:])
+
+
 def _local_merged(mesh: LocalMesh, bank, r: torch.Tensor, stats_fn,
-                  caches) -> torch.Tensor:
+                  caches, merge: Callable = _merged_quotient) -> torch.Tensor:
     """Every shard of an in-process mesh: for each 'data' window of r, each
     component shard's state by `stats_fn(bank_l, r_l, cache)` on its own
-    stream, merged with `kernels.merge_stats`; the windows' quotients in
-    order. On a card every shard stream waits for r to land on the
-    current stream, r is recorded on the streams that read it and the
-    states on the current stream, which waits for every shard before the
-    merge."""
+    stream, merged by `merge` (default: `kernels.merge_stats` and the
+    quotient); the windows' estimates in order. On a card every shard
+    stream waits for r to land on the current stream, r is recorded on the
+    streams that read it and the states on the current stream, which waits
+    for every shard before the merge."""
     n_d, n_c = mesh.shape[DATA_AXIS], mesh.shape[COMPONENT_AXIS]
     shards = [bank_shard(bank, n_c, j) for j in range(n_c)]
     caches = [None] * n_c if caches is None else caches
     rows = [r[_window(r.shape[0], n_d, i, "n_samples")] for i in range(n_d)]
     streams = mesh.streams(r.device)
     if streams[0] is None:
-        return torch.cat([_quotient(*merge_stats(*zip(*[
-            stats_fn(shards[j], r_i, caches[j]) for j in range(n_c)]))[1:])
-            for r_i in rows])
+        return torch.cat([merge([stats_fn(shards[j], r_i, caches[j])
+                                 for j in range(n_c)]) for r_i in rows])
     main = torch.cuda.current_stream(r.device)
     landed = main.record_event()
     states = [[None] * n_c for _ in rows]
@@ -232,8 +237,7 @@ def _local_merged(mesh: LocalMesh, bank, r: torch.Tensor, stats_fn,
         for state in row_states:
             for x in state:
                 x.record_stream(main)
-    return torch.cat([_quotient(*merge_stats(*zip(*row_states))[1:])
-                      for row_states in states])
+    return torch.cat([merge(row_states) for row_states in states])
 
 
 def _sharded(mesh, bank, r: torch.Tensor, stats_fn: Callable,
@@ -508,27 +512,47 @@ def _gather_bank(mesh: DeviceMesh, bank_l):
 def estimate_sharded(mesh: DeviceMesh, bank: PreparedBank, r: torch.Tensor,
                      mode: Union[str, int, float] = "all",
                      chunk_size: int = 2048,
-                     coherence_alpha: float = 1.0) -> torch.Tensor:
+                     coherence_alpha: float = 1.0, use_kernel: bool = True,
+                     caches: Optional[Sequence[dict]] = None
+                     ) -> torch.Tensor:
     """Sharded estimation in every selection mode, samples over 'data' and
     the bank over 'component':
 
       - 'all': `estimate_sharded_kernel`;
       - int top-k modes within `kernels.topk_mode_eligible` (flat rows): K5
-        on each shard, the shards' k candidates all-gathered over
-        'component' (k (1 + 2D) floats a row, independent of K) and merged
-        with `kernels.merge_topk` (ties to the lower component, as one K4
-        launch);
-      - float cumulative-p modes and rank-3 selection requests: the einsum
-        estimator on the bank all-gathered over 'component' (JAX's GSPMD
-        route is that einsum).
+        (past 2M, 2D <= 256 its wide form) on each shard, the shards' k
+        candidates all-gathered over 'component' (k (1 + 2D) floats a row,
+        independent of K) and merged with `kernels.merge_topk` (ties to the
+        lower component, as one K4 launch);
+      - float cumulative-p modes, rank-3 selection requests and, with
+        `use_kernel=False`, every selection mode: the einsum estimator on
+        the bank all-gathered over 'component' (JAX's GSPMD route is that
+        einsum).
 
-    Returns this rank's data shard of the estimate."""
+    On a `LocalMesh` every shard runs in process (`_local_merged`: each
+    component shard on its own stream) and all rows are returned; else
+    this rank's data shard of the estimate. `caches`: see `_sharded`."""
     if mode == "all":
-        return estimate_sharded_kernel(mesh, bank, r, chunk_size=chunk_size,
-                                       coherence_alpha=coherence_alpha)
+        return estimate_sharded_kernel(mesh, bank, r, use_kernel, chunk_size,
+                                       coherence_alpha, caches)
     k, d, m = bank.filters.shape
+    topk = (use_kernel and r.dim() == 2
+            and kernels.topk_mode_eligible(d, k, m, mode))
+    if isinstance(mesh, LocalMesh):
+        if topk:
+            return _local_merged(
+                mesh, bank, r,
+                lambda b, x, c: kernels.estimate_fused_topk_stats(b, x, mode,
+                                                                  c),
+                caches, lambda states: kernels._h(kernels.merge_topk(
+                    *zip(*states), mode), d, r.dtype))
+        if r.dim() == 3:
+            return gmm_estimator.estimate_coherent(
+                bank, r, mode, max(1, chunk_size // r.shape[1]),
+                float(coherence_alpha))
+        return gmm_estimator.estimate(bank, r, mode, chunk_size)
     bank_l, r_l = shard_bank(mesh, bank), shard_data(mesh, r)
-    if r.dim() == 2 and kernels.topk_mode_eligible(d, k, m, mode):
+    if topk:
         ls, zs = kernels.estimate_fused_topk_stats(bank_l, r_l, mode)
         h2 = kernels.merge_topk(_gather_components(mesh, ls),
                                 _gather_components(mesh, zs), mode)

@@ -32,13 +32,17 @@ own CUDA stream; every fault reaches the waiting clients through their
 request.
 
 With `mesh=parallel.mesh.make_local_mesh(n_data, n_component)` ('all'
-mode only) every microbatch runs split: its rows over "data", the bank's
-components over "component", each component shard through its stats
-kernel on its own CUDA stream (K2 flat and coherent for a dense bank, K8 /
-K9 for a single-pilot circulant one, K13 for flat factored requests; the
-pipelines' stats forms for a multi-pilot circulant bank and factored
-blocks), the shard states merged with `kernels.merge_stats`
-(`parallel.mesh.estimate_sharded_kernel` / `_circulant` / `_factored`).
+mode, or on a dense bank an int top-k mode within
+`kernels.topk_mode_eligible`) every microbatch runs split: its rows over
+"data", the bank's components over "component", each component shard
+through its stats kernel on its own CUDA stream (K2 flat and coherent for
+a dense bank, K8 / K9 for a single-pilot circulant one, K13 for flat
+factored requests; the pipelines' stats forms for a multi-pilot circulant
+bank and factored blocks), the shard states merged with
+`kernels.merge_stats` (`parallel.mesh.estimate_sharded_kernel` /
+`_circulant` / `_factored`); in a top-k mode each dense shard's flat rows
+through K5, the candidates merged with `kernels.merge_topk`, and blocks
+through the einsum estimator (`parallel.mesh.estimate_sharded`).
 Each bank shard's kernel layouts are kept with the bank. The service is one
 process: a `torch.distributed` `DeviceMesh` is refused.
 
@@ -88,6 +92,9 @@ class ServiceClosedError(RuntimeError):
 
 
 # latency histogram bucket upper bounds (seconds); +inf implicit
+_MESH_MODES = ("mesh-backed serving computes the 'all'-mode merge, or on a "
+               "dense bank an int top-k mode within "
+               "kernels.topk_mode_eligible (got mode={!r})")
 _LATENCY_BUCKETS = (0.001, 0.002, 0.005, 0.01, 0.02, 0.05, 0.1, 0.2,
                     0.5, 1.0, 2.0, 5.0)
 
@@ -215,9 +222,10 @@ class EstimationService:
                 "of parallel.mesh.make_local_mesh(n_data, n_component), not "
                 f"{type(mesh).__name__} (a torch.distributed DeviceMesh "
                 "serves through the harness stages instead)")
-        if mesh is not None and mode != "all":
-            raise ValueError("mesh-backed serving computes the dense "
-                             f"'all'-mode merge (got mode={mode!r})")
+        if mesh is not None and mode != "all" and (
+                structured or factored or not isinstance(mode, int)
+                or isinstance(mode, bool)):
+            raise ValueError(_MESH_MODES.format(mode))
         n_data = 1 if mesh is None else mesh.shape[pmesh.DATA_AXIS]
         if n_data & (n_data - 1):
             # microbatches are padded to powers of two
@@ -290,15 +298,17 @@ class EstimationService:
             kernel_ok = (kernels.fused_kernel_eligible(d, m)
                          if mode == "all" else kernels.topk_mode_eligible(
                              d, k_comp, m, mode))
+            if mesh is not None and mode != "all" and not kernel_ok:
+                raise ValueError(_MESH_MODES.format(mode))
             if use_kernels and not kernel_ok:
                 # the kernels compute the 'all' combine and int top-k
                 # selections; serving 'all' results for another mode would
                 # be wrong answers, not slow ones
                 raise ValueError(
-                    "use_kernels=True requires mode='all' with 2M <= "
-                    f"{kernels.WIDE_MAX_TWO_M}, or an int top-k mode with "
-                    f"1 <= k <= min({kernels.TOPK_KERNEL_MAX}, K-1) and "
-                    f"2M, 2D <= {kernels.TOPK_MAX_WIDTH} (got "
+                    "use_kernels=True requires mode='all' or an int top-k "
+                    f"mode with 1 <= k <= min({kernels.TOPK_KERNEL_MAX}, "
+                    f"K-1), and 2M <= {kernels.WIDE_MAX_TWO_M} at any D "
+                    "(2M, 2D past 256: the kernels' wide form) (got "
                     f"mode={mode!r}, K={k_comp}, M={m}, D={d})")
         self.use_kernels = kernel_ok if use_kernels is None else use_kernels
         self._stream = (torch.cuda.Stream(self.device)
@@ -451,8 +461,9 @@ class EstimationService:
     def _estimate_mesh(self, entry: _BankEntry, r: torch.Tensor,
                        alpha: float) -> torch.Tensor:
         """Flat rows or blocks through the mesh's component shards, merged
-        (`parallel.mesh`): K2, K8 / K9 or K13 with the kernels, else the
-        einsum, `torch.fft` or `torch.matmul` stats paths."""
+        (`parallel.mesh`): K2 (K5 in a top-k mode), K8 / K9 or K13 with
+        the kernels, else the einsum, `torch.fft` or `torch.matmul` stats
+        paths."""
         if self.structured:
             return pmesh.estimate_sharded_circulant(
                 self.mesh, entry.bank, r, coherence_alpha=alpha,
@@ -464,9 +475,9 @@ class EstimationService:
                 self.mesh, entry.bank, r, coherence_alpha=alpha,
                 use_kernel=None if self.use_kernels else False,
                 caches=entry.shards)
-        return pmesh.estimate_sharded_kernel(
-            self.mesh, entry.bank, r, use_kernel=self.use_kernels,
-            coherence_alpha=alpha, caches=entry.shards)
+        return pmesh.estimate_sharded(
+            self.mesh, entry.bank, r, self.mode, coherence_alpha=alpha,
+            use_kernel=self.use_kernels, caches=entry.shards)
 
     def _resolve_alpha(self, snr: float, t_coh: int) -> float:
         """Blend for a (snr, T) block queue: the fixed setting, or the

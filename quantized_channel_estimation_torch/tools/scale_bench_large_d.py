@@ -43,6 +43,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from typing import Optional
 
 import torch
 
@@ -81,9 +82,12 @@ def _fit(gen, h_train, k, cov_type, segments, max_iter):
 def main(d: int = D, k: int = K, cov_type: str = COV,
          segments: int = SEGMENTS, n_train: int = N_TRAIN,
          n_val: int = N_VAL, batch: int = BATCH, reps: int = REPS,
-         max_iter: int = MAX_ITER, device=None) -> dict:
+         max_iter: int = MAX_ITER, device=None,
+         keep: Optional[dict] = None) -> dict:
     """One run as the module docstring says; prints and returns its JSON
-    record."""
+    record. `keep`, a dict, receives the run's fitted bank ("bank"), its
+    validation observations and channels ("r", "h_val") and the timed
+    batch ("batch"), for a caller that estimates on them further."""
     dev = stages.resolve_device(device)
     on_card = dev.type == "cuda"
 
@@ -132,6 +136,8 @@ def main(d: int = D, k: int = K, cov_type: str = COV,
 
     g3 = gen(3)
     rb = stages.observe(g3, crandn(g3, (batch, d)), SNR_DB, None, N_BITS, q)
+    if keep is not None:
+        keep.update(bank=bank, r=r, h_val=h_val, batch=rb)
     estimators = {
         "kernel": lambda x: stages.estimate_auto(bank, x, "all"),
         "einsum": lambda x: gmm_estimator.estimate(bank, x, "all", 4096)}

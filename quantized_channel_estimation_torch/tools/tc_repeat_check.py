@@ -26,6 +26,16 @@ of K1 and K3 (`WIDE_SHAPES`: 2M and 2D past the stream's 256, an odd
 number of value pieces, contraction widths no multiple of 64, one and
 three waves of blocks, K3 at T = 4 and 3).
 
+Mode 'wide_topk' does the same for the wide form of K4 and K5
+(`WIDE_TOPK_SHAPES`: D = 256 at one pilot and five pilots at D = 64, k =
+1, 4 and 8, a component none of the rows picks and one most rows pick, a
+shard of fewer components than k, two waves of blocks), each launch's
+outputs written where the last launch's outputs lay, filled with NaN
+after it was read; a launch fails if any output's bits differ from the
+first launch's, and the first launch if K4 is further than 1e-4 of the
+scale from its plain version on the rows whose k-th and (k+1)-th logits
+are not near a tie (`topk_near_ties`).
+
 Mode 'karatsuba' does the same for K14a (`KARATSUBA_SHAPES`: one and two
 consumer warpgroups a block, 32-column pieces, two contraction chunks); a
 launch fails if its bits differ from the first launch's or if it is
@@ -57,7 +67,8 @@ headline widths (131072 rows, 2M = 2D = 128, K = 64).
 
     python -m quantized_channel_estimation_torch.tools.tc_repeat_check \
         [--repeats R] \
-        [--modes bf16 split2 split3 f32 wide karatsuba fact mpcirc circ] \
+        [--modes bf16 split2 split3 f32 wide wide_topk karatsuba fact mpcirc
+                 circ] \
         [--no-poison] \
         [--without-proxy-fence [--time]]
 
@@ -109,6 +120,17 @@ WIDE_SHAPES = (
     (400, 400, 3, 2 * 132 * 128 + 5, 0, 1, 1.0),  # ragged pieces, 2 waves
     (512, 128, 4, 4 * 1001, 1, 4, 1.0),     # K3, T = 4: quad shuffles
     (512, 256, 4, 3 * 701, 0, 3, 0.5),      # K3, T = 3: shared memory
+)
+# the wide K4 / K5: (2M, 2D, K, N, dead components, k, logit shift of
+# component 0: a positive shift makes most rows pick it, a negative one
+# none)
+WIDE_TOPK_SHAPES = (
+    (512, 512, 32, 4096, 2, 1, 0.0),        # D = 256 at one pilot
+    (512, 512, 32, 4096, 2, 4, 0.0),
+    (640, 128, 6, 1201, 1, 8, 0.0),         # five pilots at D = 64, k = 8
+    (400, 400, 5, 2 * 132 * 128 + 5, 0, 3, 30.0),   # one component dominates
+    (272, 16, 9, 777, 1, 2, -1e4),          # a component no row picks
+    (512, 128, 3, 500, 0, 5, 0.0),          # K5: a shard of fewer than k
 )
 # K14a: (M, D, K, N, dead components)
 KARATSUBA_SHAPES = (
@@ -274,6 +296,65 @@ def random_karatsuba_bank(m, d, k, dev, n_dead=0, seed=0):
                        wt_re + wt_im, rnd(k, m, scale=0.3),
                        rnd(k, m, scale=0.3), rnd(k, d), rnd(k, d), logw)
     return vk.KernelBank(*(x.to(dev).contiguous() for x in kb))
+
+
+def topk_near_ties(lg: torch.Tensor, k_sel: int, gap: float = 1e-3,
+                   rel: float = 0.0) -> torch.Tensor:
+    """Rows of logits lg (N, K) whose k-th and (k+1)-th largest lie within
+    max(gap, rel |k-th|): two float32 sums in another order may order them
+    differently. None at k >= K."""
+    if k_sel >= lg.shape[1]:
+        return torch.zeros(lg.shape[0], dtype=torch.bool, device=lg.device)
+    top = lg.topk(k_sel + 1, dim=-1).values
+    return (top[:, -2] - top[:, -1]) < torch.clamp(rel * top[:, -2].abs(),
+                                                   min=gap)
+
+
+def _wide_topk_check(dev, shapes, repeats, poison) -> dict:
+    """Mode 'wide_topk' of `repeat_check`: {label: {"launches", "failures",
+    "max_err"}} over the wide K4 and K5 at `shapes`."""
+    out = {}
+    for two_m, two_d, k, n, n_dead, k_sel, shift in shapes:
+        kb = random_bank(two_m, two_d, k, dev, n_dead)
+        if shift:
+            kb = kb._replace(logw=torch.cat([kb.logw[:1] + shift,
+                                             kb.logw[1:]]))
+        ops = kernels.tc_operands(kb)
+        r2 = random_rows(n, two_m, dev)
+        keep = ~topk_near_ties(kernels.component_logits(r2, kb), k_sel)
+        runs = {"K5": lambda: kernels.grouped_estimate_topk_stats_wide(
+            r2, kb, k_sel, ops)}
+        if k_sel <= k:
+            runs["K4"] = lambda: kernels.grouped_estimate_topk_wide(
+                r2, kb, k_sel, ops)
+            want = kernels.grouped_estimate_topk_reference(r2, kb, k_sel)
+        for name, run in runs.items():
+            first, errs, fails = None, [], 0
+            for _ in range(repeats):
+                if poison:
+                    poison_shared_memory(dev)
+                got = run()
+                got = got if isinstance(got, tuple) else (got,)
+                if first is None:
+                    first = tuple(x.clone() for x in got)
+                    err = 0.0
+                    if name == "K4":
+                        err = float((got[0] - want)[keep].abs().max()
+                                    / want.abs().max())
+                        fails += not err <= TOL
+                    errs.append(err)
+                else:
+                    fails += not all(torch.equal(x.view(torch.int32),
+                                                 y.view(torch.int32))
+                                     for x, y in zip(got, first))
+                for x in got:       # the next launch's outputs land here
+                    x.fill_(math.nan)
+                del got
+            label = (f"{two_m}/{two_d} K={k} N={n} dead={n_dead} "
+                     f"k={k_sel} shift={shift} {name} wide")
+            out[label] = {"launches": repeats, "failures": fails,
+                          "max_err": max(errs)}
+    return out
 
 
 def _karatsuba_check(dev, shapes, repeats, poison) -> dict:
@@ -579,6 +660,7 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
                  without_fence=False, modes=tuple(vk.TC_WRAPPERS),
                  f32_shapes=F32_SHAPES,
                  wide_shapes=WIDE_SHAPES,
+                 wide_topk_shapes=WIDE_TOPK_SHAPES,
                  karatsuba_shapes=KARATSUBA_SHAPES,
                  fact_shapes=FACT_SHAPES,
                  mpcirc_shapes=MPCIRC_SHAPES,
@@ -586,7 +668,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     """Every (shape, mode): `repeats` launches of K14b (and of the copy
     without the fence), each held against the plain version; mode 'f32':
     K1 and K3 at `f32_shapes`; mode 'wide': their wide form at
-    `wide_shapes`; mode 'karatsuba': K14a at
+    `wide_shapes`; mode 'wide_topk': the wide K4 and K5 at
+    `wide_topk_shapes`; mode 'karatsuba': K14a at
     `karatsuba_shapes`; mode 'fact': K11-K13 at `fact_shapes`; mode
     'mpcirc': K10 at `mpcirc_shapes`; mode 'circ': K6-K9 at
     `circ_shapes`. Returns
@@ -598,6 +681,9 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
         result["kernel"].update(_f32_check(dev, f32_shapes, repeats, poison))
     if "wide" in modes:
         result["kernel"].update(_f32_check(dev, wide_shapes, repeats, poison))
+    if "wide_topk" in modes:
+        result["kernel"].update(_wide_topk_check(dev, wide_topk_shapes,
+                                                 repeats, poison))
     if "karatsuba" in modes:
         result["kernel"].update(_karatsuba_check(dev, karatsuba_shapes,
                                                  repeats, poison))
@@ -611,8 +697,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
         result["kernel"].update(_circ_check(dev, circ_shapes, repeats,
                                             poison))
     modes = [m for m in modes
-             if m not in ("f32", "wide", "karatsuba", "fact", "mpcirc",
-                          "circ")]
+             if m not in ("f32", "wide", "wide_topk", "karatsuba", "fact",
+                          "mpcirc", "circ")]
     for two_m, two_d, k, n, n_dead in shapes if modes else ():
         kb = random_bank(two_m, two_d, k, dev, n_dead)
         planes = kernels.split_planes(kb.pw)
@@ -665,10 +751,10 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default=None)
     p.add_argument("--repeats", type=int, default=REPEATS)
     p.add_argument("--modes", nargs="+",
-                   default=[*vk.TC_WRAPPERS, "f32", "wide", "karatsuba",
-                            "fact", "mpcirc", "circ"],
-                   choices=[*vk.TC_WRAPPERS, "f32", "wide", "karatsuba",
-                            "fact", "mpcirc", "circ"])
+                   default=[*vk.TC_WRAPPERS, "f32", "wide", "wide_topk",
+                            "karatsuba", "fact", "mpcirc", "circ"],
+                   choices=[*vk.TC_WRAPPERS, "f32", "wide", "wide_topk",
+                            "karatsuba", "fact", "mpcirc", "circ"])
     p.add_argument("--no-poison", action="store_true")
     p.add_argument("--without-proxy-fence", action="store_true")
     p.add_argument("--time", action="store_true")

@@ -74,6 +74,15 @@ def _card():
 
 
 def _bank(d, k, n_pilots, dev, n_dead=0, seed=0):
+    a_mat = tp.pilot_matrix(d, n_pilots, 2, device=dev)
+    q = tq.design_quantizer(10.0, 2).to(dev)
+    return tge.prepare_bank(_gmm_params(d, k, dev, n_dead, seed), 10.0, a_mat,
+                            2, q)
+
+
+def _gmm_params(d, k, dev, n_dead=0, seed=0):
+    """The seeded GMM of `_bank`: random covariances of trace D, zero
+    means, uniform weights (n_dead of them at 1e-9)."""
     g = torch.Generator().manual_seed(seed)
     a = torch.complex(torch.randn(k, d, d, generator=g),
                       torch.randn(k, d, d, generator=g)).to(torch.complex64)
@@ -85,10 +94,7 @@ def _bank(d, k, n_pilots, dev, n_dead=0, seed=0):
     params = tg.GmmParams(w / w.sum(),
                           torch.zeros(k, d, dtype=torch.complex64), covs,
                           tl.robust_precision_cholesky(covs))
-    params = tg.GmmParams(*(x.to(dev) for x in params))
-    a_mat = tp.pilot_matrix(d, n_pilots, 2, device=dev)
-    q = tq.design_quantizer(10.0, 2).to(dev)
-    return tge.prepare_bank(params, 10.0, a_mat, 2, q)
+    return tg.GmmParams(*(x.to(dev) for x in params))
 
 
 @pytest.mark.cuda
@@ -512,8 +518,9 @@ def test_grouped_estimate_topk_stats_at_the_tile_edges(two_m, two_d, k, n,
 def test_stats_kernels_refuse_bad_inputs_and_one_past_the_rule():
     """The widths' edge (2M = 2048 runs, in the wide form past 2M, 2D =
     256; 2050 is refused by the wrappers and taken by the einsum stats
-    path in the entries; K5 stays at 2M, 2D <= 256), K5's k range and a
-    shard smaller than k (padded with -inf and zeros)."""
+    path in the entries; K5 takes the same widths, its wide form past 256),
+    K5's k range and a shard smaller than k (padded with -inf and
+    zeros)."""
     dev = _card()
     kb = _rand_kb(16, 16, 3, dev)
     r2 = _rows(12, 16, dev)
@@ -530,9 +537,15 @@ def test_stats_kernels_refuse_bad_inputs_and_one_past_the_rule():
     wide = _rand_kb(2050, 16, 2, dev)
     with pytest.raises(ValueError, match="2048"):
         tkn.grouped_estimate_stats(_rows(3, 2050, dev), wide)
-    with pytest.raises(ValueError, match="256"):
-        tkn.grouped_estimate_topk_stats(_rows(3, 258, dev),
-                                        _rand_kb(258, 16, 2, dev), 2)
+    with pytest.raises(ValueError, match="2048"):
+        tkn.grouped_estimate_topk_stats(_rows(3, 2050, dev),
+                                        _rand_kb(2050, 16, 2, dev), 2)
+    kb258 = _rand_kb(258, 16, 2, dev)
+    for got, want in zip(tkn.grouped_estimate_topk_stats(_rows(3, 258, dev),
+                                                         kb258, 2),
+                         tkn.grouped_estimate_topk_stats_reference(
+                             _rows(3, 258, dev), kb258, 2)):
+        assert _rel(got, want) < 1e-4
     edge = _rand_kb(2048, 16, 2, dev)
     before = tkn.grouped_estimate_stats_wide.launches
     for got, want in zip(tkn.grouped_estimate_stats(_rows(70, 2048, dev),
@@ -778,6 +791,280 @@ def test_grouped_wide_repeated_launches_match_plain():
             == before[1] + 20 * (len(shapes) - n_k1))
     assert len(runs) == len(shapes)
     assert not {k: v for k, v in runs.items() if v["failures"]}, runs
+
+
+# the wide K4 / K5: (2M, 2D, K, N, k, dead components)
+WIDE_TOPK_CASES = [
+    (512, 512, 32, 1000, 1, 2),     # D = 256 at one pilot
+    (512, 512, 32, 1000, 4, 2),
+    (512, 128, 5, 777, 4, 0),       # four pilots at D = 64
+    (640, 128, 9, 1201, 8, 1),      # five pilots at D = 64, k = 8
+    (400, 400, 6, 2 * 132 * 128 + 5, 3, 2),  # no multiple of 64, 2 waves
+    (272, 16, 6, 500, 5, 0),        # just past the stream's 2M, k = K - 1
+    (16, 300, 2, 130, 1, 0),        # just past the stream's 2D
+    (2048, 16, 3, 70, 2, 0),        # the edge 2M = 2048
+]
+WIDE_TIE_REL = 1e-5   # the wide cases' tie gap: 1e-5 of the logit, >= 1e-3
+
+
+def _wide_keep(r2, kb, k_sel, order=False):
+    """Rows the wide top-k is compared on: those whose k-th and (k+1)-th
+    logits (`order`: any two of the top k + 1) are further apart than
+    max(1e-3, 1e-5 |logit|). At 2M = 512 a logit is a sum of hundreds of
+    squares and reaches the hundreds, where 1e-3 is a few float32 ulps."""
+    lg = tkn.component_logits(r2, kb)
+    if not order:
+        return ~tc_repeat_check.topk_near_ties(lg, k_sel, 1e-3, WIDE_TIE_REL)
+    top = lg.sort(-1, descending=True).values[:, :k_sel + 1]
+    gaps = top[:, :-1] - top[:, 1:]
+    return ~((gaps < torch.clamp(WIDE_TIE_REL * top[:, :-1].abs(), min=1e-3))
+             & (top[:, 1:] > -1e29)).any(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_m,two_d,k,n,k_sel,n_dead", WIDE_TOPK_CASES)
+def test_grouped_wide_topk_matches_plain(two_m, two_d, k, n, k_sel, n_dead):
+    """The wide K4 and K5 against their plain versions within 1e-4 of the
+    scale on the rows not near a tie (at least 90%), through the narrow
+    wrappers, which route there; K5's candidates on the rows without a
+    near tie among the top k + 1."""
+    dev = _card()
+    kb = _rand_kb(two_m, two_d, k, dev, n_dead, seed=two_m + k)
+    ops = tkn.tc_operands(kb)
+    r2 = _rows(n, two_m, dev)
+    before = tkn.launch_counts()
+    got = tkn.grouped_estimate_topk(r2, kb, k_sel, ops)
+    l, z = tkn.grouped_estimate_topk_stats(r2, kb, k_sel, ops)
+    torch.cuda.synchronize()
+    after = tkn.launch_counts()
+    moved = {x: after[x] - before[x] for x in after if after[x] != before[x]}
+    assert moved == {"grouped_estimate_topk_wide": 1,
+                     "grouped_estimate_topk_stats_wide": 1}, moved
+    want = tkn.grouped_estimate_topk_reference(r2, kb, k_sel)
+    assert got.shape == want.shape == (n, two_d)
+    assert torch.isfinite(got).all()
+    keep = _wide_keep(r2, kb, k_sel)
+    assert int(keep.sum()) >= 0.9 * n
+    assert _rel(got[keep], want[keep]) < 1e-4
+    l_p, z_p = tkn.grouped_estimate_topk_stats_reference(r2, kb, k_sel)
+    assert l.shape == (n, k_sel) and z.shape == (n, k_sel, two_d)
+    keep = _wide_keep(r2, kb, k_sel, order=True)
+    assert int(keep.sum()) >= 0.8 * n
+    assert _rel(l[keep], l_p[keep]) < 1e-4
+    assert _rel(z[keep], z_p[keep]) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n_pilots,k,k_sel", [
+    (256, 1, 32, 1), (256, 1, 32, 4), (64, 5, 8, 1), (64, 5, 8, 4),
+])
+def test_grouped_wide_topk_keeps_fp32_accuracy(d, n_pilots, k, k_sel):
+    """The wide K4 on GMM banks at 2M = 512 and 640 (2 bits, 10 dB, one
+    dead component): on the rows not near a tie (at least 90%) it picks
+    the components the plain version in float64 picks, and its max |error|
+    against that float64 version is at most twice the float32 plain
+    version's own."""
+    dev = _card()
+    bank = _bank(d, k, n_pilots, dev, n_dead=1)
+    kb = tkn.kernel_bank_block(bank)
+    kb64 = type(kb)(*(x.double() for x in kb))
+    r2 = _rows(2048, 2 * d * n_pilots, dev)
+    got = tkn.grouped_estimate_topk(r2, kb, k_sel)
+    want = tkn.grouped_estimate_topk_reference(r2, kb, k_sel)
+    want64 = tkn.grouped_estimate_topk_reference(r2.double(), kb64, k_sel)
+    keep = _wide_keep(r2, kb, k_sel)
+    assert int(keep.sum()) >= 0.9 * r2.shape[0]
+    l, _ = tkn.grouped_estimate_topk_stats(r2, kb, k_sel)
+    lg64 = tkn.component_logits(r2.double(), kb64)
+    picked = lg64.sort(dim=-1, descending=True, stable=True).indices[:, :k_sel]
+    mine = (tkn.component_logits(r2, kb)
+            .sort(dim=-1, descending=True, stable=True).indices[:, :k_sel])
+    assert torch.isfinite(l).all()
+    assert torch.equal(picked[keep].sort(-1).values,
+                       mine[keep].sort(-1).values)
+
+    def err(x):
+        return float((x.double() - want64)[keep].abs().max())
+
+    assert torch.isfinite(got).all()
+    assert _rel(got[keep], want[keep]) < 1e-4
+    assert err(got) <= 2 * err(want), (err(got), err(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,k_sel,n_dead", [(32, 1, 2), (32, 4, 2), (6, 4, 1)])
+def test_wide_topk_shards_merge_to_one_launch(k, k_sel, n_dead):
+    """The wide K5 on two component shards (at K = 6 and k = 4 each shard
+    holds fewer components than k: its empty slots at -inf and zeros, as
+    the plain version's), each against the plain version, merged with
+    `merge_topk` within 1e-5 of one wide K4 launch (2M = 2D = 512)."""
+    dev = _card()
+    kb = _rand_kb(512, 512, k, dev, n_dead, seed=k + k_sel)
+    r2 = _rows(1500, 512, dev)
+    shards = [tkn.KernelBankBlock(*(x[sl].contiguous() for x in kb))
+              for sl in (slice(0, k // 2), slice(k // 2, k))]
+    cands = []
+    for shard in shards:
+        l, z = tkn.grouped_estimate_topk_stats_wide(r2, shard, k_sel)
+        l_p, z_p = tkn.grouped_estimate_topk_stats_reference(r2, shard,
+                                                             k_sel)
+        assert torch.equal(torch.isinf(l), torch.isinf(l_p))
+        assert bool((z[:, k // 2:] == 0).all())
+        keep = _wide_keep(r2, shard, k_sel, order=True)
+        assert int(keep.sum()) >= 0.8 * r2.shape[0]
+        live = torch.isfinite(l_p[keep])
+        assert _rel(l[keep][live], l_p[keep][live]) < 1e-4
+        assert _rel(z[keep], z_p[keep]) < 1e-4
+        cands.append((l, z))
+    merged = tkn.merge_topk(*zip(*cands), k_sel)
+    one = tkn.grouped_estimate_topk_wide(r2, kb, k_sel)
+    keep = _wide_keep(r2, kb, k_sel)
+    assert int(keep.sum()) >= 0.9 * r2.shape[0]
+    assert _rel(merged[keep], one[keep]) < 1e-5
+
+
+@pytest.mark.cuda
+def test_wide_topk_refuses_one_past_the_rule():
+    """2M = 2050 is refused by every top-k wrapper and entry, k outside
+    its range too; 2M = 2048 runs; N = 0 launches nothing."""
+    dev = _card()
+    kb = _rand_kb(2050, 16, 3, dev)
+    r2 = _rows(5, 2050, dev)
+    for fn in (tkn.grouped_estimate_topk, tkn.grouped_estimate_topk_stats,
+               tkn.grouped_estimate_topk_wide,
+               tkn.grouped_estimate_topk_stats_wide):
+        with pytest.raises(ValueError, match="2048"):
+            fn(r2, kb, 1)
+    bank = _bank(8, 4, 129, dev)                     # M = 1032: 2M = 2064
+    assert not tkn.topk_kernel_eligible(bank, 1)
+    r = torch.complex(_rows(4, 1032, dev), _rows(4, 1032, dev, seed=2))
+    with pytest.raises(ValueError, match="2048"):
+        tkn.estimate_fused_topk(bank, r, 1)
+    with pytest.raises(ValueError, match="2048"):
+        tkn.estimate_fused_topk_stats(bank, r, 1)
+    kb = _rand_kb(512, 512, 3, dev)
+    r2 = _rows(5, 512, dev)
+    for k_sel in (0, 4, 9):                         # k > K for K4, k > 8
+        with pytest.raises(ValueError, match="k"):
+            tkn.grouped_estimate_topk_wide(r2, kb, k_sel)
+    with pytest.raises(ValueError, match="k"):
+        tkn.grouped_estimate_topk_stats_wide(r2, kb, 9)
+    before = tkn.launch_counts()
+    assert tkn.grouped_estimate_topk_wide(r2[:0], kb, 2).shape == (0, 512)
+    l, z = tkn.grouped_estimate_topk_stats_wide(r2[:0], kb, 2)
+    assert l.shape == (0, 2) and z.shape == (0, 2, 512)
+    assert tkn.launch_counts() == before
+    edge = _rand_kb(2048, 16, 3, dev)
+    r2 = _rows(70, 2048, dev)
+    assert _rel(tkn.grouped_estimate_topk(r2, edge, 2),
+                tkn.grouped_estimate_topk_reference(r2, edge, 2)) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_sel", [1, 4])
+def test_wide_topk_cuts_rows_to_its_scratch(monkeypatch, k_sel):
+    """Past `WIDE_TOPK_SCRATCH` the wide K4 and K5 run in row chunks, one
+    counted launch each, bit for bit the one launch's outputs (a scratch
+    of a few rows' worth here: 1000 rows in chunks of 256 for K4)."""
+    dev = _card()
+    kb = _rand_kb(512, 512, 6, dev, 1, seed=k_sel)
+    r2 = _rows(1000, 512, dev)
+    whole = (tkn.grouped_estimate_topk_wide(r2, kb, k_sel),
+             *tkn.grouped_estimate_topk_stats_wide(r2, kb, k_sel))
+    planes = 6 * 512
+    per_row = (planes * (k_sel + 1) + 4 * (6 + 3 * k_sel)
+               + (4 * k_sel * 512 if k_sel > 1 else 0))
+    monkeypatch.setattr(tkn, "WIDE_TOPK_SCRATCH",
+                        (planes + 4) * 128 * 6 + 256 * per_row)
+    before = (tkn.grouped_estimate_topk_wide.launches,
+              tkn.grouped_estimate_topk_stats_wide.launches)
+    cut = (tkn.grouped_estimate_topk_wide(r2, kb, k_sel),
+           *tkn.grouped_estimate_topk_stats_wide(r2, kb, k_sel))
+    chunks = [-(-1000 // tkn._wide_topk_rows(1000, 6, 512, 512, k_sel,
+                                              stats)) for stats in (0, 1)]
+    assert chunks[0] == 4 and chunks[1] > 1
+    assert tkn.grouped_estimate_topk_wide.launches == before[0] + chunks[0]
+    assert (tkn.grouped_estimate_topk_stats_wide.launches
+            == before[1] + chunks[1])
+    for x, y in zip(cut, whole):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_wide_topk_repeated_launches_match_plain():
+    """The wide K4 and K5 launched 20 times at each shape of
+    `tools.tc_repeat_check.WIDE_TOPK_SHAPES`, each launch after a NaN fill
+    of every SM's shared memory and on the memory of the last launch's
+    outputs filled with NaN, each bit for bit the first launch, K4's first
+    held against the plain version."""
+    dev = _card()
+    shapes = tc_repeat_check.WIDE_TOPK_SHAPES
+    before = (tkn.grouped_estimate_topk_wide.launches,
+              tkn.grouped_estimate_topk_stats_wide.launches)
+    runs = tc_repeat_check.repeat_check(dev, repeats=20,
+                                        modes=("wide_topk",))["kernel"]
+    n_k4 = sum(1 for s in shapes if s[5] <= s[2])
+    assert tkn.grouped_estimate_topk_wide.launches == before[0] + 20 * n_k4
+    assert (tkn.grouped_estimate_topk_stats_wide.launches
+            == before[1] + 20 * len(shapes))
+    assert len(runs) == len(shapes) + n_k4
+    assert not {k: v for k, v in runs.items() if v["failures"]}, runs
+
+
+@pytest.mark.cuda
+def test_wide_bank_int_modes_take_the_wide_topk():
+    """A dense bank with 2M = 512 (four pilots, D = 64, one dead
+    component) in int modes through `stages.estimate_auto` (k = 1, 4), the
+    service (mode 1, use_kernels=True), `estimate_sharded` over an
+    in-process 1 x 2 mesh (k = 4) and the service over that mesh (mode
+    2): the wide K4 and K5, within 1e-4 of the einsum estimator's scale on
+    the rows not near a tie, with the einsum estimator made to raise and
+    no launch of the narrow K4 / K5."""
+    from quantized_channel_estimation_torch import serving
+    from quantized_channel_estimation_torch.parallel import mesh as pmesh
+    dev = _card()
+    bank = _bank(64, 8, 4, dev, n_dead=1)
+    g = torch.Generator(device=dev).manual_seed(5)
+    r = torch.complex(torch.randn(2048, 256, generator=g, device=dev),
+                      torch.randn(2048, 256, generator=g, device=dev))
+    kb = tkn.kernel_bank_block(bank)
+    r2 = tkn._r2(r)
+    want = {k: tge.estimate(bank, r, k) for k in (1, 2, 4)}
+    keep = {k: _wide_keep(r2, kb, k) for k in (1, 2, 4)}
+    saved = tge.estimate
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the einsum estimator was reached")
+
+    mesh = pmesh.make_local_mesh(1, 2)
+    before = tkn.launch_counts()
+    try:
+        tge.estimate = refuse
+        got = {("estimate_auto", k): stages.estimate_auto(bank, r, k)
+               for k in (1, 4)}
+        got[("estimate_sharded", 4)] = pmesh.estimate_sharded(mesh, bank, r,
+                                                              4)
+        for mode, m in ((1, None), (2, mesh)):
+            svc = serving.EstimationService(
+                _gmm_params(64, 8, dev, n_dead=1),
+                tp.pilot_matrix(64, 4, 2, device=dev), 2, mode=mode,
+                use_kernels=True, mesh=m, device=dev)
+            try:
+                got[("service", mode)] = svc.submit(
+                    r[:512].cpu().numpy(), 10.0, timeout=60.0)
+            finally:
+                svc.close()
+    finally:
+        tge.estimate = saved
+    for (label, k), x in got.items():
+        x = torch.as_tensor(x, device=dev)
+        n = x.shape[0]
+        assert int(keep[k][:n].sum()) >= 0.9 * n
+        assert _rel(x[keep[k][:n]], want[k][:n][keep[k][:n]]) < 1e-4, label
+    after = tkn.launch_counts()
+    moved = {x: after[x] - before[x] for x in after if after[x] != before[x]}
+    assert set(moved) == {"grouped_estimate_topk_wide",
+                          "grouped_estimate_topk_stats_wide"}, moved
 
 
 @pytest.mark.cuda

@@ -230,13 +230,15 @@ def test_mesh_auto_alpha_trims_to_the_data_axis(setup):
 
 
 def test_mesh_service_refusals(setup, tmp_path):
-    """A selection mode, a bank that does not divide over the component
-    axis, a data axis that is not a power of two (the microbatch pads are),
-    a mesh on another device and a torch.distributed DeviceMesh are
-    refused at construction; the factored 1-bit guard fires first."""
+    """A selection mode other than a dense bank's int top-k modes (a float
+    cumulative-p mode, k = K), a bank that does not divide over the
+    component axis, a data axis that is not a power of two (the microbatch
+    pads are), a mesh on another device and a torch.distributed DeviceMesh
+    are refused at construction; the factored 1-bit guard fires first."""
     mesh = pm.make_local_mesh(2, 2)
-    with pytest.raises(ValueError, match="mesh-backed"):
-        _service(setup, "dense", mesh, mode=1)
+    for mode in (0.9, K):
+        with pytest.raises(ValueError, match="mesh-backed"):
+            _service(setup, "dense", mesh, mode=mode)
     with pytest.raises(ValueError, match="divide over the mesh's 3"):
         _service(setup, "dense", pm.make_local_mesh(1, 3))
     with pytest.raises(ValueError, match="power of two"):

@@ -166,7 +166,7 @@ def test_dead_components_are_never_selected_over_live_ones(rng):
     (64, 64, 64, 0, False), (16, 4, 16, 3, True), (16, 4, 16, 4, False),
     (16, 2, 16, 1, True), (64, 64, 64, True, False),
     (64, 64, 64, 0.9, False), (64, 64, 64, "all", False),
-    (128, 8, 128, 2, True), (129, 8, 128, 2, False), (64, 8, 129, 2, False),
+    (128, 8, 128, 2, True), (129, 8, 1025, 2, False), (64, 8, 1025, 2, False),
 ])
 def test_topk_mode_eligible_rule(d, k_comp, m, k_sel, ok):
     assert tkn.topk_mode_eligible(d, k_comp, m, k_sel) is ok

@@ -90,18 +90,19 @@ def test_rule_is_a_superset_of_the_jax_pallas_set():
 
 
 @pytest.mark.parametrize("d,m,k_sel,ok", [
-    (128, 128, 1, True),     # K4 / K5 keep the stream's edge
-    (129, 128, 1, False),
-    (128, 129, 1, False),
-    (64, 256, 1, False),     # four pilots: the dense kernels, not top-k
+    (128, 1024, 1, True),    # 2M = 2048: the wide K4 / K5's edge
+    (1024, 1024, 4, True),   # and any D
+    (128, 1025, 1, False),   # 2M = 2050
+    (8, 1025, 4, False),
 ])
 def test_topk_keeps_its_width(d, m, k_sel, ok):
-    """K4 / K5 stay at 2M, 2D <= 256 (`topk_width_eligible`) while K1-K3
-    take every width up to 2M = 2048; the edge's other sides."""
+    """K4 / K5 take the widths of K1-K3 (`topk_width_eligible` is
+    `fused_kernel_eligible`: 2M <= 2048, any D), in the wide form past 2M,
+    2D <= 256; the edge's two sides."""
     assert tkn.topk_width_eligible(d, m) is ok
     assert tkn.topk_mode_eligible(d, 8, m, k_sel) is ok
-    assert tkn.fused_kernel_eligible(d, m)
-    assert tkn.wide_form(2 * m, 2 * d) is not ok
+    assert tkn.fused_kernel_eligible(d, m) is ok
+    assert tkn.wide_form(2 * m, 2 * d)
 
 
 @pytest.mark.parametrize("two_m,two_d,wide", [
