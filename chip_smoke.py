@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught):
      build of every CUDA kernel of the port from `csrc/` with `nvcc` (the
      `-Xptxas -v` summary of the redesigned sources; K14a's forms at M, D
      <= 64 and every instantiation of K11-K13 and of K6-K10 (the 44 of
-     `mp_circ_estimate.cu`) must not spill);
+     `mp_circ_estimate.cu`) and of the wide K6-K9
+     (`circ_wide_estimate.cu`) must not spill);
   2. every kernel against its plain PyTorch version on the card, at the
      widths of the main path (D = M = 64, K = 64): K1 at the headline batch
      N = 131072, at the main path's ragged N = 10000 and with dead
@@ -196,7 +197,20 @@ Phases (any failure exits non-zero; nothing is caught):
      mesh, the einsum estimator made to raise on those routes; 20
      repeats a shape on NaN-filled outputs, and the times at D = 256, K =
      32, 32768 rows beside the bound, the fp32 logit GEMM and the einsum
-     estimator; then the service over
+     estimator; then the circulant kernels on wide banks (phase 3l,
+     `wide_circ_phase`): the wide form of K6-K9 (past D = 128, up to the
+     rule's D = 672) at D in {129, 192, 256, 512, 640, 672}, K in {1, 16,
+     64, 200} (200: two K8 / K9 shards merged), T in {1, 4, 16, 64},
+     alpha in {1, 0.25}, dead components and `blocks=(16, 16)` against the
+     plain versions within TOL, K6-K9 at D = 512 and 672 under the float64
+     rule, `tools.circ_kernel_bench` (its four legs), `run_gmm` at D = 512,
+     K = 16 with `cov_type='circulant'` flat and at T = 4 (genie < GMM < LS
+     at every SNR), the structured service on a D = 512 bank against the
+     `torch.fft` service, `estimate_sharded_circulant` over an in-process
+     1 x 2 mesh flat and at T = 4 (past TOL of the `torch.fft` answers,
+     held against float64), 20 NaN-poisoned repeats a shape, and
+     the times at D = 512, K = 16, 32768 rows beside the bound, the plain
+     version and the `torch.fft` pipeline; then the service over
      in-process meshes (`parallel.mesh.make_local_mesh`) of 1 x 2 and 2 x 2
      shards in eight modes each (dense, structured at K = 64 and the K =
      256 spectra-native prior, factored; flat and T=4 blocks; 1 s each),
@@ -461,26 +475,37 @@ def compare(name, label, got, want, skip=None, tol=TOL):
     return abs_err
 
 
-def compare64(name, label, got, want, want64):
+def compare64(name, label, got, want, want64, ceiling=10 * TOL,
+              record=None):
     """`compare` for kernels whose logits pool many rows or expand a
     product (K3 past T = 16, the circulant kernels): within TOL of the plain
     version, or, where float32 sums in another order push the two apart,
     both held against `want64`, the plain
     version evaluated in float64: the kernel's error at most twice the
-    plain version's own and at most 10 TOL of the output scale. Returns
-    the absolute error against the plain version."""
+    plain version's own and at most `ceiling` of the output scale (10 TOL;
+    the wide circulant kernels TOL itself). With `record` (a dict), the
+    comparison's readings go in under `name label`: the kernel's distance
+    from the plain version and both versions' from float64, as fractions
+    of the scale, and whether the float64 rule decided. Returns the
+    absolute error against the plain version."""
     torch.cuda.synchronize()
     scale = float(want.abs().max())
     abs_err = float((got - want).abs().max())
     ok = abs_err / scale <= TOL
     msg = (f"{name} vs plain [{label}, N={got.shape[0]}]: max abs "
            f"{abs_err:.3e}, max rel {abs_err / scale:.3e} (tol {TOL})")
-    if not ok:
+    if not ok or record is not None:
         e_k = float((got.double() - want64).abs().max())
         e_p = float((want.double() - want64).abs().max())
-        ok = e_k <= 2.0 * e_p and e_k / scale <= 10.0 * TOL
+    if not ok:
+        ok = e_k <= 2.0 * e_p and e_k / scale <= ceiling
         msg += (f"; past tol, against float64: kernel {e_k:.3e}, plain "
-                f"{e_p:.3e} (kernel must be <= 2x plain and <= 10 tol)")
+                f"{e_p:.3e} (kernel must be <= 2x plain and <= "
+                f"{ceiling:g} of scale)")
+    if record is not None:
+        record[f"{name} {label}"] = {
+            "rel_to_plain": abs_err / scale, "kernel_to_f64": e_k / scale,
+            "plain_to_f64": e_p / scale, "float64_rule": abs_err / scale > TOL}
     log(msg)
     if not (ok and torch.isfinite(got).all()):
         raise AssertionError(f"{name} disagrees with its plain version "
@@ -653,14 +678,20 @@ def quant_path_run(run_gmm_quant, stages, kernels, dev, **change):
 
 def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
                near_tie=None, seconds=SERVE_SECONDS, same_as=None,
-               same_as_near_tie=None):
+               same_as_near_tie=None, d=D, same_as_exact=None):
     """Closed-loop load on one service mode: warm-up, then SERVE_CLIENTS
     clients for `seconds`, the launch counts read around the window.
     `reference(r)` is the mode's plain estimator on the card, `near_tie(r)`
     the rows not compared. With `same_as` (another service) every answer
     of the window is held within TOL of the scale of that service's answer
     to the same request (`same_as_near_tie(r, snr)`: a numpy mask of the
-    rows not compared). Returns the mode's record; raises on a failed
+    rows not compared); `d`, the width of an estimate. With
+    `same_as_exact(r, snr)` (the same request evaluated in float64) an
+    answer further than TOL from that service's passes only under the
+    float64 rule of `compare64` at the wide circulant kernels' ceiling:
+    its error against the float64 answer at most twice that service's own
+    and at most TOL of the scale (the largest such error is recorded).
+    Returns the mode's record; raises on a failed
     request, a kernel that was not launched (`kernel_name` None: no kernel
     to count) or an answer off the reference."""
     rng = np.random.default_rng(1)
@@ -676,8 +707,8 @@ def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
     got = torch.as_tensor(svc.submit(r, SNR, timeout=120.0), device=dev)
     rt = torch.as_tensor(r, device=dev)
     skip = None if near_tie is None else near_tie(rt)
-    err = compare("service", label, got.reshape(-1, D),
-                  reference(rt).reshape(-1, D), skip)
+    err = compare("service", label, got.reshape(-1, d),
+                  reference(rt).reshape(-1, d), skip)
 
     # warm-up: every padded microbatch size the load can form, per SNR
     cap = 1 << max(4, SERVE_MAX_BATCH.bit_length() - 1)
@@ -694,8 +725,12 @@ def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
     compared = None if same_as_near_tie is None else {
         (i, snr): ~same_as_near_tie(reqs[i], snr)
         for i in range(SERVE_CLIENTS) for snr in SERVE_SNRS}
+    exact = None if same_as_exact is None else {
+        (i, snr): same_as_exact(reqs[i], snr)
+        for i in range(SERVE_CLIENTS) for snr in SERVE_SNRS}
     latencies, stop, lock = [], threading.Event(), threading.Lock()
-    served, off = [0], [0.0]
+    served, off, past = [0], [0.0], [0, 0]   # past TOL: answers, not held
+    past_f64 = [0.0, 0.0]   # past TOL: largest e_k, largest e_k / e_p
 
     def client(i):
         j = 0
@@ -704,17 +739,30 @@ def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
             t0 = time.perf_counter()
             out = svc.submit(reqs[i], snr, timeout=120.0)
             dt = time.perf_counter() - t0
-            dev_rel = 0.0
+            dev_rel, held = 0.0, True
             if expected is not None:
                 want = expected[(i, snr)]
                 rows = (slice(None) if compared is None
                         else compared[(i, snr)])
                 dev_rel = float(np.abs(out - want)[rows].max()
                                 / np.abs(want).max())
+                if exact is not None and not dev_rel <= TOL:
+                    x = exact[(i, snr)]
+                    scale = np.abs(x).max()
+                    e_k = np.abs(out - x)[rows].max() / scale
+                    e_p = np.abs(want - x)[rows].max() / scale
+                    held = bool(e_k <= 2 * e_p and e_k <= TOL)
             with lock:
                 latencies.append(dt)
                 served[0] += SERVE_REQ
                 off[0] = max(off[0], dev_rel)
+                if not dev_rel <= TOL:
+                    past[0] += 1
+                    past[1] += not held
+                    if exact is not None:
+                        past_f64[0] = max(past_f64[0], float(e_k))
+                        past_f64[1] = max(past_f64[1],
+                                          float(e_k / max(e_p, 1e-30)))
             j += 1
 
     m0 = svc.metrics()
@@ -742,6 +790,10 @@ def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
            "launches": launches, "max_abs_err": err, "metrics": m}
     if expected is not None:
         rec["max_rel_to_same_as"] = off[0]
+    if exact is not None:
+        rec["answers_past_tol"], rec["past_tol_not_held"] = past
+        (rec["past_tol_max_kernel_to_f64"],
+         rec["past_tol_max_ratio_to_plain"]) = past_f64
     log(f"serving [{label}]: {rec['estimates_per_s']:.0f} estimates/s, "
         f"p50 {rec['p50_ms']:.2f} ms, p99 {rec['p99_ms']:.2f} ms over "
         f"{len(lat)} requests in {rec['microbatches']} microbatches; "
@@ -750,9 +802,13 @@ def serve_mode(svc, kernels, dev, label, t_coh, kernel_name, reference,
         raise AssertionError(f"failed requests in {label}: {m}")
     if kernel_name is not None and launches[kernel_name] < 1:
         raise AssertionError(f"{label} did not launch {kernel_name}")
-    if expected is not None and not off[0] <= TOL:
+    if expected is not None and not off[0] <= TOL and (
+            exact is None or past[1]):
         raise AssertionError(f"{label}: an answer {off[0]:.3e} of scale off "
-                             "the one-device service's")
+                             "the one-device service's"
+                             + ("" if exact is None else
+                                f" ({past[1]} of {past[0]} answers past "
+                                "tol not held against float64)"))
     return rec
 
 
@@ -2284,6 +2340,471 @@ def wide_topk_phase(dev, card, kernels, errs, add, fitted):
     return rec
 
 
+# phase 3l: the circulant kernels on wide banks. Cases (D, K, T, alpha,
+# dead components, blocks): K <= 128 through one launch of K6 / K7 and of
+# K8 / K9, K = 200 through two K8 / K9 shards, merged
+WIDE_CIRC_CASES = (
+    (129, 1, 1, 1.0, 0, None),
+    (129, 16, 4, 0.25, 1, None),
+    (192, 64, 16, 1.0, 2, None),
+    (256, 16, 1, 1.0, 2, (16, 16)),
+    (256, 200, 4, 1.0, 3, None),
+    (512, 16, 1, 1.0, 2, None),
+    (512, 64, 64, 0.25, 1, None),
+    (640, 200, 1, 1.0, 2, None),
+    (640, 16, 4, 1.0, 1, None),
+    (672, 16, 16, 0.25, 1, None),
+    (672, 1, 4, 1.0, 0, None),
+)
+WIDE_CIRC_N = 4097      # rows a case: whole T-row blocks below it
+WIDE_CIRC_F64_D = (512, 672)  # widths under the float64 rule, at K = 16
+# (D, K) of the service, the mesh path and the times, and the rows of the
+# times: the JAX tool's d512 leg
+WIDE_CIRC_DK, WIDE_CIRC_BATCH = (512, 16), 32768
+# `run_gmm` at the JAX tool's width (tools/circ_kernel_bench.py:104-115)
+# and the sizes of the JAX `tools/structured_bank_bench.py` large-D legs
+WIDE_CIRC_FIT = dict(n_antennas=512, n_components=16, cov_type="circulant",
+                     use_structured_bank=True, n_train=60_000, n_val=2_000)
+WIDE_CIRC_NAMES = {(False, False): "circ_estimate_wide",
+                   (True, False): "circ_estimate_coherent_wide",
+                   (False, True): "circ_estimate_stats_wide",
+                   (True, True): "circ_estimate_coherent_stats_wide"}
+
+
+def wide_circ_phase(dev, card, kernels, errs, add):
+    """Phase 3l, the circulant kernels on wide banks: the wide form of
+    K6-K9 (`csrc/circ_wide_estimate.cu`, past the template's D = 128, up
+    to the rule's D = 672).
+
+    1. At each of WIDE_CIRC_CASES (seeded circulant banks at 10 dB, 2
+       bits, their quantized observations, 4097 rows or the whole blocks
+       below): K6 (T = 1) or K7 and K8 or K9 against their plain versions
+       within TOL of the scale, or where the float32 plain version's own
+       rounding (logits in the thousands, pooled over T rows) pushes the
+       two apart, both against the plain version in float64 (`compare64`
+       at ceiling TOL: the kernel within TOL of the scale of the float64
+       plain version and its error at most twice the float32 plain
+       version's; every comparison's readings kept under
+       "against_float64"); K = 200: each
+       of the two shards' K8 / K9 states, and the merged quotient, which
+       the entry returns, against the plain states merged likewise. Then
+       K6, K7 (T = 4), K8 and K9 (T = 4) at
+       D = 512 and 672, K = 16, under the float64 rule (`fp32_accuracy`,
+       each of m, den and acc for the stats forms).
+    2. `tools.circ_kernel_bench`, its four legs (flat, coherent, tp, d512)
+       with the kernels' ms, bound and the `torch.fft` pipeline's ms; on
+       the d512 leg's inputs the wide K6, its plain version (in float32,
+       and in float64 on the same layout) and the pipeline against the
+       pipeline in float64, the wide K6 at most twice the error of its
+       plain version and of the pipeline; the tool's
+       `dft_construction_error` at D = 64, 128 and 512 (recorded).
+    3. The main paths, each with the launch counts set to 0 just before it
+       and read just after: `run_gmm` at D = 512, K = 16 (`WIDE_CIRC_FIT`,
+       7 SNRs) flat and at T = 4 (genie < GMM < LS at every SNR; the wide
+       K6, and the wide K7 for the coherent column, launched once an SNR
+       and no other kernel); the structured service on a D = 512, K = 16
+       circulant prior (8 clients x 64 snapshots, 1 s, flat and T = 4
+       blocks), every answer within TOL of the scale of a `torch.fft`
+       service's to the same request or, past it, within TOL of the
+       kernels' plain version in float64 and no further from it than twice
+       that service's answer (`serve_mode(same_as_exact=)`); and
+       `parallel.mesh.estimate_sharded_circulant` over an in-process 1 x 2
+       mesh, flat and T = 4 blocks, against the `torch.fft` pipeline under
+       the same rule (`compare64`).
+    4. The wide K6-K9 launched 20 times at each shape of
+       `tools.tc_repeat_check.WIDE_CIRC_SHAPES` on NaN-filled outputs,
+       bit for bit the first launch.
+    5. CUDA-event times at D = 512, K = 16, 32768 rows (K6, K7 and K9 at T
+       = 4, K8), each beside its plain version, the bound
+       (`circ_kernels.circ_bound`: the transforms as FFTs; and the
+       kernels' dense transforms) and the library yardstick (the
+       `torch.fft` pipeline over the batch as one chunk).
+    Returns the phase's record; its timing records are the kernels line's
+    entries of the four wide wrappers."""
+    from quantized_channel_estimation_torch import serving
+    from quantized_channel_estimation_torch.estimators import (
+        circ_kernels as ck)
+    from quantized_channel_estimation_torch.harness import run_gmm
+    from quantized_channel_estimation_torch.models import (
+        structured_bank as sb)
+    from quantized_channel_estimation_torch.ops import quantizer as Q
+    from quantized_channel_estimation_torch.parallel import mesh as pmesh
+    from quantized_channel_estimation_torch.tools import (
+        circ_kernel_bench, common, tc_repeat_check as trc)
+    from quantized_channel_estimation_torch.utils import profiling
+    t_phase = time.time()
+    rec = {"cases": {}, "fp32_accuracy": {}, "against_float64": {}}
+    q = Q.design_quantizer(SNR, N_BITS, device=dev)
+
+    def held(name, label, got, want, want64):
+        """`compare64` at the wide kernels' ceiling (TOL of the scale
+        against the float64 plain version), its readings recorded."""
+        return compare64(name, label, got, want, want64, ceiling=TOL,
+                         record=rec["against_float64"])
+
+    def f64(ckb):
+        return ck.CircKernelBank(*(x.double() for x in ckb))
+
+    def kernel(ckb, x2, t, alpha, stats):
+        if stats:
+            return (ck.circ_estimate_coherent_stats(x2, ckb, t, alpha)
+                    if t > 1 else ck.circ_estimate_stats(x2, ckb))
+        return (ck.circ_estimate_coherent(x2, ckb, t, alpha) if t > 1
+                else ck.circ_estimate(x2, ckb),)
+
+    def plain(ckb, x2, t, alpha, stats):
+        out = ck._circ_reference(x2, ckb, t, alpha, stats, 16384)
+        return out if stats else (out,)
+
+    def quotient(states):
+        _, den, acc = ck.merge_stats(*zip(*states))
+        return acc / den[:, None]
+
+    def real_rows(x):
+        """Complex (..., D) -> rows of interleaved [re, im] pairs (n, 2D),
+        in x's own precision."""
+        return torch.view_as_real(x.contiguous()).reshape(-1,
+                                                          2 * x.shape[-1])
+
+    def c128(bank_c):
+        """The float32 bank's own values in float64 / complex128."""
+        return type(bank_c)(*(x.to(torch.complex128) if x.is_complex()
+                              else x.double() for x in bank_c))
+
+    # 1. every case against its plain version
+    for d, k, t, alpha, n_dead, blocks in WIDE_CIRC_CASES:
+        label = (f"D={d}, K={k}, T={t}, alpha={alpha}, dead={n_dead}"
+                 + (f", blocks={blocks}" if blocks else ""))
+        bank = circ_bank(dev, q, d, k, n_dead, blocks)
+        n = WIDE_CIRC_N // t * t
+        r = common.observations(dev, q, n, n_ant=d)
+        x2 = ck._x2(r)
+        ckbs = ck.lowered(bank, None, blocks, t, alpha)
+        worst = 0.0
+        for stats in (False, True) if len(ckbs) == 1 else (True,):
+            name = WIDE_CIRC_NAMES[(t > 1, stats)]
+            states, want_states, exact_states = [], [], []
+            for j, ckb in enumerate(ckbs):
+                got = kernel(ckb, x2, t, alpha, stats)
+                want = plain(ckb, x2, t, alpha, stats)
+                want64 = plain(f64(ckb), x2.double(), t, alpha, stats)
+                for part, g, w, w64 in zip(("m", "den", "acc") if stats
+                                           else ("out",), got, want, want64):
+                    errs[name].append(held(
+                        name, f"{label}, shard {j} {part}",
+                        g.reshape(n, -1), w.reshape(n, -1),
+                        w64.reshape(n, -1)))
+                    worst = max(worst, errs[name][-1]
+                                / float(w.abs().max()))
+                states.append(got)
+                want_states.append(want)
+                exact_states.append(want64)
+            if len(ckbs) > 1:       # the shards merged, as the entry does
+                held(name, f"{label}, {len(ckbs)} shards merged",
+                          quotient(states), quotient(want_states),
+                          quotient(exact_states))
+                entry = (ck.estimate_fused_circulant_coherent(
+                    bank, r.reshape(-1, t, d), alpha, blocks) if t > 1
+                    else ck.estimate_fused_circulant(bank, r, blocks))
+                compare(f"{name}, the entry", label,
+                        ck._x2(sb.unitary_ifft(ck._hc(
+                            quotient(states), torch.complex64), blocks)),
+                        ck._x2(entry.reshape(n, d)), tol=1e-5)
+        rec["cases"][label] = {"max_rel_err": worst}
+        del bank, r, x2, ckbs
+
+    # the float64 rule at D = 512 and 672
+    for d in WIDE_CIRC_F64_D:
+        bank = circ_bank(dev, q, d, 16, 2)
+        r = common.observations(dev, q, WIDE_CIRC_N // 4 * 4, n_ant=d)
+        x2 = ck._x2(r)
+        for t, stats in ((1, False), (4, False), (1, True), (4, True)):
+            name = WIDE_CIRC_NAMES[(t > 1, stats)]
+            ckb = ck.circ_kernel_bank(bank, None, t, 1.0)
+            got = kernel(ckb, x2, t, 1.0, stats)
+            want = plain(ckb, x2, t, 1.0, stats)
+            want64 = plain(f64(ckb), x2.double(), t, 1.0, stats)
+            for part, g, w, w64 in zip(("m", "den", "acc") if stats
+                                       else ("out",), got, want, want64):
+                label = f"D={d}, K=16, T={t}, {part}"
+                errs[name].append(held(name, label, g, w, w64))
+                acc, rule = fp32_accuracy(name, label, g, w, w64)
+                rec["fp32_accuracy"][f"{name} {label}"] = acc
+                if not rule:
+                    raise AssertionError(f"{name} at {label}: the float64 "
+                                         "rule does not hold")
+        del bank, r, x2
+
+    # 2. the JAX tool's four legs
+    tool = circ_kernel_bench.main([], device=dev)
+    for leg, routes in tool["legs"].items():
+        for label, route in routes.items():
+            if "rel_to_fft" in route and not (
+                    math.isfinite(route["rel_to_fft"])
+                    and route["launches"]):
+                raise AssertionError(f"circ_kernel_bench {leg} {label}: "
+                                     f"{route}")
+    if tool["legs"]["d512"]["fused circ kernel"]["launches"] != {
+            "circ_estimate_wide": 1}:
+        raise AssertionError(f"the d512 leg launched "
+                             f"{tool['legs']['d512']['fused circ kernel']}")
+    rec["circ_kernel_bench"] = tool
+    # the d512 leg's inputs against the torch.fft pipeline in float64: the
+    # wide K6, its float32 plain version, that plain version in float64 on
+    # the same float32 layout (the layout's own floor: its DFT matrix
+    # rounded to float32) and the float32 pipeline; the wide K6 at most
+    # twice the error of its plain version and of the pipeline
+    syn = circ_kernel_bench.synthetic_bank(512, 16, device=dev)
+    r_syn = circ_kernel_bench.complex_randn((WIDE_CIRC_BATCH, 512),
+                                            device=dev)
+    exact = real_rows(sb.estimate_circulant(
+        c128(syn), r_syn.to(torch.complex128), "all", 16384, None, "fft"))
+    ckb_syn = ck.circ_kernel_bank(syn)
+    x_syn = ck._x2(r_syn)
+    scale = float(exact.abs().max())
+    rec["d512_against_float64_fft"] = {
+        label: float((x.double() - exact).abs().max()) / scale
+        for label, x in (
+            ("kernel", real_rows(ck.estimate_fused_circulant(syn, r_syn))),
+            ("plain", ck.circ_estimate_reference(x_syn, ckb_syn)),
+            ("plain_float64_layout_float32", ck.circ_estimate_reference(
+                x_syn.double(), f64(ckb_syn))),
+            ("fft", real_rows(sb.estimate_circulant(
+                syn, r_syn, "all", 16384, None, "fft"))))}
+    log("circ_kernel_bench d512 inputs against the torch.fft pipeline in "
+        "float64 (fractions of scale): " + ", ".join(
+            f"{k2} {v:.3e}" for k2, v in
+            rec["d512_against_float64_fft"].items()))
+    acc_d512 = rec["d512_against_float64_fft"]
+    if not acc_d512["kernel"] <= 2 * min(acc_d512["plain"], acc_d512["fft"]):
+        raise AssertionError(f"the wide K6 less accurate than its plain "
+                             f"version or the torch.fft pipeline: "
+                             f"{acc_d512}")
+    del syn, r_syn, exact, ckb_syn, x_syn
+    # the layout's own floor by the construction of its DFT matrix, at the
+    # narrow template's widths and at D = 512
+    rec["dft_construction"] = {
+        d_c: circ_kernel_bench.dft_construction_error(d_c, device=dev)
+        for d_c in (64, 128, 512)}
+    log("the layout in float64 against the float64 torch.fft pipeline, by "
+        "the DFT matrix's construction (fractions of scale): " + "; ".join(
+            f"D={d_c} " + ", ".join(f"{k2} {v:.3e}" for k2, v in e.items())
+            for d_c, e in rec["dft_construction"].items()))
+
+    # 3. the main paths
+    def counted(label, fn, want_kernels):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        tm = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.time() - tm
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        add(launches)
+        log(f"wide circulant path {label}: {seconds:.1f}s, launches "
+            f"{launches}")
+        if set(launches) != want_kernels:
+            raise AssertionError(f"wide circulant path {label} launched "
+                                 f"{launches}; it must launch {want_kernels}")
+        return out, launches, seconds
+
+    rec["paths"] = {}
+    for label, change, want_kernels in (
+            ("run_gmm D=512, K=16, circulant", {}, {"circ_estimate_wide"}),
+            ("run_gmm D=512, K=16, circulant, T=4",
+             dict(n_coherence=4, coherence_alpha=1.0),
+             {"circ_estimate_wide", "circ_estimate_coherent_wide"})):
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg, mse, _, timings, seconds, launches = main_path_run(
+                run_gmm, kernels, dev, tmp, **WIDE_CIRC_FIT, **change)
+        launches = {k: v for k, v in launches.items() if v}
+        add(launches)
+        if set(launches) != want_kernels or any(
+                v < len(cfg.snrs) for v in launches.values()):
+            raise AssertionError(f"{label} launched {launches}")
+        cols = ["blmmse_gmm"] + (["blmmse_gmm_coh"] if change else [])
+        for i, snr in enumerate(cfg.snrs):
+            for col in cols:
+                if not (mse["blmmse_genie"][i] < mse[col][i]
+                        < mse["LS_glob"][i]):
+                    raise AssertionError(
+                        f"{label}: genie < {col} < LS broken at {snr} dB: "
+                        f"{mse['blmmse_genie'][i]}, {mse[col][i]}, "
+                        f"{mse['LS_glob'][i]}")
+        log(f"{label}: " + "; ".join(f"{k} {['%.4f' % v for v in vals]}"
+                                     for k, vals in mse.items())
+            + f"; fit {timings['gmm_fit']:.1f}s of {seconds:.1f}s")
+        rec["paths"][label] = {"mse": mse, "launches": launches,
+                               "seconds": seconds,
+                               "gmm_fit_s": timings["gmm_fit"]}
+
+    # the structured service on a D = 512 prior against a torch.fft
+    # service, and the sharded estimator over a 1 x 2 in-process mesh.
+    # Where the kernels and the float32 pipeline part by more than TOL (both
+    # round logits in the hundreds to float32), both are held against the
+    # kernels' plain version in float64 on the bank's layout (`compare64`'s
+    # rule)
+    d, k = WIDE_CIRC_DK
+    params, spectra = circ_prior(dev, d, k, n_dead=1)
+    w_np, means_np, spec_np = (x.cpu().numpy() for x in
+                               (params.weights, params.means, spectra))
+    a_eye = np.eye(d, dtype=np.complex64)
+    banks = {snr: sb.prepare_bank_circulant(
+        params, snr, torch.as_tensor(a_eye, device=dev), N_BITS,
+        Q.design_quantizer(snr, N_BITS, device=dev), spectra=spectra)
+        for snr in (*SERVE_SNRS, SNR)}
+    bank = banks[SNR]
+
+    def fft_reference(rt, bank_c=bank):
+        if rt.dim() == 3:
+            return sb.estimate_circulant_coherent(bank_c, rt, "all", 4096,
+                                                  1.0, None, "fft")
+        return sb.estimate_circulant(bank_c, rt, "all", 16384, None, "fft")
+
+    def plain64(rt, snr=SNR):
+        """The kernels' plain version in float64 on the float32 layout of
+        the bank at `snr`, complex (n, D) or blocks (B, T, D)."""
+        t = rt.shape[1] if rt.dim() == 3 else 1
+        out = ck._circ_reference(
+            torch.view_as_real(rt.to(torch.complex128).contiguous())
+            .reshape(-1, 2 * d), f64(ck.circ_kernel_bank(banks[snr], None,
+                                                          t, 1.0)),
+            t, 1.0, False, 16384)
+        return torch.view_as_complex(out.reshape(-1, d, 2)).reshape(
+            rt.shape)
+
+    def plain64_np(r_np, snr):
+        return plain64(torch.as_tensor(r_np, device=dev), snr).cpu().numpy()
+
+    svc, fft_svc = (serving.EstimationService.from_circulant_spectra(
+        w_np, means_np, spec_np, a_eye, N_BITS, max_batch=SERVE_MAX_BATCH,
+        device=dev, use_kernels=use) for use in (True, False))
+    try:
+        rec["service"] = []
+        for label, t_coh, name in (
+                ("structured D=512 flat all", 1, "circ_estimate_wide"),
+                ("structured D=512 T=4 blocks, alpha=1", 4,
+                 "circ_estimate_coherent_wide")):
+            rec["service"].append(serve_mode(
+                svc, kernels, dev, label, t_coh, name, plain64, seconds=1.0,
+                same_as=fft_svc, d=d, same_as_exact=plain64_np))
+            add(rec["service"][-1]["launches"])
+            log(f"serving [{label}]: answers further than {TOL} from the "
+                f"torch.fft service's: {rec['service'][-1]['answers_past_tol']}"
+                f" (largest {rec['service'][-1]['max_rel_to_same_as']:.3e} "
+                "of scale), each held against the float64 plain version")
+            used = {k2 for k2, v in rec["service"][-1]["launches"].items()
+                    if v}
+            if used != {name}:
+                raise AssertionError(f"{label} launched {used}")
+    finally:
+        svc.close(timeout=120.0)
+        fft_svc.close(timeout=120.0)
+    r = common.observations(dev, q, 8192, n_ant=d)
+    for label, rr, want_kernels in (
+            ("estimate_sharded_circulant, 1 x 2 mesh", r,
+             {"circ_estimate_stats_wide"}),
+            ("estimate_sharded_circulant, 1 x 2 mesh, T=4",
+             r.reshape(-1, 4, d), {"circ_estimate_coherent_stats_wide"})):
+        got, launches, seconds = counted(
+            label, lambda x=rr: pmesh.estimate_sharded_circulant(
+                pmesh.make_local_mesh(1, 2), bank, x), want_kernels)
+        want = fft_reference(rr)
+        rel = held(label, "against the torch.fft pipeline", real_rows(got),
+                   real_rows(want), real_rows(plain64(rr))) / float(
+                       want.abs().max())
+        rec["paths"][label] = {"rel_to_fft": rel, "launches": launches,
+                               "seconds": seconds}
+    del r, bank, banks
+    f64_rec = rec["against_float64"].values()
+    ruled = [v for v in f64_rec if v["float64_rule"]]
+    log(f"wide circulant comparisons: {len(f64_rec)}, {len(ruled)} decided "
+        f"by the float64 rule (plain float32 version past {TOL}: largest "
+        f"{max((v['rel_to_plain'] for v in ruled), default=0.0):.3e} of "
+        f"scale); the kernels' largest distance from the float64 plain "
+        f"version {max(v['kernel_to_f64'] for v in f64_rec):.3e} of scale, "
+        f"the float32 plain version's "
+        f"{max(v['plain_to_f64'] for v in f64_rec):.3e}")
+
+    # 4. repeated launches
+    tm = time.time()
+    rep = trc.repeat_check(dev, repeats=20, modes=("wide_circ",))["kernel"]
+    bad = {k2: v for k2, v in rep.items() if v["failures"]}
+    log(f"wide K6-K9 repeated: {sum(v['launches'] for v in rep.values())} "
+        f"launches in {time.time() - tm:.1f}s, max err "
+        f"{max(v['max_err'] for v in rep.values()):.3e}, failures "
+        f"{bad or 0}")
+    if bad:
+        raise AssertionError(f"the wide K6-K9 off on repeated launches: "
+                             f"{bad}")
+    rec["repeat_check"] = rep
+
+    # 5. times at D = 512, K = 16, 32768 rows
+    n = WIDE_CIRC_BATCH
+    bank = circ_bank(dev, q, d, k, 2)
+    r = common.observations(dev, q, n, n_ant=d)
+    rb = r.reshape(-1, 4, d)
+    x2 = ck._x2(r)
+    ckb, ckb4 = ck.circ_kernel_bank(bank), ck.circ_kernel_bank(bank, None,
+                                                                 4, 1.0)
+    ops, ops_s = ck.circ_wide_operands(ckb), ck.circ_wide_operands(ckb, True)
+    times = {}
+    for name, t, stats, kern, library, chunked in (
+            ("circ_estimate_wide", 1, False,
+             lambda: ck.circ_estimate(x2, ckb, ops),
+             lambda: sb.estimate_circulant(bank, r, "all", n, None, "fft"),
+             lambda: sb.estimate_circulant(bank, r, "all", 16384, None,
+                                           "fft")),
+            ("circ_estimate_coherent_wide", 4, False,
+             lambda: ck.circ_estimate_coherent(x2, ckb4, 4, 1.0, ops),
+             lambda: sb.estimate_circulant_coherent(bank, rb, "all", n // 4,
+                                                    1.0, None, "fft"),
+             lambda: sb.estimate_circulant_coherent(bank, rb, "all", 4096,
+                                                    1.0, None, "fft")),
+            ("circ_estimate_stats_wide", 1, True,
+             lambda: ck.circ_estimate_stats(x2, ckb, ops_s),
+             lambda: sb.estimate_circulant_stats(bank, r, n, None, "fft"),
+             lambda: sb.estimate_circulant_stats(bank, r, 16384, None,
+                                                 "fft")),
+            ("circ_estimate_coherent_stats_wide", 4, True,
+             lambda: ck.circ_estimate_coherent_stats(x2, ckb4, 4, 1.0,
+                                                     ops_s),
+             lambda: sb.estimate_circulant_coherent_stats(bank, rb, n // 4,
+                                                          1.0, None, "fft"),
+             lambda: sb.estimate_circulant_coherent_stats(bank, rb, 4096,
+                                                          1.0, None,
+                                                          "fft"))):
+        c = ckb4 if t > 1 else ckb
+        plain_fn = (lambda c=c, t=t, stats=stats:
+                    ck._circ_reference(x2, c, t, 1.0, stats, 16384))
+        plain_ms = profiling.device_ms(plain_fn)
+        ms = profiling.device_ms(kern)
+        ms2 = profiling.device_ms(kern)
+        plain_ms2 = profiling.device_ms(plain_fn)
+        library_ms = profiling.device_ms(library)
+        chunked_ms = profiling.device_ms(chunked)
+        b = ck.circ_bound(n, d, k, t, stats)
+        times[name] = {"ms": ms, "ms_again": ms2, "plain_ms": plain_ms,
+                       "plain_ms_again": plain_ms2, **b,
+                       "library_ms": library_ms,
+                       "library_chunked_ms": chunked_ms,
+                       "share_of_bound": b["bound_ms"] / ms,
+                       "share_of_bound_dft": b["bound_dft_ms"] / ms}
+        log(f"{name} at N={n}, D={d}, K={k}" + (", T=4" if t > 1 else "")
+            + f": kernel {ms:.3f} / {ms2:.3f} ms, plain {plain_ms:.3f} / "
+            f"{plain_ms2:.3f} ms, library (torch.fft pipeline, one chunk) "
+            f"{library_ms:.3f} ms (default chunks {chunked_ms:.3f}), bound "
+            f"{b['bound_ms']:.3f} ms ({b['bound_by']}; "
+            f"{b['bound_ms'] / ms:.1%} reached), with the kernels' dense "
+            f"transforms {b['bound_dft_ms']:.3f} ms "
+            f"({b['bound_dft_ms'] / ms:.0%}), {n / (ms * 1e-3):.4g} "
+            f"estimates/s; {card}")
+    rec["times"] = times
+    rec["seconds"] = time.time() - t_phase
+    log(f"wide circulant phase 3l: {rec['seconds']:.1f}s")
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2352,6 +2873,15 @@ def main():
             or not all("spills 0/0 B" in row for row in mp_rows)):
         raise AssertionError(f"K6-K10 instantiations spill or are missing: "
                              f"{mp_rows}")
+    # the wide form of K6-K9: no instantiation may spill
+    circ_wide_rows = ptxas_summary(build_logs.get("circ_wide_estimate", ""))
+    log("ptxas circ_wide_estimate: " + ("; ".join(circ_wide_rows)
+                                        if circ_wide_rows else "not rebuilt"))
+    if "circ_wide_estimate" in build_logs and (
+            len(circ_wide_rows) != 6
+            or not all("spills 0/0 B" in row for row in circ_wide_rows)):
+        raise AssertionError(f"the wide K6-K9 spill or are missing: "
+                             f"{circ_wide_rows}")
     # the wide form of K1-K3: no instantiation may spill
     wide_rows = ptxas_summary(build_logs.get("grouped_wide_estimate", ""))
     if "grouped_wide_estimate" in build_logs and (
@@ -3923,6 +4453,10 @@ def main():
         {**scale_fit, **wide_rec["scale_bench_large_d"]})
     del scale_fit
 
+    # 3l. the circulant kernels on wide banks: the wide K6-K9,
+    # `wide_circ_phase` above
+    circ_wide_rec = wide_circ_phase(dev, card, kernels, errs, add)
+
     # 3d. the service over in-process meshes of 1 x 2 and 2 x 2 shards: the
     # dense, structured (K = 64, and the K = 256 spectra-native prior in two
     # component shards of 128, which K8 / K9 take whole) and factored banks
@@ -4145,9 +4679,11 @@ def main():
         for k_sel in (1, 4)}
 
     # the circulant kernels K6-K9 (the multi-pilot template at one pilot):
-    # the products 2 N (2D 2D + 3D K + K 4D + 2D 2D) (K8/K9 less the
-    # inverse transform) as six bf16 products on the tensor cores, plus
-    # the fp32 work around them, N (3D + 8D + 5K): |u|^2, the complex
+    # `bound_ms` is `circ_kernels.circ_bound`'s, the function's least time
+    # with its transforms counted as FFTs; `bound_dft_ms` counts the
+    # products the kernels compute, 2 N (2D 2D + 3D K + K 4D + 2D 2D) (K8/K9
+    # less the inverse transform) as six bf16 products on the tensor cores,
+    # plus the fp32 work around them, N (3D + 8D + 5K): |u|^2, the complex
     # combine, the constant and the softmax (K7 / K9 + 3 N K for the pool);
     # `bound_fp32_ms`: the products as fp32 FMAs (the bound of the fp32
     # loop these replaced). Bytes: the rows read and written once, the
@@ -4172,14 +4708,20 @@ def main():
     def circ_rec(rec, label, gemm, epi, nbytes_c, t, stats):
         rec["tc_flops"] = 6.0 * gemm
         rec["bound_fp32_ms"] = bound(gemm, nbytes_c)[0]
+        rec["bound_dft_ms"] = rec["bound_ms"]
+        fn = ck.circ_bound(n, D, K, t, stats)
+        rec["bound_ms"], rec["bound_by"] = fn["bound_ms"], fn["bound_by"]
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["share_of_bound_dft"] = rec["bound_dft_ms"] / rec["ms"]
         wg_rows = 64 // t * t
         block_rows = (2 if -(-n // (2 * wg_rows)) >= sms else 1) * wg_rows
         rec["block_rows"] = block_rows
         rec["l2_operand_bytes"] = (mk.mp_circ_units(D, K, 1, stats)
                                    * 24576.0 * -(-n // block_rows))
-        log(f"{label}: bound of the six products {rec['bound_ms']:.3f} ms "
-            f"({rec['share_of_bound']:.0%} reached), as fp32 FMAs "
+        log(f"{label}: bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}; "
+            f"{rec['share_of_bound']:.1%} reached), of the six products with "
+            f"dense transforms {rec['bound_dft_ms']:.3f} ms "
+            f"({rec['share_of_bound_dft']:.0%}), as fp32 FMAs "
             f"{rec['bound_fp32_ms']:.3f} ms; the bank's units from L2 "
             f"{rec['l2_operand_bytes'] / 1e9:.3f} GB ({block_rows}-row "
             "blocks)")
@@ -4759,6 +5301,18 @@ def main():
               ("circ_estimate_stats", "K8", 1749, False, "K8", t8),
               ("circ_estimate_coherent_stats", "K9", 1822, True, "K9",
                t9))),
+        *({"name": name, "id": kid, "route": "cuda",
+           "source": src + "circ_wide_estimate.cu",
+           "replaces": f"{tpu}:{line}", "launches": total_launches[name],
+           "max_abs_err": max(errs[name]), "d": 512, "n_components": 16,
+           **({"t_coh": 4, "coh_alpha": 1.0} if coh else {}),
+           **circ_wide_rec["times"][name]}
+          for name, kid, line, coh in (
+              ("circ_estimate_wide", "K6_wide", 1309, False),
+              ("circ_estimate_coherent_wide", "K7_wide", 1647, True),
+              ("circ_estimate_stats_wide", "K8_wide", 1749, False),
+              ("circ_estimate_coherent_stats_wide", "K9_wide", 1822,
+               True))),
         {"name": "mp_circ_estimate", "id": "K10", "route": "cuda",
          "source": src + "mp_circ_estimate.cu", "replaces": f"{tpu}:1505",
          "launches": total_launches["mp_circ_estimate"],
@@ -4878,6 +5432,8 @@ def main():
         "channel_models": models_rec,
         "wide_dense": {k: v for k, v in wide_rec.items() if k != "times"},
         "wide_topk": {k: v for k, v in topk_rec.items() if k != "times"},
+        "wide_circ": {k: v for k, v in circ_wide_rec.items()
+                      if k != "times"},
         "new_phases_seconds": {"toeplitz": toep_s,
                                "mesh_service": mesh_serve_s,
                                "csi_free": quant_s,
@@ -4885,7 +5441,8 @@ def main():
                                "vae": vae_rec["seconds"],
                                "channel_models": models_rec["seconds"],
                                "wide_dense": wide_rec["seconds"],
-                               "wide_topk": topk_rec["seconds"]},
+                               "wide_topk": topk_rec["seconds"],
+                               "wide_circ": circ_wide_rec["seconds"]},
         "kernel_tools": {"seconds": tools_s, "launches": launches_tools,
                          "kernel_bench_ms": bench["ms"],
                          "split_bench": split},

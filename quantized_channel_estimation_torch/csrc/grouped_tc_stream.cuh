@@ -625,6 +625,15 @@ __device__ __forceinline__ float tree_sum(const float* x) {
     return tree_sum<N / 2>(x) + tree_sum<N / 2>(x + N / 2);
 }
 
+// sum += part in a compensated (Kahan) sum: sum - lost is the running
+// value, lost the rounding error sum has taken on
+__device__ __forceinline__ void kahan(float& sum, float& lost, float part) {
+  const float y = part - lost;
+  const float next = sum + y;
+  lost = (next - sum) - y;
+  sum = next;
+}
+
 // K3: replace each row's logit by (1 - a) lg + a s, s the sum of lg over
 // the row's block of T consecutive rows (a >= 1: s).
 __device__ __forceinline__ void pool_logits(float (&lg)[2], const Epi& ep) {

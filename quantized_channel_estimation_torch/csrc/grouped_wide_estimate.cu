@@ -31,17 +31,18 @@
 // Kp = 512 contraction rows another 196 KB, against 227 KB a block.
 //
 // Design: one launch of three kernels on the stream.
-//   - `split_rows_kernel` splits r2 into its three bf16 planes, laid out as
-//     the bank's B slabs are: per 64-row tile and 64-wide contraction chunk
-//     one 8 KB run, K-major in the 128-byte swizzle, padding rows and
-//     columns zero (a tile holds floor(64 / T) whole blocks for K3);
-//   - every product is cut along the contraction into 64-deep chunks: a
-//     ring stage holds one chunk of r2's three planes for each of the two
-//     consumer warpgroups (48 KB) and the same chunk of two pieces' three B
-//     planes (48 KB), copied by one producer thread with cp.async.bulk; two
-//     stages (192 KB). A chunk of a piece is 6 x 4 wgmma m64n64k16 into
-//     fresh fp32 accumulators (the stream's order, hi.hi last), added to
-//     the piece's sum over the chunks in fp32;
+//   - the row split (`split_rows`, on wide_ring.cuh's `split_tiles`)
+//     splits r2 into its three bf16 planes, laid out as the bank's B slabs
+//     are: per 64-row tile and 64-wide contraction chunk one 8 KB run,
+//     K-major in the 128-byte swizzle, padding rows and columns zero (a
+//     tile holds floor(64 / T) whole blocks for K3);
+//   - every product is cut along the contraction into 64-deep chunks on
+//     wide_ring.cuh's ring: a stage holds one chunk of r2's three planes
+//     for each of the two consumer warpgroups (48 KB) and the same chunk of
+//     two pieces' three B planes (48 KB), copied by one producer thread
+//     with cp.async.bulk; two stages (192 KB). A chunk of a piece is 6 x 4
+//     wgmma m64n64k16 into fresh fp32 accumulators (the stream's order,
+//     hi.hi last), added to the piece's sum over the chunks in fp32;
 //   - pass 1 (`wide_kernel<1>`) streams each component's logit pieces, two
 //     at a time, with hi.hi in an accumulator of its own, sums each
 //     piece's squares |yz - mu|^2 as a tree a row and the pieces in a
@@ -90,72 +91,47 @@
 // shares not measured).
 // Any N and K, 2M <= 2048, any 2D; K3 any 2 <= T <= 64; K4 1 <= k_sel <=
 // min(8, K), K5 1 <= k_sel <= 8.
-#include "grouped_tc_stream.cuh"
+#include "wide_ring.cuh"
 
 namespace {
 
 using namespace qce_tc;
+using namespace qce_wide;
 
-constexpr int kWgs = 2;     // consumer warpgroups a block, 64 rows each
-constexpr int kGroup = 2;   // pieces a ring stage
-constexpr int kStages = 2;
-constexpr int kPlanes = 3;  // hi, lo, lo2
-constexpr int kStageA = kWgs * kPlanes * kAtomBytes;          // 48 KB
-constexpr int kStageBytes = kStageA + kGroup * kPlanes * kAtomBytes;
 constexpr int kMaxTwoM = 2048;
-constexpr int kThreads = (kWgs + 1) * kWg;
 
-// r2 (n, two_m) -> its three bf16 planes a (plane stride `plane_units` 16-
-// byte units): tile i, chunk c is the 8 KB run at unit (i n_ch + c) 512,
-// row rr of the tile r2's row i wg_rows + rr (zero past wg_rows or n),
-// column c 64 + j at the 128-byte swizzle's place (zero past 2M). One
-// thread a 16-byte unit (8 columns of one row). With `ent` (the top-k
-// value pass, wg_rows = 64) row rr of tile i is r2's row ent[64 i + rr] /
-// k_sel (zero where ent holds -1), and tiles whose pair `pair_comp` marks
-// unused (-1) are not written.
-__global__ void split_rows_kernel(const float* __restrict__ r2,
-                                  uint4* __restrict__ a, int n, int two_m,
-                                  int n_ch, int tiles, int wg_rows,
-                                  size_t plane_units,
-                                  const int* __restrict__ ent, int k_sel,
-                                  const int* __restrict__ pair_comp) {
-  const size_t units = (size_t)tiles * n_ch * 512;
-  for (size_t u = (size_t)blockIdx.x * blockDim.x + threadIdx.x; u < units;
-       u += (size_t)gridDim.x * blockDim.x) {
-    const int kq = (int)(u & 7), rr = (int)((u >> 3) & 63);
-    const size_t tc = u >> 9;  // tile * n_ch + chunk
-    const int c = (int)(tc % n_ch), tile = (int)(tc / n_ch);
-    int row = tile * wg_rows + rr;
-    bool live = rr < wg_rows && row < n;
-    if (ent != nullptr) {
-      if (__ldg(pair_comp + tile / kWgs) < 0) continue;
-      const int e = __ldg(ent + (size_t)tile * 64 + rr);
-      row = e / k_sel;
-      live = e >= 0;
-    }
-    unsigned pl[3][4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = c * 64 + kq * 8 + 2 * e;  // 2M is even
-      float2 x = make_float2(0.f, 0.f);
-      if (live && col < two_m)
-        x = __ldg(reinterpret_cast<const float2*>(r2 + (size_t)row * two_m +
-                                                   col));
-      unsigned w[3];
-      split3(x.x, x.y, w);
-#pragma unroll
-      for (int q = 0; q < 3; ++q) pl[q][e] = w[q];
-    }
-    const size_t dst = tc * 512 + rr * 8 + (kq ^ (rr & 7));
-#pragma unroll
-    for (int q = 0; q < 3; ++q)
-      a[q * plane_units + dst] = make_uint4(pl[q][0], pl[q][1], pl[q][2],
-                                            pl[q][3]);
+// r2's rows as the row split reads them: row rr of tile i is r2's row i
+// wg_rows + rr (padding past wg_rows or n); with `ent` (the top-k value
+// pass, wg_rows = 64) r2's row ent[64 i + rr] / k_sel (padding where ent
+// holds -1), and tiles whose pair `pair_comp` marks unused (-1) are not
+// written.
+struct GroupedRows {
+  const float* r2;
+  int n, two_m, wg_rows;
+  const int* ent;
+  int k_sel;
+  const int* pair_comp;
+  __device__ __forceinline__ bool skip(int tile) const {
+    return ent != nullptr && __ldg(pair_comp + tile / kWgs) < 0;
   }
-}
+  __device__ __forceinline__ int row(int tile, int rr) const {
+    if (ent != nullptr) {
+      const int e = __ldg(ent + (size_t)tile * 64 + rr);
+      return e >= 0 ? e / k_sel : -1;
+    }
+    const int r = tile * wg_rows + rr;
+    return rr < wg_rows && r < n ? r : -1;
+  }
+  __device__ __forceinline__ float2 pair(int r, int col) const {
+    return col < two_m  // 2M is even
+               ? __ldg(reinterpret_cast<const float2*>(r2 + (size_t)r * two_m +
+                                                        col))
+               : make_float2(0.f, 0.f);
+  }
+};
 
 struct WideArgs {
-  const uint4* a;  // r2's planes (split_rows_kernel)
+  const uint4* a;  // r2's planes (`split_rows`)
   const bf16* planes[3];
   const float* vec;
   const float* logw;
@@ -195,68 +171,16 @@ __device__ __forceinline__ void block_pieces(const WideArgs& g, int& j0,
 // chunk, the chunk of both warpgroups' row planes and of the pieces' B
 // planes into the ring.
 template <int PASS>
-__device__ void produce_wide(const WideArgs& g, unsigned base,
-                             unsigned full0, unsigned empty0) {
+__device__ void produce_wide(const WideArgs& g, WideRing ring) {
   int j0, j1, k0, k1;
   block_pieces<PASS>(g, j0, j1);
   block_components<PASS>(g, k0, k1);
   const int pieces = g.n_ch + (g.two_d + kPiece - 1) / kPiece;
-  int s = 0, ph = 0;
   for (int k = k0; k < k1; ++k)
-    for (int j = j0; j < j1; j += kGroup) {
-      const int gn = min(kGroup, j1 - j);
-      for (int c = 0; c < g.n_ch; ++c) {
-        const unsigned full = full0 + 8 * s;
-        mbar_wait(empty0 + 8 * s, ph ^ 1);
-        mbar_expect_tx(full, kStageA + gn * kPlanes * kAtomBytes);
-        const unsigned dst = base + s * kStageBytes;
-#pragma unroll
-        for (int w = 0; w < kWgs; ++w) {
-          const size_t run =
-              ((size_t)(blockIdx.x * kWgs + w) * g.n_ch + c) * 512;
-#pragma unroll
-          for (int p = 0; p < kPlanes; ++p)
-            bulk_copy(dst + (w * kPlanes + p) * kAtomBytes,
-                      g.a + p * g.plane_units + run, kAtomBytes, full);
-        }
-        for (int gp = 0; gp < gn; ++gp) {
-          const size_t off =
-              (((size_t)k * pieces + j + gp) * g.n_ch + c) * kAtomBytes;
-#pragma unroll
-          for (int p = 0; p < kPlanes; ++p)
-            bulk_copy(dst + kStageA + (gp * kPlanes + p) * kAtomBytes,
-                      reinterpret_cast<const char*>(g.planes[p]) + off,
-                      kAtomBytes, full);
-        }
-        if (++s == kStages) {
-          s = 0;
-          ph ^= 1;
-        }
-      }
-    }
-}
-
-// Products [p0, p1) of one chunk in stage st, k16 steps [k0, k1), into
-// both pieces' accumulators, the first step of product p0 overwriting: the
-// stream's order (prod_a / prod_b, hi.hi last). A stage holding one piece
-// leaves acc[1] to a stale product nobody reads.
-template <int P0, int P1, int K0, int K1>
-__device__ __forceinline__ void issue_chunk(float (&acc)[kGroup][32],
-                                            unsigned st, int wg) {
-  const uint64_t da = sw128_desc(st + wg * kPlanes * kAtomBytes);
-  const uint64_t db = sw128_desc(st + kStageA);
-#pragma unroll
-  for (int p = P0; p < P1; ++p)
-#pragma unroll
-    for (int ks = K0; ks < K1; ++ks)
-#pragma unroll
-      for (int gp = 0; gp < kGroup; ++gp)
-        wgmma_64x64(acc[gp],
-                    step_desc(da + prod_a(6, p) * (kAtomBytes >> 4), ks),
-                    step_desc(db + (gp * kPlanes + prod_b(6, p)) *
-                                       (kAtomBytes >> 4),
-                              ks),
-                    p > P0 || ks > K0);
+    for (int j = j0; j < j1; j += kGroup)
+      for (int c = 0; c < g.n_ch; ++c)
+        load_chunk(ring, g.a, g.plane_units, blockIdx.x, g.n_ch, c, g.planes,
+                   k * pieces + j, min(kGroup, j1 - j));
 }
 
 // A chunk's partial products f of the live pieces into their sums over
@@ -273,12 +197,6 @@ __device__ __forceinline__ void fold(float (&sum)[kGroup][32],
   }
 }
 
-template <int N>
-__device__ __forceinline__ void fence_all(float (&x)[N][32]) {
-#pragma unroll
-  for (int gp = 0; gp < N; ++gp) fence_operand(x[gp]);
-}
-
 // The kernel. Pass 1 writes the (pooled) logits lg; pass 2 the output
 // columns of its slice (STATS: acc, and slice 0 m and den); pass 3 (the
 // top-k values) r2_n W_j + b_j of its slice for the gathered rows of its
@@ -289,22 +207,12 @@ __global__ void __launch_bounds__(kThreads, 1) wide_kernel(WideArgs g) {
     if (__ldg(g.pair_comp + blockIdx.x) < 0) return;  // an unused pair
   }
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const unsigned base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const unsigned full0 = base + kStages * kStageBytes;
-  const unsigned empty0 = full0 + 8 * kStages;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, kWgs * 4);  // one arrival a consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  WideRing ring = ring_init(smem_raw);
 
   const int wg = threadIdx.x / kWg;
   if (wg == kWgs) {  // the producer warpgroup: one thread streams
     setmaxnreg_dec<40>();
-    if (threadIdx.x == kWgs * kWg) produce_wide<PASS>(g, base, full0, empty0);
+    if (threadIdx.x == kWgs * kWg) produce_wide<PASS>(g, ring);
     return;
   }
   setmaxnreg_inc<232>();
@@ -351,14 +259,12 @@ __global__ void __launch_bounds__(kThreads, 1) wide_kernel(WideArgs g) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[gp][i] = 0.f;
   }
-  const Epi ep{g.logw, g.n_ch, pieces, g.t_coh, g.alpha, 0.f,
-               empty0 + 8 * kStages};
+  const Epi ep{g.logw, g.n_ch, pieces, g.t_coh, g.alpha, 0.f, ring.extra()};
 
   // a chunk's products: pass 1 the five small ones in acc and hi.hi in hh,
   // each fresh (the logits' accuracy, see the design note); pass 2 all
   // six in acc
   float acc[kGroup][32], hh[kGroup][32], sum[kGroup][32];
-  int s = 0, ph = 0;
   for (int k = k0; k < k1; ++k) {
     // pass 1: the rows' quadratic terms, a compensated sum of the pieces'
     float q[2] = {0.f, 0.f}, qc[2] = {0.f, 0.f}, p[2] = {0.f, 0.f};
@@ -371,8 +277,8 @@ __global__ void __launch_bounds__(kThreads, 1) wide_kernel(WideArgs g) {
     for (int j = j0; j < j1; j += kGroup) {
       const int gn = min(kGroup, j1 - j);
       for (int c = 0; c < g.n_ch; ++c) {
-        const unsigned st = base + s * kStageBytes;
-        mbar_wait(full0 + 8 * s, ph);
+        const unsigned st = ring.stage();
+        mbar_wait(ring.full(), ring.ph);
         wgmma_fence();
         fence_all(acc);
         if constexpr (PASS == 1) {
@@ -385,11 +291,8 @@ __global__ void __launch_bounds__(kThreads, 1) wide_kernel(WideArgs g) {
         wgmma_commit();
         wgmma_wait<0>();
         fence_all(acc);
-        warp_arrive(empty0 + 8 * s);  // the products have read the stage
-        if (++s == kStages) {
-          s = 0;
-          ph ^= 1;
-        }
+        warp_arrive(ring.empty());  // the products have read the stage
+        ring.next();
         fold(sum, acc, gn, c == 0);
         if constexpr (PASS == 1) {
           fence_all(hh);
@@ -485,8 +388,7 @@ __global__ void __launch_bounds__(kThreads, 1) wide_kernel(WideArgs g) {
 template <int PASS, bool COH, bool STATS>
 int launch_pass(const WideArgs& g, int pairs, int slices,
                 cudaStream_t stream) {
-  const size_t smem =
-      1024 + (size_t)kStages * (kStageBytes + 16) + (COH ? kWgs * 64 * 4 : 0);
+  const size_t smem = kRingSmem + (COH ? kWgs * 64 * 4 : 0);
   auto kern = wide_kernel<PASS, COH, STATS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -498,20 +400,8 @@ int launch_pass(const WideArgs& g, int pairs, int slices,
 int split_rows(const float* r2, void* a, int n, int two_m, int n_ch,
                int tiles, int wg_rows, const int* ent, int k_sel,
                const int* pair_comp, cudaStream_t stream) {
-  const size_t units = (size_t)tiles * n_ch * 512;
-  const int grid = (int)((units + 255) / 256 < 65535 ? (units + 255) / 256
-                                                     : 65535);
-  split_rows_kernel<<<grid, 256, 0, stream>>>(
-      r2, static_cast<uint4*>(a), n, two_m, n_ch, tiles, wg_rows, units, ent,
-      k_sel, pair_comp);
-  return (int)cudaGetLastError();
-}
-
-// 64-row tiles of n rows (floor(64 / T) whole blocks a tile for K3),
-// rounded up to whole blocks of kWgs tiles: what the scratch a holds.
-int row_tiles(int n, int wg_rows) {
-  const int tiles = (n + wg_rows - 1) / wg_rows;
-  return (tiles + kWgs - 1) / kWgs * kWgs;
+  return split_tiles(GroupedRows{r2, n, two_m, wg_rows, ent, k_sel, pair_comp},
+                     a, n_ch, tiles, stream);
 }
 
 int check_operands(const void* slab_hi, const void* slab_lo,
@@ -574,7 +464,7 @@ WideArgs wide_args(const void* a, const void* slab_hi, const void* slab_lo,
 //     an entry takes depends on the order of the atomics, but no sum does:
 //     each product row is computed from its own row alone;
 //   - the row split gathers the entries' rows of r2 into the three bf16
-//     planes (`split_rows_kernel` with ent = perm), and pass 3 multiplies
+//     planes (`split_rows` with ent = perm), and pass 3 multiplies
 //     each block's rows by its component's value pieces with the six bf16
 //     products, adding b_j: the candidates z (n, k_sel, 2D);
 //   - K4 then combines each row's candidates in slot order

@@ -324,15 +324,6 @@ __device__ __forceinline__ void split_x(unsigned (&a)[3][4][4],
     }
 }
 
-// sum += part in a compensated (Kahan) sum: sum - lost is the running
-// value, lost the rounding error sum has taken on
-__device__ __forceinline__ void kahan(float& sum, float& lost, float part) {
-  const float y = part - lost;
-  const float next = sum + y;
-  lost = (next - sum) - y;
-  sum = next;
-}
-
 __device__ __forceinline__ void kahan_add(float (&sum)[32], float (&lost)[32],
                                           const float (&part)[32]) {
 #pragma unroll

@@ -24,19 +24,31 @@ Differences of layout from the TPU kernels, none of arithmetic:
   bank operands are laid out to match (see `CircKernelBank`);
 - coherence blocks are block-major (the T rows of a block consecutive), as
   in `ops.scm.flatten_coherence` and K3, not the TPU's T-major tiles;
-- the eligibility rule `circ_kernel_eligible` is the CUDA kernel's range
-  (D <= 128, T up to a warpgroup's 64 live rows), in place of the TPU's
-  resident-bank budget; beyond it the entries raise and `harness.stages`
-  takes the `torch.fft` pipeline. One launch takes K <= 128 components; a
-  larger bank is split over K into shards of 128, each through the stats
-  kernel (K8 / K9), merged with `merge_stats` and inverse-transformed
-  once.
+- the eligibility rule `circ_kernel_eligible` is the CUDA kernels' range
+  (D <= 672, T up to a warpgroup's 64 live rows), in place of the TPU's
+  resident-bank budget (D <= 652 at K = 1); beyond it the entries raise
+  and `harness.stages` takes the `torch.fft` pipeline. One launch takes
+  K <= 128 components; a larger bank is split over K into shards of 128,
+  each through the stats kernel (K8 / K9), merged with `merge_stats` and
+  inverse-transformed once.
+
+Past D = 128 (`CIRC_MAX_D`, the template's edge) the same wrappers launch
+the kernels' wide form, `csrc/circ_wide_estimate.cu` (counted apart:
+`circ_estimate_wide` and its coherent and stats siblings): the four
+products cut into 64-deep chunks on one wgmma template, each chunk's six
+bf16 products into a fresh accumulator, the chunks in a compensated sum,
+the intermediates (u, the logits, h) in global scratch between the
+passes, rows cut into launches within `kernels.WIDE_SCRATCH`.
+`circ_wide_operands` lays a `CircKernelBank` out as its units (cached per
+shard by `lowered_tc`), `circ_wide_rows` is the plain version of its row
+layout.
 
 A wrapper launches its kernel on a CUDA tensor (or raises) and takes the
 plain PyTorch version only for a tensor on the CPU.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -52,24 +64,71 @@ from quantized_channel_estimation_torch.models import structured_bank as sb
 from quantized_channel_estimation_torch.models.structured_bank import (
     CirculantBank)
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
+from quantized_channel_estimation_torch.utils import profiling
+
+
+CIRC_WIDE_MAX_D = 672   # bins of the wide form: 2D = 1344, 21 chunks of 64
+CIRC_MAX_T = 64         # rows of a coherence block the kernels pool
 
 
 def circ_tile_rows(d: int) -> int:
     """Live rows of one warpgroup of the circulant kernels at D bins
     (`mp_circ_kernels.mp_circ_tile_rows` at one pilot, pooled, at the
-    widest launch of 128 components: 64 at every D <= 128): the largest
-    coherence block K7 / K9 pool."""
+    widest launch of 128 components: 64 at every D <= 128; the wide form
+    past it pools any block of up to 64 rows): the largest coherence
+    block K7 / K9 pool."""
+    if d > CIRC_MAX_D:
+        return CIRC_MAX_T
     return mk.mp_circ_tile_rows(d, CIRC_MAX_K, 1, 2)
 
 
 def circ_kernel_eligible(d: int, k: int, t: int = 1) -> bool:
     """Can the circulant kernels serve a bank of K components over D bins,
-    pooling T-snapshot blocks? D <= 128 and T within a warpgroup's live
-    rows at the widest launch (`circ_tile_rows`: T <= 64 at every D; a
-    narrower launch or T = 1 leaves at least as many); any K (more than 128
-    components are split into shards, see `estimate_fused_circulant`). A
-    rule of the shapes, decided before any launch."""
-    return 1 <= d <= CIRC_MAX_D and k >= 1 and 1 <= t <= circ_tile_rows(d)
+    pooling T-snapshot blocks? D <= 672 (the template up to 128, its wide
+    form past it; a superset of the JAX package's Pallas rule, which stops
+    at D = 652) and T within a warpgroup's live rows at the widest launch
+    (`circ_tile_rows`: T <= 64 at every D; a narrower launch or T = 1
+    leaves at least as many); any K (more than 128 components are split
+    into shards, see `estimate_fused_circulant`). A rule of the shapes,
+    decided before any launch."""
+    return (1 <= d <= CIRC_WIDE_MAX_D and k >= 1
+            and 1 <= t <= circ_tile_rows(d))
+
+
+def circ_bound(n: int, d: int, k: int, t_coh: int = 1,
+               stats: bool = False) -> dict:
+    """The least time an H100 could take for K6-K9's function on n rows of
+    a K-component launch at D bins (`profiling.bound_ms`: operations at
+    the card's peaks against bytes at its memory rate):
+
+    - the forward transform and, except for the stats forms, the inverse
+      as FFTs, 5 D log2 D fp32 operations a row each (a block-DFT basis
+      costs the same);
+    - the logit and combine products as the kernels' six bf16 products of
+      2 n (3D K + 4 K D) on the tensor cores;
+    - the epilogue, n (11 D + 5 K) fp32 operations (|u|^2, the combine per
+      bin, the softmax), and 3 n K more for the coherent pooling;
+    - the rows read once, the output (and m, den) written once, and the
+      bank's logit and combine operands read once.
+
+    Returns {"bound_ms", "bound_by", "fp32_flops", "tc_flops", "bytes"}
+    and "bound_dft_ms": the same with both transforms counted as the
+    kernels compute them, dense (2D, 2D) products on six bf16 products,
+    and their operands read once (the bound of the kernels' algorithm,
+    not of the function)."""
+    two_d = 2 * d
+    n_tr = 1 if stats else 2
+    fft = n_tr * 5.0 * d * math.log2(max(d, 2)) * n
+    epi = n * (11.0 * d + 5.0 * k + (3.0 * k if t_coh > 1 else 0.0))
+    tc = 6.0 * 2 * n * (3 * d * k + 4 * k * d)
+    out = (2 * n if stats else 0) + n * two_d
+    nbytes = 4.0 * (n * two_d + out + 3 * d * k + k + 4 * k * d)
+    ms, by = profiling.bound_ms(fft + epi, tc, nbytes)
+    dense = n_tr * two_d * two_d
+    dft_ms, _ = profiling.bound_ms(epi, tc + 6.0 * 2 * n * dense,
+                                   nbytes + 4.0 * dense)
+    return {"bound_ms": ms, "bound_by": by, "fp32_flops": fft + epi,
+            "tc_flops": tc, "bytes": nbytes, "bound_dft_ms": dft_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +168,16 @@ def circ_kernel_bank(bank: CirculantBank, blocks=None, t_coh: int = 1,
     the log-det and mean terms count once per snapshot."""
     pin_fp32()
     k, d = bank.spec_cr.shape
-    f = sb._dft_matrix(d, blocks, bank.mean_rf.dtype, bank.mean_rf.device)
+    # past the template's D the transform is built in complex128 and
+    # rounded once: a complex64 exp of D^2-sized integer phases times a
+    # rounded 2 pi / D errs by ~9e-6 an entry at D = 512, and the float64
+    # evaluation of such a layout lay 6.7e-4 of the estimate's scale from
+    # the float64 `torch.fft` pipeline (D = 512, K = 16, the bank and rows
+    # of `tools.circ_kernel_bench`'s d512 leg); up to D = 128 the
+    # construction is the JAX package's (`linalg.unitary_dft` in
+    # complex64), which the parity tests hold the layout to
+    f = sb._dft_matrix(d, blocks, torch.complex128 if d > CIRC_MAX_D
+                       else bank.mean_rf.dtype, bank.mean_rf.device)
     prec = 1.0 / bank.spec_cr
     cm = bank.mean_rf.conj() * prec
     mu2 = (bank.mean_rf.abs() ** 2 * prec).sum(-1)
@@ -184,16 +252,117 @@ def _units(ckb: CircKernelBank, stats: bool) -> int:
                             stats)
 
 
+# ---------------------------------------------------------------------------
+# the wide form's layout (csrc/circ_wide_estimate.cu)
+# ---------------------------------------------------------------------------
+
+def _chunks(w: int) -> int:
+    return -(-w // 64)
+
+
+def circ_wide_units(d: int, k: int, stats: bool = False) -> int:
+    """Units (64 columns x 64 deep) of the wide form's bank: the forward
+    operand's NPD x NPD, the logit's KP x NZ, the combine's NPD x 2 x KP
+    and, except for the stats forms, the inverse's NPD x NPD (NPD, NZ, KP
+    the 64-wide pieces of 2D, 3D and K; `wide_units` in
+    csrc/circ_wide_estimate.cu)."""
+    npd, nz, kp = _chunks(2 * d), _chunks(3 * d), _chunks(k)
+    return npd * npd + kp * nz + 2 * npd * kp + (0 if stats else npd * npd)
+
+
+def _piece_major(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """(R, C) -> its units (cols / 64 pieces, rows / 64 chunks, 64, 64),
+    unit (j, c) the transpose of rows [64 c, 64 c + 64) x columns [64 j,
+    64 j + 64), padding zero."""
+    return mk._blocks(w, rows, cols).transpose(0, 1)
+
+
+def circ_wide_tc_units(ckb: CircKernelBank,
+                       stats: bool = False) -> torch.Tensor:
+    """The bank's four operands in float32 as the wide form's units
+    (`circ_wide_units` of them, (units, 64, 64)), each product's pieces
+    one after another, a piece's chunks consecutive: the forward operand
+    bfwd (2D, 2D); the logit operand lcoef (3D, K) against [u | |u|^2];
+    for each 64-column piece j of 2D the bias slab's piece j, then the
+    filter slab's (`circ_mp_bank`: (K, 2D) each, interleaved per bin), so
+    one block's two pieces are a bin's (bias, filter); the inverse binv
+    (2D, 2D), except for the stats forms."""
+    two_d = ckb.bfwd.shape[0]
+    d, k = two_d // 2, ckb.const.shape[0]
+    w2, wz, wk = 64 * _chunks(two_d), 64 * _chunks(3 * d), 64 * _chunks(k)
+    comb = circ_mp_bank(ckb).comb
+    units = [_piece_major(ckb.bfwd, w2, w2),
+             _piece_major(ckb.lcoef, wz, wk),
+             torch.stack([_piece_major(comb[s], wk, w2) for s in (0, 1)], 1)]
+    if not stats:
+        units.append(_piece_major(ckb.binv, w2, w2))
+    return torch.cat([u.reshape(-1, 64, 64) for u in units])
+
+
+def circ_wide_operands(ckb: CircKernelBank,
+                       stats: bool = False) -> MpCircTcOperands:
+    """Split the bank's operands into bf16 hi / lo / lo2 and lay them out
+    as the wide form's units (`circ_wide_tc_units`, in the 128-byte
+    swizzle); the stats forms' without the inverse. The same for every (T,
+    alpha) layout of a bank; once per bank (`lowered_tc` keeps them)."""
+    return MpCircTcOperands(*(kernels._sw128(pl).contiguous()
+                              for pl in kernels.split_planes3(
+                                  circ_wide_tc_units(ckb, stats)
+                                  .contiguous())))
+
+
+def circ_operands(ckb: CircKernelBank,
+                  stats: bool = False) -> MpCircTcOperands:
+    """The operands of the form that serves ckb's D: the template's units
+    (`circ_tc_operands`) up to D = 128, the wide form's
+    (`circ_wide_operands`) past it."""
+    wide = ckb.bfwd.shape[0] // 2 > CIRC_MAX_D
+    return (circ_wide_operands if wide else circ_tc_operands)(ckb, stats)
+
+
+def circ_wide_rows(x: torch.Tensor, features: bool = False) -> torch.Tensor:
+    """Rows x (N, W) float32 -> their three bf16 planes as the wide form's
+    products read them: (3, tiles, ceil(W / 64), 64, 64), the wide K1's
+    row layout (`kernels.wide_row_planes`, which splits the rows); with
+    `features`, x is u (N, 2D) and the rows are its logit features [u |
+    |u|^2] (N, 3D): on a CUDA tensor the wide form's feature split
+    (`circ_wide_features_launch`; uncounted: the wrappers count their
+    launch), on a CPU tensor this plain version."""
+    if not features:
+        return kernels.wide_row_planes(x)
+    n, two_d = x.shape
+    if not x.is_cuda:
+        u3 = x.reshape(n, -1, 2)
+        return kernels.wide_row_planes(torch.cat([x, (u3 * u3).sum(-1)],
+                                                 dim=1))
+    kernels._check_cuda("u", x, (n, two_d), x.device)
+    a = torch.empty((3, kernels.wide_row_tiles(n), _chunks(two_d // 2 * 3),
+                     64, 64), dtype=torch.bfloat16, device=x.device)
+    if n == 0:
+        return a.zero_()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = kernels._library("circ_wide_estimate").circ_wide_features_launch(
+            x.data_ptr(), a.data_ptr(), n, two_d, stream)
+    if err != 0:
+        raise RuntimeError(f"circ_wide_features launch failed: cudaError "
+                           f"{err}")
+    return a
+
+
 def lowered_tc(bank: CirculantBank, cache: Optional[dict] = None,
                blocks=None, stats: bool = False):
-    """The kernels' operands of each shard of `bank` (`circ_tc_operands`
-    of its T = 1 layouts, `lowered`), kept in `cache` under
-    ("circ_tc_operands", blocks, stats) beside the layouts, so a bank
-    served many times is split and laid out once."""
-    key = ("circ_tc_operands", blocks, bool(stats))
+    """The kernels' operands of each shard of `bank` (`circ_operands` of
+    its T = 1 layouts, `lowered`: the template's up to D = 128, the wide
+    form's past it), kept in `cache` under ("circ_tc_operands", blocks,
+    stats), or ("circ_wide_operands", ...) past D = 128, beside the
+    layouts, so a bank served many times is split and laid out once."""
+    wide = bank.spec_cr.shape[1] > CIRC_MAX_D
+    key = ("circ_wide_operands" if wide else "circ_tc_operands", blocks,
+           bool(stats))
     if cache is not None and key in cache:
         return cache[key]
-    ops = tuple(circ_tc_operands(c, stats)
+    ops = tuple(circ_operands(c, stats)
                 for c in lowered(bank, cache, blocks))
     if cache is not None:
         cache[key] = ops
@@ -301,51 +470,133 @@ def circ_tc_reference(x2: torch.Tensor, ckb: CircKernelBank, t_coh: int = 1,
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _launch(name: str, x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
-            coh_alpha: float, stats: bool,
-            ops: Optional[MpCircTcOperands]):
-    """Validate, allocate and launch the template at one pilot on x2's
-    device and current stream with the bank's operands `ops` (laid out
-    here when None); raise on any refusal. Returns out, or (m, den, out)
-    for stats."""
+def _check_bank(x2: torch.Tensor, ckb: CircKernelBank) -> None:
+    """Raise unless x2 and the bank's layout are float32, contiguous, of
+    matching widths and on x2's device."""
     n, two_d = x2.shape
-    d = two_d // 2
-    k = ckb.const.shape[0]
-    if (two_d % 2 or k > CIRC_MAX_K or n % t_coh
-            or not circ_kernel_eligible(d, k, t_coh)):
-        raise ValueError(
-            f"{name} takes N rows of whole T-row blocks with D, K <= "
-            f"{CIRC_MAX_D}, {CIRC_MAX_K} and T <= {circ_tile_rows(d)}; "
-            f"got N={n}, D={d}, K={k}, T={t_coh}")
-    dev = x2.device
+    d, k, dev = two_d // 2, ckb.const.shape[0], x2.device
     kernels._check_cuda("x2", x2, (n, two_d), dev)
     kernels._check_cuda("bfwd", ckb.bfwd, (two_d, two_d), dev)
     kernels._check_cuda("lcoef", ckb.lcoef, (3 * d, k), dev)
     kernels._check_cuda("const", ckb.const, (k,), dev)
     kernels._check_cuda("comb", ckb.comb, (k, 4 * d), dev)
     kernels._check_cuda("binv", ckb.binv, (two_d, two_d), dev)
+
+
+def _launch(wrapper, wide, x2: torch.Tensor, ckb: CircKernelBank,
+            t_coh: int, coh_alpha: float, stats: bool,
+            ops: Optional[MpCircTcOperands]):
+    """Validate, allocate and launch on x2's device and current stream
+    with the bank's operands `ops` (laid out here when None): the template
+    at one pilot up to D = 128, counted on `wrapper`, the wide form past
+    it (`_launch_wide`), counted on `wide`; raise on any refusal. Returns
+    out, or (m, den, out) for stats."""
+    n, two_d = x2.shape
+    d = two_d // 2
+    k = ckb.const.shape[0]
+    if (two_d % 2 or k > CIRC_MAX_K or n % t_coh
+            or not circ_kernel_eligible(d, k, t_coh)):
+        raise ValueError(
+            f"{wrapper.__name__} takes N rows of whole T-row blocks with "
+            f"D <= {CIRC_WIDE_MAX_D}, K <= {CIRC_MAX_K} and T <= "
+            f"{circ_tile_rows(d)}; got N={n}, D={d}, K={k}, T={t_coh}")
+    if d > CIRC_MAX_D:
+        return _launch_wide(wide, x2, ckb, t_coh, coh_alpha, stats, ops)
+    _check_bank(x2, ckb)
     if ops is None:
         ops = circ_tc_operands(ckb, stats)
-    mk.check_units(name, ops, _units(ckb, stats), dev, "circ_tc_operands"
-                   + (" with stats=True" if stats else ""))
-    return mk.launch_tc(name, x2, ops, ckb.const, d, 1, t_coh, coh_alpha,
-                        stats)
+    mk.check_units(wrapper.__name__, ops, _units(ckb, stats), x2.device,
+                   "circ_tc_operands" + (" with stats=True" if stats else ""))
+    res = mk.launch_tc(wrapper.__name__, x2, ops, ckb.const, d, 1, t_coh,
+                       coh_alpha, stats)
+    if n:
+        wrapper.launches += 1
+    return res
+
+
+def circ_wide_launch_rows(n: int, d: int, k: int, t_coh: int = 1) -> int:
+    """Rows of one launch of the wide form: all n, or as many as keep its
+    scratch within `kernels.WIDE_SCRATCH`, a multiple of 128 T (whole
+    blocks, whole pairs of 64-row tiles). A row costs its three bf16 planes
+    of the widest product's contraction (3D, or K), u (2D), its K logits
+    and its offset."""
+    per_row = (384 * max(_chunks(3 * d), _chunks(k)) + 8 * d + 4 * k + 4)
+    step = 128 * t_coh
+    rows = max(step, kernels.WIDE_SCRATCH // per_row // step * step)
+    return min(n, rows)
+
+
+def _launch_wide(wrapper, x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
+                 coh_alpha: float, stats: bool,
+                 ops: Optional[MpCircTcOperands]):
+    """Launch the wide form (csrc/circ_wide_estimate.cu) on x2's device
+    and current stream, one launch of `circ_wide_launch` for each row
+    chunk (`circ_wide_launch_rows`), and add one to `wrapper`'s count for
+    each: -> out (N, 2D), or with `stats` (m (N,), den (N,), out); raise on
+    any refusal. Takes any 1 <= D <= 672 (the wrappers send it D > 128)."""
+    name = wrapper.__name__
+    n, two_d = x2.shape
+    d = two_d // 2
+    k = ckb.const.shape[0]
+    if (two_d % 2 or not 1 <= d <= CIRC_WIDE_MAX_D or not 1 <= k <= CIRC_MAX_K
+            or not 1 <= t_coh <= CIRC_MAX_T or n % t_coh):
+        raise ValueError(
+            f"{name} takes N rows of whole T-row blocks with D <= "
+            f"{CIRC_WIDE_MAX_D}, K <= {CIRC_MAX_K} and T <= {CIRC_MAX_T}; "
+            f"got N={n}, D={d}, K={k}, T={t_coh}")
+    _check_bank(x2, ckb)
+    dev, f32 = x2.device, torch.float32
+    out = torch.empty((n, two_d), dtype=f32, device=dev)
+    m = den = None
+    if stats:
+        m = torch.empty((n,), dtype=f32, device=dev)
+        den = torch.empty((n,), dtype=f32, device=dev)
+    result = (m, den, out) if stats else out
+    if n == 0:
+        return result
+    if ops is None:
+        ops = circ_wide_operands(ckb, stats)
+    mk.check_units(name, ops, circ_wide_units(d, k, stats), dev,
+                   "circ_wide_operands" + (" with stats=True" if stats
+                                           else ""))
+    rows = circ_wide_launch_rows(n, d, k, t_coh)
+    a = torch.empty((3, kernels.wide_row_tiles(rows),
+                     max(_chunks(3 * d), _chunks(k)), 64, 64),
+                    dtype=torch.bfloat16, device=dev)
+    u = torch.empty((rows, two_d), dtype=f32, device=dev)
+    lg = torch.empty((rows, k), dtype=f32, device=dev)
+    offs = torch.empty((rows,), dtype=f32, device=dev)
+    lib = kernels._library("circ_wide_estimate")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for i0 in range(0, n, rows):
+            i1 = min(n, i0 + rows)
+            err = lib.circ_wide_launch(
+                x2[i0:i1].data_ptr(), ops.hi.data_ptr(), ops.lo.data_ptr(),
+                ops.lo2.data_ptr(), ckb.const.data_ptr(),
+                out[i0:i1].data_ptr(), m[i0:i1].data_ptr() if stats else None,
+                den[i0:i1].data_ptr() if stats else None, a.data_ptr(),
+                u.data_ptr(), lg.data_ptr(), offs.data_ptr(), i1 - i0, d, k,
+                ops.hi.shape[0], int(t_coh), float(coh_alpha), int(stats),
+                stream)
+            if err != 0:
+                raise RuntimeError(f"{name} launch failed: cudaError {err}")
+            wrapper.launches += 1
+    return result
 
 
 def circ_estimate(x2: torch.Tensor, ckb: CircKernelBank,
                   operands: Optional[MpCircTcOperands] = None
                   ) -> torch.Tensor:
     """K6 on x2 (N, 2D) float32 interleaved -> (N, 2D). On a CUDA tensor it
-    launches the CUDA kernel on the current stream with the bank's
-    `operands` (`circ_tc_operands(ckb)`, laid out in the call when None)
-    and raises on any refusal; on a CPU tensor it computes the plain
-    version."""
+    launches the CUDA kernel on the current stream (past D = 128 its wide
+    form, `circ_estimate_wide`) with the bank's `operands`
+    (`circ_operands(ckb)`, laid out in the call when None) and raises on
+    any refusal; on a CPU tensor it computes the plain version."""
     if not x2.is_cuda:
         return circ_estimate_reference(x2, ckb)
-    out = _launch("circ_estimate", x2, ckb, 1, 1.0, False, operands)
-    if x2.shape[0]:
-        circ_estimate.launches += 1
-    return out
+    return _launch(circ_estimate, circ_estimate_wide, x2, ckb, 1, 1.0, False,
+                   operands)
 
 
 def circ_estimate_coherent(x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
@@ -355,30 +606,26 @@ def circ_estimate_coherent(x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
     """K7 on x2 (N, 2D), N / T blocks of T consecutive rows (2 <= T <=
     `circ_tile_rows`), ckb from `circ_kernel_bank(bank, blocks, t_coh,
     coh_alpha)`, `operands` as for `circ_estimate` (any layout of the
-    bank). CUDA kernel on a CUDA tensor, plain version on the CPU."""
+    bank). CUDA kernel on a CUDA tensor (past D = 128
+    `circ_estimate_coherent_wide`), plain version on the CPU."""
     if t_coh < 2:
         raise ValueError(f"circ_estimate_coherent takes T >= 2; got {t_coh}")
     if not x2.is_cuda:
         return circ_estimate_coherent_reference(x2, ckb, t_coh, coh_alpha)
-    out = _launch("circ_estimate_coherent", x2, ckb, t_coh, coh_alpha, False,
-                  operands)
-    if x2.shape[0]:
-        circ_estimate_coherent.launches += 1
-    return out
+    return _launch(circ_estimate_coherent, circ_estimate_coherent_wide, x2,
+                   ckb, t_coh, coh_alpha, False, operands)
 
 
 def circ_estimate_stats(x2: torch.Tensor, ckb: CircKernelBank,
                         operands: Optional[MpCircTcOperands] = None):
     """K8 on x2 (N, 2D) -> (m (N,), den (N,), acc (N, 2D) in the DFT
-    domain), `operands` from `circ_tc_operands(ckb, stats=True)` (laid out
-    in the call when None). CUDA kernel on a CUDA tensor, plain version on
-    the CPU."""
+    domain), `operands` from `circ_operands(ckb, stats=True)` (laid out
+    in the call when None). CUDA kernel on a CUDA tensor (past D = 128
+    `circ_estimate_stats_wide`), plain version on the CPU."""
     if not x2.is_cuda:
         return circ_estimate_stats_reference(x2, ckb)
-    res = _launch("circ_estimate_stats", x2, ckb, 1, 1.0, True, operands)
-    if x2.shape[0]:
-        circ_estimate_stats.launches += 1
-    return res
+    return _launch(circ_estimate_stats, circ_estimate_stats_wide, x2, ckb, 1,
+                   1.0, True, operands)
 
 
 def circ_estimate_coherent_stats(x2: torch.Tensor, ckb: CircKernelBank,
@@ -386,23 +633,82 @@ def circ_estimate_coherent_stats(x2: torch.Tensor, ckb: CircKernelBank,
                                  operands: Optional[MpCircTcOperands] = None):
     """K9 on x2 (N, 2D) of T-row blocks -> per-row (m (N,), den (N,)) and
     acc (N, 2D) in the DFT domain, `operands` as for
-    `circ_estimate_stats`. CUDA kernel on a CUDA tensor, plain version on
-    the CPU."""
+    `circ_estimate_stats`. CUDA kernel on a CUDA tensor (past D = 128
+    `circ_estimate_coherent_stats_wide`), plain version on the CPU."""
     if t_coh < 2:
         raise ValueError(f"circ_estimate_coherent_stats takes T >= 2; got "
                          f"{t_coh}")
     if not x2.is_cuda:
         return circ_estimate_coherent_stats_reference(x2, ckb, t_coh,
                                                       coh_alpha)
-    res = _launch("circ_estimate_coherent_stats", x2, ckb, t_coh, coh_alpha,
-                  True, operands)
-    if x2.shape[0]:
-        circ_estimate_coherent_stats.launches += 1
-    return res
+    return _launch(circ_estimate_coherent_stats,
+                   circ_estimate_coherent_stats_wide, x2, ckb, t_coh,
+                   coh_alpha, True, operands)
+
+
+def circ_estimate_wide(x2: torch.Tensor, ckb: CircKernelBank,
+                       operands: Optional[MpCircTcOperands] = None
+                       ) -> torch.Tensor:
+    """K6's wide form on x2 (N, 2D) -> (N, 2D), `operands` from
+    `circ_wide_operands(ckb)` (laid out in the call when None);
+    `circ_estimate` launches it past D = 128. On a CUDA tensor it launches
+    the CUDA kernels (any D <= 672) and raises on any refusal; on a CPU
+    tensor it computes the plain version."""
+    if not x2.is_cuda:
+        return circ_estimate_reference(x2, ckb)
+    return _launch_wide(circ_estimate_wide, x2, ckb, 1, 1.0, False, operands)
+
+
+def circ_estimate_coherent_wide(x2: torch.Tensor, ckb: CircKernelBank,
+                                t_coh: int, coh_alpha: float = 1.0,
+                                operands: Optional[MpCircTcOperands] = None
+                                ) -> torch.Tensor:
+    """K7's wide form: `circ_estimate_coherent` (which launches it past D
+    = 128) at any D <= 672, 2 <= T <= 64. On a CPU tensor the plain
+    version."""
+    if t_coh < 2:
+        raise ValueError(f"circ_estimate_coherent_wide takes T >= 2; got "
+                         f"{t_coh}")
+    if not x2.is_cuda:
+        return circ_estimate_coherent_reference(x2, ckb, t_coh, coh_alpha)
+    return _launch_wide(circ_estimate_coherent_wide, x2, ckb, t_coh,
+                        coh_alpha, False, operands)
+
+
+def circ_estimate_stats_wide(x2: torch.Tensor, ckb: CircKernelBank,
+                             operands: Optional[MpCircTcOperands] = None):
+    """K8's wide form: `circ_estimate_stats` (which launches it past D =
+    128) at any D <= 672 -> (m (N,), den (N,), acc (N, 2D)), `operands`
+    from `circ_wide_operands(ckb, stats=True)`. On a CPU tensor the plain
+    version."""
+    if not x2.is_cuda:
+        return circ_estimate_stats_reference(x2, ckb)
+    return _launch_wide(circ_estimate_stats_wide, x2, ckb, 1, 1.0, True,
+                        operands)
+
+
+def circ_estimate_coherent_stats_wide(
+        x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
+        coh_alpha: float = 1.0,
+        operands: Optional[MpCircTcOperands] = None):
+    """K9's wide form: `circ_estimate_coherent_stats` (which launches it
+    past D = 128) at any D <= 672, 2 <= T <= 64. On a CPU tensor the plain
+    version."""
+    if t_coh < 2:
+        raise ValueError(f"circ_estimate_coherent_stats_wide takes T >= 2; "
+                         f"got {t_coh}")
+    if not x2.is_cuda:
+        return circ_estimate_coherent_stats_reference(x2, ckb, t_coh,
+                                                      coh_alpha)
+    return _launch_wide(circ_estimate_coherent_stats_wide, x2, ckb, t_coh,
+                        coh_alpha, True, operands)
 
 
 kernels.register_wrappers(circ_estimate, circ_estimate_coherent,
-                          circ_estimate_stats, circ_estimate_coherent_stats)
+                          circ_estimate_stats, circ_estimate_coherent_stats,
+                          circ_estimate_wide, circ_estimate_coherent_wide,
+                          circ_estimate_stats_wide,
+                          circ_estimate_coherent_stats_wide)
 
 
 # ---------------------------------------------------------------------------
@@ -462,8 +768,8 @@ def estimate_fused_circulant_coherent(bank: CirculantBank, r: torch.Tensor,
                                         cache)[:, None, :]
     if not circ_kernel_eligible(d, bank.spec_cr.shape[0], t):
         raise ValueError(
-            f"the coherent circulant kernels take D <= {CIRC_MAX_D} and "
-            f"T <= {circ_tile_rows(d)}; got D={d}, T={t}")
+            f"the coherent circulant kernels take D <= {CIRC_WIDE_MAX_D} "
+            f"and T <= {circ_tile_rows(d)}; got D={d}, T={t}")
     ckbs = lowered(bank, cache, blocks, t, alpha)
     x2 = _x2(r)
     ops = _ops(bank, r, cache, blocks, len(ckbs) > 1, len(ckbs))

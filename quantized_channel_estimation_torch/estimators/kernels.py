@@ -44,7 +44,8 @@ K2 and K5 serve banks split over the component axis across ranks
 (`parallel.mesh`); on one card K1, K3 and K4 stream any K in one launch.
 
 The circulant kernels K6-K9 and the multi-pilot circulant kernel K10 (one
-template, `csrc/mp_circ_estimate.cu`), the factored (MFA)
+template, `csrc/mp_circ_estimate.cu`; past D = 128 K6-K9's wide form,
+`csrc/circ_wide_estimate.cu`), the factored (MFA)
 kernels K11-K13 (`csrc/fact_estimate.cu`), the Karatsuba and tensor-core
 variants of K1, K14a and K14b (`csrc/karatsuba_estimate.cu`,
 `csrc/grouped_tc_estimate.cu`), and the floor probe K15
@@ -91,9 +92,11 @@ TC_MAX_WIDTH = 256      # 2M and 2D of the wgmma stream (grouped_estimate.cu)
 #                         and of K4 / K5's narrow form (grouped_topk.cu)
 WIDE_MAX_TWO_M = 2048   # 2M of the wide form (grouped_wide_estimate.cu)
 TOPK_KERNEL_MAX = 8  # K4's top-k slots a row
-# scratch bytes of one wide top-k launch; a wrapper cuts larger row counts
-# into launches of at most this much
-WIDE_TOPK_SCRATCH = 1 << 30
+# scratch bytes of one launch of a wide form that keeps its intermediates
+# in global memory (the wide top-k of csrc/grouped_wide_estimate.cu, the
+# wide circulant kernels of csrc/circ_wide_estimate.cu); a wrapper cuts
+# larger row counts into launches of at most this much
+WIDE_SCRATCH = 1 << 30
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -179,6 +182,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.grouped_topk_launch.restype = i32
         lib.grouped_topk_stats_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
         lib.grouped_topk_stats_launch.restype = i32
+    elif name == "circ_wide_estimate":
+        lib.circ_wide_launch.argtypes = [ptr] * 12 + [i32] * 5 + [
+            f32, i32, ptr]
+        lib.circ_wide_launch.restype = i32
+        lib.circ_wide_features_launch.argtypes = [ptr] * 2 + [i32] * 2 + [
+            ptr]
+        lib.circ_wide_features_launch.restype = i32
     elif name == "mp_circ_estimate":
         lib.mp_circ_estimate_launch.argtypes = (
             [ptr] * 8 + [i32] * 6 + [f32, i32, ptr])
@@ -1153,7 +1163,7 @@ def wide_topk_buckets(idx: torch.Tensor, k_comp: int):
 def _wide_topk_rows(n: int, k_comp: int, two_m: int, two_d: int, k_sel: int,
                     stats: bool) -> int:
     """Rows of one wide top-k launch: all n, or as many as keep its scratch
-    within `WIDE_TOPK_SCRATCH`, a multiple of 128. A row costs its three
+    within `WIDE_SCRATCH`, a multiple of 128. A row costs its three
     bf16 planes once for the logits and once a pick, its K logits, and its
     picks' logits, components and positions (and, for K4 at k > 1, their
     candidates); each component's last block of 128 positions may be
@@ -1162,7 +1172,7 @@ def _wide_topk_rows(n: int, k_comp: int, two_m: int, two_d: int, k_sel: int,
     per_row = (planes * (k_sel + 1) + 4 * (k_comp + 3 * k_sel)
                + (0 if stats or k_sel == 1 else 4 * k_sel * two_d))
     padding = (planes + 4) * 128 * k_comp
-    rows = max(128, (WIDE_TOPK_SCRATCH - padding) // per_row // 128 * 128)
+    rows = max(128, (WIDE_SCRATCH - padding) // per_row // 128 * 128)
     return min(n, rows)
 
 

@@ -236,7 +236,9 @@ def _circ_method(method: str, mode, bank, t: int = 1) -> str:
     else:
         k, d = bank.spec_cr.shape
         kernel_ok = circ_kernels.circ_kernel_eligible(d, k, t)
-        rule = "circ_kernel_eligible"
+        rule = (f"circ_kernel_eligible (D <= {circ_kernels.CIRC_WIDE_MAX_D},"
+                f" past {circ_kernels.CIRC_MAX_D} the wide form; T <= "
+                f"{circ_kernels.CIRC_MAX_T})")
     kernel_ok = kernel_ok and mode == "all"
     if method == "kernel" and not kernel_ok:
         raise ValueError(
@@ -251,7 +253,7 @@ def estimate_circulant(bank, r: torch.Tensor, mode="all", blocks=None,
                        method: str = "auto", cache: Optional[dict] = None):
     """Structured analog of `estimate_auto` for r (N, M) and a bank of
     either kind: 'all' mode within the kernels' range -> the circulant
-    kernel K6, or K10 for a multi-pilot bank (the CUDA kernel for a CUDA
+    kernel K6 (past D = 128 its wide form), or K10 for a multi-pilot bank (the CUDA kernel for a CUDA
     tensor, its plain version for a CPU tensor); selection modes and wider
     banks -> the `torch.fft` pipeline. `method` as in `_circ_method`;
     `cache` holds the kernel layouts of a bank served many times

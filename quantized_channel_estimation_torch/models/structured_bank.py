@@ -407,10 +407,11 @@ def estimate_circulant(bank: Union[CirculantBank, CirculantBankMP],
     through the FFT-domain bank: the structured analog of
     `gmm_estimator.estimate`, with the same posterior semantics and
     selection modes, as a chunked pipeline with FFT ('fft') or DFT-matrix
-    GEMM ('dft') transforms. The single-pass kernel K6 and the rule that
-    chooses between it and this pipeline (the JAX function's 'kernel' and
-    'auto' methods) are `estimators.circ_kernels.estimate_fused_circulant`
-    and `harness.stages.estimate_circulant`. A multi-pilot bank goes to
+    GEMM ('dft') transforms. The kernel K6 (past D = 128 its wide form,
+    `csrc/circ_wide_estimate.cu`, up to D = 672) and the rule that chooses
+    between it and this pipeline (the JAX function's 'kernel' and 'auto'
+    methods) are `estimators.circ_kernels.estimate_fused_circulant` and
+    `harness.stages.estimate_circulant`. A multi-pilot bank goes to
     `estimate_circulant_mp`."""
     if isinstance(bank, CirculantBankMP):
         return estimate_circulant_mp(bank, r, mode, min(chunk_size, 8192),

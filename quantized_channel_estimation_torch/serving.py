@@ -20,7 +20,8 @@ through the einsum estimator), int top-k modes through K4; float
 cumulative-p modes, and selection modes on blocks, through the einsum
 estimators. A structured service runs 'all'-mode flat requests through the
 circulant kernel K6 and blocks through K7 (within
-`circ_kernels.circ_kernel_eligible`), with a multi-pilot kron(x, I) matrix
+`circ_kernels.circ_kernel_eligible`: D <= 672, past D = 128 their wide
+form), with a multi-pilot kron(x, I) matrix
 through the two forms of K10 (within
 `mp_circ_kernels.mp_circ_kernel_eligible`), and every selection mode through
 the `torch.fft` pipeline. A factored service runs 'all'-mode flat requests

@@ -58,6 +58,15 @@ block, one, two and four 64-column pieces of 2D, a 128-component shard,
 D = K = 128, the pool at T = 3, 4 and 64), with the rule of mode 'f32' (for
 K8 and K9 on each of m, den and the accumulator).
 
+Mode 'wide_circ' does the same for the wide form of K6-K9
+(`csrc/circ_wide_estimate.cu`, past D = 128; `WIDE_CIRC_SHAPES`: one past
+the template's D, the JAX tool's D = 512 over two waves of blocks, the
+rule's edge D = 672, a 128-component shard, the pool at T = 3, 4 and 64),
+each launch's outputs written where the last launch's outputs lay, filled
+with NaN after they were read: a launch fails if any output's bits differ
+from the first launch's, and the first launch under the rule of mode
+'f32'.
+
 `--without-proxy-fence` also builds a copy of K14b without the
 `fence.proxy.async` before each stage's release (in
 csrc/grouped_tc_stream.cuh) and runs it launch for launch beside the
@@ -68,7 +77,7 @@ headline widths (131072 rows, 2M = 2D = 128, K = 64).
     python -m quantized_channel_estimation_torch.tools.tc_repeat_check \
         [--repeats R] \
         [--modes bf16 split2 split3 f32 wide wide_topk karatsuba fact mpcirc
-                 circ] \
+                 circ wide_circ] \
         [--no-poison] \
         [--without-proxy-fence [--time]]
 
@@ -176,6 +185,15 @@ CIRC_SHAPES = (
     (128, 128, 64 * 33, 1, 64, 1.0, True),     # K9 at D = 128, T = 64
     (32, 40, 3 * 1001, 0, 3, 0.5, True),       # K9, alpha < 1, 63-row tiles
     (100, 50, 4 * 101, 1, 4, 0.25, False),     # widths no multiple of 32
+)
+# the wide K6-K9: (D, K, N, dead components, T, alpha, stats)
+WIDE_CIRC_SHAPES = (
+    (129, 16, 1001, 1, 1, 1.0, False),         # K6 one past the template
+    (512, 16, 2 * 132 * 128 + 5, 2, 1, 1.0, False),  # D = 512, two waves
+    (256, 128, 4097, 3, 1, 1.0, True),         # K8, a 128-component shard
+    (672, 64, 4 * 1001, 1, 4, 0.25, False),    # K7 at the rule's edge
+    (320, 40, 64 * 33, 0, 64, 1.0, True),      # K9, T = 64
+    (200, 7, 3 * 701, 1, 3, 0.5, True),        # K9, T = 3, alpha < 1
 )
 REPEATS = 300
 STREAM = "grouped_tc_stream.cuh"
@@ -531,14 +549,16 @@ def random_circ_bank(d, k, dev, n_dead=0, t_coh=1, seed=0):
     return ck.CircKernelBank(*(x.to(dev).contiguous() for x in ckb))
 
 
-def _circ_check(dev, shapes, repeats, poison) -> dict:
-    """Mode 'circ' of `repeat_check`: {label: {"launches", "failures",
-    "max_err"}} over K6-K9 at `shapes`."""
+def _circ_check(dev, shapes, repeats, poison, wide=False) -> dict:
+    """Mode 'circ' (with `wide`: 'wide_circ') of `repeat_check`: {label:
+    {"launches", "failures", "max_err"}} over K6-K9 at `shapes`; with
+    `wide`, each launch after the NaN fill of the last one's outputs, and
+    bit for bit the first launch."""
     out = {}
     for d, k, n, n_dead, t, alpha, stats in shapes:
         ckb = random_circ_bank(d, k, dev, n_dead, t)
         f64 = ck.CircKernelBank(*(x.double() for x in ckb))
-        ops = ck.circ_tc_operands(ckb, stats) if dev.type == "cuda" else None
+        ops = ck.circ_operands(ckb, stats) if dev.type == "cuda" else None
         x2 = random_rows(n, 2 * d, dev)
         if t == 1 and not stats:
             name = "K6"
@@ -577,8 +597,9 @@ def _circ_check(dev, shapes, repeats, poison) -> dict:
             if poison:
                 poison_shared_memory(dev)
             got = run()
-            ok = first is None or all(torch.equal(g, f)
-                                      for g, f in zip(got, first))
+            ok = first is None or all(
+                torch.equal(g.view(torch.int32), f.view(torch.int32))
+                for g, f in zip(got, first))
             err = 0.0
             for g, w, e, sc, pe in zip(got, want, exact, scales, plain_errs):
                 rel = float((g - w).abs().max() / sc)
@@ -586,10 +607,15 @@ def _circ_check(dev, shapes, repeats, poison) -> dict:
                 ok = ok and (rel <= TOL or rel64 <= 2 * pe + 1e-5)
                 err = max(err, rel if rel == rel else math.inf)
             if first is None:
-                first = got
+                first = tuple(g.clone() for g in got) if wide else got
             fails += not ok     # NaN fails both comparisons
             errs.append(err)
-        out[f"D={d} K={k} N={n} dead={n_dead} T={t} a={alpha} {name}"] = {
+            if wide:            # the next launch's outputs land here
+                for g in got:
+                    g.fill_(math.nan)
+            del got
+        out[f"D={d} K={k} N={n} dead={n_dead} T={t} a={alpha} {name}"
+            + (" wide" if wide else "")] = {
             "launches": repeats, "failures": fails, "max_err": max(errs)}
     return out
 
@@ -664,7 +690,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
                  karatsuba_shapes=KARATSUBA_SHAPES,
                  fact_shapes=FACT_SHAPES,
                  mpcirc_shapes=MPCIRC_SHAPES,
-                 circ_shapes=CIRC_SHAPES) -> dict:
+                 circ_shapes=CIRC_SHAPES,
+                 wide_circ_shapes=WIDE_CIRC_SHAPES) -> dict:
     """Every (shape, mode): `repeats` launches of K14b (and of the copy
     without the fence), each held against the plain version; mode 'f32':
     K1 and K3 at `f32_shapes`; mode 'wide': their wide form at
@@ -672,7 +699,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     `wide_topk_shapes`; mode 'karatsuba': K14a at
     `karatsuba_shapes`; mode 'fact': K11-K13 at `fact_shapes`; mode
     'mpcirc': K10 at `mpcirc_shapes`; mode 'circ': K6-K9 at
-    `circ_shapes`. Returns
+    `circ_shapes`; mode 'wide_circ': their wide form at
+    `wide_circ_shapes`. Returns
     {"kernel" (and "no fence"): {label: {"launches", "failures",
     "max_err"}}}."""
     copy = _without_fence() if without_fence else None
@@ -696,9 +724,12 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     if "circ" in modes:
         result["kernel"].update(_circ_check(dev, circ_shapes, repeats,
                                             poison))
+    if "wide_circ" in modes:
+        result["kernel"].update(_circ_check(dev, wide_circ_shapes, repeats,
+                                            poison, wide=True))
     modes = [m for m in modes
              if m not in ("f32", "wide", "wide_topk", "karatsuba", "fact",
-                          "mpcirc", "circ")]
+                          "mpcirc", "circ", "wide_circ")]
     for two_m, two_d, k, n, n_dead in shapes if modes else ():
         kb = random_bank(two_m, two_d, k, dev, n_dead)
         planes = kernels.split_planes(kb.pw)
@@ -752,9 +783,11 @@ def main(argv=None) -> dict:
     p.add_argument("--repeats", type=int, default=REPEATS)
     p.add_argument("--modes", nargs="+",
                    default=[*vk.TC_WRAPPERS, "f32", "wide", "wide_topk",
-                            "karatsuba", "fact", "mpcirc", "circ"],
+                            "karatsuba", "fact", "mpcirc", "circ",
+                            "wide_circ"],
                    choices=[*vk.TC_WRAPPERS, "f32", "wide", "wide_topk",
-                            "karatsuba", "fact", "mpcirc", "circ"])
+                            "karatsuba", "fact", "mpcirc", "circ",
+                            "wide_circ"])
     p.add_argument("--no-poison", action="store_true")
     p.add_argument("--without-proxy-fence", action="store_true")
     p.add_argument("--time", action="store_true")

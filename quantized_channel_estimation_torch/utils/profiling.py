@@ -8,6 +8,8 @@
   barriers (`force_completion`: `torch.cuda.synchronize()` on the card,
   then a read-back of every tensor).
 - `device_ms`: CUDA-event time of one call on the card.
+- `bound_ms`: the least time an H100 could take for given operations and
+  bytes, from the card's published peaks.
 - `no_implicit_transfers()`: `torch.cuda.set_sync_debug_mode("error")` in
   the enclosed block, so any operation that synchronises the host with the
   card (a read-back such as `.item()`, `.cpu()` or `float(t)`, a
@@ -24,6 +26,22 @@ from dataclasses import dataclass, field
 from typing import Dict, List
 
 import torch
+
+
+# published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
+PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12     # tensor cores
+PEAK_HBM_BYTES = 3.35e12
+
+
+def bound_ms(fp32_flops: float, tc_flops: float, nbytes: float):
+    """(ms, 'operations' or 'bytes'): the larger of the operations' time
+    (fp32 operations at the fp32 peak plus bf16 tensor-core operations at
+    theirs) and the bytes' time at the memory rate."""
+    ops_s = fp32_flops / PEAK_FP32_FLOPS + tc_flops / PEAK_BF16_FLOPS
+    bytes_s = nbytes / PEAK_HBM_BYTES
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
 
 
 @contextlib.contextmanager

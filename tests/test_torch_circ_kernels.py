@@ -220,7 +220,7 @@ def test_eligibility_rule_reads_shapes_only():
     assert ck.circ_kernel_eligible(128, 128, 32)
     assert ck.circ_kernel_eligible(64, 40, 64)      # K no multiple of 32
     assert ck.circ_kernel_eligible(64, 1000)        # split over K
-    assert not ck.circ_kernel_eligible(129, 8)
+    assert not ck.circ_kernel_eligible(ck.CIRC_WIDE_MAX_D + 1, 8)
     assert not ck.circ_kernel_eligible(128, 8, 65)  # past 64 live rows
     assert not ck.circ_kernel_eligible(64, 8, 65)
     assert ck.circ_tile_rows(64) == 64 and ck.circ_tile_rows(65) == 64

@@ -281,7 +281,7 @@ def test_circ_rule_keeps_every_old_shape_and_pins_the_new_edges():
         assert not ck.circ_kernel_eligible(d, 8, 65)
     assert ck.circ_kernel_eligible(128, 128, 64)       # was T <= 32
     assert ck.circ_kernel_eligible(65, 8, 33)
-    assert not ck.circ_kernel_eligible(129, 8)
+    assert not ck.circ_kernel_eligible(ck.CIRC_WIDE_MAX_D + 1, 8)
     # 15 units at D = K = 64 (11 without the inverse), 22 for the
     # 128-component shards of a K = 256 bank, 60 at D = K = 128
     assert [mk.mp_circ_units(64, 64, 1, s) for s in (False, True)] == [15, 11]

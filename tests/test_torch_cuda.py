@@ -38,9 +38,10 @@ three-product split too; so is K14a, six bf16 products for each of its
 three real products, and so are the factored kernels K11-K13, six bf16
 products for each of their two products, and the multi-pilot K10 and, at
 one pilot, K6-K9, six bf16 products for each of their four (K8 / K9 on
-each of m, den and the accumulator, and on the merged quotient). The
-repeated launches of K14a, K10, K6-K9 and K11-K13 are bit for bit the
-first.
+each of m, den and the accumulator, and on the merged quotient), and
+their wide form past D = 128 (`csrc/circ_wide_estimate.cu`). The
+repeated launches of K14a, K10, K6-K9 (the wide form on NaN-filled
+outputs too) and K11-K13 are bit for bit the first.
 """
 import math
 import os
@@ -963,7 +964,7 @@ def test_wide_topk_refuses_one_past_the_rule():
 @pytest.mark.cuda
 @pytest.mark.parametrize("k_sel", [1, 4])
 def test_wide_topk_cuts_rows_to_its_scratch(monkeypatch, k_sel):
-    """Past `WIDE_TOPK_SCRATCH` the wide K4 and K5 run in row chunks, one
+    """Past `WIDE_SCRATCH` the wide K4 and K5 run in row chunks, one
     counted launch each, bit for bit the one launch's outputs (a scratch
     of a few rows' worth here: 1000 rows in chunks of 256 for K4)."""
     dev = _card()
@@ -974,7 +975,7 @@ def test_wide_topk_cuts_rows_to_its_scratch(monkeypatch, k_sel):
     planes = 6 * 512
     per_row = (planes * (k_sel + 1) + 4 * (6 + 3 * k_sel)
                + (4 * k_sel * 512 if k_sel > 1 else 0))
-    monkeypatch.setattr(tkn, "WIDE_TOPK_SCRATCH",
+    monkeypatch.setattr(tkn, "WIDE_SCRATCH",
                         (planes + 4) * 128 * 6 + 256 * per_row)
     before = (tkn.grouped_estimate_topk_wide.launches,
               tkn.grouped_estimate_topk_stats_wide.launches)
@@ -1451,8 +1452,10 @@ def _f64(ckb):
     return type(ckb)(*(x.double() for x in ckb))
 
 
-def _held(got, want, want64):
-    """1e-4 of the plain version, or as accurate as it against float64."""
+def _held(got, want, want64, ceiling=None):
+    """1e-4 of the plain version, or as accurate as it against float64
+    (and, with `ceiling`, within that fraction of the scale of the float64
+    plain version)."""
     assert got.shape == want.shape and torch.isfinite(got).all()
     scale = float(want.abs().max())
     if float((got - want).abs().max()) / scale < 1e-4:
@@ -1460,6 +1463,7 @@ def _held(got, want, want64):
     err_kernel = float((got.double() - want64).abs().max()) / scale
     err_plain = float((want.double() - want64).abs().max()) / scale
     assert err_kernel <= 2 * err_plain + 1e-5, (err_kernel, err_plain)
+    assert ceiling is None or err_kernel <= ceiling, (err_kernel, ceiling)
 
 
 # the template at one pilot: one, two and four 64-column pieces of 2D, one
@@ -1615,14 +1619,14 @@ def test_circ_kernels_refuse_bad_inputs():
             tck.circ_estimate_coherent(rows, ckb, t)
         with pytest.raises(ValueError, match="T"):
             tck.circ_estimate_coherent_stats(rows, ckb, t)
-    wide = _circ_bank(130, 2, dev)                   # D past the kernels
-    with pytest.raises(ValueError, match="128"):
-        tck.circ_estimate(torch.zeros(3, 260, device=dev),
+    wide = _circ_bank(673, 2, dev)                   # D past the kernels
+    with pytest.raises(ValueError, match="672"):
+        tck.circ_estimate(torch.zeros(3, 1346, device=dev),
                           tck.circ_kernel_bank(wide))
     many = tck.circ_kernel_bank(_circ_bank(8, 130, dev))   # one launch's K
     with pytest.raises(ValueError, match="128"):
         tck.circ_estimate(x2, many)
-    r = torch.zeros(3, 130, dtype=torch.complex64, device=dev)
+    r = torch.zeros(3, 673, dtype=torch.complex64, device=dev)
     with pytest.raises(ValueError, match="method='kernel'"):
         stages.estimate_circulant(wide, r, method="kernel")
     with pytest.raises(ValueError, match="coherent circulant kernels"):
@@ -1767,6 +1771,238 @@ def test_wide_bank_splits_over_k_on_card():
                                              alpha=0.5, method="fft")
     assert float((got - want).abs().max() / want.abs().max()) < 2e-4
     assert float((got_b - want_b).abs().max() / want_b.abs().max()) < 2e-4
+
+
+# the wide form of K6-K9 past D = 128: (D, K, T, alpha, dead components,
+# blocks), the widths of chip_smoke's phase 3l
+CIRC_WIDE_CASES = [
+    (129, 1, 1, 1.0, 0, None),
+    (129, 16, 4, 0.25, 1, None),
+    (192, 64, 16, 1.0, 2, None),
+    (256, 16, 1, 1.0, 2, (16, 16)),
+    (512, 64, 64, 0.25, 1, None),
+    (640, 16, 4, 1.0, 1, None),
+    (672, 16, 16, 0.25, 1, None),
+    (672, 1, 4, 1.0, 0, None),
+]
+CIRC_WIDE_NAMES = {(False, False): "circ_estimate_wide",
+                   (True, False): "circ_estimate_coherent_wide",
+                   (False, True): "circ_estimate_stats_wide",
+                   (True, True): "circ_estimate_coherent_stats_wide"}
+
+
+def _circ_forms(x2, ckb, t, alpha, operands=(None, None)):
+    """K6 (K7 at t > 1) and K8 (K9) on x2 through the public wrappers:
+    (out, m, den, acc)."""
+    if t == 1:
+        return (tck.circ_estimate(x2, ckb, operands[0]),
+                *tck.circ_estimate_stats(x2, ckb, operands[1]))
+    return (tck.circ_estimate_coherent(x2, ckb, t, alpha, operands[0]),
+            *tck.circ_estimate_coherent_stats(x2, ckb, t, alpha,
+                                              operands[1]))
+
+
+def _circ_plain(x2, ckb, t, alpha):
+    return (tck._circ_reference(x2, ckb, t, alpha, False, 16384),
+            *tck._circ_reference(x2, ckb, t, alpha, True, 16384))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,t,alpha,n_dead,blocks", CIRC_WIDE_CASES)
+def test_circ_wide_matches_plain(d, k, t, alpha, n_dead, blocks):
+    """Past D = 128 the circulant wrappers launch the wide form: K6 / K7
+    and K8 / K9 within 1e-4 of the scale of their plain versions (where
+    the float32 plain version's own rounding of logits pooled over T rows
+    pushes the two apart, held to the float64 rule and within 1e-4 of the
+    float64 plain version, `_held`), one launch
+    each counted on the wide wrappers and none on the template's; the
+    form's row split (`circ_wide_rows`, rows and u's features) bit for
+    bit its plain layout."""
+    dev = _card()
+    bank = _circ_bank(d, k, dev, n_dead=n_dead, blocks=blocks)
+    x2 = _rows(2049 // t * t, 2 * d, dev)
+    for feats in (False, True):
+        assert torch.equal(
+            tck.circ_wide_rows(x2, feats).cpu().view(torch.int16),
+            tck.circ_wide_rows(x2.cpu(), feats).view(torch.int16))
+    ckb = tck.circ_kernel_bank(bank, blocks, t, alpha)
+    before = tkn.launch_counts()
+    got = _circ_forms(x2, ckb, t, alpha)
+    after = tkn.launch_counts()
+    for g, w, w64 in zip(got, _circ_plain(x2, ckb, t, alpha),
+                         _circ_plain(x2.double(), _f64(ckb), t, alpha)):
+        _held(g, w, w64, ceiling=1e-4)
+    assert {name: after[name] - before[name] for name in after
+            if after[name] != before[name]} == {
+        CIRC_WIDE_NAMES[(t > 1, False)]: 1, CIRC_WIDE_NAMES[(t > 1, True)]: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("d", [512, 672])
+def test_circ_wide_keeps_fp32_accuracy(d, t):
+    """The wide K6-K9 are no less accurate than float32 at the widths of
+    JAX's tool and of the rule's edge: each output's (and each of m, den
+    and acc's) max |error| against the plain version in float64 at most
+    twice the float32 plain version's own; the operands laid out once
+    give the same bits as those laid out in the call."""
+    dev = _card()
+    bank = _circ_bank(d, 16, dev, n_dead=2)
+    x2 = _rows(4096, 2 * d, dev)
+    ckb = tck.circ_kernel_bank(bank, None, t, 1.0)
+    got = _circ_forms(x2, ckb, t, 1.0)
+    want = _circ_plain(x2, ckb, t, 1.0)
+    want64 = _circ_plain(x2.double(), _f64(ckb), t, 1.0)
+    for g, w, w64 in zip(got, want, want64):
+        e_k = float((g.double() - w64).abs().max())
+        e_p = float((w.double() - w64).abs().max())
+        assert torch.isfinite(g).all() and e_k <= 2 * e_p, (e_k, e_p)
+    again = _circ_forms(x2, ckb, t, 1.0, (tck.circ_wide_operands(ckb),
+                                          tck.circ_wide_operands(ckb, True)))
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,alpha", [(1, 1.0), (4, 0.5)])
+def test_circ_wide_shards_merge_to_one_launch(t, alpha):
+    """At D = 256 the wide K8 (K9) on the two halves of a 64-component
+    bank, merged with `merge_stats` and inverse-transformed once, equal
+    one wide K6 (K7) launch over the whole bank within 1e-4 of the scale
+    (the template's own merge test's tolerance: the two sides round the
+    softmax over other sets of components); a 200-component bank through
+    the entries (two shards: K8 / K9 launched twice, merged) equals its
+    plain states merged (`_held`: where they part by more than 1e-4, both
+    against those states in float64)."""
+    dev = _card()
+    d = 256
+    bank = _circ_bank(d, 64, dev, n_dead=3)
+    x2 = _rows(1024, 2 * d, dev)
+    states = []
+    for lo, hi in ((0, 32), (32, 64)):
+        ckb = tck.circ_kernel_bank(
+            tsb.CirculantBank(*(x[lo:hi] for x in bank)), None, t, alpha)
+        states.append(_circ_forms(x2, ckb, t, alpha)[1:])
+    _, den, acc = tck.merge_stats(*zip(*states))
+    merged = tck._x2(tsb.unitary_ifft(tck._hc(acc / den[:, None],
+                                              torch.complex64)))
+    one = _circ_forms(x2, tck.circ_kernel_bank(bank, None, t, alpha), t,
+                      alpha)[0]
+    assert _rel(merged, one) < 1e-4
+    big = _circ_bank(d, 200, dev, n_dead=4, seed=1)
+    r = tck._hc(_rows(512, 2 * d, dev, seed=3), torch.complex64)
+    before = tkn.launch_counts()
+    if t == 1:
+        got = tck.estimate_fused_circulant(big, r)
+    else:
+        got = tck.estimate_fused_circulant_coherent(
+            big, r.reshape(-1, t, d), alpha)
+    name = CIRC_WIDE_NAMES[(t > 1, True)]
+    assert tkn.launch_counts()[name] == before[name] + 2
+    x2 = tck._x2(r)
+
+    def plain_merged(double):
+        sts = [tck._circ_reference(x2.double() if double else x2,
+                                   _f64(c) if double else c, t, alpha, True,
+                                   16384)
+               for c in tck.lowered(big, None, None, t, alpha)]
+        _, den, acc = tck.merge_stats(*zip(*sts))
+        q = tck._hc(acc / den[:, None],
+                    torch.complex128 if double else torch.complex64)
+        return torch.view_as_real(tsb.unitary_ifft(q)).reshape(512, -1)
+
+    _held(torch.view_as_real(got.reshape(512, d)).reshape(512, -1),
+          plain_merged(False), plain_merged(True), ceiling=1e-4)
+
+
+@pytest.mark.cuda
+def test_circ_wide_refuses_one_past_the_rule():
+    """D = 673 is refused by every circulant wrapper, wide or not, and by
+    the stages' 'kernel' method ('auto' takes the `torch.fft` pipeline); T
+    = 65, K = 129 and the template's operands are refused at D = 200; N =
+    0 launches nothing; D = 672 runs."""
+    dev = _card()
+    past = tck.circ_kernel_bank(_circ_bank(673, 2, dev))
+    x2 = _rows(8, 1346, dev)
+    for fn in (tck.circ_estimate, tck.circ_estimate_stats,
+               tck.circ_estimate_wide, tck.circ_estimate_stats_wide):
+        with pytest.raises(ValueError, match="672"):
+            fn(x2, past)
+    for fn in (tck.circ_estimate_coherent, tck.circ_estimate_coherent_wide):
+        with pytest.raises(ValueError, match="672"):
+            fn(x2, past, 4)
+    bank = _circ_bank(673, 2, dev)
+    r = tck._hc(x2, torch.complex64)
+    with pytest.raises(ValueError, match="method='kernel'"):
+        stages.estimate_circulant(bank, r, method="kernel")
+    assert torch.equal(stages.estimate_circulant(bank, r),
+                       tsb.estimate_circulant(bank, r, method="fft"))
+    ckb = tck.circ_kernel_bank(_circ_bank(200, 4, dev))
+    x2 = _rows(130, 400, dev)
+    with pytest.raises(ValueError, match="T"):
+        tck.circ_estimate_coherent(x2, ckb, 65)
+    with pytest.raises(ValueError, match="T"):
+        tck.circ_estimate_coherent_stats_wide(x2, ckb, 65)
+    many = tck.circ_kernel_bank(_circ_bank(200, 129, dev))
+    with pytest.raises(ValueError, match="128"):
+        tck.circ_estimate(x2, many)
+    with pytest.raises(ValueError, match="circ_wide_operands"):
+        tck.circ_estimate(x2, ckb, tck.circ_tc_operands(
+            tck.circ_kernel_bank(_circ_bank(64, 4, dev))))
+    before = tkn.launch_counts()
+    assert tck.circ_estimate(x2[:0], ckb).shape == (0, 400)
+    m, den, acc = tck.circ_estimate_stats_wide(x2[:0], ckb)
+    assert m.shape == den.shape == (0,) and acc.shape == (0, 400)
+    assert tkn.launch_counts() == before
+    edge = tck.circ_kernel_bank(_circ_bank(672, 3, dev, n_dead=1))
+    x2 = _rows(300, 1344, dev)
+    assert _rel(tck.circ_estimate(x2, edge),
+                tck.circ_estimate_reference(x2, edge)) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4])
+def test_circ_wide_cuts_rows_to_its_scratch(monkeypatch, t):
+    """Past `WIDE_SCRATCH` the wide K6-K9 run in row chunks of whole
+    blocks, one counted launch each, bit for bit the one launch's outputs
+    (a scratch of 512 rows' worth here: 2000 rows in four chunks)."""
+    dev = _card()
+    d, k = 200, 8
+    ckb = tck.circ_kernel_bank(_circ_bank(d, k, dev, n_dead=1), None, t, 1.0)
+    x2 = _rows(2000, 2 * d, dev)
+    whole = _circ_forms(x2, ckb, t, 1.0)
+    per_row = 384 * 10 + 8 * d + 4 * k + 4       # 3D = 600: 10 chunks
+    monkeypatch.setattr(tkn, "WIDE_SCRATCH", 512 * per_row + 100)
+    assert tck.circ_wide_launch_rows(2000, d, k, t) == 512
+    before = tkn.launch_counts()
+    cut = _circ_forms(x2, ckb, t, 1.0)
+    after = tkn.launch_counts()
+    for stats in (False, True):
+        name = CIRC_WIDE_NAMES[(t > 1, stats)]
+        assert after[name] == before[name] + 4
+    for a, b in zip(cut, whole):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_circ_wide_repeated_launches_match_plain():
+    """The wide K6-K9 launched 20 times at each shape of
+    `tools.tc_repeat_check.WIDE_CIRC_SHAPES` (one past the template's D,
+    D = 512 over two waves of blocks, the rule's edge, a 128-component
+    shard, the pool at T = 3, 4 and 64), each launch after a NaN fill of
+    every SM's shared memory and on the memory of the last launch's
+    outputs filled with NaN, each bit for bit the first launch, which is
+    held against the plain version."""
+    dev = _card()
+    shapes = tc_repeat_check.WIDE_CIRC_SHAPES
+    before = tkn.launch_counts()
+    runs = tc_repeat_check.repeat_check(dev, repeats=20,
+                                        modes=("wide_circ",))["kernel"]
+    after = tkn.launch_counts()
+    for (coh, stats), name in CIRC_WIDE_NAMES.items():
+        n = sum(1 for *_, t, _, st in shapes if (t > 1, st) == (coh, stats))
+        assert after[name] == before[name] + 20 * n, name
+    assert len(runs) == len(shapes)
+    assert not {k: v for k, v in runs.items() if v["failures"]}, runs
 
 
 @pytest.mark.cuda

@@ -445,7 +445,7 @@ def test_method_dispatch_and_refusals(rng):
     with pytest.raises(ValueError, match="blocks"):
         tst.estimate_circulant_coherent(tb, rb[0])
     # D past the rule: 'auto' is the fft pipeline, 'kernel' raises
-    d = ck.CIRC_MAX_D + 2
+    d = ck.CIRC_WIDE_MAX_D + 1
     w, means, spec = _prior(rng, k=2, d=d)
     dummy = torch.zeros(2, 1, 1, dtype=torch.complex64)
     wide = tsb.prepare_bank_circulant(
