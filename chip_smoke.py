@@ -7,7 +7,7 @@ Phases (any failure exits non-zero; nothing is caught):
      build of every CUDA kernel of the port from `csrc/` with `nvcc` (the
      `-Xptxas -v` summary of the redesigned sources; K14a's forms at M, D
      <= 64 and every instantiation of K11-K13 and of K6-K10 (the 44 of
-     `mp_circ_estimate.cu`) and of the wide K6-K9
+     `mp_circ_estimate.cu`) and of the wide K6-K10
      (`circ_wide_estimate.cu`) must not spill);
   2. every kernel against its plain PyTorch version on the card, at the
      widths of the main path (D = M = 64, K = 64): K1 at the headline batch
@@ -210,6 +210,20 @@ Phases (any failure exits non-zero; nothing is caught):
      1 x 2 mesh flat and at T = 4 (past TOL of the `torch.fft` answers,
      held against float64), 20 NaN-poisoned repeats a shape, and
      the times at D = 512, K = 16, 32768 rows beside the bound, the plain
+     version and the `torch.fft` pipeline; then the multi-pilot circulant
+     kernel on wide banks (phase 3m, `wide_mp_circ_phase`): the wide form
+     of K10 (past the template's rule) at twelve (D, K, P, T, alpha)
+     cases from D = 129 to 357, K to 4096, P to 4, T in {1, 4, 16}, dead
+     components and `blocks=(16, 16)` against its plain version
+     `mp_circ_wide_reference` within TOL (or the float64 rule of
+     `compare64` at ceiling TOL), each case's entry the same bits, the
+     float64 rule (`fp32_accuracy`) at D = 256 and 336,
+     `tools.mp_kernel_bench` at its defaults (D = K = 64) and at D = 256,
+     K = 32, `run_gmm` at D = 256, K = 32, circulant, two pilots, flat and
+     at T = 4 (the wide K10 once an SNR; genie < GMM < LS at -10 and -5
+     dB), the structured service on a two-pilot D = 256 prior against the
+     one-shot estimates, 20 NaN-poisoned repeats a shape, and the times at
+     D = 256, K = 32, P = 2, 65536 rows beside the bound, the plain
      version and the `torch.fft` pipeline; then the service over
      in-process meshes (`parallel.mesh.make_local_mesh`) of 1 x 2 and 2 x 2
      shards in eight modes each (dense, structured at K = 64 and the K =
@@ -2805,6 +2819,310 @@ def wide_circ_phase(dev, card, kernels, errs, add):
     return rec
 
 
+# phase 3m: the multi-pilot circulant kernel K10 on wide banks. Cases (D,
+# K, P, T, alpha, dead components, blocks), each past the template's rule:
+# D past 128 to the JAX rule's largest (357 at P = 2, 249 at P = 3, 189
+# at P = 4), K past 128 to 4096, the pool at T = 4 and 16
+WIDE_MP_CASES = (
+    (129, 1, 2, 1, 1.0, 0, None),
+    (144, 16, 3, 4, 0.25, 1, None),
+    (256, 32, 2, 1, 1.0, 2, None),
+    (256, 32, 2, 4, 1.0, 2, None),
+    (256, 16, 2, 16, 0.25, 1, (16, 16)),
+    (336, 64, 2, 1, 1.0, 3, None),
+    (357, 1, 2, 4, 1.0, 0, None),
+    (249, 1, 3, 16, 1.0, 0, None),
+    (189, 8, 4, 1, 1.0, 1, None),
+    (64, 256, 2, 1, 1.0, 4, None),
+    (64, 1024, 2, 4, 0.25, 8, None),
+    (16, 4096, 2, 1, 1.0, 16, None),
+)
+WIDE_MP_N = 4097        # rows a case: whole T-row blocks below it
+WIDE_MP_F64_D = (256, 336)  # widths under the float64 rule
+# (D, K) of the service and the times, and the rows of the times: the
+# scale bench's D = 256, K = 32 at the JAX `tools/mp_kernel_bench.py`'s P =
+# 2 and 65536 rows
+WIDE_MP_DK, WIDE_MP_BATCH = (256, 32), 65536
+WIDE_MP_FIT = dict(n_antennas=256, n_components=32, cov_type="circulant",
+                   use_structured_bank=True, n_pilots=2, n_train=60_000,
+                   n_val=2_000)
+WIDE_MP_NAMES = {False: "mp_circ_estimate_wide",
+                 True: "mp_circ_estimate_coherent_wide"}
+
+
+def wide_mp_circ_phase(dev, card, kernels, errs, add):
+    """Phase 3m, the multi-pilot circulant kernel K10 on wide banks: its
+    wide form (`mp_circ_wide_launch` in `csrc/circ_wide_estimate.cu`, past
+    the template's rule: D or K past 128, a P whose u does not fit a
+    block's shared memory, a T past its live rows).
+
+    1. At each of WIDE_MP_CASES (seeded multi-pilot circulant banks at 10
+       dB, 2 bits, under the P-pilot matrix kron(x, I), their quantized
+       observations, 4097 rows or the whole blocks below): the wide K10
+       (flat, or coherent at T > 1) against its plain version
+       `mp_circ_wide_reference` within TOL of the scale, or where the two
+       part by more, both against the function in float64 on the same
+       layout (`compare64` at ceiling TOL; every comparison's readings kept
+       under "against_float64"); the entry (`estimate_fused_circulant_mp[
+       _coherent]`) the same bits; at D = 256 and 336 the float64 rule
+       (`fp32_accuracy`, against the float32 plain version `_mp_reference`).
+    2. `tools.mp_kernel_bench` at the JAX tool's sizes (D = K = 64: the
+       template) and at D = 256, K = 32 (the wide form): both legs, the
+       kernel route against the dense bank and the `torch.fft` pipeline,
+       every route's rate.
+    3. The main paths, each with the launch counts set to 0 just before it
+       and read just after: `run_gmm` at D = 256, K = 32, circulant, two
+       pilots (`WIDE_MP_FIT`, 7 SNRs) flat and at T = 4 (genie < GMM < LS
+       at -10 and -5 dB, the recorded two-pilot deviation; the wide K10,
+       and the wide coherent K10 for the coherent column, launched once an
+       SNR and no other kernel); the structured service on a D = 256, K =
+       32 two-pilot prior (8 clients x 64 snapshots, 1 s, flat and T = 4
+       blocks), every answer within TOL of the scale of the one-shot
+       estimate of the same request (`stages.estimate_circulant[
+       _coherent]` on the bank of its SNR).
+    4. The wide K10 launched 20 times at each shape of
+       `tools.tc_repeat_check.WIDE_MPCIRC_SHAPES` on NaN-filled outputs,
+       bit for bit the first launch.
+    5. CUDA-event times at D = 256, K = 32, P = 2, 65536 rows (flat, and
+       T = 4 at alpha 1), each beside its plain version, the bound
+       (`mp_circ_kernels.mp_circ_bound`: the transforms as FFTs; and the
+       kernels' dense transforms) and the library yardstick (the
+       `torch.fft` pipeline over the batch as one chunk).
+    Returns the phase's record; its timing records are the kernels line's
+    entries of the two wide wrappers."""
+    from quantized_channel_estimation_torch import serving
+    from quantized_channel_estimation_torch.estimators import (
+        circ_kernels as ck, mp_circ_kernels as mk)
+    from quantized_channel_estimation_torch.harness import run_gmm, stages
+    from quantized_channel_estimation_torch.models import (
+        structured_bank as sb)
+    from quantized_channel_estimation_torch.ops import pilots
+    from quantized_channel_estimation_torch.ops import quantizer as Q
+    from quantized_channel_estimation_torch.tools import (
+        mp_kernel_bench, tc_repeat_check as trc)
+    from quantized_channel_estimation_torch.utils import profiling
+    t_phase = time.time()
+    rec = {"cases": {}, "fp32_accuracy": {}, "against_float64": {}}
+
+    def f64(ckb):
+        return mk.MpCircKernelBank(*(x.double() for x in ckb))
+
+    def kernel(ckb, x2, t, alpha, ops=None):
+        return (mk.mp_circ_estimate_coherent_wide(x2, ckb, t, alpha, ops)
+                if t > 1 else mk.mp_circ_estimate_wide(x2, ckb, ops))
+
+    # 1. every case against its plain version
+    for d, k, p, t, alpha, n_dead, blocks in WIDE_MP_CASES:
+        label = (f"D={d}, K={k}, P={p}, T={t}, alpha={alpha}, dead={n_dead}"
+                 + (f", blocks={blocks}" if blocks else ""))
+        if mk.mp_circ_narrow(d, k, p, t):
+            raise AssertionError(f"phase 3m case {label} is the template's")
+        name = WIDE_MP_NAMES[t > 1]
+        bank, a, q = mp_bank(dev, p, d, k, n_dead=n_dead, blocks=blocks)
+        n = WIDE_MP_N // t * t
+        r = mp_obs(dev, a, q, n)
+        x2 = ck._x2(r)
+        ckb = mk.mp_circ_kernel_bank(bank, blocks, t, alpha)
+        got = kernel(ckb, x2, t, alpha)
+        want = mk.mp_circ_wide_reference(x2, ckb, t, alpha)
+        want64 = mk._mp_reference(x2.double(), f64(ckb), t, alpha, 8192)
+        errs[name].append(compare64(name, label, got, want, want64,
+                                    ceiling=TOL,
+                                    record=rec["against_float64"]))
+        entry = (mk.estimate_fused_circulant_mp_coherent(
+            bank, r.reshape(-1, t, p * d), alpha, blocks) if t > 1
+            else mk.estimate_fused_circulant_mp(bank, r, blocks))
+        if not torch.equal(ck._x2(entry.reshape(n, d)), got):
+            raise AssertionError(f"{name} at {label}: the entry's bits "
+                                 "differ from the wrapper's")
+        case = {"max_rel_err": errs[name][-1] / float(want.abs().max())}
+        if d in WIDE_MP_F64_D:
+            acc, rule = fp32_accuracy(name, label, got, mk._mp_reference(
+                x2, ckb, t, alpha, 8192), want64)
+            rec["fp32_accuracy"][f"{name} {label}"] = case["fp32"] = acc
+            if not rule:
+                raise AssertionError(f"{name} at {label}: the float64 rule "
+                                     "does not hold")
+        rec["cases"][label] = case
+        del bank, r, x2, ckb, got, want, want64
+
+    # 2. the JAX tool, at its sizes and at D = 256, K = 32
+    rec["mp_kernel_bench"] = {}
+    for label, argv, want_names in (
+            ("D=64, K=64", [], ("mp_circ_estimate",
+                                "mp_circ_estimate_coherent")),
+            ("D=256, K=32", ["--d", "256", "--k", "32"],
+             ("mp_circ_estimate_wide", "mp_circ_estimate_coherent_wide"))):
+        tool = mp_kernel_bench.main(argv, device=dev)
+        flat, coh = tool["legs"]["flat"], tool["legs"]["coherent"]
+        got_names = (flat["mp kernel"]["launches"],
+                     coh["mp coh kernel"]["launches"])
+        if tuple(set(g) for g in got_names) != tuple({w}
+                                                     for w in want_names):
+            raise AssertionError(f"mp_kernel_bench {label} launched "
+                                 f"{got_names}")
+        for key, v in [("kernel_vs_dense", flat["kernel_vs_dense"])] + [
+                (key, v) for key, v in coh.items()
+                if key.startswith("kernel_vs_fft")]:
+            if not math.isfinite(v["max_rel"]):
+                raise AssertionError(f"mp_kernel_bench {label} {key}: {v}")
+        rec["mp_kernel_bench"][label] = tool
+
+    # 3. the main paths
+    rec["paths"] = {}
+    for label, change, want_kernels in (
+            ("run_gmm D=256, K=32, circulant, 2 pilots", {},
+             {"mp_circ_estimate_wide"}),
+            ("run_gmm D=256, K=32, circulant, 2 pilots, T=4",
+             dict(n_coherence=4, coherence_alpha=1.0),
+             {"mp_circ_estimate_wide", "mp_circ_estimate_coherent_wide"})):
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg, mse, _, timings, seconds, launches = main_path_run(
+                run_gmm, kernels, dev, tmp, falling=False, **WIDE_MP_FIT,
+                **change)
+        launches = {k2: v for k2, v in launches.items() if v}
+        add(launches)
+        if set(launches) != want_kernels or any(
+                v != len(cfg.snrs) for v in launches.values()):
+            raise AssertionError(f"{label} launched {launches}")
+        cols = ["blmmse_gmm"] + (["blmmse_gmm_coh"] if change else [])
+        for snr in (-10, -5):
+            i = list(cfg.snrs).index(snr)
+            for col in cols:
+                if not (mse["blmmse_genie"][i] < mse[col][i]
+                        < mse["LS_glob"][i]):
+                    raise AssertionError(
+                        f"{label}: genie < {col} < LS broken at {snr} dB: "
+                        f"{mse['blmmse_genie'][i]}, {mse[col][i]}, "
+                        f"{mse['LS_glob'][i]}")
+        log(f"{label}: " + "; ".join(f"{k2} {['%.4f' % v for v in vals]}"
+                                     for k2, vals in mse.items())
+            + f"; fit {timings['gmm_fit']:.1f}s of {seconds:.1f}s")
+        rec["paths"][label] = {"mse": mse, "launches": launches,
+                               "seconds": seconds,
+                               "gmm_fit_s": timings["gmm_fit"]}
+
+    # the structured service on a D = 256, K = 32 two-pilot prior, each
+    # answer held against the one-shot estimate of the same request
+    d, k = WIDE_MP_DK
+    params, spectra = circ_prior(dev, d, k, n_dead=1)
+    w_np, means_np, spec_np = (x.cpu().numpy() for x in
+                               (params.weights, params.means, spectra))
+    a_mp = pilots.pilot_matrix(d, 2, N_BITS, device=dev)
+    banks = {snr: sb.prepare_bank_circulant(
+        params, snr, a_mp, N_BITS, Q.design_quantizer(snr, N_BITS,
+                                                      device=dev),
+        spectra=spectra) for snr in (*SERVE_SNRS, SNR)}
+
+    def one_shot(rt, snr=SNR):
+        if rt.dim() == 3:
+            return stages.estimate_circulant_coherent(banks[snr], rt)
+        return stages.estimate_circulant(banks[snr], rt)
+
+    class OneShot:
+        """The one-shot estimate of a request, as a service answers it."""
+
+        @staticmethod
+        def submit(r_np, snr, timeout=None):
+            return one_shot(torch.as_tensor(r_np, device=dev),
+                            snr).cpu().numpy()
+
+    svc = serving.EstimationService.from_circulant_spectra(
+        w_np, means_np, spec_np, a_mp.cpu().numpy(), N_BITS,
+        max_batch=SERVE_MAX_BATCH, device=dev, use_kernels=True)
+    try:
+        rec["service"] = []
+        for label, t_coh in (("structured 2 pilots D=256 flat all", 1),
+                             ("structured 2 pilots D=256 T=4 blocks, "
+                              "alpha=1", 4)):
+            name = WIDE_MP_NAMES[t_coh > 1]
+            rec["service"].append(serve_mode(
+                svc, kernels, dev, label, t_coh, name, one_shot,
+                seconds=1.0, same_as=OneShot, d=d))
+            add(rec["service"][-1]["launches"])
+            used = {k2 for k2, v in rec["service"][-1]["launches"].items()
+                    if v}
+            if used != {name}:
+                raise AssertionError(f"{label} launched {used}")
+    finally:
+        svc.close(timeout=120.0)
+    del banks, params, spectra
+
+    f64_rec = rec["against_float64"].values()
+    ruled = [v for v in f64_rec if v["float64_rule"]]
+    log(f"wide K10 comparisons: {len(f64_rec)}, {len(ruled)} decided by "
+        f"the float64 rule (plain version past {TOL}: largest "
+        f"{max((v['rel_to_plain'] for v in ruled), default=0.0):.3e} of "
+        f"scale); the kernel's largest distance from float64 "
+        f"{max(v['kernel_to_f64'] for v in f64_rec):.3e} of scale, the "
+        f"plain version's {max(v['plain_to_f64'] for v in f64_rec):.3e}")
+
+    # 4. repeated launches
+    tm = time.time()
+    rep = trc.repeat_check(dev, repeats=20, modes=("wide_mpcirc",))["kernel"]
+    bad = {k2: v for k2, v in rep.items() if v["failures"]}
+    log(f"wide K10 repeated: {sum(v['launches'] for v in rep.values())} "
+        f"launches in {time.time() - tm:.1f}s, max err "
+        f"{max(v['max_err'] for v in rep.values()):.3e}, failures "
+        f"{bad or 0}")
+    if bad:
+        raise AssertionError(f"the wide K10 off on repeated launches: {bad}")
+    rec["repeat_check"] = rep
+
+    # 5. times at D = 256, K = 32, P = 2, 65536 rows
+    n = WIDE_MP_BATCH
+    bank, a, q = mp_bank(dev, 2, d, k, n_dead=2)
+    r = mp_obs(dev, a, q, n)
+    rb = r.reshape(-1, 4, r.shape[-1])
+    x2 = ck._x2(r)
+    ckb, ckb4 = (mk.mp_circ_kernel_bank(bank, None, t, 1.0) for t in (1, 4))
+    ops = mk.mp_circ_wide_operands(ckb)      # laid out once
+    times = {}
+    for name, t, c, library, chunked in (
+            ("mp_circ_estimate_wide", 1, ckb,
+             lambda: sb.estimate_circulant(bank, r, "all", n, None, "fft"),
+             lambda: sb.estimate_circulant(bank, r, "all", 8192, None,
+                                           "fft")),
+            ("mp_circ_estimate_coherent_wide", 4, ckb4,
+             lambda: sb.estimate_circulant_coherent(bank, rb, "all", n // 4,
+                                                    1.0, None, "fft"),
+             lambda: sb.estimate_circulant_coherent(bank, rb, "all", 2048,
+                                                    1.0, None, "fft"))):
+        kern = (lambda c=c, t=t: kernel(c, x2, t, 1.0, ops))
+        plain_fn = (lambda c=c, t=t: mk.mp_circ_wide_reference(x2, c, t,
+                                                               1.0))
+        # the plain version's walk of the units takes ~0.65 s a call on an
+        # H100: one timed call after the warm-up, either side of the
+        # kernel's
+        plain_ms = profiling.device_ms(plain_fn, reps=1)
+        ms = profiling.device_ms(kern)
+        ms2 = profiling.device_ms(kern)
+        plain_ms2 = profiling.device_ms(plain_fn, reps=1)
+        library_ms = profiling.device_ms(library)
+        chunked_ms = profiling.device_ms(chunked)
+        b = mk.mp_circ_bound(n, d, k, 2, t)
+        times[name] = {"ms": ms, "ms_again": ms2, "plain_ms": plain_ms,
+                       "plain_ms_again": plain_ms2, **b,
+                       "library_ms": library_ms,
+                       "library_chunked_ms": chunked_ms,
+                       "share_of_bound": b["bound_ms"] / ms,
+                       "share_of_bound_dft": b["bound_dft_ms"] / ms}
+        log(f"{name} at N={n}, D={d}, K={k}, P=2"
+            + (", T=4" if t > 1 else "")
+            + f": kernel {ms:.3f} / {ms2:.3f} ms, plain {plain_ms:.3f} / "
+            f"{plain_ms2:.3f} ms, library (torch.fft pipeline, one chunk) "
+            f"{library_ms:.3f} ms (default chunks {chunked_ms:.3f}), bound "
+            f"{b['bound_ms']:.3f} ms ({b['bound_by']}; "
+            f"{b['bound_ms'] / ms:.1%} reached), with the kernels' dense "
+            f"transforms {b['bound_dft_ms']:.3f} ms "
+            f"({b['bound_dft_ms'] / ms:.0%}), {n / (ms * 1e-3):.4g} "
+            f"estimates/s; {card}")
+    rec["times"] = times
+    rec["seconds"] = time.time() - t_phase
+    log(f"wide multi-pilot circulant phase 3m: {rec['seconds']:.1f}s")
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2873,14 +3191,15 @@ def main():
             or not all("spills 0/0 B" in row for row in mp_rows)):
         raise AssertionError(f"K6-K10 instantiations spill or are missing: "
                              f"{mp_rows}")
-    # the wide form of K6-K9: no instantiation may spill
+    # the wide form of K6-K10 (three product kernels, two row splits, two
+    # softmax kernels): no instantiation may spill
     circ_wide_rows = ptxas_summary(build_logs.get("circ_wide_estimate", ""))
     log("ptxas circ_wide_estimate: " + ("; ".join(circ_wide_rows)
                                         if circ_wide_rows else "not rebuilt"))
     if "circ_wide_estimate" in build_logs and (
-            len(circ_wide_rows) != 6
+            len(circ_wide_rows) != 7
             or not all("spills 0/0 B" in row for row in circ_wide_rows)):
-        raise AssertionError(f"the wide K6-K9 spill or are missing: "
+        raise AssertionError(f"the wide K6-K10 spill or are missing: "
                              f"{circ_wide_rows}")
     # the wide form of K1-K3: no instantiation may spill
     wide_rows = ptxas_summary(build_logs.get("grouped_wide_estimate", ""))
@@ -4457,6 +4776,10 @@ def main():
     # `wide_circ_phase` above
     circ_wide_rec = wide_circ_phase(dev, card, kernels, errs, add)
 
+    # 3m. the multi-pilot circulant kernel on wide banks: the wide K10,
+    # `wide_mp_circ_phase` above
+    mp_wide_rec = wide_mp_circ_phase(dev, card, kernels, errs, add)
+
     # 3d. the service over in-process meshes of 1 x 2 and 2 x 2 shards: the
     # dense, structured (K = 64, and the K = 256 spectra-native prior in two
     # component shards of 128, which K8 / K9 take whole) and factored banks
@@ -4772,7 +5095,9 @@ def main():
         tc_flops=6.0 * stats_flops), "K9", stats_flops,
         circ_epi + 3.0 * n * K, stats_bytes, 4, True)
 
-    # K10: its four products, 2 N (P 2D 2D + F K + (P+1) K 2D + 2D 2D) with
+    # K10: `bound_ms` is `mp_circ_kernels.mp_circ_bound`'s, the function's
+    # least time with its transforms counted as FFTs; `bound_dft_ms` counts
+    # its four products, 2 N (P 2D 2D + F K + (P+1) K 2D + 2D 2D) with
     # F = D (3P + P (P-1)) features (the useful work only: the TPU kernel's
     # forward operands are mostly zero blocks), as six bf16 products on the
     # tensor cores, plus the fp32 work around them: the features (3 P D for
@@ -4831,14 +5156,20 @@ def main():
                 p * two_d, tc_flops=6.0 * gemm)
         rec["tc_flops"] = 6.0 * gemm
         rec["bound_fp32_ms"] = bound(gemm + epi, nbytes_p)[0]
+        rec["bound_dft_ms"] = rec["bound_ms"]
+        fn = mk.mp_circ_bound(n, D, K, p, t)
+        rec["bound_ms"], rec["bound_by"] = fn["bound_ms"], fn["bound_by"]
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["share_of_bound_dft"] = rec["bound_dft_ms"] / rec["ms"]
         rec["block_rows"] = block_rows
         rec["l2_operand_bytes"] = (mk.mp_circ_units(D, K, p) * 24576.0
                                    * -(-n // block_rows))
-        log(f"K10 (P={p}, T={t}): bound of the six products "
-            f"{rec['bound_ms']:.3f} ms ({rec['share_of_bound']:.0%} "
-            f"reached), as fp32 FMAs {rec['bound_fp32_ms']:.3f} ms; the "
-            f"bank's units from L2 {rec['l2_operand_bytes'] / 1e9:.3f} GB "
+        log(f"K10 (P={p}, T={t}): bound {rec['bound_ms']:.3f} ms "
+            f"({rec['bound_by']}; {rec['share_of_bound']:.1%} reached), of "
+            f"the six products with dense transforms "
+            f"{rec['bound_dft_ms']:.3f} ms ({rec['share_of_bound_dft']:.0%}"
+            f"), as fp32 FMAs {rec['bound_fp32_ms']:.3f} ms; the bank's "
+            f"units from L2 {rec['l2_operand_bytes'] / 1e9:.3f} GB "
             f"({block_rows}-row blocks)")
         return rec
 
@@ -5337,6 +5668,16 @@ def main():
                           if k.startswith("headline")},
              "fitted_bank": {k: v["K10 T=4"]
                              for k, v in mp_acc["fitted_bank"].items()}}},
+        *({"name": name, "id": kid, "route": "cuda",
+           "source": src + "circ_wide_estimate.cu", "replaces": f"{tpu}:1505",
+           "launches": total_launches[name], "max_abs_err": max(errs[name]),
+           "d": WIDE_MP_DK[0], "n_components": WIDE_MP_DK[1],
+           "n_pilots": 2,
+           **({"t_coh": 4, "coh_alpha": 1.0} if coh else {}),
+           **mp_wide_rec["times"][name]}
+          for name, kid, coh in (
+              ("mp_circ_estimate_wide", "K10_wide", False),
+              ("mp_circ_estimate_coherent_wide", "K10_coh_wide", True))),
         {"name": "fact_estimate", "id": "K11", "route": "cuda",
          "source": src + "fact_estimate.cu", "replaces": f"{tpu}:2048",
          "launches": total_launches["fact_estimate"],
@@ -5434,6 +5775,8 @@ def main():
         "wide_topk": {k: v for k, v in topk_rec.items() if k != "times"},
         "wide_circ": {k: v for k, v in circ_wide_rec.items()
                       if k != "times"},
+        "wide_mp_circ": {k: v for k, v in mp_wide_rec.items()
+                         if k != "times"},
         "new_phases_seconds": {"toeplitz": toep_s,
                                "mesh_service": mesh_serve_s,
                                "csi_free": quant_s,
@@ -5442,7 +5785,8 @@ def main():
                                "channel_models": models_rec["seconds"],
                                "wide_dense": wide_rec["seconds"],
                                "wide_topk": topk_rec["seconds"],
-                               "wide_circ": circ_wide_rec["seconds"]},
+                               "wide_circ": circ_wide_rec["seconds"],
+                               "wide_mp_circ": mp_wide_rec["seconds"]},
         "kernel_tools": {"seconds": tools_s, "launches": launches_tools,
                          "kernel_bench_ms": bench["ms"],
                          "split_bench": split},

@@ -1,7 +1,9 @@
 // The wide form of the circulant (FFT-domain) estimation kernels for
 // Hopper: K6 (flat), K7 (coherent), K8 (stats) and K9 (coherent stats) at
 // every width past the one-pilot template of mp_circ_estimate.cu (D > 128),
-// up to D = 672.
+// up to D = 672; and of the multi-pilot kernel K10 (flat and coherent) at
+// every shape past that template's rule (D or K > 128, a P whose u does
+// not fit a block's shared memory, a T past its live rows), any K.
 //
 // Replaces, at those widths, the TPU kernels of
 // quantized_channel_estimation_tpu/estimators/pallas_kernels.py that the
@@ -82,6 +84,29 @@
 // Any N (a whole number of T-row blocks), 1 <= D <= 672, 1 <= K <= 128,
 // 1 <= T <= 64, with up to 65535 pairs of 64-row tiles a launch (the
 // wrapper cuts rows to its scratch budget first).
+//
+// K10 (`mp_circ_wide_launch`) replaces, at those shapes, the TPU kernel
+// `_mp_circ_kernel` (pallas_kernels.py:1505, pallas_call in
+// `estimate_mp_circ_packed` :1578), which the JAX package runs on every
+// 'all'-mode multi-pilot bank whose constants and a 64-row tile (8 T rows
+// coherent) fit 11 MiB (models/structured_bank.py:829, :896). The same
+// passes at P pilots:
+//   - the forward product takes the observation (N, P 2D) as N P rows of
+//     2D through the one (2D, 2D) operand: u (N, P, 2D);
+//   - the split forms the features [u_1..u_P | |u_p|^2 | v_pq =
+//     conj(u_p) u_q, p < q] (F = D (3P + P (P - 1)) columns, the rows of
+//     `MpCircKernelBank.lcoef`) a 64-deep chunk at a time;
+//   - the logit product runs over K in column slices of two pieces; the
+//     first slice takes the rows' offsets, a second launch gives the other
+//     slices those offsets (K > 128);
+//   - the softmax: `softmax_kernel` up to K = 128, past it
+//     `softmax_any_kernel`, which walks the row in global memory;
+//   - the combine: one block a 64-column slice of 2D runs its P + 1
+//     pieces (bias, filter_1 .. filter_P) two at a time, h = c_bias +
+//     sum_p c_filt_p u_p per bin, pilot by pilot, in the epilogue;
+//   - the inverse product.
+// Any N, 1 <= D <= 672, any K and P >= 1 whose rows fit the scratch,
+// 1 <= T <= 64.
 #include "wide_ring.cuh"
 
 namespace {
@@ -90,42 +115,91 @@ using namespace qce_tc;
 using namespace qce_wide;
 
 constexpr int kMaxD = 672;
-constexpr int kMaxK = 128;
+constexpr int kMaxK = 128;  // components of `softmax_kernel`, and of K6-K9
 constexpr int kMaxT = 64;
 
 enum Epilogue { kStore = 0, kLogit = 1, kComb = 2 };
 
 __host__ __device__ constexpr int chunks_of(int w) { return (w + 63) / 64; }
 
+// Features of a row of P pilots at D bins: [u | |u_p|^2 | v_pq].
+__host__ __device__ constexpr long long feat_width(int d, int p) {
+  return (long long)d * (3 * p + p * (p - 1));
+}
+
 // The bank's units (64 columns x 64 deep, three planes) as
-// `circ_kernels.circ_wide_operands` lays them out: the forward operand's
-// NPD x NPD, the logit's KP x NZ, the combine's NPD x 2 x KP and, except for
-// the stats forms, the inverse's NPD x NPD.
-int wide_units(int d, int k, bool stats) {
-  const int npd = chunks_of(2 * d), nz = chunks_of(3 * d), kp = chunks_of(k);
-  return npd * npd + kp * nz + 2 * npd * kp + (stats ? 0 : npd * npd);
+// `circ_kernels.circ_wide_operands` (P = 1) and
+// `mp_circ_kernels.mp_circ_wide_operands` lay them out: the forward
+// operand's NPD x NPD, the logit's KP x NF, the combine's NPD x (P + 1) x
+// KP and, except for the stats forms, the inverse's NPD x NPD.
+long long wide_units(int d, int k, int p, bool stats) {
+  const long long npd = chunks_of(2 * d), kp = chunks_of(k);
+  const long long nf = (feat_width(d, p) + 63) / 64;
+  return npd * npd + kp * nf + npd * (p + 1) * kp + (stats ? 0 : npd * npd);
 }
 
 // Rows src (n, width) fp32 as the row split reads them, tile i's row rr
 // the row 64 i + rr (padding past n), any width (K may be odd: scalar
-// loads). FEAT: the features [u | |u|^2] (width 3D) of u (n, two_d),
-// |u_b|^2 rounded as the plain version rounds it.
-template <bool FEAT>
-struct CircRows {
+// loads).
+struct PlainRows {
   const float* src;
-  int n, width, two_d;
+  int n, width;
   __device__ __forceinline__ bool skip(int) const { return false; }
   __device__ __forceinline__ int row(int tile, int rr) const {
     const int r = tile * 64 + rr;
     return r < n ? r : -1;
   }
   __device__ __forceinline__ float value(int r, int col) const {
+    return col < width ? __ldg(src + (size_t)r * width + col) : 0.f;
+  }
+  __device__ __forceinline__ float2 pair(int r, int col) const {
+    return make_float2(value(r, col), value(r, col + 1));
+  }
+};
+
+// The logit features of u (n, P, 2D) fp32 as the row split reads them:
+// [u_1..u_P | |u_p|^2 (P D) | v_pq (2D each, pairs p < q in row-major
+// order, [Re, Im] interleaved per bin)], rounded as the plain versions
+// round them (at P = 1 the circulant kernels' [u | |u|^2]).
+struct FeatRows {
+  const float* src;
+  int n, width, two_d, p;
+  __device__ __forceinline__ bool skip(int) const { return false; }
+  __device__ __forceinline__ int row(int tile, int rr) const {
+    const int r = tile * 64 + rr;
+    return r < n ? r : -1;
+  }
+  // the first pair index of pilot pi's row of pairs
+  __device__ __forceinline__ int first_pair(int pi) const {
+    return pi * (2 * p - pi - 1) / 2;
+  }
+  __device__ __forceinline__ float value(int r, int col) const {
     if (col >= width) return 0.f;
-    if (!FEAT) return __ldg(src + (size_t)r * width + col);
-    if (col < two_d) return __ldg(src + (size_t)r * two_d + col);
-    const float2 ub = __ldg(reinterpret_cast<const float2*>(
-        src + (size_t)r * two_d + 2 * (col - two_d)));
-    return __fadd_rn(__fmul_rn(ub.x, ub.x), __fmul_rn(ub.y, ub.y));
+    const int pd2 = p * two_d, d = two_d / 2;
+    const float* ur = src + (size_t)r * pd2;
+    if (col < pd2) return __ldg(ur + col);
+    if (col < pd2 + p * d) {
+      const int c2 = col - pd2, pi = c2 / d, b = c2 - pi * d;
+      const float2 ub = __ldg(reinterpret_cast<const float2*>(
+          ur + pi * two_d + 2 * b));
+      return __fadd_rn(__fmul_rn(ub.x, ub.x), __fmul_rn(ub.y, ub.y));
+    }
+    const int j = col - pd2 - p * d, pair = j / two_d;
+    const int w = j - pair * two_d;
+    // the pair's pilots pi < qi: the root of first_pair(pi) = pair,
+    // corrected for its rounding
+    const double b2 = 2.0 * p - 1.0;
+    int pi = (int)((b2 - sqrt(b2 * b2 - 8.0 * pair)) * 0.5);
+    pi = max(0, min(pi, p - 2));
+    while (pi > 0 && first_pair(pi) > pair) --pi;
+    while (pi < p - 2 && first_pair(pi + 1) <= pair) ++pi;
+    const int qi = pi + 1 + pair - first_pair(pi);
+    const float2 a = __ldg(reinterpret_cast<const float2*>(
+        ur + pi * two_d + (w & ~1)));
+    const float2 c = __ldg(reinterpret_cast<const float2*>(
+        ur + qi * two_d + (w & ~1)));
+    return (w & 1) ? __fsub_rn(__fmul_rn(a.x, c.y), __fmul_rn(a.y, c.x))
+                   : __fadd_rn(__fmul_rn(a.x, c.x), __fmul_rn(a.y, c.y));
   }
   __device__ __forceinline__ float2 pair(int r, int col) const {
     return make_float2(value(r, col), value(r, col + 1));
@@ -134,24 +208,35 @@ struct CircRows {
 
 // One product of the wide form: C (n, 64 n_pieces) = A (n, 64 n_ch) B,
 // A the split rows' planes, B units (piece, chunk) from the operand's first
-// unit; the epilogue's inputs and outputs.
+// unit; a block takes the pieces of its column slice (blockIdx.x + slice0)
+// two at a time, slice_pieces of them (kComb: the P + 1 slabs of a
+// 64-column slice of 2D; else 2); the epilogue's inputs and outputs.
 struct Gemm {
   const uint4* a;
   size_t plane_units;
   const bf16* b[3];
-  int n_ch, n_pieces, n;
+  int n_ch, n_pieces, n, slice0, slice_pieces;
   float* out;        // kStore, kComb: (n, width); kLogit: lg (n, width = K)
   int width;
   const float* cst;  // kLogit: const (K)
   float* offs;       // kLogit: the rows' offsets (n)
-  const float* u;    // kComb: u (n, width)
+  const float* u;    // kComb: u (n, P, width)
 };
 
-// The producer: one thread copies, for each chunk, both warpgroups' A
-// chunk and the chunk of the block's gn pieces into the ring.
-__device__ void produce(const Gemm& g, int j0, int gn, WideRing ring) {
-  for (int c = 0; c < g.n_ch; ++c)
-    load_chunk(ring, g.a, g.plane_units, blockIdx.y, g.n_ch, c, g.b, j0, gn);
+// The producer: one thread copies, for each of the block's pairs of pieces
+// and each chunk, both warpgroups' A chunk and the chunk of the pieces into
+// the ring.
+template <int EPI>
+__device__ void produce(const Gemm& g, WideRing ring) {
+  const int slice = blockIdx.x + g.slice0;
+  for (int s0 = 0; s0 < (EPI == kComb ? g.slice_pieces : kGroup);
+       s0 += kGroup) {
+    const int j0 = slice * g.slice_pieces + s0;
+    const int gn = min(kGroup, min(g.n_pieces - j0, g.slice_pieces - s0));
+    for (int c = 0; c < g.n_ch; ++c)
+      load_chunk(ring, g.a, g.plane_units, blockIdx.y, g.n_ch, c, g.b, j0,
+                 gn);
+  }
 }
 
 // sum - lost += part over the live pieces, compensated (`kahan`)
@@ -186,46 +271,22 @@ __device__ __forceinline__ void logit_steps(float (&acc)[kGroup][32],
   }
 }
 
-// The product kernel: grid (column slices of two pieces, pairs of 64-row
-// tiles). kStore writes C; kLogit the offset logits lg' and the offsets;
-// kComb the combine h from the pieces (bias, filter) of its slice and u.
+// The product kernel: grid (column slices, pairs of 64-row tiles). kStore
+// writes C; kLogit the offset logits lg' of its two pieces of K (the first
+// slice also the offsets, the others read them); kComb the combine h from
+// the pieces (bias, filter_1 .. filter_P) of its slice and u.
 template <int EPI>
 __global__ void __launch_bounds__(kThreads, 1) circ_wide_gemm(Gemm g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   WideRing ring = ring_init(smem_raw);
 
   const int wg = threadIdx.x / kWg;
-  const int j0 = kGroup * blockIdx.x;
-  const int gn = min(kGroup, g.n_pieces - j0);
   if (wg == kWgs) {  // the producer warpgroup: one thread streams
     setmaxnreg_dec<40>();
-    if (threadIdx.x == kWgs * kWg) produce(g, j0, gn, ring);
+    if (threadIdx.x == kWgs * kWg) produce<EPI>(g, ring);
     return;
   }
   setmaxnreg_inc<232>();
-
-  float acc[kGroup][32], sum[kGroup][32], lost[kGroup][32];
-#pragma unroll
-  for (int gp = 0; gp < kGroup; ++gp)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sum[gp][i] = lost[gp][i] = 0.f;
-  for (int c = 0; c < g.n_ch; ++c) {
-    const unsigned st = ring.stage();
-    mbar_wait(ring.full(), ring.ph);
-    if constexpr (EPI == kLogit) {
-      logit_steps<0>(acc, sum, lost, st, wg, gn);
-    } else {
-      wgmma_fence();
-      fence_all(acc);
-      issue_chunk<0, 6, 0, 4>(acc, st, wg);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_all(acc);
-    }
-    warp_arrive(ring.empty());  // the products have read the stage
-    ring.next();
-    if constexpr (EPI != kLogit) kahan_add(sum, lost, acc, gn);
-  }
 
   // this lane's columns 8 t + 2 q + {0, 1} of each piece, its rows
   // row_in_wg() and + 8 of its warpgroup's 64
@@ -237,91 +298,143 @@ __global__ void __launch_bounds__(kThreads, 1) circ_wide_gemm(Gemm g) {
     row[r] = (blockIdx.y * kWgs + wg) * 64 + row_in_wg() + 8 * r;
     live[r] = row[r] < g.n;
   }
-  if constexpr (EPI == kStore) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (!live[r]) continue;
-      float* orow = g.out + (size_t)row[r] * g.width;
-#pragma unroll
-      for (int gp = 0; gp < kGroup; ++gp) {
-        if (gp >= gn) continue;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int col = (j0 + gp) * 64 + 8 * t + 2 * q;  // width is even
-          const int i = 4 * t + 2 * r;
-          if (col < g.width)
-            *reinterpret_cast<float2*>(orow + col) = make_float2(
-                sum[gp][i] - lost[gp][i], sum[gp][i + 1] - lost[gp][i + 1]);
-        }
-      }
-    }
-  } else if constexpr (EPI == kComb) {  // pieces (bias, filter) of slice x
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (!live[r]) continue;
-      const size_t at = (size_t)row[r] * g.width;
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int col = blockIdx.x * 64 + 8 * t + 2 * q;  // a bin's (re, im)
-        const int i = 4 * t + 2 * r;
-        if (col >= g.width) continue;
-        const float br = sum[0][i] - lost[0][i];
-        const float bi = sum[0][i + 1] - lost[0][i + 1];
-        const float fr = sum[1][i] - lost[1][i];
-        const float fi = sum[1][i + 1] - lost[1][i + 1];
-        const float2 uu = __ldg(reinterpret_cast<const float2*>(g.u + at +
-                                                                 col));
-        *reinterpret_cast<float2*>(g.out + at + col) =
-            make_float2(br + fr * uu.x - fi * uu.y,
-                        bi + fr * uu.y + fi * uu.x);
-      }
-    }
-  } else {  // kLogit: const in the compensated sum, -inf past K
-    const int k_comp = g.width;
+  const int slice = blockIdx.x + g.slice0;
+  float acc[kGroup][32], sum[kGroup][32], lost[kGroup][32];
+  for (int s0 = 0; s0 < (EPI == kComb ? g.slice_pieces : kGroup);
+       s0 += kGroup) {
+    const int j0 = slice * g.slice_pieces + s0;
+    const int gn = min(kGroup, min(g.n_pieces - j0, g.slice_pieces - s0));
 #pragma unroll
     for (int gp = 0; gp < kGroup; ++gp)
 #pragma unroll
-      for (int t = 0; t < 8; ++t)
+      for (int i = 0; i < 32; ++i) sum[gp][i] = lost[gp][i] = 0.f;
+    for (int c = 0; c < g.n_ch; ++c) {
+      const unsigned st = ring.stage();
+      mbar_wait(ring.full(), ring.ph);
+      if constexpr (EPI == kLogit) {
+        logit_steps<0>(acc, sum, lost, st, wg, gn);
+      } else {
+        wgmma_fence();
+        fence_all(acc);
+        issue_chunk<0, 6, 0, 4>(acc, st, wg);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_all(acc);
+      }
+      warp_arrive(ring.empty());  // the products have read the stage
+      ring.next();
+      if constexpr (EPI != kLogit) kahan_add(sum, lost, acc, gn);
+    }
+
+    if constexpr (EPI == kStore) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int k = 64 * gp + 8 * t + 2 * q + h;
-          const float ck = k < k_comp ? __ldg(g.cst + k) : 0.f;
+      for (int r = 0; r < 2; ++r) {
+        if (!live[r]) continue;
+        float* orow = g.out + (size_t)row[r] * g.width;
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int i = 4 * t + 2 * r + h;
-            kahan(sum[gp][i], lost[gp][i], ck);
-            if (k >= k_comp) sum[gp][i] = -INFINITY, lost[gp][i] = 0.f;
+        for (int gp = 0; gp < kGroup; ++gp) {
+          if (gp >= gn) continue;
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            const int col = (j0 + gp) * 64 + 8 * t + 2 * q;  // width is even
+            const int i = 4 * t + 2 * r;
+            if (col < g.width)
+              *reinterpret_cast<float2*>(orow + col) =
+                  make_float2(sum[gp][i] - lost[gp][i],
+                              sum[gp][i + 1] - lost[gp][i + 1]);
           }
         }
-    // the rows' offsets: the largest logit of components [0, 64) (a row's
-    // values on the four threads of a quad), or 0 where those are all dead
-    float off[2];
+      }
+    } else if constexpr (EPI == kComb) {
+      // pieces s0, s0 + 1 of slice x: slab 0 the bias, slab s the filter
+      // of pilot s - 1; the first pair writes h = c_bias + c_filt_1 u_1,
+      // the later pairs add their pilots to it
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float m = -INFINITY;
+      for (int r = 0; r < 2; ++r) {
+        if (!live[r]) continue;
+        const size_t at = (size_t)row[r] * g.width;
+        const float* urow = g.u + (size_t)row[r] * (g.slice_pieces - 1) *
+                                      g.width;
 #pragma unroll
-      for (int t = 0; t < 8; ++t)
+        for (int t = 0; t < 8; ++t) {
+          const int col = blockIdx.x * 64 + 8 * t + 2 * q;  // a bin's re, im
+          const int i = 4 * t + 2 * r;
+          if (col >= g.width) continue;
+          float hx, hy;
+          if (s0 == 0) {
+            hx = sum[0][i] - lost[0][i];
+            hy = sum[0][i + 1] - lost[0][i + 1];
+          } else {
+            const float2 h = *reinterpret_cast<const float2*>(g.out + at +
+                                                              col);
+            hx = h.x;
+            hy = h.y;
+          }
 #pragma unroll
-        for (int h = 0; h < 2; ++h) m = fmaxf(m, sum[0][4 * t + 2 * r + h]);
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-      off[r] = m > -1e29f ? m : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (!live[r]) continue;
-      float* lr = g.out + (size_t)row[r] * k_comp;
+          for (int gp = 0; gp < kGroup; ++gp) {
+            if (gp >= gn || s0 + gp == 0) continue;
+            const float fr = sum[gp][i] - lost[gp][i];
+            const float fi = sum[gp][i + 1] - lost[gp][i + 1];
+            const float2 uu = __ldg(reinterpret_cast<const float2*>(
+                urow + (s0 + gp - 1) * g.width + col));
+            hx = hx + fr * uu.x - fi * uu.y;
+            hy = hy + fr * uu.y + fi * uu.x;
+          }
+          *reinterpret_cast<float2*>(g.out + at + col) = make_float2(hx, hy);
+        }
+      }
+    } else {  // kLogit: const in the compensated sum, -inf past K
+      const int k_comp = g.width;
 #pragma unroll
       for (int gp = 0; gp < kGroup; ++gp)
 #pragma unroll
         for (int t = 0; t < 8; ++t)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int k = 64 * gp + 8 * t + 2 * q + h;
-            const int i = 4 * t + 2 * r + h;
-            if (k < k_comp) lr[k] = (sum[gp][i] - off[r]) - lost[gp][i];
+            const int k = 64 * (j0 + gp) + 8 * t + 2 * q + h;
+            const float ck = k < k_comp ? __ldg(g.cst + k) : 0.f;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int i = 4 * t + 2 * r + h;
+              kahan(sum[gp][i], lost[gp][i], ck);
+              if (k >= k_comp) sum[gp][i] = -INFINITY, lost[gp][i] = 0.f;
+            }
           }
-      if (q == 0) g.offs[row[r]] = off[r];
+      // the rows' offsets: the largest logit of components [0, 64) (a
+      // row's values on the four threads of a quad), or 0 where those are
+      // all dead; the first slice takes them, the others read them
+      float off[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (j0 > 0) {
+          off[r] = live[r] ? g.offs[row[r]] : 0.f;
+          continue;
+        }
+        float m = -INFINITY;
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) m = fmaxf(m, sum[0][4 * t + 2 * r + h]);
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        off[r] = m > -1e29f ? m : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (!live[r]) continue;
+        float* lr = g.out + (size_t)row[r] * k_comp;
+#pragma unroll
+        for (int gp = 0; gp < kGroup; ++gp)
+#pragma unroll
+          for (int t = 0; t < 8; ++t)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int k = 64 * (j0 + gp) + 8 * t + 2 * q + h;
+              const int i = 4 * t + 2 * r + h;
+              if (k < k_comp) lr[k] = (sum[gp][i] - off[r]) - lost[gp][i];
+            }
+        if (q == 0 && j0 == 0) g.offs[row[r]] = off[r];
+      }
     }
   }
 }
@@ -401,26 +514,143 @@ __global__ void softmax_kernel(float* __restrict__ lg,
   }
 }
 
-int split(bool feat, const float* src, void* a, int n, int width, int two_d,
-          int tiles, cudaStream_t st) {
-  const int n_ch = chunks_of(width);
-  return feat ? split_tiles(CircRows<true>{src, n, width, two_d}, a, n_ch,
-                            tiles, st)
-              : split_tiles(CircRows<false>{src, n, width, two_d}, a, n_ch,
-                            tiles, st);
+// `softmax_kernel`'s normalised weights at any K (K10 past 128
+// components): the same arithmetic, the row walked in global memory. The
+// pool first (each lane its components' block sums in float64, the pooled
+// logits written in place), then for each row its largest logit, the sum
+// of the exponentials and the weights.
+__global__ void softmax_any_kernel(float* __restrict__ lg, int n, int k_comp,
+                                   int t_coh, float alpha) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = ((blockIdx.x * blockDim.x + threadIdx.x) >> 5) * t_coh;
+  if (r0 >= n) return;
+  float* blk = lg + (size_t)r0 * k_comp;
+  if (t_coh > 1) {
+    for (int k = lane; k < k_comp; k += 32) {
+      double s = 0.0;
+      for (int tt = 0; tt < t_coh; ++tt) s += (double)blk[tt * k_comp + k];
+      for (int tt = 0; tt < t_coh; ++tt) {
+        float* l = blk + tt * k_comp + k;
+        *l = alpha >= 1.f ? (float)s
+                          : (float)((double)*l + (double)alpha * (s -
+                                                                 (double)*l));
+      }
+    }
+  }
+  for (int tt = 0; tt < t_coh; ++tt) {
+    float* lr = blk + (size_t)tt * k_comp;
+    float mx = -INFINITY;
+    for (int k = lane; k < k_comp; k += 32) mx = fmaxf(mx, lr[k]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (mx == -INFINITY) mx = 0.f;
+    float den = 0.f;
+    for (int k = lane; k < k_comp; k += 32)
+      den += lr[k] == -INFINITY ? 0.f : expf(lr[k] - mx);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      den += __shfl_xor_sync(0xffffffffu, den, o);
+    for (int k = lane; k < k_comp; k += 32)
+      lr[k] = lr[k] == -INFINITY ? 0.f : expf(lr[k] - mx) / den;
+  }
 }
 
 template <int EPI>
-int gemm(const Gemm& g, int tiles, cudaStream_t st) {
+int gemm(const Gemm& g, int slices, int tiles, cudaStream_t st) {
   auto kern = circ_wide_gemm<EPI>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRingSmem);
   if (err != cudaSuccess) return (int)err;
-  const int slices = EPI == kComb ? g.n_pieces / 2
-                     : EPI == kLogit ? 1
-                                     : (g.n_pieces + kGroup - 1) / kGroup;
   kern<<<dim3(slices, tiles / kWgs), kThreads, kRingSmem, st>>>(g);
   return (int)cudaGetLastError();
+}
+
+// The wide form's passes on n rows of p pilots (K6-K9: p = 1) with the
+// bank's units `planes`; the caller has validated the arguments.
+int run_wide(const float* x, const bf16* const (&planes)[3], const float* cst,
+             float* out, float* m_out, float* den_out, void* a, float* u,
+             float* lg, float* offs, int n, int d, int p, int k_comp,
+             int t_coh, float alpha, int stats, cudaStream_t st) {
+  const int two_d = 2 * d, npd = chunks_of(two_d), kp = chunks_of(k_comp);
+  const int fw = (int)feat_width(d, p), nf = chunks_of(fw);
+  const int tiles = row_tiles(n), tiles_x = row_tiles(n * p);
+  const auto at = [&](int unit, int rows, int tl, int n_ch, int n_pieces,
+                      int slice_pieces, float* dst, int width) {
+    Gemm g{static_cast<const uint4*>(a),
+           (size_t)tl * n_ch * 512,
+           {planes[0] + (size_t)unit * 4096, planes[1] + (size_t)unit * 4096,
+            planes[2] + (size_t)unit * 4096},
+           n_ch,
+           n_pieces,
+           rows,
+           0,
+           slice_pieces,
+           dst,
+           width,
+           cst,
+           offs,
+           u};
+    return g;
+  };
+  const int u_fwd = 0, u_lg = npd * npd, u_comb = u_lg + kp * nf;
+  const int u_inv = u_comb + npd * (p + 1) * kp;
+  int err;
+  // forward: u = x bfwd, every pilot's rows through the one operand
+  if ((err = split_tiles(PlainRows{x, n * p, two_d}, a, npd, tiles_x, st)))
+    return err;
+  if ((err = gemm<kStore>(at(u_fwd, n * p, tiles_x, npd, npd, kGroup, u,
+                             two_d),
+                          (npd + kGroup - 1) / kGroup, tiles_x, st)))
+    return err;
+  // logits of the features, the first slice's offsets before the others
+  if ((err = split_tiles(FeatRows{u, n, fw, two_d, p}, a, nf, tiles, st)))
+    return err;
+  Gemm gl = at(u_lg, n, tiles, nf, kp, kGroup, lg, k_comp);
+  if ((err = gemm<kLogit>(gl, 1, tiles, st))) return err;
+  const int lg_slices = (kp + kGroup - 1) / kGroup;
+  if (lg_slices > 1) {
+    gl.slice0 = 1;
+    if ((err = gemm<kLogit>(gl, lg_slices - 1, tiles, st))) return err;
+  }
+  // the softmax weights in the logits' place
+  const int warps = n / t_coh;
+  if (k_comp <= kMaxK)
+    softmax_kernel<<<(warps + 3) / 4, 128, 0, st>>>(
+        lg, offs, m_out, den_out, n, k_comp, t_coh, alpha, stats);
+  else
+    softmax_any_kernel<<<(warps + 3) / 4, 128, 0, st>>>(lg, n, k_comp, t_coh,
+                                                        alpha);
+  if ((err = (int)cudaGetLastError())) return err;
+  // combine: h = w bias + sum_p (w filt_p) u_p into out
+  if ((err = split_tiles(PlainRows{lg, n, k_comp}, a, kp, tiles, st)))
+    return err;
+  if ((err = gemm<kComb>(at(u_comb, n, tiles, kp, npd * (p + 1), p + 1, out,
+                            two_d),
+                         npd, tiles, st)))
+    return err;
+  if (stats) return 0;
+  // inverse: out = h binv
+  if ((err = split_tiles(PlainRows{out, n, two_d}, a, npd, tiles, st)))
+    return err;
+  return gemm<kStore>(at(u_inv, n, tiles, npd, npd, kGroup, out, two_d),
+                      (npd + kGroup - 1) / kGroup, tiles, st);
+}
+
+// The checks every entry shares: alignment of the units, the rows and the
+// scratch (0 if they hold).
+int check_pointers(const void* hi, const void* lo, const void* lo2,
+                   const void* x, const void* out, const void* a,
+                   const void* u) {
+  const void* aligned[4] = {hi, lo, lo2, a};
+  for (const void* ptr : aligned)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
+  const void* pairs[3] = {x, out, u};
+  for (const void* ptr : pairs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 8 != 0)
+      return (int)cudaErrorMisalignedAddress;
+  return 0;
 }
 
 }  // namespace
@@ -445,79 +675,64 @@ extern "C" int circ_wide_launch(const float* x, const void* hi,
   if (n < 0 || d < 1 || d > kMaxD || k_comp < 1 || k_comp > kMaxK ||
       t_coh < 1 || t_coh > kMaxT || n % t_coh != 0 ||
       (stats && (m_out == nullptr || den_out == nullptr)) ||
-      units != wide_units(d, k_comp, stats != 0))
+      units != wide_units(d, k_comp, 1, stats != 0))
     return (int)cudaErrorInvalidValue;
-  const void* aligned[3] = {hi, lo, lo2};
-  for (const void* ptr : aligned)
-    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
-      return (int)cudaErrorMisalignedAddress;
-  if (reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(out) % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(u) % 8 != 0)
-    return (int)cudaErrorMisalignedAddress;
+  if (int err = check_pointers(hi, lo, lo2, x, out, a, u)) return err;
   if (n == 0) return 0;
-  const int tiles = row_tiles(n);
-  if (tiles / kWgs > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int two_d = 2 * d, npd = chunks_of(two_d), nz = chunks_of(3 * d);
-  const int kp = chunks_of(k_comp);
+  if (row_tiles(n) / kWgs > 65535) return (int)cudaErrorInvalidValue;
   const bf16* planes[3] = {static_cast<const bf16*>(hi),
                            static_cast<const bf16*>(lo),
                            static_cast<const bf16*>(lo2)};
-  const auto at = [&](int unit, int n_ch, int n_pieces, float* dst,
-                      int width) {
-    Gemm g{static_cast<const uint4*>(a),
-           (size_t)tiles * n_ch * 512,
-           {planes[0] + (size_t)unit * 4096, planes[1] + (size_t)unit * 4096,
-            planes[2] + (size_t)unit * 4096},
-           n_ch,
-           n_pieces,
-           n,
-           dst,
-           width,
-           cst,
-           offs,
-           u};
-    return g;
-  };
-  int err;
-  // forward: u = x bfwd
-  if ((err = split(false, x, a, n, two_d, two_d, tiles, st))) return err;
-  if ((err = gemm<kStore>(at(0, npd, npd, u, two_d), tiles, st))) return err;
-  // logits of [u | |u|^2], then the softmax weights in their place
-  if ((err = split(true, u, a, n, 3 * d, two_d, tiles, st))) return err;
-  if ((err = gemm<kLogit>(at(npd * npd, nz, kp, lg, k_comp), tiles, st)))
-    return err;
-  const int warps = n / t_coh;
-  softmax_kernel<<<(warps + 3) / 4, 128, 0, st>>>(lg, offs, m_out, den_out, n,
-                                                  k_comp, t_coh, alpha,
-                                                  stats);
-  if ((err = (int)cudaGetLastError())) return err;
-  // combine: h = w bias + (w filt) u into out
-  if ((err = split(false, lg, a, n, k_comp, two_d, tiles, st))) return err;
-  if ((err = gemm<kComb>(at(npd * npd + kp * nz, kp, 2 * npd, out, two_d),
-                         tiles, st)))
-    return err;
-  if (stats) return 0;
-  // inverse: out = h binv
-  if ((err = split(false, out, a, n, two_d, two_d, tiles, st))) return err;
-  return gemm<kStore>(
-      at(npd * npd + kp * nz + 2 * npd * kp, npd, npd, out, two_d), tiles,
-      st);
+  return run_wide(x, planes, cst, out, m_out, den_out, a, u, lg, offs, n, d,
+                  1, k_comp, t_coh, alpha, stats,
+                  static_cast<cudaStream_t>(stream));
 }
 
-// u (n, two_d) fp32 -> its features [u | |u|^2] (n, 3d) as the logit
-// product reads them: a (3, tiles, ceil(3d / 64), 64, 64) bf16, tiles =
-// `kernels.wide_row_tiles(n)` (`circ_kernels.circ_wide_rows(u, True)` is
-// the plain version; the rows' own split is grouped_wide_estimate.cu's).
+// C entry point of the wide K10 (flat at t_coh = 1, coherent above) at any
+// 1 <= d <= 672, p >= 1 pilots and k_comp >= 1 components: x (n, 2 p d)
+// interleaved [re, im] pairs, pilot-major; out (n, 2d); hi, lo, lo2 the
+// bank's `units` units (`mp_circ_kernels.mp_circ_wide_operands`); cst
+// (k_comp) the layout's constants; scratch: a bf16 of 3 x 4096 x
+// max(tiles(n p) ceil(2d / 64), tiles(n) ceil(max(F, k_comp) / 64)) values
+// with tiles(m) = `kernels.wide_row_tiles(m)`, F = d (3p + p (p - 1)), u
+// (n, p, 2d), lg (n, k_comp) and offs (n) fp32. n a whole number of
+// t_coh-row blocks, 1 <= t_coh <= 64.
+extern "C" int mp_circ_wide_launch(const float* x, const void* hi,
+                                   const void* lo, const void* lo2,
+                                   const float* cst, float* out, void* a,
+                                   float* u, float* lg, float* offs, int n,
+                                   int d, int p, int k_comp, int units,
+                                   int t_coh, float alpha, void* stream) {
+  if (n < 0 || d < 1 || d > kMaxD || p < 1 || k_comp < 1 || t_coh < 1 ||
+      t_coh > kMaxT || n % t_coh != 0 || feat_width(d, p) >= (1LL << 30) ||
+      (long long)n * p >= (1LL << 31) ||
+      units != wide_units(d, k_comp, p, false))
+    return (int)cudaErrorInvalidValue;
+  if (int err = check_pointers(hi, lo, lo2, x, out, a, u)) return err;
+  if (n == 0) return 0;
+  if (row_tiles(n * p) / kWgs > 65535) return (int)cudaErrorInvalidValue;
+  const bf16* planes[3] = {static_cast<const bf16*>(hi),
+                           static_cast<const bf16*>(lo),
+                           static_cast<const bf16*>(lo2)};
+  return run_wide(x, planes, cst, out, nullptr, nullptr, a, u, lg, offs, n,
+                  d, p, k_comp, t_coh, alpha, 0,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// u (n, p, two_d) fp32 -> its logit features [u | |u_p|^2 | v_pq] (n, F)
+// as the logit product reads them: a (3, tiles, ceil(F / 64), 64, 64)
+// bf16, tiles = `kernels.wide_row_tiles(n)` (`circ_kernels.circ_wide_rows(u,
+// True)` at p = 1 and `mp_circ_kernels.mp_circ_wide_rows(u, p)` are the
+// plain versions; the rows' own split is grouped_wide_estimate.cu's).
 extern "C" int circ_wide_features_launch(const float* u, void* a, int n,
-                                         int two_d, void* stream) {
-  if (n < 1 || two_d < 2 || two_d % 2 != 0 || two_d > 2 * kMaxD)
+                                         int two_d, int p, void* stream) {
+  if (n < 1 || two_d < 2 || two_d % 2 != 0 || two_d > 2 * kMaxD || p < 1 ||
+      feat_width(two_d / 2, p) >= (1LL << 30))
     return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(u) % 8 != 0)
     return (int)cudaErrorMisalignedAddress;
-  return split(true, u, a, n, two_d / 2 * 3, two_d, row_tiles(n),
-               static_cast<cudaStream_t>(stream));
+  const int fw = (int)feat_width(two_d / 2, p);
+  return split_tiles(FeatRows{u, n, fw, two_d, p}, a, chunks_of(fw),
+                     row_tiles(n), static_cast<cudaStream_t>(stream));
 }

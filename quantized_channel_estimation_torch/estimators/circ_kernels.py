@@ -58,8 +58,8 @@ from quantized_channel_estimation_torch.estimators import (
     mp_circ_kernels as mk)
 from quantized_channel_estimation_torch.estimators.kernels import merge_stats
 from quantized_channel_estimation_torch.estimators.mp_circ_kernels import (
-    CIRC_MAX_D, CIRC_MAX_K, MpCircTcOperands, _cplx_interleaved, _hc, _pool,
-    _x2)
+    CIRC_MAX_D, CIRC_MAX_K, MpCircTcOperands, _chunks, _cplx_interleaved,
+    _hc, _pool, _x2)
 from quantized_channel_estimation_torch.models import structured_bank as sb
 from quantized_channel_estimation_torch.models.structured_bank import (
     CirculantBank)
@@ -67,8 +67,8 @@ from quantized_channel_estimation_torch.ops.precision import pin_fp32
 from quantized_channel_estimation_torch.utils import profiling
 
 
-CIRC_WIDE_MAX_D = 672   # bins of the wide form: 2D = 1344, 21 chunks of 64
-CIRC_MAX_T = 64         # rows of a coherence block the kernels pool
+CIRC_WIDE_MAX_D = mk.WIDE_MAX_D   # bins of the wide form: 672
+CIRC_MAX_T = mk.WIDE_MAX_T       # rows of a coherence block pooled: 64
 
 
 def circ_tile_rows(d: int) -> int:
@@ -256,47 +256,26 @@ def _units(ckb: CircKernelBank, stats: bool) -> int:
 # the wide form's layout (csrc/circ_wide_estimate.cu)
 # ---------------------------------------------------------------------------
 
-def _chunks(w: int) -> int:
-    return -(-w // 64)
-
-
 def circ_wide_units(d: int, k: int, stats: bool = False) -> int:
     """Units (64 columns x 64 deep) of the wide form's bank: the forward
     operand's NPD x NPD, the logit's KP x NZ, the combine's NPD x 2 x KP
     and, except for the stats forms, the inverse's NPD x NPD (NPD, NZ, KP
-    the 64-wide pieces of 2D, 3D and K; `wide_units` in
-    csrc/circ_wide_estimate.cu)."""
-    npd, nz, kp = _chunks(2 * d), _chunks(3 * d), _chunks(k)
-    return npd * npd + kp * nz + 2 * npd * kp + (0 if stats else npd * npd)
-
-
-def _piece_major(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    """(R, C) -> its units (cols / 64 pieces, rows / 64 chunks, 64, 64),
-    unit (j, c) the transpose of rows [64 c, 64 c + 64) x columns [64 j,
-    64 j + 64), padding zero."""
-    return mk._blocks(w, rows, cols).transpose(0, 1)
+    the 64-wide pieces of 2D, 3D and K): the wide K10's units at one pilot
+    (`mp_circ_kernels.mp_circ_wide_units`)."""
+    return mk.mp_circ_wide_units(d, k, 1, stats)
 
 
 def circ_wide_tc_units(ckb: CircKernelBank,
                        stats: bool = False) -> torch.Tensor:
     """The bank's four operands in float32 as the wide form's units
-    (`circ_wide_units` of them, (units, 64, 64)), each product's pieces
-    one after another, a piece's chunks consecutive: the forward operand
-    bfwd (2D, 2D); the logit operand lcoef (3D, K) against [u | |u|^2];
-    for each 64-column piece j of 2D the bias slab's piece j, then the
-    filter slab's (`circ_mp_bank`: (K, 2D) each, interleaved per bin), so
-    one block's two pieces are a bin's (bias, filter); the inverse binv
-    (2D, 2D), except for the stats forms."""
-    two_d = ckb.bfwd.shape[0]
-    d, k = two_d // 2, ckb.const.shape[0]
-    w2, wz, wk = 64 * _chunks(two_d), 64 * _chunks(3 * d), 64 * _chunks(k)
-    comb = circ_mp_bank(ckb).comb
-    units = [_piece_major(ckb.bfwd, w2, w2),
-             _piece_major(ckb.lcoef, wz, wk),
-             torch.stack([_piece_major(comb[s], wk, w2) for s in (0, 1)], 1)]
-    if not stats:
-        units.append(_piece_major(ckb.binv, w2, w2))
-    return torch.cat([u.reshape(-1, 64, 64) for u in units])
+    (`circ_wide_units` of them, (units, 64, 64)): the wide K10's at one
+    pilot (`mp_circ_kernels.mp_circ_wide_tc_units` of `circ_mp_bank`), each
+    product's pieces one after another, a piece's chunks consecutive: the
+    forward operand bfwd (2D, 2D); the logit operand lcoef (3D, K) against
+    [u | |u|^2]; for each 64-column piece j of 2D the bias slab's piece j,
+    then the filter slab's, so one block's two pieces are a bin's (bias,
+    filter); the inverse binv (2D, 2D), except for the stats forms."""
+    return mk.mp_circ_wide_tc_units(circ_mp_bank(ckb), stats)
 
 
 def circ_wide_operands(ckb: CircKernelBank,
@@ -343,7 +322,7 @@ def circ_wide_rows(x: torch.Tensor, features: bool = False) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = kernels._library("circ_wide_estimate").circ_wide_features_launch(
-            x.data_ptr(), a.data_ptr(), n, two_d, stream)
+            x.data_ptr(), a.data_ptr(), n, two_d, 1, stream)
     if err != 0:
         raise RuntimeError(f"circ_wide_features launch failed: cudaError "
                            f"{err}")

@@ -186,7 +186,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.circ_wide_launch.argtypes = [ptr] * 12 + [i32] * 5 + [
             f32, i32, ptr]
         lib.circ_wide_launch.restype = i32
-        lib.circ_wide_features_launch.argtypes = [ptr] * 2 + [i32] * 2 + [
+        lib.mp_circ_wide_launch.argtypes = [ptr] * 10 + [i32] * 6 + [
+            f32, ptr]
+        lib.mp_circ_wide_launch.restype = i32
+        lib.circ_wide_features_launch.argtypes = [ptr] * 2 + [i32] * 3 + [
             ptr]
         lib.circ_wide_features_launch.restype = i32
     elif name == "mp_circ_estimate":

@@ -30,13 +30,25 @@ Differences of layout from the TPU kernel, none of arithmetic:
   (`mp_circ_tc_operands`);
 - the combine operands are (P + 1) interleaved (K, 2D) slabs;
 - coherence blocks are block-major (the T rows of a block consecutive);
-- the eligibility rule `mp_circ_kernel_eligible` is the CUDA kernel's range
-  (D, K <= 128, T up to a warpgroup's live rows, and a warpgroup's u within
-  a block's shared memory beside the operand ring, which bounds P), in
-  place of the TPU's resident-bank budget. The TPU package has no stats
-  form of this kernel, so a bank of more than 128 components is not split:
-  beyond the rule the entries raise and `harness.stages` takes the
-  `torch.fft` pipeline.
+- the eligibility rule `mp_circ_kernel_eligible` is the CUDA kernels'
+  range in place of the TPU's resident-bank budget: the template takes D,
+  K <= 128, T up to a warpgroup's live rows and a warpgroup's u within a
+  block's shared memory beside the operand ring (which bounds P); every
+  other shape up to D = 672, any K, any P whose rows fit the scratch and T
+  <= 64 takes the wide form (below). Beyond the rule the entries raise and
+  `harness.stages` takes the `torch.fft` pipeline.
+
+Past the template's rule the entries launch the kernel's wide form,
+`csrc/circ_wide_estimate.cu` (`mp_circ_wide_launch`, counted apart:
+`mp_circ_estimate_wide`, `mp_circ_estimate_coherent_wide`), the wide
+circulant kernels' passes at P pilots: the forward product over the N P
+pilot rows of 2D, the features a 64-deep chunk at a time, the logit product
+over K in column slices, the softmax, the P + 1 combine slabs of one
+64-column slice in one block, the inverse product; the intermediates in
+global scratch, rows cut into launches within `kernels.WIDE_SCRATCH`.
+`mp_circ_wide_operands` lays a `MpCircKernelBank` out as its units (cached
+by `lowered_tc`), and `mp_circ_wide_reference` is the plain version of its
+arithmetic.
 
 A wrapper launches its kernel on a CUDA tensor (or raises) and takes the
 plain PyTorch version only for a tensor on the CPU.
@@ -44,6 +56,8 @@ plain PyTorch version only for a tensor on the CPU.
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
+
+import math
 
 import torch
 
@@ -54,9 +68,12 @@ from quantized_channel_estimation_torch.models import structured_bank as sb
 from quantized_channel_estimation_torch.models.structured_bank import (
     CirculantBankMP)
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
+from quantized_channel_estimation_torch.utils import profiling
 
 CIRC_MAX_D = 128   # bins of the circulant kernels
 CIRC_MAX_K = 128   # components of one launch of the circulant kernels
+WIDE_MAX_D = 672   # bins of the wide form: 2D = 1344, 21 chunks of 64
+WIDE_MAX_T = 64    # rows of a coherence block the wide form pools
 SMEM_BLOCK_BYTES = 232_448   # shared memory one block can use on sm_90
 UNIT_BYTES = 3 * 64 * 64 * 2  # a unit: 64 columns x 64 deep, three planes
 
@@ -145,15 +162,86 @@ def mp_circ_tile_rows(d: int, k: int, p: int, t: int = 1) -> int:
     return 0
 
 
-def mp_circ_kernel_eligible(d: int, k: int, p: int, t: int = 1) -> bool:
-    """Can K10 serve a multi-pilot bank of K components over D bins and P
-    pilots, pooling T-snapshot blocks? D, K <= 128, P >= 1, and T within
-    the live rows of a warpgroup where one warpgroup's u fits a block's
-    shared memory beside a ring of two units (every P <= 4 at any D and K,
-    with T <= 64 at D <= 64; P <= 11 at D = K = 64 and P <= 5 at D = K =
-    128, with T <= 32). A rule of the shapes, decided before any launch."""
+def mp_circ_narrow(d: int, k: int, p: int, t: int = 1) -> bool:
+    """Does the template (csrc/mp_circ_estimate.cu) take these widths? D,
+    K <= 128, P >= 1, and T within the live rows of a warpgroup where one
+    warpgroup's u fits a block's shared memory beside a ring of two units
+    (every P <= 4 at any D and K, with T <= 64 at D <= 64; P <= 11 at D = K
+    = 64 and P <= 5 at D = K = 128, with T <= 32)."""
     return (1 <= d <= CIRC_MAX_D and 1 <= k <= CIRC_MAX_K and p >= 1
             and 1 <= t <= mp_circ_tile_rows(d, k, p, t))
+
+
+def _chunks(w: int) -> int:
+    return -(-w // 64)
+
+
+def mp_circ_wide_row_bytes(d: int, k: int, p: int) -> int:
+    """Scratch bytes of one row in the wide form: the three bf16 planes of
+    its widest product's contraction (the P pilot rows of 2D, the F =
+    D (3P + P (P-1)) features, or K), u (P 2D), its K logits and its
+    offset."""
+    feat = d * (3 * p + p * (p - 1))
+    return (384 * max(p * _chunks(2 * d), _chunks(feat), _chunks(k))
+            + 8 * p * d + 4 * k + 4)
+
+
+def mp_circ_wide_eligible(d: int, k: int, p: int, t: int = 1) -> bool:
+    """Does the wide form (csrc/circ_wide_estimate.cu) take these widths?
+    D <= 672 (`WIDE_MAX_D`), any K and P >= 1 whose 128 T rows (the least
+    launch: whole blocks, whole pairs of 64-row tiles) keep their scratch
+    within `kernels.WIDE_SCRATCH` (at D = 1 every P <= 1180 at T = 1 and
+    <= 293 at T = 16; at D = 357 P <= 60 and 14), T <= 64."""
+    return (1 <= d <= WIDE_MAX_D and k >= 1 and p >= 1
+            and 1 <= t <= WIDE_MAX_T
+            and 128 * t * mp_circ_wide_row_bytes(d, k, p)
+            <= kernels.WIDE_SCRATCH)
+
+
+def mp_circ_kernel_eligible(d: int, k: int, p: int, t: int = 1) -> bool:
+    """Can K10 serve a multi-pilot bank of K components over D bins and P
+    pilots, pooling T-snapshot blocks? The template where it takes the
+    widths (`mp_circ_narrow`), else the wide form (`mp_circ_wide_eligible`:
+    D <= 672, any K, T <= 64, P while 128 T rows fit the scratch). A
+    superset of the JAX package's Pallas rule (`_mp_circ_kernel_eligible`,
+    with T <= 16 for the coherent form): D <= 357, K <= 8090, P <= 202
+    there. A rule of the shapes, decided before any launch."""
+    return mp_circ_narrow(d, k, p, t) or mp_circ_wide_eligible(d, k, p, t)
+
+
+def mp_circ_bound(n: int, d: int, k: int, p: int, t_coh: int = 1) -> dict:
+    """The least time an H100 could take for K10's function on n rows of P
+    pilots, a K-component bank at D bins (`profiling.bound_ms`: operations
+    at the card's peaks against bytes at its memory rate):
+
+    - the P forward transforms and the inverse as FFTs, 5 D log2 D fp32
+      operations a row each;
+    - the logit and combine products as the kernel's six bf16 products of
+      2 n (F K + (P + 1) K 2D), F = D (3P + P (P-1)), on the tensor cores;
+    - the epilogue, n (11 P D + 3 P (P-1) D + 5 K) fp32 operations (|u_p|^2,
+      the pair features, the combine per bin and pilot, the softmax), and
+      3 n K more for the coherent pooling;
+    - the rows (n, 2PD) read once, the output (n, 2D) written once, and the
+      bank's logit and combine operands read once.
+
+    Returns {"bound_ms", "bound_by", "fp32_flops", "tc_flops", "bytes"}
+    and "bound_dft_ms": the same with the transforms counted as the
+    kernels compute them, dense (2D, 2D) products of six bf16 products
+    (P + 1 of them a row), and their operand read once (the bound of the
+    kernels' algorithm, not of the function)."""
+    two_d = 2 * d
+    feat = d * (3 * p + p * (p - 1))
+    fft = (p + 1) * 5.0 * d * math.log2(max(d, 2)) * n
+    epi = n * (11.0 * p * d + 3.0 * p * (p - 1) * d + 5.0 * k
+               + (3.0 * k if t_coh > 1 else 0.0))
+    tc = 6.0 * 2 * n * (feat * k + (p + 1) * k * two_d)
+    nbytes = 4.0 * (n * (p + 1) * two_d + feat * k + k + (p + 1) * k * two_d)
+    ms, by = profiling.bound_ms(fft + epi, tc, nbytes)
+    dft_ms, _ = profiling.bound_ms(
+        epi, tc + 6.0 * 2 * n * (p + 1) * two_d * two_d,
+        nbytes + 4.0 * 2 * two_d * two_d)
+    return {"bound_ms": ms, "bound_by": by, "fp32_flops": fft + epi,
+            "tc_flops": tc, "bytes": nbytes, "bound_dft_ms": dft_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -201,10 +289,15 @@ def mp_circ_kernel_bank(bank: CirculantBankMP, blocks=None, t_coh: int = 1,
     builds the kron(F_n1, F_n2) basis. t_coh > 1 lays `const` out for the
     coherent form, whose logit of a row is lg + a (sum_T lg - lg): the
     mixture log-weight is divided by that blend's coefficient 1 - a + a T
-    so that it enters once per block."""
+    so that it enters once per block. Past D = 128 the transform is built in
+    complex128 and rounded once, as `circ_kernels.circ_kernel_bank` builds
+    it (a complex64 construction errs by ~9e-6 an entry at D = 512); up to
+    D = 128 it is the JAX package's complex64 construction, which the
+    parity tests hold the layout to."""
     pin_fp32()
     k, d, p = bank.mean_rf.shape
-    f = sb._dft_matrix(d, blocks, bank.mean_rf.dtype, bank.mean_rf.device)
+    f = sb._dft_matrix(d, blocks, torch.complex128 if d > CIRC_MAX_D
+                       else bank.mean_rf.dtype, bank.mean_rf.device)
     mc = sb._mp_consts(bank)
     const = mc.const_k
     if t_coh > 1:
@@ -363,17 +456,120 @@ def check_mp_circ_tc_operands(kernel: str, ops: MpCircTcOperands,
 
 
 def lowered_tc(bank: CirculantBankMP, cache: Optional[dict] = None,
-               blocks=None) -> MpCircTcOperands:
+               blocks=None, wide: bool = False) -> MpCircTcOperands:
     """The kernel's operands of the bank (`mp_circ_tc_operands` of its
-    T = 1 layout), kept in `cache` under ("mp_circ_tc_operands", blocks)
-    beside the layouts of `lowered`, so a bank served many times is split
-    and laid out once."""
-    key = ("mp_circ_tc_operands", blocks)
+    T = 1 layout; with `wide`, the wide form's `mp_circ_wide_operands`),
+    kept in `cache` under ("mp_circ_tc_operands", blocks) or
+    ("mp_circ_wide_operands", blocks) beside the layouts of `lowered`, so a
+    bank served many times is split and laid out once."""
+    key = ("mp_circ_wide_operands" if wide else "mp_circ_tc_operands",
+           blocks)
+    lay = mp_circ_wide_operands if wide else mp_circ_tc_operands
     if cache is None:
-        return mp_circ_tc_operands(lowered(bank, None, blocks))
+        return lay(lowered(bank, None, blocks))
     if key not in cache:
-        cache[key] = mp_circ_tc_operands(lowered(bank, cache, blocks))
+        cache[key] = lay(lowered(bank, cache, blocks))
     return cache[key]
+
+
+# ---------------------------------------------------------------------------
+# the wide form's layout (csrc/circ_wide_estimate.cu, `mp_circ_wide_launch`)
+# ---------------------------------------------------------------------------
+
+def mp_circ_wide_units(d: int, k: int, p: int, stats: bool = False) -> int:
+    """Units (64 columns x 64 deep) of the wide form's bank: the forward
+    operand's NPD x NPD, the logit's KP x NF, the combine's NPD x (P + 1) x
+    KP and, except for the stats forms of K8 / K9 (P = 1), the inverse's
+    NPD x NPD (NPD, NF, KP the 64-wide pieces of 2D, F and K; `wide_units`
+    in csrc/circ_wide_estimate.cu)."""
+    npd, kp = _chunks(2 * d), _chunks(k)
+    nf = _chunks(d * (3 * p + p * (p - 1)))
+    return ((1 if stats else 2) * npd * npd + kp * nf
+            + npd * (p + 1) * kp)
+
+
+def _piece_major(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """(R, C) -> its units (cols / 64 pieces, rows / 64 chunks, 64, 64),
+    unit (j, c) the transpose of rows [64 c, 64 c + 64) x columns [64 j,
+    64 j + 64), padding zero."""
+    return _blocks(w, rows, cols).transpose(0, 1)
+
+
+def mp_circ_wide_tc_units(ckb: MpCircKernelBank,
+                          stats: bool = False) -> torch.Tensor:
+    """The bank's four operands in float32 as the wide form's units
+    (`mp_circ_wide_units` of them, (units, 64, 64)), each product's pieces
+    one after another, a piece's chunks consecutive: the forward operand
+    bfwd (2D, 2D); the logit operand lcoef (F, K) in its own row order
+    [u_1..u_P | |u_p|^2 | v_pq]; for each 64-column piece j of 2D the piece
+    j of the bias slab, then of each pilot's filter slab, so that one
+    block's pieces are a bin's (bias, filt_1 .. filt_P); the inverse binv
+    (2D, 2D), except for the stats forms (`stats`, the wide K8 / K9 at one
+    pilot)."""
+    two_d = ckb.bfwd.shape[0]
+    k, feat = ckb.const.shape[0], ckb.lcoef.shape[0]
+    w2, wf, wk = 64 * _chunks(two_d), 64 * _chunks(feat), 64 * _chunks(k)
+    units = [_piece_major(ckb.bfwd, w2, w2),
+             _piece_major(ckb.lcoef, wf, wk),
+             torch.stack([_piece_major(slab, wk, w2) for slab in ckb.comb],
+                         1)]
+    if not stats:
+        units.append(_piece_major(ckb.binv, w2, w2))
+    return torch.cat([u.reshape(-1, 64, 64) for u in units])
+
+
+def mp_circ_wide_operands(ckb: MpCircKernelBank) -> MpCircTcOperands:
+    """Split the bank's operands into bf16 hi / lo / lo2 and lay them out
+    as the wide form's units (`mp_circ_wide_tc_units`, in the 128-byte
+    swizzle). The same for every (T, alpha) layout of a bank; once per bank
+    (`lowered_tc(..., wide=True)` keeps them)."""
+    return MpCircTcOperands(*(kernels._sw128(pl).contiguous()
+                              for pl in kernels.split_planes3(
+                                  mp_circ_wide_tc_units(ckb).contiguous())))
+
+
+def _mp_features(u: torch.Tensor) -> torch.Tensor:
+    """u (n, P, D, 2) float32 -> the logit features (n, F): [u_1..u_P |
+    |u_p|^2 | v_pq = conj(u_p) u_q for p < q, interleaved], each value
+    rounded as the wide form's feature split rounds it."""
+    n, p, d, _ = u.shape
+    ur, ui = u[..., 0], u[..., 1]
+    feats = [u.reshape(n, -1), (ur * ur + ui * ui).reshape(n, -1)]
+    for pi in range(p):
+        for qi in range(pi + 1, p):
+            feats.append(torch.stack(
+                [ur[:, pi] * ur[:, qi] + ui[:, pi] * ui[:, qi],
+                 ur[:, pi] * ui[:, qi] - ui[:, pi] * ur[:, qi]],
+                dim=-1).reshape(n, 2 * d))
+    return torch.cat(feats, dim=-1)
+
+
+def mp_circ_wide_rows(u: torch.Tensor, p: int) -> torch.Tensor:
+    """u (N, P 2D) float32 -> the three bf16 planes of its logit features
+    (N, F) as the wide form's logit product reads them: (3, tiles,
+    ceil(F / 64), 64, 64), the wide K1's row layout
+    (`kernels.wide_row_planes`). On a CUDA tensor the wide form's feature
+    split (`circ_wide_features_launch`; uncounted: the wrappers count their
+    launch), on a CPU tensor this plain version."""
+    n, width = u.shape
+    two_d = width // p
+    if not u.is_cuda:
+        return kernels.wide_row_planes(
+            _mp_features(u.reshape(n, p, two_d // 2, 2)))
+    kernels._check_cuda("u", u, (n, width), u.device)
+    feat = two_d // 2 * (3 * p + p * (p - 1))
+    a = torch.empty((3, kernels.wide_row_tiles(n), _chunks(feat), 64, 64),
+                    dtype=torch.bfloat16, device=u.device)
+    if n == 0:
+        return a.zero_()
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = kernels._library("circ_wide_estimate").circ_wide_features_launch(
+            u.data_ptr(), a.data_ptr(), n, two_d, p, stream)
+    if err != 0:
+        raise RuntimeError(f"circ_wide_features launch failed: cudaError "
+                           f"{err}")
+    return a
 
 
 # ---------------------------------------------------------------------------
@@ -396,14 +592,7 @@ def _mp_reference(x2, ckb, t_coh, coh_alpha, chunk):
         n = xc.shape[0]
         u = (xc.reshape(n * p, two_d) @ ckb.bfwd).reshape(n, p, d, 2)
         ur, ui = u[..., 0], u[..., 1]                        # (n, P, D)
-        feats = [u.reshape(n, p * two_d), (ur * ur + ui * ui).reshape(n, -1)]
-        for pi in range(p):
-            for qi in range(pi + 1, p):                      # conj(u_p) u_q
-                feats.append(torch.stack(
-                    [ur[:, pi] * ur[:, qi] + ui[:, pi] * ui[:, qi],
-                     ur[:, pi] * ui[:, qi] - ui[:, pi] * ur[:, qi]],
-                    dim=-1).reshape(n, two_d))
-        lg = torch.cat(feats, dim=-1) @ ckb.lcoef + ckb.const[None]
+        lg = _mp_features(u) @ ckb.lcoef + ckb.const[None]
         w = torch.softmax(_pool(lg, t_coh, coh_alpha), dim=-1)
         c = (w @ comb).reshape(n, p + 1, d, 2)
         fr, fi = c[:, 1:, :, 0], c[:, 1:, :, 1]
@@ -551,6 +740,73 @@ def mp_circ_tc_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
     return torch.cat(ms), torch.cat(dens), out
 
 
+def _walked(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """rows @ w as the wide form's products run: the contraction
+    zero-padded to whole 64-deep chunks, each chunk's `_six` added in a
+    compensated (Kahan) sum; the value total - lost."""
+    width = 64 * _chunks(rows.shape[1])
+    rows = torch.nn.functional.pad(rows, (0, width - rows.shape[1]))
+    w = torch.nn.functional.pad(w, (0, 0, 0, width - w.shape[0]))
+    total = lost = torch.zeros(rows.shape[0], w.shape[1], dtype=rows.dtype,
+                               device=rows.device)
+    for c in range(0, width, 64):
+        total, lost = _kahan(total, lost, _six(rows[:, c:c + 64],
+                                               w[c:c + 64]))
+    return total - lost
+
+
+def mp_circ_wide_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
+                           t_coh: int = 1, coh_alpha: float = 1.0,
+                           chunk: int = 8192) -> torch.Tensor:
+    """Plain PyTorch version of the wide K10's arithmetic (the coherent
+    form at t_coh > 1; ckb from `mp_circ_kernel_bank(bank, blocks, t_coh,
+    coh_alpha)`), its products walked as the kernel walks its units: the
+    forward transform of the N P pilot rows, the combine slabs and the
+    inverse transform each a compensated sum over 64-deep chunks of the
+    six bf16 products of `_six` (`_walked`); the logit over the features
+    [u | |u_p|^2 | v_pq] (`_mp_features`) padded to whole 64-deep chunks,
+    each 16-deep step's six products added in a compensated sum with const,
+    whose error is folded in after the row's offset (its largest logit
+    among the first 64 components) is taken off; the pool and softmax in
+    float32; h = c_bias + c_filt_1 u_1 + ... + c_filt_P u_P per bin, pilot
+    by pilot. x2 (N, 2PD) float32 interleaved, pilot-major -> (N, 2D). For
+    the CPU tests and chip_smoke's checks; nothing on the main path calls
+    it where a card is present."""
+    pin_fp32()
+    two_d = ckb.bfwd.shape[0]
+    d, p, k = two_d // 2, ckb.comb.shape[0] - 1, ckb.const.shape[0]
+    feat = ckb.lcoef.shape[0]
+    wf = 64 * _chunks(feat)
+    coef = torch.nn.functional.pad(ckb.lcoef, (0, 0, 0, wf - feat))
+    if x2.shape[0] % t_coh:
+        raise ValueError(f"{x2.shape[0]} rows are no whole number of "
+                         f"T={t_coh} blocks")
+    chunk = max(t_coh, chunk // t_coh * t_coh)   # whole blocks per chunk
+    outs = []
+    for i0 in range(0, x2.shape[0], chunk):
+        xc = x2[i0:i0 + chunk]
+        n = xc.shape[0]
+        u = _walked(xc.reshape(n * p, two_d), ckb.bfwd).reshape(n, p, d, 2)
+        z = torch.nn.functional.pad(_mp_features(u), (0, wf - feat))
+        lg = lost = torch.zeros(n, k, dtype=xc.dtype, device=xc.device)
+        for c in range(0, wf, 16):
+            lg, lost = _kahan(lg, lost, _six(z[:, c:c + 16], coef[c:c + 16]))
+        lg, lost = _kahan(lg, lost, ckb.const[None])
+        off = lg[:, :64].max(-1, keepdim=True).values   # the row's offset
+        off = torch.where(off > -1e29, off, torch.zeros_like(off))
+        w = torch.softmax(_pool((lg - off) - lost, t_coh, coh_alpha), -1)
+        h = _walked(w, ckb.comb[0]).reshape(n, d, 2)
+        hr, hi = h[..., 0], h[..., 1]
+        for pi in range(p):
+            f = _walked(w, ckb.comb[pi + 1]).reshape(n, d, 2)
+            fr, fi = f[..., 0], f[..., 1]
+            ur, ui = u[:, pi, :, 0], u[:, pi, :, 1]
+            hr, hi = hr + fr * ur - fi * ui, hi + fr * ui + fi * ur
+        outs.append(_walked(torch.stack([hr, hi], -1).reshape(n, two_d),
+                            ckb.binv))
+    return torch.cat(outs) if outs else x2.new_zeros((0, two_d))
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -560,9 +816,12 @@ def _rule(d: int, k: int, p: int, t: int) -> str:
     return (f"the multi-pilot circulant kernel takes D, K <= {CIRC_MAX_D}, "
             f"{CIRC_MAX_K}, T up to a warpgroup's live rows and a "
             f"warpgroup's u within {SMEM_BLOCK_BYTES} bytes of shared "
-            f"memory beside a ring of two units; got D={d}, K={k}, P={p}, "
-            f"T={t} ({mp_circ_tile_rows(d, k, p, t)} live rows, "
-            f"{mp_circ_smem_bytes(d, k, p, t)} bytes at 64)")
+            f"memory beside a ring of two units, or in its wide form D <= "
+            f"{WIDE_MAX_D}, T <= {WIDE_MAX_T} and 128 T rows within "
+            f"{kernels.WIDE_SCRATCH} bytes of scratch; got D={d}, K={k}, "
+            f"P={p}, T={t} ({mp_circ_tile_rows(d, k, p, t)} live rows, "
+            f"{mp_circ_smem_bytes(d, k, p, t)} bytes at 64, "
+            f"{mp_circ_wide_row_bytes(d, k, p)} scratch bytes a row)")
 
 
 def _launch(name: str, x2: torch.Tensor, ckb: MpCircKernelBank, t_coh: int,
@@ -575,9 +834,11 @@ def _launch(name: str, x2: torch.Tensor, ckb: MpCircKernelBank, t_coh: int,
     two_d = ckb.bfwd.shape[0]
     d, p = two_d // 2, ckb.comb.shape[0] - 1
     k = ckb.const.shape[0]
-    if n % t_coh or not mp_circ_kernel_eligible(d, k, p, t_coh):
+    if n % t_coh or not mp_circ_narrow(d, k, p, t_coh):
         raise ValueError(f"{name} takes N rows of whole T-row blocks; "
-                         + _rule(d, k, p, t_coh) + f", N={n}")
+                         + _rule(d, k, p, t_coh) + f", N={n}"
+                         + ("" if n % t_coh else
+                            "; past the template, mp_circ_estimate_wide"))
     dev = x2.device
     feat = d * (3 * p + p * (p - 1))
     kernels._check_cuda("x2", x2, (n, p * two_d), dev)
@@ -659,32 +920,135 @@ def mp_circ_estimate_coherent(x2: torch.Tensor, ckb: MpCircKernelBank,
     return out
 
 
-kernels.register_wrappers(mp_circ_estimate, mp_circ_estimate_coherent)
+def mp_circ_wide_launch_rows(n: int, d: int, k: int, p: int,
+                             t_coh: int = 1) -> int:
+    """Rows of one launch of the wide form: all n, or as many as keep its
+    scratch within `kernels.WIDE_SCRATCH` (`mp_circ_wide_row_bytes` a
+    row), a multiple of 128 T (whole blocks, whole pairs of 64-row tiles of
+    rows and of pilot rows)."""
+    step = 128 * t_coh
+    rows = max(step, kernels.WIDE_SCRATCH // mp_circ_wide_row_bytes(d, k, p)
+               // step * step)
+    return min(n, rows)
+
+
+def _launch_wide(wrapper, x2: torch.Tensor, ckb: MpCircKernelBank,
+                 t_coh: int, coh_alpha: float,
+                 ops: Optional[MpCircTcOperands]) -> torch.Tensor:
+    """Launch the wide form (csrc/circ_wide_estimate.cu,
+    `mp_circ_wide_launch`) on x2's device and current stream, one launch
+    for each row chunk (`mp_circ_wide_launch_rows`), and add one to
+    `wrapper`'s count for each: -> out (N, 2D); raise on any refusal."""
+    name = wrapper.__name__
+    n = x2.shape[0]
+    two_d = ckb.bfwd.shape[0]
+    d, p, k = two_d // 2, ckb.comb.shape[0] - 1, ckb.const.shape[0]
+    if n % t_coh or not mp_circ_wide_eligible(d, k, p, t_coh):
+        raise ValueError(f"{name} takes N rows of whole T-row blocks; "
+                         + _rule(d, k, p, t_coh) + f", N={n}")
+    dev, f32 = x2.device, torch.float32
+    feat = d * (3 * p + p * (p - 1))
+    kernels._check_cuda("x2", x2, (n, p * two_d), dev)
+    kernels._check_cuda("bfwd", ckb.bfwd, (two_d, two_d), dev)
+    kernels._check_cuda("lcoef", ckb.lcoef, (feat, k), dev)
+    kernels._check_cuda("const", ckb.const, (k,), dev)
+    kernels._check_cuda("comb", ckb.comb, (p + 1, k, two_d), dev)
+    kernels._check_cuda("binv", ckb.binv, (two_d, two_d), dev)
+    out = torch.empty((n, two_d), dtype=f32, device=dev)
+    if n == 0:
+        return out
+    if ops is None:
+        ops = mp_circ_wide_operands(ckb)
+    check_units(name, ops, mp_circ_wide_units(d, k, p), dev,
+                "mp_circ_wide_operands")
+    rows = mp_circ_wide_launch_rows(n, d, k, p, t_coh)
+    units = max(kernels.wide_row_tiles(rows * p) * _chunks(two_d),
+                kernels.wide_row_tiles(rows) * max(_chunks(feat), _chunks(k),
+                                                   _chunks(two_d)))
+    a = torch.empty((3, units, 64, 64), dtype=torch.bfloat16, device=dev)
+    u = torch.empty((rows, p * two_d), dtype=f32, device=dev)
+    lg = torch.empty((rows, k), dtype=f32, device=dev)
+    offs = torch.empty((rows,), dtype=f32, device=dev)
+    lib = kernels._library("circ_wide_estimate")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for i0 in range(0, n, rows):
+            i1 = min(n, i0 + rows)
+            err = lib.mp_circ_wide_launch(
+                x2[i0:i1].data_ptr(), ops.hi.data_ptr(), ops.lo.data_ptr(),
+                ops.lo2.data_ptr(), ckb.const.data_ptr(),
+                out[i0:i1].data_ptr(), a.data_ptr(), u.data_ptr(),
+                lg.data_ptr(), offs.data_ptr(), i1 - i0, d, p, k,
+                ops.hi.shape[0], int(t_coh), float(coh_alpha), stream)
+            if err != 0:
+                raise RuntimeError(f"{name} launch failed: cudaError {err}")
+            wrapper.launches += 1
+    return out
+
+
+def mp_circ_estimate_wide(x2: torch.Tensor, ckb: MpCircKernelBank,
+                          operands: Optional[MpCircTcOperands] = None
+                          ) -> torch.Tensor:
+    """K10's wide form on x2 (N, 2PD) -> (N, 2D), `operands` from
+    `mp_circ_wide_operands(ckb)` (laid out in the call when None); the
+    entries launch it past the template's rule. On a CUDA tensor it
+    launches the CUDA kernels (`mp_circ_wide_eligible`) and raises on any
+    refusal; on a CPU tensor it computes the plain version
+    `mp_circ_wide_reference`."""
+    if not x2.is_cuda:
+        return mp_circ_wide_reference(x2, ckb)
+    return _launch_wide(mp_circ_estimate_wide, x2, ckb, 1, 1.0, operands)
+
+
+def mp_circ_estimate_coherent_wide(x2: torch.Tensor, ckb: MpCircKernelBank,
+                                   t_coh: int, coh_alpha: float = 1.0,
+                                   operands: Optional[MpCircTcOperands]
+                                   = None) -> torch.Tensor:
+    """The coherent K10's wide form on x2 (N, 2PD), N / T blocks of T
+    consecutive rows (2 <= T <= 64), ckb from `mp_circ_kernel_bank(bank,
+    blocks, t_coh, coh_alpha)`, `operands` as for `mp_circ_estimate_wide`
+    (any layout of the bank). CUDA kernels on a CUDA tensor, the plain
+    version `mp_circ_wide_reference` on the CPU."""
+    if t_coh < 2:
+        raise ValueError(f"mp_circ_estimate_coherent_wide takes T >= 2; got "
+                         f"{t_coh}")
+    if not x2.is_cuda:
+        return mp_circ_wide_reference(x2, ckb, t_coh, coh_alpha)
+    return _launch_wide(mp_circ_estimate_coherent_wide, x2, ckb, t_coh,
+                        coh_alpha, operands)
+
+
+kernels.register_wrappers(mp_circ_estimate, mp_circ_estimate_coherent,
+                          mp_circ_estimate_wide,
+                          mp_circ_estimate_coherent_wide)
 
 
 # ---------------------------------------------------------------------------
 # entries on complex observations and multi-pilot banks
 # ---------------------------------------------------------------------------
 
-def _check_eligible(bank: CirculantBankMP, t: int) -> None:
+def _check_eligible(bank: CirculantBankMP, t: int) -> bool:
+    """Raise unless K10 takes the bank at T; return whether the wide form
+    does (`mp_circ_narrow` decides, from the shapes alone)."""
     k, d, p = bank.mean_rf.shape
     if not mp_circ_kernel_eligible(d, k, p, t):
         raise ValueError(_rule(d, k, p, t))
+    return not mp_circ_narrow(d, k, p, t)
 
 
 def estimate_fused_circulant_mp(bank: CirculantBankMP, r: torch.Tensor,
                                 blocks=None,
                                 cache: Optional[dict] = None) -> torch.Tensor:
     """'all'-mode multi-pilot structured estimate of r (N, P*D) complex ->
-    (N, D) through K10: the kernel analog of
-    `structured_bank.estimate_circulant_mp` (selection modes stay on the
-    `torch.fft` path). Raises outside `mp_circ_kernel_eligible`
-    (`harness.stages.estimate_circulant` sends those to the pipeline).
-    `cache`: see `lowered`."""
-    _check_eligible(bank, 1)
-    ops = lowered_tc(bank, cache, blocks) if r.is_cuda else None
-    return _hc(mp_circ_estimate(_x2(r), lowered(bank, cache, blocks), ops),
-               r.dtype)
+    (N, D) through K10 (its wide form past the template's rule): the
+    kernel analog of `structured_bank.estimate_circulant_mp` (selection
+    modes stay on the `torch.fft` path). Raises outside
+    `mp_circ_kernel_eligible` (`harness.stages.estimate_circulant` sends
+    those to the pipeline). `cache`: see `lowered` and `lowered_tc`."""
+    wide = _check_eligible(bank, 1)
+    ops = lowered_tc(bank, cache, blocks, wide) if r.is_cuda else None
+    est = mp_circ_estimate_wide if wide else mp_circ_estimate
+    return _hc(est(_x2(r), lowered(bank, cache, blocks), ops), r.dtype)
 
 
 def estimate_fused_circulant_mp_coherent(bank: CirculantBankMP,
@@ -695,9 +1059,9 @@ def estimate_fused_circulant_mp_coherent(bank: CirculantBankMP,
     """Coherent 'all'-mode multi-pilot structured estimate of blocks
     r (B, T, P*D) -> (B, T, D): the kernel analog of
     `structured_bank.estimate_circulant_mp_coherent`. T = 1 runs the flat
-    form; T within `mp_circ_kernel_eligible` runs the coherent form with
-    the alpha blend in the kernel; beyond the rule it raises. `cache`: see
-    `lowered`."""
+    form; T within `mp_circ_kernel_eligible` runs the coherent form (the
+    template's or the wide one) with the alpha blend in the kernel; beyond
+    the rule it raises. `cache`: see `lowered` and `lowered_tc`."""
     if r.dim() != 3:
         raise ValueError(f"expected (B, T, P*D) blocks, got "
                          f"{tuple(r.shape)}")
@@ -705,8 +1069,9 @@ def estimate_fused_circulant_mp_coherent(bank: CirculantBankMP,
     if t == 1:
         return estimate_fused_circulant_mp(bank, r[:, 0, :], blocks,
                                            cache)[:, None, :]
-    _check_eligible(bank, t)
-    ops = lowered_tc(bank, cache, blocks) if r.is_cuda else None
-    h2 = mp_circ_estimate_coherent(_x2(r), lowered(bank, cache, blocks, t,
-                                                   alpha), t, alpha, ops)
+    wide = _check_eligible(bank, t)
+    ops = lowered_tc(bank, cache, blocks, wide) if r.is_cuda else None
+    est = (mp_circ_estimate_coherent_wide if wide
+           else mp_circ_estimate_coherent)
+    h2 = est(_x2(r), lowered(bank, cache, blocks, t, alpha), t, alpha, ops)
     return _hc(h2, r.dtype).reshape(b, t, -1)

@@ -253,7 +253,8 @@ def estimate_circulant(bank, r: torch.Tensor, mode="all", blocks=None,
                        method: str = "auto", cache: Optional[dict] = None):
     """Structured analog of `estimate_auto` for r (N, M) and a bank of
     either kind: 'all' mode within the kernels' range -> the circulant
-    kernel K6 (past D = 128 its wide form), or K10 for a multi-pilot bank (the CUDA kernel for a CUDA
+    kernel K6 (past D = 128 its wide form), or K10 for a multi-pilot bank
+    (past its template's rule its wide form; the CUDA kernel for a CUDA
     tensor, its plain version for a CPU tensor); selection modes and wider
     banks -> the `torch.fft` pipeline. `method` as in `_circ_method`;
     `cache` holds the kernel layouts of a bank served many times
@@ -274,8 +275,8 @@ def estimate_circulant_coherent(bank, r: torch.Tensor, mode="all",
                                 cache: Optional[dict] = None):
     """Coherent analog of `estimate_circulant` for blocks r (B, T, M): 'all'
     mode with (D, K, T) within the kernels' range -> K7, or the coherent
-    K10 for a multi-pilot bank (the alpha blend in the kernel), else the
-    `torch.fft` coherent pipeline."""
+    K10 for a multi-pilot bank (either form; the alpha blend in the
+    kernel), else the `torch.fft` coherent pipeline."""
     if r.dim() != 3:
         raise ValueError(f"estimate_circulant_coherent expects (B, T, M) "
                          f"blocks, got shape {tuple(r.shape)}")

@@ -67,6 +67,16 @@ with NaN after they were read: a launch fails if any output's bits differ
 from the first launch's, and the first launch under the rule of mode
 'f32'.
 
+Mode 'wide_mpcirc' does the same for the wide form of K10 (the
+multi-pilot kernels of `csrc/circ_wide_estimate.cu`, past the template's
+rule; `WIDE_MPCIRC_SHAPES`: D one past the template's, K past one logit
+slice, a P past the template's shared memory, D = 1 at many pilots, the
+pool at T = 3, 4 and 16), flat and coherent, under the rule of mode
+'wide_circ' (each launch after the NaN fill of the last one's output, bit
+for bit the first launch; the first held against the wide form's plain
+version `mp_circ_wide_reference`, or against float64 under mode 'f32''s
+rule).
+
 `--without-proxy-fence` also builds a copy of K14b without the
 `fence.proxy.async` before each stage's release (in
 csrc/grouped_tc_stream.cuh) and runs it launch for launch beside the
@@ -77,7 +87,7 @@ headline widths (131072 rows, 2M = 2D = 128, K = 64).
     python -m quantized_channel_estimation_torch.tools.tc_repeat_check \
         [--repeats R] \
         [--modes bf16 split2 split3 f32 wide wide_topk karatsuba fact mpcirc
-                 circ wide_circ] \
+                 circ wide_circ wide_mpcirc] \
         [--no-poison] \
         [--without-proxy-fence [--time]]
 
@@ -194,6 +204,15 @@ WIDE_CIRC_SHAPES = (
     (672, 64, 4 * 1001, 1, 4, 0.25, False),    # K7 at the rule's edge
     (320, 40, 64 * 33, 0, 64, 1.0, True),      # K9, T = 64
     (200, 7, 3 * 701, 1, 3, 0.5, True),        # K9, T = 3, alpha < 1
+)
+# the wide K10: (P, D, K, N, dead components, T, alpha)
+WIDE_MPCIRC_SHAPES = (
+    (2, 129, 8, 1001, 1, 1, 1.0),              # one past the template's D
+    (2, 64, 200, 4097, 3, 1, 1.0),             # K past one logit slice
+    (12, 64, 16, 515, 0, 1, 1.0),              # P past shared memory
+    (40, 1, 4, 4 * 301, 1, 4, 0.25),           # D = 1, 40 pilots, pool
+    (3, 144, 16, 3 * 701, 0, 3, 0.5),          # T = 3, alpha < 1
+    (2, 256, 32, 16 * 129, 2, 16, 1.0),        # T = 16 at D = 256
 )
 REPEATS = 300
 STREAM = "grouped_tc_stream.cuh"
@@ -490,16 +509,27 @@ def random_mp_bank(p, d, k, dev, n_dead=0, t_coh=1, seed=0):
     return mk.MpCircKernelBank(*(x.to(dev).contiguous() for x in ckb))
 
 
-def _mp_check(dev, shapes, repeats, poison) -> dict:
-    """Mode 'mpcirc' of `repeat_check`: {label: {"launches", "failures",
-    "max_err"}} over K10 flat and coherent at `shapes`."""
+def _mp_check(dev, shapes, repeats, poison, wide=False) -> dict:
+    """Mode 'mpcirc' (with `wide`: 'wide_mpcirc') of `repeat_check`:
+    {label: {"launches", "failures", "max_err"}} over K10 flat and coherent
+    at `shapes`; with `wide`, its wide form, each launch after the NaN fill
+    of the last one's output, and bit for bit the first launch."""
     out = {}
     for p, d, k, n, n_dead, t, alpha in shapes:
         ckb = random_mp_bank(p, d, k, dev, n_dead, t)
         f64 = mk.MpCircKernelBank(*(x.double() for x in ckb))
-        ops = mk.mp_circ_tc_operands(ckb) if dev.type == "cuda" else None
+        lay = mk.mp_circ_wide_operands if wide else mk.mp_circ_tc_operands
+        ops = lay(ckb) if dev.type == "cuda" else None
         x2 = random_rows(n, 2 * p * d, dev)
-        if t == 1:
+        if wide:
+            def run():
+                if t == 1:
+                    return mk.mp_circ_estimate_wide(x2, ckb, ops)
+                return mk.mp_circ_estimate_coherent_wide(x2, ckb, t, alpha,
+                                                         ops)
+            want = mk.mp_circ_wide_reference(x2, ckb, t, alpha)
+            exact = mk._mp_reference(x2.double(), f64, t, alpha, 8192)
+        elif t == 1:
             def run():
                 return mk.mp_circ_estimate(x2, ckb, ops)
             want = mk.mp_circ_estimate_reference(x2, ckb)
@@ -519,13 +549,18 @@ def _mp_check(dev, shapes, repeats, poison) -> dict:
             got = run()
             rel = float((got - want).abs().max() / scale)
             rel64 = float((got.double() - exact).abs().max() / scale)
-            ok = (first is None or torch.equal(got, first)) and (
+            ok = (first is None or torch.equal(got.view(torch.int32),
+                                               first.view(torch.int32))) and (
                 rel <= TOL or rel64 <= 2 * plain_err + 1e-5)
             if first is None:
-                first = got
+                first = got.clone() if wide else got
             fails += not ok     # NaN fails both comparisons
             errs.append(rel if rel == rel else math.inf)
-        out[f"P={p} D={d} K={k} N={n} dead={n_dead} T={t} a={alpha} K10"] = {
+            if wide:            # the next launch's output lands here
+                got.fill_(math.nan)
+            del got
+        out[f"P={p} D={d} K={k} N={n} dead={n_dead} T={t} a={alpha} K10"
+            + (" wide" if wide else "")] = {
             "launches": repeats, "failures": fails, "max_err": max(errs)}
     return out
 
@@ -691,7 +726,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
                  fact_shapes=FACT_SHAPES,
                  mpcirc_shapes=MPCIRC_SHAPES,
                  circ_shapes=CIRC_SHAPES,
-                 wide_circ_shapes=WIDE_CIRC_SHAPES) -> dict:
+                 wide_circ_shapes=WIDE_CIRC_SHAPES,
+                 wide_mpcirc_shapes=WIDE_MPCIRC_SHAPES) -> dict:
     """Every (shape, mode): `repeats` launches of K14b (and of the copy
     without the fence), each held against the plain version; mode 'f32':
     K1 and K3 at `f32_shapes`; mode 'wide': their wide form at
@@ -700,7 +736,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     `karatsuba_shapes`; mode 'fact': K11-K13 at `fact_shapes`; mode
     'mpcirc': K10 at `mpcirc_shapes`; mode 'circ': K6-K9 at
     `circ_shapes`; mode 'wide_circ': their wide form at
-    `wide_circ_shapes`. Returns
+    `wide_circ_shapes`; mode 'wide_mpcirc': K10's wide form at
+    `wide_mpcirc_shapes`. Returns
     {"kernel" (and "no fence"): {label: {"launches", "failures",
     "max_err"}}}."""
     copy = _without_fence() if without_fence else None
@@ -727,9 +764,12 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     if "wide_circ" in modes:
         result["kernel"].update(_circ_check(dev, wide_circ_shapes, repeats,
                                             poison, wide=True))
+    if "wide_mpcirc" in modes:
+        result["kernel"].update(_mp_check(dev, wide_mpcirc_shapes, repeats,
+                                          poison, wide=True))
     modes = [m for m in modes
              if m not in ("f32", "wide", "wide_topk", "karatsuba", "fact",
-                          "mpcirc", "circ", "wide_circ")]
+                          "mpcirc", "circ", "wide_circ", "wide_mpcirc")]
     for two_m, two_d, k, n, n_dead in shapes if modes else ():
         kb = random_bank(two_m, two_d, k, dev, n_dead)
         planes = kernels.split_planes(kb.pw)
@@ -784,10 +824,10 @@ def main(argv=None) -> dict:
     p.add_argument("--modes", nargs="+",
                    default=[*vk.TC_WRAPPERS, "f32", "wide", "wide_topk",
                             "karatsuba", "fact", "mpcirc", "circ",
-                            "wide_circ"],
+                            "wide_circ", "wide_mpcirc"],
                    choices=[*vk.TC_WRAPPERS, "f32", "wide", "wide_topk",
                             "karatsuba", "fact", "mpcirc", "circ",
-                            "wide_circ"])
+                            "wide_circ", "wide_mpcirc"])
     p.add_argument("--no-poison", action="store_true")
     p.add_argument("--without-proxy-fence", action="store_true")
     p.add_argument("--time", action="store_true")

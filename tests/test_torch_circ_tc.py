@@ -276,7 +276,7 @@ def test_circ_rule_keeps_every_old_shape_and_pins_the_new_edges():
                     assert ck.circ_kernel_eligible(d, k, t), (d, k, t)
                 # the template's own rule at one pilot, per launch
                 assert ck.circ_kernel_eligible(d, k, t) == \
-                    mk.mp_circ_kernel_eligible(d, min(k, 128), 1, t)
+                    mk.mp_circ_narrow(d, min(k, 128), 1, t)
         assert ck.circ_tile_rows(d) == 64
         assert not ck.circ_kernel_eligible(d, 8, 65)
     assert ck.circ_kernel_eligible(128, 128, 64)       # was T <= 32

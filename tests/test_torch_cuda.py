@@ -39,9 +39,11 @@ three real products, and so are the factored kernels K11-K13, six bf16
 products for each of their two products, and the multi-pilot K10 and, at
 one pilot, K6-K9, six bf16 products for each of their four (K8 / K9 on
 each of m, den and the accumulator, and on the merged quotient), and
-their wide form past D = 128 (`csrc/circ_wide_estimate.cu`). The
-repeated launches of K14a, K10, K6-K9 (the wide form on NaN-filled
-outputs too) and K11-K13 are bit for bit the first.
+their wide form past D = 128 (`csrc/circ_wide_estimate.cu`), and K10's
+wide form past the template's rule, against its own plain version
+`mp_circ_wide_reference`. The repeated launches of K14a, K10, K6-K9 (the
+wide forms on NaN-filled outputs too) and K11-K13 are bit for bit the
+first.
 """
 import math
 import os
@@ -2160,36 +2162,179 @@ def test_mp_circ_kernel_refuses_bad_inputs_and_one_past_the_rule():
     for t, rows in ((1, x2), (5, x2), (65, torch.zeros(130, 32, device=dev))):
         with pytest.raises(ValueError, match="T"):   # T = 1, N % T, T > tile
             tmk.mp_circ_estimate_coherent(rows, ckb, t)
-    # one past the rule: P = 12 at D = K = 64 and P = 6 at D = K = 128,
-    # D = 129, K = 129 (no stats form to split over), T past a warpgroup's
-    # 32 live rows
+    # one past the template's rule: P = 12 at D = K = 64 and P = 6 at D =
+    # K = 128, D = 129, K = 129, T past a warpgroup's 32 live rows. The
+    # template refuses them; the entries and the stages take the wide form
     for p, d, k, t in ((12, 64, 64, 1), (6, 128, 128, 1), (2, 129, 4, 1),
                        (2, 8, 129, 1), (3, 128, 8, 33)):
-        assert not tmk.mp_circ_kernel_eligible(d, k, p, t)
+        assert not tmk.mp_circ_narrow(d, k, p, t)
+        assert tmk.mp_circ_kernel_eligible(d, k, p, t)
         wide = _mp_bank(p, d, k, dev)
         r = torch.zeros(2, t, p * d, dtype=torch.complex64, device=dev)
         r = r[:, 0] if t == 1 else r
-        before = tkn.launch_counts()
-        with pytest.raises(ValueError, match="method='kernel'"):
-            (stages.estimate_circulant if t == 1
-             else stages.estimate_circulant_coherent)(wide, r,
-                                                      method="kernel")
-        with pytest.raises(ValueError, match="multi-pilot circulant kernel"):
-            (tmk.estimate_fused_circulant_mp if t == 1
-             else tmk.estimate_fused_circulant_mp_coherent)(wide, r)
         with pytest.raises(ValueError, match="shared memory"):
             x2w = torch.zeros(2 * t, 2 * p * d, device=dev)
             ckb_w = tmk.mp_circ_kernel_bank(wide, None, t)
             tmk.mp_circ_estimate(x2w, ckb_w) if t == 1 \
                 else tmk.mp_circ_estimate_coherent(x2w, ckb_w, t)
-        # 'auto' takes the torch.fft pipeline there and launches nothing
-        (stages.estimate_circulant if t == 1
-         else stages.estimate_circulant_coherent)(wide, r)
-        assert tkn.launch_counts() == before
+        name = "mp_circ_estimate" + ("_coherent" if t > 1 else "") + "_wide"
+        before = tkn.launch_counts()
+        got = (stages.estimate_circulant if t == 1
+               else stages.estimate_circulant_coherent)(wide, r,
+                                                        method="kernel")
+        after = tkn.launch_counts()
+        assert torch.isfinite(torch.view_as_real(got)).all()
+        assert {n: after[n] - before[n] for n in after
+                if after[n] != before[n]} == {name: 1}
     before = tkn.launch_counts()
     assert tmk.mp_circ_estimate(x2[:0], ckb).shape == (0, 16)
     assert tmk.mp_circ_estimate_coherent(x2[:0], ckb, 2).shape == (0, 16)
     assert tkn.launch_counts() == before             # nothing to launch
+
+
+# the wide K10: (P, D, K, N, dead components, T, alpha, blocks): one past
+# the template's D, flat and pooled, the kron basis, K past one and past
+# two logit slices (the softmax past 128 components), a P past the
+# template's shared memory, D = 1 at many pilots, the pool at T = 3, 4, 16
+# and 64
+MP_WIDE_CASES = [
+    (2, 129, 8, 2049, 1, 1, 1.0, None),
+    (3, 144, 16, 4 * 257, 1, 4, 0.25, None),
+    (2, 144, 8, 3 * 341, 0, 3, 0.5, None),
+    (2, 256, 32, 2048, 2, 1, 1.0, (16, 16)),
+    (2, 64, 300, 2049, 3, 1, 1.0, None),
+    (2, 16, 1024, 4 * 256, 2, 4, 0.25, None),
+    (12, 64, 16, 515, 0, 1, 1.0, None),
+    (40, 1, 4, 16 * 20, 1, 16, 1.0, None),
+    (4, 189, 8, 16 * 64, 1, 16, 1.0, None),
+    (2, 200, 8, 64 * 9, 0, 64, 1.0, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,d,k,n,n_dead,t,alpha,blocks", MP_WIDE_CASES)
+def test_mp_circ_wide_matches_plain(p, d, k, n, n_dead, t, alpha, blocks):
+    """The wide K10 (flat, or coherent at T > 1) within 1e-4 of the scale
+    of its plain version `mp_circ_wide_reference` (where the two part by
+    more, held to the float64 rule and within 1e-4 of the function in
+    float64, `_held`), one launch counted on its own wrapper and none on
+    another; its feature split (`mp_circ_wide_rows`) bit for bit the plain
+    layout; and where the template's rule stops, the stages' 'auto'
+    route launches it once and gives the same bits."""
+    dev = _card()
+    bank = _mp_bank(p, d, k, dev, n_dead, blocks)
+    ckb = tmk.mp_circ_kernel_bank(bank, blocks, t, alpha)
+    x2 = _rows(n, 2 * p * d, dev)
+    u = _rows(300, 2 * p * d, dev, seed=5)
+    assert torch.equal(tmk.mp_circ_wide_rows(u, p).cpu().view(torch.int16),
+                       tmk.mp_circ_wide_rows(u.cpu(), p).view(torch.int16))
+    name = "mp_circ_estimate" + ("_coherent" if t > 1 else "") + "_wide"
+    before = tkn.launch_counts()
+    got = (tmk.mp_circ_estimate_wide(x2, ckb) if t == 1
+           else tmk.mp_circ_estimate_coherent_wide(x2, ckb, t, alpha))
+    torch.cuda.synchronize()
+    after = tkn.launch_counts()
+    assert {m: after[m] - before[m] for m in after
+            if after[m] != before[m]} == {name: 1}
+    _held(got, tmk.mp_circ_wide_reference(x2, ckb, t, alpha),
+          tmk._mp_reference(x2.double(), _f64(ckb), t, alpha, 8192),
+          ceiling=1e-4)
+    if tmk.mp_circ_narrow(d, k, p, t):
+        return
+    r = torch.view_as_complex(x2.reshape(n // t, t, p * d, 2).contiguous())
+    if t == 1:
+        got_c = stages.estimate_circulant(bank, r[:, 0], blocks=blocks)
+    else:
+        got_c = stages.estimate_circulant_coherent(bank, r, alpha=alpha,
+                                                   blocks=blocks)
+    assert tkn.launch_counts()[name] == after[name] + 1
+    assert torch.equal(torch.view_as_real(got_c).reshape(n, 2 * d), got)
+
+
+@pytest.mark.cuda
+def test_mp_circ_wide_refuses_past_its_edges():
+    """The wide K10 refuses D = 673, T = 65, a P whose 128 T rows pass the
+    scratch, whole-block violations and the template's operands; N = 0
+    launches nothing; past the rule 'auto' takes the `torch.fft`
+    pipeline and 'kernel' raises."""
+    dev = _card()
+    ckb = tmk.mp_circ_kernel_bank(_mp_bank(2, 144, 4, dev))
+    x2 = _rows(130, 4 * 144, dev)
+    with pytest.raises(ValueError, match="T"):
+        tmk.mp_circ_estimate_coherent_wide(x2, ckb, 65)
+    with pytest.raises(ValueError, match="whole"):
+        tmk.mp_circ_estimate_coherent_wide(x2, ckb, 4)
+    with pytest.raises(ValueError, match="mp_circ_wide_operands"):
+        tmk.mp_circ_estimate_wide(x2, ckb, tmk.mp_circ_tc_operands(
+            tmk.mp_circ_kernel_bank(_mp_bank(2, 64, 4, dev))))
+    before = tkn.launch_counts()
+    assert tmk.mp_circ_estimate_wide(x2[:0], ckb).shape == (0, 288)
+    assert tkn.launch_counts() == before
+    for p, d, k, t in ((2, 673, 2, 1), (25, 128, 2, 16)):
+        assert not tmk.mp_circ_kernel_eligible(d, k, p, t)
+        past = _mp_bank(p, d, k, dev)
+        rows = torch.zeros(t, 2 * p * d, device=dev)
+        with pytest.raises(ValueError, match="multi-pilot circulant kernel"):
+            (tmk.mp_circ_estimate_wide(rows, tmk.mp_circ_kernel_bank(past))
+             if t == 1 else tmk.mp_circ_estimate_coherent_wide(
+                 rows, tmk.mp_circ_kernel_bank(past, None, t), t))
+        r = tmk._hc(rows, torch.complex64)
+        r = r if t == 1 else r.reshape(1, t, p * d)
+        est = (stages.estimate_circulant if t == 1
+               else stages.estimate_circulant_coherent)
+        with pytest.raises(ValueError, match="method='kernel'"):
+            est(past, r, method="kernel")
+        assert torch.equal(est(past, r), est(past, r, method="fft"))
+    assert tkn.launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4])
+def test_mp_circ_wide_cuts_rows_to_its_scratch(monkeypatch, t):
+    """Past `WIDE_SCRATCH` the wide K10 runs in row chunks of whole
+    blocks, one counted launch each, bit for bit the one launch's output
+    (a scratch of 512 rows' worth here: 2000 rows in four chunks)."""
+    dev = _card()
+    p, d, k = 2, 144, 200
+    ckb = tmk.mp_circ_kernel_bank(_mp_bank(p, d, k, dev, n_dead=1), None, t,
+                                  1.0)
+    x2 = _rows(2000, 2 * p * d, dev)
+
+    def run():
+        return (tmk.mp_circ_estimate_wide(x2, ckb) if t == 1
+                else tmk.mp_circ_estimate_coherent_wide(x2, ckb, t, 1.0))
+
+    whole = run()
+    per_row = tmk.mp_circ_wide_row_bytes(d, k, p)
+    monkeypatch.setattr(tkn, "WIDE_SCRATCH", 512 * per_row + 100)
+    assert tmk.mp_circ_wide_launch_rows(2000, d, k, p, t) == 512
+    name = "mp_circ_estimate" + ("_coherent" if t > 1 else "") + "_wide"
+    before = tkn.launch_counts()[name]
+    cut = run()
+    assert tkn.launch_counts()[name] == before + 4
+    assert torch.equal(cut.view(torch.int32), whole.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_mp_circ_wide_repeated_launches_match_plain():
+    """The wide K10 launched 20 times at each shape of
+    `tools.tc_repeat_check.WIDE_MPCIRC_SHAPES`, each launch after a NaN
+    fill of every SM's shared memory and on the memory of the last
+    launch's output filled with NaN, each bit for bit the first launch,
+    which is held against the plain version."""
+    dev = _card()
+    shapes = tc_repeat_check.WIDE_MPCIRC_SHAPES
+    before = (tmk.mp_circ_estimate_wide.launches,
+              tmk.mp_circ_estimate_coherent_wide.launches)
+    runs = tc_repeat_check.repeat_check(dev, repeats=20,
+                                        modes=("wide_mpcirc",))["kernel"]
+    n_coh = sum(1 for s in shapes if s[5] > 1)
+    assert tmk.mp_circ_estimate_wide.launches == before[0] + 20 * (
+        len(shapes) - n_coh)
+    assert tmk.mp_circ_estimate_coherent_wide.launches == before[1] \
+        + 20 * n_coh
+    assert len(runs) == len(shapes)
+    assert not {k: v for k, v in runs.items() if v["failures"]}, runs
 
 
 @pytest.mark.cuda

@@ -230,8 +230,10 @@ def test_mp_circ_rule_keeps_every_shape_up_to_four_pilots():
 
 
 def test_mp_circ_rule_new_edges():
-    """The rule from shapes only: a warpgroup of 64 live rows where its u
-    fits beside a ring of two units, else 32; the edges it moved."""
+    """The template's rule from shapes only: a warpgroup of 64 live rows
+    where its u fits beside a ring of two units, else 32; the edges it
+    moved. Past them the wide form takes the bank
+    (`tests/test_torch_wide_mp_circ.py`)."""
     assert mk.mp_circ_tile_rows(64, 64, 2) == 64
     assert mk.mp_circ_tile_rows(64, 64, 11) == 32          # P past 64 rows
     assert mk.mp_circ_tile_rows(64, 64, 12) == 0
@@ -241,21 +243,22 @@ def test_mp_circ_rule_new_edges():
     assert mk.mp_circ_tile_rows(128, 128, 6) == 0
     # P = 5 .. 11 at D = K = 64 and P = 5 at D = K = 128: the fp32 loop
     # took neither; T at 32 live rows
-    assert mk.mp_circ_kernel_eligible(64, 64, 11)
-    assert mk.mp_circ_kernel_eligible(64, 64, 10, 32)      # + the pool rows
-    assert not mk.mp_circ_kernel_eligible(64, 64, 10, 33)
-    assert not mk.mp_circ_kernel_eligible(64, 64, 11, 2)
-    assert mk.mp_circ_kernel_eligible(128, 128, 5, 32)
-    assert mk.mp_circ_kernel_eligible(128, 64, 2, 64)      # was T <= 32
-    # what the fp32 loop took and the kernel does not: P >= 6 at D = 65 ..
-    # 111 (2D padded to four 64-column pieces), T past 32 at a P that
-    # leaves a warpgroup 32 rows (P = 5 at D = 40), P in the hundreds at
-    # D <= 2
+    assert mk.mp_circ_narrow(64, 64, 11)
+    assert mk.mp_circ_narrow(64, 64, 10, 32)      # + the pool rows
+    assert not mk.mp_circ_narrow(64, 64, 10, 33)
+    assert not mk.mp_circ_narrow(64, 64, 11, 2)
+    assert mk.mp_circ_narrow(128, 128, 5, 32)
+    assert mk.mp_circ_narrow(128, 64, 2, 64)      # was T <= 32
+    # what the fp32 loop took and the template does not, which the wide
+    # form takes: P >= 6 at D = 65 .. 111 (2D padded to four 64-column
+    # pieces), T past 32 at a P that leaves a warpgroup 32 rows (P = 5 at
+    # D = 40), P in the hundreds at D <= 2
     for shape in ((100, 64, 6, 1), (65, 8, 6, 1), (40, 8, 5, 64),
                   (2, 8, 178, 1)):
-        assert _old_rule(*shape) and not mk.mp_circ_kernel_eligible(*shape)
-    assert mk.mp_circ_kernel_eligible(40, 8, 5, 32)
-    assert mk.mp_circ_kernel_eligible(2, 8, 177, 1)
+        assert _old_rule(*shape) and not mk.mp_circ_narrow(*shape)
+        assert mk.mp_circ_kernel_eligible(*shape)
+    assert mk.mp_circ_narrow(40, 8, 5, 32)
+    assert mk.mp_circ_narrow(2, 8, 177, 1)
     # shared memory of the launch: u, the ring, the pool rows
     assert mk.mp_circ_smem_bytes(64, 64, 2) == 1024 + 2 * (24576 + 16) \
         + 2 * 2 * 8 * 128 * 16

@@ -471,14 +471,15 @@ def test_mp_eligibility_rule_reads_shapes_only():
     assert mk.mp_circ_kernel_eligible(128, 128, 4, 32)
     assert mk.mp_circ_kernel_eligible(24, 40, 3, 16)    # no powers of two
     assert mk.mp_circ_kernel_eligible(16, 8, 16)
-    assert mk.mp_circ_kernel_eligible(64, 64, 11)       # 32 live rows
-    assert not mk.mp_circ_kernel_eligible(64, 64, 12)   # past shared memory
-    assert mk.mp_circ_kernel_eligible(128, 128, 5)
-    assert not mk.mp_circ_kernel_eligible(128, 128, 6)
-    assert not mk.mp_circ_kernel_eligible(129, 8, 2)
-    assert not mk.mp_circ_kernel_eligible(64, 129, 2)   # no stats form
-    assert not mk.mp_circ_kernel_eligible(64, 64, 2, 65)
-    assert not mk.mp_circ_kernel_eligible(128, 64, 3, 33)
+    assert mk.mp_circ_narrow(64, 64, 11)                # 32 live rows
+    assert not mk.mp_circ_narrow(64, 64, 12)            # past shared memory
+    assert mk.mp_circ_narrow(128, 128, 5)
+    assert not mk.mp_circ_narrow(128, 128, 6)
+    # past the template's rule its wide form takes the bank
+    assert mk.mp_circ_kernel_eligible(129, 8, 2)
+    assert mk.mp_circ_kernel_eligible(64, 129, 2)
+    assert not mk.mp_circ_kernel_eligible(64, 64, 2, 65)  # past its T = 64
+    assert mk.mp_circ_kernel_eligible(128, 64, 3, 33)
     # a warpgroup's u beside a ring of two units, in bytes
     assert mk.mp_circ_smem_bytes(64, 64, 2) == 1024 + 2 * 24592 + 65536
     assert mk.mp_circ_smem_bytes(64, 64, 4) == 181280
@@ -527,18 +528,18 @@ def test_mp_method_dispatch_and_refusals():
         mk.estimate_fused_circulant_mp_coherent(tb, rt)
     with pytest.raises(ValueError, match="method='kernel'"):
         tst.estimate_circulant_coherent(tb, rt, method="kernel")
-    # K past one launch (there is no stats form to split over), and P past
-    # the shared memory of a block
+    # K past one launch of the template, and P past the shared memory of a
+    # block: the template refuses them, the wide form takes them
     for p, k, d in ((2, ck.CIRC_MAX_K + 2, 4), (12, 4, 64)):
         _, wide = _banks(p, k=k, d=d, n_dead=0)
         rw = torch.as_tensor(_obs(12, p * d))
-        assert not mk.mp_circ_kernel_eligible(d, k, p)
-        assert torch.equal(tst.estimate_circulant(wide, rw),
-                           tsb.estimate_circulant_mp(wide, rw))
-        with pytest.raises(ValueError, match="method='kernel'"):
-            tst.estimate_circulant(wide, rw, method="kernel")
-        with pytest.raises(ValueError, match="multi-pilot circulant kernel"):
-            mk.estimate_fused_circulant_mp(wide, rw)
+        assert not mk.mp_circ_narrow(d, k, p)
+        assert mk.mp_circ_kernel_eligible(d, k, p)
+        via_wide = mk.estimate_fused_circulant_mp(wide, rw)
+        assert torch.equal(tst.estimate_circulant(wide, rw), via_wide)
+        assert torch.equal(tst.estimate_circulant(wide, rw, method="kernel"),
+                           via_wide)
+        _close(via_wide, tsb.estimate_circulant_mp(wide, rw), 2e-4)
 
 
 def test_mp_wrappers_refuse_what_the_kernel_does_not_take():

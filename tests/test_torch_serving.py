@@ -736,13 +736,21 @@ def test_structured_service_refusals(circ_setup):
                                   device="cpu", structured=True)
     svc = _circ_service(circ_setup, mode="all", use_kernels=True)  # accepted
     svc.close(timeout=TIMEOUT)
-    # 48 pilots at D = 16 are past K10's shared memory: served through the
-    # `torch.fft` pipeline unless the kernels are demanded
+    # 48 pilots at D = 16 are past the template's shared memory: K10's
+    # wide form takes them
     wide = np.kron(np.ones((48, 1)), np.asarray(a))
-    with pytest.raises(ValueError, match="circulant kernels' range"):
-        serving.EstimationService(params, wide, 2, device="cpu",
-                                  structured=True, use_kernels=True)
     svc = serving.EstimationService(params, wide, 2, device="cpu",
+                                    structured=True)
+    assert svc.use_kernels
+    svc.close(timeout=TIMEOUT)
+    # 294 pilots at D = 16 are past the wide form's scratch (128 rows of
+    # their features): served through the `torch.fft` pipeline unless the
+    # kernels are demanded
+    past = np.kron(np.ones((294, 1)), np.asarray(a))
+    with pytest.raises(ValueError, match="circulant kernels' range"):
+        serving.EstimationService(params, past, 2, device="cpu",
+                                  structured=True, use_kernels=True)
+    svc = serving.EstimationService(params, past, 2, device="cpu",
                                     structured=True)
     assert not svc.use_kernels
     svc.close(timeout=TIMEOUT)

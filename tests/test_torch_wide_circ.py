@@ -65,7 +65,8 @@ def test_rule_is_a_superset_of_the_jax_pallas_set():
     to 1024 in steps of 8 for which JAX runs a Pallas circulant kernel is
     admitted; past D = 128 the wide form takes it. The new edge is D = 672
     (the first 64-chunk edge of 2D at or past JAX's largest D, 652 at K =
-    1), and K10's rule did not move."""
+    1); K10's template keeps D, K <= 128 and its wide form takes D past
+    it, to the same edge."""
     admitted, wide = 0, set()
     for k, d, t in itertools.product((1, 2, 16, 64, 256, 1024),
                                      range(16, 1025, 8), (1, 2, 4, 16)):
@@ -84,10 +85,15 @@ def test_rule_is_a_superset_of_the_jax_pallas_set():
     assert not ck.circ_kernel_eligible(200, 8, 65)
     assert ck.circ_tile_rows(673) == ck.circ_tile_rows(200) == 64
     assert ck.CIRC_MAX_D == mk.CIRC_MAX_D == 128
-    # K10's rule stays at D, K <= 128
-    assert mk.mp_circ_kernel_eligible(128, 128, 1)
-    assert not mk.mp_circ_kernel_eligible(129, 8, 1)
-    assert not mk.mp_circ_kernel_eligible(64, 129, 2)
+    # K10's template stays at D, K <= 128; past it K10's wide form, to the
+    # same D = 672
+    assert mk.mp_circ_narrow(128, 128, 1)
+    assert not mk.mp_circ_narrow(129, 8, 1) and mk.mp_circ_kernel_eligible(
+        129, 8, 1)
+    assert not mk.mp_circ_narrow(64, 129, 2) and mk.mp_circ_kernel_eligible(
+        64, 129, 2)
+    assert mk.WIDE_MAX_D == ck.CIRC_WIDE_MAX_D
+    assert not mk.mp_circ_kernel_eligible(673, 8, 1)
 
 
 def test_launch_rows_keep_whole_blocks_within_the_scratch():
