@@ -224,7 +224,23 @@ Phases (any failure exits non-zero; nothing is caught):
      dB), the structured service on a two-pilot D = 256 prior against the
      one-shot estimates, 20 NaN-poisoned repeats a shape, and the times at
      D = 256, K = 32, P = 2, 65536 rows beside the bound, the plain
-     version and the `torch.fft` pipeline; then the service over
+     version and the `torch.fft` pipeline; then the factored kernels on
+     wide banks (phase 3n, `wide_fact_phase`): the wide form of K11-K13
+     (past the template's D <= 128, M <= 64) at eleven (D, K, M, T,
+     alpha) cases from D = 129 to 5551, M to 2475, the JAX rule's reach
+     edges among them, T in {1, 4, 16}, dead components, against its
+     plain version `fact_wide_reference` within TOL (or the float64 rule
+     of `compare64` at ceiling TOL), each case's entry the same bits, K13
+     on two shards merged against K11, the float64 rule (`fp32_accuracy`)
+     at the widest D and M, `tools.mfa_bank_bench` (its d64 and d512
+     legs), `run_mfa` at D = 256, K = 32, M = 16 flat and at T = 4 (the
+     wide K11 / K12 once an SNR; genie < MFA < LS at -10 and -5 dB; the
+     factored estimate within TOL of the dense bank's), the factored
+     service on a D = 256 prior against the one-shot estimates, the wide
+     K13 over an in-process 1 x 2 mesh against the wide K11, 20
+     NaN-poisoned repeats a shape, and the times at D = 256, K = 32, M =
+     16, 32768 rows beside the bound, the plain version and the
+     `torch.matmul` pipeline; then the service over
      in-process meshes (`parallel.mesh.make_local_mesh`) of 1 x 2 and 2 x 2
      shards in eight modes each (dense, structured at K = 64 and the K =
      256 spectra-native prior, factored; flat and T=4 blocks; 1 s each),
@@ -3123,6 +3139,430 @@ def wide_mp_circ_phase(dev, card, kernels, errs, add):
     return rec
 
 
+# phase 3n: the factored kernels K11-K13 on wide banks. Cases (D, K, M, T,
+# alpha, dead components), each past the template's rule (D <= 128, M <=
+# 64): D one and more past 128, M past 64, and the JAX rule's reach (K 39
+# at D = 256, M = 16; K 10 at M = 64; K 19 at D = 512; K 2 at D = 2048, M
+# = 32; K = 1 at D = 5551, M = 16 and at D = 64, M = 2475)
+WIDE_FACT_CASES = (
+    (129, 4, 4, 1, 1.0, 1),
+    (144, 8, 8, 4, 0.25, 1),
+    (144, 8, 8, 16, 1.0, 2),
+    (128, 4, 96, 1, 1.0, 1),
+    (96, 2, 72, 4, 1.0, 0),
+    (256, 39, 16, 1, 1.0, 3),
+    (256, 10, 64, 16, 0.25, 2),
+    (512, 19, 16, 4, 1.0, 2),
+    (2048, 2, 32, 1, 1.0, 0),
+    (5551, 1, 16, 1, 1.0, 0),
+    (64, 1, 2475, 1, 1.0, 0),
+)
+WIDE_FACT_N = 4097     # rows a case: whole T-row blocks below it
+WIDE_FACT_F64 = ((2048, 32), (5551, 16), (64, 2475))  # (D, M) under the
+#                                                      float64 rule
+# the slice's path at full width: the JAX docstring's D = 256, K = 32, M =
+# 16 (`models/mfa_bank.py:272-276`), with `tools/scale_bench_mfa.py`'s 60k
+# / 2k rows; max_iter cut from run_mfa's 100 to that tool's 30
+WIDE_FACT_DKM, WIDE_FACT_BATCH = (256, 32, 16), 32768
+WIDE_FACT_FIT = dict(n_antennas=256, n_components=32, latent_dim=16,
+                     n_train=60_000, n_val=2_000, max_iter=30)
+WIDE_FACT_NAMES = {"K11": "fact_estimate_wide",
+                   "K12": "fact_estimate_coherent_wide",
+                   "K13": "fact_estimate_stats_wide"}
+
+
+def wide_fact_phase(dev, card, kernels, errs, add):
+    """Phase 3n, the factored kernels K11-K13 on wide banks: their wide
+    form (`csrc/fact_wide_estimate.cu`, past the template's D <= 128, M <=
+    64).
+
+    1. At each of WIDE_FACT_CASES (seeded MFA priors, their factored banks
+       at 10 dB, 2 bits, under x0 = 1, quantized observations of channels
+       drawn from the mixture, 4097 rows or the whole blocks below): the
+       wide K11 (T = 1) or K12 against its plain version
+       `fact_wide_reference` within TOL of the scale, or where the two part
+       by more, both against the function in float64 on the same layout
+       (`compare64` at ceiling TOL; every reading kept under
+       "against_float64"); the entry the same bits as the wrapper; at an
+       even K the wide K13 on two component shards, each state (m, den,
+       acc) held likewise, and the shards merged (`merge_stats`) against
+       the wide K11; at (D, M) of WIDE_FACT_F64 the float64 rule
+       (`fp32_accuracy`, against the float32 plain version).
+    2. `tools.mfa_bank_bench`, the JAX tool's d64 and d512 legs at its
+       sizes: the kernel route (the template at d64, the wide form at d512)
+       against the pipeline and the dense bank, every route's rate.
+    3. The main paths, each with the launch counts set to 0 just before it
+       and read just after: `run_mfa` at D = 256, K = 32, M = 16
+       (`WIDE_FACT_FIT`, 7 SNRs) flat and at T = 4 (the wide K11, and the
+       wide K12 for the coherent column, launched once an SNR and no other
+       kernel); on its fit and validation channels genie < MFA < LS at -10
+       and -5 dB, and the factored estimate within TOL of the scale of the
+       dense bank's (`mfa_to_gmm`, K1's wide form) at -10 and 10 dB; the
+       factored service on a D = 256, K = 32, M = 16 prior (8 clients x 64
+       snapshots, 1 s, flat and T = 4 blocks), every answer within TOL of
+       the scale of the one-shot estimate of the same request; and
+       `parallel.mesh.estimate_sharded_factored` over an in-process 1 x 2
+       mesh (the wide K13 a shard, merged) against the wide K11.
+    4. The wide K11-K13 launched 20 times at each shape of
+       `tools.tc_repeat_check.WIDE_FACT_SHAPES` on NaN-filled outputs, bit
+       for bit the first launch.
+    5. CUDA-event times at D = 256, K = 32, M = 16, 32768 rows (K11, K12 at
+       T = 4, K13), each beside its plain version, the bound
+       (`fact_kernels.fact_bound`) and the library yardstick (the
+       `torch.matmul` pipeline over the batch as one chunk, and chunked);
+       then at the d64 leg's shape (D = 64, K = 64, M = 16, 131072 rows),
+       where the entries take the template, the template's K11 against the
+       wide K11 on the same rows: within TOL of the scale of each other,
+       and both times.
+    Returns the phase's record; its timing records are the kernels line's
+    entries of the three wide wrappers."""
+    from quantized_channel_estimation_torch import serving
+    from quantized_channel_estimation_torch.estimators import (
+        circ_kernels as ck, fact_kernels as fk)
+    from quantized_channel_estimation_torch.harness import run_mfa, stages
+    from quantized_channel_estimation_torch.models import mfa, mfa_bank
+    from quantized_channel_estimation_torch.ops import observation, pilots
+    from quantized_channel_estimation_torch.ops import quantizer as Q
+    from quantized_channel_estimation_torch.parallel import mesh as pmesh
+    from quantized_channel_estimation_torch.tools import (
+        mfa_bank_bench, tc_repeat_check as trc)
+    from quantized_channel_estimation_torch.utils import io as qio
+    from quantized_channel_estimation_torch.utils import profiling
+    t_phase = time.time()
+    rec = {"cases": {}, "fp32_accuracy": {}, "against_float64": {}}
+    q = Q.design_quantizer(SNR, N_BITS, device=dev)
+
+    def held(name, label, got, want, want64):
+        return compare64(name, label, got, want, want64, ceiling=TOL,
+                         record=rec["against_float64"])
+
+    def f64(fkb):
+        return fk.FactKernelBank(*(x.double() for x in fkb))
+
+    def kernel(fkb, x2, t, alpha, ops=None):
+        return (fk.fact_estimate_coherent_wide(x2, fkb, t, alpha, ops)
+                if t > 1 else fk.fact_estimate_wide(x2, fkb, ops))
+
+    def quotient(states):
+        _, den, acc = ck.merge_stats(*zip(*states))
+        return acc / den[:, None]
+
+    # 1. every case against its plain version
+    for d, k, m, t, alpha, n_dead in WIDE_FACT_CASES:
+        label = f"D={d}, K={k}, M={m}, T={t}, alpha={alpha}, dead={n_dead}"
+        if fk.fact_narrow(d, k, m, t):
+            raise AssertionError(f"phase 3n case {label} is the template's")
+        name = WIDE_FACT_NAMES["K12" if t > 1 else "K11"]
+        n = WIDE_FACT_N // t * t
+        bank, r = mfa_bank_obs(dev, q, n, d=d, k=k, m=m, n_dead=n_dead)
+        x2 = ck._x2(r)
+        fkb = fk.fact_kernel_bank(bank, t, alpha)
+        got = kernel(fkb, x2, t, alpha)
+        want = fk.fact_wide_reference(x2, fkb, t, alpha)
+        want64 = fk._fact_reference(x2.double(), f64(fkb), t, alpha, False,
+                                    8192)
+        errs[name].append(held(name, label, got, want, want64))
+        entry = (fk.estimate_fused_factored_coherent(
+            bank, r.reshape(-1, t, d), alpha) if t > 1
+            else fk.estimate_fused_factored(bank, r))
+        if not torch.equal(ck._x2(entry.reshape(n, d)), got):
+            raise AssertionError(f"{name} at {label}: the entry's bits "
+                                 "differ from the wrapper's")
+        case = {"max_rel_err": errs[name][-1] / float(want.abs().max())}
+        if (d, m) in WIDE_FACT_F64:
+            acc, rule = fp32_accuracy(name, label, got, fk._fact_reference(
+                x2, fkb, t, alpha, False, 8192), want64)
+            rec["fp32_accuracy"][f"{name} {label}"] = case["fp32"] = acc
+            if not rule:
+                raise AssertionError(f"{name} at {label}: the float64 rule "
+                                     "does not hold")
+        if k % 2 == 0:       # K13 on two component shards
+            s_name = WIDE_FACT_NAMES["K13"]
+            flat = fk.fact_kernel_bank(bank)
+            states, want_states, exact_states = [], [], []
+            for j in range(2):
+                shard = fk.FactKernelBank(*(x[j * k // 2:(j + 1) * k // 2]
+                                            for x in flat))
+                st = fk.fact_estimate_stats_wide(x2, shard)
+                w_st = fk.fact_wide_reference(x2, shard, stats=True)
+                e_st = fk._fact_reference(x2.double(), f64(shard), 1, 1.0,
+                                          True, 8192)
+                for part, g, w, w64 in zip(("m", "den", "acc"), st, w_st,
+                                           e_st):
+                    errs[s_name].append(held(
+                        s_name, f"{label}, shard {j} {part}",
+                        g.reshape(n, -1), w.reshape(n, -1),
+                        w64.reshape(n, -1)))
+                states.append(st)
+                want_states.append(w_st)
+                exact_states.append(e_st)
+            whole = fk.fact_estimate_wide(x2, flat)
+            held(s_name, f"{label}, 2 shards merged against the wide K11",
+                 quotient(states), whole, quotient(exact_states))
+        rec["cases"][label] = case
+        del bank, r, x2, fkb, got, want, want64, entry
+
+    # 2. the JAX tool's d64 and d512 legs at its sizes
+    tool = mfa_bank_bench.main([], device=dev)
+    for leg, want_name in (("d64", "fact_estimate"),
+                           ("d512", "fact_estimate_wide")):
+        got_leg = tool["legs"][leg]
+        if "dense" not in got_leg["nmse"] or "dense_error" in got_leg:
+            raise AssertionError(f"mfa_bank_bench {leg}: no dense bank "
+                                 f"({got_leg.get('dense_error')})")
+        launched = got_leg["routes"]["factored kernel"]["launches"]
+        if set(launched) != {want_name}:
+            raise AssertionError(f"mfa_bank_bench {leg} launched {launched}")
+        deltas = got_leg["nmse_rel_delta"]
+        if not (math.isfinite(got_leg["kernel_vs_pipeline"]["max_rel"])
+                and max(deltas.values()) <= 1e-3):
+            raise AssertionError(f"mfa_bank_bench {leg}: NMSE deltas "
+                                 f"{deltas}, kernel against the pipeline "
+                                 f"{got_leg['kernel_vs_pipeline']}")
+    rec["mfa_bank_bench"] = tool
+
+    # 3. the main paths
+    rec["paths"] = {}
+    d, k, m = WIDE_FACT_DKM
+    a_f = pilots.pilot_matrix(d, 1, N_BITS, device=dev)
+    for label, change, want_kernels in (
+            ("run_mfa D=256, K=32, M=16", {}, {"fact_estimate_wide"}),
+            ("run_mfa D=256, K=32, M=16, T=4",
+             dict(n_coherence=4, coherence_alpha=1.0),
+             {"fact_estimate_wide", "fact_estimate_coherent_wide"})):
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg, mse, _, timings, seconds, launches, fit = mfa_path_run(
+                run_mfa, stages, kernels, dev, tmp, **WIDE_FACT_FIT,
+                **change)
+            data_file, = os.listdir(os.path.join(tmp, "saves"))
+            h_all, t_all = qio.load_channels(os.path.join(tmp, "saves",
+                                                          data_file))
+        launches = {k2: v for k2, v in launches.items() if v}
+        add(launches)
+        if set(launches) != want_kernels or any(
+                v != len(cfg.snrs) for v in launches.values()):
+            raise AssertionError(f"{label} launched {launches}")
+        path = {"mse": mse, "launches": launches, "seconds": seconds,
+                "fit_s": timings["fit"]}
+        if not change:
+            # genie < MFA < LS, and the factored bank against the dense
+            # bank, on the run's fit and validation channels
+            h_tr = torch.as_tensor(h_all[:cfg.n_train], device=dev)
+            h_val = torch.as_tensor(h_all[cfg.n_train:], device=dev)
+            t_val = torch.as_tensor(t_all[cfg.n_train:], device=dev)
+            cov = stages.sample_cov(h_tr)
+            dense_params = mfa.to_gmm_params(fit, 1e-6)
+            path["invariants"], path["rel_to_dense_bank"] = {}, {}
+            for snr in (-10.0, -5.0, 10.0):
+                q_snr = Q.design_quantizer(snr, N_BITS, device=dev)
+                r_val = observation.observe(
+                    torch.Generator(dev).manual_seed(3), h_val, snr, a_f,
+                    N_BITS, q_snr)
+                via_fact = stages.estimate_factored(
+                    stages.prepare_bank_factored(fit, snr, a_f, N_BITS,
+                                                 q_snr), r_val)
+                if snr < 0:
+                    nm = {"genie": stages.chunked_genie_nmse(
+                              r_val, t_val, h_val, snr, a_f, N_BITS, q_snr),
+                          "mfa": stages.nmse(via_fact, h_val),
+                          "ls": stages.nmse(stages.ls_global(
+                              r_val, cov, snr, a_f, N_BITS, q_snr), h_val)}
+                    path["invariants"][str(snr)] = nm
+                    if not nm["genie"] < nm["mfa"] < nm["ls"]:
+                        raise AssertionError(f"{label}: genie < MFA < LS "
+                                             f"broken at {snr} dB: {nm}")
+                if snr in (-10.0, 10.0):
+                    via_dense = stages.estimate_auto(stages.prepare_bank(
+                        dense_params, snr, a_f, N_BITS, q_snr), r_val, "all")
+                    torch.cuda.synchronize()
+                    rel = float((via_fact - via_dense).abs().max()
+                                / via_dense.abs().max())
+                    path["rel_to_dense_bank"][str(snr)] = rel
+                    log(f"{label}: factored bank (wide K11) vs dense bank "
+                        f"of the same fit at {snr} dB, N={r_val.shape[0]}: "
+                        f"max rel {rel:.3e} (tol {TOL})")
+                    if not rel <= TOL:
+                        raise AssertionError(f"{label}: factored bank off "
+                                             f"the dense bank at {snr} dB: "
+                                             f"{rel:.3e}")
+            log(f"{label}: genie < MFA < LS {path['invariants']}")
+            del h_tr, h_val, t_val, cov, dense_params
+        log(f"{label}: blmmse_mfa {['%.4f' % v for v in mse['blmmse_mfa']]}"
+            + (f", blmmse_mfa_coh "
+               f"{['%.4f' % v for v in mse['blmmse_mfa_coh']]}"
+               if change else "")
+            + f"; fit {timings['fit']:.1f}s of {seconds:.1f}s")
+        rec["paths"][label] = path
+        del h_all, t_all, fit
+
+    # the factored service on a D = 256, K = 32, M = 16 prior, each answer
+    # held against the one-shot estimate of the same request
+    prior = mfa_prior(dev, d, k, m, n_dead=1)
+    x0 = torch.tensor(1.0 + 0.0j)
+    banks = {snr: mfa_bank.prepare_bank_factored(
+        prior, snr, x0, N_BITS, Q.design_quantizer(snr, N_BITS, device=dev))
+        for snr in (*SERVE_SNRS, SNR)}
+
+    def one_shot(rt, snr=SNR):
+        if rt.dim() == 3:
+            return stages.estimate_factored_coherent(banks[snr], rt)
+        return stages.estimate_factored(banks[snr], rt)
+
+    class OneShot:
+        """The one-shot estimate of a request, as a service answers it."""
+
+        @staticmethod
+        def submit(r_np, snr, timeout=None):
+            return one_shot(torch.as_tensor(r_np, device=dev),
+                            snr).cpu().numpy()
+
+    svc = serving.EstimationService.from_mfa(
+        prior, np.eye(d, dtype=np.complex64), N_BITS,
+        max_batch=SERVE_MAX_BATCH, device=dev, use_kernels=True)
+    try:
+        if not svc.factored:
+            raise AssertionError("from_mfa did not take the factored bank")
+        rec["service"] = []
+        for label, t_coh in (("factored D=256 flat all", 1),
+                             ("factored D=256 T=4 blocks, alpha=1", 4)):
+            name = WIDE_FACT_NAMES["K12" if t_coh > 1 else "K11"]
+            rec["service"].append(serve_mode(
+                svc, kernels, dev, label, t_coh, name, one_shot,
+                seconds=1.0, same_as=OneShot, d=d))
+            add(rec["service"][-1]["launches"])
+            used = {k2 for k2, v in rec["service"][-1]["launches"].items()
+                    if v}
+            if used != {name}:
+                raise AssertionError(f"{label} launched {used}")
+    finally:
+        svc.close(timeout=120.0)
+
+    # the sharded estimator over a 1 x 2 in-process mesh: the wide K13 a
+    # shard, merged, against the wide K11
+    bank, r = mfa_bank_obs(dev, q, 8192, d=d, k=k, m=m, n_dead=1)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tm = time.time()
+    got = pmesh.estimate_sharded_factored(pmesh.make_local_mesh(1, 2), bank,
+                                          r)
+    torch.cuda.synchronize()
+    seconds = time.time() - tm
+    launches = {k2: v for k2, v in kernels.launch_counts().items() if v}
+    add(launches)
+    if launches != {"fact_estimate_stats_wide": 2}:
+        raise AssertionError(f"estimate_sharded_factored launched "
+                             f"{launches}")
+    fkb = fk.fact_kernel_bank(bank)
+    rel = held("fact_estimate_stats_wide", "1 x 2 mesh against the wide K11",
+               ck._x2(got), fk.fact_estimate_wide(ck._x2(r), fkb),
+               fk._fact_reference(ck._x2(r).double(), f64(fkb), 1, 1.0,
+                                  False, 8192)) / float(got.abs().max())
+    rec["paths"]["estimate_sharded_factored, 1 x 2 mesh"] = {
+        "rel_to_k11": rel, "launches": launches, "seconds": seconds}
+    log(f"estimate_sharded_factored, 1 x 2 mesh: {seconds:.2f}s, launches "
+        f"{launches}")
+    del banks, prior, bank, r, got
+    f64_rec = rec["against_float64"].values()
+    ruled = [v for v in f64_rec if v["float64_rule"]]
+    log(f"wide K11-K13 comparisons: {len(f64_rec)}, {len(ruled)} decided by "
+        f"the float64 rule (plain version past {TOL}: largest "
+        f"{max((v['rel_to_plain'] for v in ruled), default=0.0):.3e} of "
+        f"scale); the kernels' largest distance from float64 "
+        f"{max(v['kernel_to_f64'] for v in f64_rec):.3e} of scale, the "
+        f"plain version's {max(v['plain_to_f64'] for v in f64_rec):.3e}")
+
+    # 4. repeated launches
+    tm = time.time()
+    rep = trc.repeat_check(dev, repeats=20, modes=("wide_fact",))["kernel"]
+    bad = {k2: v for k2, v in rep.items() if v["failures"]}
+    log(f"wide K11-K13 repeated: {sum(v['launches'] for v in rep.values())} "
+        f"launches in {time.time() - tm:.1f}s, max err "
+        f"{max(v['max_err'] for v in rep.values()):.3e}, failures "
+        f"{bad or 0}")
+    if bad:
+        raise AssertionError(f"the wide K11-K13 off on repeated launches: "
+                             f"{bad}")
+    rec["repeat_check"] = rep
+
+    # 5. times at D = 256, K = 32, M = 16, 32768 rows
+    n = WIDE_FACT_BATCH
+    bank, r = mfa_bank_obs(dev, q, n, d=d, k=k, m=m, n_dead=2)
+    rb = r.reshape(-1, 4, d)
+    x2 = ck._x2(r)
+    fkb, fkb4 = fk.fact_kernel_bank(bank), fk.fact_kernel_bank(bank, 4, 1.0)
+    ops = fk.fact_wide_operands(fkb)      # laid out once
+    times = {}
+    for name, t, stats, kern, library, chunked in (
+            ("fact_estimate_wide", 1, False,
+             lambda: fk.fact_estimate_wide(x2, fkb, ops),
+             lambda: mfa_bank.estimate_factored(bank, r, "all", n),
+             lambda: mfa_bank.estimate_factored(bank, r)),
+            ("fact_estimate_coherent_wide", 4, False,
+             lambda: fk.fact_estimate_coherent_wide(x2, fkb4, 4, 1.0, ops),
+             lambda: mfa_bank.estimate_factored_coherent(bank, rb, "all",
+                                                         n // 4, 1.0),
+             lambda: mfa_bank.estimate_factored_coherent(bank, rb)),
+            ("fact_estimate_stats_wide", 1, True,
+             lambda: fk.fact_estimate_stats_wide(x2, fkb, ops),
+             lambda: mfa_bank.estimate_factored_stats(bank, r, n),
+             lambda: mfa_bank.estimate_factored_stats(bank, r))):
+        c = fkb4 if t > 1 else fkb
+        plain_fn = (lambda c=c, t=t, stats=stats:
+                    fk.fact_wide_reference(x2, c, t, 1.0, stats))
+        plain_ms = profiling.device_ms(plain_fn, reps=1)
+        ms = profiling.device_ms(kern)
+        ms2 = profiling.device_ms(kern)
+        plain_ms2 = profiling.device_ms(plain_fn, reps=1)
+        library_ms = profiling.device_ms(library)
+        chunked_ms = profiling.device_ms(chunked)
+        b = fk.fact_bound(n, d, k, m, t, stats)
+        times[name] = {"ms": ms, "ms_again": ms2, "plain_ms": plain_ms,
+                       "plain_ms_again": plain_ms2, **b,
+                       "library_ms": library_ms,
+                       "library_chunked_ms": chunked_ms,
+                       "share_of_bound": b["bound_ms"] / ms}
+        log(f"{name} at N={n}, D={d}, K={k}, M={m}"
+            + (", T=4" if t > 1 else "")
+            + f": kernel {ms:.3f} / {ms2:.3f} ms, plain {plain_ms:.3f} / "
+            f"{plain_ms2:.3f} ms, library (torch.matmul pipeline, one chunk) "
+            f"{library_ms:.3f} ms (default chunks {chunked_ms:.3f}), bound "
+            f"{b['bound_ms']:.3f} ms ({b['bound_by']}; "
+            f"{b['bound_ms'] / ms:.1%} reached), {n / (ms * 1e-3):.4g} "
+            f"estimates/s; {card}")
+    rec["times"] = times
+
+    # the template against the wide form at the d64 leg's shape, where
+    # the entries take the template
+    n, (d, k, m) = 131072, (64, 64, 16)
+    bank, r = mfa_bank_obs(dev, q, n, d=d, k=k, m=m)
+    x2, fkb = ck._x2(r), fk.fact_kernel_bank(bank)
+    ops_t, ops_w = fk.fact_tc_operands(fkb), fk.fact_wide_operands(fkb)
+    narrow = fk.fact_estimate(x2, fkb, ops_t)
+    wide = fk.fact_estimate_wide(x2, fkb, ops_w)
+    gap = float((wide - narrow).abs().max() / narrow.abs().max())
+    if not gap <= TOL:
+        raise AssertionError(f"at D={d}, K={k}, M={m} the wide K11 parts "
+                             f"from the template by {gap:.3e} of scale")
+    ms_t = profiling.device_ms(lambda: fk.fact_estimate(x2, fkb, ops_t))
+    ms_w = profiling.device_ms(lambda: fk.fact_estimate_wide(x2, fkb, ops_w))
+    ms_w2 = profiling.device_ms(lambda: fk.fact_estimate_wide(x2, fkb,
+                                                              ops_w))
+    ms_t2 = profiling.device_ms(lambda: fk.fact_estimate(x2, fkb, ops_t))
+    b = fk.fact_bound(n, d, k, m)
+    rec["template_against_wide"] = {
+        "n": n, "d": d, "k": k, "m": m, "template_ms": [ms_t, ms_t2],
+        "wide_ms": [ms_w, ms_w2], "wide_rel_to_template": gap, **b}
+    log(f"at the d64 leg's shape (N={n}, D={d}, K={k}, M={m}): template "
+        f"K11 {ms_t:.3f} / {ms_t2:.3f} ms ({b['bound_ms'] / ms_t:.1%} of "
+        f"bound), wide K11 {ms_w:.3f} / {ms_w2:.3f} ms "
+        f"({b['bound_ms'] / ms_w:.1%}), bound {b['bound_ms']:.3f} ms; the "
+        f"two {gap:.3e} of scale apart; {card}")
+    del bank, r, x2, fkb, ops_t, ops_w, narrow, wide
+    rec["seconds"] = time.time() - t_phase
+    log(f"wide factored phase 3n: {rec['seconds']:.1f}s")
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3201,6 +3641,17 @@ def main():
             or not all("spills 0/0 B" in row for row in circ_wide_rows)):
         raise AssertionError(f"the wide K6-K10 spill or are missing: "
                              f"{circ_wide_rows}")
+    # the wide form of K11-K13 (two product kernels, three row splits, two
+    # softmax kernels, the quadratic terms and the fold): no instantiation
+    # may spill
+    fact_wide_rows = ptxas_summary(build_logs.get("fact_wide_estimate", ""))
+    log("ptxas fact_wide_estimate: " + ("; ".join(fact_wide_rows)
+                                        if fact_wide_rows else "not rebuilt"))
+    if "fact_wide_estimate" in build_logs and (
+            len(fact_wide_rows) != 9
+            or not all("spills 0/0 B" in row for row in fact_wide_rows)):
+        raise AssertionError(f"the wide K11-K13 spill or are missing: "
+                             f"{fact_wide_rows}")
     # the wide form of K1-K3: no instantiation may spill
     wide_rows = ptxas_summary(build_logs.get("grouped_wide_estimate", ""))
     if "grouped_wide_estimate" in build_logs and (
@@ -4780,6 +5231,10 @@ def main():
     # `wide_mp_circ_phase` above
     mp_wide_rec = wide_mp_circ_phase(dev, card, kernels, errs, add)
 
+    # 3n. the factored kernels on wide banks: the wide K11-K13,
+    # `wide_fact_phase` above
+    fact_wide_rec = wide_fact_phase(dev, card, kernels, errs, add)
+
     # 3d. the service over in-process meshes of 1 x 2 and 2 x 2 shards: the
     # dense, structured (K = 64, and the K = 256 spectra-native prior in two
     # component shards of 128, which K8 / K9 take whole) and factored banks
@@ -5711,6 +6166,17 @@ def main():
              "headline": fact_acc["headline"]["K13"],
              "fitted_bank": {k: v["K13"]
                              for k, v in fact_acc["fitted_bank"].items()}}},
+        *({"name": name, "id": kid, "route": "cuda",
+           "source": src + "fact_wide_estimate.cu",
+           "replaces": f"{tpu}:{line}", "launches": total_launches[name],
+           "max_abs_err": max(errs[name]), "d": WIDE_FACT_DKM[0],
+           "n_components": WIDE_FACT_DKM[1], "latent_dim": WIDE_FACT_DKM[2],
+           **({"t_coh": 4, "coh_alpha": 1.0} if coh else {}),
+           **fact_wide_rec["times"][name]}
+          for name, kid, line, coh in (
+              ("fact_estimate_wide", "K11_wide", 2048, False),
+              ("fact_estimate_coherent_wide", "K12_wide", 2126, True),
+              ("fact_estimate_stats_wide", "K13_wide", 2231, False))),
         {"name": "karatsuba_estimate", "id": "K14a", "route": "cuda",
          "source": src + "karatsuba_estimate.cu", "replaces": f"{tpu}:105",
          "launches": total_launches["karatsuba_estimate"],
@@ -5777,6 +6243,8 @@ def main():
                       if k != "times"},
         "wide_mp_circ": {k: v for k, v in mp_wide_rec.items()
                          if k != "times"},
+        "wide_fact": {k: v for k, v in fact_wide_rec.items()
+                      if k != "times"},
         "new_phases_seconds": {"toeplitz": toep_s,
                                "mesh_service": mesh_serve_s,
                                "csi_free": quant_s,
@@ -5786,7 +6254,8 @@ def main():
                                "wide_dense": wide_rec["seconds"],
                                "wide_topk": topk_rec["seconds"],
                                "wide_circ": circ_wide_rec["seconds"],
-                               "wide_mp_circ": mp_wide_rec["seconds"]},
+                               "wide_mp_circ": mp_wide_rec["seconds"],
+                               "wide_fact": fact_wide_rec["seconds"]},
         "kernel_tools": {"seconds": tools_s, "launches": launches_tools,
                          "kernel_bench_ms": bench["ms"],
                          "split_bench": split},

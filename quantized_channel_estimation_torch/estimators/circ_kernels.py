@@ -54,12 +54,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from quantized_channel_estimation_torch.estimators import kernels
+from quantized_channel_estimation_torch.estimators import tc_units as tu
 from quantized_channel_estimation_torch.estimators import (
     mp_circ_kernels as mk)
 from quantized_channel_estimation_torch.estimators.kernels import merge_stats
 from quantized_channel_estimation_torch.estimators.mp_circ_kernels import (
-    CIRC_MAX_D, CIRC_MAX_K, MpCircTcOperands, _chunks, _cplx_interleaved,
-    _hc, _pool, _x2)
+    CIRC_MAX_D, CIRC_MAX_K, _cplx_interleaved, _hc, _pool, _x2)
 from quantized_channel_estimation_torch.models import structured_bank as sb
 from quantized_channel_estimation_torch.models.structured_bank import (
     CirculantBank)
@@ -239,7 +239,7 @@ def circ_mp_bank(ckb: CircKernelBank) -> mk.MpCircKernelBank:
 
 
 def circ_tc_operands(ckb: CircKernelBank,
-                     stats: bool = False) -> MpCircTcOperands:
+                     stats: bool = False) -> tu.UnitOperands:
     """The bank's bf16 units as the template streams them at one pilot
     (`mp_circ_kernels.mp_circ_tc_operands` of `circ_mp_bank`): 15 at D =
     K = 64, the stats forms' without the inverse operand's (11). The same
@@ -279,19 +279,19 @@ def circ_wide_tc_units(ckb: CircKernelBank,
 
 
 def circ_wide_operands(ckb: CircKernelBank,
-                       stats: bool = False) -> MpCircTcOperands:
+                       stats: bool = False) -> tu.UnitOperands:
     """Split the bank's operands into bf16 hi / lo / lo2 and lay them out
     as the wide form's units (`circ_wide_tc_units`, in the 128-byte
     swizzle); the stats forms' without the inverse. The same for every (T,
     alpha) layout of a bank; once per bank (`lowered_tc` keeps them)."""
-    return MpCircTcOperands(*(kernels._sw128(pl).contiguous()
-                              for pl in kernels.split_planes3(
-                                  circ_wide_tc_units(ckb, stats)
-                                  .contiguous())))
+    return tu.UnitOperands(*(kernels._sw128(pl).contiguous()
+                             for pl in kernels.split_planes3(
+                                 circ_wide_tc_units(ckb, stats)
+                                 .contiguous())))
 
 
 def circ_operands(ckb: CircKernelBank,
-                  stats: bool = False) -> MpCircTcOperands:
+                  stats: bool = False) -> tu.UnitOperands:
     """The operands of the form that serves ckb's D: the template's units
     (`circ_tc_operands`) up to D = 128, the wide form's
     (`circ_wide_operands`) past it."""
@@ -315,7 +315,7 @@ def circ_wide_rows(x: torch.Tensor, features: bool = False) -> torch.Tensor:
         return kernels.wide_row_planes(torch.cat([x, (u3 * u3).sum(-1)],
                                                  dim=1))
     kernels._check_cuda("u", x, (n, two_d), x.device)
-    a = torch.empty((3, kernels.wide_row_tiles(n), _chunks(two_d // 2 * 3),
+    a = torch.empty((3, kernels.wide_row_tiles(n), tu.chunks(two_d // 2 * 3),
                      64, 64), dtype=torch.bfloat16, device=x.device)
     if n == 0:
         return a.zero_()
@@ -464,7 +464,7 @@ def _check_bank(x2: torch.Tensor, ckb: CircKernelBank) -> None:
 
 def _launch(wrapper, wide, x2: torch.Tensor, ckb: CircKernelBank,
             t_coh: int, coh_alpha: float, stats: bool,
-            ops: Optional[MpCircTcOperands]):
+            ops: Optional[tu.UnitOperands]):
     """Validate, allocate and launch on x2's device and current stream
     with the bank's operands `ops` (laid out here when None): the template
     at one pilot up to D = 128, counted on `wrapper`, the wide form past
@@ -484,7 +484,7 @@ def _launch(wrapper, wide, x2: torch.Tensor, ckb: CircKernelBank,
     _check_bank(x2, ckb)
     if ops is None:
         ops = circ_tc_operands(ckb, stats)
-    mk.check_units(wrapper.__name__, ops, _units(ckb, stats), x2.device,
+    tu.check_units(wrapper.__name__, ops, _units(ckb, stats), x2.device,
                    "circ_tc_operands" + (" with stats=True" if stats else ""))
     res = mk.launch_tc(wrapper.__name__, x2, ops, ckb.const, d, 1, t_coh,
                        coh_alpha, stats)
@@ -499,7 +499,7 @@ def circ_wide_launch_rows(n: int, d: int, k: int, t_coh: int = 1) -> int:
     blocks, whole pairs of 64-row tiles). A row costs its three bf16 planes
     of the widest product's contraction (3D, or K), u (2D), its K logits
     and its offset."""
-    per_row = (384 * max(_chunks(3 * d), _chunks(k)) + 8 * d + 4 * k + 4)
+    per_row = (384 * max(tu.chunks(3 * d), tu.chunks(k)) + 8 * d + 4 * k + 4)
     step = 128 * t_coh
     rows = max(step, kernels.WIDE_SCRATCH // per_row // step * step)
     return min(n, rows)
@@ -507,7 +507,7 @@ def circ_wide_launch_rows(n: int, d: int, k: int, t_coh: int = 1) -> int:
 
 def _launch_wide(wrapper, x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
                  coh_alpha: float, stats: bool,
-                 ops: Optional[MpCircTcOperands]):
+                 ops: Optional[tu.UnitOperands]):
     """Launch the wide form (csrc/circ_wide_estimate.cu) on x2's device
     and current stream, one launch of `circ_wide_launch` for each row
     chunk (`circ_wide_launch_rows`), and add one to `wrapper`'s count for
@@ -535,12 +535,12 @@ def _launch_wide(wrapper, x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
         return result
     if ops is None:
         ops = circ_wide_operands(ckb, stats)
-    mk.check_units(name, ops, circ_wide_units(d, k, stats), dev,
+    tu.check_units(name, ops, circ_wide_units(d, k, stats), dev,
                    "circ_wide_operands" + (" with stats=True" if stats
                                            else ""))
     rows = circ_wide_launch_rows(n, d, k, t_coh)
     a = torch.empty((3, kernels.wide_row_tiles(rows),
-                     max(_chunks(3 * d), _chunks(k)), 64, 64),
+                     max(tu.chunks(3 * d), tu.chunks(k)), 64, 64),
                     dtype=torch.bfloat16, device=dev)
     u = torch.empty((rows, two_d), dtype=f32, device=dev)
     lg = torch.empty((rows, k), dtype=f32, device=dev)
@@ -565,7 +565,7 @@ def _launch_wide(wrapper, x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
 
 
 def circ_estimate(x2: torch.Tensor, ckb: CircKernelBank,
-                  operands: Optional[MpCircTcOperands] = None
+                  operands: Optional[tu.UnitOperands] = None
                   ) -> torch.Tensor:
     """K6 on x2 (N, 2D) float32 interleaved -> (N, 2D). On a CUDA tensor it
     launches the CUDA kernel on the current stream (past D = 128 its wide
@@ -580,7 +580,7 @@ def circ_estimate(x2: torch.Tensor, ckb: CircKernelBank,
 
 def circ_estimate_coherent(x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
                            coh_alpha: float = 1.0,
-                           operands: Optional[MpCircTcOperands] = None
+                           operands: Optional[tu.UnitOperands] = None
                            ) -> torch.Tensor:
     """K7 on x2 (N, 2D), N / T blocks of T consecutive rows (2 <= T <=
     `circ_tile_rows`), ckb from `circ_kernel_bank(bank, blocks, t_coh,
@@ -596,7 +596,7 @@ def circ_estimate_coherent(x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
 
 
 def circ_estimate_stats(x2: torch.Tensor, ckb: CircKernelBank,
-                        operands: Optional[MpCircTcOperands] = None):
+                        operands: Optional[tu.UnitOperands] = None):
     """K8 on x2 (N, 2D) -> (m (N,), den (N,), acc (N, 2D) in the DFT
     domain), `operands` from `circ_operands(ckb, stats=True)` (laid out
     in the call when None). CUDA kernel on a CUDA tensor (past D = 128
@@ -609,7 +609,7 @@ def circ_estimate_stats(x2: torch.Tensor, ckb: CircKernelBank,
 
 def circ_estimate_coherent_stats(x2: torch.Tensor, ckb: CircKernelBank,
                                  t_coh: int, coh_alpha: float = 1.0,
-                                 operands: Optional[MpCircTcOperands] = None):
+                                 operands: Optional[tu.UnitOperands] = None):
     """K9 on x2 (N, 2D) of T-row blocks -> per-row (m (N,), den (N,)) and
     acc (N, 2D) in the DFT domain, `operands` as for
     `circ_estimate_stats`. CUDA kernel on a CUDA tensor (past D = 128
@@ -626,7 +626,7 @@ def circ_estimate_coherent_stats(x2: torch.Tensor, ckb: CircKernelBank,
 
 
 def circ_estimate_wide(x2: torch.Tensor, ckb: CircKernelBank,
-                       operands: Optional[MpCircTcOperands] = None
+                       operands: Optional[tu.UnitOperands] = None
                        ) -> torch.Tensor:
     """K6's wide form on x2 (N, 2D) -> (N, 2D), `operands` from
     `circ_wide_operands(ckb)` (laid out in the call when None);
@@ -640,7 +640,7 @@ def circ_estimate_wide(x2: torch.Tensor, ckb: CircKernelBank,
 
 def circ_estimate_coherent_wide(x2: torch.Tensor, ckb: CircKernelBank,
                                 t_coh: int, coh_alpha: float = 1.0,
-                                operands: Optional[MpCircTcOperands] = None
+                                operands: Optional[tu.UnitOperands] = None
                                 ) -> torch.Tensor:
     """K7's wide form: `circ_estimate_coherent` (which launches it past D
     = 128) at any D <= 672, 2 <= T <= 64. On a CPU tensor the plain
@@ -655,7 +655,7 @@ def circ_estimate_coherent_wide(x2: torch.Tensor, ckb: CircKernelBank,
 
 
 def circ_estimate_stats_wide(x2: torch.Tensor, ckb: CircKernelBank,
-                             operands: Optional[MpCircTcOperands] = None):
+                             operands: Optional[tu.UnitOperands] = None):
     """K8's wide form: `circ_estimate_stats` (which launches it past D =
     128) at any D <= 672 -> (m (N,), den (N,), acc (N, 2D)), `operands`
     from `circ_wide_operands(ckb, stats=True)`. On a CPU tensor the plain
@@ -669,7 +669,7 @@ def circ_estimate_stats_wide(x2: torch.Tensor, ckb: CircKernelBank,
 def circ_estimate_coherent_stats_wide(
         x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
         coh_alpha: float = 1.0,
-        operands: Optional[MpCircTcOperands] = None):
+        operands: Optional[tu.UnitOperands] = None):
     """K9's wide form: `circ_estimate_coherent_stats` (which launches it
     past D = 128) at any D <= 672, 2 <= T <= 64. On a CPU tensor the plain
     version."""

@@ -28,12 +28,26 @@ Differences of layout from the TPU kernels, none of arithmetic:
   copies);
 - coherence blocks are block-major (the T rows of a block consecutive), as
   in K3, K7 and K10, not the TPU's T-major tiles;
-- the range rule `fact_kernel_eligible` is the CUDA kernel's (D <= 128,
-  M <= 64, any K in one launch, T <= 64 at every width), in place of the
-  TPU's 13 MiB VMEM gates `_fact_kernel_eligible` / `_fact_tile_n` and its
-  T <= 16 cap `_check_t_coh`; beyond it the entries raise and
-  `harness.stages` takes the `torch.matmul` pipeline of
-  `models.mfa_bank`.
+- the range rule `fact_kernel_eligible` is the CUDA kernels' (the
+  template's D <= 128, M <= 64, `fact_narrow`; past it the wide form while
+  the scratch of its least launch fits, `fact_wide_eligible`; any K in one
+  launch, T <= 64 at every width), a superset of the TPU's 13 MiB VMEM
+  gate `_fact_kernel_eligible` (with its T <= 16 cap `_check_t_coh` for
+  the coherent form); beyond it the entries raise and `harness.stages`
+  takes the `torch.matmul` pipeline of `models.mfa_bank`.
+
+Past the template's rule the entries launch the wide form,
+`csrc/fact_wide_estimate.cu` (`fact_wide_launch`, counted apart:
+`fact_estimate_wide`, `fact_estimate_coherent_wide`,
+`fact_estimate_stats_wide`), on the product template of the wide circulant
+kernels: the forward product to [beta | gamma] of every component at once,
+the quadratic terms in float64, the logit product over [x | |x|^2], the
+softmax, the combine product over the weighted [beta | gamma] and the
+fold of bias and a1 o x in float64; the intermediates in global scratch,
+rows cut into launches within `kernels.WIDE_SCRATCH`.
+`fact_wide_operands` lays a `FactKernelBank` out as its units (cached by
+`lowered_tc`), and `fact_wide_reference` is the plain version of its
+arithmetic.
 
 A wrapper launches its kernel on a CUDA tensor (or raises) and takes the
 plain PyTorch version only for a tensor on the CPU.
@@ -45,32 +59,106 @@ from typing import NamedTuple, Optional
 import torch
 
 from quantized_channel_estimation_torch.estimators import kernels
+from quantized_channel_estimation_torch.estimators import tc_units as tu
 from quantized_channel_estimation_torch.estimators.mp_circ_kernels import (
     _cplx_interleaved, _hc, _interleave, _pool, _x2)
 from quantized_channel_estimation_torch.estimators.variant_kernels import (
     tc_products)
 from quantized_channel_estimation_torch.models.mfa_bank import FactoredBank
 from quantized_channel_estimation_torch.ops.precision import pin_fp32
+from quantized_channel_estimation_torch.utils import profiling
 
-FACT_MAX_D = 128   # channel dims of the factored kernels
-FACT_MAX_M = 64    # latent rank of the factored kernels
+FACT_MAX_D = 128   # channel dims of the factored kernels' template
+FACT_MAX_M = 64    # latent rank of the factored kernels' template
+FACT_MAX_T = 64    # rows of a coherence block the kernels pool
 
 
 def fact_tile_rows(d: int, m: int) -> int:
     """Rows of one consumer warpgroup's tile of the factored kernels
-    (csrc/fact_estimate.cu: 64 at every width), the largest coherence block
-    K12 pools: every T the fp32 template took (64 rows while D <= 64 and
-    M <= 32, else 32) and more."""
-    return 64
+    (csrc/fact_estimate.cu and csrc/fact_wide_estimate.cu: 64 at every
+    width), the largest coherence block K12 pools: every T the fp32
+    template took (64 rows while D <= 64 and M <= 32, else 32) and more."""
+    return FACT_MAX_T
+
+
+def fact_narrow(d: int, k: int, m: int, t: int = 1) -> bool:
+    """Does the template (csrc/fact_estimate.cu) take these widths? D <=
+    128, M <= 64, T within a tile's rows; any K (the kernel streams the
+    bank one component at a time)."""
+    return (1 <= d <= FACT_MAX_D and 1 <= m <= FACT_MAX_M and k >= 1
+            and 1 <= t <= fact_tile_rows(d, m))
+
+
+def fact_wide_row_bytes(d: int, k: int, m: int) -> int:
+    """Scratch bytes of one row in the wide form: the three bf16 planes of
+    its widest product's contraction (2D, the 3D features or K 4M), u
+    (K 4M), its K logits and its offset."""
+    widest = max(tu.chunks(2 * d), tu.chunks(3 * d),
+                 tu.chunks(4 * k * m))
+    return 384 * widest + 16 * k * m + 4 * k + 4
+
+
+def fact_wide_eligible(d: int, k: int, m: int, t: int = 1) -> bool:
+    """Does the wide form (csrc/fact_wide_estimate.cu) take these widths?
+    Any D, K, M >= 1 with K 4M < 2^30 whose 128 T rows (the least launch:
+    whole blocks, whole pairs of 64-row tiles) keep their scratch within
+    `kernels.WIDE_SCRATCH` (at K = M = 1 every D <= 29120 at T = 16 and
+    <= 7274 at T = 64; at D = 64, K = 1 every M <= 13104 at T = 16), T <=
+    64."""
+    return (d >= 1 and k >= 1 and m >= 1 and 4 * k * m < 1 << 30
+            and 1 <= t <= FACT_MAX_T
+            and 128 * t * fact_wide_row_bytes(d, k, m)
+            <= kernels.WIDE_SCRATCH)
 
 
 def fact_kernel_eligible(d: int, k: int, m: int, t: int = 1) -> bool:
     """Can the factored kernels serve a bank of K components over D dims
-    at latent rank M, pooling T-snapshot blocks? D <= 128, M <= 64, T
-    within a tile's rows; any K (the kernel streams the bank one component
-    at a time). A rule of the shapes, decided before any launch."""
-    return (1 <= d <= FACT_MAX_D and 1 <= m <= FACT_MAX_M and k >= 1
-            and 1 <= t <= fact_tile_rows(d, m))
+    at latent rank M, pooling T-snapshot blocks? The template where it
+    takes the widths (`fact_narrow`), else the wide form
+    (`fact_wide_eligible`: any K, T <= 64, D and M while 128 T rows fit the
+    scratch). A superset of the JAX package's Pallas rule
+    (`_fact_kernel_eligible`, with T <= 16 for the coherent form): D to
+    10334 at K = M = 1, M to 2475 at D = 64, K to 39 at D = 256, M = 16
+    there. A rule of the shapes, decided before any launch."""
+    return fact_narrow(d, k, m, t) or fact_wide_eligible(d, k, m, t)
+
+
+def _rule(d: int, k: int, m: int, t: int) -> str:
+    """The rule's statement at these widths, for the errors."""
+    return (f"the factored kernels take D <= {FACT_MAX_D}, M <= "
+            f"{FACT_MAX_M} and T <= {FACT_MAX_T}, or in their wide form "
+            f"T <= {FACT_MAX_T}, K 4M < 2^30 and 128 T rows within "
+            f"{kernels.WIDE_SCRATCH} bytes of scratch; got D={d}, M={m}, "
+            f"K={k}, T={t} ({fact_wide_row_bytes(d, k, m)} scratch bytes a "
+            f"row)")
+
+
+def fact_bound(n: int, d: int, k: int, m: int, t_coh: int = 1,
+               stats: bool = False) -> dict:
+    """The least time an H100 could take for K11-K13's function on n rows
+    of a K-component factored bank at D dims and rank M
+    (`profiling.bound_ms`: operations at the card's peaks against bytes at
+    its memory rate):
+
+    - the forward and combine products as the kernels' six bf16 products
+      of 2 n K (2D 4M + 4M 2D) on the tensor cores;
+    - the epilogue, 2 n K (3D + 2M + 6D) fp32 operations (the diagonal and
+      quadratic logit terms, the bias and a1 o x terms), and 3 n K more
+      for the coherent pooling;
+    - the rows read once, the output (and m, den) written once, and the
+      bank's operands (fwd, comb, T mu, lcoef, const, bias, a1) read once.
+
+    Returns {"bound_ms", "bound_by", "fp32_flops", "tc_flops", "bytes"}."""
+    two_d, four_m = 2 * d, 4 * m
+    tc = 6.0 * 2 * n * k * (two_d * four_m + four_m * two_d)
+    epi = 2.0 * n * k * (3 * d + 2 * m + 6 * d) + (
+        3.0 * n * k if t_coh > 1 else 0.0)
+    out = (2 * n if stats else 0) + n * two_d
+    bank = k * (2 * two_d * four_m + 2 * m + 3 * d + 1 + 2 * two_d)
+    nbytes = 4.0 * (n * two_d + out + bank)
+    ms, by = profiling.bound_ms(epi, tc, nbytes)
+    return {"bound_ms": ms, "bound_by": by, "fp32_flops": epi,
+            "tc_flops": tc, "bytes": nbytes}
 
 
 # ---------------------------------------------------------------------------
@@ -241,16 +329,74 @@ def check_fact_tc_operands(kernel: str, ops: FactTcOperands,
                              f"(`fact_tc_operands`), got {got}")
 
 
-def lowered_tc(bank: FactoredBank, cache: Optional[dict] = None
-               ) -> FactTcOperands:
-    """The kernel's operands of the bank (`fact_tc_operands` of its T = 1
-    layout), kept in `cache` ("fact_tc_operands") beside the layouts of
-    `lowered`, so a bank served many times is split and laid out once."""
+def lowered_tc(bank: FactoredBank, cache: Optional[dict] = None):
+    """The kernel's operands of the bank: `fact_tc_operands` of its T = 1
+    layout where the template takes its widths (`fact_narrow`), else the
+    wide form's `fact_wide_operands` (the same for every T <= 64); kept in
+    `cache` ("fact_tc_operands" or "fact_wide_operands") beside the layouts
+    of `lowered`, so a bank served many times is split and laid out once."""
+    k, m, d = bank.t_mat.shape
+    wide = not fact_narrow(d, k, m)
+    key = "fact_wide_operands" if wide else "fact_tc_operands"
+    lay = fact_wide_operands if wide else fact_tc_operands
     if cache is None:
-        return fact_tc_operands(lowered(bank))
-    if "fact_tc_operands" not in cache:
-        cache["fact_tc_operands"] = fact_tc_operands(lowered(bank, cache))
-    return cache["fact_tc_operands"]
+        return lay(lowered(bank))
+    if key not in cache:
+        cache[key] = lay(lowered(bank, cache))
+    return cache[key]
+
+
+# ---------------------------------------------------------------------------
+# the wide form's layout (csrc/fact_wide_estimate.cu)
+# ---------------------------------------------------------------------------
+
+def fact_wide_units(d: int, k: int, m: int) -> int:
+    """Units (64 columns x 64 deep) of the wide form's bank: the forward
+    operand's NQ x NPD, the logit's KP x NF, the combine's NPD x NQ (NPD,
+    NF, NQ, KP the 64-wide pieces of 2D, 3D, K 4M and K; `fact_wide_units`
+    in csrc/fact_wide_estimate.cu)."""
+    return (2 * tu.chunks(2 * d) * tu.chunks(4 * k * m)
+            + tu.chunks(k) * tu.chunks(3 * d))
+
+
+def fact_wide_logit_operand(fkb: FactKernelBank) -> torch.Tensor:
+    """The logit operand (3D, K) against the features [x | |x|^2] (x the
+    row's interleaved [re, im] pairs): rows 2d, 2d + 1 the Re and Im
+    coefficients of bin d, rows 2D + d its |x_d|^2 coefficient (`lcoef`
+    re-ordered)."""
+    k, three_d = fkb.lcoef.shape
+    lc = fkb.lcoef.reshape(k, 3, three_d // 3)
+    return torch.cat([lc[:, :2].transpose(1, 2).reshape(k, -1), lc[:, 2]],
+                     1).T
+
+
+def _wide_products(fkb: FactKernelBank):
+    """The three products' operands of the wide form: fwd (2D, K 4M), the
+    logit operand (3D, K) and comb (K 4M, 2D)."""
+    k, two_d, four_m = fkb.fwd.shape
+    return (fkb.fwd.permute(1, 0, 2).reshape(two_d, k * four_m),
+            fact_wide_logit_operand(fkb), fkb.comb.reshape(k * four_m, two_d))
+
+
+def fact_wide_tc_units(fkb: FactKernelBank) -> torch.Tensor:
+    """The bank's three product operands in float32 as the wide form's
+    units (`fact_wide_units` of them, (units, 64, 64)), each product's
+    pieces one after another, a piece's chunks consecutive, each unit the
+    transpose of its operand's 64 x 64 block: fwd, the logit operand
+    (`fact_wide_logit_operand`), comb."""
+    return torch.cat([tu.piece_major(
+        w, 64 * tu.chunks(w.shape[0]), 64 * tu.chunks(w.shape[1])
+    ).reshape(-1, 64, 64) for w in _wide_products(fkb)])
+
+
+def fact_wide_operands(fkb: FactKernelBank) -> tu.UnitOperands:
+    """Split the bank's product operands into bf16 hi / lo / lo2 and lay
+    them out as the wide form's units (`fact_wide_tc_units`, in the
+    128-byte swizzle). The same for every (T, alpha) layout of a bank;
+    once per bank (`lowered_tc` keeps them)."""
+    return tu.UnitOperands(*(kernels._sw128(pl).contiguous()
+                             for pl in kernels.split_planes3(
+                                 fact_wide_tc_units(fkb).contiguous())))
 
 
 # ---------------------------------------------------------------------------
@@ -350,9 +496,100 @@ def fact_estimate_stats_reference(x2: torch.Tensor, fkb: FactKernelBank,
     return _fact_reference(x2, fkb, 1, 1.0, True, chunk)
 
 
+def fact_wide_reference(x2: torch.Tensor, fkb: FactKernelBank,
+                        t_coh: int = 1, coh_alpha: float = 1.0,
+                        stats: bool = False, chunk: int = 8192):
+    """Plain PyTorch version of the wide K11's arithmetic (K12 at t_coh >
+    1, fkb from `fact_kernel_bank(bank, t_coh, coh_alpha)`; K13 with
+    `stats`), its products walked as the kernel walks its units: the
+    forward product u = x fwd (all components' [beta | gamma]) and the
+    combine [w_k u_k] comb each a compensated sum over 64-deep chunks of
+    the six bf16 products of `tc_units.six` (`tc_units.walked`); the
+    quadratic terms |beta_k - T mu_k|^2 in float64, rounded once; the logit
+    over the features [x | |x|^2] padded to whole 64-deep chunks, each
+    16-deep step's six products added in a compensated sum with const and
+    the quadratic term, whose error is folded in after the row's offset (its
+    largest logit among the first 64 components) is taken off; the pool in
+    float64, the softmax in float32; the fold sum_k w_k bias_k + (sum_k w_k
+    a1_k) o x in float64, rounded once with the combine. x2 (N, 2D)
+    float32 interleaved -> (N, 2D); `stats`: (m (N,), den (N,), h (N, 2D))
+    instead, the un-normalised weights exp(l - max l) and m = fl(o + max
+    l), o the row's offset. For the CPU tests and chip_smoke's checks;
+    nothing on the main path calls it where a card is present."""
+    pin_fp32()
+    k, two_d, four_m = fkb.fwd.shape
+    d, two_m = two_d // 2, four_m // 2
+    fwd, coef, comb = _wide_products(fkb)
+    wf = 64 * tu.chunks(3 * d)
+    coef = torch.nn.functional.pad(coef, (0, 0, 0, wf - 3 * d))
+    if x2.shape[0] % t_coh:
+        raise ValueError(f"{x2.shape[0]} rows are no whole number of "
+                         f"T={t_coh} blocks")
+    chunk = max(t_coh, chunk // t_coh * t_coh)   # whole blocks per chunk
+    tmu, bias, a1 = (v.double() for v in (fkb.tmu, fkb.bias, fkb.a1))
+    ms, dens, outs = [], [], []
+    for i0 in range(0, x2.shape[0], chunk):
+        xc = x2[i0:i0 + chunk]
+        n = xc.shape[0]
+        u = tu.walked(xc, fwd).reshape(n, k, four_m)
+        quad = ((u[..., :two_m].double() - tmu) ** 2).sum(-1).float()
+        x3 = xc.reshape(n, d, 2)
+        z = torch.nn.functional.pad(torch.cat(
+            [xc, x3[..., 0] * x3[..., 0] + x3[..., 1] * x3[..., 1]], 1),
+            (0, wf - 3 * d))
+        lg = lost = torch.zeros(n, k, dtype=xc.dtype, device=xc.device)
+        for c in range(0, wf, 16):
+            lg, lost = tu.kahan(lg, lost, tu.six(z[:, c:c + 16],
+                                                   coef[c:c + 16]))
+        lg, lost = tu.kahan(lg, lost, fkb.const[None])
+        lg, lost = tu.kahan(lg, lost, quad)
+        off = lg[:, :64].max(-1, keepdim=True).values   # the row's offset
+        off = torch.where(off > -1e29, off, torch.zeros_like(off))
+        lg = _pool(((lg - off) - lost).double(), t_coh, coh_alpha).float()
+        if stats:
+            mx = lg.max(-1, keepdim=True).values
+            mx = torch.where(mx > -torch.inf, mx, 0.0)
+            o = _pool(off.double(), t_coh, coh_alpha)
+            w = torch.exp(lg - mx)
+            ms.append((o + mx.double()).float()[:, 0])
+            dens.append(w.sum(-1))
+        else:
+            w = torch.softmax(lg, -1)
+        lin = tu.walked((u * w[..., None]).reshape(n, k * four_m), comb)
+        wd = w.double()
+        wa = (wd @ a1).reshape(n, d, 2)
+        xd = x3.double()
+        ax = torch.stack([wa[..., 0] * xd[..., 0] - wa[..., 1] * xd[..., 1],
+                          wa[..., 0] * xd[..., 1] + wa[..., 1] * xd[..., 0]],
+                         -1).reshape(n, two_d)
+        outs.append(((lin.double() + wd @ bias) + ax).float())
+    out = torch.cat(outs) if outs else x2.new_zeros((0, two_d))
+    if not stats:
+        return out
+    if not ms:
+        return x2.new_zeros((0,)), x2.new_zeros((0,)), out
+    return torch.cat(ms), torch.cat(dens), out
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
+
+def _check_inputs(x2: torch.Tensor, fkb: FactKernelBank) -> None:
+    """Raise unless x2 and the layout's fields are contiguous float32 of
+    matching shapes on x2's device."""
+    n, two_d = x2.shape
+    k, _, four_m = fkb.fwd.shape
+    d, m, dev = two_d // 2, four_m // 4, x2.device
+    kernels._check_cuda("x2", x2, (n, two_d), dev)
+    kernels._check_cuda("fwd", fkb.fwd, (k, two_d, four_m), dev)
+    kernels._check_cuda("comb", fkb.comb, (k, four_m, two_d), dev)
+    kernels._check_cuda("tmu", fkb.tmu, (k, 2 * m), dev)
+    kernels._check_cuda("lcoef", fkb.lcoef, (k, 3 * d), dev)
+    kernels._check_cuda("const", fkb.const, (k,), dev)
+    kernels._check_cuda("bias", fkb.bias, (k, two_d), dev)
+    kernels._check_cuda("a1", fkb.a1, (k, two_d), dev)
+
 
 def _launch(name: str, x2: torch.Tensor, fkb: FactKernelBank, t_coh: int,
             coh_alpha: float, stats: bool, ops: Optional[FactTcOperands]):
@@ -363,21 +600,15 @@ def _launch(name: str, x2: torch.Tensor, fkb: FactKernelBank, t_coh: int,
     k, _, four_m = fkb.fwd.shape
     d, m = two_d // 2, four_m // 4
     if (two_d % 2 or four_m % 4 or n % t_coh
-            or not fact_kernel_eligible(d, k, m, t_coh)):
+            or not fact_narrow(d, k, m, t_coh)):
         raise ValueError(
             f"{name} takes N rows of whole T-row blocks with D <= "
             f"{FACT_MAX_D}, M <= {FACT_MAX_M} and T <= "
             f"{fact_tile_rows(d, m)}; got N={n}, D={d}, M={m}, K={k}, "
-            f"T={t_coh}")
+            f"T={t_coh}" + ("" if n % t_coh else
+                            "; past the template, the wide form"))
     dev = x2.device
-    kernels._check_cuda("x2", x2, (n, two_d), dev)
-    kernels._check_cuda("fwd", fkb.fwd, (k, two_d, four_m), dev)
-    kernels._check_cuda("comb", fkb.comb, (k, four_m, two_d), dev)
-    kernels._check_cuda("tmu", fkb.tmu, (k, 2 * m), dev)
-    kernels._check_cuda("lcoef", fkb.lcoef, (k, 3 * d), dev)
-    kernels._check_cuda("const", fkb.const, (k,), dev)
-    kernels._check_cuda("bias", fkb.bias, (k, two_d), dev)
-    kernels._check_cuda("a1", fkb.a1, (k, two_d), dev)
+    _check_inputs(x2, fkb)
     if ops is None:
         ops = fact_tc_operands(fkb)
     check_fact_tc_operands(name, ops, fkb, dev)
@@ -448,33 +679,149 @@ def fact_estimate_stats(x2: torch.Tensor, fkb: FactKernelBank,
     return res
 
 
+def fact_wide_launch_rows(n: int, d: int, k: int, m: int,
+                          t_coh: int = 1) -> int:
+    """Rows of one launch of the wide form: all n, or as many as keep its
+    scratch within `kernels.WIDE_SCRATCH` (`fact_wide_row_bytes` a row), a
+    multiple of 128 T (whole blocks, whole pairs of 64-row tiles)."""
+    step = 128 * t_coh
+    rows = max(step, kernels.WIDE_SCRATCH // fact_wide_row_bytes(d, k, m)
+               // step * step)
+    return min(n, rows)
+
+
+def _launch_wide(wrapper, x2: torch.Tensor, fkb: FactKernelBank, t_coh: int,
+                 coh_alpha: float, stats: bool,
+                 ops: Optional[tu.UnitOperands]):
+    """Launch the wide form (csrc/fact_wide_estimate.cu) on x2's device and
+    current stream, one launch for each row chunk
+    (`fact_wide_launch_rows`), and add one to `wrapper`'s count for each:
+    -> out (N, 2D), or (m, den, out) for stats; raise on any refusal."""
+    name = wrapper.__name__
+    n, two_d = x2.shape
+    k, _, four_m = fkb.fwd.shape
+    d, m = two_d // 2, four_m // 4
+    if (two_d % 2 or four_m % 4 or n % t_coh
+            or not fact_wide_eligible(d, k, m, t_coh)):
+        raise ValueError(f"{name} takes N rows of whole T-row blocks; "
+                         + _rule(d, k, m, t_coh) + f", N={n}")
+    dev, f32 = x2.device, torch.float32
+    _check_inputs(x2, fkb)
+    out = torch.empty((n, two_d), dtype=f32, device=dev)
+    m_out = den = None
+    if stats:
+        m_out = torch.empty((n,), dtype=f32, device=dev)
+        den = torch.empty((n,), dtype=f32, device=dev)
+    if n:
+        if ops is None:
+            ops = fact_wide_operands(fkb)
+        tu.check_units(name, ops, fact_wide_units(d, k, m), dev,
+                       "fact_wide_operands")
+        rows = fact_wide_launch_rows(n, d, k, m, t_coh)
+        chunks = max(tu.chunks(two_d), tu.chunks(3 * d),
+                     tu.chunks(k * four_m))
+        a = torch.empty((3, kernels.wide_row_tiles(rows) * chunks, 64, 64),
+                        dtype=torch.bfloat16, device=dev)
+        u = torch.empty((rows, k * four_m), dtype=f32, device=dev)
+        lg = torch.empty((rows, k), dtype=f32, device=dev)
+        offs = torch.empty((rows,), dtype=f32, device=dev)
+        lib = kernels._library("fact_wide_estimate")
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for i0 in range(0, n, rows):
+                i1 = min(n, i0 + rows)
+                err = lib.fact_wide_launch(
+                    x2[i0:i1].data_ptr(), ops.hi.data_ptr(),
+                    ops.lo.data_ptr(), ops.lo2.data_ptr(),
+                    fkb.tmu.data_ptr(), fkb.const.data_ptr(),
+                    fkb.bias.data_ptr(), fkb.a1.data_ptr(),
+                    out[i0:i1].data_ptr(),
+                    m_out[i0:i1].data_ptr() if stats else None,
+                    den[i0:i1].data_ptr() if stats else None, a.data_ptr(),
+                    u.data_ptr(), lg.data_ptr(), offs.data_ptr(), i1 - i0, d,
+                    m, k, ops.hi.shape[0], int(t_coh), float(coh_alpha),
+                    int(stats), stream)
+                if err != 0:
+                    raise RuntimeError(f"{name} launch failed: cudaError "
+                                       f"{err}")
+                wrapper.launches += 1
+    return (m_out, den, out) if stats else out
+
+
+def fact_estimate_wide(x2: torch.Tensor, fkb: FactKernelBank,
+                       operands: Optional[tu.UnitOperands] = None
+                       ) -> torch.Tensor:
+    """K11's wide form on x2 (N, 2D) -> (N, 2D), `operands` from
+    `fact_wide_operands(fkb)` (laid out in the call when None); the entries
+    launch it past the template's rule. On a CUDA tensor it launches the
+    CUDA kernels (`fact_wide_eligible`) and raises on any refusal; on a CPU
+    tensor it computes the plain version `fact_wide_reference`."""
+    if not x2.is_cuda:
+        return fact_wide_reference(x2, fkb)
+    return _launch_wide(fact_estimate_wide, x2, fkb, 1, 1.0, False,
+                        operands)
+
+
+def fact_estimate_coherent_wide(x2: torch.Tensor, fkb: FactKernelBank,
+                                t_coh: int, coh_alpha: float = 1.0,
+                                operands: Optional[tu.UnitOperands]
+                                = None) -> torch.Tensor:
+    """K12's wide form on x2 (N, 2D), N / T blocks of T consecutive rows (2
+    <= T <= 64), fkb from `fact_kernel_bank(bank, t_coh, coh_alpha)`,
+    `operands` as for `fact_estimate_wide` (any layout of the bank). CUDA
+    kernels on a CUDA tensor, the plain version `fact_wide_reference` on
+    the CPU."""
+    if t_coh < 2:
+        raise ValueError(f"fact_estimate_coherent_wide takes T >= 2; got "
+                         f"{t_coh}")
+    if not x2.is_cuda:
+        return fact_wide_reference(x2, fkb, t_coh, coh_alpha)
+    return _launch_wide(fact_estimate_coherent_wide, x2, fkb, t_coh,
+                        coh_alpha, False, operands)
+
+
+def fact_estimate_stats_wide(x2: torch.Tensor, fkb: FactKernelBank,
+                             operands: Optional[tu.UnitOperands] = None):
+    """K13's wide form on x2 (N, 2D) -> (m (N,), den (N,), acc (N, 2D)
+    un-normalised), `operands` as for `fact_estimate_wide`. CUDA kernels on
+    a CUDA tensor, the plain version `fact_wide_reference` on the CPU."""
+    if not x2.is_cuda:
+        return fact_wide_reference(x2, fkb, stats=True)
+    return _launch_wide(fact_estimate_stats_wide, x2, fkb, 1, 1.0, True,
+                        operands)
+
+
 kernels.register_wrappers(fact_estimate, fact_estimate_coherent,
-                          fact_estimate_stats)
+                          fact_estimate_stats, fact_estimate_wide,
+                          fact_estimate_coherent_wide,
+                          fact_estimate_stats_wide)
 
 
 # ---------------------------------------------------------------------------
 # entries on complex observations and factored banks
 # ---------------------------------------------------------------------------
 
-def _check_eligible(bank: FactoredBank, t: int) -> None:
+def _check_eligible(bank: FactoredBank, t: int) -> bool:
+    """Raise unless the factored kernels take the bank at T; return whether
+    the wide form does (`fact_narrow` decides, from the shapes alone)."""
     k, m, d = bank.t_mat.shape
     if not fact_kernel_eligible(d, k, m, t):
-        raise ValueError(
-            f"the factored kernels take D <= {FACT_MAX_D}, M <= {FACT_MAX_M} "
-            f"and T <= {fact_tile_rows(d, m)}; got D={d}, M={m}, K={k}, "
-            f"T={t}")
+        raise ValueError(_rule(d, k, m, t))
+    return not fact_narrow(d, k, m, t)
 
 
 def estimate_fused_factored(bank: FactoredBank, r: torch.Tensor,
                             cache: Optional[dict] = None) -> torch.Tensor:
     """'all'-mode factored estimate of r (N, D) complex -> (N, D) through
-    K11: the kernel analog of `mfa_bank.estimate_factored` (selection modes
-    stay on the pipeline). Raises outside `fact_kernel_eligible`
-    (`harness.stages.estimate_factored` sends those to the pipeline).
-    `cache`: see `lowered`."""
-    _check_eligible(bank, 1)
+    K11 (its wide form past the template's rule): the kernel analog of
+    `mfa_bank.estimate_factored` (selection modes stay on the pipeline).
+    Raises outside `fact_kernel_eligible` (`harness.stages.estimate_factored`
+    sends those to the pipeline). `cache`: see `lowered` and
+    `lowered_tc`."""
+    wide = _check_eligible(bank, 1)
     ops = lowered_tc(bank, cache) if r.is_cuda else None
-    return _hc(fact_estimate(_x2(r), lowered(bank, cache), ops), r.dtype)
+    est = fact_estimate_wide if wide else fact_estimate
+    return _hc(est(_x2(r), lowered(bank, cache), ops), r.dtype)
 
 
 def estimate_fused_factored_coherent(bank: FactoredBank, r: torch.Tensor,
@@ -483,29 +830,31 @@ def estimate_fused_factored_coherent(bank: FactoredBank, r: torch.Tensor,
                                      ) -> torch.Tensor:
     """Coherent 'all'-mode factored estimate of blocks r (B, T, D) ->
     (B, T, D): the kernel analog of `mfa_bank.estimate_factored_coherent`.
-    T = 1 runs K11; T within `fact_kernel_eligible` runs K12 with the alpha
-    blend in the kernel; beyond the rule it raises. `cache`: see
-    `lowered`."""
+    T = 1 runs K11; T within `fact_kernel_eligible` runs K12 (the
+    template's or the wide one) with the alpha blend in the kernel; beyond
+    the rule it raises. `cache`: see `lowered` and `lowered_tc`."""
     if r.dim() != 3:
         raise ValueError(f"expected (B, T, D) blocks, got {tuple(r.shape)}")
     b, t, d = r.shape
     if t == 1:
         return estimate_fused_factored(bank, r[:, 0, :], cache)[:, None, :]
-    _check_eligible(bank, t)
+    wide = _check_eligible(bank, t)
     ops = lowered_tc(bank, cache) if r.is_cuda else None
-    h2 = fact_estimate_coherent(_x2(r), lowered(bank, cache, t, alpha), t,
-                                alpha, ops)
+    est = fact_estimate_coherent_wide if wide else fact_estimate_coherent
+    h2 = est(_x2(r), lowered(bank, cache, t, alpha), t, alpha, ops)
     return _hc(h2, r.dtype).reshape(b, t, d)
 
 
 def estimate_fused_factored_stats(bank: FactoredBank, r: torch.Tensor,
                                   cache: Optional[dict] = None):
-    """Kernel analog of `mfa_bank.estimate_factored_stats` through K13:
-    (m (N,), den (N,), acc (N, D) complex64) of a (component shard of a)
-    factored bank, in the logit convention of `mfa_bank._stats_chunk`, so
-    kernel and pipeline shard states merge with `kernels.merge_stats`.
-    `cache`: see `lowered` and `lowered_tc`."""
-    _check_eligible(bank, 1)
+    """Kernel analog of `mfa_bank.estimate_factored_stats` through K13 (its
+    wide form past the template's rule): (m (N,), den (N,), acc (N, D)
+    complex64) of a (component shard of a) factored bank, in the logit
+    convention of `mfa_bank._stats_chunk`, so kernel and pipeline shard
+    states merge with `kernels.merge_stats`. `cache`: see `lowered` and
+    `lowered_tc`."""
+    wide = _check_eligible(bank, 1)
     ops = lowered_tc(bank, cache) if r.is_cuda else None
-    m, den, acc2 = fact_estimate_stats(_x2(r), lowered(bank, cache), ops)
+    est = fact_estimate_stats_wide if wide else fact_estimate_stats
+    m, den, acc2 = est(_x2(r), lowered(bank, cache), ops)
     return m, den, _hc(acc2, torch.complex64)

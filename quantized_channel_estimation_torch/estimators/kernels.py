@@ -46,7 +46,8 @@ K2 and K5 serve banks split over the component axis across ranks
 The circulant kernels K6-K9 and the multi-pilot circulant kernel K10 (one
 template, `csrc/mp_circ_estimate.cu`; past D = 128 K6-K9's wide form,
 `csrc/circ_wide_estimate.cu`), the factored (MFA)
-kernels K11-K13 (`csrc/fact_estimate.cu`), the Karatsuba and tensor-core
+kernels K11-K13 (`csrc/fact_estimate.cu`; past D = 128 or M = 64 their
+wide form, `csrc/fact_wide_estimate.cu`), the Karatsuba and tensor-core
 variants of K1, K14a and K14b (`csrc/karatsuba_estimate.cu`,
 `csrc/grouped_tc_estimate.cu`), and the floor probe K15
 (`csrc/floor_probe.cu`, which compiles K1's stream) have their layouts,
@@ -94,7 +95,8 @@ WIDE_MAX_TWO_M = 2048   # 2M of the wide form (grouped_wide_estimate.cu)
 TOPK_KERNEL_MAX = 8  # K4's top-k slots a row
 # scratch bytes of one launch of a wide form that keeps its intermediates
 # in global memory (the wide top-k of csrc/grouped_wide_estimate.cu, the
-# wide circulant kernels of csrc/circ_wide_estimate.cu); a wrapper cuts
+# wide circulant kernels of csrc/circ_wide_estimate.cu, the wide factored
+# kernels of csrc/fact_wide_estimate.cu); a wrapper cuts
 # larger row counts into launches of at most this much
 WIDE_SCRATCH = 1 << 30
 
@@ -200,6 +202,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.fact_estimate_launch.argtypes = (
             [ptr] * 9 + [i32] * 5 + [f32, i32, ptr])
         lib.fact_estimate_launch.restype = i32
+    elif name == "fact_wide_estimate":
+        lib.fact_wide_launch.argtypes = [ptr] * 15 + [i32] * 6 + [
+            f32, i32, ptr]
+        lib.fact_wide_launch.restype = i32
     elif name == "karatsuba_estimate":
         lib.karatsuba_estimate_launch.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
         lib.karatsuba_estimate_launch.restype = i32

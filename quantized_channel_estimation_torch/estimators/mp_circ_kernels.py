@@ -62,8 +62,7 @@ import math
 import torch
 
 from quantized_channel_estimation_torch.estimators import kernels
-from quantized_channel_estimation_torch.estimators.variant_kernels import (
-    tc_products)
+from quantized_channel_estimation_torch.estimators import tc_units as tu
 from quantized_channel_estimation_torch.models import structured_bank as sb
 from quantized_channel_estimation_torch.models.structured_bank import (
     CirculantBankMP)
@@ -172,17 +171,13 @@ def mp_circ_narrow(d: int, k: int, p: int, t: int = 1) -> bool:
             and 1 <= t <= mp_circ_tile_rows(d, k, p, t))
 
 
-def _chunks(w: int) -> int:
-    return -(-w // 64)
-
-
 def mp_circ_wide_row_bytes(d: int, k: int, p: int) -> int:
     """Scratch bytes of one row in the wide form: the three bf16 planes of
     its widest product's contraction (the P pilot rows of 2D, the F =
     D (3P + P (P-1)) features, or K), u (P 2D), its K logits and its
     offset."""
     feat = d * (3 * p + p * (p - 1))
-    return (384 * max(p * _chunks(2 * d), _chunks(feat), _chunks(k))
+    return (384 * max(p * tu.chunks(2 * d), tu.chunks(feat), tu.chunks(k))
             + 8 * p * d + 4 * k + 4)
 
 
@@ -339,31 +334,6 @@ def lowered(bank: CirculantBankMP, cache: Optional[dict] = None, blocks=None,
 # the tensor-core layout of the bank
 # ---------------------------------------------------------------------------
 
-class MpCircTcOperands(NamedTuple):
-    """The bank as K10 streams it: the bf16 planes (`kernels.split_planes3`)
-    of its four operands as the sequence of units one tile consumes
-    (`mp_circ_tc_units`), each unit the 64 x 64 transpose of one 64-column
-    piece of an operand over one 64-deep contraction chunk in the 128-byte
-    swizzle (`kernels._sw128`), padding zero. The same for every (T, alpha)
-    layout of a bank: those differ in `const` only, which the kernel reads
-    from the layout.
-
-    hi, lo, lo2: (units, 64, 64) bfloat16
-    """
-    hi: torch.Tensor
-    lo: torch.Tensor
-    lo2: torch.Tensor
-
-
-def _blocks(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    """(R, C) zero-padded to (rows, cols) -> (rows / 64, cols / 64, 64, 64):
-    block [c, j] is the transpose of rows [64 c, 64 c + 64) x columns
-    [64 j, 64 j + 64)."""
-    w = torch.nn.functional.pad(w, (0, cols - w.shape[1],
-                                    0, rows - w.shape[0]))
-    return w.reshape(rows // 64, 64, cols // 64, 64).permute(0, 2, 3, 1)
-
-
 def _sq_order(d: int) -> torch.Tensor:
     """The bin behind each row of a |u_p|^2 group's 64-deep chunks as the
     kernel forms them (-1: a zero row): row 64 c + kappa of chunk c, kappa =
@@ -394,69 +364,54 @@ def mp_circ_tc_units(ckb: MpCircKernelBank,
     d, p, k = two_d // 2, ckb.comb.shape[0] - 1, ckb.const.shape[0]
     npd, kp = _pieces(two_d), _pieces(k)
     w2, wk = 64 * npd, 64 * kp
-    fwd = _blocks(ckb.bfwd, w2, w2)
+    fwd = tu.blocks(ckb.bfwd, w2, w2)
     units = [fwd[c, j] for _ in range(p) for c in range(npd)
              for j in range(npd)]
     lc = ckb.lcoef
     order = _sq_order(d).to(lc.device)
-    groups = [_blocks(lc[2 * pi * d:2 * (pi + 1) * d], w2, wk)
+    groups = [tu.blocks(lc[2 * pi * d:2 * (pi + 1) * d], w2, wk)
               for pi in range(p)]
     sq0 = 2 * p * d
     for pi in range(p):
         rows = lc[sq0 + pi * d + order.clamp(min=0)]
         rows = torch.where(order[:, None] >= 0, rows, torch.zeros_like(rows))
-        groups.append(_blocks(rows, order.numel(), wk))
+        groups.append(tu.blocks(rows, order.numel(), wk))
     v0 = 3 * p * d
-    groups += [_blocks(lc[v0 + i * two_d:v0 + (i + 1) * two_d], w2, wk)
+    groups += [tu.blocks(lc[v0 + i * two_d:v0 + (i + 1) * two_d], w2, wk)
                for i in range(p * (p - 1) // 2)]
     units += [g[c, kc] for kc in range(kp) for g in groups
               for c in range(g.shape[0])]
-    comb = [_blocks(ckb.comb[si], wk, w2) for si in range(p + 1)]
+    comb = [tu.blocks(ckb.comb[si], wk, w2) for si in range(p + 1)]
     units += [comb[si][kc, j] for j in range(npd) for si in range(p + 1)
               for kc in range(kp)]
     if not stats:
-        inv = _blocks(ckb.binv, w2, w2)
+        inv = tu.blocks(ckb.binv, w2, w2)
         units += [inv[j, jo] for jo in range(npd) for j in range(npd)]
     return torch.stack(units)
 
 
 def mp_circ_tc_operands(ckb: MpCircKernelBank,
-                        stats: bool = False) -> MpCircTcOperands:
+                        stats: bool = False) -> tu.UnitOperands:
     """Split the bank's operands into bf16 hi / lo / lo2 and lay them out
-    as the kernel's units (`MpCircTcOperands`; the stats form's without the
-    inverse); once per bank (`lowered_tc` keeps them)."""
-    return MpCircTcOperands(*(kernels._sw128(pl).contiguous()
-                              for pl in kernels.split_planes3(
-                                  mp_circ_tc_units(ckb, stats).contiguous())))
+    as the kernel's units (`tc_units.UnitOperands`; the stats form's
+    without the inverse); once per bank (`lowered_tc` keeps them)."""
+    return tu.UnitOperands(*(kernels._sw128(pl).contiguous()
+                             for pl in kernels.split_planes3(
+                                 mp_circ_tc_units(ckb, stats).contiguous())))
 
 
-def check_units(kernel: str, ops: MpCircTcOperands, units: int, device,
-                source: str) -> None:
-    """Raise unless ops holds `units` units on `device`, as `source` lays
-    them out."""
-    shape = (units, 64, 64)
-    for name, t in zip(MpCircTcOperands._fields, ops):
-        if (t is None or t.device != device or t.dtype != torch.bfloat16
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            got = ("None" if t is None
-                   else f"{t.dtype} {tuple(t.shape)} on {t.device}")
-            raise ValueError(f"{kernel}: operand {name} must be contiguous "
-                             f"torch.bfloat16 {shape} on {device} "
-                             f"(`{source}`), got {got}")
-
-
-def check_mp_circ_tc_operands(kernel: str, ops: MpCircTcOperands,
+def check_mp_circ_tc_operands(kernel: str, ops: tu.UnitOperands,
                               ckb: MpCircKernelBank, device) -> None:
     """Raise unless ops holds the units of a bank of ckb's shape on
     `device` (`mp_circ_tc_operands`)."""
     two_d = ckb.bfwd.shape[0]
-    check_units(kernel, ops, mp_circ_units(two_d // 2, ckb.const.shape[0],
+    tu.check_units(kernel, ops, mp_circ_units(two_d // 2, ckb.const.shape[0],
                                            ckb.comb.shape[0] - 1), device,
                 "mp_circ_tc_operands")
 
 
 def lowered_tc(bank: CirculantBankMP, cache: Optional[dict] = None,
-               blocks=None, wide: bool = False) -> MpCircTcOperands:
+               blocks=None, wide: bool = False) -> tu.UnitOperands:
     """The kernel's operands of the bank (`mp_circ_tc_operands` of its
     T = 1 layout; with `wide`, the wide form's `mp_circ_wide_operands`),
     kept in `cache` under ("mp_circ_tc_operands", blocks) or
@@ -482,17 +437,10 @@ def mp_circ_wide_units(d: int, k: int, p: int, stats: bool = False) -> int:
     KP and, except for the stats forms of K8 / K9 (P = 1), the inverse's
     NPD x NPD (NPD, NF, KP the 64-wide pieces of 2D, F and K; `wide_units`
     in csrc/circ_wide_estimate.cu)."""
-    npd, kp = _chunks(2 * d), _chunks(k)
-    nf = _chunks(d * (3 * p + p * (p - 1)))
+    npd, kp = tu.chunks(2 * d), tu.chunks(k)
+    nf = tu.chunks(d * (3 * p + p * (p - 1)))
     return ((1 if stats else 2) * npd * npd + kp * nf
             + npd * (p + 1) * kp)
-
-
-def _piece_major(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    """(R, C) -> its units (cols / 64 pieces, rows / 64 chunks, 64, 64),
-    unit (j, c) the transpose of rows [64 c, 64 c + 64) x columns [64 j,
-    64 j + 64), padding zero."""
-    return _blocks(w, rows, cols).transpose(0, 1)
 
 
 def mp_circ_wide_tc_units(ckb: MpCircKernelBank,
@@ -508,24 +456,24 @@ def mp_circ_wide_tc_units(ckb: MpCircKernelBank,
     pilot)."""
     two_d = ckb.bfwd.shape[0]
     k, feat = ckb.const.shape[0], ckb.lcoef.shape[0]
-    w2, wf, wk = 64 * _chunks(two_d), 64 * _chunks(feat), 64 * _chunks(k)
-    units = [_piece_major(ckb.bfwd, w2, w2),
-             _piece_major(ckb.lcoef, wf, wk),
-             torch.stack([_piece_major(slab, wk, w2) for slab in ckb.comb],
+    w2, wf, wk = 64 * tu.chunks(two_d), 64 * tu.chunks(feat), 64 * tu.chunks(k)
+    units = [tu.piece_major(ckb.bfwd, w2, w2),
+             tu.piece_major(ckb.lcoef, wf, wk),
+             torch.stack([tu.piece_major(slab, wk, w2) for slab in ckb.comb],
                          1)]
     if not stats:
-        units.append(_piece_major(ckb.binv, w2, w2))
+        units.append(tu.piece_major(ckb.binv, w2, w2))
     return torch.cat([u.reshape(-1, 64, 64) for u in units])
 
 
-def mp_circ_wide_operands(ckb: MpCircKernelBank) -> MpCircTcOperands:
+def mp_circ_wide_operands(ckb: MpCircKernelBank) -> tu.UnitOperands:
     """Split the bank's operands into bf16 hi / lo / lo2 and lay them out
     as the wide form's units (`mp_circ_wide_tc_units`, in the 128-byte
     swizzle). The same for every (T, alpha) layout of a bank; once per bank
     (`lowered_tc(..., wide=True)` keeps them)."""
-    return MpCircTcOperands(*(kernels._sw128(pl).contiguous()
-                              for pl in kernels.split_planes3(
-                                  mp_circ_wide_tc_units(ckb).contiguous())))
+    return tu.UnitOperands(*(kernels._sw128(pl).contiguous()
+                             for pl in kernels.split_planes3(
+                                 mp_circ_wide_tc_units(ckb).contiguous())))
 
 
 def _mp_features(u: torch.Tensor) -> torch.Tensor:
@@ -558,7 +506,7 @@ def mp_circ_wide_rows(u: torch.Tensor, p: int) -> torch.Tensor:
             _mp_features(u.reshape(n, p, two_d // 2, 2)))
     kernels._check_cuda("u", u, (n, width), u.device)
     feat = two_d // 2 * (3 * p + p * (p - 1))
-    a = torch.empty((3, kernels.wide_row_tiles(n), _chunks(feat), 64, 64),
+    a = torch.empty((3, kernels.wide_row_tiles(n), tu.chunks(feat), 64, 64),
                     dtype=torch.bfloat16, device=u.device)
     if n == 0:
         return a.zero_()
@@ -623,30 +571,14 @@ def mp_circ_estimate_coherent_reference(x2: torch.Tensor,
     return _mp_reference(x2, ckb, t_coh, coh_alpha, chunk)
 
 
-def _six(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The six bf16 products of rows (n, c) and one c-deep chunk w (c,
-    cols), both split into hi, lo, lo2, summed in the kernel's order
-    (`variant_kernels.tc_products`) into a fresh float32 result."""
-    return tc_products(rows, [pl.to(rows.dtype)
-                              for pl in kernels.split_planes3(w)], 6)
-
-
-def _kahan(total: torch.Tensor, lost: torch.Tensor, part: torch.Tensor):
-    """total += part in a compensated (Kahan) sum: total - lost is the
-    running value, lost the rounding error total has taken on."""
-    y = part - lost
-    nxt = total + y
-    return nxt, (nxt - total) - y
-
-
 def _chunked(rows: torch.Tensor, w: torch.Tensor, width: int):
     """rows @ w with the contraction zero-padded to `width` and cut into
-    64-deep chunks, each chunk's `_six` added in order in float32."""
+    64-deep chunks, each chunk's `tc_units.six` added in order in float32."""
     rows = torch.nn.functional.pad(rows, (0, width - rows.shape[1]))
     w = torch.nn.functional.pad(w, (0, 0, 0, width - w.shape[0]))
-    out = _six(rows[:, :64], w[:64])
+    out = tu.six(rows[:, :64], w[:64])
     for c in range(64, width, 64):
-        out = out + _six(rows[:, c:c + 64], w[c:c + 64])
+        out = out + tu.six(rows[:, c:c + 64], w[c:c + 64])
     return out
 
 
@@ -656,9 +588,9 @@ def mp_circ_tc_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
     """Plain PyTorch version of K10's arithmetic (the coherent form at
     t_coh > 1): each of the four products as the kernel cuts it, every
     64-deep chunk of the forward, combine and inverse contractions the six
-    bf16 products of `_six` into a fresh float32 result, added in order;
-    every 16-deep chunk of the logit's feature groups (u_p; |u_p|^2; each
-    pair) likewise, added in a compensated (Kahan) sum with const, whose
+    bf16 products of `tc_units.six` into a fresh float32 result, added in
+    order; every 16-deep chunk of the logit's feature groups (u_p; |u_p|^2;
+    each pair) likewise, added in a compensated (Kahan) sum with const, whose
     error is folded in after the row's offset (its largest logit among the
     first 64 components) is taken off; the features, pooling, softmax and
     complex combine in float32. For the CPU tests; nothing on the main path
@@ -703,9 +635,9 @@ def mp_circ_tc_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
             coef = torch.nn.functional.pad(coef,
                                            (0, 0, 0, width - coef.shape[0]))
             for c in range(0, width, 16):
-                lg, lost = _kahan(lg, lost, _six(z[:, c:c + 16],
+                lg, lost = tu.kahan(lg, lost, tu.six(z[:, c:c + 16],
                                                  coef[c:c + 16]))
-        lg, lost = _kahan(lg, lost, ckb.const[None])
+        lg, lost = tu.kahan(lg, lost, ckb.const[None])
         off = lg[:, :64].max(-1, keepdim=True).values   # the row's offset
         off = torch.where(off > -1e29, off, torch.zeros_like(off))
         lg = _pool((lg - off) - lost, t_coh, coh_alpha)
@@ -726,7 +658,7 @@ def mp_circ_tc_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
         for pi in range(p):
             ur, ui = u[pi][..., 0], u[pi][..., 1]
             for c in range(0, wk, 64):
-                f = _six(wpad[:, c:c + 64], cpad[pi + 1, c:c + 64]).reshape(
+                f = tu.six(wpad[:, c:c + 64], cpad[pi + 1, c:c + 64]).reshape(
                     n, d, 2)
                 fr, fi = f[..., 0], f[..., 1]
                 hr, hi = hr + fr * ur - fi * ui, hi + fr * ui + fi * ur
@@ -740,21 +672,6 @@ def mp_circ_tc_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
     return torch.cat(ms), torch.cat(dens), out
 
 
-def _walked(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """rows @ w as the wide form's products run: the contraction
-    zero-padded to whole 64-deep chunks, each chunk's `_six` added in a
-    compensated (Kahan) sum; the value total - lost."""
-    width = 64 * _chunks(rows.shape[1])
-    rows = torch.nn.functional.pad(rows, (0, width - rows.shape[1]))
-    w = torch.nn.functional.pad(w, (0, 0, 0, width - w.shape[0]))
-    total = lost = torch.zeros(rows.shape[0], w.shape[1], dtype=rows.dtype,
-                               device=rows.device)
-    for c in range(0, width, 64):
-        total, lost = _kahan(total, lost, _six(rows[:, c:c + 64],
-                                               w[c:c + 64]))
-    return total - lost
-
-
 def mp_circ_wide_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
                            t_coh: int = 1, coh_alpha: float = 1.0,
                            chunk: int = 8192) -> torch.Tensor:
@@ -763,20 +680,20 @@ def mp_circ_wide_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
     coh_alpha)`), its products walked as the kernel walks its units: the
     forward transform of the N P pilot rows, the combine slabs and the
     inverse transform each a compensated sum over 64-deep chunks of the
-    six bf16 products of `_six` (`_walked`); the logit over the features
-    [u | |u_p|^2 | v_pq] (`_mp_features`) padded to whole 64-deep chunks,
-    each 16-deep step's six products added in a compensated sum with const,
-    whose error is folded in after the row's offset (its largest logit
-    among the first 64 components) is taken off; the pool and softmax in
-    float32; h = c_bias + c_filt_1 u_1 + ... + c_filt_P u_P per bin, pilot
-    by pilot. x2 (N, 2PD) float32 interleaved, pilot-major -> (N, 2D). For
-    the CPU tests and chip_smoke's checks; nothing on the main path calls
-    it where a card is present."""
+    six bf16 products of `tc_units.six` (`tc_units.walked`); the logit over
+    the features [u | |u_p|^2 | v_pq] (`_mp_features`) padded to whole
+    64-deep chunks, each 16-deep step's six products added in a compensated
+    sum with const, whose error is folded in after the row's offset (its
+    largest logit among the first 64 components) is taken off; the pool and
+    softmax in float32; h = c_bias + c_filt_1 u_1 + ... + c_filt_P u_P per
+    bin, pilot by pilot. x2 (N, 2PD) float32 interleaved, pilot-major ->
+    (N, 2D). For the CPU tests and chip_smoke's checks; nothing on the main
+    path calls it where a card is present."""
     pin_fp32()
     two_d = ckb.bfwd.shape[0]
     d, p, k = two_d // 2, ckb.comb.shape[0] - 1, ckb.const.shape[0]
     feat = ckb.lcoef.shape[0]
-    wf = 64 * _chunks(feat)
+    wf = 64 * tu.chunks(feat)
     coef = torch.nn.functional.pad(ckb.lcoef, (0, 0, 0, wf - feat))
     if x2.shape[0] % t_coh:
         raise ValueError(f"{x2.shape[0]} rows are no whole number of "
@@ -786,23 +703,24 @@ def mp_circ_wide_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
     for i0 in range(0, x2.shape[0], chunk):
         xc = x2[i0:i0 + chunk]
         n = xc.shape[0]
-        u = _walked(xc.reshape(n * p, two_d), ckb.bfwd).reshape(n, p, d, 2)
+        u = tu.walked(xc.reshape(n * p, two_d), ckb.bfwd).reshape(n, p, d, 2)
         z = torch.nn.functional.pad(_mp_features(u), (0, wf - feat))
         lg = lost = torch.zeros(n, k, dtype=xc.dtype, device=xc.device)
         for c in range(0, wf, 16):
-            lg, lost = _kahan(lg, lost, _six(z[:, c:c + 16], coef[c:c + 16]))
-        lg, lost = _kahan(lg, lost, ckb.const[None])
+            lg, lost = tu.kahan(lg, lost,
+                                tu.six(z[:, c:c + 16], coef[c:c + 16]))
+        lg, lost = tu.kahan(lg, lost, ckb.const[None])
         off = lg[:, :64].max(-1, keepdim=True).values   # the row's offset
         off = torch.where(off > -1e29, off, torch.zeros_like(off))
         w = torch.softmax(_pool((lg - off) - lost, t_coh, coh_alpha), -1)
-        h = _walked(w, ckb.comb[0]).reshape(n, d, 2)
+        h = tu.walked(w, ckb.comb[0]).reshape(n, d, 2)
         hr, hi = h[..., 0], h[..., 1]
         for pi in range(p):
-            f = _walked(w, ckb.comb[pi + 1]).reshape(n, d, 2)
+            f = tu.walked(w, ckb.comb[pi + 1]).reshape(n, d, 2)
             fr, fi = f[..., 0], f[..., 1]
             ur, ui = u[:, pi, :, 0], u[:, pi, :, 1]
             hr, hi = hr + fr * ur - fi * ui, hi + fr * ui + fi * ur
-        outs.append(_walked(torch.stack([hr, hi], -1).reshape(n, two_d),
+        outs.append(tu.walked(torch.stack([hr, hi], -1).reshape(n, two_d),
                             ckb.binv))
     return torch.cat(outs) if outs else x2.new_zeros((0, two_d))
 
@@ -826,7 +744,7 @@ def _rule(d: int, k: int, p: int, t: int) -> str:
 
 def _launch(name: str, x2: torch.Tensor, ckb: MpCircKernelBank, t_coh: int,
             coh_alpha: float,
-            ops: Optional[MpCircTcOperands]) -> torch.Tensor:
+            ops: Optional[tu.UnitOperands]) -> torch.Tensor:
     """Validate, allocate and launch on x2's device and current stream with
     the bank's operands `ops` (laid out here when None); raise on any
     refusal."""
@@ -854,7 +772,7 @@ def _launch(name: str, x2: torch.Tensor, ckb: MpCircKernelBank, t_coh: int,
                      False)
 
 
-def launch_tc(name: str, x2: torch.Tensor, ops: MpCircTcOperands,
+def launch_tc(name: str, x2: torch.Tensor, ops: tu.UnitOperands,
               const: torch.Tensor, d: int, p: int, t_coh: int,
               coh_alpha: float, stats: bool):
     """Allocate the outputs and launch csrc/mp_circ_estimate.cu on x2's
@@ -884,7 +802,7 @@ def launch_tc(name: str, x2: torch.Tensor, ops: MpCircTcOperands,
 
 
 def mp_circ_estimate(x2: torch.Tensor, ckb: MpCircKernelBank,
-                     operands: Optional[MpCircTcOperands] = None
+                     operands: Optional[tu.UnitOperands] = None
                      ) -> torch.Tensor:
     """K10 on x2 (N, 2PD) float32 interleaved, pilot-major -> (N, 2D). On a
     CUDA tensor it launches the CUDA kernel on the current stream with the
@@ -901,7 +819,7 @@ def mp_circ_estimate(x2: torch.Tensor, ckb: MpCircKernelBank,
 
 def mp_circ_estimate_coherent(x2: torch.Tensor, ckb: MpCircKernelBank,
                               t_coh: int, coh_alpha: float = 1.0,
-                              operands: Optional[MpCircTcOperands] = None
+                              operands: Optional[tu.UnitOperands] = None
                               ) -> torch.Tensor:
     """The coherent K10 on x2 (N, 2PD), N / T blocks of T consecutive rows
     (2 <= T <= `mp_circ_tile_rows`), ckb from `mp_circ_kernel_bank(bank,
@@ -934,7 +852,7 @@ def mp_circ_wide_launch_rows(n: int, d: int, k: int, p: int,
 
 def _launch_wide(wrapper, x2: torch.Tensor, ckb: MpCircKernelBank,
                  t_coh: int, coh_alpha: float,
-                 ops: Optional[MpCircTcOperands]) -> torch.Tensor:
+                 ops: Optional[tu.UnitOperands]) -> torch.Tensor:
     """Launch the wide form (csrc/circ_wide_estimate.cu,
     `mp_circ_wide_launch`) on x2's device and current stream, one launch
     for each row chunk (`mp_circ_wide_launch_rows`), and add one to
@@ -959,12 +877,12 @@ def _launch_wide(wrapper, x2: torch.Tensor, ckb: MpCircKernelBank,
         return out
     if ops is None:
         ops = mp_circ_wide_operands(ckb)
-    check_units(name, ops, mp_circ_wide_units(d, k, p), dev,
+    tu.check_units(name, ops, mp_circ_wide_units(d, k, p), dev,
                 "mp_circ_wide_operands")
     rows = mp_circ_wide_launch_rows(n, d, k, p, t_coh)
-    units = max(kernels.wide_row_tiles(rows * p) * _chunks(two_d),
-                kernels.wide_row_tiles(rows) * max(_chunks(feat), _chunks(k),
-                                                   _chunks(two_d)))
+    units = max(kernels.wide_row_tiles(rows * p) * tu.chunks(two_d),
+                kernels.wide_row_tiles(rows) * max(
+                    tu.chunks(feat), tu.chunks(k), tu.chunks(two_d)))
     a = torch.empty((3, units, 64, 64), dtype=torch.bfloat16, device=dev)
     u = torch.empty((rows, p * two_d), dtype=f32, device=dev)
     lg = torch.empty((rows, k), dtype=f32, device=dev)
@@ -987,7 +905,7 @@ def _launch_wide(wrapper, x2: torch.Tensor, ckb: MpCircKernelBank,
 
 
 def mp_circ_estimate_wide(x2: torch.Tensor, ckb: MpCircKernelBank,
-                          operands: Optional[MpCircTcOperands] = None
+                          operands: Optional[tu.UnitOperands] = None
                           ) -> torch.Tensor:
     """K10's wide form on x2 (N, 2PD) -> (N, 2D), `operands` from
     `mp_circ_wide_operands(ckb)` (laid out in the call when None); the
@@ -1002,7 +920,7 @@ def mp_circ_estimate_wide(x2: torch.Tensor, ckb: MpCircKernelBank,
 
 def mp_circ_estimate_coherent_wide(x2: torch.Tensor, ckb: MpCircKernelBank,
                                    t_coh: int, coh_alpha: float = 1.0,
-                                   operands: Optional[MpCircTcOperands]
+                                   operands: Optional[tu.UnitOperands]
                                    = None) -> torch.Tensor:
     """The coherent K10's wide form on x2 (N, 2PD), N / T blocks of T
     consecutive rows (2 <= T <= 64), ckb from `mp_circ_kernel_bank(bank,

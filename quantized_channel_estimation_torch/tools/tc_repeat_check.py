@@ -77,6 +77,15 @@ for bit the first launch; the first held against the wide form's plain
 version `mp_circ_wide_reference`, or against float64 under mode 'f32''s
 rule).
 
+Mode 'wide_fact' does the same for the wide form of K11-K13
+(`csrc/fact_wide_estimate.cu`, past the template's D <= 128, M <= 64;
+`WIDE_FACT_SHAPES`: D one past the template's, M past it, D = 256 over
+two waves of blocks, K past one logit slice, the pool at T = 3, 4 and 16),
+under the rule of mode 'wide_circ' (each launch after the NaN fill of the
+last one's outputs, bit for bit the first launch; the first held against
+the wide form's plain version `fact_wide_reference`, or against float64
+under mode 'f32''s rule, for K13 on each of m, den and the accumulator).
+
 `--without-proxy-fence` also builds a copy of K14b without the
 `fence.proxy.async` before each stage's release (in
 csrc/grouped_tc_stream.cuh) and runs it launch for launch beside the
@@ -87,7 +96,7 @@ headline widths (131072 rows, 2M = 2D = 128, K = 64).
     python -m quantized_channel_estimation_torch.tools.tc_repeat_check \
         [--repeats R] \
         [--modes bf16 split2 split3 f32 wide wide_topk karatsuba fact mpcirc
-                 circ wide_circ wide_mpcirc] \
+                 circ wide_circ wide_mpcirc wide_fact] \
         [--no-poison] \
         [--without-proxy-fence [--time]]
 
@@ -171,6 +180,16 @@ FACT_SHAPES = (
     (64, 16, 8, 64 * 301, 1, 64, 1.0, "K12"),  # shared memory
     (64, 64, 4, 3 * 1001, 0, 3, 0.5, "K12"),   # 63-row tiles, A in smem
     (64, 16, 16, 4097, 3, 1, 1.0, "K13"),     # A in registers
+)
+# the wide K11 / K12 / K13: (D, M, K, N, dead components, T, alpha, kernel)
+WIDE_FACT_SHAPES = (
+    (129, 4, 8, 1001, 1, 1, 1.0, "K11"),       # one past the template's D
+    (64, 65, 4, 777, 0, 1, 1.0, "K13"),        # one past its M
+    (256, 16, 32, 2 * 132 * 128 + 5, 2, 1, 1.0, "K11"),  # two waves
+    (136, 2, 200, 4097, 3, 1, 1.0, "K13"),     # K past one logit slice
+    (144, 16, 8, 3 * 701, 0, 3, 0.5, "K12"),   # T = 3, alpha < 1
+    (96, 72, 4, 4 * 1001, 1, 4, 0.25, "K12"),  # M = 72 at T = 4
+    (256, 16, 10, 16 * 129, 2, 16, 1.0, "K12"),  # T = 16
 )
 # K10: (P, D, K, N, dead components, T, alpha)
 MPCIRC_SHAPES = (
@@ -438,31 +457,43 @@ def random_fact_bank(d, m, k, dev, n_dead=0, t_coh=1, seed=0):
     return fk.FactKernelBank(*(x.to(dev).contiguous() for x in fkb))
 
 
-def _fact_check(dev, shapes, repeats, poison) -> dict:
-    """Mode 'fact' of `repeat_check`: {label: {"launches", "failures",
-    "max_err"}} over K11, K12 and K13 at `shapes`."""
+def _fact_check(dev, shapes, repeats, poison, wide=False) -> dict:
+    """Mode 'fact' (with `wide`: 'wide_fact') of `repeat_check`: {label:
+    {"launches", "failures", "max_err"}} over K11, K12 and K13 at
+    `shapes`; with `wide`, their wide form, each launch after the NaN fill
+    of the last one's outputs, and bit for bit the first launch."""
     out = {}
     for d, m, k, n, n_dead, t, alpha, name in shapes:
         fkb = random_fact_bank(d, m, k, dev, n_dead, t)
         f64 = fk.FactKernelBank(*(x.double() for x in fkb))
-        ops = fk.fact_tc_operands(fkb) if dev.type == "cuda" else None
+        lay = fk.fact_wide_operands if wide else fk.fact_tc_operands
+        ops = lay(fkb) if dev.type == "cuda" else None
         x2 = random_rows(n, 2 * d, dev)
-        if name == "K11":
+        stats = name == "K13"
+        if wide:
+            def run():
+                if name == "K11":
+                    return (fk.fact_estimate_wide(x2, fkb, ops),)
+                if name == "K12":
+                    return (fk.fact_estimate_coherent_wide(x2, fkb, t, alpha,
+                                                           ops),)
+                return fk.fact_estimate_stats_wide(x2, fkb, ops)
+            want = fk.fact_wide_reference(x2, fkb, t, alpha, stats)
+            want = want if stats else (want,)
+        elif name == "K11":
             def run():
                 return (fk.fact_estimate(x2, fkb, ops),)
             want = (fk.fact_estimate_reference(x2, fkb),)
-            exact = (fk.fact_estimate_reference(x2.double(), f64),)
         elif name == "K12":
             def run():
                 return (fk.fact_estimate_coherent(x2, fkb, t, alpha, ops),)
             want = (fk.fact_estimate_coherent_reference(x2, fkb, t, alpha),)
-            exact = (fk.fact_estimate_coherent_reference(x2.double(), f64, t,
-                                                         alpha),)
         else:
             def run():
                 return fk.fact_estimate_stats(x2, fkb, ops)
             want = fk.fact_estimate_stats_reference(x2, fkb)
-            exact = fk.fact_estimate_stats_reference(x2.double(), f64)
+        exact = fk._fact_reference(x2.double(), f64, t, alpha, stats, 8192)
+        exact = exact if stats else (exact,)
         scales = [w.abs().max() for w in want]
         plain_errs = [float((w.double() - e).abs().max() / sc)
                       for w, e, sc in zip(want, exact, scales)]
@@ -471,8 +502,9 @@ def _fact_check(dev, shapes, repeats, poison) -> dict:
             if poison:
                 poison_shared_memory(dev)
             got = run()
-            ok = first is None or all(torch.equal(g, f)
-                                      for g, f in zip(got, first))
+            ok = first is None or all(
+                torch.equal(g.view(torch.int32), f.view(torch.int32))
+                for g, f in zip(got, first))
             err = 0.0
             for g, w, e, sc, pe in zip(got, want, exact, scales, plain_errs):
                 rel = float((g - w).abs().max() / sc)
@@ -480,12 +512,16 @@ def _fact_check(dev, shapes, repeats, poison) -> dict:
                 ok = ok and (rel <= TOL or rel64 <= 2 * pe + 1e-5)
                 err = max(err, rel if rel == rel else math.inf)
             if first is None:
-                first = got
+                first = tuple(g.clone() for g in got) if wide else got
             fails += not ok     # NaN fails both comparisons
             errs.append(err)
+            if wide:            # the next launch's outputs land here
+                for g in got:
+                    g.fill_(math.nan)
+            del got
         out[f"D={d} M={m} K={k} N={n} dead={n_dead} T={t} a={alpha} "
-            f"{name}"] = {"launches": repeats, "failures": fails,
-                          "max_err": max(errs)}
+            f"{name}" + (" wide" if wide else "")] = {
+            "launches": repeats, "failures": fails, "max_err": max(errs)}
     return out
 
 
@@ -727,7 +763,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
                  mpcirc_shapes=MPCIRC_SHAPES,
                  circ_shapes=CIRC_SHAPES,
                  wide_circ_shapes=WIDE_CIRC_SHAPES,
-                 wide_mpcirc_shapes=WIDE_MPCIRC_SHAPES) -> dict:
+                 wide_mpcirc_shapes=WIDE_MPCIRC_SHAPES,
+                 wide_fact_shapes=WIDE_FACT_SHAPES) -> dict:
     """Every (shape, mode): `repeats` launches of K14b (and of the copy
     without the fence), each held against the plain version; mode 'f32':
     K1 and K3 at `f32_shapes`; mode 'wide': their wide form at
@@ -737,7 +774,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     'mpcirc': K10 at `mpcirc_shapes`; mode 'circ': K6-K9 at
     `circ_shapes`; mode 'wide_circ': their wide form at
     `wide_circ_shapes`; mode 'wide_mpcirc': K10's wide form at
-    `wide_mpcirc_shapes`. Returns
+    `wide_mpcirc_shapes`; mode 'wide_fact': K11-K13's wide form at
+    `wide_fact_shapes`. Returns
     {"kernel" (and "no fence"): {label: {"launches", "failures",
     "max_err"}}}."""
     copy = _without_fence() if without_fence else None
@@ -767,9 +805,13 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     if "wide_mpcirc" in modes:
         result["kernel"].update(_mp_check(dev, wide_mpcirc_shapes, repeats,
                                           poison, wide=True))
+    if "wide_fact" in modes:
+        result["kernel"].update(_fact_check(dev, wide_fact_shapes, repeats,
+                                            poison, wide=True))
     modes = [m for m in modes
              if m not in ("f32", "wide", "wide_topk", "karatsuba", "fact",
-                          "mpcirc", "circ", "wide_circ", "wide_mpcirc")]
+                          "mpcirc", "circ", "wide_circ", "wide_mpcirc",
+                          "wide_fact")]
     for two_m, two_d, k, n, n_dead in shapes if modes else ():
         kb = random_bank(two_m, two_d, k, dev, n_dead)
         planes = kernels.split_planes(kb.pw)
@@ -824,10 +866,10 @@ def main(argv=None) -> dict:
     p.add_argument("--modes", nargs="+",
                    default=[*vk.TC_WRAPPERS, "f32", "wide", "wide_topk",
                             "karatsuba", "fact", "mpcirc", "circ",
-                            "wide_circ", "wide_mpcirc"],
+                            "wide_circ", "wide_mpcirc", "wide_fact"],
                    choices=[*vk.TC_WRAPPERS, "f32", "wide", "wide_topk",
                             "karatsuba", "fact", "mpcirc", "circ",
-                            "wide_circ", "wide_mpcirc"])
+                            "wide_circ", "wide_mpcirc", "wide_fact"])
     p.add_argument("--no-poison", action="store_true")
     p.add_argument("--without-proxy-fence", action="store_true")
     p.add_argument("--time", action="store_true")

@@ -36,6 +36,7 @@ from quantized_channel_estimation_torch.estimators import circ_kernels as ck
 from quantized_channel_estimation_torch.estimators import kernels as tkn
 from quantized_channel_estimation_torch.estimators import (
     mp_circ_kernels as mk)
+from quantized_channel_estimation_torch.estimators import tc_units as tu
 from quantized_channel_estimation_torch.models import structured_bank as tsb
 from quantized_channel_estimation_torch.tools import tc_repeat_check as trc
 from test_torch_circ_kernels import _banks, _close, _obs
@@ -151,7 +152,7 @@ def test_circ_tc_operands_are_cached_per_shard_and_checked():
     for bad, stats in ((flat[0], True), (ops[0], False),
                        (ops[0]._replace(lo=ops[0].lo.float()), True)):
         with pytest.raises(ValueError, match="circ_tc_operands"):
-            mk.check_units("k", bad, ck._units(ckb, stats), cpu,
+            tu.check_units("k", bad, ck._units(ckb, stats), cpu,
                            "circ_tc_operands")
     # the wrappers on the CPU take the plain versions, operands or none
     x2 = ck._x2(torch.as_tensor(_obs(20, d=8)))

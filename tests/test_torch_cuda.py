@@ -2556,6 +2556,8 @@ def test_fact_kernels_refuse_bad_inputs_and_one_past_the_rule():
         h = tfk.estimate_fused_factored_coherent(wide, rw.reshape(4, t, d))
         torch.cuda.synchronize()
         assert torch.isfinite(h).all()
+    # one past the template's D or M: the wide form launches; one past
+    # the tile's T: every form refuses
     for d, m, t in ((129, 4, 1), (64, 65, 1), (64, 16, 65), (128, 64, 65)):
         wide = tmb.FactoredBank(
             torch.zeros(2, device=dev),
@@ -2566,6 +2568,13 @@ def test_fact_kernels_refuse_bad_inputs_and_one_past_the_rule():
                 ((2, m, d), torch.complex64), ((2, m, d), torch.complex64),
                 ((2, d), torch.complex64), ((2, d), torch.complex64))))
         r = torch.zeros(t, d, dtype=torch.complex64, device=dev)
+        if t == 1:
+            before = tkn.launch_counts()["fact_estimate_wide"]
+            h = tfk.estimate_fused_factored_coherent(wide, r[None])
+            torch.cuda.synchronize()
+            assert torch.isfinite(h).all() and h.shape == (1, 1, d)
+            assert tkn.launch_counts()["fact_estimate_wide"] == before + 1
+            continue
         with pytest.raises(ValueError, match="factored kernels take"):
             tfk.estimate_fused_factored_coherent(wide, r[None])
         with pytest.raises(ValueError, match="fact_kernel_eligible"):
@@ -2640,6 +2649,194 @@ def test_fact_repeated_launches_match_plain():
                                         modes=("fact",))["kernel"]
     for key, fn in names.items():
         assert fn.launches == before[key] + 100 * sum(
+            1 for s in shapes if s[-1] == key)
+    assert len(runs) == len(shapes)
+    assert not {k: v for k, v in runs.items() if v["failures"]}, runs
+
+
+# the wide K11-K13: (D, K, M, N, dead components, T, alpha, kernel): one
+# past the template's D and M, the JAX rule's reach (K 39 at D = 256, M =
+# 16; K 10 at M = 64; K 19 at D = 512; K 2 at D = 2048; K = 1 at D = 5551,
+# M = 16, at D = 64, M = 2475 and at D = 10334 at T = 16), K past one logit
+# slice, the pool at T = 4 and 16
+FACT_WIDE_CASES = [
+    (129, 4, 4, 2049, 1, 1, 1.0, "K11"),
+    (144, 8, 8, 4 * 257, 1, 4, 0.25, "K12"),
+    (128, 4, 96, 1001, 1, 1, 1.0, "K13"),
+    (96, 3, 72, 16 * 64, 0, 16, 1.0, "K12"),
+    (256, 39, 16, 2049, 3, 1, 1.0, "K11"),
+    (256, 10, 64, 2048, 2, 1, 1.0, "K13"),
+    (512, 19, 16, 4 * 256, 2, 4, 1.0, "K12"),
+    (2048, 2, 32, 513, 0, 1, 1.0, "K11"),
+    (5551, 1, 16, 257, 0, 1, 1.0, "K11"),
+    (64, 1, 2475, 513, 0, 1, 1.0, "K11"),
+    (10334, 1, 1, 16 * 16, 0, 16, 1.0, "K12"),
+    (136, 200, 2, 1001, 3, 1, 1.0, "K13"),
+]
+FACT_WIDE_NAMES = {"K11": "fact_estimate_wide",
+                   "K12": "fact_estimate_coherent_wide",
+                   "K13": "fact_estimate_stats_wide"}
+
+
+def _fact_wide_run(tfk, kernel, x2, fkb, t, alpha, ops=None):
+    if kernel == "K11":
+        return (tfk.fact_estimate_wide(x2, fkb, ops),)
+    if kernel == "K12":
+        return (tfk.fact_estimate_coherent_wide(x2, fkb, t, alpha, ops),)
+    return tfk.fact_estimate_stats_wide(x2, fkb, ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,m,n,n_dead,t,alpha,kernel", FACT_WIDE_CASES)
+def test_fact_wide_matches_plain(d, k, m, n, n_dead, t, alpha, kernel):
+    """The wide K11, K12 or K13 within 1e-4 of the scale of its plain
+    version `fact_wide_reference` (K13: each of m, den and the
+    accumulator; where the two part by more, held to the float64 rule and
+    within 1e-4 of the function in float64, `_held`), one launch counted
+    on its own wrapper and none on another; for K11 and K12 the stages'
+    'auto' route launches it once more and gives the same bits."""
+    from quantized_channel_estimation_torch.estimators import (
+        fact_kernels as tfk)
+    dev = _card()
+    assert not tfk.fact_narrow(d, k, m, t)
+    bank, observe = _fact_bank(d, k, m, dev, n_dead=n_dead)
+    r = observe(n)
+    x2 = tck._x2(r)
+    fkb = tfk.fact_kernel_bank(bank, t, alpha)
+    stats = kernel == "K13"
+    name = FACT_WIDE_NAMES[kernel]
+    before = tkn.launch_counts()
+    got = _fact_wide_run(tfk, kernel, x2, fkb, t, alpha)
+    torch.cuda.synchronize()
+    after = tkn.launch_counts()
+    assert {w: after[w] - before[w] for w in after
+            if after[w] != before[w]} == {name: 1}
+    want = tfk.fact_wide_reference(x2, fkb, t, alpha, stats)
+    want64 = tfk._fact_reference(x2.double(), _f64(fkb), t, alpha, stats,
+                                 8192)
+    for g, w, w64 in zip(got, want, want64) if stats else (
+            (got[0], want, want64),):
+        _held(g, w, w64, ceiling=1e-4)
+    if stats:
+        return
+    if t == 1:
+        via = stages.estimate_factored(bank, r)
+    else:
+        via = stages.estimate_factored_coherent(bank, r.reshape(-1, t, d),
+                                                alpha=alpha)
+    assert tkn.launch_counts()[name] == after[name] + 1
+    assert torch.equal(tck._x2(via.reshape(n, d)), got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K11", "K12", "K13"])
+def test_fact_wide_keeps_fp32_accuracy(kernel):
+    """The wide K11, K12 (T = 4, alpha 1) and K13 at D = 256, K = 32, M =
+    16 (the JAX docstring's widths), six bf16 products a 64-deep chunk in
+    compensated sums: the max |error| against the plain version in
+    float64 at most twice the float32 plain version's own, with dead
+    components; the operands laid out once give the same bits as those
+    laid out in the call."""
+    from quantized_channel_estimation_torch.estimators import (
+        fact_kernels as tfk)
+    dev = _card()
+    d, k, m, n = 256, 32, 16, 8192
+    bank, observe = _fact_bank(d, k, m, dev, n_dead=2)
+    x2 = tck._x2(observe(n))
+    t = 4 if kernel == "K12" else 1
+    fkb = tfk.fact_kernel_bank(bank, t, 1.0)
+    stats = kernel == "K13"
+    got = _fact_wide_run(tfk, kernel, x2, fkb, t, 1.0)
+    plain = tfk._fact_reference(x2, fkb, t, 1.0, stats, 8192)
+    exact = tfk._fact_reference(x2.double(), _f64(fkb), t, 1.0, stats, 8192)
+    for g, p, e in zip(got, plain, exact) if stats else (
+            (got[0], plain, exact),):
+        scale = float(e.abs().max())
+        err_k = float((g.double() - e).abs().max()) / scale
+        err_p = float((p.double() - e).abs().max()) / scale
+        assert err_k <= 2 * err_p, (err_k, err_p)
+    ops = tfk.fact_wide_operands(fkb)
+    again = _fact_wide_run(tfk, kernel, x2, fkb, t, 1.0, ops)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_fact_wide_refuses_past_its_edges():
+    """The wide K11-K13 refuse T = 65, whole-block violations and the
+    template's operands; N = 0 launches nothing; past the rule 'auto'
+    takes the `torch.matmul` pipeline and 'kernel' raises."""
+    from quantized_channel_estimation_torch.estimators import (
+        fact_kernels as tfk)
+    from quantized_channel_estimation_torch.models import mfa_bank as tmb
+    dev = _card()
+    bank, observe = _fact_bank(144, 4, 4, dev)
+    fkb = tfk.fact_kernel_bank(bank)
+    x2 = tck._x2(observe(130))
+    with pytest.raises(ValueError, match="T"):
+        tfk.fact_estimate_coherent_wide(x2, fkb, 65)
+    with pytest.raises(ValueError, match="whole"):
+        tfk.fact_estimate_coherent_wide(x2, fkb, 4)
+    with pytest.raises(ValueError, match="fact_wide_operands"):
+        tfk.fact_estimate_wide(x2, fkb, tfk.fact_wide_operands(
+            tfk.fact_kernel_bank(_fact_bank(144, 4, 5, dev)[0])))
+    before = tkn.launch_counts()
+    assert tfk.fact_estimate_wide(x2[:0], fkb).shape == (0, 288)
+    m, den, acc = tfk.fact_estimate_stats_wide(x2[:0], fkb)
+    assert m.shape == den.shape == (0,) and acc.shape == (0, 288)
+    assert tkn.launch_counts() == before
+    r = observe(130).reshape(2, 65, 144)
+    with pytest.raises(ValueError, match="factored kernels take"):
+        tfk.estimate_fused_factored_coherent(bank, r)
+    with pytest.raises(ValueError, match="fact_kernel_eligible"):
+        stages.estimate_factored_coherent(bank, r, method="kernel")
+    assert torch.equal(stages.estimate_factored_coherent(bank, r),
+                       tmb.estimate_factored_coherent(bank, r, "all", 1024))
+    assert tkn.launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4])
+def test_fact_wide_cuts_rows_to_its_scratch(monkeypatch, t):
+    """Past `WIDE_SCRATCH` the wide K11 / K12 runs in row chunks of whole
+    blocks, one counted launch each, bit for bit the one launch's output
+    (a scratch of 512 rows' worth here: 2000 rows in four chunks)."""
+    from quantized_channel_estimation_torch.estimators import (
+        fact_kernels as tfk)
+    dev = _card()
+    d, k, m = 144, 130, 2
+    bank, observe = _fact_bank(d, k, m, dev, n_dead=1)
+    fkb = tfk.fact_kernel_bank(bank, t, 1.0)
+    x2 = tck._x2(observe(2000))
+    kernel = "K12" if t > 1 else "K11"
+    whole = _fact_wide_run(tfk, kernel, x2, fkb, t, 1.0)[0]
+    per_row = tfk.fact_wide_row_bytes(d, k, m)
+    monkeypatch.setattr(tkn, "WIDE_SCRATCH", 512 * per_row + 100)
+    assert tfk.fact_wide_launch_rows(2000, d, k, m, t) == 512
+    name = FACT_WIDE_NAMES[kernel]
+    before = tkn.launch_counts()[name]
+    cut = _fact_wide_run(tfk, kernel, x2, fkb, t, 1.0)[0]
+    assert tkn.launch_counts()[name] == before + 4
+    assert torch.equal(cut.view(torch.int32), whole.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fact_wide_repeated_launches_match_plain():
+    """The wide K11-K13 launched 20 times at each shape of
+    `tools.tc_repeat_check.WIDE_FACT_SHAPES`, each launch after a NaN fill
+    of every SM's shared memory and on the memory of the last launch's
+    outputs filled with NaN, each bit for bit the first launch, which is
+    held against the plain version."""
+    from quantized_channel_estimation_torch.estimators import (
+        fact_kernels as tfk)
+    dev = _card()
+    shapes = tc_repeat_check.WIDE_FACT_SHAPES
+    names = {key: getattr(tfk, name) for key, name in
+             FACT_WIDE_NAMES.items()}
+    before = {key: fn.launches for key, fn in names.items()}
+    runs = tc_repeat_check.repeat_check(dev, repeats=20,
+                                        modes=("wide_fact",))["kernel"]
+    for key, fn in names.items():
+        assert fn.launches == before[key] + 20 * sum(
             1 for s in shapes if s[-1] == key)
     assert len(runs) == len(shapes)
     assert not {k: v for k, v in runs.items() if v["failures"]}, runs

@@ -178,16 +178,20 @@ def test_fact_kernel_bank_holds_the_jax_operands():
 
 
 def test_eligibility_rule_reads_shapes_only():
-    """D <= 128, M <= 64, any K, T <= 64 at every width (one consumer
-    warpgroup's 64-row tile)."""
+    """The template's rule (`fact_narrow`): D <= 128, M <= 64, any K, T <=
+    64 at every width (one consumer warpgroup's 64-row tile); one past its
+    D or M the wide form admits the shape; one past T every form
+    refuses."""
     assert tfk.fact_kernel_eligible(64, 64, 16)
     assert tfk.fact_kernel_eligible(64, 64, 16, 64)
     assert tfk.fact_kernel_eligible(128, 1000, 64, 64)   # any K, one launch
     assert tfk.fact_kernel_eligible(1, 1, 1)
     assert tfk.fact_kernel_eligible(64, 8, 33, 64)
     assert tfk.fact_kernel_eligible(65, 8, 16, 33)
-    assert not tfk.fact_kernel_eligible(129, 8, 4)
-    assert not tfk.fact_kernel_eligible(64, 8, 65)
+    assert not tfk.fact_narrow(129, 8, 4)
+    assert tfk.fact_kernel_eligible(129, 8, 4)           # the wide form
+    assert not tfk.fact_narrow(64, 8, 65)
+    assert tfk.fact_kernel_eligible(64, 8, 65)
     assert not tfk.fact_kernel_eligible(64, 8, 16, 65)   # past the tile
     assert not tfk.fact_kernel_eligible(128, 8, 64, 65)
     assert tfk.fact_tile_rows(64, 32) == tfk.fact_tile_rows(128, 64) == 64
@@ -196,7 +200,9 @@ def test_eligibility_rule_reads_shapes_only():
 def test_stages_rule_and_refusals(monkeypatch):
     """'auto' sends 'all'-mode requests within `fact_kernel_eligible` to
     the kernel entries and the rest to the pipeline; 'kernel' raises
-    outside the range; the wrappers refuse what the kernels do not take."""
+    outside the range (a block past the 64-row tile); an M = 66 bank, past
+    the template, goes through the wide entries; the wrappers refuse what
+    the kernels do not take."""
     _, tbank = _banks()
     rt = torch.as_tensor(_obs(64))
     calls = []
@@ -222,13 +228,15 @@ def test_stages_rule_and_refusals(monkeypatch):
     _close(wide, tmb.estimate_factored_coherent(tbank, long_block).numpy())
     with pytest.raises(ValueError, match="fact_kernel_eligible"):
         stages.estimate_factored(tbank, rt, 1, method="kernel")
-    wide_m = tbank._replace(**{   # M = 66, past the kernels' range
+    wide_m = tbank._replace(**{   # M = 66, past the template's range
         f: torch.cat([getattr(tbank, f)] * 11, dim=1)
         for f in ("t_mat", "t_mu", "lam_t", "p2_mat", "r_t")})
     with pytest.raises(ValueError, match="fact_kernel_eligible"):
-        stages.estimate_factored(wide_m, rt, method="kernel")
-    _close(stages.estimate_factored(wide_m, rt),
-           tmb.estimate_factored(wide_m, rt).numpy())
+        stages.estimate_factored_coherent(tbank, long_block, method="kernel")
+    got = stages.estimate_factored(wide_m, rt, method="kernel")
+    assert len(calls) == 3                           # the wide entry
+    assert torch.equal(got, tfk.estimate_fused_factored(wide_m, rt))
+    _close(got, tmb.estimate_factored(wide_m, rt).numpy())
     with pytest.raises(ValueError, match="method"):
         stages.estimate_factored(tbank, rt, method="xla")
     with pytest.raises(ValueError, match="blocks"):
