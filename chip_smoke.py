@@ -198,19 +198,29 @@ Phases (any failure exits non-zero; nothing is caught):
      repeats a shape on NaN-filled outputs, and the times at D = 256, K =
      32, 32768 rows beside the bound, the fp32 logit GEMM and the einsum
      estimator; then the circulant kernels on wide banks (phase 3l,
-     `wide_circ_phase`): the wide form of K6-K9 (past D = 128, up to the
-     rule's D = 672) at D in {129, 192, 256, 512, 640, 672}, K in {1, 16,
-     64, 200} (200: two K8 / K9 shards merged), T in {1, 4, 16, 64},
-     alpha in {1, 0.25}, dead components and `blocks=(16, 16)` against the
-     plain versions within TOL, K6-K9 at D = 512 and 672 under the float64
-     rule, `tools.circ_kernel_bench` (its four legs), `run_gmm` at D = 512,
-     K = 16 with `cov_type='circulant'` flat and at T = 4 (genie < GMM < LS
-     at every SNR), the structured service on a D = 512 bank against the
-     `torch.fft` service, `estimate_sharded_circulant` over an in-process
-     1 x 2 mesh flat and at T = 4 (past TOL of the `torch.fft` answers,
-     held against float64), 20 NaN-poisoned repeats a shape, and
-     the times at D = 512, K = 16, 32768 rows beside the bound, the plain
-     version and the `torch.fft` pipeline; then the multi-pilot circulant
+     `wide_circ_phase`): past D = 128, up to the rule's D = 672, K6 / K7
+     on the factorised kernel where the transform splits and on the wide
+     form elsewhere, K8 / K9 on the wide form, at D in {129, 131, 134,
+     192, 256, 357, 512, 640, 652, 672}, K in {1, 8, 16, 64, 128, 200}
+     (200: two K8 / K9 shards merged), T in {1, 4, 16, 64}, alpha in {1,
+     0.25}, dead components and `blocks=(16, 16)` against the plain
+     versions within TOL, K6-K9 at D = 512 and 672 under the float64 rule,
+     the factorised K6 / K7 there against the float64 `torch.fft`
+     pipeline, `tools.circ_kernel_bench` (its four legs), `run_gmm` at D =
+     512, K = 16 with `cov_type='circulant'` flat and at T = 4 (genie <
+     GMM < LS at every SNR; the flat run's NMSE within TOL of the same
+     run through the `torch.fft` pipeline), the structured service on a D
+     = 512 bank against the `torch.fft` service,
+     `estimate_sharded_circulant` over
+     an in-process 1 x 2 mesh flat and at T = 4 (past TOL of the
+     `torch.fft` answers, held against float64), the stages' entries at D
+     = 652 (the wide K6 / K7), 20 NaN-poisoned repeats a shape, and the
+     times at D = 512, K = 16, 32768 rows beside the bound, the plain
+     version and the `torch.fft` pipeline (the factorised K6 / K7 and the
+     wide form in one call; the factorised ones at D = 672 too), and one
+     record of the narrow headline (D = 64, K = 64, 131072 rows: the
+     factorised kernel beside the narrow K6 template); then the
+     multi-pilot circulant
      kernel on wide banks (phase 3m, `wide_mp_circ_phase`): the wide form
      of K10 (past the template's rule) at twelve (D, K, P, T, alpha)
      cases from D = 129 to 357, K to 4096, P to 4, T in {1, 4, 16}, dead
@@ -2371,10 +2381,16 @@ def wide_topk_phase(dev, card, kernels, errs, add, fitted):
 
 
 # phase 3l: the circulant kernels on wide banks. Cases (D, K, T, alpha,
-# dead components, blocks): K <= 128 through one launch of K6 / K7 and of
-# K8 / K9, K = 200 through two K8 / K9 shards, merged
+# dead components, blocks): K <= 128 through one launch of K6 / K7 (the
+# factorised kernel where D splits, `circ_kernels.circ_route`; the dense
+# wide form at 131, 134 and 652) and of K8 / K9, K = 200 through two K8 /
+# K9 shards, merged
 WIDE_CIRC_CASES = (
     (129, 1, 1, 1.0, 0, None),
+    (131, 16, 1, 1.0, 1, None),
+    (134, 8, 4, 0.25, 1, None),
+    (652, 16, 4, 1.0, 2, None),
+    (357, 128, 64, 0.25, 3, None),
     (129, 16, 4, 0.25, 1, None),
     (192, 64, 16, 1.0, 2, None),
     (256, 16, 1, 1.0, 2, (16, 16)),
@@ -2399,62 +2415,79 @@ WIDE_CIRC_NAMES = {(False, False): "circ_estimate_wide",
                    (True, False): "circ_estimate_coherent_wide",
                    (False, True): "circ_estimate_stats_wide",
                    (True, True): "circ_estimate_coherent_stats_wide"}
+FACT_CIRC_NAMES = {False: "circ_estimate_fact",
+                   True: "circ_estimate_coherent_fact"}
+# a width the factorised kernel does not split (4 x 163): the dense wide
+# K6 / K7's main path, the stages' entries
+WIDE_CIRC_DENSE_D = 652
 
 
 def wide_circ_phase(dev, card, kernels, errs, add):
-    """Phase 3l, the circulant kernels on wide banks: the wide form of
-    K6-K9 (`csrc/circ_wide_estimate.cu`, past the template's D = 128, up
-    to the rule's D = 672).
+    """Phase 3l, the circulant kernels on wide banks, past the template's
+    D = 128 up to the rule's D = 672: K6 / K7 on the factorised kernel
+    (`csrc/circ_fact_estimate.cu`) where the transform splits
+    (`circ_kernels.circ_route`) and on the wide form
+    (`csrc/circ_wide_estimate.cu`) elsewhere; K8 / K9 on the wide form.
 
     1. At each of WIDE_CIRC_CASES (seeded circulant banks at 10 dB, 2
        bits, their quantized observations, 4097 rows or the whole blocks
        below): K6 (T = 1) or K7 and K8 or K9 against their plain versions
-       within TOL of the scale, or where the float32 plain version's own
-       rounding (logits in the thousands, pooled over T rows) pushes the
-       two apart, both against the plain version in float64 (`compare64`
-       at ceiling TOL: the kernel within TOL of the scale of the float64
-       plain version and its error at most twice the float32 plain
-       version's; every comparison's readings kept under
-       "against_float64"); K = 200: each
+       (the factorised kernel's `circ_fact_reference`) within TOL of the
+       scale, or where the float32 plain version's own rounding (logits in
+       the thousands, pooled over T rows) pushes the two apart, both
+       against the plain version in float64 (`compare64` at ceiling TOL:
+       the kernel within TOL of the scale of the float64 plain version
+       and its error at most twice the float32 plain version's; every
+       comparison's readings kept under "against_float64"); K = 200: each
        of the two shards' K8 / K9 states, and the merged quotient, which
        the entry returns, against the plain states merged likewise. Then
-       K6, K7 (T = 4), K8 and K9 (T = 4) at
-       D = 512 and 672, K = 16, under the float64 rule (`fp32_accuracy`,
-       each of m, den and acc for the stats forms).
+       K6, K7 (T = 4), K8 and K9 (T = 4) at D = 512 and 672, K = 16, under
+       the float64 rule (`fp32_accuracy`, each of m, den and acc for the
+       stats forms).
     2. `tools.circ_kernel_bench`, its four legs (flat, coherent, tp, d512)
        with the kernels' ms, bound and the `torch.fft` pipeline's ms; on
-       the d512 leg's inputs the wide K6, its plain version (in float32,
-       and in float64 on the same layout) and the pipeline against the
-       pipeline in float64, the wide K6 at most twice the error of its
-       plain version and of the pipeline; the tool's
+       the d512 leg's inputs, and the same at D = 672, the factorised K6
+       and K7 (T = 4) through the entries, their plain version (in
+       float32, and in float64 on the same layout) and the pipeline
+       against the pipeline in float64, the kernel at most twice the
+       error of its plain version and of the pipeline; the tool's
        `dft_construction_error` at D = 64, 128 and 512 (recorded).
     3. The main paths, each with the launch counts set to 0 just before it
        and read just after: `run_gmm` at D = 512, K = 16 (`WIDE_CIRC_FIT`,
-       7 SNRs) flat and at T = 4 (genie < GMM < LS at every SNR; the wide
-       K6, and the wide K7 for the coherent column, launched once an SNR
-       and no other kernel); the structured service on a D = 512, K = 16
-       circulant prior (8 clients x 64 snapshots, 1 s, flat and T = 4
-       blocks), every answer within TOL of the scale of a `torch.fft`
-       service's to the same request or, past it, within TOL of the
-       kernels' plain version in float64 and no further from it than twice
-       that service's answer (`serve_mode(same_as_exact=)`); and
+       7 SNRs) flat and at T = 4 (genie < GMM < LS at every SNR; the
+       factorised K6, and K7 for the coherent column, launched once an SNR
+       and no other kernel; the flat run's NMSE within TOL of the same run
+       on the saved fit through the `torch.fft` pipeline); the structured
+       service on a D = 512, K = 16 circulant prior (8 clients x 64
+       snapshots, 1 s, flat and T = 4 blocks), every answer within TOL of
+       the scale of a `torch.fft` service's to the same request or, past
+       it, within TOL of the factorised kernel's plain version in float64
+       and no further from it than twice that service's answer
+       (`serve_mode(same_as_exact=)`);
        `parallel.mesh.estimate_sharded_circulant` over an in-process 1 x 2
        mesh, flat and T = 4 blocks, against the `torch.fft` pipeline under
-       the same rule (`compare64`).
+       the same rule (`compare64`); and `stages.estimate_circulant[
+       _coherent]` at D = 652 = 4 x 163 (the wide K6 / K7) under the same
+       rule.
     4. The wide K6-K9 launched 20 times at each shape of
-       `tools.tc_repeat_check.WIDE_CIRC_SHAPES` on NaN-filled outputs,
-       bit for bit the first launch.
-    5. CUDA-event times at D = 512, K = 16, 32768 rows (K6, K7 and K9 at T
-       = 4, K8), each beside its plain version, the bound
+       `tools.tc_repeat_check.WIDE_CIRC_SHAPES`, and the factorised K6 /
+       K7 at each of `FACT_CIRC_SHAPES`, on NaN-filled outputs, bit for
+       bit the first launch.
+    5. CUDA-event times at D = 512, K = 16, 32768 rows (the factorised K6
+       and K7 at T = 4, and in the same call the wide K6, K7 and K9 at T =
+       4, K8), each beside its plain version, the bound
        (`circ_kernels.circ_bound`: the transforms as FFTs; and the
        kernels' dense transforms) and the library yardstick (the
-       `torch.fft` pipeline over the batch as one chunk).
+       `torch.fft` pipeline over the batch as one chunk); the factorised
+       K6 / K7 at D = 672 beside the pipeline; at the narrow headline (D =
+       64, K = 64, 131072 rows) the factorised kernel and the narrow K6
+       template in turns.
     Returns the phase's record; its timing records are the kernels line's
-    entries of the four wide wrappers."""
+    entries of the four wide wrappers and the two factorised ones."""
     from quantized_channel_estimation_torch import serving
     from quantized_channel_estimation_torch.estimators import (
         circ_kernels as ck)
-    from quantized_channel_estimation_torch.harness import run_gmm
+    from quantized_channel_estimation_torch.harness import run_gmm, stages
     from quantized_channel_estimation_torch.models import (
         structured_bank as sb)
     from quantized_channel_estimation_torch.ops import quantizer as Q
@@ -2482,9 +2515,19 @@ def wide_circ_phase(dev, card, kernels, errs, add):
         return (ck.circ_estimate_coherent(x2, ckb, t, alpha) if t > 1
                 else ck.circ_estimate(x2, ckb),)
 
-    def plain(ckb, x2, t, alpha, stats):
+    def plain(ckb, x2, t, alpha, stats, blocks=None):
+        """The plain version of the kernel the wrappers launch (`name`)."""
+        if (route_name(x2.shape[1] // 2, t, stats, blocks)
+                in FACT_CIRC_NAMES.values()):
+            return (ck.circ_fact_reference(x2, ckb, t, alpha, blocks),)
         out = ck._circ_reference(x2, ckb, t, alpha, stats, 16384)
         return out if stats else (out,)
+
+    def route_name(d, t, stats, blocks=None):
+        """The wrapper that counts the launch at (D, T, stats, basis)."""
+        if ck.circ_route(d, blocks, stats) == "fact":
+            return FACT_CIRC_NAMES[t > 1]
+        return WIDE_CIRC_NAMES[(t > 1, stats)]
 
     def quotient(states):
         _, den, acc = ck.merge_stats(*zip(*states))
@@ -2512,31 +2555,31 @@ def wide_circ_phase(dev, card, kernels, errs, add):
         ckbs = ck.lowered(bank, None, blocks, t, alpha)
         worst = 0.0
         for stats in (False, True) if len(ckbs) == 1 else (True,):
-            name = WIDE_CIRC_NAMES[(t > 1, stats)]
+            wname = route_name(d, t, stats, blocks)
             states, want_states, exact_states = [], [], []
             for j, ckb in enumerate(ckbs):
                 got = kernel(ckb, x2, t, alpha, stats)
-                want = plain(ckb, x2, t, alpha, stats)
-                want64 = plain(f64(ckb), x2.double(), t, alpha, stats)
+                want = plain(ckb, x2, t, alpha, stats, blocks)
+                want64 = plain(f64(ckb), x2.double(), t, alpha, stats, blocks)
                 for part, g, w, w64 in zip(("m", "den", "acc") if stats
                                            else ("out",), got, want, want64):
-                    errs[name].append(held(
-                        name, f"{label}, shard {j} {part}",
+                    errs[wname].append(held(
+                        wname, f"{label}, shard {j} {part}",
                         g.reshape(n, -1), w.reshape(n, -1),
                         w64.reshape(n, -1)))
-                    worst = max(worst, errs[name][-1]
+                    worst = max(worst, errs[wname][-1]
                                 / float(w.abs().max()))
                 states.append(got)
                 want_states.append(want)
                 exact_states.append(want64)
             if len(ckbs) > 1:       # the shards merged, as the entry does
-                held(name, f"{label}, {len(ckbs)} shards merged",
+                held(wname, f"{label}, {len(ckbs)} shards merged",
                           quotient(states), quotient(want_states),
                           quotient(exact_states))
                 entry = (ck.estimate_fused_circulant_coherent(
                     bank, r.reshape(-1, t, d), alpha, blocks) if t > 1
                     else ck.estimate_fused_circulant(bank, r, blocks))
-                compare(f"{name}, the entry", label,
+                compare(f"{wname}, the entry", label,
                         ck._x2(sb.unitary_ifft(ck._hc(
                             quotient(states), torch.complex64), blocks)),
                         ck._x2(entry.reshape(n, d)), tol=1e-5)
@@ -2549,7 +2592,7 @@ def wide_circ_phase(dev, card, kernels, errs, add):
         r = common.observations(dev, q, WIDE_CIRC_N // 4 * 4, n_ant=d)
         x2 = ck._x2(r)
         for t, stats in ((1, False), (4, False), (1, True), (4, True)):
-            name = WIDE_CIRC_NAMES[(t > 1, stats)]
+            wname = route_name(d, t, stats)
             ckb = ck.circ_kernel_bank(bank, None, t, 1.0)
             got = kernel(ckb, x2, t, 1.0, stats)
             want = plain(ckb, x2, t, 1.0, stats)
@@ -2557,11 +2600,11 @@ def wide_circ_phase(dev, card, kernels, errs, add):
             for part, g, w, w64 in zip(("m", "den", "acc") if stats
                                        else ("out",), got, want, want64):
                 label = f"D={d}, K=16, T={t}, {part}"
-                errs[name].append(held(name, label, g, w, w64))
-                acc, rule = fp32_accuracy(name, label, g, w, w64)
-                rec["fp32_accuracy"][f"{name} {label}"] = acc
+                errs[wname].append(held(wname, label, g, w, w64))
+                acc, rule = fp32_accuracy(wname, label, g, w, w64)
+                rec["fp32_accuracy"][f"{wname} {label}"] = acc
                 if not rule:
-                    raise AssertionError(f"{name} at {label}: the float64 "
+                    raise AssertionError(f"{wname} at {label}: the float64 "
                                          "rule does not hold")
         del bank, r, x2
 
@@ -2575,42 +2618,57 @@ def wide_circ_phase(dev, card, kernels, errs, add):
                 raise AssertionError(f"circ_kernel_bench {leg} {label}: "
                                      f"{route}")
     if tool["legs"]["d512"]["fused circ kernel"]["launches"] != {
-            "circ_estimate_wide": 1}:
+            "circ_estimate_fact": 1}:
         raise AssertionError(f"the d512 leg launched "
                              f"{tool['legs']['d512']['fused circ kernel']}")
     rec["circ_kernel_bench"] = tool
-    # the d512 leg's inputs against the torch.fft pipeline in float64: the
-    # wide K6, its float32 plain version, that plain version in float64 on
-    # the same float32 layout (the layout's own floor: its DFT matrix
-    # rounded to float32) and the float32 pipeline; the wide K6 at most
-    # twice the error of its plain version and of the pipeline
-    syn = circ_kernel_bench.synthetic_bank(512, 16, device=dev)
-    r_syn = circ_kernel_bench.complex_randn((WIDE_CIRC_BATCH, 512),
-                                            device=dev)
-    exact = real_rows(sb.estimate_circulant(
-        c128(syn), r_syn.to(torch.complex128), "all", 16384, None, "fft"))
-    ckb_syn = ck.circ_kernel_bank(syn)
-    x_syn = ck._x2(r_syn)
-    scale = float(exact.abs().max())
-    rec["d512_against_float64_fft"] = {
-        label: float((x.double() - exact).abs().max()) / scale
-        for label, x in (
-            ("kernel", real_rows(ck.estimate_fused_circulant(syn, r_syn))),
-            ("plain", ck.circ_estimate_reference(x_syn, ckb_syn)),
-            ("plain_float64_layout_float32", ck.circ_estimate_reference(
-                x_syn.double(), f64(ckb_syn))),
-            ("fft", real_rows(sb.estimate_circulant(
-                syn, r_syn, "all", 16384, None, "fft"))))}
-    log("circ_kernel_bench d512 inputs against the torch.fft pipeline in "
-        "float64 (fractions of scale): " + ", ".join(
-            f"{k2} {v:.3e}" for k2, v in
-            rec["d512_against_float64_fft"].items()))
-    acc_d512 = rec["d512_against_float64_fft"]
-    if not acc_d512["kernel"] <= 2 * min(acc_d512["plain"], acc_d512["fft"]):
-        raise AssertionError(f"the wide K6 less accurate than its plain "
-                             f"version or the torch.fft pipeline: "
-                             f"{acc_d512}")
-    del syn, r_syn, exact, ckb_syn, x_syn
+    # the d512 leg's inputs (and the same at D = 672) against the
+    # torch.fft pipeline in float64, K6 and K7 at T = 4: the kernel the
+    # entry launches (the factorised one), its float32 plain version, that
+    # plain version in float64 on the same float32 layout and the float32
+    # pipeline; the kernel at most twice the error of its plain version
+    # and of the pipeline
+    rec["against_float64_fft"] = {}
+    for d_f in (512, 672):
+        syn = circ_kernel_bench.synthetic_bank(d_f, 16, device=dev)
+        r_syn = circ_kernel_bench.complex_randn((WIDE_CIRC_BATCH, d_f),
+                                                device=dev)
+        x_syn = ck._x2(r_syn)
+        for t in (1, 4):
+            rt = r_syn.reshape(-1, t, d_f) if t > 1 else r_syn
+
+            def pipeline(bank_c, r_c, t=t):
+                if t > 1:
+                    return sb.estimate_circulant_coherent(
+                        bank_c, r_c, "all", 4096, 1.0, None, "fft")
+                return sb.estimate_circulant(bank_c, r_c, "all", 16384, None,
+                                             "fft")
+
+            exact = real_rows(pipeline(c128(syn), rt.to(torch.complex128)))
+            ckb_syn = ck.circ_kernel_bank(syn, None, t, 1.0)
+            entry = (ck.estimate_fused_circulant_coherent(syn, rt, 1.0)
+                     if t > 1 else ck.estimate_fused_circulant(syn, rt))
+            scale = float(exact.abs().max())
+            acc_f = {
+                label: float((x.double() - exact).abs().max()) / scale
+                for label, x in (
+                    ("kernel", real_rows(entry)),
+                    ("plain", ck.circ_fact_reference(x_syn, ckb_syn, t)),
+                    ("plain_float64_layout_float32", ck.circ_fact_reference(
+                        x_syn.double(), f64(ckb_syn), t)),
+                    ("fft", real_rows(pipeline(syn, rt))))}
+            key = f"D={d_f}, K=16, T={t}"
+            rec["against_float64_fft"][key] = acc_f
+            log(f"circ_kernel_bench inputs at {key} against the torch.fft "
+                "pipeline in float64 (fractions of scale): " + ", ".join(
+                    f"{k2} {v:.3e}" for k2, v in acc_f.items()))
+            if not acc_f["kernel"] <= 2 * min(acc_f["plain"], acc_f["fft"]):
+                raise AssertionError(f"the factorised K6 / K7 at {key} less "
+                                     f"accurate than its plain version or "
+                                     f"the torch.fft pipeline: {acc_f}")
+        del syn, r_syn, x_syn, exact, entry
+    rec["d512_against_float64_fft"] = rec["against_float64_fft"][
+        "D=512, K=16, T=1"]
     # the layout's own floor by the construction of its DFT matrix, at the
     # narrow template's widths and at D = 512
     rec["dft_construction"] = {
@@ -2640,15 +2698,37 @@ def wide_circ_phase(dev, card, kernels, errs, add):
 
     rec["paths"] = {}
     for label, change, want_kernels in (
-            ("run_gmm D=512, K=16, circulant", {}, {"circ_estimate_wide"}),
+            ("run_gmm D=512, K=16, circulant", {}, {"circ_estimate_fact"}),
             ("run_gmm D=512, K=16, circulant, T=4",
              dict(n_coherence=4, coherence_alpha=1.0),
-             {"circ_estimate_wide", "circ_estimate_coherent_wide"})):
+             {"circ_estimate_fact", "circ_estimate_coherent_fact"})):
         with tempfile.TemporaryDirectory() as tmp:
             cfg, mse, _, timings, seconds, launches = main_path_run(
-                run_gmm, kernels, dev, tmp, **WIDE_CIRC_FIT, **change)
-        launches = {k: v for k, v in launches.items() if v}
-        add(launches)
+                run_gmm, kernels, dev, tmp, use_cache=True, **WIDE_CIRC_FIT,
+                **change)
+            launches = {k: v for k, v in launches.items() if v}
+            add(launches)
+            rel_fft = None
+            if not change:
+                # the flat run on the saved fit through the torch.fft
+                # pipeline (the coherent kernel is held against it by the
+                # service and the float64 checks above)
+                circ_method = stages._circ_method
+                stages._circ_method = lambda method, mode, bank, t=1: "fft"
+                try:
+                    mse_fft = main_path_run(run_gmm, kernels, dev, tmp,
+                                            use_cache=True,
+                                            **WIDE_CIRC_FIT)[1]
+                finally:
+                    stages._circ_method = circ_method
+                rel_fft = max(abs(m - f) / f for m, f in zip(
+                    mse["blmmse_gmm"], mse_fft["blmmse_gmm"]))
+                log(f"{label}: NMSE through the kernels against the "
+                    f"torch.fft pipeline on the same fit, largest relative "
+                    f"difference {rel_fft:.3e}")
+                if not rel_fft <= TOL:
+                    raise AssertionError(f"{label}: NMSE {rel_fft:.3e} from "
+                                         f"the torch.fft pipeline's")
         if set(launches) != want_kernels or any(
                 v < len(cfg.snrs) for v in launches.values()):
             raise AssertionError(f"{label} launched {launches}")
@@ -2666,7 +2746,8 @@ def wide_circ_phase(dev, card, kernels, errs, add):
             + f"; fit {timings['gmm_fit']:.1f}s of {seconds:.1f}s")
         rec["paths"][label] = {"mse": mse, "launches": launches,
                                "seconds": seconds,
-                               "gmm_fit_s": timings["gmm_fit"]}
+                               "gmm_fit_s": timings["gmm_fit"],
+                               "nmse_rel_to_fft": rel_fft}
 
     # the structured service on a D = 512 prior against a torch.fft
     # service, and the sharded estimator over a 1 x 2 in-process mesh.
@@ -2691,20 +2772,25 @@ def wide_circ_phase(dev, card, kernels, errs, add):
                                                   1.0, None, "fft")
         return sb.estimate_circulant(bank_c, rt, "all", 16384, None, "fft")
 
-    def plain64(rt, snr=SNR):
+    def plain64(rt, snr=SNR, fact=False):
         """The kernels' plain version in float64 on the float32 layout of
-        the bank at `snr`, complex (n, D) or blocks (B, T, D)."""
+        the bank at `snr`, complex (n, D) or blocks (B, T, D): with `fact`
+        the factorised kernel's (`circ_fact_reference`: its tables exact
+        in float64), else the wide form's."""
         t = rt.shape[1] if rt.dim() == 3 else 1
-        out = ck._circ_reference(
-            torch.view_as_real(rt.to(torch.complex128).contiguous())
-            .reshape(-1, 2 * d), f64(ck.circ_kernel_bank(banks[snr], None,
-                                                          t, 1.0)),
-            t, 1.0, False, 16384)
+        x = torch.view_as_real(rt.to(torch.complex128).contiguous()).reshape(
+            -1, 2 * d)
+        lay = f64(ck.circ_kernel_bank(banks[snr], None, t, 1.0))
+        out = (ck.circ_fact_reference(x, lay, t) if fact
+               else ck._circ_reference(x, lay, t, 1.0, False, 16384))
         return torch.view_as_complex(out.reshape(-1, d, 2)).reshape(
             rt.shape)
 
-    def plain64_np(r_np, snr):
-        return plain64(torch.as_tensor(r_np, device=dev), snr).cpu().numpy()
+    def fact64(rt, snr=SNR):
+        return plain64(rt, snr, fact=True)
+
+    def fact64_np(r_np, snr):
+        return fact64(torch.as_tensor(r_np, device=dev), snr).cpu().numpy()
 
     svc, fft_svc = (serving.EstimationService.from_circulant_spectra(
         w_np, means_np, spec_np, a_eye, N_BITS, max_batch=SERVE_MAX_BATCH,
@@ -2712,12 +2798,12 @@ def wide_circ_phase(dev, card, kernels, errs, add):
     try:
         rec["service"] = []
         for label, t_coh, name in (
-                ("structured D=512 flat all", 1, "circ_estimate_wide"),
+                ("structured D=512 flat all", 1, "circ_estimate_fact"),
                 ("structured D=512 T=4 blocks, alpha=1", 4,
-                 "circ_estimate_coherent_wide")):
+                 "circ_estimate_coherent_fact")):
             rec["service"].append(serve_mode(
-                svc, kernels, dev, label, t_coh, name, plain64, seconds=1.0,
-                same_as=fft_svc, d=d, same_as_exact=plain64_np))
+                svc, kernels, dev, label, t_coh, name, fact64, seconds=1.0,
+                same_as=fft_svc, d=d, same_as_exact=fact64_np))
             add(rec["service"][-1]["launches"])
             log(f"serving [{label}]: answers further than {TOL} from the "
                 f"torch.fft service's: {rec['service'][-1]['answers_past_tol']}"
@@ -2746,6 +2832,36 @@ def wide_circ_phase(dev, card, kernels, errs, add):
         rec["paths"][label] = {"rel_to_fft": rel, "launches": launches,
                                "seconds": seconds}
     del r, bank, banks
+    # the dense wide K6 / K7's main path: the stages' entries at a width the
+    # factorised kernel does not split, against the torch.fft pipeline
+    # under the same rule
+    d_w = WIDE_CIRC_DENSE_D
+    bank_w = circ_bank(dev, q, d_w, k, 2)
+    r_w = common.observations(dev, q, 8192, n_ant=d_w)
+    for label, rr, want_kernels in (
+            (f"stages.estimate_circulant D={d_w}", r_w,
+             {"circ_estimate_wide"}),
+            (f"stages.estimate_circulant_coherent D={d_w}, T=4",
+             r_w.reshape(-1, 4, d_w), {"circ_estimate_coherent_wide"})):
+        t = rr.shape[1] if rr.dim() == 3 else 1
+        got, launches, seconds = counted(
+            label, lambda x=rr: (stages.estimate_circulant_coherent(bank_w, x)
+                                 if x.dim() == 3
+                                 else stages.estimate_circulant(bank_w, x)),
+            want_kernels)
+        want = (sb.estimate_circulant_coherent(bank_w, rr, "all", 4096, 1.0,
+                                               None, "fft") if t > 1
+                else sb.estimate_circulant(bank_w, rr, "all", 16384, None,
+                                           "fft"))
+        want64 = ck._circ_reference(
+            real_rows(rr.to(torch.complex128)),
+            f64(ck.circ_kernel_bank(bank_w, None, t, 1.0)), t, 1.0, False,
+            16384)
+        rel = held(label, "against the torch.fft pipeline", real_rows(got),
+                   real_rows(want), want64) / float(want.abs().max())
+        rec["paths"][label] = {"rel_to_fft": rel, "launches": launches,
+                               "seconds": seconds}
+    del bank_w, r_w
     f64_rec = rec["against_float64"].values()
     ruled = [v for v in f64_rec if v["float64_rule"]]
     log(f"wide circulant comparisons: {len(f64_rec)}, {len(ruled)} decided "
@@ -2758,15 +2874,17 @@ def wide_circ_phase(dev, card, kernels, errs, add):
 
     # 4. repeated launches
     tm = time.time()
-    rep = trc.repeat_check(dev, repeats=20, modes=("wide_circ",))["kernel"]
+    rep = trc.repeat_check(dev, repeats=20,
+                           modes=("wide_circ", "fact_circ"))["kernel"]
     bad = {k2: v for k2, v in rep.items() if v["failures"]}
-    log(f"wide K6-K9 repeated: {sum(v['launches'] for v in rep.values())} "
+    log(f"wide K6-K9 and the factorised K6 / K7 repeated: "
+        f"{sum(v['launches'] for v in rep.values())} "
         f"launches in {time.time() - tm:.1f}s, max err "
         f"{max(v['max_err'] for v in rep.values()):.3e}, failures "
         f"{bad or 0}")
     if bad:
-        raise AssertionError(f"the wide K6-K9 off on repeated launches: "
-                             f"{bad}")
+        raise AssertionError(f"the wide K6-K9 or the factorised K6 / K7 off "
+                             f"on repeated launches: {bad}")
     rec["repeat_check"] = rep
 
     # 5. times at D = 512, K = 16, 32768 rows
@@ -2778,15 +2896,29 @@ def wide_circ_phase(dev, card, kernels, errs, add):
     ckb, ckb4 = ck.circ_kernel_bank(bank), ck.circ_kernel_bank(bank, None,
                                                                  4, 1.0)
     ops, ops_s = ck.circ_wide_operands(ckb), ck.circ_wide_operands(ckb, True)
+    fops = ck.circ_fact_operands(ckb)
     times = {}
     for name, t, stats, kern, library, chunked in (
+            # the factorised K6 / K7 (the wrappers' route at D = 512) and,
+            # in the same call, the dense wide form they replace there
+            ("circ_estimate_fact", 1, False,
+             lambda: ck.circ_estimate(x2, ckb, fops),
+             lambda: sb.estimate_circulant(bank, r, "all", n, None, "fft"),
+             lambda: sb.estimate_circulant(bank, r, "all", 16384, None,
+                                           "fft")),
+            ("circ_estimate_coherent_fact", 4, False,
+             lambda: ck.circ_estimate_coherent(x2, ckb4, 4, 1.0, fops),
+             lambda: sb.estimate_circulant_coherent(bank, rb, "all", n // 4,
+                                                    1.0, None, "fft"),
+             lambda: sb.estimate_circulant_coherent(bank, rb, "all", 4096,
+                                                    1.0, None, "fft")),
             ("circ_estimate_wide", 1, False,
-             lambda: ck.circ_estimate(x2, ckb, ops),
+             lambda: ck.circ_estimate_wide(x2, ckb, ops),
              lambda: sb.estimate_circulant(bank, r, "all", n, None, "fft"),
              lambda: sb.estimate_circulant(bank, r, "all", 16384, None,
                                            "fft")),
             ("circ_estimate_coherent_wide", 4, False,
-             lambda: ck.circ_estimate_coherent(x2, ckb4, 4, 1.0, ops),
+             lambda: ck.circ_estimate_coherent_wide(x2, ckb4, 4, 1.0, ops),
              lambda: sb.estimate_circulant_coherent(bank, rb, "all", n // 4,
                                                     1.0, None, "fft"),
              lambda: sb.estimate_circulant_coherent(bank, rb, "all", 4096,
@@ -2807,6 +2939,8 @@ def wide_circ_phase(dev, card, kernels, errs, add):
         c = ckb4 if t > 1 else ckb
         plain_fn = (lambda c=c, t=t, stats=stats:
                     ck._circ_reference(x2, c, t, 1.0, stats, 16384))
+        if name in FACT_CIRC_NAMES.values():
+            plain_fn = lambda c=c, t=t: ck.circ_fact_reference(x2, c, t)
         plain_ms = profiling.device_ms(plain_fn)
         ms = profiling.device_ms(kern)
         ms2 = profiling.device_ms(kern)
@@ -2830,6 +2964,70 @@ def wide_circ_phase(dev, card, kernels, errs, add):
             f"({b['bound_dft_ms'] / ms:.0%}), {n / (ms * 1e-3):.4g} "
             f"estimates/s; {card}")
     rec["times"] = times
+    del bank, r, rb, x2, ckb, ckb4, ops, ops_s, fops
+
+    # the factorised K6 / K7 at the rule's edge, D = 672 = 24 x 28, beside
+    # the one-chunk pipeline; and one record of the narrow headline (D = 64
+    # = 8 x 8, K = 64, 131072 rows), the factorised kernel beside the
+    # narrow K6 template in one call (no dispatch changes there)
+    rec["times_d672"] = {}
+    d7 = 672
+    bank = circ_bank(dev, q, d7, k, 2)
+    r = common.observations(dev, q, n, n_ant=d7)
+    x2 = ck._x2(r)
+    for name, t in (("circ_estimate_fact", 1),
+                    ("circ_estimate_coherent_fact", 4)):
+        c = ck.circ_kernel_bank(bank, None, t, 1.0)
+        fops = ck.circ_fact_operands(c)
+        rt = r.reshape(-1, t, d7)
+        kern = (lambda c=c, t=t, fops=fops:
+                ck.circ_estimate_coherent(x2, c, t, 1.0, fops) if t > 1
+                else ck.circ_estimate(x2, c, fops))
+        library = (lambda rt=rt, t=t: sb.estimate_circulant_coherent(
+            bank, rt, "all", n // t, 1.0, None, "fft") if t > 1
+            else sb.estimate_circulant(bank, r, "all", n, None, "fft"))
+        ms = profiling.device_ms(kern)
+        library_ms = profiling.device_ms(library)
+        b = ck.circ_bound(n, d7, k, t)
+        rec["times_d672"][name] = {"ms": ms, "library_ms": library_ms,
+                                   "bound_ms": b["bound_ms"],
+                                   "share_of_bound": b["bound_ms"] / ms}
+        log(f"{name} at N={n}, D={d7}, K={k}" + (", T=4" if t > 1 else "")
+            + f": kernel {ms:.3f} ms, library (torch.fft pipeline, one "
+            f"chunk) {library_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+            f"({b['bound_ms'] / ms:.1%} reached); {card}")
+    del bank, r, x2
+    n64 = 131072
+    bank = circ_bank(dev, q, 64, 64, 2)
+    r = common.observations(dev, q, n64, n_ant=64)
+    x2 = ck._x2(r)
+    cache = {}
+    c = ck.lowered(bank, cache)[0]
+    fops, tops = ck.circ_fact_operands(c), ck.lowered_tc(bank, cache)[0]
+    narrow = {}
+    for label, fn in (("fact", lambda: ck.circ_estimate_fact(x2, c, fops)),
+                      ("template", lambda: ck.circ_estimate(x2, c, tops)),
+                      ("template_again",
+                       lambda: ck.circ_estimate(x2, c, tops)),
+                      ("fact_again",
+                       lambda: ck.circ_estimate_fact(x2, c, fops))):
+        narrow[f"{label}_ms"] = profiling.device_ms(fn)
+    want = ck.circ_fact_reference(x2, c)
+    narrow["fact_rel_to_plain"] = float(
+        (ck.circ_estimate_fact(x2, c, fops) - want).abs().max()
+        / want.abs().max())
+    narrow["bound_ms"] = ck.circ_bound(n64, 64, 64)["bound_ms"]
+    rec["narrow_headline"] = narrow
+    log(f"the narrow headline (D = 64 = 8 x 8, K = 64, {n64} rows): the "
+        f"factorised kernel {narrow['fact_ms']:.3f} / "
+        f"{narrow['fact_again_ms']:.3f} ms, the narrow K6 template "
+        f"{narrow['template_ms']:.3f} / {narrow['template_again_ms']:.3f} "
+        f"ms, bound {narrow['bound_ms']:.3f} ms; the factorised kernel "
+        f"{narrow['fact_rel_to_plain']:.2e} of scale from its plain "
+        f"version; {card}")
+    if not narrow["fact_rel_to_plain"] <= TOL:
+        raise AssertionError(f"the factorised kernel at D = 64: {narrow}")
+    del bank, r, x2, cache
     rec["seconds"] = time.time() - t_phase
     log(f"wide circulant phase 3l: {rec['seconds']:.1f}s")
     return rec
@@ -6099,6 +6297,18 @@ def main():
               ("circ_estimate_stats_wide", "K8_wide", 1749, False),
               ("circ_estimate_coherent_stats_wide", "K9_wide", 1822,
                True))),
+        *({"name": name, "id": kid, "route": "cuda",
+           "source": src + "circ_fact_estimate.cu",
+           "replaces": f"{tpu}:{line}", "launches": total_launches[name],
+           "max_abs_err": max(errs[name]), "d": 512, "n_components": 16,
+           **({"t_coh": 4, "coh_alpha": 1.0} if coh else {}),
+           **circ_wide_rec["times"][name],
+           "at_d672": circ_wide_rec["times_d672"][name],
+           **({} if coh else
+              {"at_narrow_headline": circ_wide_rec["narrow_headline"]})}
+          for name, kid, line, coh in (
+              ("circ_estimate_fact", "K6_fact", 1309, False),
+              ("circ_estimate_coherent_fact", "K7_fact", 1647, True))),
         {"name": "mp_circ_estimate", "id": "K10", "route": "cuda",
          "source": src + "mp_circ_estimate.cu", "replaces": f"{tpu}:1505",
          "launches": total_launches["mp_circ_estimate"],

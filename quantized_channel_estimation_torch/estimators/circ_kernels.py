@@ -33,15 +33,28 @@ Differences of layout from the TPU kernels, none of arithmetic:
   inverse-transformed once.
 
 Past D = 128 (`CIRC_MAX_D`, the template's edge) the same wrappers launch
-the kernels' wide form, `csrc/circ_wide_estimate.cu` (counted apart:
-`circ_estimate_wide` and its coherent and stats siblings): the four
-products cut into 64-deep chunks on one wgmma template, each chunk's six
-bf16 products into a fresh accumulator, the chunks in a compensated sum,
-the intermediates (u, the logits, h) in global scratch between the
-passes, rows cut into launches within `kernels.WIDE_SCRATCH`.
-`circ_wide_operands` lays a `CircKernelBank` out as its units (cached per
-shard by `lowered_tc`), `circ_wide_rows` is the plain version of its row
-layout.
+one of two kernels, by one rule of the shapes (`circ_route`):
+
+- K6 / K7 wherever the transform splits into two levels of at most 64
+  points (`circ_fact_blocks`: the DFT at 314 of the 544 widths 129-672,
+  and kron bases of two such DFTs) run the factorised kernel,
+  `csrc/circ_fact_estimate.cu` (counted apart: `circ_estimate_fact`,
+  `circ_estimate_coherent_fact`): one launch a tile of 16 rows, the
+  transforms as Stockham stages in shared memory with the bins left in a
+  permuted order (`circ_fact_perm`), the logit and the combine on the
+  tensor cores, nothing in global memory between. `circ_fact_operands`
+  lays a `CircKernelBank` out for it (cached per shard by `lowered_tc`),
+  `circ_fact_reference` is its plain version;
+- the other wide widths, and the stats forms K8 / K9 at every wide width,
+  run the kernels' dense wide form, `csrc/circ_wide_estimate.cu` (counted
+  apart: `circ_estimate_wide` and its coherent and stats siblings): the
+  four products cut into 64-deep chunks on one wgmma template, each
+  chunk's six bf16 products into a fresh accumulator, the chunks in a
+  compensated sum, the intermediates (u, the logits, h) in global scratch
+  between the passes, rows cut into launches within
+  `kernels.WIDE_SCRATCH`. `circ_wide_operands` lays a `CircKernelBank`
+  out as its units (cached per shard by `lowered_tc`), `circ_wide_rows`
+  is the plain version of its row layout.
 
 A wrapper launches its kernel on a CUDA tensor (or raises) and takes the
 plain PyTorch version only for a tensor on the CPU.
@@ -49,7 +62,7 @@ plain PyTorch version only for a tensor on the CPU.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -290,13 +303,16 @@ def circ_wide_operands(ckb: CircKernelBank,
                                  .contiguous())))
 
 
-def circ_operands(ckb: CircKernelBank,
-                  stats: bool = False) -> tu.UnitOperands:
-    """The operands of the form that serves ckb's D: the template's units
-    (`circ_tc_operands`) up to D = 128, the wide form's
-    (`circ_wide_operands`) past it."""
-    wide = ckb.bfwd.shape[0] // 2 > CIRC_MAX_D
-    return (circ_wide_operands if wide else circ_tc_operands)(ckb, stats)
+def circ_operands(ckb: CircKernelBank, stats: bool = False, blocks=None):
+    """The operands of the kernel that serves ckb's D (`circ_route`, in
+    the basis `blocks`): the template's units (`circ_tc_operands`) up to D
+    = 128; past it the factorised kernel's (`circ_fact_operands`) or the
+    wide form's units (`circ_wide_operands`)."""
+    route = circ_route(ckb.bfwd.shape[0] // 2, blocks, stats)
+    if route == "fact":
+        return circ_fact_operands(ckb, blocks)
+    return (circ_wide_operands if route == "wide" else circ_tc_operands)(
+        ckb, stats)
 
 
 def circ_wide_rows(x: torch.Tensor, features: bool = False) -> torch.Tensor:
@@ -332,16 +348,16 @@ def circ_wide_rows(x: torch.Tensor, features: bool = False) -> torch.Tensor:
 def lowered_tc(bank: CirculantBank, cache: Optional[dict] = None,
                blocks=None, stats: bool = False):
     """The kernels' operands of each shard of `bank` (`circ_operands` of
-    its T = 1 layouts, `lowered`: the template's up to D = 128, the wide
-    form's past it), kept in `cache` under ("circ_tc_operands", blocks,
-    stats), or ("circ_wide_operands", ...) past D = 128, beside the
-    layouts, so a bank served many times is split and laid out once."""
-    wide = bank.spec_cr.shape[1] > CIRC_MAX_D
-    key = ("circ_wide_operands" if wide else "circ_tc_operands", blocks,
-           bool(stats))
+    its T = 1 layouts, `lowered`: the template's up to D = 128, past it the
+    factorised kernel's or the wide form's, `circ_route`), kept in `cache`
+    under ("circ_tc_operands", blocks, stats), ("circ_fact_operands", ...)
+    or ("circ_wide_operands", ...) beside the layouts, so a bank served
+    many times is split and laid out once."""
+    route = circ_route(bank.spec_cr.shape[1], blocks, stats)
+    key = (_OPERANDS[route], blocks, bool(stats))
     if cache is not None and key in cache:
         return cache[key]
-    ops = tuple(circ_operands(c, stats)
+    ops = tuple(circ_operands(c, stats, blocks)
                 for c in lowered(bank, cache, blocks))
     if cache is not None:
         cache[key] = ops
@@ -349,13 +365,275 @@ def lowered_tc(bank: CirculantBank, cache: Optional[dict] = None,
 
 
 # ---------------------------------------------------------------------------
+# the factorised kernel's layout (csrc/circ_fact_estimate.cu)
+# ---------------------------------------------------------------------------
+
+CIRC_FACT_MAX_N = 64    # points of one level of the factorised transform
+
+
+def circ_fact_split(d: int) -> Optional[Tuple[int, int]]:
+    """The factorised kernel's split of a D-point DFT: (d1, d2) with d1 d2
+    = D and 2 <= d1 <= d2 <= 64, d1 the largest divisor of D at most
+    sqrt(D) (the most balanced split: 512 -> (16, 32), 672 -> (24, 28),
+    357 -> (17, 21), 144 -> (12, 12)); None where none exists (a prime
+    factor past 64, or a prime D)."""
+    best = None
+    for d1 in range(2, math.isqrt(d) + 1):
+        if d % d1 == 0 and d // d1 <= CIRC_FACT_MAX_N:
+            best = (d1, d // d1)
+    return best
+
+
+def circ_fact_blocks(d: int, blocks=None) -> Optional[Tuple[int, int]]:
+    """The levels (d1, d2) of the factorised kernel for a bank over D bins
+    in the DFT basis (`circ_fact_split`) or in the kron(F_n1, F_n2) basis
+    `blocks` ((n1, n2) itself where 2 <= n1, n2 <= 64); None where the
+    kernel cannot take the transform."""
+    if blocks is None:
+        return circ_fact_split(d)
+    n1, n2 = (int(b) for b in blocks)
+    ok = 2 <= n1 <= CIRC_FACT_MAX_N and 2 <= n2 <= CIRC_FACT_MAX_N
+    return (n1, n2) if ok and n1 * n2 == d else None
+
+
+def circ_route(d: int, blocks=None, stats: bool = False) -> str:
+    """Which kernel serves the circulant wrappers at D bins: 'template'
+    (`csrc/mp_circ_estimate.cu`) up to D = 128; past it K6 / K7 on the
+    factorised kernel ('fact', `csrc/circ_fact_estimate.cu`) where the
+    transform splits (`circ_fact_blocks`), else, and for the stats forms
+    K8 / K9, the dense wide form ('wide', `csrc/circ_wide_estimate.cu`). A
+    rule of the shapes, decided before any launch."""
+    if d <= CIRC_MAX_D:
+        return "template"
+    if not stats and circ_fact_blocks(d, blocks) is not None:
+        return "fact"
+    return "wide"
+
+
+_OPERANDS = {"template": "circ_tc_operands", "wide": "circ_wide_operands",
+             "fact": "circ_fact_operands"}
+
+
+def circ_fact_perm(d: int, blocks=None) -> torch.Tensor:
+    """The bin at each position of the factorised transform's output
+    (long, (D,)): position p d2 + q holds bin p + d1 q of the DFT, and bin
+    p d2 + q of the kron basis (its natural order)."""
+    d1, d2 = circ_fact_blocks(d, blocks)
+    pos = torch.arange(d)
+    if blocks is not None:
+        return pos
+    return pos // d2 + d1 * (pos % d2)
+
+
+def _fact_tables(d1: int, d2: int, kron: bool, device=None):
+    """(W_d1, W_d2, cross) in complex128: W_n[t] = exp(-2 pi i t / n) and
+    cross[p d2 + b] = exp(-2 pi i p b / D) / sqrt(D) (1 / sqrt(D) for the
+    kron basis), the exponents reduced mod n before the phase is formed."""
+    d = d1 * d2
+
+    def w(n, e):
+        return torch.exp(-2j * math.pi * (e % n).to(torch.float64) / n)
+
+    t1 = w(d1, torch.arange(d1, device=device))
+    t2 = w(d2, torch.arange(d2, device=device))
+    pb = torch.outer(torch.arange(d1, device=device),
+                     torch.arange(d2, device=device)).reshape(-1)
+    cross = (torch.ones(d, dtype=torch.complex128, device=device) if kron
+             else w(d, pb)) / math.sqrt(d)
+    return t1, t2, cross
+
+
+def _dft(table: torch.Tensor) -> torch.Tensor:
+    """The n-point DFT matrix W_n^{jk} from the table W_n[t]."""
+    n = table.shape[0]
+    e = torch.outer(torch.arange(n, device=table.device),
+                    torch.arange(n, device=table.device)) % n
+    return table[e]
+
+
+def circ_fact_transform(xc: torch.Tensor, d1: int, d2: int,
+                        kron: bool = False,
+                        inverse: bool = False) -> torch.Tensor:
+    """Plain version of the factorised kernel's transforms on complex rows
+    (n, D) in their own precision (complex64: the tables rounded once from
+    complex128): forward, d2 DFTs of d1 points over a (x[a d2 + b]), the
+    cross twiddle with 1 / sqrt(D), d1 DFTs of d2 points over b, the bins
+    left at positions p d2 + q (`circ_fact_perm`); inverse, the mirrored
+    steps from that order into natural order. Each level is its factor's
+    dense DFT."""
+    n, d = xc.shape
+    t1, t2, cross = (t.to(xc.dtype) for t in _fact_tables(d1, d2, kron,
+                                                           xc.device))
+    f1, f2, cross = _dft(t1), _dft(t2), cross.reshape(d1, d2)
+    x3 = xc.reshape(n, d1, d2)
+    if not inverse:
+        a = (x3.transpose(1, 2) @ f1).transpose(1, 2) * cross
+        return (a @ f2).reshape(n, d)
+    g = (x3 @ f2.conj()) * cross.conj()
+    return (g.transpose(1, 2) @ f1.conj()).transpose(1, 2).reshape(n, d)
+
+
+def _fact_real(x2: torch.Tensor, d1: int, d2: int, kron: bool,
+               inverse: bool) -> torch.Tensor:
+    """`circ_fact_transform` on interleaved real rows (n, 2D)."""
+    xc = torch.view_as_complex(x2.reshape(x2.shape[0], -1, 2).contiguous())
+    out = circ_fact_transform(xc, d1, d2, kron, inverse)
+    return torch.view_as_real(out).reshape(x2.shape)
+
+
+def circ_fact_bank(ckb: CircKernelBank, blocks=None) -> CircKernelBank:
+    """ckb with its per-bin rows of lcoef (2c, 2c + 1, 2D + c) and columns
+    of comb (4c .. 4c + 3) in the factorised transform's order
+    (`circ_fact_perm`); bfwd and binv as they are (the factorised route
+    does not read them)."""
+    d = ckb.bfwd.shape[0] // 2
+    perm = circ_fact_perm(d, blocks).to(ckb.lcoef.device)
+    rows = torch.cat([torch.stack([2 * perm, 2 * perm + 1], -1).reshape(-1),
+                      2 * d + perm])
+    cols = (4 * perm[:, None] + torch.arange(4, device=perm.device)
+            ).reshape(-1)
+    return CircKernelBank(ckb.bfwd, ckb.lcoef[rows].contiguous(), ckb.const,
+                          ckb.comb[:, cols].contiguous(), ckb.binv)
+
+
+class CircFactOperands(NamedTuple):
+    """The factorised kernel's operands of a bank, over the kernel's
+    padded row of dp = d1 (d2 | 1) slots (`circ_fact_slots`; the pad
+    slots' rows and columns zero): each bf16 plane (hi, lo, lo2 of the
+    three-plane split) holds the permuted lcoef's mma.sync B fragments
+    ((k16 step, n8 tile) of the (3 dp, K) product, 32 lanes of four
+    values), then the permuted comb's ((n8 tile, k16 step) of the (K, 4 dp)
+    product), `circ_fact_units(d1, d2, K)` lanes of four; tw the float32
+    tables W_d1, W_d2 and the cross twiddle over the dp slots as
+    interleaved [re, im] pairs; the levels (d1, d2) and whether the basis
+    is kron's."""
+    hi: torch.Tensor
+    lo: torch.Tensor
+    lo2: torch.Tensor
+    tw: torch.Tensor
+    d1: int
+    d2: int
+    kron: bool
+
+
+def circ_fact_slots(d1: int, d2: int) -> torch.Tensor:
+    """The kernel's shared-memory slot of each position a d2 + b of the
+    transform's output (long, (d1 d2,)): lines of d2 | 1 slots, an odd
+    stride that puts the lines a half-warp reads at one offset on distinct
+    banks."""
+    pos = torch.arange(d1 * d2)
+    return pos // d2 * (d2 | 1) + pos % d2
+
+
+def circ_fact_units(d1: int, d2: int, k: int) -> int:
+    """Lanes (of four bf16) of each plane of `CircFactOperands` over dp =
+    d1 (d2 | 1) slots: the logit's ceil(3 dp / 16) x ceil(K / 8)
+    fragments and the combine's ceil(4 dp / 8) x ceil(K / 16), 32 lanes
+    each."""
+    dp = d1 * (d2 | 1)
+    return 32 * (-(-3 * dp // 16) * -(-k // 8) + -(-4 * dp // 8) * -(-k // 16))
+
+
+def _b_fragments(m: torch.Tensor, k_major: bool) -> torch.Tensor:
+    """A (depth, cols) operand -> its mma.sync m16n8k16 B fragments, (k16
+    step, n8 tile) in that order (`k_major`) or (n8 tile, k16 step), each
+    32 lanes of four values: lane 4 g + q holds rows 2q, 2q + 1, 2q + 8, 2q
+    + 9 of the step in column g of the tile; zero-padded."""
+    depth, cols = m.shape
+    a, b = -(-depth // 16), -(-cols // 8)
+    pad = m.new_zeros((16 * a, 8 * b))
+    pad[:depth, :cols] = m
+    six = pad.reshape(a, 2, 4, 2, b, 8)     # step, half, q, pair, tile, g
+    order = (0, 4, 5, 2, 1, 3) if k_major else (4, 0, 5, 2, 1, 3)
+    return six.permute(*order).reshape(-1, 4)
+
+
+def circ_fact_operands(ckb: CircKernelBank, blocks=None) -> CircFactOperands:
+    """Lay ckb out for the factorised kernel in the transform basis
+    `blocks` (None: the DFT): lcoef and comb permuted (`circ_fact_bank`)
+    onto the kernel's padded slots, split into bf16 hi / lo / lo2 and laid
+    out as B fragments; the tables built in float64 and rounded once. The
+    same for every (T, alpha) layout of a bank; once per bank (`lowered_tc`
+    keeps them)."""
+    d = ckb.bfwd.shape[0] // 2
+    levels = circ_fact_blocks(d, blocks)
+    if levels is None:
+        raise ValueError(f"the factorised kernel takes no D = {d} transform"
+                         f" (blocks={blocks}): circ_fact_blocks")
+    d1, d2 = levels
+    dp, k = d1 * (d2 | 1), ckb.const.shape[0]
+    fb = circ_fact_bank(ckb, blocks)
+    slot = circ_fact_slots(d1, d2).to(ckb.lcoef.device)
+    lcoef = fb.lcoef.new_zeros((3 * dp, k))
+    lcoef[2 * slot] = fb.lcoef[0:2 * d:2]
+    lcoef[2 * slot + 1] = fb.lcoef[1:2 * d:2]
+    lcoef[2 * dp + slot] = fb.lcoef[2 * d:]
+    comb = fb.comb.new_zeros((k, dp, 4))
+    comb[:, slot] = fb.comb.reshape(k, d, 4)
+    frags = torch.cat([_b_fragments(lcoef, True),
+                       _b_fragments(comb.reshape(k, 4 * dp), False)])
+    planes = kernels.split_planes3(frags.contiguous())
+    t1, t2, cross = _fact_tables(d1, d2, blocks is not None,
+                                 ckb.lcoef.device)
+    cross_p = cross.new_zeros((dp,))
+    cross_p[slot] = cross
+    tw = torch.view_as_real(torch.cat([t1, t2, cross_p])).to(torch.float32)
+    return CircFactOperands(*(pl.contiguous() for pl in planes),
+                            tw.reshape(-1).contiguous(), d1, d2,
+                            blocks is not None)
+
+
+def circ_basis_blocks(ckb: CircKernelBank):
+    """The transform basis of a layout, read from bfwd's column of point
+    1: None for the DFT, (n1, n2) for kron(F_n1, F_n2); raises for any
+    other matrix. Reads 2D values back from the layout's device."""
+    d = ckb.bfwd.shape[0] // 2
+    row = ckb.bfwd[2].double().cpu()
+    col = torch.complex(row[0::2], row[1::2])        # F[:, 1]
+    k = torch.arange(d)
+    tol = 1e-5 / math.sqrt(d)
+
+    def near(n2):
+        want = torch.exp(-2j * math.pi * (k % n2).double() / n2) / math.sqrt(d)
+        return float((col - want).abs().max()) <= tol
+
+    if near(d):
+        return None
+    phase = -float(torch.angle(col[1]))
+    if phase > 0:
+        n2 = round(2 * math.pi / phase)
+        if 1 <= n2 < d and d % n2 == 0 and near(n2):
+            return (d // n2, n2)
+    raise ValueError("the layout's transform is neither the DFT nor a kron "
+                     "basis of two DFTs")
+
+
+def circ_fact_reference(x2: torch.Tensor, ckb: CircKernelBank,
+                        t_coh: int = 1, coh_alpha: float = 1.0, blocks=None,
+                        chunk: int = 16384) -> torch.Tensor:
+    """Plain PyTorch version of the factorised kernel (K6 at t_coh = 1, K7
+    above) in x2's precision: the factorised transform
+    (`circ_fact_transform`), the logit and combine of the permuted layout
+    (`circ_fact_bank`) as `circ_estimate_reference` computes them, the
+    inverse into natural order. x2 (N, 2D) interleaved -> (N, 2D)."""
+    d = x2.shape[1] // 2
+    d1, d2 = circ_fact_blocks(d, blocks)
+    kron = blocks is not None
+    return _circ_reference(
+        x2, circ_fact_bank(ckb, blocks), t_coh, coh_alpha, False, chunk,
+        lambda x: _fact_real(x, d1, d2, kron, False),
+        lambda h: _fact_real(h, d1, d2, kron, True))
+
+
+# ---------------------------------------------------------------------------
 # plain versions: the kernels' own arithmetic in float32
 # ---------------------------------------------------------------------------
 
-def _circ_logits(x2: torch.Tensor, ckb: CircKernelBank):
-    """Forward transform and logits of rows x2 (n, 2D): u (n, D, 2) and
-    lg (n, K) = [u | |u|^2] @ lcoef + const (the expanded quadratic)."""
-    u = x2 @ ckb.bfwd
+def _circ_logits(x2: torch.Tensor, ckb: CircKernelBank, fwd=None):
+    """Forward transform (x2 @ bfwd, or `fwd`) and logits of rows x2 (n,
+    2D): u (n, D, 2) and lg (n, K) = [u | |u|^2] @ lcoef + const (the
+    expanded quadratic)."""
+    u = x2 @ ckb.bfwd if fwd is None else fwd(x2)
     u3 = u.reshape(u.shape[0], -1, 2)
     z = torch.cat([u, (u3 * u3).sum(-1)], dim=-1)
     return u3, z @ ckb.lcoef + ckb.const[None]
@@ -371,7 +649,11 @@ def _combine(u3: torch.Tensor, w: torch.Tensor,
     return torch.stack([hr, hi], dim=-1).reshape(w.shape[0], -1)
 
 
-def _circ_reference(x2, ckb, t_coh, coh_alpha, stats, chunk):
+def _circ_reference(x2, ckb, t_coh, coh_alpha, stats, chunk, fwd=None,
+                    inv=None):
+    """The plain K6-K9 on x2's rows, chunk rows (whole blocks) at a time;
+    the transforms by bfwd and binv, or by the functions `fwd` and `inv`
+    of interleaved rows."""
     pin_fp32()
     if x2.shape[0] % t_coh:
         raise ValueError(f"{x2.shape[0]} rows are no whole number of "
@@ -379,7 +661,7 @@ def _circ_reference(x2, ckb, t_coh, coh_alpha, stats, chunk):
     chunk = max(t_coh, chunk // t_coh * t_coh)   # whole blocks per chunk
     ms, dens, outs = [], [], []
     for i0 in range(0, x2.shape[0], chunk):
-        u3, lg = _circ_logits(x2[i0:i0 + chunk], ckb)
+        u3, lg = _circ_logits(x2[i0:i0 + chunk], ckb, fwd)
         lg = _pool(lg, t_coh, coh_alpha)
         m = lg.max(-1).values
         p = torch.exp(lg - m[:, None])
@@ -389,7 +671,8 @@ def _circ_reference(x2, ckb, t_coh, coh_alpha, stats, chunk):
             dens.append(den)
             outs.append(_combine(u3, p, ckb))
         else:
-            outs.append(_combine(u3, p / den[:, None], ckb) @ ckb.binv)
+            h = _combine(u3, p / den[:, None], ckb)
+            outs.append(h @ ckb.binv if inv is None else inv(h))
     out = torch.cat(outs) if outs else x2.new_zeros((0, x2.shape[1]))
     if not stats:
         return out
@@ -462,14 +745,27 @@ def _check_bank(x2: torch.Tensor, ckb: CircKernelBank) -> None:
     kernels._check_cuda("binv", ckb.binv, (two_d, two_d), dev)
 
 
-def _launch(wrapper, wide, x2: torch.Tensor, ckb: CircKernelBank,
-            t_coh: int, coh_alpha: float, stats: bool,
-            ops: Optional[tu.UnitOperands]):
+def _route(d: int, ckb: CircKernelBank, ops, stats: bool) -> str:
+    """`circ_route` for a launch: past D = 128 the factorised kernel's
+    operands name its route; otherwise the basis matters only where D
+    splits, and is then read from the layout (`circ_basis_blocks`)."""
+    if d <= CIRC_MAX_D or stats:
+        return circ_route(d, None, stats)
+    if isinstance(ops, CircFactOperands):
+        return "fact"
+    if circ_fact_split(d) is None:
+        return "wide"
+    return circ_route(d, circ_basis_blocks(ckb), stats)
+
+
+def _launch(wrapper, wide, fact, x2: torch.Tensor, ckb: CircKernelBank,
+            t_coh: int, coh_alpha: float, stats: bool, ops):
     """Validate, allocate and launch on x2's device and current stream
     with the bank's operands `ops` (laid out here when None): the template
-    at one pilot up to D = 128, counted on `wrapper`, the wide form past
-    it (`_launch_wide`), counted on `wide`; raise on any refusal. Returns
-    out, or (m, den, out) for stats."""
+    at one pilot up to D = 128, counted on `wrapper`; past it
+    (`_route`) the factorised kernel (`_launch_fact`), counted on `fact`,
+    or the wide form (`_launch_wide`), counted on `wide`; raise on any
+    refusal. Returns out, or (m, den, out) for stats."""
     n, two_d = x2.shape
     d = two_d // 2
     k = ckb.const.shape[0]
@@ -480,6 +776,8 @@ def _launch(wrapper, wide, x2: torch.Tensor, ckb: CircKernelBank,
             f"D <= {CIRC_WIDE_MAX_D}, K <= {CIRC_MAX_K} and T <= "
             f"{circ_tile_rows(d)}; got N={n}, D={d}, K={k}, T={t_coh}")
     if d > CIRC_MAX_D:
+        if _route(d, ckb, ops, stats) == "fact":
+            return _launch_fact(fact, x2, ckb, t_coh, coh_alpha, ops)
         return _launch_wide(wide, x2, ckb, t_coh, coh_alpha, stats, ops)
     _check_bank(x2, ckb)
     if ops is None:
@@ -564,6 +862,105 @@ def _launch_wide(wrapper, x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
     return result
 
 
+def _launch_fact(wrapper, x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
+                 coh_alpha: float, ops: Optional[CircFactOperands]
+                 ) -> torch.Tensor:
+    """Launch the factorised kernel (csrc/circ_fact_estimate.cu) on x2's
+    device and current stream with the bank's operands `ops` (laid out
+    here in the layout's own basis, `circ_basis_blocks`, when None), and
+    add one to `wrapper`'s count: -> out (N, 2D); raise on any refusal.
+    Takes D = d1 d2 with 2 <= d1, d2 <= 64 up to D = 672 (the wrappers
+    send it D > 128), K <= 128 and T <= 64."""
+    name = wrapper.__name__
+    n, two_d = x2.shape
+    d = two_d // 2
+    k = ckb.const.shape[0]
+    if (two_d % 2 or not 1 <= d <= CIRC_WIDE_MAX_D or not 1 <= k <= CIRC_MAX_K
+            or not 1 <= t_coh <= CIRC_MAX_T or n % t_coh):
+        raise ValueError(
+            f"{name} takes N rows of whole T-row blocks with D <= "
+            f"{CIRC_WIDE_MAX_D}, K <= {CIRC_MAX_K} and T <= {CIRC_MAX_T}; "
+            f"got N={n}, D={d}, K={k}, T={t_coh}")
+    dev = x2.device
+    kernels._check_cuda("x2", x2, (n, two_d), dev)
+    kernels._check_cuda("lcoef", ckb.lcoef, (3 * d, k), dev)
+    kernels._check_cuda("const", ckb.const, (k,), dev)
+    kernels._check_cuda("comb", ckb.comb, (k, 4 * d), dev)
+    out = torch.empty((n, two_d), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    if ops is None:
+        ops = circ_fact_operands(ckb, circ_basis_blocks(ckb))
+    if not isinstance(ops, CircFactOperands):
+        raise ValueError(f"{name} takes the factorised kernel's operands "
+                         f"(`circ_fact_operands`), got {type(ops).__name__}")
+    units = circ_fact_units(ops.d1, ops.d2, k)
+    n_tw = 2 * (ops.d1 + ops.d2 + ops.d1 * (ops.d2 | 1))
+    for label, t, shape, dtype in (
+            ("hi", ops.hi, (units, 4), torch.bfloat16),
+            ("lo", ops.lo, (units, 4), torch.bfloat16),
+            ("lo2", ops.lo2, (units, 4), torch.bfloat16),
+            ("tw", ops.tw, (n_tw,), torch.float32)):
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: operand {label} must be contiguous {dtype} {shape} "
+                f"on {dev} (`circ_fact_operands` at D={d}, K={k}), got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = kernels._library("circ_fact_estimate").circ_fact_launch(
+            x2.data_ptr(), ops.hi.data_ptr(), ops.lo.data_ptr(),
+            ops.lo2.data_ptr(), ckb.const.data_ptr(), ops.tw.data_ptr(),
+            out.data_ptr(), n, d, ops.d1, ops.d2, k, units, int(t_coh),
+            float(coh_alpha), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    wrapper.launches += 1
+    return out
+
+
+def circ_estimate_fact(x2: torch.Tensor, ckb: CircKernelBank,
+                       operands: Optional[CircFactOperands] = None
+                       ) -> torch.Tensor:
+    """K6 on the factorised kernel: x2 (N, 2D) -> (N, 2D), `operands`
+    from `circ_fact_operands(ckb, blocks)` (laid out in the call, in the
+    layout's own basis, when None); `circ_estimate` launches it past D =
+    128 where `circ_route` says 'fact'. On a CUDA tensor it launches the
+    CUDA kernel (any D = d1 d2 <= 672 with 2 <= d1, d2 <= 64) and raises on
+    any refusal; on a CPU tensor it computes the plain version
+    `circ_fact_reference`."""
+    if not x2.is_cuda:
+        return circ_fact_reference(x2, ckb, 1, 1.0, _blocks_of(ckb,
+                                                               operands))
+    return _launch_fact(circ_estimate_fact, x2, ckb, 1, 1.0, operands)
+
+
+def circ_estimate_coherent_fact(x2: torch.Tensor, ckb: CircKernelBank,
+                                t_coh: int, coh_alpha: float = 1.0,
+                                operands: Optional[CircFactOperands] = None
+                                ) -> torch.Tensor:
+    """K7 on the factorised kernel: `circ_estimate_coherent` (which
+    launches it past D = 128 where `circ_route` says 'fact'), 2 <= T <=
+    64. On a CPU tensor the plain version `circ_fact_reference`."""
+    if t_coh < 2:
+        raise ValueError(f"circ_estimate_coherent_fact takes T >= 2; got "
+                         f"{t_coh}")
+    if not x2.is_cuda:
+        return circ_fact_reference(x2, ckb, t_coh, coh_alpha,
+                                   _blocks_of(ckb, operands))
+    return _launch_fact(circ_estimate_coherent_fact, x2, ckb, t_coh,
+                        coh_alpha, operands)
+
+
+def _blocks_of(ckb: CircKernelBank, ops: Optional[CircFactOperands]):
+    """The basis of the factorised route: the operands' own, else the
+    layout's (`circ_basis_blocks`)."""
+    if ops is None:
+        return circ_basis_blocks(ckb)
+    return (ops.d1, ops.d2) if ops.kron else None
+
+
 def circ_estimate(x2: torch.Tensor, ckb: CircKernelBank,
                   operands: Optional[tu.UnitOperands] = None
                   ) -> torch.Tensor:
@@ -574,8 +971,8 @@ def circ_estimate(x2: torch.Tensor, ckb: CircKernelBank,
     any refusal; on a CPU tensor it computes the plain version."""
     if not x2.is_cuda:
         return circ_estimate_reference(x2, ckb)
-    return _launch(circ_estimate, circ_estimate_wide, x2, ckb, 1, 1.0, False,
-                   operands)
+    return _launch(circ_estimate, circ_estimate_wide, circ_estimate_fact, x2,
+                   ckb, 1, 1.0, False, operands)
 
 
 def circ_estimate_coherent(x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
@@ -591,8 +988,9 @@ def circ_estimate_coherent(x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
         raise ValueError(f"circ_estimate_coherent takes T >= 2; got {t_coh}")
     if not x2.is_cuda:
         return circ_estimate_coherent_reference(x2, ckb, t_coh, coh_alpha)
-    return _launch(circ_estimate_coherent, circ_estimate_coherent_wide, x2,
-                   ckb, t_coh, coh_alpha, False, operands)
+    return _launch(circ_estimate_coherent, circ_estimate_coherent_wide,
+                   circ_estimate_coherent_fact, x2, ckb, t_coh, coh_alpha,
+                   False, operands)
 
 
 def circ_estimate_stats(x2: torch.Tensor, ckb: CircKernelBank,
@@ -603,8 +1001,8 @@ def circ_estimate_stats(x2: torch.Tensor, ckb: CircKernelBank,
     `circ_estimate_stats_wide`), plain version on the CPU."""
     if not x2.is_cuda:
         return circ_estimate_stats_reference(x2, ckb)
-    return _launch(circ_estimate_stats, circ_estimate_stats_wide, x2, ckb, 1,
-                   1.0, True, operands)
+    return _launch(circ_estimate_stats, circ_estimate_stats_wide, None, x2,
+                   ckb, 1, 1.0, True, operands)
 
 
 def circ_estimate_coherent_stats(x2: torch.Tensor, ckb: CircKernelBank,
@@ -621,7 +1019,7 @@ def circ_estimate_coherent_stats(x2: torch.Tensor, ckb: CircKernelBank,
         return circ_estimate_coherent_stats_reference(x2, ckb, t_coh,
                                                       coh_alpha)
     return _launch(circ_estimate_coherent_stats,
-                   circ_estimate_coherent_stats_wide, x2, ckb, t_coh,
+                   circ_estimate_coherent_stats_wide, None, x2, ckb, t_coh,
                    coh_alpha, True, operands)
 
 
@@ -687,7 +1085,8 @@ kernels.register_wrappers(circ_estimate, circ_estimate_coherent,
                           circ_estimate_stats, circ_estimate_coherent_stats,
                           circ_estimate_wide, circ_estimate_coherent_wide,
                           circ_estimate_stats_wide,
-                          circ_estimate_coherent_stats_wide)
+                          circ_estimate_coherent_stats_wide,
+                          circ_estimate_fact, circ_estimate_coherent_fact)
 
 
 # ---------------------------------------------------------------------------

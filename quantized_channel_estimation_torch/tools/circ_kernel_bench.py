@@ -16,8 +16,9 @@ complex observations:
   tp        D = K = 64, 131072 rows over a 1 x 1 in-process mesh
             (`parallel.mesh.estimate_sharded_circulant`): K8 and the merge,
             against the same route through the pipeline's stats form;
-  d512      D = 512, K = 16, 32768 rows: K6's wide form
-            (`csrc/circ_wide_estimate.cu`) against the pipeline.
+  d512      D = 512, K = 16, 32768 rows: K6 past the template, on the
+            factorised kernel (`csrc/circ_fact_estimate.cu`; 512 = 16 x
+            32), against the pipeline.
 
 Each route is timed with CUDA events (`utils.profiling.device_ms`: one
 warm-up call, the median of 5), the bank's kernel layouts made once
@@ -179,7 +180,7 @@ def leg_tp(dev, scale=1.0, n=131072) -> dict:
 
 
 def leg_d512(dev, scale=1.0) -> dict:
-    """D = 512, K = 16: the wide form of K6."""
+    """D = 512, K = 16: K6 on the factorised kernel."""
     return leg_flat(dev, scale, 512, 16, 32768)
 
 

@@ -67,6 +67,16 @@ with NaN after they were read: a launch fails if any output's bits differ
 from the first launch's, and the first launch under the rule of mode
 'f32'.
 
+Mode 'fact_circ' does the same for the factorised K6 and K7
+(`csrc/circ_fact_estimate.cu`, past D = 128 where the transform splits;
+`FACT_CIRC_SHAPES`: one past the template's D, D = 512 over two waves of
+blocks, the rule's edge D = 672 at K = 128, the pool at T = 3, 4 and 64
+(two sweeps), the kron basis) on random DFT-domain banks, under the rule
+of mode 'wide_circ' against its plain version `circ_fact_reference`. Mode
+'wide_circ' drives the wide K6 and K7 through their own wrappers
+(`circ_estimate_wide`, `circ_estimate_coherent_wide`): its random
+transforms are no DFT.
+
 Mode 'wide_mpcirc' does the same for the wide form of K10 (the
 multi-pilot kernels of `csrc/circ_wide_estimate.cu`, past the template's
 rule; `WIDE_MPCIRC_SHAPES`: D one past the template's, K past one logit
@@ -96,7 +106,7 @@ headline widths (131072 rows, 2M = 2D = 128, K = 64).
     python -m quantized_channel_estimation_torch.tools.tc_repeat_check \
         [--repeats R] \
         [--modes bf16 split2 split3 f32 wide wide_topk karatsuba fact mpcirc
-                 circ wide_circ wide_mpcirc wide_fact] \
+                 circ wide_circ wide_mpcirc wide_fact fact_circ] \
         [--no-poison] \
         [--without-proxy-fence [--time]]
 
@@ -120,6 +130,7 @@ from quantized_channel_estimation_torch.estimators import kernels
 from quantized_channel_estimation_torch.estimators import mp_circ_kernels as mk
 from quantized_channel_estimation_torch.estimators import variant_kernels as vk
 from quantized_channel_estimation_torch.harness import stages
+from quantized_channel_estimation_torch.models import structured_bank as sb
 from quantized_channel_estimation_torch.utils import profiling
 
 TOL = 1e-4
@@ -223,6 +234,15 @@ WIDE_CIRC_SHAPES = (
     (672, 64, 4 * 1001, 1, 4, 0.25, False),    # K7 at the rule's edge
     (320, 40, 64 * 33, 0, 64, 1.0, True),      # K9, T = 64
     (200, 7, 3 * 701, 1, 3, 0.5, True),        # K9, T = 3, alpha < 1
+)
+# the factorised K6 / K7: (D, K, N, dead components, T, alpha, blocks)
+FACT_CIRC_SHAPES = (
+    (129, 16, 1001, 1, 1, 1.0, None),          # one past the template, 3 x 43
+    (512, 16, 2 * 132 * 16 + 5, 2, 1, 1.0, None),  # D = 512, two waves
+    (672, 128, 4 * 1001, 3, 4, 0.25, None),    # the rule's edge, K = 128
+    (357, 64, 64 * 33, 1, 64, 1.0, None),      # 17 x 21, T = 64: two sweeps
+    (160, 7, 3 * 701, 1, 3, 0.5, None),        # T = 3: 15-row tiles
+    (256, 16, 1000, 2, 4, 1.0, (16, 16)),      # the kron basis
 )
 # the wide K10: (P, D, K, N, dead components, T, alpha)
 WIDE_MPCIRC_SHAPES = (
@@ -629,7 +649,10 @@ def _circ_check(dev, shapes, repeats, poison, wide=False) -> dict:
     for d, k, n, n_dead, t, alpha, stats in shapes:
         ckb = random_circ_bank(d, k, dev, n_dead, t)
         f64 = ck.CircKernelBank(*(x.double() for x in ckb))
-        ops = ck.circ_operands(ckb, stats) if dev.type == "cuda" else None
+        ops = None
+        if dev.type == "cuda":   # the wide form's own operands past D = 128
+            ops = (ck.circ_wide_operands(ckb, stats) if wide
+                   else ck.circ_operands(ckb, stats))
         x2 = random_rows(n, 2 * d, dev)
         if t == 1 and not stats:
             name = "K6"
@@ -652,10 +675,16 @@ def _circ_check(dev, shapes, repeats, poison, wide=False) -> dict:
                 x2.double(), f64, t, alpha)
 
         def run():
+            # the wide K6 / K7 through their own wrappers: the banks'
+            # random transforms are no DFT, which the factorised kernel
+            # computes in its stead
             if name == "K6":
-                return (ck.circ_estimate(x2, ckb, ops),)
+                return ((ck.circ_estimate_wide if wide
+                         else ck.circ_estimate)(x2, ckb, ops),)
             if name == "K7":
-                return (ck.circ_estimate_coherent(x2, ckb, t, alpha, ops),)
+                return ((ck.circ_estimate_coherent_wide if wide
+                         else ck.circ_estimate_coherent)(x2, ckb, t, alpha,
+                                                         ops),)
             if name == "K8":
                 return ck.circ_estimate_stats(x2, ckb, ops)
             return ck.circ_estimate_coherent_stats(x2, ckb, t, alpha, ops)
@@ -687,6 +716,71 @@ def _circ_check(dev, shapes, repeats, poison, wide=False) -> dict:
             del got
         out[f"D={d} K={k} N={n} dead={n_dead} T={t} a={alpha} {name}"
             + (" wide" if wide else "")] = {
+            "launches": repeats, "failures": fails, "max_err": max(errs)}
+    return out
+
+
+def random_dft_bank(d, k, dev, n_dead=0, seed=0):
+    """A random `structured_bank.CirculantBank` over D bins (the DFT
+    domain's own quantities: log-weights, means, spectra in [0.5, 2],
+    filters and biases), dead components at -inf."""
+    g = torch.Generator().manual_seed(seed)
+
+    def crnd(scale):
+        return scale * torch.complex(torch.randn(k, d, generator=g),
+                                     torch.randn(k, d, generator=g))
+
+    lw = torch.log_softmax(torch.randn(k, generator=g), 0)
+    lw[:n_dead] = -math.inf
+    spec = 0.5 + 1.5 * torch.rand(k, d, generator=g)
+    bank = sb.CirculantBank(lw, crnd(0.3), spec, crnd(0.1), crnd(0.05))
+    return sb.CirculantBank(*(x.to(dev) for x in bank))
+
+
+def _fact_circ_check(dev, shapes, repeats, poison) -> dict:
+    """Mode 'fact_circ' of `repeat_check`: {label: {"launches",
+    "failures", "max_err"}} over the factorised K6 / K7 at `shapes` (D, K,
+    N, dead components, T, alpha, blocks), each launch after a NaN fill of
+    every SM's shared memory and on the memory of the last launch's output
+    filled with NaN: a launch fails if its bits differ from the first
+    launch's, and the first launch under the rule of mode 'f32' against the
+    plain version `circ_fact_reference`."""
+    out = {}
+    for d, k, n, n_dead, t, alpha, blocks in shapes:
+        ckb = ck.circ_kernel_bank(random_dft_bank(d, k, dev, n_dead), blocks,
+                                  t, alpha)
+        f64 = ck.CircKernelBank(*(x.double() for x in ckb))
+        ops = ck.circ_fact_operands(ckb, blocks)
+        x2 = random_rows(n, 2 * d, dev)
+        want = ck.circ_fact_reference(x2, ckb, t, alpha, blocks)
+        exact = ck.circ_fact_reference(x2.double(), f64, t, alpha, blocks)
+        scale = want.abs().max()
+        plain_err = float((want.double() - exact).abs().max() / scale)
+
+        def run():
+            if t == 1:
+                return ck.circ_estimate_fact(x2, ckb, ops)
+            return ck.circ_estimate_coherent_fact(x2, ckb, t, alpha, ops)
+
+        first, errs, fails = None, [], 0
+        for _ in range(repeats):
+            if poison:
+                poison_shared_memory(dev)
+            got = run()
+            rel = float((got - want).abs().max() / scale)
+            rel64 = float((got.double() - exact).abs().max() / scale)
+            ok = (first is None or torch.equal(got.view(torch.int32),
+                                               first.view(torch.int32)))
+            ok = ok and (rel <= TOL or rel64 <= 2 * plain_err + 1e-5)
+            if first is None:
+                first = got.clone()
+            fails += not ok     # NaN fails both comparisons
+            errs.append(rel if rel == rel else math.inf)
+            got.fill_(math.nan)     # the next launch's output lands here
+            del got
+        out[f"D={d} K={k} N={n} dead={n_dead} T={t} a={alpha}"
+            + (f" blocks={blocks}" if blocks else "")
+            + (" K7" if t > 1 else " K6") + " fact"] = {
             "launches": repeats, "failures": fails, "max_err": max(errs)}
     return out
 
@@ -764,7 +858,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
                  circ_shapes=CIRC_SHAPES,
                  wide_circ_shapes=WIDE_CIRC_SHAPES,
                  wide_mpcirc_shapes=WIDE_MPCIRC_SHAPES,
-                 wide_fact_shapes=WIDE_FACT_SHAPES) -> dict:
+                 wide_fact_shapes=WIDE_FACT_SHAPES,
+                 fact_circ_shapes=FACT_CIRC_SHAPES) -> dict:
     """Every (shape, mode): `repeats` launches of K14b (and of the copy
     without the fence), each held against the plain version; mode 'f32':
     K1 and K3 at `f32_shapes`; mode 'wide': their wide form at
@@ -775,7 +870,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     `circ_shapes`; mode 'wide_circ': their wide form at
     `wide_circ_shapes`; mode 'wide_mpcirc': K10's wide form at
     `wide_mpcirc_shapes`; mode 'wide_fact': K11-K13's wide form at
-    `wide_fact_shapes`. Returns
+    `wide_fact_shapes`; mode 'fact_circ': the factorised K6 / K7 at
+    `fact_circ_shapes`. Returns
     {"kernel" (and "no fence"): {label: {"launches", "failures",
     "max_err"}}}."""
     copy = _without_fence() if without_fence else None
@@ -808,10 +904,13 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     if "wide_fact" in modes:
         result["kernel"].update(_fact_check(dev, wide_fact_shapes, repeats,
                                             poison, wide=True))
+    if "fact_circ" in modes:
+        result["kernel"].update(_fact_circ_check(dev, fact_circ_shapes,
+                                                 repeats, poison))
     modes = [m for m in modes
              if m not in ("f32", "wide", "wide_topk", "karatsuba", "fact",
                           "mpcirc", "circ", "wide_circ", "wide_mpcirc",
-                          "wide_fact")]
+                          "wide_fact", "fact_circ")]
     for two_m, two_d, k, n, n_dead in shapes if modes else ():
         kb = random_bank(two_m, two_d, k, dev, n_dead)
         planes = kernels.split_planes(kb.pw)
@@ -866,10 +965,12 @@ def main(argv=None) -> dict:
     p.add_argument("--modes", nargs="+",
                    default=[*vk.TC_WRAPPERS, "f32", "wide", "wide_topk",
                             "karatsuba", "fact", "mpcirc", "circ",
-                            "wide_circ", "wide_mpcirc", "wide_fact"],
+                            "wide_circ", "wide_mpcirc", "wide_fact",
+                            "fact_circ"],
                    choices=[*vk.TC_WRAPPERS, "f32", "wide", "wide_topk",
                             "karatsuba", "fact", "mpcirc", "circ",
-                            "wide_circ", "wide_mpcirc", "wide_fact"])
+                            "wide_circ", "wide_mpcirc", "wide_fact",
+                            "fact_circ"])
     p.add_argument("--no-poison", action="store_true")
     p.add_argument("--without-proxy-fence", action="store_true")
     p.add_argument("--time", action="store_true")

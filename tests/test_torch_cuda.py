@@ -39,11 +39,13 @@ three real products, and so are the factored kernels K11-K13, six bf16
 products for each of their two products, and the multi-pilot K10 and, at
 one pilot, K6-K9, six bf16 products for each of their four (K8 / K9 on
 each of m, den and the accumulator, and on the merged quotient), and
-their wide form past D = 128 (`csrc/circ_wide_estimate.cu`), and K10's
-wide form past the template's rule, against its own plain version
-`mp_circ_wide_reference`. The repeated launches of K14a, K10, K6-K9 (the
-wide forms on NaN-filled outputs too) and K11-K13 are bit for bit the
-first.
+their wide form past D = 128 (`csrc/circ_wide_estimate.cu`), K6 / K7's
+factorised kernel past D = 128 where the transform splits
+(`csrc/circ_fact_estimate.cu`, against its plain version
+`circ_fact_reference`), and K10's wide form past the template's rule,
+against its own plain version `mp_circ_wide_reference`. The repeated
+launches of K14a, K10, K6-K9 (the wide forms and the factorised kernel on
+NaN-filled outputs too) and K11-K13 are bit for bit the first.
 """
 import math
 import os
@@ -1793,33 +1795,54 @@ CIRC_WIDE_NAMES = {(False, False): "circ_estimate_wide",
                    (True, True): "circ_estimate_coherent_stats_wide"}
 
 
-def _circ_forms(x2, ckb, t, alpha, operands=(None, None)):
-    """K6 (K7 at t > 1) and K8 (K9) on x2 through the public wrappers:
-    (out, m, den, acc)."""
+def _circ_forms(x2, ckb, t, alpha, operands=(None, None), dense=False):
+    """K6 (K7 at t > 1) and K8 (K9) on x2 through the public wrappers, or
+    with `dense` K6 / K7 through the dense wide form's own wrappers (the
+    public ones take the factorised kernel where D splits): (out, m, den,
+    acc)."""
     if t == 1:
-        return (tck.circ_estimate(x2, ckb, operands[0]),
+        k6 = tck.circ_estimate_wide if dense else tck.circ_estimate
+        return (k6(x2, ckb, operands[0]),
                 *tck.circ_estimate_stats(x2, ckb, operands[1]))
-    return (tck.circ_estimate_coherent(x2, ckb, t, alpha, operands[0]),
+    k7 = (tck.circ_estimate_coherent_wide if dense
+          else tck.circ_estimate_coherent)
+    return (k7(x2, ckb, t, alpha, operands[0]),
             *tck.circ_estimate_coherent_stats(x2, ckb, t, alpha,
                                               operands[1]))
 
 
-def _circ_plain(x2, ckb, t, alpha):
-    return (tck._circ_reference(x2, ckb, t, alpha, False, 16384),
-            *tck._circ_reference(x2, ckb, t, alpha, True, 16384))
+def _circ_plain(x2, ckb, t, alpha, blocks="dense"):
+    """The plain versions of `_circ_forms`' outputs; K6 / K7's the
+    factorised route's (`circ_fact_reference` in the basis `blocks`) where
+    `blocks` is not 'dense' and the route is 'fact'."""
+    d = x2.shape[1] // 2
+    if blocks != "dense" and tck.circ_route(d, blocks) == "fact":
+        out = tck.circ_fact_reference(x2, ckb, t, alpha, blocks)
+    else:
+        out = tck._circ_reference(x2, ckb, t, alpha, False, 16384)
+    return (out, *tck._circ_reference(x2, ckb, t, alpha, True, 16384))
+
+
+def _k6_name(d, t, blocks=None):
+    """The wrapper that counts a public K6 / K7 launch past D = 128."""
+    if tck.circ_route(d, blocks) == "fact":
+        return ("circ_estimate_coherent_fact" if t > 1
+                else "circ_estimate_fact")
+    return CIRC_WIDE_NAMES[(t > 1, False)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,k,t,alpha,n_dead,blocks", CIRC_WIDE_CASES)
 def test_circ_wide_matches_plain(d, k, t, alpha, n_dead, blocks):
-    """Past D = 128 the circulant wrappers launch the wide form: K6 / K7
-    and K8 / K9 within 1e-4 of the scale of their plain versions (where
-    the float32 plain version's own rounding of logits pooled over T rows
-    pushes the two apart, held to the float64 rule and within 1e-4 of the
-    float64 plain version, `_held`), one launch
-    each counted on the wide wrappers and none on the template's; the
-    form's row split (`circ_wide_rows`, rows and u's features) bit for
-    bit its plain layout."""
+    """Past D = 128 the circulant wrappers launch K6 / K7 on the
+    factorised kernel where the transform splits (every case here) and K8
+    / K9 on the wide form: each within 1e-4 of the scale of its plain
+    version (where the float32 plain version's own rounding of logits
+    pooled over T rows pushes the two apart, held to the float64 rule and
+    within 1e-4 of the float64 plain version, `_held`), one launch each
+    counted on those wrappers and none on the template's; the wide form's
+    row split (`circ_wide_rows`, rows and u's features) bit for bit its
+    plain layout."""
     dev = _card()
     bank = _circ_bank(d, k, dev, n_dead=n_dead, blocks=blocks)
     x2 = _rows(2049 // t * t, 2 * d, dev)
@@ -1831,28 +1854,30 @@ def test_circ_wide_matches_plain(d, k, t, alpha, n_dead, blocks):
     before = tkn.launch_counts()
     got = _circ_forms(x2, ckb, t, alpha)
     after = tkn.launch_counts()
-    for g, w, w64 in zip(got, _circ_plain(x2, ckb, t, alpha),
-                         _circ_plain(x2.double(), _f64(ckb), t, alpha)):
+    for g, w, w64 in zip(got, _circ_plain(x2, ckb, t, alpha, blocks),
+                         _circ_plain(x2.double(), _f64(ckb), t, alpha,
+                                     blocks)):
         _held(g, w, w64, ceiling=1e-4)
     assert {name: after[name] - before[name] for name in after
             if after[name] != before[name]} == {
-        CIRC_WIDE_NAMES[(t > 1, False)]: 1, CIRC_WIDE_NAMES[(t > 1, True)]: 1}
+        _k6_name(d, t, blocks): 1, CIRC_WIDE_NAMES[(t > 1, True)]: 1}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [1, 4])
 @pytest.mark.parametrize("d", [512, 672])
 def test_circ_wide_keeps_fp32_accuracy(d, t):
-    """The wide K6-K9 are no less accurate than float32 at the widths of
-    JAX's tool and of the rule's edge: each output's (and each of m, den
-    and acc's) max |error| against the plain version in float64 at most
-    twice the float32 plain version's own; the operands laid out once
-    give the same bits as those laid out in the call."""
+    """The wide K6-K9 (K6 / K7 through the dense wide form's own wrappers)
+    are no less accurate than float32 at the widths of JAX's tool and of
+    the rule's edge: each output's (and each of m, den and acc's) max
+    |error| against the plain version in float64 at most twice the
+    float32 plain version's own; the operands laid out once give the same
+    bits as those laid out in the call."""
     dev = _card()
     bank = _circ_bank(d, 16, dev, n_dead=2)
     x2 = _rows(4096, 2 * d, dev)
     ckb = tck.circ_kernel_bank(bank, None, t, 1.0)
-    got = _circ_forms(x2, ckb, t, 1.0)
+    got = _circ_forms(x2, ckb, t, 1.0, dense=True)
     want = _circ_plain(x2, ckb, t, 1.0)
     want64 = _circ_plain(x2.double(), _f64(ckb), t, 1.0)
     for g, w, w64 in zip(got, want, want64):
@@ -1860,7 +1885,8 @@ def test_circ_wide_keeps_fp32_accuracy(d, t):
         e_p = float((w.double() - w64).abs().max())
         assert torch.isfinite(g).all() and e_k <= 2 * e_p, (e_k, e_p)
     again = _circ_forms(x2, ckb, t, 1.0, (tck.circ_wide_operands(ckb),
-                                          tck.circ_wide_operands(ckb, True)))
+                                          tck.circ_wide_operands(ckb, True)),
+                        dense=True)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
@@ -1947,9 +1973,12 @@ def test_circ_wide_refuses_one_past_the_rule():
     many = tck.circ_kernel_bank(_circ_bank(200, 129, dev))
     with pytest.raises(ValueError, match="128"):
         tck.circ_estimate(x2, many)
+    tc_ops = tck.circ_tc_operands(tck.circ_kernel_bank(_circ_bank(64, 4,
+                                                                  dev)))
     with pytest.raises(ValueError, match="circ_wide_operands"):
-        tck.circ_estimate(x2, ckb, tck.circ_tc_operands(
-            tck.circ_kernel_bank(_circ_bank(64, 4, dev))))
+        tck.circ_estimate_wide(x2, ckb, tc_ops)
+    with pytest.raises(ValueError, match="circ_fact_operands"):
+        tck.circ_estimate(x2, ckb, tc_ops)   # D = 200 = 10 x 20
     before = tkn.launch_counts()
     assert tck.circ_estimate(x2[:0], ckb).shape == (0, 400)
     m, den, acc = tck.circ_estimate_stats_wide(x2[:0], ckb)
@@ -1964,19 +1993,20 @@ def test_circ_wide_refuses_one_past_the_rule():
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [1, 4])
 def test_circ_wide_cuts_rows_to_its_scratch(monkeypatch, t):
-    """Past `WIDE_SCRATCH` the wide K6-K9 run in row chunks of whole
-    blocks, one counted launch each, bit for bit the one launch's outputs
-    (a scratch of 512 rows' worth here: 2000 rows in four chunks)."""
+    """Past `WIDE_SCRATCH` the wide K6-K9 (K6 / K7 through their own
+    wrappers) run in row chunks of whole blocks, one counted launch each,
+    bit for bit the one launch's outputs (a scratch of 512 rows' worth
+    here: 2000 rows in four chunks)."""
     dev = _card()
     d, k = 200, 8
     ckb = tck.circ_kernel_bank(_circ_bank(d, k, dev, n_dead=1), None, t, 1.0)
     x2 = _rows(2000, 2 * d, dev)
-    whole = _circ_forms(x2, ckb, t, 1.0)
+    whole = _circ_forms(x2, ckb, t, 1.0, dense=True)
     per_row = 384 * 10 + 8 * d + 4 * k + 4       # 3D = 600: 10 chunks
     monkeypatch.setattr(tkn, "WIDE_SCRATCH", 512 * per_row + 100)
     assert tck.circ_wide_launch_rows(2000, d, k, t) == 512
     before = tkn.launch_counts()
-    cut = _circ_forms(x2, ckb, t, 1.0)
+    cut = _circ_forms(x2, ckb, t, 1.0, dense=True)
     after = tkn.launch_counts()
     for stats in (False, True):
         name = CIRC_WIDE_NAMES[(t > 1, stats)]
@@ -2002,6 +2032,95 @@ def test_circ_wide_repeated_launches_match_plain():
     after = tkn.launch_counts()
     for (coh, stats), name in CIRC_WIDE_NAMES.items():
         n = sum(1 for *_, t, _, st in shapes if (t > 1, st) == (coh, stats))
+        assert after[name] == before[name] + 20 * n, name
+    assert len(runs) == len(shapes)
+    assert not {k: v for k, v in runs.items() if v["failures"]}, runs
+
+
+# the factorised K6 / K7 (csrc/circ_fact_estimate.cu): widths that split
+# into two levels of at most 64 points (144 = 12 x 12, 357 = 17 x 21, 512 =
+# 16 x 32, 672 = 24 x 28), K = 1, 16 and 128, T = 1, 4 and 64
+CIRC_FACT_CASES = [(d, k, t) for d in (144, 357, 512, 672)
+                   for k in (1, 16, 128) for t in (1, 4, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,t", CIRC_FACT_CASES)
+def test_circ_fact_matches_plain(d, k, t):
+    """The factorised kernel, with dead components: within 1e-4 of the
+    scale of its plain version `circ_fact_reference` (or, where the
+    float32 plain version's own rounding pushes the two apart, within
+    1e-4 of the float64 one and no further from it than twice the float32
+    plain version, `_held`) and no less accurate than float32 (the float64
+    rule: its max |error| against the float64 plain version at most twice
+    the float32 plain version's); one launch counted on its wrapper, none
+    on the dense wide form's."""
+    dev = _card()
+    alpha = 0.25 if t == 64 else 1.0
+    bank = _circ_bank(d, k, dev, n_dead=min(2, k - 1))
+    x2 = _rows(2048 // t * t, 2 * d, dev)
+    ckb = tck.circ_kernel_bank(bank, None, t, alpha)
+    before = tkn.launch_counts()
+    got = (tck.circ_estimate_coherent(x2, ckb, t, alpha) if t > 1
+           else tck.circ_estimate(x2, ckb))
+    after = tkn.launch_counts()
+    want = tck.circ_fact_reference(x2, ckb, t, alpha)
+    want64 = tck.circ_fact_reference(x2.double(), _f64(ckb), t, alpha)
+    _held(got, want, want64, ceiling=1e-4)
+    e_k = float((got.double() - want64).abs().max())
+    e_p = float((want.double() - want64).abs().max())
+    assert e_k <= 2 * e_p, (e_k, e_p)
+    assert {name: after[name] - before[name] for name in after
+            if after[name] != before[name]} == {_k6_name(d, t): 1}
+
+
+@pytest.mark.cuda
+def test_circ_fact_takes_the_kron_basis_and_the_operands_it_is_given():
+    """The kron(F_16, F_16) basis at D = 256 through the entry (its
+    operands from `lowered_tc`) and through the wrapper with the operands
+    laid out in the call (the basis read from the layout): the same bits,
+    within 1e-4 of the plain version; N = 0 launches nothing; the dense
+    wide form's operands are refused."""
+    dev = _card()
+    blocks = (16, 16)
+    bank = _circ_bank(256, 16, dev, n_dead=1, blocks=blocks)
+    r = tck._hc(_rows(1024, 512, dev), torch.complex64)
+    cache = {}
+    entry = tck.estimate_fused_circulant(bank, r, blocks, cache)
+    assert isinstance(cache[("circ_fact_operands", blocks, False)][0],
+                      tck.CircFactOperands)
+    ckb = tck.lowered(bank, cache, blocks)[0]
+    x2 = tck._x2(r)
+    got = tck.circ_estimate(x2, ckb)
+    assert torch.equal(tck._x2(entry), got)
+    want = tck.circ_fact_reference(x2, ckb, 1, 1.0, blocks)
+    want64 = tck.circ_fact_reference(x2.double(), _f64(ckb), 1, 1.0, blocks)
+    _held(got, want, want64, ceiling=1e-4)
+    before = tkn.launch_counts()
+    assert tck.circ_estimate_fact(x2[:0], ckb).shape == (0, 512)
+    assert tkn.launch_counts() == before
+    with pytest.raises(ValueError, match="circ_fact_operands"):
+        tck.circ_estimate_fact(x2, ckb, tck.circ_wide_operands(ckb))
+
+
+@pytest.mark.cuda
+def test_circ_fact_repeated_launches_match_plain():
+    """The factorised K6 / K7 launched 20 times at each shape of
+    `tools.tc_repeat_check.FACT_CIRC_SHAPES` (one past the template's D,
+    D = 512 over two waves of blocks, the rule's edge at K = 128, the pool
+    at T = 3, 4 and 64, the kron basis), each launch after a NaN fill of
+    every SM's shared memory and on the memory of the last launch's output
+    filled with NaN, each bit for bit the first launch, which is held
+    against the plain version."""
+    dev = _card()
+    shapes = tc_repeat_check.FACT_CIRC_SHAPES
+    before = tkn.launch_counts()
+    runs = tc_repeat_check.repeat_check(dev, repeats=20,
+                                        modes=("fact_circ",))["kernel"]
+    after = tkn.launch_counts()
+    for coh, name in ((False, "circ_estimate_fact"),
+                      (True, "circ_estimate_coherent_fact")):
+        n = sum(1 for s in shapes if (s[4] > 1) == coh)
         assert after[name] == before[name] + 20 * n, name
     assert len(runs) == len(shapes)
     assert not {k: v for k, v in runs.items() if v["failures"]}, runs
