@@ -3036,7 +3036,10 @@ def wide_circ_phase(dev, card, kernels, errs, add):
 # phase 3m: the multi-pilot circulant kernel K10 on wide banks. Cases (D,
 # K, P, T, alpha, dead components, blocks), each past the template's rule:
 # D past 128 to the JAX rule's largest (357 at P = 2, 249 at P = 3, 189
-# at P = 4), K past 128 to 4096, the pool at T = 4 and 16
+# at P = 4), K past 128 to 4096, the pool at T = 4 and 16; the factorised
+# kernel takes those whose transform splits and whose tile fits
+# (`mp_circ_kernels.mp_circ_route`), the dense wide form the rest (249 = 3
+# x 83, K past 128)
 WIDE_MP_CASES = (
     (129, 1, 2, 1, 1.0, 0, None),
     (144, 16, 3, 4, 0.25, 1, None),
@@ -3062,48 +3065,62 @@ WIDE_MP_FIT = dict(n_antennas=256, n_components=32, cov_type="circulant",
                    n_val=2_000)
 WIDE_MP_NAMES = {False: "mp_circ_estimate_wide",
                  True: "mp_circ_estimate_coherent_wide"}
+FACT_MP_NAMES = {False: "mp_circ_estimate_fact",
+                 True: "mp_circ_estimate_coherent_fact"}
+# (D, K, P) of the dense wide K10's main path, the stages' entries at a width
+# the factorised kernel does not split: the JAX rule's widest at P = 3
+WIDE_MP_DENSE = (249, 8, 3)
 
 
 def wide_mp_circ_phase(dev, card, kernels, errs, add):
-    """Phase 3m, the multi-pilot circulant kernel K10 on wide banks: its
-    wide form (`mp_circ_wide_launch` in `csrc/circ_wide_estimate.cu`, past
-    the template's rule: D or K past 128, a P whose u does not fit a
-    block's shared memory, a T past its live rows).
+    """Phase 3m, the multi-pilot circulant kernel K10 on wide banks, past
+    the template's rule (D or K past 128, a P whose u does not fit a
+    block's shared memory, a T past its live rows): the factorised kernel
+    (`csrc/mp_circ_fact_estimate.cu`) where the transform splits, K <= 128
+    and its tile fits, and the dense wide form (`mp_circ_wide_launch` in
+    `csrc/circ_wide_estimate.cu`) elsewhere (`mp_circ_kernels.
+    mp_circ_route`).
 
     1. At each of WIDE_MP_CASES (seeded multi-pilot circulant banks at 10
        dB, 2 bits, under the P-pilot matrix kron(x, I), their quantized
-       observations, 4097 rows or the whole blocks below): the wide K10
-       (flat, or coherent at T > 1) against its plain version
-       `mp_circ_wide_reference` within TOL of the scale, or where the two
-       part by more, both against the function in float64 on the same
-       layout (`compare64` at ceiling TOL; every comparison's readings kept
-       under "against_float64"); the entry (`estimate_fused_circulant_mp[
-       _coherent]`) the same bits; at D = 256 and 336 the float64 rule
-       (`fp32_accuracy`, against the float32 plain version `_mp_reference`).
+       observations, 4097 rows or the whole blocks below): K10 on the
+       route's kernel (flat, or coherent at T > 1) against that kernel's
+       plain version (`mp_circ_fact_reference`, or `mp_circ_wide_reference`)
+       within TOL of the scale, or where the two part by more, both against
+       the function in float64 on the same layout (`compare64` at ceiling
+       TOL; every comparison's readings kept under "against_float64"); the
+       entry (`estimate_fused_circulant_mp[_coherent]`) the same bits; at D
+       = 256 and 336 the float64 rule (`fp32_accuracy`, against the float32
+       plain version `_mp_reference`).
     2. `tools.mp_kernel_bench` at the JAX tool's sizes (D = K = 64: the
-       template) and at D = 256, K = 32 (the wide form): both legs, the
-       kernel route against the dense bank and the `torch.fft` pipeline,
-       every route's rate.
+       template) and at D = 256, K = 32 (the factorised kernel): both legs,
+       the kernel route against the dense bank and the `torch.fft`
+       pipeline, every route's rate.
     3. The main paths, each with the launch counts set to 0 just before it
        and read just after: `run_gmm` at D = 256, K = 32, circulant, two
        pilots (`WIDE_MP_FIT`, 7 SNRs) flat and at T = 4 (genie < GMM < LS
-       at -10 and -5 dB, the recorded two-pilot deviation; the wide K10,
-       and the wide coherent K10 for the coherent column, launched once an
-       SNR and no other kernel); the structured service on a D = 256, K =
-       32 two-pilot prior (8 clients x 64 snapshots, 1 s, flat and T = 4
-       blocks), every answer within TOL of the scale of the one-shot
-       estimate of the same request (`stages.estimate_circulant[
-       _coherent]` on the bank of its SNR).
+       at -10 and -5 dB, the recorded two-pilot deviation; the factorised
+       K10, and the factorised coherent K10 for the coherent column,
+       launched once an SNR and no other kernel: no dense wide K10); the
+       structured service on a D = 256, K = 32 two-pilot prior (8 clients x
+       64 snapshots, 1 s, flat and T = 4 blocks), every answer within TOL
+       of the scale of the one-shot estimate of the same request
+       (`stages.estimate_circulant[_coherent]` on the bank of its SNR); and
+       the dense wide K10's own path, `stages.estimate_circulant[
+       _coherent]` at D = 249 = 3 x 83, K = 8, P = 3 (`WIDE_MP_DENSE`),
+       flat and T = 4, against the `torch.fft` pipeline under `compare64`.
     4. The wide K10 launched 20 times at each shape of
-       `tools.tc_repeat_check.WIDE_MPCIRC_SHAPES` on NaN-filled outputs,
-       bit for bit the first launch.
+       `tools.tc_repeat_check.WIDE_MPCIRC_SHAPES`, and the factorised K10
+       at each of `FACT_MPCIRC_SHAPES`, on NaN-filled outputs, bit for bit
+       the first launch.
     5. CUDA-event times at D = 256, K = 32, P = 2, 65536 rows (flat, and
-       T = 4 at alpha 1), each beside its plain version, the bound
-       (`mp_circ_kernels.mp_circ_bound`: the transforms as FFTs; and the
-       kernels' dense transforms) and the library yardstick (the
+       T = 4 at alpha 1) of the factorised K10 and, in the same call, the
+       dense wide form it replaces there, each beside its plain version,
+       the bound (`mp_circ_kernels.mp_circ_bound`: the transforms as FFTs;
+       and the kernels' dense transforms) and the library yardstick (the
        `torch.fft` pipeline over the batch as one chunk).
     Returns the phase's record; its timing records are the kernels line's
-    entries of the two wide wrappers."""
+    entries of the two wide wrappers and the two factorised ones."""
     from quantized_channel_estimation_torch import serving
     from quantized_channel_estimation_torch.estimators import (
         circ_kernels as ck, mp_circ_kernels as mk)
@@ -3121,25 +3138,37 @@ def wide_mp_circ_phase(dev, card, kernels, errs, add):
     def f64(ckb):
         return mk.MpCircKernelBank(*(x.double() for x in ckb))
 
-    def kernel(ckb, x2, t, alpha, ops=None):
+    def kernel(ckb, x2, t, alpha, ops=None, fact=False):
+        if fact:
+            return (mk.mp_circ_estimate_coherent_fact(x2, ckb, t, alpha, ops)
+                    if t > 1 else mk.mp_circ_estimate_fact(x2, ckb, ops))
         return (mk.mp_circ_estimate_coherent_wide(x2, ckb, t, alpha, ops)
                 if t > 1 else mk.mp_circ_estimate_wide(x2, ckb, ops))
 
-    # 1. every case against its plain version
+    # 1. every case against the plain version of the route's kernel
+    rec["routes"] = {}
     for d, k, p, t, alpha, n_dead, blocks in WIDE_MP_CASES:
         label = (f"D={d}, K={k}, P={p}, T={t}, alpha={alpha}, dead={n_dead}"
                  + (f", blocks={blocks}" if blocks else ""))
-        if mk.mp_circ_narrow(d, k, p, t):
+        route = mk.mp_circ_route(d, k, p, t, blocks)
+        if route == "template":
             raise AssertionError(f"phase 3m case {label} is the template's")
-        name = WIDE_MP_NAMES[t > 1]
+        rec["routes"][label] = route
+        fact = route == "fact"
+        name = (FACT_MP_NAMES if fact else WIDE_MP_NAMES)[t > 1]
         bank, a, q = mp_bank(dev, p, d, k, n_dead=n_dead, blocks=blocks)
         n = WIDE_MP_N // t * t
         r = mp_obs(dev, a, q, n)
         x2 = ck._x2(r)
         ckb = mk.mp_circ_kernel_bank(bank, blocks, t, alpha)
-        got = kernel(ckb, x2, t, alpha)
-        want = mk.mp_circ_wide_reference(x2, ckb, t, alpha)
-        want64 = mk._mp_reference(x2.double(), f64(ckb), t, alpha, 8192)
+        got = kernel(ckb, x2, t, alpha, fact=fact)
+        if fact:
+            want = mk.mp_circ_fact_reference(x2, ckb, t, alpha, blocks)
+            want64 = mk.mp_circ_fact_reference(x2.double(), f64(ckb), t,
+                                               alpha, blocks)
+        else:
+            want = mk.mp_circ_wide_reference(x2, ckb, t, alpha)
+            want64 = mk._mp_reference(x2.double(), f64(ckb), t, alpha, 8192)
         errs[name].append(compare64(name, label, got, want, want64,
                                     ceiling=TOL,
                                     record=rec["against_float64"]))
@@ -3166,7 +3195,7 @@ def wide_mp_circ_phase(dev, card, kernels, errs, add):
             ("D=64, K=64", [], ("mp_circ_estimate",
                                 "mp_circ_estimate_coherent")),
             ("D=256, K=32", ["--d", "256", "--k", "32"],
-             ("mp_circ_estimate_wide", "mp_circ_estimate_coherent_wide"))):
+             ("mp_circ_estimate_fact", "mp_circ_estimate_coherent_fact"))):
         tool = mp_kernel_bench.main(argv, device=dev)
         flat, coh = tool["legs"]["flat"], tool["legs"]["coherent"]
         got_names = (flat["mp kernel"]["launches"],
@@ -3186,10 +3215,10 @@ def wide_mp_circ_phase(dev, card, kernels, errs, add):
     rec["paths"] = {}
     for label, change, want_kernels in (
             ("run_gmm D=256, K=32, circulant, 2 pilots", {},
-             {"mp_circ_estimate_wide"}),
+             {"mp_circ_estimate_fact"}),
             ("run_gmm D=256, K=32, circulant, 2 pilots, T=4",
              dict(n_coherence=4, coherence_alpha=1.0),
-             {"mp_circ_estimate_wide", "mp_circ_estimate_coherent_wide"})):
+             {"mp_circ_estimate_fact", "mp_circ_estimate_coherent_fact"})):
         with tempfile.TemporaryDirectory() as tmp:
             cfg, mse, _, timings, seconds, launches = main_path_run(
                 run_gmm, kernels, dev, tmp, falling=False, **WIDE_MP_FIT,
@@ -3249,7 +3278,7 @@ def wide_mp_circ_phase(dev, card, kernels, errs, add):
         for label, t_coh in (("structured 2 pilots D=256 flat all", 1),
                              ("structured 2 pilots D=256 T=4 blocks, "
                               "alpha=1", 4)):
-            name = WIDE_MP_NAMES[t_coh > 1]
+            name = FACT_MP_NAMES[t_coh > 1]
             rec["service"].append(serve_mode(
                 svc, kernels, dev, label, t_coh, name, one_shot,
                 seconds=1.0, same_as=OneShot, d=d))
@@ -3262,6 +3291,45 @@ def wide_mp_circ_phase(dev, card, kernels, errs, add):
         svc.close(timeout=120.0)
     del banks, params, spectra
 
+    # the dense wide K10's main path: the stages' entries at a width the
+    # factorised kernel does not split, against the torch.fft pipeline
+    # under compare64's rule (the function in float64 on the layout)
+    d_w, k_w, p_w = WIDE_MP_DENSE
+    bank_w, a_w, q_w = mp_bank(dev, p_w, d_w, k_w, n_dead=1)
+    r_w = mp_obs(dev, a_w, q_w, 8192)
+    for t in (1, 4):
+        label = f"stages.estimate_circulant D={d_w}, P={p_w}, K={k_w}, T={t}"
+        rt = r_w.reshape(-1, t, p_w * d_w) if t > 1 else r_w
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        tm = time.time()
+        got = (stages.estimate_circulant_coherent(bank_w, rt) if t > 1
+               else stages.estimate_circulant(bank_w, rt))
+        torch.cuda.synchronize()
+        seconds = time.time() - tm
+        launches = {k2: v for k2, v in kernels.launch_counts().items() if v}
+        add(launches)
+        if launches != {WIDE_MP_NAMES[t > 1]: 1}:
+            raise AssertionError(f"{label} launched {launches}")
+        want = (sb.estimate_circulant_coherent(bank_w, rt, "all", 2048, 1.0,
+                                               None, "fft") if t > 1
+                else sb.estimate_circulant(bank_w, rt, "all", 8192, None,
+                                           "fft"))
+        x64 = torch.view_as_real(r_w.to(torch.complex128)).reshape(
+            r_w.shape[0], -1)
+        want64 = mk._mp_reference(
+            x64, f64(mk.mp_circ_kernel_bank(bank_w, None, t, 1.0)), t, 1.0,
+            8192)
+        rel = compare64(WIDE_MP_NAMES[t > 1], label, ck._x2(got).float(),
+                        ck._x2(want).float(), want64, ceiling=TOL,
+                        record=rec["against_float64"]) / float(
+                            want.abs().max())
+        rec["paths"][label] = {"rel_to_fft": rel, "launches": launches,
+                               "seconds": seconds}
+        log(f"{label}: {seconds:.2f}s, launches {launches}, "
+            f"{rel:.3e} of scale from the torch.fft pipeline")
+    del bank_w, r_w
+
     f64_rec = rec["against_float64"].values()
     ruled = [v for v in f64_rec if v["float64_rule"]]
     log(f"wide K10 comparisons: {len(f64_rec)}, {len(ruled)} decided by "
@@ -3273,14 +3341,16 @@ def wide_mp_circ_phase(dev, card, kernels, errs, add):
 
     # 4. repeated launches
     tm = time.time()
-    rep = trc.repeat_check(dev, repeats=20, modes=("wide_mpcirc",))["kernel"]
+    rep = trc.repeat_check(dev, repeats=20,
+                           modes=("wide_mpcirc", "fact_mpcirc"))["kernel"]
     bad = {k2: v for k2, v in rep.items() if v["failures"]}
-    log(f"wide K10 repeated: {sum(v['launches'] for v in rep.values())} "
+    log(f"wide and factorised K10 repeated: {sum(v['launches'] for v in rep.values())} "
         f"launches in {time.time() - tm:.1f}s, max err "
         f"{max(v['max_err'] for v in rep.values()):.3e}, failures "
         f"{bad or 0}")
     if bad:
-        raise AssertionError(f"the wide K10 off on repeated launches: {bad}")
+        raise AssertionError(f"the wide or factorised K10 off on repeated "
+                             f"launches: {bad}")
     rec["repeat_check"] = rep
 
     # 5. times at D = 256, K = 32, P = 2, 65536 rows
@@ -3291,8 +3361,20 @@ def wide_mp_circ_phase(dev, card, kernels, errs, add):
     x2 = ck._x2(r)
     ckb, ckb4 = (mk.mp_circ_kernel_bank(bank, None, t, 1.0) for t in (1, 4))
     ops = mk.mp_circ_wide_operands(ckb)      # laid out once
+    fops = mk.mp_circ_fact_operands(ckb)
     times = {}
     for name, t, c, library, chunked in (
+            # the factorised K10 (the entries' route at D = 256) and, in the
+            # same call, the dense wide form it replaces there
+            ("mp_circ_estimate_fact", 1, ckb,
+             lambda: sb.estimate_circulant(bank, r, "all", n, None, "fft"),
+             lambda: sb.estimate_circulant(bank, r, "all", 8192, None,
+                                           "fft")),
+            ("mp_circ_estimate_coherent_fact", 4, ckb4,
+             lambda: sb.estimate_circulant_coherent(bank, rb, "all", n // 4,
+                                                    1.0, None, "fft"),
+             lambda: sb.estimate_circulant_coherent(bank, rb, "all", 2048,
+                                                    1.0, None, "fft")),
             ("mp_circ_estimate_wide", 1, ckb,
              lambda: sb.estimate_circulant(bank, r, "all", n, None, "fft"),
              lambda: sb.estimate_circulant(bank, r, "all", 8192, None,
@@ -3302,11 +3384,16 @@ def wide_mp_circ_phase(dev, card, kernels, errs, add):
                                                     1.0, None, "fft"),
              lambda: sb.estimate_circulant_coherent(bank, rb, "all", 2048,
                                                     1.0, None, "fft"))):
-        kern = (lambda c=c, t=t: kernel(c, x2, t, 1.0, ops))
+        fact = name in FACT_MP_NAMES.values()
+        kern = (lambda c=c, t=t, fact=fact: kernel(
+            c, x2, t, 1.0, fops if fact else ops, fact))
         plain_fn = (lambda c=c, t=t: mk.mp_circ_wide_reference(x2, c, t,
                                                                1.0))
-        # the plain version's walk of the units takes ~0.65 s a call on an
-        # H100: one timed call after the warm-up, either side of the
+        if fact:
+            plain_fn = (lambda c=c, t=t: mk.mp_circ_fact_reference(x2, c, t,
+                                                                   1.0))
+        # the plain versions' six-product walks take ~0.3-0.65 s a call on
+        # an H100: one timed call after the warm-up, either side of the
         # kernel's
         plain_ms = profiling.device_ms(plain_fn, reps=1)
         ms = profiling.device_ms(kern)
@@ -3839,6 +3926,11 @@ def main():
             or not all("spills 0/0 B" in row for row in circ_wide_rows)):
         raise AssertionError(f"the wide K6-K10 spill or are missing: "
                              f"{circ_wide_rows}")
+    # the factorised K6 / K7 and K10 (one kernel a tile, mma.sync products
+    # at 128 registers a thread): registers and spills, recorded
+    for name in ("circ_fact_estimate", "mp_circ_fact_estimate"):
+        rows = ptxas_summary(build_logs.get(name, ""))
+        log(f"ptxas {name}: " + ("; ".join(rows) if rows else "not rebuilt"))
     # the wide form of K11-K13 (two product kernels, three row splits, two
     # softmax kernels, the quadratic terms and the fold): no instantiation
     # may spill
@@ -6343,6 +6435,16 @@ def main():
           for name, kid, coh in (
               ("mp_circ_estimate_wide", "K10_wide", False),
               ("mp_circ_estimate_coherent_wide", "K10_coh_wide", True))),
+        *({"name": name, "id": kid, "route": "cuda",
+           "source": src + "mp_circ_fact_estimate.cu",
+           "replaces": f"{tpu}:1505", "launches": total_launches[name],
+           "max_abs_err": max(errs[name]), "d": WIDE_MP_DK[0],
+           "n_components": WIDE_MP_DK[1], "n_pilots": 2,
+           **({"t_coh": 4, "coh_alpha": 1.0} if coh else {}),
+           **mp_wide_rec["times"][name]}
+          for name, kid, coh in (
+              ("mp_circ_estimate_fact", "K10_fact", False),
+              ("mp_circ_estimate_coherent_fact", "K10_coh_fact", True))),
         {"name": "fact_estimate", "id": "K11", "route": "cuda",
          "source": src + "fact_estimate.cu", "replaces": f"{tpu}:2048",
          "launches": total_launches["fact_estimate"],

@@ -83,30 +83,17 @@
 //
 // Any N (a whole number of T-row blocks), d = d1 d2 with 2 <= d1, d2 <= 64
 // and d <= 672, 1 <= K <= 128, 1 <= T <= 64.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <algorithm>
-#include <cmath>
-#include <cstdint>
+//
+// The transform's stages, the rows in and out, the split, the six-product
+// step, the softmax and the logits' last sum are in circ_fact_common.cuh,
+// which the multi-pilot K10 of mp_circ_fact_estimate.cu shares.
+#include "circ_fact_common.cuh"
 
 namespace {
 
-constexpr int kRows = 16;     // rows of a sub-tile
-constexpr int kM = 16;        // rows of an mma tile
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxD = 672;
-constexpr int kMaxN = 64;     // largest factor
-constexpr int kMaxK = 128;
-constexpr int kMaxT = 64;
-constexpr int kMaxStages = 6;  // radices of one level of at most 64 points
-constexpr int kSmemMax = 232448;
+using namespace circ_fact;
 
-struct Level {
-  int n, istride, bstride, nbatch;  // points, stride of a point, of a batch
-  int nst, rad[kMaxStages];
-};
+constexpr int kRows = 16;     // rows of a sub-tile
 
 struct Params {
   const float2* x;
@@ -115,232 +102,16 @@ struct Params {
   const uint2* bc[3];  // combine B fragments (nt, ks, lane) of each plane
   const float* cst;
   const float2* tw;    // W_d1 (d1), W_d2 (d2), cross (dp, zero at pads)
-  int n, d, d1, d2, k, kpad, t_coh, rows_cta, buf;  // buf: float2 a buffer
-  int ld2, dp;         // a row in shared memory: d1 lines of ld2 = d2 | 1
+  int n, d, k, kpad, t_coh, rows_cta, buf;  // buf: float2 a buffer
   float alpha;
-  Level lv[2];         // the forward's levels: over a (d1), over b (d2)
+  Transform tf;        // a row: d1 lines of ld2 = d2 | 1 slots, rs = dp
 };
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-__device__ __forceinline__ float2 conj_if(float2 a, bool c) {
-  return c ? make_float2(a.x, -a.y) : a;
-}
-
-__device__ __forceinline__ unsigned bf2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// v0, v1 -> their three bf16 planes as packed pairs (v0 in the low half)
-__device__ __forceinline__ void split3(float v0, float v1, unsigned (&pl)[3]) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  const float y0 = v0 - hf.x, y1 = v1 - hf.y;
-  const __nv_bfloat162 l = __floats2bfloat162_rn(y0, y1);
-  const float2 lf = __bfloat1622float2(l);
-  pl[0] = bf2_bits(h);
-  pl[1] = bf2_bits(l);
-  pl[2] = bf2_bits(__floats2bfloat162_rn(y0 - lf.x, y1 - lf.y));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
-                                    uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// one k16 step's six products of three-plane splits into a fresh
-// accumulator, smallest first (A's plane first)
-__device__ __forceinline__ void six(float (&c)[4], const unsigned (&a)[3][4],
-                                    const uint2 (&b)[3]) {
-  c[0] = c[1] = c[2] = c[3] = 0.f;
-  mma(c, a[0], b[2]);
-  mma(c, a[1], b[1]);
-  mma(c, a[2], b[0]);
-  mma(c, a[1], b[0]);
-  mma(c, a[0], b[1]);
-  mma(c, a[0], b[0]);
-}
-
-__device__ __forceinline__ void kahan(float& sum, float& lost, float part) {
-  const float y = part - lost;
-  const float next = sum + y;
-  lost = (next - sum) - y;
-  sum = next;
-}
-
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-// One Stockham stage of radix r over a level of every row: in -> out.
-// Point i of batch bt sits at bt * bstride + i * istride. A butterfly j of
-// the stage (ns the product of the level's earlier radices, k = j mod ns)
-// reads points j + m n / r, multiplies point m by W_{ns r}^{m k} (and by
-// the cross twiddle where given: the level's first stage), takes the r-point
-// DFT and writes output m' to point (j - k) r + k + m' ns. Radix 2 and 4:
-// one butterfly a thread; other radices: one output a thread, the DFT as a
-// dense sum. A thread's twiddles serve every row it takes.
-template <bool INV>
-__device__ void stage(const float2* __restrict__ in, float2* __restrict__ out,
-                      int rows, int d, const Level& lv, int r, int ns,
-                      const float2* __restrict__ w,
-                      const float2* __restrict__ cross) {
-  const int n = lv.n, ms = n / r, tw_step = n / (ns * r);
-  const int items = lv.nbatch * (r == 2 || r == 4 ? ms : n);
-  const int groups = items >= kThreads ? 1 : kThreads / items;
-  for (int it = threadIdx.x; it < items * groups; it += kThreads) {
-    const int item = it % items, grp = it / items;
-    if (r == 2 || r == 4) {
-      const int j = item / lv.nbatch, bt = item - j * lv.nbatch;
-      const int k = j % ns, base = bt * lv.bstride;
-      const int in0 = base + j * lv.istride, ist = ms * lv.istride;
-      const int out0 = base + ((j - k) * r + k) * lv.istride;
-      const int ost = ns * lv.istride;
-      const bool twid = ns > 1 || cross != nullptr;
-      float2 c[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        if (m >= r) break;
-        c[m] = conj_if(w[m * k * tw_step], INV);  // m k tw_step < n
-        if (cross != nullptr) c[m] = cmul(c[m], conj_if(cross[in0 + m * ist], INV));
-      }
-#pragma unroll 4
-      for (int row = grp; row < rows; row += groups) {
-        const float2* src = in + row * d;
-        float2* dst = out + row * d;
-        if (r == 2) {
-          float2 v0 = src[in0], v1 = src[in0 + ist];
-          if (twid) {
-            v0 = cmul(v0, c[0]);
-            v1 = cmul(v1, c[1]);
-          }
-          dst[out0] = make_float2(v0.x + v1.x, v0.y + v1.y);
-          dst[out0 + ost] = make_float2(v0.x - v1.x, v0.y - v1.y);
-        } else {
-          float2 v[4];
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            v[m] = src[in0 + m * ist];
-            if (twid) v[m] = cmul(v[m], c[m]);
-          }
-          const float2 t0 = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
-          const float2 t1 = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
-          const float2 t2 = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
-          const float2 t3 = make_float2(v[1].x - v[3].x, v[1].y - v[3].y);
-          // -i t3 forward, +i t3 inverse
-          const float2 rt = INV ? make_float2(-t3.y, t3.x)
-                                : make_float2(t3.y, -t3.x);
-          dst[out0] = make_float2(t0.x + t2.x, t0.y + t2.y);
-          dst[out0 + ost] = make_float2(t1.x + rt.x, t1.y + rt.y);
-          dst[out0 + 2 * ost] = make_float2(t0.x - t2.x, t0.y - t2.y);
-          dst[out0 + 3 * ost] = make_float2(t1.x - rt.x, t1.y - rt.y);
-        }
-      }
-    } else {
-      const int o = item / lv.nbatch, bt = item - o * lv.nbatch;
-      // o = (j / ns) ns r + k + m' ns; the exponent of input m is
-      // m (k + m' ns) n / (ns r)
-      const int len = ns * r, rem = o % len, k = rem % ns;
-      const int j = (o / len) * ns + k, base = bt * lv.bstride;
-      const int in0 = base + j * lv.istride, ist = ms * lv.istride;
-      const int inc = rem * tw_step;  // < ns r n / (ns r) = n
-      float2 acc[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) acc[i] = make_float2(0.f, 0.f);
-      int e = 0;
-      for (int m = 0; m < r; ++m) {
-        float2 wm = conj_if(w[e], INV);
-        if (cross != nullptr)
-          wm = cmul(wm, conj_if(cross[in0 + m * ist], INV));
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int row = grp + i * groups;
-          if (row < rows) {
-            const float2 v = in[row * d + in0 + m * ist];
-            acc[i].x += v.x * wm.x - v.y * wm.y;
-            acc[i].y += v.x * wm.y + v.y * wm.x;
-          }
-        }
-        e += inc;
-        if (e >= n) e -= n;
-      }
-      const int po = base + o * lv.istride;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int row = grp + i * groups;
-        if (row < rows) out[row * d + po] = acc[i];
-      }
-    }
-  }
-}
-
-// The forward (INV = false: levels over a, then over b, the cross twiddle
-// before the second) or inverse (over q, then over p) transform of `rows`
-// rows in *cur; the result ends in *cur (the buffers swap each stage).
-template <bool INV>
-__device__ void transform(float2*& cur, float2*& oth, int rows,
-                          const Params& p, const float2* tw) {
-  const float2* tables[2] = {tw, tw + p.d1};
-  const float2* cross = tw + p.d1 + p.d2;
-#pragma unroll
-  for (int l = 0; l < 2; ++l) {
-    const int li = INV ? 1 - l : l;
-    const Level& lv = p.lv[li];
-    int ns = 1;
-    for (int s = 0; s < lv.nst; ++s) {
-      const int r = lv.rad[s];
-      stage<INV>(cur, oth, rows, p.dp, lv, r, ns, tables[li],
-                 l == 1 && s == 0 ? cross : nullptr);
-      ns *= r;
-      float2* t = cur;
-      cur = oth;
-      oth = t;
-      __syncthreads();
-    }
-  }
-}
-
-// rows [row0, row0 + rows) of x into buf (cp.async), waited for: the d2
-// values of a line of a row to the line's ld2 slots
-__device__ void load_rows(float2* buf, const Params& p, int row0, int rows) {
-  const int lines = kThreads / p.d2, b = threadIdx.x % p.d2;
-  const float2* src = p.x + (size_t)row0 * p.d;
-  if (threadIdx.x < lines * p.d2)
-    for (int l = threadIdx.x / p.d2; l < rows * p.d1; l += lines) {
-      const int r = l / p.d1, a = l - r * p.d1;
-      cp_async8(buf + r * p.dp + a * p.ld2 + b, src + l * p.d2 + b);
-    }
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// rows [row0, row0 + rows) of x into buf (cp.async), waited for
+__device__ void load_tile(float2* buf, const Params& p, int row0, int rows) {
+  load_rows(buf, p.x + (size_t)row0 * p.d, p.d, rows, p.tf);
+  cp_async_wait_all();
   __syncthreads();
-}
-
-// the rows of buf out to global memory, line by line
-__device__ void store_rows(const float2* buf, const Params& p, int row0,
-                           int rows) {
-  const int lines = kThreads / p.d2, b = threadIdx.x % p.d2;
-  float2* dst = p.out + (size_t)row0 * p.d;
-  if (threadIdx.x < lines * p.d2)
-    for (int l = threadIdx.x / p.d2; l < rows * p.d1; l += lines) {
-      const int r = l / p.d1, a = l - r * p.d1;
-      dst[l * p.d2 + b] = buf[r * p.dp + a * p.ld2 + b];
-    }
-}
-
-// zero the pad slot of each line (ld2 > d2): the products read them, and
-// the bank's rows and columns there are zero
-__device__ void zero_pads(float2* buf, const Params& p, int rows) {
-  if (p.ld2 == p.d2) return;
-  for (int l = threadIdx.x; l < rows * p.d1; l += kThreads)
-    buf[l * p.ld2 + p.d2] = make_float2(0.f, 0.f);
 }
 
 // features f, f + 1 (f even) of row `row` of u: [u | |u|^2], zero past 3D
@@ -372,7 +143,7 @@ template <int TN>
 __device__ void logit_part(const float2* u, float2* part, int rows,
                            const Params& p, int t0, int kpart, int ksplit) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int ntk = (p.k + 7) >> 3, ks_n = (3 * p.dp + 15) >> 4;
+  const int ntk = (p.k + 7) >> 3, ks_n = (3 * p.tf.dp + 15) >> 4;
   float sum[TN][4], lost[TN][4];
 #pragma unroll
   for (int j = 0; j < TN; ++j)
@@ -393,7 +164,7 @@ __device__ void logit_part(const float2* u, float2* part, int rows,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float2 v = feature_pair(u, g + 8 * (e & 1), rows,
-                                    16 * ks + 2 * q + 8 * (e >> 1), p.dp);
+                                    16 * ks + 2 * q + 8 * (e >> 1), p.tf.dp);
       unsigned w[3];
       split3(v.x, v.y, w);
 #pragma unroll
@@ -433,7 +204,7 @@ __device__ void logit_part(const float2* u, float2* part, int rows,
 // lg'.
 __device__ void logits(const float2* u, float2* part, float* lg, int rows,
                        const Params& p) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int ntk = (p.k + 7) >> 3, nch = (ntk + 3) >> 2, ksplit = kWarps / nch;
   const int chunk = warp % nch, kpart = warp / nch;
   const int t0 = chunk * 4, tn = min(4, ntk - t0);
@@ -446,87 +217,7 @@ __device__ void logits(const float2* u, float2* part, float* lg, int rows,
     }
   }
   __syncthreads();
-  for (int row = warp; row < rows; row += kWarps) {
-    float s[4], l[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kk = lane + 32 * i;
-      s[i] = -INFINITY;
-      l[i] = 0.f;
-      if (kk < p.k) {
-        s[i] = 0.f;
-        for (int kp = 0; kp < ksplit; ++kp) {
-          const float2 pr = part[(kp * kM + row) * p.kpad + kk];
-          kahan(s[i], l[i], pr.x);
-          kahan(s[i], l[i], -pr.y);
-        }
-        kahan(s[i], l[i], __ldg(p.cst + kk));
-      }
-    }
-    float off = fmaxf(s[0], s[1]);  // components [0, 64)
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      off = fmaxf(off, __shfl_xor_sync(0xffffffffu, off, o));
-    off = off > -1e29f ? off : 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kk = lane + 32 * i;
-      if (kk < p.k) lg[row * p.kpad + kk] = (s[i] - off) - l[i];
-    }
-  }
-}
-
-// The softmax of `rows` rows of offset logits in place, a warp a block of T
-// rows: the pool lg' + a (s - lg'), s the block's sum in float64 (a >= 1:
-// s), then the normalised weights. A row whose logits are all -inf weighs
-// nothing.
-__device__ void softmax_rows(float* lg, int rows, const Params& p) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = p.t_coh;
-  for (int r0 = warp * t; r0 < rows; r0 += kWarps * t) {
-    double s[4] = {0.0, 0.0, 0.0, 0.0};
-    if (t > 1)
-      for (int tt = 0; tt < t; ++tt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int kk = lane + 32 * i;
-          if (kk < p.k) s[i] += (double)lg[(r0 + tt) * p.kpad + kk];
-        }
-    for (int tt = 0; tt < t; ++tt) {
-      float* lr = lg + (r0 + tt) * p.kpad;
-      float v[4], mx = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kk = lane + 32 * i;
-        v[i] = -INFINITY;
-        if (kk < p.k) {
-          const float l = lr[kk];
-          v[i] = t == 1 ? l
-                 : p.alpha >= 1.f
-                     ? (float)s[i]
-                     : (float)((double)l + (double)p.alpha * (s[i] - (double)l));
-          mx = fmaxf(mx, v[i]);
-        }
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      if (mx == -INFINITY) mx = 0.f;
-      float den = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        v[i] = v[i] == -INFINITY ? 0.f : expf(v[i] - mx);
-        den += v[i];
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        den += __shfl_xor_sync(0xffffffffu, den, o);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kk = lane + 32 * i;
-        if (kk < p.k) lr[kk] = v[i] / den;
-      }
-    }
-  }
+  reduce_logits(part, lg, rows, kM, ksplit, p.k, p.kpad, p.cst);
 }
 
 // the sub-tile's weights (rows x kpad in lg) as A fragments of three
@@ -565,7 +256,7 @@ __device__ void combine(float2* u, const uint4* wpl, int rows,
   constexpr int kB = 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
-  const int ksw = (p.k + 15) >> 4, ntc = (4 * p.dp + 7) >> 3;
+  const int ksw = (p.k + 15) >> 4, ntc = (4 * p.tf.dp + 7) >> 3;
   for (int t0 = warp; t0 < ntc; t0 += kWarps * kB) {
     float sum[kB][4], lost[kB][4];
 #pragma unroll
@@ -608,7 +299,7 @@ __device__ void combine(float2* u, const uint4* wpl, int rows,
         o[i] = __shfl_xor_sync(0xffffffffu, v[i], 1);
       }
       const int bin = 2 * t + (q >> 1);
-      if ((q & 1) != 0 || t >= ntc || bin >= p.dp) continue;
+      if ((q & 1) != 0 || t >= ntc || bin >= p.tf.dp) continue;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = g + 8 * r;
@@ -616,7 +307,7 @@ __device__ void combine(float2* u, const uint4* wpl, int rows,
         // this lane: bias (v), its pair: filter (o)
         const float br = v[2 * r], bi = v[2 * r + 1];
         const float fr = o[2 * r], fi = o[2 * r + 1];
-        float2* at = u + row * p.dp + bin;
+        float2* at = u + row * p.tf.dp + bin;
         const float2 uu = *at;
         *at = make_float2(br + fr * uu.x - fi * uu.y,
                           bi + fr * uu.y + fi * uu.x);
@@ -632,7 +323,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float2* buf1 = buf0 + p.buf;
   float* lg = reinterpret_cast<float*>(buf1 + p.buf);
   float2* tw = reinterpret_cast<float2*>(lg + p.rows_cta * p.kpad);
-  const int n_tw = p.d1 + p.d2 + p.dp;
+  const int n_tw = p.tf.d1 + p.tf.d2 + p.tf.dp;
   for (int i = threadIdx.x; i < n_tw; i += kThreads) tw[i] = p.tw[i];
 
   const int row0 = blockIdx.x * p.rows_cta;
@@ -644,52 +335,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   // sweep 1: the logits of every sub-tile
   for (int s = 0; s < n_sub; ++s) {
     const int rows = min(kRows, rows_here - s * kRows);
-    load_rows(cur, p, row0 + s * kRows, rows);
-    transform<false>(cur, oth, rows, p, tw);
-    zero_pads(cur, p, rows);
+    load_tile(cur, p, row0 + s * kRows, rows);
+    transform<false, kRows>(cur, oth, rows, p.tf, tw);
+    zero_pads(cur, rows, p.tf.dp, p.tf);
     __syncthreads();
     logits(cur, oth, lg + s * kRows * p.kpad, rows, p);
     __syncthreads();
   }
-  softmax_rows(lg, rows_here, p);
+  softmax_rows(lg, rows_here, p.k, p.kpad, p.t_coh, p.alpha);
   __syncthreads();
   // sweep 2: the combine and the inverse of every sub-tile (u recomputed
   // where the block holds more than one)
   for (int s = 0; s < n_sub; ++s) {
     const int rows = min(kRows, rows_here - s * kRows);
     if (n_sub > 1) {
-      load_rows(cur, p, row0 + s * kRows, rows);
-      transform<false>(cur, oth, rows, p, tw);
-      zero_pads(cur, p, rows);
+      load_tile(cur, p, row0 + s * kRows, rows);
+      transform<false, kRows>(cur, oth, rows, p.tf, tw);
+      zero_pads(cur, rows, p.tf.dp, p.tf);
     }
     weight_planes(lg + s * kRows * p.kpad, reinterpret_cast<uint4*>(oth), rows,
                   p);
     __syncthreads();
     combine(cur, reinterpret_cast<const uint4*>(oth), rows, p);
     __syncthreads();
-    transform<true>(cur, oth, rows, p, tw);
-    store_rows(cur, p, row0 + s * kRows, rows);
+    transform<true, kRows>(cur, oth, rows, p.tf, tw);
+    store_rows(cur, p.out + (size_t)(row0 + s * kRows) * p.d, p.d, rows, p.tf);
     __syncthreads();
   }
 }
-
-// the radices of an n-point level: 4s, a 2, then odd primes
-int radices(int n, int (&r)[kMaxStages]) {
-  int c = 0;
-  while (n % 4 == 0 && c < kMaxStages) r[c++] = 4, n /= 4;
-  if (n % 2 == 0 && c < kMaxStages) r[c++] = 2, n /= 2;
-  for (int f = 3; f * f <= n; f += 2)
-    while (n % f == 0 && c < kMaxStages) r[c++] = f, n /= f;
-  if (n > 1) {
-    if (c == kMaxStages) return -1;
-    r[c++] = n;
-  }
-  return c;
-}
-
-// Slots of a row in shared memory: d1 lines of d2 | 1 (an odd stride, so
-// that the 16 lines a half-warp reads at one offset fall on distinct banks).
-int padded(int d1, int d2) { return d1 * (d2 | 1); }
 
 int rows_cta(int t_coh) {
   return t_coh <= kRows ? kRows / t_coh * t_coh : t_coh;
@@ -755,10 +428,10 @@ extern "C" int circ_fact_launch(const float* x, const void* hi, const void* lo,
   Params p{};
   p.x = reinterpret_cast<const float2*>(x);
   p.out = reinterpret_cast<float2*>(out);
-  p.ld2 = d2 | 1;
-  p.dp = padded(d1, d2);
+  if (!make_transform(d1, d2, padded(d1, d2), p.tf))
+    return (int)cudaErrorInvalidValue;
   const long long lunits =
-      32LL * ((3LL * p.dp + 15) / 16) * ((k_comp + 7) / 8);
+      32LL * ((3LL * p.tf.dp + 15) / 16) * ((k_comp + 7) / 8);
   const void* planes[3] = {hi, lo, lo2};
   for (int pl = 0; pl < 3; ++pl) {
     p.bl[pl] = static_cast<const uint2*>(planes[pl]);
@@ -768,22 +441,12 @@ extern "C" int circ_fact_launch(const float* x, const void* hi, const void* lo,
   p.tw = reinterpret_cast<const float2*>(tw);
   p.n = n;
   p.d = d;
-  p.d1 = d1;
-  p.d2 = d2;
   p.k = k_comp;
   p.kpad = (k_comp + 7) / 8 * 8;
   p.t_coh = t_coh;
   p.rows_cta = rows_cta(t_coh);
   p.alpha = alpha;
-  p.buf = (int)buffer_slots(p.dp, k_comp);
-  // level 0: d1 points over a (stride ld2), batches b; level 1: d2 points
-  // over b, batches the lines a
-  p.lv[0] = Level{d1, p.ld2, 1, d2, 0, {}};
-  p.lv[1] = Level{d2, 1, p.ld2, d1, 0, {}};
-  for (int l = 0; l < 2; ++l) {
-    p.lv[l].nst = radices(p.lv[l].n, p.lv[l].rad);
-    if (p.lv[l].nst < 1) return (int)cudaErrorInvalidValue;
-  }
+  p.buf = (int)buffer_slots(p.tf.dp, k_comp);
   cudaError_t err = cudaFuncSetAttribute(
       circ_fact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

@@ -198,6 +198,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.circ_fact_launch.argtypes = [ptr] * 7 + [i32] * 5 + [
             ctypes.c_longlong, i32, f32, ptr]
         lib.circ_fact_launch.restype = i32
+    elif name == "mp_circ_fact_estimate":
+        lib.mp_circ_fact_launch.argtypes = [ptr] * 7 + [i32] * 6 + [
+            ctypes.c_longlong, i32, f32, ptr]
+        lib.mp_circ_fact_launch.restype = i32
+        lib.mp_circ_fact_plan.argtypes = [i32] * 5 + [ptr]
+        lib.mp_circ_fact_plan.restype = ctypes.c_longlong
     elif name == "mp_circ_estimate":
         lib.mp_circ_estimate_launch.argtypes = (
             [ptr] * 8 + [i32] * 6 + [f32, i32, ptr])

@@ -50,6 +50,23 @@ global scratch, rows cut into launches within `kernels.WIDE_SCRATCH`.
 by `lowered_tc`), and `mp_circ_wide_reference` is the plain version of its
 arithmetic.
 
+Past the template's rule, wherever the transform splits into two levels
+of at most 64 points (`circ_kernels.circ_fact_blocks`), the tile's buffers
+fit a block's shared memory and the kernel was measured faster than the
+wide form (`mp_circ_fact_eligible`: K <= 64, 3K <= D, few dense odd-prime
+stages), the entries launch the factorised kernel instead,
+`csrc/mp_circ_fact_estimate.cu` (`mp_circ_fact_launch`, counted apart:
+`mp_circ_estimate_fact`, `mp_circ_estimate_coherent_fact`): one launch a
+tile of 16 or 32 rows, the P forward transforms and the inverse as K6's
+Stockham stages in shared memory (`csrc/circ_fact_common.cuh`), the bins
+left in a permuted order (`circ_kernels.circ_fact_perm`), the features
+formed a k16 step at a time from the P transforms on chip, the logit and
+the combine on the tensor cores, nothing in global memory between.
+`mp_circ_route` is the one rule of the shapes that picks among the three;
+`mp_circ_fact_operands` lays a `MpCircKernelBank` out for the factorised
+kernel (cached by `lowered_tc(..., fact=True)`), and
+`mp_circ_fact_reference` is its plain version.
+
 A wrapper launches its kernel on a CUDA tensor (or raises) and takes the
 plain PyTorch version only for a tensor on the CPU.
 """
@@ -202,6 +219,123 @@ def mp_circ_kernel_eligible(d: int, k: int, p: int, t: int = 1) -> bool:
     with T <= 16 for the coherent form): D <= 357, K <= 8090, P <= 202
     there. A rule of the shapes, decided before any launch."""
     return mp_circ_narrow(d, k, p, t) or mp_circ_wide_eligible(d, k, p, t)
+
+
+MP_FACT_MAX_P = 16    # pilots of the factorised kernel
+FACT_THREADS = 512    # threads of one block of the factorised kernel
+
+
+def mp_circ_fact_steps(p: int) -> list:
+    """The k16 steps of one 8-slot block of the factorised kernel's logit,
+    in its order (`mp_circ_fact_estimate.cu`): ('u', a, a) for each pilot,
+    ('v', a, b) for each pair a < b in row-major order, ('sq', 2i, 2i + 1)
+    for the |u|^2 features two pilots a step (pilot 2i + 1 = P: none)."""
+    return ([("u", a, a) for a in range(p)]
+            + [("v", a, b) for a in range(p) for b in range(a + 1, p)]
+            + [("sq", a, a + 1) for a in range(0, p, 2)])
+
+
+def mp_circ_fact_row_stride(dp: int) -> int:
+    """float2 from one row of the kernel's u regions to the next: whole
+    8-slot blocks, plus 4 (4 mod 16: the four rows a half-warp reads at one
+    slot on distinct banks)."""
+    return 8 * -(-dp // 8) + 4
+
+
+def mp_circ_fact_smem(d1: int, d2: int, p: int, k: int, t: int,
+                      mt: int) -> int:
+    """Shared memory of one block of the factorised K10 with MT mma row
+    tiles (R = 16 MT rows a sub-tile; `smem_bytes` in
+    csrc/mp_circ_fact_estimate.cu): P regions of R rows of u, a scratch
+    (the larger of a region, the logit's partial sums of its warps and the
+    weights' planes), the logits of a tile's rows, the twiddles and the
+    step table."""
+    dp, kpad, ntk = d1 * (d2 | 1), -(-k // 8) * 8, -(-k // 8)
+    ksplit = FACT_THREADS // 32 // -(-ntk // (4 if mt == 1 else 2))
+    r = 16 * mt
+    region = r * mp_circ_fact_row_stride(dp)
+    region += region % 2
+    scratch = max(region, ksplit * r * kpad, 3 * mt * -(-k // 16) * 32 * 2)
+    scratch += scratch % 2
+    rows_cta = r // t * t if t <= r else t
+    return (8 * (p * region + scratch) + 4 * rows_cta * kpad
+            + 8 * (d1 + d2 + dp) + 4 * len(mp_circ_fact_steps(p)))
+
+
+def mp_circ_fact_plan(d1: int, d2: int, p: int, k: int, t: int = 1):
+    """The factorised kernel's tile at these widths (`mp_circ_fact_plan` in
+    csrc/mp_circ_fact_estimate.cu): (MT, shared-memory bytes), MT = 2 (32
+    rows) where its buffers fit a block's shared memory, else 1 (16 rows);
+    None where neither fits or the widths are past the kernel's range."""
+    if not (2 <= d1 <= 64 and 2 <= d2 <= 64 and d1 * d2 <= WIDE_MAX_D
+            and 1 <= p <= MP_FACT_MAX_P and 1 <= k <= CIRC_MAX_K
+            and 1 <= t <= WIDE_MAX_T):
+        return None
+    for mt in (2, 1):
+        smem = mp_circ_fact_smem(d1, d2, p, k, t, mt)
+        if smem <= SMEM_BLOCK_BYTES:
+            return mt, smem
+    return None
+
+
+def _odd_points(n: int) -> int:
+    """The points of the dense odd-prime stages of an n-point level, as the
+    kernel splits it (`radices` in csrc/circ_fact_common.cuh: 4s, a 2,
+    then odd primes): their sum, each a dense DFT of that many points an
+    output."""
+    while n % 4 == 0:
+        n //= 4
+    if n % 2 == 0:
+        n //= 2
+    total, f = 0, 3
+    while f * f <= n:
+        while n % f == 0:
+            total, n = total + f, n // f
+        f += 2
+    return total + (n if n > 1 else 0)
+
+
+def mp_circ_fact_eligible(d: int, k: int, p: int, t: int = 1,
+                          blocks=None) -> bool:
+    """Does the route send these widths to the factorised kernel
+    (csrc/mp_circ_fact_estimate.cu)? Past the template's rule
+    (`mp_circ_narrow` false), within the wide form's (so that the three
+    routes together take exactly `mp_circ_kernel_eligible`), a transform
+    that splits into two levels of at most 64 points
+    (`circ_kernels.circ_fact_blocks` in the basis `blocks`), T <= 64 and a
+    tile whose buffers fit (`mp_circ_fact_plan`: P <= 4 at D = 256, K =
+    32; P <= 3 at D = 357); and only where the kernel was measured faster
+    than the dense wide form (`tools/circ_fact_bench.py reach`, PERF.md
+    §6): K <= 64 and 3 K <= D (past them the products outweigh the
+    dense transforms the kernel saves), dense odd-prime stages of at most
+    D / 10 points an output in all (`_odd_points`: each output of such a
+    stage reads all its r points; 357 = 17 x 21 passes, 129 = 3 x 43 does
+    not), and a block of T rows past the tile's (two sweeps, the P
+    transforms recomputed) only without odd-prime stages."""
+    from quantized_channel_estimation_torch.estimators import circ_kernels
+    if mp_circ_narrow(d, k, p, t) or not mp_circ_wide_eligible(d, k, p, t):
+        return False
+    levels = circ_kernels.circ_fact_blocks(d, blocks)
+    plan = (None if levels is None or t > WIDE_MAX_T
+            else mp_circ_fact_plan(*levels, p, k, t))
+    if plan is None:
+        return False
+    odd = _odd_points(levels[0]) + _odd_points(levels[1])
+    return (k <= 64 and 3 * k <= d and 10 * odd <= d
+            and (t <= 16 * plan[0] or odd == 0))
+
+
+def mp_circ_route(d: int, k: int, p: int, t: int = 1, blocks=None) -> str:
+    """Which kernel serves K10 at these widths (in the basis `blocks`):
+    'template' (`csrc/mp_circ_estimate.cu`, `mp_circ_narrow`), 'fact' (the
+    factorised kernel, `mp_circ_fact_eligible`) or 'wide' (the dense wide
+    form, `csrc/circ_wide_estimate.cu`); a rule of the shapes, decided
+    before any launch. Raises outside `mp_circ_kernel_eligible`."""
+    if not mp_circ_kernel_eligible(d, k, p, t):
+        raise ValueError(_rule(d, k, p, t))
+    if mp_circ_narrow(d, k, p, t):
+        return "template"
+    return "fact" if mp_circ_fact_eligible(d, k, p, t, blocks) else "wide"
 
 
 def mp_circ_bound(n: int, d: int, k: int, p: int, t_coh: int = 1) -> dict:
@@ -411,15 +545,23 @@ def check_mp_circ_tc_operands(kernel: str, ops: tu.UnitOperands,
 
 
 def lowered_tc(bank: CirculantBankMP, cache: Optional[dict] = None,
-               blocks=None, wide: bool = False) -> tu.UnitOperands:
+               blocks=None, wide: bool = False, fact: bool = False):
     """The kernel's operands of the bank (`mp_circ_tc_operands` of its
-    T = 1 layout; with `wide`, the wide form's `mp_circ_wide_operands`),
-    kept in `cache` under ("mp_circ_tc_operands", blocks) or
-    ("mp_circ_wide_operands", blocks) beside the layouts of `lowered`, so a
-    bank served many times is split and laid out once."""
-    key = ("mp_circ_wide_operands" if wide else "mp_circ_tc_operands",
-           blocks)
-    lay = mp_circ_wide_operands if wide else mp_circ_tc_operands
+    T = 1 layout; with `wide`, the wide form's `mp_circ_wide_operands`;
+    with `fact`, the factorised kernel's `mp_circ_fact_operands` in the
+    basis `blocks`), kept in `cache` under ("mp_circ_tc_operands",
+    blocks), ("mp_circ_wide_operands", blocks) or
+    ("mp_circ_fact_operands", blocks) beside the layouts of `lowered`, so
+    a bank served many times is split and laid out once."""
+    if fact:
+        key = ("mp_circ_fact_operands", blocks)
+
+        def lay(ckb):
+            return mp_circ_fact_operands(ckb, blocks)
+    else:
+        key = ("mp_circ_wide_operands" if wide else "mp_circ_tc_operands",
+               blocks)
+        lay = mp_circ_wide_operands if wide else mp_circ_tc_operands
     if cache is None:
         return lay(lowered(bank, None, blocks))
     if key not in cache:
@@ -521,10 +663,164 @@ def mp_circ_wide_rows(u: torch.Tensor, p: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the factorised kernel's layout (csrc/mp_circ_fact_estimate.cu)
+# ---------------------------------------------------------------------------
+
+def mp_circ_fact_bank(ckb: MpCircKernelBank, blocks=None) -> MpCircKernelBank:
+    """ckb with the per-bin rows of every feature group of lcoef (u_p: 2 (p
+    D + c), + 1; |u_p|^2: 2 P D + p D + c; v_pq: 3 P D + 2 i D + 2c, + 1)
+    and the columns of every comb slab (2c, 2c + 1) in the factorised
+    transform's order (`circ_kernels.circ_fact_perm`); bfwd and binv as
+    they are (the factorised route does not read them)."""
+    from quantized_channel_estimation_torch.estimators import circ_kernels
+    two_d = ckb.bfwd.shape[0]
+    d, p = two_d // 2, ckb.comb.shape[0] - 1
+    perm = circ_kernels.circ_fact_perm(d, blocks).to(ckb.lcoef.device)
+    pair = torch.stack([2 * perm, 2 * perm + 1], -1).reshape(-1)
+    rows = ([2 * pi * d + pair for pi in range(p)]
+            + [2 * p * d + pi * d + perm for pi in range(p)]
+            + [3 * p * d + 2 * i * d + pair
+               for i in range(p * (p - 1) // 2)])
+    return MpCircKernelBank(ckb.bfwd, ckb.lcoef[torch.cat(rows)].contiguous(),
+                            ckb.const, ckb.comb[:, :, pair].contiguous(),
+                            ckb.binv)
+
+
+class MpCircFactOperands(NamedTuple):
+    """The factorised K10's operands of a bank over the kernel's padded row
+    of dp = d1 (d2 | 1) slots (`circ_kernels.circ_fact_slots`; the pad
+    slots' rows and columns zero): each bf16 plane (hi, lo, lo2 of the
+    three-plane split) holds the permuted lcoef's mma.sync B fragments
+    ((k16 step, n8 tile) of the (16 S ceil(dp / 8), K) product in the
+    kernel's step order, `mp_circ_fact_steps`), then the permuted comb's
+    ((n8 tile, k16 step) of the (K, 8 (P + 1) ceil(dp / 4)) product: the P
+    + 1 slabs' [re, im] of 4 slots a tile), `mp_circ_fact_units(d1, d2, P,
+    K)` lanes of four; tw the float32 tables W_d1, W_d2 and the cross
+    twiddle over the dp slots as interleaved [re, im] pairs; the levels
+    (d1, d2), whether the basis is kron's, and P."""
+    hi: torch.Tensor
+    lo: torch.Tensor
+    lo2: torch.Tensor
+    tw: torch.Tensor
+    d1: int
+    d2: int
+    kron: bool
+    p: int
+
+
+def mp_circ_fact_units(d1: int, d2: int, p: int, k: int) -> int:
+    """Lanes (of four bf16) of each plane of `MpCircFactOperands`: the
+    logit's S ceil(dp / 8) k16 steps x ceil(K / 8) n8 tiles and the
+    combine's (P + 1) ceil(dp / 4) n8 tiles x ceil(K / 16) k16 steps, 32
+    lanes each (dp = d1 (d2 | 1), S = `len(mp_circ_fact_steps(P))`)."""
+    dp = d1 * (d2 | 1)
+    return 32 * (-(-dp // 8) * len(mp_circ_fact_steps(p)) * -(-k // 8)
+                 + -(-dp // 4) * (p + 1) * -(-k // 16))
+
+
+def _fact_logit_rows(d: int, p: int, slot_pos: torch.Tensor) -> torch.Tensor:
+    """The row of the permuted lcoef (`mp_circ_fact_bank`) behind each row
+    of the kernel's logit operand, -1 for a zero row: 8-slot block j's
+    steps (`mp_circ_fact_steps`), column c of a step at slot 8j + (c % 8) //
+    2 + 4 (c // 8), part c % 2, for u_p and v_pq; for |u_a|^2, |u_b|^2 at
+    slot 8j + (c % 8) // 2 + 4 (c % 2) of pilot a (c < 8) or b.
+    slot_pos: the position behind each slot (-1 at a pad)."""
+    nsb = -(-slot_pos.shape[0] // 8)
+    pos = torch.full((8 * nsb,), -1, dtype=torch.long)
+    pos[:slot_pos.shape[0]] = slot_pos
+    c = torch.arange(16)
+    pairs = {(a, b): i for i, (a, b) in enumerate(
+        (a, b) for a in range(p) for b in range(a + 1, p))}
+    out = []
+    for j in range(nsb):
+        for kind, a, b in mp_circ_fact_steps(p):
+            if kind == "sq":
+                pil = torch.where(c < 8, a, b)
+                at = pos[8 * j + (c % 8) // 2 + 4 * (c % 2)]
+                row = 2 * p * d + pil * d + at
+                ok = (at >= 0) & (pil < p)
+            else:
+                at = pos[8 * j + (c % 8) // 2 + 4 * (c // 8)]
+                first = (2 * a * d if kind == "u"
+                         else 3 * p * d + 2 * pairs[(a, b)] * d)
+                row = first + 2 * at + c % 2
+                ok = at >= 0
+            out.append(torch.where(ok, row, -1))
+    return torch.cat(out)
+
+
+def _fact_comb_cols(d: int, p: int, slot_pos: torch.Tensor) -> torch.Tensor:
+    """The column of the permuted comb slabs flattened ((P + 1) 2D, slab
+    major) behind each column of the kernel's combine operand, -1 for a
+    zero column: group j's P + 1 n8 tiles, tile s column c slab s's [re,
+    im] (c % 2) of slot 4j + c // 2."""
+    ng = -(-slot_pos.shape[0] // 4)
+    pos = torch.full((4 * ng,), -1, dtype=torch.long)
+    pos[:slot_pos.shape[0]] = slot_pos
+    c = torch.arange(8)
+    out = []
+    for j in range(ng):
+        at = pos[4 * j + c // 2]
+        for s in range(p + 1):
+            out.append(torch.where(at >= 0, s * 2 * d + 2 * at + c % 2, -1))
+    return torch.cat(out)
+
+
+def _gather_rows(m: torch.Tensor, idx: torch.Tensor, dim: int):
+    """m's rows (dim 0) or columns (dim 1) at idx, zero where idx is -1."""
+    idx = idx.to(m.device)
+    taken = m.index_select(dim, idx.clamp(min=0))
+    keep = (idx >= 0).to(m.dtype)
+    return taken * (keep[:, None] if dim == 0 else keep[None, :])
+
+
+def mp_circ_fact_operands(ckb: MpCircKernelBank,
+                          blocks=None) -> MpCircFactOperands:
+    """Lay ckb out for the factorised K10 in the transform basis `blocks`
+    (None: the DFT): lcoef's rows and the comb slabs' columns permuted
+    (`mp_circ_fact_bank`) onto the kernel's padded slots in its step and
+    tile order, split into bf16 hi / lo / lo2 and laid out as B fragments;
+    the tables built in float64 and rounded once, as
+    `circ_kernels.circ_fact_operands` builds K6's. The same for every (T,
+    alpha) layout of a bank; once per bank (`lowered_tc(..., fact=True)`
+    keeps them)."""
+    from quantized_channel_estimation_torch.estimators import circ_kernels
+    two_d = ckb.bfwd.shape[0]
+    d, p, k = two_d // 2, ckb.comb.shape[0] - 1, ckb.const.shape[0]
+    levels = circ_kernels.circ_fact_blocks(d, blocks)
+    if levels is None:
+        raise ValueError(f"the factorised kernel takes no D = {d} transform"
+                         f" (blocks={blocks}): circ_fact_blocks")
+    d1, d2 = levels
+    dp = d1 * (d2 | 1)
+    fb = mp_circ_fact_bank(ckb, blocks)
+    slot = circ_kernels.circ_fact_slots(d1, d2)
+    slot_pos = torch.full((dp,), -1, dtype=torch.long)
+    slot_pos[slot] = torch.arange(d)
+    lcoef = _gather_rows(fb.lcoef, _fact_logit_rows(d, p, slot_pos), 0)
+    comb = _gather_rows(fb.comb.permute(1, 0, 2).reshape(k, -1),
+                        _fact_comb_cols(d, p, slot_pos), 1)
+    frags = torch.cat([circ_kernels._b_fragments(lcoef, True),
+                       circ_kernels._b_fragments(comb, False)])
+    planes = kernels.split_planes3(frags.contiguous())
+    t1, t2, cross = circ_kernels._fact_tables(d1, d2, blocks is not None,
+                                              ckb.lcoef.device)
+    cross_p = cross.new_zeros((dp,))
+    cross_p[slot.to(cross.device)] = cross
+    tw = torch.view_as_real(torch.cat([t1, t2, cross_p])).to(torch.float32)
+    return MpCircFactOperands(*(pl.contiguous() for pl in planes),
+                              tw.reshape(-1).contiguous(), d1, d2,
+                              blocks is not None, p)
+
+
+# ---------------------------------------------------------------------------
 # plain versions: the kernel's own arithmetic in float32
 # ---------------------------------------------------------------------------
 
-def _mp_reference(x2, ckb, t_coh, coh_alpha, chunk):
+def _mp_reference(x2, ckb, t_coh, coh_alpha, chunk, fwd=None, inv=None):
+    """The plain K10 on x2's rows, chunk rows (whole blocks) at a time; the
+    transforms by bfwd and binv, or by the functions `fwd` and `inv` of
+    interleaved rows (n, 2D)."""
     pin_fp32()
     two_d = ckb.bfwd.shape[0]
     d, p = two_d // 2, ckb.comb.shape[0] - 1
@@ -538,7 +834,8 @@ def _mp_reference(x2, ckb, t_coh, coh_alpha, chunk):
     for i0 in range(0, x2.shape[0], chunk):
         xc = x2[i0:i0 + chunk]
         n = xc.shape[0]
-        u = (xc.reshape(n * p, two_d) @ ckb.bfwd).reshape(n, p, d, 2)
+        xp = xc.reshape(n * p, two_d)
+        u = (xp @ ckb.bfwd if fwd is None else fwd(xp)).reshape(n, p, d, 2)
         ur, ui = u[..., 0], u[..., 1]                        # (n, P, D)
         lg = _mp_features(u) @ ckb.lcoef + ckb.const[None]
         w = torch.softmax(_pool(lg, t_coh, coh_alpha), dim=-1)
@@ -546,8 +843,8 @@ def _mp_reference(x2, ckb, t_coh, coh_alpha, chunk):
         fr, fi = c[:, 1:, :, 0], c[:, 1:, :, 1]
         hr = c[:, 0, :, 0] + (fr * ur - fi * ui).sum(1)
         hi = c[:, 0, :, 1] + (fr * ui + fi * ur).sum(1)
-        outs.append(torch.stack([hr, hi], dim=-1).reshape(n, two_d)
-                    @ ckb.binv)
+        h = torch.stack([hr, hi], dim=-1).reshape(n, two_d)
+        outs.append(h @ ckb.binv if inv is None else inv(h))
     return torch.cat(outs) if outs else x2.new_zeros((0, two_d))
 
 
@@ -569,6 +866,33 @@ def mp_circ_estimate_coherent_reference(x2: torch.Tensor,
     replaced by lg + a (s - lg), s the block sum. ckb from
     `mp_circ_kernel_bank(bank, blocks, t_coh, coh_alpha)`."""
     return _mp_reference(x2, ckb, t_coh, coh_alpha, chunk)
+
+
+def mp_circ_fact_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
+                           t_coh: int = 1, coh_alpha: float = 1.0,
+                           blocks=None, chunk: int = 8192) -> torch.Tensor:
+    """Plain PyTorch version of the factorised K10 (flat at t_coh = 1,
+    coherent above; ckb from `mp_circ_kernel_bank(bank, blocks, t_coh,
+    coh_alpha)`) in x2's precision: the factorised transform of each pilot
+    segment (`circ_kernels.circ_fact_transform`), the logit over [u_p |
+    |u_p|^2 | v_pq], the softmax (pooled over T-row blocks) and the combine
+    h = c_bias + sum_p c_filt_p u_p on the permuted layout
+    (`mp_circ_fact_bank`), and the inverse into natural order. In float32
+    the logit and the combine run as `mp_circ_wide_reference` runs them
+    (six bf16 products a step in compensated sums, which keep float32's
+    accuracy on pooled logits, where plain float32 products lose it); in
+    float64 they are plain products (`_mp_reference`'s arithmetic), the
+    function itself. x2 (N, 2PD) interleaved, pilot-major
+    -> (N, 2D). For the CPU tests and chip_smoke's checks; nothing on the
+    main path calls it where a card is present."""
+    from quantized_channel_estimation_torch.estimators import circ_kernels
+    d = ckb.bfwd.shape[0] // 2
+    d1, d2 = circ_kernels.circ_fact_blocks(d, blocks)
+    kron = blocks is not None
+    run = _mp_reference if x2.dtype == torch.float64 else _mp_walked
+    return run(x2, mp_circ_fact_bank(ckb, blocks), t_coh, coh_alpha, chunk,
+               lambda x: circ_kernels._fact_real(x, d1, d2, kron, False),
+               lambda h: circ_kernels._fact_real(h, d1, d2, kron, True))
 
 
 def _chunked(rows: torch.Tensor, w: torch.Tensor, width: int):
@@ -689,6 +1013,13 @@ def mp_circ_wide_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
     bin, pilot by pilot. x2 (N, 2PD) float32 interleaved, pilot-major ->
     (N, 2D). For the CPU tests and chip_smoke's checks; nothing on the main
     path calls it where a card is present."""
+    return _mp_walked(x2, ckb, t_coh, coh_alpha, chunk)
+
+
+def _mp_walked(x2, ckb, t_coh, coh_alpha, chunk, fwd=None, inv=None):
+    """`mp_circ_wide_reference`'s arithmetic; the transforms the walked
+    products by bfwd and binv, or the functions `fwd` and `inv` of
+    interleaved rows (n, 2D)."""
     pin_fp32()
     two_d = ckb.bfwd.shape[0]
     d, p, k = two_d // 2, ckb.comb.shape[0] - 1, ckb.const.shape[0]
@@ -703,7 +1034,9 @@ def mp_circ_wide_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
     for i0 in range(0, x2.shape[0], chunk):
         xc = x2[i0:i0 + chunk]
         n = xc.shape[0]
-        u = tu.walked(xc.reshape(n * p, two_d), ckb.bfwd).reshape(n, p, d, 2)
+        xp = xc.reshape(n * p, two_d)
+        u = (tu.walked(xp, ckb.bfwd) if fwd is None else fwd(xp)).reshape(
+            n, p, d, 2)
         z = torch.nn.functional.pad(_mp_features(u), (0, wf - feat))
         lg = lost = torch.zeros(n, k, dtype=xc.dtype, device=xc.device)
         for c in range(0, wf, 16):
@@ -720,8 +1053,8 @@ def mp_circ_wide_reference(x2: torch.Tensor, ckb: MpCircKernelBank,
             fr, fi = f[..., 0], f[..., 1]
             ur, ui = u[:, pi, :, 0], u[:, pi, :, 1]
             hr, hi = hr + fr * ur - fi * ui, hi + fr * ui + fi * ur
-        outs.append(tu.walked(torch.stack([hr, hi], -1).reshape(n, two_d),
-                            ckb.binv))
+        h = torch.stack([hr, hi], -1).reshape(n, two_d)
+        outs.append(tu.walked(h, ckb.binv) if inv is None else inv(h))
     return torch.cat(outs) if outs else x2.new_zeros((0, two_d))
 
 
@@ -936,36 +1269,158 @@ def mp_circ_estimate_coherent_wide(x2: torch.Tensor, ckb: MpCircKernelBank,
                         coh_alpha, operands)
 
 
+def _launch_fact(wrapper, x2: torch.Tensor, ckb: MpCircKernelBank,
+                 t_coh: int, coh_alpha: float,
+                 ops: Optional[MpCircFactOperands]) -> torch.Tensor:
+    """Launch the factorised kernel (csrc/mp_circ_fact_estimate.cu) on
+    x2's device and current stream with the bank's operands `ops` (laid
+    out here in the layout's own basis, `circ_kernels.circ_basis_blocks`,
+    when None), and add one to `wrapper`'s count: -> out (N, 2D); raise on
+    any refusal. Takes D = d1 d2 with 2 <= d1, d2 <= 64 up to D = 672, K <=
+    128, T <= 64 and P <= 16 where the tile's buffers fit
+    (`mp_circ_fact_plan`; the entries send it `mp_circ_fact_eligible`)."""
+    from quantized_channel_estimation_torch.estimators import circ_kernels
+    name = wrapper.__name__
+    n = x2.shape[0]
+    two_d = ckb.bfwd.shape[0]
+    d, p, k = two_d // 2, ckb.comb.shape[0] - 1, ckb.const.shape[0]
+    if ops is not None and (not isinstance(ops, MpCircFactOperands)
+                            or ops.p != p):
+        raise ValueError(f"{name} takes the factorised kernel's operands "
+                         f"(`mp_circ_fact_operands`) of a {p}-pilot bank, "
+                         f"got {type(ops).__name__}")
+    blocks = (circ_kernels.circ_basis_blocks(ckb) if ops is None
+              else (ops.d1, ops.d2) if ops.kron else None)
+    levels = circ_kernels.circ_fact_blocks(d, blocks)
+    plan = (None if levels is None or n % t_coh
+            else mp_circ_fact_plan(*levels, p, k, t_coh))
+    if plan is None:
+        raise ValueError(
+            f"{name} takes N rows of whole T-row blocks, D = d1 d2 with 2 <= "
+            f"d1, d2 <= {circ_kernels.CIRC_FACT_MAX_N} up to D = "
+            f"{WIDE_MAX_D}, K <= {CIRC_MAX_K}, T <= {WIDE_MAX_T} and P <= "
+            f"{MP_FACT_MAX_P} where the tile's buffers fit "
+            f"{SMEM_BLOCK_BYTES} bytes of shared memory; got N={n}, D={d}, "
+            f"K={k}, P={p}, T={t_coh} (levels {levels})")
+    dev = x2.device
+    feat = d * (3 * p + p * (p - 1))
+    kernels._check_cuda("x2", x2, (n, p * two_d), dev)
+    kernels._check_cuda("lcoef", ckb.lcoef, (feat, k), dev)
+    kernels._check_cuda("const", ckb.const, (k,), dev)
+    kernels._check_cuda("comb", ckb.comb, (p + 1, k, two_d), dev)
+    out = torch.empty((n, two_d), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    if ops is None:
+        ops = mp_circ_fact_operands(ckb, blocks)
+    units = mp_circ_fact_units(ops.d1, ops.d2, p, k)
+    n_tw = 2 * (ops.d1 + ops.d2 + ops.d1 * (ops.d2 | 1))
+    for label, t, shape, dtype in (
+            ("hi", ops.hi, (units, 4), torch.bfloat16),
+            ("lo", ops.lo, (units, 4), torch.bfloat16),
+            ("lo2", ops.lo2, (units, 4), torch.bfloat16),
+            ("tw", ops.tw, (n_tw,), torch.float32)):
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: operand {label} must be contiguous {dtype} {shape} "
+                f"on {dev} (`mp_circ_fact_operands` at D={d}, K={k}, P={p}),"
+                f" got {t.dtype} {tuple(t.shape)} on {t.device}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = kernels._library("mp_circ_fact_estimate").mp_circ_fact_launch(
+            x2.data_ptr(), ops.hi.data_ptr(), ops.lo.data_ptr(),
+            ops.lo2.data_ptr(), ckb.const.data_ptr(), ops.tw.data_ptr(),
+            out.data_ptr(), n, d, ops.d1, ops.d2, p, k, units, int(t_coh),
+            float(coh_alpha), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    wrapper.launches += 1
+    return out
+
+
+def _blocks_of(ckb: MpCircKernelBank, ops: Optional[MpCircFactOperands]):
+    """The basis of the factorised route: the operands' own, else the
+    layout's (`circ_kernels.circ_basis_blocks`)."""
+    from quantized_channel_estimation_torch.estimators import circ_kernels
+    if ops is None:
+        return circ_kernels.circ_basis_blocks(ckb)
+    return (ops.d1, ops.d2) if ops.kron else None
+
+
+def mp_circ_estimate_fact(x2: torch.Tensor, ckb: MpCircKernelBank,
+                          operands: Optional[MpCircFactOperands] = None
+                          ) -> torch.Tensor:
+    """K10 on the factorised kernel: x2 (N, 2PD) -> (N, 2D), `operands`
+    from `mp_circ_fact_operands(ckb, blocks)` (laid out in the call, in the
+    layout's own basis, when None); the entries launch it where
+    `mp_circ_route` says 'fact'. On a CUDA tensor it launches the CUDA
+    kernel and raises on any refusal; on a CPU tensor it computes the plain
+    version `mp_circ_fact_reference`."""
+    if not x2.is_cuda:
+        return mp_circ_fact_reference(x2, ckb, 1, 1.0,
+                                      _blocks_of(ckb, operands))
+    return _launch_fact(mp_circ_estimate_fact, x2, ckb, 1, 1.0, operands)
+
+
+def mp_circ_estimate_coherent_fact(x2: torch.Tensor, ckb: MpCircKernelBank,
+                                   t_coh: int, coh_alpha: float = 1.0,
+                                   operands: Optional[MpCircFactOperands]
+                                   = None) -> torch.Tensor:
+    """The coherent K10 on the factorised kernel: x2 (N, 2PD), N / T blocks
+    of T consecutive rows (2 <= T <= 64), ckb from
+    `mp_circ_kernel_bank(bank, blocks, t_coh, coh_alpha)`, `operands` as
+    for `mp_circ_estimate_fact` (any layout of the bank). CUDA kernel on a
+    CUDA tensor, the plain version `mp_circ_fact_reference` on the CPU."""
+    if t_coh < 2:
+        raise ValueError(f"mp_circ_estimate_coherent_fact takes T >= 2; got "
+                         f"{t_coh}")
+    if not x2.is_cuda:
+        return mp_circ_fact_reference(x2, ckb, t_coh, coh_alpha,
+                                      _blocks_of(ckb, operands))
+    return _launch_fact(mp_circ_estimate_coherent_fact, x2, ckb, t_coh,
+                        coh_alpha, operands)
+
+
 kernels.register_wrappers(mp_circ_estimate, mp_circ_estimate_coherent,
                           mp_circ_estimate_wide,
-                          mp_circ_estimate_coherent_wide)
+                          mp_circ_estimate_coherent_wide,
+                          mp_circ_estimate_fact,
+                          mp_circ_estimate_coherent_fact)
 
 
 # ---------------------------------------------------------------------------
 # entries on complex observations and multi-pilot banks
 # ---------------------------------------------------------------------------
 
-def _check_eligible(bank: CirculantBankMP, t: int) -> bool:
-    """Raise unless K10 takes the bank at T; return whether the wide form
-    does (`mp_circ_narrow` decides, from the shapes alone)."""
+_ESTIMATES = {"template": (mp_circ_estimate, mp_circ_estimate_coherent),
+              "wide": (mp_circ_estimate_wide, mp_circ_estimate_coherent_wide),
+              "fact": (mp_circ_estimate_fact, mp_circ_estimate_coherent_fact)}
+
+
+def _route_ops(bank: CirculantBankMP, r: torch.Tensor, t: int, blocks,
+               cache: Optional[dict]):
+    """The route of the bank at T (`mp_circ_route`, from the shapes alone;
+    raises outside the rule), its flat and coherent wrappers and, for a
+    CUDA tensor, its operands (`lowered_tc`)."""
     k, d, p = bank.mean_rf.shape
-    if not mp_circ_kernel_eligible(d, k, p, t):
-        raise ValueError(_rule(d, k, p, t))
-    return not mp_circ_narrow(d, k, p, t)
+    route = mp_circ_route(d, k, p, t, blocks)
+    ops = (lowered_tc(bank, cache, blocks, route == "wide", route == "fact")
+           if r.is_cuda else None)
+    return _ESTIMATES[route], ops
 
 
 def estimate_fused_circulant_mp(bank: CirculantBankMP, r: torch.Tensor,
                                 blocks=None,
                                 cache: Optional[dict] = None) -> torch.Tensor:
     """'all'-mode multi-pilot structured estimate of r (N, P*D) complex ->
-    (N, D) through K10 (its wide form past the template's rule): the
+    (N, D) through K10 (past the template's rule its factorised kernel or
+    its wide form, `mp_circ_route`): the
     kernel analog of `structured_bank.estimate_circulant_mp` (selection
     modes stay on the `torch.fft` path). Raises outside
     `mp_circ_kernel_eligible` (`harness.stages.estimate_circulant` sends
     those to the pipeline). `cache`: see `lowered` and `lowered_tc`."""
-    wide = _check_eligible(bank, 1)
-    ops = lowered_tc(bank, cache, blocks, wide) if r.is_cuda else None
-    est = mp_circ_estimate_wide if wide else mp_circ_estimate
+    (est, _), ops = _route_ops(bank, r, 1, blocks, cache)
     return _hc(est(_x2(r), lowered(bank, cache, blocks), ops), r.dtype)
 
 
@@ -978,7 +1433,8 @@ def estimate_fused_circulant_mp_coherent(bank: CirculantBankMP,
     r (B, T, P*D) -> (B, T, D): the kernel analog of
     `structured_bank.estimate_circulant_mp_coherent`. T = 1 runs the flat
     form; T within `mp_circ_kernel_eligible` runs the coherent form (the
-    template's or the wide one) with the alpha blend in the kernel; beyond
+    template's, the factorised or the wide one, `mp_circ_route`) with the
+    alpha blend in the kernel; beyond
     the rule it raises. `cache`: see `lowered` and `lowered_tc`."""
     if r.dim() != 3:
         raise ValueError(f"expected (B, T, P*D) blocks, got "
@@ -987,9 +1443,6 @@ def estimate_fused_circulant_mp_coherent(bank: CirculantBankMP,
     if t == 1:
         return estimate_fused_circulant_mp(bank, r[:, 0, :], blocks,
                                            cache)[:, None, :]
-    wide = _check_eligible(bank, t)
-    ops = lowered_tc(bank, cache, blocks, wide) if r.is_cuda else None
-    est = (mp_circ_estimate_coherent_wide if wide
-           else mp_circ_estimate_coherent)
+    (_, est), ops = _route_ops(bank, r, t, blocks, cache)
     h2 = est(_x2(r), lowered(bank, cache, blocks, t, alpha), t, alpha, ops)
     return _hc(h2, r.dtype).reshape(b, t, -1)

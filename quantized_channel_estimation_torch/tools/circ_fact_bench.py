@@ -1,5 +1,6 @@
-"""The factorised circulant kernel (`csrc/circ_fact_estimate.cu`) timed
-beside what it replaced and beside the `torch.fft` pipeline.
+"""The factorised circulant kernels (`csrc/circ_fact_estimate.cu`, K6 /
+K7; `csrc/mp_circ_fact_estimate.cu`, K10) timed beside what they replaced
+and beside the `torch.fft` pipeline.
 
 Legs, on the synthetic bank of `tools.circ_kernel_bench` (the JAX tool's
 bank, from a seed) and standard normal complex observations:
@@ -13,7 +14,28 @@ bank, from a seed) and standard normal complex observations:
   d672    the same at D = 672 (the rule's edge, 24 x 28);
   narrow  D = 64 = 8 x 8, K = 64, 131072 rows (the narrow headline): the
           factorised kernel (`circ_estimate_fact`) beside the narrow K6
-          template (`circ_estimate`), one dispatch rule unchanged.
+          template (`circ_estimate`), one dispatch rule unchanged;
+  mp      the multi-pilot K10 on the JAX `tools/mp_kernel_bench.py`'s bank
+          (`tools.mp_kernel_bench.make_prior`, its P-pilot bank at 2 bits,
+          10 dB, and its quantized observations) at D = 256, K = 32, P = 2,
+          65536 rows: flat and T = 4 (alpha 1) through the entries
+          (`mp_circ_kernels.estimate_fused_circulant_mp[_coherent]` with a
+          cache, which pick the kernel by `mp_circ_route`), the dense wide
+          form (`mp_circ_estimate[_coherent]_wide`) on the same rows, and
+          the pipeline over the batch as one chunk; `mp336` the same at D =
+          336, K = 64; `mp357` at D = 357 (17 x 21), K = 32, P = 3, the most
+          pilots the factorised kernel takes there;
+  reach   the factorised K10 against the dense wide form in turns
+          (kernel, wide, wide, kernel) at each of `REACH_SHAPES` (P, D, K,
+          T, basis), 32768 rows, on random DFT-domain multi-pilot banks
+          (`tools.tc_repeat_check.random_dft_mp_bank`), with the route
+          `mp_circ_route` gives each: the measurements behind the route's
+          reach (`mp_circ_kernels.mp_circ_fact_eligible`);
+  stats   the dense wide K8 and K9 (T = 4, alpha 1; the stats forms, which
+          keep the dense wide form) on the d512 leg's inputs, each beside
+          its one-chunk `torch.fft` stats pipeline in turns (kernel,
+          pipeline, pipeline, kernel), their quotients acc / den
+          compared.
 
 Each route is timed with CUDA events (`utils.profiling.device_ms`: one
 warm-up call, the median of 5) and compared with the pipeline (largest
@@ -22,12 +44,12 @@ kernels `circ_kernels.circ_bound` and the share reached. The last line is
 one JSON object with the card's name and power limit.
 
     python quantized_channel_estimation_torch/tools/circ_fact_bench.py \
-        [d512|d672|narrow ...] [--root DIR]
+        [d512|d672|narrow|mp|mp336|mp357|reach|stats ...] [--root DIR]
 
 `--root` imports the package from another checkout (a parent commit
 unpacked with `git archive`): the routes that checkout lacks are left
-out, so parent / change / change / parent runs of the d512 leg time the
-public wrappers of both in one call. Needs a card.
+out, so parent / change / change / parent runs of the d512 and mp legs
+time the public wrappers and entries of both in one call. Needs a card.
 """
 from __future__ import annotations
 
@@ -85,6 +107,15 @@ def main(argv=None) -> dict:
         return out
 
     for leg in legs:
+        if leg.startswith("mp"):
+            rec["legs"][leg] = _mp_leg(leg, route, dev, torch)
+            continue
+        if leg == "stats":
+            rec["legs"][leg] = _stats_leg(dev, torch, profiling)
+            continue
+        if leg == "reach":
+            rec["legs"][leg] = _reach_leg(dev, torch, profiling)
+            continue
         d, k, n = {"d512": (512, 16, 32768), "d672": (672, 16, 32768),
                    "narrow": (64, 64, 131072)}[leg]
         print(f"== {leg}: D={d}, K={k}, {n} rows ==", flush=True)
@@ -143,6 +174,169 @@ def main(argv=None) -> dict:
     print(rec["nvidia_smi"])
     print(json.dumps(rec), flush=True)
     return rec
+
+
+MP_LEGS = {"mp": (256, 32, 2), "mp336": (336, 64, 2), "mp357": (357, 32, 3)}
+
+
+# (P, D, K, T, blocks) of the `reach` leg: the served width and its pool,
+# K against D, dense odd-prime levels (129 = 3 x 43, ..., 357 = 17 x 21),
+# two sweeps (T past a tile's rows) with and without odd-prime levels, the
+# kron basis, many pilots, the widest D
+REACH_SHAPES = (
+    (2, 256, 32, 1, None), (2, 256, 32, 4, None), (2, 256, 16, 16, (16, 16)),
+    (2, 256, 64, 1, None), (2, 256, 96, 1, None), (2, 256, 128, 1, None),
+    (2, 144, 8, 1, None), (2, 144, 32, 1, None), (2, 144, 64, 1, None),
+    (3, 144, 16, 4, None), (4, 144, 32, 1, None), (2, 160, 32, 1, None),
+    (2, 160, 64, 1, None), (2, 192, 32, 1, None), (2, 192, 64, 1, None),
+    (2, 336, 64, 1, None), (2, 336, 128, 1, None), (2, 512, 32, 1, None),
+    (2, 512, 128, 1, None), (2, 129, 8, 1, None), (2, 130, 8, 1, None),
+    (2, 133, 8, 1, None), (2, 155, 8, 1, None), (2, 185, 8, 1, None),
+    (2, 296, 8, 1, None), (2, 344, 8, 1, None), (2, 357, 32, 1, None),
+    (3, 357, 8, 1, None), (2, 357, 128, 1, None), (4, 189, 8, 1, None),
+    (2, 168, 16, 1, None), (2, 400, 16, 1, None), (3, 200, 32, 1, None),
+    (2, 200, 8, 16, None), (2, 200, 8, 64, None), (2, 256, 8, 64, None),
+    (4, 256, 8, 1, None), (12, 64, 16, 1, None))
+
+
+def _reach_leg(dev, torch, profiling) -> dict:
+    """Leg `reach`: the factorised K10 against the dense wide form at
+    `REACH_SHAPES`, 32768 rows, in turns."""
+    from quantized_channel_estimation_torch.estimators import (
+        circ_kernels as ck, mp_circ_kernels as mk)
+    from quantized_channel_estimation_torch.tools import (
+        tc_repeat_check as trc)
+    n = 32768
+    print(f"== reach: factorised K10 against the dense wide form, {n} rows ==",
+          flush=True)
+    out = {}
+    for p, d, k, t, blocks in REACH_SHAPES:
+        ckb = mk.mp_circ_kernel_bank(
+            trc.random_dft_mp_bank(p, d, k, dev, 1), blocks, t, 1.0)
+        fops = mk.mp_circ_fact_operands(ckb, blocks)
+        wops = mk.mp_circ_wide_operands(ckb)
+        x2 = trc.random_rows(n // t * t, 2 * p * d, dev)
+        if t == 1:
+            runs = (lambda: mk.mp_circ_estimate_fact(x2, ckb, fops),
+                    lambda: mk.mp_circ_estimate_wide(x2, ckb, wops))
+        else:
+            runs = (lambda: mk.mp_circ_estimate_coherent_fact(
+                        x2, ckb, t, 1.0, fops),
+                    lambda: mk.mp_circ_estimate_coherent_wide(
+                        x2, ckb, t, 1.0, wops))
+        ms = [profiling.device_ms(runs[i]) for i in (0, 1, 1, 0)]
+        rec = {"route": mk.mp_circ_route(d, k, p, t, blocks),
+               "rows_a_tile": 16 * mk.mp_circ_fact_plan(
+                   *ck.circ_fact_blocks(d, blocks), p, k, t)[0],
+               "fact_ms": [ms[0], ms[3]], "wide_ms": [ms[1], ms[2]],
+               "speedup": (ms[1] + ms[2]) / (ms[0] + ms[3])}
+        label = f"P={p} D={d} K={k} T={t}" + (f" blocks={blocks}" if blocks
+                                               else "")
+        out[label] = rec
+        print(f"  {label:28s} route {rec['route']:5s} factorised {ms[0]:.3f}"
+              f" / {ms[3]:.3f} ms, dense wide {ms[1]:.3f} / {ms[2]:.3f} ms, "
+              f"{rec['speedup']:.2f}x", flush=True)
+    return out
+
+
+def _stats_leg(dev, torch, profiling) -> dict:
+    """Leg `stats`: the wide K8 / K9 at D = 512, K = 16, 32768 rows beside
+    their one-chunk `torch.fft` stats pipelines, in turns."""
+    from quantized_channel_estimation_torch.estimators import (
+        circ_kernels as ck)
+    from quantized_channel_estimation_torch.models import (
+        structured_bank as sb)
+    from quantized_channel_estimation_torch.tools import circ_kernel_bench
+    d, k, n, t = 512, 16, 32768, 4
+    print(f"== stats: D={d}, K={k}, {n} rows ==", flush=True)
+    bank = circ_kernel_bench.synthetic_bank(d, k, device=dev)
+    r = circ_kernel_bench.complex_randn((n, d), device=dev)
+    rb = r.reshape(-1, t, d)
+    x2 = ck._x2(r)
+    cache = {}
+    out = {}
+    for label, kern, pipe in (
+            ("K8", lambda: ck.circ_estimate_stats(
+                x2, ck.lowered(bank, cache)[0],
+                ck.lowered_tc(bank, cache, None, True)[0]),
+             lambda: sb.estimate_circulant_stats(bank, r, n, None, "fft")),
+            ("K9 T=4", lambda: ck.circ_estimate_coherent_stats(
+                x2, ck.lowered(bank, cache, None, t, 1.0)[0], t, 1.0,
+                ck.lowered_tc(bank, cache, None, True)[0]),
+             lambda: sb.estimate_circulant_coherent_stats(
+                 bank, rb, n // t, 1.0, None, "fft"))):
+        got, want = kern(), pipe()
+        acc = got[2] / got[1][:, None]
+        den = want[1].reshape(want[1].shape + (1,) * (want[2].dim()
+                                                    - want[1].dim()))
+        ref = ck._x2((want[2] / den).reshape(n, d))
+        ms = [profiling.device_ms(f) for f in (kern, pipe, pipe, kern)]
+        out[label] = {"kernel_ms": [ms[0], ms[3]],
+                      "pipeline_ms": [ms[1], ms[2]],
+                      "quotient_rel_to_fft": float(
+                          (acc - ref).abs().max() / ref.abs().max())}
+        print(f"  {label:8s} wide kernel {ms[0]:.3f} / {ms[3]:.3f} ms, "
+              f"one-chunk pipeline {ms[1]:.3f} / {ms[2]:.3f} ms, acc / den vs "
+              f"fft {out[label]['quotient_rel_to_fft']:.2e}", flush=True)
+    return out
+
+
+def _mp_leg(leg, route, dev, torch) -> dict:
+    """Leg `mp*`: K10 at (D, K, P) of `MP_LEGS`, 65536 rows, flat and T = 4,
+    through the entries, the dense wide form and the one-chunk pipeline."""
+    from quantized_channel_estimation_torch.estimators import (
+        mp_circ_kernels as mk)
+    from quantized_channel_estimation_torch.models import (
+        structured_bank as sb)
+    from quantized_channel_estimation_torch.ops import observation, pilots
+    from quantized_channel_estimation_torch.ops import quantizer as Q
+    from quantized_channel_estimation_torch.ops.cplx import crandn
+    from quantized_channel_estimation_torch.tools import mp_kernel_bench as mb
+    d, k, p = MP_LEGS[leg]
+    n, t = 65536, 4
+    print(f"== {leg}: D={d}, K={k}, P={p}, {n} rows ==", flush=True)
+    params, spectra = mb.make_prior(d, k, device=dev)
+    a = pilots.pilot_matrix(d, p, mb.N_BITS, device=dev)
+    q = Q.design_quantizer(mb.SNR, mb.N_BITS, device=dev)
+    bank = sb.prepare_bank_circulant(params, mb.SNR, a, mb.N_BITS, q,
+                                     spectra=spectra)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    r = observation.observe(gen, crandn(gen, (n, d)), mb.SNR, a, mb.N_BITS, q)
+    rb = r.reshape(n // t, t, -1)
+    x2 = mk._x2(r)
+    cache = {}
+    want = mk._x2(sb.estimate_circulant(bank, r, "all", n, None, "fft"))
+    want4 = mk._x2(sb.estimate_circulant_coherent(bank, rb, "all", n // t,
+                                                  1.0, None, "fft"))
+    ckb, ckb4 = mk.lowered(bank, cache), mk.lowered(bank, cache, None, t, 1.0)
+    wide_ops = mk.mp_circ_wide_operands(ckb)
+    bound, bound4 = mk.mp_circ_bound(n, d, k, p), mk.mp_circ_bound(n, d, k,
+                                                                   p, t)
+    out = {"route": (mk.mp_circ_route(d, k, p), mk.mp_circ_route(d, k, p, t))
+           if hasattr(mk, "mp_circ_route") else ("wide", "wide")}
+    out["K10 entry"] = route(
+        "K10, entry", lambda: mk._x2(mk.estimate_fused_circulant_mp(
+            bank, r, None, cache)), want, bound)
+    out["K10 T=4 entry"] = route(
+        "K10 (T=4), entry", lambda: mk._x2(
+            mk.estimate_fused_circulant_mp_coherent(bank, rb, 1.0, None,
+                                                    cache)), want4, bound4)
+    out["K10 dense wide"] = route(
+        "K10, dense wide form",
+        lambda: mk.mp_circ_estimate_wide(x2, ckb, wide_ops), want, bound)
+    out["K10 T=4 dense wide"] = route(
+        "K10 (T=4), dense wide form",
+        lambda: mk.mp_circ_estimate_coherent_wide(x2, ckb4, t, 1.0, wide_ops),
+        want4, bound4)
+    out["fft one chunk"] = route(
+        "torch.fft pipeline, one chunk",
+        lambda: mk._x2(sb.estimate_circulant(bank, r, "all", n, None, "fft")),
+        want)
+    out["fft one chunk T=4"] = route(
+        "torch.fft coherent pipeline, one chunk",
+        lambda: mk._x2(sb.estimate_circulant_coherent(
+            bank, rb, "all", n // t, 1.0, None, "fft")), want4)
+    return out
 
 
 if __name__ == "__main__":

@@ -87,6 +87,15 @@ for bit the first launch; the first held against the wide form's plain
 version `mp_circ_wide_reference`, or against float64 under mode 'f32''s
 rule).
 
+Mode 'fact_mpcirc' does the same for the factorised K10
+(`csrc/mp_circ_fact_estimate.cu`, past the template's rule where the
+transform splits and the tile fits; `FACT_MPCIRC_SHAPES`: P = 2 at D = 256
+over two waves of blocks, P = 3 at D = 144 with T = 3 and alpha 0.5, the
+most pilots the route takes at D = 357, T = 64 past a tile's rows (two
+sweeps), the kron basis), flat and coherent, on random DFT-domain
+multi-pilot banks, under the rule of mode 'fact_circ' against its plain
+version `mp_circ_fact_reference`.
+
 Mode 'wide_fact' does the same for the wide form of K11-K13
 (`csrc/fact_wide_estimate.cu`, past the template's D <= 128, M <= 64;
 `WIDE_FACT_SHAPES`: D one past the template's, M past it, D = 256 over
@@ -106,7 +115,8 @@ headline widths (131072 rows, 2M = 2D = 128, K = 64).
     python -m quantized_channel_estimation_torch.tools.tc_repeat_check \
         [--repeats R] \
         [--modes bf16 split2 split3 f32 wide wide_topk karatsuba fact mpcirc
-                 circ wide_circ wide_mpcirc wide_fact fact_circ] \
+                 circ wide_circ wide_mpcirc wide_fact fact_circ
+                 fact_mpcirc] \
         [--no-poison] \
         [--without-proxy-fence [--time]]
 
@@ -243,6 +253,14 @@ FACT_CIRC_SHAPES = (
     (357, 64, 64 * 33, 1, 64, 1.0, None),      # 17 x 21, T = 64: two sweeps
     (160, 7, 3 * 701, 1, 3, 0.5, None),        # T = 3: 15-row tiles
     (256, 16, 1000, 2, 4, 1.0, (16, 16)),      # the kron basis
+)
+# the factorised K10: (P, D, K, N, dead components, T, alpha, blocks)
+FACT_MPCIRC_SHAPES = (
+    (2, 256, 32, 2 * 132 * 32 + 5, 2, 1, 1.0, None),  # D = 256, two waves
+    (3, 144, 16, 3 * 701, 0, 3, 0.5, None),    # 12 x 12, T = 3, alpha < 1
+    (3, 357, 8, 1001, 1, 1, 1.0, None),        # the most pilots at D = 357
+    (2, 256, 16, 64 * 33, 1, 64, 1.0, None),   # T = 64: two sweeps
+    (2, 256, 16, 4 * 250, 2, 4, 1.0, (16, 16)),  # the kron basis
 )
 # the wide K10: (P, D, K, N, dead components, T, alpha)
 WIDE_MPCIRC_SHAPES = (
@@ -737,6 +755,27 @@ def random_dft_bank(d, k, dev, n_dead=0, seed=0):
     return sb.CirculantBank(*(x.to(dev) for x in bank))
 
 
+def random_dft_mp_bank(p, d, k, dev, n_dead=0, seed=0):
+    """A random `structured_bank.CirculantBankMP` of P pilots over D bins
+    (the DFT domain's own quantities: log-weights, per-bin means, per-bin
+    P x P precisions I + A A^H / P, log-determinants, filters and biases),
+    dead components at -inf."""
+    g = torch.Generator().manual_seed(seed)
+
+    def crnd(*shape, scale=1.0):
+        return scale * torch.complex(torch.randn(*shape, generator=g),
+                                     torch.randn(*shape, generator=g))
+
+    lw = torch.log_softmax(torch.randn(k, generator=g), 0)
+    lw[:n_dead] = -math.inf
+    a = crnd(k, d, p, p, scale=0.5)
+    prec = torch.eye(p, dtype=torch.complex64) + a @ a.mH / p
+    logdet = -torch.logdet(prec).real.sum(-1)
+    bank = sb.CirculantBankMP(lw, crnd(k, d, p, scale=0.3), prec, logdet,
+                              crnd(k, d, p, scale=0.1), crnd(k, d, scale=0.05))
+    return sb.CirculantBankMP(*(x.to(dev) for x in bank))
+
+
 def _fact_circ_check(dev, shapes, repeats, poison) -> dict:
     """Mode 'fact_circ' of `repeat_check`: {label: {"launches",
     "failures", "max_err"}} over the factorised K6 / K7 at `shapes` (D, K,
@@ -754,34 +793,70 @@ def _fact_circ_check(dev, shapes, repeats, poison) -> dict:
         x2 = random_rows(n, 2 * d, dev)
         want = ck.circ_fact_reference(x2, ckb, t, alpha, blocks)
         exact = ck.circ_fact_reference(x2.double(), f64, t, alpha, blocks)
-        scale = want.abs().max()
-        plain_err = float((want.double() - exact).abs().max() / scale)
 
         def run():
             if t == 1:
                 return ck.circ_estimate_fact(x2, ckb, ops)
             return ck.circ_estimate_coherent_fact(x2, ckb, t, alpha, ops)
 
-        first, errs, fails = None, [], 0
-        for _ in range(repeats):
-            if poison:
-                poison_shared_memory(dev)
-            got = run()
-            rel = float((got - want).abs().max() / scale)
-            rel64 = float((got.double() - exact).abs().max() / scale)
-            ok = (first is None or torch.equal(got.view(torch.int32),
-                                               first.view(torch.int32)))
-            ok = ok and (rel <= TOL or rel64 <= 2 * plain_err + 1e-5)
-            if first is None:
-                first = got.clone()
-            fails += not ok     # NaN fails both comparisons
-            errs.append(rel if rel == rel else math.inf)
-            got.fill_(math.nan)     # the next launch's output lands here
-            del got
         out[f"D={d} K={k} N={n} dead={n_dead} T={t} a={alpha}"
             + (f" blocks={blocks}" if blocks else "")
-            + (" K7" if t > 1 else " K6") + " fact"] = {
-            "launches": repeats, "failures": fails, "max_err": max(errs)}
+            + (" K7" if t > 1 else " K6") + " fact"] = _repeat_bitwise(
+                dev, run, want, exact, repeats, poison)
+    return out
+
+
+def _repeat_bitwise(dev, run, want, exact, repeats, poison) -> dict:
+    """`repeats` launches of `run`, each after a NaN fill of every SM's
+    shared memory (`poison`) and on the memory of the last launch's output
+    filled with NaN: a launch fails if its bits differ from the first
+    launch's, or under the rule of mode 'f32' against the plain version
+    `want` (`exact`: in float64). -> {"launches", "failures", "max_err"}."""
+    scale = want.abs().max()
+    plain_err = float((want.double() - exact).abs().max() / scale)
+    first, errs, fails = None, [], 0
+    for _ in range(repeats):
+        if poison:
+            poison_shared_memory(dev)
+        got = run()
+        rel = float((got - want).abs().max() / scale)
+        rel64 = float((got.double() - exact).abs().max() / scale)
+        ok = (first is None or torch.equal(got.view(torch.int32),
+                                           first.view(torch.int32)))
+        ok = ok and (rel <= TOL or rel64 <= 2 * plain_err + 1e-5)
+        if first is None:
+            first = got.clone()
+        fails += not ok     # NaN fails both comparisons
+        errs.append(rel if rel == rel else math.inf)
+        got.fill_(math.nan)     # the next launch's output lands here
+        del got
+    return {"launches": repeats, "failures": fails, "max_err": max(errs)}
+
+
+def _fact_mpcirc_check(dev, shapes, repeats, poison) -> dict:
+    """Mode 'fact_mpcirc' of `repeat_check`: {label: {"launches",
+    "failures", "max_err"}} over the factorised K10, flat and coherent, at
+    `shapes` (P, D, K, N, dead components, T, alpha, blocks) on random
+    DFT-domain multi-pilot banks (`random_dft_mp_bank`), under the rule of
+    mode 'fact_circ' against its plain version `mp_circ_fact_reference`."""
+    out = {}
+    for p, d, k, n, n_dead, t, alpha, blocks in shapes:
+        ckb = mk.mp_circ_kernel_bank(random_dft_mp_bank(p, d, k, dev, n_dead),
+                                     blocks, t, alpha)
+        f64 = mk.MpCircKernelBank(*(x.double() for x in ckb))
+        ops = mk.mp_circ_fact_operands(ckb, blocks)
+        x2 = random_rows(n, 2 * p * d, dev)
+        want = mk.mp_circ_fact_reference(x2, ckb, t, alpha, blocks)
+        exact = mk.mp_circ_fact_reference(x2.double(), f64, t, alpha, blocks)
+
+        def run():
+            if t == 1:
+                return mk.mp_circ_estimate_fact(x2, ckb, ops)
+            return mk.mp_circ_estimate_coherent_fact(x2, ckb, t, alpha, ops)
+
+        out[f"P={p} D={d} K={k} N={n} dead={n_dead} T={t} a={alpha}"
+            + (f" blocks={blocks}" if blocks else "") + " K10 fact"] = (
+                _repeat_bitwise(dev, run, want, exact, repeats, poison))
     return out
 
 
@@ -859,7 +934,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
                  wide_circ_shapes=WIDE_CIRC_SHAPES,
                  wide_mpcirc_shapes=WIDE_MPCIRC_SHAPES,
                  wide_fact_shapes=WIDE_FACT_SHAPES,
-                 fact_circ_shapes=FACT_CIRC_SHAPES) -> dict:
+                 fact_circ_shapes=FACT_CIRC_SHAPES,
+                 fact_mpcirc_shapes=FACT_MPCIRC_SHAPES) -> dict:
     """Every (shape, mode): `repeats` launches of K14b (and of the copy
     without the fence), each held against the plain version; mode 'f32':
     K1 and K3 at `f32_shapes`; mode 'wide': their wide form at
@@ -871,7 +947,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     `wide_circ_shapes`; mode 'wide_mpcirc': K10's wide form at
     `wide_mpcirc_shapes`; mode 'wide_fact': K11-K13's wide form at
     `wide_fact_shapes`; mode 'fact_circ': the factorised K6 / K7 at
-    `fact_circ_shapes`. Returns
+    `fact_circ_shapes`; mode 'fact_mpcirc': the factorised K10 at
+    `fact_mpcirc_shapes`. Returns
     {"kernel" (and "no fence"): {label: {"launches", "failures",
     "max_err"}}}."""
     copy = _without_fence() if without_fence else None
@@ -907,10 +984,13 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     if "fact_circ" in modes:
         result["kernel"].update(_fact_circ_check(dev, fact_circ_shapes,
                                                  repeats, poison))
+    if "fact_mpcirc" in modes:
+        result["kernel"].update(_fact_mpcirc_check(dev, fact_mpcirc_shapes,
+                                                   repeats, poison))
     modes = [m for m in modes
              if m not in ("f32", "wide", "wide_topk", "karatsuba", "fact",
                           "mpcirc", "circ", "wide_circ", "wide_mpcirc",
-                          "wide_fact", "fact_circ")]
+                          "wide_fact", "fact_circ", "fact_mpcirc")]
     for two_m, two_d, k, n, n_dead in shapes if modes else ():
         kb = random_bank(two_m, two_d, k, dev, n_dead)
         planes = kernels.split_planes(kb.pw)
@@ -966,11 +1046,11 @@ def main(argv=None) -> dict:
                    default=[*vk.TC_WRAPPERS, "f32", "wide", "wide_topk",
                             "karatsuba", "fact", "mpcirc", "circ",
                             "wide_circ", "wide_mpcirc", "wide_fact",
-                            "fact_circ"],
+                            "fact_circ", "fact_mpcirc"],
                    choices=[*vk.TC_WRAPPERS, "f32", "wide", "wide_topk",
                             "karatsuba", "fact", "mpcirc", "circ",
                             "wide_circ", "wide_mpcirc", "wide_fact",
-                            "fact_circ"])
+                            "fact_circ", "fact_mpcirc"])
     p.add_argument("--no-poison", action="store_true")
     p.add_argument("--without-proxy-fence", action="store_true")
     p.add_argument("--time", action="store_true")

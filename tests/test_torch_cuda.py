@@ -42,10 +42,12 @@ each of m, den and the accumulator, and on the merged quotient), and
 their wide form past D = 128 (`csrc/circ_wide_estimate.cu`), K6 / K7's
 factorised kernel past D = 128 where the transform splits
 (`csrc/circ_fact_estimate.cu`, against its plain version
-`circ_fact_reference`), and K10's wide form past the template's rule,
-against its own plain version `mp_circ_wide_reference`. The repeated
-launches of K14a, K10, K6-K9 (the wide forms and the factorised kernel on
-NaN-filled outputs too) and K11-K13 are bit for bit the first.
+`circ_fact_reference`), K10's wide form past the template's rule, against
+its own plain version `mp_circ_wide_reference`, and K10's factorised
+kernel where the transform splits and its tile fits
+(`csrc/mp_circ_fact_estimate.cu`, against `mp_circ_fact_reference`). The
+repeated launches of K14a, K10, K6-K9 (the wide forms and the factorised
+kernels on NaN-filled outputs too) and K11-K13 are bit for bit the first.
 """
 import math
 import os
@@ -2283,7 +2285,9 @@ def test_mp_circ_kernel_refuses_bad_inputs_and_one_past_the_rule():
             tmk.mp_circ_estimate_coherent(rows, ckb, t)
     # one past the template's rule: P = 12 at D = K = 64 and P = 6 at D =
     # K = 128, D = 129, K = 129, T past a warpgroup's 32 live rows. The
-    # template refuses them; the entries and the stages take the wide form
+    # template refuses them; the entries and the stages take the kernel
+    # `mp_circ_route` names: the wide form, or at T = 33 (D = 128 = 8 x 16,
+    # K = 8) the factorised kernel
     for p, d, k, t in ((12, 64, 64, 1), (6, 128, 128, 1), (2, 129, 4, 1),
                        (2, 8, 129, 1), (3, 128, 8, 33)):
         assert not tmk.mp_circ_narrow(d, k, p, t)
@@ -2296,7 +2300,8 @@ def test_mp_circ_kernel_refuses_bad_inputs_and_one_past_the_rule():
             ckb_w = tmk.mp_circ_kernel_bank(wide, None, t)
             tmk.mp_circ_estimate(x2w, ckb_w) if t == 1 \
                 else tmk.mp_circ_estimate_coherent(x2w, ckb_w, t)
-        name = "mp_circ_estimate" + ("_coherent" if t > 1 else "") + "_wide"
+        name = ("mp_circ_estimate" + ("_coherent" if t > 1 else "") + "_"
+                + tmk.mp_circ_route(d, k, p, t))
         before = tkn.launch_counts()
         got = (stages.estimate_circulant if t == 1
                else stages.estimate_circulant_coherent)(wide, r,
@@ -2339,7 +2344,9 @@ def test_mp_circ_wide_matches_plain(p, d, k, n, n_dead, t, alpha, blocks):
     float64, `_held`), one launch counted on its own wrapper and none on
     another; its feature split (`mp_circ_wide_rows`) bit for bit the plain
     layout; and where the template's rule stops, the stages' 'auto'
-    route launches it once and gives the same bits."""
+    route launches the kernel `mp_circ_route` names there once and gives
+    the same bits as that kernel's wrapper: the wide form, or the
+    factorised kernel where the transform splits and its tile fits."""
     dev = _card()
     bank = _mp_bank(p, d, k, dev, n_dead, blocks)
     ckb = tmk.mp_circ_kernel_bank(bank, blocks, t, alpha)
@@ -2360,6 +2367,11 @@ def test_mp_circ_wide_matches_plain(p, d, k, n, n_dead, t, alpha, blocks):
           ceiling=1e-4)
     if tmk.mp_circ_narrow(d, k, p, t):
         return
+    if tmk.mp_circ_route(d, k, p, t, blocks) == "fact":
+        name = "mp_circ_estimate" + ("_coherent" if t > 1 else "") + "_fact"
+        got = (tmk.mp_circ_estimate_fact(x2, ckb) if t == 1
+               else tmk.mp_circ_estimate_coherent_fact(x2, ckb, t, alpha))
+        after = tkn.launch_counts()
     r = torch.view_as_complex(x2.reshape(n // t, t, p * d, 2).contiguous())
     if t == 1:
         got_c = stages.estimate_circulant(bank, r[:, 0], blocks=blocks)
@@ -2452,6 +2464,140 @@ def test_mp_circ_wide_repeated_launches_match_plain():
         len(shapes) - n_coh)
     assert tmk.mp_circ_estimate_coherent_wide.launches == before[1] \
         + 20 * n_coh
+    assert len(runs) == len(shapes)
+    assert not {k: v for k, v in runs.items() if v["failures"]}, runs
+
+
+# the factorised K10 (csrc/mp_circ_fact_estimate.cu): (P, D, K, N, dead
+# components, T, alpha, blocks): the served D = 256, K = 32 flat and
+# pooled, 12 x 12 at T = 3, 16-row tiles (D = 336, K = 64; 357 = 17 x 21 at
+# P = 3; 189 = 9 x 21 at P = 4), T = 64 past a tile's rows (two sweeps),
+# one past the template's D (3 x 43), the kron basis, P past the
+# template's shared memory at D = 64, K = 128, a single component; the
+# route takes all but D = 129, T = 64 at D = 200 and K = 128 (the wide
+# form is faster there), which run through the wrappers alone
+MP_FACT_CASES = [
+    (2, 256, 32, 2049, 2, 1, 1.0, None),
+    (2, 256, 32, 4 * 512, 2, 4, 1.0, None),
+    (3, 144, 16, 3 * 341, 1, 3, 0.5, None),
+    (2, 336, 64, 1025, 3, 1, 1.0, None),
+    (3, 357, 8, 4 * 256, 1, 4, 1.0, None),
+    (4, 189, 8, 16 * 40, 1, 16, 1.0, None),
+    (2, 200, 8, 64 * 9, 0, 64, 0.25, None),
+    (2, 129, 8, 1001, 1, 1, 1.0, None),
+    (2, 256, 16, 1000, 2, 1, 1.0, (16, 16)),
+    (12, 64, 16, 515, 0, 1, 1.0, None),
+    (2, 256, 128, 1024, 3, 64, 1.0, None),
+    (2, 256, 1, 1000, 0, 1, 1.0, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,d,k,n,n_dead,t,alpha,blocks", MP_FACT_CASES)
+def test_mp_circ_fact_matches_plain(p, d, k, n, n_dead, t, alpha, blocks):
+    """The factorised K10 (flat, or coherent at T > 1) with the operands
+    laid out in the call (the basis read from the layout): within 1e-4 of
+    the scale of its plain version `mp_circ_fact_reference` (where the two
+    part by more, within 1e-4 of the float64 one and no further from it
+    than twice the float32 plain version, `_held`) and no less accurate
+    than float32 (the float64 rule: its max |error| against the function in
+    float64 at most twice that of the float32 plain products,
+    `_mp_reference`); one launch counted on its wrapper and none on
+    another; where `mp_circ_route` says 'fact', the entry the same bits."""
+    dev = _card()
+    bank = _mp_bank(p, d, k, dev, n_dead, blocks)
+    ckb = tmk.mp_circ_kernel_bank(bank, blocks, t, alpha)
+    x2 = _rows(n, 2 * p * d, dev)
+    name = "mp_circ_estimate" + ("_coherent" if t > 1 else "") + "_fact"
+    before = tkn.launch_counts()
+    got = (tmk.mp_circ_estimate_fact(x2, ckb) if t == 1
+           else tmk.mp_circ_estimate_coherent_fact(x2, ckb, t, alpha))
+    torch.cuda.synchronize()
+    after = tkn.launch_counts()
+    assert {m: after[m] - before[m] for m in after
+            if after[m] != before[m]} == {name: 1}
+    want = tmk.mp_circ_fact_reference(x2, ckb, t, alpha, blocks)
+    want64 = tmk.mp_circ_fact_reference(x2.double(), _f64(ckb), t, alpha,
+                                        blocks)
+    _held(got, want, want64, ceiling=1e-4)
+    e_k = float((got.double() - want64).abs().max())
+    e_p = float((tmk._mp_reference(x2, ckb, t, alpha, 8192).double()
+                 - want64).abs().max())
+    assert e_k <= 2 * e_p, (e_k, e_p)
+    if tmk.mp_circ_route(d, k, p, t, blocks) != "fact":
+        assert (d, k, t) in ((129, 8, 1), (200, 8, 64), (256, 128, 64))
+        return
+    r = torch.view_as_complex(x2.reshape(n // t, t, p * d, 2).contiguous())
+    entry = (tmk.estimate_fused_circulant_mp(bank, r[:, 0], blocks) if t == 1
+             else tmk.estimate_fused_circulant_mp_coherent(bank, r, alpha,
+                                                           blocks))
+    assert tkn.launch_counts()[name] == after[name] + 1
+    assert torch.equal(torch.view_as_real(entry).reshape(n, 2 * d), got)
+
+
+@pytest.mark.cuda
+def test_mp_circ_fact_plan_is_the_kernels():
+    """`mp_circ_fact_plan`, the rule's budget, is the kernel's own
+    (`mp_circ_fact_plan` in csrc/mp_circ_fact_estimate.cu) at every width,
+    pilot count, K and T of a grid, to the byte."""
+    import ctypes
+    _card()
+    lib = tkn._library("mp_circ_fact_estimate")
+    mt = ctypes.c_int(0)
+    for d in (129, 144, 189, 200, 256, 336, 357, 512, 600, 64, 24):
+        d1, d2 = tck.circ_fact_split(d)
+        for p, k, t in ((1, 1, 1), (2, 8, 3), (2, 32, 4), (2, 128, 64),
+                        (3, 32, 1), (3, 64, 16), (4, 8, 1), (5, 32, 1),
+                        (8, 16, 64), (16, 1, 1), (17, 1, 1)):
+            smem = lib.mp_circ_fact_plan(d1, d2, p, k, t, ctypes.byref(mt))
+            got = (mt.value, smem) if smem else None
+            assert got == tmk.mp_circ_fact_plan(d1, d2, p, k, t), (d, p, k, t)
+
+
+@pytest.mark.cuda
+def test_mp_circ_fact_refuses_past_its_edges():
+    """The factorised K10 refuses a width that does not split (D = 249 = 3
+    x 83), a P whose tile does not fit (D = 357, P = 4), T = 65, whole-block
+    violations and the wide form's operands; N = 0 launches nothing."""
+    dev = _card()
+    ckb = tmk.mp_circ_kernel_bank(_mp_bank(2, 144, 4, dev))
+    x2 = _rows(130, 4 * 144, dev)
+    with pytest.raises(ValueError, match="whole T-row blocks"):
+        tmk.mp_circ_estimate_coherent_fact(x2, ckb, 65)
+    with pytest.raises(ValueError, match="whole T-row blocks"):
+        tmk.mp_circ_estimate_coherent_fact(x2, ckb, 4)
+    with pytest.raises(ValueError, match="mp_circ_fact_operands"):
+        tmk.mp_circ_estimate_fact(x2, ckb, tmk.mp_circ_wide_operands(ckb))
+    before = tkn.launch_counts()
+    assert tmk.mp_circ_estimate_fact(x2[:0], ckb).shape == (0, 288)
+    assert tkn.launch_counts() == before
+    for p, d in ((3, 249), (4, 357)):
+        past = tmk.mp_circ_kernel_bank(_mp_bank(p, d, 1, dev))
+        with pytest.raises(ValueError, match="whole T-row blocks"):
+            tmk.mp_circ_estimate_fact(_rows(4, 2 * p * d, dev), past)
+        assert tmk.mp_circ_route(d, 1, p) == "wide"
+    assert tkn.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_mp_circ_fact_repeated_launches_match_plain():
+    """The factorised K10 launched 20 times at each shape of
+    `tools.tc_repeat_check.FACT_MPCIRC_SHAPES` (D = 256 over two waves of
+    blocks, T = 3 at alpha 0.5, the most pilots at D = 357, T = 64 past a
+    tile's rows, the kron basis), each launch after a NaN fill of every
+    SM's shared memory and on the memory of the last launch's output
+    filled with NaN, each bit for bit the first launch, which is held
+    against the plain version."""
+    dev = _card()
+    shapes = tc_repeat_check.FACT_MPCIRC_SHAPES
+    before = tkn.launch_counts()
+    runs = tc_repeat_check.repeat_check(dev, repeats=20,
+                                        modes=("fact_mpcirc",))["kernel"]
+    after = tkn.launch_counts()
+    for coh, name in ((False, "mp_circ_estimate_fact"),
+                      (True, "mp_circ_estimate_coherent_fact")):
+        n = sum(1 for s in shapes if (s[5] > 1) == coh)
+        assert after[name] == before[name] + 20 * n, name
     assert len(runs) == len(shapes)
     assert not {k: v for k, v in runs.items() if v["failures"]}, runs
 

@@ -194,27 +194,39 @@ JAX_SHAPES = [(2, D, 8), (3, D, 8), (2, 16, 200)]
 
 @pytest.mark.parametrize("p,d,k", JAX_SHAPES)
 def test_plain_wide_k10_matches_jax_interpret_kernel(p, d, k):
-    """The wide K10's plain version, flat through the entry (which takes
-    the wide form here) and coherent at T = 4, alpha 1 and 0.25, against
-    JAX's interpret-mode `estimate_fused_circulant_mp[_coherent]`."""
+    """The wide K10's plain version, flat and coherent at T = 4, alpha 1
+    and 0.25, through its wrappers, and the entries (which take the wide
+    form at K = 200 and the factorised kernel at D = 144 = 12 x 12,
+    `mp_circ_route`: each the plain version of its route), against JAX's
+    interpret-mode `estimate_fused_circulant_mp[_coherent]`."""
     jb, tb = _banks(p, d=d, k=k, n_dead=1)
     assert not mk.mp_circ_narrow(d, k, p)
     r = _obs(64, p * d)
+    x2 = mk._x2(torch.as_tensor(r))
+    ckb = mk.mp_circ_kernel_bank(tb)
     before = tkn.launch_counts()
     got = mk.estimate_fused_circulant_mp(tb, torch.as_tensor(r))
+    wide = mk._hc(mk.mp_circ_estimate_wide(x2, ckb), torch.complex64)
     assert tkn.launch_counts() == before            # the CPU launches nothing
-    assert torch.equal(got, mk._hc(mk.mp_circ_wide_reference(
-        mk._x2(torch.as_tensor(r)), mk.mp_circ_kernel_bank(tb)),
-        torch.complex64))
-    _close(got, pk.estimate_fused_circulant_mp(jb, jnp.asarray(r),
-                                               interpret=True), 2e-4)
+    assert torch.equal(wide, mk._hc(mk.mp_circ_wide_reference(x2, ckb),
+                                    torch.complex64))
+    plain = (mk.mp_circ_fact_reference if mk.mp_circ_route(d, k, p) == "fact"
+             else mk.mp_circ_wide_reference)
+    assert torch.equal(got, mk._hc(plain(x2, ckb), torch.complex64))
+    want = pk.estimate_fused_circulant_mp(jb, jnp.asarray(r), interpret=True)
+    _close(got, want, 2e-4)
+    _close(wide, want, 2e-4)
     rb = r.reshape(16, 4, p * d)
     for alpha in (1.0, 0.25):
         got = mk.estimate_fused_circulant_mp_coherent(tb, torch.as_tensor(rb),
                                                       alpha)
         assert got.shape == (16, 4, d)
-        _close(got, pk.estimate_fused_circulant_mp_coherent(
-            jb, jnp.asarray(rb), alpha=alpha, interpret=True), 2e-4)
+        want = pk.estimate_fused_circulant_mp_coherent(
+            jb, jnp.asarray(rb), alpha=alpha, interpret=True)
+        _close(got, want, 2e-4)
+        wide = mk.mp_circ_estimate_coherent_wide(
+            x2, mk.mp_circ_kernel_bank(tb, None, 4, alpha), 4, alpha)
+        _close(mk._hc(wide, torch.complex64).reshape(16, 4, d), want, 2e-4)
 
 
 @pytest.mark.parametrize("p,d,k", JAX_SHAPES)
