@@ -2381,10 +2381,11 @@ def wide_topk_phase(dev, card, kernels, errs, add, fitted):
 
 
 # phase 3l: the circulant kernels on wide banks. Cases (D, K, T, alpha,
-# dead components, blocks): K <= 128 through one launch of K6 / K7 (the
-# factorised kernel where D splits, `circ_kernels.circ_route`; the dense
-# wide form at 131, 134 and 652) and of K8 / K9, K = 200 through two K8 /
-# K9 shards, merged
+# dead components, blocks): K <= 128 through one launch of K6 / K7 and of
+# K8 / K9 (the factorised kernel where D splits, and its STATS form where
+# the route admits K and T too, `circ_kernels.circ_route`; else the dense
+# wide form, as at 131, 134 and 652), K = 200 through two K8 / K9 shards,
+# merged (at D = 256 one on each route)
 WIDE_CIRC_CASES = (
     (129, 1, 1, 1.0, 0, None),
     (131, 16, 1, 1.0, 1, None),
@@ -2415,8 +2416,10 @@ WIDE_CIRC_NAMES = {(False, False): "circ_estimate_wide",
                    (True, False): "circ_estimate_coherent_wide",
                    (False, True): "circ_estimate_stats_wide",
                    (True, True): "circ_estimate_coherent_stats_wide"}
-FACT_CIRC_NAMES = {False: "circ_estimate_fact",
-                   True: "circ_estimate_coherent_fact"}
+FACT_CIRC_NAMES = {(False, False): "circ_estimate_fact",
+                   (True, False): "circ_estimate_coherent_fact",
+                   (False, True): "circ_estimate_stats_fact",
+                   (True, True): "circ_estimate_coherent_stats_fact"}
 # a width the factorised kernel does not split (4 x 163): the dense wide
 # K6 / K7's main path, the stages' entries
 WIDE_CIRC_DENSE_D = 652
@@ -2425,14 +2428,16 @@ WIDE_CIRC_DENSE_D = 652
 def wide_circ_phase(dev, card, kernels, errs, add):
     """Phase 3l, the circulant kernels on wide banks, past the template's
     D = 128 up to the rule's D = 672: K6 / K7 on the factorised kernel
-    (`csrc/circ_fact_estimate.cu`) where the transform splits
-    (`circ_kernels.circ_route`) and on the wide form
-    (`csrc/circ_wide_estimate.cu`) elsewhere; K8 / K9 on the wide form.
+    (`csrc/circ_fact_estimate.cu`) where the transform splits and K8 / K9
+    on its STATS form where the route admits their K and T too
+    (`circ_kernels.circ_route`), each on the wide form
+    (`csrc/circ_wide_estimate.cu`) elsewhere.
 
     1. At each of WIDE_CIRC_CASES (seeded circulant banks at 10 dB, 2
        bits, their quantized observations, 4097 rows or the whole blocks
        below): K6 (T = 1) or K7 and K8 or K9 against their plain versions
-       (the factorised kernel's `circ_fact_reference`) within TOL of the
+       (the factorised kernel's `circ_fact_reference`, with `stats=True`
+       for K8 / K9) within TOL of the
        scale, or where the float32 plain version's own rounding (logits in
        the thousands, pooled over T rows) pushes the two apart, both
        against the plain version in float64 (`compare64` at ceiling TOL:
@@ -2440,10 +2445,11 @@ def wide_circ_phase(dev, card, kernels, errs, add):
        and its error at most twice the float32 plain version's; every
        comparison's readings kept under "against_float64"); K = 200: each
        of the two shards' K8 / K9 states, and the merged quotient, which
-       the entry returns, against the plain states merged likewise. Then
-       K6, K7 (T = 4), K8 and K9 (T = 4) at D = 512 and 672, K = 16, under
-       the float64 rule (`fp32_accuracy`, each of m, den and acc for the
-       stats forms).
+       the entry returns, against the plain states merged likewise (the
+       factorised K8 / K9 at D = 640; at D = 256 the 128-component shard
+       on the dense wide form). Then K6, K7 (T = 4), K8 and
+       K9 (T = 4) at D = 512 and 672, K = 16, under the float64 rule
+       (`fp32_accuracy`, each of m, den and acc for the stats forms).
     2. `tools.circ_kernel_bench`, its four legs (flat, coherent, tp, d512)
        with the kernels' ms, bound and the `torch.fft` pipeline's ms; on
        the d512 leg's inputs, and the same at D = 672, the factorised K6
@@ -2463,19 +2469,20 @@ def wide_circ_phase(dev, card, kernels, errs, add):
        the scale of a `torch.fft` service's to the same request or, past
        it, within TOL of the factorised kernel's plain version in float64
        and no further from it than twice that service's answer
-       (`serve_mode(same_as_exact=)`);
+       (`serve_mode(same_as_exact=)`); the same service over an in-process
+       1 x 2 mesh (the factorised K8 / K9 a shard, and no other kernel);
        `parallel.mesh.estimate_sharded_circulant` over an in-process 1 x 2
-       mesh, flat and T = 4 blocks, against the `torch.fft` pipeline under
-       the same rule (`compare64`); and `stages.estimate_circulant[
-       _coherent]` at D = 652 = 4 x 163 (the wide K6 / K7) under the same
-       rule.
+       mesh, flat and T = 4 blocks (the factorised K8 / K9), against the
+       `torch.fft` pipeline under the same rule (`compare64`); and
+       `stages.estimate_circulant[_coherent]` at D = 652 = 4 x 163 (the
+       wide K6 / K7) under the same rule.
     4. The wide K6-K9 launched 20 times at each shape of
-       `tools.tc_repeat_check.WIDE_CIRC_SHAPES`, and the factorised K6 /
-       K7 at each of `FACT_CIRC_SHAPES`, on NaN-filled outputs, bit for
-       bit the first launch.
-    5. CUDA-event times at D = 512, K = 16, 32768 rows (the factorised K6
-       and K7 at T = 4, and in the same call the wide K6, K7 and K9 at T =
-       4, K8), each beside its plain version, the bound
+       `tools.tc_repeat_check.WIDE_CIRC_SHAPES`, and the factorised K6-K9
+       at each of `FACT_CIRC_SHAPES`, on NaN-filled outputs, bit for bit
+       the first launch.
+    5. CUDA-event times at D = 512, K = 16, 32768 rows (the factorised K6,
+       K7 at T = 4, K8 and K9 at T = 4, and in the same call the dense
+       wide K6, K7, K8 and K9), each beside its plain version, the bound
        (`circ_kernels.circ_bound`: the transforms as FFTs; and the
        kernels' dense transforms) and the library yardstick (the
        `torch.fft` pipeline over the batch as one chunk); the factorised
@@ -2483,7 +2490,7 @@ def wide_circ_phase(dev, card, kernels, errs, add):
        64, K = 64, 131072 rows) the factorised kernel and the narrow K6
        template in turns.
     Returns the phase's record; its timing records are the kernels line's
-    entries of the four wide wrappers and the two factorised ones."""
+    entries of the four wide wrappers and the four factorised ones."""
     from quantized_channel_estimation_torch import serving
     from quantized_channel_estimation_torch.estimators import (
         circ_kernels as ck)
@@ -2517,17 +2524,21 @@ def wide_circ_phase(dev, card, kernels, errs, add):
 
     def plain(ckb, x2, t, alpha, stats, blocks=None):
         """The plain version of the kernel the wrappers launch (`name`)."""
-        if (route_name(x2.shape[1] // 2, t, stats, blocks)
-                in FACT_CIRC_NAMES.values()):
-            return (ck.circ_fact_reference(x2, ckb, t, alpha, blocks),)
-        out = ck._circ_reference(x2, ckb, t, alpha, stats, 16384)
+        name = route_name(x2.shape[1] // 2, t, stats, blocks,
+                          ckb.const.shape[0])
+        if name in FACT_CIRC_NAMES.values():
+            out = ck.circ_fact_reference(x2, ckb, t, alpha, blocks,
+                                         stats=stats)
+        else:
+            out = ck._circ_reference(x2, ckb, t, alpha, stats, 16384)
         return out if stats else (out,)
 
-    def route_name(d, t, stats, blocks=None):
-        """The wrapper that counts the launch at (D, T, stats, basis)."""
-        if ck.circ_route(d, blocks, stats) == "fact":
-            return FACT_CIRC_NAMES[t > 1]
-        return WIDE_CIRC_NAMES[(t > 1, stats)]
+    def route_name(d, t, stats, blocks=None, k=1):
+        """The wrapper that counts the launch at (D, T, stats, basis, K)."""
+        names = (FACT_CIRC_NAMES
+                 if ck.circ_route(d, blocks, stats, k, t) == "fact"
+                 else WIDE_CIRC_NAMES)
+        return names[(t > 1, stats)]
 
     def quotient(states):
         _, den, acc = ck.merge_stats(*zip(*states))
@@ -2555,9 +2566,9 @@ def wide_circ_phase(dev, card, kernels, errs, add):
         ckbs = ck.lowered(bank, None, blocks, t, alpha)
         worst = 0.0
         for stats in (False, True) if len(ckbs) == 1 else (True,):
-            wname = route_name(d, t, stats, blocks)
             states, want_states, exact_states = [], [], []
             for j, ckb in enumerate(ckbs):
+                wname = route_name(d, t, stats, blocks, ckb.const.shape[0])
                 got = kernel(ckb, x2, t, alpha, stats)
                 want = plain(ckb, x2, t, alpha, stats, blocks)
                 want64 = plain(f64(ckb), x2.double(), t, alpha, stats, blocks)
@@ -2592,7 +2603,7 @@ def wide_circ_phase(dev, card, kernels, errs, add):
         r = common.observations(dev, q, WIDE_CIRC_N // 4 * 4, n_ant=d)
         x2 = ck._x2(r)
         for t, stats in ((1, False), (4, False), (1, True), (4, True)):
-            wname = route_name(d, t, stats)
+            wname = route_name(d, t, stats, None, 16)
             ckb = ck.circ_kernel_bank(bank, None, t, 1.0)
             got = kernel(ckb, x2, t, 1.0, stats)
             want = plain(ckb, x2, t, 1.0, stats)
@@ -2792,18 +2803,27 @@ def wide_circ_phase(dev, card, kernels, errs, add):
     def fact64_np(r_np, snr):
         return fact64(torch.as_tensor(r_np, device=dev), snr).cpu().numpy()
 
-    svc, fft_svc = (serving.EstimationService.from_circulant_spectra(
-        w_np, means_np, spec_np, a_eye, N_BITS, max_batch=SERVE_MAX_BATCH,
-        device=dev, use_kernels=use) for use in (True, False))
+    svc, fft_svc, mesh_svc = (
+        serving.EstimationService.from_circulant_spectra(
+            w_np, means_np, spec_np, a_eye, N_BITS, max_batch=SERVE_MAX_BATCH,
+            device=dev, use_kernels=use, mesh=mesh)
+        for use, mesh in ((True, None), (False, None),
+                          (True, pmesh.make_local_mesh(1, 2))))
     try:
         rec["service"] = []
-        for label, t_coh, name in (
-                ("structured D=512 flat all", 1, "circ_estimate_fact"),
-                ("structured D=512 T=4 blocks, alpha=1", 4,
-                 "circ_estimate_coherent_fact")):
+        # one device: the factorised K6 / K7; over a 1 x 2 in-process mesh
+        # the factorised K8 / K9 on each component shard, merged
+        for service, label, t_coh, name in (
+                (svc, "structured D=512 flat all", 1, "circ_estimate_fact"),
+                (svc, "structured D=512 T=4 blocks, alpha=1", 4,
+                 "circ_estimate_coherent_fact"),
+                (mesh_svc, "structured D=512 flat all, 1 x 2 mesh", 1,
+                 "circ_estimate_stats_fact"),
+                (mesh_svc, "structured D=512 T=4 blocks, alpha=1, 1 x 2 mesh",
+                 4, "circ_estimate_coherent_stats_fact")):
             rec["service"].append(serve_mode(
-                svc, kernels, dev, label, t_coh, name, fact64, seconds=1.0,
-                same_as=fft_svc, d=d, same_as_exact=fact64_np))
+                service, kernels, dev, label, t_coh, name, fact64,
+                seconds=1.0, same_as=fft_svc, d=d, same_as_exact=fact64_np))
             add(rec["service"][-1]["launches"])
             log(f"serving [{label}]: answers further than {TOL} from the "
                 f"torch.fft service's: {rec['service'][-1]['answers_past_tol']}"
@@ -2814,14 +2834,14 @@ def wide_circ_phase(dev, card, kernels, errs, add):
             if used != {name}:
                 raise AssertionError(f"{label} launched {used}")
     finally:
-        svc.close(timeout=120.0)
-        fft_svc.close(timeout=120.0)
+        for service in (svc, fft_svc, mesh_svc):
+            service.close(timeout=120.0)
     r = common.observations(dev, q, 8192, n_ant=d)
     for label, rr, want_kernels in (
             ("estimate_sharded_circulant, 1 x 2 mesh", r,
-             {"circ_estimate_stats_wide"}),
+             {"circ_estimate_stats_fact"}),
             ("estimate_sharded_circulant, 1 x 2 mesh, T=4",
-             r.reshape(-1, 4, d), {"circ_estimate_coherent_stats_wide"})):
+             r.reshape(-1, 4, d), {"circ_estimate_coherent_stats_fact"})):
         got, launches, seconds = counted(
             label, lambda x=rr: pmesh.estimate_sharded_circulant(
                 pmesh.make_local_mesh(1, 2), bank, x), want_kernels)
@@ -2832,23 +2852,30 @@ def wide_circ_phase(dev, card, kernels, errs, add):
         rec["paths"][label] = {"rel_to_fft": rel, "launches": launches,
                                "seconds": seconds}
     del r, bank, banks
-    # the dense wide K6 / K7's main path: the stages' entries at a width the
+    # the dense wide K6-K9's main paths: the stages' entries and the
+    # sharded estimator over a 1 x 2 in-process mesh at a width the
     # factorised kernel does not split, against the torch.fft pipeline
     # under the same rule
     d_w = WIDE_CIRC_DENSE_D
     bank_w = circ_bank(dev, q, d_w, k, 2)
     r_w = common.observations(dev, q, 8192, n_ant=d_w)
-    for label, rr, want_kernels in (
+    for label, rr, want_kernels, fn in (
             (f"stages.estimate_circulant D={d_w}", r_w,
-             {"circ_estimate_wide"}),
+             {"circ_estimate_wide"}, stages.estimate_circulant),
             (f"stages.estimate_circulant_coherent D={d_w}, T=4",
-             r_w.reshape(-1, 4, d_w), {"circ_estimate_coherent_wide"})):
+             r_w.reshape(-1, 4, d_w), {"circ_estimate_coherent_wide"},
+             stages.estimate_circulant_coherent),
+            (f"estimate_sharded_circulant D={d_w}, 1 x 2 mesh", r_w,
+             {"circ_estimate_stats_wide"},
+             lambda b, x: pmesh.estimate_sharded_circulant(
+                 pmesh.make_local_mesh(1, 2), b, x)),
+            (f"estimate_sharded_circulant D={d_w}, 1 x 2 mesh, T=4",
+             r_w.reshape(-1, 4, d_w), {"circ_estimate_coherent_stats_wide"},
+             lambda b, x: pmesh.estimate_sharded_circulant(
+                 pmesh.make_local_mesh(1, 2), b, x))):
         t = rr.shape[1] if rr.dim() == 3 else 1
         got, launches, seconds = counted(
-            label, lambda x=rr: (stages.estimate_circulant_coherent(bank_w, x)
-                                 if x.dim() == 3
-                                 else stages.estimate_circulant(bank_w, x)),
-            want_kernels)
+            label, lambda x=rr, fn=fn: fn(bank_w, x), want_kernels)
         want = (sb.estimate_circulant_coherent(bank_w, rr, "all", 4096, 1.0,
                                                None, "fft") if t > 1
                 else sb.estimate_circulant(bank_w, rr, "all", 16384, None,
@@ -2877,14 +2904,14 @@ def wide_circ_phase(dev, card, kernels, errs, add):
     rep = trc.repeat_check(dev, repeats=20,
                            modes=("wide_circ", "fact_circ"))["kernel"]
     bad = {k2: v for k2, v in rep.items() if v["failures"]}
-    log(f"wide K6-K9 and the factorised K6 / K7 repeated: "
+    log(f"wide and factorised K6-K9 repeated: "
         f"{sum(v['launches'] for v in rep.values())} "
         f"launches in {time.time() - tm:.1f}s, max err "
         f"{max(v['max_err'] for v in rep.values()):.3e}, failures "
         f"{bad or 0}")
     if bad:
-        raise AssertionError(f"the wide K6-K9 or the factorised K6 / K7 off "
-                             f"on repeated launches: {bad}")
+        raise AssertionError(f"the wide or factorised K6-K9 off on repeated "
+                             f"launches: {bad}")
     rec["repeat_check"] = rep
 
     # 5. times at D = 512, K = 16, 32768 rows
@@ -2899,8 +2926,8 @@ def wide_circ_phase(dev, card, kernels, errs, add):
     fops = ck.circ_fact_operands(ckb)
     times = {}
     for name, t, stats, kern, library, chunked in (
-            # the factorised K6 / K7 (the wrappers' route at D = 512) and,
-            # in the same call, the dense wide form they replace there
+            # the factorised K6-K9 (the wrappers' route at D = 512) and, in
+            # the same call, the dense wide form they replace there
             ("circ_estimate_fact", 1, False,
              lambda: ck.circ_estimate(x2, ckb, fops),
              lambda: sb.estimate_circulant(bank, r, "all", n, None, "fft"),
@@ -2923,14 +2950,26 @@ def wide_circ_phase(dev, card, kernels, errs, add):
                                                     1.0, None, "fft"),
              lambda: sb.estimate_circulant_coherent(bank, rb, "all", 4096,
                                                     1.0, None, "fft")),
+            ("circ_estimate_stats_fact", 1, True,
+             lambda: ck.circ_estimate_stats(x2, ckb, fops),
+             lambda: sb.estimate_circulant_stats(bank, r, n, None, "fft"),
+             lambda: sb.estimate_circulant_stats(bank, r, 16384, None,
+                                                 "fft")),
+            ("circ_estimate_coherent_stats_fact", 4, True,
+             lambda: ck.circ_estimate_coherent_stats(x2, ckb4, 4, 1.0, fops),
+             lambda: sb.estimate_circulant_coherent_stats(bank, rb, n // 4,
+                                                          1.0, None, "fft"),
+             lambda: sb.estimate_circulant_coherent_stats(bank, rb, 4096,
+                                                          1.0, None,
+                                                          "fft")),
             ("circ_estimate_stats_wide", 1, True,
-             lambda: ck.circ_estimate_stats(x2, ckb, ops_s),
+             lambda: ck.circ_estimate_stats_wide(x2, ckb, ops_s),
              lambda: sb.estimate_circulant_stats(bank, r, n, None, "fft"),
              lambda: sb.estimate_circulant_stats(bank, r, 16384, None,
                                                  "fft")),
             ("circ_estimate_coherent_stats_wide", 4, True,
-             lambda: ck.circ_estimate_coherent_stats(x2, ckb4, 4, 1.0,
-                                                     ops_s),
+             lambda: ck.circ_estimate_coherent_stats_wide(x2, ckb4, 4, 1.0,
+                                                          ops_s),
              lambda: sb.estimate_circulant_coherent_stats(bank, rb, n // 4,
                                                           1.0, None, "fft"),
              lambda: sb.estimate_circulant_coherent_stats(bank, rb, 4096,
@@ -2940,7 +2979,8 @@ def wide_circ_phase(dev, card, kernels, errs, add):
         plain_fn = (lambda c=c, t=t, stats=stats:
                     ck._circ_reference(x2, c, t, 1.0, stats, 16384))
         if name in FACT_CIRC_NAMES.values():
-            plain_fn = lambda c=c, t=t: ck.circ_fact_reference(x2, c, t)
+            plain_fn = (lambda c=c, t=t, stats=stats:
+                        ck.circ_fact_reference(x2, c, t, stats=stats))
         plain_ms = profiling.device_ms(plain_fn)
         ms = profiling.device_ms(kern)
         ms2 = profiling.device_ms(kern)
@@ -6401,6 +6441,16 @@ def main():
           for name, kid, line, coh in (
               ("circ_estimate_fact", "K6_fact", 1309, False),
               ("circ_estimate_coherent_fact", "K7_fact", 1647, True))),
+        *({"name": name, "id": kid, "route": "cuda",
+           "source": src + "circ_fact_estimate.cu",
+           "replaces": f"{tpu}:{line}", "launches": total_launches[name],
+           "max_abs_err": max(errs[name]), "d": 512, "n_components": 16,
+           **({"t_coh": 4, "coh_alpha": 1.0} if coh else {}),
+           **circ_wide_rec["times"][name]}
+          for name, kid, line, coh in (
+              ("circ_estimate_stats_fact", "K8_fact", 1749, False),
+              ("circ_estimate_coherent_stats_fact", "K9_fact", 1822,
+               True))),
         {"name": "mp_circ_estimate", "id": "K10", "route": "cuda",
          "source": src + "mp_circ_estimate.cu", "replaces": f"{tpu}:1505",
          "launches": total_launches["mp_circ_estimate"],

@@ -2,9 +2,11 @@
 // / K7 (circ_fact_estimate.cu) and the multi-pilot K10
 // (mp_circ_fact_estimate.cu). The transform of a row D = d1 d2 as Stockham
 // stages in shared memory (`stage`, `transform`), the rows in and out
-// (`load_rows`, `store_rows`), the three-plane bf16 split and the mma.sync
+// (`load_rows`, `store_rows`; the stats forms' accumulator in natural bin
+// order, `store_natural`), the three-plane bf16 split and the mma.sync
 // six-product step (`split3`, `six`), the compensated sum (`kahan`) and
-// the softmax of offset logits with the coherent pool (`softmax_rows`).
+// the softmax of offset logits with the coherent pool (`softmax_rows`, and
+// its STATS form).
 //
 // A row in shared memory is d1 lines of ld2 = d2 | 1 slots (an odd stride,
 // so that the 16 lines a half-warp reads at one offset fall on 16 banks),
@@ -273,6 +275,23 @@ __device__ __forceinline__ void store_rows(const float2* buf, float2* dst,
     }
 }
 
+// The rows of buf (positions in the forward transform's order) out to dst
+// in natural bin order (row r at dst + r * stride): bin j sits at position
+// p d2 + q with j = p + d1 q (the DFT, `circ_kernels.circ_fact_perm`) or j
+// = p d2 + q (the kron basis), slot p ld2 + q. Consecutive threads write
+// consecutive bins; their slots lie ld2 (odd) apart, on distinct banks.
+__device__ __forceinline__ void store_natural(const float2* buf, float2* dst,
+                                              long long stride, int rows,
+                                              const Transform& tf, bool kron) {
+  const int d = tf.d1 * tf.d2;
+  for (int j = threadIdx.x; j < d; j += kThreads) {
+    const int p = kron ? j / tf.d2 : j % tf.d1;
+    const int q = kron ? j - p * tf.d2 : j / tf.d1;
+    const int slot = p * tf.ld2 + q;
+    for (int r = 0; r < rows; ++r) dst[r * stride + j] = buf[r * tf.rs + slot];
+  }
+}
+
 // zero what the products read past a transform's output: the pad slot of
 // each line (ld2 > d2) and the slots [dp, tail) of each row; the bank's
 // rows and columns there are zero
@@ -293,20 +312,29 @@ __device__ __forceinline__ void zero_pads(float2* buf, int rows, int tail,
 
 // The softmax of `rows` rows of offset logits (kpad apart, k live) in
 // place, a warp a block of t rows: the pool lg' + a (s - lg'), s the
-// block's sum in float64 (a >= 1: s), then the normalised weights. A row
-// whose logits are all -inf weighs nothing. k <= 128.
+// block's sum in float64 (a >= 1: s), then the normalised weights, or
+// (STATS) the weights exp(l - max l) with m = fl(o + max l) and den out to
+// m_out, den_out (a float a row), o the row's offset (offs) pooled alike in
+// float64: the arithmetic of the dense wide form's `softmax_kernel`
+// (wide_gemm.cuh). A row whose logits are all -inf weighs nothing. k <=
+// 128.
+template <bool STATS = false>
 __device__ void softmax_rows(float* lg, int rows, int k, int kpad, int t,
-                             float alpha) {
+                             float alpha, const float* offs = nullptr,
+                             float* m_out = nullptr,
+                             float* den_out = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r0 = warp * t; r0 < rows; r0 += kWarps * t) {
-    double s[4] = {0.0, 0.0, 0.0, 0.0};
+    double s[4] = {0.0, 0.0, 0.0, 0.0}, so = 0.0;
     if (t > 1)
-      for (int tt = 0; tt < t; ++tt)
+      for (int tt = 0; tt < t; ++tt) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int kk = lane + 32 * i;
           if (kk < k) s[i] += (double)lg[(r0 + tt) * kpad + kk];
         }
+        if (STATS) so += (double)offs[r0 + tt];
+      }
     for (int tt = 0; tt < t; ++tt) {
       float* lr = lg + (r0 + tt) * kpad;
       float v[4], mx = -INFINITY;
@@ -339,7 +367,13 @@ __device__ void softmax_rows(float* lg, int rows, int k, int kpad, int t,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int kk = lane + 32 * i;
-        if (kk < k) lr[kk] = v[i] / den;
+        if (kk < k) lr[kk] = STATS ? v[i] : v[i] / den;
+      }
+      if (STATS && lane == 0) {
+        double o = (double)offs[r0 + tt];
+        if (t > 1) o = alpha >= 1.f ? so : o + (double)alpha * (so - o);
+        m_out[r0 + tt] = (float)(o + (double)mx);
+        den_out[r0 + tt] = den;
       }
     }
   }
@@ -348,11 +382,13 @@ __device__ void softmax_rows(float* lg, int rows, int k, int kpad, int t,
 // The logits of `rows` rows into lg (kpad apart): a warp a row, the
 // compensated sum of the `ksplit` partial (sum, lost) pairs of each
 // component (part: ksplit blocks of `prows` rows x kpad) with const, the
-// row's offset (its largest logit among components [0, 64)), lg' = (lg -
-// off) - lost. Dead components keep the -1e30 floor of const.
+// row's offset (its largest logit among components [0, 64); kept in
+// offs[row] where offs is given), lg' = (lg - off) - lost. Dead components
+// keep the -1e30 floor of const.
 __device__ void reduce_logits(const float2* part, float* lg, int rows,
                               int prows, int ksplit, int k, int kpad,
-                              const float* __restrict__ cst) {
+                              const float* __restrict__ cst,
+                              float* offs = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int row = warp; row < rows; row += kWarps) {
     float s[4], l[4];
@@ -376,6 +412,7 @@ __device__ void reduce_logits(const float2* part, float* lg, int rows,
     for (int o = 16; o > 0; o >>= 1)
       off = fmaxf(off, __shfl_xor_sync(0xffffffffu, off, o));
     off = off > -1e29f ? off : 0.f;
+    if (offs != nullptr && lane == 0) offs[row] = off;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int kk = lane + 32 * i;

@@ -1,6 +1,7 @@
 // The circulant (FFT-domain) estimation kernels K6 (flat) and K7
-// (coherent) with a factorised transform, for Hopper: one fused kernel a
-// tile of rows, x in and the finished estimate out, every intermediate on
+// (coherent), and with the STATS flag their stats forms K8 and K9, with a
+// factorised transform, for Hopper: one fused kernel a tile of rows, x in
+// and the finished estimate (or the state) out, every intermediate on
 // chip.
 //
 // Replaces, at every width 128 < D <= 672 whose transform splits into two
@@ -8,11 +9,15 @@
 // widths for the DFT, and the kron(F_n1, F_n2) basis of block-circulant
 // banks with n1, n2 <= 64), the TPU kernels of
 // quantized_channel_estimation_tpu/estimators/pallas_kernels.py that the
-// JAX package runs there (models/structured_bank.py:415, :604):
-// `_circ_kernel` (:1309, pallas_call in `estimate_circ_packed` :1346) and
-// `_circ_kernel_coh` (:1647, :1698). The other wide widths, and the stats
-// forms K8 / K9, keep the dense wide form of circ_wide_estimate.cu. Per row
-// x (D complex values, interleaved [re, im] pairs) and component k:
+// JAX package runs there (models/structured_bank.py:415, :604;
+// parallel/mesh.py:183, :193): `_circ_kernel` (:1309, pallas_call in
+// `estimate_circ_packed` :1346), `_circ_kernel_coh` (:1647, :1698),
+// `_circ_kernel_stats` (:1749, :1789) and `_circ_kernel_coh_stats` (:1822,
+// :1868); K8 / K9 only where they were measured faster than the dense
+// wide form (`circ_kernels.circ_stats_fact_eligible`: 3 K <= D, few dense
+// odd-prime stages, two sweeps only without them). The other wide widths
+// and shapes keep the dense wide form of circ_wide_estimate.cu. Per row x
+// (D complex values, interleaved [re, im] pairs) and component k:
 //
 //   u      = F x                           forward (block-)DFT, factorised
 //   lg_k   = [u | |u|^2] @ lcoef + const   (3D, K), tensor cores
@@ -20,6 +25,18 @@
 //                                          sum over the row's block
 //   h      = w @ bias + (w @ filt) * u     per bin, (K, 4D), tensor cores
 //   out    = F^H h                         inverse, factorised
+//
+// STATS (K8 / K9) stops before the normalisation and the inverse: per row
+// m = o + max_k lg'_k (o the row's offset, kept in shared memory a float a
+// row through both sweeps, pooled over the block as the logits are, in
+// float64; the logits' -D log pi row constant dropped, as in the dense wide
+// form, so that states of either route merge), den = sum_k exp(lg'_k - max)
+// and acc = h with the un-normalised weights, written in natural bin order
+// (`store_natural`: bin p + d1 q from slot p (d2 | 1) + q; the kron basis'
+// positions are its bins), m and den a float a row. The merge of component
+// shards and the one inverse transform stay on the host
+// (`kernels.merge_stats`, `circ_kernels._merged`). STATS is a template
+// parameter: K6 / K7's instantiation is the same code as without it.
 //
 // The transform. D = d1 d2 (d1 <= d2 <= 64, the most balanced split; or
 // the kron basis' (n1, n2)). A row is the (d1, d2) array x[a d2 + b]; the
@@ -81,6 +98,9 @@
 // spent 8.25e11 tensor-core operations on its dense transforms and ~0.67
 // GB on scratch between nine passes; this kernel has neither.
 //
+// K8 / K9 (the same bound, the inverse's operations and the rows out
+// replaced by acc, m and den): at D = 512, K = 16 0.080 ms, bytes.
+//
 // Any N (a whole number of T-row blocks), d = d1 d2 with 2 <= d1, d2 <= 64
 // and d <= 672, 1 <= K <= 128, 1 <= T <= 64.
 //
@@ -97,13 +117,16 @@ constexpr int kRows = 16;     // rows of a sub-tile
 
 struct Params {
   const float2* x;
-  float2* out;
+  float2* out;         // STATS: acc, in natural bin order
+  float* m;            // STATS: m and den, a float a row
+  float* den;
   const uint2* bl[3];  // logit B fragments (ks, nt, lane) of each plane
   const uint2* bc[3];  // combine B fragments (nt, ks, lane) of each plane
   const float* cst;
   const float2* tw;    // W_d1 (d1), W_d2 (d2), cross (dp, zero at pads)
   int n, d, k, kpad, t_coh, rows_cta, buf;  // buf: float2 a buffer
   float alpha;
+  bool kron;           // the basis: the output order of STATS
   Transform tf;        // a row: d1 lines of ld2 = d2 | 1 slots, rs = dp
 };
 
@@ -201,9 +224,9 @@ __device__ void logit_part(const float2* u, float2* part, int rows,
 // product split over warps (a warp: a chunk of up to four n8 tiles of K
 // and every ksplit-th k16 step, `logit_part`), the partial sums in `part`,
 // then a warp a row: their compensated sum with const, the row's offset,
-// lg'.
+// lg' (and, where offs is given, each row's offset into it).
 __device__ void logits(const float2* u, float2* part, float* lg, int rows,
-                       const Params& p) {
+                       const Params& p, float* offs) {
   const int warp = threadIdx.x >> 5;
   const int ntk = (p.k + 7) >> 3, nch = (ntk + 3) >> 2, ksplit = kWarps / nch;
   const int chunk = warp % nch, kpart = warp / nch;
@@ -217,7 +240,7 @@ __device__ void logits(const float2* u, float2* part, float* lg, int rows,
     }
   }
   __syncthreads();
-  reduce_logits(part, lg, rows, kM, ksplit, p.k, p.kpad, p.cst);
+  reduce_logits(part, lg, rows, kM, ksplit, p.k, p.kpad, p.cst, offs);
 }
 
 // the sub-tile's weights (rows x kpad in lg) as A fragments of three
@@ -316,6 +339,10 @@ __device__ void combine(float2* u, const uint4* wpl, int rows,
   }
 }
 
+// K6 / K7, or (STATS) K8 / K9: the same kernel, which keeps each row's
+// offset, runs the stats softmax and writes (m, den, acc) in place of the
+// normalisation, the inverse and the rows out.
+template <bool STATS>
 __global__ void __launch_bounds__(kThreads, 1)
     circ_fact_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -324,6 +351,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* lg = reinterpret_cast<float*>(buf1 + p.buf);
   float2* tw = reinterpret_cast<float2*>(lg + p.rows_cta * p.kpad);
   const int n_tw = p.tf.d1 + p.tf.d2 + p.tf.dp;
+  float* offs = STATS ? reinterpret_cast<float*>(tw + n_tw) : nullptr;
   for (int i = threadIdx.x; i < n_tw; i += kThreads) tw[i] = p.tw[i];
 
   const int row0 = blockIdx.x * p.rows_cta;
@@ -339,13 +367,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     transform<false, kRows>(cur, oth, rows, p.tf, tw);
     zero_pads(cur, rows, p.tf.dp, p.tf);
     __syncthreads();
-    logits(cur, oth, lg + s * kRows * p.kpad, rows, p);
+    logits(cur, oth, lg + s * kRows * p.kpad, rows, p,
+           STATS ? offs + s * kRows : nullptr);
     __syncthreads();
   }
-  softmax_rows(lg, rows_here, p.k, p.kpad, p.t_coh, p.alpha);
+  softmax_rows<STATS>(lg, rows_here, p.k, p.kpad, p.t_coh, p.alpha, offs,
+                      STATS ? p.m + row0 : nullptr,
+                      STATS ? p.den + row0 : nullptr);
   __syncthreads();
   // sweep 2: the combine and the inverse of every sub-tile (u recomputed
-  // where the block holds more than one)
+  // where the block holds more than one); STATS: the combine's acc out
   for (int s = 0; s < n_sub; ++s) {
     const int rows = min(kRows, rows_here - s * kRows);
     if (n_sub > 1) {
@@ -358,8 +389,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     combine(cur, reinterpret_cast<const uint4*>(oth), rows, p);
     __syncthreads();
-    transform<true, kRows>(cur, oth, rows, p.tf, tw);
-    store_rows(cur, p.out + (size_t)(row0 + s * kRows) * p.d, p.d, rows, p.tf);
+    float2* dst = p.out + (size_t)(row0 + s * kRows) * p.d;
+    if (STATS) {
+      store_natural(cur, dst, p.d, rows, p.tf, p.kron);
+    } else {
+      transform<true, kRows>(cur, oth, rows, p.tf, tw);
+      store_rows(cur, dst, p.d, rows, p.tf);
+    }
     __syncthreads();
   }
 }
@@ -390,32 +426,39 @@ long long circ_fact_units(int d1, int d2, int k) {
                  (4 * dp + 7) / 8 * ((k + 15) / 16));
 }
 
-// Shared memory of one block, bytes; 0 past the card's.
-int circ_fact_smem(int d1, int d2, int k, int t_coh) {
+// Shared memory of one block, bytes (STATS: the rows' offsets too); 0 past
+// the card's.
+int circ_fact_smem(int d1, int d2, int k, int t_coh, bool stats) {
   const int dp = padded(d1, d2), kpad = (k + 7) / 8 * 8;
   const long long bytes = 16 * buffer_slots(dp, k) +
-                          4LL * rows_cta(t_coh) * kpad + 8LL * (d1 + d2 + dp);
+                          4LL * rows_cta(t_coh) * kpad + 8LL * (d1 + d2 + dp) +
+                          (stats ? 4LL * rows_cta(t_coh) : 0);
   return bytes > kSmemMax ? 0 : (int)bytes;
 }
 
 }  // namespace
 
 // C entry point, loaded with ctypes; returns a cudaError_t (0 on success).
-// K6 (t_coh = 1) and K7 (t_coh > 1): x (n, 2d) and out (n, 2d) interleaved
-// [re, im] pairs; hi, lo, lo2 the bank's `units` units a plane
+// K6 (t_coh = 1) and K7 (t_coh > 1), or with stats != 0 K8 / K9: x (n, 2d)
+// and out (n, 2d) interleaved [re, im] pairs (stats: out the DFT-domain
+// accumulator in natural bin order, m_out and den_out (n), neither null);
+// hi, lo, lo2 the bank's `units` units a plane
 // (`circ_kernels.circ_fact_operands`, 8-byte aligned); cst (k_comp) the
 // layout's constants; tw the (d1 + d2 + dp) complex twiddles (the cross
-// twiddle over the padded slots). d = d1 d2, 2 <= d1, d2 <= 64, d <= 672,
-// n a whole number of t_coh-row blocks, 1 <= t_coh <= 64, 1 <= k_comp <=
-// 128.
+// twiddle over the padded slots); kron != 0 for the kron(F_d1, F_d2)
+// basis. d = d1 d2, 2 <= d1, d2 <= 64, d <= 672, n a whole number of
+// t_coh-row blocks, 1 <= t_coh <= 64, 1 <= k_comp <= 128.
 extern "C" int circ_fact_launch(const float* x, const void* hi, const void* lo,
                                 const void* lo2, const float* cst,
-                                const float* tw, float* out, int n, int d,
-                                int d1, int d2, int k_comp, long long units,
-                                int t_coh, float alpha, void* stream) {
+                                const float* tw, float* out, float* m_out,
+                                float* den_out, int n, int d, int d1, int d2,
+                                int k_comp, long long units, int t_coh,
+                                float alpha, int stats, int kron,
+                                void* stream) {
   if (n < 0 || d < 1 || d > kMaxD || d1 < 2 || d2 < 2 || d1 > kMaxN ||
       d2 > kMaxN || d1 * d2 != d || k_comp < 1 || k_comp > kMaxK ||
       t_coh < 1 || t_coh > kMaxT || n % t_coh != 0 ||
+      (stats && (m_out == nullptr || den_out == nullptr)) ||
       units != circ_fact_units(d1, d2, k_comp))
     return (int)cudaErrorInvalidValue;
   const void* aligned[7] = {x, hi, lo, lo2, tw, out, cst};
@@ -423,11 +466,13 @@ extern "C" int circ_fact_launch(const float* x, const void* hi, const void* lo,
     if (ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 8 != 0)
       return (int)cudaErrorMisalignedAddress;
   if (n == 0) return 0;
-  const int smem = circ_fact_smem(d1, d2, k_comp, t_coh);
+  const int smem = circ_fact_smem(d1, d2, k_comp, t_coh, stats != 0);
   if (smem == 0) return (int)cudaErrorInvalidValue;
   Params p{};
   p.x = reinterpret_cast<const float2*>(x);
   p.out = reinterpret_cast<float2*>(out);
+  p.m = m_out;
+  p.den = den_out;
   if (!make_transform(d1, d2, padded(d1, d2), p.tf))
     return (int)cudaErrorInvalidValue;
   const long long lunits =
@@ -446,12 +491,13 @@ extern "C" int circ_fact_launch(const float* x, const void* hi, const void* lo,
   p.t_coh = t_coh;
   p.rows_cta = rows_cta(t_coh);
   p.alpha = alpha;
+  p.kron = kron != 0;
   p.buf = (int)buffer_slots(p.tf.dp, k_comp);
+  const auto kernel = stats ? circ_fact_kernel<true> : circ_fact_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      circ_fact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n + p.rows_cta - 1) / p.rows_cta;
-  circ_fact_kernel<<<blocks, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,12 @@
 // The wide form of the circulant (FFT-domain) estimation kernels for
 // Hopper: K6 (flat), K7 (coherent), K8 (stats) and K9 (coherent stats) at
 // every width past the one-pilot template of mp_circ_estimate.cu (D > 128),
-// up to D = 672; and of the multi-pilot kernel K10 (flat and coherent) at
-// every shape past that template's rule (D or K > 128, a P whose u does
-// not fit a block's shared memory, a T past its live rows), any K.
+// up to D = 672 (the wrappers take it where the transform does not split
+// into factors of at most 64; elsewhere the factorised kernel of
+// circ_fact_estimate.cu serves all four); and of the multi-pilot kernel K10
+// (flat and coherent) at every shape past that template's rule (D or K >
+// 128, a P whose u does not fit a block's shared memory, a T past its live
+// rows), any K.
 //
 // Replaces, at those widths, the TPU kernels of
 // quantized_channel_estimation_tpu/estimators/pallas_kernels.py that the

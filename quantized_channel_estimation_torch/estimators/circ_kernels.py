@@ -37,17 +37,26 @@ one of two kernels, by one rule of the shapes (`circ_route`):
 
 - K6 / K7 wherever the transform splits into two levels of at most 64
   points (`circ_fact_blocks`: the DFT at 314 of the 544 widths 129-672,
-  and kron bases of two such DFTs) run the factorised kernel,
-  `csrc/circ_fact_estimate.cu` (counted apart: `circ_estimate_fact`,
-  `circ_estimate_coherent_fact`): one launch a tile of 16 rows, the
-  transforms as Stockham stages in shared memory with the bins left in a
-  permuted order (`circ_fact_perm`), the logit and the combine on the
-  tensor cores, nothing in global memory between. `circ_fact_operands`
-  lays a `CircKernelBank` out for it (cached per shard by `lowered_tc`),
-  `circ_fact_reference` is its plain version;
-- the other wide widths, and the stats forms K8 / K9 at every wide width,
-  run the kernels' dense wide form, `csrc/circ_wide_estimate.cu` (counted
-  apart: `circ_estimate_wide` and its coherent and stats siblings): the
+  and kron bases of two such DFTs), and K8 / K9 there too where the
+  launch's K and T are among those it was measured faster at
+  (`circ_stats_fact_eligible`: 3 K <= D, few dense odd-prime stages, two
+  sweeps only without them), run the factorised kernel,
+  `csrc/circ_fact_estimate.cu`, K8 / K9 its STATS form (counted apart:
+  `circ_estimate_fact`, `circ_estimate_coherent_fact`,
+  `circ_estimate_stats_fact`, `circ_estimate_coherent_stats_fact`): one
+  launch a tile of 16 rows, the transforms as Stockham stages in shared
+  memory with the bins left in a permuted order (`circ_fact_perm`), the
+  logit and the combine on the tensor cores, nothing in global memory
+  between; the STATS form keeps each row's offset, writes m and den and
+  the accumulator in natural bin order in place of the normalisation and
+  the inverse. `circ_fact_operands` lays a `CircKernelBank` out for it
+  (cached per shard by `lowered_tc`), `circ_fact_reference` is its plain
+  version;
+- the other wide widths (230 of them: a prime factor past 64, as 652 = 4
+  x 163), and K8 / K9 where the rule leaves them, run the kernels' dense
+  wide form, `csrc/circ_wide_estimate.cu`
+  (counted apart: `circ_estimate_wide` and its coherent and stats
+  siblings): the
   four products cut into 64-deep chunks on one wgmma template, each
   chunk's six bf16 products into a fresh accumulator, the chunks in a
   compensated sum, the intermediates (u, the logits, h) in global scratch
@@ -57,7 +66,9 @@ one of two kernels, by one rule of the shapes (`circ_route`):
   is the plain version of its row layout.
 
 A wrapper launches its kernel on a CUDA tensor (or raises) and takes the
-plain PyTorch version only for a tensor on the CPU.
+plain PyTorch version only for a tensor on the CPU: the public wrappers
+that of the kernel they launch on a card (`_plain`: the factorised one
+where `circ_route` says 'fact').
 """
 from __future__ import annotations
 
@@ -72,7 +83,7 @@ from quantized_channel_estimation_torch.estimators import (
     mp_circ_kernels as mk)
 from quantized_channel_estimation_torch.estimators.kernels import merge_stats
 from quantized_channel_estimation_torch.estimators.mp_circ_kernels import (
-    CIRC_MAX_D, CIRC_MAX_K, _cplx_interleaved, _hc, _pool, _x2)
+    CIRC_MAX_D, CIRC_MAX_K, _cplx_interleaved, _hc, _odd_points, _pool, _x2)
 from quantized_channel_estimation_torch.models import structured_bank as sb
 from quantized_channel_estimation_torch.models.structured_bank import (
     CirculantBank)
@@ -303,12 +314,15 @@ def circ_wide_operands(ckb: CircKernelBank,
                                  .contiguous())))
 
 
-def circ_operands(ckb: CircKernelBank, stats: bool = False, blocks=None):
-    """The operands of the kernel that serves ckb's D (`circ_route`, in
-    the basis `blocks`): the template's units (`circ_tc_operands`) up to D
-    = 128; past it the factorised kernel's (`circ_fact_operands`) or the
-    wide form's units (`circ_wide_operands`)."""
-    route = circ_route(ckb.bfwd.shape[0] // 2, blocks, stats)
+def circ_operands(ckb: CircKernelBank, stats: bool = False, blocks=None,
+                  t_coh: int = 1):
+    """The operands of the kernel that serves ckb's D, K and T
+    (`circ_route`, in the basis `blocks`): the template's units
+    (`circ_tc_operands`) up to D = 128; past it the factorised kernel's
+    (`circ_fact_operands`) or the wide form's units
+    (`circ_wide_operands`)."""
+    route = circ_route(ckb.bfwd.shape[0] // 2, blocks, stats,
+                       ckb.const.shape[0], t_coh)
     if route == "fact":
         return circ_fact_operands(ckb, blocks)
     return (circ_wide_operands if route == "wide" else circ_tc_operands)(
@@ -346,19 +360,22 @@ def circ_wide_rows(x: torch.Tensor, features: bool = False) -> torch.Tensor:
 
 
 def lowered_tc(bank: CirculantBank, cache: Optional[dict] = None,
-               blocks=None, stats: bool = False):
+               blocks=None, stats: bool = False, t_coh: int = 1):
     """The kernels' operands of each shard of `bank` (`circ_operands` of
     its T = 1 layouts, `lowered`: the template's up to D = 128, past it the
-    factorised kernel's or the wide form's, `circ_route`), kept in `cache`
-    under ("circ_tc_operands", blocks, stats), ("circ_fact_operands", ...)
-    or ("circ_wide_operands", ...) beside the layouts, so a bank served
-    many times is split and laid out once."""
-    route = circ_route(bank.spec_cr.shape[1], blocks, stats)
-    key = (_OPERANDS[route], blocks, bool(stats))
+    factorised kernel's or the wide form's, `circ_route` at the shard's K
+    and at T = t_coh), kept in `cache` under ("circ_tc_operands", blocks,
+    stats), ("circ_fact_operands", ...) or ("circ_wide_operands", ...)
+    beside the layouts (the tuple of the shards' names where their routes
+    differ), so a bank served many times is split and laid out once."""
+    d = bank.spec_cr.shape[1]
+    ckbs = lowered(bank, cache, blocks)
+    names = tuple(_OPERANDS[circ_route(d, blocks, stats, c.const.shape[0],
+                                       t_coh)] for c in ckbs)
+    key = (names[0] if len(set(names)) == 1 else names, blocks, bool(stats))
     if cache is not None and key in cache:
         return cache[key]
-    ops = tuple(circ_operands(c, stats, blocks)
-                for c in lowered(bank, cache, blocks))
+    ops = tuple(circ_operands(c, stats, blocks, t_coh) for c in ckbs)
     if cache is not None:
         cache[key] = ops
     return ops
@@ -369,6 +386,7 @@ def lowered_tc(bank: CirculantBank, cache: Optional[dict] = None,
 # ---------------------------------------------------------------------------
 
 CIRC_FACT_MAX_N = 64    # points of one level of the factorised transform
+CIRC_FACT_ROWS = 16     # rows of the factorised kernel's tile (kRows)
 
 
 def circ_fact_split(d: int) -> Optional[Tuple[int, int]]:
@@ -396,18 +414,40 @@ def circ_fact_blocks(d: int, blocks=None) -> Optional[Tuple[int, int]]:
     return (n1, n2) if ok and n1 * n2 == d else None
 
 
-def circ_route(d: int, blocks=None, stats: bool = False) -> str:
+def circ_stats_fact_eligible(d: int, k: int, t: int = 1,
+                             blocks=None) -> bool:
+    """Does the route send the stats forms K8 / K9 of a K-component launch
+    at D bins, T-row blocks, to the factorised kernel's STATS form? A
+    transform that splits (`circ_fact_blocks` in the basis `blocks`), and
+    only where the kernel was measured faster than the dense wide form
+    (`tools/circ_fact_bench.py stats_reach`, PERF.md §6): 3 K <= D (past
+    it the products outweigh the dense forward transform the kernel saves:
+    D = 144 at K = 64, D = 336 and 357 at K = 128 lost), dense odd-prime
+    stages of at most D / 10 points an output in all (`_odd_points`: 129 =
+    3 x 43, 133 = 7 x 19 and 185 = 5 x 37 lost, 357 = 17 x 21 won), and a
+    block of T rows past one 16-row tile (two sweeps, the transform
+    recomputed) only without odd-prime stages (D = 200, T = 64 lost)."""
+    levels = circ_fact_blocks(d, blocks)
+    if levels is None:
+        return False
+    odd = _odd_points(levels[0]) + _odd_points(levels[1])
+    return 3 * k <= d and 10 * odd <= d and (t <= CIRC_FACT_ROWS or odd == 0)
+
+
+def circ_route(d: int, blocks=None, stats: bool = False, k: int = 1,
+               t: int = 1) -> str:
     """Which kernel serves the circulant wrappers at D bins: 'template'
-    (`csrc/mp_circ_estimate.cu`) up to D = 128; past it K6 / K7 on the
-    factorised kernel ('fact', `csrc/circ_fact_estimate.cu`) where the
-    transform splits (`circ_fact_blocks`), else, and for the stats forms
-    K8 / K9, the dense wide form ('wide', `csrc/circ_wide_estimate.cu`). A
-    rule of the shapes, decided before any launch."""
+    (`csrc/mp_circ_estimate.cu`) up to D = 128; past it the factorised
+    kernel ('fact', `csrc/circ_fact_estimate.cu`) for K6 / K7 wherever the
+    transform splits (`circ_fact_blocks`) and for the stats forms K8 / K9
+    (its STATS form) where `circ_stats_fact_eligible` admits the launch's K
+    and T, else the dense wide form ('wide', `csrc/circ_wide_estimate.cu`).
+    A rule of the shapes, decided before any launch."""
     if d <= CIRC_MAX_D:
         return "template"
-    if not stats and circ_fact_blocks(d, blocks) is not None:
-        return "fact"
-    return "wide"
+    if stats:
+        return "fact" if circ_stats_fact_eligible(d, k, t, blocks) else "wide"
+    return "fact" if circ_fact_blocks(d, blocks) is not None else "wide"
 
 
 _OPERANDS = {"template": "circ_tc_operands", "wide": "circ_wide_operands",
@@ -610,19 +650,27 @@ def circ_basis_blocks(ckb: CircKernelBank):
 
 def circ_fact_reference(x2: torch.Tensor, ckb: CircKernelBank,
                         t_coh: int = 1, coh_alpha: float = 1.0, blocks=None,
-                        chunk: int = 16384) -> torch.Tensor:
+                        chunk: int = 16384, stats: bool = False):
     """Plain PyTorch version of the factorised kernel (K6 at t_coh = 1, K7
-    above) in x2's precision: the factorised transform
-    (`circ_fact_transform`), the logit and combine of the permuted layout
-    (`circ_fact_bank`) as `circ_estimate_reference` computes them, the
-    inverse into natural order. x2 (N, 2D) interleaved -> (N, 2D)."""
+    above; with `stats` K8 / K9) in x2's precision: the factorised
+    transform (`circ_fact_transform`), the logit and combine of the
+    permuted layout (`circ_fact_bank`) as `circ_estimate_reference`
+    computes them, the inverse into natural order. x2 (N, 2D) interleaved
+    -> (N, 2D); with `stats` (m (N,), den (N,), acc (N, 2D)), acc the
+    un-normalised DFT-domain accumulator taken back to natural bin
+    order."""
     d = x2.shape[1] // 2
     d1, d2 = circ_fact_blocks(d, blocks)
     kron = blocks is not None
-    return _circ_reference(
-        x2, circ_fact_bank(ckb, blocks), t_coh, coh_alpha, False, chunk,
+    out = _circ_reference(
+        x2, circ_fact_bank(ckb, blocks), t_coh, coh_alpha, stats, chunk,
         lambda x: _fact_real(x, d1, d2, kron, False),
         lambda h: _fact_real(h, d1, d2, kron, True))
+    if not stats:
+        return out
+    m, den, acc = out
+    pos = torch.argsort(circ_fact_perm(d, blocks)).to(acc.device)
+    return m, den, acc.reshape(-1, d, 2)[:, pos].reshape(acc.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -745,17 +793,19 @@ def _check_bank(x2: torch.Tensor, ckb: CircKernelBank) -> None:
     kernels._check_cuda("binv", ckb.binv, (two_d, two_d), dev)
 
 
-def _route(d: int, ckb: CircKernelBank, ops, stats: bool) -> str:
-    """`circ_route` for a launch: past D = 128 the factorised kernel's
-    operands name its route; otherwise the basis matters only where D
-    splits, and is then read from the layout (`circ_basis_blocks`)."""
-    if d <= CIRC_MAX_D or stats:
-        return circ_route(d, None, stats)
+def _route(d: int, ckb: CircKernelBank, ops, stats: bool, t_coh: int) -> str:
+    """`circ_route` for a launch of ckb's K at T = t_coh: past D = 128 the
+    factorised kernel's operands name its route; otherwise the basis
+    matters only where D splits, and is then read from the layout
+    (`circ_basis_blocks`)."""
+    if d <= CIRC_MAX_D:
+        return "template"
     if isinstance(ops, CircFactOperands):
         return "fact"
     if circ_fact_split(d) is None:
         return "wide"
-    return circ_route(d, circ_basis_blocks(ckb), stats)
+    return circ_route(d, circ_basis_blocks(ckb), stats, ckb.const.shape[0],
+                      t_coh)
 
 
 def _launch(wrapper, wide, fact, x2: torch.Tensor, ckb: CircKernelBank,
@@ -776,8 +826,8 @@ def _launch(wrapper, wide, fact, x2: torch.Tensor, ckb: CircKernelBank,
             f"D <= {CIRC_WIDE_MAX_D}, K <= {CIRC_MAX_K} and T <= "
             f"{circ_tile_rows(d)}; got N={n}, D={d}, K={k}, T={t_coh}")
     if d > CIRC_MAX_D:
-        if _route(d, ckb, ops, stats) == "fact":
-            return _launch_fact(fact, x2, ckb, t_coh, coh_alpha, ops)
+        if _route(d, ckb, ops, stats, t_coh) == "fact":
+            return _launch_fact(fact, x2, ckb, t_coh, coh_alpha, stats, ops)
         return _launch_wide(wide, x2, ckb, t_coh, coh_alpha, stats, ops)
     _check_bank(x2, ckb)
     if ops is None:
@@ -863,14 +913,16 @@ def _launch_wide(wrapper, x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
 
 
 def _launch_fact(wrapper, x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
-                 coh_alpha: float, ops: Optional[CircFactOperands]
-                 ) -> torch.Tensor:
+                 coh_alpha: float, stats: bool,
+                 ops: Optional[CircFactOperands]):
     """Launch the factorised kernel (csrc/circ_fact_estimate.cu) on x2's
     device and current stream with the bank's operands `ops` (laid out
     here in the layout's own basis, `circ_basis_blocks`, when None), and
-    add one to `wrapper`'s count: -> out (N, 2D); raise on any refusal.
-    Takes D = d1 d2 with 2 <= d1, d2 <= 64 up to D = 672 (the wrappers
-    send it D > 128), K <= 128 and T <= 64."""
+    add one to `wrapper`'s count: -> out (N, 2D), or with `stats` (its
+    STATS form, K8 / K9) (m (N,), den (N,), acc (N, 2D) in natural bin
+    order); raise on any refusal. Takes D = d1 d2 with 2 <= d1, d2 <= 64
+    up to D = 672 (the wrappers send it D > 128), K <= 128 and T <=
+    64."""
     name = wrapper.__name__
     n, two_d = x2.shape
     d = two_d // 2
@@ -886,9 +938,15 @@ def _launch_fact(wrapper, x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
     kernels._check_cuda("lcoef", ckb.lcoef, (3 * d, k), dev)
     kernels._check_cuda("const", ckb.const, (k,), dev)
     kernels._check_cuda("comb", ckb.comb, (k, 4 * d), dev)
-    out = torch.empty((n, two_d), dtype=torch.float32, device=dev)
+    f32 = torch.float32
+    out = torch.empty((n, two_d), dtype=f32, device=dev)
+    m = den = None
+    if stats:
+        m = torch.empty((n,), dtype=f32, device=dev)
+        den = torch.empty((n,), dtype=f32, device=dev)
+    result = (m, den, out) if stats else out
     if n == 0:
-        return out
+        return result
     if ops is None:
         ops = circ_fact_operands(ckb, circ_basis_blocks(ckb))
     if not isinstance(ops, CircFactOperands):
@@ -912,12 +970,13 @@ def _launch_fact(wrapper, x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
         err = kernels._library("circ_fact_estimate").circ_fact_launch(
             x2.data_ptr(), ops.hi.data_ptr(), ops.lo.data_ptr(),
             ops.lo2.data_ptr(), ckb.const.data_ptr(), ops.tw.data_ptr(),
-            out.data_ptr(), n, d, ops.d1, ops.d2, k, units, int(t_coh),
-            float(coh_alpha), stream)
+            out.data_ptr(), m.data_ptr() if stats else None,
+            den.data_ptr() if stats else None, n, d, ops.d1, ops.d2, k, units,
+            int(t_coh), float(coh_alpha), int(stats), int(ops.kron), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     wrapper.launches += 1
-    return out
+    return result
 
 
 def circ_estimate_fact(x2: torch.Tensor, ckb: CircKernelBank,
@@ -933,7 +992,7 @@ def circ_estimate_fact(x2: torch.Tensor, ckb: CircKernelBank,
     if not x2.is_cuda:
         return circ_fact_reference(x2, ckb, 1, 1.0, _blocks_of(ckb,
                                                                operands))
-    return _launch_fact(circ_estimate_fact, x2, ckb, 1, 1.0, operands)
+    return _launch_fact(circ_estimate_fact, x2, ckb, 1, 1.0, False, operands)
 
 
 def circ_estimate_coherent_fact(x2: torch.Tensor, ckb: CircKernelBank,
@@ -950,27 +1009,77 @@ def circ_estimate_coherent_fact(x2: torch.Tensor, ckb: CircKernelBank,
         return circ_fact_reference(x2, ckb, t_coh, coh_alpha,
                                    _blocks_of(ckb, operands))
     return _launch_fact(circ_estimate_coherent_fact, x2, ckb, t_coh,
-                        coh_alpha, operands)
+                        coh_alpha, False, operands)
+
+
+def circ_estimate_stats_fact(x2: torch.Tensor, ckb: CircKernelBank,
+                             operands: Optional[CircFactOperands] = None):
+    """K8 on the factorised kernel (its STATS form): x2 (N, 2D) -> (m
+    (N,), den (N,), acc (N, 2D) in the DFT domain, natural bin order),
+    `operands` from `circ_fact_operands(ckb, blocks)` (laid out in the
+    call, in the layout's own basis, when None); `circ_estimate_stats`
+    launches it past D = 128 where `circ_route` says 'fact'. On a CUDA
+    tensor it launches the CUDA kernel and raises on any refusal; on a CPU
+    tensor it computes the plain version `circ_fact_reference(...,
+    stats=True)`."""
+    if not x2.is_cuda:
+        return circ_fact_reference(x2, ckb, 1, 1.0,
+                                   _blocks_of(ckb, operands), stats=True)
+    return _launch_fact(circ_estimate_stats_fact, x2, ckb, 1, 1.0, True,
+                        operands)
+
+
+def circ_estimate_coherent_stats_fact(
+        x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
+        coh_alpha: float = 1.0,
+        operands: Optional[CircFactOperands] = None):
+    """K9 on the factorised kernel: `circ_estimate_coherent_stats` (which
+    launches it past D = 128 where `circ_route` says 'fact'), 2 <= T <=
+    64, per-row (m, den) and acc in natural bin order. On a CPU tensor the
+    plain version `circ_fact_reference(..., stats=True)`."""
+    if t_coh < 2:
+        raise ValueError(f"circ_estimate_coherent_stats_fact takes T >= 2; "
+                         f"got {t_coh}")
+    if not x2.is_cuda:
+        return circ_fact_reference(x2, ckb, t_coh, coh_alpha,
+                                   _blocks_of(ckb, operands), stats=True)
+    return _launch_fact(circ_estimate_coherent_stats_fact, x2, ckb, t_coh,
+                        coh_alpha, True, operands)
 
 
 def _blocks_of(ckb: CircKernelBank, ops: Optional[CircFactOperands]):
     """The basis of the factorised route: the operands' own, else the
     layout's (`circ_basis_blocks`)."""
-    if ops is None:
+    if not isinstance(ops, CircFactOperands):
         return circ_basis_blocks(ckb)
     return (ops.d1, ops.d2) if ops.kron else None
+
+
+def _plain(x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
+           coh_alpha: float, stats: bool, ops):
+    """The public wrappers on a CPU tensor: the plain version of the kernel
+    they launch on a card (`_route`), the factorised kernel's
+    (`circ_fact_reference`, in the layout's basis) where it takes the
+    transform, else the dense one (`_circ_reference`)."""
+    d = x2.shape[1] // 2
+    if _route(d, ckb, ops, stats, t_coh) == "fact":
+        return circ_fact_reference(x2, ckb, t_coh, coh_alpha,
+                                   _blocks_of(ckb, ops), stats=stats)
+    return _circ_reference(x2, ckb, t_coh, coh_alpha, stats, 16384)
 
 
 def circ_estimate(x2: torch.Tensor, ckb: CircKernelBank,
                   operands: Optional[tu.UnitOperands] = None
                   ) -> torch.Tensor:
     """K6 on x2 (N, 2D) float32 interleaved -> (N, 2D). On a CUDA tensor it
-    launches the CUDA kernel on the current stream (past D = 128 its wide
-    form, `circ_estimate_wide`) with the bank's `operands`
-    (`circ_operands(ckb)`, laid out in the call when None) and raises on
-    any refusal; on a CPU tensor it computes the plain version."""
+    launches the CUDA kernel on the current stream (past D = 128 the
+    factorised kernel, `circ_estimate_fact`, where `circ_route` says
+    'fact', else the wide form, `circ_estimate_wide`) with the bank's
+    `operands` (`circ_operands(ckb)`, laid out in the call when None) and
+    raises on any refusal; on a CPU tensor it computes the plain version
+    of that kernel."""
     if not x2.is_cuda:
-        return circ_estimate_reference(x2, ckb)
+        return _plain(x2, ckb, 1, 1.0, False, operands)
     return _launch(circ_estimate, circ_estimate_wide, circ_estimate_fact, x2,
                    ckb, 1, 1.0, False, operands)
 
@@ -987,7 +1096,7 @@ def circ_estimate_coherent(x2: torch.Tensor, ckb: CircKernelBank, t_coh: int,
     if t_coh < 2:
         raise ValueError(f"circ_estimate_coherent takes T >= 2; got {t_coh}")
     if not x2.is_cuda:
-        return circ_estimate_coherent_reference(x2, ckb, t_coh, coh_alpha)
+        return _plain(x2, ckb, t_coh, coh_alpha, False, operands)
     return _launch(circ_estimate_coherent, circ_estimate_coherent_wide,
                    circ_estimate_coherent_fact, x2, ckb, t_coh, coh_alpha,
                    False, operands)
@@ -998,11 +1107,12 @@ def circ_estimate_stats(x2: torch.Tensor, ckb: CircKernelBank,
     """K8 on x2 (N, 2D) -> (m (N,), den (N,), acc (N, 2D) in the DFT
     domain), `operands` from `circ_operands(ckb, stats=True)` (laid out
     in the call when None). CUDA kernel on a CUDA tensor (past D = 128
+    `circ_estimate_stats_fact` where `circ_route` says 'fact', else
     `circ_estimate_stats_wide`), plain version on the CPU."""
     if not x2.is_cuda:
-        return circ_estimate_stats_reference(x2, ckb)
-    return _launch(circ_estimate_stats, circ_estimate_stats_wide, None, x2,
-                   ckb, 1, 1.0, True, operands)
+        return _plain(x2, ckb, 1, 1.0, True, operands)
+    return _launch(circ_estimate_stats, circ_estimate_stats_wide,
+                   circ_estimate_stats_fact, x2, ckb, 1, 1.0, True, operands)
 
 
 def circ_estimate_coherent_stats(x2: torch.Tensor, ckb: CircKernelBank,
@@ -1011,15 +1121,17 @@ def circ_estimate_coherent_stats(x2: torch.Tensor, ckb: CircKernelBank,
     """K9 on x2 (N, 2D) of T-row blocks -> per-row (m (N,), den (N,)) and
     acc (N, 2D) in the DFT domain, `operands` as for
     `circ_estimate_stats`. CUDA kernel on a CUDA tensor (past D = 128
-    `circ_estimate_coherent_stats_wide`), plain version on the CPU."""
+    `circ_estimate_coherent_stats_fact` where `circ_route` says 'fact',
+    else `circ_estimate_coherent_stats_wide`), plain version on the
+    CPU."""
     if t_coh < 2:
         raise ValueError(f"circ_estimate_coherent_stats takes T >= 2; got "
                          f"{t_coh}")
     if not x2.is_cuda:
-        return circ_estimate_coherent_stats_reference(x2, ckb, t_coh,
-                                                      coh_alpha)
+        return _plain(x2, ckb, t_coh, coh_alpha, True, operands)
     return _launch(circ_estimate_coherent_stats,
-                   circ_estimate_coherent_stats_wide, None, x2, ckb, t_coh,
+                   circ_estimate_coherent_stats_wide,
+                   circ_estimate_coherent_stats_fact, x2, ckb, t_coh,
                    coh_alpha, True, operands)
 
 
@@ -1055,7 +1167,8 @@ def circ_estimate_coherent_wide(x2: torch.Tensor, ckb: CircKernelBank,
 def circ_estimate_stats_wide(x2: torch.Tensor, ckb: CircKernelBank,
                              operands: Optional[tu.UnitOperands] = None):
     """K8's wide form: `circ_estimate_stats` (which launches it past D =
-    128) at any D <= 672 -> (m (N,), den (N,), acc (N, 2D)), `operands`
+    128 where the transform does not split) at any D <= 672 -> (m (N,),
+    den (N,), acc (N, 2D)), `operands`
     from `circ_wide_operands(ckb, stats=True)`. On a CPU tensor the plain
     version."""
     if not x2.is_cuda:
@@ -1069,8 +1182,8 @@ def circ_estimate_coherent_stats_wide(
         coh_alpha: float = 1.0,
         operands: Optional[tu.UnitOperands] = None):
     """K9's wide form: `circ_estimate_coherent_stats` (which launches it
-    past D = 128) at any D <= 672, 2 <= T <= 64. On a CPU tensor the plain
-    version."""
+    past D = 128 where the transform does not split) at any D <= 672, 2 <=
+    T <= 64. On a CPU tensor the plain version."""
     if t_coh < 2:
         raise ValueError(f"circ_estimate_coherent_stats_wide takes T >= 2; "
                          f"got {t_coh}")
@@ -1086,18 +1199,20 @@ kernels.register_wrappers(circ_estimate, circ_estimate_coherent,
                           circ_estimate_wide, circ_estimate_coherent_wide,
                           circ_estimate_stats_wide,
                           circ_estimate_coherent_stats_wide,
-                          circ_estimate_fact, circ_estimate_coherent_fact)
+                          circ_estimate_fact, circ_estimate_coherent_fact,
+                          circ_estimate_stats_fact,
+                          circ_estimate_coherent_stats_fact)
 
 
 # ---------------------------------------------------------------------------
 # entries on complex observations and circulant banks
 # ---------------------------------------------------------------------------
 
-def _ops(bank, r, cache, blocks, stats, n_shards):
+def _ops(bank, r, cache, blocks, stats, n_shards, t_coh=1):
     """The shards' operands for a launch on r's device (`lowered_tc`), or
     Nones on the CPU, where the wrappers take their plain versions."""
     if r.is_cuda:
-        return lowered_tc(bank, cache, blocks, stats)
+        return lowered_tc(bank, cache, blocks, stats, t_coh)
     return (None,) * n_shards
 
 
@@ -1150,7 +1265,7 @@ def estimate_fused_circulant_coherent(bank: CirculantBank, r: torch.Tensor,
             f"and T <= {circ_tile_rows(d)}; got D={d}, T={t}")
     ckbs = lowered(bank, cache, blocks, t, alpha)
     x2 = _x2(r)
-    ops = _ops(bank, r, cache, blocks, len(ckbs) > 1, len(ckbs))
+    ops = _ops(bank, r, cache, blocks, len(ckbs) > 1, len(ckbs), t)
     if len(ckbs) == 1:
         h = _hc(circ_estimate_coherent(x2, ckbs[0], t, alpha, ops[0]),
                 r.dtype)
@@ -1191,7 +1306,7 @@ def estimate_fused_circulant_coherent_stats(bank: CirculantBank,
     b, t, d = r.shape
     x2 = _x2(r)
     ckbs = lowered(bank, cache, blocks, t, alpha)
-    ops = _ops(bank, r, cache, blocks, True, len(ckbs))
+    ops = _ops(bank, r, cache, blocks, True, len(ckbs), t)
     if t == 1:
         states = [circ_estimate_stats(x2, c, o) for c, o in zip(ckbs, ops)]
     else:

@@ -195,8 +195,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             ptr]
         lib.circ_wide_features_launch.restype = i32
     elif name == "circ_fact_estimate":
-        lib.circ_fact_launch.argtypes = [ptr] * 7 + [i32] * 5 + [
-            ctypes.c_longlong, i32, f32, ptr]
+        lib.circ_fact_launch.argtypes = [ptr] * 9 + [i32] * 5 + [
+            ctypes.c_longlong, i32, f32, i32, i32, ptr]
         lib.circ_fact_launch.restype = i32
     elif name == "mp_circ_fact_estimate":
         lib.mp_circ_fact_launch.argtypes = [ptr] * 7 + [i32] * 6 + [

@@ -409,10 +409,12 @@ def circulant_shard_stats(bank_l, r_l: torch.Tensor, use_kernel: bool,
                           coherence_alpha: float = 1.0, blocks=None,
                           cache: Optional[dict] = None):
     """One circulant shard's DFT-domain state (m, den, acc) of rows r_l
-    (rank 3: coherence blocks): K8 (flat) / K9 (coherent), past D = 128
-    their wide form, with `use_kernel`, else the `torch.fft` pipelines' stats forms (a
-    `CirculantBankMP`: the multi-pilot ones). `cache`: the shard's kernel
-    layouts and operands (`circ_kernels.lowered`, `lowered_tc`)."""
+    (rank 3: coherence blocks): K8 (flat) / K9 (coherent) with
+    `use_kernel` (past D = 128 the factorised kernel's STATS form where the
+    transform splits, else their dense wide form: `circ_kernels.circ_route`),
+    else the `torch.fft` pipelines' stats forms (a `CirculantBankMP`: the
+    multi-pilot ones). `cache`: the shard's kernel layouts and operands
+    (`circ_kernels.lowered`, `lowered_tc`)."""
     multi = isinstance(bank_l, structured_bank.CirculantBankMP)
     if use_kernel and multi:
         raise ValueError("the circulant stats kernels take single-pilot "
@@ -451,12 +453,14 @@ def estimate_sharded_circulant(mesh, bank, r: torch.Tensor,
     merge as in `estimate_sharded_kernel`, and one inverse transform runs
     on the merged quotient (it commutes with the per-row normalisation).
     Rank-3 r: coherence blocks. `use_kernel=None` takes the stats kernels
-    K8 / K9 (past D = 128 their wide form) for a single-pilot bank whose
-    shard is within `circ_kernels.circ_kernel_eligible` (D <= 672), else
-    the pipelines (always for a
-    `CirculantBankMP`): a rule of shapes equal on every shard, so every
-    shard takes the same route (kernel and pipeline logits differ by a row
-    constant and must not be merged). `caches`: see `_sharded`."""
+    K8 / K9 (past D = 128 the factorised kernel's STATS form where the
+    transform splits, else their dense wide form) for a single-pilot bank
+    whose shard is within `circ_kernels.circ_kernel_eligible` (D <= 672),
+    else the pipelines (always for a `CirculantBankMP`): a rule of shapes
+    equal on every shard, so every shard takes the same route (kernel and
+    pipeline logits differ by a row constant and must not be merged; the
+    two kernel routes keep one logit convention, and their states merge).
+    `caches`: see `_sharded`."""
     if use_kernel is None:
         k, d = bank.mean_rf.shape[:2]
         use_kernel = (not isinstance(bank, structured_bank.CirculantBankMP)

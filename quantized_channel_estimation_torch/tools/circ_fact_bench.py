@@ -1,6 +1,6 @@
 """The factorised circulant kernels (`csrc/circ_fact_estimate.cu`, K6 /
-K7; `csrc/mp_circ_fact_estimate.cu`, K10) timed beside what they replaced
-and beside the `torch.fft` pipeline.
+K7 and its STATS form K8 / K9; `csrc/mp_circ_fact_estimate.cu`, K10)
+timed beside what they replaced and beside the `torch.fft` pipeline.
 
 Legs, on the synthetic bank of `tools.circ_kernel_bench` (the JAX tool's
 bank, from a seed) and standard normal complex observations:
@@ -31,11 +31,21 @@ bank, from a seed) and standard normal complex observations:
           (`tools.tc_repeat_check.random_dft_mp_bank`), with the route
           `mp_circ_route` gives each: the measurements behind the route's
           reach (`mp_circ_kernels.mp_circ_fact_eligible`);
-  stats   the dense wide K8 and K9 (T = 4, alpha 1; the stats forms, which
-          keep the dense wide form) on the d512 leg's inputs, each beside
-          its one-chunk `torch.fft` stats pipeline in turns (kernel,
-          pipeline, pipeline, kernel), their quotients acc / den
-          compared.
+  stats   K8 and K9 (T = 4, alpha 1) on the d512 leg's inputs through the
+          public wrappers (`circ_kernels.circ_estimate[_coherent]_stats`
+          with the bank's operands from `lowered_tc`, which pick the
+          kernel by `circ_route`: the factorised kernel's STATS form at D =
+          512), the dense wide form (`circ_estimate[_coherent]_stats_wide`)
+          and the one-chunk `torch.fft` stats pipeline in turns (entry,
+          wide, pipeline, pipeline, wide, entry), their quotients acc /
+          den compared with the pipeline's; under `--root` the checkout's
+          own route (the parent: the dense wide form);
+  stats_reach  the factorised K8 / K9 against the dense wide form in turns
+          (kernel, wide, wide, kernel) at each of `STATS_REACH_SHAPES` (D,
+          K, T, basis), 32768 rows, on random DFT-domain banks
+          (`tools.tc_repeat_check.random_dft_bank`), with the route
+          `circ_route` gives each: the measurements behind the stats
+          forms' route.
 
 Each route is timed with CUDA events (`utils.profiling.device_ms`: one
 warm-up call, the median of 5) and compared with the pipeline (largest
@@ -44,12 +54,14 @@ kernels `circ_kernels.circ_bound` and the share reached. The last line is
 one JSON object with the card's name and power limit.
 
     python quantized_channel_estimation_torch/tools/circ_fact_bench.py \
-        [d512|d672|narrow|mp|mp336|mp357|reach|stats ...] [--root DIR]
+        [d512|d672|narrow|mp|mp336|mp357|reach|stats|stats_reach ...] \
+        [--root DIR]
 
 `--root` imports the package from another checkout (a parent commit
 unpacked with `git archive`): the routes that checkout lacks are left
-out, so parent / change / change / parent runs of the d512 and mp legs
-time the public wrappers and entries of both in one call. Needs a card.
+out, so parent / change / change / parent runs of the d512, mp and stats
+legs time the public wrappers and entries of both in one call. Needs a
+card.
 """
 from __future__ import annotations
 
@@ -112,6 +124,9 @@ def main(argv=None) -> dict:
             continue
         if leg == "stats":
             rec["legs"][leg] = _stats_leg(dev, torch, profiling)
+            continue
+        if leg == "stats_reach":
+            rec["legs"][leg] = _stats_reach_leg(dev, torch, profiling)
             continue
         if leg == "reach":
             rec["legs"][leg] = _reach_leg(dev, torch, profiling)
@@ -240,10 +255,11 @@ def _reach_leg(dev, torch, profiling) -> dict:
 
 
 def _stats_leg(dev, torch, profiling) -> dict:
-    """Leg `stats`: the wide K8 / K9 at D = 512, K = 16, 32768 rows beside
-    their one-chunk `torch.fft` stats pipelines, in turns."""
+    """Leg `stats`: K8 / K9 at D = 512, K = 16, 32768 rows through the
+    public wrappers and the dense wide form beside their one-chunk
+    `torch.fft` stats pipelines, in turns."""
     from quantized_channel_estimation_torch.estimators import (
-        circ_kernels as ck)
+        circ_kernels as ck, kernels)
     from quantized_channel_estimation_torch.models import (
         structured_bank as sb)
     from quantized_channel_estimation_torch.tools import circ_kernel_bench
@@ -254,30 +270,100 @@ def _stats_leg(dev, torch, profiling) -> dict:
     rb = r.reshape(-1, t, d)
     x2 = ck._x2(r)
     cache = {}
-    out = {}
-    for label, kern, pipe in (
-            ("K8", lambda: ck.circ_estimate_stats(
-                x2, ck.lowered(bank, cache)[0],
-                ck.lowered_tc(bank, cache, None, True)[0]),
+    ckb, ckb4 = ck.lowered(bank, cache)[0], ck.lowered(bank, cache, None, t,
+                                                       1.0)[0]
+    ops = ck.lowered_tc(bank, cache, None, True)[0]
+    wide_ops = ck.circ_wide_operands(ckb, True)
+    out = {"route": ck.circ_route(d, None, True)}
+    for label, entry, wide, pipe in (
+            ("K8", lambda: ck.circ_estimate_stats(x2, ckb, ops),
+             lambda: ck.circ_estimate_stats_wide(x2, ckb, wide_ops),
              lambda: sb.estimate_circulant_stats(bank, r, n, None, "fft")),
             ("K9 T=4", lambda: ck.circ_estimate_coherent_stats(
-                x2, ck.lowered(bank, cache, None, t, 1.0)[0], t, 1.0,
-                ck.lowered_tc(bank, cache, None, True)[0]),
+                x2, ckb4, t, 1.0, ops),
+             lambda: ck.circ_estimate_coherent_stats_wide(x2, ckb4, t, 1.0,
+                                                          wide_ops),
              lambda: sb.estimate_circulant_coherent_stats(
                  bank, rb, n // t, 1.0, None, "fft"))):
-        got, want = kern(), pipe()
-        acc = got[2] / got[1][:, None]
+        want = pipe()
         den = want[1].reshape(want[1].shape + (1,) * (want[2].dim()
                                                     - want[1].dim()))
         ref = ck._x2((want[2] / den).reshape(n, d))
-        ms = [profiling.device_ms(f) for f in (kern, pipe, pipe, kern)]
-        out[label] = {"kernel_ms": [ms[0], ms[3]],
-                      "pipeline_ms": [ms[1], ms[2]],
-                      "quotient_rel_to_fft": float(
-                          (acc - ref).abs().max() / ref.abs().max())}
-        print(f"  {label:8s} wide kernel {ms[0]:.3f} / {ms[3]:.3f} ms, "
-              f"one-chunk pipeline {ms[1]:.3f} / {ms[2]:.3f} ms, acc / den vs "
-              f"fft {out[label]['quotient_rel_to_fft']:.2e}", flush=True)
+        rec = {}
+        for name, fn in (("entry", entry), ("wide", wide)):
+            kernels.reset_launch_counts()
+            got = fn()
+            torch.cuda.synchronize()
+            rec[f"{name}_launches"] = {
+                kk: v for kk, v in kernels.launch_counts().items() if v}
+            rec[f"{name}_quotient_rel_to_fft"] = float(
+                (got[2] / got[1][:, None] - ref).abs().max()
+                / ref.abs().max())
+        ms = [profiling.device_ms(f)
+              for f in (entry, wide, pipe, pipe, wide, entry)]
+        rec.update(entry_ms=[ms[0], ms[5]], wide_ms=[ms[1], ms[4]],
+                   pipeline_ms=[ms[2], ms[3]],
+                   **ck.circ_bound(n, d, k, t if label != "K8" else 1, True))
+        out[label] = rec
+        print(f"  {label:8s} entry {ms[0]:.3f} / {ms[5]:.3f} ms "
+              f"{rec['entry_launches']}, dense wide {ms[1]:.3f} / "
+              f"{ms[4]:.3f} ms, one-chunk pipeline {ms[2]:.3f} / {ms[3]:.3f}"
+              f" ms, bound {rec['bound_ms']:.3f} ms, acc / den vs fft "
+              f"{rec['entry_quotient_rel_to_fft']:.2e} (wide "
+              f"{rec['wide_quotient_rel_to_fft']:.2e})", flush=True)
+    return out
+
+
+# (D, K, T, blocks) of the `stats_reach` leg: K = 64 / 128 at D = 144,
+# 336, 512 and 672; the served width and its pool; dense odd-prime levels
+# (129 = 3 x 43, 133 = 7 x 19, 185 = 5 x 37, 357 = 17 x 21); two sweeps
+# (T = 64) with and without odd primes; the kron basis
+STATS_REACH_SHAPES = (
+    (144, 64, 1, None), (144, 128, 1, None), (336, 64, 1, None),
+    (336, 128, 1, None), (512, 64, 1, None), (512, 128, 1, None),
+    (672, 64, 1, None), (672, 128, 1, None), (512, 16, 1, None),
+    (512, 16, 4, None), (512, 16, 64, None), (640, 16, 4, None),
+    (129, 16, 1, None), (133, 16, 1, None), (185, 16, 1, None),
+    (357, 32, 1, None), (357, 128, 4, None), (200, 16, 64, None),
+    (160, 8, 16, None), (256, 16, 4, (16, 16)), (256, 64, 1, (8, 32)))
+
+
+def _stats_reach_leg(dev, torch, profiling) -> dict:
+    """Leg `stats_reach`: the factorised K8 / K9 against the dense wide
+    form at `STATS_REACH_SHAPES`, 32768 rows, in turns."""
+    from quantized_channel_estimation_torch.estimators import (
+        circ_kernels as ck)
+    from quantized_channel_estimation_torch.tools import (
+        tc_repeat_check as trc)
+    n = 32768
+    print(f"== stats_reach: the factorised K8 / K9 against the dense wide "
+          f"form, {n} rows ==", flush=True)
+    out = {}
+    for d, k, t, blocks in STATS_REACH_SHAPES:
+        ckb = ck.circ_kernel_bank(trc.random_dft_bank(d, k, dev, 1), blocks,
+                                  t, 1.0)
+        fops = ck.circ_fact_operands(ckb, blocks)
+        wops = ck.circ_wide_operands(ckb, True)
+        x2 = trc.random_rows(n // t * t, 2 * d, dev)
+        if t == 1:
+            runs = (lambda: ck.circ_estimate_stats_fact(x2, ckb, fops),
+                    lambda: ck.circ_estimate_stats_wide(x2, ckb, wops))
+        else:
+            runs = (lambda: ck.circ_estimate_coherent_stats_fact(
+                        x2, ckb, t, 1.0, fops),
+                    lambda: ck.circ_estimate_coherent_stats_wide(
+                        x2, ckb, t, 1.0, wops))
+        ms = [profiling.device_ms(runs[i]) for i in (0, 1, 1, 0)]
+        rec = {"route": ck.circ_route(d, blocks, True),
+               "fact_ms": [ms[0], ms[3]], "wide_ms": [ms[1], ms[2]],
+               "speedup": (ms[1] + ms[2]) / (ms[0] + ms[3])}
+        label = f"D={d} K={k} T={t}" + (f" blocks={blocks}" if blocks
+                                        else "")
+        out[label] = rec
+        print(f"  {label:28s} route {rec['route']:5s} factorised {ms[0]:.3f}"
+              f" / {ms[3]:.3f} ms, dense wide {ms[1]:.3f} / {ms[2]:.3f} ms, "
+              f"{rec['speedup']:.2f}x", flush=True)
+        del ckb, fops, wops, x2
     return out
 
 

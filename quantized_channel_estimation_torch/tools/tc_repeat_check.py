@@ -67,14 +67,15 @@ with NaN after they were read: a launch fails if any output's bits differ
 from the first launch's, and the first launch under the rule of mode
 'f32'.
 
-Mode 'fact_circ' does the same for the factorised K6 and K7
-(`csrc/circ_fact_estimate.cu`, past D = 128 where the transform splits;
-`FACT_CIRC_SHAPES`: one past the template's D, D = 512 over two waves of
-blocks, the rule's edge D = 672 at K = 128, the pool at T = 3, 4 and 64
-(two sweeps), the kron basis) on random DFT-domain banks, under the rule
-of mode 'wide_circ' against its plain version `circ_fact_reference`. Mode
-'wide_circ' drives the wide K6 and K7 through their own wrappers
-(`circ_estimate_wide`, `circ_estimate_coherent_wide`): its random
+Mode 'fact_circ' does the same for the factorised K6-K9
+(`csrc/circ_fact_estimate.cu` and its STATS form, past D = 128 where the
+transform splits; `FACT_CIRC_SHAPES`: one past the template's D, D = 512
+over two waves of blocks, the rule's edge D = 672 at K = 128, the pool at
+T = 3, 4 and 64 (two sweeps), the kron basis, K8 / K9 at most of these) on
+random DFT-domain banks, under the rule of mode 'wide_circ' against its
+plain version `circ_fact_reference` (K8 / K9: each of m, den and acc).
+Mode 'wide_circ' drives the wide K6-K9 through their own wrappers
+(`circ_estimate_wide` and its coherent and stats siblings): its random
 transforms are no DFT.
 
 Mode 'wide_mpcirc' does the same for the wide form of K10 (the
@@ -245,14 +246,19 @@ WIDE_CIRC_SHAPES = (
     (320, 40, 64 * 33, 0, 64, 1.0, True),      # K9, T = 64
     (200, 7, 3 * 701, 1, 3, 0.5, True),        # K9, T = 3, alpha < 1
 )
-# the factorised K6 / K7: (D, K, N, dead components, T, alpha, blocks)
+# the factorised K6-K9: (D, K, N, dead components, T, alpha, blocks, stats)
 FACT_CIRC_SHAPES = (
-    (129, 16, 1001, 1, 1, 1.0, None),          # one past the template, 3 x 43
-    (512, 16, 2 * 132 * 16 + 5, 2, 1, 1.0, None),  # D = 512, two waves
-    (672, 128, 4 * 1001, 3, 4, 0.25, None),    # the rule's edge, K = 128
-    (357, 64, 64 * 33, 1, 64, 1.0, None),      # 17 x 21, T = 64: two sweeps
-    (160, 7, 3 * 701, 1, 3, 0.5, None),        # T = 3: 15-row tiles
-    (256, 16, 1000, 2, 4, 1.0, (16, 16)),      # the kron basis
+    (129, 16, 1001, 1, 1, 1.0, None, False),   # one past the template, 3 x 43
+    (512, 16, 2 * 132 * 16 + 5, 2, 1, 1.0, None, False),  # two waves
+    (672, 128, 4 * 1001, 3, 4, 0.25, None, False),  # the edge, K = 128
+    (357, 64, 64 * 33, 1, 64, 1.0, None, False),  # 17 x 21, T = 64: 2 sweeps
+    (160, 7, 3 * 701, 1, 3, 0.5, None, False),  # T = 3: 15-row tiles
+    (256, 16, 1000, 2, 4, 1.0, (16, 16), False),  # the kron basis
+    (512, 16, 2 * 132 * 16 + 5, 2, 1, 1.0, None, True),  # K8, two waves
+    (672, 128, 4 * 1001, 3, 4, 0.25, None, True),  # K9 at the edge
+    (512, 64, 64 * 33, 1, 64, 0.25, None, True),  # K9 two sweeps, alpha < 1
+    (160, 7, 3 * 701, 1, 3, 0.5, None, True),  # K9, T = 3
+    (256, 16, 1000, 2, 1, 1.0, (16, 16), True),  # K8, the kron basis
 )
 # the factorised K10: (P, D, K, N, dead components, T, alpha, blocks)
 FACT_MPCIRC_SHAPES = (
@@ -693,9 +699,9 @@ def _circ_check(dev, shapes, repeats, poison, wide=False) -> dict:
                 x2.double(), f64, t, alpha)
 
         def run():
-            # the wide K6 / K7 through their own wrappers: the banks'
-            # random transforms are no DFT, which the factorised kernel
-            # computes in its stead
+            # the wide K6-K9 through their own wrappers: the banks' random
+            # transforms are no DFT, which the factorised kernel computes
+            # in its stead
             if name == "K6":
                 return ((ck.circ_estimate_wide if wide
                          else ck.circ_estimate)(x2, ckb, ops),)
@@ -704,8 +710,11 @@ def _circ_check(dev, shapes, repeats, poison, wide=False) -> dict:
                          else ck.circ_estimate_coherent)(x2, ckb, t, alpha,
                                                          ops),)
             if name == "K8":
-                return ck.circ_estimate_stats(x2, ckb, ops)
-            return ck.circ_estimate_coherent_stats(x2, ckb, t, alpha, ops)
+                return (ck.circ_estimate_stats_wide if wide
+                        else ck.circ_estimate_stats)(x2, ckb, ops)
+            return (ck.circ_estimate_coherent_stats_wide if wide
+                    else ck.circ_estimate_coherent_stats)(x2, ckb, t, alpha,
+                                                          ops)
 
         scales = [w.abs().max() for w in want]
         plain_errs = [float((w.double() - e).abs().max() / sc)
@@ -778,57 +787,77 @@ def random_dft_mp_bank(p, d, k, dev, n_dead=0, seed=0):
 
 def _fact_circ_check(dev, shapes, repeats, poison) -> dict:
     """Mode 'fact_circ' of `repeat_check`: {label: {"launches",
-    "failures", "max_err"}} over the factorised K6 / K7 at `shapes` (D, K,
-    N, dead components, T, alpha, blocks), each launch after a NaN fill of
-    every SM's shared memory and on the memory of the last launch's output
-    filled with NaN: a launch fails if its bits differ from the first
-    launch's, and the first launch under the rule of mode 'f32' against the
-    plain version `circ_fact_reference`."""
+    "failures", "max_err"}} over the factorised K6-K9 at `shapes` (D, K,
+    N, dead components, T, alpha, blocks, stats), each launch after a NaN
+    fill of every SM's shared memory and on the memory of the last
+    launch's outputs filled with NaN: a launch fails if its bits differ
+    from the first launch's, and the first launch under the rule of mode
+    'f32' against the plain version `circ_fact_reference` (K8 / K9: each
+    of m, den and acc)."""
     out = {}
-    for d, k, n, n_dead, t, alpha, blocks in shapes:
+    for d, k, n, n_dead, t, alpha, blocks, stats in shapes:
         ckb = ck.circ_kernel_bank(random_dft_bank(d, k, dev, n_dead), blocks,
                                   t, alpha)
         f64 = ck.CircKernelBank(*(x.double() for x in ckb))
         ops = ck.circ_fact_operands(ckb, blocks)
         x2 = random_rows(n, 2 * d, dev)
-        want = ck.circ_fact_reference(x2, ckb, t, alpha, blocks)
-        exact = ck.circ_fact_reference(x2.double(), f64, t, alpha, blocks)
+        want = ck.circ_fact_reference(x2, ckb, t, alpha, blocks, stats=stats)
+        exact = ck.circ_fact_reference(x2.double(), f64, t, alpha, blocks,
+                                       stats=stats)
 
         def run():
+            if stats and t == 1:
+                return ck.circ_estimate_stats_fact(x2, ckb, ops)
+            if stats:
+                return ck.circ_estimate_coherent_stats_fact(x2, ckb, t,
+                                                            alpha, ops)
             if t == 1:
                 return ck.circ_estimate_fact(x2, ckb, ops)
             return ck.circ_estimate_coherent_fact(x2, ckb, t, alpha, ops)
 
+        name = ("K9" if t > 1 else "K8") if stats else (
+            "K7" if t > 1 else "K6")
         out[f"D={d} K={k} N={n} dead={n_dead} T={t} a={alpha}"
             + (f" blocks={blocks}" if blocks else "")
-            + (" K7" if t > 1 else " K6") + " fact"] = _repeat_bitwise(
-                dev, run, want, exact, repeats, poison)
+            + f" {name} fact"] = _repeat_bitwise(dev, run, want, exact,
+                                                 repeats, poison)
     return out
 
 
 def _repeat_bitwise(dev, run, want, exact, repeats, poison) -> dict:
     """`repeats` launches of `run`, each after a NaN fill of every SM's
-    shared memory (`poison`) and on the memory of the last launch's output
-    filled with NaN: a launch fails if its bits differ from the first
-    launch's, or under the rule of mode 'f32' against the plain version
-    `want` (`exact`: in float64). -> {"launches", "failures", "max_err"}."""
-    scale = want.abs().max()
-    plain_err = float((want.double() - exact).abs().max() / scale)
+    shared memory (`poison`) and on the memory of the last launch's
+    outputs filled with NaN: a launch fails if any output's bits differ
+    from the first launch's, or under the rule of mode 'f32' against the
+    plain version `want` (`exact`: in float64; a tensor, or a tuple of
+    them as `run` returns). -> {"launches", "failures", "max_err"}."""
+    def parts(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    want, exact = parts(want), parts(exact)
+    scales = [w.abs().max() for w in want]
+    plain_errs = [float((w.double() - e).abs().max() / sc)
+                  for w, e, sc in zip(want, exact, scales)]
     first, errs, fails = None, [], 0
     for _ in range(repeats):
         if poison:
             poison_shared_memory(dev)
-        got = run()
-        rel = float((got - want).abs().max() / scale)
-        rel64 = float((got.double() - exact).abs().max() / scale)
-        ok = (first is None or torch.equal(got.view(torch.int32),
-                                           first.view(torch.int32)))
-        ok = ok and (rel <= TOL or rel64 <= 2 * plain_err + 1e-5)
+        got = parts(run())
+        ok = first is None or all(
+            torch.equal(g.view(torch.int32), f.view(torch.int32))
+            for g, f in zip(got, first))
+        err = 0.0
+        for g, w, e, sc, pe in zip(got, want, exact, scales, plain_errs):
+            rel = float((g - w).abs().max() / sc)
+            rel64 = float((g.double() - e).abs().max() / sc)
+            ok = ok and (rel <= TOL or rel64 <= 2 * pe + 1e-5)
+            err = max(err, rel if rel == rel else math.inf)
         if first is None:
-            first = got.clone()
+            first = tuple(g.clone() for g in got)
         fails += not ok     # NaN fails both comparisons
-        errs.append(rel if rel == rel else math.inf)
-        got.fill_(math.nan)     # the next launch's output lands here
+        errs.append(err)
+        for g in got:       # the next launch's outputs land here
+            g.fill_(math.nan)
         del got
     return {"launches": repeats, "failures": fails, "max_err": max(errs)}
 
@@ -946,7 +975,7 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     `circ_shapes`; mode 'wide_circ': their wide form at
     `wide_circ_shapes`; mode 'wide_mpcirc': K10's wide form at
     `wide_mpcirc_shapes`; mode 'wide_fact': K11-K13's wide form at
-    `wide_fact_shapes`; mode 'fact_circ': the factorised K6 / K7 at
+    `wide_fact_shapes`; mode 'fact_circ': the factorised K6-K9 at
     `fact_circ_shapes`; mode 'fact_mpcirc': the factorised K10 at
     `fact_mpcirc_shapes`. Returns
     {"kernel" (and "no fence"): {label: {"launches", "failures",

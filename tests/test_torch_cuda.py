@@ -39,11 +39,12 @@ three real products, and so are the factored kernels K11-K13, six bf16
 products for each of their two products, and the multi-pilot K10 and, at
 one pilot, K6-K9, six bf16 products for each of their four (K8 / K9 on
 each of m, den and the accumulator, and on the merged quotient), and
-their wide form past D = 128 (`csrc/circ_wide_estimate.cu`), K6 / K7's
+their wide form past D = 128 (`csrc/circ_wide_estimate.cu`), K6-K9's
 factorised kernel past D = 128 where the transform splits
-(`csrc/circ_fact_estimate.cu`, against its plain version
-`circ_fact_reference`), K10's wide form past the template's rule, against
-its own plain version `mp_circ_wide_reference`, and K10's factorised
+(`csrc/circ_fact_estimate.cu`, K8 / K9 its STATS form, against its plain
+version `circ_fact_reference`; the factorised and dense wide stats states
+merged across the two routes), K10's wide form past the template's rule,
+against its own plain version `mp_circ_wide_reference`, and K10's factorised
 kernel where the transform splits and its tile fits
 (`csrc/mp_circ_fact_estimate.cu`, against `mp_circ_fact_reference`). The
 repeated launches of K14a, K10, K6-K9 (the wide forms and the factorised
@@ -1797,49 +1798,65 @@ CIRC_WIDE_NAMES = {(False, False): "circ_estimate_wide",
                    (True, True): "circ_estimate_coherent_stats_wide"}
 
 
+CIRC_FACT_NAMES = {(False, False): "circ_estimate_fact",
+                   (True, False): "circ_estimate_coherent_fact",
+                   (False, True): "circ_estimate_stats_fact",
+                   (True, True): "circ_estimate_coherent_stats_fact"}
+
+
 def _circ_forms(x2, ckb, t, alpha, operands=(None, None), dense=False):
     """K6 (K7 at t > 1) and K8 (K9) on x2 through the public wrappers, or
-    with `dense` K6 / K7 through the dense wide form's own wrappers (the
-    public ones take the factorised kernel where D splits): (out, m, den,
-    acc)."""
+    with `dense` through the dense wide form's own wrappers (the public
+    ones take the factorised kernel where D splits): (out, m, den, acc)."""
     if t == 1:
         k6 = tck.circ_estimate_wide if dense else tck.circ_estimate
-        return (k6(x2, ckb, operands[0]),
-                *tck.circ_estimate_stats(x2, ckb, operands[1]))
+        k8 = tck.circ_estimate_stats_wide if dense else tck.circ_estimate_stats
+        return (k6(x2, ckb, operands[0]), *k8(x2, ckb, operands[1]))
     k7 = (tck.circ_estimate_coherent_wide if dense
           else tck.circ_estimate_coherent)
+    k9 = (tck.circ_estimate_coherent_stats_wide if dense
+          else tck.circ_estimate_coherent_stats)
     return (k7(x2, ckb, t, alpha, operands[0]),
-            *tck.circ_estimate_coherent_stats(x2, ckb, t, alpha,
-                                              operands[1]))
+            *k9(x2, ckb, t, alpha, operands[1]))
 
 
 def _circ_plain(x2, ckb, t, alpha, blocks="dense"):
-    """The plain versions of `_circ_forms`' outputs; K6 / K7's the
-    factorised route's (`circ_fact_reference` in the basis `blocks`) where
-    `blocks` is not 'dense' and the route is 'fact'."""
+    """The plain versions of `_circ_forms`' outputs: each form's route's
+    (`circ_fact_reference` in the basis `blocks`, K8 / K9 with
+    `stats=True`, where `blocks` is not 'dense' and the route is 'fact'),
+    else the dense ones."""
+    out = (_route_plain(x2, ckb, t, alpha, False, blocks),)
+    return out + _route_plain(x2, ckb, t, alpha, True, blocks)
+
+
+def _route_plain(x2, ckb, t, alpha, stats, blocks=None):
+    """The plain version of the kernel a public wrapper launches for ckb
+    at T = t (`_route_name`; 'dense' for `blocks`: the dense one)."""
     d = x2.shape[1] // 2
-    if blocks != "dense" and tck.circ_route(d, blocks) == "fact":
-        out = tck.circ_fact_reference(x2, ckb, t, alpha, blocks)
-    else:
-        out = tck._circ_reference(x2, ckb, t, alpha, False, 16384)
-    return (out, *tck._circ_reference(x2, ckb, t, alpha, True, 16384))
+    if blocks != "dense" and tck.circ_route(d, blocks, stats,
+                                            ckb.const.shape[0], t) == "fact":
+        return tck.circ_fact_reference(x2, ckb, t, alpha, blocks,
+                                       stats=stats)
+    return tck._circ_reference(x2, ckb, t, alpha, stats, 16384)
 
 
-def _k6_name(d, t, blocks=None):
-    """The wrapper that counts a public K6 / K7 launch past D = 128."""
-    if tck.circ_route(d, blocks) == "fact":
-        return ("circ_estimate_coherent_fact" if t > 1
-                else "circ_estimate_fact")
-    return CIRC_WIDE_NAMES[(t > 1, False)]
+def _route_name(d, t, stats=False, blocks=None, k=1):
+    """The wrapper that counts a public K6-K9 launch of K components past
+    D = 128."""
+    names = (CIRC_FACT_NAMES
+             if tck.circ_route(d, blocks, stats, k, t) == "fact"
+             else CIRC_WIDE_NAMES)
+    return names[(t > 1, stats)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,k,t,alpha,n_dead,blocks", CIRC_WIDE_CASES)
 def test_circ_wide_matches_plain(d, k, t, alpha, n_dead, blocks):
     """Past D = 128 the circulant wrappers launch K6 / K7 on the
-    factorised kernel where the transform splits (every case here) and K8
-    / K9 on the wide form: each within 1e-4 of the scale of its plain
-    version (where the float32 plain version's own rounding of logits
+    factorised kernel where the transform splits (every case here), and
+    K8 / K9 on its STATS form where `circ_route` admits their K and T
+    (else on the dense wide form): each within 1e-4 of the scale of its
+    plain version (where the float32 plain version's own rounding of logits
     pooled over T rows pushes the two apart, held to the float64 rule and
     within 1e-4 of the float64 plain version, `_held`), one launch each
     counted on those wrappers and none on the template's; the wide form's
@@ -1862,15 +1879,16 @@ def test_circ_wide_matches_plain(d, k, t, alpha, n_dead, blocks):
         _held(g, w, w64, ceiling=1e-4)
     assert {name: after[name] - before[name] for name in after
             if after[name] != before[name]} == {
-        _k6_name(d, t, blocks): 1, CIRC_WIDE_NAMES[(t > 1, True)]: 1}
+        _route_name(d, t, False, blocks, k): 1,
+        _route_name(d, t, True, blocks, k): 1}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [1, 4])
 @pytest.mark.parametrize("d", [512, 672])
 def test_circ_wide_keeps_fp32_accuracy(d, t):
-    """The wide K6-K9 (K6 / K7 through the dense wide form's own wrappers)
-    are no less accurate than float32 at the widths of JAX's tool and of
+    """The wide K6-K9 (through the dense wide form's own wrappers) are no
+    less accurate than float32 at the widths of JAX's tool and of
     the rule's edge: each output's (and each of m, den and acc's) max
     |error| against the plain version in float64 at most twice the
     float32 plain version's own; the operands laid out once give the same
@@ -1895,14 +1913,16 @@ def test_circ_wide_keeps_fp32_accuracy(d, t):
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,alpha", [(1, 1.0), (4, 0.5)])
 def test_circ_wide_shards_merge_to_one_launch(t, alpha):
-    """At D = 256 the wide K8 (K9) on the two halves of a 64-component
-    bank, merged with `merge_stats` and inverse-transformed once, equal
-    one wide K6 (K7) launch over the whole bank within 1e-4 of the scale
-    (the template's own merge test's tolerance: the two sides round the
-    softmax over other sets of components); a 200-component bank through
-    the entries (two shards: K8 / K9 launched twice, merged) equals its
-    plain states merged (`_held`: where they part by more than 1e-4, both
-    against those states in float64)."""
+    """At D = 256 the K8 (K9) of the public wrappers (the factorised
+    kernel: 256 = 16 x 16) on the two halves of a 64-component bank,
+    merged with `merge_stats` and inverse-transformed once, equal one K6
+    (K7) launch over the whole bank within 1e-4 of the scale (the
+    template's own merge test's tolerance: the two sides round the softmax
+    over other sets of components); a 200-component bank through the
+    entries (two shards, each on its route: the 128-component one on the
+    dense wide form, 3 K > D, the 72-component one on the factorised
+    kernel; merged) equals its plain states merged (`_held`: where they
+    part by more than 1e-4, both against those states in float64)."""
     dev = _card()
     d = 256
     bank = _circ_bank(d, 64, dev, n_dead=3)
@@ -1926,14 +1946,15 @@ def test_circ_wide_shards_merge_to_one_launch(t, alpha):
     else:
         got = tck.estimate_fused_circulant_coherent(
             big, r.reshape(-1, t, d), alpha)
-    name = CIRC_WIDE_NAMES[(t > 1, True)]
-    assert tkn.launch_counts()[name] == before[name] + 2
+    after = tkn.launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {CIRC_WIDE_NAMES[(t > 1, True)]: 1,
+                                          CIRC_FACT_NAMES[(t > 1, True)]: 1}
     x2 = tck._x2(r)
 
     def plain_merged(double):
-        sts = [tck._circ_reference(x2.double() if double else x2,
-                                   _f64(c) if double else c, t, alpha, True,
-                                   16384)
+        sts = [_route_plain(x2.double() if double else x2,
+                            _f64(c) if double else c, t, alpha, True, None)
                for c in tck.lowered(big, None, None, t, alpha)]
         _, den, acc = tck.merge_stats(*zip(*sts))
         q = tck._hc(acc / den[:, None],
@@ -1995,8 +2016,8 @@ def test_circ_wide_refuses_one_past_the_rule():
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [1, 4])
 def test_circ_wide_cuts_rows_to_its_scratch(monkeypatch, t):
-    """Past `WIDE_SCRATCH` the wide K6-K9 (K6 / K7 through their own
-    wrappers) run in row chunks of whole blocks, one counted launch each,
+    """Past `WIDE_SCRATCH` the wide K6-K9 (through their own wrappers) run
+    in row chunks of whole blocks, one counted launch each,
     bit for bit the one launch's outputs (a scratch of 512 rows' worth
     here: 2000 rows in four chunks)."""
     dev = _card()
@@ -2073,7 +2094,8 @@ def test_circ_fact_matches_plain(d, k, t):
     e_p = float((want.double() - want64).abs().max())
     assert e_k <= 2 * e_p, (e_k, e_p)
     assert {name: after[name] - before[name] for name in after
-            if after[name] != before[name]} == {_k6_name(d, t): 1}
+            if after[name] != before[name]} == {_route_name(d, t, False, None,
+                                                            k): 1}
 
 
 @pytest.mark.cuda
@@ -2107,25 +2129,185 @@ def test_circ_fact_takes_the_kron_basis_and_the_operands_it_is_given():
 
 @pytest.mark.cuda
 def test_circ_fact_repeated_launches_match_plain():
-    """The factorised K6 / K7 launched 20 times at each shape of
+    """The factorised K6-K9 launched 20 times at each shape of
     `tools.tc_repeat_check.FACT_CIRC_SHAPES` (one past the template's D,
     D = 512 over two waves of blocks, the rule's edge at K = 128, the pool
-    at T = 3, 4 and 64, the kron basis), each launch after a NaN fill of
-    every SM's shared memory and on the memory of the last launch's output
-    filled with NaN, each bit for bit the first launch, which is held
-    against the plain version."""
+    at T = 3, 4 and 64, the kron basis; the stats forms K8 / K9 at most of
+    these), each launch after a NaN fill of every SM's shared memory and
+    on the memory of the last launch's outputs filled with NaN, each bit
+    for bit the first launch, which is held against the plain version (K8
+    / K9: each of m, den and acc)."""
     dev = _card()
     shapes = tc_repeat_check.FACT_CIRC_SHAPES
     before = tkn.launch_counts()
     runs = tc_repeat_check.repeat_check(dev, repeats=20,
                                         modes=("fact_circ",))["kernel"]
     after = tkn.launch_counts()
-    for coh, name in ((False, "circ_estimate_fact"),
-                      (True, "circ_estimate_coherent_fact")):
-        n = sum(1 for s in shapes if (s[4] > 1) == coh)
-        assert after[name] == before[name] + 20 * n, name
+    for (coh, stats), name in CIRC_FACT_NAMES.items():
+        n = sum(1 for s in shapes if (s[4] > 1, s[7]) == (coh, stats))
+        assert n and after[name] == before[name] + 20 * n, name
     assert len(runs) == len(shapes)
     assert not {k: v for k, v in runs.items() if v["failures"]}, runs
+
+
+# the factorised K8 / K9 (the STATS form of csrc/circ_fact_estimate.cu),
+# launched through their own wrappers (some of these shapes the route
+# leaves to the dense wide form: D = 129, T = 64 at D = 672): (D, K, T,
+# alpha, dead components, blocks): one past the template's D (3 x 43), D =
+# 512 (16 x 32) and the rule's edge 672 (24 x 28), K = 1, 16, 128, T = 1,
+# 4 and 64 (two sweeps), the kron basis
+CIRC_FACT_STATS_CASES = [
+    (129, 1, 1, 1.0, 0, None), (129, 16, 4, 0.25, 1, None),
+    (512, 16, 1, 1.0, 2, None), (512, 128, 4, 1.0, 2, None),
+    (512, 64, 64, 0.25, 1, None), (672, 128, 1, 1.0, 2, None),
+    (672, 16, 64, 1.0, 2, None), (672, 1, 4, 1.0, 0, None),
+    (256, 16, 4, 0.5, 2, (16, 16)), (256, 16, 1, 1.0, 1, (16, 16)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,t,alpha,n_dead,blocks", CIRC_FACT_STATS_CASES)
+def test_circ_fact_stats_matches_plain(d, k, t, alpha, n_dead, blocks):
+    """The factorised K8 / K9 through their own wrappers (the operands
+    laid out in the layout's basis): each of m, den and acc (natural bin
+    order) within 1e-4 of the scale of its plain version
+    `circ_fact_reference(..., stats=True)` (or `_held`'s float64 rule
+    within 1e-4 of the float64 one); one launch counted on the factorised
+    stats wrapper and none on the dense wide form's."""
+    dev = _card()
+    bank = _circ_bank(d, k, dev, n_dead=n_dead, blocks=blocks)
+    x2 = _rows(2048 // t * t, 2 * d, dev)
+    ckb = tck.circ_kernel_bank(bank, blocks, t, alpha)
+    before = tkn.launch_counts()
+    got = (tck.circ_estimate_coherent_stats_fact(x2, ckb, t, alpha) if t > 1
+           else tck.circ_estimate_stats_fact(x2, ckb))
+    after = tkn.launch_counts()
+    want = tck.circ_fact_reference(x2, ckb, t, alpha, blocks, stats=True)
+    want64 = tck.circ_fact_reference(x2.double(), _f64(ckb), t, alpha, blocks,
+                                     stats=True)
+    for g, w, w64 in zip(got, want, want64):
+        _held(g, w, w64, ceiling=1e-4)
+    assert {name: after[name] - before[name] for name in after
+            if after[name] != before[name]} == {CIRC_FACT_NAMES[(t > 1,
+                                                                 True)]: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("d", [512, 672])
+def test_circ_fact_stats_keeps_fp32_accuracy(d, t):
+    """The factorised K8 / K9 are no less accurate than float32 at the
+    widths of JAX's tool and of the rule's edge: each of m, den and acc's
+    max |error| against the plain version in float64 at most twice the
+    float32 plain version's own; the operands laid out once give the same
+    bits as those laid out in the call."""
+    dev = _card()
+    bank = _circ_bank(d, 16, dev, n_dead=2)
+    x2 = _rows(4096, 2 * d, dev)
+    ckb = tck.circ_kernel_bank(bank, None, t, 1.0)
+
+    def run(ops=None):
+        if t > 1:
+            return tck.circ_estimate_coherent_stats_fact(x2, ckb, t, 1.0, ops)
+        return tck.circ_estimate_stats_fact(x2, ckb, ops)
+
+    got = run()
+    want = tck.circ_fact_reference(x2, ckb, t, 1.0, stats=True)
+    want64 = tck.circ_fact_reference(x2.double(), _f64(ckb), t, 1.0,
+                                     stats=True)
+    for g, w, w64 in zip(got, want, want64):
+        e_k = float((g.double() - w64).abs().max())
+        e_p = float((w.double() - w64).abs().max())
+        assert torch.isfinite(g).all() and e_k <= 2 * e_p, (e_k, e_p)
+    again = run(tck.circ_fact_operands(ckb))
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,alpha", [(1, 1.0), (4, 0.5)])
+def test_circ_fact_and_wide_stats_merge_across_routes(t, alpha):
+    """One shard's state from the factorised K8 (K9) and the other's from
+    the dense wide form at D = 512 (two halves of a 32-component bank)
+    merge: every pairing of the two routes, merged with `merge_stats` and
+    inverse-transformed once, within 1e-4 of the scale of one K6 (K7)
+    launch over the whole bank; each shard's two states agree on m, den
+    and the quotient acc / den within 1e-4 of the scale (the logit
+    convention, the row constant -D log pi dropped, is one)."""
+    dev = _card()
+    d = 512
+    bank = _circ_bank(d, 32, dev, n_dead=3)
+    x2 = _rows(1024, 2 * d, dev)
+    states = []
+    for lo, hi in ((0, 16), (16, 32)):
+        ckb = tck.circ_kernel_bank(
+            tsb.CirculantBank(*(x[lo:hi] for x in bank)), None, t, alpha)
+        fact = _circ_forms(x2, ckb, t, alpha)[1:]
+        wide = _circ_forms(x2, ckb, t, alpha, dense=True)[1:]
+        for f, w in zip(fact[:2], wide[:2]):
+            assert _rel(f, w) < 1e-4
+        assert _rel(fact[2] / fact[1][:, None],
+                    wide[2] / wide[1][:, None]) < 1e-4
+        states.append((fact, wide))
+    one = _circ_forms(x2, tck.circ_kernel_bank(bank, None, t, alpha), t,
+                      alpha)[0]
+    for i, j in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        _, den, acc = tck.merge_stats(*zip(states[0][i], states[1][j]))
+        merged = tck._x2(tsb.unitary_ifft(tck._hc(acc / den[:, None],
+                                                  torch.complex64)))
+        assert _rel(merged, one) < 1e-4, (i, j)
+
+
+@pytest.mark.cuda
+def test_circ_fact_stats_refuses_past_its_edges():
+    """The factorised stats wrappers refuse T = 65, K = 129, a width that
+    does not split (652 = 4 x 163), D = 673 and the dense wide form's
+    operands; K9 refuses T = 1; the launch refuses a null m or den when
+    stats is set (cudaErrorInvalidValue); N = 0 launches nothing and
+    returns empty states; D = 652 keeps the dense wide K8."""
+    dev = _card()
+    ckb = tck.circ_kernel_bank(_circ_bank(200, 4, dev))
+    x2 = _rows(130, 400, dev)
+    with pytest.raises(ValueError, match="T"):
+        tck.circ_estimate_coherent_stats_fact(x2, ckb, 65)
+    with pytest.raises(ValueError, match="T >= 2"):
+        tck.circ_estimate_coherent_stats_fact(x2, ckb, 1)
+    many = tck.circ_kernel_bank(_circ_bank(200, 129, dev))
+    with pytest.raises(ValueError, match="128"):
+        tck.circ_estimate_stats_fact(x2, many)
+    with pytest.raises(ValueError, match="circ_fact_operands"):
+        tck.circ_estimate_stats_fact(x2, ckb, tck.circ_wide_operands(ckb,
+                                                                     True))
+    with pytest.raises(ValueError, match="circ_fact_operands"):
+        tck.circ_estimate_stats(x2, ckb, tck.circ_wide_operands(ckb, True))
+    past = tck.circ_kernel_bank(_circ_bank(673, 2, dev))
+    with pytest.raises(ValueError, match="672"):
+        tck.circ_estimate_stats_fact(_rows(8, 1346, dev), past)
+    odd = tck.circ_kernel_bank(_circ_bank(652, 2, dev))
+    x652 = _rows(64, 1304, dev)
+    with pytest.raises(ValueError, match="652"):
+        tck.circ_estimate_stats_fact(x652, odd)
+    before = tkn.launch_counts()
+    m, den, acc = tck.circ_estimate_stats_fact(x2[:0], ckb)
+    assert m.shape == den.shape == (0,) and acc.shape == (0, 400)
+    assert tkn.launch_counts() == before
+    got = tck.circ_estimate_stats(x652, odd)
+    after = tkn.launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {"circ_estimate_stats_wide": 1}
+    for g, w in zip(got, tck._circ_reference(x652, odd, 1, 1.0, True, 16384)):
+        assert _rel(g, w) < 1e-4
+    ops = tck.circ_fact_operands(ckb)
+    out = torch.empty_like(x2)
+    m = torch.empty(130, device=dev)
+    lib = tkn._library("circ_fact_estimate")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for m_ptr, den_ptr in ((None, m.data_ptr()), (m.data_ptr(), None)):
+        err = lib.circ_fact_launch(
+            x2.data_ptr(), ops.hi.data_ptr(), ops.lo.data_ptr(),
+            ops.lo2.data_ptr(), ckb.const.data_ptr(), ops.tw.data_ptr(),
+            out.data_ptr(), m_ptr, den_ptr, 130, 200, ops.d1, ops.d2, 4,
+            ops.hi.shape[0], 1, 1.0, 1, 0, stream)
+        assert err == 1, err        # cudaErrorInvalidValue
 
 
 @pytest.mark.cuda
