@@ -3483,8 +3483,8 @@ WIDE_FACT_CASES = (
     (64, 1, 2475, 1, 1.0, 0),
 )
 WIDE_FACT_N = 4097     # rows a case: whole T-row blocks below it
-WIDE_FACT_F64 = ((2048, 32), (5551, 16), (64, 2475))  # (D, M) under the
-#                                                      float64 rule
+WIDE_FACT_F64 = ((2048, 32), (5551, 16), (64, 2475),  # (D, M) under the
+                 (256, 16), (144, 8))                 # float64 rule
 # the slice's path at full width: the JAX docstring's D = 256, K = 32, M =
 # 16 (`models/mfa_bank.py:272-276`), with `tools/scale_bench_mfa.py`'s 60k
 # / 2k rows; max_iter cut from run_mfa's 100 to that tool's 30
@@ -3494,12 +3494,16 @@ WIDE_FACT_FIT = dict(n_antennas=256, n_components=32, latent_dim=16,
 WIDE_FACT_NAMES = {"K11": "fact_estimate_wide",
                    "K12": "fact_estimate_coherent_wide",
                    "K13": "fact_estimate_stats_wide"}
+FUSED_FACT_NAMES = {"K11": "fact_estimate_fused",
+                    "K12": "fact_estimate_coherent_fused"}
 
 
 def wide_fact_phase(dev, card, kernels, errs, add):
-    """Phase 3n, the factored kernels K11-K13 on wide banks: their wide
-    form (`csrc/fact_wide_estimate.cu`, past the template's D <= 128, M <=
-    64).
+    """Phase 3n, the factored kernels K11-K13 on wide banks, past the
+    template's D <= 128, M <= 64: the wide form (`csrc/fact_wide_estimate.cu`)
+    that the entries take, and the fused K11 / K12
+    (`csrc/fact_fused_estimate.cu`, 129 <= D <= 256, M <= 16), which only
+    its wrappers and `tools.mfa_bank_bench`'s fused leg launch.
 
     1. At each of WIDE_FACT_CASES (seeded MFA priors, their factored banks
        at 10 dB, 2 bits, under x0 = 1, quantized observations of channels
@@ -3508,16 +3512,22 @@ def wide_fact_phase(dev, card, kernels, errs, add):
        `fact_wide_reference` within TOL of the scale, or where the two part
        by more, both against the function in float64 on the same layout
        (`compare64` at ceiling TOL; every reading kept under
-       "against_float64"); the entry the same bits as the wrapper; at an
-       even K the wide K13 on two component shards, each state (m, den,
-       acc) held likewise, and the shards merged (`merge_stats`) against
-       the wide K11; at (D, M) of WIDE_FACT_F64 the float64 rule
-       (`fp32_accuracy`, against the float32 plain version).
+       "against_float64"); where the fused kernel's tile fits, the fused
+       K11 or K12 on the same rows against `fact_fused_reference` likewise;
+       the entry the same bits as the wide wrapper; at an even K the wide
+       K13 on two component shards, each state (m, den, acc) held likewise,
+       and the shards merged (`merge_stats`) against the wide K11; at (D,
+       M) of WIDE_FACT_F64 the float64 rule (`fp32_accuracy`, against the
+       float32 plain version).
     2. `tools.mfa_bank_bench`, the JAX tool's d64 and d512 legs at its
        sizes: the kernel route (the template at d64, the wide form at d512)
        against the pipeline and the dense bank, every route's rate.
     3. The main paths, each with the launch counts set to 0 just before it
-       and read just after: `run_mfa` at D = 256, K = 32, M = 16
+       and read just after: `tools.mfa_bank_bench`'s fused leg (D = 256,
+       K = 32, M = 16, 32768 rows: the fused K11 / K12 through their
+       wrappers, the entries, the wide form and the one-chunk pipeline in
+       turns), the path that launches the fused kernel, its entries
+       finite; `run_mfa` at D = 256, K = 32, M = 16
        (`WIDE_FACT_FIT`, 7 SNRs) flat and at T = 4 (the wide K11, and the
        wide K12 for the coherent column, launched once an SNR and no other
        kernel); on its fit and validation channels genie < MFA < LS at -10
@@ -3527,20 +3537,24 @@ def wide_fact_phase(dev, card, kernels, errs, add):
        snapshots, 1 s, flat and T = 4 blocks), every answer within TOL of
        the scale of the one-shot estimate of the same request; and
        `parallel.mesh.estimate_sharded_factored` over an in-process 1 x 2
-       mesh (the wide K13 a shard, merged) against the wide K11.
-    4. The wide K11-K13 launched 20 times at each shape of
-       `tools.tc_repeat_check.WIDE_FACT_SHAPES` on NaN-filled outputs, bit
-       for bit the first launch.
-    5. CUDA-event times at D = 256, K = 32, M = 16, 32768 rows (K11, K12 at
-       T = 4, K13), each beside its plain version, the bound
-       (`fact_kernels.fact_bound`) and the library yardstick (the
-       `torch.matmul` pipeline over the batch as one chunk, and chunked);
+       mesh (the wide K13 a shard, merged) against the wide K11, and the
+       fused K11 against the same merge.
+    4. The wide K11-K13 and the fused K11 / K12 launched 20 times at each
+       shape of `tools.tc_repeat_check.WIDE_FACT_SHAPES` and
+       `FUSED_FACT_SHAPES` on NaN-filled outputs, bit for bit the first
+       launch.
+    5. At D = 256, K = 32, M = 16, 32768 rows, the fused K11 and K12 (T =
+       4) under the float64 rule; CUDA-event times there (the fused K11
+       and K12 at T = 4, the wide K11, K12 and K13), each beside its
+       plain version, the bound (`fact_kernels.fact_bound`) and the library
+       yardstick (the `torch.matmul` pipeline over the batch as one chunk,
+       and chunked);
        then at the d64 leg's shape (D = 64, K = 64, M = 16, 131072 rows),
        where the entries take the template, the template's K11 against the
        wide K11 on the same rows: within TOL of the scale of each other,
        and both times.
     Returns the phase's record; its timing records are the kernels line's
-    entries of the three wide wrappers."""
+    entries of the three wide and the two fused wrappers."""
     from quantized_channel_estimation_torch import serving
     from quantized_channel_estimation_torch.estimators import (
         circ_kernels as ck, fact_kernels as fk)
@@ -3564,7 +3578,10 @@ def wide_fact_phase(dev, card, kernels, errs, add):
     def f64(fkb):
         return fk.FactKernelBank(*(x.double() for x in fkb))
 
-    def kernel(fkb, x2, t, alpha, ops=None):
+    def kernel(fkb, x2, t, alpha, route="wide", ops=None):
+        if route == "fused":
+            return (fk.fact_estimate_coherent_fused(x2, fkb, t, alpha, ops)
+                    if t > 1 else fk.fact_estimate_fused(x2, fkb, ops))
         return (fk.fact_estimate_coherent_wide(x2, fkb, t, alpha, ops)
                 if t > 1 else fk.fact_estimate_wide(x2, fkb, ops))
 
@@ -3577,7 +3594,8 @@ def wide_fact_phase(dev, card, kernels, errs, add):
         label = f"D={d}, K={k}, M={m}, T={t}, alpha={alpha}, dead={n_dead}"
         if fk.fact_narrow(d, k, m, t):
             raise AssertionError(f"phase 3n case {label} is the template's")
-        name = WIDE_FACT_NAMES["K12" if t > 1 else "K11"]
+        kid = "K12" if t > 1 else "K11"
+        name = WIDE_FACT_NAMES[kid]
         n = WIDE_FACT_N // t * t
         bank, r = mfa_bank_obs(dev, q, n, d=d, k=k, m=m, n_dead=n_dead)
         x2 = ck._x2(r)
@@ -3587,6 +3605,11 @@ def wide_fact_phase(dev, card, kernels, errs, add):
         want64 = fk._fact_reference(x2.double(), f64(fkb), t, alpha, False,
                                     8192)
         errs[name].append(held(name, label, got, want, want64))
+        if fk.fact_fused_fits(d, m, t):   # the fused kernel on the same rows
+            f_name = FUSED_FACT_NAMES[kid]
+            errs[f_name].append(held(
+                f_name, label, kernel(fkb, x2, t, alpha, "fused"),
+                fk.fact_fused_reference(x2, fkb, t, alpha), want64))
         entry = (fk.estimate_fused_factored_coherent(
             bank, r.reshape(-1, t, d), alpha) if t > 1
             else fk.estimate_fused_factored(bank, r))
@@ -3648,6 +3671,21 @@ def wide_fact_phase(dev, card, kernels, errs, add):
 
     # 3. the main paths
     rec["paths"] = {}
+    # the bench's fused leg: the path that launches the fused K11 / K12
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    fused_leg = mfa_bank_bench.main(["fused"], device=dev)["legs"]["fused"]
+    torch.cuda.synchronize()
+    launches = {k2: v for k2, v in kernels.launch_counts().items() if v}
+    add(launches)
+    if not all(launches.get(f_name) for f_name in FUSED_FACT_NAMES.values()):
+        raise AssertionError(f"mfa_bank_bench fused launched {launches}")
+    for kid, leg in fused_leg.items():
+        if not math.isfinite(leg["entry_rel_to_pipeline"]):
+            raise AssertionError(f"mfa_bank_bench fused {kid}: the entry "
+                                 "is not finite")
+    rec["paths"]["mfa_bank_bench fused"] = {"launches": launches,
+                                            "legs": fused_leg}
     d, k, m = WIDE_FACT_DKM
     a_f = pilots.pilot_matrix(d, 1, N_BITS, device=dev)
     for label, change, want_kernels in (
@@ -3763,7 +3801,7 @@ def wide_fact_phase(dev, card, kernels, errs, add):
         svc.close(timeout=120.0)
 
     # the sharded estimator over a 1 x 2 in-process mesh: the wide K13 a
-    # shard, merged, against the wide K11
+    # shard, merged, against the wide K11, and the fused K11 against it
     bank, r = mfa_bank_obs(dev, q, 8192, d=d, k=k, m=m, n_dead=1)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -3778,18 +3816,26 @@ def wide_fact_phase(dev, card, kernels, errs, add):
         raise AssertionError(f"estimate_sharded_factored launched "
                              f"{launches}")
     fkb = fk.fact_kernel_bank(bank)
+    exact = fk._fact_reference(ck._x2(r).double(), f64(fkb), 1, 1.0, False,
+                               8192)
     rel = held("fact_estimate_stats_wide", "1 x 2 mesh against the wide K11",
                ck._x2(got), fk.fact_estimate_wide(ck._x2(r), fkb),
-               fk._fact_reference(ck._x2(r).double(), f64(fkb), 1, 1.0,
-                                  False, 8192)) / float(got.abs().max())
+               exact) / float(got.abs().max())
+    rel_fused = held("fact_estimate_fused",
+                     "the fused K11 against the 1 x 2 mesh",
+                     fk.fact_estimate_fused(ck._x2(r), fkb), ck._x2(got),
+                     exact) / float(got.abs().max())
     rec["paths"]["estimate_sharded_factored, 1 x 2 mesh"] = {
-        "rel_to_k11": rel, "launches": launches, "seconds": seconds}
+        "rel_to_k11": rel, "fused_k11_rel": rel_fused, "launches": launches,
+        "seconds": seconds}
     log(f"estimate_sharded_factored, 1 x 2 mesh: {seconds:.2f}s, launches "
         f"{launches}")
     del banks, prior, bank, r, got
+
     f64_rec = rec["against_float64"].values()
     ruled = [v for v in f64_rec if v["float64_rule"]]
-    log(f"wide K11-K13 comparisons: {len(f64_rec)}, {len(ruled)} decided by "
+    log(f"wide K11-K13 and fused K11 / K12 comparisons: {len(f64_rec)}, "
+        f"{len(ruled)} decided by "
         f"the float64 rule (plain version past {TOL}: largest "
         f"{max((v['rel_to_plain'] for v in ruled), default=0.0):.3e} of "
         f"scale); the kernels' largest distance from float64 "
@@ -3798,14 +3844,17 @@ def wide_fact_phase(dev, card, kernels, errs, add):
 
     # 4. repeated launches
     tm = time.time()
-    rep = trc.repeat_check(dev, repeats=20, modes=("wide_fact",))["kernel"]
+    rep = trc.repeat_check(dev, repeats=20,
+                           modes=("wide_fact", "fused_fact"))["kernel"]
     bad = {k2: v for k2, v in rep.items() if v["failures"]}
-    log(f"wide K11-K13 repeated: {sum(v['launches'] for v in rep.values())} "
+    log(f"wide K11-K13 and fused K11 / K12 repeated: "
+        f"{sum(v['launches'] for v in rep.values())} "
         f"launches in {time.time() - tm:.1f}s, max err "
         f"{max(v['max_err'] for v in rep.values()):.3e}, failures "
         f"{bad or 0}")
     if bad:
-        raise AssertionError(f"the wide K11-K13 off on repeated launches: "
+        raise AssertionError(f"the wide K11-K13 or the fused K11 / K12 off "
+                             f"on repeated launches: "
                              f"{bad}")
     rec["repeat_check"] = rep
 
@@ -3816,8 +3865,18 @@ def wide_fact_phase(dev, card, kernels, errs, add):
     x2 = ck._x2(r)
     fkb, fkb4 = fk.fact_kernel_bank(bank), fk.fact_kernel_bank(bank, 4, 1.0)
     ops = fk.fact_wide_operands(fkb)      # laid out once
+    fops = fk.fact_fused_operands(fkb)
     times = {}
     for name, t, stats, kern, library, chunked in (
+            ("fact_estimate_fused", 1, False,
+             lambda: fk.fact_estimate_fused(x2, fkb, fops),
+             lambda: mfa_bank.estimate_factored(bank, r, "all", n),
+             lambda: mfa_bank.estimate_factored(bank, r)),
+            ("fact_estimate_coherent_fused", 4, False,
+             lambda: fk.fact_estimate_coherent_fused(x2, fkb4, 4, 1.0, fops),
+             lambda: mfa_bank.estimate_factored_coherent(bank, rb, "all",
+                                                         n // 4, 1.0),
+             lambda: mfa_bank.estimate_factored_coherent(bank, rb)),
             ("fact_estimate_wide", 1, False,
              lambda: fk.fact_estimate_wide(x2, fkb, ops),
              lambda: mfa_bank.estimate_factored(bank, r, "all", n),
@@ -3832,8 +3891,21 @@ def wide_fact_phase(dev, card, kernels, errs, add):
              lambda: mfa_bank.estimate_factored_stats(bank, r, n),
              lambda: mfa_bank.estimate_factored_stats(bank, r))):
         c = fkb4 if t > 1 else fkb
-        plain_fn = (lambda c=c, t=t, stats=stats:
-                    fk.fact_wide_reference(x2, c, t, 1.0, stats))
+        if "fused" in name:
+            plain_fn = (lambda c=c, t=t:
+                        fk.fact_fused_reference(x2, c, t, 1.0))
+            label = f"N={n}, D={d}, K={k}, M={m}, T={t}"
+            acc, rule = fp32_accuracy(
+                name, label, kern(), fk._fact_reference(x2, c, t, 1.0, False,
+                                                        8192),
+                fk._fact_reference(x2.double(), f64(c), t, 1.0, False, 8192))
+            rec["fp32_accuracy"][f"{name} {label}"] = acc
+            if not rule:
+                raise AssertionError(f"{name} at {label}: the float64 rule "
+                                     "does not hold")
+        else:
+            plain_fn = (lambda c=c, t=t, stats=stats:
+                        fk.fact_wide_reference(x2, c, t, 1.0, stats))
         plain_ms = profiling.device_ms(plain_fn, reps=1)
         ms = profiling.device_ms(kern)
         ms2 = profiling.device_ms(kern)
@@ -3982,6 +4054,11 @@ def main():
             or not all("spills 0/0 B" in row for row in fact_wide_rows)):
         raise AssertionError(f"the wide K11-K13 spill or are missing: "
                              f"{fact_wide_rows}")
+    # the fused K11 / K12 (one kernel a row tile, two consumer warpgroups at
+    # 168 registers): registers and spills, recorded
+    rows = ptxas_summary(build_logs.get("fact_fused_estimate", ""))
+    log("ptxas fact_fused_estimate: " + ("; ".join(rows) if rows
+                                         else "not rebuilt"))
     # the wide form of K1-K3: no instantiation may spill
     wide_rows = ptxas_summary(build_logs.get("grouped_wide_estimate", ""))
     if "grouped_wide_estimate" in build_logs and (
@@ -6539,6 +6616,16 @@ def main():
               ("fact_estimate_wide", "K11_wide", 2048, False),
               ("fact_estimate_coherent_wide", "K12_wide", 2126, True),
               ("fact_estimate_stats_wide", "K13_wide", 2231, False))),
+        *({"name": name, "id": kid, "route": "cuda",
+           "source": src + "fact_fused_estimate.cu",
+           "replaces": f"{tpu}:{line}", "launches": total_launches[name],
+           "max_abs_err": max(errs[name]), "d": WIDE_FACT_DKM[0],
+           "n_components": WIDE_FACT_DKM[1], "latent_dim": WIDE_FACT_DKM[2],
+           **({"t_coh": 4, "coh_alpha": 1.0} if coh else {}),
+           **fact_wide_rec["times"][name]}
+          for name, kid, line, coh in (
+              ("fact_estimate_fused", "K11_fused", 2048, False),
+              ("fact_estimate_coherent_fused", "K12_fused", 2126, True))),
         {"name": "karatsuba_estimate", "id": "K14a", "route": "cuda",
          "source": src + "karatsuba_estimate.cu", "replaces": f"{tpu}:105",
          "launches": total_launches["karatsuba_estimate"],

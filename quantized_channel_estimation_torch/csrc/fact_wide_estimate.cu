@@ -184,6 +184,26 @@ __global__ void fold_kernel(const float* __restrict__ x,
   }
 }
 
+// Built with -DQCE_PASS_EVENTS (tools/fact_pass_split.py, never on the
+// main path) a launch records a CUDA event before its first pass and after
+// each of the nine below, and `fact_wide_pass_ms` reads the last launch's
+// pass times; otherwise the marks compile to nothing.
+#ifdef QCE_PASS_EVENTS
+constexpr int kPassMarks = 10;
+cudaEvent_t g_pass_ev[kPassMarks];
+bool g_pass_ready = false;
+inline void pass_mark(int i, cudaStream_t st) {
+  if (!g_pass_ready) {
+    for (auto& e : g_pass_ev) cudaEventCreate(&e);
+    g_pass_ready = true;
+  }
+  cudaEventRecord(g_pass_ev[i], st);
+}
+#define QCE_PASS(i) pass_mark(i, st)
+#else
+#define QCE_PASS(i) ((void)0)
+#endif
+
 // The wide form's passes on n rows with the bank's units `planes`; the
 // caller has validated the arguments.
 int run_fact_wide(const float* x, const bf16* const (&planes)[3],
@@ -217,18 +237,23 @@ int run_fact_wide(const float* x, const bf16* const (&planes)[3],
   const long long u_fwd = 0, u_lg = (long long)nq * npd;
   const long long u_comb = u_lg + (long long)kp * nf;
   int err;
+  QCE_PASS(0);
   // forward: u = x fwd, every component's [beta | gamma]
   if ((err = split_tiles(PlainRows{x, n, two_d}, a, npd, tiles, st)))
     return err;
+  QCE_PASS(1);
   if ((err = gemm<kStore>(at(u_fwd, npd, nq, u, wu, nullptr),
                           (nq + kGroup - 1) / kGroup, tiles, st)))
     return err;
+  QCE_PASS(2);
   // the quadratic terms into the logits' place, then the logits
   quad_kernel<<<grid_of((size_t)n * k_comp), 256, 0, st>>>(u, tmu, lg, n,
                                                            k_comp, m);
   if ((err = (int)cudaGetLastError())) return err;
+  QCE_PASS(3);
   if ((err = split_tiles(FeatRows{x, n, 3 * d, two_d, 1}, a, nf, tiles, st)))
     return err;
+  QCE_PASS(4);
   Gemm gl = at(u_lg, nf, kp, lg, k_comp, lg);
   if ((err = gemm<kLogit>(gl, 1, tiles, st))) return err;
   const int lg_slices = (kp + kGroup - 1) / kGroup;
@@ -236,19 +261,24 @@ int run_fact_wide(const float* x, const bf16* const (&planes)[3],
     gl.slice0 = 1;
     if ((err = gemm<kLogit>(gl, lg_slices - 1, tiles, st))) return err;
   }
+  QCE_PASS(5);
   // the softmax weights in the logits' place
   if ((err = softmax(lg, offs, m_out, den_out, n, k_comp, t_coh, alpha,
                      stats, st)))
     return err;
+  QCE_PASS(6);
   // combine: h_lin = [w_k u_k] comb into out, then the bias and diagonal
   if ((err = split_tiles(WuRows{u, lg, n, wu, 4 * m, k_comp}, a, nq, tiles,
                          st)))
     return err;
+  QCE_PASS(7);
   if ((err = gemm<kStore>(at(u_comb, nq, npd, out, two_d, nullptr),
                           (npd + kGroup - 1) / kGroup, tiles, st)))
     return err;
+  QCE_PASS(8);
   fold_kernel<<<grid_of((size_t)n * d), 256, 0, st>>>(x, lg, bias, a1, out,
                                                       n, d, k_comp);
+  QCE_PASS(9);
   return (int)cudaGetLastError();
 }
 
@@ -294,3 +324,15 @@ extern "C" int fact_wide_launch(const float* x, const void* hi,
                        u, lg, offs, n, d, m, k_comp, t_coh, alpha, stats,
                        static_cast<cudaStream_t>(stream));
 }
+
+#ifdef QCE_PASS_EVENTS
+// the last launch's nine pass times (ms) into ms[0..8], after its last
+// event completes; a cudaError_t
+extern "C" int fact_wide_pass_ms(float* ms) {
+  if (!g_pass_ready) return (int)cudaErrorNotReady;
+  cudaError_t err = cudaEventSynchronize(g_pass_ev[kPassMarks - 1]);
+  for (int i = 0; err == cudaSuccess && i + 1 < kPassMarks; ++i)
+    err = cudaEventElapsedTime(ms + i, g_pass_ev[i], g_pass_ev[i + 1]);
+  return (int)err;
+}
+#endif

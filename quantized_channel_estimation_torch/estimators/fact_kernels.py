@@ -111,6 +111,23 @@ def fact_wide_eligible(d: int, k: int, m: int, t: int = 1) -> bool:
             <= kernels.WIDE_SCRATCH)
 
 
+FACT_FUSED_MIN_D = 129   # channel dims of the fused kernel
+FACT_FUSED_MAX_D = 256
+FACT_FUSED_MAX_M = 16    # latent rank of the fused kernel (4M <= 64)
+
+
+def fact_fused_fits(d: int, m: int, t: int = 1) -> bool:
+    """Does the fused kernel (csrc/fact_fused_estimate.cu) take these
+    widths? 129 <= D <= 256 (x of a 64-row tile in fp32 beside the rings
+    in 227 KB; each consumer warpgroup's half of the output, 64 rows x D
+    columns, in registers), M <= 16 (u as the combine's A fragments in
+    registers), T <= 64; any K. Only its wrappers launch it: the entries
+    keep the wide form, which `tools/mfa_bank_bench.py fused_reach`
+    measured faster from K = 4 on (PERF.md §6)."""
+    return (FACT_FUSED_MIN_D <= d <= FACT_FUSED_MAX_D
+            and 1 <= m <= FACT_FUSED_MAX_M and 1 <= t <= FACT_MAX_T)
+
+
 def fact_kernel_eligible(d: int, k: int, m: int, t: int = 1) -> bool:
     """Can the factored kernels serve a bank of K components over D dims
     at latent rank M, pooling T-snapshot blocks? The template where it
@@ -400,6 +417,145 @@ def fact_wide_operands(fkb: FactKernelBank) -> tu.UnitOperands:
 
 
 # ---------------------------------------------------------------------------
+# the fused kernel's layout (csrc/fact_fused_estimate.cu)
+# ---------------------------------------------------------------------------
+
+class FusedPlan(NamedTuple):
+    """How the fused kernel splits a bank of D dims at rank M (`fused_plan`
+    in csrc/fact_fused_estimate.cu): nc 64-deep chunks of 2D, half c of
+    them (the first ceil(nc / 2), then the rest) a block's of the pair,
+    and of a half, consumer warpgroup w's ncw[c][w] chunks (the first
+    ceil(half / 2), then the rest) from column cb[c][w]; nu 32-column
+    halves of 4M its forward product takes; pcs[c][w] the warpgroup's
+    64-column output pieces below 2D; u[c][w] its units a component
+    (forward chunks, then combine pieces) at off[c][w] of the component's
+    `units`; rec_floats a record's floats (T mu padded to a multiple of 4,
+    then 8 a bin of 64)."""
+    nc: int
+    nu: int
+    ncw: tuple
+    cb: tuple
+    pcs: tuple
+    u: tuple
+    off: tuple
+    units: int
+    rec_floats: int
+
+
+def fact_fused_plan(d: int, m: int) -> FusedPlan:
+    """The fused kernel's split of a bank of D dims at rank M."""
+    nc = tu.chunks(2 * d)
+    halves = ((nc + 1) // 2, nc - (nc + 1) // 2)
+    ncw, cb, pcs, u, off = [], [], [], [], []
+    at = units = 0
+    for half in halves:
+        row = [(half + 1) // 2, half - (half + 1) // 2]
+        ncw.append(tuple(row))
+        cb.append(tuple(64 * (at + sum(row[:w])) for w in range(2)))
+        at += half
+        pcs.append(tuple(tu.chunks(min(64 * n_w, 2 * d - c))
+                         for n_w, c in zip(row, cb[-1])))
+        u.append(tuple(n_w + p for n_w, p in zip(row, pcs[-1])))
+        off.append((units, units + u[-1][0]))
+        units += sum(u[-1])
+    return FusedPlan(nc, -(-4 * m // 32), tuple(ncw), tuple(cb), tuple(pcs),
+                     tuple(u), tuple(off), units,
+                     -(-2 * m // 4) * 4 + 8 * 64)
+
+
+class FactFusedOperands(NamedTuple):
+    """The bank as the fused kernel streams it. hi, lo, lo2: the bf16
+    planes (`kernels.split_planes3`) of its units, per component each
+    (half c, warpgroup w)'s u[c][w] units at off[c][w] (`fact_fused_plan`):
+    the warpgroup's forward units (for each 64-deep chunk j of its columns
+    of 2D: the 64 x 64 transpose of fwd_k's rows cb + 64 j + [0, 64) x its
+    4M columns, padded to 64), then its combine pieces (for each 64-column
+    piece p of its output: the transpose of comb_k's 4M rows, padded to
+    64, x columns cb + 64 p + [0, 64)), each in the 128-byte swizzle
+    (`kernels._sw128`), padding zero; rec: per component and (half,
+    warpgroup) T mu (2M, zero-padded to a multiple of 4), then per bin b of
+    the warpgroup's 64 the 8 floats (l0_b, l1_b, l2_b, 0, Re b_b, Im b_b,
+    Re a1_b, Im a1_b) of lcoef, bias and a1, bins past D zero. The same
+    for every (T, alpha) layout: those differ in `const` only.
+
+    hi, lo, lo2: (K, units, 64, 64)   bfloat16
+    rec:         (K, 4, rec_floats)   float32
+    """
+    hi: torch.Tensor
+    lo: torch.Tensor
+    lo2: torch.Tensor
+    rec: torch.Tensor
+
+
+def _quarters(pl: FusedPlan):
+    """(half, warpgroup, first column, chunks, output pieces) of each
+    quarter of 2D, in the layout's order."""
+    return [(c, w, pl.cb[c][w], pl.ncw[c][w], pl.pcs[c][w])
+            for c in range(2) for w in range(2)]
+
+
+def fact_fused_units(fkb: FactKernelBank) -> torch.Tensor:
+    """The bank's fwd and comb in float32 as the fused kernel's units
+    ((K, units, 64, 64), before the split and the swizzle; see
+    `FactFusedOperands`)."""
+    k, two_d, four_m = fkb.fwd.shape
+    pl = fact_fused_plan(two_d // 2, four_m // 4)
+    fwd = torch.nn.functional.pad(fkb.fwd, (0, 64 - four_m,
+                                            0, 64 * pl.nc - two_d))
+    comb = torch.nn.functional.pad(fkb.comb, (0, 64 * pl.nc - two_d,
+                                              0, 64 - four_m))
+    units = []
+    for _, _, cb, ncw, pcs in _quarters(pl):
+        units.append(fwd[:, cb:cb + 64 * ncw].reshape(
+            k, ncw, 64, 64).transpose(-1, -2))
+        units.append(comb[:, :, cb:cb + 64 * pcs].reshape(
+            k, 64, pcs, 64).permute(0, 2, 3, 1))
+    return torch.cat(units, 1)
+
+
+def fact_fused_operands(fkb: FactKernelBank) -> FactFusedOperands:
+    """Split the bank's fwd and comb into bf16 hi / lo / lo2 and lay them
+    out as the fused kernel's units, with each component's records
+    (`FactFusedOperands`); once per bank (`lowered_tc` keeps them)."""
+    k, two_d, four_m = fkb.fwd.shape
+    d, m = two_d // 2, four_m // 4
+    pl = fact_fused_plan(d, m)
+    planes = (kernels._sw128(p).contiguous() for p in kernels.split_planes3(
+        fact_fused_units(fkb).contiguous()))
+    tmu = torch.nn.functional.pad(fkb.tmu, (0, -(-2 * m // 4) * 4 - 2 * m))
+    lc = fkb.lcoef.reshape(k, 3, d).transpose(1, 2)          # (K, D, 3)
+    per_bin = torch.cat([lc, torch.zeros_like(lc[..., :1]),
+                         fkb.bias.reshape(k, d, 2),
+                         fkb.a1.reshape(k, d, 2)], -1)
+    per_bin = torch.nn.functional.pad(per_bin, (0, 0, 0, 32 * pl.nc + 64 - d))
+    rec = torch.stack([torch.cat([tmu, per_bin[:, cb // 2:cb // 2 + 64]
+                                  .reshape(k, 8 * 64)], 1)
+                       for _, _, cb, _, _ in _quarters(pl)], 1)
+    return FactFusedOperands(*planes, rec.contiguous())
+
+
+def check_fact_fused_operands(kernel: str, ops: FactFusedOperands,
+                              fkb: FactKernelBank, device) -> None:
+    """Raise unless ops holds the units and records of a bank of fkb's
+    shape on `device` (`fact_fused_operands`)."""
+    k, two_d, four_m = fkb.fwd.shape
+    pl = fact_fused_plan(two_d // 2, four_m // 4)
+    units = (k, pl.units, 64, 64)
+    fields = [("hi", ops.hi, torch.bfloat16, units),
+              ("lo", ops.lo, torch.bfloat16, units),
+              ("lo2", ops.lo2, torch.bfloat16, units),
+              ("rec", ops.rec, torch.float32, (k, 4, pl.rec_floats))]
+    for name, t, dtype, shape in fields:
+        if (t is None or t.device != device or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            got = ("None" if t is None
+                   else f"{t.dtype} {tuple(t.shape)} on {t.device}")
+            raise ValueError(f"{kernel}: operand {name} must be contiguous "
+                             f"{dtype} {shape} on {device} "
+                             f"(`fact_fused_operands`), got {got}")
+
+
+# ---------------------------------------------------------------------------
 # plain versions: the kernels' own arithmetic in float32
 # ---------------------------------------------------------------------------
 
@@ -494,6 +650,88 @@ def fact_estimate_stats_reference(x2: torch.Tensor, fkb: FactKernelBank,
     m (N,), den (N,) and the un-normalised accumulator (N, 2D)
     interleaved."""
     return _fact_reference(x2, fkb, 1, 1.0, True, chunk)
+
+
+def fact_fused_reference(x2: torch.Tensor, fkb: FactKernelBank,
+                         t_coh: int = 1, coh_alpha: float = 1.0,
+                         chunk: int = 8192) -> torch.Tensor:
+    """Plain PyTorch version of the fused K11's arithmetic (K12 at t_coh >
+    1, fkb from `fact_kernel_bank(bank, t_coh, coh_alpha)`), walked as the
+    kernel walks it: the forward u = x fwd as the sum of the four blocks'
+    partial products over their quarters of 2D (`fact_fused_plan`: (P0 +
+    P1) + (P2 + P3)), each the sum in order of its 64-deep chunks' six
+    bf16 products (`variant_kernels.tc_products`), the diagonal term
+    likewise the sum of the quarters' [Re x | Im x | |x|^2] . lcoef, the
+    logit (const + lin) + |beta - T mu|^2, the pool, then an online
+    softmax over the components: h = h sc + p (bias_k + a1_k o x), and h
+    += p C_k with C_k = u_k comb_k six bf16 products, out = h / den; all in
+    float32. On float64 rows the same walk with plain products in float64.
+    x2 (N, 2D) interleaved -> (N, 2D). For the CPU tests and chip_smoke's
+    checks; nothing on the main path calls it where a card is present."""
+    pin_fp32()
+    k, two_d, four_m = fkb.fwd.shape
+    d, two_m = two_d // 2, four_m // 2
+    if x2.shape[0] % t_coh:
+        raise ValueError(f"{x2.shape[0]} rows are no whole number of "
+                         f"T={t_coh} blocks")
+    dt = x2.dtype
+    six = dt != torch.float64
+    f = FactKernelBank(*(v.to(dt) for v in fkb))
+    pl = fact_fused_plan(d, four_m // 4)
+    quarters = [[slice(c, min(c + 64, two_d))
+                 for c in range(cb, min(cb + 64 * ncw, two_d), 64)]
+                for _, _, cb, ncw, _ in _quarters(pl)]
+    fwd = f.fwd.permute(1, 0, 2).reshape(two_d, k * four_m)
+    lc = f.lcoef.reshape(k, 3, d).permute(2, 1, 0)            # (D, 3, K)
+    if six:
+        fwd6 = [p.to(dt) for p in kernels.split_planes3(fkb.fwd.permute(
+            1, 0, 2).reshape(two_d, k * four_m))]
+        comb6 = [p.to(dt) for p in kernels.split_planes3(fkb.comb)]
+    chunk = max(t_coh, chunk // t_coh * t_coh)   # whole blocks per chunk
+    outs = []
+    for i0 in range(0, x2.shape[0], chunk):
+        xc = x2[i0:i0 + chunk]
+        n = xc.shape[0]
+        x3 = xc.reshape(n, d, 2)
+        z = torch.stack([x3[..., 0], x3[..., 1],
+                         x3[..., 0] * x3[..., 0] + x3[..., 1] * x3[..., 1]],
+                        -1)                                   # (n, D, 3)
+        parts, lins = [], []
+        for chunks in quarters:
+            part = None
+            for s in chunks:
+                acc = (tc_products(xc[:, s], [p[s] for p in fwd6], 6) if six
+                       else xc[:, s] @ fwd[s])
+                part = acc if part is None else part + acc
+            parts.append(part)
+            b = slice(chunks[0].start // 2, chunks[-1].stop // 2)
+            lins.append(z[:, b].reshape(n, -1) @ lc[b].reshape(-1, k))
+        u = ((parts[0] + parts[1]) + (parts[2] + parts[3])).reshape(
+            n, k, four_m)
+        lin = (lins[0] + lins[1]) + (lins[2] + lins[3])
+        diff = u[..., :two_m] - f.tmu[None]
+        lg = _pool((f.const[None] + lin) + (diff * diff).sum(-1), t_coh,
+                   coh_alpha)
+        m_run = torch.full((n,), -torch.inf, dtype=dt, device=xc.device)
+        den = torch.zeros((n,), dtype=dt, device=xc.device)
+        h = torch.zeros((n, two_d), dtype=dt, device=xc.device)
+        for j in range(k):
+            m_new = torch.maximum(m_run, lg[:, j])
+            sc = torch.where(m_run == -torch.inf, torch.zeros_like(m_run),
+                             torch.exp(m_run - m_new))[:, None]
+            p = torch.exp(lg[:, j] - m_new)[:, None]
+            den = den * sc[:, 0] + p[:, 0]
+            m_run = m_new
+            bb, a = f.bias[j].reshape(d, 2), f.a1[j].reshape(d, 2)
+            hb = torch.stack([bb[:, 0] + a[:, 0] * x3[..., 0]
+                              - a[:, 1] * x3[..., 1],
+                              bb[:, 1] + a[:, 0] * x3[..., 1]
+                              + a[:, 1] * x3[..., 0]], -1).reshape(n, two_d)
+            c = (tc_products(u[:, j], [pl[j] for pl in comb6], 6) if six
+                 else u[:, j] @ f.comb[j])
+            h = (h * sc + p * hb) + p * c
+        outs.append(h / den[:, None])
+    return torch.cat(outs) if outs else x2.new_zeros((0, two_d))
 
 
 def fact_wide_reference(x2: torch.Tensor, fkb: FactKernelBank,
@@ -791,10 +1029,82 @@ def fact_estimate_stats_wide(x2: torch.Tensor, fkb: FactKernelBank,
                         operands)
 
 
+def _launch_fused(wrapper, x2: torch.Tensor, fkb: FactKernelBank,
+                  t_coh: int, coh_alpha: float,
+                  ops: Optional[FactFusedOperands]) -> torch.Tensor:
+    """Launch the fused kernel (csrc/fact_fused_estimate.cu) on x2's
+    device and current stream with the bank's operands `ops` (laid out here
+    when None), one launch for all rows, and add one to `wrapper`'s count:
+    -> out (N, 2D); raise on any refusal."""
+    name = wrapper.__name__
+    n, two_d = x2.shape
+    k, _, four_m = fkb.fwd.shape
+    d, m = two_d // 2, four_m // 4
+    if (two_d % 2 or four_m % 4 or n % t_coh
+            or not fact_fused_fits(d, m, t_coh)):
+        raise ValueError(
+            f"{name} takes N rows of whole T-row blocks with "
+            f"{FACT_FUSED_MIN_D} <= D <= {FACT_FUSED_MAX_D}, M <= "
+            f"{FACT_FUSED_MAX_M} and T <= {FACT_MAX_T}; got N={n}, D={d}, "
+            f"M={m}, K={k}, T={t_coh}")
+    dev = x2.device
+    _check_inputs(x2, fkb)
+    if ops is None:
+        ops = fact_fused_operands(fkb)
+    check_fact_fused_operands(name, ops, fkb, dev)
+    out = torch.empty((n, two_d), dtype=torch.float32, device=dev)
+    if n:
+        lib = kernels._library("fact_fused_estimate")
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.fact_fused_launch(
+                x2.data_ptr(), ops.hi.data_ptr(), ops.lo.data_ptr(),
+                ops.lo2.data_ptr(), ops.rec.data_ptr(), fkb.const.data_ptr(),
+                out.data_ptr(), n, d, m, k, int(t_coh), float(coh_alpha),
+                stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        wrapper.launches += 1
+    return out
+
+
+def fact_estimate_fused(x2: torch.Tensor, fkb: FactKernelBank,
+                        operands: Optional[FactFusedOperands] = None
+                        ) -> torch.Tensor:
+    """K11 on the fused kernel: x2 (N, 2D) -> (N, 2D), `operands` from
+    `fact_fused_operands(fkb)` (laid out in the call when None); the
+    entries keep the wide form (`fact_fused_fits`). On a CUDA tensor
+    it launches the CUDA kernel (`fact_fused_fits`) and raises on any
+    refusal; on a CPU tensor it computes the plain version
+    `fact_fused_reference`."""
+    if not x2.is_cuda:
+        return fact_fused_reference(x2, fkb)
+    return _launch_fused(fact_estimate_fused, x2, fkb, 1, 1.0, operands)
+
+
+def fact_estimate_coherent_fused(x2: torch.Tensor, fkb: FactKernelBank,
+                                 t_coh: int, coh_alpha: float = 1.0,
+                                 operands: Optional[FactFusedOperands]
+                                 = None) -> torch.Tensor:
+    """K12 on the fused kernel: x2 (N, 2D), N / T blocks of T consecutive
+    rows (2 <= T <= 64), fkb from `fact_kernel_bank(bank, t_coh,
+    coh_alpha)`, `operands` as for `fact_estimate_fused` (any layout of the
+    bank). CUDA kernel on a CUDA tensor, the plain version
+    `fact_fused_reference` on the CPU."""
+    if t_coh < 2:
+        raise ValueError(f"fact_estimate_coherent_fused takes T >= 2; got "
+                         f"{t_coh}")
+    if not x2.is_cuda:
+        return fact_fused_reference(x2, fkb, t_coh, coh_alpha)
+    return _launch_fused(fact_estimate_coherent_fused, x2, fkb, t_coh,
+                         coh_alpha, operands)
+
+
 kernels.register_wrappers(fact_estimate, fact_estimate_coherent,
                           fact_estimate_stats, fact_estimate_wide,
                           fact_estimate_coherent_wide,
-                          fact_estimate_stats_wide)
+                          fact_estimate_stats_wide, fact_estimate_fused,
+                          fact_estimate_coherent_fused)
 
 
 # ---------------------------------------------------------------------------

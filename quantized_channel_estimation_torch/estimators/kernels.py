@@ -212,6 +212,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.fact_estimate_launch.argtypes = (
             [ptr] * 9 + [i32] * 5 + [f32, i32, ptr])
         lib.fact_estimate_launch.restype = i32
+    elif name == "fact_fused_estimate":
+        lib.fact_fused_launch.argtypes = [ptr] * 7 + [i32] * 5 + [f32, ptr]
+        lib.fact_fused_launch.restype = i32
     elif name == "fact_wide_estimate":
         lib.fact_wide_launch.argtypes = [ptr] * 15 + [i32] * 6 + [
             f32, i32, ptr]

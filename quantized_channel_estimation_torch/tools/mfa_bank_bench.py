@@ -20,6 +20,29 @@ normal channels. Four legs, the JAX tool's sizes:
          failure, if any, reported beside the factored routes. In every
          other leg a failure of the dense bank fails the run.
 
+Two legs more time the kernels alone on seeded banks, on the card:
+
+  fused        D = 256, K = 32, M = 16 (the JAX docstring's, run_mfa's
+               wide shape), 32768 rows of quantized observations of
+               channels drawn from a seeded MFA prior: K11 and K12 (T = 4,
+               alpha 1) on the fused kernel's wrappers
+               (`fact_estimate[_coherent]_fused`, where the package has
+               them), through the entries
+               (`fact_kernels.estimate_fused_factored[_coherent]` with a
+               cache, which keep the wide form there), on the
+               wide form (`fact_estimate[_coherent]_wide`) and on the
+               `torch.matmul` pipeline over the batch as one chunk, the
+               same rows in turns (each in order, then back); with
+               `--root` another checkout's package (the parent: no fused
+               kernel), for parent / change / change / parent runs in one
+               call;
+  fused_reach  the fused K11 / K12 against the wide form in turns (fused,
+               wide, wide, fused) at each of `FUSED_REACH_SHAPES` (D, K,
+               M, T), 32768 rows, on random banks
+               (`tools.tc_repeat_check.random_fact_bank`): the
+               measurements that keep the entries on the wide form
+               (`fact_kernels.fact_fused_fits`).
+
 The routes: the kernel route (`stages.estimate_factored`, 'auto': K11, or
 its wide form past the template's rule; the bank's kernel layouts made
 once in a cache before the clock starts, as the service keeps them), the
@@ -35,18 +58,22 @@ line a route and, at the end, one JSON object, which `main` returns, with
 the card's name.
 
     python -m quantized_channel_estimation_torch.tools.mfa_bank_bench \
-        [d64|d512|d2048|d4096 ...] [--d D --k K --m M] [--n-train N] \
-        [--n-val N] [--batch N] [--max-iter N] [--device cpu]
+        [d64|d512|d2048|d4096|fused|fused_reach ...] [--d D --k K --m M] \
+        [--n-train N] [--n-val N] [--batch N] [--max-iter N] \
+        [--device cpu] [--root DIR]
 
 Default legs: d64 d512 (the JAX tool's). `--d`, `--k`, `--m` and the row
-options replace every chosen leg's own. On the card by default; `--device
+options replace every chosen fitted leg's own. On the card by default; `--device
 cpu` runs the plain versions at small sizes, and then the times are host
 times of the plain versions, not of any kernel.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
+import statistics
+import sys
 import time
 
 import torch
@@ -68,6 +95,19 @@ LEGS = {"d64": (64, 64, 16, 100_000, 10_000, 131_072, 60, True, False),
         "d2048": (2048, 8, 32, 40_000, 2_000, 8_192, 40, False, False),
         "d4096": (4096, 4, 32, 40_000, 2_000, 4_096, 30, False, True)}
 DEFAULT_LEGS = ("d64", "d512")
+KERNEL_LEGS = ("fused", "fused_reach")
+FUSED_DKM, FUSED_N = (256, 32, 16), 32768
+# (D, K, M, T) of the `fused_reach` leg: the served shape and its pool; K
+# from 1 to 128; M = 1, 4, 8; D one past the template's, 144, 192, 200
+# (halves of 4 / 3 chunks), 255; one component at T = 3 to 64
+FUSED_REACH_SHAPES = (
+    (256, 32, 16, 1), (256, 32, 16, 4), (256, 32, 16, 16), (256, 32, 16, 64),
+    (256, 1, 16, 1), (256, 4, 16, 1), (256, 39, 16, 1), (256, 128, 16, 1),
+    (256, 32, 8, 1), (256, 32, 4, 1), (256, 32, 1, 1), (129, 32, 16, 1),
+    (129, 1, 1, 1), (144, 8, 8, 1), (144, 8, 8, 4), (192, 32, 16, 1),
+    (200, 16, 3, 3), (255, 32, 16, 1), (160, 64, 16, 1), (256, 1, 16, 4),
+    (256, 1, 16, 64), (256, 2, 16, 1), (200, 1, 3, 3), (144, 1, 8, 16))
+PKG = "quantized_channel_estimation_torch"
 
 
 def _bytes(bank) -> int:
@@ -198,10 +238,151 @@ def run_leg(label, d, k, m, n_train, n_val, batch, max_iter, dense_kernel,
     return rec
 
 
+def _package(root):
+    """The package's modules the kernel legs use, imported from `root` (a
+    checkout) when given, else this one."""
+    if root:
+        for name in [n for n in sys.modules
+                     if n == PKG or n.startswith(PKG + ".")]:
+            del sys.modules[name]
+        sys.path.insert(0, root)
+    mods = ("estimators.fact_kernels", "estimators.kernels",
+            "models.mfa", "models.mfa_bank", "ops.observation",
+            "ops.quantizer", "ops.cplx", "tools.tc_repeat_check",
+            "utils.profiling")
+    return {m.split(".")[-1]: importlib.import_module(f"{PKG}.{m}")
+            for m in mods}
+
+
+def _prior_bank(pk, dev, d, k, m, n, n_dead=2, seed=0):
+    """A seeded MFA prior's factored bank at 10 dB, 2 bits under x0 = 1
+    (loadings of total power 0.8 a dimension, psi on [0.05, 0.35], zero
+    means, n_dead dead components) and n quantized observations of
+    channels drawn from the mixture."""
+    g = torch.Generator().manual_seed(seed)
+    cr = (lambda *shape: torch.complex(torch.randn(*shape, generator=g),
+                                       torch.randn(*shape, generator=g))
+          / 2 ** 0.5)
+    w = 0.5 + torch.rand(k, generator=g)
+    w[:n_dead] = 1e-9
+    p = pk["mfa"].MfaParams(
+        (w / w.sum()).to(dev), torch.zeros(k, d, dtype=torch.complex64,
+                                           device=dev),
+        ((0.8 / m) ** 0.5 * cr(k, d, m)).to(dev),
+        (0.05 + 0.3 * torch.rand(k, d, generator=g)).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    c = torch.randint(0, k, (n,), generator=gen, device=dev)
+    crandn = pk["cplx"].crandn
+    h = ((p.lambdas[c] @ crandn(gen, (n, m, 1)))[..., 0]
+         + p.psis[c].sqrt() * crandn(gen, (n, d)))
+    q = pk["quantizer"].design_quantizer(SNR, N_BITS, device=dev)
+    bank = pk["mfa_bank"].prepare_bank_factored(
+        p, SNR, torch.tensor(1.0 + 0.0j), N_BITS, q)
+    return bank, pk["observation"].observe(gen, h, SNR, None, N_BITS, q)
+
+
+def _turns(pk, runs, order) -> list:
+    """CUDA-event times (`profiling.device_ms`) of runs[i] for i in order."""
+    return [pk["profiling"].device_ms(runs[i]) for i in order]
+
+
+def fused_leg(pk, dev) -> dict:
+    """Leg `fused` (see the module docstring): {"K11", "K12 T=4"}: the
+    fused kernel's (where the package has it), the entry's, the wide
+    form's and the pipeline's times in turns, the entry's launches, its
+    distance from the pipeline, the bound."""
+    fk, mb = pk["fact_kernels"], pk["mfa_bank"]
+    (d, k, m), n = FUSED_DKM, FUSED_N
+    print(f"== fused: D={d}, K={k}, M={m}, {n} rows ==", flush=True)
+    bank, r = _prior_bank(pk, dev, d, k, m, n)
+    rb = r.reshape(-1, 4, d)
+    x2 = torch.view_as_real(r).reshape(n, 2 * d).contiguous()
+    fkb, fkb4 = fk.fact_kernel_bank(bank), fk.fact_kernel_bank(bank, 4, 1.0)
+    wops = fk.fact_wide_operands(fkb)
+    fused = hasattr(fk, "fact_estimate_fused")
+    fops = fk.fact_fused_operands(fkb) if fused else None
+    cache = {}
+    forms = {
+        "K11": (lambda: fk.fact_estimate_fused(x2, fkb, fops),
+                lambda: fk.estimate_fused_factored(bank, r, cache),
+                lambda: fk.fact_estimate_wide(x2, fkb, wops),
+                lambda: mb.estimate_factored(bank, r, "all", n), 1),
+        "K12 T=4": (lambda: fk.fact_estimate_coherent_fused(
+                        x2, fkb4, 4, 1.0, fops),
+                    lambda: fk.estimate_fused_factored_coherent(
+                        bank, rb, 1.0, cache),
+                    lambda: fk.fact_estimate_coherent_wide(x2, fkb4, 4, 1.0,
+                                                           wops),
+                    lambda: mb.estimate_factored_coherent(bank, rb, "all",
+                                                          n // 4, 1.0), 4)}
+    out = {}
+    for name, (kern, entry, wide, pipe, t) in forms.items():
+        before = pk["kernels"].launch_counts()
+        got = entry()
+        torch.cuda.synchronize()
+        launches = {a: b - before[a] for a, b in
+                    pk["kernels"].launch_counts().items() if b != before[a]}
+        want = pipe()
+        runs = ((kern,) if fused else ()) + (entry, wide, pipe)
+        order = tuple(range(len(runs)))
+        ms = _turns(pk, runs, order + order[::-1])
+        pair = {key: [ms[i], ms[-1 - i]] for i, key in enumerate(
+            (("fused_ms",) if fused else ()) + ("entry_ms", "wide_ms",
+                                                "pipeline_ms"))}
+        b = fk.fact_bound(n, d, k, m, t)
+        rec = {**pair, "entry_launches": launches,
+               "entry_rel_to_pipeline": float(
+                   (got.reshape(want.shape) - want).abs().max()
+                   / want.abs().max()),
+               "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+        out[name] = rec
+        print(f"  {name}: " + ("fused {:.3f} / {:.3f} ms, ".format(
+            *pair["fused_ms"]) if fused else "") +
+            f"entry {pair['entry_ms'][0]:.3f} / {pair['entry_ms'][1]:.3f} "
+            f"ms {launches}, wide form {pair['wide_ms'][0]:.3f} / "
+            f"{pair['wide_ms'][1]:.3f} ms, one-chunk pipeline "
+            f"{pair['pipeline_ms'][0]:.3f} / {pair['pipeline_ms'][1]:.3f} "
+            f"ms, bound {b['bound_ms']:.3f} ms, entry vs pipeline "
+            f"{rec['entry_rel_to_pipeline']:.2e}", flush=True)
+    return out
+
+
+def fused_reach_leg(pk, dev) -> dict:
+    """Leg `fused_reach` (see the module docstring): {label: the fused and
+    wide times in turns, the speed-up}."""
+    fk, trc = pk["fact_kernels"], pk["tc_repeat_check"]
+    n = FUSED_N
+    print(f"== fused_reach: the fused K11 / K12 against the wide form, {n} "
+          f"rows ==", flush=True)
+    out = {}
+    for d, k, m, t in FUSED_REACH_SHAPES:
+        fkb = trc.random_fact_bank(d, m, k, dev, n_dead=1, t_coh=t)
+        fops, wops = fk.fact_fused_operands(fkb), fk.fact_wide_operands(fkb)
+        x2 = trc.random_rows(n // t * t, 2 * d, dev)
+        if t == 1:
+            runs = (lambda: fk.fact_estimate_fused(x2, fkb, fops),
+                    lambda: fk.fact_estimate_wide(x2, fkb, wops))
+        else:
+            runs = (lambda: fk.fact_estimate_coherent_fused(x2, fkb, t, 1.0,
+                                                            fops),
+                    lambda: fk.fact_estimate_coherent_wide(x2, fkb, t, 1.0,
+                                                           wops))
+        ms = _turns(pk, runs, (0, 1, 1, 0))
+        rec = {"fused_ms": [ms[0], ms[3]], "wide_ms": [ms[1], ms[2]],
+               "speedup": (ms[1] + ms[2]) / (ms[0] + ms[3])}
+        label = f"D={d} K={k} M={m} T={t}"
+        out[label] = rec
+        print(f"  {label:24s} fused {ms[0]:.3f} / "
+              f"{ms[3]:.3f} ms, wide {ms[1]:.3f} / {ms[2]:.3f} ms, "
+              f"{rec['speedup']:.2f}x", flush=True)
+        del fkb, fops, wops, x2
+    return out
+
+
 def main(argv=None, device=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("legs", nargs="*", help="d64, d512, d2048 and / or d4096 "
-                   "(default: d64 d512)")
+    p.add_argument("legs", nargs="*", help="d64, d512, d2048, d4096, fused "
+                   "and / or fused_reach (default: d64 d512)")
     p.add_argument("--d", type=int, help="dims of every chosen leg")
     p.add_argument("--k", type=int, help="components of every chosen leg")
     p.add_argument("--m", type=int, help="latent rank of every chosen leg")
@@ -210,14 +391,25 @@ def main(argv=None, device=None) -> dict:
     p.add_argument("--batch", type=int)
     p.add_argument("--max-iter", type=int)
     p.add_argument("--device", default=None)
+    p.add_argument("--root", default=None, help="the kernel legs: import "
+                   "the package from this checkout")
     args = p.parse_args(argv)
     legs = args.legs or DEFAULT_LEGS
-    if set(legs) - set(LEGS):
-        p.error(f"legs are {', '.join(LEGS)}; got {args.legs}")
+    if set(legs) - set(LEGS) - set(KERNEL_LEGS):
+        p.error(f"legs are {', '.join((*LEGS, *KERNEL_LEGS))}; got "
+                f"{args.legs}")
     dev = common.device(args.device if device is None else device)
     rec = {"device": common.device_label(dev), "snr": SNR, "n_bits": N_BITS,
-           "legs": {}}
+           "root": args.root or ".", "legs": {}}
+    if set(legs) & set(KERNEL_LEGS):
+        if dev.type != "cuda":
+            p.error("the fused and fused_reach legs time kernels: a card")
+        pk = _package(args.root)
     for label in legs:
+        if label in KERNEL_LEGS:
+            rec["legs"][label] = (fused_leg if label == "fused"
+                                  else fused_reach_leg)(pk, dev)
+            continue
         (d, k, m, n_train, n_val, batch, max_iter, dense_kernel,
          frontier) = LEGS[label]
         rec["legs"][label] = run_leg(

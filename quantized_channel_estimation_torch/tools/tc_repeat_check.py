@@ -106,6 +106,12 @@ last one's outputs, bit for bit the first launch; the first held against
 the wide form's plain version `fact_wide_reference`, or against float64
 under mode 'f32''s rule, for K13 on each of m, den and the accumulator).
 
+Mode 'fused_fact' does the same for the fused K11 / K12
+(`csrc/fact_fused_estimate.cu`, 129 <= D <= 256, M <= 16;
+`FUSED_FACT_SHAPES`: D one past the template's, odd 2D / 2, the served D =
+256, K = 32, M = 16 over two waves of blocks, M = 3 and 8, the pool at T =
+3, 4, 16 and 64), against its plain version `fact_fused_reference`.
+
 `--without-proxy-fence` also builds a copy of K14b without the
 `fence.proxy.async` before each stage's release (in
 csrc/grouped_tc_stream.cuh) and runs it launch for launch beside the
@@ -116,8 +122,8 @@ headline widths (131072 rows, 2M = 2D = 128, K = 64).
     python -m quantized_channel_estimation_torch.tools.tc_repeat_check \
         [--repeats R] \
         [--modes bf16 split2 split3 f32 wide wide_topk karatsuba fact mpcirc
-                 circ wide_circ wide_mpcirc wide_fact fact_circ
-                 fact_mpcirc] \
+                 circ wide_circ wide_mpcirc wide_fact fused_fact
+                 fact_circ fact_mpcirc] \
         [--no-poison] \
         [--without-proxy-fence [--time]]
 
@@ -212,6 +218,16 @@ WIDE_FACT_SHAPES = (
     (144, 16, 8, 3 * 701, 0, 3, 0.5, "K12"),   # T = 3, alpha < 1
     (96, 72, 4, 4 * 1001, 1, 4, 0.25, "K12"),  # M = 72 at T = 4
     (256, 16, 10, 16 * 129, 2, 16, 1.0, "K12"),  # T = 16
+)
+# the fused K11 / K12: (D, M, K, N, dead components, T, alpha, kernel)
+FUSED_FACT_SHAPES = (
+    (129, 4, 8, 1001, 1, 1, 1.0, "K11"),       # one past the template's D
+    (255, 16, 5, 777, 0, 1, 1.0, "K11"),       # 2D = 510: a ragged half
+    (256, 16, 32, 2 * 132 * 64 + 5, 2, 1, 1.0, "K11"),  # two waves
+    (144, 16, 8, 3 * 701, 0, 3, 0.5, "K12"),   # T = 3, alpha < 1
+    (200, 3, 7, 4 * 1001, 1, 4, 0.25, "K12"),  # M = 3, halves of 4 / 3
+    (256, 16, 10, 16 * 129, 2, 16, 1.0, "K12"),  # T = 16
+    (192, 8, 4, 64 * 33, 1, 64, 1.0, "K12"),   # T = 64, M = 8
 )
 # K10: (P, D, K, N, dead components, T, alpha)
 MPCIRC_SHAPES = (
@@ -501,20 +517,31 @@ def random_fact_bank(d, m, k, dev, n_dead=0, t_coh=1, seed=0):
     return fk.FactKernelBank(*(x.to(dev).contiguous() for x in fkb))
 
 
-def _fact_check(dev, shapes, repeats, poison, wide=False) -> dict:
-    """Mode 'fact' (with `wide`: 'wide_fact') of `repeat_check`: {label:
-    {"launches", "failures", "max_err"}} over K11, K12 and K13 at
-    `shapes`; with `wide`, their wide form, each launch after the NaN fill
-    of the last one's outputs, and bit for bit the first launch."""
+def _fact_check(dev, shapes, repeats, poison, wide=False,
+                fused=False) -> dict:
+    """Mode 'fact' (with `wide`: 'wide_fact', with `fused`: 'fused_fact')
+    of `repeat_check`: {label: {"launches", "failures", "max_err"}} over
+    K11, K12 and K13 at `shapes`; with `wide` or `fused`, their wide form or
+    the fused K11 / K12, each launch after the NaN fill of the last one's
+    outputs, and bit for bit the first launch."""
     out = {}
+    bitwise = wide or fused
     for d, m, k, n, n_dead, t, alpha, name in shapes:
         fkb = random_fact_bank(d, m, k, dev, n_dead, t)
         f64 = fk.FactKernelBank(*(x.double() for x in fkb))
-        lay = fk.fact_wide_operands if wide else fk.fact_tc_operands
+        lay = (fk.fact_fused_operands if fused else fk.fact_wide_operands
+               if wide else fk.fact_tc_operands)
         ops = lay(fkb) if dev.type == "cuda" else None
         x2 = random_rows(n, 2 * d, dev)
         stats = name == "K13"
-        if wide:
+        if fused:
+            def run():
+                if name == "K11":
+                    return (fk.fact_estimate_fused(x2, fkb, ops),)
+                return (fk.fact_estimate_coherent_fused(x2, fkb, t, alpha,
+                                                        ops),)
+            want = (fk.fact_fused_reference(x2, fkb, t, alpha),)
+        elif wide:
             def run():
                 if name == "K11":
                     return (fk.fact_estimate_wide(x2, fkb, ops),)
@@ -556,15 +583,15 @@ def _fact_check(dev, shapes, repeats, poison, wide=False) -> dict:
                 ok = ok and (rel <= TOL or rel64 <= 2 * pe + 1e-5)
                 err = max(err, rel if rel == rel else math.inf)
             if first is None:
-                first = tuple(g.clone() for g in got) if wide else got
+                first = tuple(g.clone() for g in got) if bitwise else got
             fails += not ok     # NaN fails both comparisons
             errs.append(err)
-            if wide:            # the next launch's outputs land here
+            if bitwise:         # the next launch's outputs land here
                 for g in got:
                     g.fill_(math.nan)
             del got
         out[f"D={d} M={m} K={k} N={n} dead={n_dead} T={t} a={alpha} "
-            f"{name}" + (" wide" if wide else "")] = {
+            f"{name}" + (" wide" if wide else " fused" if fused else "")] = {
             "launches": repeats, "failures": fails, "max_err": max(errs)}
     return out
 
@@ -963,6 +990,7 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
                  wide_circ_shapes=WIDE_CIRC_SHAPES,
                  wide_mpcirc_shapes=WIDE_MPCIRC_SHAPES,
                  wide_fact_shapes=WIDE_FACT_SHAPES,
+                 fused_fact_shapes=FUSED_FACT_SHAPES,
                  fact_circ_shapes=FACT_CIRC_SHAPES,
                  fact_mpcirc_shapes=FACT_MPCIRC_SHAPES) -> dict:
     """Every (shape, mode): `repeats` launches of K14b (and of the copy
@@ -975,7 +1003,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     `circ_shapes`; mode 'wide_circ': their wide form at
     `wide_circ_shapes`; mode 'wide_mpcirc': K10's wide form at
     `wide_mpcirc_shapes`; mode 'wide_fact': K11-K13's wide form at
-    `wide_fact_shapes`; mode 'fact_circ': the factorised K6-K9 at
+    `wide_fact_shapes`; mode 'fused_fact': the fused K11 / K12 at
+    `fused_fact_shapes`; mode 'fact_circ': the factorised K6-K9 at
     `fact_circ_shapes`; mode 'fact_mpcirc': the factorised K10 at
     `fact_mpcirc_shapes`. Returns
     {"kernel" (and "no fence"): {label: {"launches", "failures",
@@ -1010,6 +1039,9 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     if "wide_fact" in modes:
         result["kernel"].update(_fact_check(dev, wide_fact_shapes, repeats,
                                             poison, wide=True))
+    if "fused_fact" in modes:
+        result["kernel"].update(_fact_check(dev, fused_fact_shapes, repeats,
+                                            poison, fused=True))
     if "fact_circ" in modes:
         result["kernel"].update(_fact_circ_check(dev, fact_circ_shapes,
                                                  repeats, poison))
@@ -1019,7 +1051,8 @@ def repeat_check(dev, shapes=SHAPES, repeats=REPEATS, poison=True,
     modes = [m for m in modes
              if m not in ("f32", "wide", "wide_topk", "karatsuba", "fact",
                           "mpcirc", "circ", "wide_circ", "wide_mpcirc",
-                          "wide_fact", "fact_circ", "fact_mpcirc")]
+                          "wide_fact", "fused_fact", "fact_circ",
+                          "fact_mpcirc")]
     for two_m, two_d, k, n, n_dead in shapes if modes else ():
         kb = random_bank(two_m, two_d, k, dev, n_dead)
         planes = kernels.split_planes(kb.pw)
@@ -1075,11 +1108,11 @@ def main(argv=None) -> dict:
                    default=[*vk.TC_WRAPPERS, "f32", "wide", "wide_topk",
                             "karatsuba", "fact", "mpcirc", "circ",
                             "wide_circ", "wide_mpcirc", "wide_fact",
-                            "fact_circ", "fact_mpcirc"],
+                            "fused_fact", "fact_circ", "fact_mpcirc"],
                    choices=[*vk.TC_WRAPPERS, "f32", "wide", "wide_topk",
                             "karatsuba", "fact", "mpcirc", "circ",
                             "wide_circ", "wide_mpcirc", "wide_fact",
-                            "fact_circ", "fact_mpcirc"])
+                            "fused_fact", "fact_circ", "fact_mpcirc"])
     p.add_argument("--no-poison", action="store_true")
     p.add_argument("--without-proxy-fence", action="store_true")
     p.add_argument("--time", action="store_true")

@@ -3289,6 +3289,172 @@ def test_fact_wide_repeated_launches_match_plain():
     assert not {k: v for k, v in runs.items() if v["failures"]}, runs
 
 
+# the fused K11 / K12: (D, K, M, N, dead components, T, alpha, kernel): one
+# past the template's D, the served D = 256, K = 32, M = 16 (a ragged last
+# tile, T = 4), the JAX rule's K = 39, a ragged half (2D = 510, M = 7), M =
+# 3 over halves of 4 and 3 chunks, the pool at T = 3, 16 and 64, one
+# component
+FACT_FUSED_CASES = [
+    (129, 4, 4, 2049, 1, 1, 1.0, "K11"),
+    (256, 32, 16, 4097, 2, 1, 1.0, "K11"),
+    (256, 32, 16, 4 * 1025, 2, 4, 1.0, "K12"),
+    (256, 39, 16, 2049, 3, 1, 1.0, "K11"),
+    (255, 9, 7, 333, 1, 1, 1.0, "K11"),
+    (200, 7, 3, 3 * 333, 0, 3, 0.5, "K12"),
+    (144, 8, 8, 16 * 65, 1, 16, 0.25, "K12"),
+    (192, 3, 16, 64 * 10, 1, 64, 1.0, "K12"),
+    (256, 1, 16, 2049, 0, 1, 1.0, "K11"),
+    (256, 1, 16, 4 * 513, 0, 4, 1.0, "K12"),
+]
+FACT_FUSED_NAMES = {"K11": "fact_estimate_fused",
+                    "K12": "fact_estimate_coherent_fused"}
+
+
+def _fact_fused_run(tfk, kernel, x2, fkb, t, alpha, ops=None):
+    if kernel == "K11":
+        return tfk.fact_estimate_fused(x2, fkb, ops)
+    return tfk.fact_estimate_coherent_fused(x2, fkb, t, alpha, ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,m,n,n_dead,t,alpha,kernel", FACT_FUSED_CASES)
+def test_fact_fused_matches_plain(d, k, m, n, n_dead, t, alpha, kernel):
+    """The fused K11 or K12 within 1e-4 of the scale of its plain version
+    `fact_fused_reference` (or, where the two part by more, held to the
+    float64 rule, `_held`), one launch counted on its own wrapper and none
+    on another; the stages' 'auto' route keeps the wide form, launches
+    it not at all and agrees with it likewise."""
+    from quantized_channel_estimation_torch.estimators import (
+        fact_kernels as tfk)
+    dev = _card()
+    assert tfk.fact_fused_fits(d, m, t)
+    bank, observe = _fact_bank(d, k, m, dev, n_dead=n_dead)
+    r = observe(n)
+    x2 = tck._x2(r)
+    fkb = tfk.fact_kernel_bank(bank, t, alpha)
+    name = FACT_FUSED_NAMES[kernel]
+    before = tkn.launch_counts()
+    got = _fact_fused_run(tfk, kernel, x2, fkb, t, alpha)
+    torch.cuda.synchronize()
+    after = tkn.launch_counts()
+    assert {w: after[w] - before[w] for w in after
+            if after[w] != before[w]} == {name: 1}
+    want = tfk.fact_fused_reference(x2, fkb, t, alpha)
+    want64 = tfk._fact_reference(x2.double(), _f64(fkb), t, alpha, False,
+                                 8192)
+    _held(got, want, want64, ceiling=1e-4)
+    if t == 1:
+        via = stages.estimate_factored(bank, r)
+    else:
+        via = stages.estimate_factored_coherent(bank, r.reshape(-1, t, d),
+                                                alpha=alpha)
+    assert tkn.launch_counts()[name] == after[name]
+    _held(tck._x2(via.reshape(n, d)), got, want64, ceiling=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K11", "K12"])
+def test_fact_fused_keeps_fp32_accuracy(kernel):
+    """The fused K11 and K12 (T = 4, alpha 1) at D = 256, K = 32, M = 16:
+    the max |error| against the plain version in float64 at most twice the
+    float32 plain version's own, with dead components; the operands laid
+    out once give the same bits as those laid out in the call."""
+    from quantized_channel_estimation_torch.estimators import (
+        fact_kernels as tfk)
+    dev = _card()
+    d, k, m, n = 256, 32, 16, 8192
+    bank, observe = _fact_bank(d, k, m, dev, n_dead=2)
+    x2 = tck._x2(observe(n))
+    t = 4 if kernel == "K12" else 1
+    fkb = tfk.fact_kernel_bank(bank, t, 1.0)
+    got = _fact_fused_run(tfk, kernel, x2, fkb, t, 1.0)
+    plain = tfk._fact_reference(x2, fkb, t, 1.0, False, 8192)
+    exact = tfk._fact_reference(x2.double(), _f64(fkb), t, 1.0, False, 8192)
+    scale = float(exact.abs().max())
+    err_k = float((got.double() - exact).abs().max()) / scale
+    err_p = float((plain.double() - exact).abs().max()) / scale
+    assert err_k <= 2 * err_p, (err_k, err_p)
+    ops = tfk.fact_fused_operands(fkb)
+    assert torch.equal(_fact_fused_run(tfk, kernel, x2, fkb, t, 1.0, ops),
+                       got)
+
+
+@pytest.mark.cuda
+def test_fact_fused_refuses_past_its_edges():
+    """The fused wrappers refuse one past their tile's edges (D = 257, D =
+    128, M = 17, T = 65), whole-block violations and another bank's
+    operands; N = 0 launches nothing; the entries launch them not at
+    all."""
+    from quantized_channel_estimation_torch.estimators import (
+        fact_kernels as tfk)
+    dev = _card()
+    for d, m in ((257, 16), (128, 8), (200, 17)):
+        bank, observe = _fact_bank(d, 4, m, dev)
+        with pytest.raises(ValueError, match="D <= 256"):
+            tfk.fact_estimate_fused(tck._x2(observe(64)),
+                                    tfk.fact_kernel_bank(bank))
+        before = tkn.launch_counts()
+        tfk.estimate_fused_factored(bank, observe(64))
+        after = tkn.launch_counts()
+        assert after["fact_estimate_fused"] == before["fact_estimate_fused"]
+    bank, observe = _fact_bank(144, 4, 4, dev)
+    fkb = tfk.fact_kernel_bank(bank)
+    x2 = tck._x2(observe(130))
+    with pytest.raises(ValueError, match="T <= 64"):
+        tfk.fact_estimate_coherent_fused(x2, fkb, 65)
+    with pytest.raises(ValueError, match="whole"):
+        tfk.fact_estimate_coherent_fused(x2, fkb, 4)
+    with pytest.raises(ValueError, match="fact_fused_operands"):
+        tfk.fact_estimate_fused(x2, fkb, tfk.fact_fused_operands(
+            tfk.fact_kernel_bank(_fact_bank(144, 5, 4, dev)[0])))
+    before = tkn.launch_counts()
+    assert tfk.fact_estimate_fused(x2[:0], fkb).shape == (0, 288)
+    assert tkn.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_fact_fused_merges_with_wide_k13_shards():
+    """At D = 256, K = 32, M = 16: two component shards through the wide
+    K13 (K13 has no fused form), merged, within 1e-4 of the scale of the
+    fused K11 over the whole bank."""
+    from quantized_channel_estimation_torch.estimators import (
+        fact_kernels as tfk)
+    dev = _card()
+    d, k, m = 256, 32, 16
+    bank, observe = _fact_bank(d, k, m, dev, n_dead=2)
+    x2 = tck._x2(observe(2048))
+    flat = tfk.fact_kernel_bank(bank)
+    states = [tfk.fact_estimate_stats_wide(x2, tfk.FactKernelBank(
+        *(x[j * k // 2:(j + 1) * k // 2] for x in flat))) for j in range(2)]
+    _, den, acc = tck.merge_stats(*zip(*states))
+    whole = tfk.fact_estimate_fused(x2, flat)
+    assert float((acc / den[:, None] - whole).abs().max()
+                 / whole.abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_fact_fused_repeated_launches_match_plain():
+    """The fused K11 / K12 launched 20 times at each shape of
+    `tools.tc_repeat_check.FUSED_FACT_SHAPES`, each launch after a NaN fill
+    of every SM's shared memory and on the memory of the last launch's
+    outputs filled with NaN, each bit for bit the first launch, which is
+    held against the plain version."""
+    from quantized_channel_estimation_torch.estimators import (
+        fact_kernels as tfk)
+    dev = _card()
+    shapes = tc_repeat_check.FUSED_FACT_SHAPES
+    names = {key: getattr(tfk, name) for key, name in
+             FACT_FUSED_NAMES.items()}
+    before = {key: fn.launches for key, fn in names.items()}
+    runs = tc_repeat_check.repeat_check(dev, repeats=20,
+                                        modes=("fused_fact",))["kernel"]
+    for key, fn in names.items():
+        assert fn.launches == before[key] + 20 * sum(
+            1 for s in shapes if s[-1] == key)
+    assert len(runs) == len(shapes)
+    assert not {k: v for k, v in runs.items() if v["failures"]}, runs
+
+
 @pytest.mark.cuda
 def test_factored_service_on_card_matches_pipeline():
     """`from_mfa` on the card: flat requests through K11 and T = 4 blocks
